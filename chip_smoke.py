@@ -1,0 +1,641 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/H100 port (``django_assistant_bot_tpu_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, ``nvcc`` and the repository checkout around this file;
+without a card, or run from a directory that holds only this script, it
+exits non-zero before printing any result.  Phases, in order (any failure
+exits non-zero):
+
+1. environment (torch / CUDA versions, ``nvidia-smi`` name and power limit)
+   and the kernel build from ``django_assistant_bot_tpu_torch/csrc``;
+2. every kernel against its plain PyTorch twin on the card, at the main
+   path's shapes, with the stated tolerance, plus its time, its bound, the
+   plain twin's time and, where one PyTorch call computes the same
+   function, that call's time (a yardstick only; the port never calls it);
+3. a small f32 model on the card (kernels) against the same model on the
+   CPU (plain twins): prefill and decode logits, and greedy token ids;
+4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
+   weights drawn on the card, a ``GenerationEngine`` registered in a
+   ``ModelRegistry`` behind ``create_app`` on a localhost port, and
+   concurrent greedy ``/dialog/`` requests (two through the 512 prefill
+   bucket, one through chunked prefill); launch counts are zeroed just
+   before the requests and read just after, and both kernels must have run;
+5. one ``/dialog/`` request through ``cli serve --tiny --device cuda``;
+6. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
+   line, and the final ``{"ok": true, ...}`` line.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import re
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+PKG = "django_assistant_bot_tpu_torch"
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
+# HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+# bf16 outputs against the f32 plain twin, per element:
+#   |out - ref| <= BF16_REL * |ref| + BF16_ABS
+# rounding an f32 result to bf16 moves it by at most half a spacing, 2^-8 of
+# its magnitude; BF16_ABS covers the f32 summation order.  f32 outputs are
+# held to F32_TOL absolute (summation order only).
+BF16_REL = 2.0 ** -8
+BF16_ABS = 1e-4
+F32_TOL = 1e-4
+
+
+def compare(out, ref) -> tuple:
+    """(max abs error, max relative error, worst error over its bound) of
+    ``out`` against the f32 ``ref``; the check passes iff the last is <= 1."""
+    import torch
+
+    diff = (out.float() - ref).abs()
+    if out.dtype == torch.bfloat16:
+        bound = BF16_REL * ref.abs() + BF16_ABS
+    else:
+        bound = torch.full_like(ref, F32_TOL)
+    rel = (diff / ref.abs().clamp_min(BF16_ABS)).max().item()
+    return diff.max().item(), rel, (diff / bound).max().item()
+
+
+def tol_text(dtype) -> str:
+    import torch
+
+    if dtype == torch.bfloat16:
+        return f"bound 2^-8*|ref| + {BF16_ABS:.0e}"
+    return f"bound {F32_TOL:.0e}"
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call over ``iters`` calls, CUDA events, after a
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# --------------------------------------------------------------------- phase 1
+def env_and_build():
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
+    log(f"card: {gpu_line()}  ({torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()})")
+    secs = kernels.build()
+    log(f"kernel build: {secs:.1f} s")
+    for name, text in kernels.BUILD_LOG.items():
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
+            f"and {max(spills, default=0)} bytes of spill stores")
+    # the f32 references below are true f32 products, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# --------------------------------------------------------------------- phase 2
+def _flash_case(B, H, KH, S, D, dtype, causal, window, gen):
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    def mk(heads):
+        return torch.randn((B, heads, S, D), generator=gen, device="cuda", dtype=dtype)
+
+    q, k, v = mk(H), mk(KH), mk(KH)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal, window=window)
+    torch.cuda.synchronize()
+    return q, k, v, compare(out, ref)
+
+
+def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
+    """Least time for the same work: operations on the pairs this input
+    needs (causal / window band) at the bf16 tensor-core peak, against the
+    bytes of q, k, v read once and o written once at the HBM rate."""
+    pairs = 0
+    for qpos in range(S):
+        lo = 0 if window is None else max(0, qpos - window + 1)
+        hi = qpos + 1 if causal else S
+        pairs += hi - lo
+    flops = 4.0 * B * H * D * pairs
+    nbytes = itemsize * (2 * B * H * S * D + 2 * B * KH * S * D)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_flash(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from django_assistant_bot_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    cases = [  # (B, H, KH, S, D, dtype, causal, window)
+        (1, 32, 8, 256, 128, torch.bfloat16, True, None),
+        (4, 32, 8, 256, 128, torch.bfloat16, True, None),
+        (1, 32, 8, 512, 128, torch.bfloat16, True, None),
+        (4, 32, 8, 512, 128, torch.bfloat16, True, None),
+        (1, 32, 8, 2048, 128, torch.bfloat16, True, None),
+        (4, 32, 8, 2048, 128, torch.bfloat16, True, None),
+        (2, 32, 8, 512, 128, torch.bfloat16, True, 100),
+        (2, 32, 8, 512, 64, torch.bfloat16, True, None),
+        (1, 8, 4, 512, 256, torch.bfloat16, True, None),  # Gemma's head_dim
+        (2, 8, 2, 256, 128, torch.float32, True, None),
+        (1, 8, 4, 256, 256, torch.float32, True, 100),
+        (2, 8, 2, 256, 64, torch.float32, False, None),
+        (2, 8, 2, 512, 128, torch.float32, True, 200),
+    ]
+    worst = 0.0
+    for B, H, KH, S, D, dtype, causal, window in cases:
+        _, _, _, (err, rel, ratio) = _flash_case(B, H, KH, S, D, dtype, causal, window, gen)
+        log(f"  flash B={B} H={H} KH={KH} S={S} D={D} {str(dtype)[6:]} causal={causal} "
+            f"window={window}: max_abs_err {err:.3e}, max_rel_err {rel:.3e}, "
+            f"worst err/bound {ratio:.3f} ({tol_text(dtype)})")
+        if not ratio <= 1.0:
+            fail(f"flash_prefill disagrees with its plain twin: err/bound {ratio} > 1")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+
+    # timings at the main path's shape: the 512 bucket, a batch bucket of 4
+    B, H, KH, S, D = 4, 32, 8, 512, 128
+    q, k, v, _ = _flash_case(B, H, KH, S, D, torch.bfloat16, True, None, gen)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 50)
+    plain_ms = time_ms(lambda: flash_attention_plain(q.float(), k.float(), v.float(), causal=True), 10)
+    kr = k.repeat_interleave(H // KH, dim=1)
+    vr = v.repeat_interleave(H // KH, dim=1)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
+    bound_ms, bound_by = _flash_bound_ms(B, H, KH, S, D, True, None, 2)
+    log(f"  flash timing B={B} H={H} KH={KH} S={S} D={D} bf16 causal: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    for S2 in (2048,):
+        q2, k2, v2, _ = _flash_case(B, H, KH, S2, D, torch.bfloat16, True, None, gen)
+        ms2 = time_ms(lambda: flash_attention(q2, k2, v2, causal=True), 10)
+        b2, _ = _flash_bound_ms(B, H, KH, S2, D, True, None, 2)
+        log(f"  flash timing B={B} S={S2} bf16 causal: kernel {ms2:.4f} ms, bound {b2:.4f} ms")
+    return {
+        "name": "flash_prefill",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/flash_prefill.cu",
+        "replaces": "django_assistant_bot_tpu/ops/attention.py:535",
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def _paged_case(B, H, KH, D, page, NB, dtype, positions, inactive, window, gen):
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_gqa_decode_attention,
+        paged_gqa_decode_attention_plain,
+    )
+
+    P = B * NB
+    k_pool = torch.randn((P, KH, page, D), generator=gen, device="cuda", dtype=dtype)
+    v_pool = torch.randn((P, KH, page, D), generator=gen, device="cuda", dtype=dtype)
+    q = torch.randn((B, H, 1, D), generator=gen, device="cuda", dtype=dtype)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(1)).reshape(B, NB)
+    bt = perm.to(torch.int32).clone()
+    for b, pos in enumerate(positions):
+        bt[b, pos // page + 1:] = P  # sentinel past each row's allocation
+    bt = bt.cuda()
+    pos_t = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    active = torch.ones(B, dtype=torch.bool)
+    for b in inactive:
+        active[b] = False
+    active = active.cuda()
+    args = (q, k_pool, v_pool, bt, pos_t)
+    out = paged_gqa_decode_attention(*args, active=active, window=window)
+    ref = paged_gqa_decode_attention_plain(
+        q.float(), k_pool.float(), v_pool.float(), bt, pos_t, active=active, window=window
+    )
+    torch.cuda.synchronize()
+    return args, active, compare(out, ref)
+
+
+def check_paged(gen, page: int) -> dict:
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_gqa_decode_attention,
+        paged_gqa_decode_attention_plain,
+    )
+
+    B, H, KH, D, NB = 8, 32, 8, 128, 8
+    # ragged rows over several pages; row 6 inactive (inside the active range)
+    positions = [5, page - 1, page, 2 * page + 17, 3 * page + 300, NB * page - 1, 1500, 700]
+    inactive = [6]
+    cases = [
+        (torch.bfloat16, None),
+        (torch.bfloat16, 1000),
+        (torch.float32, None),
+        (torch.float32, 700),
+    ]
+    worst = 0.0
+    for dtype, window in cases:
+        _, _, (err, rel, ratio) = _paged_case(
+            B, H, KH, D, page, NB, dtype, positions, inactive, window, gen
+        )
+        log(f"  paged B={B} H={H} KH={KH} D={D} page={page} {str(dtype)[6:]} window={window}: "
+            f"max_abs_err {err:.3e}, max_rel_err {rel:.3e}, worst err/bound {ratio:.3f} "
+            f"({tol_text(dtype)})")
+        if not ratio <= 1.0:
+            fail(f"paged_decode disagrees with its plain twin: err/bound {ratio} > 1")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+    # small head dims (the tiny model's D=16) and Gemma's 256, at G = 2
+    for D2 in (16, 32, 64, 256):
+        _, _, (err, rel, ratio) = _paged_case(
+            4, 4, 2, D2, 64, 4, torch.float32, [3, 70, 200, 255], [], None, gen
+        )
+        log(f"  paged D={D2} f32: max_abs_err {err:.3e} ({tol_text(torch.float32)})")
+        if not ratio <= 1.0:
+            fail(f"paged_decode D={D2} disagrees with its plain twin: {err}")
+
+    args, active, _ = _paged_case(B, H, KH, D, page, NB, torch.bfloat16, positions, inactive, None, gen)
+    ms = time_ms(lambda: paged_gqa_decode_attention(*args, active=active), 200)
+    q, kp, vp, bt, pos_t = args
+    fargs = (q.float(), kp.float(), vp.float(), bt, pos_t)
+    plain_ms = time_ms(lambda: paged_gqa_decode_attention_plain(*fargs, active=active), 10)
+    # bytes this input needs: each row's live keys, K and V, read once; q and
+    # out; the block tables and positions
+    live = sum(p + 1 for p in positions)
+    nbytes = live * KH * D * 2 * 2 + 2 * B * H * D * 2 + B * NB * 4 + B * 4
+    flops = 4.0 * live * H * D
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"  paged timing B={B} H={H} KH={KH} D={D} page={page} bf16: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {
+        "name": "paged_decode",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/paged_decode.cu",
+        "replaces": "django_assistant_bot_tpu/ops/attention.py:228",
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+# --------------------------------------------------------------------- phase 3
+def small_reference():
+    """A small f32 model (head_dim 64, so both kernels run) on the card
+    against the same model on the CPU, where the plain twins run."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+    cfg = DecoderConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+        num_heads=4, num_kv_heads=2, max_seq_len=1024, rope_theta=10_000.0,
+        dtype=torch.float32,
+    )
+    params_cpu = llama.init(cfg, torch.Generator().manual_seed(3), "cpu")
+    params_gpu = {
+        k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict) else v.cuda())
+        for k, v in params_cpu.items()
+    }
+    ids = torch.randint(1, 255, (2, 512), generator=torch.Generator().manual_seed(4), dtype=torch.int32)
+    lengths = torch.tensor([512, 300], dtype=torch.int32)
+    lc, kc, _ = llama.prefill(params_cpu, cfg, ids, lengths)
+    lg, kg, _ = llama.prefill(params_gpu, cfg, ids.cuda(), lengths.cuda())
+    err = (lg.cpu() - lc).abs().max().item()
+    log(f"  small model prefill (flash kernel vs plain): logits max_abs_err {err:.3e}")
+    if not (torch.isfinite(lg).all() and lg.shape == (2, cfg.vocab_size) and err <= 1e-3):
+        fail(f"small-model prefill on the card disagrees with the CPU: {err}")
+
+    prompts = [torch.randint(1, 255, (n,), generator=torch.Generator().manual_seed(n)).tolist()
+               for n in (40, 300, 450, 700)]
+
+    def run(device, params):
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device,
+                               max_slots=4, max_seq_len=1024, chunk_size=512)
+        eng.start()
+        try:
+            futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+            return [f.result(timeout=600).token_ids for f in futs]
+        finally:
+            eng.stop()
+
+    ids_gpu = run("cuda", params_gpu)
+    ids_cpu = run("cpu", params_cpu)
+    log(f"  small model engine greedy ids, card vs CPU: {'identical' if ids_gpu == ids_cpu else 'DIFFER'}")
+    if ids_gpu != ids_cpu:
+        fail(f"greedy ids differ: card {ids_gpu} vs CPU {ids_cpu}")
+
+
+# --------------------------------------------------------------------- phase 4
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _chat(n_chars: int, seed: int) -> list:
+    import random
+
+    rnd = random.Random(seed)
+    words = ["context", "deploy", "scaling", "answer", "question", "document", "summary", "the"]
+    text = ""
+    while len(text) < n_chars:
+        text += rnd.choice(words) + " "
+    return [{"role": "user", "content": text[:n_chars]}]
+
+
+def main_path(card: str) -> dict:
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = DecoderConfig.llama3_8b()  # all 32 layers, full width, bf16
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tok = ByteTokenizer()
+    engine = GenerationEngine(cfg, params, tok, device="cuda", max_slots=8, max_seq_len=4096)
+    torch.cuda.synchronize()
+    resident_gib = torch.cuda.memory_allocated() / 2**30  # weights + page pool
+    n_params = sum(w.numel() for w in params["layers"].values()) + params["tok_embed"].numel() \
+        + params["lm_head"].numel() + params["final_norm"].numel()
+    log(f"  Llama-3-8B geometry, {cfg.num_layers} layers, {n_params / 1e9:.2f} B params bf16, "
+        f"KV pool {engine._kv_pool.n_pages} pages of {engine.kv_page_size}: built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    registry = ModelRegistry()
+    name = "llama3-8b-random"
+    registry.load(ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096), engine=engine)
+    app = create_app(registry)
+    port = _free_port()
+    # prompt sizes in tokens: 2 in the 512 bucket (flash kernel), 1 past
+    # chunk_size (chunked prefill), 1 short (plain attention, 128 bucket)
+    sizes = {"a": 340, "b": 470, "c": 900, "d": 90}
+    overhead = len(tok.encode_chat(_chat(0, 0)))
+    messages = {k: _chat(n - overhead, i) for i, (k, n) in enumerate(sizes.items())}
+
+    async def post(session, msgs):
+        t = time.perf_counter()
+        async with session.post(
+            f"http://127.0.0.1:{port}/dialog/",
+            json={"model": name, "messages": msgs, "max_tokens": 32, "temperature": 0.0},
+        ) as resp:
+            body = await resp.json()
+            return resp.status, body, time.perf_counter() - t
+
+    async def drive():
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", port)
+        await site.start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                # warm-up: first CUDA/cuBLAS use, outside the counted run
+                st, body, _ = await post(session, _chat(300, 99))
+                if st != 200:
+                    fail(f"warm-up /dialog/ returned {st}: {body}")
+                torch.cuda.synchronize()
+                kernels.reset_counts()
+                t = time.perf_counter()
+                results = await asyncio.gather(*(post(session, m) for m in messages.values()))
+                wall = time.perf_counter() - t
+                counts = kernels.launch_counts()
+                return results, wall, counts
+        finally:
+            await runner.cleanup()  # stops the registry's engines
+
+    results, wall, counts = asyncio.run(drive())
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    total_completion = 0
+    ttfts, decode_rates = [], []
+    for (key, msgs), (status, body, secs) in zip(messages.items(), results):
+        if status != 200:
+            fail(f"/dialog/ ({key}) returned {status}: {body}")
+        r = body.get("response", {})
+        if set(r) < {"result", "usage", "length_limited"} or "request_id" not in body:
+            fail(f"/dialog/ ({key}) wire fields missing: {body}")
+        u = r["usage"]
+        want_prompt = len(tok.encode_chat(msgs))
+        if not (u["prompt_tokens"] == want_prompt and 1 <= u["completion_tokens"] <= 32
+                and u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
+                and isinstance(r["result"], str)):
+            fail(f"/dialog/ ({key}) usage wrong (prompt should be {want_prompt}): {u}")
+        total_completion += u["completion_tokens"]
+        ttfts.append(u["ttft_s"])
+        if u["completion_tokens"] > 1 and u["latency_s"] > u["ttft_s"]:
+            decode_rates.append((u["completion_tokens"] - 1) / (u["latency_s"] - u["ttft_s"]))
+        log(f"  /dialog/ {key}: prompt {u['prompt_tokens']} tok, completion "
+            f"{u['completion_tokens']} tok, ttft {u['ttft_s']:.4f} s, latency {u['latency_s']:.4f} s, "
+            f"length_limited {r['length_limited']}")
+    log(f"  main path on {card}: {len(results)} concurrent requests in {wall:.3f} s; "
+        f"TTFT mean {sum(ttfts) / len(ttfts):.4f} s max {max(ttfts):.4f} s; "
+        f"decode {sum(decode_rates) / max(1, len(decode_rates)):.2f} tok/s per request, "
+        f"{total_completion / wall:.2f} completion tok/s overall; peak memory {peak_gib:.2f} GiB "
+        f"({resident_gib:.2f} GiB resident weights and page pool, "
+        f"{peak_gib - resident_gib:.2f} GiB above it at the peak)")
+    log(f"  launches during the run: {counts}")
+    for k, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the main path")
+    decode_breakdown(cfg, params)
+    del params, engine, registry
+    torch.cuda.empty_cache()
+    return counts
+
+
+def decode_breakdown(cfg, params) -> None:
+    """Where a full-width decode step's time goes: 8 slots at ragged
+    positions in a fresh pool; the host's enqueue time, the synchronised
+    step time, and the device's kernel time per step from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from django_assistant_bot_tpu_torch.models import llama
+
+    B, page, NB = 8, 512, 8
+    cache = llama.init_paged_cache(cfg, B, B * NB, page, device="cuda")
+    start = torch.tensor([5, 511, 512, 1041, 1836, 3000, 1500, 700], dtype=torch.int32, device="cuda")
+    bt = torch.arange(B * NB, dtype=torch.int32, device="cuda").reshape(B, NB)
+    tokens = torch.zeros(B, dtype=torch.int32, device="cuda")
+
+    def step():
+        cache.lengths = start.clone()
+        llama.decode_step_paged(params, cfg, tokens, cache, bt)
+
+    with torch.no_grad():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        n = 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        enqueue_ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    kernels_by_name = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_by_name.append((dev_us / n / 1e3, e.count // n, e.key))
+    busy_ms = sum(ms for ms, _, _ in kernels_by_name)
+    log(f"  decode step, 8 slots, full width: {wall_ms:.3f} ms synchronised, host enqueue "
+        f"{enqueue_ms:.3f} ms, device kernel time {busy_ms:.3f} ms "
+        f"({'not measured: profiler saw no device time' if busy_ms == 0 else f'idle share {1 - busy_ms / wall_ms:.3f}'})")
+    for ms, calls, name in sorted(kernels_by_name, reverse=True)[:6]:
+        log(f"    {ms:.4f} ms/step in {calls} launches/step: {name[:90]}")
+
+
+# --------------------------------------------------------------------- phase 5
+def serve_tiny_subprocess():
+    import urllib.request
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", f"{PKG}.cli", "serve", "--tiny", "--device", "cuda",
+           "--host", "127.0.0.1", "--port", str(port)]
+    errlog = tempfile.TemporaryFile(mode="w+")  # a file, not a pipe: the server's log never blocks it
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.DEVNULL, stderr=errlog, text=True)
+    try:
+        deadline = time.time() + 180
+        while True:
+            if proc.poll() is not None:
+                errlog.seek(0)
+                fail(f"serve --tiny exited {proc.returncode}: {errlog.read()[-2000:]}")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            if time.time() > deadline:
+                fail("serve --tiny did not come up within 180 s")
+            time.sleep(0.5)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/dialog/",
+            data=json.dumps({"model": "tiny-chat", "messages": [{"role": "user", "content": "hi"}],
+                             "max_tokens": 8}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+            if r.status != 200 or "result" not in body.get("response", {}):
+                fail(f"serve --tiny /dialog/ returned {r.status}: {body}")
+        log(f"  serve --tiny --device cuda: /dialog/ 200, usage {body['response']['usage']}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        errlog.close()
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs only on the card", file=sys.stderr)
+        return 2
+    if not (REPO / PKG / "csrc").is_dir():
+        print(f"{PKG}/ not found beside chip_smoke.py: run it from the repository checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    t_start = time.perf_counter()
+
+    log("== phase 1: environment and build")
+    env_and_build()
+    card = gpu_line()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    log("== phase 2: kernels vs plain twins")
+    entries = [check_flash(gen), check_paged(gen, page=512)]  # the engine's page at 4096
+
+    log("== phase 3: small f32 model, card vs CPU")
+    small_reference()
+
+    log("== phase 4: main path, full-width Llama-3-8B over /dialog/")
+    counts = main_path(card)
+
+    log("== phase 5: cli serve --tiny --device cuda")
+    serve_tiny_subprocess()
+
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+    log(f"kernels: {json.dumps(counts)}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": entries}))
+    log(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                   "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,434 @@
+"""Llama-3-family decoder (port of ``models/llama.py``, the serving path).
+
+Params are a dict shaped like the JAX package's pytree: ``tok_embed``
+``[V, E]``, ``lm_head`` ``[E, V]`` (untied), ``final_norm`` ``[E]`` and a
+``layers`` dict of tensors stacked on a leading layer axis (``wq`` ``[L, E,
+H*D]``, ..., weights ``[in, out]``).  The JAX package's ``lax.scan`` over that
+axis becomes a Python loop over layers (:func:`_layer_windows` keeps the
+full/sliding-window split of ``_scan_window_split``).
+
+Paged KV: :class:`PagedKVCache` holds ``[L, P + 1, KH, page, D]`` pools.
+Pages ``0..P-1`` are the JAX package's pool; page ``P`` is a dump page that is
+written and never read.  The JAX code drops out-of-range scatter rows
+(``mode="drop"``, index ``P``); PyTorch has no such mode and an index of P
+would fault, so writes aimed at P land in the dump page instead — no host
+round trip per layer — and every read clamps block-table entries to the
+logical ``P - 1`` as the JAX code does.  The functions that write the pools
+update them in place and return the cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..ops.attention import (
+    dot_product_attention,
+    flash_attention,
+    flash_eligible,
+    gqa_dot_product_attention,
+    paged_gqa_decode_attention,
+)
+from ..ops.norms import rms_norm
+from ..ops.quant import qeinsum
+from ..ops.rope import apply_rope, rope_frequencies
+from .config import DecoderConfig
+
+Params = Dict[str, Any]
+
+
+def init(cfg: DecoderConfig, generator: torch.Generator, device: DeviceLike = "cuda") -> Params:
+    """Random params like the JAX ``init``: normal(0, E^-0.5) projections,
+    normal(0, F^-0.5) down projection, unit-scale embeddings, unit norms.
+    Drawn by ``generator`` (which must live on ``device``) directly in
+    ``cfg.dtype``, so full-width weights are made on the card without a
+    host copy."""
+    device = resolve_device(device)
+    E, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = E ** -0.5
+
+    def dense(shape, scale=s):
+        w = torch.randn(shape, generator=generator, device=device, dtype=cfg.dtype)
+        return w.mul_(scale)
+
+    def ones(shape):
+        return torch.ones(shape, device=device, dtype=cfg.dtype)
+
+    if cfg.is_moe:
+        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
+    layers = {
+        "attn_norm": ones((L, E)),
+        "wq": dense((L, E, H * D)),
+        "wk": dense((L, E, KH * D)),
+        "wv": dense((L, E, KH * D)),
+        "wo": dense((L, H * D, E)),
+        "mlp_norm": ones((L, E)),
+        "w_gate": dense((L, E, F)),
+        "w_up": dense((L, E, F)),
+        "w_down": dense((L, F, E), scale=F ** -0.5),
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", H * D), ("bk", KH * D), ("bv", KH * D)):
+            layers[name] = torch.zeros((L, width), device=device, dtype=cfg.dtype)
+    params: Params = {
+        "tok_embed": dense((cfg.vocab_size, E), scale=1.0),
+        "final_norm": ones((E,)),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((E, cfg.vocab_size))
+    return params
+
+
+def _layer(params: Params, l: int) -> Params:
+    """Layer ``l``'s slice of the stacked ``layers`` dict (views)."""
+    return {name: w[l] for name, w in params["layers"].items()}
+
+
+def _embed(params: Params, cfg: DecoderConfig, ids: torch.Tensor) -> torch.Tensor:
+    """Token embedding lookup; Gemma scales by sqrt(E) in model dtype."""
+    x = params["tok_embed"][ids.long()].to(cfg.dtype)
+    if cfg.embed_multiplier != 1.0:
+        x = x * torch.tensor(cfg.embed_multiplier, dtype=cfg.dtype)
+    return x
+
+
+def _head_logits(params: Params, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits projection ``[..., E] -> [..., V]`` in model dtype."""
+    if cfg.tie_embeddings:
+        return torch.einsum("...e,ve->...v", x, params["tok_embed"].to(cfg.dtype))
+    return qeinsum("...e,ev->...v", x, params["lm_head"], cfg.dtype)
+
+
+def _mlp(cfg: DecoderConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.is_moe:
+        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
+    if cfg.hidden_act == "gelu_tanh":
+        act = functools.partial(torch.nn.functional.gelu, approximate="tanh")
+    else:
+        act = torch.nn.functional.silu
+    h = act(qeinsum("bse,ef->bsf", x, p["w_gate"], cfg.dtype)) * qeinsum(
+        "bse,ef->bsf", x, p["w_up"], cfg.dtype
+    )
+    return qeinsum("bsf,fe->bse", h, p["w_down"], cfg.dtype)
+
+
+def _qkv(cfg: DecoderConfig, p: Params, x: torch.Tensor):
+    """Q/K/V projections (+ Qwen2 biases): [B, S, H*D], [B, S, KH*D] x2."""
+    q = qeinsum("bse,eo->bso", x, p["wq"], cfg.dtype)
+    k = qeinsum("bse,eo->bso", x, p["wk"], cfg.dtype)
+    v = qeinsum("bse,eo->bso", x, p["wv"], cfg.dtype)
+    if cfg.attn_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def _attn_proj(cfg: DecoderConfig, p: Params, x: torch.Tensor, cos, sin):
+    """QKV projections + RoPE.  Returns q:[B,H,S,D], k/v:[B,KH,S,D]."""
+    B, S, _ = x.shape
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q.reshape(B, S, H, D), cos, sin)
+    k = apply_rope(k.reshape(B, S, KH, D), cos, sin)
+    v = v.reshape(B, S, KH, D)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _repeat_kv(cfg: DecoderConfig, k: torch.Tensor) -> torch.Tensor:
+    """[B,KH,S,D] -> [B,H,S,D] in contiguous blocks of KV heads."""
+    if cfg.q_per_kv == 1:
+        return k
+    return k.repeat_interleave(cfg.q_per_kv, dim=1)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_cached(head_dim, max_len, theta, scaling, deployed_len, device: str):
+    cos, sin = rope_frequencies(
+        head_dim, max_len, theta, scaling=scaling, deployed_len=deployed_len
+    )
+    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+def _rope_tables(cfg: DecoderConfig, max_len: int, device: torch.device):
+    """(cos, sin) [max_len, D/2] f32 on ``device``; ``deployed_len`` pins
+    seq-regime-dependent scalings (longrope) to one factor list across
+    prefill and decode tables, as in the JAX package."""
+    return _rope_cached(
+        cfg.head_dim, max_len, cfg.rope_theta, cfg.rope_scaling, cfg.max_seq_len, str(device)
+    )
+
+
+def _window_split(cfg: DecoderConfig) -> int:
+    """Index of the first sliding-window layer (== num_layers -> none windowed)."""
+    if cfg.sliding_window is None:
+        return cfg.num_layers
+    return min(max(cfg.window_layer_start, 0), cfg.num_layers)
+
+
+def _layer_windows(cfg: DecoderConfig):
+    """Per-layer attention window: layers [0, split) full, [split, L) the
+    sliding window — ``_scan_window_split``'s two scans as one loop."""
+    split = _window_split(cfg)
+    return [None if l < split else cfg.sliding_window for l in range(cfg.num_layers)]
+
+
+def prefill(
+    params: Params,
+    cfg: DecoderConfig,
+    input_ids: torch.Tensor,  # [B, S] right-padded bucket
+    lengths: torch.Tensor,  # [B] true lengths
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run prompts through the model -> (last-token logits [B, V] f32,
+    ks [L, B, KH, S, D], vs).  No pad mask is needed: the input is
+    right-padded, so causal masking already keeps real queries on real keys,
+    and the call stays mask-free so long buckets take the flash kernel."""
+    B, S = input_ids.shape
+    cos, sin = _rope_tables(cfg, S, input_ids.device)
+    x = _embed(params, cfg, input_ids)
+    ks, vs = [], []
+    for l, window in enumerate(_layer_windows(cfg)):
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, p, h, cos, sin)
+        if flash_eligible(q, k):
+            # the kernel maps query heads to KV heads itself
+            o = flash_attention(q, k, v, causal=True, window=window)
+        else:
+            o = dot_product_attention(
+                q, _repeat_kv(cfg, k), _repeat_kv(cfg, v), causal=True, window=window
+            )
+        o = o.transpose(1, 2).reshape(B, S, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last_idx = torch.clamp(lengths.long() - 1, min=0).to(x.device)
+    last = x[torch.arange(B, device=x.device), last_idx]  # [B, E]
+    logits = _head_logits(params, cfg, last)
+    return logits.float(), torch.stack(ks), torch.stack(vs)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Page pools ``k``/``v`` of ``[L, P + 1, KH, page, D]`` (page ``P`` is the
+    write-only dump page, see the module docstring) and ``lengths`` ``[slots]``
+    int32 tokens present per slot."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1] - 1
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+
+def init_paged_cache(
+    cfg: DecoderConfig,
+    batch: int,
+    n_pages: int,
+    page_size: int,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[torch.device] = None,
+) -> PagedKVCache:
+    dtype = dtype or cfg.dtype
+    shape = (cfg.num_layers, n_pages + 1, cfg.num_kv_heads, page_size, cfg.head_dim)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _gather_paged_rows(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """One layer's logical rows from its pages: ``pool`` [P + 1, KH, page, D],
+    ``block_tables`` [B, NB] -> [B, KH, NB * page, D].  Unallocated blocks
+    gather a clamped page (``P - 1``) that the caller masks."""
+    P = pool.shape[0] - 1
+    _, KH, page, D = pool.shape
+    B, NB = block_tables.shape
+    phys = block_tables.long().clamp(0, P - 1).reshape(-1)
+    rows = pool[phys].reshape(B, NB, KH, page, D)
+    return rows.transpose(1, 2).reshape(B, KH, NB * page, D)
+
+
+def _scatter_paged_rows(
+    pool: torch.Tensor,  # [P + 1, KH, page, D] one layer
+    rows: torch.Tensor,  # [B, KH, NB * page, D] updated logical rows
+    block_tables: torch.Tensor,  # [B, NB]
+    blocks: range,  # logical blocks this call wrote (same for every row)
+) -> None:
+    """Write back only ``blocks`` of each row (earlier blocks may be shared
+    prefix pages, which must never be rewritten); sentinel entries land in
+    the dump page."""
+    P = pool.shape[0] - 1
+    page = pool.shape[2]
+    for j in blocks:
+        tgt = block_tables[:, j].long().clamp(max=P)
+        pool[tgt] = rows[:, :, j * page : (j + 1) * page].to(pool.dtype)
+
+
+def _set_lengths(lengths: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``lengths.at[slots].set(values, mode="drop")``: slots >= len(lengths)
+    (the pad-row sentinel) drop, without a host round trip."""
+    n = lengths.shape[0]
+    ext = torch.cat([lengths, lengths.new_zeros(1)])
+    ext[slots.long().clamp(max=n)] = values.to(lengths.dtype)
+    return ext[:n]
+
+
+def insert_sequences_paged(
+    cache: PagedKVCache,
+    ks: torch.Tensor,  # [L, B, KH, Sb, D] from prefill
+    vs: torch.Tensor,
+    lengths: torch.Tensor,  # [B]
+    slots: torch.Tensor,  # [B] target slot (slot-count sentinel = pad row)
+    block_tables: torch.Tensor,  # [B, NB]; pad rows carry the P sentinel
+) -> PagedKVCache:
+    """Write prefilled K/V rows into their slots' pages (positions [0, Sb)).
+    Blocks past a row's allocation and pad rows go to the dump page."""
+    L, P1, KH, page, D = cache.k.shape
+    P = P1 - 1
+    B, Sb = ks.shape[1], ks.shape[3]
+    NB = block_tables.shape[1]
+    nbw = min(NB, -(-Sb // page))
+    pad_s = nbw * page - Sb
+    if pad_s:
+        ks = torch.nn.functional.pad(ks, (0, 0, 0, pad_s))
+        vs = torch.nn.functional.pad(vs, (0, 0, 0, pad_s))
+    for j in range(nbw):
+        tgt = block_tables[:, j].long().clamp(max=P)
+        cache.k[:, tgt] = ks[:, :, :, j * page : (j + 1) * page].to(cache.k.dtype)
+        cache.v[:, tgt] = vs[:, :, :, j * page : (j + 1) * page].to(cache.v.dtype)
+    cache.lengths = _set_lengths(cache.lengths, slots, lengths)
+    return cache
+
+
+def prefill_chunk_paged(
+    params: Params,
+    cfg: DecoderConfig,
+    input_ids: torch.Tensor,  # [1, C] one chunk of one prompt
+    cache: PagedKVCache,
+    block_table: torch.Tensor,  # [NB] the target slot's page chain
+    slot: int,
+    start: int,  # tokens already written for this slot
+    valid: int,  # real (non-pad) tokens in this chunk
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """One chunk of one long prompt extends the slot's page chain: the
+    forward runs over the gathered logical row, and write-back covers only
+    the blocks overlapping ``[start, start + valid)``."""
+    B, C = input_ids.shape
+    L, P1, KH, page, D = cache.k.shape
+    NB = block_table.shape[0]
+    S = NB * page
+    if start + C > S:
+        raise ValueError(f"chunk [{start}, {start + C}) runs past the cache ({S})")
+    dev = input_ids.device
+    pos = start + torch.arange(C, device=dev)
+    cos_t, sin_t = _rope_tables(cfg, S, dev)
+    cos, sin = cos_t[pos], sin_t[pos]
+    x = _embed(params, cfg, input_ids)
+    kpos = torch.arange(S, device=dev)[None, None, None, :]
+    causal_keep = kpos <= pos[None, None, :, None]
+    bt = block_table[None, :]
+    blocks = range(start // page, min(NB, -(-(start + valid) // page)))
+    for l, window in enumerate(_layer_windows(cfg)):
+        attn_mask = causal_keep
+        if window is not None:
+            attn_mask = attn_mask & (kpos > pos[None, None, :, None] - window)
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, p, h, cos, sin)
+        k_row = _gather_paged_rows(cache.k[l], bt)
+        v_row = _gather_paged_rows(cache.v[l], bt)
+        k_row[:, :, start : start + C] = k.to(k_row.dtype)
+        v_row[:, :, start : start + C] = v.to(v_row.dtype)
+        o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
+        o = o.transpose(1, 2).reshape(B, C, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+        _scatter_paged_rows(cache.k[l], k_row, bt, blocks)
+        _scatter_paged_rows(cache.v[l], v_row, bt, blocks)
+    cache.lengths[slot] = start + valid
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = x[0, max(valid - 1, 0)]
+    logits = _head_logits(params, cfg, last)[None]
+    return logits.float(), cache
+
+
+def decode_step_paged(
+    params: Params,
+    cfg: DecoderConfig,
+    tokens: torch.Tensor,  # [B] int — last sampled token per slot
+    cache: PagedKVCache,
+    block_tables: torch.Tensor,  # [B, NB] int32
+    *,
+    active: Optional[torch.Tensor] = None,  # [B] bool; inactive slots are frozen
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """One autoregressive step for every active slot -> (logits [B, V] f32,
+    cache).  The K/V write goes to ``block_table[b, pos // page]`` at offset
+    ``pos % page``; inactive rows and rows past their allocation write the
+    dump page (the JAX code's dropped P-sentinel scatter), so a stale row can
+    never land in a page re-assigned to another request."""
+    B = tokens.shape[0]
+    L, P1, KH, page, D = cache.k.shape
+    P = P1 - 1
+    NB = block_tables.shape[1]
+    S = NB * page
+    H = cfg.num_heads
+    dev = tokens.device
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+    active = active & (cache.lengths < S)
+    positions = torch.clamp(cache.lengths, max=S - 1)
+    cos_t, sin_t = _rope_tables(cfg, S, dev)
+    cos = cos_t[positions.long()][:, None, :]
+    sin = sin_t[positions.long()][:, None, :]
+
+    x = _embed(params, cfg, tokens)[:, None, :]  # [B, 1, E]
+    blk = (positions // page).long()
+    off = (positions % page).long()
+    phys = torch.gather(block_tables.long(), 1, blk[:, None])[:, 0]
+    phys_w = torch.where(active, torch.clamp(phys, max=P), P)
+    bt = block_tables.to(torch.int32)
+
+    for l, window in enumerate(_layer_windows(cfg)):
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, p, h)
+        q = apply_rope(q.reshape(B, 1, H, D), cos, sin).transpose(1, 2)
+        k = apply_rope(k.reshape(B, 1, KH, D), cos, sin).transpose(1, 2)
+        v = v.reshape(B, 1, KH, D).transpose(1, 2)
+        cache.k[l][phys_w, :, off, :] = k[:, :, 0, :].to(cache.k.dtype)
+        cache.v[l][phys_w, :, off, :] = v[:, :, 0, :].to(cache.v.dtype)
+        o = paged_gqa_decode_attention(
+            q, cache.k[l, :P], cache.v[l, :P], bt, positions,
+            active=active, window=window,
+        )  # [B, H, 1, D]
+        o = o.transpose(1, 2).reshape(B, 1, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+    cache.lengths = torch.where(active, cache.lengths + 1, cache.lengths)
+    x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
+    logits = _head_logits(params, cfg, x)
+    return logits.float(), cache

@@ -1,0 +1,30 @@
+"""Ops of the port: attention (with the Hopper kernels), norms, rope, sampling."""
+
+from .attention import (
+    attention,
+    dot_product_attention,
+    flash_attention,
+    flash_attention_plain,
+    gqa_dot_product_attention,
+    paged_gqa_decode_attention,
+    paged_gqa_decode_attention_plain,
+)
+from .norms import rms_norm
+from .rope import apply_rope, rope_frequencies
+from .sampling import sample_logits, top_k_auto, top_k_hierarchical
+
+__all__ = [
+    "apply_rope",
+    "attention",
+    "dot_product_attention",
+    "flash_attention",
+    "flash_attention_plain",
+    "gqa_dot_product_attention",
+    "paged_gqa_decode_attention",
+    "paged_gqa_decode_attention_plain",
+    "rms_norm",
+    "rope_frequencies",
+    "sample_logits",
+    "top_k_auto",
+    "top_k_hierarchical",
+]

@@ -1,0 +1,341 @@
+"""Attention (port of ``ops/attention.py``): plain PyTorch paths plus the two
+hand-written Hopper kernels of the serving path.
+
+- :func:`dot_product_attention` / :func:`gqa_dot_product_attention` — plain
+  PyTorch, f32 scores, the JAX functions' masks and ``NEG_INF``.
+- :func:`flash_attention` — blocked online-softmax prefill.  On a CUDA
+  tensor it launches ``csrc/flash_prefill.cu``; on a CPU tensor it runs
+  :func:`flash_attention_plain`.
+- :func:`paged_gqa_decode_attention` — one query per slot against a page
+  pool.  On a CUDA tensor it launches ``csrc/paged_decode.cu``; on a CPU
+  tensor it runs :func:`paged_gqa_decode_attention_plain`, which mirrors the
+  JAX page loop.
+- :func:`attention` — the dispatch: the flash kernel for mask-free CUDA
+  prefill of at least 256 tokens, the plain path otherwise.  ``k``/``v``
+  carry H heads either way; :func:`flash_attention` itself also takes KH
+  heads dividing H, which is how ``llama.prefill`` calls it.
+
+Layouts are the JAX package's: ``[B, H, S, D]`` activations and
+``[P, KH, page, D]`` page pools.  The fp8 in-dot branch (``fp8_dot=True``)
+and fp8 pools wait for ROADMAP Queue 2 entry 5.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import kernels
+
+NEG_INF = -1e30
+
+_FP8_ITEM = 1  # element size of the fp8 formats
+
+
+def _refuse_fp8(site: str, fp8_dot: bool, *pools: torch.Tensor) -> None:
+    if fp8_dot or any(p.element_size() == _FP8_ITEM for p in pools):
+        raise NotImplementedError(
+            f"{site}: fp8 KV pools and fp8_dot wait for the fp8 decode kernel "
+            "(ROADMAP Queue 2 entry 5)"
+        )
+
+
+def _repeat_heads(k: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, KH, S, D] -> [B, heads, S, D]: contiguous blocks of KV heads, as
+    the JAX package's ``jnp.repeat`` along the head axis."""
+    if k.shape[1] == heads:
+        return k
+    return k.repeat_interleave(heads // k.shape[1], dim=1)
+
+
+def dot_product_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, H, Sk, D]
+    v: torch.Tensor,  # [B, H, Sk, D]
+    *,
+    causal: bool = False,
+    mask: Optional[torch.Tensor] = None,  # broadcastable to [B, H, Sq, Sk]; True=keep
+    q_offset: int = 0,  # absolute position of q[0]
+    window: Optional[int] = None,  # sliding window: keep iff kpos > qpos - window
+) -> torch.Tensor:
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal or window is not None:
+        qpos = torch.arange(q.shape[2], device=q.device) + q_offset
+        kpos = torch.arange(k.shape[2], device=q.device)
+        keep = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            keep &= kpos[None, :] > qpos[:, None] - window
+        scores = torch.where(keep, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def gqa_dot_product_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, KH, Sk, D] — KV heads NOT repeated
+    v: torch.Tensor,  # [B, KH, Sk, D]
+    *,
+    mask: Optional[torch.Tensor] = None,  # broadcastable to [B, 1, Sq, Sk]; True=keep
+) -> torch.Tensor:
+    """Grouped-query attention contracting query groups against the shared
+    KV heads directly (no repeat of K/V up to H heads)."""
+    B, H, Sq, D = q.shape
+    KH = k.shape[1]
+    G = H // KH
+    scale = D ** -0.5
+    if k.dtype != q.dtype:
+        k = k.to(q.dtype)
+        v = v.to(q.dtype)
+    qg = q.reshape(B, KH, G, Sq, D)
+    scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2)) * scale
+    if mask is not None:
+        m = mask[:, :, None] if mask.dim() == 4 else mask  # insert group axis
+        scores = torch.where(m, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(probs, v[:, :, None])
+    return out.reshape(B, H, Sq, D)
+
+
+# ---------------------------------------------------------------------------
+# Flash prefill: Hopper kernel + plain twin
+# ---------------------------------------------------------------------------
+
+_FLASH_TILE = 64  # the kernel's q and kv tile
+_FLASH_HEAD_DIMS = (64, 128, 256)  # the kernel's instantiations
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, KH, Sk, D], KH divides H
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """What the flash kernel computes, in plain PyTorch: f32 attention over
+    KV heads repeated up to H, output in ``q``'s dtype."""
+    H = q.shape[1]
+    out = dot_product_attention(
+        q.float(),
+        _repeat_heads(k, H).float(),
+        _repeat_heads(v, H).float(),
+        causal=causal,
+        window=window,
+    )
+    return out.to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, KH, Sk, D], KH divides H
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash prefill attention.  CPU tensors run the plain twin; CUDA tensors
+    launch ``csrc/flash_prefill.cu`` or raise on what it does not take."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, H, Sq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    KH, Sk = k.shape[1], k.shape[2]
+    if H % KH:
+        raise ValueError(f"flash_attention: KV heads {KH} must divide query heads {H}")
+    if D not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim 64, 128 or 256, got {D}")
+    if Sq % _FLASH_TILE or Sk % _FLASH_TILE:
+        raise ValueError(f"flash_attention kernel needs Sq, Sk multiples of {_FLASH_TILE}, got {Sq}, {Sk}")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, got {window}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes matching f32 or bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v on different devices")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    kernels.flash_prefill(q, k, v, out, causal=causal, window=window)
+    return out
+
+
+def flash_eligible(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    mask: Optional[torch.Tensor] = None,
+    q_offset: int = 0,
+) -> bool:
+    """The JAX dispatch rule with "the TPU backend" read as "q is a CUDA
+    tensor": mask-free, q_offset 0, Sq >= 256, Sq and Sk multiples of 128,
+    and D equal to 64 or a multiple of 128.  :func:`flash_attention` raises
+    on a D its kernel has no instantiation for (past 256), so such a model
+    fails on the card rather than running the plain path there."""
+    D = q.shape[-1]
+    return (
+        q.device.type == "cuda"
+        and mask is None
+        and q.shape[2] >= 256
+        and q.shape[2] % 128 == 0
+        and k.shape[2] % 128 == 0
+        and (D == 64 or D % 128 == 0)
+        and isinstance(q_offset, int)
+        and q_offset == 0
+    )
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    mask: Optional[torch.Tensor] = None,
+    q_offset: int = 0,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Dispatch: the flash kernel for long mask-free CUDA prefill,
+    :func:`dot_product_attention` otherwise.  ``k``/``v`` are repeated to H
+    heads by the caller."""
+    if flash_eligible(q, k, mask=mask, q_offset=q_offset):
+        return flash_attention(q, k, v, causal=causal, window=window)
+    return dot_product_attention(
+        q, k, v, causal=causal, mask=mask, q_offset=q_offset, window=window
+    )
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: Hopper kernel + plain twin
+# ---------------------------------------------------------------------------
+
+
+def _decode_range(positions, active, page: int, NB: int, window: Optional[int]):
+    """The JAX loop's logical-block range [lo, hi) as host ints (plain twin)."""
+    S = NB * page
+    act_pos = torch.where(active, positions, 0)
+    hi = min(int(act_pos.max()) // page + 1, NB)
+    if window is not None:
+        min_pos = int(torch.where(active, positions, S).min())
+        lo = min(max(min_pos - window + 1, 0) // page, hi)
+    else:
+        lo = 0
+    return lo, hi
+
+
+def paged_gqa_decode_attention_plain(
+    q: torch.Tensor,  # [B, H, 1, D]
+    k_pool: torch.Tensor,  # [P, KH, page, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, NB] int; entries >= P mean unallocated
+    positions: torch.Tensor,  # [B] int
+    *,
+    active: Optional[torch.Tensor] = None,  # [B] bool
+    window: Optional[int] = None,
+    fp8_dot: bool = False,
+) -> torch.Tensor:
+    """The JAX page loop in plain PyTorch: logical blocks [lo, hi) of the
+    batch, one gathered page per row per step, f32 online softmax with the
+    finite ``NEG_INF`` mask."""
+    _refuse_fp8("paged_gqa_decode_attention", fp8_dot, k_pool, v_pool)
+    B, H, Sq, D = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode attention expects Sq=1 queries, got {Sq}")
+    P, KH, page, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    G = H // KH
+    scale = D ** -0.5
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=q.device)
+    qg = q.reshape(B, KH, G, D).float()
+    lo, hi = _decode_range(positions, active, page, NB, window)
+    m = torch.full((B, KH, G, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KH, G, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KH, G, D), dtype=torch.float32, device=q.device)
+    offs = torch.arange(page, device=q.device)
+    for ci in range(lo, hi):
+        phys = block_tables[:, ci].long().clamp(0, P - 1)
+        k_blk = k_pool[phys].float()  # [B, KH, page, D]
+        v_blk = v_pool[phys].float()
+        s = torch.matmul(qg, k_blk.transpose(-1, -2)) * scale  # [B, KH, G, page]
+        kpos = ci * page + offs
+        keep = kpos[None, :] <= positions[:, None]
+        if window is not None:
+            keep &= kpos[None, :] > positions[:, None] - window
+        s = torch.where(keep[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.matmul(p, v_blk)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.reshape(B, H, 1, D)
+
+
+def paged_gqa_decode_attention(
+    q: torch.Tensor,  # [B, H, 1, D]
+    k_pool: torch.Tensor,  # [P, KH, page, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, NB] int32; entries >= P mean unallocated
+    positions: torch.Tensor,  # [B] int32
+    *,
+    active: Optional[torch.Tensor] = None,  # [B] bool
+    window: Optional[int] = None,
+    fp8_dot: bool = False,
+) -> torch.Tensor:
+    """Paged decode attention.  CPU tensors run the plain twin; CUDA tensors
+    launch ``csrc/paged_decode.cu`` or raise on what it does not take."""
+    if q.device.type == "cpu":
+        return paged_gqa_decode_attention_plain(
+            q, k_pool, v_pool, block_tables, positions,
+            active=active, window=window, fp8_dot=fp8_dot,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_gqa_decode_attention: unsupported device {q.device}")
+    _refuse_fp8("paged_gqa_decode_attention", fp8_dot, k_pool, v_pool)
+    B, H, Sq, D = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode attention expects Sq=1 queries, got {Sq}")
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != D:
+        raise ValueError(f"paged_gqa_decode_attention: bad pool shapes {tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    KH = k_pool.shape[1]
+    if H % KH or H // KH not in (1, 2, 4, 8):
+        raise ValueError(f"paged decode kernel takes H/KH in 1, 2, 4, 8, got H={H} KH={KH}")
+    if D not in (16, 32, 64, 128, 256):
+        raise ValueError(f"paged decode kernel takes head_dim 16, 32, 64, 128 or 256, got {D}")
+    if D == 256 and H // KH > 4:
+        raise ValueError(f"paged decode kernel takes H/KH up to 4 at head_dim 256, got {H // KH}")
+    if k_pool.shape[2] % 4:
+        raise ValueError(f"paged decode kernel takes a page size divisible by 4, got {k_pool.shape[2]}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"paged decode kernel takes matching f32 or bf16 q/pools, got {q.dtype}/{k_pool.dtype}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or block_tables.dtype != torch.int32:
+        raise ValueError("paged_gqa_decode_attention: block_tables must be [B, NB] int32")
+    if positions.shape != (B,) or positions.dtype != torch.int32:
+        raise ValueError("paged_gqa_decode_attention: positions must be [B] int32")
+    if active is not None and (active.shape != (B,) or active.dtype != torch.bool):
+        raise ValueError("paged_gqa_decode_attention: active must be [B] bool")
+    if window is not None and window <= 0:
+        raise ValueError(f"paged_gqa_decode_attention: window must be positive, got {window}")
+    for t in (k_pool, v_pool, block_tables, positions) + ((active,) if active is not None else ()):
+        if t.device != q.device:
+            raise ValueError("paged_gqa_decode_attention: tensors on different devices")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged_gqa_decode_attention: pools must be contiguous")
+    q = q.contiguous()
+    block_tables = block_tables.contiguous()
+    positions = positions.contiguous()
+    active = active.contiguous() if active is not None else None
+    out = torch.empty_like(q)
+    kernels.paged_decode(
+        q, k_pool, v_pool, out, block_tables, positions, active, window=window
+    )
+    return out

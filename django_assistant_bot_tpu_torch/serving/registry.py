@@ -1,0 +1,187 @@
+"""Model registry: spec -> loaded generation engine (port of ``serving/registry.py``).
+
+A config maps model names to spec dicts, as in the JAX package.  The spec
+carries the fields this slice implements, and their defaults select the
+ported path.  Keys of the JAX ``ModelSpec`` that are not ported yet are
+accepted only at the value the port implements and refused otherwise,
+naming their ROADMAP item; keys the JAX spec does not know are refused too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+# JAX ModelSpec keys not ported yet: key -> (the only accepted value, ROADMAP item)
+_DEFERRED: Dict[str, tuple] = {
+    "checkpoint": (None, "Queue 1 item 4 (native checkpoints)"),
+    "burst": (1, "Queue 1 item 5 (fused N-step ticks)"),
+    "decode_steps": (1, "Queue 1 item 5 (fused N-step ticks)"),
+    "prefill_piggyback": (False, "Queue 1 item 5 (piggybacked prefill)"),
+    "prefix_cache": (0, "Queue 1 item 5 (prefix sharing)"),
+    "scheduler": (False, "Queue 1 item 5 (scheduler)"),
+    "warmup": (False, "Queue 1 item 5 (warmup)"),
+    "kv_layout": ("paged", "Queue 1 item 8 (legacy contiguous KV)"),
+    "speculative": (0, "Queue 1 item 9 (speculative decoding)"),
+    "warmup_json": (False, "Queue 1 item 10 (JSON-constrained decoding)"),
+    "num_experts": (0, "Queue 1 item 11 (MoE)"),
+    "kv_host_bytes": (0, "Queue 1 item 12 (tiered KV)"),
+    "kv_spill_dir": (None, "Queue 1 item 12 (tiered KV)"),
+    "replicas": (1, "Queue 1 item 12 (router)"),
+    "max_replicas": (0, "Queue 1 item 12 (router)"),
+    "autoscale": (False, "Queue 1 item 12 (autoscaler)"),
+    "pool": ("unified", "Queue 1 item 13 (cross-host fleet)"),
+    "replica_devices": (0, "Queue 1 item 15 (parallelism)"),
+    "quantize": (None, "Queue 2 entry 3 (int8/int4 qeinsum)"),
+    "kv_cache_dtype": (None, "Queue 2 entry 5 (fp8 KV)"),
+    "attn_fp8": (False, "Queue 2 entry 5 (fp8 KV)"),
+}
+_ABSENT = object()  # knobs of unported features: refused whenever present
+# JAX ModelSpec key prefixes / names of unported features -> ROADMAP item
+_DEFERRED_FAMILIES = (
+    (("sched_",), "Queue 1 item 5 (scheduler)"),
+    (("prefix_min_tokens", "prefix_cache_max_bytes"), "Queue 1 item 5 (prefix sharing)"),
+    (("obs", "obs_dump_dir", "faults", "fault_seed", "max_restarts", "restart_",
+      "degraded_cooldown_s", "heartbeat_degraded_s", "max_request_restarts"),
+     "Queue 1 item 5 (engine supervision and observability planes)"),
+    (("spec_",), "Queue 1 item 9 (speculative decoding)"),
+    (("kv_host_writethrough", "router_", "autoscale_"), "Queue 1 item 12 (tiered KV, router, autoscaler)"),
+    (("quant_group_size",), "Queue 2 entry 3 (int8/int4 qeinsum)"),
+    (("max_batch", "normalize", "max_queue"), "Queue 1 item 7 (embeddings)"),
+)
+
+
+def _deferred(key: str):
+    if key in _DEFERRED:
+        return _DEFERRED[key]
+    for names, item in _DEFERRED_FAMILIES:
+        if any(key == n or (n.endswith("_") and key.startswith(n)) for n in names):
+            return _ABSENT, item
+    return None
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    name: str
+    kind: str = "decoder"  # encoders come with ROADMAP Queue 1 item 7
+    path: Optional[str] = None  # HF checkpoint dir; None + tiny=True -> random tiny
+    tiny: bool = False
+    dtype: str = "bfloat16"
+    device: str = "cuda"
+    max_slots: int = 8
+    max_seq_len: Optional[int] = None
+    chunk_size: int = 512
+    lookahead: int = 3
+    decode_kv_chunk: Optional[int] = 0
+    kv_page_size: int = 0
+    kv_pages: int = 0
+
+    @classmethod
+    def from_dict(cls, name: str, d: Mapping[str, Any]) -> "ModelSpec":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for key, value in d.items():
+            if key == "name":
+                continue
+            deferred = _deferred(key)
+            if deferred is not None:
+                ported, item = deferred
+                if ported is _ABSENT or value != ported:
+                    only = "" if ported is _ABSENT else f" (only {ported!r})"
+                    raise NotImplementedError(
+                        f"model {name}: {key}={value!r} is not ported yet{only}; ROADMAP {item}"
+                    )
+                continue
+            if key not in fields:
+                raise ValueError(f"model {name}: unknown spec key {key!r}")
+            kwargs[key] = value
+        spec = cls(name=name, **kwargs)
+        if spec.kind != "decoder":
+            raise NotImplementedError(
+                f"model {name}: kind={spec.kind!r} waits for the embeddings slice "
+                "(ROADMAP Queue 1 item 7)"
+            )
+        if spec.dtype not in _DTYPES:
+            raise ValueError(f"model {name}: dtype must be one of {sorted(_DTYPES)}")
+        return spec
+
+
+class ModelRegistry:
+    """Loads and owns generation engines; lookup is lowercase."""
+
+    def __init__(self, specs: Optional[Mapping[str, ModelSpec]] = None):
+        self.specs: Dict[str, ModelSpec] = {}
+        self.generators: Dict[str, Any] = {}
+        for spec in (specs or {}).values():
+            self.load(spec)
+
+    @classmethod
+    def from_config(cls, config: Mapping[str, Any], *, device: Optional[str] = None) -> "ModelRegistry":
+        """``config`` maps model name -> spec dict (parsed from TOML/JSON);
+        ``device`` overrides every spec's device (the CLI's ``--device``)."""
+        specs = {}
+        for name, d in config.items():
+            d = dict(d)
+            if device is not None:
+                d["device"] = device
+            specs[name.lower()] = ModelSpec.from_dict(name.lower(), d)
+        return cls(specs)
+
+    def load(self, spec: ModelSpec, engine: Any = None) -> Any:
+        """Build, start and register ``spec``'s engine: random tiny weights
+        (``tiny``), an HF checkpoint (``path``), or ``engine`` built by the
+        caller (started here if it is not running yet)."""
+        from ..models import DecoderConfig, llama
+        from ..models.hf_loader import load_decoder
+        from .engine import GenerationEngine
+        from .tokenizer import load_tokenizer
+
+        name = spec.name.lower()
+        if engine is None:
+            from ..device import resolve_device
+
+            device = resolve_device(spec.device)
+            dtype = _DTYPES[spec.dtype]
+            if spec.path:
+                cfg, params = load_decoder(spec.path, dtype=dtype, device=device)
+            elif spec.tiny:
+                cfg = DecoderConfig.tiny()
+                if spec.max_seq_len and spec.max_seq_len > cfg.max_seq_len:
+                    # a random tiny model has no pretrained context limit
+                    cfg = dataclasses.replace(cfg, max_seq_len=int(spec.max_seq_len))
+                gen = torch.Generator(device=device).manual_seed(0)
+                params = llama.init(cfg, gen, device)
+            else:
+                raise ValueError(f"model {name}: need path or tiny=true")
+            engine = GenerationEngine(
+                cfg,
+                params,
+                load_tokenizer(spec.path),
+                device=device,
+                max_slots=spec.max_slots,
+                max_seq_len=spec.max_seq_len,
+                chunk_size=spec.chunk_size,
+                lookahead=spec.lookahead,
+                decode_kv_chunk=spec.decode_kv_chunk,
+                kv_page_size=spec.kv_page_size,
+                kv_pages=spec.kv_pages,
+            )
+        engine.start()
+        self.generators[name] = engine
+        self.specs[name] = spec
+        logger.info("model %r ready on %s", name, engine.device)
+        return engine
+
+    def stop(self):
+        for eng in self.generators.values():
+            eng.stop()
+
+    def get_generator(self, model: str):
+        return self.generators.get(model.lower())

@@ -1,0 +1,183 @@
+"""Model server, aiohttp (port of ``serving/server.py``: ``/dialog/`` and the
+read-only endpoints).
+
+- ``POST /dialog/`` (and ``/dialog``) ``{model, messages, max_tokens,
+  temperature, top_p}`` -> ``{"response": {"result", "usage",
+  "length_limited"}, "request_id"}``; 422 on a bad body, 400 "Model is not
+  supported" for an unknown model, 500 with detail on failure.  The
+  correlation id is the client's token-safe ``X-Request-Id`` or a fresh one,
+  echoed in the body and the header.
+- ``GET /healthz`` and ``GET /models``.
+
+Request fields of features not ported yet (``stream``, ``json_format``,
+scheduling fields) are refused with a 422 naming their ROADMAP item instead
+of being ignored.  ``/embeddings/``, ``/metrics`` and the fleet endpoints
+come with later slices (ROADMAP Queue 1 items 6, 7 and 13).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import re
+import uuid
+from typing import Any, Mapping
+
+from aiohttp import web
+
+from .registry import ModelRegistry
+
+logger = logging.getLogger(__name__)
+
+REGISTRY_KEY: web.AppKey[ModelRegistry] = web.AppKey("registry", ModelRegistry)
+
+MAX_MAX_TOKENS = 1 << 17  # sanity ceiling; engines clamp to max_seq_len anyway
+
+_REQ_ID_RE = re.compile(r"^[A-Za-z0-9._:-]{1,64}$")
+
+# body fields of unported features -> (the value that means "off", ROADMAP item)
+_UNPORTED_FIELDS = {
+    "stream": (False, "Queue 1 item 6 (SSE streaming)"),
+    "json_format": (False, "Queue 1 item 10 (JSON-constrained decoding)"),
+    "priority": ("interactive", "Queue 1 item 5 (scheduler)"),
+    "tenant": ("default", "Queue 1 item 5 (scheduler)"),
+    "deadline_s": (None, "Queue 1 item 5 (scheduler)"),
+}
+
+
+class _BadRequest(ValueError):
+    """Validation failure carrying the client-facing detail message."""
+
+
+def _request_id(request: web.Request) -> str:
+    rid = request.headers.get("X-Request-Id", "").strip()
+    if rid and _REQ_ID_RE.match(rid):
+        return rid
+    return uuid.uuid4().hex[:16]
+
+
+def _error_response(detail: str, status: int, rid: str) -> web.Response:
+    return web.json_response(
+        {"detail": detail, "request_id": rid}, status=status, headers={"X-Request-Id": rid}
+    )
+
+
+def _validate_sampling(body: Mapping[str, Any]) -> tuple:
+    """Pull and range-check the sampling knobs (the JAX server's rules)."""
+    temperature = body.get("temperature", 0.8)
+    top_p = body.get("top_p", 0.95)
+    max_tokens = body.get("max_tokens", 1024)
+    if isinstance(temperature, bool) or not isinstance(temperature, (int, float)):
+        raise _BadRequest("temperature must be a number")
+    temperature = float(temperature)
+    if not math.isfinite(temperature) or not (0.0 <= temperature <= 2.0):
+        raise _BadRequest("temperature must be finite and within [0, 2]")
+    if isinstance(top_p, bool) or not isinstance(top_p, (int, float)):
+        raise _BadRequest("top_p must be a number")
+    top_p = float(top_p)
+    if not math.isfinite(top_p) or not (0.0 < top_p <= 1.0):
+        raise _BadRequest("top_p must be finite and within (0, 1]")
+    if isinstance(max_tokens, bool) or not isinstance(max_tokens, int):
+        raise _BadRequest("max_tokens must be an integer")
+    if not (1 <= max_tokens <= MAX_MAX_TOKENS):
+        raise _BadRequest(f"max_tokens must be within [1, {MAX_MAX_TOKENS}]")
+    return temperature, top_p, max_tokens
+
+
+def _refuse_unported(request: web.Request, body: Mapping[str, Any]) -> None:
+    headers = {"priority": "X-Priority", "tenant": "X-Tenant", "deadline_s": "X-Deadline-S"}
+    for field, (off, item) in _UNPORTED_FIELDS.items():
+        value = body.get(field, request.headers.get(headers.get(field, ""), off))
+        if value != off:
+            raise _BadRequest(f"{field}={value!r} is not supported by this server yet (ROADMAP {item})")
+
+
+def create_app(registry: ModelRegistry) -> web.Application:
+    app = web.Application()
+    app[REGISTRY_KEY] = registry
+
+    async def dialog(request: web.Request) -> web.Response:
+        rid = _request_id(request)
+        try:
+            body = await request.json()
+            model = body["model"]
+            if not isinstance(model, str):
+                raise ValueError("model must be a string")
+            messages = body["messages"]
+            if not isinstance(messages, list):
+                raise ValueError("messages must be a list")
+            _refuse_unported(request, body)
+            temperature, top_p, max_tokens = _validate_sampling(body)
+        except _BadRequest as e:
+            return _error_response(str(e), 422, rid)
+        except Exception:
+            return _error_response("invalid request", 422, rid)
+        eng = registry.get_generator(model)
+        if eng is None:
+            return _error_response("Model is not supported", 400, rid)
+        try:
+            result = await eng.generate(
+                messages, max_tokens=max_tokens, temperature=temperature, top_p=top_p
+            )
+        except Exception as e:
+            logger.exception("dialog failed")
+            return _error_response(str(e), 500, rid)
+        return web.json_response(
+            {
+                "response": {
+                    "result": result.text,
+                    "usage": result.usage_dict(model),
+                    "length_limited": result.length_limited,
+                },
+                "request_id": rid,
+            },
+            headers={"X-Request-Id": rid},
+        )
+
+    async def healthz(request: web.Request) -> web.Response:
+        return web.json_response(
+            {
+                "status": "ok",
+                "models": sorted(registry.specs),
+                "generators": {name: eng.stats() for name, eng in registry.generators.items()},
+            }
+        )
+
+    async def models(request: web.Request) -> web.Response:
+        return web.json_response(
+            {
+                name: {"kind": spec.kind, "path": spec.path, "tiny": spec.tiny}
+                for name, spec in registry.specs.items()
+            }
+        )
+
+    app.router.add_post("/dialog/", dialog)
+    app.router.add_post("/dialog", dialog)
+    app.router.add_get("/healthz", healthz)
+    app.router.add_get("/models", models)
+
+    async def on_cleanup(app):
+        registry.stop()
+
+    app.on_cleanup.append(on_cleanup)
+    return app
+
+
+def load_config_file(path: str) -> Mapping[str, Any]:
+    """TOML or JSON model config: ``[models.<name>] kind=... path=...``."""
+    import json
+
+    if path.endswith(".toml"):
+        import tomllib
+
+        with open(path, "rb") as f:
+            data = tomllib.load(f)
+    else:
+        with open(path) as f:
+            data = json.load(f)
+    return data.get("models", data)
+
+
+def run_server(registry: ModelRegistry, *, host: str = "0.0.0.0", port: int = 11435):
+    """Blocking entry (CLI ``serve``); the default port matches the reference's."""
+    web.run_app(create_app(registry), host=host, port=port)

@@ -1,0 +1,71 @@
+"""The port's boundaries: no JAX in its import graph, and CUDA by default
+with no silent CPU fallback."""
+
+import subprocess
+import sys
+
+import pytest
+import torch
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import django_assistant_bot_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_import_graph_has_no_jax():
+    """Importing the package and every submodule leaves ``jax`` and the JAX
+    package out of ``sys.modules`` (a fresh interpreter: this test process
+    has imported both)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 15
+
+
+def _needs_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: cuda resolves")
+
+
+def test_cuda_without_a_card_raises():
+    _needs_no_card()
+    from django_assistant_bot_tpu_torch import resolve_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_entry_points_default_to_cuda():
+    """Every entry point defaults to the card and raises without one."""
+    _needs_no_card()
+    from django_assistant_bot_tpu_torch.cli import main
+    from django_assistant_bot_tpu_torch.convert import params_from_jax
+    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine, ModelRegistry
+
+    cfg = DecoderConfig.tiny()
+    params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationEngine(cfg, params, ByteTokenizer())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRegistry.from_config({"m": {"tiny": True}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--tiny", "--port", "0"])
