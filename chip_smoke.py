@@ -14,6 +14,9 @@ exits non-zero):
    path's shapes, with the stated tolerance, plus its time, its bound, the
    plain twin's time and, where one PyTorch call computes the same
    function, that call's time (a yardstick only; the port never calls it);
+   ``ms`` is the wall time per call over back-to-back calls (CUDA events),
+   ``device_ms`` the summed kernel time per call (torch.profiler); the
+   flash library's HMMA / LDGSTS counts;
 3. a small f32 model on the card (kernels) against the same model on the
    CPU (plain twins): prefill and decode logits, and greedy token ids;
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
@@ -47,26 +50,33 @@ PKG = "django_assistant_bot_tpu_torch"
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
-# bf16 outputs against the f32 plain twin, per element:
+# bf16 outputs whose P.V is f32 (paged decode, flash at head_dim 256) against
+# the f32 plain twin, per element:
 #   |out - ref| <= BF16_REL * |ref| + BF16_ABS
 # rounding an f32 result to bf16 moves it by at most half a spacing, 2^-8 of
-# its magnitude; BF16_ABS covers the f32 summation order.  f32 outputs are
-# held to F32_TOL absolute (summation order only).
+# its magnitude; BF16_ABS covers the f32 summation order.  The tensor-core
+# flash kernel (bf16 at FLASH_MMA_HEAD_DIMS) rounds P to bf16 before P.V, as
+# the JAX kernel does, and is held to ``flash_bf16_bound``:
+# 2^-8 |ref| + 2^-8 A + 1e-4, A the same attention over |v|, the worst case
+# of rounding P and rounding the output, 1e-4 for the summation order.  f32
+# outputs are held to F32_TOL absolute (summation order only).
 BF16_REL = 2.0 ** -8
 BF16_ABS = 1e-4
 F32_TOL = 1e-4
+FLASH_BF16_TEXT = "bound 2^-8*(|ref| + A) + 1e-4"
 
 
-def compare(out, ref) -> tuple:
+def compare(out, ref, bound=None) -> tuple:
     """(max abs error, max relative error, worst error over its bound) of
-    ``out`` against the f32 ``ref``; the check passes iff the last is <= 1."""
+    ``out`` against the f32 ``ref``; the check passes iff the last is <= 1.
+    ``bound`` replaces the bf16 bound where it is given."""
     import torch
 
     diff = (out.float() - ref).abs()
-    if out.dtype == torch.bfloat16:
-        bound = BF16_REL * ref.abs() + BF16_ABS
-    else:
+    if out.dtype != torch.bfloat16:
         bound = torch.full_like(ref, F32_TOL)
+    elif bound is None:
+        bound = BF16_REL * ref.abs() + BF16_ABS
     rel = (diff / ref.abs().clamp_min(BF16_ABS)).max().item()
     return diff.max().item(), rel, (diff / bound).max().item()
 
@@ -113,6 +123,39 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_us(event) -> float:
+    """Self device time of a ``key_averages()`` entry, in microseconds."""
+    dev_us = getattr(event, "self_device_time_total", None)
+    return dev_us if dev_us is not None else getattr(event, "self_cuda_time_total", 0)
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device milliseconds per call: the summed duration of the CUDA kernels
+    that ``iters`` calls launch (torch.profiler), over ``iters``, after a
+    warm-up call.  Host time between launches is left out, so this is the
+    kernel's time even where :func:`time_ms` measures the host's launch rate.
+    Fails if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(_device_us(e) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not total_us > 0:
+        fail("torch.profiler saw no device time: device_ms not measured")
+    return total_us / iters / 1e3
+
+
+def timed(fn, iters: int) -> tuple:
+    """(wall ms per call over back-to-back calls, device ms per call)."""
+    return time_ms(fn, iters), device_ms(fn, iters)
+
+
 # --------------------------------------------------------------------- phase 1
 def env_and_build():
     import torch
@@ -137,16 +180,25 @@ def env_and_build():
 def _flash_case(B, H, KH, S, D, dtype, causal, window, gen):
     import torch
 
-    from django_assistant_bot_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        FLASH_MMA_HEAD_DIMS,
+        flash_attention,
+        flash_attention_plain,
+        flash_bf16_bound,
+    )
 
     def mk(heads):
         return torch.randn((B, heads, S, D), generator=gen, device="cuda", dtype=dtype)
 
     q, k, v = mk(H), mk(KH), mk(KH)
     out = flash_attention(q, k, v, causal=causal, window=window)
-    ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal, window=window)
+    args = (q.float(), k.float(), v.float())
+    ref = flash_attention_plain(*args, causal=causal, window=window)
+    bound = None
+    if dtype == torch.bfloat16 and D in FLASH_MMA_HEAD_DIMS:
+        bound = flash_bf16_bound(*args, ref, causal=causal, window=window)
     torch.cuda.synchronize()
-    return q, k, v, compare(out, ref)
+    return q, k, v, compare(out, ref, bound)
 
 
 def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
@@ -165,11 +217,39 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def sass_counts(lib: Path) -> str:
+    """HMMA (tensor-core product) and LDGSTS (asynchronous global-to-shared
+    copy) instructions per kernel in ``lib``'s SASS, by ``cuobjdump``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts = []
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        m = re.search(r"(flash_mma_kernel|flash_prefill_kernel)I(\w*?)Li(\d+)E", name)
+        if m:
+            dtype = {"f": "f32 ", "13__nv_bfloat16": "bf16 "}.get(m.group(2), "")
+            label = f"{m.group(1)}[{dtype}D={m.group(3)}]"
+        else:
+            label = name[:60]
+        counts.append(f"{label}: HMMA {chunk.count('HMMA')}, LDGSTS {chunk.count('LDGSTS')}")
+    return "; ".join(counts) or "no kernels in the SASS"
+
+
 def check_flash(gen) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from django_assistant_bot_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        FLASH_MMA_HEAD_DIMS,
+        flash_attention,
+        flash_attention_plain,
+    )
 
     cases = [  # (B, H, KH, S, D, dtype, causal, window)
         (1, 32, 8, 256, 128, torch.bfloat16, True, None),
@@ -179,7 +259,10 @@ def check_flash(gen) -> dict:
         (1, 32, 8, 2048, 128, torch.bfloat16, True, None),
         (4, 32, 8, 2048, 128, torch.bfloat16, True, None),
         (2, 32, 8, 512, 128, torch.bfloat16, True, 100),
+        (2, 32, 8, 512, 128, torch.bfloat16, False, None),
         (2, 32, 8, 512, 64, torch.bfloat16, True, None),
+        (2, 32, 8, 512, 64, torch.bfloat16, True, 100),
+        (2, 8, 2, 64, 128, torch.bfloat16, True, None),  # a single tile
         (1, 8, 4, 512, 256, torch.bfloat16, True, None),  # Gemma's head_dim
         (2, 8, 2, 256, 128, torch.float32, True, None),
         (1, 8, 4, 256, 256, torch.float32, True, 100),
@@ -189,41 +272,53 @@ def check_flash(gen) -> dict:
     worst = 0.0
     for B, H, KH, S, D, dtype, causal, window in cases:
         _, _, _, (err, rel, ratio) = _flash_case(B, H, KH, S, D, dtype, causal, window, gen)
+        mma = dtype == torch.bfloat16 and D in FLASH_MMA_HEAD_DIMS
+        text = FLASH_BF16_TEXT if mma else tol_text(dtype)
         log(f"  flash B={B} H={H} KH={KH} S={S} D={D} {str(dtype)[6:]} causal={causal} "
             f"window={window}: max_abs_err {err:.3e}, max_rel_err {rel:.3e}, "
-            f"worst err/bound {ratio:.3f} ({tol_text(dtype)})")
+            f"worst err/bound {ratio:.3f} ({text})")
         if not ratio <= 1.0:
             fail(f"flash_prefill disagrees with its plain twin: err/bound {ratio} > 1")
         if dtype == torch.bfloat16:
             worst = max(worst, err)
+    log(f"  flash SASS: {sass_counts(kernels.lib_path('flash_prefill'))}")
 
-    # timings at the main path's shape: the 512 bucket, a batch bucket of 4
-    B, H, KH, S, D = 4, 32, 8, 512, 128
-    q, k, v, _ = _flash_case(B, H, KH, S, D, torch.bfloat16, True, None, gen)
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 50)
-    plain_ms = time_ms(lambda: flash_attention_plain(q.float(), k.float(), v.float(), causal=True), 10)
-    kr = k.repeat_interleave(H // KH, dim=1)
-    vr = v.repeat_interleave(H // KH, dim=1)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
-    bound_ms, bound_by = _flash_bound_ms(B, H, KH, S, D, True, None, 2)
-    log(f"  flash timing B={B} H={H} KH={KH} S={S} D={D} bf16 causal: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    for S2 in (2048,):
-        q2, k2, v2, _ = _flash_case(B, H, KH, S2, D, torch.bfloat16, True, None, gen)
-        ms2 = time_ms(lambda: flash_attention(q2, k2, v2, causal=True), 10)
-        b2, _ = _flash_bound_ms(B, H, KH, S2, D, True, None, 2)
-        log(f"  flash timing B={B} S={S2} bf16 causal: kernel {ms2:.4f} ms, bound {b2:.4f} ms")
+    # timings at the main path's buckets (256 and 512 at a batch bucket of
+    # 4) and one long bucket; the JSON line takes the 512 bucket.  Wall time
+    # per back-to-back call (``ms``) includes what the host spends launching
+    # the call; device time per call (torch.profiler, ``device_ms``) is the
+    # kernels' time alone.
+    B, H, KH, D = 4, 32, 8, 128
+    result = {}
+    for S, iters in ((256, 100), (512, 50), (2048, 10)):
+        q, k, v, _ = _flash_case(B, H, KH, S, D, torch.bfloat16, True, None, gen)
+        kr = k.repeat_interleave(H // KH, dim=1)
+        vr = v.repeat_interleave(H // KH, dim=1)
+        ms, dev = timed(lambda: flash_attention(q, k, v, causal=True), iters)
+        library_ms, lib_dev = timed(
+            lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), iters
+        )
+        bound_ms, bound_by = _flash_bound_ms(B, H, KH, S, D, True, None, 2)
+        line = (f"  flash timing B={B} H={H} KH={KH} S={S} D={D} bf16 causal: kernel wall "
+                f"{ms:.4f} ms (device {dev:.4f}), sdpa wall {library_ms:.4f} ms (device "
+                f"{lib_dev:.4f}), bound {bound_ms:.4f} ms ({bound_by}); share of the bound, "
+                f"wall: kernel {bound_ms / ms:.3f}, sdpa {bound_ms / library_ms:.3f}; device: "
+                f"kernel {bound_ms / dev:.3f}, sdpa {bound_ms / lib_dev:.3f}")
+        if S == 512:
+            plain_ms = time_ms(
+                lambda: flash_attention_plain(q.float(), k.float(), v.float(), causal=True), 10
+            )
+            line += f"; plain wall {plain_ms:.4f} ms"
+            result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+        log(line)
     return {
         "name": "flash_prefill",
         "route": "cuda",
         "source": f"{PKG}/csrc/flash_prefill.cu",
         "replaces": "django_assistant_bot_tpu/ops/attention.py:535",
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        **result,
     }
 
 
@@ -298,7 +393,7 @@ def check_paged(gen, page: int) -> dict:
             fail(f"paged_decode D={D2} disagrees with its plain twin: {err}")
 
     args, active, _ = _paged_case(B, H, KH, D, page, NB, torch.bfloat16, positions, inactive, None, gen)
-    ms = time_ms(lambda: paged_gqa_decode_attention(*args, active=active), 200)
+    ms, dev = timed(lambda: paged_gqa_decode_attention(*args, active=active), 200)
     q, kp, vp, bt, pos_t = args
     fargs = (q.float(), kp.float(), vp.float(), bt, pos_t)
     plain_ms = time_ms(lambda: paged_gqa_decode_attention_plain(*fargs, active=active), 10)
@@ -310,8 +405,8 @@ def check_paged(gen, page: int) -> dict:
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    log(f"  paged timing B={B} H={H} KH={KH} D={D} page={page} bf16: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  paged timing B={B} H={H} KH={KH} D={D} page={page} bf16: kernel wall {ms:.4f} ms "
+        f"(device {dev:.4f}), plain wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return {
         "name": "paged_decode",
         "route": "cuda",
@@ -319,6 +414,7 @@ def check_paged(gen, page: int) -> dict:
         "replaces": "django_assistant_bot_tpu/ops/attention.py:228",
         "max_abs_err": worst,
         "ms": ms,
+        "device_ms": dev,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -532,9 +628,7 @@ def decode_breakdown(cfg, params) -> None:
             torch.cuda.synchronize()
     kernels_by_name = []
     for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
+        dev_us = _device_us(e)
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             kernels_by_name.append((dev_us / n / 1e3, e.count // n, e.key))
     busy_ms = sum(ms for ms, _, _ in kernels_by_name)

@@ -92,6 +92,11 @@ def _lib_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 
+def lib_path(name: str) -> Path:
+    """The shared library that :func:`build` makes for kernel ``name``."""
+    return _lib_path(KERNELS[name][0])
+
+
 def build(names: Optional[Sequence[str]] = None) -> float:
     """Compile (if needed) and load the named kernels (default: all), one
     ``nvcc`` per source, all started together.  Returns the seconds spent."""

@@ -108,6 +108,10 @@ def gqa_dot_product_attention(
 
 _FLASH_TILE = 64  # the kernel's q and kv tile
 _FLASH_HEAD_DIMS = (64, 128, 256)  # the kernel's instantiations
+# bf16 head dims that run the tensor-core kernel, which rounds P to bf16
+# before P.V; f32, and bf16 at head_dim 256, run the CUDA-core kernel,
+# whose P.V is f32
+FLASH_MMA_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_plain(
@@ -129,6 +133,30 @@ def flash_attention_plain(
         window=window,
     )
     return out.to(q.dtype)
+
+
+def flash_bf16_bound(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-element bound on ``|out - ref|`` for a bf16 flash output against
+    the f32 plain twin ``ref`` on the same inputs:
+    ``2^-8 |ref| + 2^-8 A + 1e-4`` with ``A`` the same attention over ``|v|``.
+
+    It holds for the tensor-core kernel (bf16 at ``FLASH_MMA_HEAD_DIMS``),
+    which, like the JAX kernel, rounds each probability to bf16 before the
+    P.V product.  bf16 keeps 8 significant bits, so rounding moves a value
+    by at most 2^-8 of its size: p_j by 2^-8 p_j, and so the output by at
+    most 2^-8 A as long as the normaliser sums the unrounded f32 p; rounding
+    the output to bf16 adds 2^-8 |out|.  The bound is the worst case of
+    these two rounding steps, with 1e-4 for the f32 summation order."""
+    a = flash_attention_plain(q.float(), k.float(), v.float().abs(), causal=causal, window=window)
+    return 2.0 ** -8 * (ref.abs() + a) + 1e-4
 
 
 def flash_attention(
@@ -161,7 +189,9 @@ def flash_attention(
         raise TypeError(f"flash_attention kernel takes matching f32 or bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel copies 16 bytes at a time: q, k, v must start on 16-byte boundaries")
     out = torch.empty_like(q)
     kernels.flash_prefill(q, k, v, out, causal=causal, window=window)
     return out
