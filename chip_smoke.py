@@ -16,7 +16,9 @@ exits non-zero):
    function, that call's time (a yardstick only; the port never calls it);
    ``ms`` is the wall time per call over back-to-back calls (CUDA events),
    ``device_ms`` the summed kernel time per call (torch.profiler); the
-   flash library's HMMA / LDGSTS counts;
+   HMMA / LDGSTS counts of both libraries; for paged decode also the main
+   path's own decode shape and a bitwise repeat check (``paged_live_keys``
+   and ``paged_bound_ms`` are also imported by ``tools/paged_decode_ab.py``);
 3. a small f32 model on the card (kernels) against the same model on the
    CPU (plain twins): prefill and decode logits, and greedy token ids;
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
@@ -24,7 +26,8 @@ exits non-zero):
    ``ModelRegistry`` behind ``create_app`` on a localhost port, and
    concurrent greedy ``/dialog/`` requests (two through the 512 prefill
    bucket, one through chunked prefill); launch counts are zeroed just
-   before the requests and read just after, and both kernels must have run;
+   before the requests and read just after, and both kernels must have run,
+   every paged call through the tensor-core kernel;
 5. one ``/dialog/`` request through ``cli serve --tiny --device cuda``;
 6. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
    line, and the final ``{"ok": true, ...}`` line.
@@ -50,20 +53,21 @@ PKG = "django_assistant_bot_tpu_torch"
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
-# bf16 outputs whose P.V is f32 (paged decode, flash at head_dim 256) against
-# the f32 plain twin, per element:
+# bf16 outputs whose P.V is f32 (flash at head_dim 256) against the f32
+# plain twin, per element:
 #   |out - ref| <= BF16_REL * |ref| + BF16_ABS
 # rounding an f32 result to bf16 moves it by at most half a spacing, 2^-8 of
 # its magnitude; BF16_ABS covers the f32 summation order.  The tensor-core
-# flash kernel (bf16 at FLASH_MMA_HEAD_DIMS) rounds P to bf16 before P.V, as
-# the JAX kernel does, and is held to ``flash_bf16_bound``:
-# 2^-8 |ref| + 2^-8 A + 1e-4, A the same attention over |v|, the worst case
-# of rounding P and rounding the output, 1e-4 for the summation order.  f32
-# outputs are held to F32_TOL absolute (summation order only).
+# flash kernel (bf16 at FLASH_MMA_HEAD_DIMS) and every bf16 paged decode
+# output round P to bf16 before P.V, as the JAX functions do, and are held to
+# ``flash_bf16_bound`` / ``paged_bf16_bound``: 2^-8 |ref| + 2^-8 A + 1e-4, A
+# the same attention over |v|, the worst case of rounding P and rounding the
+# output, 1e-4 for the summation order.  f32 outputs are held to F32_TOL
+# absolute (summation order only).
 BF16_REL = 2.0 ** -8
 BF16_ABS = 1e-4
 F32_TOL = 1e-4
-FLASH_BF16_TEXT = "bound 2^-8*(|ref| + A) + 1e-4"
+BF16_P_TEXT = "bound 2^-8*(|ref| + A) + 1e-4"
 
 
 def compare(out, ref, bound=None) -> tuple:
@@ -167,10 +171,14 @@ def env_and_build():
     secs = kernels.build()
     log(f"kernel build: {secs:.1f} s")
     for name, text in kernels.BUILD_LOG.items():
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
+        table = ptxas_table(text)
+        regs = [r for _, r, _ in table]
+        spills = [sp for _, _, sp in table]
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
+        if name == "paged_decode":
+            log("  ptxas[paged_decode] per kernel: " + "; ".join(
+                f"{label} {r} regs, {sp} B spilled" for label, r, sp in table))
     # the f32 references below are true f32 products, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -217,6 +225,35 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+_KERNEL_RE = re.compile(
+    r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
+    r"|paged_decode_combine_kernel)I(\w*?)EEv"
+)
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<type,ints>`` for a mangled kernel name of the two libraries."""
+    m = _KERNEL_RE.search(mangled)
+    if not m:
+        return mangled[:60]
+    args = m.group(2)
+    dtype = "f32," if args.startswith("f") else "bf16," if args.startswith("13__nv_bfloat16") else ""
+    ints = ",".join(re.findall(r"Li(\d+)E", args))
+    return f"{m.group(1)}<{dtype}{ints}>"
+
+
+def ptxas_table(text: str) -> list:
+    """(kernel, registers, bytes of spill stores) per kernel in an
+    ``nvcc -Xptxas -v`` log."""
+    rows = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        rows.append((kernel_label(chunk.split("'", 1)[0]), int(regs.group(1)) if regs else 0,
+                     int(spill.group(1)) if spill else 0))
+    return rows
+
+
 def sass_counts(lib: Path) -> str:
     """HMMA (tensor-core product) and LDGSTS (asynchronous global-to-shared
     copy) instructions per kernel in ``lib``'s SASS, by ``cuobjdump``."""
@@ -229,13 +266,7 @@ def sass_counts(lib: Path) -> str:
                           timeout=120).stdout
     counts = []
     for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split(None, 1)[0]
-        m = re.search(r"(flash_mma_kernel|flash_prefill_kernel)I(\w*?)Li(\d+)E", name)
-        if m:
-            dtype = {"f": "f32 ", "13__nv_bfloat16": "bf16 "}.get(m.group(2), "")
-            label = f"{m.group(1)}[{dtype}D={m.group(3)}]"
-        else:
-            label = name[:60]
+        label = kernel_label(chunk.split(None, 1)[0])
         counts.append(f"{label}: HMMA {chunk.count('HMMA')}, LDGSTS {chunk.count('LDGSTS')}")
     return "; ".join(counts) or "no kernels in the SASS"
 
@@ -273,7 +304,7 @@ def check_flash(gen) -> dict:
     for B, H, KH, S, D, dtype, causal, window in cases:
         _, _, _, (err, rel, ratio) = _flash_case(B, H, KH, S, D, dtype, causal, window, gen)
         mma = dtype == torch.bfloat16 and D in FLASH_MMA_HEAD_DIMS
-        text = FLASH_BF16_TEXT if mma else tol_text(dtype)
+        text = BF16_P_TEXT if mma else tol_text(dtype)
         log(f"  flash B={B} H={H} KH={KH} S={S} D={D} {str(dtype)[6:]} causal={causal} "
             f"window={window}: max_abs_err {err:.3e}, max_rel_err {rel:.3e}, "
             f"worst err/bound {ratio:.3f} ({text})")
@@ -323,9 +354,13 @@ def check_flash(gen) -> dict:
 
 
 def _paged_case(B, H, KH, D, page, NB, dtype, positions, inactive, window, gen):
+    """Random pools and queries for ``positions``; the kernel's output held
+    to its bound against the f32 plain twin.  Returns (args, active,
+    (max abs err, max rel err, worst err/bound), output)."""
     import torch
 
     from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_bf16_bound,
         paged_gqa_decode_attention,
         paged_gqa_decode_attention_plain,
     )
@@ -346,16 +381,46 @@ def _paged_case(B, H, KH, D, page, NB, dtype, positions, inactive, window, gen):
     active = active.cuda()
     args = (q, k_pool, v_pool, bt, pos_t)
     out = paged_gqa_decode_attention(*args, active=active, window=window)
-    ref = paged_gqa_decode_attention_plain(
-        q.float(), k_pool.float(), v_pool.float(), bt, pos_t, active=active, window=window
-    )
+    fargs = (q.float(), k_pool.float(), v_pool.float(), bt, pos_t)
+    ref = paged_gqa_decode_attention_plain(*fargs, active=active, window=window)
+    bound = None
+    if dtype == torch.bfloat16:
+        bound = paged_bf16_bound(*fargs, ref, active=active, window=window)
     torch.cuda.synchronize()
-    return args, active, compare(out, ref)
+    return args, active, compare(out, ref, bound), out
+
+
+def paged_live_keys(positions, inactive, page, NB, window=None) -> int:
+    """Keys the function must read for these rows: the batch's block range
+    [lo, hi) of the JAX loop (over active rows), cut by each row's own
+    position and window."""
+    act = [p for b, p in enumerate(positions) if b not in inactive]
+    hi = min(max(act, default=0) // page + 1, NB)
+    lo = 0
+    if window is not None:
+        lo = min(max(min(act, default=NB * page) - window + 1, 0) // page, hi)
+    live = 0
+    for pos in positions:
+        klo = lo * page if window is None else max(lo * page, pos - window + 1)
+        live += max(0, min(hi * page - 1, pos) - klo + 1)
+    return live
+
+
+def paged_bound_ms(live, B, H, KH, D, NB) -> tuple:
+    """Least time for the same work: the live keys' K and V read once, q read
+    and out written once, the block tables and positions read, at the HBM
+    rate, against 4 H D operations per live key of a KV head at the bf16
+    tensor-core peak."""
+    nbytes = live * KH * D * 2 * 2 + 2 * B * H * D * 2 + B * NB * 4 + B * 4
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 4.0 * live * H * D / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_paged(gen, page: int) -> dict:
     import torch
 
+    from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.ops.attention import (
         paged_gqa_decode_attention,
         paged_gqa_decode_attention_plain,
@@ -373,51 +438,88 @@ def check_paged(gen, page: int) -> dict:
     ]
     worst = 0.0
     for dtype, window in cases:
-        _, _, (err, rel, ratio) = _paged_case(
+        _, _, (err, rel, ratio), _ = _paged_case(
             B, H, KH, D, page, NB, dtype, positions, inactive, window, gen
         )
+        text = BF16_P_TEXT if dtype == torch.bfloat16 else tol_text(dtype)
         log(f"  paged B={B} H={H} KH={KH} D={D} page={page} {str(dtype)[6:]} window={window}: "
-            f"max_abs_err {err:.3e}, max_rel_err {rel:.3e}, worst err/bound {ratio:.3f} "
-            f"({tol_text(dtype)})")
+            f"max_abs_err {err:.3e}, max_rel_err {rel:.3e}, worst err/bound {ratio:.3f} ({text})")
         if not ratio <= 1.0:
             fail(f"paged_decode disagrees with its plain twin: err/bound {ratio} > 1")
         if dtype == torch.bfloat16:
             worst = max(worst, err)
-    # small head dims (the tiny model's D=16) and Gemma's 256, at G = 2
-    for D2 in (16, 32, 64, 256):
-        _, _, (err, rel, ratio) = _paged_case(
-            4, 4, 2, D2, 64, 4, torch.float32, [3, 70, 200, 255], [], None, gen
+    # small head dims (the tiny model's D=16) and Gemma's 256, at G = 2, and
+    # the tensor-core kernel at D=64 and every group size
+    small = [(4, 2, D2, torch.float32) for D2 in (16, 32, 64, 256)]
+    small += [(8 * G2, 8, 64, torch.bfloat16) for G2 in (1, 2, 4, 8)]
+    for H2, KH2, D2, dtype in small:
+        _, _, (err, rel, ratio), _ = _paged_case(
+            4, H2, KH2, D2, 64, 4, dtype, [3, 70, 200, 255], [], None, gen
         )
-        log(f"  paged D={D2} f32: max_abs_err {err:.3e} ({tol_text(torch.float32)})")
+        text = BF16_P_TEXT if dtype == torch.bfloat16 else tol_text(dtype)
+        log(f"  paged H={H2} KH={KH2} D={D2} {str(dtype)[6:]}: max_abs_err {err:.3e}, "
+            f"worst err/bound {ratio:.3f} ({text})")
         if not ratio <= 1.0:
-            fail(f"paged_decode D={D2} disagrees with its plain twin: {err}")
+            fail(f"paged_decode H={H2} KH={KH2} D={D2} disagrees with its plain twin: {err}")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+    # G = 8 (H=64, KH=8) with long rows: a row's runs span more than 16 and
+    # more than 32 blocks, so the final merge takes several batches of runs
+    for D2, NB2, pos2 in ((64, 8, [4095]), (128, 8, [4095, 3000]), (64, 32, [16383]),
+                          (128, 32, [16383, 9000])):
+        _, _, (err, rel, ratio), _ = _paged_case(
+            len(pos2), 64, 8, D2, page, NB2, torch.bfloat16, pos2, [], None, gen
+        )
+        log(f"  paged H=64 KH=8 D={D2} page={page} NB={NB2} positions {pos2} bf16: "
+            f"max_abs_err {err:.3e}, worst err/bound {ratio:.3f} ({BF16_P_TEXT})")
+        if not ratio <= 1.0:
+            fail(f"paged_decode H=64 KH=8 D={D2} positions {pos2} disagrees with its plain "
+                 f"twin: err/bound {ratio} > 1")
+        worst = max(worst, err)
+    log(f"  paged SASS: {sass_counts(kernels.lib_path('paged_decode'))}")
 
-    args, active, _ = _paged_case(B, H, KH, D, page, NB, torch.bfloat16, positions, inactive, None, gen)
-    ms, dev = timed(lambda: paged_gqa_decode_attention(*args, active=active), 200)
-    q, kp, vp, bt, pos_t = args
-    fargs = (q.float(), kp.float(), vp.float(), bt, pos_t)
-    plain_ms = time_ms(lambda: paged_gqa_decode_attention_plain(*fargs, active=active), 10)
-    # bytes this input needs: each row's live keys, K and V, read once; q and
-    # out; the block tables and positions
-    live = sum(p + 1 for p in positions)
-    nbytes = live * KH * D * 2 * 2 + 2 * B * H * D * 2 + B * NB * 4 + B * 4
-    flops = 4.0 * live * H * D
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    log(f"  paged timing B={B} H={H} KH={KH} D={D} page={page} bf16: kernel wall {ms:.4f} ms "
-        f"(device {dev:.4f}), plain wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # timings: the long ragged timed shape (the JSON line's numbers), then the main
+    # path's own: phase 4's four requests in mid-decode, rows 4-7 idle slots
+    timed_cases = [
+        ("timed", positions, inactive, 200),
+        ("main-path", [105, 355, 485, 915, 0, 0, 0, 0], [4, 5, 6, 7], 200),
+    ]
+    result = {}
+    for label, pos_list, inact, iters in timed_cases:
+        args, active, (err, _, ratio), out = _paged_case(
+            B, H, KH, D, page, NB, torch.bfloat16, pos_list, inact, None, gen
+        )
+        if not ratio <= 1.0:
+            fail(f"paged_decode ({label} shape) disagrees with its plain twin: {ratio} > 1")
+        again = paged_gqa_decode_attention(*args, active=active)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            fail(f"paged_decode ({label} shape): two calls on the same inputs differ")
+        ms, dev = timed(lambda: paged_gqa_decode_attention(*args, active=active), iters)
+        q, kp, vp, bt, pos_t = args
+        fargs = (q.float(), kp.float(), vp.float(), bt, pos_t)
+        plain_ms = time_ms(lambda: paged_gqa_decode_attention_plain(*fargs, active=active), 10)
+        live = paged_live_keys(pos_list, inact, page, NB)
+        bound_ms, bound_by = paged_bound_ms(live, B, H, KH, D, NB)
+        scratch = kernels.paged_scratch_floats(q.device, (1, B, H, KH, page, NB, D))
+        log(f"  paged timing ({label}) B={B} H={H} KH={KH} D={D} page={page} bf16, "
+            f"{live} live keys: kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); share of the bound: "
+            f"wall {bound_ms / ms:.3f}, device {bound_ms / dev:.3f}; repeat bitwise-equal; "
+            f"worst err/bound {ratio:.3f}; scratch {scratch} f32")
+        if label == "timed":
+            result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        else:
+            result.update(main_path_ms=ms, main_path_device_ms=dev,
+                          main_path_bound_ms=bound_ms)
     return {
         "name": "paged_decode",
         "route": "cuda",
         "source": f"{PKG}/csrc/paged_decode.cu",
         "replaces": "django_assistant_bot_tpu/ops/attention.py:228",
         "max_abs_err": worst,
-        "ms": ms,
-        "device_ms": dev,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **result,
         "library_ms": None,
     }
 
@@ -549,11 +651,12 @@ def main_path(card: str) -> dict:
                 results = await asyncio.gather(*(post(session, m) for m in messages.values()))
                 wall = time.perf_counter() - t
                 counts = kernels.launch_counts()
-                return results, wall, counts
+                routes = dict(kernels.PAGED_ROUTES)
+                return results, wall, counts, routes
         finally:
             await runner.cleanup()  # stops the registry's engines
 
-    results, wall, counts = asyncio.run(drive())
+    results, wall, counts, routes = asyncio.run(drive())
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     total_completion = 0
     ttfts, decode_rates = [], []
@@ -582,10 +685,12 @@ def main_path(card: str) -> dict:
         f"{total_completion / wall:.2f} completion tok/s overall; peak memory {peak_gib:.2f} GiB "
         f"({resident_gib:.2f} GiB resident weights and page pool, "
         f"{peak_gib - resident_gib:.2f} GiB above it at the peak)")
-    log(f"  launches during the run: {counts}")
+    log(f"  launches during the run: {counts}; paged decode by route: {routes}")
     for k, n in counts.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
+    if routes != {"mma": counts["paged_decode"], "cuda_core": 0}:
+        fail(f"paged decode on the main path left the tensor-core kernel: {routes}")
     decode_breakdown(cfg, params)
     del params, engine, registry
     torch.cuda.empty_cache()
@@ -637,6 +742,10 @@ def decode_breakdown(cfg, params) -> None:
         f"({'not measured: profiler saw no device time' if busy_ms == 0 else f'idle share {1 - busy_ms / wall_ms:.3f}'})")
     for ms, calls, name in sorted(kernels_by_name, reverse=True)[:6]:
         log(f"    {ms:.4f} ms/step in {calls} launches/step: {name[:90]}")
+    paged = [(ms, calls) for ms, calls, name in kernels_by_name if "paged" in name]
+    log(f"    paged attention: {sum(ms for ms, _ in paged):.4f} ms/step in "
+        f"{sum(c for _, c in paged)} launches/step; all kernels: "
+        f"{sum(c for _, c, _ in kernels_by_name)} launches/step")
 
 
 # --------------------------------------------------------------------- phase 5

@@ -61,15 +61,41 @@ _I = ctypes.c_int
 _ARGTYPES = {
     # q, k, v, o, dtype, B, H, KH, Sq, Sk, D, causal, window, stream
     "flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k_pool, v_pool, out, block_tables, positions, active, part_m, part_l,
-    # part_acc, dtype, B, H, KH, P, page, NB, D, window, stream
-    "paged_decode": [_P] * 10 + [_I] * 9 + [_P],
+    # q, k_pool, v_pool, out, block_tables, positions, active, scratch,
+    # scratch_floats, counters, mma, dtype, B, H, KH, P, page, NB, D, window,
+    # stream
+    "paged_decode": [_P] * 8 + [ctypes.c_longlong, _P] + [_I] * 10 + [_P],
 }
+# further C symbols of a library: name -> (argtypes, restype)
+_EXTRA_SYMBOLS = {
+    "paged_decode": {
+        # mma, B, H, KH, page, NB, D -> f32 scratch floats, -1 if not taken
+        "dabt_paged_decode_scratch": ([_I] * 7, ctypes.c_longlong),
+    },
+}
+
+# bf16 head dims of the tensor-core paged decode kernel; the CUDA-core split
+# and combine kernels take f32, the other head dims, and bf16 inputs off
+# 16-byte boundaries
+PAGED_MMA_HEAD_DIMS = (64, 128)
+
+# paged decode launches by route: "mma" (the tensor-core kernel) or
+# "cuda_core" (split + combine); counted beside LAUNCHES, so a run can show
+# which kernel its paged calls took
+PAGED_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
+
+# paged decode scratch per (device, stream): (f32 partials, int32 counters);
+# the counters start at zero and every call leaves them at zero
+_paged_scratch: Dict[tuple, tuple] = {}
+# f32 scratch floats per (device, route, shapes), as the library reports them
+_paged_need: Dict[tuple, int] = {}
 
 
 def reset_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for route in PAGED_ROUTES:
+        PAGED_ROUTES[route] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -136,6 +162,9 @@ def build(names: Optional[Sequence[str]] = None) -> float:
             fn = getattr(lib, symbol)
             fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
+            for extra, (argtypes, restype) in _EXTRA_SYMBOLS.get(name, {}).items():
+                getattr(lib, extra).argtypes = argtypes
+                getattr(lib, extra).restype = restype
             _libs[name] = lib
     return time.perf_counter() - t0
 
@@ -179,29 +208,70 @@ def flash_prefill(
     _check("flash_prefill", err)
 
 
+def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
+    """The f32 scratch floats a paged decode call needs on ``device``, as the
+    library reports them for ``shapes`` = (mma, B, H, KH, page, NB, D)
+    (cached per device and shapes)."""
+    key = (device.index, *shapes)
+    need = _paged_need.get(key)
+    if need is None:
+        _fn("paged_decode")  # builds and loads the library if needed
+        with torch.cuda.device(device):
+            need = _libs["paged_decode"].dabt_paged_decode_scratch(*shapes)
+        if need < 0:
+            raise RuntimeError(
+                f"paged decode kernel does not take (mma, B, H, KH, page, NB, D) = {shapes}"
+            )
+        _paged_need[key] = need
+    return need
+
+
+def _paged_buffers(device: torch.device, stream: int, shapes: tuple, n_rows: int):
+    """The paged decode scratch of (device, stream), grown to what the
+    library asks for ``shapes`` (mma, B, H, KH, page, NB, D) and to
+    ``n_rows`` counters."""
+    need = paged_scratch_floats(device, shapes)
+    key = (device.index, stream)
+    part, counters = _paged_scratch.get(key, (None, None))
+    if part is None or part.numel() < need:
+        part = torch.empty(need, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_rows:
+        counters = torch.zeros(n_rows, dtype=torch.int32, device=device)
+    _paged_scratch[key] = (part, counters)
+    return part, counters
+
+
 def paged_decode(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, out: torch.Tensor,
     block_tables: torch.Tensor, positions: torch.Tensor, active: Optional[torch.Tensor],
     *, window: Optional[int],
 ) -> None:
-    """Launch the paged decode kernels (a split per logical page, then the
-    merge of the splits); the caller validated the arguments.  One f32
-    scratch allocation holds the [B, H, NB] partial maxima and sums and the
-    [B, H, NB, D] partial accumulators."""
+    """Launch the paged decode kernel; the caller validated the arguments.
+    bf16 at ``PAGED_MMA_HEAD_DIMS`` with q and the pools on 16-byte
+    boundaries takes the tensor-core kernel, everything else the CUDA-core
+    split and combine kernels; ``PAGED_ROUTES`` counts which.  The f32
+    scratch (partials; its size is the library's answer for the shapes) and
+    the counters, one per (slot, KV head), are kept per device and stream,
+    not allocated per call."""
     B, H, _, D = q.shape
     P, KH, page, _ = k_pool.shape
     NB = block_tables.shape[1]
-    n = B * H * NB
-    scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    mma = (q.dtype == torch.bfloat16 and D in PAGED_MMA_HEAD_DIMS
+           and not any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)))
+    stream = _stream(q)
     fn = _fn("paged_decode")
     with torch.cuda.device(q.device):
+        scratch, counters = _paged_buffers(
+            q.device, stream, (int(mma), B, H, KH, page, NB, D), B * KH
+        )
         err = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
             block_tables.data_ptr(), positions.data_ptr(),
             active.data_ptr() if active is not None else None,
-            scratch[:n].data_ptr(), scratch[n:2 * n].data_ptr(), scratch[2 * n:].data_ptr(),
+            scratch.data_ptr(), scratch.numel(), counters.data_ptr(), int(mma),
             dtype_code(q.dtype), B, H, KH, P, page, NB, D,
-            int(window) if window is not None else 0, _stream(q),
+            int(window) if window is not None else 0, stream,
         )
     LAUNCHES["paged_decode"] += 1
+    PAGED_ROUTES["mma" if mma else "cuda_core"] += 1
     _check("paged_decode", err)

@@ -9,7 +9,8 @@ hand-written Hopper kernels of the serving path.
 - :func:`paged_gqa_decode_attention` — one query per slot against a page
   pool.  On a CUDA tensor it launches ``csrc/paged_decode.cu``; on a CPU
   tensor it runs :func:`paged_gqa_decode_attention_plain`, which mirrors the
-  JAX page loop.
+  JAX page loop.  bf16 outputs are held to :func:`paged_bf16_bound` on the
+  card.
 - :func:`attention` — the dispatch: the flash kernel for mask-free CUDA
   prefill of at least 256 tokens, the plain path otherwise.  ``k``/``v``
   carry H heads either way; :func:`flash_attention` itself also takes KH
@@ -273,7 +274,8 @@ def paged_gqa_decode_attention_plain(
 ) -> torch.Tensor:
     """The JAX page loop in plain PyTorch: logical blocks [lo, hi) of the
     batch, one gathered page per row per step, f32 online softmax with the
-    finite ``NEG_INF`` mask."""
+    finite ``NEG_INF`` mask, probabilities rounded to the pool's dtype before
+    P.V (a no-op for f32 pools)."""
     _refuse_fp8("paged_gqa_decode_attention", fp8_dot, k_pool, v_pool)
     B, H, Sq, D = q.shape
     if Sq != 1:
@@ -303,11 +305,38 @@ def paged_gqa_decode_attention_plain(
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = alpha * acc + torch.matmul(p, v_blk)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)  # the unrounded f32 p
+        # P in the pool's dtype before P.V, as the JAX loop's p.astype(v_blk.dtype)
+        acc = alpha * acc + torch.matmul(p.to(v_pool.dtype).float(), v_blk)
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
     return out.reshape(B, H, 1, D)
+
+
+def paged_bf16_bound(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    positions: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    active: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-element bound on ``|out - ref|`` for a bf16 paged decode output
+    against the f32 plain twin ``ref`` on the same inputs:
+    ``2^-8 |ref| + 2^-8 A + 1e-4`` with ``A`` the same paged attention over
+    ``|v_pool|`` — the decode counterpart of :func:`flash_bf16_bound`, by
+    the same argument: the kernel, like the JAX function, rounds each
+    probability to bf16 before P.V (moving the output by at most 2^-8 A
+    while the normaliser sums the unrounded f32 p) and rounds the output
+    (2^-8 |out|); 1e-4 covers the f32 summation order."""
+    a = paged_gqa_decode_attention_plain(
+        q.float(), k_pool.float(), v_pool.float().abs(), block_tables, positions,
+        active=active, window=window,
+    )
+    return 2.0 ** -8 * (ref.abs() + a) + 1e-4
 
 
 def paged_gqa_decode_attention(

@@ -69,3 +69,33 @@ def test_entry_points_default_to_cuda():
         ModelRegistry.from_config({"m": {"tiny": True}})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--tiny", "--port", "0"])
+
+
+def test_kernel_bindings_match_c_entry_points():
+    """Each ctypes binding in ``kernels.py`` has the C signature of the
+    ``extern "C"`` function it names in ``csrc/`` (pointers, ints and long
+    longs, in order): a mismatch would corrupt the launch on the card."""
+    import ctypes
+    import re
+
+    from django_assistant_bot_tpu_torch import kernels
+
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+    def kind(decl: str):
+        if "*" in decl:
+            return ctypes.c_void_p
+        return kinds[re.sub(r"\s+\w+$", "", decl.strip())]
+
+    bindings = []
+    for name, (stem, symbol) in kernels.KERNELS.items():
+        bindings.append((stem, symbol, kernels._ARGTYPES[name], ctypes.c_int))
+        for extra, (argtypes, restype) in kernels._EXTRA_SYMBOLS.get(name, {}).items():
+            bindings.append((stem, extra, argtypes, restype))
+    for stem, symbol, argtypes, restype in bindings:
+        src = (kernels.CSRC / f"{stem}.cu").read_text()
+        m = re.search(r'extern "C" ([\w ]+?) ' + symbol + r"\(([^)]*)\)", src)
+        assert m, f"{symbol} not in {stem}.cu"
+        assert kinds[m.group(1)] is restype, symbol
+        params = [kind(p) for p in m.group(2).split(",")]
+        assert params == list(argtypes), symbol

@@ -19,6 +19,7 @@ from django_assistant_bot_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_plain,
     flash_bf16_bound,
+    paged_bf16_bound,
     paged_gqa_decode_attention,
     paged_gqa_decode_attention_plain,
 )
@@ -29,11 +30,12 @@ pytestmark = [
 ]
 
 F32_TOL = 1e-4  # summation order only
-# bf16 with P.V in f32 (paged decode, flash at head_dim 256): rounding an f32
-# result moves it by at most 2^-8 of its magnitude; the absolute term covers
-# the f32 summation order.  The tensor-core flash kernel (bf16 at
+# bf16 with P.V in f32 (flash at head_dim 256): rounding an f32 result moves
+# it by at most 2^-8 of its magnitude; the absolute term covers the f32
+# summation order.  The tensor-core flash kernel (bf16 at
 # FLASH_MMA_HEAD_DIMS) rounds P to bf16 before P.V, as the JAX kernel does,
-# and is held to ``flash_bf16_bound`` instead.
+# and is held to ``flash_bf16_bound`` instead; every bf16 paged decode
+# output (P rounded before P.V, as the JAX loop does) to ``paged_bf16_bound``.
 BF16_REL, BF16_ABS = 2.0 ** -8, 1e-4
 
 
@@ -125,38 +127,128 @@ def test_attention_dispatch_raises_past_kernel_head_dims():
         attention(q, q, q, causal=True)
 
 
-@pytest.mark.parametrize(
-    "dtype,window,D,G",
-    [
-        (torch.float32, None, 16, 2),
-        (torch.float32, 40, 128, 4),
-        (torch.float32, None, 64, 8),
-        (torch.bfloat16, None, 128, 4),
-        (torch.bfloat16, None, 256, 2),
-        (torch.float32, 40, 256, 4),
-    ],
-)
-def test_paged_kernel_matches_plain(dtype, window, D, G):
+# rows of the default paged geometry: B=5, KH=2, page 32, NB 6; row 2 inactive
+_PAGED_DEFAULT = dict(page=32, NB=6, positions=[0, 31, 32, 100, 191], inactive=[2])
+
+
+def _paged_inputs(dtype, D, G, *, page, NB, positions, inactive, KH=2, offset=0):
+    """Pools and queries for ``positions``; ``offset`` elements of a larger
+    buffer precede each of q and the pools (to put them off 16 bytes)."""
     rng = np.random.default_rng(2)
-    B, KH, page, NB = 5, 2, 32, 6
+    B = len(positions)
     H = KH * G
     P = B * NB + 3
     bt = rng.permutation(P)[: B * NB].reshape(B, NB).astype(np.int32)
-    positions = np.asarray([0, 31, 32, 100, 191], np.int32)
     for b, pos in enumerate(positions):
         bt[b, pos // page + 1 :] = P + b  # sentinels past each allocation
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((B, H, 1, D), generator=gen, device="cuda", dtype=dtype)
-    k_pool = torch.randn((P, KH, page, D), generator=gen, device="cuda", dtype=dtype)
-    v_pool = torch.randn((P, KH, page, D), generator=gen, device="cuda", dtype=dtype)
-    bt_t = torch.from_numpy(bt).cuda()
-    pos_t = torch.from_numpy(positions).cuda()
-    active = torch.tensor([True, True, False, True, True], device="cuda")
-    out = paged_gqa_decode_attention(q, k_pool, v_pool, bt_t, pos_t, active=active, window=window)
-    ref = paged_gqa_decode_attention_plain(
-        q.float(), k_pool.float(), v_pool.float(), bt_t, pos_t, active=active, window=window
-    )
-    _assert_close(out, ref)
+
+    def mk(*shape):
+        n = int(np.prod(shape))
+        flat = torch.randn((n + offset,), generator=gen, device="cuda", dtype=dtype)
+        return flat[offset:].view(shape)
+
+    q = mk(B, H, 1, D)
+    k_pool = mk(P, KH, page, D)
+    v_pool = mk(P, KH, page, D)
+    active = torch.ones(B, dtype=torch.bool)
+    active[inactive] = False
+    return (q, k_pool, v_pool, torch.from_numpy(bt).cuda(),
+            torch.tensor(positions, dtype=torch.int32, device="cuda")), active.cuda()
+
+
+@pytest.mark.parametrize(
+    "dtype,window,D,G,layout",
+    [
+        (torch.float32, None, 16, 2, _PAGED_DEFAULT),
+        (torch.float32, 40, 128, 4, _PAGED_DEFAULT),
+        (torch.float32, None, 64, 8, _PAGED_DEFAULT),
+        (torch.bfloat16, None, 128, 4, _PAGED_DEFAULT),
+        (torch.bfloat16, None, 256, 2, _PAGED_DEFAULT),
+        (torch.float32, 40, 256, 4, _PAGED_DEFAULT),
+        # the tensor-core kernel (bf16, D 64 and 128) at every group size
+        *((torch.bfloat16, w, D, G, _PAGED_DEFAULT)
+          for D in (64, 128) for G in (1, 2, 4, 8) for w in (None, 40)),
+        # page 512: a row over all 8 pages beside rows of one key and position 0
+        (torch.bfloat16, None, 128, 4,
+         dict(page=512, NB=8, positions=[4095, 0, 512, 7, 1], inactive=[])),
+        (torch.bfloat16, 1, 128, 4,
+         dict(page=512, NB=8, positions=[4095, 0, 512, 7, 1], inactive=[])),
+        # an inactive row far past the batch's last block: it must not widen the read
+        (torch.bfloat16, None, 128, 4,
+         dict(page=64, NB=32, positions=[100, 2000, 30, 50], inactive=[1])),
+        # windows that start inside a chunk of 64 keys
+        (torch.bfloat16, 100, 128, 4,
+         dict(page=512, NB=4, positions=[1000, 1500, 2047, 1100], inactive=[3])),
+        (torch.bfloat16, 700, 64, 8,
+         dict(page=128, NB=16, positions=[1000, 1500, 2047, 300], inactive=[])),
+        # a page that is not a multiple of the 64-key chunk
+        (torch.bfloat16, None, 128, 4,
+         dict(page=100, NB=5, positions=[499, 99, 100, 250], inactive=[])),
+        # 260 slots: the slots' item prefix (in dynamic shared memory) over
+        # several warp-wide rounds
+        (torch.bfloat16, None, 128, 4,
+         dict(page=16, NB=2, positions=[(7 * i) % 32 for i in range(260)], inactive=[])),
+        # G = 8 (H=64, KH=8) with rows over more than 16 and more than 32
+        # blocks' runs: the final merge reads its runs' weights in batches of
+        # 32 runs, 8 query heads each
+        *((torch.bfloat16, None, D, 8, dict(page=512, NB=NB, positions=pos, inactive=[], KH=8))
+          for D in (64, 128)
+          for NB, pos in ((8, [4095]), (8, [4095, 3000]), (32, [16383]), (32, [16383, 9000]))),
+    ],
+)
+def test_paged_kernel_matches_plain(dtype, window, D, G, layout):
+    args, active = _paged_inputs(dtype, D, G, **layout)
+    before = kernels.launch_counts()["paged_decode"]
+    routes = dict(kernels.PAGED_ROUTES)
+    out = paged_gqa_decode_attention(*args, active=active, window=window)
+    assert kernels.launch_counts()["paged_decode"] == before + 1
+    route = "mma" if dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS else "cuda_core"
+    assert kernels.PAGED_ROUTES[route] == routes[route] + 1
+    q, k_pool, v_pool, bt, pos = args
+    fargs = (q.float(), k_pool.float(), v_pool.float(), bt, pos)
+    ref = paged_gqa_decode_attention_plain(*fargs, active=active, window=window)
+    bound = None
+    if dtype == torch.bfloat16:
+        bound = paged_bf16_bound(*fargs, ref, active=active, window=window)
+    assert bool(torch.isfinite(out).all())
+    _assert_close(out, ref, bound)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_kernel_repeats_bitwise(D):
+    """Two calls on the same inputs give bitwise-equal outputs: the
+    per-row counters are back at zero after each call and the merge order
+    is fixed; a call at another batch shape in between changes neither."""
+    layout = dict(page=512, NB=8, positions=[5, 511, 512, 1041, 1836, 4095, 1500, 700],
+                  inactive=[6])
+    args, active = _paged_inputs(torch.bfloat16, D, 4, KH=8, **layout)
+    first = paged_gqa_decode_attention(*args, active=active)
+    second = paged_gqa_decode_attention(*args, active=active)
+    other, other_active = _paged_inputs(torch.bfloat16, D, 4, KH=8, **_PAGED_DEFAULT)
+    paged_gqa_decode_attention(*other, active=other_active, window=40)
+    third = paged_gqa_decode_attention(*args, active=active)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, third)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_kernel_off_16_bytes_takes_cuda_core_route(D):
+    """bf16 q and pools 8 bytes off a 16-byte boundary cannot feed the
+    tensor-core kernel's 16-byte copies: the call takes the CUDA-core
+    kernels, counted as such, and still matches the plain twin."""
+    layout = dict(page=64, NB=4, positions=[3, 70, 200, 255], inactive=[1], KH=8)
+    args, active = _paged_inputs(torch.bfloat16, D, 4, offset=4, **layout)
+    assert all(t.data_ptr() % 16 == 8 for t in args[:3])
+    routes = dict(kernels.PAGED_ROUTES)
+    out = paged_gqa_decode_attention(*args, active=active)
+    assert kernels.PAGED_ROUTES["cuda_core"] == routes["cuda_core"] + 1
+    assert kernels.PAGED_ROUTES["mma"] == routes["mma"]
+    q, k_pool, v_pool, bt, pos = args
+    fargs = (q.float(), k_pool.float(), v_pool.float(), bt, pos)
+    ref = paged_gqa_decode_attention_plain(*fargs, active=active)
+    _assert_close(out, ref, paged_bf16_bound(*fargs, ref, active=active))
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take():

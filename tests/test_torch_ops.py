@@ -3,7 +3,9 @@
 - flash prefill attention: the port's plain twin vs JAX ``flash_attention``
   run in Pallas interpret mode (the contract of tests/test_ops.py:29-57);
 - paged GQA decode attention: plain twin vs the JAX page loop, with ragged
-  positions, sentinel block-table entries, inactive rows and a window;
+  positions, sentinel block-table entries, inactive rows and a window, in
+  f32 and in bf16 (P rounded before P.V), and the JAX loop in bf16 within
+  ``paged_bf16_bound``;
 - sampling: greedy rows exact, sampled rows identical when the port is fed
   the Gumbel noise ``jax.random.categorical`` draws;
 - norms and rope.
@@ -30,6 +32,7 @@ from django_assistant_bot_tpu_torch.ops.attention import (
     flash_attention_plain,
     flash_bf16_bound,
     gqa_dot_product_attention,
+    paged_bf16_bound,
     paged_gqa_decode_attention,
 )
 from django_assistant_bot_tpu_torch.ops.norms import rms_norm
@@ -158,6 +161,73 @@ def test_paged_decode_plain_matches_jax(paged_inputs, window, active):
         active=None if act is None else _t(act), window=window,
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def paged_bf16_inputs():
+    """Llama-3-8B's decode group (G=4, D=128) in bf16, ragged positions, a
+    sentinel past each row's allocation."""
+    rng = np.random.default_rng(2)
+    B, H, KH, D, page, NB = 4, 32, 8, 128, 64, 8
+    P = B * NB + 3
+    q, k_pool, v_pool = (
+        jnp.asarray(rng.normal(size=shape).astype(np.float32), jnp.bfloat16)
+        for shape in ((B, H, 1, D), (P, KH, page, D), (P, KH, page, D))
+    )
+    bt = rng.permutation(P)[: B * NB].reshape(B, NB).astype(np.int32)
+    positions = np.asarray([5, 100, 300, 511], np.int32)
+    for b, pos in enumerate(positions):
+        bt[b, pos // page + 1 :] = P + b
+    return q, k_pool, v_pool, bt, positions
+
+
+def _paged_jax_and_port(inputs, window, active):
+    """(JAX output, port plain-twin output, port inputs as f32 torch
+    tensors) on the same bf16 values."""
+    q, k_pool, v_pool, bt, positions = inputs
+    act = None if active is None else np.asarray(active)
+    ref = jattn.paged_gqa_decode_attention(
+        q, k_pool, v_pool, jnp.asarray(bt), jnp.asarray(positions),
+        active=None if act is None else jnp.asarray(act), window=window,
+    )
+    f32 = [_t(np.asarray(x.astype(jnp.float32))) for x in (q, k_pool, v_pool)]
+    out = paged_gqa_decode_attention(
+        *(x.to(torch.bfloat16) for x in f32), _t(bt), _t(positions),
+        active=None if act is None else _t(act), window=window,
+    )
+    return _t(np.asarray(ref.astype(jnp.float32))), out, f32
+
+
+@pytest.mark.parametrize("window", [None, 150])
+@pytest.mark.parametrize("active", [None, [True, False, True, True]])
+def test_paged_decode_plain_matches_jax_bf16(paged_bf16_inputs, window, active):
+    """bf16 pools: the plain twin rounds P to bf16 before P.V, as the JAX
+    loop does (``p.astype(v_blk.dtype)``), and so stays within one bf16
+    rounding of the JAX output; with an f32 P.V it read ~12 of this bound."""
+    ref, out, _ = _paged_jax_and_port(paged_bf16_inputs, window, active)
+    assert out.dtype == torch.bfloat16
+    diff = (out.float() - ref).abs()
+    ratio = float((diff / (2.0 ** -8 * ref.abs() + 1e-4)).max())
+    print(f"window={window} active={active}: worst err/bound {ratio:.3f}, "
+          f"max abs err {float(diff.max()):.3e}")
+    assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("window", [None, 150])
+@pytest.mark.parametrize("active", [None, [True, False, True, True]])
+def test_paged_bf16_bound_holds_for_jax(paged_bf16_inputs, window, active):
+    """The bound the bf16 paged kernels are held to on the card is one the
+    JAX function itself meets: run in bf16, it stays within
+    ``paged_bf16_bound`` of the port's f32 plain twin on the same values."""
+    out, _, (q, k_pool, v_pool) = _paged_jax_and_port(paged_bf16_inputs, window, active)
+    _, _, _, bt, positions = paged_bf16_inputs
+    act = None if active is None else _t(np.asarray(active))
+    args = (q, k_pool, v_pool, _t(bt), _t(positions))
+    ref = paged_gqa_decode_attention(*args, active=act, window=window)
+    bound = paged_bf16_bound(*args, ref, active=act, window=window)
+    ratio = float(((out - ref).abs() / bound).max())
+    print(f"window={window} active={active}: JAX bf16 worst err/bound {ratio:.3f}")
+    assert ratio <= 1.0
 
 
 def test_paged_decode_refuses_fp8():
