@@ -20,15 +20,26 @@ exits non-zero):
    path's own decode shape and a bitwise repeat check (``paged_live_keys``
    and ``paged_bound_ms`` are also imported by ``tools/paged_decode_ab.py``);
 3. a small f32 model on the card (kernels) against the same model on the
-   CPU (plain twins): prefill and decode logits, and greedy token ids;
+   CPU (plain twins): prefill logits, and the engine's greedy token ids at
+   the default loop (on the card the fused 8-step tick replayed as a CUDA
+   graph, with a piggybacked chunk; on the CPU the same loop eagerly), and
+   on the card at ``decode_steps=1`` too;
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
-   weights drawn on the card, a ``GenerationEngine`` registered in a
-   ``ModelRegistry`` behind ``create_app`` on a localhost port, and
-   concurrent greedy ``/dialog/`` requests (two through the 512 prefill
-   bucket, one through chunked prefill); launch counts are zeroed just
-   before the requests and read just after, and both kernels must have run,
-   every paged call through the tensor-core kernel;
-5. one ``/dialog/`` request through ``cli serve --tiny --device cuda``;
+   weights drawn on the card, a ``GenerationEngine`` at the default loop
+   (fused 8-step ticks as a CUDA graph, piggybacked prefill, the admission
+   scheduler) registered in a ``ModelRegistry`` behind ``create_app`` on a
+   localhost port, and concurrent greedy ``/dialog/`` requests (two through
+   the 512 prefill bucket, one through chunked prefill); launch counts are
+   zeroed just before the requests and read just after (a graph's launches
+   are counted at each replay), both kernels must have run, every paged
+   call through the tensor-core kernel, 32 paged launches per decode step;
+   then the decode breakdown: the eager step and one replay of the engine's
+   captured 8-step tick, per step, side by side, and a 512-token chunk with
+   the tick as one replay of the piggyback graph against the chunk run
+   eagerly before the tick's replay;
+5. a load-shedding check (a tiny engine with a queue bound of 1: a burst of
+   ``/dialog/`` requests gets 429 with ``Retry-After``) and one
+   ``/dialog/`` request through ``cli serve --tiny --device cuda``;
 6. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
    line, and the final ``{"ok": true, ...}`` line.
 """
@@ -330,19 +341,18 @@ def check_flash(gen) -> dict:
             lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), iters
         )
         bound_ms, bound_by = _flash_bound_ms(B, H, KH, S, D, True, None, 2)
-        line = (f"  flash timing B={B} H={H} KH={KH} S={S} D={D} bf16 causal: kernel wall "
-                f"{ms:.4f} ms (device {dev:.4f}), sdpa wall {library_ms:.4f} ms (device "
-                f"{lib_dev:.4f}), bound {bound_ms:.4f} ms ({bound_by}); share of the bound, "
-                f"wall: kernel {bound_ms / ms:.3f}, sdpa {bound_ms / library_ms:.3f}; device: "
-                f"kernel {bound_ms / dev:.3f}, sdpa {bound_ms / lib_dev:.3f}")
+        qf, kf, vf = q.float(), k.float(), v.float()
+        plain_ms = time_ms(lambda: flash_attention_plain(qf, kf, vf, causal=True),
+                           max(3, iters // 5))
+        log(f"  flash timing B={B} H={H} KH={KH} S={S} D={D} bf16 causal: kernel wall "
+            f"{ms:.4f} ms (device {dev:.4f}), sdpa wall {library_ms:.4f} ms (device "
+            f"{lib_dev:.4f}), bound {bound_ms:.4f} ms ({bound_by}); share of the bound, "
+            f"wall: kernel {bound_ms / ms:.3f}, sdpa {bound_ms / library_ms:.3f}; device: "
+            f"kernel {bound_ms / dev:.3f}, sdpa {bound_ms / lib_dev:.3f}; plain wall "
+            f"{plain_ms:.4f} ms")
         if S == 512:
-            plain_ms = time_ms(
-                lambda: flash_attention_plain(q.float(), k.float(), v.float(), causal=True), 10
-            )
-            line += f"; plain wall {plain_ms:.4f} ms"
             result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
-        log(line)
     return {
         "name": "flash_prefill",
         "route": "cuda",
@@ -555,21 +565,34 @@ def small_reference():
     prompts = [torch.randint(1, 255, (n,), generator=torch.Generator().manual_seed(n)).tolist()
                for n in (40, 300, 450, 700)]
 
-    def run(device, params):
+    def run(device, params, **kw):
+        # the loop cranked on this thread, so both sides see the same waves
         eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device,
-                               max_slots=4, max_seq_len=1024, chunk_size=512)
-        eng.start()
-        try:
-            futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
-            return [f.result(timeout=600).token_ids for f in futs]
-        finally:
-            eng.stop()
+                               max_slots=4, max_seq_len=1024, chunk_size=512, **kw)
+        eng._running = True
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+        with torch.no_grad():
+            for _ in range(1000):
+                if all(f.done() for f in futs):
+                    break
+                eng._loop_iteration()
+        eng._running = False
+        return [f.result(timeout=0).token_ids for f in futs], eng.decode_path_stats()
 
-    ids_gpu = run("cuda", params_gpu)
-    ids_cpu = run("cpu", params_cpu)
-    log(f"  small model engine greedy ids, card vs CPU: {'identical' if ids_gpu == ids_cpu else 'DIFFER'}")
+    ids_gpu, dec = run("cuda", params_gpu)  # graph of the fused 8-step tick, piggyback
+    ids_cpu, _ = run("cpu", params_cpu)  # the same loop, eager
+    ids_one, dec_one = run("cuda", params_gpu, decode_steps=1)
+    log(f"  small model engine greedy ids at the default loop, card (CUDA graph, "
+        f"{dec['decode_steps']}-step ticks, {dec['prefill_chunks_piggybacked']} piggybacked "
+        f"chunk) vs CPU (eager): {'identical' if ids_gpu == ids_cpu else 'DIFFER'}; card at "
+        f"decode_steps=1: {'identical' if ids_one == ids_cpu else 'DIFFER'}")
+    if not (dec["cuda_graph"] and dec_one["cuda_graph"] and dec["decode_steps"] == 8
+            and dec["prefill_chunks_piggybacked"] > 0):
+        fail(f"the card engine did not run the graph / fused ticks / piggyback: {dec}, {dec_one}")
     if ids_gpu != ids_cpu:
         fail(f"greedy ids differ: card {ids_gpu} vs CPU {ids_cpu}")
+    if ids_one != ids_cpu:
+        fail(f"greedy ids differ at decode_steps=1: card {ids_one} vs CPU {ids_cpu}")
 
 
 # --------------------------------------------------------------------- phase 4
@@ -606,17 +629,30 @@ def main_path(card: str) -> dict:
     cfg = DecoderConfig.llama3_8b()  # all 32 layers, full width, bf16
     params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     tok = ByteTokenizer()
-    engine = GenerationEngine(cfg, params, tok, device="cuda", max_slots=8, max_seq_len=4096)
+    name = "llama3-8b-random"
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096)  # default loop
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine = GenerationEngine(
+        cfg, params, tok, device="cuda", max_slots=8, max_seq_len=4096, burst=spec.burst,
+        prefill_piggyback=spec.prefill_piggyback, scheduler=spec.build_scheduler(),
+    )
     torch.cuda.synchronize()
     resident_gib = torch.cuda.memory_allocated() / 2**30  # weights + page pool
     n_params = sum(w.numel() for w in params["layers"].values()) + params["tok_embed"].numel() \
         + params["lm_head"].numel() + params["final_norm"].numel()
+    dec = engine.decode_path_stats()
     log(f"  Llama-3-8B geometry, {cfg.num_layers} layers, {n_params / 1e9:.2f} B params bf16, "
         f"KV pool {engine._kv_pool.n_pages} pages of {engine.kv_page_size}: built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s, of which the engine (pool, warm-up tick and "
+        f"capture of the {engine.decode_steps}-step tick) {time.perf_counter() - t1:.2f} s; "
+        f"graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB; decode path {dec}; "
+        f"scheduler max_queue {engine.scheduler.cfg.max_queue}")
+    if not (dec["cuda_graph"] and dec["decode_steps"] == 8 and dec["prefill_piggyback"]
+            and engine._piggyback_graph is not None):
+        fail(f"the main-path engine is not at the default loop: {dec}")
     registry = ModelRegistry()
-    name = "llama3-8b-random"
-    registry.load(ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096), engine=engine)
+    registry.load(spec, engine=engine)
     app = create_app(registry)
     port = _free_port()
     # prompt sizes in tokens: 2 in the 512 bucket (flash kernel), 1 past
@@ -647,16 +683,17 @@ def main_path(card: str) -> dict:
                     fail(f"warm-up /dialog/ returned {st}: {body}")
                 torch.cuda.synchronize()
                 kernels.reset_counts()
+                steps0 = engine.steps
                 t = time.perf_counter()
                 results = await asyncio.gather(*(post(session, m) for m in messages.values()))
                 wall = time.perf_counter() - t
                 counts = kernels.launch_counts()
                 routes = dict(kernels.PAGED_ROUTES)
-                return results, wall, counts, routes
+                return results, wall, counts, routes, engine.steps - steps0
         finally:
             await runner.cleanup()  # stops the registry's engines
 
-    results, wall, counts, routes = asyncio.run(drive())
+    results, wall, counts, routes, steps = asyncio.run(drive())
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     total_completion = 0
     ttfts, decode_rates = [], []
@@ -685,24 +722,96 @@ def main_path(card: str) -> dict:
         f"{total_completion / wall:.2f} completion tok/s overall; peak memory {peak_gib:.2f} GiB "
         f"({resident_gib:.2f} GiB resident weights and page pool, "
         f"{peak_gib - resident_gib:.2f} GiB above it at the peak)")
-    log(f"  launches during the run: {counts}; paged decode by route: {routes}")
+    log(f"  launches during the run: {counts}; paged decode by route: {routes}; "
+        f"{steps} decode steps in {steps // engine.decode_steps} ticks")
+    log(f"  tick_stats: {json.dumps(engine.tick_stats())}")
     for k, n in counts.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
     if routes != {"mma": counts["paged_decode"], "cuda_core": 0}:
         fail(f"paged decode on the main path left the tensor-core kernel: {routes}")
-    decode_breakdown(cfg, params)
+    if counts["paged_decode"] != cfg.num_layers * steps:
+        fail(f"replay-counted paged launches {counts['paged_decode']} != {cfg.num_layers} x "
+             f"{steps} decode steps")
+    decode_breakdown(cfg, params, engine)
     del params, engine, registry
     torch.cuda.empty_cache()
     return counts
 
 
-def decode_breakdown(cfg, params) -> None:
-    """Where a full-width decode step's time goes: 8 slots at ragged
-    positions in a fresh pool; the host's enqueue time, the synchronised
-    step time, and the device's kernel time per step from torch.profiler."""
+def _timed_run(fn, n: int, per: int, label: str) -> None:
+    """Log the synchronised, host-enqueue and device kernel time of ``fn``
+    per decode step (``fn`` runs ``per`` steps), the idle share, and the
+    device time by kernel from torch.profiler over ``n`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    wall_ms, enqueue_ms = _sync_and_enqueue_ms(fn, n, per)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels_by_name = []
+    for e in prof.key_averages():
+        dev_us = _device_us(e)
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_by_name.append((dev_us / (n * per) / 1e3, e.count / (n * per), e.key))
+    busy_ms = sum(ms for ms, _, _ in kernels_by_name)
+    log(f"  {label}: {wall_ms:.3f} ms synchronised per step, host enqueue {enqueue_ms:.3f} ms, "
+        f"device kernel time {busy_ms:.3f} ms "
+        f"({'not measured: profiler saw no device time' if busy_ms == 0 else f'idle share {1 - busy_ms / wall_ms:.3f}'})")
+    for ms, calls, name in sorted(kernels_by_name, reverse=True)[:6]:
+        log(f"    {ms:.4f} ms/step in {calls:g} launches/step: {name[:90]}")
+    paged = [(ms, calls) for ms, calls, name in kernels_by_name if "paged" in name]
+    log(f"    paged attention: {sum(ms for ms, _ in paged):.4f} ms/step in "
+        f"{sum(c for _, c in paged):g} launches/step; all kernels: "
+        f"{sum(c for _, c, _ in kernels_by_name):g} launches/step")
+
+
+def _sync_and_enqueue_ms(fn, n: int, per: int) -> tuple:
+    """(synchronised ms, host-enqueue ms) per step of ``n`` back-to-back
+    calls of ``fn`` (``per`` steps each), after three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) / n / per * 1e3
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n / per * 1e3, enqueue_ms
+
+
+def _graph_span_ms(replay, n: int) -> list:
+    """Milliseconds between CUDA events recorded just before and just after
+    each of ``n`` calls of ``replay`` (one graph launch each)."""
+    import torch
+
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spans = []
+    for _ in range(n):
+        ev0.record()
+        replay()
+        ev1.record()
+        torch.cuda.synchronize()
+        spans.append(ev0.elapsed_time(ev1))
+    return spans
+
+
+def decode_breakdown(cfg, params, engine) -> None:
+    """Where a full-width decode step's time goes: 8 slots at ragged
+    positions; the eager step (a fresh pool, ``decode_step_paged`` issued op
+    by op; torch.profiler's kernel time), then the engine's captured 8-step
+    tick with its noise draws (the engine's own ``_launch_tick``) at the same
+    positions, per step.  For a replay torch.profiler loses kernel records,
+    so its device time is bounded from above by the span between CUDA
+    events around the graph's launch (the span also holds the card's wait
+    for the launch), and its idle share is not measured.  Last, a
+    512-token chunk with the tick: one replay of the piggyback graph against
+    the chunk issued eagerly, then the tick's replay."""
+    import torch
 
     from django_assistant_bot_tpu_torch.models import llama
 
@@ -713,42 +822,94 @@ def decode_breakdown(cfg, params) -> None:
     tokens = torch.zeros(B, dtype=torch.int32, device="cuda")
 
     def step():
-        cache.lengths = start.clone()
+        cache.lengths.copy_(start)
         llama.decode_step_paged(params, cfg, tokens, cache, bt)
 
+    K = engine.decode_steps
+    engine._bt_dev.copy_(bt)
+    engine._active_dev.fill_(True)
+    engine._temps_dev.zero_()
+
+    def tick(piggyback=False):
+        engine._cache.lengths.copy_(start)
+        engine._launch_tick(piggyback)
+
+    def chunk_then_tick():
+        engine._cache.lengths.copy_(start)
+        engine._chunk_body()
+        engine._launch_tick()
+
     with torch.no_grad():
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        n = 10
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        enqueue_ms = (time.perf_counter() - t0) / n * 1e3
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize()
-    kernels_by_name = []
-    for e in prof.key_averages():
-        dev_us = _device_us(e)
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels_by_name.append((dev_us / n / 1e3, e.count // n, e.key))
-    busy_ms = sum(ms for ms, _, _ in kernels_by_name)
-    log(f"  decode step, 8 slots, full width: {wall_ms:.3f} ms synchronised, host enqueue "
-        f"{enqueue_ms:.3f} ms, device kernel time {busy_ms:.3f} ms "
-        f"({'not measured: profiler saw no device time' if busy_ms == 0 else f'idle share {1 - busy_ms / wall_ms:.3f}'})")
-    for ms, calls, name in sorted(kernels_by_name, reverse=True)[:6]:
-        log(f"    {ms:.4f} ms/step in {calls} launches/step: {name[:90]}")
-    paged = [(ms, calls) for ms, calls, name in kernels_by_name if "paged" in name]
-    log(f"    paged attention: {sum(ms for ms, _ in paged):.4f} ms/step in "
-        f"{sum(c for _, c in paged)} launches/step; all kernels: "
-        f"{sum(c for _, c, _ in kernels_by_name)} launches/step")
+        _timed_run(step, 10, 1, "eager decode step, 8 slots, full width")
+        wall_ms, enqueue_ms = _sync_and_enqueue_ms(tick, 10, K)
+        spans = [ms / K for ms in _graph_span_ms(engine._graph.replay, 10)]
+        span_ms = sum(spans) / len(spans)
+        log(f"  graph replay of the {K}-step tick, 8 slots, full width: {wall_ms:.3f} ms "
+            f"synchronised per step, host enqueue {enqueue_ms:.3f} ms, device time at most the "
+            f"graph span (CUDA events, launch wait included) {span_ms:.3f} ms per step "
+            f"({min(spans):.3f}-{max(spans):.3f} over 10 replays), idle share not measured; "
+            f"{engine._graph_launches.launches['paged_decode'] // K} paged launches per step "
+            f"(recorded at capture); graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB")
+        # the chunk's page chain all sentinels: it writes the dump page and
+        # slot 0's length only (the work of a real chunk: the row is gathered
+        # and written back whole)
+        engine._chunk_bt_dev.fill_(engine._kv_sentinel)
+        engine._chunk_slot_dev.zero_()
+        engine._chunk_start_dev.zero_()
+        pig_ms, _ = _sync_and_enqueue_ms(lambda: tick(True), 5, 1)
+        seq_ms, _ = _sync_and_enqueue_ms(chunk_then_tick, 5, 1)
+        pig_span = sum(_graph_span_ms(engine._piggyback_graph.replay, 5)) / 5
+        log(f"  a {engine.chunk_size}-token chunk and the {K}-step tick: one piggyback replay "
+            f"{pig_ms:.3f} ms synchronised (graph span {pig_span:.3f} ms), the chunk eager then "
+            f"the tick's replay {seq_ms:.3f} ms synchronised")
 
 
 # --------------------------------------------------------------------- phase 5
+def shed_check() -> None:
+    """A tiny engine on the card with one slot and a queue bound of 1: a
+    burst of ten ``/dialog/`` requests must see at least one 200 and at
+    least one 429 carrying ``Retry-After``."""
+    import aiohttp
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    registry = ModelRegistry.from_config({"shed-chat": {
+        "tiny": True, "device": "cuda", "max_slots": 1, "max_seq_len": 256,
+        "sched_max_queue": 1, "sched_admit_max_wait_s": None,
+    }})
+    port = _free_port()
+
+    async def drive():
+        runner = web.AppRunner(create_app(registry))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                async def one(i):
+                    async with session.post(
+                        f"http://127.0.0.1:{port}/dialog/",
+                        json={"model": "shed-chat", "max_tokens": 64, "priority": "background",
+                              "messages": [{"role": "user", "content": f"q{i}"}]},
+                    ) as resp:
+                        return resp.status, resp.headers.get("Retry-After"), await resp.json()
+
+                return await asyncio.gather(*(one(i) for i in range(10)))
+        finally:
+            await runner.cleanup()
+
+    results = asyncio.run(drive())
+    statuses = [st for st, _, _ in results]
+    shed = [(retry, body) for st, retry, body in results if st == 429]
+    log(f"  shed check (1 slot, queue bound 1, burst of 10): statuses {statuses}; "
+        f"Retry-After {[r for r, _ in shed]}; reasons {sorted({b.get('reason') for _, b in shed})}")
+    if statuses.count(200) < 1 or not shed or set(statuses) - {200, 429}:
+        fail(f"load shedding: expected 200s and 429s, got {statuses}")
+    if any(r is None or int(r) < 1 or b.get("retry_after_s", 0) <= 0 for r, b in shed):
+        fail(f"a 429 without a Retry-After: {shed}")
+
+
 def serve_tiny_subprocess():
     import urllib.request
 
@@ -823,7 +984,8 @@ def main() -> int:
     log("== phase 4: main path, full-width Llama-3-8B over /dialog/")
     counts = main_path(card)
 
-    log("== phase 5: cli serve --tiny --device cuda")
+    log("== phase 5: load shedding, and cli serve --tiny --device cuda")
+    shed_check()
     serve_tiny_subprocess()
 
     for e in entries:

@@ -13,12 +13,18 @@ returns ``cudaGetLastError()``, which :func:`_check` turns into an exception.
 ``LAUNCHES`` counts launches per kernel: the launch functions below add one
 each time they launch, and nowhere else, so a run can show that its main
 path went through the kernels (:func:`reset_counts`, :func:`launch_counts`).
+A call made while a CUDA graph is being captured launches nothing: it is
+recorded into the graph, and the launches a graph holds are counted each
+time the graph is replayed (:class:`GraphLaunches`).  A launch function
+called during a capture outside :func:`record_graph_launches` raises, so no
+replayed kernel goes uncounted.
 
 Nothing here touches CUDA, ``nvcc`` or the build directory at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -85,10 +91,76 @@ PAGED_MMA_HEAD_DIMS = (64, 128)
 PAGED_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
 
 # paged decode scratch per (device, stream): (f32 partials, int32 counters);
-# the counters start at zero and every call leaves them at zero
+# the counters start at zero and every call leaves them at zero (a graph's
+# owner keeps its own store, see private_paged_scratch)
 _paged_scratch: Dict[tuple, tuple] = {}
 # f32 scratch floats per (device, route, shapes), as the library reports them
 _paged_need: Dict[tuple, int] = {}
+
+
+class GraphLaunches:
+    """The kernel launches recorded into one CUDA graph at its capture;
+    :meth:`replayed` adds them to ``LAUNCHES`` and ``PAGED_ROUTES`` once per
+    replay of the graph."""
+
+    def __init__(self):
+        self.launches: Dict[str, int] = {name: 0 for name in KERNELS}
+        self.routes: Dict[str, int] = {route: 0 for route in PAGED_ROUTES}
+
+    def replayed(self) -> None:
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
+        for route, n in self.routes.items():
+            PAGED_ROUTES[route] += n
+
+
+# per thread: the GraphLaunches a capture records into, and a private
+# paged-scratch store that replaces the shared one
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def record_graph_launches():
+    """Record the launches this thread captures into a graph (yields the
+    :class:`GraphLaunches` they go to) instead of counting them."""
+    rec = GraphLaunches()
+    _tls.rec = rec
+    try:
+        yield rec
+    finally:
+        _tls.rec = None
+
+
+@contextlib.contextmanager
+def private_paged_scratch(store: Dict[tuple, tuple]):
+    """Give this thread's paged decode calls the scratch in ``store`` (keyed
+    like the shared cache) instead of the shared cache.  A CUDA graph's
+    owner warms up and captures inside it, so the scratch and counters the
+    graph holds are its own: no eager call, on any stream, uses them."""
+    _tls.scratch = store
+    try:
+        yield store
+    finally:
+        _tls.scratch = None
+
+
+def _count(name: str, route: Optional[str] = None) -> None:
+    """One launch of ``name`` (and of its paged ``route``): counted now, or
+    recorded for the replays when this thread is capturing a graph."""
+    rec = getattr(_tls, "rec", None)
+    if rec is not None:
+        rec.launches[name] += 1
+        if route is not None:
+            rec.routes[route] += 1
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{name} captured into a CUDA graph outside record_graph_launches(): "
+            "its replays would go uncounted"
+        )
+    LAUNCHES[name] += 1
+    if route is not None:
+        PAGED_ROUTES[route] += 1
 
 
 def reset_counts() -> None:
@@ -204,7 +276,7 @@ def flash_prefill(
             dtype_code(q.dtype), B, H, KH, Sq, Sk, D, int(causal),
             int(window) if window is not None else 0, _stream(q),
         )
-    LAUNCHES["flash_prefill"] += 1
+    _count("flash_prefill")
     _check("flash_prefill", err)
 
 
@@ -229,15 +301,28 @@ def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
 def _paged_buffers(device: torch.device, stream: int, shapes: tuple, n_rows: int):
     """The paged decode scratch of (device, stream), grown to what the
     library asks for ``shapes`` (mma, B, H, KH, page, NB, D) and to
-    ``n_rows`` counters."""
+    ``n_rows`` counters.  A graph captures the buffers' addresses, so they
+    must exist before its capture (a warm-up call on the capture stream makes
+    them): growing them during a capture would put graph-pool memory in this
+    cache, where eager calls would find it, and raises instead."""
     need = paged_scratch_floats(device, shapes)
     key = (device.index, stream)
-    part, counters = _paged_scratch.get(key, (None, None))
-    if part is None or part.numel() < need:
+    store = getattr(_tls, "scratch", None)
+    if store is None:
+        store = _paged_scratch
+    part, counters = store.get(key, (None, None))
+    grow_part = part is None or part.numel() < need
+    grow_counters = counters is None or counters.numel() < n_rows
+    if (grow_part or grow_counters) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "paged decode scratch must be allocated before a CUDA graph capture: "
+            "warm the captured calls up on the capture stream first"
+        )
+    if grow_part:
         part = torch.empty(need, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_rows:
+    if grow_counters:
         counters = torch.zeros(n_rows, dtype=torch.int32, device=device)
-    _paged_scratch[key] = (part, counters)
+    store[key] = (part, counters)
     return part, counters
 
 
@@ -272,6 +357,5 @@ def paged_decode(
             dtype_code(q.dtype), B, H, KH, P, page, NB, D,
             int(window) if window is not None else 0, stream,
         )
-    LAUNCHES["paged_decode"] += 1
-    PAGED_ROUTES["mma" if mma else "cuda_core"] += 1
+    _count("paged_decode", "mma" if mma else "cuda_core")
     _check("paged_decode", err)

@@ -13,8 +13,10 @@ written and never read.  The JAX code drops out-of-range scatter rows
 (``mode="drop"``, index ``P``); PyTorch has no such mode and an index of P
 would fault, so writes aimed at P land in the dump page instead — no host
 round trip per layer — and every read clamps block-table entries to the
-logical ``P - 1`` as the JAX code does.  The functions that write the pools
-update them in place and return the cache.
+logical ``P - 1`` as the JAX code does.  The functions that write the cache
+update its tensors in place (``lengths`` included) and return the cache, so
+a CUDA graph that captured the tensors' addresses keeps reading the live
+state.
 """
 
 from __future__ import annotations
@@ -274,25 +276,27 @@ def _scatter_paged_rows(
     pool: torch.Tensor,  # [P + 1, KH, page, D] one layer
     rows: torch.Tensor,  # [B, KH, NB * page, D] updated logical rows
     block_tables: torch.Tensor,  # [B, NB]
-    blocks: range,  # logical blocks this call wrote (same for every row)
+    write: torch.Tensor,  # [B, NB] bool: the logical blocks this call wrote
 ) -> None:
-    """Write back only ``blocks`` of each row (earlier blocks may be shared
-    prefix pages, which must never be rewritten); sentinel entries land in
-    the dump page."""
+    """Write back only the ``write`` blocks of each row (earlier blocks may
+    be shared prefix pages, which must never be rewritten): the others, and
+    sentinel entries, land in the dump page (the JAX write mask's dropped
+    rows), so the write has one shape whatever the chunk's start."""
     P = pool.shape[0] - 1
-    page = pool.shape[2]
-    for j in blocks:
-        tgt = block_tables[:, j].long().clamp(max=P)
-        pool[tgt] = rows[:, :, j * page : (j + 1) * page].to(pool.dtype)
+    _, KH, page, D = pool.shape
+    B, NB = block_tables.shape
+    tgt = torch.where(write, block_tables.long().clamp(max=P), P).reshape(-1)
+    blocks = rows.reshape(B, KH, NB, page, D).transpose(1, 2).reshape(B * NB, KH, page, D)
+    pool[tgt] = blocks.to(pool.dtype)
 
 
-def _set_lengths(lengths: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """``lengths.at[slots].set(values, mode="drop")``: slots >= len(lengths)
-    (the pad-row sentinel) drop, without a host round trip."""
+def _set_lengths(lengths: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> None:
+    """``lengths.at[slots].set(values, mode="drop")``, in place: slots >=
+    len(lengths) (the pad-row sentinel) drop, without a host round trip."""
     n = lengths.shape[0]
     ext = torch.cat([lengths, lengths.new_zeros(1)])
     ext[slots.long().clamp(max=n)] = values.to(lengths.dtype)
-    return ext[:n]
+    lengths.copy_(ext[:n])
 
 
 def insert_sequences_paged(
@@ -318,7 +322,7 @@ def insert_sequences_paged(
         tgt = block_tables[:, j].long().clamp(max=P)
         cache.k[:, tgt] = ks[:, :, :, j * page : (j + 1) * page].to(cache.k.dtype)
         cache.v[:, tgt] = vs[:, :, :, j * page : (j + 1) * page].to(cache.v.dtype)
-    cache.lengths = _set_lengths(cache.lengths, slots, lengths)
+    _set_lengths(cache.lengths, slots, lengths)
     return cache
 
 
@@ -328,18 +332,20 @@ def prefill_chunk_paged(
     input_ids: torch.Tensor,  # [1, C] one chunk of one prompt
     cache: PagedKVCache,
     block_table: torch.Tensor,  # [NB] the target slot's page chain
-    slot: int,
-    start: int,  # tokens already written for this slot
+    slot,  # int, or a [1] int64 tensor on the cache's device
+    start,  # tokens already written for this slot: int, or a [1] int64 tensor
     valid: int,  # real (non-pad) tokens in this chunk
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """One chunk of one long prompt extends the slot's page chain: the
     forward runs over the gathered logical row, and write-back covers only
-    the blocks overlapping ``[start, start + valid)``."""
+    the blocks overlapping ``[start, start + valid)``.  With ``slot`` and
+    ``start`` as device tensors the call makes no host round trip and its
+    shapes do not depend on them, so one CUDA graph serves every chunk."""
     B, C = input_ids.shape
     L, P1, KH, page, D = cache.k.shape
     NB = block_table.shape[0]
     S = NB * page
-    if start + C > S:
+    if isinstance(start, int) and start + C > S:
         raise ValueError(f"chunk [{start}, {start + C}) runs past the cache ({S})")
     dev = input_ids.device
     pos = start + torch.arange(C, device=dev)
@@ -349,7 +355,8 @@ def prefill_chunk_paged(
     kpos = torch.arange(S, device=dev)[None, None, None, :]
     causal_keep = kpos <= pos[None, None, :, None]
     bt = block_table[None, :]
-    blocks = range(start // page, min(NB, -(-(start + valid) // page)))
+    blk = torch.arange(NB, device=dev)
+    write = (((blk + 1) * page > pos[0]) & (blk * page < pos[0] + valid))[None, :]
     for l, window in enumerate(_layer_windows(cfg)):
         attn_mask = causal_keep
         if window is not None:
@@ -359,16 +366,16 @@ def prefill_chunk_paged(
         q, k, v = _attn_proj(cfg, p, h, cos, sin)
         k_row = _gather_paged_rows(cache.k[l], bt)
         v_row = _gather_paged_rows(cache.v[l], bt)
-        k_row[:, :, start : start + C] = k.to(k_row.dtype)
-        v_row[:, :, start : start + C] = v.to(v_row.dtype)
+        k_row.index_copy_(2, pos, k.to(k_row.dtype))
+        v_row.index_copy_(2, pos, v.to(v_row.dtype))
         o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
         o = o.transpose(1, 2).reshape(B, C, -1)
         x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
         h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
         x = x + _mlp(cfg, p, h)
-        _scatter_paged_rows(cache.k[l], k_row, bt, blocks)
-        _scatter_paged_rows(cache.v[l], v_row, bt, blocks)
-    cache.lengths[slot] = start + valid
+        _scatter_paged_rows(cache.k[l], k_row, bt, write)
+        _scatter_paged_rows(cache.v[l], v_row, bt, write)
+    cache.lengths[slot] = (pos[0] + valid).to(cache.lengths.dtype)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = x[0, max(valid - 1, 0)]
     logits = _head_logits(params, cfg, last)[None]
@@ -428,7 +435,7 @@ def decode_step_paged(
         x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
         h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
         x = x + _mlp(cfg, p, h)
-    cache.lengths = torch.where(active, cache.lengths + 1, cache.lengths)
+    cache.lengths.add_(active.to(cache.lengths.dtype))
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
     logits = _head_logits(params, cfg, x)
     return logits.float(), cache

@@ -8,8 +8,10 @@ on Hopper is ROADMAP Queue 2 entry 4 and comes with a later slice.
 The categorical draw is ``argmax(logits + gumbel)``, exactly how
 ``jax.random.categorical`` draws (``gumbel(key, logits.shape, logits.dtype)``
 added to the candidate logits).  The noise comes from a ``torch.Generator``,
-or is passed in pre-drawn (``gumbel=``) so a test can feed the port the very
-noise JAX drew.
+or is passed in pre-drawn (``gumbel=``): the engine's fused decode tick
+draws each step's noise with :func:`gumbel_noise` into a buffer the tick
+(or its CUDA graph) reads, and a test can feed the port the very noise JAX
+drew.
 """
 
 from __future__ import annotations
@@ -56,6 +58,21 @@ def top_k_auto(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals, idx.to(torch.int32)
 
 
+def noise_width(vocab: int, top_k: int) -> int:
+    """The last axis of the draw's noise: ``top_k`` candidates when top-k
+    filtering applies, else the whole vocabulary."""
+    return top_k if 0 < top_k < vocab else vocab
+
+
+def gumbel_noise(out: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Fill ``out`` (f32) with Gumbel(0, 1) noise, -log(-log(U)) for U
+    uniform in (0, 1), drawn by ``generator``: the draw of
+    :func:`sample_logits`, one generator call per fill."""
+    torch.rand(out.shape, generator=generator, device=out.device, out=out)
+    out.clamp_(min=torch.finfo(torch.float32).tiny, max=1.0 - 2**-24)
+    return out.log_().neg_().log_().neg_()
+
+
 def _per_row(value: Scalar, B: int, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.float32, device=device).expand(B)
 
@@ -80,10 +97,7 @@ def sample_logits(
     def draw(vals: torch.Tensor) -> torch.Tensor:
         noise = gumbel
         if noise is None:
-            # Gumbel(0, 1) = -log(-log(U)), U uniform in (0, 1)
-            u = torch.rand(vals.shape, generator=generator, device=vals.device)
-            u = u.clamp_(min=torch.finfo(torch.float32).tiny, max=1.0 - 2**-24)
-            noise = -torch.log(-torch.log(u))
+            noise = gumbel_noise(torch.empty(vals.shape, device=vals.device), generator)
         return torch.argmax(vals + noise.to(vals.dtype), dim=-1)
 
     if top_k and 0 < top_k < V:

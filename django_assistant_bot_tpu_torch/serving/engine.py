@@ -1,24 +1,44 @@
 """Continuous-batching generation engine, paged KV (port of ``serving/engine.py``).
 
-This slice ports the JAX engine's paged path with its rollback settings:
-``kv_layout="paged"``, FIFO admission (no scheduler), sequential chunked
-prefill (no piggybacking), no prefix cache, single-step decode ticks, no
-speculation and no JSON-constrained decoding.  Each of those knobs is still
-accepted at its ported value and refused, naming its ROADMAP item, at any
-other.  What is ported is the JAX engine's own logic:
+This slice ports the JAX engine's default decode loop: ``kv_layout="paged"``,
+fused ``decode_steps``-step ticks, chunked prefill piggybacked into the
+decode tick, and the admission-controlled :class:`~.scheduler.RequestScheduler`.
+The prefix cache, speculation, fp8 KV and JSON-constrained decoding are still
+accepted only at their off value and refused, naming their ROADMAP item, at
+any other.  What is ported is the JAX engine's own logic:
 
-- **Admission waves.**  Free slots take queued requests in FIFO order; each
-  reserves ``ceil((prompt + max_tokens) / page)`` pages up front, so decode
-  can never run out of pages mid-stream.  A wave is grouped by prefill
-  bucket and each group is one prefill call whose batch pads to a batch
-  bucket of {1, 4, max_slots}; pad rows come first and carry the slot-count
-  and page sentinels, so their writes drop.  Prompts longer than
-  ``chunk_size`` prefill one chunk per loop iteration, one at a time.
-- **Decode ticks.**  One :func:`~..models.llama.decode_step_paged` plus
-  sampling per tick for every live slot; the sampled ids stay on the device
-  and chain into the next tick, and their host copies are consumed
-  ``lookahead`` ticks behind, so the host never waits on the tick it just
-  issued.  A request finishes on EOS, on ``max_tokens`` or at the context.
+- **Admission.**  Free slots take queued requests in the scheduler's
+  weighted-fair-share order (FIFO with ``scheduler=None``); each reserves
+  ``ceil((prompt + max_tokens) / page)`` pages up front, so decode can never
+  run out of pages mid-stream.  A wave is grouped by prefill bucket and each
+  group is one prefill call whose batch pads to a batch bucket of {1, 4,
+  max_slots}; pad rows come first and carry the slot-count and page
+  sentinels, so their writes drop.  Prompts longer than ``chunk_size``
+  prefill one chunk per loop iteration, one at a time.  With a scheduler,
+  ``submit`` may shed synchronously (:class:`~.scheduler.SchedulerRejected`),
+  and deadlines are reaped while queued and while live.
+- **Fused decode ticks.**  One tick runs ``decode_steps`` chained
+  :func:`~..models.llama.decode_step_paged` plus sampling steps for every
+  live slot and yields the sampled ids ``[K, B]``; the last step's ids stay
+  on the device and chain into the next tick, and their host copies are
+  consumed ``lookahead`` ticks behind, so the host never waits on the tick
+  it just issued.  Each step's sampling noise is drawn by the engine's
+  generator into a buffer before the tick (one draw per step, as an N=1
+  engine draws), so sampled ids do not depend on ``decode_steps``.  A slot
+  finishes on EOS, on ``max_tokens`` or at the context; its later tokens in
+  the tick are dropped, and its writes past its reservation land in the dump
+  page.  On the card the tick is a CUDA graph captured once per engine (at
+  construction) and replayed once per tick; on the CPU it is a Python loop.
+- **Piggybacked prefill.**  While a slot is mid-chunked-prefill, a live
+  batch exists and the chunk is not the final one, the chunk and the decode
+  tick run as one program, chunk first (the JAX piggyback program's order:
+  the chunk consumes no noise and writes only its own slot's pages, so the
+  ids are those of the sequential path).  On the card that program is a
+  second CUDA graph, captured with the tick's, whose chunk reads its ids,
+  page chain, slot and start from buffers; on the CPU it is the chunk then
+  the steps.  Otherwise the chunk runs on its own and the tick waits for it
+  (``prefill_displacement_frac``); the final chunk always does, since its
+  logits feed the slot's first token.
 - **A background thread** runs the loop; ``submit`` is thread-safe and
   returns a ``concurrent.futures.Future``; ``generate`` awaits one from
   asyncio.
@@ -39,10 +59,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..models import DecoderConfig, llama
-from ..ops.sampling import sample_logits
+from ..ops.sampling import gumbel_noise, noise_width, sample_logits
 from .kv_pool import PageAllocator
+from .scheduler import DeadlineExceeded, RequestScheduler, SchedulerRejected
 from .tokenizer import Tokenizer
 
 logger = logging.getLogger(__name__)
@@ -108,17 +130,33 @@ class _Request:
     future: Future
     submitted_at: float
     first_token_at: Optional[float] = None
+    # scheduling metadata (serving/scheduler.py): class tag, fair-share
+    # tenant, absolute monotonic deadline, whether try_admit already charged
+    # the queue depth, and the worst-case page reservation it charged
+    priority: str = "interactive"
+    tenant: str = "default"
+    deadline_at: Optional[float] = None
+    admitted: bool = False
+    kv_pages: int = 0
+    # slot-residency start (prefill begins): the scheduler's service sample
+    started_at: Optional[float] = None
 
 
 @dataclasses.dataclass
 class _Slot:
     request: _Request
     generated: List[int] = dataclasses.field(default_factory=list)
+    # decode steps the slot sat through (a fused tick charges all its steps
+    # even when the request ends mid-tick) and the prefill chunks it took:
+    # the per-token denominator of the scheduler's service model
+    resident_steps: int = 0
+    prefill_chunks: int = 0
 
 
 class _HostCopy:
     """A device tensor's copy on its way to the host: started without
-    blocking (pinned buffer + event on CUDA), waited for in :meth:`numpy`."""
+    blocking (pinned buffer + event on CUDA), waited for in :meth:`numpy`.
+    On the CPU it is a copy taken now: the tick's output buffer is reused."""
 
     def __init__(self, t: torch.Tensor):
         if t.device.type == "cuda":
@@ -127,7 +165,7 @@ class _HostCopy:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = t
+            self._host = t.clone()
             self._event = None
 
     def numpy(self) -> np.ndarray:
@@ -140,8 +178,9 @@ class _HostCopy:
 class _TickRef:
     """One issued-but-not-yet-processed device result.  ``slots`` records
     (slot, epoch) for every slot live at issue time; entries whose epoch has
-    moved on (request finished earlier) are dropped.  ``first=True`` marks
-    an activation: ``nxt`` holds the wave's first tokens, entry ``offset + j``
+    moved on (request finished earlier) are dropped.  A tick's ``nxt`` is
+    ``[K, max_slots]`` ids, oldest step first.  ``first=True`` marks an
+    activation: ``nxt`` holds the wave's first tokens, entry ``offset + j``
     belonging to ``slots[j]`` (rows below ``offset`` are batch padding)."""
 
     nxt: _HostCopy
@@ -176,27 +215,27 @@ class GenerationEngine:
         max_seq_len: Optional[int] = None,
         chunk_size: int = 512,
         lookahead: int = 3,
+        burst: int = 8,
+        decode_steps: Optional[int] = None,
         decode_kv_chunk: Optional[int] = 0,
         kv_page_size: int = 0,
         kv_pages: int = 0,
-        # the JAX engine's rollback settings: the only values ported so far
+        prefill_piggyback: bool = True,
+        scheduler: Optional[RequestScheduler] = None,
+        # the JAX engine's knobs that are ported only at their off value
         kv_layout: str = "paged",
-        scheduler: Any = None,
-        prefill_piggyback: bool = False,
         prefix_cache_size: int = 0,
-        decode_steps: int = 1,
         speculative: int = 0,
         kv_cache_dtype: Optional[str] = None,
         attn_fp8: bool = False,
     ):
         _refuse("kv_layout", kv_layout, "paged", "Queue 1 item 8 (legacy contiguous KV)")
-        _refuse("scheduler", scheduler, None, "Queue 1 item 5 (scheduler)")
-        _refuse("prefill_piggyback", prefill_piggyback, False, "Queue 1 item 5 (piggybacked prefill)")
         _refuse("prefix_cache_size", prefix_cache_size, 0, "Queue 1 item 5 (prefix sharing)")
-        _refuse("decode_steps", decode_steps, 1, "Queue 1 item 5 (fused N-step ticks)")
         _refuse("speculative", speculative, 0, "Queue 1 item 9 (speculative decoding)")
         _refuse("kv_cache_dtype", kv_cache_dtype, None, "Queue 2 entry 5 (fp8 KV)")
         _refuse("attn_fp8", attn_fp8, False, "Queue 2 entry 5 (fp8 KV)")
+        if decode_steps is not None and int(decode_steps) < 1:
+            raise ValueError(f"decode_steps must be >= 1 (got {decode_steps})")
         self.device = resolve_device(device)
         if params["tok_embed"].device != self.device:
             raise ValueError(
@@ -212,6 +251,9 @@ class GenerationEngine:
         )
         self.chunk_size = int(min(chunk_size, self.max_seq_len))
         self.lookahead = max(0, int(lookahead))
+        # the JAX resolution: decode_steps wins when given, else burst
+        self.decode_steps = max(1, int(decode_steps if decode_steps is not None else burst))
+        self.prefill_piggyback = bool(prefill_piggyback)
 
         page = int(kv_page_size) or self._resolve_kv_chunk(decode_kv_chunk) or 0
         if not page:
@@ -236,6 +278,12 @@ class GenerationEngine:
         self._kv_pool = PageAllocator(n_pages, page)
         self._kv_sentinel = n_pages  # block-table "unallocated" marker
 
+        # admission control: the scheduler orders and admits; None keeps FIFO
+        self.scheduler = scheduler
+        if scheduler is not None:
+            scheduler.bind_slots(max_slots)
+            scheduler.bind_kv(self._kv_pool.available, self._kv_pool.n_pages)
+
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._pending: "collections.deque[_Request]" = collections.deque()
         self._chunking: Optional[_ChunkedPrefill] = None
@@ -247,20 +295,64 @@ class GenerationEngine:
         self._temps = np.zeros((max_slots,), np.float32)
         self._top_ps = np.ones((max_slots,), np.float32)
         self._generator = torch.Generator(device=self.device).manual_seed(0)
-        self._reset_device_state()
+        self._alloc_device_state()
         self._running = False
         self._thread: Optional[threading.Thread] = None
         self._iter_lock = threading.Lock()
         self.steps = 0
+        self.reclaimed_slots = 0
         self._ttft_s: "collections.deque[float]" = collections.deque(maxlen=1024)
+        self._ticks_issued = 0
+        self._ticks_processed = 0
+        self._tick_issue_s = 0.0
+        self._tick_block_s = 0.0
+        self._prefill_displaced_ticks = 0
+        self._prefill_chunks_piggybacked = 0
+        # the fused tick, and the chunk + tick program, as CUDA graphs on the
+        # card (captured here, while every slot is idle); the CPU runs the
+        # same steps as a Python loop
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_launches: Optional[kernels.GraphLaunches] = None
+        self._piggyback_graph: Optional[torch.cuda.CUDAGraph] = None
+        self._piggyback_launches: Optional[kernels.GraphLaunches] = None
+        self.graph_pool_bytes = 0
+        if self.device.type == "cuda":
+            self._capture_tick()
 
     # ------------------------------------------------------------ device state
-    def _reset_device_state(self) -> None:
+    def _alloc_device_state(self) -> None:
+        """Every tensor the decode tick reads or writes, allocated once per
+        engine: a captured graph keeps their addresses, so later writes to
+        them are in place (``copy_``, ``index_put_``, ``add_``)."""
+        B, K, dev = self.max_slots, self.decode_steps, self.device
         self._cache = llama.init_paged_cache(
-            self.cfg, self.max_slots, self._kv_pool.n_pages, self.kv_page_size,
-            device=self.device,
+            self.cfg, B, self._kv_pool.n_pages, self.kv_page_size, device=dev
         )
-        self._tokens_dev = torch.zeros((self.max_slots,), dtype=torch.int32, device=self.device)
+        self._tokens_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._active_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._bt_dev = torch.full(
+            (B, self._kv_blocks), self._kv_sentinel, dtype=torch.int32, device=dev
+        )
+        self._temps_dev = torch.zeros((B,), dtype=torch.float32, device=dev)
+        self._top_ps_dev = torch.ones((B,), dtype=torch.float32, device=dev)
+        width = noise_width(self.cfg.vocab_size, TOP_K)
+        self._noise = torch.zeros((K, B, width), dtype=torch.float32, device=dev)
+        self._toks_dev = torch.zeros((K, B), dtype=torch.int32, device=dev)
+        # the next prefill chunk's inputs (its ids, its slot's page chain,
+        # the slot and the chunk's start), read by the chunk program
+        self._chunk_ids_dev = torch.zeros((1, self.chunk_size), dtype=torch.int32, device=dev)
+        self._chunk_bt_dev = torch.full(
+            (self._kv_blocks,), self._kv_sentinel, dtype=torch.int32, device=dev
+        )
+        self._chunk_slot_dev = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._chunk_start_dev = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._bt_dirty = True
+        self._sampling_dirty = True
+
+    def _reset_device_state(self) -> None:
+        """Clean pools and token chain for what comes next, in place."""
+        for t in (self._cache.k, self._cache.v, self._cache.lengths, self._tokens_dev):
+            t.zero_()
         self._bt_dirty = True
         self._sampling_dirty = True
         self._upload_dirty()
@@ -303,7 +395,11 @@ class GenerationEngine:
                 logger.error("engine thread did not stop within %.0fs", drain_timeout_s)
             else:
                 self._thread = None
-        self._drain_incoming(RuntimeError("generation engine stopped"))
+        err = RuntimeError("generation engine stopped")
+        if self._thread is None:
+            self._fail_all(err)  # no loop is left to race: release the queue's depth too
+        else:
+            self._drain_incoming(err)
 
     def submit(
         self,
@@ -313,13 +409,40 @@ class GenerationEngine:
         temperature: float = 0.8,
         top_p: float = 0.95,
         json_format: bool = False,
+        priority: str = "interactive",
+        tenant: str = "default",
+        deadline_s: Optional[float] = None,
     ) -> Future:
-        """Thread-safe submission; returns a concurrent Future[GenerationResult]."""
+        """Thread-safe submission; returns a concurrent Future[GenerationResult].
+
+        With a scheduler attached, submission may raise
+        :class:`SchedulerRejected` synchronously (load shed: the request was
+        never queued); an expired deadline fails the future with
+        :class:`DeadlineExceeded` and frees the request's slot."""
         _refuse("json_format", json_format, False, "Queue 1 item 10 (JSON-constrained decoding)")
         prompt_ids = list(prompt_ids)
         limit = self.max_seq_len - 1  # room for at least one generated token
         if len(prompt_ids) > limit:
             prompt_ids = prompt_ids[-limit:]
+        # the worst-case page reservation: the scheduler's KV-pressure charge
+        demand_tokens = min(len(prompt_ids) + int(max_tokens), self.max_seq_len)
+        kv_pages = -(-demand_tokens // self.kv_page_size)
+        admitted = False
+        if self.scheduler is not None:
+            if deadline_s is None:
+                deadline_s = self.scheduler.cfg.default_deadline_s
+            adm = self.scheduler.try_admit(priority, deadline_s, kv_pages=kv_pages)
+            if not adm.ok:
+                raise SchedulerRejected(adm.reason, adm.retry_after_s)
+            if adm.clamp_max_tokens is not None:
+                max_tokens = min(max_tokens, adm.clamp_max_tokens)
+                demand_tokens = min(len(prompt_ids) + int(max_tokens), self.max_seq_len)
+                new_pages = -(-demand_tokens // self.kv_page_size)
+                if new_pages < kv_pages:
+                    self.scheduler.release_kv(kv_pages - new_pages)
+                    kv_pages = new_pages
+            admitted = True
+        now = time.monotonic()
         fut: Future = Future()
         self._queue.put(
             _Request(
@@ -328,7 +451,12 @@ class GenerationEngine:
                 temperature=float(temperature),
                 top_p=float(top_p),
                 future=fut,
-                submitted_at=time.monotonic(),
+                submitted_at=now,
+                priority=priority,
+                tenant=tenant,
+                deadline_at=(now + deadline_s) if deadline_s is not None else None,
+                admitted=admitted,
+                kv_pages=kv_pages,
             )
         )
         # a stop() racing the put above would strand the request: re-check
@@ -344,6 +472,9 @@ class GenerationEngine:
         temperature: float = 0.8,
         top_p: float = 0.95,
         json_format: bool = False,
+        priority: str = "interactive",
+        tenant: str = "default",
+        deadline_s: Optional[float] = None,
     ) -> GenerationResult:
         """Tokenize (chat-templating message lists), run, decode."""
         if isinstance(prompt, str):
@@ -352,7 +483,7 @@ class GenerationEngine:
             ids = self.tokenizer.encode_chat(prompt)
         fut = self.submit(
             ids, max_tokens=max_tokens, temperature=temperature, top_p=top_p,
-            json_format=json_format,
+            json_format=json_format, priority=priority, tenant=tenant, deadline_s=deadline_s,
         )
         return await asyncio.wrap_future(fut)
 
@@ -360,30 +491,86 @@ class GenerationEngine:
     def num_active(self) -> int:
         return sum(s is not None for s in self._slots)
 
+    def queued_depth(self) -> int:
+        """Requests accepted but not yet slotted (the scheduler's depth
+        ledger when there is one: ``submit`` charges it)."""
+        if self.scheduler is not None:
+            return self.scheduler.queue_depth
+        return self._queue.qsize() + len(self._pending)
+
     def stats(self) -> Dict[str, Any]:
+        """The engine's ``/healthz`` block."""
         ttft = sorted(self._ttft_s)
-        return {
+        out = {
             "active_slots": self.num_active,
             "steps": self.steps,
-            "queued": self._queue.qsize() + len(self._pending),
+            "queued": self.queued_depth(),
             "kv_pages_total": self._kv_pool.n_pages,
             "kv_pages_free": self._kv_pool.pages_free,
             "kv_page_size": self.kv_page_size,
             "ttft_p50_s": ttft[len(ttft) // 2] if ttft else None,
+            "ticks": self._ticks_issued,
+            "reclaimed_slots": self.reclaimed_slots,
+            **self.decode_path_stats(),
+        }
+        if self.scheduler is not None:
+            out["sched"] = self.scheduler.stats()
+        return out
+
+    def decode_path_stats(self) -> Dict[str, Any]:
+        """Which decode path is active: the fused depth (the JAX engine's
+        ``decode_steps_effective`` key; the port never lowers it), the CUDA
+        graphs, and the piggybacked-prefill gauges (chunks that rode a tick,
+        and the fraction of ticks that waited on a chunk of their own)."""
+        return {
+            "decode_steps": self.decode_steps,
+            "decode_steps_effective": self.decode_steps,
+            "cuda_graph": self._graph is not None,
+            "prefill_piggyback": self.prefill_piggyback,
+            "prefill_chunks_piggybacked": self._prefill_chunks_piggybacked,
+            "prefill_displacement_frac": round(
+                self._prefill_displaced_ticks / max(1, self._ticks_issued), 4
+            ),
+        }
+
+    def tick_stats(self) -> Dict[str, Any]:
+        """:meth:`stats` plus the per-tick wall breakdown (ms per tick):
+        ``issue_ms`` is what the host spends issuing a tick (uploads, noise,
+        the replay or the eager steps), ``block_ms`` what it waits for a
+        tick's ids in :meth:`_process_tick`."""
+        return {
+            **self.stats(),
+            "issue_ms": round(self._tick_issue_s / max(1, self._ticks_issued) * 1e3, 3),
+            "block_ms": round(self._tick_block_s / max(1, self._ticks_processed) * 1e3, 3),
+            "graph_pool_bytes": self.graph_pool_bytes,
         }
 
     # ---------------------------------------------------------------- the loop
     def _loop_iteration(self) -> bool:
-        """One iteration: reap, admit, one chunk of a chunked prefill, one
-        decode tick, then drain results ``lookahead`` ticks behind (fully when
-        no slot is live).  Returns whether admission or a chunk progressed."""
+        """One iteration: reap, admit, one chunk of a chunked prefill (with
+        the decode tick as one unit when it piggybacks), one decode tick,
+        then drain results ``lookahead`` ticks behind (fully when no slot is
+        live).  Returns whether admission or a chunk progressed."""
         with self._iter_lock:
             self._reap_dead_slots()
             admitted = self._admit()
+            ticked = False
             if self._chunking is not None:
-                self._chunk_step()
+                if (
+                    self.prefill_piggyback
+                    and self.num_active > 0
+                    and self._chunking.step < len(self._chunking.starts) - 1
+                ):
+                    # the final chunk never piggybacks: its logits feed the
+                    # activation, as in the JAX engine
+                    self._piggyback_step()
+                    ticked = True
+                else:
+                    if self.num_active > 0:
+                        self._prefill_displaced_ticks += 1
+                    self._chunk_step()
                 admitted = True
-            if self.num_active > 0:
+            if self.num_active > 0 and not ticked:
                 self._issue_tick()
             while self._inflight and (
                 len(self._inflight) > self.lookahead or self.num_active == 0
@@ -417,12 +604,16 @@ class GenerationEngine:
                 self._slots[i] = None
                 self._slot_epoch[i] += 1
             self._free_slot_pages(i)
+        self._sampling_dirty = True
         if self._chunking is not None:
             _safe_resolve(self._chunking.request.future, exc=err)
             self._free_slot_pages(self._chunking.slot)
             self._chunking = None
         while self._pending:
             _safe_resolve(self._pending.popleft().future, exc=err)
+        if self.scheduler is not None:
+            self._stage_incoming()  # their queue depth is released by the drain
+            self.scheduler.drain(err)
         self._drain_incoming(err)
 
     def _drain_incoming(self, err: BaseException):
@@ -437,16 +628,42 @@ class GenerationEngine:
         busy = {self._chunking.slot} if self._chunking is not None else set()
         return [i for i, s in enumerate(self._slots) if s is None and i not in busy]
 
+    def _dead(self, req: _Request, now: float, running: Optional[str]) -> bool:
+        """Whether ``req`` is dead: its client cancelled, or its deadline
+        passed, which fails it with :class:`DeadlineExceeded`.  ``running``
+        says where a request holding a slot was (``None``: still queued); one
+        that dies there counts as a reclaimed slot and, under a scheduler,
+        as an expiry of a running request."""
+        expired = req.deadline_at is not None and now >= req.deadline_at
+        if not expired and not req.future.cancelled():
+            return False
+        if running is not None:
+            self.reclaimed_slots += 1
+        if expired:
+            msg = (f"deadline expired after {now - req.submitted_at:.2f}s in queue"
+                   if running is None else f"deadline expired {running}")
+            _safe_resolve(req.future, exc=DeadlineExceeded(msg))
+            if running is not None and self.scheduler is not None:
+                self.scheduler.note_expired_running(req.priority)
+        return True
+
     def _reap_dead_slots(self) -> None:
-        """Free slots (and drop queued requests) whose future the client cancelled."""
-        if self._pending:
-            self._pending = collections.deque(r for r in self._pending if not r.future.cancelled())
+        """Drop dead queued requests (cancelled or past their deadline) and
+        free live slots whose request is dead, so an expired request stops
+        burning decode steps within one tick."""
+        now = time.monotonic()
+        if self.scheduler is not None:
+            self.scheduler.reap(now)
+        elif self._pending:
+            self._pending = collections.deque(
+                r for r in self._pending if not self._dead(r, now, None)
+            )
         for i, s in enumerate(self._slots):
-            if s is not None and s.request.future.cancelled():
-                self._slots[i] = None
-                self._slot_epoch[i] += 1
-                self._sampling_dirty = True
-                self._free_slot_pages(i)
+            if s is not None and self._dead(s.request, now, (
+                f"after {len(s.generated)} generated tokens "
+                f"({now - s.request.submitted_at:.2f}s since submit)"
+            )):
+                self._release(i)
 
     # --------------------------------------------------------------- admission
     def _paged_admit_slot(self, slot: int, req: _Request) -> bool:
@@ -470,26 +687,73 @@ class GenerationEngine:
         self._block_tables[slot, :] = self._kv_sentinel
         self._bt_dirty = True
 
-    def _admit(self) -> bool:
+    def _stage_incoming(self) -> None:
+        """Move submitted requests into the scheduler (fair-share order) or
+        the FIFO deque."""
         while True:
             try:
-                self._pending.append(self._queue.get_nowait())
+                req = self._queue.get_nowait()
             except queue.Empty:
                 break
+            if self.scheduler is not None:
+                self.scheduler.enqueue(req)
+            else:
+                self._pending.append(req)
+
+    def _peek_next(self, now: float) -> Optional[_Request]:
+        """The request admission would start next, not removed: the
+        scheduler's fair-share winner, or the FIFO head (dead entries are
+        dropped on the way)."""
+        if self.scheduler is not None:
+            return self.scheduler.peek(now)
+        while self._pending and self._dead(self._pending[0], now, None):
+            self._pending.popleft()
+        return self._pending[0] if self._pending else None
+
+    def _take_next(self, now: float) -> Optional[_Request]:
+        if self.scheduler is not None:
+            return self.scheduler.pop(now)
+        return self._pending.popleft() if self._pending else None
+
+    def _requeue_front(self, req: _Request) -> None:
+        if self.scheduler is not None:
+            self.scheduler.enqueue(req, front=True)
+        else:
+            self._pending.appendleft(req)
+
+    def _admit(self) -> bool:
+        self._stage_incoming()
+        now = time.monotonic()
         free = self._free_slots()
         batch: List[tuple[int, _Request]] = []
         admitted = False
-        while free and self._pending:
-            req = self._pending[0]
-            n = len(req.prompt_ids)
-            if n > self.chunk_size and (self._chunking is not None or batch):
-                break  # one chunked prefill at a time; FIFO order preserved
+
+        def must_wait(req: _Request) -> bool:
+            # one chunked prefill at a time; scheduling order preserved
+            return len(req.prompt_ids) > self.chunk_size and (
+                self._chunking is not None or bool(batch)
+            )
+
+        while free:
+            req = self._peek_next(now)
+            if req is None or must_wait(req):
+                break
             slot = free[0]
             if not self._paged_admit_slot(slot, req):
                 break  # out of pages: the head waits for a slot to free
-            self._pending.popleft()
+            taken = self._take_next(now)
+            if taken is not req:
+                # the head moved between peek and pop (a cancel, or a
+                # re-ordered fair share): serve the popped request instead
+                self._free_slot_pages(slot)
+                if taken is None:
+                    break
+                req = taken
+                if must_wait(req) or not self._paged_admit_slot(slot, req):
+                    self._requeue_front(req)
+                    break
             free.pop(0)
-            if n > self.chunk_size:
+            if len(req.prompt_ids) > self.chunk_size:
                 self._begin_chunked(slot, req)
                 admitted = True
             else:
@@ -518,8 +782,21 @@ class GenerationEngine:
             bt[pad + j] = self._block_tables[slot]
         return bt
 
+    def _host_tensor(self, arr) -> torch.Tensor:
+        """``arr`` as a CPU tensor, pinned when the engine runs on the card,
+        so its upload is asynchronous (the caching host allocator keeps the
+        buffer until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     def _tensor(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr)).to(self.device)
+        """A new device tensor holding ``arr``, uploaded in stream order."""
+        return self._host_tensor(arr).to(self.device, non_blocking=True)
+
+    def _upload(self, dst: torch.Tensor, arr) -> None:
+        """Write ``arr`` into the device buffer ``dst`` in place, in stream
+        order: ticks issued before the write still read the old contents."""
+        dst.copy_(self._host_tensor(arr), non_blocking=True)
 
     def _start_batch(self, batch: List[tuple[int, _Request]]):
         """One prefill call for a bucket group of the wave, then activation."""
@@ -540,7 +817,7 @@ class GenerationEngine:
             slot_arr[pad + j] = slots[j]
         lengths_t = self._tensor(lengths)
         logits, ks, vs = llama.prefill(self.params, self.cfg, self._tensor(ids), lengths_t)
-        self._cache = llama.insert_sequences_paged(
+        llama.insert_sequences_paged(
             self._cache, ks, vs, lengths_t, self._tensor(slot_arr),
             self._tensor(self._wave_block_tables(slots, pad)),
         )
@@ -555,24 +832,59 @@ class GenerationEngine:
         flat = np.asarray(req.prompt_ids, np.int32)
         starts = list(range(0, n - c, c)) + [n - c]
         ids = np.stack([flat[s : s + c] for s in starts])
+        req.started_at = time.monotonic()
         self._chunking = _ChunkedPrefill(request=req, slot=slot, ids=ids, starts=starts, n=n)
 
-    def _chunk_step(self):
-        st = self._chunking
+    def _stage_chunk(self, st: _ChunkedPrefill) -> None:
+        """Write the next chunk's inputs into the chunk buffers, in stream
+        order, and count it as taken."""
         j = st.step
-        logits, self._cache = llama.prefill_chunk_paged(
-            self.params, self.cfg, self._tensor(st.ids[j : j + 1]), self._cache,
-            self._tensor(self._block_tables[st.slot]), st.slot, st.starts[j],
-            self.chunk_size,
-        )
+        self._upload(self._chunk_ids_dev, st.ids[j : j + 1])
+        self._upload(self._chunk_bt_dev, self._block_tables[st.slot])
+        self._upload(self._chunk_slot_dev, np.asarray([st.slot], np.int64))
+        self._upload(self._chunk_start_dev, np.asarray([st.starts[j]], np.int64))
         st.step += 1
-        if st.request.future.cancelled():
-            self._free_slot_pages(st.slot)
-            self._chunking = None
+
+    def _chunk_body(self) -> torch.Tensor:
+        """The staged chunk's forward and page writes (every chunk is full of
+        real tokens); returns its logits.  The piggyback graph holds it."""
+        logits, _ = llama.prefill_chunk_paged(
+            self.params, self.cfg, self._chunk_ids_dev, self._cache, self._chunk_bt_dev,
+            self._chunk_slot_dev, self._chunk_start_dev, self.chunk_size,
+        )
+        return logits
+
+    def _abandon_dead_prefill(self, st: _ChunkedPrefill) -> bool:
+        """After a chunk: drop a prefill whose client cancelled or whose
+        deadline passed (its pages free); True when it was dropped."""
+        if not self._dead(st.request, time.monotonic(), "during chunked prefill"):
+            return False
+        self._free_slot_pages(st.slot)
+        self._chunking = None
+        return True
+
+    def _chunk_step(self):
+        """One chunk on its own; the final one activates the slot."""
+        st = self._chunking
+        self._stage_chunk(st)
+        logits = self._chunk_body()
+        if self._abandon_dead_prefill(st):
             return
         if st.step >= len(st.starts):
             self._chunking = None
             self._activate_batch([st.slot], [st.request], logits, pad=0)
+            self._slots[st.slot].prefill_chunks = st.step
+
+    def _piggyback_step(self):
+        """A non-final chunk and the decode tick of the live slots as one
+        program, chunk first (the JAX piggyback program's order: the chunk
+        writes only the admitting slot's pages, which no live slot reads,
+        and draws no noise, so the ids are those of the sequential path)."""
+        st = self._chunking
+        self._stage_chunk(st)
+        self._issue_tick(piggyback=True)
+        self._prefill_chunks_piggybacked += 1
+        self._abandon_dead_prefill(st)
 
     def _activate_batch(self, slots: List[int], reqs: List[_Request], logits, *, pad: int):
         """Sample first tokens from prefill logits ([Bp, V], the first ``pad``
@@ -585,9 +897,12 @@ class GenerationEngine:
             top_p=self._tensor(top_ps), generator=self._generator,
         )
         idx = self._tensor(np.asarray(slots, np.int64))
-        self._tokens_dev = self._tokens_dev.index_put((idx,), first[pad:])
+        self._tokens_dev.index_put_((idx,), first[pad:])
+        now = time.monotonic()
         ref_slots = []
         for slot, req in zip(slots, reqs):
+            if req.started_at is None:  # chunked prefills set it at begin
+                req.started_at = now
             self._slots[slot] = _Slot(request=req)
             self._temps[slot] = req.temperature
             self._top_ps[slot] = req.top_p
@@ -597,43 +912,140 @@ class GenerationEngine:
 
     # ------------------------------------------------------------------ ticks
     def _upload_dirty(self) -> None:
-        """Stage changed sampling / block-table arrays on the device."""
+        """Write changed sampling / block-table arrays into their buffers."""
         if self._sampling_dirty:
-            self._active_dev = self._tensor([s is not None for s in self._slots])
-            self._temps_dev = self._tensor(self._temps)
-            self._top_ps_dev = self._tensor(self._top_ps)
+            self._upload(self._active_dev, np.asarray([s is not None for s in self._slots]))
+            self._upload(self._temps_dev, self._temps)
+            self._upload(self._top_ps_dev, self._top_ps)
             self._sampling_dirty = False
         if self._bt_dirty:
-            self._bt_dev = self._tensor(self._block_tables)
+            self._upload(self._bt_dev, self._block_tables)
             self._bt_dirty = False
 
-    def _issue_tick(self):
-        """Dispatch one decode tick without waiting for its result."""
+    def _tick_body(self) -> None:
+        """The fused tick: ``decode_steps`` chained decode + sampling steps
+        over the engine's buffers, step ``i`` reading noise ``i``; ids go to
+        ``_toks_dev[i]`` and chain through ``_tokens_dev``.  On the card this
+        is what the graph holds."""
+        for i in range(self.decode_steps):
+            logits, _ = llama.decode_step_paged(
+                self.params, self.cfg, self._tokens_dev, self._cache, self._bt_dev,
+                active=self._active_dev,
+            )
+            nxt = sample_logits(
+                logits, temperature=self._temps_dev, top_k=TOP_K,
+                top_p=self._top_ps_dev, gumbel=self._noise[i],
+            )
+            self._toks_dev[i].copy_(nxt)
+            self._tokens_dev.copy_(nxt)
+
+    def _capture_tick(self) -> None:
+        """Capture :meth:`_tick_body` as a CUDA graph, and, when prompts can
+        chunk with piggybacking on, :meth:`_chunk_body` followed by it as a
+        second one, once per engine, while every slot is idle.  A warm-up
+        runs both bodies first on the capture stream (PyTorch's recipe): it
+        fills the caches they read (rope tables, the paged kernel's scratch
+        and counters for that stream, its occupancy answer, cuBLAS's
+        workspace) outside the capture; with every slot inactive and the
+        chunk's page chain all sentinels it writes only the dump page, the
+        token buffers and slot 0's length, which are cleared after.  The
+        paged kernel's scratch and counters are the graphs' own
+        (:func:`~..kernels.private_paged_scratch`), allocated by the
+        warm-up, so no eager call shares them; the two graphs share one
+        memory pool, as they replay one at a time on one stream.  The
+        launches recorded in a graph are counted at each of its replays.  A
+        failure raises: there is no eager fallback on the card."""
+        dev = self.device
+        piggyback = self.prefill_piggyback and self.chunk_size < self.max_seq_len - 1
+        # made on the engine's stream, not inside the warm-up
+        llama._rope_tables(self.cfg, self._kv_blocks * self.kv_page_size, dev)
+        stream = torch.cuda.Stream(dev)
+        # the paged kernel's scratch and counters of these graphs, and nobody else's
+        self._graph_scratch: Dict[tuple, tuple] = {}
+        with torch.no_grad(), kernels.private_paged_scratch(self._graph_scratch):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                if piggyback:
+                    self._chunk_body()
+                self._tick_body()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()  # what the captures reserve is then their pool
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            with kernels.record_graph_launches() as launches:
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                    self._tick_body()
+            self._graph, self._graph_launches = graph, launches
+            if piggyback:
+                graph = torch.cuda.CUDAGraph()
+                with kernels.record_graph_launches() as launches:
+                    with torch.cuda.graph(graph, pool=self._graph.pool(), stream=stream,
+                                          capture_error_mode="thread_local"):
+                        self._chunk_body()
+                        self._tick_body()
+                self._piggyback_graph, self._piggyback_launches = graph, launches
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        for t in (self._tokens_dev, self._toks_dev, self._cache.lengths):
+            t.zero_()
+        torch.cuda.synchronize(dev)
+
+    def _launch_tick(self, piggyback: bool = False) -> None:
+        """Draw each step's noise into its buffer (one generator call per
+        step, in step order), then run the tick, after the staged chunk when
+        ``piggyback``: replay its graph on the card, the bodies on the CPU."""
+        for i in range(self.decode_steps):
+            gumbel_noise(self._noise[i], self._generator)
+        if self._graph is None:
+            if piggyback:
+                self._chunk_body()
+            self._tick_body()
+        elif piggyback:
+            self._piggyback_graph.replay()
+            self._piggyback_launches.replayed()
+        else:
+            self._graph.replay()
+            self._graph_launches.replayed()
+
+    def _issue_tick(self, piggyback: bool = False):
+        """Dispatch one fused tick (after the staged chunk when
+        ``piggyback``) without waiting for its result."""
+        t0 = time.perf_counter()
         self._upload_dirty()
-        logits, self._cache = llama.decode_step_paged(
-            self.params, self.cfg, self._tokens_dev, self._cache, self._bt_dev,
-            active=self._active_dev,
-        )
-        nxt = sample_logits(
-            logits, temperature=self._temps_dev, top_k=TOP_K,
-            top_p=self._top_ps_dev, generator=self._generator,
-        )
-        self._tokens_dev = nxt
-        self.steps += 1
+        self._launch_tick(piggyback)
+        self.steps += self.decode_steps
+        self._ticks_issued += 1
         live = [(i, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
-        self._inflight.append(_TickRef(nxt=_HostCopy(nxt), slots=live))
+        self._inflight.append(_TickRef(nxt=_HostCopy(self._toks_dev), slots=live))
+        self._tick_issue_s += time.perf_counter() - t0
 
     def _process_tick(self):
-        """Consume the oldest in-flight result (waits until it arrives)."""
+        """Consume the oldest in-flight result (waits until it arrives): a
+        tick's steps oldest first, each over the slots live at issue."""
         ref = self._inflight.popleft()
+        t0 = time.perf_counter()
         vals = ref.nxt.numpy()
+        self._tick_block_s += time.perf_counter() - t0
+        self._ticks_processed += 1
         now = time.monotonic()
-        for j, (slot, epoch) in enumerate(ref.slots):
+        if ref.first:
+            for j, (slot, epoch) in enumerate(ref.slots):
+                s = self._slots[slot]
+                if s is None or self._slot_epoch[slot] != epoch:
+                    continue  # reaped before its first token arrived
+                s.resident_steps += 1
+                self._consume_token(slot, s, int(vals[ref.offset + j]), now)
+            return
+        for slot, epoch in ref.slots:
             s = self._slots[slot]
-            if s is None or self._slot_epoch[slot] != epoch:
-                continue  # finished by an earlier token; dropped
-            tok = int(vals[ref.offset + j] if ref.first else vals[slot])
-            self._consume_token(slot, s, tok, now)
+            if s is not None and self._slot_epoch[slot] == epoch:
+                s.resident_steps += vals.shape[0]
+        for k in range(vals.shape[0]):
+            for slot, epoch in ref.slots:
+                s = self._slots[slot]
+                if s is None or self._slot_epoch[slot] != epoch:
+                    continue  # finished by an earlier token; dropped
+                self._consume_token(slot, s, int(vals[k, slot]), now)
 
     def _consume_token(self, slot: int, s: _Slot, tok: int, now: float) -> None:
         req = s.request
@@ -681,6 +1093,13 @@ class GenerationEngine:
             logger.warning("detokenization failed: %s", e)
             _safe_resolve(req.future, exc=e)
             return
+        if self.scheduler is not None:
+            # the service model's sample: slot residency from prefill start,
+            # per decode step and prefill chunk the slot took
+            self.scheduler.note_service(
+                now - (req.started_at or req.first_token_at or now),
+                tokens=max(1, s.resident_steps + s.prefill_chunks),
+            )
         _safe_resolve(
             req.future,
             result=GenerationResult(

@@ -1,10 +1,11 @@
 """Model registry: spec -> loaded generation engine (port of ``serving/registry.py``).
 
 A config maps model names to spec dicts, as in the JAX package.  The spec
-carries the fields this slice implements, and their defaults select the
-ported path.  Keys of the JAX ``ModelSpec`` that are not ported yet are
-accepted only at the value the port implements and refused otherwise,
-naming their ROADMAP item; keys the JAX spec does not know are refused too.
+carries the fields the port implements, with the JAX spec's defaults (but
+``prefix_cache``, which stays 0 until prefix sharing is ported).  Keys of
+the JAX ``ModelSpec`` that are not ported yet are accepted only at the
+value the port implements and refused otherwise, naming their ROADMAP item;
+keys the JAX spec does not know are refused too.
 """
 
 from __future__ import annotations
@@ -20,11 +21,7 @@ logger = logging.getLogger(__name__)
 # JAX ModelSpec keys not ported yet: key -> (the only accepted value, ROADMAP item)
 _DEFERRED: Dict[str, tuple] = {
     "checkpoint": (None, "Queue 1 item 4 (native checkpoints)"),
-    "burst": (1, "Queue 1 item 5 (fused N-step ticks)"),
-    "decode_steps": (1, "Queue 1 item 5 (fused N-step ticks)"),
-    "prefill_piggyback": (False, "Queue 1 item 5 (piggybacked prefill)"),
     "prefix_cache": (0, "Queue 1 item 5 (prefix sharing)"),
-    "scheduler": (False, "Queue 1 item 5 (scheduler)"),
     "warmup": (False, "Queue 1 item 5 (warmup)"),
     "kv_layout": ("paged", "Queue 1 item 8 (legacy contiguous KV)"),
     "speculative": (0, "Queue 1 item 9 (speculative decoding)"),
@@ -44,7 +41,6 @@ _DEFERRED: Dict[str, tuple] = {
 _ABSENT = object()  # knobs of unported features: refused whenever present
 # JAX ModelSpec key prefixes / names of unported features -> ROADMAP item
 _DEFERRED_FAMILIES = (
-    (("sched_",), "Queue 1 item 5 (scheduler)"),
     (("prefix_min_tokens", "prefix_cache_max_bytes"), "Queue 1 item 5 (prefix sharing)"),
     (("obs", "obs_dump_dir", "faults", "fault_seed", "max_restarts", "restart_",
       "degraded_cooldown_s", "heartbeat_degraded_s", "max_request_restarts"),
@@ -79,9 +75,23 @@ class ModelSpec:
     max_seq_len: Optional[int] = None
     chunk_size: int = 512
     lookahead: int = 3
+    # fused decode tick depth: 0 inherits ``burst`` (the JAX resolution)
+    burst: int = 8
+    decode_steps: int = 0
+    prefill_piggyback: bool = True
     decode_kv_chunk: Optional[int] = 0
     kv_page_size: int = 0
     kv_pages: int = 0
+    # admission-controlled scheduling (serving/scheduler.py); False keeps the
+    # unbounded FIFO.  The sched_* knobs are the JAX spec's, same defaults.
+    scheduler: bool = True
+    sched_max_queue: int = 256
+    sched_class_weights: Optional[Mapping[str, float]] = None
+    sched_tenant_weights: Optional[Mapping[str, float]] = None
+    sched_admit_max_wait_s: Optional[float] = 60.0
+    sched_default_deadline_s: Optional[float] = None
+    sched_degrade_at: float = 0.75
+    sched_degrade_max_tokens: int = 256
 
     @classmethod
     def from_dict(cls, name: str, d: Mapping[str, Any]) -> "ModelSpec":
@@ -110,7 +120,32 @@ class ModelSpec:
             )
         if spec.dtype not in _DTYPES:
             raise ValueError(f"model {name}: dtype must be one of {sorted(_DTYPES)}")
+        if spec.decode_steps < 0:
+            raise ValueError(
+                f"model {name}: decode_steps must be >= 1 (or 0 = inherit "
+                f"burst); got {spec.decode_steps}"
+            )
         return spec
+
+    def build_scheduler(self):
+        """The spec's :class:`~.scheduler.RequestScheduler`, or None."""
+        if not self.scheduler:
+            return None
+        from .scheduler import RequestScheduler, SchedulerConfig
+
+        sched = RequestScheduler(
+            SchedulerConfig.from_knobs(
+                max_queue=self.sched_max_queue,
+                class_weights=self.sched_class_weights,
+                tenant_weights=self.sched_tenant_weights,
+                degrade_at=self.sched_degrade_at,
+                degrade_max_tokens=self.sched_degrade_max_tokens,
+            )
+        )
+        # None means "off" for these two, so they bypass from_knobs' filter
+        sched.cfg.admit_max_wait_s = self.sched_admit_max_wait_s
+        sched.cfg.default_deadline_s = self.sched_default_deadline_s
+        return sched
 
 
 class ModelRegistry:
@@ -169,9 +204,13 @@ class ModelRegistry:
                 max_seq_len=spec.max_seq_len,
                 chunk_size=spec.chunk_size,
                 lookahead=spec.lookahead,
+                burst=spec.burst,
+                decode_steps=spec.decode_steps or None,
+                prefill_piggyback=spec.prefill_piggyback,
                 decode_kv_chunk=spec.decode_kv_chunk,
                 kv_page_size=spec.kv_page_size,
                 kv_pages=spec.kv_pages,
+                scheduler=spec.build_scheduler(),
             )
         engine.start()
         self.generators[name] = engine

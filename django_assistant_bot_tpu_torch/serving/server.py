@@ -2,16 +2,19 @@
 read-only endpoints).
 
 - ``POST /dialog/`` (and ``/dialog``) ``{model, messages, max_tokens,
-  temperature, top_p}`` -> ``{"response": {"result", "usage",
-  "length_limited"}, "request_id"}``; 422 on a bad body, 400 "Model is not
-  supported" for an unknown model, 500 with detail on failure.  The
-  correlation id is the client's token-safe ``X-Request-Id`` or a fresh one,
-  echoed in the body and the header.
-- ``GET /healthz`` and ``GET /models``.
+  temperature, top_p, priority, tenant, deadline_s}`` -> ``{"response":
+  {"result", "usage", "length_limited"}, "request_id"}``; 422 on a bad body,
+  400 "Model is not supported" for an unknown model, 429 with
+  ``Retry-After`` when the scheduler sheds the request, 504 when its
+  deadline expires, 500 with detail on failure.  ``priority``, ``tenant``
+  and ``deadline_s`` may also come as ``X-Priority``, ``X-Tenant`` and
+  ``X-Deadline-S`` headers.  The correlation id is the client's token-safe
+  ``X-Request-Id`` or a fresh one, echoed in the body and the header.
+- ``GET /healthz`` (per generator: the engine's gauges and its scheduler's
+  ``sched`` block) and ``GET /models``.
 
-Request fields of features not ported yet (``stream``, ``json_format``,
-scheduling fields) are refused with a 422 naming their ROADMAP item instead
-of being ignored.  ``/embeddings/``, ``/metrics`` and the fleet endpoints
+Request fields of features not ported yet (``stream``, ``json_format``) are
+refused with a 422 naming their ROADMAP item instead of being ignored.  ``/embeddings/``, ``/metrics`` and the fleet endpoints
 come with later slices (ROADMAP Queue 1 items 6, 7 and 13).
 """
 
@@ -21,11 +24,12 @@ import logging
 import math
 import re
 import uuid
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 from aiohttp import web
 
 from .registry import ModelRegistry
+from .scheduler import DeadlineExceeded, SchedulerRejected
 
 logger = logging.getLogger(__name__)
 
@@ -35,13 +39,12 @@ MAX_MAX_TOKENS = 1 << 17  # sanity ceiling; engines clamp to max_seq_len anyway
 
 _REQ_ID_RE = re.compile(r"^[A-Za-z0-9._:-]{1,64}$")
 
+PRIORITIES = ("interactive", "background")
+
 # body fields of unported features -> (the value that means "off", ROADMAP item)
 _UNPORTED_FIELDS = {
     "stream": (False, "Queue 1 item 6 (SSE streaming)"),
     "json_format": (False, "Queue 1 item 10 (JSON-constrained decoding)"),
-    "priority": ("interactive", "Queue 1 item 5 (scheduler)"),
-    "tenant": ("default", "Queue 1 item 5 (scheduler)"),
-    "deadline_s": (None, "Queue 1 item 5 (scheduler)"),
 }
 
 
@@ -84,10 +87,43 @@ def _validate_sampling(body: Mapping[str, Any]) -> tuple:
     return temperature, top_p, max_tokens
 
 
-def _refuse_unported(request: web.Request, body: Mapping[str, Any]) -> None:
-    headers = {"priority": "X-Priority", "tenant": "X-Tenant", "deadline_s": "X-Deadline-S"}
+def _scheduling_fields(
+    request: web.Request, body: Mapping[str, Any]
+) -> tuple[str, str, Optional[float]]:
+    """Priority class, fair-share tenant and deadline (the JAX server's
+    rules): body fields win, ``X-Priority`` / ``X-Tenant`` /
+    ``X-Deadline-S`` headers are the fallback."""
+    priority = body.get("priority", request.headers.get("X-Priority", "interactive"))
+    if priority not in PRIORITIES:
+        raise _BadRequest(f"priority must be one of {list(PRIORITIES)}")
+    tenant = body.get("tenant", request.headers.get("X-Tenant", "default"))
+    if not isinstance(tenant, str) or not tenant.strip() or len(tenant) > 128:
+        raise _BadRequest("tenant must be a non-empty string of <= 128 chars")
+    deadline_s = body.get("deadline_s", request.headers.get("X-Deadline-S"))
+    if deadline_s is not None:
+        try:
+            deadline_s = float(deadline_s)
+        except (TypeError, ValueError):
+            raise _BadRequest("deadline_s must be a number") from None
+        if not math.isfinite(deadline_s) or not (0.0 < deadline_s <= 3600.0):
+            raise _BadRequest("deadline_s must be finite and within (0, 3600]")
+    return priority, tenant.strip(), deadline_s
+
+
+def _shed_response(e: SchedulerRejected, rid: str) -> web.Response:
+    """Load shed -> 429 with a Retry-After back-off hint (JAX wire format)."""
+    retry = max(1, math.ceil(e.retry_after_s))
+    return web.json_response(
+        {"detail": str(e), "reason": e.reason, "retry_after_s": e.retry_after_s,
+         "request_id": rid},
+        status=429,
+        headers={"Retry-After": str(retry), "X-Request-Id": rid},
+    )
+
+
+def _refuse_unported(body: Mapping[str, Any]) -> None:
     for field, (off, item) in _UNPORTED_FIELDS.items():
-        value = body.get(field, request.headers.get(headers.get(field, ""), off))
+        value = body.get(field, off)
         if value != off:
             raise _BadRequest(f"{field}={value!r} is not supported by this server yet (ROADMAP {item})")
 
@@ -106,8 +142,9 @@ def create_app(registry: ModelRegistry) -> web.Application:
             messages = body["messages"]
             if not isinstance(messages, list):
                 raise ValueError("messages must be a list")
-            _refuse_unported(request, body)
+            _refuse_unported(body)
             temperature, top_p, max_tokens = _validate_sampling(body)
+            priority, tenant, deadline_s = _scheduling_fields(request, body)
         except _BadRequest as e:
             return _error_response(str(e), 422, rid)
         except Exception:
@@ -117,8 +154,13 @@ def create_app(registry: ModelRegistry) -> web.Application:
             return _error_response("Model is not supported", 400, rid)
         try:
             result = await eng.generate(
-                messages, max_tokens=max_tokens, temperature=temperature, top_p=top_p
+                messages, max_tokens=max_tokens, temperature=temperature, top_p=top_p,
+                priority=priority, tenant=tenant, deadline_s=deadline_s,
             )
+        except SchedulerRejected as e:
+            return _shed_response(e, rid)
+        except DeadlineExceeded as e:
+            return _error_response(str(e), 504, rid)
         except Exception as e:
             logger.exception("dialog failed")
             return _error_response(str(e), 500, rid)

@@ -3,10 +3,12 @@
 - the port's ``GenerationEngine`` and the JAX ``GenerationEngine`` on the
   JAX engine's rollback settings (paged KV, FIFO admission, sequential
   chunked prefill, no prefix cache, single-step ticks), same weights, ragged
-  greedy prompts (some past ``chunk_size``): identical token ids;
+  greedy prompts (some past ``chunk_size``): identical token ids (the
+  default loop is held to the JAX engine in tests/test_torch_contbatch.py);
 - ``/dialog/`` over aiohttp's test client on ``--device cpu``: the wire
   contract of tests/test_serving.py;
-- unported knobs and request fields are refused, naming their ROADMAP item.
+- unported knobs and request fields are refused, naming their ROADMAP item,
+  and the JAX defaults of the ported ones are accepted.
 """
 
 import asyncio
@@ -75,7 +77,9 @@ def test_engine_token_identical_to_jax_engine(tiny_models, chunk_size, max_slots
         jcfg, jparams, JaxByteTokenizer(), kv_layout="paged", scheduler=None,
         prefill_piggyback=False, prefix_cache_size=0, decode_steps=1, **kw,
     )
-    teng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **kw)
+    teng = GenerationEngine(
+        cfg, params, ByteTokenizer(), device="cpu", prefill_piggyback=False, decode_steps=1, **kw
+    )
     assert teng.kv_page_size == jeng.kv_page_size
     want = _run(jeng, prompts, 12)
     got = _run(teng, prompts, 12)
@@ -137,9 +141,9 @@ def test_pick_bucket():
     "knob,value,item",
     [
         ("kv_layout", "legacy", "Queue 1 item 8"),
-        ("prefill_piggyback", True, "Queue 1 item 5"),
+        ("attn_fp8", True, "Queue 2 entry 5"),
         ("prefix_cache_size", 8, "Queue 1 item 5"),
-        ("decode_steps", 4, "Queue 1 item 5"),
+        ("kv_cache_dtype", "fp8_e5m2", "Queue 2 entry 5"),
         ("speculative", 3, "Queue 1 item 9"),
         ("kv_cache_dtype", "fp8", "Queue 2 entry 5"),
     ],
@@ -154,8 +158,8 @@ def test_engine_refuses_unported_knobs(tiny_models, knob, value, item):
     "key,value,item",
     [
         ("quantize", "int8", "Queue 2 entry 3"),
-        ("scheduler", True, "Queue 1 item 5"),
-        ("sched_max_queue", 16, "Queue 1 item 5"),
+        ("prefix_cache", 8, "Queue 1 item 5"),
+        ("prefix_min_tokens", 16, "Queue 1 item 5"),
         ("speculative", 2, "Queue 1 item 9"),
         ("kind", "encoder", "Queue 1 item 7"),
     ],
@@ -168,6 +172,43 @@ def test_spec_refuses_unported_keys(key, value, item):
     # the JAX rollback values themselves are accepted
     spec = ModelSpec.from_dict("m", {"tiny": True, "scheduler": False, "prefix_cache": 0})
     assert spec.tiny and spec.device == "cuda"
+
+
+def test_jax_defaults_of_ported_keys_are_accepted(tiny_models):
+    """The JAX ``ModelSpec`` defaults of the keys this slice ported are the
+    port's defaults too, and the engine takes them (and the JAX rollback
+    values) as the JAX engine does: ``decode_steps`` wins when given, a spec
+    ``decode_steps`` of 0 inherits ``burst``."""
+    from django_assistant_bot_tpu.serving.registry import ModelSpec as JaxModelSpec
+    from django_assistant_bot_tpu_torch.serving import RequestScheduler
+
+    jspec = JaxModelSpec(name="m", kind="decoder")
+    keys = ("burst", "decode_steps", "prefill_piggyback", "scheduler", "sched_max_queue",
+            "sched_class_weights", "sched_tenant_weights", "sched_admit_max_wait_s",
+            "sched_default_deadline_s", "sched_degrade_at", "sched_degrade_max_tokens")
+    spec = ModelSpec.from_dict("m", {"tiny": True, **{k: getattr(jspec, k) for k in keys}})
+    assert {k: getattr(spec, k) for k in keys} == {k: getattr(jspec, k) for k in keys}
+    assert {k: getattr(ModelSpec(name="m"), k) for k in keys} == {k: getattr(jspec, k) for k in keys}
+    sched = spec.build_scheduler()
+    assert isinstance(sched, RequestScheduler) and sched.cfg.max_queue == 256
+    assert ModelSpec(name="m", scheduler=False).build_scheduler() is None
+    with pytest.raises(ValueError, match="decode_steps"):
+        ModelSpec.from_dict("m", {"tiny": True, "decode_steps": -1})
+
+    _, _, cfg, params = tiny_models
+    eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", max_seq_len=128)
+    assert (eng.decode_steps, eng.prefill_piggyback, eng.scheduler) == (8, True, None)
+    assert GenerationEngine(
+        cfg, params, ByteTokenizer(), device="cpu", max_seq_len=128, burst=4
+    ).decode_steps == 4
+    eng = GenerationEngine(
+        cfg, params, ByteTokenizer(), device="cpu", max_seq_len=128, burst=4, decode_steps=2,
+        prefill_piggyback=False, scheduler=spec.build_scheduler(),
+    )
+    assert (eng.decode_steps, eng.prefill_piggyback) == (2, False)
+    assert eng.stats()["sched"]["max_queue"] == 256
+    with pytest.raises(ValueError, match="decode_steps"):
+        GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", decode_steps=0)
 
 
 # ------------------------------------------------------------------ HTTP

@@ -1,0 +1,197 @@
+"""The engine's fused decode tick as a CUDA graph, on the card.
+
+Every test here carries the ``cuda`` marker and skips without a card (the
+skip condition is a string, evaluated at setup).  Like
+tests/test_torch_kernels.py this file imports neither JAX nor the JAX
+package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_graph.py
+
+- one replay of the captured tick is bitwise equal to the same K steps run
+  eagerly on the same inputs (bf16 on the tensor-core paged kernel, f32 on
+  the CUDA-core one), and so is one replay of the piggyback graph to the
+  chunk and the K steps run eagerly;
+- a replay after eager prefill waves and chunks reads the new lengths and
+  block tables: the engine's greedy ids on the card equal the CPU engine's;
+- the launches recorded at capture are counted at every replay of either
+  graph, and the graphs' own paged counters are back at zero after each one.
+"""
+
+import contextlib
+
+import pytest
+import torch
+
+from django_assistant_bot_tpu_torch import kernels
+from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
+from django_assistant_bot_tpu_torch.ops.attention import paged_gqa_decode_attention
+from django_assistant_bot_tpu_torch.ops.sampling import gumbel_noise
+from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+pytestmark = [
+    pytest.mark.cuda,
+    pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card"),
+]
+
+K = 4
+
+
+def _cfg(dtype):
+    # head_dim 64: bf16 takes the tensor-core paged kernel, f32 the CUDA-core one
+    return DecoderConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+        num_heads=4, num_kv_heads=2, max_seq_len=1024, rope_theta=10_000.0, dtype=dtype,
+    )
+
+
+def _engine(dtype, device="cuda", **kw):
+    cfg = _cfg(dtype)
+    params = llama.init(cfg, torch.Generator().manual_seed(3), "cpu")
+    params = {k: ({n: w.to(device) for n, w in v.items()} if isinstance(v, dict) else v.to(device))
+              for k, v in params.items()}
+    return GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
+                            max_seq_len=1024, chunk_size=512, decode_steps=K, **kw)
+
+
+def _state(eng):
+    c = eng._cache
+    return [c.k, c.v, c.lengths, eng._tokens_dev, eng._toks_dev]
+
+
+def _replay_vs_eager(eng, graph, bodies):
+    """``graph`` replayed and ``bodies`` run eagerly from the same state:
+    the two end states, as lists of tensors."""
+    before = [t.clone() for t in _state(eng)]
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in _state(eng)]
+    for t, b in zip(_state(eng), before):
+        t.copy_(b)
+    with torch.no_grad():
+        for body in bodies:
+            body()
+    torch.cuda.synchronize()
+    return before, replayed, _state(eng)
+
+
+def _mid_decode(eng, gen):
+    """Random pools, ragged rows (one inactive, one sampled), noise drawn."""
+    c = eng._cache
+    c.k.copy_(torch.randn(c.k.shape, generator=gen, device="cuda").to(c.k.dtype))
+    c.v.copy_(torch.randn(c.v.shape, generator=gen, device="cuda").to(c.v.dtype))
+    c.lengths.copy_(torch.tensor([5, 300, 0, 700], dtype=torch.int32))
+    n = eng._kv_pool.n_pages
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(2)).to(torch.int32)
+    eng._bt_dev.copy_(perm.reshape(eng.max_slots, -1))
+    eng._active_dev.copy_(torch.tensor([True, True, False, True]))
+    eng._temps_dev.copy_(torch.tensor([0.0, 0.8, 0.0, 1.0]))
+    eng._top_ps_dev.copy_(torch.tensor([1.0, 0.9, 1.0, 0.95]))
+    eng._tokens_dev.copy_(torch.tensor([7, 300, 0, 42], dtype=torch.int32))
+    for i in range(K):
+        gumbel_noise(eng._noise[i], gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_replay_bitwise_equal_to_eager_steps(dtype):
+    eng = _engine(dtype)
+    assert eng.decode_path_stats()["cuda_graph"]
+    _mid_decode(eng, torch.Generator(device="cuda").manual_seed(1))
+    before, replayed, eager = _replay_vs_eager(eng, eng._graph, [eng._tick_body])
+    for name, got, want in zip(("k", "v", "lengths", "tokens", "toks"), replayed, eager):
+        assert torch.equal(got, want), name
+    assert torch.equal(replayed[2], before[2] + torch.tensor([K, K, 0, K], device="cuda",
+                                                             dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_piggyback_replay_bitwise_equal_to_eager_chunk_and_steps(dtype):
+    """Inactive slot 2 takes a chunk at position 256 of its own pages while
+    the other slots decode K steps: one program, chunk first."""
+    eng = _engine(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    _mid_decode(eng, gen)
+    eng._chunk_ids_dev.copy_(torch.randint(1, 255, (1, eng.chunk_size), generator=gen,
+                                           device="cuda", dtype=torch.int32))
+    eng._chunk_bt_dev.copy_(eng._bt_dev[2])
+    eng._chunk_slot_dev.fill_(2)
+    eng._chunk_start_dev.fill_(256)
+    before, replayed, eager = _replay_vs_eager(
+        eng, eng._piggyback_graph, [eng._chunk_body, eng._tick_body])
+    for name, got, want in zip(("k", "v", "lengths", "tokens", "toks"), replayed, eager):
+        assert torch.equal(got, want), name
+    assert replayed[2].tolist() == [5 + K, 300 + K, 256 + eng.chunk_size, 700 + K]
+    assert not torch.equal(replayed[0], before[0])  # the chunk wrote slot 2's pages
+
+
+def test_replay_after_prefill_waves_matches_cpu_engine():
+    """Waves through the 512 bucket (flash kernel), a short wave and a
+    two-chunk prompt (piggybacked) between replays: greedy ids equal the
+    CPU engine's, so every replay read the lengths and block tables the
+    eager waves wrote."""
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 255, (n,), generator=gen).tolist() for n in (40, 300, 450, 700)]
+
+    def run(device):
+        eng = _engine(torch.float32, device=device)
+        eng._running = True
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts[:2]]
+        eng._loop_iteration()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            # the first wave's slots advanced by one replayed tick
+            got = eng._cache.lengths[:2].tolist()
+            assert got == [len(prompts[0]) + K, len(prompts[1]) + K], got
+        futs += [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts[2:]]
+        for _ in range(500):
+            if all(f.done() for f in futs):
+                break
+            eng._loop_iteration()
+        return [f.result(timeout=0).token_ids for f in futs], eng.decode_path_stats()
+
+    card, dec = run("cuda")
+    cpu, _ = run("cpu")
+    assert card == cpu
+    assert dec["cuda_graph"] and dec["prefill_chunks_piggybacked"] > 0
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"), (torch.float32, "cuda_core")])
+def test_replays_count_their_launches(dtype, route):
+    eng = _engine(dtype)
+    for rec in (eng._graph_launches, eng._piggyback_launches):
+        assert rec.launches == {"flash_prefill": 0, "paged_decode": K * eng.cfg.num_layers}
+        assert rec.routes[route] == K * eng.cfg.num_layers
+    _mid_decode(eng, torch.Generator(device="cuda").manual_seed(4))
+    kernels.reset_counts()
+    for piggyback in (False, True, False):
+        eng._launch_tick(piggyback)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"flash_prefill": 0, "paged_decode": 3 * K * eng.cfg.num_layers}
+    assert kernels.PAGED_ROUTES[route] == 3 * K * eng.cfg.num_layers
+    (part, counters), = eng._graph_scratch.values()
+    assert int(counters.abs().sum()) == 0  # each call leaves its counters at zero
+
+
+def test_capture_needs_scratch_and_recording():
+    """A paged call captured without its scratch allocated, or outside
+    ``record_graph_launches``, raises instead of going uncounted or taking
+    graph-pool memory into the shared cache."""
+    B, H, KH, D, page, NB = 2, 4, 2, 64, 64, 2
+    q = torch.randn(B, H, 1, D, device="cuda", dtype=torch.bfloat16)
+    pool = torch.randn(B * NB, KH, page, D, device="cuda", dtype=torch.bfloat16)
+    bt = torch.arange(B * NB, device="cuda", dtype=torch.int32).reshape(B, NB)
+    pos = torch.tensor([3, 100], device="cuda", dtype=torch.int32)
+    stream = torch.cuda.Stream()
+    for record in (True, False):
+        store = {}
+        with kernels.private_paged_scratch(store):
+            if not record:  # scratch in place: only the missing recording is at fault
+                with torch.cuda.stream(stream):
+                    paged_gqa_decode_attention(q, pool, pool, bt, pos)
+                torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with pytest.raises(RuntimeError, match="before a CUDA graph capture"
+                               if record else "outside record_graph_launches"):
+                ctx = kernels.record_graph_launches() if record else contextlib.nullcontext()
+                with ctx, torch.cuda.graph(g, stream=stream):
+                    paged_gqa_decode_attention(q, pool, pool, bt, pos)
+        torch.cuda.synchronize()

@@ -14,6 +14,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 for name in names:
     importlib.import_module(name)
+assert "django_assistant_bot_tpu_torch.serving.scheduler" in names
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))
 print(len(names), bad)
@@ -22,15 +23,16 @@ assert not bad, bad
 
 
 def test_port_import_graph_has_no_jax():
-    """Importing the package and every submodule leaves ``jax`` and the JAX
-    package out of ``sys.modules`` (a fresh interpreter: this test process
-    has imported both)."""
+    """Importing the package and every submodule (the engine and its copy of
+    the scheduler among them) leaves ``jax`` and the JAX package out of
+    ``sys.modules`` (a fresh interpreter: this test process has imported
+    both)."""
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 16
 
 
 def _needs_no_card():

@@ -129,6 +129,26 @@ def test_prefill_chunk_paged_matches_jax(models):
     np.testing.assert_array_equal(tc.k[:, untouched].numpy(), k[:, untouched])
 
 
+def test_prefill_chunk_paged_takes_device_tensors(models):
+    """``slot`` and ``start`` as [1] tensors (the form a captured CUDA graph
+    replays with new values) give the same logits and cache as ints."""
+    _, _, cfg, params = models
+    P = 20
+    k, v = _pools(4, P)
+    lengths = np.asarray([0, 70, 0, 0], np.int32)
+    ids = np.random.default_rng(6).integers(1, 255, (1, 64)).astype(np.int32)
+    bt_row = np.full((NB,), P, np.int32)
+    bt_row[:4] = [9, 2, 14, 6]
+    out = []
+    for slot, start in ((1, 70), (torch.tensor([1]), torch.tensor([70]))):
+        _, tc = _caches(k, v, lengths)
+        logits, tc = llama.prefill_chunk_paged(params, cfg, _t(ids), tc, _t(bt_row), slot, start, 64)
+        out.append((logits, tc.k[:, :P], tc.v[:, :P], tc.lengths))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert out[0][3].tolist() == [0, 134, 0, 0]
+
+
 @pytest.mark.parametrize("with_active", [False, True])
 def test_decode_step_paged_matches_jax(models, with_active):
     """Ragged rows; row 2 has run past its allocation (sentinel block) and,
