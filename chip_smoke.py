@@ -33,10 +33,16 @@ exits non-zero):
    zeroed just before the requests and read just after (a graph's launches
    are counted at each replay), both kernels must have run, every paged
    call through the tensor-core kernel, 32 paged launches per decode step;
-   then the decode breakdown: the eager step and one replay of the engine's
-   captured 8-step tick, per step, side by side, and a 512-token chunk with
-   the tick as one replay of the piggyback graph against the chunk run
-   eagerly before the tick's replay;
+   then a RAG wave on the same engine (a ~1,500-token shared head: one
+   miss that registers it, one hit alone, six hits together, one of them
+   chunked after the hit; exact hit and copy-on-write counts, the pool back
+   to the registry's pages); the decode breakdown: the eager step and one
+   replay of the engine's captured 8-step tick, per step, side by side, and
+   a 512-token chunk with the tick as one replay of the piggyback graph
+   against the chunk run eagerly before the tick's replay; the four
+   requests again with ``obs`` off; and the RAG hits served alone by an
+   engine with prefix sharing off, their first-step logits held to the
+   hits';
 5. a load-shedding check (a tiny engine with a queue bound of 1: a burst of
    ``/dialog/`` requests gets 429 with ``Retry-After``) and one
    ``/dialog/`` request through ``cli serve --tiny --device cuda``;
@@ -149,21 +155,24 @@ def device_ms(fn, iters: int) -> float:
     that ``iters`` calls launch (torch.profiler), over ``iters``, after a
     warm-up call.  Host time between launches is left out, so this is the
     kernel's time even where :func:`time_ms` measures the host's launch rate.
-    Fails if the profiler saw no device time."""
+    Fails if three profiles in a row saw no device time (now and then a
+    profile comes back without its kernel records; it is taken again)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_device_us(e) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not total_us > 0:
-        fail("torch.profiler saw no device time: device_ms not measured")
-    return total_us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(_device_us(e) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+        log("  torch.profiler saw no device time; profiling again")
+    fail("torch.profiler saw no device time in three profiles: device_ms not measured")
 
 
 def timed(fn, iters: int) -> tuple:
@@ -593,6 +602,97 @@ def small_reference():
         fail(f"greedy ids differ: card {ids_gpu} vs CPU {ids_cpu}")
     if ids_one != ids_cpu:
         fail(f"greedy ids differ at decode_steps=1: card {ids_one} vs CPU {ids_cpu}")
+    small_prefix_wave(cfg, params_cpu, params_gpu)
+    small_fault_restart(cfg, params_gpu, prompts[0])
+
+
+def _crank(eng, futs, limit=2000):
+    import torch
+
+    with torch.no_grad():
+        for _ in range(limit):
+            if all(f.done() for f in futs):
+                return
+            eng._loop_iteration()
+    fail("requests did not finish within the crank budget")
+
+
+def small_prefix_wave(cfg, params_cpu, params_gpu) -> None:
+    """Prefix sharing on the small f32 model: a 200-token head (page 64:
+    three full pages and an 8-token boundary page) registered by a first
+    chat, then a wave of three hits: two short questions (one suffix prefill
+    wave, a copy-on-write boundary page each) and one whose 600-token
+    remainder is longer than a chunk, so it continues as chunks from the
+    head's length (the first piggybacked on the live batch).  Greedy ids on
+    the card (graph ticks) equal the CPU's and the card's with the prefix
+    cache off; hit, miss and COW counters exact."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+    g = torch.Generator().manual_seed(6)
+    head = torch.randint(1, 255, (200,), generator=g).tolist()
+    first = head + torch.randint(1, 255, (30,), generator=g).tolist()
+    wave = [head + torch.randint(1, 255, (n,), generator=g).tolist() for n in (20, 90, 600)]
+
+    def run(device, params, prefix_cache):
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
+                               max_seq_len=1024, chunk_size=512, kv_page_size=64,
+                               prefix_cache_size=prefix_cache, prefix_min_tokens=32)
+        eng._running = True
+        f0 = eng.submit(first, max_tokens=16, temperature=0.0, prefix_len=len(head))
+        _crank(eng, [f0])
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0, prefix_len=len(head)) for p in wave]
+        _crank(eng, [f0] + futs)
+        return ([f.result(timeout=0).token_ids for f in [f0] + futs], eng.kv_stats(),
+                eng.decode_path_stats())
+
+    card, kv, dec = run("cuda", params_gpu, 8)
+    cpu, kv_cpu, _ = run("cpu", params_cpu, 8)
+    cold, kv_cold, _ = run("cuda", params_gpu, 0)
+    counters = {k: kv[k] for k in ("prefix_hits", "prefix_misses", "kv_cow_copies",
+                                   "kv_shared_pages", "kv_pages_used")}
+    log(f"  small model prefix wave (200-token head, page 64): greedy ids card vs CPU "
+        f"{'identical' if card == cpu else 'DIFFER'}, vs the card without the prefix cache "
+        f"{'identical' if card == cold else 'DIFFER'}; {counters}; "
+        f"{dec['prefill_chunks_piggybacked']} chunk piggybacked from the hit")
+    want = {"prefix_hits": 3, "prefix_misses": 1, "kv_cow_copies": 3, "kv_shared_pages": 4,
+            "kv_pages_used": 4}
+    if counters != want or kv_cpu["prefix_hits"] != 3 or kv_cold["prefix_hits"] != 0:
+        fail(f"prefix counters: card {counters} (want {want}), CPU hits {kv_cpu['prefix_hits']}")
+    if dec["prefill_chunks_piggybacked"] < 1:
+        fail("the chunked hit did not piggyback on the card")
+    if card != cpu or card != cold:
+        fail(f"prefix wave greedy ids differ: card {card}, CPU {cpu}, cache off {cold}")
+
+
+def small_fault_restart(cfg, params_gpu, prompt) -> None:
+    """Crash-only supervision on the card: ``tick_raise`` fires on the first
+    tick (host side, before the replay), the engine restarts in place (no
+    re-capture) and resubmits the token-less request, which completes with
+    the unfaulted run's ids."""
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+    from django_assistant_bot_tpu_torch.serving.faults import FaultInjector
+
+    def run(faults):
+        eng = GenerationEngine(cfg, params_gpu, ByteTokenizer(), device="cuda", max_slots=4,
+                               max_seq_len=1024, chunk_size=512, faults=faults)
+        graph = eng._graph
+        eng.start()
+        try:
+            ids = eng.submit(prompt, max_tokens=16, temperature=0.0).result(timeout=300).token_ids
+        finally:
+            eng.stop()
+        return ids, eng.supervision_stats(), eng._graph is graph
+
+    clean, _, _ = run(None)
+    ids, sup, same_graph = run(FaultInjector.from_spec({"tick_raise": {"fire_on": [1]}}))
+    log(f"  small model tick_raise on the first tick: ids {'identical to' if ids == clean else 'DIFFER from'} "
+        f"the unfaulted run; engine_restarts {sup['engine_restarts']}, resubmitted "
+        f"{sup['restarted_requests_resubmitted']}, graph kept {same_graph}")
+    if not (ids == clean and sup["engine_restarts"] == 1
+            and sup["restarted_requests_resubmitted"] == 1 and same_graph):
+        fail(f"restart on the card: ids {ids} vs {clean}, {sup}")
 
 
 # --------------------------------------------------------------------- phase 4
@@ -613,91 +713,38 @@ def _chat(n_chars: int, seed: int) -> list:
     return [{"role": "user", "content": text[:n_chars]}]
 
 
-def main_path(card: str) -> dict:
-    import aiohttp
-    import torch
-    from aiohttp import web
+def _rag_chats(tok, head_tokens: int, questions) -> list:
+    """Chats that share one two-message head (a system prompt and a packed
+    context, ``head_tokens`` tokens as the chat split counts them) and end in
+    a question of the given sizes in tokens."""
+    from django_assistant_bot_tpu_torch.serving import encode_chat_split
 
-    from django_assistant_bot_tpu_torch import kernels
-    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
-    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
-    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
-    from django_assistant_bot_tpu_torch.serving.server import create_app
+    system = {"role": "system", "content": "You answer from the context below; cite it."}
+    probe = [system, {"role": "user", "content": ""}, {"role": "user", "content": "?"}]
+    base = encode_chat_split(tok, probe)[1]
+    context = {"role": "user", "content": _chat(head_tokens - base, 7)[0]["content"]}
+    chats = []
+    for i, n in enumerate(questions):
+        q = _chat(n, 100 + i)[0]["content"]
+        chats.append([system, context, {"role": "user", "content": q}])
+    return chats
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cfg = DecoderConfig.llama3_8b()  # all 32 layers, full width, bf16
-    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    tok = ByteTokenizer()
-    name = "llama3-8b-random"
-    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096)  # default loop
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    engine = GenerationEngine(
-        cfg, params, tok, device="cuda", max_slots=8, max_seq_len=4096, burst=spec.burst,
-        prefill_piggyback=spec.prefill_piggyback, scheduler=spec.build_scheduler(),
-    )
-    torch.cuda.synchronize()
-    resident_gib = torch.cuda.memory_allocated() / 2**30  # weights + page pool
-    n_params = sum(w.numel() for w in params["layers"].values()) + params["tok_embed"].numel() \
-        + params["lm_head"].numel() + params["final_norm"].numel()
-    dec = engine.decode_path_stats()
-    log(f"  Llama-3-8B geometry, {cfg.num_layers} layers, {n_params / 1e9:.2f} B params bf16, "
-        f"KV pool {engine._kv_pool.n_pages} pages of {engine.kv_page_size}: built in "
-        f"{time.perf_counter() - t0:.1f} s, of which the engine (pool, warm-up tick and "
-        f"capture of the {engine.decode_steps}-step tick) {time.perf_counter() - t1:.2f} s; "
-        f"graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB; decode path {dec}; "
-        f"scheduler max_queue {engine.scheduler.cfg.max_queue}")
-    if not (dec["cuda_graph"] and dec["decode_steps"] == 8 and dec["prefill_piggyback"]
-            and engine._piggyback_graph is not None):
-        fail(f"the main-path engine is not at the default loop: {dec}")
-    registry = ModelRegistry()
-    registry.load(spec, engine=engine)
-    app = create_app(registry)
-    port = _free_port()
-    # prompt sizes in tokens: 2 in the 512 bucket (flash kernel), 1 past
-    # chunk_size (chunked prefill), 1 short (plain attention, 128 bucket)
-    sizes = {"a": 340, "b": 470, "c": 900, "d": 90}
-    overhead = len(tok.encode_chat(_chat(0, 0)))
-    messages = {k: _chat(n - overhead, i) for i, (k, n) in enumerate(sizes.items())}
 
-    async def post(session, msgs):
-        t = time.perf_counter()
-        async with session.post(
-            f"http://127.0.0.1:{port}/dialog/",
-            json={"model": name, "messages": msgs, "max_tokens": 32, "temperature": 0.0},
-        ) as resp:
-            body = await resp.json()
-            return resp.status, body, time.perf_counter() - t
+async def _post(session, port, name, msgs):
+    t = time.perf_counter()
+    async with session.post(
+        f"http://127.0.0.1:{port}/dialog/",
+        json={"model": name, "messages": msgs, "max_tokens": 32, "temperature": 0.0},
+    ) as resp:
+        body = await resp.json()
+        return resp.status, body, time.perf_counter() - t
 
-    async def drive():
-        runner = web.AppRunner(app)
-        await runner.setup()
-        site = web.TCPSite(runner, "127.0.0.1", port)
-        await site.start()
-        try:
-            async with aiohttp.ClientSession() as session:
-                # warm-up: first CUDA/cuBLAS use, outside the counted run
-                st, body, _ = await post(session, _chat(300, 99))
-                if st != 200:
-                    fail(f"warm-up /dialog/ returned {st}: {body}")
-                torch.cuda.synchronize()
-                kernels.reset_counts()
-                steps0 = engine.steps
-                t = time.perf_counter()
-                results = await asyncio.gather(*(post(session, m) for m in messages.values()))
-                wall = time.perf_counter() - t
-                counts = kernels.launch_counts()
-                routes = dict(kernels.PAGED_ROUTES)
-                return results, wall, counts, routes, engine.steps - steps0
-        finally:
-            await runner.cleanup()  # stops the registry's engines
 
-    results, wall, counts, routes, steps = asyncio.run(drive())
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    total_completion = 0
-    ttfts, decode_rates = [], []
-    for (key, msgs), (status, body, secs) in zip(messages.items(), results):
+def _check_dialogs(tok, key_msgs, results) -> tuple:
+    """Wire and usage checks of a run's /dialog/ results; returns (TTFTs,
+    per-request decode rates, completion tokens)."""
+    ttfts, rates, completion = [], [], 0
+    for (key, msgs), (status, body, _) in zip(key_msgs, results):
         if status != 200:
             fail(f"/dialog/ ({key}) returned {status}: {body}")
         r = body.get("response", {})
@@ -709,22 +756,129 @@ def main_path(card: str) -> dict:
                 and u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
                 and isinstance(r["result"], str)):
             fail(f"/dialog/ ({key}) usage wrong (prompt should be {want_prompt}): {u}")
-        total_completion += u["completion_tokens"]
+        completion += u["completion_tokens"]
         ttfts.append(u["ttft_s"])
         if u["completion_tokens"] > 1 and u["latency_s"] > u["ttft_s"]:
-            decode_rates.append((u["completion_tokens"] - 1) / (u["latency_s"] - u["ttft_s"]))
+            rates.append((u["completion_tokens"] - 1) / (u["latency_s"] - u["ttft_s"]))
         log(f"  /dialog/ {key}: prompt {u['prompt_tokens']} tok, completion "
-            f"{u['completion_tokens']} tok, ttft {u['ttft_s']:.4f} s, latency {u['latency_s']:.4f} s, "
-            f"length_limited {r['length_limited']}")
-    log(f"  main path on {card}: {len(results)} concurrent requests in {wall:.3f} s; "
+            f"{u['completion_tokens']} tok, ttft {u['ttft_s']:.4f} s, latency "
+            f"{u['latency_s']:.4f} s, length_limited {r['length_limited']}")
+    return ttfts, rates, completion
+
+
+def _build_engine(cfg, params, spec):
+    import torch
+
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+    t1 = time.perf_counter()
+    engine = GenerationEngine(cfg, params, ByteTokenizer(), device="cuda", **spec.engine_kwargs())
+    torch.cuda.synchronize()
+    dec = engine.decode_path_stats()
+    if not (dec["cuda_graph"] and dec["decode_steps"] == 8 and dec["prefill_piggyback"]
+            and engine._piggyback_graph is not None):
+        fail(f"the main-path engine is not at the default loop: {dec}")
+    return engine, time.perf_counter() - t1
+
+
+def main_path(card: str) -> dict:
+    """The four concurrent requests (launch counts reset just before and
+    read just after), then the RAG wave on the same engine (its own counts)
+    and the decode breakdown; then the four requests again on an engine with
+    ``obs`` off; last, the RAG hits on an engine with prefix sharing off,
+    held to the hits' own first-step logits."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = DecoderConfig.llama3_8b()  # all 32 layers, full width, bf16
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tok = ByteTokenizer()
+    name = "llama3-8b-random"
+    # the JAX ModelSpec defaults: the default loop, prefix sharing, obs and
+    # supervision on
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096)
+    engine, build_s = _build_engine(cfg, params, spec)
+    resident_gib = torch.cuda.memory_allocated() / 2**30  # weights + page pool
+    n_params = sum(w.numel() for w in params["layers"].values()) + params["tok_embed"].numel() \
+        + params["lm_head"].numel() + params["final_norm"].numel()
+    log(f"  Llama-3-8B geometry, {cfg.num_layers} layers, {n_params / 1e9:.2f} B params bf16, "
+        f"KV pool {engine._kv_pool.n_pages} pages of {engine.kv_page_size}: built in "
+        f"{time.perf_counter() - t0:.1f} s, of which the engine (pool, warm-up tick and "
+        f"capture of the {engine.decode_steps}-step tick) {build_s:.2f} s; "
+        f"graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB; decode path "
+        f"{engine.decode_path_stats()}; scheduler max_queue {engine.scheduler.cfg.max_queue}; "
+        f"prefix cache {engine.prefix_cache_size} entries; obs {engine.obs is not None}")
+    # prompt sizes in tokens: 2 in the 512 bucket (flash kernel), 1 past
+    # chunk_size (chunked prefill), 1 short (plain attention, 128 bucket)
+    sizes = {"a": 340, "b": 470, "c": 900, "d": 90}
+    overhead = len(tok.encode_chat(_chat(0, 0)))
+    messages = {k: _chat(n - overhead, i) for i, (k, n) in enumerate(sizes.items())}
+    # the RAG wave: eight chats share a ~1,500-token two-message head (two
+    # full 512-token pages and a boundary page); the first misses and
+    # registers it; the second (a question the miss's size) hits alone, on an
+    # idle engine; then six hits together: five short questions (suffix
+    # prefills, a copy-on-write boundary page each) and one of ~700 tokens,
+    # which continues as chunks from the head's length
+    head_tokens = 1500
+    rag = _rag_chats(tok, head_tokens, [100, 100, 60, 90, 120, 160, 200, 700])
+    hit_logits = record_first_logits(engine)
+    def serve(eng, groups):
+        """Serve ``groups`` of chats over /dialog/ (each group concurrently,
+        after the previous one finished), launch counts reset before each
+        group and read after it."""
+        registry = ModelRegistry()
+        registry.load(spec, engine=eng)
+        port = _free_port()
+
+        async def drive():
+            runner = web.AppRunner(create_app(registry))
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", port).start()
+            try:
+                async with aiohttp.ClientSession() as session:
+                    # warm-up: first CUDA/cuBLAS use, outside the counted runs
+                    st, body, _ = await _post(session, port, name, _chat(300, 99))
+                    if st != 200:
+                        fail(f"warm-up /dialog/ returned {st}: {body}")
+                    out = []
+                    for group in groups:
+                        torch.cuda.synchronize()
+                        kernels.reset_counts()
+                        steps0, kv0, tick0 = eng.steps, eng.kv_stats(), _tick_counters(eng)
+                        t = time.perf_counter()
+                        res = await asyncio.gather(*(_post(session, port, name, m) for m in group))
+                        wall = time.perf_counter() - t
+                        out.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
+                                        routes=dict(kernels.PAGED_ROUTES),
+                                        steps=eng.steps - steps0, kv0=kv0, kv1=eng.kv_stats(),
+                                        ticks=[b - a for a, b in zip(tick0, _tick_counters(eng))]))
+                    return out
+            finally:
+                await runner.cleanup()  # stops the registry's engines
+
+        return asyncio.run(drive())
+
+    main, *rag_runs = serve(engine, [list(messages.values()), rag[:1], rag[1:2], rag[2:]])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ttfts, rates, completion = _check_dialogs(tok, list(messages.items()), main["results"])
+    wall, counts, routes, steps = main["wall"], main["counts"], main["routes"], main["steps"]
+    log(f"  main path on {card}: {len(ttfts)} concurrent requests in {wall:.3f} s; "
         f"TTFT mean {sum(ttfts) / len(ttfts):.4f} s max {max(ttfts):.4f} s; "
-        f"decode {sum(decode_rates) / max(1, len(decode_rates)):.2f} tok/s per request, "
-        f"{total_completion / wall:.2f} completion tok/s overall; peak memory {peak_gib:.2f} GiB "
+        f"decode {sum(rates) / max(1, len(rates)):.2f} tok/s per request, "
+        f"{completion / wall:.2f} completion tok/s overall; peak memory {peak_gib:.2f} GiB "
         f"({resident_gib:.2f} GiB resident weights and page pool, "
         f"{peak_gib - resident_gib:.2f} GiB above it at the peak)")
     log(f"  launches during the run: {counts}; paged decode by route: {routes}; "
         f"{steps} decode steps in {steps // engine.decode_steps} ticks")
-    log(f"  tick_stats: {json.dumps(engine.tick_stats())}")
     for k, n in counts.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -733,10 +887,157 @@ def main_path(card: str) -> dict:
     if counts["paged_decode"] != cfg.num_layers * steps:
         fail(f"replay-counted paged launches {counts['paged_decode']} != {cfg.num_layers} x "
              f"{steps} decode steps")
+    rag_wave_report(cfg, engine, tok, rag, *rag_runs)
+    log(f"  tick_stats: {json.dumps(engine.tick_stats())}")
+    obs_on = _tick_reading(main, rates)
     decode_breakdown(cfg, params, engine)
-    del params, engine, registry
+    del engine
+    torch.cuda.empty_cache()
+
+    # the obs A/B: the same four requests on an engine with the obs plane off
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, obs=False)
+    engine, _ = _build_engine(cfg, params, spec)
+    (off,) = serve(engine, [list(messages.values())])
+    _, rates_off, _ = _check_dialogs(tok, list(messages.items()), off["results"])
+    obs_off = _tick_reading(off, rates_off)
+    log(f"  obs on vs off, the four requests (each after its engine's warm-up request): "
+        f"on {obs_on}, off {obs_off}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # the hits again, each alone, on an engine with prefix sharing off: cold
+    # chunked prefills of the same prompts
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, prefix_cache=0)
+    engine, _ = _build_engine(cfg, params, spec)
+    cold_logits = record_first_logits(engine)
+    cold_runs = serve(engine, [[m] for m in rag[1:]])
+    if engine.kv_stats()["prefix_hits"] != 0:
+        fail(f"the cold engine hit its prefix cache: {engine.kv_stats()}")
+    hit_vs_cold(cfg, tok, rag[1:], hit_logits, cold_logits, rag_runs[1:], cold_runs)
+    del params, engine
     torch.cuda.empty_cache()
     return counts
+
+
+def _tick_counters(eng) -> tuple:
+    """The engine's tick clocks: host seconds issuing ticks, ticks issued,
+    seconds waiting for ticks' ids, ticks processed."""
+    return eng._tick_issue_s, eng._ticks_issued, eng._tick_block_s, eng._ticks_processed
+
+
+def _tick_reading(run, rates) -> dict:
+    """A run's ``issue_ms`` and ``block_ms`` per tick (the engine's
+    ``tick_stats`` quantities over this run alone) and decode rate."""
+    issue_s, issued, block_s, processed = run["ticks"]
+    return {"issue_ms": round(issue_s / max(1, issued) * 1e3, 3),
+            "block_ms": round(block_s / max(1, processed) * 1e3, 3), "ticks": issued,
+            "decode_tok_s_per_request": round(sum(rates) / max(1, len(rates)), 2)}
+
+
+def record_first_logits(eng) -> dict:
+    """Keep each request's first-step logits (a device copy, no sync), keyed
+    by its prompt ids: every admission path (a prefill wave, a suffix batch
+    of prefix hits, a final chunk) samples the first token in
+    ``_activate_batch``, so the wrapper reads the logits the engine used."""
+    seen = {}
+    activate = eng._activate_batch
+
+    def wrapped(slots, reqs, logits, *, pad):
+        for j, r in enumerate(reqs):
+            seen[tuple(r.prompt_ids)] = logits[pad + j].clone()
+        return activate(slots, reqs, logits, pad=pad)
+
+    eng._activate_batch = wrapped
+    return seen
+
+
+def rag_wave_report(cfg, engine, tok, rag, first, alone, rest) -> None:
+    """The RAG wave's checks: the first chat misses and registers the head;
+    the one sent alone hits; the six that follow all hit; each hit takes a
+    copy-on-write boundary page; the paged kernel ran (the wave's own counts)
+    on the tensor-core route; the pool returns to the registry's pages; TTFT
+    of the hits against the miss."""
+    ttft_miss, _, _ = _check_dialogs(tok, [("rag miss", rag[0])], first["results"])
+    ttft_alone, _, _ = _check_dialogs(tok, [("rag hit 1, alone", rag[1])], alone["results"])
+    keys = [(f"rag hit {i}", m) for i, m in enumerate(rag[2:], 2)]
+    ttft_hits, rates, _ = _check_dialogs(tok, keys, rest["results"])
+
+    def delta(run):
+        return tuple(run["kv1"][k] - run["kv0"][k]
+                     for k in ("prefix_hits", "prefix_misses", "kv_cow_copies"))
+
+    runs = (first, alone, rest)
+    kv1 = rest["kv1"]
+    counts = {k: sum(r["counts"][k] for r in runs) for k in first["counts"]}
+    steps = sum(r["steps"] for r in runs)
+    log(f"  RAG wave: head {kv1['kv_shared_pages']} registry pages; (hits, misses, COW copies) "
+        f"miss {delta(first)}, alone {delta(alone)}, the six {delta(rest)}; pages used after "
+        f"{kv1['kv_pages_used']} of {kv1['kv_pages_total']}; launches {counts} over {steps} "
+        f"decode steps; TTFT miss {ttft_miss[0]:.4f} s, the hit sent alone (same question "
+        f"size) {ttft_alone[0]:.4f} s; the six sent together: mean "
+        f"{sum(ttft_hits) / len(ttft_hits):.4f} s (min {min(ttft_hits):.4f}, max "
+        f"{max(ttft_hits):.4f}), the ~700-token question's {ttft_hits[-1]:.4f} s; their decode "
+        f"{sum(rates) / max(1, len(rates)):.2f} tok/s per request")
+    if (delta(first), delta(alone), delta(rest)) != ((0, 1, 0), (1, 0, 1), (6, 0, 6)):
+        fail(f"RAG wave: (hits, misses, COW copies) {delta(first)}, {delta(alone)}, "
+             f"{delta(rest)} (want (0, 1, 0), (1, 0, 1), (6, 0, 6))")
+    if not (kv1["kv_shared_pages"] == 3 and kv1["kv_pages_used"] == 3
+            and kv1["kv_pages_free"] == kv1["kv_pages_total"] - 3):
+        fail(f"RAG wave: the pool did not return to the registry's 3 pages: {kv1}")
+    if counts["paged_decode"] <= 0 or counts["paged_decode"] != cfg.num_layers * steps:
+        fail(f"RAG wave: paged launches {counts['paged_decode']} != {cfg.num_layers} x {steps}")
+    if engine.decode_path_stats()["prefill_chunks_piggybacked"] < 1:
+        fail("RAG wave: no chunk piggybacked")
+
+
+def hit_vs_cold(cfg, tok, chats, hit_logits, cold_logits, hit_runs, cold_runs) -> None:
+    """Each RAG hit's first-step logits, as the serving engine computed them
+    (the registered head's full pages shared, its boundary page cloned, a
+    suffix prefill or chunks from the head's length), against the same
+    prompt served alone by an engine with prefix sharing off (a cold chunked
+    prefill from position 0), at the 8B width in bf16.
+
+    Bound, per logit: 4 bf16 ulps at max|cold| (``4 * 2^(e - 7)``, ``2^e <=
+    max|cold| < 2^(e + 1)``).  Both paths run the same arithmetic on every
+    position: the head's K/V (the miss's chunks, or the cold chunks) and the
+    suffix read the same weights through the same plain ops; what differs is
+    how the positions are grouped into calls (a batch of suffix rows, chunks
+    at other boundaries), which can only change which GEMM kernel runs and so
+    the last bit of a bf16 activation.  Readings on an H100 were exactly 0,
+    so the bound leaves a few ulps for that and catches a wrong hit (a
+    boundary page read at the wrong offset or a stale layer in the clone
+    moves logits by a sizeable share of max|cold|).  The greedy completions
+    are compared and reported; their identity is not required at bf16."""
+    import math
+
+    import torch
+
+    from django_assistant_bot_tpu_torch.serving import encode_chat_split
+
+    hit_results = [r for run in hit_runs for r in run["results"]]
+    cold_results = [r for run in cold_runs for r in run["results"]]
+    worst, same_text = 0.0, 0
+    for i, (msgs, h, c) in enumerate(zip(chats, hit_results, cold_results), 1):
+        if c[0] != 200:
+            fail(f"cold /dialog/ (rag hit {i}) returned {c[0]}: {c[1]}")
+        key = tuple(encode_chat_split(tok, msgs)[0])
+        if key not in hit_logits or key not in cold_logits:
+            fail(f"hit vs cold: rag hit {i} left no first-step logits")
+        hit, cold = hit_logits[key].float(), cold_logits[key].float()
+        top = cold.abs().max().item()
+        bound = 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+        err = (hit - cold).abs().max().item()
+        worst = max(worst, err / bound)
+        text = h[1]["response"]["result"] == c[1]["response"]["result"]
+        same_text += text
+        log(f"  hit vs cold, rag hit {i} ({len(key)}-token prompt): first-step max_abs_err "
+            f"{err:.4e}, max|cold| {top:.4e}, bound {bound:.4e} (4 bf16 ulps), argmax "
+            f"{'equal' if int(hit.argmax()) == int(cold.argmax()) else 'differs'}, "
+            f"32-token completion {'equal' if text else 'differs'}")
+        if not (torch.isfinite(hit).all() and hit.shape == (cfg.vocab_size,) and err <= bound):
+            fail(f"hit vs cold logits, rag hit {i}: err {err} > bound {bound}")
+    log(f"  hit vs cold: worst err/bound {worst:.4f}; completions equal {same_text} of "
+        f"{len(chats)}")
 
 
 def _timed_run(fn, n: int, per: int, label: str) -> None:
@@ -944,6 +1245,22 @@ def serve_tiny_subprocess():
             if r.status != 200 or "result" not in body.get("response", {}):
                 fail(f"serve --tiny /dialog/ returned {r.status}: {body}")
         log(f"  serve --tiny --device cuda: /dialog/ 200, usage {body['response']['usage']}")
+        from django_assistant_bot_tpu_torch.serving.obs import parse_prometheus_text
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+            fams = parse_prometheus_text(r.read().decode())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        sup = health["generators"]["tiny-chat"]["supervision"]
+        ttft_count = [v for n, _, v in fams.get("dabt_ttft_seconds", {}).get("samples", [])
+                      if n.endswith("_count")]
+        restarts = [v for _, _, v in fams.get("dabt_engine_restarts_total", {}).get("samples", [])]
+        log(f"  serve --tiny /metrics: {len(fams)} families, dabt_ttft_seconds_count "
+            f"{ttft_count}, dabt_engine_restarts_total {restarts}; /healthz status "
+            f"{health['status']}, supervision {sup}")
+        if not (ttft_count == [1.0] and restarts == [0.0] and health["status"] == "ok"
+                and sup["healthy"] and sup["engine_restarts"] == 0):
+            fail(f"serve --tiny /metrics or /healthz wrong: {sorted(fams)}, {health}")
     finally:
         proc.terminate()
         try:

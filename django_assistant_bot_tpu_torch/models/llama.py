@@ -326,6 +326,81 @@ def insert_sequences_paged(
     return cache
 
 
+def copy_pages(cache: PagedKVCache, src: torch.Tensor, dst: torch.Tensor) -> PagedKVCache:
+    """Clone whole pages inside the pool, in place (the allocator's
+    copy-on-write primitive: a prefix sharer clones the boundary page its own
+    suffix will write into).  ``src``/``dst`` are ``[n]`` physical page ids;
+    ``dst`` entries >= P land in the dump page (the JAX copy drops them)."""
+    P = cache.n_pages
+    s = src.long().clamp(0, P - 1)
+    d = dst.long().clamp(max=P)
+    cache.k[:, d] = cache.k[:, s]
+    cache.v[:, d] = cache.v[:, s]
+    return cache
+
+
+def prefill_suffix_paged(
+    params: Params,
+    cfg: DecoderConfig,
+    input_ids: torch.Tensor,  # [B, C] right-padded suffix tokens (C a bucket)
+    cache: PagedKVCache,
+    block_tables: torch.Tensor,  # [B, NB] each row's full logical page chain
+    slots: torch.Tensor,  # [B] (slot-count sentinel = pad row)
+    starts: torch.Tensor,  # [B] tokens already present (the prefix length)
+    valids: torch.Tensor,  # [B] real (non-pad) tokens per row
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """Continue each row from its shared prefix: gather the row's logical
+    view from its pages, run the suffix forward at RoPE positions ``start +
+    i`` against the whole row (causal, plain attention as in the JAX
+    function), then write back only the blocks overlapping ``[start, start +
+    valid)``.  Blocks below are the shared prefix pages, physically shared
+    with other requests, so they are never rewritten (the others land in the
+    dump page).  Returns (last-token logits [B, V] f32, cache)."""
+    B, C = input_ids.shape
+    NB = block_tables.shape[1]
+    page = cache.page_size
+    S = NB * page
+    dev = input_ids.device
+    ar = torch.arange(C, device=dev)
+    starts = starts.long()
+    pos = starts[:, None] + ar[None, :]
+    # the write window, clamped inside the row as dynamic_update_slice does
+    wpos = starts.clamp(max=S - C)[:, None] + ar[None, :]
+    cos_t, sin_t = _rope_tables(cfg, S, dev)
+    rope_pos = pos.clamp(max=S - 1)
+    cos, sin = cos_t[rope_pos], sin_t[rope_pos]
+    x = _embed(params, cfg, input_ids)
+    kpos = torch.arange(S, device=dev)[None, None, None, :]
+    causal_keep = kpos <= pos[:, None, :, None]
+    rows = torch.arange(B, device=dev)[:, None]
+    blk = torch.arange(NB, device=dev)[None, :]
+    ends = (starts + valids.long())[:, None]
+    write = ((blk + 1) * page > starts[:, None]) & (blk * page < ends)
+    for l, window in enumerate(_layer_windows(cfg)):
+        attn_mask = causal_keep
+        if window is not None:
+            attn_mask = attn_mask & (kpos > pos[:, None, :, None] - window)
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, p, h, cos, sin)
+        k_row = _gather_paged_rows(cache.k[l], block_tables)
+        v_row = _gather_paged_rows(cache.v[l], block_tables)
+        k_row[rows, :, wpos, :] = k.transpose(1, 2).to(k_row.dtype)
+        v_row[rows, :, wpos, :] = v.transpose(1, 2).to(v_row.dtype)
+        o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
+        o = o.transpose(1, 2).reshape(B, C, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+        _scatter_paged_rows(cache.k[l], k_row, block_tables, write)
+        _scatter_paged_rows(cache.v[l], v_row, block_tables, write)
+    _set_lengths(cache.lengths, slots, ends[:, 0])
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last = x[torch.arange(B, device=dev), (valids.long() - 1).clamp(min=0)]
+    logits = _head_logits(params, cfg, last)
+    return logits.float(), cache
+
+
 def prefill_chunk_paged(
     params: Params,
     cfg: DecoderConfig,
@@ -336,50 +411,22 @@ def prefill_chunk_paged(
     start,  # tokens already written for this slot: int, or a [1] int64 tensor
     valid: int,  # real (non-pad) tokens in this chunk
 ) -> tuple[torch.Tensor, PagedKVCache]:
-    """One chunk of one long prompt extends the slot's page chain: the
-    forward runs over the gathered logical row, and write-back covers only
-    the blocks overlapping ``[start, start + valid)``.  With ``slot`` and
-    ``start`` as device tensors the call makes no host round trip and its
-    shapes do not depend on them, so one CUDA graph serves every chunk."""
-    B, C = input_ids.shape
-    L, P1, KH, page, D = cache.k.shape
-    NB = block_table.shape[0]
-    S = NB * page
+    """One chunk of one long prompt extends the slot's page chain: a
+    one-row :func:`prefill_suffix_paged`.  With ``slot`` and ``start`` as
+    device tensors the call makes no host round trip and its shapes do not
+    depend on them, so one CUDA graph serves every chunk."""
+    C = input_ids.shape[1]
+    S = block_table.shape[0] * cache.page_size
     if isinstance(start, int) and start + C > S:
         raise ValueError(f"chunk [{start}, {start + C}) runs past the cache ({S})")
-    dev = input_ids.device
-    pos = start + torch.arange(C, device=dev)
-    cos_t, sin_t = _rope_tables(cfg, S, dev)
-    cos, sin = cos_t[pos], sin_t[pos]
-    x = _embed(params, cfg, input_ids)
-    kpos = torch.arange(S, device=dev)[None, None, None, :]
-    causal_keep = kpos <= pos[None, None, :, None]
-    bt = block_table[None, :]
-    blk = torch.arange(NB, device=dev)
-    write = (((blk + 1) * page > pos[0]) & (blk * page < pos[0] + valid))[None, :]
-    for l, window in enumerate(_layer_windows(cfg)):
-        attn_mask = causal_keep
-        if window is not None:
-            attn_mask = attn_mask & (kpos > pos[None, None, :, None] - window)
-        p = _layer(params, l)
-        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _attn_proj(cfg, p, h, cos, sin)
-        k_row = _gather_paged_rows(cache.k[l], bt)
-        v_row = _gather_paged_rows(cache.v[l], bt)
-        k_row.index_copy_(2, pos, k.to(k_row.dtype))
-        v_row.index_copy_(2, pos, v.to(v_row.dtype))
-        o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
-        o = o.transpose(1, 2).reshape(B, C, -1)
-        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
-        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp(cfg, p, h)
-        _scatter_paged_rows(cache.k[l], k_row, bt, write)
-        _scatter_paged_rows(cache.v[l], v_row, bt, write)
-    cache.lengths[slot] = (pos[0] + valid).to(cache.lengths.dtype)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    last = x[0, max(valid - 1, 0)]
-    logits = _head_logits(params, cfg, last)[None]
-    return logits.float(), cache
+
+    def one(v):  # a [1] int64 device tensor (torch.full: no copy, capture-safe)
+        if torch.is_tensor(v):
+            return v.reshape(1)
+        return torch.full((1,), v, dtype=torch.int64, device=input_ids.device)
+
+    return prefill_suffix_paged(params, cfg, input_ids, cache, block_table[None, :],
+                                one(slot), one(start), one(valid))
 
 
 def decode_step_paged(

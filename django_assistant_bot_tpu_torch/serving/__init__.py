@@ -1,6 +1,14 @@
 """Serving plane of the port: generation engine, registry, HTTP server."""
 
-from .engine import PREFILL_BUCKETS, GenerationEngine, GenerationResult, pick_bucket
+from .engine import (
+    PREFILL_BUCKETS,
+    EngineUnavailable,
+    GenerationEngine,
+    GenerationResult,
+    RequestPoisoned,
+    pick_bucket,
+)
+from .faults import FaultInjected, FaultInjector
 from .registry import ModelRegistry, ModelSpec
 from .scheduler import DeadlineExceeded, RequestScheduler, SchedulerConfig, SchedulerRejected
 from .tokenizer import ByteTokenizer, HFTokenizer, encode_chat_split, load_tokenizer
@@ -9,11 +17,15 @@ __all__ = [
     "PREFILL_BUCKETS",
     "ByteTokenizer",
     "DeadlineExceeded",
+    "EngineUnavailable",
+    "FaultInjected",
+    "FaultInjector",
     "GenerationEngine",
     "GenerationResult",
     "HFTokenizer",
     "ModelRegistry",
     "ModelSpec",
+    "RequestPoisoned",
     "RequestScheduler",
     "SchedulerConfig",
     "SchedulerRejected",

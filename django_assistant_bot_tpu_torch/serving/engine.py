@@ -1,11 +1,13 @@
 """Continuous-batching generation engine, paged KV (port of ``serving/engine.py``).
 
-This slice ports the JAX engine's default decode loop: ``kv_layout="paged"``,
-fused ``decode_steps``-step ticks, chunked prefill piggybacked into the
-decode tick, and the admission-controlled :class:`~.scheduler.RequestScheduler`.
-The prefix cache, speculation, fp8 KV and JSON-constrained decoding are still
-accepted only at their off value and refused, naming their ROADMAP item, at
-any other.  What is ported is the JAX engine's own logic:
+The port runs the JAX engine's default decode loop at the JAX ``ModelSpec``
+defaults: ``kv_layout="paged"`` with prefix sharing, fused
+``decode_steps``-step ticks, chunked prefill piggybacked into the decode
+tick, the admission-controlled :class:`~.scheduler.RequestScheduler`, the
+observability plane and crash-only supervision.  Speculation, fp8 KV and
+JSON-constrained decoding are still accepted only at their off value and
+refused, naming their ROADMAP item, at any other.  What is ported is the JAX
+engine's own logic:
 
 - **Admission.**  Free slots take queued requests in the scheduler's
   weighted-fair-share order (FIFO with ``scheduler=None``); each reserves
@@ -13,10 +15,20 @@ any other.  What is ported is the JAX engine's own logic:
   run out of pages mid-stream.  A wave is grouped by prefill bucket and each
   group is one prefill call whose batch pads to a batch bucket of {1, 4,
   max_slots}; pad rows come first and carry the slot-count and page
-  sentinels, so their writes drop.  Prompts longer than ``chunk_size``
-  prefill one chunk per loop iteration, one at a time.  With a scheduler,
-  ``submit`` may shed synchronously (:class:`~.scheduler.SchedulerRejected`),
-  and deadlines are reaped while queued and while live.
+  sentinels, so their writes drop.  Prompts whose un-shared remainder is
+  longer than ``chunk_size`` prefill one chunk per loop iteration, one at a
+  time.  With a scheduler, ``submit`` may shed synchronously
+  (:class:`~.scheduler.SchedulerRejected`), and deadlines are reaped while
+  queued and while live.
+- **Prefix sharing.**  A request's declared prefix (``prefix_len``: the
+  system prompt and packed RAG context, every message before the last) is
+  registered with the page allocator after its prefill.  A later prompt
+  that starts with a registered prefix (longest match) shares its full pages
+  read-only, takes a copy-on-write clone of the boundary page
+  (:func:`~..models.llama.copy_pages`), and prefills only its suffix
+  (:func:`~..models.llama.prefill_suffix_paged`, or chunks from the prefix
+  length when the suffix is longer than a chunk).  Shared pages are never
+  rewritten.
 - **Fused decode ticks.**  One tick runs ``decode_steps`` chained
   :func:`~..models.llama.decode_step_paged` plus sampling steps for every
   live slot and yields the sampled ids ``[K, B]``; the last step's ids stay
@@ -39,6 +51,19 @@ any other.  What is ported is the JAX engine's own logic:
   the steps.  Otherwise the chunk runs on its own and the tick waits for it
   (``prefill_displacement_frac``); the final chunk always does, since its
   logits feed the slot's first token.
+- **Supervision.**  A loop error is engine-fatal: the crash-only
+  :meth:`GenerationEngine._restart` rebuilds the device state in place (the
+  captured graphs keep every address), resubmits requests that emitted no
+  token at the head of their queue, fails those past their first token, and
+  leaves queued work alone; restarts back off, and ``max_restarts`` inside
+  ``restart_window_s`` open a circuit during which ``submit`` raises
+  :class:`EngineUnavailable`.  Garbage sampled ids and a failed
+  detokenization are request poison: one request fails, the batch goes on.
+  ``faults`` injects both kinds (:mod:`.faults`).
+- **Observability.**  With ``obs`` on, :class:`~.obs.EngineObs` records
+  TTFT, inter-token, queue-wait and tick histograms, request traces and a
+  flight recorder, all host bookkeeping after a tick's ids reached the host;
+  its queue-wait histogram floors the scheduler's estimated wait.
 - **A background thread** runs the loop; ``submit`` is thread-safe and
   returns a ``concurrent.futures.Future``; ``generate`` awaits one from
   asyncio.
@@ -63,15 +88,38 @@ from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..models import DecoderConfig, llama
 from ..ops.sampling import gumbel_noise, noise_width, sample_logits
-from .kv_pool import PageAllocator
+from .faults import FaultInjected, FaultInjector
+from .kv_pool import PageAllocator, SharedPrefix
+from .obs import EngineObs, new_trace_id
 from .scheduler import DeadlineExceeded, RequestScheduler, SchedulerRejected
-from .tokenizer import Tokenizer
+from .tokenizer import Tokenizer, encode_chat_split
 
 logger = logging.getLogger(__name__)
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 TOP_K = 50  # sampling's top-k, the JAX engine's default
 IDLE_POLL_S = 0.002  # loop sleep when there is no work
+
+
+class RequestPoisoned(RuntimeError):
+    """A failure attributable to one request (garbage sampled ids from a
+    NaN'd logits row): that request's future fails with this and its slot is
+    quarantined; batch-mates keep decoding."""
+
+    def __init__(self, detail: str, slot: Optional[int] = None):
+        super().__init__(detail)
+        self.slot = slot
+
+
+class EngineUnavailable(RuntimeError):
+    """The engine's restart circuit is open (too many crash-only restarts in
+    the window): ``submit`` fails fast with this instead of queueing work the
+    engine cannot serve.  The HTTP layer maps it to 503 + ``Retry-After``
+    (``retry_after_s`` is the remaining cooldown)."""
+
+    def __init__(self, detail: str, retry_after_s: float):
+        super().__init__(f"{detail} (retry after {retry_after_s:.1f}s)")
+        self.retry_after_s = float(retry_after_s)
 
 
 def _safe_resolve(fut: Future, *, result=None, exc: Optional[BaseException] = None):
@@ -129,6 +177,9 @@ class _Request:
     top_p: float
     future: Future
     submitted_at: float
+    # leading prompt tokens that form a cacheable shared prefix (system prompt
+    # + packed RAG context); 0 = no prefix-cache participation
+    prefix_len: int = 0
     first_token_at: Optional[float] = None
     # scheduling metadata (serving/scheduler.py): class tag, fair-share
     # tenant, absolute monotonic deadline, whether try_admit already charged
@@ -140,12 +191,20 @@ class _Request:
     kv_pages: int = 0
     # slot-residency start (prefill begins): the scheduler's service sample
     started_at: Optional[float] = None
+    # crash-only restarts this request survived (resubmitted with no token
+    # emitted), bounded by the engine's max_request_restarts
+    restarts: int = 0
+    # the request's correlation id (client X-Request-Id or generated at
+    # submit), carried through the obs plane's traces and flight recorder
+    trace_id: str = ""
 
 
 @dataclasses.dataclass
 class _Slot:
     request: _Request
     generated: List[int] = dataclasses.field(default_factory=list)
+    # host arrival time of the previous token (inter-token-latency samples)
+    last_token_at: Optional[float] = None
     # decode steps the slot sat through (a fused tick charges all its steps
     # even when the request ends mid-tick) and the prefill chunks it took:
     # the per-token denominator of the scheduler's service model
@@ -221,16 +280,28 @@ class GenerationEngine:
         kv_page_size: int = 0,
         kv_pages: int = 0,
         prefill_piggyback: bool = True,
+        prefix_cache_size: int = 8,
+        prefix_min_tokens: int = 32,
+        prefix_cache_max_bytes: int = 1 << 30,
         scheduler: Optional[RequestScheduler] = None,
+        faults: Optional[FaultInjector] = None,
+        max_restarts: int = 5,
+        restart_window_s: float = 60.0,
+        restart_backoff_s: float = 0.05,
+        restart_backoff_max_s: float = 2.0,
+        degraded_cooldown_s: float = 30.0,
+        heartbeat_degraded_s: float = 30.0,
+        max_request_restarts: int = 2,
+        name: str = "engine",
+        obs: bool = True,
+        obs_dump_dir: Optional[str] = None,
         # the JAX engine's knobs that are ported only at their off value
         kv_layout: str = "paged",
-        prefix_cache_size: int = 0,
         speculative: int = 0,
         kv_cache_dtype: Optional[str] = None,
         attn_fp8: bool = False,
     ):
         _refuse("kv_layout", kv_layout, "paged", "Queue 1 item 8 (legacy contiguous KV)")
-        _refuse("prefix_cache_size", prefix_cache_size, 0, "Queue 1 item 5 (prefix sharing)")
         _refuse("speculative", speculative, 0, "Queue 1 item 9 (speculative decoding)")
         _refuse("kv_cache_dtype", kv_cache_dtype, None, "Queue 2 entry 5 (fp8 KV)")
         _refuse("attn_fp8", attn_fp8, False, "Queue 2 entry 5 (fp8 KV)")
@@ -241,6 +312,10 @@ class GenerationEngine:
             raise ValueError(
                 f"params live on {params['tok_embed'].device}, engine device is {self.device}"
             )
+        self.name = name
+        # the observability plane: None is the A/B off arm (no recorder
+        # object at all; the hot path pays one `is None` check)
+        self.obs = EngineObs(name=name, dump_dir=obs_dump_dir) if obs else None
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -275,7 +350,19 @@ class GenerationEngine:
                 f"kv_pages={n_pages} cannot hold even one max-length request "
                 f"({self._kv_blocks} pages of {page})"
             )
-        self._kv_pool = PageAllocator(n_pages, page)
+        # prefix sharing: LRU over at most prefix_cache_size registered
+        # prefixes of >= prefix_min_tokens tokens, under a byte budget; 0
+        # disables the path
+        self.prefix_cache_size = max(0, int(prefix_cache_size))
+        self.prefix_min_tokens = max(1, int(prefix_min_tokens))
+        self.prefix_cache_max_bytes = int(prefix_cache_max_bytes)
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        page_bytes = cfg.num_layers * cfg.num_kv_heads * page * cfg.head_dim * 2 * cfg.dtype.itemsize
+        self._kv_pool = PageAllocator(
+            n_pages, page, page_bytes=page_bytes, max_shared_bytes=self.prefix_cache_max_bytes,
+            max_shared_entries=self.prefix_cache_size, min_prefix_tokens=self.prefix_min_tokens,
+        )
         self._kv_sentinel = n_pages  # block-table "unallocated" marker
 
         # admission control: the scheduler orders and admits; None keeps FIFO
@@ -283,10 +370,40 @@ class GenerationEngine:
         if scheduler is not None:
             scheduler.bind_slots(max_slots)
             scheduler.bind_kv(self._kv_pool.available, self._kv_pool.n_pages)
+            if self.obs is not None:
+                # once warm, the realized queue waits floor the estimated
+                # wait of admission and of the 429's Retry-After
+                scheduler.bind_wait_hist(self.obs.queue_wait_s)
+
+        # supervision: injected faults (None = off), the restart circuit
+        # (max_restarts inside restart_window_s opens it for
+        # degraded_cooldown_s), bounded backoff between restarts, the loop
+        # heartbeat, and how many restarts one request may ride through
+        self._faults = faults
+        self.max_restarts = max(1, int(max_restarts))
+        self.restart_window_s = float(restart_window_s)
+        self.restart_backoff_s = max(0.0, float(restart_backoff_s))
+        self.restart_backoff_max_s = max(self.restart_backoff_s, float(restart_backoff_max_s))
+        self.degraded_cooldown_s = max(0.0, float(degraded_cooldown_s))
+        self.heartbeat_degraded_s = max(0.1, float(heartbeat_degraded_s))
+        self.max_request_restarts = max(0, int(max_request_restarts))
+        self.engine_restarts = 0
+        self.poisoned_requests = 0
+        self.circuit_trips = 0
+        self.restarted_resubmitted = 0
+        self.restarted_failed = 0
+        self._restart_times: "collections.deque[float]" = collections.deque(maxlen=64)
+        self._consecutive_failures = 0
+        self._degraded_until: Optional[float] = None
+        self._beat = time.monotonic()
+        self._reseeds = 0  # distinct generator seeds for back-to-back restarts
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._pending: "collections.deque[_Request]" = collections.deque()
         self._chunking: Optional[_ChunkedPrefill] = None
+        # requests of a wave between their pop and their activation: in no
+        # queue and no slot, so _restart salvages them from here
+        self._starting_batch: Optional[List[tuple]] = None
         self._slots: List[Optional[_Slot]] = [None] * max_slots
         self._slot_epoch = [0] * max_slots
         self._inflight: "collections.deque[_TickRef]" = collections.deque()
@@ -350,12 +467,30 @@ class GenerationEngine:
         self._sampling_dirty = True
 
     def _reset_device_state(self) -> None:
-        """Clean pools and token chain for what comes next, in place."""
-        for t in (self._cache.k, self._cache.v, self._cache.lengths, self._tokens_dev):
+        """Rebuild the device state in place after a crash-only restart:
+        every tensor the captured graphs read keeps its address, so the
+        graphs are not re-captured.  Zeroes the pools, lengths and token
+        buffers, clears the staged chunk buffers (the chunk's page chain all
+        sentinels), leaves the graphs' paged scratch counters at zero,
+        re-seeds the generator with a reseed counter (distinct streams for
+        back-to-back failures, as the JAX engine's ``_fresh_rng``), and
+        uploads the host's (cleared) block tables and sampling arrays.  On
+        the card it synchronises, so a sticky device error raises here, in
+        recovery, and the engine declares itself dead."""
+        for t in (self._cache.k, self._cache.v, self._cache.lengths, self._tokens_dev,
+                  self._toks_dev, self._chunk_ids_dev, self._chunk_slot_dev,
+                  self._chunk_start_dev):
             t.zero_()
+        self._chunk_bt_dev.fill_(self._kv_sentinel)
+        for _, counters in getattr(self, "_graph_scratch", {}).values():
+            counters.zero_()
+        self._reseeds += 1
+        self._generator.manual_seed(self.steps + self._reseeds)
         self._bt_dirty = True
         self._sampling_dirty = True
         self._upload_dirty()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _resolve_kv_chunk(self, decode_kv_chunk: Optional[int]) -> Optional[int]:
         """Decode KV chunk (= page) width: 0 = auto, the largest of 512, 256,
@@ -381,6 +516,7 @@ class GenerationEngine:
         if self._running:
             return self
         self._running = True
+        self._beat = time.monotonic()
         self._thread = threading.Thread(target=self._loop, daemon=True, name="gen-engine")
         self._thread.start()
         return self
@@ -409,22 +545,40 @@ class GenerationEngine:
         temperature: float = 0.8,
         top_p: float = 0.95,
         json_format: bool = False,
+        prefix_len: int = 0,
         priority: str = "interactive",
         tenant: str = "default",
         deadline_s: Optional[float] = None,
+        trace_id: Optional[str] = None,
     ) -> Future:
         """Thread-safe submission; returns a concurrent Future[GenerationResult].
 
+        ``prefix_len``: the first N prompt tokens are a shared, cacheable
+        prefix (identical across requests, e.g. the system + RAG-context
+        block); the engine reuses their K/V when it can.  An optimisation
+        hint only: results are identical with 0.
+
+        Raises :class:`EngineUnavailable` while the restart circuit is open.
         With a scheduler attached, submission may raise
         :class:`SchedulerRejected` synchronously (load shed: the request was
         never queued); an expired deadline fails the future with
-        :class:`DeadlineExceeded` and frees the request's slot."""
+        :class:`DeadlineExceeded` and frees the request's slot.  ``trace_id``
+        is the request's correlation id (generated when absent)."""
+        trace_id = trace_id or new_trace_id()
+        if self.degraded():
+            remaining = max(0.1, (self._degraded_until or 0.0) - time.monotonic())
+            raise EngineUnavailable(
+                "engine degraded after repeated restarts", retry_after_s=remaining
+            )
         _refuse("json_format", json_format, False, "Queue 1 item 10 (JSON-constrained decoding)")
         prompt_ids = list(prompt_ids)
         limit = self.max_seq_len - 1  # room for at least one generated token
         if len(prompt_ids) > limit:
             prompt_ids = prompt_ids[-limit:]
+            prefix_len = 0  # truncation drops leading tokens: the prefix is gone
+        prefix_len = max(0, min(int(prefix_len), len(prompt_ids) - 1))
         # the worst-case page reservation: the scheduler's KV-pressure charge
+        # (prefix sharing only reduces the pages actually taken)
         demand_tokens = min(len(prompt_ids) + int(max_tokens), self.max_seq_len)
         kv_pages = -(-demand_tokens // self.kv_page_size)
         admitted = False
@@ -433,6 +587,8 @@ class GenerationEngine:
                 deadline_s = self.scheduler.cfg.default_deadline_s
             adm = self.scheduler.try_admit(priority, deadline_s, kv_pages=kv_pages)
             if not adm.ok:
+                if self.obs is not None:
+                    self.obs.on_shed(adm.reason, priority, trace_id=trace_id)
                 raise SchedulerRejected(adm.reason, adm.retry_after_s)
             if adm.clamp_max_tokens is not None:
                 max_tokens = min(max_tokens, adm.clamp_max_tokens)
@@ -444,6 +600,8 @@ class GenerationEngine:
             admitted = True
         now = time.monotonic()
         fut: Future = Future()
+        if self.obs is not None:
+            self.obs.on_admit(trace_id, priority, tenant, len(prompt_ids))
         self._queue.put(
             _Request(
                 prompt_ids=prompt_ids,
@@ -452,11 +610,13 @@ class GenerationEngine:
                 top_p=float(top_p),
                 future=fut,
                 submitted_at=now,
+                prefix_len=prefix_len,
                 priority=priority,
                 tenant=tenant,
                 deadline_at=(now + deadline_s) if deadline_s is not None else None,
                 admitted=admitted,
                 kv_pages=kv_pages,
+                trace_id=trace_id,
             )
         )
         # a stop() racing the put above would strand the request: re-check
@@ -475,15 +635,18 @@ class GenerationEngine:
         priority: str = "interactive",
         tenant: str = "default",
         deadline_s: Optional[float] = None,
+        trace_id: Optional[str] = None,
     ) -> GenerationResult:
-        """Tokenize (chat-templating message lists), run, decode."""
+        """Tokenize (chat-templating message lists: every message before the
+        last is the shared-prefix candidate), run, decode."""
         if isinstance(prompt, str):
-            ids = self.tokenizer.encode(prompt)
+            ids, plen = self.tokenizer.encode(prompt), 0
         else:
-            ids = self.tokenizer.encode_chat(prompt)
+            ids, plen = encode_chat_split(self.tokenizer, prompt)
         fut = self.submit(
             ids, max_tokens=max_tokens, temperature=temperature, top_p=top_p,
-            json_format=json_format, priority=priority, tenant=tenant, deadline_s=deadline_s,
+            json_format=json_format, prefix_len=plen, priority=priority, tenant=tenant,
+            deadline_s=deadline_s, trace_id=trace_id,
         )
         return await asyncio.wrap_future(fut)
 
@@ -512,10 +675,58 @@ class GenerationEngine:
             "ticks": self._ticks_issued,
             "reclaimed_slots": self.reclaimed_slots,
             **self.decode_path_stats(),
+            "kv": self.kv_stats(),
+            "supervision": self.supervision_stats(),
         }
         if self.scheduler is not None:
             out["sched"] = self.scheduler.stats()
         return out
+
+    def kv_stats(self) -> Dict[str, Any]:
+        """The KV plane's gauges: the pool (pages used, free, obtainable,
+        shared; registry entries; evictions and COW copies) and the prefix
+        hit and miss counters."""
+        return {
+            "kv_layout": "paged",
+            **self._kv_pool.stats(),
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+        }
+
+    def degraded(self) -> bool:
+        """True while the restart circuit is open (``submit`` fails fast)."""
+        dl = self._degraded_until
+        return dl is not None and time.monotonic() < dl
+
+    def healthy(self) -> bool:
+        """The liveness predicate (any thread): a running loop, a live thread
+        (None: a single-threaded driver, not a death), a closed circuit and a
+        fresh heartbeat."""
+        if not self._running or self.degraded():
+            return False
+        t = self._thread
+        if t is not None and not t.is_alive():
+            return False
+        return (time.monotonic() - self._beat) < self.heartbeat_degraded_s
+
+    def supervision_stats(self) -> Dict[str, Any]:
+        """Restart, quarantine and circuit counters and the loop heartbeat:
+        the ``/healthz`` evidence that tells a live engine from a wedged or
+        degraded one."""
+        t = self._thread
+        return {
+            "running": self._running,
+            "thread_alive": t is None or t.is_alive(),
+            "healthy": self.healthy(),
+            "degraded": self.degraded(),
+            "loop_heartbeat_age_s": round(time.monotonic() - self._beat, 3),
+            "heartbeat_degraded_s": self.heartbeat_degraded_s,
+            "engine_restarts": self.engine_restarts,
+            "poisoned_requests": self.poisoned_requests,
+            "circuit_trips": self.circuit_trips,
+            "restarted_requests_resubmitted": self.restarted_resubmitted,
+            "restarted_requests_failed": self.restarted_failed,
+        }
 
     def decode_path_stats(self) -> Dict[str, Any]:
         """Which decode path is active: the fused depth (the JAX engine's
@@ -582,21 +793,55 @@ class GenerationEngine:
         try:
             with torch.no_grad():
                 while self._running:
+                    self._beat = time.monotonic()
+                    if self._degraded_until is not None and not self._degraded_wait():
+                        continue
                     try:
                         admitted = self._loop_iteration()
+                        # a clean iteration closes a failure streak (the
+                        # backoff escalates over consecutive failures only)
+                        self._consecutive_failures = 0
                         if not admitted and self.num_active == 0 and not self._inflight:
                             time.sleep(IDLE_POLL_S)
                     except Exception as e:
-                        logger.exception("engine loop error; failing in-flight requests")
+                        logger.exception("engine-fatal loop error; crash-only restart")
                         with self._iter_lock:
-                            self._fail_all(e)
-                            self._reset_device_state()  # clean pools for what comes next
+                            self._restart(e)
+                        self._backoff_after_failure()
         finally:
             self._running = False
             self._fail_all(RuntimeError("generation engine stopped"))
 
+    def _degraded_wait(self) -> bool:
+        """One degraded-mode loop beat.  Returns True once the cooldown has
+        elapsed (half-open: the loop resumes, the restart history is kept, so
+        a still-broken device re-trips on its next crash)."""
+        now = time.monotonic()
+        if self._degraded_until is not None and now >= self._degraded_until:
+            logger.warning("engine circuit half-open: resuming after %.1fs degraded cooldown",
+                           self.degraded_cooldown_s)
+            self._degraded_until = None
+            self._consecutive_failures = 0
+            return True
+        # new work fails fast in submit(); queued work keeps honouring its
+        # deadlines and cancels while the engine cools down
+        with self._iter_lock:
+            self._reap_dead_slots()
+        time.sleep(min(0.05, max(0.0, (self._degraded_until or now) - now)))
+        return False
+
+    def _backoff_after_failure(self) -> None:
+        self._consecutive_failures += 1
+        if not self._running or self.degraded():
+            return  # the degraded wait (or shutdown) is the backoff
+        delay = min(self.restart_backoff_max_s,
+                    self.restart_backoff_s * (2 ** (self._consecutive_failures - 1)))
+        if delay > 0:
+            time.sleep(delay)
+
     def _fail_all(self, err: BaseException) -> None:
-        """Fail every live, mid-prefill and queued request and free their pages."""
+        """Fail every live, mid-prefill and queued request and free their
+        pages (the loop's exit and ``stop``)."""
         self._inflight.clear()
         for i, s in enumerate(self._slots):
             if s is not None:
@@ -666,16 +911,65 @@ class GenerationEngine:
                 self._release(i)
 
     # --------------------------------------------------------------- admission
-    def _paged_admit_slot(self, slot: int, req: _Request) -> bool:
-        """Reserve the request's worst-case pages for ``slot``; False = the
-        pool cannot place it now (it stays queued until pages free)."""
+    def _prefix_lookup(self, req: _Request) -> Optional[SharedPrefix]:
+        """The LONGEST registered prefix this prompt starts with (so a
+        multi-turn dialog hits the previous turn's prefix even though its
+        declared split moved), LRU-touched, or None."""
+        if self.prefix_cache_size <= 0 or req.prefix_len < self.prefix_min_tokens:
+            return None
+        return self._paged_usable_hit(req, self._kv_pool.lookup(req.prompt_ids, req.prefix_len))
+
+    def _paged_usable_hit(self, req: _Request, hit: Optional[SharedPrefix]):
+        """Reject a hit whose bucketed suffix prefill would run past the
+        context (the prefix within one bucket of the end): its window would
+        have to slide left over the prefix and rewrite shared pages.  A
+        chunked remainder never slides into the prefix (it is longer than a
+        chunk, so the final chunk starts past it)."""
+        if hit is None:
+            return None
+        n_eff = len(req.prompt_ids) - hit.length
+        if n_eff > self.chunk_size:
+            return hit
+        b = pick_bucket(n_eff, self.prefill_buckets, self.chunk_size)
+        return None if hit.length + b > self.max_seq_len else hit
+
+    def _paged_admit_slot(self, slot: int, req: _Request, hit: Optional[SharedPrefix]) -> bool:
+        """Reserve and wire pages for ``req`` in ``slot``: the hit's full
+        prefix pages by reference (incref), its boundary page by a
+        copy-on-write clone, everything else fresh from the pool, up to the
+        request's worst-case demand.  False: the pool cannot place the
+        request now (it stays queued until pages free)."""
         demand_tokens = min(len(req.prompt_ids) + req.max_tokens, self.max_seq_len)
-        pages = self._kv_pool.alloc(-(-demand_tokens // self.kv_page_size))
-        if pages is None:
+        total = -(-demand_tokens // self.kv_page_size)
+        shared: List[int] = []
+        pinned: List[int] = []
+        cow_src = None
+        if hit is not None:
+            # pin every hit page (the COW source too) before alloc: its
+            # on-demand eviction could otherwise drop this very entry and
+            # hand its pages back as "fresh" pages of the same request
+            pinned = list(hit.pages)
+            self._kv_pool.incref(pinned)
+            shared = pinned[: hit.full_pages]
+            if len(pinned) > hit.full_pages:
+                cow_src = pinned[hit.full_pages]
+        fresh = self._kv_pool.alloc(total - len(shared))
+        if fresh is None:
+            if pinned:
+                self._kv_pool.decref(pinned)
             return False
-        self._slot_pages[slot] = pages
+        if cow_src is not None:
+            # the sharer's suffix K/V lands in the boundary page: clone it
+            # (below the prefix length it holds the owner's prefix K/V; above,
+            # what the sharer's suffix prefill overwrites before reading)
+            llama.copy_pages(self._cache, self._tensor(np.asarray([cow_src], np.int64)),
+                             self._tensor(np.asarray([fresh[0]], np.int64)))
+            self._kv_pool.cow_copies += 1
+            self._kv_pool.decref([cow_src])  # cloned: the pin is no longer needed
+        row = shared + fresh
+        self._slot_pages[slot] = row
         self._block_tables[slot, :] = self._kv_sentinel
-        self._block_tables[slot, : len(pages)] = pages
+        self._block_tables[slot, : len(row)] = row
         self._bt_dirty = True
         return True
 
@@ -725,22 +1019,33 @@ class GenerationEngine:
         self._stage_incoming()
         now = time.monotonic()
         free = self._free_slots()
-        batch: List[tuple[int, _Request]] = []
+        batch: List[tuple] = []  # (slot, request, hit)
         admitted = False
 
-        def must_wait(req: _Request) -> bool:
-            # one chunked prefill at a time; scheduling order preserved
-            return len(req.prompt_ids) > self.chunk_size and (
-                self._chunking is not None or bool(batch)
-            )
+        def must_wait(n_eff: int) -> bool:
+            # one chunked prefill at a time; scheduling order preserved (with
+            # a hit only the remainder past the prefix runs through the model)
+            return n_eff > self.chunk_size and (self._chunking is not None or bool(batch))
 
         while free:
             req = self._peek_next(now)
-            if req is None or must_wait(req):
+            if req is None:
+                break
+            hit = self._prefix_lookup(req)
+            n_eff = len(req.prompt_ids) - (hit.length if hit else 0)
+            if must_wait(n_eff):
                 break
             slot = free[0]
-            if not self._paged_admit_slot(slot, req):
-                break  # out of pages: the head waits for a slot to free
+            if not self._paged_admit_slot(slot, req, hit):
+                if hit is None:
+                    break  # out of pages: the head waits for a slot to free
+                # the pinned hit may be what eviction needed: drop it and
+                # retry as a full prefill (the entry becomes evictable), so a
+                # registry-heavy pool cannot wedge the queue head
+                hit = None
+                n_eff = len(req.prompt_ids)
+                if must_wait(n_eff) or not self._paged_admit_slot(slot, req, None):
+                    break
             taken = self._take_next(now)
             if taken is not req:
                 # the head moved between peek and pop (a cancel, or a
@@ -749,26 +1054,56 @@ class GenerationEngine:
                 if taken is None:
                     break
                 req = taken
-                if must_wait(req) or not self._paged_admit_slot(slot, req):
+                hit = self._prefix_lookup(req)
+                n_eff = len(req.prompt_ids) - (hit.length if hit else 0)
+                if must_wait(n_eff) or not self._paged_admit_slot(slot, req, hit):
                     self._requeue_front(req)
                     break
             free.pop(0)
-            if len(req.prompt_ids) > self.chunk_size:
-                self._begin_chunked(slot, req)
+            self._count_prefix(req, hit)
+            if n_eff > self.chunk_size:
+                self._begin_chunked(slot, req, prefix=hit)
                 admitted = True
             else:
-                batch.append((slot, req))
+                batch.append((slot, req, hit))
         if batch:
-            # group the wave by seq bucket: short prompts must not pay the
-            # longest prompt's attention; one prefill call per bucket group
-            groups: Dict[int, List[tuple[int, _Request]]] = {}
-            for slot, req in batch:
-                b = pick_bucket(len(req.prompt_ids), self.prefill_buckets, self.chunk_size)
-                groups.setdefault(b, []).append((slot, req))
-            for group in groups.values():
+            # group the wave by seq bucket (short prompts must not pay the
+            # longest prompt's attention), one prefill call per group; hits
+            # prefill only their suffix, bucketed by the suffix's length
+            full_groups: Dict[int, List[tuple]] = {}
+            suffix_groups: Dict[int, List[tuple]] = {}
+            for slot, req, hit in batch:
+                n_eff = len(req.prompt_ids) - (hit.length if hit else 0)
+                b = pick_bucket(n_eff, self.prefill_buckets, self.chunk_size)
+                if hit is None:
+                    full_groups.setdefault(b, []).append((slot, req))
+                else:
+                    suffix_groups.setdefault(b, []).append((slot, req, hit))
+            # every request of the wave stays in _starting_batch until its
+            # group is activated: if a prefill raises, _restart salvages the
+            # rest instead of orphaning them
+            remaining = [(slot, req) for slot, req, _ in batch]
+            self._starting_batch = remaining
+            for group in full_groups.values():
                 self._start_batch(group)
+                for pair in group:
+                    remaining.remove(pair)
+            for sgroup in suffix_groups.values():
+                self._start_suffix_batch(sgroup)
+                for slot, req, _ in sgroup:
+                    remaining.remove((slot, req))
+            self._starting_batch = None
             admitted = True
         return admitted
+
+    def _count_prefix(self, req: _Request, hit: Optional[SharedPrefix]) -> None:
+        """Hit and miss counters, once per admitted request that declared a
+        cacheable prefix."""
+        if self.prefix_cache_size > 0 and req.prefix_len >= self.prefix_min_tokens:
+            if hit is not None:
+                self.prefix_hits += 1
+            else:
+                self.prefix_misses += 1
 
     def _batch_buckets(self) -> tuple:
         """Prefill batch-dim buckets: {1, 4, max_slots}."""
@@ -799,7 +1134,8 @@ class GenerationEngine:
         dst.copy_(self._host_tensor(arr), non_blocking=True)
 
     def _start_batch(self, batch: List[tuple[int, _Request]]):
-        """One prefill call for a bucket group of the wave, then activation."""
+        """One prefill call for a bucket group of the wave (misses: the whole
+        prompt), registration of declared prefixes, then activation."""
         reqs = [r for _, r in batch]
         slots = [s for s, _ in batch]
         bucket = pick_bucket(
@@ -821,16 +1157,70 @@ class GenerationEngine:
             self._cache, ks, vs, lengths_t, self._tensor(slot_arr),
             self._tensor(self._wave_block_tables(slots, pad)),
         )
+        for slot, req in batch:
+            self._maybe_register_prefix(slot, req)
         self._activate_batch(slots, reqs, logits, pad=pad)
 
-    def _begin_chunked(self, slot: int, req: _Request):
-        """Split a long prompt into full chunks; the final chunk slides left
-        to end at the prompt end (re-fed positions recompute identical K/V),
-        so no chunk carries pad tokens."""
+    def _start_suffix_batch(self, group: List[tuple]):
+        """Admit a wave of prefix hits: their shared pages are already wired
+        into the block tables (and the boundary pages cloned) by
+        :meth:`_paged_admit_slot`, so one batched suffix prefill continues
+        every row from its prefix length.  The skipped work is the prefix's
+        recompute."""
+        slots = [s for s, _, _ in group]
+        reqs = [r for _, r, _ in group]
+        hits = [h for _, _, h in group]
+        bucket = pick_bucket(
+            max(len(r.prompt_ids) - h.length for r, h in zip(reqs, hits)),
+            self.prefill_buckets, self.chunk_size,
+        )
+        Bp = pick_bucket(len(group), self._batch_buckets(), self.max_slots)
+        pad = Bp - len(group)
+        ids = np.full((Bp, bucket), self.tokenizer.pad_id, np.int32)
+        starts = np.zeros((Bp,), np.int64)
+        valids = np.zeros((Bp,), np.int64)
+        slot_arr = np.full((Bp,), self.max_slots, np.int64)  # pad rows: sentinel
+        for j, (req, hit) in enumerate(zip(reqs, hits)):
+            # _paged_usable_hit keeps [start, start + bucket) inside the context
+            suffix = req.prompt_ids[hit.length : hit.length + bucket]
+            ids[pad + j, : len(suffix)] = suffix
+            starts[pad + j] = hit.length
+            valids[pad + j] = len(suffix)
+            slot_arr[pad + j] = slots[j]
+        logits, _ = llama.prefill_suffix_paged(
+            self.params, self.cfg, self._tensor(ids), self._cache,
+            self._tensor(self._wave_block_tables(slots, pad)), self._tensor(slot_arr),
+            self._tensor(starts), self._tensor(valids),
+        )
+        # a hit whose declared split extends past the matched prefix (a
+        # multi-turn history that grew) registers the longer prefix
+        for slot, req in zip(slots, reqs):
+            self._maybe_register_prefix(slot, req)
+        self._activate_batch(slots, reqs, logits, pad=pad)
+
+    def _maybe_register_prefix(self, slot: int, req: _Request) -> None:
+        """After ``slot``'s prefill, register the pages covering the
+        request's declared prefix with the allocator (refcounting only: no
+        copy, no memory beyond what the request holds)."""
+        if self.prefix_cache_size <= 0 or req.prefix_len < self.prefix_min_tokens:
+            return
+        nbp = -(-req.prefix_len // self.kv_page_size)
+        pages = [int(p) for p in self._block_tables[slot, :nbp]]
+        if any(p >= self._kv_sentinel for p in pages):
+            return  # the allocation does not cover the prefix
+        self._kv_pool.register(req.prompt_ids, req.prefix_len, pages)
+
+    def _begin_chunked(self, slot: int, req: _Request, prefix: Optional[SharedPrefix] = None):
+        """Split a long prompt into full chunks, from the prefix length when
+        a cached ``prefix`` is wired into the slot's pages; the final chunk
+        slides left to end at the prompt end (re-fed positions recompute
+        identical K/V), so no chunk carries pad tokens.  A remainder longer
+        than a chunk keeps the final chunk past the prefix."""
         n = len(req.prompt_ids)
+        base = prefix.length if prefix is not None else 0
         c = self.chunk_size
         flat = np.asarray(req.prompt_ids, np.int32)
-        starts = list(range(0, n - c, c)) + [n - c]
+        starts = list(range(base, n - c, c)) + [n - c]
         ids = np.stack([flat[s : s + c] for s in starts])
         req.started_at = time.monotonic()
         self._chunking = _ChunkedPrefill(request=req, slot=slot, ids=ids, starts=starts, n=n)
@@ -872,7 +1262,10 @@ class GenerationEngine:
             return
         if st.step >= len(st.starts):
             self._chunking = None
+            self._maybe_register_prefix(st.slot, st.request)
+            self._starting_batch = [(st.slot, st.request)]
             self._activate_batch([st.slot], [st.request], logits, pad=0)
+            self._starting_batch = None
             self._slots[st.slot].prefill_chunks = st.step
 
     def _piggyback_step(self):
@@ -1009,8 +1402,15 @@ class GenerationEngine:
 
     def _issue_tick(self, piggyback: bool = False):
         """Dispatch one fused tick (after the staged chunk when
-        ``piggyback``) without waiting for its result."""
+        ``piggyback``) without waiting for its result.  The injected
+        ``tick_raise`` and ``slow_tick`` faults fire here, on the host,
+        before anything is launched."""
         t0 = time.perf_counter()
+        if self._faults is not None:
+            self._faults.maybe_raise("tick_raise", "device step")
+            delay = self._faults.sleep_s("slow_tick")
+            if delay:
+                time.sleep(delay)
         self._upload_dirty()
         self._launch_tick(piggyback)
         self.steps += self.decode_steps
@@ -1025,9 +1425,20 @@ class GenerationEngine:
         ref = self._inflight.popleft()
         t0 = time.perf_counter()
         vals = ref.nxt.numpy()
-        self._tick_block_s += time.perf_counter() - t0
+        block_s = time.perf_counter() - t0
+        self._tick_block_s += block_s
         self._ticks_processed += 1
+        if self.obs is not None:
+            self.obs.on_tick(block_s, len(ref.slots))
         now = time.monotonic()
+        if self._faults is not None and ref.slots and self._faults.should_fire("nan_logits"):
+            # what a NaN'd logits row yields after sampling: a garbage id
+            # for one slot, which _consume_token quarantines
+            vals = np.array(vals, copy=True)
+            if ref.first:
+                vals[ref.offset] = -1
+            else:
+                vals[..., ref.slots[0][0]] = -1
         if ref.first:
             for j, (slot, epoch) in enumerate(ref.slots):
                 s = self._slots[slot]
@@ -1048,21 +1459,30 @@ class GenerationEngine:
                 self._consume_token(slot, s, int(vals[k, slot]), now)
 
     def _consume_token(self, slot: int, s: _Slot, tok: int, now: float) -> None:
-        req = s.request
         if not 0 <= tok < self.cfg.vocab_size:
-            # what a NaN'd logits row degenerates to: fail this request only
-            self._release(slot)
-            _safe_resolve(
-                req.future,
-                exc=RuntimeError(f"sampled id {tok} outside vocab [0, {self.cfg.vocab_size})"),
-            )
+            # what a NaN'd logits row degenerates to: request poison
+            self._quarantine(slot, RequestPoisoned(
+                f"sampled id {tok} outside vocab [0, {self.cfg.vocab_size})"
+                " — NaN/corrupt logits suspected; request quarantined", slot=slot,
+            ))
             return
         s.generated.append(tok)
+        self._note_token(s, now)
+        if self._should_finish(s, tok):
+            self._finish(slot)
+
+    def _note_token(self, s: _Slot, now: float) -> None:
+        """TTFT and inter-token samples where a token reaches the host (the
+        tokens of one tick share ``now``: gaps are sampled across ticks)."""
+        req = s.request
         if req.first_token_at is None:
             req.first_token_at = now
             self._ttft_s.append(now - req.submitted_at)
-        if self._should_finish(s, tok):
-            self._finish(slot)
+            if self.obs is not None:
+                self.obs.on_first_token(now - req.submitted_at)
+        elif self.obs is not None and s.last_token_at is not None and now > s.last_token_at:
+            self.obs.on_token_gap(now - s.last_token_at)
+        s.last_token_at = now
 
     def _should_finish(self, s: _Slot, tok: int) -> bool:
         if tok == self.tokenizer.eos_id:
@@ -1088,11 +1508,28 @@ class GenerationEngine:
             ids = ids[:-1]
         now = time.monotonic()
         try:
+            if self._faults is not None:
+                self._faults.maybe_raise("detok_raise", "detokenize")
             text = self.tokenizer.decode(ids)
-        except Exception as e:  # request-poison: only this result is lost
-            logger.warning("detokenization failed: %s", e)
+        except Exception as e:
+            # request poison: only this result is lost (the slot is free)
+            logger.warning("detokenization failed; quarantining request: %s", e)
+            self.poisoned_requests += 1
+            if self.obs is not None:
+                self.obs.flight.record("quarantine", trace_id=req.trace_id, error=str(e))
+                self.obs.flight.dump("quarantine", trace_id=req.trace_id)
             _safe_resolve(req.future, exc=e)
             return
+        detok_s = max(0.0, time.monotonic() - now)
+        result = GenerationResult(
+            token_ids=ids,
+            text=text,
+            prompt_tokens=len(req.prompt_ids),
+            completion_tokens=len(ids),
+            length_limited=not hit_eos,
+            ttft_s=(req.first_token_at or now) - req.submitted_at,
+            latency_s=now - req.submitted_at,
+        )
         if self.scheduler is not None:
             # the service model's sample: slot residency from prefill start,
             # per decode step and prefill chunk the slot took
@@ -1100,15 +1537,116 @@ class GenerationEngine:
                 now - (req.started_at or req.first_token_at or now),
                 tokens=max(1, s.resident_steps + s.prefill_chunks),
             )
-        _safe_resolve(
-            req.future,
-            result=GenerationResult(
-                token_ids=ids,
-                text=text,
-                prompt_tokens=len(req.prompt_ids),
-                completion_tokens=len(ids),
-                length_limited=not hit_eos,
-                ttft_s=(req.first_token_at or now) - req.submitted_at,
-                latency_s=now - req.submitted_at,
-            ),
-        )
+        if self.obs is not None:
+            self.obs.on_finish(req, result, now=now + detok_s, detok_s=detok_s)
+        _safe_resolve(req.future, result=result)
+
+    # ------------------------------------------------------------- supervision
+    def _quarantine(self, slot: int, err: BaseException) -> None:
+        """Fail one slot's request and free the slot (the epoch bump drops
+        its in-flight tokens); batch-mates keep decoding."""
+        s = self._slots[slot]
+        if s is None:
+            return
+        self._release(slot)
+        self.poisoned_requests += 1
+        if self.obs is not None:
+            self.obs.flight.record("quarantine", trace_id=s.request.trace_id, slot=slot,
+                                   error=str(err))
+            self.obs.flight.dump("quarantine", trace_id=s.request.trace_id)
+        _safe_resolve(s.request.future, exc=err)
+
+    def _restart(self, err: BaseException):
+        """Crash-only restart after an engine-fatal error: rebuild the device
+        state in place, salvage what is safely retryable, fail the rest.
+
+        Queued work is untouched (it never reached the device).  Requests in
+        flight that emitted no token yet (mid-prefill, awaiting activation,
+        live before their first token reached the host) are resubmitted at
+        the head of their queue with their own futures; a request past its
+        first token fails with the error; each request survives at most
+        ``max_request_restarts`` restarts.  The page pool, its prefix
+        registry (whose pages belong to the failed lineage) and the block
+        tables are reset.  If the rebuild itself raises, the engine declares
+        itself dead.  After ``max_restarts`` restarts inside
+        ``restart_window_s`` the circuit opens: ``submit`` raises
+        :class:`EngineUnavailable` until the cooldown ends."""
+        now = time.monotonic()
+        self.engine_restarts += 1
+        self._restart_times.append(now)
+        if self.obs is not None:
+            if isinstance(err, FaultInjected):
+                self.obs.flight.record("fault_fire", site=err.site, error=str(err))
+            self.obs.flight.record("restart", error=f"{type(err).__name__}: {err}",
+                                   engine_restarts=self.engine_restarts)
+        salvage: List[_Request] = []
+        if self._starting_batch is not None:
+            salvage.extend(req for _, req in self._starting_batch)
+            self._starting_batch = None
+        if self._chunking is not None:
+            salvage.append(self._chunking.request)
+            self._chunking = None
+        self._inflight.clear()
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                if s.generated:
+                    _safe_resolve(s.request.future, exc=err)
+                else:
+                    salvage.append(s.request)
+            self._slots[i] = None
+            self._slot_epoch[i] += 1
+        self._sampling_dirty = True
+        self._kv_pool.reset()
+        self._slot_pages = [[] for _ in range(self.max_slots)]
+        self._block_tables[:] = self._kv_sentinel
+        self._bt_dirty = True
+        # a failure inside an activation can leave a request both slotted
+        # and in _starting_batch: salvage each request once
+        seen: set = set()
+        requeue: List[_Request] = []
+        for req in salvage:
+            if id(req) in seen or req.future.cancelled():
+                continue
+            seen.add(id(req))
+            if req.restarts >= self.max_request_restarts:
+                self.restarted_failed += 1
+                if self.obs is not None:
+                    self.obs.flight.record("restart_failed", trace_id=req.trace_id,
+                                           restarts=req.restarts)
+                _safe_resolve(req.future, exc=err)
+                continue
+            req.restarts += 1
+            req.started_at = None
+            req.first_token_at = None
+            self.restarted_resubmitted += 1
+            if self.obs is not None:
+                self.obs.flight.record("resubmit", trace_id=req.trace_id, restarts=req.restarts)
+            requeue.append(req)
+        # head inserts reverse the order: insert the newest first, so each
+        # queue ends up with its salvaged requests back in FIFO order
+        requeue.sort(key=lambda r: r.submitted_at, reverse=True)
+        for req in requeue:
+            self._requeue_front(req)
+        try:
+            self._reset_device_state()
+        except Exception:
+            # recovery itself failed (a sticky device error, an allocation
+            # that cannot succeed): declare the engine dead; the loop exits
+            # and fails everything queued, so later submits fail fast
+            logger.exception("engine recovery failed; declaring the engine dead")
+            self._running = False
+            if self.obs is not None:
+                self.obs.flight.record("engine_dead", error=f"{type(err).__name__}: {err}")
+                self.obs.flight.dump("engine_dead", error=str(err))
+            return
+        recent = [t for t in self._restart_times if t >= now - self.restart_window_s]
+        if len(recent) >= self.max_restarts:
+            self.circuit_trips += 1
+            self._degraded_until = now + self.degraded_cooldown_s
+            if self.obs is not None:
+                self.obs.flight.record("circuit_open", restarts_in_window=len(recent),
+                                       cooldown_s=self.degraded_cooldown_s)
+            logger.error("engine circuit OPEN: %d restarts in %.0fs; degraded for %.1fs",
+                         len(recent), self.restart_window_s, self.degraded_cooldown_s)
+        if self.obs is not None:
+            self.obs.flight.dump("restart", error=str(err))

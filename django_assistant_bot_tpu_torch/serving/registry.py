@@ -1,11 +1,11 @@
 """Model registry: spec -> loaded generation engine (port of ``serving/registry.py``).
 
 A config maps model names to spec dicts, as in the JAX package.  The spec
-carries the fields the port implements, with the JAX spec's defaults (but
-``prefix_cache``, which stays 0 until prefix sharing is ported).  Keys of
-the JAX ``ModelSpec`` that are not ported yet are accepted only at the
-value the port implements and refused otherwise, naming their ROADMAP item;
-keys the JAX spec does not know are refused too.
+carries the fields the port implements, with the JAX spec's defaults
+(prefix sharing, the observability plane and crash-only supervision
+included).  Keys of the JAX ``ModelSpec`` that are not ported yet are
+accepted only at the value the port implements and refused otherwise,
+naming their ROADMAP item; keys the JAX spec does not know are refused too.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ logger = logging.getLogger(__name__)
 # JAX ModelSpec keys not ported yet: key -> (the only accepted value, ROADMAP item)
 _DEFERRED: Dict[str, tuple] = {
     "checkpoint": (None, "Queue 1 item 4 (native checkpoints)"),
-    "prefix_cache": (0, "Queue 1 item 5 (prefix sharing)"),
     "warmup": (False, "Queue 1 item 5 (warmup)"),
     "kv_layout": ("paged", "Queue 1 item 8 (legacy contiguous KV)"),
     "speculative": (0, "Queue 1 item 9 (speculative decoding)"),
@@ -41,10 +40,6 @@ _DEFERRED: Dict[str, tuple] = {
 _ABSENT = object()  # knobs of unported features: refused whenever present
 # JAX ModelSpec key prefixes / names of unported features -> ROADMAP item
 _DEFERRED_FAMILIES = (
-    (("prefix_min_tokens", "prefix_cache_max_bytes"), "Queue 1 item 5 (prefix sharing)"),
-    (("obs", "obs_dump_dir", "faults", "fault_seed", "max_restarts", "restart_",
-      "degraded_cooldown_s", "heartbeat_degraded_s", "max_request_restarts"),
-     "Queue 1 item 5 (engine supervision and observability planes)"),
     (("spec_",), "Queue 1 item 9 (speculative decoding)"),
     (("kv_host_writethrough", "router_", "autoscale_"), "Queue 1 item 12 (tiered KV, router, autoscaler)"),
     (("quant_group_size",), "Queue 2 entry 3 (int8/int4 qeinsum)"),
@@ -92,10 +87,42 @@ class ModelSpec:
     sched_default_deadline_s: Optional[float] = None
     sched_degrade_at: float = 0.75
     sched_degrade_max_tokens: int = 256
+    # prefix sharing (serving/kv_pool.py): registry entries for shared
+    # prompt prefixes (system + RAG context), the shortest prefix worth one,
+    # and the registry's byte budget; 0 entries disables it
+    prefix_cache: int = 8
+    prefix_min_tokens: int = 32
+    prefix_cache_max_bytes: int = 1 << 30
+    # resilience (serving/faults.py + engine supervision): fault injection
+    # (site -> probability or schedule; None also honours DABT_FAULTS, {}
+    # forces it off), the restart circuit, backoff between restarts, the
+    # heartbeat age that flips /healthz, and restarts one request may ride
+    faults: Optional[Mapping[str, Any]] = None
+    fault_seed: int = 0
+    max_restarts: int = 5
+    restart_window_s: float = 60.0
+    restart_backoff_s: float = 0.05
+    restart_backoff_max_s: float = 2.0
+    degraded_cooldown_s: float = 30.0
+    heartbeat_degraded_s: float = 30.0
+    max_request_restarts: int = 2
+    # observability (serving/obs.py): traces, /metrics histograms, flight
+    # recorder (dump directory None = DABT_FLIGHT_DIR, else <tmpdir>)
+    obs: bool = True
+    obs_dump_dir: Optional[str] = None
 
     @classmethod
     def from_dict(cls, name: str, d: Mapping[str, Any]) -> "ModelSpec":
         fields = {f.name for f in dataclasses.fields(cls)}
+        d = dict(d)
+        # the JAX spec's deprecation shim: the old prefix-LRU knob name maps
+        # onto the page registry ("prefix_cache" wins when both are given)
+        if "prefix_cache_size" in d:
+            val = d.pop("prefix_cache_size")
+            if "prefix_cache" not in d:
+                logger.warning("model %s: 'prefix_cache_size' is deprecated; mapped onto "
+                               "'prefix_cache'", name)
+                d["prefix_cache"] = val
         kwargs = {}
         for key, value in d.items():
             if key == "name":
@@ -147,6 +174,47 @@ class ModelSpec:
         sched.cfg.default_deadline_s = self.sched_default_deadline_s
         return sched
 
+    def build_faults(self):
+        """The spec's :class:`~.faults.FaultInjector`, or None: an explicit
+        ``faults`` wins ({} forces injection off), else the ``DABT_FAULTS``
+        environment variable applies."""
+        from .faults import FaultInjector
+
+        if self.faults is not None:
+            return FaultInjector.from_spec(self.faults, seed=self.fault_seed)
+        return FaultInjector.from_env()
+
+    def engine_kwargs(self) -> Dict[str, Any]:
+        """The engine knobs of this spec, as ``GenerationEngine`` keywords
+        (a fresh scheduler and fault injector each call)."""
+        return dict(
+            max_slots=self.max_slots,
+            max_seq_len=self.max_seq_len,
+            chunk_size=self.chunk_size,
+            lookahead=self.lookahead,
+            burst=self.burst,
+            decode_steps=self.decode_steps or None,
+            prefill_piggyback=self.prefill_piggyback,
+            decode_kv_chunk=self.decode_kv_chunk,
+            kv_page_size=self.kv_page_size,
+            kv_pages=self.kv_pages,
+            prefix_cache_size=self.prefix_cache,
+            prefix_min_tokens=self.prefix_min_tokens,
+            prefix_cache_max_bytes=self.prefix_cache_max_bytes,
+            scheduler=self.build_scheduler(),
+            faults=self.build_faults(),
+            max_restarts=self.max_restarts,
+            restart_window_s=self.restart_window_s,
+            restart_backoff_s=self.restart_backoff_s,
+            restart_backoff_max_s=self.restart_backoff_max_s,
+            degraded_cooldown_s=self.degraded_cooldown_s,
+            heartbeat_degraded_s=self.heartbeat_degraded_s,
+            max_request_restarts=self.max_request_restarts,
+            name=self.name,
+            obs=self.obs,
+            obs_dump_dir=self.obs_dump_dir,
+        )
+
 
 class ModelRegistry:
     """Loads and owns generation engines; lookup is lowercase."""
@@ -196,21 +264,7 @@ class ModelRegistry:
             else:
                 raise ValueError(f"model {name}: need path or tiny=true")
             engine = GenerationEngine(
-                cfg,
-                params,
-                load_tokenizer(spec.path),
-                device=device,
-                max_slots=spec.max_slots,
-                max_seq_len=spec.max_seq_len,
-                chunk_size=spec.chunk_size,
-                lookahead=spec.lookahead,
-                burst=spec.burst,
-                decode_steps=spec.decode_steps or None,
-                prefill_piggyback=spec.prefill_piggyback,
-                decode_kv_chunk=spec.decode_kv_chunk,
-                kv_page_size=spec.kv_page_size,
-                kv_pages=spec.kv_pages,
-                scheduler=spec.build_scheduler(),
+                cfg, params, load_tokenizer(spec.path), device=device, **spec.engine_kwargs()
             )
         engine.start()
         self.generators[name] = engine

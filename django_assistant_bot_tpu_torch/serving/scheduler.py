@@ -43,40 +43,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import math
 import threading
 import time
 from typing import Callable, Deque, Dict, List, Mapping, Optional, Tuple
 
+from .obs import quantile_from_counts
+
 INTERACTIVE = "interactive"
 BACKGROUND = "background"
-
-
-def quantile_from_counts(
-    bounds: Tuple[float, ...], counts: List[int], q: float
-) -> float:
-    """The bucket-interpolation quantile over RAW per-bucket counts (the last
-    entry being the +Inf bucket), as the JAX package's ``serving/obs.py``
-    computes it; the windowed predictive-admission floor quantiles the
-    DIFFERENCE of two count snapshots of a bound histogram."""
-    q = min(1.0, max(0.0, float(q)))
-    n = sum(counts)
-    if n == 0:
-        return 0.0
-    target = max(1, math.ceil(q * n))
-    acc = 0
-    for i, c in enumerate(counts):
-        if c == 0:
-            continue
-        if acc + c >= target:
-            if i >= len(bounds):  # +Inf bucket: report the finite ceiling
-                return bounds[-1]
-            lo = bounds[i - 1] if i > 0 else 0.0
-            hi = bounds[i]
-            frac = (target - acc) / c
-            return lo + frac * (hi - lo)
-        acc += c
-    return bounds[-1]  # pragma: no cover - defensive
 
 
 class SchedulerRejected(RuntimeError):
@@ -237,9 +211,8 @@ class RequestScheduler:
         the shed test and the 429 ``Retry-After`` hint) is floored by the
         ``admit_wait_quantile`` of *realized* waits instead of trusting the
         point service-time EMA alone.  ``hist`` needs ``.count`` and
-        ``.raw_counts()`` and ``.bounds`` (the JAX package's ``serving/obs.py``
-        ``Histogram``; the port has no observability plane yet, so its engine
-        binds none)."""
+        ``.raw_counts()`` and ``.bounds`` (:class:`~.obs.Histogram`; an engine
+        with ``obs`` on binds its ``queue_wait_s``)."""
         self._wait_hist = hist
         return self
 

@@ -6,16 +6,21 @@ read-only endpoints).
   {"result", "usage", "length_limited"}, "request_id"}``; 422 on a bad body,
   400 "Model is not supported" for an unknown model, 429 with
   ``Retry-After`` when the scheduler sheds the request, 504 when its
-  deadline expires, 500 with detail on failure.  ``priority``, ``tenant``
+  deadline expires, 503 with ``Retry-After`` while the engine's restart
+  circuit is open, 500 with detail on failure.  ``priority``, ``tenant``
   and ``deadline_s`` may also come as ``X-Priority``, ``X-Tenant`` and
   ``X-Deadline-S`` headers.  The correlation id is the client's token-safe
   ``X-Request-Id`` or a fresh one, echoed in the body and the header.
-- ``GET /healthz`` (per generator: the engine's gauges and its scheduler's
-  ``sched`` block) and ``GET /models``.
+- ``GET /healthz``: per generator the engine's gauges, its ``kv`` block,
+  its ``supervision`` block (restarts, quarantines, circuit, heartbeat) and
+  its scheduler's ``sched`` block; ``status`` is ``degraded`` while any
+  engine is unhealthy.  ``GET /models``.
+- ``GET /metrics``: Prometheus text exposition (:func:`.obs.render_prometheus`).
 
 Request fields of features not ported yet (``stream``, ``json_format``) are
-refused with a 422 naming their ROADMAP item instead of being ignored.  ``/embeddings/``, ``/metrics`` and the fleet endpoints
-come with later slices (ROADMAP Queue 1 items 6, 7 and 13).
+refused with a 422 naming their ROADMAP item instead of being ignored.
+``/embeddings/`` and the fleet endpoints come with later slices (ROADMAP
+Queue 1 items 7 and 13).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from typing import Any, Mapping, Optional
 
 from aiohttp import web
 
+from .engine import EngineUnavailable
+from .obs import render_prometheus
 from .registry import ModelRegistry
 from .scheduler import DeadlineExceeded, SchedulerRejected
 
@@ -121,6 +128,17 @@ def _shed_response(e: SchedulerRejected, rid: str) -> web.Response:
     )
 
 
+def _unavailable_response(e: EngineUnavailable, rid: str) -> web.Response:
+    """Restart circuit open -> 503 with a Retry-After covering the remaining
+    degraded cooldown (JAX wire format)."""
+    retry = max(1, math.ceil(e.retry_after_s))
+    return web.json_response(
+        {"detail": str(e), "retry_after_s": e.retry_after_s, "request_id": rid},
+        status=503,
+        headers={"Retry-After": str(retry), "X-Request-Id": rid},
+    )
+
+
 def _refuse_unported(body: Mapping[str, Any]) -> None:
     for field, (off, item) in _UNPORTED_FIELDS.items():
         value = body.get(field, off)
@@ -155,10 +173,12 @@ def create_app(registry: ModelRegistry) -> web.Application:
         try:
             result = await eng.generate(
                 messages, max_tokens=max_tokens, temperature=temperature, top_p=top_p,
-                priority=priority, tenant=tenant, deadline_s=deadline_s,
+                priority=priority, tenant=tenant, deadline_s=deadline_s, trace_id=rid,
             )
         except SchedulerRejected as e:
             return _shed_response(e, rid)
+        except EngineUnavailable as e:
+            return _unavailable_response(e, rid)
         except DeadlineExceeded as e:
             return _error_response(str(e), 504, rid)
         except Exception as e:
@@ -177,12 +197,25 @@ def create_app(registry: ModelRegistry) -> web.Application:
         )
 
     async def healthz(request: web.Request) -> web.Response:
+        generators = {name: eng.stats() for name, eng in registry.generators.items()}
+        healthy = all(g["supervision"]["healthy"] for g in generators.values())
         return web.json_response(
             {
-                "status": "ok",
+                "status": "ok" if healthy else "degraded",
                 "models": sorted(registry.specs),
-                "generators": {name: eng.stats() for name, eng in registry.generators.items()},
+                "generators": generators,
             }
+        )
+
+    async def metrics(request: web.Request) -> web.Response:
+        try:
+            text = render_prometheus(registry)
+        except Exception:
+            logger.exception("/metrics render failed")
+            return web.Response(status=500, text="metrics render failed")
+        return web.Response(
+            body=text.encode("utf-8"),
+            headers={"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
         )
 
     async def models(request: web.Request) -> web.Response:
@@ -197,6 +230,7 @@ def create_app(registry: ModelRegistry) -> web.Application:
     app.router.add_post("/dialog", dialog)
     app.router.add_get("/healthz", healthz)
     app.router.add_get("/models", models)
+    app.router.add_get("/metrics", metrics)
 
     async def on_cleanup(app):
         registry.stop()

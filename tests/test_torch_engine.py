@@ -104,22 +104,27 @@ def test_engine_thread_generate_and_stop(tiny_models):
 
 
 def test_engine_loop_error_fails_requests_and_keeps_serving(tiny_models, monkeypatch):
-    """A device-step error fails the requests in flight, returns their pages
-    and leaves the loop serving the next request."""
+    """A device-step error is engine-fatal: the crash-only restart fails the
+    request that had already emitted tokens (the JAX contract of
+    tests/test_serving.py: a replay would repeat output), returns every page
+    and leaves the loop serving the next request.  ``lookahead=0`` and one
+    step per tick make the first token reach the host before the failing
+    second tick; the token-less case is tests/test_torch_supervision.py's."""
     from django_assistant_bot_tpu_torch.models import llama
 
     _, _, cfg, params = tiny_models
     real = llama.decode_step_paged
     calls = []
 
-    def fail_once(*args, **kwargs):
+    def fail_second(*args, **kwargs):
         calls.append(1)
-        if len(calls) == 1:
+        if len(calls) == 2:
             raise RuntimeError("injected device fault")
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(llama, "decode_step_paged", fail_once)
-    eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", max_slots=2, max_seq_len=128)
+    monkeypatch.setattr(llama, "decode_step_paged", fail_second)
+    eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", max_slots=2,
+                           max_seq_len=128, lookahead=0, decode_steps=1, obs=False)
     eng.start()
     try:
         with pytest.raises(RuntimeError, match="injected"):
@@ -127,7 +132,9 @@ def test_engine_loop_error_fails_requests_and_keeps_serving(tiny_models, monkeyp
         result = eng.submit([1, 2, 3], max_tokens=4, temperature=0.0).result(timeout=60)
     finally:
         eng.stop()
-    assert 1 <= result.completion_tokens <= 4
+    assert result.completion_tokens == 4
+    sup = eng.supervision_stats()
+    assert sup["engine_restarts"] == 1 and sup["restarted_requests_resubmitted"] == 0
     assert eng._kv_pool.pages_free == eng._kv_pool.n_pages
 
 
@@ -142,7 +149,6 @@ def test_pick_bucket():
     [
         ("kv_layout", "legacy", "Queue 1 item 8"),
         ("attn_fp8", True, "Queue 2 entry 5"),
-        ("prefix_cache_size", 8, "Queue 1 item 5"),
         ("kv_cache_dtype", "fp8_e5m2", "Queue 2 entry 5"),
         ("speculative", 3, "Queue 1 item 9"),
         ("kv_cache_dtype", "fp8", "Queue 2 entry 5"),
@@ -158,8 +164,8 @@ def test_engine_refuses_unported_knobs(tiny_models, knob, value, item):
     "key,value,item",
     [
         ("quantize", "int8", "Queue 2 entry 3"),
-        ("prefix_cache", 8, "Queue 1 item 5"),
-        ("prefix_min_tokens", 16, "Queue 1 item 5"),
+        ("warmup", True, "Queue 1 item 5"),
+        ("kv_host_bytes", 1 << 20, "Queue 1 item 12"),
         ("speculative", 2, "Queue 1 item 9"),
         ("kind", "encoder", "Queue 1 item 7"),
     ],

@@ -14,7 +14,14 @@ package:
 - a replay after eager prefill waves and chunks reads the new lengths and
   block tables: the engine's greedy ids on the card equal the CPU engine's;
 - the launches recorded at capture are counted at every replay of either
-  graph, and the graphs' own paged counters are back at zero after each one.
+  graph, and the graphs' own paged counters are back at zero after each one;
+- prefix sharing: a replay after a suffix wave of hits reads the shared
+  pages, bitwise equal to the same steps run eagerly (bf16 and f32), and
+  leaves them untouched; a chunk piggybacked from a hit's start leaves the
+  shared pages unchanged, with greedy ids equal to the CPU engine's;
+- an in-place crash-only restart keeps both graphs (no re-capture): a
+  request served after it is bitwise the one a fresh engine serves, pools
+  included, and its replays are still counted.
 """
 
 import contextlib
@@ -49,8 +56,9 @@ def _engine(dtype, device="cuda", **kw):
     params = llama.init(cfg, torch.Generator().manual_seed(3), "cpu")
     params = {k: ({n: w.to(device) for n, w in v.items()} if isinstance(v, dict) else v.to(device))
               for k, v in params.items()}
+    kw.setdefault("chunk_size", 512)
     return GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
-                            max_seq_len=1024, chunk_size=512, decode_steps=K, **kw)
+                            max_seq_len=1024, decode_steps=K, **kw)
 
 
 def _state(eng):
@@ -195,3 +203,117 @@ def test_capture_needs_scratch_and_recording():
                 with ctx, torch.cuda.graph(g, stream=stream):
                     paged_gqa_decode_attention(q, pool, pool, bt, pos)
         torch.cuda.synchronize()
+
+
+def _crank(eng, futs):
+    for _ in range(2000):
+        if all(f.done() for f in futs):
+            return
+        eng._loop_iteration()
+    raise AssertionError("requests did not finish")
+
+
+def _registry_pages(eng):
+    pages = sorted({p for _, ent in eng._kv_pool.shared_entries() for p in ent.pages})
+    return pages, eng._cache.k[:, pages].clone(), eng._cache.v[:, pages].clone()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_replay_after_suffix_wave_reads_shared_pages(dtype):
+    """A 600-token head registers (chunked), then three hits prefill only
+    their suffixes: the next tick's replay equals the same K steps run
+    eagerly over the slots' shared pages, and the shared pages (the boundary
+    page too) are bitwise what the registration left."""
+    eng = _engine(dtype, prefix_min_tokens=32)
+    gen = torch.Generator().manual_seed(8)
+    head = torch.randint(1, 255, (600,), generator=gen).tolist()  # 1 full page + a boundary
+    eng._running = True
+    _crank(eng, [eng.submit(head + [7, 8], max_tokens=2, temperature=0.0, prefix_len=600)])
+    pages, k0, v0 = _registry_pages(eng)
+    assert len(pages) == 2
+    futs = [eng.submit(head + torch.randint(1, 255, (n,), generator=gen).tolist(),
+                       max_tokens=64, temperature=t, prefix_len=600)
+            for n, t in ((20, 0.0), (90, 0.8), (150, 0.0))]
+    eng._loop_iteration()  # admission: one suffix wave, activation, first tick
+    assert eng.kv_stats()["prefix_hits"] == 3 and eng.kv_stats()["kv_cow_copies"] == 3
+    assert eng.num_active == 3
+    torch.cuda.synchronize()
+    eng._upload_dirty()
+    dev_gen = torch.Generator(device="cuda").manual_seed(9)
+    for i in range(K):
+        gumbel_noise(eng._noise[i], dev_gen)
+    before, replayed, eager = _replay_vs_eager(eng, eng._graph, [eng._tick_body])
+    for name, got, want in zip(("k", "v", "lengths", "tokens", "toks"), replayed, eager):
+        assert torch.equal(got, want), name
+    _, k1, v1 = _registry_pages(eng)
+    assert torch.equal(k0, k1) and torch.equal(v0, v1)
+    _crank(eng, futs)
+    _, k2, v2 = _registry_pages(eng)
+    assert torch.equal(k0, k2) and torch.equal(v0, v2)
+
+
+def test_piggybacked_chunk_from_a_hit_leaves_shared_pages_unchanged():
+    """A hit whose suffix is longer than a chunk continues as chunks from
+    the prefix length, piggybacked on a live batch's ticks: the shared pages
+    stay bitwise unchanged, and the greedy ids equal the CPU engine's."""
+    gen = torch.Generator().manual_seed(10)
+    head = torch.randint(1, 255, (560,), generator=gen).tolist()  # page 512: 1 full + a boundary
+    short = torch.randint(1, 255, (40,), generator=gen).tolist()
+    long_tail = torch.randint(1, 255, (300,), generator=gen).tolist()  # two chunks of 256 from 560
+
+    def run(device):
+        eng = _engine(torch.float32, device=device, prefix_min_tokens=32, chunk_size=256)
+        eng._running = True
+        first = eng.submit(head + [3, 4], max_tokens=2, temperature=0.0, prefix_len=560)
+        _crank(eng, [first])
+        snap = _registry_pages(eng)
+        futs = [eng.submit(short, max_tokens=48, temperature=0.0),
+                eng.submit(head + long_tail, max_tokens=8, temperature=0.0, prefix_len=560)]
+        _crank(eng, futs)
+        ids = [first.result(timeout=0).token_ids] + [f.result(timeout=0).token_ids for f in futs]
+        return ids, snap, _registry_pages(eng), eng
+
+    card, (pages, k0, v0), (_, k1, v1), eng = run("cuda")
+    cpu, *_ = run("cpu")
+    assert card == cpu
+    assert eng.kv_stats()["prefix_hits"] == 1 and eng.kv_stats()["kv_cow_copies"] == 1
+    assert eng.decode_path_stats()["prefill_chunks_piggybacked"] > 0
+    assert torch.equal(k0, k1) and torch.equal(v0, v1)
+
+
+def test_replay_after_in_place_restart_equals_fresh_engine():
+    """A request served after a crash-only restart (pools zeroed, generator
+    re-seeded, graphs kept) is bitwise the request a fresh engine serves:
+    ids, K/V pools and lengths; its replays are counted, and both graphs
+    are the ones captured at construction."""
+    gen = torch.Generator().manual_seed(11)
+    warm = torch.randint(1, 255, (300,), generator=gen).tolist()
+    prompts = [torch.randint(1, 255, (n,), generator=gen).tolist() for n in (50, 700)]
+
+    def serve(eng):
+        eng._running = True
+        futs = [eng.submit(p, max_tokens=24, temperature=0.0) for p in prompts]
+        kernels.reset_counts()
+        steps0 = eng.steps
+        _crank(eng, futs)
+        torch.cuda.synchronize()
+        return [f.result(timeout=0).token_ids for f in futs], eng.steps - steps0
+
+    eng = _engine(torch.bfloat16)
+    graphs = (eng._graph, eng._piggyback_graph)
+    eng._running = True
+    _crank(eng, [eng.submit(warm, max_tokens=8, temperature=0.7)])
+    with eng._iter_lock:
+        eng._restart(RuntimeError("injected"))
+    assert eng.engine_restarts == 1 and (eng._graph, eng._piggyback_graph) == graphs
+    (part, counters), = eng._graph_scratch.values()
+    assert int(counters.abs().sum()) == 0
+    got, steps = serve(eng)
+    assert kernels.launch_counts()["paged_decode"] == eng.cfg.num_layers * steps > 0
+    fresh = _engine(torch.bfloat16)
+    want, _ = serve(fresh)
+    assert got == want
+    P = eng._kv_pool.n_pages
+    assert torch.equal(eng._cache.k[:, :P], fresh._cache.k[:, :P])
+    assert torch.equal(eng._cache.v[:, :P], fresh._cache.v[:, :P])
+    assert torch.equal(eng._cache.lengths, fresh._cache.lengths)
