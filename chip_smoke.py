@@ -9,21 +9,25 @@ exits non-zero before printing any result.  Phases, in order (any failure
 exits non-zero):
 
 1. environment (torch / CUDA versions, ``nvidia-smi`` name and power limit)
-   and the kernel build from ``django_assistant_bot_tpu_torch/csrc``;
+   and the kernel build from ``django_assistant_bot_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all at once), with each library's ``ptxas`` report;
 2. every kernel against its plain PyTorch twin on the card, at the main
    path's shapes, with the stated tolerance, plus its time, its bound, the
    plain twin's time and, where one PyTorch call computes the same
    function, that call's time (a yardstick only; the port never calls it);
    ``ms`` is the wall time per call over back-to-back calls (CUDA events),
    ``device_ms`` the summed kernel time per call (torch.profiler); the
-   HMMA / LDGSTS counts of both libraries; for paged decode also the main
+   HMMA / LDGSTS counts of the libraries; for paged decode also the main
    path's own decode shape and a bitwise repeat check (``paged_live_keys``
    and ``paged_bound_ms`` are also imported by ``tools/paged_decode_ab.py``);
-3. a small f32 model on the card (kernels) against the same model on the
-   CPU (plain twins): prefill logits, and the engine's greedy token ids at
-   the default loop (on the card the fused 8-step tick replayed as a CUDA
-   graph, with a piggybacked chunk; on the CPU the same loop eagerly), and
-   on the card at ``decode_steps=1`` too;
+   the KNN score + top-k at the RAG corpus (1,048,576 x 768, Q 8 / 32 /
+   128, k 16 / 1024, all rows and a 1% allow-list) and at 4,096 x 64;
+3. small f32 models on the card (kernels) against the same models on the
+   CPU (plain twins): the decoder's prefill logits and the engine's greedy
+   token ids at the default loop (on the card the fused 8-step tick
+   replayed as a CUDA graph, with a piggybacked chunk; on the CPU the same
+   loop eagerly), and on the card at ``decode_steps=1`` too; the tiny
+   encoder's ``encode`` and an ``EmbeddingEngine`` coalescing three calls;
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
    weights drawn on the card, a ``GenerationEngine`` at the default loop
    (fused 8-step ticks as a CUDA graph, piggybacked prefill, the admission
@@ -45,8 +49,14 @@ exits non-zero):
    hits';
 5. a load-shedding check (a tiny engine with a queue bound of 1: a burst of
    ``/dialog/`` requests gets 429 with ``Retry-After``) and one
-   ``/dialog/`` request through ``cli serve --tiny --device cuda``;
-6. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
+   ``/embeddings/`` and one ``/dialog/`` request through ``cli serve --tiny
+   --device cuda``;
+6. the RAG request at full width (:func:`rag_phase`): a ruBert-base
+   encoder behind ``/embeddings/`` and phase 4's engine behind ``/dialog/``
+   in one server, a 1,000,000-row corpus on the card, embed -> exact top-k
+   (the KNN kernel) -> answer over the whole top-3 passages (a chunked
+   prefill, then paged decode), with its checks and readings;
+7. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
    line, and the final ``{"ok": true, ...}`` line.
 """
 
@@ -196,8 +206,8 @@ def env_and_build():
         spills = [sp for _, _, sp in table]
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
-        if name == "paged_decode":
-            log("  ptxas[paged_decode] per kernel: " + "; ".join(
+        if name in ("paged_decode", "knn_topk"):
+            log(f"  ptxas[{name}] per kernel: " + "; ".join(
                 f"{label} {r} regs, {sp} B spilled" for label, r, sp in table))
     # the f32 references below are true f32 products, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -247,18 +257,20 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
-    r"|paged_decode_combine_kernel)I(\w*?)EEv"
+    r"|paged_decode_combine_kernel|score_kernel)I(\w*?)EEv"
 )
+_PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel)E")
 
 
 def kernel_label(mangled: str) -> str:
-    """``name<type,ints>`` for a mangled kernel name of the two libraries."""
+    """``name<type,ints>`` for a mangled kernel name of the three libraries."""
     m = _KERNEL_RE.search(mangled)
     if not m:
-        return mangled[:60]
+        plain = _PLAIN_KERNEL_RE.search(mangled)
+        return plain.group(1) if plain else mangled[:60]
     args = m.group(2)
     dtype = "f32," if args.startswith("f") else "bf16," if args.startswith("13__nv_bfloat16") else ""
-    ints = ",".join(re.findall(r"Li(\d+)E", args))
+    ints = ",".join(re.findall(r"L[ib](\d+)E", args))
     return f"{m.group(1)}<{dtype}{ints}>"
 
 
@@ -543,6 +555,99 @@ def check_paged(gen, page: int) -> dict:
     }
 
 
+def knn_bound_ms(Q, live, N, D, k) -> tuple:
+    """Least time for the masked score + top-k: the live rows of the index
+    (bf16), the validity bytes and the f32 queries read once, the f32 scores
+    and int32 ids written once, at the HBM rate, against 2 Q D operations
+    per live row at the bf16 tensor-core peak."""
+    nbytes = live * D * 2 + N + Q * D * 4 + Q * k * 8
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 2.0 * Q * live * D / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def knn_corpus(N, D, live, gen):
+    """N normalised bf16 rows on the card, the first ``live`` valid."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.storage.knn import _normalize_rows_dev
+
+    x = torch.empty((N, D), dtype=torch.bfloat16, device="cuda")
+    for s0 in range(0, N, 1 << 17):  # in slices: the f32 temporaries stay small
+        e = min(N, s0 + (1 << 17))
+        x[s0:e] = _normalize_rows_dev(
+            torch.randn((e - s0, D), generator=gen, device="cuda").to(torch.bfloat16))
+    valid = torch.zeros(N, dtype=torch.bool, device="cuda")
+    valid[:live] = True
+    return x, valid
+
+
+def check_knn(gen) -> dict:
+    """``knn_topk`` against ``topk_scores_plain`` at the RAG corpus (1,048,576
+    rows of 768, the first 1,000,000 valid) for Q in {8, 32, 128}, k in {16,
+    1024}, all rows and an allow-list of about 1% of them, at Q = 1, k =
+    20,000 (past the shared-memory sort of 16,384 keys: the global-memory
+    sort), and at N = 4096, D = 64 (below the hierarchical top-k's 16,384
+    rows); then its time at the main path's search (Q bucket 8, k bucket 16,
+    all rows), at the other buckets and at k = 20,000."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.storage.knn import topk_scores, topk_scores_plain
+    from django_assistant_bot_tpu_torch.storage.knn_check import topk_agreement
+
+    N, D, live = 1 << 20, 768, 1_000_000
+    x, valid = knn_corpus(N, D, live, gen)
+    allow = valid & (torch.rand(N, generator=gen, device="cuda") < 0.01)
+    worst, worst_err = 0.0, 0.0
+    cases = [(Q, k, name, m) for Q in (8, 32, 128) for k in (16, 1024)
+             for name, m in (("all", valid), ("allow-list", allow))]
+    cases.append((1, 20000, "all", valid))
+    xs, vs = knn_corpus(4096, 64, 4096, gen)
+    cases += [(8, 16, "N=4096 D=64", vs), (8, 1024, "N=4096 D=64", vs)]
+    for Q, k, name, m in cases:
+        index = xs if name.startswith("N=") else x
+        q = torch.randn((Q, index.shape[1]), generator=gen, device="cuda")
+        scores, ids = topk_scores(index, q, m, k)
+        torch.cuda.synchronize()
+        rep = topk_agreement(index, q, m, scores, ids)
+        log(f"  knn Q={Q} k={k} {name} ({int(m.sum())} valid of {index.shape[0]}): max_abs_err "
+            f"{rep['max_abs_err']:.3e}, worst err/bound {rep['worst']:.4f} (bound D 2^-22 |q| "
+            f"max|x|, f32 accumulation), ids compared {rep['ids_compared']}")
+        if rep["problems"]:
+            fail(f"knn_topk Q={Q} k={k} {name} disagrees with its plain twin: {rep['problems']}")
+        worst, worst_err = max(worst, rep["worst"]), max(worst_err, rep["max_abs_err"])
+    log(f"  knn SASS: {sass_counts(kernels.lib_path('knn_topk'))}")
+
+    result = {}
+    for Q, k, iters in ((8, 16, 30), (32, 16, 30), (128, 1024, 10), (1, 20000, 5)):
+        q = torch.randn((Q, D), generator=gen, device="cuda")
+        qb = q.to(torch.bfloat16)
+        ms, dev = timed(lambda: topk_scores(x, q, valid, k), iters)
+        plain_ms = time_ms(lambda: topk_scores_plain(x, q, valid, k), 3)
+        library_ms = time_ms(lambda: torch.topk(
+            torch.matmul(qb, x.T).masked_fill_(~valid, float("-inf")), k), iters)
+        bound_ms, bound_by = knn_bound_ms(Q, live, N, D, k)
+        log(f"  knn timing Q={Q} k={k} N={N} ({live} valid) D={D}: kernel wall {ms:.4f} ms "
+            f"(device {dev:.4f}), plain wall {plain_ms:.4f} ms, library (matmul bf16 out + "
+            f"masked_fill + topk) wall {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"share of the bound: wall {bound_ms / ms:.3f}, device {bound_ms / dev:.3f}, "
+            f"library {bound_ms / library_ms:.3f}")
+        if (Q, k) == (8, 16):
+            result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+    del x, valid, allow
+    torch.cuda.empty_cache()
+    return {
+        "name": "knn_topk",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/knn_topk.cu",
+        "replaces": "django_assistant_bot_tpu/storage/knn.py:71",
+        "max_abs_err": worst_err,
+        **result,
+    }
+
+
 # --------------------------------------------------------------------- phase 3
 def small_reference():
     """A small f32 model (head_dim 64, so both kernels run) on the card
@@ -693,6 +798,60 @@ def small_fault_restart(cfg, params_gpu, prompt) -> None:
     if not (ids == clean and sup["engine_restarts"] == 1
             and sup["restarted_requests_resubmitted"] == 1 and same_graph):
         fail(f"restart on the card: ids {ids} vs {clean}, {sup}")
+
+
+def small_encoder() -> None:
+    """The tiny f32 encoder on the card against the same encoder on the CPU:
+    ``encode`` on a padded batch within 1e-5 (normalised and not); then an
+    ``EmbeddingEngine`` on the card coalescing three concurrent calls into
+    one batch, its embeddings within 1e-5 of the CPU engine's."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import EncoderConfig, encoder
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, EmbeddingEngine
+
+    cfg = EncoderConfig.tiny()
+    params_cpu = encoder.init(cfg, torch.Generator().manual_seed(5), "cpu")
+    params_gpu = {k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict) else v.cuda())
+                  for k, v in params_cpu.items()}
+    ids = torch.randint(1, 500, (4, 40), generator=torch.Generator().manual_seed(6))
+    mask = torch.zeros((4, 40), dtype=torch.int32)
+    for b, n in enumerate((40, 23, 7, 1)):
+        mask[b, :n] = 1
+    for norm in (False, True):
+        ref = encoder.encode(params_cpu, cfg, ids, mask, normalize=norm)
+        out = encoder.encode(params_gpu, cfg, ids.cuda(), mask.cuda(), normalize=norm)
+        err = (out.cpu() - ref).abs().max().item()
+        log(f"  tiny encoder encode normalize={norm}, card vs CPU: max_abs_err {err:.3e} "
+            f"(bound 1e-05)")
+        if not (torch.isfinite(out).all() and out.shape == (4, cfg.hidden_size) and err <= 1e-5):
+            fail(f"tiny encoder on the card disagrees with the CPU: {err}")
+
+    texts = [["alpha", "beta"], ["gamma"], ["delta " * 20, "epsilon", "zeta " * 40]]
+    eng = EmbeddingEngine(cfg, params_gpu, ByteTokenizer(), max_batch=8, device="cuda")
+    batches = []
+    embed_batch = eng._embed_batch
+    eng._embed_batch = lambda t: (batches.append(len(t)), embed_batch(t))[1]
+    eng._running = True  # no loop thread yet: the three calls queue up together
+
+    async def go():
+        futs = [asyncio.ensure_future(eng.embed(t)) for t in texts]
+        await asyncio.sleep(0.05)
+        eng._running = False
+        eng.start()
+        return await asyncio.gather(*futs)
+
+    try:
+        got = [v for r in asyncio.run(go()) for v in r]
+    finally:
+        eng.stop()
+    cpu = EmbeddingEngine(cfg, params_cpu, ByteTokenizer(), max_batch=8, device="cpu")
+    want = cpu.embed_sync([t for ts in texts for t in ts])
+    err = max(abs(a - b) for u, v in zip(got, want) for a, b in zip(u, v))
+    log(f"  tiny EmbeddingEngine on the card: three concurrent calls in batches {batches}, "
+        f"against the CPU engine max_abs_err {err:.3e}")
+    if batches != [6] or err > 1e-5:
+        fail(f"tiny EmbeddingEngine: batches {batches}, err {err}")
 
 
 # --------------------------------------------------------------------- phase 4
@@ -879,8 +1038,8 @@ def main_path(card: str) -> dict:
         f"{peak_gib - resident_gib:.2f} GiB above it at the peak)")
     log(f"  launches during the run: {counts}; paged decode by route: {routes}; "
         f"{steps} decode steps in {steps // engine.decode_steps} ticks")
-    for k, n in counts.items():
-        if n <= 0:
+    for k in ("flash_prefill", "paged_decode"):  # the KNN runs on phase 6's path
+        if counts[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
     if routes != {"mma": counts["paged_decode"], "cuda_core": 0}:
         fail(f"paged decode on the main path left the tensor-core kernel: {routes}")
@@ -891,32 +1050,36 @@ def main_path(card: str) -> dict:
     log(f"  tick_stats: {json.dumps(engine.tick_stats())}")
     obs_on = _tick_reading(main, rates)
     decode_breakdown(cfg, params, engine)
-    del engine
-    torch.cuda.empty_cache()
 
     # the obs A/B: the same four requests on an engine with the obs plane off
-    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, obs=False)
-    engine, _ = _build_engine(cfg, params, spec)
-    (off,) = serve(engine, [list(messages.values())])
+    spec_off = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, obs=False)
+    other, _ = _build_engine(cfg, params, spec_off)
+    (off,) = serve(other, [list(messages.values())])
     _, rates_off, _ = _check_dialogs(tok, list(messages.items()), off["results"])
     obs_off = _tick_reading(off, rates_off)
     log(f"  obs on vs off, the four requests (each after its engine's warm-up request): "
         f"on {obs_on}, off {obs_off}")
-    del engine
+    del other
     torch.cuda.empty_cache()
 
     # the hits again, each alone, on an engine with prefix sharing off: cold
     # chunked prefills of the same prompts
-    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, prefix_cache=0)
-    engine, _ = _build_engine(cfg, params, spec)
-    cold_logits = record_first_logits(engine)
-    cold_runs = serve(engine, [[m] for m in rag[1:]])
-    if engine.kv_stats()["prefix_hits"] != 0:
-        fail(f"the cold engine hit its prefix cache: {engine.kv_stats()}")
+    spec_cold = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096,
+                          prefix_cache=0)
+    other, _ = _build_engine(cfg, params, spec_cold)
+    cold_logits = record_first_logits(other)
+    cold_runs = serve(other, [[m] for m in rag[1:]])
+    if other.kv_stats()["prefix_hits"] != 0:
+        fail(f"the cold engine hit its prefix cache: {other.kv_stats()}")
     hit_vs_cold(cfg, tok, rag[1:], hit_logits, cold_logits, rag_runs[1:], cold_runs)
-    del params, engine
+    del other
     torch.cuda.empty_cache()
-    return counts
+    # the first engine serves phase 6: its own admission path again (the
+    # logit recorder taken off), and rebuilt in place after the decode
+    # breakdown wrote its buffers (the rebuild of a crash-only restart)
+    del engine._activate_batch
+    engine.reset()
+    return counts, spec, engine
 
 
 def _tick_counters(eng) -> tuple:
@@ -1040,10 +1203,11 @@ def hit_vs_cold(cfg, tok, chats, hit_logits, cold_logits, hit_runs, cold_runs) -
         f"{len(chats)}")
 
 
-def _timed_run(fn, n: int, per: int, label: str) -> None:
+def _timed_run(fn, n: int, per: int, label: str, unit: str = "step") -> None:
     """Log the synchronised, host-enqueue and device kernel time of ``fn``
-    per decode step (``fn`` runs ``per`` steps), the idle share, and the
-    device time by kernel from torch.profiler over ``n`` calls."""
+    per ``unit`` (``fn`` runs ``per`` of them; a decode step by default),
+    the idle share, and the device time by kernel from torch.profiler over
+    ``n`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1058,15 +1222,15 @@ def _timed_run(fn, n: int, per: int, label: str) -> None:
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             kernels_by_name.append((dev_us / (n * per) / 1e3, e.count / (n * per), e.key))
     busy_ms = sum(ms for ms, _, _ in kernels_by_name)
-    log(f"  {label}: {wall_ms:.3f} ms synchronised per step, host enqueue {enqueue_ms:.3f} ms, "
+    log(f"  {label}: {wall_ms:.3f} ms synchronised per {unit}, host enqueue {enqueue_ms:.3f} ms, "
         f"device kernel time {busy_ms:.3f} ms "
         f"({'not measured: profiler saw no device time' if busy_ms == 0 else f'idle share {1 - busy_ms / wall_ms:.3f}'})")
     for ms, calls, name in sorted(kernels_by_name, reverse=True)[:6]:
-        log(f"    {ms:.4f} ms/step in {calls:g} launches/step: {name[:90]}")
+        log(f"    {ms:.4f} ms/{unit} in {calls:g} launches/{unit}: {name[:90]}")
     paged = [(ms, calls) for ms, calls, name in kernels_by_name if "paged" in name]
-    log(f"    paged attention: {sum(ms for ms, _ in paged):.4f} ms/step in "
-        f"{sum(c for _, c in paged):g} launches/step; all kernels: "
-        f"{sum(c for _, c, _ in kernels_by_name):g} launches/step")
+    log(f"    paged attention: {sum(ms for ms, _ in paged):.4f} ms/{unit} in "
+        f"{sum(c for _, c in paged):g} launches/{unit}; all kernels: "
+        f"{sum(c for _, c, _ in kernels_by_name):g} launches/{unit}")
 
 
 def _sync_and_enqueue_ms(fn, n: int, per: int) -> tuple:
@@ -1245,6 +1409,16 @@ def serve_tiny_subprocess():
             if r.status != 200 or "result" not in body.get("response", {}):
                 fail(f"serve --tiny /dialog/ returned {r.status}: {body}")
         log(f"  serve --tiny --device cuda: /dialog/ 200, usage {body['response']['usage']}")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/embeddings/",
+            data=json.dumps({"model": "tiny-emb", "texts": ["hi", "there"]}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=120) as r:
+            embs = json.loads(r.read()).get("embeddings")
+            if r.status != 200 or len(embs or []) != 2 or len(embs[0]) != 64:
+                fail(f"serve --tiny /embeddings/ returned {r.status}: {embs}")
+        log("  serve --tiny --device cuda: /embeddings/ 200, two 64-wide embeddings")
         from django_assistant_bot_tpu_torch.serving.obs import parse_prometheus_text
 
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
@@ -1271,6 +1445,256 @@ def serve_tiny_subprocess():
         errlog.close()
 
 
+# --------------------------------------------------------------------- phase 6
+RAG_ROWS, RAG_CAPACITY = 1_000_000, 1 << 20  # the corpus: 64 planted passages among filler
+RAG_FILLER_ID = 1_000_000  # filler rows' ids start here; planted passages are 0..63
+
+
+def _passages() -> list:
+    """64 planted passages of 200-1,500 bytes, each written in its own
+    random 10-character alphabet (a random-weight encoder's mean-pooled
+    embedding follows the text's byte mix, so passages drawn from one mix
+    would embed alike).  The first 8, 200-284 bytes, are the questions."""
+    import random
+    import string
+
+    out = []
+    for i in range(64):
+        rnd = random.Random(1000 + i)
+        n = 200 + 12 * i if i < 8 else 300 + (1200 * (i - 8)) // 55
+        letters = rnd.sample(string.ascii_lowercase + string.digits, 10)
+        text = ""
+        while len(text) < n:
+            text += "".join(rnd.choice(letters) for _ in range(rnd.randint(2, 9))) + " "
+        out.append(text[:n])
+    return out
+
+
+def _stat(xs, unit="s") -> str:
+    import statistics
+
+    return (f"median {statistics.median(xs):.4f} {unit} (min {min(xs):.4f}, max {max(xs):.4f}, "
+            f"n={len(xs)})")
+
+
+def rag_phase(card: str, dec_spec, dec_engine) -> dict:
+    """The RAG request end to end on the card.  A ruBert-base encoder
+    (EncoderConfig(): 12 layers, width 768, bf16, random weights from a
+    seed) behind ``/embeddings/`` and phase 4's Llama-3-8B engine behind
+    ``/dialog/``, in one registry and one server.  64 planted passages are
+    embedded over ``/embeddings/`` and placed with ``add_device`` among
+    999,936 seeded random rows (1,000,000 rows, capacity 1,048,576).  Each
+    planted passage, embedded alone as a question, must come back top-1
+    with a score >= 0.99; an allow-listed search must return only allowed
+    ids.  Then 8 RAG requests (a passage's own text as the question): embed,
+    ``AsyncSearcher.search(k=16)``, and ``/dialog/`` with the top 3
+    passages, whole, as the system context and 32 greedy tokens, sent back
+    to back and then each after the card drained (the context in the other
+    order, so no request hits the prefix cache); launch counts are zeroed
+    just before them and read just after.  A prompt of 2,000-3,600 tokens
+    is longer than the engine's 512-token chunk, so each prefill runs as
+    chunks (attention in plain PyTorch, as the JAX chunk's) and the flash
+    kernel, whose path is phase 4's, is not launched here: the KNN and the
+    paged decode kernels must be.  Readings, each a median and spread of
+    >= 5 runs: embedding docs/s at batch 64, /embeddings/ latency of one
+    text, a KNN search of one query and of 32 coalesced, each RAG request's
+    embed, search and TTFT at its prompt length; and the encoder's own time
+    at the two request shapes."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import EncoderConfig, encoder
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, EmbeddingEngine
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+    from django_assistant_bot_tpu_torch.storage import AsyncSearcher, VectorIndex
+
+    t0 = time.perf_counter()
+    cfg = EncoderConfig()  # ruBert-base geometry, bf16
+    params = encoder.init(cfg, torch.Generator(device="cuda").manual_seed(11), "cuda")
+    emb_spec = ModelSpec(name="rubert-base-random", kind="encoder", device="cuda", max_batch=64)
+    registry = ModelRegistry()
+    registry.load(emb_spec, engine=EmbeddingEngine(cfg, params, ByteTokenizer(), max_batch=64,
+                                                   device="cuda"))
+    registry.load(dec_spec, engine=dec_engine)
+    n_params = sum(w.numel() for w in params["layers"].values()) + sum(
+        params[k].numel() for k in params if k != "layers")
+    log(f"  encoder: {cfg.num_layers} layers, width {cfg.hidden_size}, {n_params / 1e6:.1f} M "
+        f"params bf16, built in {time.perf_counter() - t0:.2f} s")
+    tok = ByteTokenizer()
+    passages = _passages()
+    questions = passages[:8]
+    index = VectorIndex(cfg.hidden_size, device="cuda")
+    searcher = AsyncSearcher(index, window_s=0.002, max_batch=32)
+    port = _free_port()
+    out = {}
+
+    async def drive():
+        runner = web.AppRunner(create_app(registry))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                async def embed(texts):
+                    async with session.post(f"http://127.0.0.1:{port}/embeddings/",
+                                            json={"model": emb_spec.name, "texts": texts}) as r:
+                        body = await r.json()
+                        if r.status != 200:
+                            fail(f"/embeddings/ returned {r.status}: {body}")
+                        return body["embeddings"]
+
+                await embed(passages)  # warm-up: the encoder's first GEMMs at these shapes
+                await embed(questions[:1])
+                docs_s = []
+                for _ in range(5):
+                    t = time.perf_counter()
+                    vecs = await embed(passages)
+                    docs_s.append(len(passages) / (time.perf_counter() - t))
+                emb = torch.tensor(vecs, dtype=torch.float32)
+                if not (emb.shape == (64, cfg.hidden_size) and torch.isfinite(emb).all()):
+                    fail(f"/embeddings/ gave {tuple(emb.shape)}, finite {bool(torch.isfinite(emb).all())}")
+
+                # the corpus: 64 chunks of seeded random rows, a planted
+                # passage after each, all appended on the card
+                t = time.perf_counter()
+                gen = torch.Generator(device="cuda").manual_seed(12)
+                index.reserve(RAG_ROWS)
+                chunk = (RAG_ROWS - 64) // 64
+                emb_dev = emb.cuda()
+                for i in range(64):
+                    rows = torch.randn((chunk, cfg.hidden_size), generator=gen, device="cuda")
+                    start = RAG_FILLER_ID + i * chunk
+                    index.add_device(range(start, start + chunk), rows.to(torch.bfloat16))
+                    index.add_device([i], emb_dev[i : i + 1])
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t
+                if len(index) != RAG_ROWS or index._capacity() != RAG_CAPACITY:
+                    fail(f"corpus: {len(index)} rows, capacity {index._capacity()}")
+
+                # each planted passage, embedded alone, is top-1 for its own text
+                one_s, own = [], []
+                for p in passages:
+                    t = time.perf_counter()
+                    own.append((await embed([p]))[0])
+                    one_s.append(time.perf_counter() - t)
+                hits = await asyncio.gather(*(searcher.search(v, k=16) for v in own))
+                worst_own, best_other = 1.0, -1.0
+                for i, h in enumerate(hits):
+                    if h[0][0] != i or h[0][1] < 0.99:
+                        fail(f"planted passage {i} is not top-1 for its own text: {h[:3]}")
+                    worst_own = min(worst_own, h[0][1])
+                    best_other = max(best_other, h[1][1])
+                drift = (torch.tensor(own[:8]) - emb[:8]).abs().max().item()
+                allowed = {3, 5, 7, RAG_FILLER_ID, RAG_FILLER_ID + 100, RAG_FILLER_ID + 30 * chunk}
+                allowed_hits = await searcher.search(own[5], k=16, allowed_ids=allowed)
+                if {i for i, _ in allowed_hits} - allowed or len(allowed_hits) != 6 \
+                        or allowed_hits[0][0] != 5:
+                    fail(f"allow-listed search returned {allowed_hits}")
+
+                # KNN latency: one query (search on this thread), 32 coalesced
+                knn_one, knn_32 = [], []
+                index.search(own[0], k=16)
+                for v in own[:8]:
+                    t = time.perf_counter()
+                    index.search(v, k=16)
+                    knn_one.append(time.perf_counter() - t)
+                for _ in range(5):
+                    t = time.perf_counter()
+                    await asyncio.gather(*(searcher.search(v, k=16) for v in own[:32]))
+                    knn_32.append(time.perf_counter() - t)
+
+                # the RAG requests: once back to back (each one's embedding
+                # queues on the card behind the ticks the engine issued
+                # ahead for the previous answer), then each after the card
+                # drained
+                torch.cuda.synchronize()
+                kernels.reset_counts()
+                hits0 = dec_engine.kv_stats()["prefix_hits"]
+                rag = []
+                for i, q in enumerate(questions + questions):
+                    if i >= len(questions):
+                        torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    v = (await embed([q]))[0]
+                    t1 = time.perf_counter()
+                    top = await searcher.search(v, k=16)
+                    t2 = time.perf_counter()
+                    if top[0][0] != i % len(questions):
+                        fail(f"RAG question {i}: top-1 is {top[0]}")
+                    # the second round lists the passages the other way
+                    # round: a new head, not a hit on the first round's
+                    order = top[:3] if i < len(questions) else top[2::-1]
+                    context = "\n".join(
+                        f"[{pid}] {passages[pid] if pid < 64 else '(filler row)'}"
+                        for pid, _ in order)
+                    msgs = [{"role": "system", "content": "Answer from these passages:\n" + context},
+                            {"role": "user", "content": q}]
+                    n_prompt = len(tok.encode_chat(msgs))
+                    status, body, wall = await _post(session, port, dec_spec.name, msgs)
+                    ttft, _, _ = _check_dialogs(tok, [(f"rag request {i}", msgs)],
+                                                [(status, body, wall)])
+                    rag.append((t1 - t, t2 - t1, ttft[0], wall, [pid for pid, _ in order],
+                                n_prompt))
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                hits = dec_engine.kv_stats()["prefix_hits"] - hits0
+                # the encoder alone on the card, at the two request shapes
+                ids = torch.randint(1, 255, (64, 512), generator=gen, device="cuda")
+                mask = torch.ones((64, 512), dtype=torch.int32, device="cuda")
+                with torch.no_grad():
+                    enc64 = timed(lambda: encoder.encode(params, cfg, ids, mask), 5)
+                    enc1 = timed(lambda: encoder.encode(params, cfg, ids[:1, :256],
+                                                        mask[:1, :256]), 10)
+                    _timed_run(lambda: encoder.encode(params, cfg, ids, mask), 3, 1,
+                               "encoder.encode, batch 64 x 512", unit="call")
+                out.update(counts=counts, hits=hits, docs_s=docs_s, one_s=one_s, enc64=enc64, enc1=enc1,
+                           knn_one=knn_one, knn_32=knn_32, rag=rag, build_s=build_s,
+                           worst_own=worst_own, best_other=best_other, drift=drift)
+        finally:
+            await runner.cleanup()  # stops both engines
+
+    asyncio.run(drive())
+    counts = out["counts"]
+    rag = out["rag"]
+    log(f"  corpus: {RAG_ROWS} rows (64 planted) in capacity {RAG_CAPACITY}, appended on the card in "
+        f"{out['build_s']:.2f} s; every planted passage top-1 for its own text (worst own "
+        f"score {out['worst_own']:.5f}, best other score {out['best_other']:.5f}); the 8 "
+        f"questions' embeddings alone vs in the batch of 64: max_abs_err {out['drift']:.3e} "
+        f"(bf16, other GEMM shapes); allow-listed search returned only allowed ids")
+    log(f"  embedding docs/s at batch 64 (64 passages, sequence bucket 512): "
+        f"{_stat(out['docs_s'], 'docs/s')}")
+    log(f"  /embeddings/ latency, one text (the 64 passages alone): {_stat(out['one_s'])}")
+    log(f"  KNN search at {RAG_ROWS} x {cfg.hidden_size}, k=16: one query {_stat(out['knn_one'])}; 32 "
+        f"coalesced {_stat(out['knn_32'])}")
+    e64, e1 = out["enc64"], out["enc1"]
+    log(f"  encoder.encode alone: batch 64 x 512 {e64[0]:.3f} ms wall (device {e64[1]:.3f}), "
+        f"{64e3 / e64[0]:.1f} docs/s; batch 1 x 256 {e1[0]:.3f} ms wall (device {e1[1]:.3f})")
+    n, c = len(questions), dec_engine.chunk_size
+    for i, (e, sr, ttft, wall, top3, n_prompt) in enumerate(rag):
+        # the engine's chunking: full chunks from 0, the last ending at the
+        # prompt's end
+        chunks = len(range(0, n_prompt - c, c)) + 1 if n_prompt > c else 0
+        log(f"  rag request {i % n} ({'back to back' if i < n else 'after a drain'}): prompt "
+            f"{n_prompt} tokens ({chunks} chunks of {c}), embed {e:.4f} s, search {sr:.4f} s, "
+            f"ttft {ttft:.4f} s, question to first token {e + sr + ttft:.4f} s, full response "
+            f"{wall:.4f} s; context passages {top3}")
+    for label, part in (("back to back", rag[:n]), ("after a drain", rag[n:])):
+        log(f"  RAG question to first token, {label}: "
+            f"{_stat([e + sr + t for e, sr, t, *_ in part])}; embed "
+            f"{_stat([r[0] for r in part])}; search {_stat([r[1] for r in part])}; TTFT "
+            f"{_stat([r[2] for r in part])}; prompt tokens "
+            f"{_stat([r[5] for r in part], 'tokens')}  [{card}]")
+    log(f"  launches during the RAG requests: {counts}; prefix hits {out['hits']}")
+    for name in ("knn_topk", "paged_decode"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched by the RAG requests")
+    if out["hits"]:  # each TTFT is a cold prefill of the whole prompt
+        fail(f"RAG requests hit the prefix cache {out['hits']} times")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1293,21 +1717,30 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     log("== phase 2: kernels vs plain twins")
-    entries = [check_flash(gen), check_paged(gen, page=512)]  # the engine's page at 4096
+    # the engine's page at 4096 for paged decode
+    entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen)]
 
-    log("== phase 3: small f32 model, card vs CPU")
+    log("== phase 3: small f32 models, card vs CPU")
     small_reference()
+    small_encoder()
 
     log("== phase 4: main path, full-width Llama-3-8B over /dialog/")
-    counts = main_path(card)
+    counts, dec_spec, dec_engine = main_path(card)
 
     log("== phase 5: load shedding, and cli serve --tiny --device cuda")
     shed_check()
     serve_tiny_subprocess()
 
+    log("== phase 6: the RAG request at full width: /embeddings/ -> KNN -> /dialog/")
+    rag_counts = rag_phase(card, dec_spec, dec_engine)
+    del dec_engine
+    torch.cuda.empty_cache()
+
+    # each kernel's launches on its own slice's main path: flash and paged
+    # decode on phase 4's requests, the KNN on phase 6's RAG requests
     for e in entries:
-        e["launches"] = counts[e["name"]]
-    log(f"kernels: {json.dumps(counts)}")
+        e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
+    log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -49,6 +49,7 @@ NVCC_FLAGS = (
 KERNELS = {
     "flash_prefill": ("flash_prefill", "dabt_flash_prefill"),
     "paged_decode": ("paged_decode", "dabt_paged_decode"),
+    "knn_topk": ("knn_topk", "dabt_knn_topk"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -71,6 +72,9 @@ _ARGTYPES = {
     # scratch_floats, counters, mma, dtype, B, H, KH, P, page, NB, D, window,
     # stream
     "paged_decode": [_P] * 8 + [ctypes.c_longlong, _P] + [_I] * 10 + [_P],
+    # index, queries, valid, out_scores, out_ids, scratch, cand, N, D, Q, k,
+    # cap, stream
+    "knn_topk": [_P] * 7 + [_I] * 4 + [ctypes.c_longlong, _P, _I, _P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -84,6 +88,9 @@ _EXTRA_SYMBOLS = {
 # and combine kernels take f32, the other head dims, and bf16 inputs off
 # 16-byte boundaries
 PAGED_MMA_HEAD_DIMS = (64, 128)
+# the most keys a knn_topk select block sorts in shared memory (SORT_CAP in
+# csrc/knn_topk.cu); a larger k sorts in a global buffer the caller gives
+KNN_SORT_CAP = 16384
 
 # paged decode launches by route: "mma" (the tensor-core kernel) or
 # "cuda_core" (split + combine); counted beside LAUNCHES, so a run can show
@@ -359,3 +366,26 @@ def paged_decode(
         )
     _count("paged_decode", "mma" if mma else "cuda_core")
     _check("paged_decode", err)
+
+
+def knn_topk(
+    index: torch.Tensor, queries: torch.Tensor, valid: torch.Tensor,
+    out_scores: torch.Tensor, out_ids: torch.Tensor, scratch: torch.Tensor,
+    cand: torch.Tensor, k: int, cap: int, win: Optional[torch.Tensor] = None, kpad: int = 0,
+) -> None:
+    """Launch the fused score + top-k kernel; the caller validated the
+    arguments and allocated the scratch (``Q G + 3 Q`` int32 words), the
+    candidate buffer (``Q cap`` int64 keys) and, for ``k`` past
+    ``KNN_SORT_CAP``, the sort buffer ``win`` (``2 Q kpad`` int64 keys,
+    ``kpad`` the least ``KNN_SORT_CAP 2^m >= k``)."""
+    N, D = index.shape
+    Q = queries.shape[0]
+    fn = _fn("knn_topk")
+    with torch.cuda.device(index.device):
+        err = fn(
+            index.data_ptr(), queries.data_ptr(), valid.data_ptr(), out_scores.data_ptr(),
+            out_ids.data_ptr(), scratch.data_ptr(), cand.data_ptr(), N, D, Q, k, cap,
+            win.data_ptr() if win is not None else None, kpad, _stream(index),
+        )
+    _count("knn_topk")
+    _check("knn_topk", err)

@@ -1,6 +1,6 @@
-"""Model families of the port (decoders; the encoder comes with ROADMAP Queue 1 item 7)."""
+"""Model families of the port: the Llama-family decoder and the BERT encoder."""
 
-from . import llama
-from .config import DecoderConfig
+from . import encoder, llama
+from .config import DecoderConfig, EncoderConfig
 
-__all__ = ["DecoderConfig", "llama"]
+__all__ = ["DecoderConfig", "EncoderConfig", "encoder", "llama"]

@@ -1,8 +1,8 @@
-"""Decoder config: the port of ``models/config.py``'s ``DecoderConfig``.
+"""Model configs: the port of ``models/config.py``'s ``EncoderConfig`` and
+``DecoderConfig``.
 
 Same fields, same ``from_hf`` mapping of Hugging Face ``config.json`` dicts,
-same rope-scaling tuples; ``dtype`` is a ``torch.dtype``.  ``EncoderConfig``
-comes with the embeddings slice (ROADMAP Queue 1 item 7).
+same rope-scaling tuples; ``dtype`` is a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,54 @@ from typing import Any, Mapping, Optional
 import torch
 
 _logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """BERT-family encoder (ruBert-base: 12L/768E/12H; MiniLM-L6: 6L/384E/12H)."""
+
+    vocab_size: int = 119_547
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    pad_token_id: int = 0
+    dtype: Any = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @classmethod
+    def from_hf(cls, hf: Mapping[str, Any], dtype=torch.bfloat16) -> "EncoderConfig":
+        return cls(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=hf["num_attention_heads"],
+            max_position_embeddings=hf.get("max_position_embeddings", 512),
+            type_vocab_size=hf.get("type_vocab_size", 2),
+            layer_norm_eps=hf.get("layer_norm_eps", 1e-12),
+            pad_token_id=hf.get("pad_token_id", 0),
+            dtype=dtype,
+        )
+
+    @classmethod
+    def tiny(cls) -> "EncoderConfig":
+        """Test-size config (f32)."""
+        return cls(
+            vocab_size=512,
+            hidden_size=64,
+            intermediate_size=128,
+            num_layers=2,
+            num_heads=4,
+            max_position_embeddings=128,
+            dtype=torch.float32,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,14 @@
-"""Hugging Face safetensors -> the port's decoder params (port of
-``models/hf_loader.py``'s ``read_hf_config`` and ``load_decoder``).
+"""Hugging Face safetensors -> the port's params (port of
+``models/hf_loader.py``'s ``read_hf_config``, ``load_encoder`` and
+``load_decoder``).
 
 Tensors are read shard by shard straight into torch, transposed to the
 ``[in, out]`` einsum convention, stacked along the leading layer axis and
 cast to the target dtype on the target device.  Same families as the JAX
 loader (Llama-3, Mistral, Qwen2 with qkv biases, Gemma with the (1+w) norm
-fold in f32, Phi-3 fused projections); Mixtral waits for the MoE slice
-(ROADMAP Queue 1 item 11).  Unknown model types are refused.
+fold in f32, Phi-3 fused projections) and BERT encoders (an optional
+``bert.`` prefix stripped); Mixtral waits for the MoE slice (ROADMAP Queue 1
+item 11).  Unknown decoder model types are refused.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Any, Dict
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .config import DecoderConfig
+from .config import DecoderConfig, EncoderConfig
 
 _SUPPORTED_DECODERS = {"llama", "mistral", "qwen2", "gemma", "phi3"}
 
@@ -45,6 +47,57 @@ def read_hf_config(model_dir: str) -> Dict[str, Any]:
 def _stack(t: Dict[str, torch.Tensor], fmt: str, n: int, *, T: bool = False) -> torch.Tensor:
     """Stack per-layer tensors fmt.format(i) into [n, ...]; T transposes each."""
     return torch.stack([t[fmt.format(i)].T if T else t[fmt.format(i)] for i in range(n)])
+
+
+def _place(params: Dict[str, Any], dtype: torch.dtype, dev: torch.device) -> Dict[str, Any]:
+    def place(x: torch.Tensor) -> torch.Tensor:
+        if x.is_floating_point():
+            x = x.to(dtype)
+        return x.contiguous().to(dev)
+
+    return {
+        k: ({n: place(w) for n, w in v.items()} if isinstance(v, dict) else place(v))
+        for k, v in params.items()
+    }
+
+
+def load_encoder(
+    model_dir: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = "cuda"
+) -> tuple[EncoderConfig, Dict[str, Any]]:
+    """Load a BERT-family checkpoint directory -> (EncoderConfig, params)."""
+    dev = resolve_device(device)
+    cfg = EncoderConfig.from_hf(read_hf_config(model_dir), dtype=dtype)
+    t = _read_safetensors(model_dir)
+    if any(k.startswith("bert.") for k in t):
+        t = {k[len("bert."):] if k.startswith("bert.") else k: v for k, v in t.items()}
+    L = cfg.num_layers
+    pre = "encoder.layer.{}."
+    params = {
+        "tok_embed": t["embeddings.word_embeddings.weight"],
+        "pos_embed": t["embeddings.position_embeddings.weight"],
+        "type_embed": t["embeddings.token_type_embeddings.weight"],
+        "embed_ln_w": t["embeddings.LayerNorm.weight"],
+        "embed_ln_b": t["embeddings.LayerNorm.bias"],
+        "layers": {
+            "wq": _stack(t, pre + "attention.self.query.weight", L, T=True),
+            "bq": _stack(t, pre + "attention.self.query.bias", L),
+            "wk": _stack(t, pre + "attention.self.key.weight", L, T=True),
+            "bk": _stack(t, pre + "attention.self.key.bias", L),
+            "wv": _stack(t, pre + "attention.self.value.weight", L, T=True),
+            "bv": _stack(t, pre + "attention.self.value.bias", L),
+            "wo": _stack(t, pre + "attention.output.dense.weight", L, T=True),
+            "bo": _stack(t, pre + "attention.output.dense.bias", L),
+            "attn_ln_w": _stack(t, pre + "attention.output.LayerNorm.weight", L),
+            "attn_ln_b": _stack(t, pre + "attention.output.LayerNorm.bias", L),
+            "w1": _stack(t, pre + "intermediate.dense.weight", L, T=True),
+            "b1": _stack(t, pre + "intermediate.dense.bias", L),
+            "w2": _stack(t, pre + "output.dense.weight", L, T=True),
+            "b2": _stack(t, pre + "output.dense.bias", L),
+            "mlp_ln_w": _stack(t, pre + "output.LayerNorm.weight", L),
+            "mlp_ln_b": _stack(t, pre + "output.LayerNorm.bias", L),
+        },
+    }
+    return cfg, _place(params, dtype, dev)
 
 
 def load_decoder(
@@ -112,13 +165,4 @@ def load_decoder(
         else:
             params["lm_head"] = head.T
 
-    def place(x: torch.Tensor) -> torch.Tensor:
-        if x.is_floating_point():
-            x = x.to(dtype)
-        return x.contiguous().to(dev)
-
-    params = {
-        k: ({n: place(w) for n, w in v.items()} if isinstance(v, dict) else place(v))
-        for k, v in params.items()
-    }
-    return cfg, params
+    return cfg, _place(params, dtype, dev)

@@ -9,7 +9,7 @@ from .attention import (
     paged_gqa_decode_attention,
     paged_gqa_decode_attention_plain,
 )
-from .norms import rms_norm
+from .norms import layer_norm, rms_norm
 from .rope import apply_rope, rope_frequencies
 from .sampling import sample_logits, top_k_auto, top_k_hierarchical
 
@@ -20,6 +20,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_plain",
     "gqa_dot_product_attention",
+    "layer_norm",
     "paged_gqa_decode_attention",
     "paged_gqa_decode_attention_plain",
     "rms_norm",

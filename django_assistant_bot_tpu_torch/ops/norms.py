@@ -11,3 +11,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.reciprocal(torch.sqrt(var + eps))
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-12
+) -> torch.Tensor:
+    """BERT-style LayerNorm (the encoder is post-LN), stats in f32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.reciprocal(torch.sqrt(var + eps))
+    return (y * weight.float() + bias.float()).to(x.dtype)

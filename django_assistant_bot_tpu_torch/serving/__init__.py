@@ -1,7 +1,8 @@
-"""Serving plane of the port: generation engine, registry, HTTP server."""
+"""Serving plane of the port: generation and embedding engines, registry, HTTP server."""
 
 from .engine import (
     PREFILL_BUCKETS,
+    EmbeddingEngine,
     EngineUnavailable,
     GenerationEngine,
     GenerationResult,
@@ -17,6 +18,7 @@ __all__ = [
     "PREFILL_BUCKETS",
     "ByteTokenizer",
     "DeadlineExceeded",
+    "EmbeddingEngine",
     "EngineUnavailable",
     "FaultInjected",
     "FaultInjector",

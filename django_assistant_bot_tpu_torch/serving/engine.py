@@ -86,7 +86,7 @@ import torch
 
 from .. import kernels
 from ..device import DeviceLike, resolve_device
-from ..models import DecoderConfig, llama
+from ..models import DecoderConfig, EncoderConfig, encoder, llama
 from ..ops.sampling import gumbel_noise, noise_width, sample_logits
 from .faults import FaultInjected, FaultInjector
 from .kv_pool import PageAllocator, SharedPrefix
@@ -465,6 +465,22 @@ class GenerationEngine:
         self._chunk_start_dev = torch.zeros((1,), dtype=torch.int64, device=dev)
         self._bt_dirty = True
         self._sampling_dirty = True
+
+    def reset(self) -> None:
+        """Rebuild the engine in place with no request on it: the page pool
+        and its prefix registry emptied, every slot's page chain dropped and
+        its block table back to the sentinel, then the device state
+        (:meth:`_reset_device_state`; the captured graphs are kept).  A
+        crash-only restart calls it once it has taken the requests off the
+        slots; otherwise call it on a stopped engine."""
+        if self._chunking is not None or any(s is not None for s in self._slots):
+            raise RuntimeError("reset() needs an engine with no request on a slot")
+        self._sampling_dirty = True
+        self._kv_pool.reset()
+        self._slot_pages = [[] for _ in range(self.max_slots)]
+        self._block_tables[:] = self._kv_sentinel
+        self._bt_dirty = True
+        self._reset_device_state()
 
     def _reset_device_state(self) -> None:
         """Rebuild the device state in place after a crash-only restart:
@@ -1595,11 +1611,6 @@ class GenerationEngine:
                     salvage.append(s.request)
             self._slots[i] = None
             self._slot_epoch[i] += 1
-        self._sampling_dirty = True
-        self._kv_pool.reset()
-        self._slot_pages = [[] for _ in range(self.max_slots)]
-        self._block_tables[:] = self._kv_sentinel
-        self._bt_dirty = True
         # a failure inside an activation can leave a request both slotted
         # and in _starting_batch: salvage each request once
         seen: set = set()
@@ -1628,7 +1639,7 @@ class GenerationEngine:
         for req in requeue:
             self._requeue_front(req)
         try:
-            self._reset_device_state()
+            self.reset()
         except Exception:
             # recovery itself failed (a sticky device error, an allocation
             # that cannot succeed): declare the engine dead; the loop exits
@@ -1650,3 +1661,169 @@ class GenerationEngine:
                          len(recent), self.restart_window_s, self.degraded_cooldown_s)
         if self.obs is not None:
             self.obs.flight.dump("restart", error=str(err))
+
+
+class EmbeddingEngine:
+    """Batched, coalescing sentence-embedding engine over one encoder model
+    (port of the JAX ``EmbeddingEngine``).
+
+    Requests from concurrent callers coalesce into one device batch: the
+    sequence length pads to a bucket of ``seq_buckets`` (capped at the
+    model's positions), the batch to a power of two up to ``max_batch``; pad
+    rows see one token, so the masked mean never divides by zero.  The queue
+    is bounded: past ``max_queue`` waiting requests ``embed`` sheds with
+    :class:`~.scheduler.SchedulerRejected` (HTTP 429).  Requests whose
+    futures were cancelled are dropped before they pad out a batch.  The
+    batch's rows are independent of each other in every op of the encoder,
+    so a text embeds the same whatever its batch-mates (on the card, up to
+    what a different GEMM kernel for another batch size rounds
+    differently)."""
+
+    def __init__(
+        self,
+        cfg: EncoderConfig,
+        params,
+        tokenizer: Tokenizer,
+        *,
+        max_batch: int = 64,
+        seq_buckets: Sequence[int] = (32, 64, 128, 256, 512),
+        normalize: bool = False,
+        max_queue: int = 1024,
+        mesh=None,
+        device: DeviceLike = "cuda",
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a sharded EmbeddingEngine (mesh=) waits for ROADMAP Queue 1 item 15 (parallelism)"
+            )
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.tokenizer = tokenizer
+        self.max_batch = max_batch
+        self.seq_buckets = tuple(
+            b for b in seq_buckets if b <= cfg.max_position_embeddings
+        ) or (cfg.max_position_embeddings,)
+        self.normalize = normalize
+        self.max_queue = max(1, int(max_queue))
+        self.shed = 0
+        self.dropped_cancelled = 0
+        self._queue: "queue.Queue[tuple[List[str], Future]]" = queue.Queue(maxsize=self.max_queue)
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "EmbeddingEngine":
+        if self._running:
+            return self
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="emb-engine")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._running = False
+        if self._thread:
+            self._thread.join(timeout=10)
+            self._thread = None
+        err = RuntimeError("embedding engine stopped")
+        while True:
+            try:
+                _, fut = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            _safe_resolve(fut, exc=err)
+
+    def warmup(self, seq_buckets: Optional[Sequence[int]] = None) -> None:
+        raise NotImplementedError(
+            "EmbeddingEngine.warmup waits for ROADMAP Queue 1 item 5 (warmup)"
+        )
+
+    def embed_sync(self, texts: Sequence[str]) -> List[List[float]]:
+        """Blocking batched embed (the engine thread's path)."""
+        out: List[List[float]] = []
+        for i in range(0, len(texts), self.max_batch):
+            out.extend(self._embed_batch(list(texts[i : i + self.max_batch])))
+        return out
+
+    async def embed(self, texts: Sequence[str]) -> List[List[float]]:
+        if not texts:
+            return []
+        fut: Future = Future()
+        try:
+            self._queue.put_nowait((list(texts), fut))
+        except queue.Full:
+            self.shed += 1
+            # one queue's worth of batches at about the coalescer's cadence
+            raise SchedulerRejected(
+                "embedding queue full", retry_after_s=min(30.0, 1.0 + self.max_queue * 0.01)
+            ) from None
+        if not self._running:
+            self.start()
+        return await asyncio.wrap_future(fut)
+
+    def _loop(self):
+        while self._running:
+            try:
+                texts, fut = self._queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            # coalesce whatever else waits now; cancelled clients are dropped
+            # here, before their texts pad out a batch nobody will read
+            jobs: List[tuple[List[str], Future]] = []
+            total = 0
+            if not fut.cancelled():
+                jobs.append((texts, fut))
+                total = len(texts)
+            else:
+                self.dropped_cancelled += 1
+            while total < self.max_batch:
+                try:
+                    t2, f2 = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if f2.cancelled():
+                    self.dropped_cancelled += 1
+                    continue
+                jobs.append((t2, f2))
+                total += len(t2)
+            if not jobs:
+                continue
+            flat = [t for ts, _ in jobs for t in ts]
+            try:
+                embs = self.embed_sync(flat)
+            except Exception as e:
+                for _, f in jobs:
+                    _safe_resolve(f, exc=e)
+                continue
+            pos = 0
+            for ts, f in jobs:
+                _safe_resolve(f, result=embs[pos : pos + len(ts)])
+                pos += len(ts)
+
+    def _batch_buckets(self) -> List[int]:
+        sizes, b = [], 1
+        while b < self.max_batch:
+            sizes.append(b)
+            b *= 2
+        sizes.append(self.max_batch)
+        return sizes
+
+    def _embed_batch(self, texts: List[str]) -> List[List[float]]:
+        cap = self.seq_buckets[-1]
+        encoded = [self.tokenizer.encode(t)[:cap] for t in texts]
+        longest = max((len(e) for e in encoded), default=1)
+        bucket = pick_bucket(longest, self.seq_buckets, cap)
+        B = len(encoded)
+        Bp = pick_bucket(B, self._batch_buckets(), self.max_batch)
+        ids = np.full((Bp, bucket), self.tokenizer.pad_id, np.int32)
+        mask = np.zeros((Bp, bucket), np.int32)
+        mask[B:, 0] = 1  # pad rows see one pad token; all-zero masks divide by 0
+        for i, e in enumerate(encoded):
+            ids[i, : len(e)] = e
+            mask[i, : len(e)] = 1
+        with torch.no_grad():
+            embs = encoder.encode(
+                self.params, self.cfg, torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(mask).to(self.device), normalize=self.normalize,
+            )
+        return embs[:B].cpu().numpy().tolist()

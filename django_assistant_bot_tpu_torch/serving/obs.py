@@ -567,9 +567,9 @@ class EngineObs:
 def render_prometheus(registry: Any) -> str:
     """Render one scrape of every generator the registry serves: the engine
     supervision, decode-path, scheduler and KV gauges and the obs histograms
-    (the JAX package's families for what the port serves; the router,
-    autoscaler, fleet, embedding, task and RAG planes add theirs as they are
-    ported).  Pure read path: safe to call from the HTTP event loop while an
+    and the embedding queues (the JAX package's families for what the port
+    serves; the router, autoscaler, fleet, task and RAG planes add theirs as
+    they are ported).  Pure read path: safe to call from the HTTP event loop while an
     engine is dead, degraded or mid-restart."""
     x = _Exposition()
     for model, eng in sorted(getattr(registry, "generators", {}).items()):
@@ -620,4 +620,8 @@ def render_prometheus(registry: Any) -> str:
             x.add_histogram("dabt_tick_seconds", "decode tick result wait in _process_tick", obs.tick_s, lab)
             x.add("dabt_traces_total", "counter", "completed request traces recorded", obs.traces_total, lab)
             x.add("dabt_flight_dumps_total", "counter", "flight-recorder dumps written", obs.flight.dumps, lab)
+    for model, emb in sorted(getattr(registry, "embedders", {}).items()):
+        lab = {"model": model}
+        x.add("dabt_embed_queue_depth", "gauge", "embedding coalescer queue depth", emb._queue.qsize(), lab)
+        x.add("dabt_embed_shed_total", "counter", "embedding requests shed", emb.shed, lab)
     return x.render()

@@ -1,9 +1,12 @@
-"""Model registry: spec -> loaded generation engine (port of ``serving/registry.py``).
+"""Model registry: spec -> loaded engine (port of ``serving/registry.py``).
 
-A config maps model names to spec dicts, as in the JAX package.  The spec
-carries the fields the port implements, with the JAX spec's defaults
-(prefix sharing, the observability plane and crash-only supervision
-included).  Keys of the JAX ``ModelSpec`` that are not ported yet are
+A config maps model names to spec dicts, as in the JAX package.
+``kind="decoder"`` loads a :class:`~.engine.GenerationEngine`,
+``kind="encoder"`` an :class:`~.engine.EmbeddingEngine`.  The spec carries
+the fields the port implements, with the JAX spec's defaults (prefix
+sharing, the observability plane and crash-only supervision included).  An
+encoder spec that sets a decoder-only knob is refused, as the JAX registry
+refuses it.  Keys of the JAX ``ModelSpec`` that are not ported yet are
 accepted only at the value the port implements and refused otherwise,
 naming their ROADMAP item; keys the JAX spec does not know are refused too.
 """
@@ -43,8 +46,25 @@ _DEFERRED_FAMILIES = (
     (("spec_",), "Queue 1 item 9 (speculative decoding)"),
     (("kv_host_writethrough", "router_", "autoscale_"), "Queue 1 item 12 (tiered KV, router, autoscaler)"),
     (("quant_group_size",), "Queue 2 entry 3 (int8/int4 qeinsum)"),
-    (("max_batch", "normalize", "max_queue"), "Queue 1 item 7 (embeddings)"),
 )
+# decoder-only knobs the JAX registry refuses on an encoder: key -> test of
+# a value that sets it (the JAX checks' own truthiness)
+_DECODER_ONLY = {
+    "quantize": bool,
+    "decode_steps": bool,
+    "warmup_json": bool,
+    "speculative": bool,
+    "kv_cache_dtype": lambda v: v is not None,
+    "attn_fp8": bool,
+    "kv_host_bytes": bool,
+    "kv_spill_dir": bool,
+    "replicas": lambda v: v > 1,
+    "max_replicas": bool,
+    "autoscale": bool,
+    "replica_devices": bool,
+    "pool": lambda v: v != "unified",
+}
+_KINDS = ("decoder", "encoder")
 
 
 def _deferred(key: str):
@@ -61,7 +81,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclasses.dataclass
 class ModelSpec:
     name: str
-    kind: str = "decoder"  # encoders come with ROADMAP Queue 1 item 7
+    kind: str = "decoder"  # "decoder" | "encoder"
     path: Optional[str] = None  # HF checkpoint dir; None + tiny=True -> random tiny
     tiny: bool = False
     dtype: str = "bfloat16"
@@ -110,6 +130,11 @@ class ModelSpec:
     # recorder (dump directory None = DABT_FLIGHT_DIR, else <tmpdir>)
     obs: bool = True
     obs_dump_dir: Optional[str] = None
+    # encoders: the coalescer's batch bound, unit-norm output, and the queue
+    # bound past which /embeddings/ sheds with 429
+    max_batch: int = 64
+    normalize: bool = False
+    max_queue: int = 1024
 
     @classmethod
     def from_dict(cls, name: str, d: Mapping[str, Any]) -> "ModelSpec":
@@ -124,9 +149,13 @@ class ModelSpec:
                                "'prefix_cache'", name)
                 d["prefix_cache"] = val
         kwargs = {}
+        if d.get("kind", "decoder") not in _KINDS:
+            raise ValueError(f"model {name}: kind must be one of {list(_KINDS)}")
         for key, value in d.items():
             if key == "name":
                 continue
+            if d.get("kind") == "encoder" and key in _DECODER_ONLY and _DECODER_ONLY[key](value):
+                raise ValueError(f"model {name}: {key} is decoder-only")
             deferred = _deferred(key)
             if deferred is not None:
                 ported, item = deferred
@@ -140,11 +169,6 @@ class ModelSpec:
                 raise ValueError(f"model {name}: unknown spec key {key!r}")
             kwargs[key] = value
         spec = cls(name=name, **kwargs)
-        if spec.kind != "decoder":
-            raise NotImplementedError(
-                f"model {name}: kind={spec.kind!r} waits for the embeddings slice "
-                "(ROADMAP Queue 1 item 7)"
-            )
         if spec.dtype not in _DTYPES:
             raise ValueError(f"model {name}: dtype must be one of {sorted(_DTYPES)}")
         if spec.decode_steps < 0:
@@ -217,10 +241,11 @@ class ModelSpec:
 
 
 class ModelRegistry:
-    """Loads and owns generation engines; lookup is lowercase."""
+    """Loads and owns generation and embedding engines; lookup is lowercase."""
 
     def __init__(self, specs: Optional[Mapping[str, ModelSpec]] = None):
         self.specs: Dict[str, ModelSpec] = {}
+        self.embedders: Dict[str, Any] = {}
         self.generators: Dict[str, Any] = {}
         for spec in (specs or {}).values():
             self.load(spec)
@@ -247,6 +272,8 @@ class ModelRegistry:
         from .tokenizer import load_tokenizer
 
         name = spec.name.lower()
+        if spec.kind == "encoder":
+            return self._load_encoder(name, spec, engine)
         if engine is None:
             from ..device import resolve_device
 
@@ -272,9 +299,41 @@ class ModelRegistry:
         logger.info("model %r ready on %s", name, engine.device)
         return engine
 
+    def _load_encoder(self, name: str, spec: ModelSpec, engine: Any) -> Any:
+        from ..models import EncoderConfig, encoder
+        from ..models.hf_loader import load_encoder
+        from .engine import EmbeddingEngine
+        from .tokenizer import load_tokenizer
+
+        if engine is None:
+            from ..device import resolve_device
+
+            device = resolve_device(spec.device)
+            if spec.path:
+                cfg, params = load_encoder(spec.path, dtype=_DTYPES[spec.dtype], device=device)
+            elif spec.tiny:
+                cfg = EncoderConfig.tiny()
+                params = encoder.init(cfg, torch.Generator(device=device).manual_seed(0), device)
+            else:
+                raise ValueError(f"model {name}: need path or tiny=true")
+            engine = EmbeddingEngine(
+                cfg, params, load_tokenizer(spec.path), max_batch=spec.max_batch,
+                normalize=spec.normalize, max_queue=spec.max_queue, device=device,
+            )
+        engine.start()
+        self.embedders[name] = engine
+        self.specs[name] = spec
+        logger.info("encoder %r ready on %s", name, engine.device)
+        return engine
+
     def stop(self):
+        for eng in self.embedders.values():
+            eng.stop()
         for eng in self.generators.values():
             eng.stop()
+
+    def get_embedder(self, model: str):
+        return self.embedders.get(model.lower())
 
     def get_generator(self, model: str):
         return self.generators.get(model.lower())

@@ -1,6 +1,10 @@
-"""Model server, aiohttp (port of ``serving/server.py``: ``/dialog/`` and the
-read-only endpoints).
+"""Model server, aiohttp (port of ``serving/server.py``: ``/embeddings/``,
+``/dialog/`` and the read-only endpoints).
 
+- ``POST /embeddings/`` (and ``/embeddings``) ``{model, texts}`` ->
+  ``{"embeddings": [[...], ...]}``; 422 on a bad body, 400 "Model is not
+  supported" for an unknown model, 429 with ``Retry-After`` when the
+  embedding queue sheds, 500 with detail on failure.
 - ``POST /dialog/`` (and ``/dialog``) ``{model, messages, max_tokens,
   temperature, top_p, priority, tenant, deadline_s}`` -> ``{"response":
   {"result", "usage", "length_limited"}, "request_id"}``; 422 on a bad body,
@@ -14,13 +18,13 @@ read-only endpoints).
 - ``GET /healthz``: per generator the engine's gauges, its ``kv`` block,
   its ``supervision`` block (restarts, quarantines, circuit, heartbeat) and
   its scheduler's ``sched`` block; ``status`` is ``degraded`` while any
-  engine is unhealthy.  ``GET /models``.
+  engine is unhealthy; per embedder its queue depth, bound, sheds and
+  cancelled drops.  ``GET /models``.
 - ``GET /metrics``: Prometheus text exposition (:func:`.obs.render_prometheus`).
 
 Request fields of features not ported yet (``stream``, ``json_format``) are
 refused with a 422 naming their ROADMAP item instead of being ignored.
-``/embeddings/`` and the fleet endpoints come with later slices (ROADMAP
-Queue 1 items 7 and 13).
+The fleet endpoints come with a later slice (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -150,6 +154,29 @@ def create_app(registry: ModelRegistry) -> web.Application:
     app = web.Application()
     app[REGISTRY_KEY] = registry
 
+    async def embeddings(request: web.Request) -> web.Response:
+        rid = _request_id(request)
+        try:
+            body = await request.json()
+            model, texts = body["model"], body["texts"]
+            if not isinstance(model, str):
+                raise ValueError("model must be a string")
+            if not isinstance(texts, list) or not all(isinstance(t, str) for t in texts):
+                raise ValueError("texts must be a list of strings")
+        except Exception:
+            return web.json_response({"detail": "invalid request"}, status=422)
+        eng = registry.get_embedder(model)
+        if eng is None:
+            return web.json_response({"detail": "Model is not supported"}, status=400)
+        try:
+            embs = await eng.embed(texts)
+        except SchedulerRejected as e:
+            return _shed_response(e, rid)
+        except Exception as e:
+            logger.exception("embeddings failed")
+            return web.json_response({"detail": str(e)}, status=500)
+        return web.json_response({"embeddings": embs})
+
     async def dialog(request: web.Request) -> web.Response:
         rid = _request_id(request)
         try:
@@ -204,6 +231,15 @@ def create_app(registry: ModelRegistry) -> web.Application:
                 "status": "ok" if healthy else "degraded",
                 "models": sorted(registry.specs),
                 "generators": generators,
+                "embedders": {
+                    name: {
+                        "queue_depth": eng._queue.qsize(),
+                        "max_queue": eng.max_queue,
+                        "shed": eng.shed,
+                        "dropped_cancelled": eng.dropped_cancelled,
+                    }
+                    for name, eng in registry.embedders.items()
+                },
             }
         )
 
@@ -226,6 +262,8 @@ def create_app(registry: ModelRegistry) -> web.Application:
             }
         )
 
+    app.router.add_post("/embeddings/", embeddings)
+    app.router.add_post("/embeddings", embeddings)
     app.router.add_post("/dialog/", dialog)
     app.router.add_post("/dialog", dialog)
     app.router.add_get("/healthz", healthz)

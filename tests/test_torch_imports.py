@@ -15,6 +15,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert "django_assistant_bot_tpu_torch.serving.scheduler" in names
+for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check"):
+    assert "django_assistant_bot_tpu_torch." + new in names, new
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))
 print(len(names), bad)
@@ -24,7 +26,7 @@ assert not bad, bad
 
 def test_port_import_graph_has_no_jax():
     """Importing the package and every submodule (the engine and its copy of
-    the scheduler among them) leaves ``jax`` and the JAX package out of
+    the scheduler, the encoder and the KNN index among them) leaves ``jax`` and the JAX package out of
     ``sys.modules`` (a fresh interpreter: this test process has imported
     both)."""
     out = subprocess.run(
@@ -32,7 +34,7 @@ def test_port_import_graph_has_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 16
+    assert n_modules >= 19
 
 
 def _needs_no_card():
@@ -71,6 +73,30 @@ def test_entry_points_default_to_cuda():
         ModelRegistry.from_config({"m": {"tiny": True}})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--tiny", "--port", "0"])
+
+
+def test_embedding_entry_points_default_to_cuda():
+    """The encoder, the embedding engine, the KNN index, the encoder loader
+    and bridge default to the card and raise without one."""
+    _needs_no_card()
+    from django_assistant_bot_tpu_torch.convert import encoder_params_from_jax
+    from django_assistant_bot_tpu_torch.models import EncoderConfig, encoder
+    from django_assistant_bot_tpu_torch.models.hf_loader import load_encoder
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, EmbeddingEngine, ModelRegistry
+    from django_assistant_bot_tpu_torch.storage import VectorIndex
+
+    cfg = EncoderConfig.tiny()
+    params = encoder.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    for call in (
+        lambda: encoder.init(cfg, torch.Generator().manual_seed(0)),
+        lambda: EmbeddingEngine(cfg, params, ByteTokenizer()),
+        lambda: VectorIndex(8),
+        lambda: encoder_params_from_jax({}, cfg),
+        lambda: load_encoder("no-such-dir"),
+        lambda: ModelRegistry.from_config({"e": {"kind": "encoder", "tiny": True}}),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_kernel_bindings_match_c_entry_points():

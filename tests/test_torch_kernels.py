@@ -23,6 +23,8 @@ from django_assistant_bot_tpu_torch.ops.attention import (
     paged_gqa_decode_attention,
     paged_gqa_decode_attention_plain,
 )
+from django_assistant_bot_tpu_torch.storage import VectorIndex, topk_scores
+from django_assistant_bot_tpu_torch.storage.knn_check import topk_agreement
 
 pytestmark = [
     pytest.mark.cuda,
@@ -269,3 +271,132 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
             q, pool, pool, torch.zeros((1, 2), dtype=torch.int32, device="cuda"),
             torch.zeros((1,), dtype=torch.int32, device="cuda"),
         )
+
+
+def _knn_inputs(N, D, Q, seed, *, dup_rows=0):
+    """Normalised bf16 rows on the card (the last ``dup_rows`` copies of the
+    first ones: exact ties) and f32 queries."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((N, D), generator=g, device="cuda")
+    if dup_rows:
+        x[N - dup_rows:] = x[:dup_rows]
+    x = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    q = torch.randn((Q, D), generator=g, device="cuda")
+    return x, q, g
+
+
+def _assert_topk(x, q, valid, k):
+    n0 = kernels.LAUNCHES["knn_topk"]
+    scores, ids = topk_scores(x, q, valid, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["knn_topk"] == n0 + 1
+    assert scores.shape == (q.shape[0], k) and ids.dtype == torch.int32
+    report = topk_agreement(x, q, valid, scores, ids)
+    assert not report["problems"], report
+    # fewer valid rows than k: the tail holds -inf
+    live = int(valid.sum())
+    assert int(torch.isfinite(scores).sum(dim=1).min()) == min(k, live)
+
+
+@pytest.mark.parametrize("k", [1, 16, 1024])
+@pytest.mark.parametrize("Q", [1, 8, 130])
+@pytest.mark.parametrize("N", [4096, 20480])
+@pytest.mark.parametrize("D", [8, 64, 768])
+def test_knn_topk_kernel_matches_plain(D, N, Q, k):
+    """``knn_topk`` against ``topk_scores_plain``: all rows valid, an
+    allow-list of about 1% of the rows, and fewer valid rows than k."""
+    x, q, g = _knn_inputs(N, D, Q, seed=N + D + Q + k)
+    _assert_topk(x, q, torch.ones(N, dtype=torch.bool, device="cuda"), k)
+    _assert_topk(x, q, torch.rand(N, generator=g, device="cuda") < 0.01, k)
+    sparse = torch.zeros(N, dtype=torch.bool, device="cuda")
+    sparse[torch.randperm(N, generator=g, device="cuda")[: max(1, k // 2)]] = True
+    _assert_topk(x, q, sparse, k)
+
+
+@pytest.mark.parametrize("k", [16, 1024])
+def test_knn_topk_kernel_exact_ties(k):
+    """Duplicate rows give exact ties (lower row first in the kernel); a
+    corpus with no valid row at all returns only -inf slots."""
+    N, D = 20480, 64
+    x, q, _ = _knn_inputs(N, D, 8, seed=3, dup_rows=4096)
+    q[:4] = x[N - 4:].float()  # queries on duplicated rows: ties at the top
+    valid = torch.ones(N, dtype=torch.bool, device="cuda")
+    _assert_topk(x, q, valid, k)
+    scores, ids = topk_scores(x, q, valid, k)
+    for i in range(4):  # the copy at N - 4 + i ties with row 4092 + i: lower row first
+        top = ids[i, :2].tolist()
+        assert scores[i, 0] == scores[i, 1] and top == [4092 + i, N - 4 + i], top
+    none = torch.zeros(N, dtype=torch.bool, device="cuda")
+    scores, _ = topk_scores(x, q, none, k)
+    assert bool(torch.isneginf(scores).all())
+
+
+@pytest.mark.parametrize(
+    "N, D, Q, k",
+    [(20480, 64, 1, 16384), (20480, 8, 3, 16385), (20480, 64, 2, 20000), (20480, 8, 1, 20480),
+     (40960, 8, 2, 40000)],
+)
+def test_knn_topk_kernel_large_k(N, D, Q, k):
+    """k at and past the shared-memory sort (16,384 keys): the winners are
+    sorted in global memory (runs of 16,384, then one or two merge levels),
+    with every row valid, with fewer valid rows than k, and with exact ties
+    (lower row first)."""
+    x, q, g = _knn_inputs(N, D, Q, seed=N + D + Q + k, dup_rows=1024)
+    _assert_topk(x, q, torch.ones(N, dtype=torch.bool, device="cuda"), k)
+    _assert_topk(x, q, torch.rand(N, generator=g, device="cuda") < 0.6, k)
+    q[0] = x[N - 1].float()  # the query on a duplicated row: a tie at the top
+    scores, ids = topk_scores(x, q, torch.ones(N, dtype=torch.bool, device="cuda"), k)
+    assert scores[0, 0] == scores[0, 1] and ids[0, :2].tolist() == [1023, N - 1]
+    assert bool((scores[:, :-1] >= scores[:, 1:]).all())
+
+
+def test_knn_topk_kernel_refuses_what_it_does_not_take():
+    x, q, _ = _knn_inputs(256, 64, 2, seed=1)
+    valid = torch.ones(256, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="k="):
+        topk_scores(x, q, valid, 257)
+    with pytest.raises(ValueError, match="bf16"):
+        topk_scores(x.float(), q, valid, 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        topk_scores(x[:, :60].contiguous(), q[:, :60], valid, 4)
+
+
+def test_vector_index_on_the_card_matches_the_cpu():
+    """The same rows (host adds, a device append, a remove) searched on the
+    card and on the CPU.  The staged rows may differ where the two devices'
+    f32 norms round a row's bf16 element apart (rare, one bf16 step); the
+    tolerance is the summation bound plus what those steps can move a score
+    (``sum_d |q_d| |x_card - x_cpu|``, exact for these rows).  Scores agree
+    within it, ids agree at ranks further than twice it from their
+    neighbours (the 21st result bounds the 20th), and an allow-listed
+    search returns only allowed ids."""
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(3000, 64)).astype(np.float32)
+    b = rng.normal(size=(700, 64)).astype(np.float32)
+    q = rng.normal(size=(40, 64)).astype(np.float32)
+    out, rows = {}, {}
+    for dev in ("cuda", "cpu"):
+        index = VectorIndex(64, device=dev)
+        index.add(range(3000), a)
+        index.search(a[0], k=1)
+        index.add_device(range(5000, 5700), torch.from_numpy(b).to(dev))
+        index.remove([3, 4, 5])
+        out[dev] = (index.search_batch(q, k=21),
+                    index.search(q[0], k=10, allowed_ids={7, 99, 5003, 2999}))
+        rows[dev] = index._device_index.float().cpu()
+    step = (rows["cuda"] - rows["cpu"]).abs()
+    assert int((step > 0).sum()) <= step.numel() // 1000
+    qn = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(torch.bfloat16).float()
+    tol = 64 * 2.0 ** -22 * 1.01 + (qn.abs() @ step.T).max(dim=1).values
+    compared = 0
+    for qi, (card, cpu) in enumerate(zip(out["cuda"][0], out["cpu"][0])):
+        assert len(card) == len(cpu) == 21
+        t = tol[qi].item()
+        assert max(abs(c[1] - p[1]) for c, p in zip(card, cpu)) <= t
+        s = [float("inf")] + [p[1] for p in cpu] + [-float("inf")]
+        for j in range(20):
+            if min(s[j] - s[j + 1], s[j + 1] - s[j + 2]) > 2 * t:
+                assert card[j][0] == cpu[j][0], (qi, j)
+                compared += 1
+    assert compared >= 400
+    assert {i for i, _ in out["cuda"][1]} == {i for i, _ in out["cpu"][1]} == {7, 99, 5003, 2999}

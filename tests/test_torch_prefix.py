@@ -439,6 +439,30 @@ def test_restart_clears_registry(models, kind):
     assert len(_serial(eng, [([1, 2, 3], 0)], max_tokens=3)[0]) == 3
 
 
+def test_reset_rebuilds_an_idle_engine(models):
+    """``reset`` (the rebuild a restart runs) on an idle engine: the pool
+    and registry empty, block tables and the KV cache cleared, no restart
+    counted, and the same request gives the same greedy ids again (a miss
+    that registers its head anew).  With a request on a slot it refuses."""
+    rng = np.random.default_rng(13)
+    req = (rng.integers(1, 255, 70).tolist() + [5, 6, 7], 70)
+    eng = _engine("torch", models, 8)
+    first = _serial(eng, [req], max_tokens=4)
+    assert eng.kv_stats()["kv_shared_pages"] > 0
+    eng.reset()
+    st = eng.kv_stats()
+    assert st["kv_pages_used"] == 0 and st["kv_shared_pages"] == 0
+    assert np.all(eng._block_tables == eng._kv_sentinel)
+    assert not eng._cache.k.any() and not eng._cache.lengths.any()
+    assert eng.engine_restarts == 0
+    hits = st["prefix_hits"]
+    assert _serial(eng, [req], max_tokens=4) == first
+    assert eng.kv_stats()["prefix_hits"] == hits and eng.kv_stats()["kv_shared_pages"] > 0
+    eng._slots[0] = object()
+    with pytest.raises(RuntimeError, match="no request"):
+        eng.reset()
+
+
 def test_spec_prefix_knobs_and_kv_gauges_on_healthz():
     """``prefix_cache`` / ``prefix_min_tokens`` / ``prefix_cache_max_bytes``
     take the JAX defaults, the deprecated ``prefix_cache_size`` maps onto
