@@ -21,13 +21,18 @@ exits non-zero):
    path's own decode shape and a bitwise repeat check (``paged_live_keys``
    and ``paged_bound_ms`` are also imported by ``tools/paged_decode_ab.py``);
    the KNN score + top-k at the RAG corpus (1,048,576 x 768, Q 8 / 32 /
-   128, k 16 / 1024, all rows and a 1% allow-list) and at 4,096 x 64;
+   128, k 16 / 1024, all rows and a 1% allow-list) and at 4,096 x 64; the
+   weight-only GEMM (``qgemm``, int8 and int4 at groups 64 and 128) at
+   Llama-3-8B's projection shapes, M 1 / 8 / 37 / 512, and its time at M 8
+   and 512 beside cuBLAS on the dequantized weight;
 3. small f32 models on the card (kernels) against the same models on the
    CPU (plain twins): the decoder's prefill logits and the engine's greedy
    token ids at the default loop (on the card the fused 8-step tick
    replayed as a CUDA graph, with a piggybacked chunk; on the CPU the same
-   loop eagerly), and on the card at ``decode_steps=1`` too; the tiny
-   encoder's ``encode`` and an ``EmbeddingEngine`` coalescing three calls;
+   loop eagerly), and on the card at ``decode_steps=1`` too, then the same
+   at int8 and int4 (``quantize_decoder_params``; the qgemm kernel on the
+   card, its plain twin on the CPU); the tiny encoder's ``encode`` and an
+   ``EmbeddingEngine`` coalescing three calls;
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
    weights drawn on the card, a ``GenerationEngine`` at the default loop
    (fused 8-step ticks as a CUDA graph, piggybacked prefill, the admission
@@ -37,13 +42,15 @@ exits non-zero):
    zeroed just before the requests and read just after (a graph's launches
    are counted at each replay), both kernels must have run, every paged
    call through the tensor-core kernel, 32 paged launches per decode step;
+   the four requests read over 6 runs (medians and spreads, as phase 7);
    then a RAG wave on the same engine (a ~1,500-token shared head: one
    miss that registers it, one hit alone, six hits together, one of them
    chunked after the hit; exact hit and copy-on-write counts, the pool back
-   to the registry's pages); the decode breakdown: the eager step and one
+   to the registry's pages); the decode breakdown: the eager step and the
    replay of the engine's captured 8-step tick, per step, side by side, and
    a 512-token chunk with the tick as one replay of the piggyback graph
-   against the chunk run eagerly before the tick's replay; the four
+   against the chunk run eagerly before the tick's replay, each over 6
+   batches (medians and spreads); the four
    requests again with ``obs`` off; and the RAG hits served alone by an
    engine with prefix sharing off, their first-step logits held to the
    hits';
@@ -56,7 +63,13 @@ exits non-zero):
    in one server, a 1,000,000-row corpus on the card, embed -> exact top-k
    (the KNN kernel) -> answer over the whole top-3 passages (a chunked
    prefill, then paged decode), with its checks and readings;
-7. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
+7. int8 and then int4 Llama-3-8B (``init_int8`` / ``init_int4``, 32
+   layers, full width) behind ``/dialog/`` with ``quantize`` set
+   (:func:`quant_phase`): phase 4's four requests, qgemm launches = 7 x 32
+   x (decode steps + prefill forwards), ``weight_bits`` in ``/healthz`` and
+   ``/metrics``, the weight bytes on the card, readings over 6 runs and
+   the decode breakdown;
+8. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
    line, and the final ``{"ok": true, ...}`` line.
 """
 
@@ -66,6 +79,7 @@ import asyncio
 import json
 import re
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -206,7 +220,7 @@ def env_and_build():
         spills = [sp for _, _, sp in table]
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
-        if name in ("paged_decode", "knn_topk"):
+        if name in ("paged_decode", "knn_topk", "qgemm"):
             log(f"  ptxas[{name}] per kernel: " + "; ".join(
                 f"{label} {r} regs, {sp} B spilled" for label, r, sp in table))
     # the f32 references below are true f32 products, not TF32
@@ -257,7 +271,7 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
-    r"|paged_decode_combine_kernel|score_kernel)I(\w*?)EEv"
+    r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_f32_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel)E")
 
@@ -648,6 +662,151 @@ def check_knn(gen) -> dict:
     }
 
 
+QGEMM_SHAPES = [  # Llama-3-8B's layer projections (in x out) and their launches a step
+    ("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 1024, 2), ("gate/up", 4096, 14336, 2),
+    ("down", 14336, 4096, 1),
+]
+QGEMM_HEAD = (4096, 128256)  # the untied head of an int8 table (quantize_embed)
+# a timed call cycles through weight copies of at least this many bytes (5x
+# the 50 MB L2), so each call reads its weights from HBM as the decode step
+QGEMM_ROTATE_BYTES = 256 << 20
+
+
+def qgemm_bound_ms(M, K, N, bits, group) -> tuple:
+    """Least time for ``[M, K] . W[K, N]``: the integer weights, their f32
+    scales and the bf16 x read once and the bf16 y written once at the HBM
+    rate, against 2 M K N operations at the bf16 tensor-core peak."""
+    scales = N if bits == 8 else (K // group) * N
+    nbytes = K * N * bits / 8 + 4 * scales + 2 * M * K + 2 * M * N
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 2.0 * M * K * N / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _qweight(K, N, fmt, group, gen):
+    """Random int8 (per-column scales) or packed int4 (per-group scales)
+    weights drawn on the card, the scales spread over two decades."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.quant import QTensor, QTensor4
+
+    if fmt == "int8":
+        q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.exp(torch.rand((1, N), generator=gen, device="cuda") * 4.6) * 1e-4
+        return QTensor(q, scale)
+    q = torch.randint(0, 256, (K // 2, N), generator=gen, device="cuda", dtype=torch.uint8)
+    scale = torch.exp(torch.rand((K // group, N), generator=gen, device="cuda") * 4.6) * 1e-3
+    return QTensor4(q, scale)
+
+
+def _qgemm_case(M, K, N, fmt, group, dtype, gen) -> tuple:
+    """The kernel against the f32 plain twin on the same inputs: bf16 within
+    ``qgemm_bf16_bound``, f32 within 1e-4 of A = |x| . |deq W| (summation
+    order).  Returns (max abs err, worst err/bound)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.quant import deq, qeinsum, qeinsum_plain, qgemm_bf16_bound
+
+    w = _qweight(K, N, fmt, group, gen)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    out = qeinsum("me,eo->mo", x, w, dtype)
+    ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
+    if dtype == torch.bfloat16:
+        bound = qgemm_bf16_bound(x.float(), w, ref)
+    else:
+        bound = F32_TOL * torch.matmul(x.abs(), deq(w, torch.float32).abs()) + 1e-6
+    torch.cuda.synchronize()
+    if not (out.shape == (M, N) and bool(torch.isfinite(out).all())):
+        fail(f"qgemm {fmt} M={M} K={K} N={N}: output {tuple(out.shape)} not finite")
+    diff = (out.float() - ref).abs()
+    return diff.max().item(), (diff / bound).max().item()
+
+
+def check_qgemm(gen) -> list:
+    """``qgemm`` against ``qeinsum_plain`` on the card: int8 and int4 at
+    groups 64 and 128, M in {1, 8, 37, 512}, at the four projection shapes
+    and two ragged widths (N = 1040, not a multiple of the 64-column tile,
+    and 1032, where M = 512 takes the direct-load kernel), in
+    bf16 (``qgemm_bf16_bound``) and f32 (1e-4 relative to A); the int8 head
+    (4096 x 128,256) at M = 8.  Then its time at M = 8 and 512 per shape
+    and format (the weights rotated over >= 256 MB of copies, so every call
+    reads them from HBM, as the decode step does), beside its bound, the
+    plain twin and the library (cuBLAS on the pre-dequantized bf16 weight,
+    ``torch.matmul``; a yardstick only)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.quant import (
+        QGEMM_BF16_BOUND_TEXT, deq, qeinsum, qeinsum_plain)
+
+    worst = {"int8": 0.0, "int4": 0.0}
+    cases = [(fmt, g, M, K, N, torch.bfloat16)
+             for fmt, g in (("int8", 0), ("int4", 64), ("int4", 128))
+             for _, K, N, _ in QGEMM_SHAPES + [("ragged", 4096, 1040, 0), ("ragged", 4096, 1032, 0)]
+             for M in (1, 8, 37, 512)]
+    cases += [(fmt, g, M, K, N, torch.float32) for fmt, g in (("int8", 0), ("int4", 64))
+              for K, N in ((4096, 4096), (4096, 1040)) for M in (1, 8, 37)]
+    cases.append(("int8", 0, 8, *QGEMM_HEAD, torch.bfloat16))
+    for fmt, g, M, K, N, dtype in cases:
+        err, ratio = _qgemm_case(M, K, N, fmt, g, dtype, gen)
+        text = (f"bound {QGEMM_BF16_BOUND_TEXT[8 if fmt == 'int8' else 4]}"
+                if dtype == torch.bfloat16 else "bound 1e-4*A + 1e-6")
+        log(f"  qgemm {fmt}{f' g={g}' if g else ''} M={M} K={K} N={N} {str(dtype)[6:]}: "
+            f"max_abs_err {err:.3e}, worst err/bound {ratio:.3f} ({text})")
+        if not ratio <= 1.0:
+            fail(f"qgemm {fmt} M={M} K={K} N={N} disagrees with its plain twin: {ratio} > 1")
+        if dtype == torch.bfloat16:
+            worst[fmt] = max(worst[fmt], err)
+    log(f"  qgemm SASS: {sass_counts(kernels.lib_path('qgemm'))}")
+
+    entries = {}
+    rows = [(fmt, g, label, K, N, per, M) for fmt, g in (("int8", 0), ("int4", 64))
+            for label, K, N, per in QGEMM_SHAPES for M in (8, 512)]
+    rows.append(("int8", 0, "head", *QGEMM_HEAD, 0, 8))
+    for fmt, g, label, K, N, per, M in rows:
+        bits = 8 if fmt == "int8" else 4
+        wbytes = K * N * bits // 8
+        ws = [_qweight(K, N, fmt, g, gen) for _ in range(-(-QGEMM_ROTATE_BYTES // wbytes))]
+        wds = [deq(w, torch.bfloat16) for w in ws[:-(-QGEMM_ROTATE_BYTES // (2 * K * N))]]
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        it, itd = [0], [0]
+
+        def kernel():
+            it[0] = (it[0] + 1) % len(ws)
+            return qeinsum("me,eo->mo", x, ws[it[0]], torch.bfloat16)
+
+        def library():
+            itd[0] = (itd[0] + 1) % len(wds)
+            return torch.matmul(x, wds[itd[0]])
+
+        iters = 50 if M == 8 else 20
+        ms, dev = timed(kernel, iters)
+        library_ms = time_ms(library, iters)
+        plain_ms = time_ms(lambda: qeinsum_plain("me,eo->mo", x, ws[0], torch.bfloat16), 3)
+        bound_ms, bound_by = qgemm_bound_ms(M, K, N, bits, g)
+        plan = kernels.qgemm_plan(M, N, K, bits, g)
+        log(f"  qgemm timing {fmt}{f' g={g}' if g else ''} {label} M={M} K={K} N={N} bf16 "
+            f"(plan mt/warps_m/ksplit/kchunk {plan}, {len(ws)} weight copies): kernel wall "
+            f"{ms:.4f} ms (device {dev:.4f}), library (matmul on the bf16 weight) wall "
+            f"{library_ms:.4f} ms, plain wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); share of the bound: wall {bound_ms / ms:.3f}, device "
+            f"{bound_ms / dev:.3f}, library {bound_ms / library_ms:.3f}; {per} launches a "
+            f"layer a decode step")
+        if (label, M) == ("gate/up", 8):
+            entries[fmt] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=library_ms)
+        del ws, wds
+    torch.cuda.empty_cache()
+    return [{
+        "name": f"qgemm_{fmt}",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/qgemm.cu",
+        "replaces": "django_assistant_bot_tpu/ops/quant.py:160",
+        "max_abs_err": worst[fmt],
+        **entries[fmt],
+    } for fmt in ("int8", "int4")]
+
+
 # --------------------------------------------------------------------- phase 3
 def small_reference():
     """A small f32 model (head_dim 64, so both kernels run) on the card
@@ -709,6 +868,46 @@ def small_reference():
         fail(f"greedy ids differ at decode_steps=1: card {ids_one} vs CPU {ids_cpu}")
     small_prefix_wave(cfg, params_cpu, params_gpu)
     small_fault_restart(cfg, params_gpu, prompts[0])
+    for fmt in ("int8", "int4"):
+        small_quantized(cfg, params_cpu, fmt, ids, lengths, prompts, run)
+
+
+def small_quantized(cfg, params_cpu, fmt, ids, lengths, prompts, run) -> None:
+    """The small f32 model quantized by ``quantize_decoder_params`` (int4 at
+    the default group of 64): prefill logits on the card (the qgemm kernel)
+    against the CPU (the plain twin) within 1e-3, and the engine's greedy
+    ids identical, card (graph, 8-step ticks, piggyback) against the CPU and
+    at ``decode_steps=1``."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import llama
+    from django_assistant_bot_tpu_torch.ops.quant import quantize_decoder_params
+
+    qcpu = quantize_decoder_params(params_cpu, fmt)
+    qgpu = {k: ({n: w.to("cuda") for n, w in v.items()} if isinstance(v, dict) else v.to("cuda"))
+            for k, v in qcpu.items()}
+    kernels.reset_counts()
+    lc, _, _ = llama.prefill(qcpu, cfg, ids, lengths)
+    lg, _, _ = llama.prefill(qgpu, cfg, ids.cuda(), lengths.cuda())
+    err = (lg.cpu() - lc).abs().max().item()
+    launches = kernels.launch_counts()["qgemm"]
+    log(f"  small model {fmt} prefill (qgemm kernel vs plain): logits max_abs_err {err:.3e}; "
+        f"{launches} qgemm launches")
+    if not (torch.isfinite(lg).all() and err <= 1e-3 and launches == 7 * cfg.num_layers):
+        fail(f"small-model {fmt} prefill on the card: err {err}, qgemm launches {launches}")
+    ids_gpu, dec = run("cuda", qgpu)
+    ids_cpu, _ = run("cpu", qcpu)
+    ids_one, dec_one = run("cuda", qgpu, decode_steps=1)
+    log(f"  small model {fmt} engine greedy ids, card (CUDA graph, {dec['decode_steps']}-step "
+        f"ticks, {dec['prefill_chunks_piggybacked']} piggybacked chunk, weight_bits "
+        f"{dec['weight_bits']}) vs CPU: {'identical' if ids_gpu == ids_cpu else 'DIFFER'}; "
+        f"card at decode_steps=1: {'identical' if ids_one == ids_cpu else 'DIFFER'}")
+    if not (dec["cuda_graph"] and dec["prefill_chunks_piggybacked"] > 0
+            and dec["weight_bits"] == (8 if fmt == "int8" else 4)):
+        fail(f"the {fmt} card engine did not run the graph / piggyback: {dec}")
+    if ids_gpu != ids_cpu or ids_one != ids_cpu:
+        fail(f"{fmt} greedy ids differ: card {ids_gpu}, card steps=1 {ids_one}, CPU {ids_cpu}")
 
 
 def _crank(eng, futs, limit=2000):
@@ -925,6 +1124,15 @@ def _check_dialogs(tok, key_msgs, results) -> tuple:
     return ttfts, rates, completion
 
 
+def four_requests(tok) -> dict:
+    """Phase 4's four chats, by prompt size in tokens: 2 in the 512 bucket
+    (flash kernel), 1 past chunk_size (chunked prefill), 1 short (plain
+    attention, 128 bucket)."""
+    sizes = {"a": 340, "b": 470, "c": 900, "d": 90}
+    overhead = len(tok.encode_chat(_chat(0, 0)))
+    return {k: _chat(n - overhead, i) for i, (k, n) in enumerate(sizes.items())}
+
+
 def _build_engine(cfg, params, spec):
     import torch
 
@@ -976,11 +1184,7 @@ def main_path(card: str) -> dict:
         f"graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB; decode path "
         f"{engine.decode_path_stats()}; scheduler max_queue {engine.scheduler.cfg.max_queue}; "
         f"prefix cache {engine.prefix_cache_size} entries; obs {engine.obs is not None}")
-    # prompt sizes in tokens: 2 in the 512 bucket (flash kernel), 1 past
-    # chunk_size (chunked prefill), 1 short (plain attention, 128 bucket)
-    sizes = {"a": 340, "b": 470, "c": 900, "d": 90}
-    overhead = len(tok.encode_chat(_chat(0, 0)))
-    messages = {k: _chat(n - overhead, i) for i, (k, n) in enumerate(sizes.items())}
+    messages = four_requests(tok)
     # the RAG wave: eight chats share a ~1,500-token two-message head (two
     # full 512-token pages and a boundary page); the first misses and
     # registers it; the second (a question the miss's size) hits alone, on an
@@ -1026,7 +1230,11 @@ def main_path(card: str) -> dict:
 
         return asyncio.run(drive())
 
-    main, *rag_runs = serve(engine, [list(messages.values()), rag[:1], rag[1:2], rag[2:]])
+    # the four requests six times (the first counted, all six read, as in
+    # phase 7), then the RAG wave
+    runs = serve(engine, [list(messages.values())] * 6 + [rag[:1], rag[1:2], rag[2:]])
+    reads, rag_runs = runs[:6], runs[6:]
+    main = reads[0]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     ttfts, rates, completion = _check_dialogs(tok, list(messages.items()), main["results"])
     wall, counts, routes, steps = main["wall"], main["counts"], main["routes"], main["steps"]
@@ -1046,6 +1254,14 @@ def main_path(card: str) -> dict:
     if counts["paged_decode"] != cfg.num_layers * steps:
         fail(f"replay-counted paged launches {counts['paged_decode']} != {cfg.num_layers} x "
              f"{steps} decode steps")
+    all_ttfts, all_rates = [], []
+    for run in reads:
+        t, r, _ = _check_dialogs(tok, list(messages.items()), run["results"])
+        all_ttfts += t
+        all_rates += r
+    log(f"  bf16 readings over {len(reads)} runs of the four requests [{card}]: TTFT "
+        f"{_stat(all_ttfts)}; decode {_stat(all_rates, 'tok/s')} per request; run wall "
+        f"{_stat([r['wall'] for r in reads])}")
     rag_wave_report(cfg, engine, tok, rag, *rag_runs)
     log(f"  tick_stats: {json.dumps(engine.tick_stats())}")
     obs_on = _tick_reading(main, rates)
@@ -1203,34 +1419,49 @@ def hit_vs_cold(cfg, tok, chats, hit_logits, cold_logits, hit_runs, cold_runs) -
         f"{len(chats)}")
 
 
-def _timed_run(fn, n: int, per: int, label: str, unit: str = "step") -> None:
+def _timed_run(fn, n: int, per: int, label: str, unit: str = "step", batches: int = 1) -> None:
     """Log the synchronised, host-enqueue and device kernel time of ``fn``
     per ``unit`` (``fn`` runs ``per`` of them; a decode step by default),
-    the idle share, and the device time by kernel from torch.profiler over
-    ``n`` calls."""
+    the idle share, and the device time by kernel from torch.profiler, each
+    over ``batches`` batches of ``n`` calls (medians and spreads when there
+    are several; the kernel table from the batch of median device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    wall_ms, enqueue_ms = _sync_and_enqueue_ms(fn, n, per)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels_by_name = []
-    for e in prof.key_averages():
-        dev_us = _device_us(e)
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels_by_name.append((dev_us / (n * per) / 1e3, e.count / (n * per), e.key))
-    busy_ms = sum(ms for ms, _, _ in kernels_by_name)
-    log(f"  {label}: {wall_ms:.3f} ms synchronised per {unit}, host enqueue {enqueue_ms:.3f} ms, "
-        f"device kernel time {busy_ms:.3f} ms "
-        f"({'not measured: profiler saw no device time' if busy_ms == 0 else f'idle share {1 - busy_ms / wall_ms:.3f}'})")
-    for ms, calls, name in sorted(kernels_by_name, reverse=True)[:6]:
+    timing = [_sync_and_enqueue_ms(fn, n, per) for _ in range(batches)]
+    walls, enqueues = [w for w, _ in timing], [e for _, e in timing]
+    tables = []
+    for _ in range(batches):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels_by_name = []
+        for e in prof.key_averages():
+            dev_us = _device_us(e)
+            if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                kernels_by_name.append((dev_us / (n * per) / 1e3, e.count / (n * per), e.key))
+        tables.append(kernels_by_name)
+
+    def part(table, word=None):
+        rows = [(ms, c) for ms, c, name in table if word is None or word in name]
+        return sum(ms for ms, _ in rows), sum(c for _, c in rows)
+
+    busy = [part(t)[0] for t in tables]
+    wall_ms, enqueue_ms = statistics.median(walls), statistics.median(enqueues)
+    busy_ms = statistics.median(busy)
+    stat = (lambda xs: _stat(xs, "ms")) if batches > 1 else (lambda xs: f"{xs[0]:.3f} ms")
+    log(f"  {label}: synchronised per {unit} {stat(walls)}, host enqueue {stat(enqueues)}, "
+        f"device kernel time {stat(busy)} "
+        f"({'not measured: profiler saw no device time' if busy_ms == 0 else f'idle share {1 - busy_ms / wall_ms:.3f} of the medians'})"
+        + (f" over {batches} batches of {n} calls" if batches > 1 else ""))
+    table = sorted(tables, key=lambda t: part(t)[0])[(batches - 1) // 2]
+    for ms, calls, name in sorted(table, reverse=True)[:6]:
         log(f"    {ms:.4f} ms/{unit} in {calls:g} launches/{unit}: {name[:90]}")
-    paged = [(ms, calls) for ms, calls, name in kernels_by_name if "paged" in name]
-    log(f"    paged attention: {sum(ms for ms, _ in paged):.4f} ms/{unit} in "
-        f"{sum(c for _, c in paged):g} launches/{unit}; all kernels: "
-        f"{sum(c for _, c, _ in kernels_by_name):g} launches/{unit}")
+    for word in ("paged", "qgemm"):
+        ms = [part(t, word)[0] for t in tables]
+        log(f"    {word}: {stat(ms)}/{unit} in {part(table, word)[1]:g} launches/{unit}")
+    log(f"    all kernels: {part(table)[1]:g} launches/{unit}")
 
 
 def _sync_and_enqueue_ms(fn, n: int, per: int) -> tuple:
@@ -1265,7 +1496,7 @@ def _graph_span_ms(replay, n: int) -> list:
     return spans
 
 
-def decode_breakdown(cfg, params, engine) -> None:
+def decode_breakdown(cfg, params, engine, label: str = "") -> None:
     """Where a full-width decode step's time goes: 8 slots at ragged
     positions; the eager step (a fresh pool, ``decode_step_paged`` issued op
     by op; torch.profiler's kernel time), then the engine's captured 8-step
@@ -1305,28 +1536,29 @@ def decode_breakdown(cfg, params, engine) -> None:
         engine._launch_tick()
 
     with torch.no_grad():
-        _timed_run(step, 10, 1, "eager decode step, 8 slots, full width")
-        wall_ms, enqueue_ms = _sync_and_enqueue_ms(tick, 10, K)
+        _timed_run(step, 10, 1, f"{label}eager decode step, 8 slots, full width", batches=6)
+        timing = [_sync_and_enqueue_ms(tick, 10, K) for _ in range(6)]
         spans = [ms / K for ms in _graph_span_ms(engine._graph.replay, 10)]
-        span_ms = sum(spans) / len(spans)
-        log(f"  graph replay of the {K}-step tick, 8 slots, full width: {wall_ms:.3f} ms "
-            f"synchronised per step, host enqueue {enqueue_ms:.3f} ms, device time at most the "
-            f"graph span (CUDA events, launch wait included) {span_ms:.3f} ms per step "
-            f"({min(spans):.3f}-{max(spans):.3f} over 10 replays), idle share not measured; "
-            f"{engine._graph_launches.launches['paged_decode'] // K} paged launches per step "
-            f"(recorded at capture); graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB")
+        log(f"  {label}graph replay of the {K}-step tick, 8 slots, full width, per step over 6 "
+            f"batches of 10 replays: synchronised {_stat([w for w, _ in timing], 'ms')}, host "
+            f"enqueue {_stat([e for _, e in timing], 'ms')}; device time at most the graph span "
+            f"(CUDA events, launch wait included) {_stat(spans, 'ms')} over 10 replays, idle "
+            f"share not measured; {engine._graph_launches.launches['paged_decode'] // K} paged "
+            f"launches per step (recorded at capture); graph pool "
+            f"{engine.graph_pool_bytes / 2**20:.1f} MiB")
         # the chunk's page chain all sentinels: it writes the dump page and
         # slot 0's length only (the work of a real chunk: the row is gathered
         # and written back whole)
         engine._chunk_bt_dev.fill_(engine._kv_sentinel)
         engine._chunk_slot_dev.zero_()
         engine._chunk_start_dev.zero_()
-        pig_ms, _ = _sync_and_enqueue_ms(lambda: tick(True), 5, 1)
-        seq_ms, _ = _sync_and_enqueue_ms(chunk_then_tick, 5, 1)
-        pig_span = sum(_graph_span_ms(engine._piggyback_graph.replay, 5)) / 5
-        log(f"  a {engine.chunk_size}-token chunk and the {K}-step tick: one piggyback replay "
-            f"{pig_ms:.3f} ms synchronised (graph span {pig_span:.3f} ms), the chunk eager then "
-            f"the tick's replay {seq_ms:.3f} ms synchronised")
+        pig = [_sync_and_enqueue_ms(lambda: tick(True), 3, 1)[0] for _ in range(6)]
+        seq = [_sync_and_enqueue_ms(chunk_then_tick, 3, 1)[0] for _ in range(6)]
+        pig_span = _graph_span_ms(engine._piggyback_graph.replay, 6)
+        log(f"  {label}a {engine.chunk_size}-token chunk and the {K}-step tick, 6 batches of 3: "
+            f"one piggyback replay synchronised {_stat(pig, 'ms')} (graph span "
+            f"{_stat(pig_span, 'ms')}), the chunk eager then the tick's replay synchronised "
+            f"{_stat(seq, 'ms')}")
 
 
 # --------------------------------------------------------------------- phase 5
@@ -1695,6 +1927,163 @@ def rag_phase(card: str, dec_spec, dec_engine) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------- phase 7
+def projection_bytes(cfg, fmt: str, group: int = 64) -> int:
+    """Bytes of the layer projections of ``cfg`` at ``fmt``: bf16 (2 bytes a
+    weight), or the integers (1 byte a weight, or 0.5 packed) and their f32
+    scales (per output column, or per ``group`` rows and column)."""
+    E, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    HD, KD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = [(E, HD), (E, KD), (E, KD), (HD, E), (E, F), (E, F), (F, E)]
+    if fmt == "bf16":
+        return L * sum(2 * K * N for K, N in shapes)
+    if fmt == "int8":
+        return L * sum(K * N + 4 * N for K, N in shapes)
+    return L * sum(K * N // 2 + 4 * (K // group) * N for K, N in shapes)
+
+
+def quant_phase(card: str) -> dict:
+    """Llama-3-8B (32 layers, full width) from ``init_int8``, then (freed)
+    from ``init_int4``, each behind ``/dialog/`` in a ``ModelRegistry`` /
+    ``create_app`` server with ``quantize`` set, at the default loop.
+    Phase 4's four requests, 32 greedy tokens each: launch counts zeroed
+    just before and read just after; every request completes; qgemm
+    launches = 7 x 32 per decode step plus 7 x 32 per prefill forward;
+    ``weight_bits`` 8 / 4 in ``/healthz`` and ``/metrics``; the projection
+    bytes on the card as computed.  Readings over 5 more runs of the four
+    (medians and spreads): TTFT, decode tok/s per request; then the decode
+    breakdown (the eager step profiled, the replayed tick per step).
+    Returns the qgemm launches of each format's counted run."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
+    from django_assistant_bot_tpu_torch.ops.quant import QuantizedWeight
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer
+    from django_assistant_bot_tpu_torch.serving.obs import parse_prometheus_text
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    cfg = DecoderConfig.llama3_8b()
+    tok = ByteTokenizer()
+    messages = four_requests(tok)
+    launches = {}
+    for fmt, init in (("int8", llama.init_int8), ("int4", llama.init_int4)):
+        gc_collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alloc0 = torch.cuda.memory_allocated()
+        params = init(cfg, torch.Generator(device="cuda").manual_seed(21), "cuda")
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - alloc0
+        proj = [w for w in params["layers"].values() if isinstance(w, QuantizedWeight)]
+        on_card = sum(w.nbytes for w in proj)
+        dense = sum(t.numel() * t.element_size() for t in
+                    [params["tok_embed"], params["lm_head"], params["final_norm"],
+                     params["layers"]["attn_norm"], params["layers"]["mlp_norm"]])
+        want = projection_bytes(cfg, fmt)
+        log(f"  {fmt} Llama-3-8B from init_{fmt} in {time.perf_counter() - t0:.1f} s: projection "
+            f"bytes on the card {on_card} (computed {want}; bf16 {projection_bytes(cfg, 'bf16')}), "
+            f"dense leaves {dense}, allocated {alloc} ({alloc - on_card - dense} above the leaves)")
+        if on_card != want or not 0 <= alloc - on_card - dense <= 2 << 20:
+            fail(f"{fmt} weight bytes on the card: {on_card} (want {want}), allocated {alloc}")
+        name = f"llama3-8b-{fmt}-random"
+        spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, quantize=fmt)
+        engine, build_s = _build_engine(cfg, params, spec)
+        registry = ModelRegistry()
+        registry.load(spec, engine=engine)
+        port = _free_port()
+        forwards = [0]
+        wrapped = {}
+        for fn_name in ("prefill", "prefill_suffix_paged"):
+            orig = getattr(llama, fn_name)
+
+            def counted(*a, _orig=orig, **kw):
+                forwards[0] += 1
+                return _orig(*a, **kw)
+
+            wrapped[fn_name] = orig
+            setattr(llama, fn_name, counted)
+
+        async def drive():
+            runner = web.AppRunner(create_app(registry))
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", port).start()
+            try:
+                async with aiohttp.ClientSession() as session:
+                    st, body, _ = await _post(session, port, name, _chat(300, 99))
+                    if st != 200:
+                        fail(f"{fmt} warm-up /dialog/ returned {st}: {body}")
+                    runs = []
+                    for _ in range(6):  # the first counted, all six read
+                        torch.cuda.synchronize()
+                        kernels.reset_counts()
+                        forwards[0] = 0
+                        steps0, pig0 = engine.steps, engine._prefill_chunks_piggybacked
+                        t = time.perf_counter()
+                        res = await asyncio.gather(*(_post(session, port, name, m)
+                                                     for m in messages.values()))
+                        wall = time.perf_counter() - t
+                        runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
+                                         formats=dict(kernels.QGEMM_FORMATS),
+                                         steps=engine.steps - steps0, forwards=forwards[0]
+                                         + engine._prefill_chunks_piggybacked - pig0))
+                    health = await (await session.get(f"http://127.0.0.1:{port}/healthz")).json()
+                    text = await (await session.get(f"http://127.0.0.1:{port}/metrics")).text()
+                    return runs, health, parse_prometheus_text(text)
+            finally:
+                await runner.cleanup()
+
+        try:
+            runs, health, fams = asyncio.run(drive())
+        finally:
+            for fn_name, orig in wrapped.items():
+                setattr(llama, fn_name, orig)
+        first = runs[0]
+        ttfts, rates = [], []
+        for run in runs:
+            t, r, _ = _check_dialogs(tok, list(messages.items()), run["results"])
+            ttfts += t
+            rates += r
+        counts, steps, fwd = first["counts"], first["steps"], first["forwards"]
+        want_q = 7 * cfg.num_layers * (steps + fwd)
+        log(f"  {fmt} main path on {card}: launches {counts}, by format {first['formats']}; "
+            f"{steps} decode steps, {fwd} prefill forwards: qgemm {counts['qgemm']} "
+            f"(7 x {cfg.num_layers} x ({steps} + {fwd}) = {want_q})")
+        if counts["qgemm"] != want_q or first["formats"][fmt] != want_q:
+            fail(f"{fmt}: qgemm launches {counts['qgemm']} != 7 x {cfg.num_layers} x "
+                 f"({steps} steps + {fwd} prefill forwards)")
+        if counts["paged_decode"] != cfg.num_layers * steps or counts["flash_prefill"] <= 0:
+            fail(f"{fmt}: paged or flash launches wrong: {counts}")
+        bits = {"int8": 8, "int4": 4}[fmt]
+        gauge = [v for _, lab, v in fams.get("dabt_weight_bits", {}).get("samples", [])
+                 if lab.get("model") == name]
+        hz = health["generators"][name]["weight_bits"]
+        log(f"  {fmt} weight_bits: /healthz {hz}, /metrics dabt_weight_bits {gauge}; engine "
+            f"built in {build_s:.2f} s, graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB")
+        if hz != bits or gauge != [float(bits)]:
+            fail(f"{fmt}: weight_bits /healthz {hz}, /metrics {gauge}, want {bits}")
+        log(f"  {fmt} readings over {len(runs)} runs of the four requests [{card}]: TTFT "
+            f"{_stat(ttfts)}; decode {_stat(rates, 'tok/s')} per request; run wall "
+            f"{_stat([r['wall'] for r in runs])}")
+        decode_breakdown(cfg, params, engine, label=f"{fmt} ")
+        launches[fmt] = counts["qgemm"]
+        del engine, registry, params, proj
+        gc_collect()
+    return launches
+
+
+def gc_collect() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1718,7 +2107,7 @@ def main() -> int:
 
     log("== phase 2: kernels vs plain twins")
     # the engine's page at 4096 for paged decode
-    entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen)]
+    entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen), *check_qgemm(gen)]
 
     log("== phase 3: small f32 models, card vs CPU")
     small_reference()
@@ -1734,13 +2123,22 @@ def main() -> int:
     log("== phase 6: the RAG request at full width: /embeddings/ -> KNN -> /dialog/")
     rag_counts = rag_phase(card, dec_spec, dec_engine)
     del dec_engine
-    torch.cuda.empty_cache()
+    gc_collect()
+
+    log("== phase 7: int8 and int4 Llama-3-8B over /dialog/ (the qgemm kernel)")
+    log(f"  card memory before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    q_counts = quant_phase(card)
 
     # each kernel's launches on its own slice's main path: flash and paged
-    # decode on phase 4's requests, the KNN on phase 6's RAG requests
+    # decode on phase 4's requests, the KNN on phase 6's RAG requests, qgemm
+    # on phase 7's requests in its format
     for e in entries:
-        e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
-    log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6)")
+        if e["name"].startswith("qgemm_"):
+            e["launches"] = q_counts[e["name"][len("qgemm_"):]]
+        else:
+            e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
+    log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "
+        f"qgemm {json.dumps(q_counts)} (phase 7)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": entries}))

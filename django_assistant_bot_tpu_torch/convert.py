@@ -5,8 +5,10 @@ the JAX param pytree with its leaves already turned into numpy arrays
 (``jax.tree.map(np.asarray, params)`` on the JAX side — this module never
 imports JAX) and return the port's params dict: the same keys and layouts,
 as tensors in ``cfg.dtype`` on ``device``.
-Quantized leaves (the JAX ``QTensor``/``QTensor4`` NamedTuples) are refused:
-their kernel is ROADMAP Queue 2 entry 3.
+A quantized decoder leaf (the JAX ``QTensor``/``QTensor4`` NamedTuple, here
+a tuple with ``q`` and ``scale`` fields of numpy arrays) becomes the port's
+:class:`~.ops.quant.QTensor` (int8 ``q``) or :class:`~.ops.quant.QTensor4`
+(uint8 ``q``) with the same bytes and layout and f32 scales.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models.config import DecoderConfig, EncoderConfig
+from .ops.quant import QTensor, QTensor4
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm", "mlp_norm")
 _BIAS_KEYS = ("bq", "bk", "bv")
@@ -25,20 +28,28 @@ _BIAS_KEYS = ("bq", "bk", "bv")
 
 def _tensor(name: str, leaf: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if isinstance(leaf, tuple) or not hasattr(leaf, "dtype"):
-        raise NotImplementedError(
-            f"param {name!r} is a quantized leaf ({type(leaf).__name__}); int8/int4 "
-            "weights wait for the qeinsum kernel (ROADMAP Queue 2 entry 3)"
-        )
+        raise TypeError(f"param {name!r} is a {type(leaf).__name__}, not an array")
     arr = np.asarray(leaf)
     # bfloat16 leaves come as ml_dtypes' bfloat16, which numpy does not
     # class as floating
     if not (np.issubdtype(arr.dtype, np.floating) or arr.dtype.name == "bfloat16"):
-        raise NotImplementedError(
-            f"param {name!r} has dtype {arr.dtype}; quantized weights wait for "
-            "ROADMAP Queue 2 entry 3"
-        )
+        raise TypeError(f"param {name!r} has dtype {arr.dtype}, not a float type")
     # numpy has no bfloat16: widen (exactly) to float32 before torch
     return torch.tensor(arr.astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def _leaf(name: str, leaf: Any, dtype: torch.dtype, device: torch.device):
+    """A dense leaf as :func:`_tensor`, or a quantized one (``q`` and
+    ``scale`` fields: int8 ``q`` -> QTensor, uint8 -> QTensor4) as the
+    port's type, bytes unchanged."""
+    if not (hasattr(leaf, "q") and hasattr(leaf, "scale")):
+        return _tensor(name, leaf, dtype, device)
+    q, scale = np.asarray(leaf.q), np.asarray(leaf.scale, np.float32)
+    kinds = {np.dtype(np.int8): QTensor, np.dtype(np.uint8): QTensor4}
+    if q.dtype not in kinds:
+        raise TypeError(f"param {name!r}: quantized q of dtype {q.dtype} (int8 or uint8 expected)")
+    return kinds[q.dtype](torch.from_numpy(q.copy()).to(device),
+                          torch.from_numpy(scale.copy()).to(device))
 
 
 def params_from_jax(
@@ -50,14 +61,14 @@ def params_from_jax(
         raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
     layers_in = tree["layers"]
     keys = _LAYER_KEYS + (_BIAS_KEYS if cfg.attn_bias else ())
-    layers = {k: _tensor(f"layers.{k}", layers_in[k], cfg.dtype, dev) for k in keys}
+    layers = {k: _leaf(f"layers.{k}", layers_in[k], cfg.dtype, dev) for k in keys}
     out = {
-        "tok_embed": _tensor("tok_embed", tree["tok_embed"], cfg.dtype, dev),
+        "tok_embed": _leaf("tok_embed", tree["tok_embed"], cfg.dtype, dev),
         "final_norm": _tensor("final_norm", tree["final_norm"], cfg.dtype, dev),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = _tensor("lm_head", tree["lm_head"], cfg.dtype, dev)
+        out["lm_head"] = _leaf("lm_head", tree["lm_head"], cfg.dtype, dev)
     return out
 
 

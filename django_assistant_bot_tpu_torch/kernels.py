@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -50,6 +51,7 @@ KERNELS = {
     "flash_prefill": ("flash_prefill", "dabt_flash_prefill"),
     "paged_decode": ("paged_decode", "dabt_paged_decode"),
     "knn_topk": ("knn_topk", "dabt_knn_topk"),
+    "qgemm": ("qgemm", "dabt_qgemm"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -75,6 +77,9 @@ _ARGTYPES = {
     # index, queries, valid, out_scores, out_ids, scratch, cand, N, D, Q, k,
     # cap, stream
     "knn_topk": [_P] * 7 + [_I] * 4 + [ctypes.c_longlong, _P, _I, _P],
+    # x, w, scale, y, scratch, counters, dtype, bits, M, N, K, group, mt,
+    # warps_m, ksplit, kchunk, stream
+    "qgemm": [_P] * 6 + [_I] * 10 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -97,28 +102,36 @@ KNN_SORT_CAP = 16384
 # which kernel its paged calls took
 PAGED_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
 
-# paged decode scratch per (device, stream): (f32 partials, int32 counters);
-# the counters start at zero and every call leaves them at zero (a graph's
-# owner keeps its own store, see private_paged_scratch)
-_paged_scratch: Dict[tuple, tuple] = {}
+# qgemm launches by weight format, counted beside LAUNCHES like PAGED_ROUTES
+QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
+# a kernel's launches by kind, for the kernels that count them
+SUBCOUNTS: Dict[str, Dict[str, int]] = {"paged_decode": PAGED_ROUTES, "qgemm": QGEMM_FORMATS}
+# output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
+QGEMM_TILE_N = 64
+
+# split-K scratch per (kernel, device, stream): (f32 partials, int32
+# counters); the counters start at zero and every call leaves them at zero
+# (a graph's owner keeps its own store, see private_paged_scratch)
+_split_scratch: Dict[tuple, tuple] = {}
 # f32 scratch floats per (device, route, shapes), as the library reports them
 _paged_need: Dict[tuple, int] = {}
 
 
 class GraphLaunches:
     """The kernel launches recorded into one CUDA graph at its capture;
-    :meth:`replayed` adds them to ``LAUNCHES`` and ``PAGED_ROUTES`` once per
+    :meth:`replayed` adds them to ``LAUNCHES`` and ``SUBCOUNTS`` once per
     replay of the graph."""
 
     def __init__(self):
         self.launches: Dict[str, int] = {name: 0 for name in KERNELS}
-        self.routes: Dict[str, int] = {route: 0 for route in PAGED_ROUTES}
+        self.sub = {name: dict.fromkeys(counts, 0) for name, counts in SUBCOUNTS.items()}
 
     def replayed(self) -> None:
         for name, n in self.launches.items():
             LAUNCHES[name] += n
-        for route, n in self.routes.items():
-            PAGED_ROUTES[route] += n
+        for name, counts in self.sub.items():
+            for kind, n in counts.items():
+                SUBCOUNTS[name][kind] += n
 
 
 # per thread: the GraphLaunches a capture records into, and a private
@@ -140,10 +153,11 @@ def record_graph_launches():
 
 @contextlib.contextmanager
 def private_paged_scratch(store: Dict[tuple, tuple]):
-    """Give this thread's paged decode calls the scratch in ``store`` (keyed
-    like the shared cache) instead of the shared cache.  A CUDA graph's
-    owner warms up and captures inside it, so the scratch and counters the
-    graph holds are its own: no eager call, on any stream, uses them."""
+    """Give this thread's paged decode and qgemm calls the scratch in
+    ``store`` (keyed like the shared cache) instead of the shared cache.  A
+    CUDA graph's owner warms up and captures inside it, so the scratch and
+    counters the graph holds are its own: no eager call, on any stream, uses
+    them."""
     _tls.scratch = store
     try:
         yield store
@@ -151,30 +165,28 @@ def private_paged_scratch(store: Dict[tuple, tuple]):
         _tls.scratch = None
 
 
-def _count(name: str, route: Optional[str] = None) -> None:
-    """One launch of ``name`` (and of its paged ``route``): counted now, or
-    recorded for the replays when this thread is capturing a graph."""
+def _count(name: str, kind: Optional[str] = None) -> None:
+    """One launch of ``name`` (and of its ``kind`` in ``SUBCOUNTS[name]``):
+    counted now, or recorded for the replays when this thread is capturing
+    a graph."""
+    launches, subs = LAUNCHES, SUBCOUNTS
     rec = getattr(_tls, "rec", None)
     if rec is not None:
-        rec.launches[name] += 1
-        if route is not None:
-            rec.routes[route] += 1
-        return
-    if torch.cuda.is_current_stream_capturing():
+        launches, subs = rec.launches, rec.sub
+    elif torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             f"{name} captured into a CUDA graph outside record_graph_launches(): "
             "its replays would go uncounted"
         )
-    LAUNCHES[name] += 1
-    if route is not None:
-        PAGED_ROUTES[route] += 1
+    launches[name] += 1
+    if kind is not None:
+        subs[name][kind] += 1
 
 
 def reset_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    for route in PAGED_ROUTES:
-        PAGED_ROUTES[route] = 0
+    for counts in (LAUNCHES, *SUBCOUNTS.values()):
+        for key in counts:
+            counts[key] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -305,24 +317,23 @@ def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
     return need
 
 
-def _paged_buffers(device: torch.device, stream: int, shapes: tuple, n_rows: int):
-    """The paged decode scratch of (device, stream), grown to what the
-    library asks for ``shapes`` (mma, B, H, KH, page, NB, D) and to
-    ``n_rows`` counters.  A graph captures the buffers' addresses, so they
-    must exist before its capture (a warm-up call on the capture stream makes
-    them): growing them during a capture would put graph-pool memory in this
-    cache, where eager calls would find it, and raises instead."""
-    need = paged_scratch_floats(device, shapes)
-    key = (device.index, stream)
+def _scratch_buffers(kernel: str, device: torch.device, stream: int, need: int, n_rows: int):
+    """The scratch of ``kernel`` (paged decode or qgemm) on (device,
+    stream), grown to ``need`` f32 floats and ``n_rows`` counters.  A graph
+    captures the buffers' addresses, so they must exist before its capture
+    (a warm-up call on the capture stream makes them): growing them during a
+    capture would put graph-pool memory in this cache, where eager calls
+    would find it, and raises instead."""
+    key = (kernel, device.index, stream)
     store = getattr(_tls, "scratch", None)
     if store is None:
-        store = _paged_scratch
+        store = _split_scratch
     part, counters = store.get(key, (None, None))
     grow_part = part is None or part.numel() < need
     grow_counters = counters is None or counters.numel() < n_rows
     if (grow_part or grow_counters) and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
-            "paged decode scratch must be allocated before a CUDA graph capture: "
+            f"{kernel} scratch must be allocated before a CUDA graph capture: "
             "warm the captured calls up on the capture stream first"
         )
     if grow_part:
@@ -353,8 +364,9 @@ def paged_decode(
     stream = _stream(q)
     fn = _fn("paged_decode")
     with torch.cuda.device(q.device):
-        scratch, counters = _paged_buffers(
-            q.device, stream, (int(mma), B, H, KH, page, NB, D), B * KH
+        shapes = (int(mma), B, H, KH, page, NB, D)
+        scratch, counters = _scratch_buffers(
+            "paged_decode", q.device, stream, paged_scratch_floats(q.device, shapes), B * KH
         )
         err = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
@@ -389,3 +401,76 @@ def knn_topk(
         )
     _count("knn_topk")
     _check("knn_topk", err)
+
+
+@functools.lru_cache(maxsize=512)
+def qgemm_plan(M: int, N: int, K: int, bits: int, group: int, sms: int = 132) -> tuple:
+    """(mt, warps_m, ksplit, kchunk) of a bf16 qgemm call: the warp tile
+    (``mt`` m-tiles of 8 rows; ``warps_m`` warps along M, the other
+    ``4 // warps_m`` splitting a block's K range), the K splits across
+    blocks and the rows of K a warp takes (a multiple of 16, and of the
+    group for int4).  K is split until the grid has about two blocks per SM
+    (``sms``), but not so far that the f32 partials (written and read once)
+    pass a quarter of the weight bytes, and not below one group (int4) or
+    16 rows a warp.  Past 64 rows of x with N a multiple of 16 the call
+    takes the pipelined tile kernel, ``warps_m`` 8 (eight warps on 128 x 128
+    outputs, no split)."""
+    if N % 16 == 0 and M > 64:
+        return 4, 8, 1, K
+    if M <= 8:
+        mt, warps_m = 1, 1
+    elif M <= 16:
+        mt, warps_m = 2, 1
+    elif M <= 64:
+        mt, warps_m = 2, 4
+    else:
+        mt, warps_m = 4, 4
+    kw = 4 // warps_m
+    tiles = qgemm_tiles(M, N, mt, warps_m)
+    unit = group if bits == 4 else 16
+    by_traffic = int(K * bits / 8) // (32 * M)
+    ksplit = max(1, min(-(-2 * sms // tiles), by_traffic, K // (kw * unit)))
+    kchunk = -(-K // (ksplit * kw * unit)) * unit
+    return mt, warps_m, -(-K // (kchunk * kw)), kchunk
+
+
+def qgemm_tiles(M: int, N: int, mt: int, warps_m: int) -> int:
+    """Output tiles (blocks of one K split, one counter each) of a bf16
+    qgemm launch with warp tile ``mt`` and ``warps_m`` (see
+    :func:`qgemm_plan`)."""
+    if warps_m == 8:  # the tile kernel: 128 x 128
+        return -(-N // 128) * -(-M // 128)
+    return -(-N // QGEMM_TILE_N) * -(-M // (8 * mt * warps_m))
+
+
+def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
+          *, group: int) -> None:
+    """Launch the weight-only GEMM ``out[M, N] = x[M, K] . W[K, N]``; the
+    caller (``ops.quant.qeinsum``) validated the arguments: ``q`` int8
+    ``[K, N]`` (``group`` 0, ``scale`` per column) or packed int4 ``[K/2,
+    N]`` (``scale`` per ``group`` rows and column), x and out contiguous in
+    one type.  A bf16 call that splits K takes its f32 partials and counters
+    from the per-(device, stream) scratch, like paged decode."""
+    M, K = x.shape
+    N = out.shape[1]
+    bits = 4 if group else 8
+    dt = dtype_code(x.dtype)
+    mt = warps_m = ksplit = 1
+    kchunk = K
+    stream = _stream(x)
+    fn = _fn("qgemm")
+    with torch.cuda.device(x.device):
+        scratch = counters = None
+        if dt == _DTYPE_CODE[torch.bfloat16]:
+            mt, warps_m, ksplit, kchunk = qgemm_plan(M, N, K, bits, group)
+            if ksplit > 1:
+                scratch, counters = _scratch_buffers("qgemm", x.device, stream, ksplit * M * N,
+                                                     qgemm_tiles(M, N, mt, warps_m))
+        err = fn(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            dt, bits, M, N, K, group, mt, warps_m, ksplit, kchunk, stream,
+        )
+    _count("qgemm", f"int{bits}")
+    _check("qgemm", err)

@@ -5,7 +5,10 @@ Params are a dict shaped like the JAX package's pytree: ``tok_embed``
 ``layers`` dict of tensors stacked on a leading layer axis (``wq`` ``[L, E,
 H*D]``, ..., weights ``[in, out]``).  The JAX package's ``lax.scan`` over that
 axis becomes a Python loop over layers (:func:`_layer_windows` keeps the
-full/sliding-window split of ``_scan_window_split``).
+full/sliding-window split of ``_scan_window_split``).  A projection leaf may
+be a quantized weight (``ops.quant.QTensor`` / ``QTensor4``, from
+``quantize_decoder_params``, :func:`init_int8` or :func:`init_int4`), and
+the embedding and head tables int8 ``QTensor``s.
 
 Paged KV: :class:`PagedKVCache` holds ``[L, P + 1, KH, page, D]`` pools.
 Pages ``0..P-1`` are the JAX package's pool; page ``P`` is a dump page that is
@@ -36,7 +39,7 @@ from ..ops.attention import (
     paged_gqa_decode_attention,
 )
 from ..ops.norms import rms_norm
-from ..ops.quant import qeinsum
+from ..ops.quant import INT4_GROUP_SIZE, QTensor, QTensor4, QuantizedWeight, _int4_group, qeinsum
 from ..ops.rope import apply_rope, rope_frequencies
 from .config import DecoderConfig
 
@@ -87,23 +90,143 @@ def init(cfg: DecoderConfig, generator: torch.Generator, device: DeviceLike = "c
     return params
 
 
+# uniform int8 in [-127, 127] has std ~127/sqrt(3), uniform int4 in [-8, 7]
+# sqrt((16^2 - 1) / 12): the synthetic inits' constant scales divide them out
+UNIFORM8_STD = 127.0 / (3.0 ** 0.5)
+UNIFORM4_STD = (255.0 / 12.0) ** 0.5
+
+
+def _synth_quant_params(
+    cfg: DecoderConfig,
+    generator: torch.Generator,
+    device: DeviceLike,
+    *,
+    proj_fmt: str,
+    group_size: int = INT4_GROUP_SIZE,
+    quantize_embed: bool = False,
+) -> Params:
+    """What :func:`init_int8` and :func:`init_int4` share: random integer
+    payloads drawn on ``device`` by ``generator`` straight into their final
+    dtype (int8 in [-127, 127], or one random byte as two int4 nibbles), one
+    leaf at a time, with the JAX package's constant scales, so dequantized
+    magnitudes match :func:`init`'s normal(0, E^-0.5).  Norms, embeddings
+    and the head stay in ``cfg.dtype`` (``quantize_embed``: int8 tables)."""
+    device = resolve_device(device)
+    E, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = E ** -0.5
+    if cfg.is_moe:
+        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
+
+    def qdense8(shape, target_std=None):
+        q = torch.randint(-127, 128, shape, generator=generator, device=device, dtype=torch.int8)
+        scale = torch.full(shape[:-2] + (1, shape[-1]), (target_std or s) / UNIFORM8_STD,
+                           dtype=torch.float32, device=device)
+        return QTensor(q, scale)
+
+    def qdense4(shape, target_std=None):
+        *lead, dim, out_dim = shape
+        g = _int4_group(dim, group_size)
+        q = torch.randint(0, 256, tuple(lead) + (dim // 2, out_dim), generator=generator,
+                          device=device, dtype=torch.uint8)
+        scale = torch.full(tuple(lead) + (dim // g, out_dim), (target_std or s) / UNIFORM4_STD,
+                           dtype=torch.float32, device=device)
+        return QTensor4(q, scale)
+
+    def ndense(shape, scale=1.0):
+        w = torch.randn(shape, generator=generator, device=device, dtype=cfg.dtype)
+        return w.mul_(scale)
+
+    def ones(shape):
+        return torch.ones(shape, device=device, dtype=cfg.dtype)
+
+    qdense = qdense4 if proj_fmt == "int4" else qdense8
+    layers: Dict[str, Any] = {
+        "attn_norm": ones((L, E)),
+        "wq": qdense((L, E, H * D)),
+        "wk": qdense((L, E, KH * D)),
+        "wv": qdense((L, E, KH * D)),
+        "wo": qdense((L, H * D, E)),
+        "mlp_norm": ones((L, E)),
+        "w_gate": qdense((L, E, F)),
+        "w_up": qdense((L, E, F)),
+        "w_down": qdense((L, F, E), target_std=F ** -0.5),
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", H * D), ("bk", KH * D), ("bv", KH * D)):
+            layers[name] = torch.zeros((L, width), device=device, dtype=cfg.dtype)
+    # embedding and head tables are int8 in both formats (quantize_embed)
+    params: Params = {
+        "tok_embed": (qdense8((cfg.vocab_size, E), target_std=1.0) if quantize_embed
+                      else ndense((cfg.vocab_size, E))),
+        "final_norm": ones((E,)),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (qdense8((E, cfg.vocab_size)) if quantize_embed
+                             else ndense((E, cfg.vocab_size), s))
+    return params
+
+
+def init_int8(cfg: DecoderConfig, generator: torch.Generator, device: DeviceLike = "cuda",
+              *, quantize_embed: bool = False) -> Params:
+    """Synthetic int8 params drawn on ``device`` (the JAX ``init_int8``):
+    the layer projections are :class:`~..ops.quant.QTensor` (int8 and
+    per-output-channel f32 scales), as ``quantize_decoder_params`` makes
+    them; decode throughput does not depend on the weights' values, so this
+    benches like a quantized checkpoint of the same geometry without staging
+    weights through the host."""
+    return _synth_quant_params(cfg, generator, device, proj_fmt="int8",
+                               quantize_embed=quantize_embed)
+
+
+def init_int4(cfg: DecoderConfig, generator: torch.Generator, device: DeviceLike = "cuda",
+              *, group_size: int = INT4_GROUP_SIZE, quantize_embed: bool = False) -> Params:
+    """Synthetic grouped-int4 params drawn on ``device`` (the JAX
+    ``init_int4``): the layer projections are :class:`~..ops.quant.QTensor4`
+    (two values a byte along the contraction axis, f32 scales per
+    ``group_size`` rows and output channel)."""
+    return _synth_quant_params(cfg, generator, device, proj_fmt="int4", group_size=group_size,
+                               quantize_embed=quantize_embed)
+
+
 def _layer(params: Params, l: int) -> Params:
-    """Layer ``l``'s slice of the stacked ``layers`` dict (views)."""
-    return {name: w[l] for name, w in params["layers"].items()}
+    """Layer ``l``'s slice of the stacked ``layers`` dict (views; a quantized
+    leaf slices its q and its scale)."""
+    return {name: w.layer(l) if isinstance(w, QuantizedWeight) else w[l]
+            for name, w in params["layers"].items()}
 
 
 def _embed(params: Params, cfg: DecoderConfig, ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup; Gemma scales by sqrt(E) in model dtype."""
-    x = params["tok_embed"][ids.long()].to(cfg.dtype)
+    """Token embedding lookup; Gemma scales by sqrt(E) in model dtype.  An
+    int8 table gathers int8 rows and dequantizes only those."""
+    w = params["tok_embed"]
+    if isinstance(w, QTensor):
+        x = w.q[ids.long()].to(cfg.dtype) * w.scale[0].to(cfg.dtype)
+    else:
+        x = w[ids.long()].to(cfg.dtype)
     if cfg.embed_multiplier != 1.0:
         x = x * torch.tensor(cfg.embed_multiplier, dtype=cfg.dtype)
     return x
 
 
 def _head_logits(params: Params, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
-    """Logits projection ``[..., E] -> [..., V]`` in model dtype."""
+    """Logits projection ``[..., E] -> [..., V]`` in model dtype.  Untied,
+    through ``qeinsum`` (an int8 head launches the qgemm kernel on the
+    card).  A tied int8 table ``[V, E]`` carries per-E scales, which land on
+    ``x`` (x . (q s)^T == (x s) . q^T, as in JAX); the kernel does not take
+    its transposed layout, so on the card it raises."""
     if cfg.tie_embeddings:
-        return torch.einsum("...e,ve->...v", x, params["tok_embed"].to(cfg.dtype))
+        w = params["tok_embed"]
+        if isinstance(w, QTensor):
+            if x.device.type == "cuda":
+                raise NotImplementedError(
+                    "a tied int8 embedding table as the head: the qgemm kernel takes "
+                    "[in, out] weights only (ROADMAP Queue 2, kernel work)"
+                )
+            xs = x * w.scale.squeeze(-2).to(cfg.dtype)
+            return torch.einsum("...e,ve->...v", xs, w.q.to(cfg.dtype))
+        return torch.einsum("...e,ve->...v", x, w.to(cfg.dtype))
     return qeinsum("...e,ev->...v", x, params["lm_head"], cfg.dtype)
 
 

@@ -1,19 +1,181 @@
-"""Projection products (port of ``ops/quant.py``, dense branch only).
+"""Projection products and weight-only int8 / grouped int4 (port of ``ops/quant.py``).
 
 On a plain weight, the JAX package's ``qeinsum`` is an einsum in the model
 dtype that XLA lowers to a matrix product; here every projection pattern of
 the model (``x[..., in] . w[in, out]``) goes straight to ``torch.matmul``,
-which is the product ``torch.einsum`` would reach after parsing the pattern
-on every call, and other patterns to ``torch.einsum``.  Quantized weights
-(the JAX ``QTensor``/``QTensor4`` leaves) need the weight-only GEMM kernel of
-ROADMAP Queue 2 entry 3 and are refused until it lands.
+and other patterns to ``torch.einsum``.
+
+Quantized weights keep the JAX layouts.  :class:`QTensor` is int8 ``q`` of
+the weight's shape with f32 per-output-channel scales (contracted axis -2
+of size 1); :class:`QTensor4` packs two int4 values per byte along the
+contraction axis (uint8 ``[..., in/2, out]``, the low nibble the even
+index) with f32 scales per (group, output channel), ``[..., in/g, out]``.
+The quantizers run on the host in numpy, as the JAX ones do, and give the
+same bytes.  In JAX the two types are NamedTuples, so ``qt[l]`` would be a
+field; here they are classes, and a layer's slice is :meth:`QTensor.layer`.
+
+:func:`qeinsum` on a quantized weight routes by device: a CPU tensor takes
+the plain twin :func:`qeinsum_plain`, a CUDA tensor the weight-only GEMM
+kernel (``csrc/qgemm.cu`` via :func:`~..kernels.qgemm`), which reads only
+the integers and dequantizes in registers.  A call the kernel does not take
+(a pattern outside ``x[..., in] . w[in, out]``, or what
+:func:`kernel_refusal` names) raises; there is no fallback.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+
+QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+# default int4 group width along the contraction axis (the JAX package's)
+INT4_GROUP_SIZE = 64
+
+
+class QuantizedWeight:
+    """What the two formats share: the integer payload ``q``, the f32
+    ``scale``, and the layer slice of a layer-stacked leaf."""
+
+    bits = 16
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        self.q = q
+        self.scale = scale
+
+    def layer(self, l: int) -> "QuantizedWeight":
+        """Layer ``l`` of a layer-stacked weight (views of q and scale)."""
+        return type(self)(self.q[l], self.scale[l])
+
+    def to(self, device) -> "QuantizedWeight":
+        return type(self)(self.q.to(device), self.scale.to(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.numel() * self.q.element_size() + self.scale.numel() * 4
+
+    @property
+    def in_features(self) -> int:
+        return self.q.shape[-2]
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}(q={tuple(self.q.shape)}, scale={tuple(self.scale.shape)})"
+
+
+class QTensor(QuantizedWeight):
+    """Weight-only int8: ``q`` int8 of the weight's shape, ``scale`` f32 of
+    the same rank with the contracted axis (-2) of size 1."""
+
+    bits = 8
+
+
+class QTensor4(QuantizedWeight):
+    """Group-quantized int4: ``q`` uint8 ``[..., in/2, out]`` (low nibble the
+    even contraction index, high nibble the odd one, each a two's-complement
+    value in [-8, 7]); ``scale`` f32 ``[..., in/g, out]``.  The group size
+    follows from the shapes, as in the JAX type."""
+
+    bits = 4
+
+    @property
+    def group_size(self) -> int:
+        return 2 * self.q.shape[-2] // self.scale.shape[-2]
+
+    @property
+    def in_features(self) -> int:
+        return 2 * self.q.shape[-2]
+
+
+def _host_f32(w) -> np.ndarray:
+    if isinstance(w, torch.Tensor):
+        return w.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(w, np.float32)
+
+
+def _quantize8_np(wf: np.ndarray):
+    amax = np.max(np.abs(wf), axis=-2, keepdims=True)
+    scale = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
+    q = np.clip(np.rint(wf / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def quantize_tensor(w) -> QTensor:
+    """Symmetric per-output-channel int8 over contraction axis -2, on the
+    host (numpy; the JAX function's arithmetic).  The result lies on the
+    CPU."""
+    q, scale = _quantize8_np(_host_f32(w))
+    return QTensor(torch.from_numpy(q), torch.from_numpy(scale))
+
+
+def _int4_group(dim: int, group_size: int) -> int:
+    """The group width for a contraction dim: the largest even divisor of
+    ``dim`` that is <= ``group_size``."""
+    g = max(2, min(int(group_size), dim))
+    while dim % g or g % 2:
+        g -= 1
+        if g < 2:
+            raise ValueError(
+                f"int4 needs an even contraction dim with an even divisor "
+                f"group size; got dim={dim}, group_size={group_size}"
+            )
+    return g
+
+
+def pack_int4(vals: np.ndarray) -> np.ndarray:
+    """Pack ints in [-8, 7] two per byte along axis -2 -> uint8 with half the
+    axis length.  Low nibble = even index, high nibble = odd."""
+    if vals.shape[-2] % 2:
+        raise ValueError(f"contraction dim {vals.shape[-2]} must be even to pack")
+    u = (np.asarray(vals).astype(np.int16) & 0xF).astype(np.uint8)
+    return (u[..., 0::2, :] | (u[..., 1::2, :] << 4)).astype(np.uint8)
+
+
+def unpack_int4(q: torch.Tensor) -> torch.Tensor:
+    """uint8 ``[..., P, O]`` -> int8 ``[..., 2P, O]`` (sign-extended nibbles)."""
+    lo = (q & 0xF).to(torch.int8)
+    hi = (q >> 4).to(torch.int8)
+    lo = (lo ^ 8) - 8
+    hi = (hi ^ 8) - 8
+    both = torch.stack([lo, hi], dim=-2)  # [..., P, 2, O]
+    return both.reshape(q.shape[:-2] + (2 * q.shape[-2], q.shape[-1]))
+
+
+def _quantize4_np(wf: np.ndarray, group_size: int):
+    dim, out_dim = wf.shape[-2], wf.shape[-1]
+    g = _int4_group(dim, group_size)
+    grp = wf.reshape(wf.shape[:-2] + (dim // g, g, out_dim))
+    amax = np.max(np.abs(grp), axis=-2, keepdims=True)  # [..., G, 1, O]
+    scale = np.maximum(amax / 7.0, 1e-12).astype(np.float32)
+    q = np.clip(np.rint(grp / scale), -8, 7).astype(np.int8)
+    return pack_int4(q.reshape(wf.shape)), np.squeeze(scale, axis=-2)
+
+
+def quantize_tensor_int4(w, group_size: int = INT4_GROUP_SIZE) -> QTensor4:
+    """Symmetric per-(group, output-channel) int4 over contraction axis -2,
+    on the host like :func:`quantize_tensor`."""
+    q, scale = _quantize4_np(_host_f32(w), group_size)
+    return QTensor4(torch.from_numpy(q), torch.from_numpy(scale))
+
+
+def deq(w: Any, dtype: torch.dtype) -> torch.Tensor:
+    """The dequantized weight in ``dtype`` (pass-through for a dense one)."""
+    if isinstance(w, QTensor4):
+        vals = unpack_int4(w.q).float()  # [..., dim, O]
+        dim, out_dim = vals.shape[-2], vals.shape[-1]
+        G = w.scale.shape[-2]
+        grp = vals.reshape(vals.shape[:-2] + (G, dim // G, out_dim))
+        grp = grp * w.scale[..., :, None, :]
+        return grp.reshape(vals.shape).to(dtype)
+    if isinstance(w, QTensor):
+        return (w.q.float() * w.scale).to(dtype)
+    return w
 
 
 @functools.lru_cache(maxsize=64)
@@ -24,13 +186,199 @@ def _is_projection(pattern: str) -> bool:
     return len(ws) == 2 and xs[-1] == ws[0] and out == xs[:-1] + ws[1]
 
 
-def qeinsum(pattern: str, x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
-    """``einsum(pattern, x, w)`` for a dense weight; any other leaf raises."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"quantized weight leaf {type(w).__name__}: int8/int4 weights need the "
-            "qeinsum kernel of ROADMAP Queue 2 entry 3, not yet ported"
+def qeinsum_plain(pattern: str, x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.Tensor:
+    """The JAX ``qeinsum``'s arithmetic in plain PyTorch, rounding where it
+    rounds.  int8: ``(x . q) * scale``, the product rounded to ``dtype``
+    and the scale rounded to ``dtype`` before the multiply.  int4: each
+    group's partial product ``x[..., G, g] . q[G, g, O]`` rounded to
+    ``dtype``, times the ``dtype``-rounded scale, summed over the groups in
+    f32 and rounded once.  A pattern outside the ``[..., in, out]`` contract
+    takes the dequantized weight, as in JAX."""
+    if isinstance(w, QTensor4):
+        xs, rest = pattern.replace(" ", "").split(",")
+        ws, os_ = rest.split("->")
+        if not (xs[-1] == ws[-2] and ws[-1] == os_[-1]):
+            return torch.einsum(pattern, x, deq(w, dtype))
+        vals = unpack_int4(w.q).to(dtype)  # [..., dim, O]
+        dim, out_dim = vals.shape[-2], vals.shape[-1]
+        G = w.scale.shape[-2]
+        grp_w = vals.reshape(vals.shape[:-2] + (G, dim // G, out_dim))
+        grp_x = x.to(dtype).reshape(x.shape[:-1] + (G, dim // G))
+        partial = torch.einsum(
+            f"{xs[:-1]}GZ,{ws[:-2]}GZ{ws[-1]}->{os_[:-1]}G{os_[-1]}", grp_x, grp_w
         )
+        out = torch.einsum(
+            f"{os_[:-1]}G{os_[-1]},{ws[:-2]}G{ws[-1]}->{os_}",
+            partial.float(), w.scale.to(dtype).float(),
+        )
+        return out.to(dtype)
+    if isinstance(w, QTensor):
+        if _is_projection(pattern):
+            y = torch.matmul(x.to(dtype), w.q.to(dtype))
+        else:
+            y = torch.einsum(pattern, x.to(dtype), w.q.to(dtype))
+        return y * w.scale.squeeze(-2).to(dtype)
     if _is_projection(pattern):
         return torch.matmul(x, w)
     return torch.einsum(pattern, x, w)
+
+
+def kernel_refusal(w: Any, dtype: torch.dtype) -> Optional[str]:
+    """Why the weight-only GEMM kernel cannot take a projection onto the
+    2-D quantized weight ``w`` with activations in ``dtype`` (None if it
+    can): f32 or bf16 activations, ``in`` a multiple of 16, ``out`` of 8,
+    int4 groups a multiple of 16, and 16-byte aligned q and scale."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"activations must be float32 or bfloat16, got {dtype}"
+    if w.q.dim() != 2:
+        return f"the kernel takes a 2-D weight, got q of shape {tuple(w.q.shape)}"
+    K, N = w.in_features, w.q.shape[-1]
+    if K % 16 or N % 8:
+        return f"in_features {K} must be a multiple of 16 and out_features {N} of 8"
+    if isinstance(w, QTensor4) and w.group_size % 16:
+        return f"int4 group size {w.group_size} must be a multiple of 16"
+    for t in (w.q, w.scale):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            return "q and scale must be contiguous and 16-byte aligned"
+    return None
+
+
+def check_kernel_params(params: Dict[str, Any], dtype: torch.dtype) -> None:
+    """Refuse, before any step runs, decoder params whose quantized
+    projections the kernel would not take on the card (ValueError naming the
+    leaf and the reason), and a tied int8 head (NotImplementedError)."""
+    leaves = [(f"layers.{k}", w) for k, w in params["layers"].items()]
+    leaves.append(("lm_head", params.get("lm_head")))
+    for name, w in leaves:
+        if isinstance(w, QuantizedWeight):
+            one = w.layer(0) if w.q.dim() == 3 else w
+            why = kernel_refusal(one, dtype)
+            if why is not None:
+                raise ValueError(f"{name}: the qgemm kernel does not take this weight: {why}")
+    if "lm_head" not in params and isinstance(params["tok_embed"], QuantizedWeight):
+        raise NotImplementedError(
+            "a tied int8 embedding table as the head: the qgemm kernel takes [in, out] "
+            "weights only (ROADMAP Queue 2, kernel work)"
+        )
+
+
+def qeinsum(pattern: str, x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(pattern, x, w)`` in ``dtype``.  A dense weight goes to
+    ``torch.matmul`` (a projection pattern) or ``torch.einsum``.  A
+    quantized one on the CPU takes :func:`qeinsum_plain`; on the card it
+    launches the weight-only GEMM kernel, and a call the kernel does not
+    take (a pattern other than ``x[..., in] . w[in, out]``, or a weight or
+    dtype :func:`kernel_refusal` names) raises."""
+    if not isinstance(w, QuantizedWeight):
+        if _is_projection(pattern):
+            return torch.matmul(x, w)
+        return torch.einsum(pattern, x, w)
+    if x.device.type != "cuda":
+        return qeinsum_plain(pattern, x, w, dtype)
+    if not _is_projection(pattern):
+        why = "it takes x[..., in] . w[in, out] only"
+    elif x.dtype != dtype:
+        why = f"activations are {x.dtype}, the call asks for {dtype}"
+    else:
+        why = kernel_refusal(w, dtype)
+    if why is not None:
+        raise ValueError(f"qgemm kernel refuses {pattern!r}: {why}")
+    from .. import kernels
+
+    K, N = w.in_features, w.q.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
+    y = torch.empty((x2.shape[0], N), dtype=dtype, device=x.device)
+    if x2.shape[0]:
+        kernels.qgemm(x2, w.q, w.scale, y, group=w.group_size if w.bits == 4 else 0)
+    return y.reshape(x.shape[:-1] + (N,))
+
+
+def qgemm_bf16_bound(x: torch.Tensor, w: Any, ref: torch.Tensor) -> torch.Tensor:
+    """Per-element bound on a bf16 ``qeinsum`` output against the f32
+    ``ref`` on the same (bf16-valued) ``x``, ``A = |x| . |deq w|``; bf16
+    rounds to within ``u = 2^-8`` relative.  int8, ``2^-6 |ref| + 2^-12 A +
+    1e-4``: the sum, the scale and the product each round once (under
+    ``4u = 2^-6`` of ``|ref|`` together), and ``2^-12 A`` is the f32
+    summation order of both sides (``K 2^-24 A``, the worst case, at K =
+    4096; beyond it the error of a sum of exact products grows as sqrt(K)
+    in practice).  int4, ``2^-7 |ref| + 2^-8 A + 1e-4``: the sum rounds
+    once, and each group's partial, its scale and their product round (up
+    to ``3u`` of that group's share of ``A``, errors that partly cancel
+    across groups; the tier-1 tests show the JAX function inside it)."""
+    a = torch.matmul(x.float().abs(), deq(w, torch.float32).abs())
+    if w.bits == 4:
+        return 2.0 ** -7 * ref.abs() + 2.0 ** -8 * a + 1e-4
+    return 2.0 ** -6 * ref.abs() + 2.0 ** -12 * a + 1e-4
+
+
+QGEMM_BF16_BOUND_TEXT = {
+    8: "2^-6*|ref| + 2^-12*A + 1e-4, A = |x|.|deq W|",
+    4: "2^-7*|ref| + 2^-8*A + 1e-4, A = |x|.|deq W|",
+}
+
+
+def _quantize_leaf(w, fmt: str, group_size: int):
+    """One stacked leaf, a layer at a time (the host holds one layer's f32
+    copy, not the stack's); the bytes equal a whole-stack quantization, since
+    every reduction is within a layer.  The result lies on ``w``'s device."""
+    dev = w.device if isinstance(w, torch.Tensor) else torch.device("cpu")
+    one = (lambda a: _quantize4_np(a, group_size)) if fmt == "int4" else _quantize8_np
+    if getattr(w, "ndim", 0) >= 3:
+        parts = [one(_host_f32(w[l])) for l in range(w.shape[0])]
+        q = np.stack([p[0] for p in parts])
+        scale = np.stack([p[1] for p in parts])
+    else:
+        q, scale = one(_host_f32(w))
+    cls = QTensor4 if fmt == "int4" else QTensor
+    return cls(torch.from_numpy(q).to(dev), torch.from_numpy(scale).to(dev))
+
+
+def quantize_decoder_params(
+    params: Dict[str, Any], fmt: str = "int8", group_size: int = INT4_GROUP_SIZE
+) -> Dict[str, Any]:
+    """Quantize every layer projection (``QUANTIZABLE``) on the host, one
+    leaf at a time; norms, biases, embeddings and the head stay as they are.
+    ``fmt``: "int8" (per channel) or "int4" (per ``group_size`` group)."""
+    if fmt not in ("int8", "int4"):
+        raise ValueError(f"unknown quantization format {fmt!r}")
+    layers = dict(params["layers"])
+    for key in QUANTIZABLE:
+        if key in layers:
+            layers[key] = _quantize_leaf(layers[key], fmt, group_size)
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def num_weights(params: Any) -> int:
+    """Model weight count, packed int4 counted unpacked, scales excluded."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, QTensor4):
+            total += 2 * leaf.q.numel()
+        elif isinstance(leaf, QTensor):
+            total += leaf.q.numel()
+        else:
+            total += leaf.numel()
+    return total
+
+
+def weight_bits(params: Any) -> int:
+    """Dominant layer-projection weight width in bits (4 / 8 / 16)."""
+    layers = params.get("layers", params) if isinstance(params, dict) else params
+    leaves = layers.values() if isinstance(layers, dict) else [layers]
+    bits = 16
+    for leaf in leaves:
+        if isinstance(leaf, QTensor4):
+            return 4
+        if isinstance(leaf, QTensor):
+            bits = 8
+    return bits

@@ -87,6 +87,7 @@ import torch
 from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..models import DecoderConfig, EncoderConfig, encoder, llama
+from ..ops.quant import check_kernel_params, weight_bits
 from ..ops.sampling import gumbel_noise, noise_width, sample_logits
 from .faults import FaultInjected, FaultInjector
 from .kv_pool import PageAllocator, SharedPrefix
@@ -316,8 +317,13 @@ class GenerationEngine:
         # the observability plane: None is the A/B off arm (no recorder
         # object at all; the hot path pays one `is None` check)
         self.obs = EngineObs(name=name, dump_dir=obs_dump_dir) if obs else None
+        if self.device.type == "cuda":
+            check_kernel_params(params, cfg.dtype)
         self.cfg = cfg
         self.params = params
+        # dominant layer-projection weight width (16 / 8 / 4), as the JAX
+        # engine reports it
+        self.weight_bits = weight_bits(params)
         self.tokenizer = tokenizer
         self.max_slots = max_slots
         self.max_seq_len = int(min(max_seq_len or cfg.max_seq_len, cfg.max_seq_len))
@@ -746,12 +752,14 @@ class GenerationEngine:
 
     def decode_path_stats(self) -> Dict[str, Any]:
         """Which decode path is active: the fused depth (the JAX engine's
-        ``decode_steps_effective`` key; the port never lowers it), the CUDA
-        graphs, and the piggybacked-prefill gauges (chunks that rode a tick,
+        ``decode_steps_effective`` key; the port never lowers it), the
+        weight format's width in bits (16, 8 or 4), the CUDA graphs, and the
+        piggybacked-prefill gauges (chunks that rode a tick,
         and the fraction of ticks that waited on a chunk of their own)."""
         return {
             "decode_steps": self.decode_steps,
             "decode_steps_effective": self.decode_steps,
+            "weight_bits": self.weight_bits,
             "cuda_graph": self._graph is not None,
             "prefill_piggyback": self.prefill_piggyback,
             "prefill_chunks_piggybacked": self._prefill_chunks_piggybacked,

@@ -6,7 +6,9 @@ A config maps model names to spec dicts, as in the JAX package.
 the fields the port implements, with the JAX spec's defaults (prefix
 sharing, the observability plane and crash-only supervision included).  An
 encoder spec that sets a decoder-only knob is refused, as the JAX registry
-refuses it.  Keys of the JAX ``ModelSpec`` that are not ported yet are
+refuses it.  ``quantize`` ("int8" / "int4", with ``quant_group_size``)
+quantizes a decoder's layer projections on the host before placement, as
+the JAX registry does.  Keys of the JAX ``ModelSpec`` that are not ported yet are
 accepted only at the value the port implements and refused otherwise,
 naming their ROADMAP item; keys the JAX spec does not know are refused too.
 """
@@ -36,7 +38,6 @@ _DEFERRED: Dict[str, tuple] = {
     "autoscale": (False, "Queue 1 item 12 (autoscaler)"),
     "pool": ("unified", "Queue 1 item 13 (cross-host fleet)"),
     "replica_devices": (0, "Queue 1 item 15 (parallelism)"),
-    "quantize": (None, "Queue 2 entry 3 (int8/int4 qeinsum)"),
     "kv_cache_dtype": (None, "Queue 2 entry 5 (fp8 KV)"),
     "attn_fp8": (False, "Queue 2 entry 5 (fp8 KV)"),
 }
@@ -45,7 +46,6 @@ _ABSENT = object()  # knobs of unported features: refused whenever present
 _DEFERRED_FAMILIES = (
     (("spec_",), "Queue 1 item 9 (speculative decoding)"),
     (("kv_host_writethrough", "router_", "autoscale_"), "Queue 1 item 12 (tiered KV, router, autoscaler)"),
-    (("quant_group_size",), "Queue 2 entry 3 (int8/int4 qeinsum)"),
 )
 # decoder-only knobs the JAX registry refuses on an encoder: key -> test of
 # a value that sets it (the JAX checks' own truthiness)
@@ -65,6 +65,58 @@ _DECODER_ONLY = {
     "pool": lambda v: v != "unified",
 }
 _KINDS = ("decoder", "encoder")
+_QUANT_BITS = {"int8": 8, "int4": 4}
+
+
+def _check_quantize(spec: "ModelSpec") -> None:
+    """The JAX registry's quantization checks, with its messages."""
+    name = spec.name.lower()
+    if spec.quantize and spec.kind == "encoder":
+        raise ValueError(
+            f"model {name}: quantize={spec.quantize!r} is decoder-only "
+            "(encoders are compute-bound, not weight-read-bound)"
+        )
+    if spec.quantize and spec.quantize not in _QUANT_BITS:
+        raise ValueError(f"model {name}: unknown quantize={spec.quantize!r}")
+    if spec.quant_group_size < 2 or spec.quant_group_size % 2:
+        raise ValueError(
+            f"model {name}: quant_group_size must be an even int >= 2 "
+            f"(got {spec.quant_group_size})"
+        )
+
+
+def _apply_quantize(spec: "ModelSpec", params: Dict[str, Any]) -> Dict[str, Any]:
+    """``spec.quantize`` on dense params: quantize every layer projection on
+    the host, one leaf (and one layer) at a time.  Params that are already
+    quantized follow the JAX rules: the same format is a no-op (a warning
+    when the spec's int4 group size differs from theirs), another one is a
+    configuration error."""
+    from ..ops.quant import QTensor4, quantize_decoder_params, weight_bits
+
+    name = spec.name.lower()
+    bits, want = weight_bits(params), _QUANT_BITS[spec.quantize]
+    if bits == 16:
+        return quantize_decoder_params(params, fmt=spec.quantize, group_size=spec.quant_group_size)
+    if bits != want:
+        raise ValueError(
+            f"model {name}: checkpoint is already quantized (int{bits}) but the spec asks for "
+            f"quantize={spec.quantize!r}; re-convert the checkpoint in the desired format or "
+            "drop the knob"
+        )
+    logger.info("model %s: checkpoint is already %s-quantized; quantize=%r is a no-op",
+                name, spec.quantize, spec.quantize)
+    groups = {w.group_size for w in params["layers"].values() if isinstance(w, QTensor4)}
+    if groups and groups != {spec.quant_group_size}:
+        logger.warning("model %s: quant_group_size=%d has no effect: the checkpoint was packed "
+                       "at group size(s) %s; re-convert to change it",
+                       name, spec.quant_group_size, sorted(groups))
+    return params
+
+
+def _params_to(params: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """Every leaf (tensor or quantized weight) moved to ``device``."""
+    return {k: _params_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in params.items()}
 
 
 def _deferred(key: str):
@@ -86,6 +138,10 @@ class ModelSpec:
     tiny: bool = False
     dtype: str = "bfloat16"
     device: str = "cuda"
+    # weight-only quantization of the layer projections: None, "int8" (per
+    # output channel) or "int4" (per quant_group_size rows and channel)
+    quantize: Optional[str] = None
+    quant_group_size: int = 64
     max_slots: int = 8
     max_seq_len: Optional[int] = None
     chunk_size: int = 512
@@ -155,6 +211,8 @@ class ModelSpec:
             if key == "name":
                 continue
             if d.get("kind") == "encoder" and key in _DECODER_ONLY and _DECODER_ONLY[key](value):
+                if key == "quantize":
+                    _check_quantize(cls(name=name, kind="encoder", quantize=value))
                 raise ValueError(f"model {name}: {key} is decoder-only")
             deferred = _deferred(key)
             if deferred is not None:
@@ -169,6 +227,7 @@ class ModelSpec:
                 raise ValueError(f"model {name}: unknown spec key {key!r}")
             kwargs[key] = value
         spec = cls(name=name, **kwargs)
+        _check_quantize(spec)
         if spec.dtype not in _DTYPES:
             raise ValueError(f"model {name}: dtype must be one of {sorted(_DTYPES)}")
         if spec.decode_steps < 0:
@@ -272,6 +331,7 @@ class ModelRegistry:
         from .tokenizer import load_tokenizer
 
         name = spec.name.lower()
+        _check_quantize(spec)
         if spec.kind == "encoder":
             return self._load_encoder(name, spec, engine)
         if engine is None:
@@ -280,7 +340,10 @@ class ModelRegistry:
             device = resolve_device(spec.device)
             dtype = _DTYPES[spec.dtype]
             if spec.path:
-                cfg, params = load_decoder(spec.path, dtype=dtype, device=device)
+                # quantized on the host before placement: the card never
+                # holds the stacked dense weights
+                cfg, params = load_decoder(spec.path, dtype=dtype,
+                                           device="cpu" if spec.quantize else device)
             elif spec.tiny:
                 cfg = DecoderConfig.tiny()
                 if spec.max_seq_len and spec.max_seq_len > cfg.max_seq_len:
@@ -290,6 +353,8 @@ class ModelRegistry:
                 params = llama.init(cfg, gen, device)
             else:
                 raise ValueError(f"model {name}: need path or tiny=true")
+            if spec.quantize:
+                params = _params_to(_apply_quantize(spec, params), device)
             engine = GenerationEngine(
                 cfg, params, load_tokenizer(spec.path), device=device, **spec.engine_kwargs()
             )

@@ -175,6 +175,9 @@ def test_spec_refuses_unported_keys(key, value, item):
     if key == "kind":
         # Queue 1 item 7 (embeddings) is ported: an encoder spec is accepted
         assert ModelSpec.from_dict("m", spec).kind == "encoder"
+    elif key == "quantize":
+        # Queue 2 entry 3 (int8/int4 qeinsum) is ported: the spec is accepted
+        assert ModelSpec.from_dict("m", spec).quantize == "int8"
     else:
         with pytest.raises(NotImplementedError, match=item):
             ModelSpec.from_dict("m", spec)

@@ -32,6 +32,7 @@ import torch
 from django_assistant_bot_tpu_torch import kernels
 from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
 from django_assistant_bot_tpu_torch.ops.attention import paged_gqa_decode_attention
+from django_assistant_bot_tpu_torch.ops.quant import QUANTIZABLE, quantize_decoder_params
 from django_assistant_bot_tpu_torch.ops.sampling import gumbel_noise
 from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
 
@@ -51,9 +52,11 @@ def _cfg(dtype):
     )
 
 
-def _engine(dtype, device="cuda", **kw):
+def _engine(dtype, device="cuda", fmt=None, **kw):
     cfg = _cfg(dtype)
     params = llama.init(cfg, torch.Generator().manual_seed(3), "cpu")
+    if fmt is not None:  # int8 / int4 projections: the qgemm kernel on the card
+        params = quantize_decoder_params(params, fmt)
     params = {k: ({n: w.to(device) for n, w in v.items()} if isinstance(v, dict) else v.to(device))
               for k, v in params.items()}
     kw.setdefault("chunk_size", 512)
@@ -167,14 +170,14 @@ def test_replays_count_their_launches(dtype, route):
     eng = _engine(dtype)
     for rec in (eng._graph_launches, eng._piggyback_launches):
         assert rec.launches == {"flash_prefill": 0, "paged_decode": K * eng.cfg.num_layers,
-                                "knn_topk": 0}
-        assert rec.routes[route] == K * eng.cfg.num_layers
+                                "knn_topk": 0, "qgemm": 0}
+        assert rec.sub["paged_decode"][route] == K * eng.cfg.num_layers
     _mid_decode(eng, torch.Generator(device="cuda").manual_seed(4))
     kernels.reset_counts()
     for piggyback in (False, True, False):
         eng._launch_tick(piggyback)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"flash_prefill": 0, "knn_topk": 0,
+    assert kernels.launch_counts() == {"flash_prefill": 0, "knn_topk": 0, "qgemm": 0,
                                        "paged_decode": 3 * K * eng.cfg.num_layers}
     assert kernels.PAGED_ROUTES[route] == 3 * K * eng.cfg.num_layers
     (part, counters), = eng._graph_scratch.values()
@@ -319,3 +322,49 @@ def test_replay_after_in_place_restart_equals_fresh_engine():
     assert torch.equal(eng._cache.k[:, :P], fresh._cache.k[:, :P])
     assert torch.equal(eng._cache.v[:, :P], fresh._cache.v[:, :P])
     assert torch.equal(eng._cache.lengths, fresh._cache.lengths)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantized_replay_bitwise_equal_to_eager_and_counted(dtype, fmt):
+    """Quantized projections in the captured tick: a replay equals the K
+    steps run eagerly bitwise (the qgemm partials sum in a fixed order),
+    and each replay counts 7 qgemm launches a layer a step, by format."""
+    eng = _engine(dtype, fmt=fmt)
+    L = eng.cfg.num_layers
+    assert eng._graph_launches.launches["qgemm"] == len(QUANTIZABLE) * L * K
+    assert eng._graph_launches.sub["qgemm"][fmt] == len(QUANTIZABLE) * L * K
+    assert eng.decode_path_stats()["weight_bits"] == (8 if fmt == "int8" else 4)
+    _mid_decode(eng, torch.Generator(device="cuda").manual_seed(1))
+    before, replayed, eager = _replay_vs_eager(eng, eng._graph, [eng._tick_body])
+    for name, got, want in zip(("k", "v", "lengths", "tokens", "toks"), replayed, eager):
+        assert torch.equal(got, want), name
+    kernels.reset_counts()
+    eng._launch_tick(False)
+    eng._launch_tick(True)
+    torch.cuda.synchronize()
+    assert kernels.QGEMM_FORMATS[fmt] == 2 * len(QUANTIZABLE) * L * K + len(QUANTIZABLE) * L
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_quantized_engine_on_the_card_matches_the_cpu(fmt):
+    """f32 int8 / int4 engines: greedy ids on the card (graph ticks, a
+    piggybacked chunk, the qgemm kernel) equal the CPU engine's (plain)."""
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 255, (n,), generator=gen).tolist() for n in (40, 300, 700)]
+
+    def run(device):
+        eng = _engine(torch.float32, device=device, fmt=fmt)
+        eng._running = True
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts[:2]]
+        eng._loop_iteration()
+        futs.append(eng.submit(prompts[2], max_tokens=16, temperature=0.0))
+        _crank(eng, futs)
+        return [f.result(timeout=0).token_ids for f in futs], eng.decode_path_stats()
+
+    kernels.reset_counts()
+    card, dec = run("cuda")
+    assert kernels.launch_counts()["qgemm"] > 0
+    cpu, _ = run("cpu")
+    assert card == cpu
+    assert dec["cuda_graph"] and dec["prefill_chunks_piggybacked"] > 0

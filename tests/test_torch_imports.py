@@ -15,7 +15,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert "django_assistant_bot_tpu_torch.serving.scheduler" in names
-for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check"):
+for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check", "ops.quant"):
     assert "django_assistant_bot_tpu_torch." + new in names, new
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))

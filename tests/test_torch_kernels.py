@@ -23,6 +23,14 @@ from django_assistant_bot_tpu_torch.ops.attention import (
     paged_gqa_decode_attention,
     paged_gqa_decode_attention_plain,
 )
+from django_assistant_bot_tpu_torch.ops.quant import (
+    QTensor,
+    QTensor4,
+    deq,
+    qeinsum,
+    qeinsum_plain,
+    qgemm_bf16_bound,
+)
 from django_assistant_bot_tpu_torch.storage import VectorIndex, topk_scores
 from django_assistant_bot_tpu_torch.storage.knn_check import topk_agreement
 
@@ -400,3 +408,89 @@ def test_vector_index_on_the_card_matches_the_cpu():
                 compared += 1
     assert compared >= 400
     assert {i for i, _ in out["cuda"][1]} == {i for i, _ in out["cpu"][1]} == {7, 99, 5003, 2999}
+
+
+# ------------------------------------------------------------------ qgemm
+def _qweight(K, N, fmt, g, seed):
+    """Random int8 (per-column scales) or packed int4 (per-group scales)
+    weights on the card, scales spread over two decades."""
+    gen = torch.Generator().manual_seed(seed)
+    if fmt == "int8":
+        q = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
+        scale = torch.exp(torch.rand((1, N), generator=gen) * 4.6) * 1e-4
+        return QTensor(q.cuda(), scale.cuda())
+    q = torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8)
+    scale = torch.exp(torch.rand((K // g, N), generator=gen) * 4.6) * 1e-3
+    return QTensor4(q.cuda(), scale.cuda())
+
+
+def _check_qgemm(M, K, N, fmt, g, dtype, seed=0):
+    w = _qweight(K, N, fmt, g, seed)
+    x = torch.randn((M, K), generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda").to(dtype)
+    out = qeinsum("me,eo->mo", x, w, dtype)
+    ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (M, N) and bool(torch.isfinite(out).all())
+    if dtype == torch.bfloat16:
+        bound = qgemm_bf16_bound(x.float(), w, ref)
+    else:  # summation order only, relative to |x| . |deq w|
+        bound = F32_TOL * torch.matmul(x.abs(), deq(w, torch.float32).abs()) + 1e-6
+    err = (out.float() - ref).abs()
+    assert bool((err <= bound).all()), (err / bound).max().item()
+    return x, w, out
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (4096, 1040), (4096, 1032)])
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 200, 512])
+@pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64), ("int4", 128)])
+def test_qgemm_kernel_matches_plain_bf16(fmt, g, M, K, N):
+    """bf16 at the projection shapes of Llama-3-8B and two ragged widths
+    (N = 1032 is off the tile kernel's multiple of 16, so M > 64 takes the
+    direct-load kernel there), against the f32 plain twin within
+    ``qgemm_bf16_bound``."""
+    _check_qgemm(M, K, N, fmt, g, torch.bfloat16)
+
+
+@pytest.mark.parametrize("K,N", [(256, 512), (512, 256), (4096, 1040)])
+@pytest.mark.parametrize("M", [1, 8, 37, 300])
+@pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 16), ("int4", 64)])
+def test_qgemm_kernel_matches_plain_f32(fmt, g, M, K, N):
+    _check_qgemm(M, K, N, fmt, g, torch.float32)
+
+
+@pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64)])
+def test_qgemm_kernel_repeats_bitwise_and_counts_its_format(fmt, g):
+    x, w, out = _check_qgemm(8, 4096, 4096, fmt, g, torch.bfloat16, seed=3)
+    kernels.reset_counts()
+    again = qeinsum("me,eo->mo", x, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)  # the split-K partials sum in a fixed order
+    assert kernels.launch_counts()["qgemm"] == 1
+    assert kernels.QGEMM_FORMATS == {"int8": int(fmt == "int8"), "int4": int(fmt == "int4")}
+
+
+def test_qgemm_kernel_refuses_what_it_does_not_take():
+    gen = torch.Generator().manual_seed(1)
+    w24 = QTensor4(torch.randint(0, 256, (24, 64), generator=gen, dtype=torch.uint8).cuda(),
+                   torch.rand((2, 64), generator=gen).cuda())  # K 48, group 24
+    x = torch.randn((2, 48), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="group size 24"):
+        qeinsum("me,eo->mo", x, w24, torch.bfloat16)
+    w = _qweight(64, 64, "int8", 0, 2)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qeinsum("me,eo->mo", torch.randn((2, 64), device="cuda").half(), w, torch.float16)
+    with pytest.raises(ValueError, match="activations are"):
+        qeinsum("me,eo->mo", torch.randn((2, 64), device="cuda"), w, torch.bfloat16)
+    narrow = QTensor(w.q[:, :60], w.scale[:, :60])
+    with pytest.raises(ValueError, match="multiple"):
+        qeinsum("me,eo->mo", torch.randn((2, 64), device="cuda"), narrow, torch.float32)
+    # a pattern outside x[..., in] . w[in, out] raises on the card (the CPU
+    # dequantizes, as JAX does): no plain product runs on a CUDA tensor
+    for pattern in ("bse,oe->bso", "...e,ve->...v"):
+        with pytest.raises(ValueError, match=f"refuses {pattern!r}.*only"):
+            qeinsum(pattern, torch.randn((1, 2, 64), device="cuda"), w, torch.float32)
+    w4 = _qweight(64, 64, "int4", 16, 2)
+    with pytest.raises(ValueError, match="only"):
+        qeinsum("bse,oe->bso", torch.randn((1, 2, 64), device="cuda"), w4, torch.float32)
