@@ -17,14 +17,16 @@ exits non-zero):
    function, that call's time (a yardstick only; the port never calls it);
    ``ms`` is the wall time per call over back-to-back calls (CUDA events),
    ``device_ms`` the summed kernel time per call (torch.profiler); the
-   HMMA / LDGSTS counts of the libraries; for paged decode also the main
-   path's own decode shape and a bitwise repeat check (``paged_live_keys``
-   and ``paged_bound_ms`` are also imported by ``tools/paged_decode_ab.py``);
+   HMMA / LDGSTS / HGMMA / UTMALDG / SYNCS counts of the libraries; for
+   paged decode also the main path's own decode shape and a bitwise repeat
+   check (``paged_live_keys`` and ``paged_bound_ms`` are also imported by
+   ``tools/paged_decode_ab.py``);
    the KNN score + top-k at the RAG corpus (1,048,576 x 768, Q 8 / 32 /
    128, k 16 / 1024, all rows and a 1% allow-list) and at 4,096 x 64; the
    weight-only GEMM (``qgemm``, int8 and int4 at groups 64 and 128) at
-   Llama-3-8B's projection shapes, M 1 / 8 / 37 / 512, and its time at M 8
-   and 512 beside cuBLAS on the dequantized weight;
+   Llama-3-8B's projection shapes, M 1 / 8 / 37 / 65 / 512 / 2048, and its
+   time at M 8 and 512 (gate/up and down also 2048) beside cuBLAS on the
+   dequantized weight;
 3. small f32 models on the card (kernels) against the same models on the
    CPU (plain twins): the decoder's prefill logits and the engine's greedy
    token ids at the default loop (on the card the fused 8-step tick
@@ -66,8 +68,9 @@ exits non-zero):
 7. int8 and then int4 Llama-3-8B (``init_int8`` / ``init_int4``, 32
    layers, full width) behind ``/dialog/`` with ``quantize`` set
    (:func:`quant_phase`): phase 4's four requests, qgemm launches = 7 x 32
-   x (decode steps + prefill forwards), ``weight_bits`` in ``/healthz`` and
-   ``/metrics``, the weight bytes on the card, readings over 6 runs and
+   x (decode steps + prefill forwards), every one on a tensor-core route
+   and the prefill (wgmma) kernel among them, ``weight_bits`` in
+   ``/healthz`` and ``/metrics``, the weight bytes on the card, readings over 6 runs and
    the decode breakdown;
 8. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
    line, and the final ``{"ok": true, ...}`` line.
@@ -271,7 +274,8 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
-    r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_f32_kernel)I(\w*?)EEv"
+    r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
+    r"|qgemm_f32_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel)E")
 
@@ -300,21 +304,35 @@ def ptxas_table(text: str) -> list:
     return rows
 
 
-def sass_counts(lib: Path) -> str:
-    """HMMA (tensor-core product) and LDGSTS (asynchronous global-to-shared
-    copy) instructions per kernel in ``lib``'s SASS, by ``cuobjdump``."""
+SASS_OPS = ("HMMA", "LDGSTS", "HGMMA", "UTMALDG", "SYNCS")
+
+
+def sass_table(lib: Path) -> dict:
+    """Per kernel in ``lib``'s SASS (``cuobjdump``), the count of each of
+    ``SASS_OPS``: HMMA (``mma.sync``), LDGSTS (``cp.async``), HGMMA
+    (``wgmma``), UTMALDG (a TMA load) and SYNCS (mbarrier operations).
+    Empty if ``cuobjdump`` is missing."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return "cuobjdump not found"
+        return {}
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120).stdout
-    counts = []
+    table = {}
     for chunk in sass.split("Function : ")[1:]:
         label = kernel_label(chunk.split(None, 1)[0])
-        counts.append(f"{label}: HMMA {chunk.count('HMMA')}, LDGSTS {chunk.count('LDGSTS')}")
-    return "; ".join(counts) or "no kernels in the SASS"
+        table[label] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
+    return table
+
+
+def sass_counts(lib: Path) -> str:
+    """``sass_table`` as one line."""
+    table = sass_table(lib)
+    if not table:
+        return "cuobjdump not found or no kernels in the SASS"
+    return "; ".join(f"{label}: " + ", ".join(f"{op} {n}" for op, n in counts.items())
+                     for label, counts in table.items())
 
 
 def check_flash(gen) -> dict:
@@ -724,26 +742,30 @@ def _qgemm_case(M, K, N, fmt, group, dtype, gen) -> tuple:
 
 def check_qgemm(gen) -> list:
     """``qgemm`` against ``qeinsum_plain`` on the card: int8 and int4 at
-    groups 64 and 128, M in {1, 8, 37, 512}, at the four projection shapes
-    and two ragged widths (N = 1040, not a multiple of the 64-column tile,
-    and 1032, where M = 512 takes the direct-load kernel), in
-    bf16 (``qgemm_bf16_bound``) and f32 (1e-4 relative to A); the int8 head
-    (4096 x 128,256) at M = 8.  Then its time at M = 8 and 512 per shape
-    and format (the weights rotated over >= 256 MB of copies, so every call
-    reads them from HBM, as the decode step does), beside its bound, the
-    plain twin and the library (cuBLAS on the pre-dequantized bf16 weight,
-    ``torch.matmul``; a yardstick only)."""
+    groups 64 and 128, M in {1, 8, 37, 65, 512, 2048}, at the four
+    projection shapes and two ragged widths (N = 1040, not a multiple of the
+    64-column tile, and 1032, where M > 64 takes the direct-load kernel: TMA
+    needs N a multiple of 16), in bf16 (``qgemm_bf16_bound``; the worst
+    err/bound printed per format) and f32 (1e-4 relative to A); the int8
+    head (4096 x 128,256) at M = 8.  Fails unless the prefill kernel's SASS
+    holds wgmma (HGMMA) and TMA loads (UTMALDG).  Then its time at M = 8
+    and 512 per shape and format, and at M = 2048 for gate/up and down (the
+    weights rotated over >= 256 MB of copies, so every call reads them from
+    HBM, as the decode step does), beside its bound, the plain twin and the
+    library (cuBLAS on the pre-dequantized bf16 weight, ``torch.matmul``; a
+    yardstick only)."""
     import torch
 
     from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.ops.quant import (
         QGEMM_BF16_BOUND_TEXT, deq, qeinsum, qeinsum_plain)
 
-    worst = {"int8": 0.0, "int4": 0.0}
+    worst = {"int8": 0.0, "int4": 0.0, "prefill_int8": 0.0, "prefill_int4": 0.0}
+    worst_ratio = {"int8": 0.0, "int4": 0.0}
     cases = [(fmt, g, M, K, N, torch.bfloat16)
              for fmt, g in (("int8", 0), ("int4", 64), ("int4", 128))
              for _, K, N, _ in QGEMM_SHAPES + [("ragged", 4096, 1040, 0), ("ragged", 4096, 1032, 0)]
-             for M in (1, 8, 37, 512)]
+             for M in (1, 8, 37, 65, 512, 2048)]
     cases += [(fmt, g, M, K, N, torch.float32) for fmt, g in (("int8", 0), ("int4", 64))
               for K, N in ((4096, 4096), (4096, 1040)) for M in (1, 8, 37)]
     cases.append(("int8", 0, 8, *QGEMM_HEAD, torch.bfloat16))
@@ -756,12 +778,23 @@ def check_qgemm(gen) -> list:
         if not ratio <= 1.0:
             fail(f"qgemm {fmt} M={M} K={K} N={N} disagrees with its plain twin: {ratio} > 1")
         if dtype == torch.bfloat16:
-            worst[fmt] = max(worst[fmt], err)
+            bits = 8 if fmt == "int8" else 4
+            key = f"prefill_{fmt}" if kernels.qgemm_plan(M, N, K, bits, g)[1] == 8 else fmt
+            worst[key] = max(worst[key], err)
+            worst_ratio[fmt] = max(worst_ratio[fmt], ratio)
+    for fmt in ("int8", "int4"):
+        log(f"  qgemm {fmt} bf16: worst err/bound {worst_ratio[fmt]:.3f} over its cases "
+            f"(bound {QGEMM_BF16_BOUND_TEXT[8 if fmt == 'int8' else 4]})")
+    sass = sass_table(kernels.lib_path("qgemm"))
     log(f"  qgemm SASS: {sass_counts(kernels.lib_path('qgemm'))}")
+    prefill = {label: c for label, c in sass.items() if label.startswith("qgemm_wgmma_kernel")}
+    if not prefill or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in prefill.values()):
+        fail(f"qgemm's prefill kernel shows no wgmma or no TMA load in its SASS: {prefill}")
 
     entries = {}
     rows = [(fmt, g, label, K, N, per, M) for fmt, g in (("int8", 0), ("int4", 64))
-            for label, K, N, per in QGEMM_SHAPES for M in (8, 512)]
+            for label, K, N, per in QGEMM_SHAPES
+            for M in ((8, 512, 2048) if label in ("gate/up", "down") else (8, 512))]
     rows.append(("int8", 0, "head", *QGEMM_HEAD, 0, 8))
     for fmt, g, label, K, N, per, M in rows:
         bits = 8 if fmt == "int8" else 4
@@ -779,7 +812,7 @@ def check_qgemm(gen) -> list:
             itd[0] = (itd[0] + 1) % len(wds)
             return torch.matmul(x, wds[itd[0]])
 
-        iters = 50 if M == 8 else 20
+        iters = {8: 50, 512: 20}.get(M, 10)
         ms, dev = timed(kernel, iters)
         library_ms = time_ms(library, iters)
         plain_ms = time_ms(lambda: qeinsum_plain("me,eo->mo", x, ws[0], torch.bfloat16), 3)
@@ -792,19 +825,22 @@ def check_qgemm(gen) -> list:
             f"({bound_by}); share of the bound: wall {bound_ms / ms:.3f}, device "
             f"{bound_ms / dev:.3f}, library {bound_ms / library_ms:.3f}; {per} launches a "
             f"layer a decode step")
-        if (label, M) == ("gate/up", 8):
-            entries[fmt] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=library_ms)
+        if label == "gate/up" and M in (8, 512):
+            entries[fmt if M == 8 else f"prefill_{fmt}"] = dict(
+                ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
         del ws, wds
     torch.cuda.empty_cache()
+    # the decode kernel (qgemm_mma_kernel, timed at M = 8) and the prefill
+    # kernel (qgemm_wgmma_kernel, timed at M = 512), each at gate/up
     return [{
-        "name": f"qgemm_{fmt}",
+        "name": f"qgemm_{key}",
         "route": "cuda",
         "source": f"{PKG}/csrc/qgemm.cu",
         "replaces": "django_assistant_bot_tpu/ops/quant.py:160",
-        "max_abs_err": worst[fmt],
-        **entries[fmt],
-    } for fmt in ("int8", "int4")]
+        "max_abs_err": worst[key],
+        **entries[key],
+    } for key in ("int8", "int4", "prefill_int8", "prefill_int4")]
 
 
 # --------------------------------------------------------------------- phase 3
@@ -1953,7 +1989,8 @@ def quant_phase(card: str) -> dict:
     bytes on the card as computed.  Readings over 5 more runs of the four
     (medians and spreads): TTFT, decode tok/s per request; then the decode
     breakdown (the eager step profiled, the replayed tick per step).
-    Returns the qgemm launches of each format's counted run."""
+    Returns the qgemm launches of each format's counted run by kernel:
+    ``decode`` (the direct-load kernel) and ``prefill`` (wgmma)."""
     import aiohttp
     import torch
     from aiohttp import web
@@ -2028,6 +2065,7 @@ def quant_phase(card: str) -> dict:
                         wall = time.perf_counter() - t
                         runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
                                          formats=dict(kernels.QGEMM_FORMATS),
+                                         routes=dict(kernels.QGEMM_ROUTES),
                                          steps=engine.steps - steps0, forwards=forwards[0]
                                          + engine._prefill_chunks_piggybacked - pig0))
                     health = await (await session.get(f"http://127.0.0.1:{port}/healthz")).json()
@@ -2049,12 +2087,18 @@ def quant_phase(card: str) -> dict:
             rates += r
         counts, steps, fwd = first["counts"], first["steps"], first["forwards"]
         want_q = 7 * cfg.num_layers * (steps + fwd)
-        log(f"  {fmt} main path on {card}: launches {counts}, by format {first['formats']}; "
-            f"{steps} decode steps, {fwd} prefill forwards: qgemm {counts['qgemm']} "
-            f"(7 x {cfg.num_layers} x ({steps} + {fwd}) = {want_q})")
+        routes = first["routes"]
+        log(f"  {fmt} main path on {card}: launches {counts}, by format {first['formats']}, "
+            f"by route {routes}; {steps} decode steps, {fwd} prefill forwards: qgemm "
+            f"{counts['qgemm']} (7 x {cfg.num_layers} x ({steps} + {fwd}) = {want_q})")
         if counts["qgemm"] != want_q or first["formats"][fmt] != want_q:
             fail(f"{fmt}: qgemm launches {counts['qgemm']} != 7 x {cfg.num_layers} x "
                  f"({steps} steps + {fwd} prefill forwards)")
+        # decode steps (8 rows) take the direct-load kernel, prefill chunks
+        # past 64 rows the wgmma kernel
+        if routes["wgmma"] <= 0 or routes["mma"] + routes["wgmma"] != want_q:
+            fail(f"{fmt}: qgemm routes {routes}: the prefill kernel never ran, or a launch "
+                 f"took neither tensor-core route")
         if counts["paged_decode"] != cfg.num_layers * steps or counts["flash_prefill"] <= 0:
             fail(f"{fmt}: paged or flash launches wrong: {counts}")
         bits = {"int8": 8, "int4": 4}[fmt]
@@ -2069,7 +2113,7 @@ def quant_phase(card: str) -> dict:
             f"{_stat(ttfts)}; decode {_stat(rates, 'tok/s')} per request; run wall "
             f"{_stat([r['wall'] for r in runs])}")
         decode_breakdown(cfg, params, engine, label=f"{fmt} ")
-        launches[fmt] = counts["qgemm"]
+        launches[fmt] = {"decode": routes["mma"], "prefill": routes["wgmma"]}
         del engine, registry, params, proj
         gc_collect()
     return launches
@@ -2133,8 +2177,10 @@ def main() -> int:
     # decode on phase 4's requests, the KNN on phase 6's RAG requests, qgemm
     # on phase 7's requests in its format
     for e in entries:
-        if e["name"].startswith("qgemm_"):
-            e["launches"] = q_counts[e["name"][len("qgemm_"):]]
+        if e["name"].startswith("qgemm_prefill_"):
+            e["launches"] = q_counts[e["name"][len("qgemm_prefill_"):]]["prefill"]
+        elif e["name"].startswith("qgemm_"):
+            e["launches"] = q_counts[e["name"][len("qgemm_"):]]["decode"]
         else:
             e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
     log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "

@@ -45,24 +45,35 @@
 // int8 and int4 values are exact in bf16.
 //   A block is four warps on 64 output columns.  For M <= 16 the warps split
 // the block's K range four ways; for larger M they take four slabs of rows
-// of x (the same weights, read from L1).  Past 64 rows (prefill) with N a
-// multiple of 16, `qgemm_tile_kernel` takes the call instead: eight warps on
-// 128 x 128 outputs, the integer and x tiles brought through a 3-stage
-// `cp.async` ring in shared memory, each integer tile dequantized once by
-// the whole block into a bf16 tile that the warps read with `ldmatrix`
-// (direct loads, and a dequantization repeated by every warp along M, left
-// the tensor cores waiting there).  K is further split across blocks
+// of x (the same weights, read from L1).  K is further split across blocks
 // (grid z) until the grid fills the card; each block sums its warps in
 // shared memory in a fixed order, writes one f32 partial, and the block
 // that completes a tile's counter sums the partials in split order, applies
 // the epilogue and resets the counter (one launch, no memset, and the same
 // sums in the same order on every call).
+//   Past 64 rows (prefill) the products are bound by operations, and only
+// `wgmma` reaches the tensor cores' rate: with N a multiple of 16 (a TMA
+// row stride is a multiple of 16 bytes; N = 1032 keeps the direct-load
+// kernel) `qgemm_wgmma_kernel` takes the call.  It computes y^T = W^T x^T:
+// the integers become wgmma's A operand straight from registers (each warp
+// loads its 16 columns of W with `ldmatrix.trans`, the columns permuted so
+// that a thread's two A rows are one byte pair, and dequantizes them as
+// above), and x's tile is the B operand in shared memory, 128-byte
+// swizzled by TMA, so no bf16 copy of W is written; two consumer
+// warpgroups take 64 columns of W each.  A producer warp keeps a 4-stage
+// ring of TMA loads in flight (x's tile, the integer tile, int4's scale
+// rows with it, so no global load is left in the inner loop).  K splits
+// on group boundaries and the partials go through the same kind of counter
+// as the direct-load kernel's, so small N fills the card with one launch
+// and replays equal eager calls bit for bit.
 // The f32 route (`qgemm_f32_kernel`, the small f32 parity models) runs on
 // the CUDA cores, one output column a thread, 8 rows of x a block.
 //
-// Not done here (later work): wgmma and TMA, a repacked weight layout (one
-// wide load per fragment at decode), and QKV or gate/up in one launch.
+// Not done here (later work): a repacked weight layout (one wide load per
+// fragment at decode), QKV or gate/up in one launch, a persistent prefill
+// grid, and TMA multicast of x across a cluster.
 
+#include <cuda.h>  // CUtensorMap (its encoder is looked up at run time: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -337,235 +348,562 @@ qgemm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   finish_tile<TILE_N>(vals, epi, y, scratch, counters, M, N, BM, ksplit);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
 
+// one arrival that also expects `bytes` of TMA transactions before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed; a
+// barrier that never completes (a byte count that TMA does not deliver)
+// traps after ~2^28 tries, so the launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// a 2-D TMA box (coordinates innermost first) into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the consumers' named barrier (id 1; 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
 }
 
-constexpr int TILE_THREADS = 256;  // eight warps
-constexpr int TILE_BN = 128, TILE_BM = 128, TILE_KT = 32, TILE_STAGES = 3;
-constexpr int TILE_WSTRIDE = TILE_BN + 16;  // bytes a row of the integer tile
-constexpr int TILE_XSTRIDE = TILE_KT + 8;   // bf16 a row of x's tile
-constexpr int TILE_BSTRIDE = TILE_BN + 8;   // bf16 a row of the dequantized tile
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// keep the compiler from moving accesses of an accumulator across a wgmma fence or wait
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// a wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// int4 bytes 0 and 1 of w (sel 0x4140) or 2 and 3 (0x4342) as two bf16x2:
-// {low nibbles} and {high nibbles}, each a signed value
-__device__ __forceinline__ void i4_columns(uint32_t w, uint32_t sel, uint32_t& lo, uint32_t& hi) {
-  const uint32_t t = __byte_perm(w, 0u, sel);
-  uint32_t l = (t & 0x000F000Fu) ^ 0x43084308u, h = ((t >> 4) & 0x000F000Fu) ^ 0x43084308u;
-  const __nv_bfloat162 off = __floats2bfloat162_rn(136.0f, 136.0f);
-  __nv_bfloat162 lb = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&l), off);
-  __nv_bfloat162 hb = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&h), off);
-  lo = *reinterpret_cast<uint32_t*>(&lb);
-  hi = *reinterpret_cast<uint32_t*>(&hb);
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], bf16 in, f32 accumulate: A
+// from registers (a[0..3], the m16n8k16 A fragment of each warp's 16
+// rows), B K-major from shared memory.  scale_d 0 overwrites d.  Fragment:
+// d[4 j + r] is row 16 warp + lane / 4 + 8 (r >> 1), column 8 j +
+// 2 (lane % 4) + (r & 1).  A's registers are read asynchronously: they stay
+// unchanged until the product is waited for.
+__device__ __forceinline__ void wgmma_128_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// M > 64 (prefill), N a multiple of 16: a block takes 128 output columns x
-// 128 rows of x with eight warps (2 along N, 4 along M), each warp 64
-// columns x 32 rows.  K runs in tiles of 32 rows through a 3-stage
-// `cp.async` ring in (dynamic) shared memory holding the integer tile and
-// x's tile, so the next tiles' loads are in flight while this one is
-// worked.  The block dequantizes each integer tile once, all 256 threads
-// together, into a bf16 tile [32 x 128]; every warp then takes its A
-// fragments from it with `ldmatrix.trans` and its B fragments from x's tile
-// with `ldmatrix`, and runs `mma.sync` (16 products a warp a 16-row step).
-// One warp owns the whole K of its outputs: no split, no partials.
+constexpr int WG_BM = 128, WG_BN = 128, WG_KT = 64;  // output tile, rows of K a stage
+constexpr int WG_STAGES = 4;                         // TMA ring
+constexpr int WG_THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int WG_RED_STRIDE = WG_BM + 4;  // floats a row of the epilogue's f32 tile
+
+// Shared memory of the wgmma kernel, in bytes from a 1024-byte aligned base
+// (the 128-byte swizzle repeats every 1024 bytes): the ring's x tiles
+// [128 x 64] bf16, integer tiles [64 x 128] int8 or [32 x 128] packed int4
+// and (int4) up to four scale rows [128] f32, then the ring's full and
+// empty barriers.  The epilogue's f32 tile [128 x RED_STRIDE] reuses the
+// ring.
 template <int BITS>
-__global__ void __launch_bounds__(TILE_THREADS)
-qgemm_tile_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-                  const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int M, int N,
-                  int K, int group) {
-  constexpr int BN = TILE_BN, BM = TILE_BM, KT = TILE_KT, STAGES = TILE_STAGES;
-  constexpr int WROWS = BITS == 8 ? KT : KT / 2;  // integer rows of a stage
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* ws = smem;                                                         // [STAGES][WROWS][WSTRIDE]
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(ws + STAGES * WROWS * TILE_WSTRIDE);  // [STAGES][BM][XSTRIDE]
-  __nv_bfloat16* wb = xs + STAGES * BM * TILE_XSTRIDE;                         // [KT][BSTRIDE]
+struct WgSmem {
+  static constexpr int X = WG_BM * WG_KT * 2;
+  static constexpr int W = (BITS == 8 ? WG_KT : WG_KT / 2) * WG_BN;
+  static constexpr int S = BITS == 4 ? 4 * WG_BN * 4 : 0;
+  static constexpr int X_OFF = 0;
+  static constexpr int W_OFF = X_OFF + WG_STAGES * X;
+  static constexpr int S_OFF = W_OFF + WG_STAGES * W;
+  static constexpr int BAR_OFF = S_OFF + WG_STAGES * S;
+  static constexpr int BYTES = BAR_OFF + 2 * WG_STAGES * 8 + 1024;  // + the alignment slack
+  static_assert(WG_BM * WG_RED_STRIDE * 4 <= BAR_OFF, "the epilogue tile must fit in the ring");
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int nw = (warp & 1) * 64, mw = (warp >> 1) * 32;
-  const int ktiles = (K + KT - 1) / KT;
-  const int wrows_total = BITS == 8 ? K : K / 2;
-
-  auto load = [&](int slot, int kt) {
-    const int k0 = kt * KT;
-    uint8_t* wd = ws + slot * WROWS * TILE_WSTRIDE;
-    for (int c = tid; c < WROWS * (BN / 16); c += TILE_THREADS) {
-      const int r = c / (BN / 16), col = (c % (BN / 16)) * 16;
-      const int grow = (BITS == 8 ? k0 : k0 / 2) + r;
-      const bool ok = grow < wrows_total && n0 + col < N;
-      cp_async16(wd + r * TILE_WSTRIDE + col, ok ? w + (size_t)grow * N + n0 + col : w,
-                 ok ? 16 : 0);
-    }
-    __nv_bfloat16* xd = xs + slot * BM * TILE_XSTRIDE;
-    for (int c = tid; c < BM * (KT / 8); c += TILE_THREADS) {
-      const int r = c / (KT / 8), col = (c % (KT / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + col < K;
-      cp_async16(xd + r * TILE_XSTRIDE + col, ok ? x + (size_t)(m0 + r) * K + k0 + col : x,
-                 ok ? 16 : 0);
-    }
-  };
-
-  // the integer tile of `slot` -> the bf16 tile wb [k][n] (zero-filled
-  // integers give zeros)
-  auto dequant = [&](int slot) {
-    const uint8_t* wt = ws + slot * WROWS * TILE_WSTRIDE;
-    if constexpr (BITS == 8) {  // 32 rows x 128 columns: 16 columns a thread
-      const int r = tid >> 3, c0 = (tid & 7) * 16;
-      const uint4 q = *reinterpret_cast<const uint4*>(wt + r * TILE_WSTRIDE + c0);
-      const uint32_t words[4] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u, q.z ^ 0x80808080u,
-                                 q.w ^ 0x80808080u};
-      uint32_t o[8];
+// This warp's A fragments for the four 16-row steps of a stage, from the
+// integer tile `wt` (128-byte rows, 16-byte chunk c of row k at chunk
+// c ^ (k & 7), as TMA wrote it).  The warp's 16 A rows are 16 columns of
+// W, chunk `c` of each row, permuted so that A row g (lane / 4) is column
+// 2g and row g + 8 column 2g + 1: a thread's two rows are then one byte
+// pair.  int8: `ldmatrix.trans` of 8 x 8 b16 matrices (rows of K, byte
+// pairs) hands thread (g, t = lane % 4) the pairs of rows 2t and 2t + 1 of
+// columns 2g, 2g + 1; int4: a packed row holds both rows of a thread's K
+// pair, one 16-bit load per row pair.  Values are exact in bf16.
+template <int BITS>
+__device__ __forceinline__ void load_a(const uint8_t* wt, int c, int lane, uint32_t (&a)[4][4]) {
+  if constexpr (BITS == 8) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        o[2 * k] = pack_bf16(i8_value(words[k], 0), i8_value(words[k], 1));
-        o[2 * k + 1] = pack_bf16(i8_value(words[k], 2), i8_value(words[k], 3));
+    for (int h = 0; h < 2; ++h) {  // rows 32 h .. 32 h + 31: four matrices of 8 rows
+      const int k = 32 * h + lane;  // this lane's row address: matrix lane / 8, row lane % 8
+      uint32_t r[4];
+      const uint32_t addr = smem_u32(wt + k * 128 + ((c ^ (k & 7)) << 4));
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                   : "r"(addr));
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // step 2h + q: rows +0..7 in r[2q], +8..15 in r[2q+1]
+        const uint32_t lo = r[2 * q] ^ 0x80808080u, hi = r[2 * q + 1] ^ 0x80808080u;
+        uint32_t* f = a[2 * h + q];
+        f[0] = pack_bf16(i8_value(lo, 0), i8_value(lo, 2));  // column 2g, rows 2t, 2t + 1
+        f[1] = pack_bf16(i8_value(lo, 1), i8_value(lo, 3));  // column 2g + 1
+        f[2] = pack_bf16(i8_value(hi, 0), i8_value(hi, 2));  // rows 2t + 8, 2t + 9
+        f[3] = pack_bf16(i8_value(hi, 1), i8_value(hi, 3));
       }
-      uint4* dst = reinterpret_cast<uint4*>(wb + r * TILE_BSTRIDE + c0);
-      dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
-      dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
-    } else {  // 16 packed rows (32 rows of K) x 128 columns: 8 columns of a row pair a thread
-      const int p = tid >> 4, c0 = (tid & 15) * 8;
-      const uint2 q = *reinterpret_cast<const uint2*>(wt + p * TILE_WSTRIDE + c0);
-      uint32_t lo[4], hi[4];
-      i4_columns(q.x, 0x4140u, lo[0], hi[0]);
-      i4_columns(q.x, 0x4342u, lo[1], hi[1]);
-      i4_columns(q.y, 0x4140u, lo[2], hi[2]);
-      i4_columns(q.y, 0x4342u, lo[3], hi[3]);
-      *reinterpret_cast<uint4*>(wb + (2 * p) * TILE_BSTRIDE + c0) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(wb + (2 * p + 1) * TILE_BSTRIDE + c0) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
     }
-  };
-
-  // C fragment element (i, t, e): column nw + 16t + gid + 8 (e >> 1), row
-  // mw + 8i + 2 tig + (e & 1)
-  float acc[4][4][4];
-  float part[4][4][4];
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    const __nv_bfloat162 off = __floats2bfloat162_rn(136.0f, 136.0f);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      const int p0 = 8 * j + t, p1 = p0 + 4;  // packed rows: K rows 2p, 2p + 1
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+      for (int h = 0; h < 2; ++h) {
+        const int p = h ? p1 : p0;
+        // bytes b0 (column 2g), b1 (2g + 1) of the row; x = v | v << 12
+        // holds b0's nibbles at bits 0 and 16 and b1's at 8 and 24, so each
+        // byte's {low, high} nibbles land in a bf16x2's mantissas at 128
+        // (xor 8 and 136 off make them signed) with one mask
+        const uint32_t v = *reinterpret_cast<const uint16_t*>(wt + p * 128 + ((c ^ (p & 7)) << 4) + 2 * g);
+        const uint32_t x = v | (v << 12);
+        uint32_t u[2] = {(x & 0x000F000Fu) ^ 0x43084308u, ((x >> 8) & 0x000F000Fu) ^ 0x43084308u};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][t][e] = part[i][t][e] = 0.0f;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < ktiles) load(st, st);
-    cp_async_commit();
-  }
-  const int mi = lane >> 3, ri = lane & 7;  // ldmatrix: this lane's matrix and row
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt landed for all; every warp is done with wb and tile kt - 1
-    if (kt + STAGES - 1 < ktiles) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-    dequant(kt % STAGES);
-    __syncthreads();  // wb holds tile kt
-    const __nv_bfloat16* xt = xs + (kt % STAGES) * BM * TILE_XSTRIDE;
-#pragma unroll
-    for (int h = 0; h < KT / 16; ++h) {
-      const int k = kt * KT + 16 * h;
-      if (k >= K) break;
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)  // rows of K, 8 columns each: matrices (n, k) 00, 10, 01, 11
-        ldsm_x4_t(a[t], wb + (16 * h + (mi >> 1) * 8 + ri) * TILE_BSTRIDE + nw + 16 * t +
-                            (mi & 1) * 8);
-#pragma unroll
-      for (int i = 0; i < 4; i += 2) {  // rows of x: matrices (m, k) 00, 01, 10, 11
-        uint32_t r[4];
-        ldsm_x4(r, xt + (mw + 8 * (i + (mi >> 1)) + ri) * TILE_XSTRIDE + 16 * h + (mi & 1) * 8);
-        b[i][0] = r[0]; b[i][1] = r[1]; b[i + 1][0] = r[2]; b[i + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          if constexpr (BITS == 8)
-            mma_bf16(acc[i][t], a[t], b[i][0], b[i][1]);
-          else
-            mma_bf16(part[i][t], a[t], b[i][0], b[i][1]);
+        for (int e = 0; e < 2; ++e) {
+          __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&u[e]), off);
+          a[j][2 * h + e] = *reinterpret_cast<uint32_t*>(&r);
         }
-      if constexpr (BITS == 4) {
+      }
+    }
+  }
+}
+
+// M > 64 (prefill), N a multiple of 16, x, w, scale and y on 16-byte
+// boundaries: a block takes 128 rows of x x 128 output columns over rows
+// [z kchunk, (z + 1) kchunk) of K, as y^T = W^T x^T.  Warp 8 is the
+// producer: one thread keeps a ring of TMA loads in flight (x's tile
+// 128-byte swizzled, the integer tile, and for int4 the tile's scale
+// rows), each stage tracked by a full and an empty mbarrier.  Warpgroups 0
+// and 1 are the consumers, 64 columns of W each: per stage a warpgroup
+// dequantizes its columns straight into the A fragments of four wgmma
+// m64n128k16 (A from registers, x's tile the B operand from shared memory),
+// so no bf16 copy of W is written.  int8 keeps two sets of fragments and
+// dequantizes stage t + 1 while stage t's products run.  int4 accumulates
+// each group in a partial (its first wgmma overwrites it) and at the
+// group's end rounds it and adds it times the rounded scale to the
+// accumulator; the warpgroups take turns at the tensor cores, so one's
+// flush and dequantization run while the other's products do.  The
+// epilogue goes through shared memory: 16-byte stores, and with K split
+// the partials and the last block's sum in split order.
+template <int BITS, bool WHOLE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap ts, const float* __restrict__ scale,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ scratch,
+                   int* __restrict__ counters, int M, int N, int K, int group, int kchunk,
+                   int ksplit, int srows) {
+  using L = WgSmem<BITS>;
+  extern __shared__ uint8_t smem_raw[];
+  // offset from the array itself (not a cast integer), so the compiler
+  // keeps the accesses shared-memory loads and stores
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + WG_STAGES;
+  const int kbeg = blockIdx.z * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  const int ntiles = (kend - kbeg + WG_KT - 1) / WG_KT;  // >= 1: no split is empty
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + s, 1);   // the producer's arrival (plus the TMA bytes)
+      mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x == 256) {
+      // TMA counts every byte of a box, the zero-filled ones past an edge too
+      const uint32_t bytes = L::X + L::W + (BITS == 4 ? srows * WG_BN * 4 : 0);
+      const int n0 = blockIdx.x * WG_BN, m0 = blockIdx.y * WG_BM;
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % WG_STAGES;
+        mbar_wait(empty + s, ((t / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, bytes);
+        const int k0 = kbeg + t * WG_KT;
+        tma_load_2d(smem + L::X_OFF + s * L::X, &tx, full + s, k0, m0);
+        tma_load_2d(smem + L::W_OFF + s * L::W, &tw, full + s, n0, BITS == 8 ? k0 : k0 / 2);
+        if constexpr (BITS == 4)
+          tma_load_2d(smem + L::S_OFF + s * L::S, &ts, full + s, n0, k0 / group);
+      }
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x >> 7;  // columns 64 cw .. 64 cw + 63 of the tile
+  const int ltid = threadIdx.x & 127, lane = ltid & 31, warp = ltid >> 5;
+  const int chunk = 4 * cw + warp;  // this warp's 16 columns: chunk of a 128-byte row
+  uint32_t afrag[4][4], bfrag[4][4];  // A fragments of a stage (int8: two, alternating)
+
+  // stage t: wait for its loads, dequantize this warp's A fragments into
+  // `a`; returns the shared address of x's tile
+  auto stage_in = [&](int t, uint32_t (&a)[4][4]) {
+    const int s = t % WG_STAGES;
+    mbar_wait(full + s, (t / WG_STAGES) & 1);
+    load_a<BITS>(smem + L::W_OFF + s * L::W, chunk, lane, a);
+    return smem_u32(smem + L::X_OFF + s * L::X);
+  };
+  // the four wgmma of a stage (16 rows of K each) into d; scale_d 0 on the
+  // first overwrites d.  A tile past K holds zeros (TMA's fill), so all
+  // four run.
+  auto issue4 = [&](float (&d)[64], uint32_t xa, const uint32_t (&a)[4][4], int first_scale_d) {
+    fence_operands(d);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < WG_KT / 16; ++j) {
+      wgmma_128_rs(d, a[j], gmma_desc(xa + 32 * j, 16, 1024), j == 0 ? first_scale_d : 1);
+    }
+    wgmma_commit();
+  };
+  auto release = [&](int t) {
+    if (ltid == 0) mbar_arrive(empty + t % WG_STAGES);
+  };
+  // warpgroup w's turn at the tensor cores: named barrier 2 + w, passed by
+  // the other warpgroup (bar.arrive) and taken by w (bar.sync)
+  auto turn_wait = [&](int w) { asm volatile("bar.sync %0, 256;\n" ::"r"(2 + w) : "memory"); };
+  auto turn_pass = [&](int w) { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 + w) : "memory"); };
+  // this thread's two scales (columns 2g and 2g + 1 of its warp's 16; a
+  // thread's A rows) in scale row r of stage t, rounded to bf16
+  auto scales = [&](int t, int r) {
+    const float2 s2 = *reinterpret_cast<const float2*>(
+        smem + L::S_OFF + (t % WG_STAGES) * L::S + 4 * (r * WG_BN + 64 * cw + 16 * warp + 2 * (lane >> 2)));
+    return make_float2(bf16_round(s2.x), bf16_round(s2.y));
+  };
+  // acc += round(p) * s, s this thread's rounded scales
+  auto flush = [&](float (&p)[64], float (&acc)[64], float2 s) {
+#pragma unroll
+    for (int jm = 0; jm < 16; ++jm) {
+      add_rounded_pair(acc[4 * jm], acc[4 * jm + 1], p[4 * jm], p[4 * jm + 1], s.x, s.x);
+      add_rounded_pair(acc[4 * jm + 2], acc[4 * jm + 3], p[4 * jm + 2], p[4 * jm + 3], s.y, s.y);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  if constexpr (BITS == 8) {
+    // two sets of A fragments: stage t + 1 is dequantized while the
+    // products of stage t are in flight
+    uint32_t xa = stage_in(0, afrag);
+    issue4(acc, xa, afrag, 1);
+    int t = 1;
+    for (; t + 1 < ntiles; t += 2) {
+      xa = stage_in(t, bfrag);
+      issue4(acc, xa, bfrag, 1);
+      wgmma_wait<1>();  // stage t - 1's products are done: its fragments and stage are free
+      release(t - 1);
+      xa = stage_in(t + 1, afrag);
+      issue4(acc, xa, afrag, 1);
+      wgmma_wait<1>();
+      release(t);
+    }
+    for (; t < ntiles; ++t) {
+      xa = stage_in(t, bfrag);
+      issue4(acc, xa, bfrag, 1);
+      wgmma_wait<1>();
+      release(t - 1);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+  } else if constexpr (WHOLE) {
+    // int4, groups of gt whole tiles: one partial, overwritten by its
+    // group's first products and flushed after its last, with the scales
+    // read before those products start.  A stage's products run alone
+    // (issued, then waited for), and the two warpgroups take turns at them:
+    // while one's products run, the other flushes and dequantizes the next
+    // stage.  No branch holds a wgmma operand (ptxas serializes a wgmma
+    // whose registers a branch it cannot prove uniform touches).
+    float p0[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) p0[i] = 0.0f;
+    const int gt = group / WG_KT, ngroups = ntiles / gt;
+    auto mma = [&](uint32_t xa, int first_scale_d) {
+      turn_wait(cw);
+      issue4(p0, xa, afrag, first_scale_d);
+      wgmma_wait<0>();
+      turn_pass(cw ^ 1);
+    };
+    int t = 0;
+    uint32_t xa;
+    auto run_group = [&]() {  // the group's first tile is staged in xa, afrag
+      int scale_d = 0;
+      for (int i = 1; i < gt; ++i) {  // the group's tiles but its last
+        mma(xa, scale_d);
+        scale_d = 1;
+        release(t);
+        xa = stage_in(++t, afrag);
+      }
+      const float2 s = scales(t, 0);  // the stage's scale box starts at the group's row
+      mma(xa, scale_d);
+      fence_operands(p0);
+      flush(p0, acc, s);
+      release(t);
+    };
+    if (cw == 1) turn_pass(0);  // warpgroup 0 starts
+    xa = stage_in(0, afrag);
+    for (int G = 0; G < ngroups - 1; ++G) {
+      run_group();
+      xa = stage_in(++t, afrag);
+    }
+    run_group();
+    if (cw == 0) turn_wait(0);  // warpgroup 1's last pass: every turn is taken
+  } else {
+    // int4, groups of 16-48 rows or not a multiple of 64: a group may end
+    // inside a tile, and is flushed there.
+    float p0[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) p0[i] = 0.0f;
+    for (int t = 0; t < ntiles; ++t) {
+      const uint32_t xa = stage_in(t, afrag);
+      const int kl = t * WG_KT;  // from kbeg, a group boundary
+      fence_operands(p0);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < WG_KT / 16; ++j) {
+        const int k = kl + 16 * j;
+        if (kbeg + k >= kend) break;
+        wgmma_128_rs(p0, afrag[j], gmma_desc(xa + 32 * j, 16, 1024), k % group != 0);
         if ((k + 16) % group == 0) {  // the group ends: round, scale, add
-          const int G = (k + 16) / group - 1;
-          float sc[4][2];
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              const int n = n0 + nw + 16 * t + gid + 8 * hf;
-              sc[t][hf] = n < N ? bf16_round(__ldg(scale + (size_t)G * N + n)) : 0.0f;
-            }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-#pragma unroll
-              for (int e = 0; e < 4; e += 2)
-                add_rounded_pair(acc[i][t][e], acc[i][t][e + 1], part[i][t][e], part[i][t][e + 1],
-                                 sc[t][e >> 1], sc[t][e >> 1]);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) part[i][t][e] = 0.0f;
-            }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(p0);
+          flush(p0, acc, scales(t, k / group - t * WG_KT / group));
+          fence_operands(p0);
+          wgmma_fence();
         }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(t);
+    }
+  }
+
+  // Epilogue: the two warpgroups' fragments (rows: columns of W, columns:
+  // rows of x) into an f32 tile [m][n] in the ring (free now), then each
+  // thread takes 8 consecutive columns of 8 rows: the int8 scales loaded
+  // once, 16-byte stores.  With K split, the block writes its partial, and
+  // the last of the tile's blocks to arrive sums the partials in split
+  // order (the same sums on every call).
+  consumers_sync();
+  float* red = reinterpret_cast<float*>(smem);
+  {
+    const int nc = 64 * cw + 16 * warp + 2 * (lane >> 2);  // columns nc (A row g), nc + 1 (g + 8)
+#pragma unroll
+    for (int jm = 0; jm < 16; ++jm) {
+      const int m = 8 * jm + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(red + m * WG_RED_STRIDE + nc) = make_float2(acc[4 * jm], acc[4 * jm + 2]);
+      *reinterpret_cast<float2*>(red + (m + 1) * WG_RED_STRIDE + nc) =
+          make_float2(acc[4 * jm + 1], acc[4 * jm + 3]);
+    }
+  }
+  consumers_sync();
+  const int tid = threadIdx.x;
+  const int cg = tid & 15, r0 = tid >> 4;  // columns 8 cg .. 8 cg + 7, rows r0 + 16 p
+  const int n = blockIdx.x * WG_BN + 8 * cg, m0 = blockIdx.y * WG_BM;
+  const bool n_ok = n < N;  // N is a multiple of 16: a group of 8 is all in or all out
+  float sc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sc[e] = 1.0f;
+  if (BITS == 8 && n_ok) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(scale + n));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(scale + n) + 1);
+    sc[0] = a.x; sc[1] = a.y; sc[2] = a.z; sc[3] = a.w;
+    sc[4] = b.x; sc[5] = b.y; sc[6] = b.z; sc[7] = b.w;
+  }
+  auto store = [&](const float (&v)[8], int m) {
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      __nv_bfloat162 h = BITS == 8 ? __floats2bfloat162_rn(bf16_round(v[2 * e]) * bf16_round(sc[2 * e]),
+                                                            bf16_round(v[2 * e + 1]) * bf16_round(sc[2 * e + 1]))
+                                   : __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      o[e] = *reinterpret_cast<uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(y + (size_t)m * N + n) = make_uint4(o[0], o[1], o[2], o[3]);
+  };
+  constexpr int PASSES = WG_BM / 16;
+  if (ksplit == 1) {
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int r = r0 + 16 * p;
+      const float4 a = *reinterpret_cast<const float4*>(red + r * WG_RED_STRIDE + 8 * cg);
+      const float4 b = *reinterpret_cast<const float4*>(red + r * WG_RED_STRIDE + 8 * cg + 4);
+      const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      if (n_ok && m0 + r < M) store(v, m0 + r);
+    }
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int r = r0 + 16 * p;
+    if (n_ok && m0 + r < M) {
+      float4* dst = reinterpret_cast<float4*>(scratch + ((size_t)blockIdx.z * M + m0 + r) * N + n);
+      dst[0] = *reinterpret_cast<const float4*>(red + r * WG_RED_STRIDE + 8 * cg);
+      dst[1] = *reinterpret_cast<const float4*>(red + r * WG_RED_STRIDE + 8 * cg + 4);
+    }
+  }
+  __shared__ int s_last;
+  __threadfence();
+  consumers_sync();
+  if (tid == 0) {
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    s_last = atomicAdd(counters + tile, 1) == ksplit - 1;
+    if (s_last) counters[tile] = 0;  // every split has arrived: ready for the next call
+  }
+  consumers_sync();
+  if (!s_last) return;
+  __threadfence();
+  float v[PASSES][8];
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[p][e] = 0.0f;
+  for (int s = 0; s < ksplit; ++s) {
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int m = m0 + r0 + 16 * p;
+      if (n_ok && m < M) {
+        const float4* src = reinterpret_cast<const float4*>(scratch + ((size_t)s * M + m) * N + n);
+        const float4 a = __ldcg(src), b = __ldcg(src + 1);
+        v[p][0] += a.x; v[p][1] += a.y; v[p][2] += a.z; v[p][3] += a.w;
+        v[p][4] += b.x; v[p][5] += b.y; v[p][6] += b.z; v[p][7] += b.w;
       }
     }
   }
-  cp_async_wait<0>();
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p)
+    if (n_ok && m0 + r0 + 16 * p < M) store(v[p], m0 + r0 + 16 * p);
+}
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + nw + 16 * t + gid + 8 * (e >> 1);
-        const int m = m0 + mw + 8 * i + 2 * tig + (e & 1);
-        if (n < N && m < M) {
-          const float v = acc[i][t][e];
-          y[(size_t)m * N + n] =
-              BITS == 8 ? __float2bfloat16_rn(bf16_round(v) * bf16_round(__ldg(scale + n)))
-                        : __float2bfloat16_rn(v);
-        }
-      }
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] tensor as a 2-D TMA map with box [box_rows,
+// box_cols]; out-of-range elements of a box read as zeros
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t cols,
+                uint64_t rows, uint64_t row_bytes, uint32_t box_cols, uint32_t box_rows,
+                CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the scale rows a 64-row tile of K touches at most; a block's K range
+// starts on a group boundary, so a tile starts 64 t rows past one
+int wg_scale_rows(int group) {
+  int most = 1;
+  for (int t = 0; t < group; ++t) most = max(most, ((WG_KT * t) % group + WG_KT - 1) / group + 1);
+  return most;
 }
 
 template <int BITS>
-int launch_tile(const void* x, const void* w, const void* scale, void* y, int M, int N, int K,
-                int group, cudaStream_t stream) {
-  constexpr int WROWS = BITS == 8 ? TILE_KT : TILE_KT / 2;
-  constexpr int smem = TILE_STAGES * WROWS * TILE_WSTRIDE + 2 * TILE_STAGES * TILE_BM * TILE_XSTRIDE +
-                       2 * TILE_KT * TILE_BSTRIDE;
-  cudaError_t err = cudaFuncSetAttribute(qgemm_tile_kernel<BITS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch_wgmma(const void* x, const void* w, const void* scale, void* y, void* scratch,
+                 void* counters, int M, int N, int K, int group, int kchunk, int ksplit,
+                 cudaStream_t stream) {
+  using L = WgSmem<BITS>;
+  CUtensorMap tx, tw, ts;
+  const int srows = BITS == 4 ? wg_scale_rows(group) : 0;
+  bool ok = tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, WG_KT,
+                       WG_BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, BITS == 8 ? K : K / 2, N, WG_BN,
+                       BITS == 8 ? WG_KT : WG_KT / 2, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (BITS == 4)
+    ok = ok && tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N, K / group,
+                          (uint64_t)N * 4, WG_BN, srows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    ts = tw;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  // int4 groups of whole 64-row tiles take the peeled loop (WHOLE)
+  auto kernel = qgemm_wgmma_kernel<BITS, true>;
+  if constexpr (BITS == 4)
+    if (group % WG_KT) kernel = qgemm_wgmma_kernel<BITS, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + TILE_BN - 1) / TILE_BN, (M + TILE_BM - 1) / TILE_BM);
-  qgemm_tile_kernel<BITS><<<grid, TILE_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), M, N, K, group);
+  dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM, ksplit);
+  kernel<<<grid, WG_THREADS, L::BYTES, stream>>>(
+      tx, tw, ts, static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(scratch), static_cast<int*>(counters), M, N, K, group, kchunk, ksplit,
+      srows);
   return (int)cudaGetLastError();
 }
 
@@ -638,8 +976,9 @@ template <int BITS>
 int dispatch_mma(int mt, int warps_m, const void* x, const void* w, const void* scale, void* y,
                  void* scratch, void* counters, int M, int N, int K, int group, int kchunk,
                  int ksplit, cudaStream_t stream) {
-  if (mt == 4 && warps_m == 8)
-    return launch_tile<BITS>(x, w, scale, y, M, N, K, group, stream);
+  if (warps_m == 8)
+    return launch_wgmma<BITS>(x, w, scale, y, scratch, counters, M, N, K, group, kchunk, ksplit,
+                              stream);
   if (mt == 1 && warps_m == 1)
     launch_mma<BITS, 1, 1>(x, w, scale, y, scratch, counters, M, N, K, group, kchunk, ksplit, stream);
   else if (mt == 2 && warps_m == 1)
@@ -658,10 +997,12 @@ int dispatch_mma(int mt, int warps_m, const void* x, const void* w, const void* 
 // x [M, K], w (int8 [K, N] or packed int4 [K/2, N]), scale (f32 [N] or
 // [K/group, N]), y [M, N]; dtype 0 = f32 (CUDA cores), 1 = bf16 (tensor
 // cores); bits 8 or 4; (mt, warps_m, ksplit, kchunk) the host's plan (bf16
-// only): warps_m 8 takes the tile kernel (no split), 1 or 4 the direct-load
-// kernel with that many warps along M; mt m-tiles of 8 rows a warp; K split
-// into ksplit ranges of kchunk rows (a block's for warps_m 4 and 8, a
-// warp's for 1).  With ksplit > 1,
+// only): warps_m 8 takes the wgmma kernel (mt 2: two warpgroups of 64 rows,
+// eight warps of 16; N a multiple of 16 and x, w and scale on 16-byte
+// boundaries, which TMA needs; kchunk a multiple of 64), 1 or 4 the
+// direct-load kernel with that many warps along M; mt m-tiles of 8 rows a
+// warp; K split into ksplit ranges of kchunk rows (a block's for warps_m 4
+// and 8, a warp's for 1).  With ksplit > 1,
 // scratch holds ksplit * M * N floats and counters one zeroed int per
 // output tile (``kernels.qgemm_tiles``), which every call leaves at zero.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
@@ -689,7 +1030,8 @@ extern "C" int dabt_qgemm(const void* x, const void* w, const void* scale, void*
       kchunk < 16 || kchunk % 16 || (bits == 4 && kchunk % group) ||
       (long long)ksplit * (warps_m == 8 ? 1 : THREADS / 32 / warps_m) * kchunk < K ||
       (ksplit > 1 && (scratch == nullptr || counters == nullptr)) ||
-      (warps_m == 8 && (mt != 4 || ksplit != 1 || N % 16)))
+      (warps_m == 8 && (mt != 2 || N % 16 || kchunk % 64 || (long long)(ksplit - 1) * kchunk >= K ||
+                        ((uintptr_t)x | (uintptr_t)w | (uintptr_t)scale | (uintptr_t)y) % 16)))
     return (int)cudaErrorInvalidValue;
   if (bits == 8)
     return dispatch_mma<8>(mt, warps_m, x, w, scale, y, scratch, counters, M, N, K, group, kchunk,

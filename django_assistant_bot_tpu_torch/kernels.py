@@ -28,6 +28,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -104,10 +105,27 @@ PAGED_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
 
 # qgemm launches by weight format, counted beside LAUNCHES like PAGED_ROUTES
 QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
+# and by route: "mma" (the direct-load kernel: decode, and prefill where
+# TMA cannot take N or a pointer), "wgmma" (the prefill kernel), "cuda_core"
+# (f32)
+QGEMM_ROUTES: Dict[str, int] = {"mma": 0, "wgmma": 0, "cuda_core": 0}
 # a kernel's launches by kind, for the kernels that count them
-SUBCOUNTS: Dict[str, Dict[str, int]] = {"paged_decode": PAGED_ROUTES, "qgemm": QGEMM_FORMATS}
+# ("<kernel>_route": a second kind, by route)
+SUBCOUNTS: Dict[str, Dict[str, int]] = {
+    "paged_decode": PAGED_ROUTES, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
+}
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
 QGEMM_TILE_N = 64
+# the wgmma qgemm plan's cost model (qgemm_plan), in microseconds: a wave of
+# blocks takes QGEMM_WAVE_US plus QGEMM_ROW_US[bits] per row of K, and a
+# split adds QGEMM_PARTIAL_US per f32 partial written and summed; a least-
+# squares fit to ``tools/qgemm_ab.py --splits 1,2,3,4,8`` (the four
+# Llama-3-8B projections at M = 512) on an H100 SXM (PERF.md section 6)
+QGEMM_ROW_US = {8: 0.0067, 4: 0.0131}
+QGEMM_WAVE_US = 3.5
+QGEMM_PARTIAL_US = 0.0000033
+# the most f32 partials (16 MiB) a split wgmma qgemm call writes
+QGEMM_PARTIAL_FLOATS = 1 << 22
 
 # split-K scratch per (kernel, device, stream): (f32 partials, int32
 # counters); the counters start at zero and every call leaves them at zero
@@ -165,10 +183,10 @@ def private_paged_scratch(store: Dict[tuple, tuple]):
         _tls.scratch = None
 
 
-def _count(name: str, kind: Optional[str] = None) -> None:
-    """One launch of ``name`` (and of its ``kind`` in ``SUBCOUNTS[name]``):
-    counted now, or recorded for the replays when this thread is capturing
-    a graph."""
+def _count(name: str, kind: Optional[str] = None, route: Optional[str] = None) -> None:
+    """One launch of ``name`` (and of its ``kind`` in ``SUBCOUNTS[name]``,
+    its ``route`` in ``SUBCOUNTS[name + "_route"]``): counted now, or
+    recorded for the replays when this thread is capturing a graph."""
     launches, subs = LAUNCHES, SUBCOUNTS
     rec = getattr(_tls, "rec", None)
     if rec is not None:
@@ -181,6 +199,8 @@ def _count(name: str, kind: Optional[str] = None) -> None:
     launches[name] += 1
     if kind is not None:
         subs[name][kind] += 1
+    if route is not None:
+        subs[name + "_route"][route] += 1
 
 
 def reset_counts() -> None:
@@ -404,19 +424,43 @@ def knn_topk(
 
 
 @functools.lru_cache(maxsize=512)
-def qgemm_plan(M: int, N: int, K: int, bits: int, group: int, sms: int = 132) -> tuple:
-    """(mt, warps_m, ksplit, kchunk) of a bf16 qgemm call: the warp tile
-    (``mt`` m-tiles of 8 rows; ``warps_m`` warps along M, the other
-    ``4 // warps_m`` splitting a block's K range), the K splits across
-    blocks and the rows of K a warp takes (a multiple of 16, and of the
-    group for int4).  K is split until the grid has about two blocks per SM
-    (``sms``), but not so far that the f32 partials (written and read once)
-    pass a quarter of the weight bytes, and not below one group (int4) or
-    16 rows a warp.  Past 64 rows of x with N a multiple of 16 the call
-    takes the pipelined tile kernel, ``warps_m`` 8 (eight warps on 128 x 128
-    outputs, no split)."""
-    if N % 16 == 0 and M > 64:
-        return 4, 8, 1, K
+def qgemm_plan(M: int, N: int, K: int, bits: int, group: int, sms: int = 132,
+               tma: bool = True) -> tuple:
+    """(mt, warps_m, ksplit, kchunk) of a bf16 qgemm call.
+
+    Past 64 rows of x with N a multiple of 16 and the operands on 16-byte
+    boundaries (``tma``), the wgmma kernel: ``(2, 8, ksplit, kchunk)``, 128
+    x 128 outputs a block, its K range ``kchunk`` rows (a multiple of 64 and,
+    for int4, of the group).  Of the splits whose f32 partials stay within
+    ``QGEMM_PARTIAL_FLOATS``, it takes the least estimated time: the waves
+    of blocks over ``sms`` SMs, each the rows of K a block runs
+    (``QGEMM_ROW_US``) plus a fixed cost (``QGEMM_WAVE_US``), and, split,
+    the partials written and summed (``QGEMM_PARTIAL_US`` each); ties go
+    to fewer splits.
+
+    Otherwise the direct-load kernel: the warp tile (``mt`` m-tiles of 8
+    rows; ``warps_m`` warps along M, the other ``4 // warps_m`` splitting a
+    block's K range), the K splits across blocks and the rows of K a warp
+    takes (a multiple of 16, and of the group for int4).  K is split until
+    the grid has about two blocks per SM, but not so far that the f32
+    partials (written and read once) pass a quarter of the weight bytes, and
+    not below one group (int4) or 16 rows a warp."""
+    if N % 16 == 0 and M > 64 and tma:
+        unit = math.lcm(64, group) if bits == 4 else 64
+        tiles = qgemm_tiles(M, N, 2, 8)
+        best = None
+        for want in range(1, max(1, K // unit) + 1):
+            kchunk = -(-K // (want * unit)) * unit
+            ksplit = -(-K // kchunk)
+            partials = ksplit * M * N if ksplit > 1 else 0
+            if partials > QGEMM_PARTIAL_FLOATS:
+                continue
+            waves = -(-tiles * ksplit // sms)
+            cost = (waves * (kchunk * QGEMM_ROW_US[bits] + QGEMM_WAVE_US)
+                    + partials * QGEMM_PARTIAL_US)
+            if best is None or (cost, ksplit) < best[0]:
+                best = ((cost, ksplit), ksplit, kchunk)
+        return 2, 8, best[1], best[2]
     if M <= 8:
         mt, warps_m = 1, 1
     elif M <= 16:
@@ -438,7 +482,7 @@ def qgemm_tiles(M: int, N: int, mt: int, warps_m: int) -> int:
     """Output tiles (blocks of one K split, one counter each) of a bf16
     qgemm launch with warp tile ``mt`` and ``warps_m`` (see
     :func:`qgemm_plan`)."""
-    if warps_m == 8:  # the tile kernel: 128 x 128
+    if warps_m == 8:  # the wgmma kernel: 128 x 128
         return -(-N // 128) * -(-M // 128)
     return -(-N // QGEMM_TILE_N) * -(-M // (8 * mt * warps_m))
 
@@ -449,8 +493,12 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tens
     caller (``ops.quant.qeinsum``) validated the arguments: ``q`` int8
     ``[K, N]`` (``group`` 0, ``scale`` per column) or packed int4 ``[K/2,
     N]`` (``scale`` per ``group`` rows and column), x and out contiguous in
-    one type.  A bf16 call that splits K takes its f32 partials and counters
-    from the per-(device, stream) scratch, like paged decode."""
+    one type.  A bf16 call past 64 rows with N a multiple of 16 and the
+    tensors on 16-byte boundaries (which TMA needs) takes the wgmma kernel,
+    other bf16 calls the direct-load kernel, f32 the CUDA-core one
+    (``QGEMM_ROUTES`` counts which).  A bf16 call that splits K takes its f32
+    partials and counters from the per-(device, stream) scratch, like paged
+    decode."""
     M, K = x.shape
     N = out.shape[1]
     bits = 4 if group else 8
@@ -462,7 +510,8 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tens
     with torch.cuda.device(x.device):
         scratch = counters = None
         if dt == _DTYPE_CODE[torch.bfloat16]:
-            mt, warps_m, ksplit, kchunk = qgemm_plan(M, N, K, bits, group)
+            tma = not any(t.data_ptr() % 16 for t in (x, q, scale, out))
+            mt, warps_m, ksplit, kchunk = qgemm_plan(M, N, K, bits, group, tma=tma)
             if ksplit > 1:
                 scratch, counters = _scratch_buffers("qgemm", x.device, stream, ksplit * M * N,
                                                      qgemm_tiles(M, N, mt, warps_m))
@@ -472,5 +521,6 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tens
             counters.data_ptr() if counters is not None else None,
             dt, bits, M, N, K, group, mt, warps_m, ksplit, kchunk, stream,
         )
-    _count("qgemm", f"int{bits}")
+    route = "cuda_core" if dt == _DTYPE_CODE[torch.float32] else "wgmma" if warps_m == 8 else "mma"
+    _count("qgemm", f"int{bits}", route)
     _check("qgemm", err)

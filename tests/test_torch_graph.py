@@ -21,7 +21,9 @@ package:
   shared pages unchanged, with greedy ids equal to the CPU engine's;
 - an in-place crash-only restart keeps both graphs (no re-capture): a
   request served after it is bitwise the one a fresh engine serves, pools
-  included, and its replays are still counted.
+  included, and its replays are still counted;
+- a captured M = 512 quantized projection (the wgmma kernel, K split at
+  wk/wv's width) replays bit for bit as the eager call.
 """
 
 import contextlib
@@ -32,7 +34,13 @@ import torch
 from django_assistant_bot_tpu_torch import kernels
 from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
 from django_assistant_bot_tpu_torch.ops.attention import paged_gqa_decode_attention
-from django_assistant_bot_tpu_torch.ops.quant import QUANTIZABLE, quantize_decoder_params
+from django_assistant_bot_tpu_torch.ops.quant import (
+    QUANTIZABLE,
+    QTensor,
+    QTensor4,
+    qeinsum,
+    quantize_decoder_params,
+)
 from django_assistant_bot_tpu_torch.ops.sampling import gumbel_noise
 from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
 
@@ -344,6 +352,49 @@ def test_quantized_replay_bitwise_equal_to_eager_and_counted(dtype, fmt):
     eng._launch_tick(True)
     torch.cuda.synchronize()
     assert kernels.QGEMM_FORMATS[fmt] == 2 * len(QUANTIZABLE) * L * K + len(QUANTIZABLE) * L
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024)])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_quantized_prefill_projection_replay_bitwise_equal_to_eager(fmt, K, N):
+    """An M = 512 bf16 projection captured as a CUDA graph (the wgmma
+    kernel: its TMA descriptors are kernel parameters the graph keeps by
+    value; at N = 1024 K is split through the graph's own scratch) replays
+    bit for bit as the eager call, on the inputs written into the captured
+    x, and each replay counts one launch on the wgmma route."""
+    gen = torch.Generator().manual_seed(11)
+    if fmt == "int8":
+        w = QTensor(torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).cuda(),
+                    (torch.rand((1, N), generator=gen) * 1e-2).cuda())
+    else:
+        w = QTensor4(torch.randint(0, 256, (K // 2, N), generator=gen, dtype=torch.uint8).cuda(),
+                     (torch.rand((K // 64, N), generator=gen) * 1e-1).cuda())
+    xs = [torch.randn((512, K), generator=gen).to(torch.bfloat16).cuda() for _ in range(2)]
+    x = xs[0].clone()
+    stream, store = torch.cuda.Stream(), {}
+    with kernels.private_paged_scratch(store):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # the warm-up makes the graph's scratch
+            qeinsum("me,eo->mo", x, w, torch.bfloat16)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with kernels.record_graph_launches() as rec:
+            with torch.cuda.graph(graph, stream=stream):
+                out = qeinsum("me,eo->mo", x, w, torch.bfloat16)
+    assert rec.launches["qgemm"] == 1 and rec.sub["qgemm_route"]["wgmma"] == 1
+    kernels.reset_counts()
+    for xi in xs + xs[:1]:
+        x.copy_(xi)
+        graph.replay()
+        rec.replayed()
+        torch.cuda.synchronize()
+        eager = qeinsum("me,eo->mo", xi, w, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert kernels.QGEMM_ROUTES["wgmma"] == 6  # three replays, three eager calls
+    if N == 1024:
+        (part, counters), = store.values()
+        assert int(counters.abs().sum()) == 0  # each call leaves its counters at zero
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4"])

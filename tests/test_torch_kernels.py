@@ -443,13 +443,14 @@ def _check_qgemm(M, K, N, fmt, g, dtype, seed=0):
 
 @pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                                  (4096, 1040), (4096, 1032)])
-@pytest.mark.parametrize("M", [1, 8, 16, 37, 200, 512])
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 65, 128, 200, 512, 1024, 2048])
 @pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64), ("int4", 128)])
 def test_qgemm_kernel_matches_plain_bf16(fmt, g, M, K, N):
     """bf16 at the projection shapes of Llama-3-8B and two ragged widths
-    (N = 1032 is off the tile kernel's multiple of 16, so M > 64 takes the
-    direct-load kernel there), against the f32 plain twin within
-    ``qgemm_bf16_bound``."""
+    (N = 1032 is off TMA's multiple of 16, so M > 64 takes the direct-load
+    kernel there), against the f32 plain twin within ``qgemm_bf16_bound``;
+    M > 64 takes the wgmma kernel, held at its tile edges (65, 128) and at
+    the sizes of a wave prefill (1024, 2048)."""
     _check_qgemm(M, K, N, fmt, g, torch.bfloat16)
 
 
@@ -460,15 +461,25 @@ def test_qgemm_kernel_matches_plain_f32(fmt, g, M, K, N):
     _check_qgemm(M, K, N, fmt, g, torch.float32)
 
 
+@pytest.mark.parametrize("M,K,N,route", [(8, 4096, 4096, "mma"), (512, 4096, 4096, "wgmma"),
+                                         (512, 4096, 1024, "wgmma")])
 @pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64)])
-def test_qgemm_kernel_repeats_bitwise_and_counts_its_format(fmt, g):
-    x, w, out = _check_qgemm(8, 4096, 4096, fmt, g, torch.bfloat16, seed=3)
+def test_qgemm_kernel_repeats_bitwise_and_counts_its_format(fmt, g, M, K, N, route):
+    """A second call equals the first bit for bit, with one launch counted
+    by format and by route: decode (M = 8) on the direct-load kernel, prefill
+    (M = 512) on the wgmma kernel, wk/wv's width there with K split."""
+    bits = 8 if fmt == "int8" else 4
+    if (K, N) == (4096, 1024):
+        assert kernels.qgemm_plan(M, N, K, bits, g)[2] > 1
+    x, w, out = _check_qgemm(M, K, N, fmt, g, torch.bfloat16, seed=3)
     kernels.reset_counts()
     again = qeinsum("me,eo->mo", x, w, torch.bfloat16)
     torch.cuda.synchronize()
     assert torch.equal(out, again)  # the split-K partials sum in a fixed order
     assert kernels.launch_counts()["qgemm"] == 1
     assert kernels.QGEMM_FORMATS == {"int8": int(fmt == "int8"), "int4": int(fmt == "int4")}
+    assert kernels.QGEMM_ROUTES == {"mma": int(route == "mma"), "wgmma": int(route == "wgmma"),
+                                    "cuda_core": 0}
 
 
 def test_qgemm_kernel_refuses_what_it_does_not_take():

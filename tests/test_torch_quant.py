@@ -355,24 +355,43 @@ def test_kernel_refusal_and_engine_build_check():
     tq.check_kernel_params(tq.quantize_decoder_params(dense), cfg.dtype)
 
 
+LLAMA_PROJECTIONS = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
 @pytest.mark.parametrize("bits,g", [(8, 0), (4, 64), (4, 128)])
-@pytest.mark.parametrize("M", [1, 8, 16, 37, 512])
-@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
-                                 (4096, 128256), (4096, 1040), (4096, 1032)])
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 65, 512, 2048])
+@pytest.mark.parametrize("K,N", LLAMA_PROJECTIONS + [(4096, 128256), (4096, 1040), (4096, 1032)])
 def test_qgemm_plan_covers_k_on_group_boundaries(K, N, M, bits, g):
     mt, warps_m, ksplit, kchunk = kernels.qgemm_plan(M, N, K, bits, g)
-    if warps_m == 8:  # the pipelined tile kernel: 128 x 128 outputs a block, no split
-        assert M > 64 and N % 16 == 0 and (mt, ksplit, kchunk) == (4, 1, K)
+    blocks = kernels.qgemm_tiles(M, N, mt, warps_m) * ksplit
+    if warps_m == 8:  # the wgmma kernel: 128 x 128 outputs a block, K split on 64-row tiles
+        assert M > 64 and N % 16 == 0 and mt == 2
+        assert kchunk % 64 == 0 and kchunk % (g or 16) == 0  # splits end on group boundaries
+        assert ksplit * kchunk >= K  # the splits cover K
+        assert (ksplit - 1) * kchunk < K  # and none is empty
+        assert ksplit == 1 or ksplit * M * N <= kernels.QGEMM_PARTIAL_FLOATS
+        if M == 512 and (K, N) in LLAMA_PROJECTIONS and g in (0, 64):
+            # the grid fills the card: 128 tiles (wq/wo, down) leave 4 SMs
+            # idle, as a split of them costs more in partials than it
+            # saves (PERF.md section 6); wk/wv's 32 tiles split 4 ways
+            assert blocks >= 0.95 * 132
         return
+    assert M <= 64 or N % 16  # past 64 rows only a width TMA cannot take stays here
     kw = 4 // warps_m
     assert 8 * mt * warps_m >= min(M, 16) and warps_m in (1, 4) and mt in (1, 2, 4)
     assert kchunk % (g or 16) == 0 and kchunk % 16 == 0
     assert ksplit * kw * kchunk >= K  # the splits cover K
     assert (ksplit - 1) * kw * kchunk < K  # and no block's range is empty
-    blocks = kernels.qgemm_tiles(M, N, mt, warps_m) * ksplit
     assert ksplit == 1 or blocks <= 4 * 132
     # the f32 partials stay under a quarter of the weight bytes
     assert ksplit == 1 or ksplit * M * N * 8 <= K * N * bits / 8 / 4
+
+
+def test_qgemm_plan_takes_the_direct_load_kernel_off_tma_boundaries():
+    """A pointer off 16 bytes keeps a prefill call on the direct-load
+    kernel: TMA takes 16-byte aligned bases only."""
+    assert kernels.qgemm_plan(512, 4096, 4096, 8, 0)[1] == 8
+    assert kernels.qgemm_plan(512, 4096, 4096, 8, 0, tma=False)[1] == 4
 
 
 # ------------------------------------------------------------ registry
