@@ -24,16 +24,19 @@ exits non-zero):
    the KNN score + top-k at the RAG corpus (1,048,576 x 768, Q 8 / 32 /
    128, k 16 / 1024, all rows and a 1% allow-list) and at 4,096 x 64; the
    weight-only GEMM (``qgemm``, int8 and int4 at groups 64 and 128) at
-   Llama-3-8B's projection shapes, M 1 / 8 / 37 / 65 / 512 / 2048, and its
-   time at M 8 and 512 (gate/up and down also 2048) beside cuBLAS on the
-   dequantized weight;
+   Llama-3-8B's projection shapes, M 1 / 8 / 16 / 37 / 64 / 65 / 512 /
+   2048, its grouped decode launches (QKV, gate/up) and the tied int8 head,
+   and its time at M 8 (each projection and each grouped launch, with the
+   stream-read yardstick and the direct-load kernel beside it) and 512
+   (gate/up and down also 2048) beside cuBLAS on the dequantized weight;
 3. small f32 models on the card (kernels) against the same models on the
    CPU (plain twins): the decoder's prefill logits and the engine's greedy
    token ids at the default loop (on the card the fused 8-step tick
    replayed as a CUDA graph, with a piggybacked chunk; on the CPU the same
    loop eagerly), and on the card at ``decode_steps=1`` too, then the same
    at int8 and int4 (``quantize_decoder_params``; the qgemm kernel on the
-   card, its plain twin on the CPU); the tiny encoder's ``encode`` and an
+   card, its plain twin on the CPU), and a tied int8 head (the kernel's
+   K-contiguous form); the tiny encoder's ``encode`` and an
    ``EmbeddingEngine`` coalescing three calls;
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
    weights drawn on the card, a ``GenerationEngine`` at the default loop
@@ -67,9 +70,9 @@ exits non-zero):
    prefill, then paged decode), with its checks and readings;
 7. int8 and then int4 Llama-3-8B (``init_int8`` / ``init_int4``, 32
    layers, full width) behind ``/dialog/`` with ``quantize`` set
-   (:func:`quant_phase`): phase 4's four requests, qgemm launches = 7 x 32
-   x (decode steps + prefill forwards), every one on a tensor-core route
-   and the prefill (wgmma) kernel among them, ``weight_bits`` in
+   (:func:`quant_phase`): phase 4's four requests, qgemm launches = 4 x 32
+   x decode steps (the stream kernel) + 7 x 32 x prefill forwards (the
+   wgmma kernel), ``weight_bits`` in
    ``/healthz`` and ``/metrics``, the weight bytes on the card, readings over 6 runs and
    the decode breakdown;
 8. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
@@ -275,9 +278,9 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
-    r"|qgemm_f32_kernel)I(\w*?)EEv"
+    r"|qgemm_stream_kernel|qgemm_f32_kernel)I(\w*?)EEv"
 )
-_PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel)E")
+_PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel|qgemm_tied_f32_kernel)E")
 
 
 def kernel_label(mangled: str) -> str:
@@ -684,6 +687,8 @@ QGEMM_SHAPES = [  # Llama-3-8B's layer projections (in x out) and their launches
     ("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 1024, 2), ("gate/up", 4096, 14336, 2),
     ("down", 14336, 4096, 1),
 ]
+# the decode step's grouped launches (in, member widths): QKV and gate/up
+QGEMM_GROUPS = [("qkv", 4096, (4096, 1024, 1024)), ("gate+up", 4096, (14336, 14336))]
 QGEMM_HEAD = (4096, 128256)  # the untied head of an int8 table (quantize_embed)
 # a timed call cycles through weight copies of at least this many bytes (5x
 # the 50 MB L2), so each call reads its weights from HBM as the decode step
@@ -694,10 +699,16 @@ def qgemm_bound_ms(M, K, N, bits, group) -> tuple:
     """Least time for ``[M, K] . W[K, N]``: the integer weights, their f32
     scales and the bf16 x read once and the bf16 y written once at the HBM
     rate, against 2 M K N operations at the bf16 tensor-core peak."""
-    scales = N if bits == 8 else (K // group) * N
-    nbytes = K * N * bits / 8 + 4 * scales + 2 * M * K + 2 * M * N
+    return qgemm_group_bound_ms(M, K, (N,), bits, group)
+
+
+def qgemm_group_bound_ms(M, K, Ns, bits, group) -> tuple:
+    """:func:`qgemm_bound_ms` of one launch over members of widths ``Ns``
+    that share x (x read once)."""
+    scales = sum(N if bits == 8 else (K // group) * N for N in Ns)
+    nbytes = sum(K * N * bits / 8 for N in Ns) + 4 * scales + 2 * M * K + 2 * M * sum(Ns)
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = 2.0 * M * K * N / PEAK_BF16_FLOPS * 1e3
+    t_ops = 2.0 * M * K * sum(Ns) / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -717,122 +728,274 @@ def _qweight(K, N, fmt, group, gen):
     return QTensor4(q, scale)
 
 
-def _qgemm_case(M, K, N, fmt, group, dtype, gen) -> tuple:
-    """The kernel against the f32 plain twin on the same inputs: bf16 within
-    ``qgemm_bf16_bound``, f32 within 1e-4 of A = |x| . |deq W| (summation
-    order).  Returns (max abs err, worst err/bound)."""
+def _qgemm_err(out, x, w, ref, dtype) -> tuple:
+    """(max abs err, worst err/bound) of a qgemm output against the f32
+    ``ref``: bf16 within ``qgemm_bf16_bound``, f32 within 1e-4 of A = |x| .
+    |deq W| (summation order)."""
     import torch
 
-    from django_assistant_bot_tpu_torch.ops.quant import deq, qeinsum, qeinsum_plain, qgemm_bf16_bound
+    from django_assistant_bot_tpu_torch.ops.quant import deq, qgemm_bf16_bound
+
+    if dtype == torch.bfloat16:
+        bound = qgemm_bf16_bound(x.float(), w, ref)
+    else:
+        bound = F32_TOL * torch.matmul(x.abs(), deq(w, torch.float32).abs()) + 1e-6
+    if not (out.shape == ref.shape and bool(torch.isfinite(out).all())):
+        fail(f"qgemm output {tuple(out.shape)} not finite or not {tuple(ref.shape)}")
+    diff = (out.float() - ref).abs()
+    return diff.max().item(), (diff / bound).max().item()
+
+
+def _qgemm_case(M, K, N, fmt, group, dtype, gen) -> tuple:
+    """The kernel against the f32 plain twin on the same inputs.  Returns
+    (max abs err, worst err/bound)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.quant import qeinsum, qeinsum_plain
 
     w = _qweight(K, N, fmt, group, gen)
     x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
     out = qeinsum("me,eo->mo", x, w, dtype)
     ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
-    if dtype == torch.bfloat16:
-        bound = qgemm_bf16_bound(x.float(), w, ref)
-    else:
-        bound = F32_TOL * torch.matmul(x.abs(), deq(w, torch.float32).abs()) + 1e-6
     torch.cuda.synchronize()
-    if not (out.shape == (M, N) and bool(torch.isfinite(out).all())):
-        fail(f"qgemm {fmt} M={M} K={K} N={N}: output {tuple(out.shape)} not finite")
+    return _qgemm_err(out, x, w, ref, dtype)
+
+
+def _qgemm_group_case(M, K, Ns, fmt, group, gen) -> tuple:
+    """One stream launch over members that share x (``qeinsum_group``):
+    each output within ``qgemm_bf16_bound`` of its f32 plain twin, as is the
+    member's own launch (its K splits fall elsewhere), and equal bit for
+    bit to a repeat of the group.  Returns (max abs err, worst
+    err/bound)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.quant import qeinsum, qeinsum_group, qeinsum_plain
+
+    ws = [_qweight(K, N, fmt, group, gen) for N in Ns]
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    before = kernels.QGEMM_ROUTES["stream"]
+    ys = qeinsum_group("me,eo->mo", x, ws, torch.bfloat16)
+    if kernels.QGEMM_ROUTES["stream"] != before + 1:
+        fail(f"qgemm group {fmt} M={M} Ns={Ns} did not take one stream launch")
+    again = qeinsum_group("me,eo->mo", x, ws, torch.bfloat16)
+    alone = [qeinsum("me,eo->mo", x, w, torch.bfloat16) for w in ws]
+    torch.cuda.synchronize()
+    err = ratio = 0.0
+    for y, y2, y1, w in zip(ys, again, alone, ws):
+        ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
+        for out in (y, y1):
+            e, r = _qgemm_err(out, x, w, ref, torch.bfloat16)
+            err, ratio = max(err, e), max(ratio, r)
+        if not torch.equal(y, y2):
+            fail(f"qgemm group {fmt} M={M} Ns={Ns}: not bitwise equal to its repeat")
+    return err, ratio
+
+
+def _tied_case(M, V, E, dtype, gen) -> tuple:
+    """The tied int8 head (``tied_head``: the table ``[V, E]`` K-contiguous,
+    x scaled per E) against the f32 product on the same scaled x: bf16
+    within ``tied_head_bf16_bound``, f32 within 1e-4 of |xs| . |q|^T; a
+    repeat bitwise equal.  Returns (max abs err, worst err/bound)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.quant import QTensor, tied_head, tied_head_bf16_bound
+
+    w = QTensor(torch.randint(-127, 128, (V, E), generator=gen, device="cuda", dtype=torch.int8),
+                torch.exp(torch.rand((1, E), generator=gen, device="cuda") * 4.6) * 1e-3)
+    x = torch.randn((M, E), generator=gen, device="cuda").to(dtype)
+    out, again = tied_head(x, w, dtype), tied_head(x, w, dtype)
+    xs = (x * w.scale.squeeze(-2).to(dtype)).float()
+    ref = xs @ w.q.float().T
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        bound = tied_head_bf16_bound(xs, w, ref)
+    else:
+        bound = F32_TOL * (xs.abs() @ w.q.float().abs().T) + 1e-6
+    if not (out.shape == (M, V) and bool(torch.isfinite(out).all()) and torch.equal(out, again)):
+        fail(f"tied head M={M} V={V} {dtype}: shape, finiteness or repeat wrong")
     diff = (out.float() - ref).abs()
     return diff.max().item(), (diff / bound).max().item()
 
 
+def _rotated(make, nbytes):
+    """Enough copies from ``make()`` of ``nbytes`` each to fill
+    ``QGEMM_ROTATE_BYTES`` (at least two)."""
+    return [make() for _ in range(max(2, -(-QGEMM_ROTATE_BYTES // nbytes)))]
+
+
+def _cycler(fn, items):
+    """A call of ``fn`` on the next of ``items`` each time."""
+    it = [0]
+
+    def call():
+        it[0] = (it[0] + 1) % len(items)
+        return fn(items[it[0]])
+
+    return call
+
+
+def stream_read_ms(tensors_of, copies, iters) -> float:
+    """The stream-read yardstick: device ms of one trivial read (an int32
+    sum, torch.profiler's kernel time) of the same integer bytes as a call,
+    rotated through the same copies: the card's reachable read rate at that
+    size."""
+    import torch
+
+    flat = [torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors_of(c)]).view(torch.int32)
+            for c in copies]
+    ms = device_ms(_cycler(lambda f: f.sum(dtype=torch.int32), flat), iters)
+    del flat
+    return ms
+
+
 def check_qgemm(gen) -> list:
     """``qgemm`` against ``qeinsum_plain`` on the card: int8 and int4 at
-    groups 64 and 128, M in {1, 8, 37, 65, 512, 2048}, at the four
+    groups 64 and 128, M in {1, 8, 16, 37, 64, 65, 512, 2048}, at the four
     projection shapes and two ragged widths (N = 1040, not a multiple of the
-    64-column tile, and 1032, where M > 64 takes the direct-load kernel: TMA
-    needs N a multiple of 16), in bf16 (``qgemm_bf16_bound``; the worst
-    err/bound printed per format) and f32 (1e-4 relative to A); the int8
-    head (4096 x 128,256) at M = 8.  Fails unless the prefill kernel's SASS
-    holds wgmma (HGMMA) and TMA loads (UTMALDG).  Then its time at M = 8
-    and 512 per shape and format, and at M = 2048 for gate/up and down (the
-    weights rotated over >= 256 MB of copies, so every call reads them from
-    HBM, as the decode step does), beside its bound, the plain twin and the
-    library (cuBLAS on the pre-dequantized bf16 weight, ``torch.matmul``; a
-    yardstick only)."""
+    256-column tile, and 1032, off TMA's multiple of 16, which keeps the
+    direct-load kernel), in bf16 (``qgemm_bf16_bound``; the worst err/bound
+    printed per format) and f32 (1e-4 relative to A); the int8 head (4096 x
+    128,256) at M = 8; the grouped decode launches (QKV, gate/up) at M 1 /
+    8 / 16 / 37 / 64, each member (and its own launch) within the bound,
+    the group's repeat bit for bit; the tied int8 head (K-contiguous, bf16
+    and f32).  Fails unless the prefill kernel's SASS holds wgmma (HGMMA)
+    and TMA loads (UTMALDG) and the stream kernel's tensor-core products
+    (HMMA), TMA loads and mbarrier operations (SYNCS).  Then its time at
+    M = 8 per projection and per grouped launch (the stream kernel; the
+    direct-load kernel beside it, forced, as the earlier design; the
+    stream-read yardstick over the same bytes) and at M = 512 (and 2048 for
+    gate/up and down), the weights rotated over >= 256 MB of copies, so
+    every call reads them from HBM, as the decode step does, beside its
+    bound, the plain twin and the library (cuBLAS on the pre-dequantized
+    bf16 weight, ``torch.matmul``; for a grouped launch one product on the
+    concatenated weight; a yardstick only)."""
     import torch
 
     from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.ops.quant import (
-        QGEMM_BF16_BOUND_TEXT, deq, qeinsum, qeinsum_plain)
+        QGEMM_BF16_BOUND_TEXT, deq, qeinsum, qeinsum_group, qeinsum_plain)
 
-    worst = {"int8": 0.0, "int4": 0.0, "prefill_int8": 0.0, "prefill_int4": 0.0}
+    # max abs err per JSON entry: the stream route ("int8"/"int4") and the
+    # wgmma route ("prefill_..."); the direct-load route is logged apart
+    worst = {"int8": 0.0, "int4": 0.0, "prefill_int8": 0.0, "prefill_int4": 0.0,
+             "mma_int8": 0.0, "mma_int4": 0.0}
     worst_ratio = {"int8": 0.0, "int4": 0.0}
     cases = [(fmt, g, M, K, N, torch.bfloat16)
              for fmt, g in (("int8", 0), ("int4", 64), ("int4", 128))
              for _, K, N, _ in QGEMM_SHAPES + [("ragged", 4096, 1040, 0), ("ragged", 4096, 1032, 0)]
-             for M in (1, 8, 37, 65, 512, 2048)]
+             for M in (1, 8, 16, 37, 64, 65, 512, 2048)]
     cases += [(fmt, g, M, K, N, torch.float32) for fmt, g in (("int8", 0), ("int4", 64))
               for K, N in ((4096, 4096), (4096, 1040)) for M in (1, 8, 37)]
     cases.append(("int8", 0, 8, *QGEMM_HEAD, torch.bfloat16))
     for fmt, g, M, K, N, dtype in cases:
+        bits = 8 if fmt == "int8" else 4
+        before = dict(kernels.QGEMM_ROUTES)
         err, ratio = _qgemm_case(M, K, N, fmt, g, dtype, gen)
-        text = (f"bound {QGEMM_BF16_BOUND_TEXT[8 if fmt == 'int8' else 4]}"
+        route = next(r for r, n in kernels.QGEMM_ROUTES.items() if n != before[r])
+        text = (f"bound {QGEMM_BF16_BOUND_TEXT[bits]}"
                 if dtype == torch.bfloat16 else "bound 1e-4*A + 1e-6")
-        log(f"  qgemm {fmt}{f' g={g}' if g else ''} M={M} K={K} N={N} {str(dtype)[6:]}: "
+        log(f"  qgemm {fmt}{f' g={g}' if g else ''} M={M} K={K} N={N} {str(dtype)[6:]} ({route}): "
             f"max_abs_err {err:.3e}, worst err/bound {ratio:.3f} ({text})")
         if not ratio <= 1.0:
             fail(f"qgemm {fmt} M={M} K={K} N={N} disagrees with its plain twin: {ratio} > 1")
+        want = ("cuda_core" if dtype == torch.float32 else "mma" if N % 16 else
+                "stream" if M <= 64 else "wgmma")
+        if route != want:
+            fail(f"qgemm {fmt} M={M} K={K} N={N} {dtype} took route {route}, not {want}")
         if dtype == torch.bfloat16:
-            bits = 8 if fmt == "int8" else 4
-            key = f"prefill_{fmt}" if kernels.qgemm_plan(M, N, K, bits, g)[1] == 8 else fmt
+            key = {"stream": fmt, "wgmma": f"prefill_{fmt}", "mma": f"mma_{fmt}"}[route]
             worst[key] = max(worst[key], err)
             worst_ratio[fmt] = max(worst_ratio[fmt], ratio)
+    for fmt, g in (("int8", 0), ("int4", 64), ("int4", 128)):
+        for label, K, Ns in QGEMM_GROUPS:
+            for M in (1, 8, 16, 37, 64):
+                err, ratio = _qgemm_group_case(M, K, Ns, fmt, g, gen)
+                log(f"  qgemm group {label} {fmt}{f' g={g}' if g else ''} M={M} K={K} Ns={Ns} bf16 "
+                    f"(one stream launch; the members' own launches too): max_abs_err {err:.3e}, "
+                    f"worst err/bound {ratio:.3f}, a repeat bitwise equal")
+                if not ratio <= 1.0:
+                    fail(f"qgemm group {label} {fmt} M={M} disagrees with its plain twins: {ratio}")
+                worst[fmt] = max(worst[fmt], err)
+                worst_ratio[fmt] = max(worst_ratio[fmt], ratio)
+    for M, V, E, dtype in ((8, *QGEMM_HEAD[::-1], torch.bfloat16), (70, 1000, 64, torch.bfloat16),
+                           (8, 512, 256, torch.float32)):
+        err, ratio = _tied_case(M, V, E, dtype, gen)
+        log(f"  qgemm tied head M={M} V={V} E={E} {str(dtype)[6:]}: max_abs_err {err:.3e}, worst "
+            f"err/bound {ratio:.3f} (bf16: the int8 bound on A = |xs|.|q|^T; f32: 1e-4*A + 1e-6), "
+            f"a repeat bitwise equal")
+        if not ratio <= 1.0:
+            fail(f"tied head M={M} V={V} {dtype} disagrees with its plain twin: {ratio} > 1")
+        if dtype == torch.bfloat16:
+            worst["int8"] = max(worst["int8"], err)
+            worst_ratio["int8"] = max(worst_ratio["int8"], ratio)
     for fmt in ("int8", "int4"):
         log(f"  qgemm {fmt} bf16: worst err/bound {worst_ratio[fmt]:.3f} over its cases "
-            f"(bound {QGEMM_BF16_BOUND_TEXT[8 if fmt == 'int8' else 4]})")
+            f"(bound {QGEMM_BF16_BOUND_TEXT[8 if fmt == 'int8' else 4]}); direct-load route "
+            f"max_abs_err {worst['mma_' + fmt]:.3e}")
     sass = sass_table(kernels.lib_path("qgemm"))
     log(f"  qgemm SASS: {sass_counts(kernels.lib_path('qgemm'))}")
     prefill = {label: c for label, c in sass.items() if label.startswith("qgemm_wgmma_kernel")}
     if not prefill or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in prefill.values()):
         fail(f"qgemm's prefill kernel shows no wgmma or no TMA load in its SASS: {prefill}")
+    stream = {label: c for label, c in sass.items() if label.startswith("qgemm_stream_kernel")}
+    if not stream or any(c["HMMA"] == 0 or c["UTMALDG"] == 0 or c["SYNCS"] == 0
+                         for c in stream.values()):
+        fail(f"qgemm's stream kernel shows no mma, TMA load or mbarrier in its SASS: {stream}")
 
     entries = {}
-    rows = [(fmt, g, label, K, N, per, M) for fmt, g in (("int8", 0), ("int4", 64))
+    rows = [(fmt, g, label, K, (N,), per, M) for fmt, g in (("int8", 0), ("int4", 64))
             for label, K, N, per in QGEMM_SHAPES
             for M in ((8, 512, 2048) if label in ("gate/up", "down") else (8, 512))]
-    rows.append(("int8", 0, "head", *QGEMM_HEAD, 0, 8))
-    for fmt, g, label, K, N, per, M in rows:
+    rows += [(fmt, g, label, K, Ns, 1, 8) for fmt, g in (("int8", 0), ("int4", 64))
+             for label, K, Ns in QGEMM_GROUPS]
+    rows.append(("int8", 0, "head", *QGEMM_HEAD[:1], QGEMM_HEAD[1:], 0, 8))
+    take = kernels.qgemm_stream_takes
+    for fmt, g, label, K, Ns, per, M in rows:
         bits = 8 if fmt == "int8" else 4
-        wbytes = K * N * bits // 8
-        ws = [_qweight(K, N, fmt, g, gen) for _ in range(-(-QGEMM_ROTATE_BYTES // wbytes))]
-        wds = [deq(w, torch.bfloat16) for w in ws[:-(-QGEMM_ROTATE_BYTES // (2 * K * N))]]
+        wbytes = sum(K * N * bits // 8 for N in Ns)
+        copies = _rotated(lambda: [_qweight(K, N, fmt, g, gen) for N in Ns], wbytes)
+        wds = [torch.cat([deq(w, torch.bfloat16) for w in c], dim=1)
+               for c in copies[:max(2, -(-QGEMM_ROTATE_BYTES // (2 * K * sum(Ns))))]]
         x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-        it, itd = [0], [0]
-
-        def kernel():
-            it[0] = (it[0] + 1) % len(ws)
-            return qeinsum("me,eo->mo", x, ws[it[0]], torch.bfloat16)
-
-        def library():
-            itd[0] = (itd[0] + 1) % len(wds)
-            return torch.matmul(x, wds[itd[0]])
-
+        kernel = _cycler(lambda c: qeinsum_group("me,eo->mo", x, c, torch.bfloat16), copies)
+        library = _cycler(lambda wd: torch.matmul(x, wd), wds)
         iters = {8: 50, 512: 20}.get(M, 10)
         ms, dev = timed(kernel, iters)
         library_ms = time_ms(library, iters)
-        plain_ms = time_ms(lambda: qeinsum_plain("me,eo->mo", x, ws[0], torch.bfloat16), 3)
-        bound_ms, bound_by = qgemm_bound_ms(M, K, N, bits, g)
-        plan = kernels.qgemm_plan(M, N, K, bits, g)
-        log(f"  qgemm timing {fmt}{f' g={g}' if g else ''} {label} M={M} K={K} N={N} bf16 "
-            f"(plan mt/warps_m/ksplit/kchunk {plan}, {len(ws)} weight copies): kernel wall "
-            f"{ms:.4f} ms (device {dev:.4f}), library (matmul on the bf16 weight) wall "
-            f"{library_ms:.4f} ms, plain wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}); share of the bound: wall {bound_ms / ms:.3f}, device "
-            f"{bound_ms / dev:.3f}, library {bound_ms / library_ms:.3f}; {per} launches a "
-            f"layer a decode step")
-        if label == "gate/up" and M in (8, 512):
+        plain_ms = time_ms(lambda: [qeinsum_plain("me,eo->mo", x, w, torch.bfloat16)
+                                    for w in copies[0]], 3)
+        bound_ms, bound_by = qgemm_group_bound_ms(M, K, Ns, bits, g)
+        extra = ""
+        read_ms = None
+        if M == 8:
+            read_ms = stream_read_ms(lambda c: [w.q for w in c], copies, iters)
+            # the direct-load kernel on the same calls (the earlier decode route)
+            kernels.qgemm_stream_takes = lambda *a, **k: False
+            try:
+                mma_ms, mma_dev = timed(kernel, iters)
+            finally:
+                kernels.qgemm_stream_takes = take
+            extra = (f"; stream-read yardstick device {read_ms:.4f} ms (share of it, device "
+                     f"{read_ms / dev:.3f}); the direct-load kernel ({len(Ns)} launch"
+                     f"{'es' if len(Ns) > 1 else ''}) wall {mma_ms:.4f} ms (device {mma_dev:.4f})")
+        plan = (kernels.qgemm_stream_plan(M, Ns, K, bits, g)[:2] if M <= 64
+                else kernels.qgemm_plan(M, Ns[0], K, bits, g))
+        log(f"  qgemm timing {fmt}{f' g={g}' if g else ''} {label} M={M} K={K} N={'+'.join(map(str, Ns))} "
+            f"bf16 (plan {plan}, {len(copies)} weight copies): kernel wall {ms:.4f} ms (device "
+            f"{dev:.4f}), library (one matmul on the bf16 weight) wall {library_ms:.4f} ms, plain "
+            f"wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); share of the bound: "
+            f"wall {bound_ms / ms:.3f}, device {bound_ms / dev:.3f}, library "
+            f"{bound_ms / library_ms:.3f}; {per} launches a layer a decode step{extra}")
+        if (label, M) in (("gate+up", 8), ("gate/up", 512)):
             entries[fmt if M == 8 else f"prefill_{fmt}"] = dict(
                 ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
-        del ws, wds
+                library_ms=library_ms, **({"read_ms": read_ms} if read_ms is not None else {}))
+        del copies, wds
     torch.cuda.empty_cache()
-    # the decode kernel (qgemm_mma_kernel, timed at M = 8) and the prefill
-    # kernel (qgemm_wgmma_kernel, timed at M = 512), each at gate/up
+    # the decode kernel (qgemm_stream_kernel, timed on the grouped gate/up
+    # launch at M = 8) and the prefill kernel (qgemm_wgmma_kernel, timed at
+    # M = 512 on gate/up)
     return [{
         "name": f"qgemm_{key}",
         "route": "cuda",
@@ -906,6 +1069,65 @@ def small_reference():
     small_fault_restart(cfg, params_gpu, prompts[0])
     for fmt in ("int8", "int4"):
         small_quantized(cfg, params_cpu, fmt, ids, lengths, prompts, run)
+    small_tied(cfg, params_cpu, prompts)
+
+
+def small_tied(cfg, params_cpu, prompts) -> None:
+    """The small f32 model with a tied int8 embedding table as its head
+    (``quantize_tensor`` of the table, per-E scales; int8 projections): the
+    engine's greedy ids on the card (the qgemm kernel's K-contiguous form
+    for the head, in the graph ticks and the prefills) equal the CPU's (the
+    plain twin), and the head's launches ran."""
+    import dataclasses
+
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.quant import quantize_decoder_params, quantize_tensor
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+    tcfg = dataclasses.replace(cfg, tie_embeddings=True)
+    qcpu = quantize_decoder_params({k: v for k, v in params_cpu.items() if k != "lm_head"})
+    qcpu["tok_embed"] = quantize_tensor(params_cpu["tok_embed"])
+    qgpu = {k: ({n: w.to("cuda") for n, w in v.items()} if isinstance(v, dict) else v.to("cuda"))
+            for k, v in qcpu.items()}
+
+    def run(device, params):
+        eng = GenerationEngine(tcfg, params, ByteTokenizer(), device=device,
+                               max_slots=4, max_seq_len=1024, chunk_size=512)
+        eng._running = True
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+        with torch.no_grad():
+            for _ in range(1000):
+                if all(f.done() for f in futs):
+                    break
+                eng._loop_iteration()
+        eng._running = False
+        return [f.result(timeout=0).token_ids for f in futs]
+
+    heads = [0]
+    qgemm_tied = kernels.qgemm_tied
+
+    def counted(*a, **kw):
+        heads[0] += 1
+        return qgemm_tied(*a, **kw)
+
+    kernels.reset_counts()
+    kernels.qgemm_tied = counted
+    try:
+        ids_gpu = run("cuda", qgpu)
+    finally:
+        kernels.qgemm_tied = qgemm_tied
+    head = heads[0]
+    ids_cpu = run("cpu", qcpu)
+    log(f"  small tied int8 model engine greedy ids, card (the head on the qgemm kernel's "
+        f"K-contiguous form, {head} head calls; {kernels.launch_counts()['qgemm']} qgemm "
+        f"launches, captured ones counted at each replay) vs CPU: "
+        f"{'identical' if ids_gpu == ids_cpu else 'DIFFER'}")
+    if head <= 0:
+        fail("the tied int8 head launched no qgemm kernel on the card")
+    if ids_gpu != ids_cpu:
+        fail(f"tied int8 greedy ids differ: card {ids_gpu}, CPU {ids_cpu}")
 
 
 def small_quantized(cfg, params_cpu, fmt, ids, lengths, prompts, run) -> None:
@@ -1984,13 +2206,14 @@ def quant_phase(card: str) -> dict:
     ``create_app`` server with ``quantize`` set, at the default loop.
     Phase 4's four requests, 32 greedy tokens each: launch counts zeroed
     just before and read just after; every request completes; qgemm
-    launches = 7 x 32 per decode step plus 7 x 32 per prefill forward;
+    launches = 4 x 32 per decode step (the stream kernel: QKV and gate/up
+    one launch each) plus 7 x 32 per prefill forward (the wgmma kernel);
     ``weight_bits`` 8 / 4 in ``/healthz`` and ``/metrics``; the projection
     bytes on the card as computed.  Readings over 5 more runs of the four
     (medians and spreads): TTFT, decode tok/s per request; then the decode
     breakdown (the eager step profiled, the replayed tick per step).
     Returns the qgemm launches of each format's counted run by kernel:
-    ``decode`` (the direct-load kernel) and ``prefill`` (wgmma)."""
+    ``decode`` (the stream kernel) and ``prefill`` (wgmma)."""
     import aiohttp
     import torch
     from aiohttp import web
@@ -2086,19 +2309,22 @@ def quant_phase(card: str) -> dict:
             ttfts += t
             rates += r
         counts, steps, fwd = first["counts"], first["steps"], first["forwards"]
-        want_q = 7 * cfg.num_layers * (steps + fwd)
+        # a decode step (8 rows) takes 4 stream launches a layer (QKV, wo,
+        # gate/up, down); a prefill forward (past 64 rows) 7 wgmma ones
+        want_dec, want_pre = 4 * cfg.num_layers * steps, 7 * cfg.num_layers * fwd
+        want_q = want_dec + want_pre
         routes = first["routes"]
         log(f"  {fmt} main path on {card}: launches {counts}, by format {first['formats']}, "
             f"by route {routes}; {steps} decode steps, {fwd} prefill forwards: qgemm "
-            f"{counts['qgemm']} (7 x {cfg.num_layers} x ({steps} + {fwd}) = {want_q})")
+            f"{counts['qgemm']} (4 x {cfg.num_layers} x {steps} + 7 x {cfg.num_layers} x {fwd} "
+            f"= {want_q})")
         if counts["qgemm"] != want_q or first["formats"][fmt] != want_q:
-            fail(f"{fmt}: qgemm launches {counts['qgemm']} != 7 x {cfg.num_layers} x "
-                 f"({steps} steps + {fwd} prefill forwards)")
-        # decode steps (8 rows) take the direct-load kernel, prefill chunks
-        # past 64 rows the wgmma kernel
-        if routes["wgmma"] <= 0 or routes["mma"] + routes["wgmma"] != want_q:
-            fail(f"{fmt}: qgemm routes {routes}: the prefill kernel never ran, or a launch "
-                 f"took neither tensor-core route")
+            fail(f"{fmt}: qgemm launches {counts['qgemm']} != 4 x {cfg.num_layers} x {steps} "
+                 f"steps + 7 x {cfg.num_layers} x {fwd} prefill forwards")
+        if (routes["stream"], routes["wgmma"]) != (want_dec, want_pre) or routes["mma"] or \
+                routes["cuda_core"]:
+            fail(f"{fmt}: qgemm routes {routes}: want every decode launch on the stream kernel "
+                 f"({want_dec}) and every prefill launch on the wgmma kernel ({want_pre})")
         if counts["paged_decode"] != cfg.num_layers * steps or counts["flash_prefill"] <= 0:
             fail(f"{fmt}: paged or flash launches wrong: {counts}")
         bits = {"int8": 8, "int4": 4}[fmt]
@@ -2113,7 +2339,7 @@ def quant_phase(card: str) -> dict:
             f"{_stat(ttfts)}; decode {_stat(rates, 'tok/s')} per request; run wall "
             f"{_stat([r['wall'] for r in runs])}")
         decode_breakdown(cfg, params, engine, label=f"{fmt} ")
-        launches[fmt] = {"decode": routes["mma"], "prefill": routes["wgmma"]}
+        launches[fmt] = {"decode": routes["stream"], "prefill": routes["wgmma"]}
         del engine, registry, params, proj
         gc_collect()
     return launches

@@ -6,6 +6,8 @@
 // only the integers are read.  A PyTorch composition (`q.to(bf16)` then
 // `torch.matmul`) would read 1 byte per weight, write 2 and read 2 again;
 // this kernel reads each integer once and dequantizes it in registers.
+// Also the tied int8 head of `models/llama.py` `_head_logits` (:452-466):
+// x scaled per E in the model dtype, then x . q^T over the [V, E] table.
 //
 // Layouts (the JAX package's): x and y row-major [M, K] and [M, N], bf16 or
 // f32 (the same type).  int8: w int8 [K, N], scale f32 [N] (per output
@@ -26,31 +28,43 @@
 // 3.35 TB/s of HBM: 17.5 us for 4096 x 14336 int8 at M = 8.  At M = 512 the
 // 2 M K N operations at 989 TFLOP/s (60.8 us for 4096 x 14336).
 //
-// Design (bf16, `qgemm_mma_kernel`): the product runs on the tensor cores as
-// y^T = W^T x^T with `mma.sync.m16n8k16` (bf16 in, f32 accumulate): the
-// weights are the A operand (16 output columns a tile), the activations
-// the B operand (8 rows of x a tile), so M = 1-8 wastes no A rows.  Each
-// thread owns 8 consecutive output columns and, per 16-row step of K, four
-// consecutive rows of them (int8: four 8-byte loads; int4: two, one per
-// packed row pair).  The mapping of the mma's k index to rows of K is
-// permuted so that a thread's A pairs (two consecutive k of one column) come
-// from its own loads and its B pairs are one 8-byte load of x; the same
-// permutation on both operands leaves the sum unchanged.  Loads go straight
-// from global memory to registers: per row a warp reads 64 contiguous
-// bytes, every byte of each 32-byte sector used.  Several steps' loads are
-// issued before any is used (U below), so each warp keeps 2-8 KB in flight.
+// Design, decode (bf16, M <= 64, `qgemm_stream_kernel`): a persistent grid
+// of about one block per SM streams the weights through a ring of TMA boxes
+// in shared memory (a stage: 64 rows of K x 256 columns as two 128-column
+// boxes side by side, so each row of W is read as 256 contiguous bytes;
+// int4's scale rows and x's 64-row slice of K with them; a producer warp
+// keeps 64 KB of weights in flight per SM whatever the shape).  The work is
+// one sequence of granules (member, column tile, 64 rows of K; int4: whole
+// groups) cut into equal ranges, one a block, so each block reads the same
+// bytes to within one granule and short shapes fill the card too.  Eight
+// consumer warps take 16 columns of each box and compute y^T = W^T x^T
+// with `mma.sync.m16n8k16`: the integers are dequantized from shared memory
+// into the A fragments exactly as the prefill kernel does (`load_a`), x's
+// rows are the B operand (8 a tile, so M = 1-8 wastes no A rows).  int4's
+// group flush needs the group's products done: with groups of whole stages
+// each 16-row step's products go to their own accumulator, so the flush
+// waits for one product, not a chain of four.  A tile whose K range is cut
+// between blocks sums the blocks' f32 partials in block order behind a
+// per-tile counter (the last block to arrive), so a call gives the same
+// bits every time.  One launch takes up to three members that share x
+// (QKV; gate and up), each with its own map, scale, y and N.  A
+// K-contiguous form (int8 [N, K], no scale) serves a tied embedding table
+// as the head.
+//   `qgemm_mma_kernel`, the first decode kernel, stays for bf16 calls at
+// M <= 64 that TMA cannot take (N not a multiple of 16, or an operand off
+// 16 bytes): each thread owns 8 consecutive output columns and, per 16-row
+// step of K, four consecutive rows of them, loaded straight from global
+// memory into registers (int8: four 8-byte loads; int4: two), several
+// steps at a time; the same `mma.sync` product with the mma's k index
+// permuted so that a thread's A pairs come from its own loads.
 // Dequantization in registers: int8 by the 2^23 magic-number trick (byte
 // permute into an f32 mantissa, one subtract, exact), int4 by the bf16
 // trick (nibble into a bf16 mantissa at 128, one bf16x2 subtract, exact);
-// int8 and int4 values are exact in bf16.
-//   A block is four warps on 64 output columns.  For M <= 16 the warps split
-// the block's K range four ways; for larger M they take four slabs of rows
-// of x (the same weights, read from L1).  K is further split across blocks
-// (grid z) until the grid fills the card; each block sums its warps in
-// shared memory in a fixed order, writes one f32 partial, and the block
-// that completes a tile's counter sums the partials in split order, applies
-// the epilogue and resets the counter (one launch, no memset, and the same
-// sums in the same order on every call).
+// int8 and int4 values are exact in bf16.  A block is four warps on 64
+// output columns; K is split across blocks until the grid fills the card;
+// each block sums its warps in shared memory in a fixed order, writes one
+// f32 partial, and the block that completes a tile's counter sums the
+// partials in split order, applies the epilogue and resets the counter.
 //   Past 64 rows (prefill) the products are bound by operations, and only
 // `wgmma` reaches the tensor cores' rate: with N a multiple of 16 (a TMA
 // row stride is a multiple of 16 bytes; N = 1032 keeps the direct-load
@@ -67,16 +81,17 @@
 // as the direct-load kernel's, so small N fills the card with one launch
 // and replays equal eager calls bit for bit.
 // The f32 route (`qgemm_f32_kernel`, the small f32 parity models) runs on
-// the CUDA cores, one output column a thread, 8 rows of x a block.
+// the CUDA cores, one output column a thread, 8 rows of x a block;
+// `qgemm_tied_f32_kernel` is its tied-head form (a warp a row of the table).
 //
-// Not done here (later work): a repacked weight layout (one wide load per
-// fragment at decode), QKV or gate/up in one launch, a persistent prefill
-// grid, and TMA multicast of x across a cluster.
+// Not done here (later work): a persistent prefill grid, TMA multicast of x
+// across a cluster, and `wgmma` at decode past 32 rows of x.
 
 #include <cuda.h>  // CUtensorMap (its encoder is looked up at run time: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -127,6 +142,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b (bf16 in, f32 out), the accumulator input zero
+__device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
 }
 
 __device__ __forceinline__ uint32_t word_of(const uint2& r, int j) { return j < 4 ? r.x : r.y; }
@@ -829,6 +854,478 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
     if (n_ok && m0 + r0 + 16 * p < M) store(v[p], m0 + r0 + 16 * p);
 }
 
+// ---------------------------------------------------------------- stream route
+// Decode (bf16, M <= 64): a streaming weight-only GEMV.  A persistent grid
+// (about one block per SM) walks a list of work units, each (member, column
+// tile of 256, range of K); the units of a launch are cut from one sequence,
+// the members' tiles in order and each tile's K in granules of 64 rows (int4:
+// lcm(64, group), so ranges start on group boundaries), and block c takes
+// granules [c T / C, (c + 1) T / C), so every block streams the same bytes
+// to within one granule.  A producer warp keeps a ring of TMA loads in
+// flight: per stage x's 64-row slice of K (zero-filled past M), the tile's
+// two 128-column integer boxes side by side (so each row of W is read as
+// 256 contiguous bytes) and int4's scale rows.  Eight consumer warps take
+// 16 columns of each box: per stage they dequantize their A fragments
+// (`load_a`, as the prefill kernel does) and run `mma.sync.m16n8k16`, y^T =
+// W^T x^T, x's B fragments from the swizzled slice, read once for both
+// boxes.  A tile whose K is cut between blocks sums its f32 partials behind
+// the per-tile counter in split order, like `finish_tile`, so every call
+// gives the same bits.  One launch takes 1-3 members that share x (QKV,
+// gate/up).  KMAJ: the tied int8 head, W [N, K] with K contiguous (the
+// embedding table), no scale epilogue (x is scaled per K by the caller).
+
+constexpr int ST_KT = 64;           // rows of K a stage
+constexpr int ST_BOX = 128;         // columns of an integer box: 8 consumer warps x 16
+constexpr int ST_CH = 2;            // boxes side by side in a tile
+constexpr int ST_BN = ST_BOX * ST_CH;  // output columns of a tile
+constexpr int ST_THREADS = 288;     // eight consumer warps + a producer warp
+// the ring holds this many bytes of weights (and scales) in flight: int8 4
+// stages, int4 8; more in flight measured slower at int8 (PERF.md section 6)
+constexpr int ST_RING_BYTES = 64 << 10;
+constexpr int ST_SMEM = 232448;     // the most shared memory a block can use
+// the weights' L2 promotion: none (a weight is read once; a stage's rows
+// are whole 256-byte spans)
+constexpr CUtensorMapL2promotion ST_L2 = CU_TENSOR_MAP_L2_PROMOTION_NONE;
+
+struct StreamArgs {
+  CUtensorMap tx;     // x [M, K] bf16: box [64, 8 MT], 128-byte swizzle
+  CUtensorMap tw[3];  // each member's integers, box [128, 64] (KMAJ: [64, 128], 64-byte swizzle)
+  CUtensorMap ts[3];  // int4: each member's scale rows, box [128, srows]
+  const float* scale[3];
+  __nv_bfloat16* y[3];
+  float* scratch;     // two slots of 8 MT x 256 f32 a block
+  int* counters;      // one a tile, zero between calls
+  int n[3];
+  int tiles[3];       // column tiles a member (0 past the members)
+  int M, K, group;
+  int granule;        // rows of K a granule
+  int gcount;         // granules of a tile
+  int total;          // granules of the launch
+  int stages;         // ring stages
+  int srows;          // int4: scale rows a stage
+};
+
+// bytes of a stage's x slice, integer boxes and scale boxes
+__host__ __device__ inline void st_sizes(int bits, int mt, int srows, int& xb, int& wb, int& sb) {
+  xb = 1024 * mt;
+  wb = ST_CH * (bits == 8 ? ST_KT * ST_BOX : ST_KT / 2 * ST_BOX);
+  sb = bits == 4 ? ST_CH * srows * ST_BOX * 4 : 0;
+}
+
+// the first granule of block c, and the block that owns granule s
+// (kernels.qgemm_stream_plan computes the same)
+__device__ __forceinline__ int st_first(int total, int ctas, int c) {
+  return (int)((long long)c * total / ctas);
+}
+__device__ __forceinline__ int st_owner(int total, int ctas, int s) {
+  return (int)(((long long)(s + 1) * ctas - 1) / total);
+}
+
+struct StUnit {
+  int member, n0, k0, k1, gtile, next;
+};
+
+// the unit that starts at granule s of a block whose range ends at s_end
+__device__ __forceinline__ StUnit st_unit(const StreamArgs& a, int s, int s_end) {
+  StUnit u;
+  const int gt = s / a.gcount, g0 = s - gt * a.gcount;
+  const int g1 = min(a.gcount, g0 + (s_end - s));
+  int t = gt, m = 0;
+  if (t >= a.tiles[0]) {
+    t -= a.tiles[0];
+    m = 1;
+    if (t >= a.tiles[1]) {
+      t -= a.tiles[1];
+      m = 2;
+    }
+  }
+  u.member = m;
+  u.n0 = t * ST_BN;
+  u.k0 = g0 * a.granule;
+  u.k1 = min(a.K, g1 * a.granule);
+  u.gtile = gt;
+  u.next = s + (g1 - g0);
+  return u;
+}
+
+template <typename T>
+__device__ __forceinline__ T st_pick(int m, T v0, T v1, T v2) {
+  return m == 0 ? v0 : (m == 1 ? v1 : v2);
+}
+
+// KMAJ: this warp's A fragments for the four 16-column steps of a stage from
+// a [128 rows of W, 64 bytes of K] box (64-byte swizzle: 16-byte chunk c
+// of row r at chunk c ^ ((r >> 1) & 3)).  A row g is W row 2g of the warp's
+// 16 and row g + 8 is 2g + 1, as `load_a` permutes columns, so the epilogue
+// is shared.  The mma's k index is permuted: slots 2t, 2t + 1 take K 4t,
+// 4t + 1 of the step and slots 2t + 8, 2t + 9 take 4t + 2, 4t + 3, so a
+// thread's four bytes of a row are one load (`x_frag` permutes x alike).
+// Lanes 0-15 load the even row first and lanes 16-31 the odd one, so the
+// eight rows of each load fall in eight distinct bank groups.
+__device__ __forceinline__ void load_a_kmajor(const uint8_t* wt, int warp, int lane,
+                                              uint32_t (&a)[4][4]) {
+  const int g = lane >> 2, t = lane & 3, sel = g >> 2;
+  const int ra = 16 * warp + 2 * g + sel, rb = ra ^ 1;
+  const int sw = (ra >> 1) & 3;  // the same for rb
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t la = *reinterpret_cast<const uint32_t*>(wt + ra * 64 + ((j ^ sw) << 4) + 4 * t);
+    const uint32_t lb = *reinterpret_cast<const uint32_t*>(wt + rb * 64 + ((j ^ sw) << 4) + 4 * t);
+    const uint32_t w0 = (sel ? lb : la) ^ 0x80808080u, w1 = (sel ? la : lb) ^ 0x80808080u;
+    a[j][0] = pack_bf16(i8_value(w0, 0), i8_value(w0, 1));
+    a[j][1] = pack_bf16(i8_value(w1, 0), i8_value(w1, 1));
+    a[j][2] = pack_bf16(i8_value(w0, 2), i8_value(w0, 3));
+    a[j][3] = pack_bf16(i8_value(w1, 2), i8_value(w1, 3));
+  }
+}
+
+// the B fragment (x^T) of rows 8i .. 8i + 7 of x for 16-row step j of the
+// stage's x slice (128-byte rows, 128-byte swizzle; row & 7 is g)
+template <bool KMAJ>
+__device__ __forceinline__ void x_frag(const uint8_t* xt, int i, int j, int g, int t, uint32_t& b0,
+                                       uint32_t& b1) {
+  const uint8_t* row = xt + (8 * i + g) * 128;
+  if constexpr (KMAJ) {  // K 4t .. 4t + 3 of the step: one 8-byte load
+    const uint2 v = *reinterpret_cast<const uint2*>(row + (((2 * j + (t >> 1)) ^ g) << 4) + 8 * (t & 1));
+    b0 = v.x;
+    b1 = v.y;
+  } else {  // K 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
+    b0 = *reinterpret_cast<const uint32_t*>(row + (((2 * j) ^ g) << 4) + 4 * t);
+    b1 = *reinterpret_cast<const uint32_t*>(row + (((2 * j + 1) ^ g) << 4) + 4 * t);
+  }
+}
+
+template <int BITS, int MT, bool KMAJ>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+qgemm_stream_kernel(const __grid_constant__ StreamArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int xb, wb, sb;
+  st_sizes(BITS, MT, a.srows, xb, wb, sb);
+  const int wbox = wb / ST_CH, sbox = sb / ST_CH;
+  const int nst = a.stages;
+  const int w_off = nst * xb, s_off = w_off + nst * wb, bar_off = s_off + nst * sb;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bar_off);
+  uint64_t* empty = full + nst;
+  const int ctas = gridDim.x, total = a.total;
+  const int s_begin = st_first(total, ctas, blockIdx.x);
+  const int s_end = st_first(total, ctas, blockIdx.x + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(full + s, 1);   // the producer's arrival (plus the TMA bytes)
+      mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x == 256) {
+      // TMA counts every byte of a box, the zero-filled ones past an edge too
+      const uint32_t bytes = xb + wb + sb;
+      int st = 0, phase = 0;  // the ring slot and its pass parity
+      for (int s = s_begin; s < s_end;) {
+        const StUnit u = st_unit(a, s, s_end);
+        const CUtensorMap* tw = st_pick(u.member, &a.tw[0], &a.tw[1], &a.tw[2]);
+        const CUtensorMap* ts = st_pick(u.member, &a.ts[0], &a.ts[1], &a.ts[2]);
+        for (int k0 = u.k0; k0 < u.k1; k0 += ST_KT, st = st + 1 == nst ? 0 : st + 1,
+                 phase ^= st == 0) {
+          mbar_wait(empty + st, phase ^ 1);
+          mbar_expect_tx(full + st, bytes);
+          tma_load_2d(smem + st * xb, &a.tx, full + st, k0, 0);
+#pragma unroll
+          for (int ch = 0; ch < ST_CH; ++ch) {
+            uint8_t* wdst = smem + w_off + st * wb + ch * wbox;
+            const int n = u.n0 + ch * ST_BOX;
+            if constexpr (KMAJ)
+              tma_load_2d(wdst, tw, full + st, k0, n);
+            else
+              tma_load_2d(wdst, tw, full + st, n, BITS == 8 ? k0 : k0 / 2);
+            if constexpr (BITS == 4)
+              tma_load_2d(smem + s_off + st * sb + ch * sbox, ts, full + st, n, k0 / a.group);
+          }
+        }
+        s = u.next;
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's columns of box ch: nl, nl + 1 (A rows g, g + 8); of the tile, ch 128 + nl
+  const int nl = 16 * warp + 2 * g;
+  constexpr int SLOT = 8 * MT * ST_BN;
+  // int4 groups of whole stages (the group a multiple of 64): each 16-row
+  // step's products go to one of NQ independent accumulators (fresh at the
+  // stage's first steps), summed in f32 at the stage's end, so the group's
+  // flush waits for one product's latency, not a chain of four; registers
+  // allow 4 of them to M = 16 and 2 to 32; past 32 rows the products chain
+  // into the group's partial as for other groups
+  constexpr int NQ = MT <= 2 ? 4 : (MT == 4 ? 2 : 1);
+  const bool whole = BITS == 4 && NQ > 1 && a.group % ST_KT == 0;
+  __shared__ int s_last;
+  int st = 0, phase = 0;  // the ring slot and its pass parity
+  for (int s = s_begin; s < s_end;) {
+    const StUnit u = st_unit(a, s, s_end);
+    float acc[ST_CH][MT][4], part[ST_CH][MT][4];  // part: int4's open group
+#pragma unroll
+    for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ch][i][e] = part[ch][i][e] = 0.0f;
+    // acc += round(p) * s for this thread's two columns of each box, the
+    // scales (row r of the stage's scale boxes) rounded
+    auto flush = [&](float (&p)[ST_CH][MT][4], int r) {
+#pragma unroll
+      for (int ch = 0; ch < ST_CH; ++ch) {
+        const float2 s2 = *reinterpret_cast<const float2*>(
+            smem + s_off + st * sb + ch * sbox + 4 * (r * ST_BOX + nl));
+        const float sx = bf16_round(s2.x), sy = bf16_round(s2.y);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          add_rounded_pair(acc[ch][i][0], acc[ch][i][1], p[ch][i][0], p[ch][i][1], sx, sx);
+          add_rounded_pair(acc[ch][i][2], acc[ch][i][3], p[ch][i][2], p[ch][i][3], sy, sy);
+        }
+      }
+    };
+    int gleft = a.group;  // int4: rows of the open group still to come (ranges start on groups)
+
+    for (int k0 = u.k0; k0 < u.k1;
+         k0 += ST_KT, st = st + 1 == nst ? 0 : st + 1, phase ^= st == 0) {
+      mbar_wait(full + st, phase);
+      const uint8_t* xt = smem + st * xb;
+      uint32_t af[ST_CH][4][4];
+#pragma unroll
+      for (int ch = 0; ch < ST_CH; ++ch) {
+        if constexpr (KMAJ)
+          load_a_kmajor(smem + w_off + st * wb + ch * wbox, warp, lane, af[ch]);
+        else
+          load_a<BITS>(smem + w_off + st * wb + ch * wbox, warp, lane, af[ch]);
+      }
+      if (BITS == 8 || !whole) {
+        // int8 (and KMAJ): one accumulator, read only at the unit's end.
+        // int4 groups of 16-48 rows (or not a multiple of 64), and M > 32:
+        // the open group's partial, flushed at the step that ends it.
+        const int srow0 = BITS == 4 ? k0 / a.group : 0;  // the stage's first scale row
+#pragma unroll
+        for (int j = 0; j < ST_KT / 16; ++j) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            uint32_t b0, b1;
+            x_frag<KMAJ>(xt, i, j, g, t, b0, b1);
+#pragma unroll
+            for (int ch = 0; ch < ST_CH; ++ch) {
+              if constexpr (BITS == 8)
+                mma_bf16(acc[ch][i], af[ch][j], b0, b1);
+              else
+                mma_bf16(part[ch][i], af[ch][j], b0, b1);
+            }
+          }
+          if constexpr (BITS == 4) {
+            gleft -= 16;
+            if (gleft == 0) {
+              flush(part, (k0 + 16 * j) / a.group - srow0);
+#pragma unroll
+              for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+                for (int i = 0; i < MT; ++i)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) part[ch][i][e] = 0.0f;
+              gleft = a.group;
+            }
+          }
+        }
+      } else if constexpr (BITS == 4) {
+        float q[NQ][ST_CH][MT][4];
+#pragma unroll
+        for (int j = 0; j < ST_KT / 16; ++j) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            uint32_t b0, b1;
+            x_frag<KMAJ>(xt, i, j, g, t, b0, b1);
+#pragma unroll
+            for (int ch = 0; ch < ST_CH; ++ch) {
+              if (j < NQ)
+                mma_bf16_zero(q[j % NQ][ch][i], af[ch][j], b0, b1);
+              else
+                mma_bf16(q[j % NQ][ch][i], af[ch][j], b0, b1);
+            }
+          }
+        }
+        // the stage's products into the open group, in a fixed order
+#pragma unroll
+        for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float v = part[ch][i][e];
+#pragma unroll
+              for (int jq = 0; jq < NQ; ++jq) v += q[jq][ch][i][e];
+              part[ch][i][e] = v;
+            }
+        gleft -= ST_KT;
+        if (gleft == 0) {  // the group ends with the stage: its scale row is the stage's first
+          flush(part, 0);
+#pragma unroll
+          for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[ch][i][e] = 0.0f;
+          gleft = a.group;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+
+    // Epilogue.  C fragment (ch, i, e): column ch 128 + nl + (e >> 1) of the
+    // tile, row 8i + 2t + (e & 1) of x.
+    const int N = st_pick(u.member, a.n[0], a.n[1], a.n[2]);
+    __nv_bfloat16* y = st_pick(u.member, a.y[0], a.y[1], a.y[2]);
+    float2 sc[ST_CH];
+#pragma unroll
+    for (int ch = 0; ch < ST_CH; ++ch) {
+      const int n = u.n0 + ch * ST_BOX + nl;
+      sc[ch] = make_float2(1.0f, 1.0f);
+      if (BITS == 8 && !KMAJ && n < N) {
+        const float* scale = st_pick(u.member, a.scale[0], a.scale[1], a.scale[2]);
+        const float2 s2 = __ldg(reinterpret_cast<const float2*>(scale + n));
+        sc[ch] = make_float2(bf16_round(s2.x), bf16_round(s2.y));
+      }
+    }
+    auto store = [&](int ch, int m, float v0, float v1) {
+      const int n = u.n0 + ch * ST_BOX + nl;
+      if (m < a.M && n < N) {
+        if (BITS == 8 && !KMAJ) {
+          v0 = bf16_round(v0) * sc[ch].x;
+          v1 = bf16_round(v1) * sc[ch].y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * N + n) = __floats2bfloat162_rn(v0, v1);
+      }
+    };
+    const int tile_s = u.gtile * a.gcount;
+    const int cf = st_owner(total, ctas, tile_s), cl = st_owner(total, ctas, tile_s + a.gcount - 1);
+    if (cf == cl) {  // the whole tile is this block's
+#pragma unroll
+      for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          store(ch, 8 * i + 2 * t, acc[ch][i][0], acc[ch][i][2]);
+          store(ch, 8 * i + 2 * t + 1, acc[ch][i][1], acc[ch][i][3]);
+        }
+    } else {  // K cut between blocks cf..cl: partials, summed in block order by the last
+      float* p = a.scratch + (size_t)(2 * blockIdx.x + (s == s_begin ? 0 : 1)) * SLOT;
+#pragma unroll
+      for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int m = 8 * i + 2 * t, c0 = ch * ST_BOX + nl;
+          *reinterpret_cast<float2*>(p + m * ST_BN + c0) = make_float2(acc[ch][i][0], acc[ch][i][2]);
+          *reinterpret_cast<float2*>(p + (m + 1) * ST_BN + c0) =
+              make_float2(acc[ch][i][1], acc[ch][i][3]);
+        }
+      __threadfence();
+      consumers_sync();
+      if (threadIdx.x == 0) {
+        s_last = atomicAdd(a.counters + u.gtile, 1) == cl - cf;
+        if (s_last) a.counters[u.gtile] = 0;  // every split has arrived: ready for the next call
+      }
+      consumers_sync();
+      if (s_last) {
+        __threadfence();
+        // the blocks' partials in block order, RB blocks' loaded at a time
+        // (32 loads in flight a thread), then added
+        constexpr int RB = 8 / MT;
+        float v[ST_CH][MT][4];
+#pragma unroll
+        for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[ch][i][e] = 0.0f;
+        for (int c0 = cf; c0 <= cl; c0 += RB) {
+          float2 lo[RB][ST_CH][MT], hi[RB][ST_CH][MT];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const int c = min(c0 + r, cl);
+            // block c's unit of this tile is its first unless its range starts before the tile
+            const float* q = a.scratch +
+                             (size_t)(2 * c + (st_first(total, ctas, c) < tile_s ? 1 : 0)) * SLOT;
+#pragma unroll
+            for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) {
+                const int m = 8 * i + 2 * t, col = ch * ST_BOX + nl;
+                lo[r][ch][i] = __ldcg(reinterpret_cast<const float2*>(q + m * ST_BN + col));
+                hi[r][ch][i] = __ldcg(reinterpret_cast<const float2*>(q + (m + 1) * ST_BN + col));
+              }
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            if (c0 + r > cl) break;
+#pragma unroll
+            for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) {
+                v[ch][i][0] += lo[r][ch][i].x;
+                v[ch][i][2] += lo[r][ch][i].y;
+                v[ch][i][1] += hi[r][ch][i].x;
+                v[ch][i][3] += hi[r][ch][i].y;
+              }
+          }
+        }
+#pragma unroll
+        for (int ch = 0; ch < ST_CH; ++ch)
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            store(ch, 8 * i + 2 * t, v[ch][i][0], v[ch][i][2]);
+            store(ch, 8 * i + 2 * t + 1, v[ch][i][1], v[ch][i][3]);
+          }
+      }
+    }
+    s = u.next;
+  }
+}
+
+// The tied head in f32 on the CUDA cores: y[m, n] = sum_k x[m, k] q[n, k],
+// q int8 [N, K] (K contiguous), x already scaled per k.  A warp takes one
+// row of q (four bytes a lane a step) for 8 rows of x, then sums its lanes.
+__global__ void __launch_bounds__(THREADS)
+qgemm_tied_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+                      float* __restrict__ y, int M, int N, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (THREADS / 32) + warp, m0 = blockIdx.y * 8;
+  if (n >= N) return;
+  float acc[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) acc[r] = 0.0f;
+  const int8_t* row = q + (size_t)n * K;
+  for (int k = 4 * lane; k < K; k += 128) {
+    const char4 w = *reinterpret_cast<const char4*>(row + k);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (m0 + r < M) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k));
+        acc[r] = fmaf(v.x, (float)w.x, acc[r]);
+        acc[r] = fmaf(v.y, (float)w.y, acc[r]);
+        acc[r] = fmaf(v.z, (float)w.z, acc[r]);
+        acc[r] = fmaf(v.w, (float)w.w, acc[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xFFFFFFFFu, acc[r], o);
+    if (lane == 0 && m0 + r < M) y[(size_t)(m0 + r) * N + n] = acc[r];
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -855,7 +1352,8 @@ EncodeTiledFn encode_tiled() {
 // box_cols]; out-of-range elements of a box read as zeros
 bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t cols,
                 uint64_t rows, uint64_t row_bytes, uint32_t box_cols, uint32_t box_rows,
-                CUtensorMapSwizzle swizzle) {
+                CUtensorMapSwizzle swizzle,
+                CUtensorMapL2promotion l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
@@ -863,8 +1361,7 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uin
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the scale rows a 64-row tile of K touches at most; a block's K range
@@ -905,6 +1402,32 @@ int launch_wgmma(const void* x, const void* w, const void* scale, void* y, void*
       static_cast<float*>(scratch), static_cast<int*>(counters), M, N, K, group, kchunk, ksplit,
       srows);
   return (int)cudaGetLastError();
+}
+
+template <int BITS, int MT, bool KMAJ>
+int launch_stream_t(StreamArgs& a, int ctas, cudaStream_t stream) {
+  int xb, wb, sb;
+  st_sizes(BITS, MT, a.srows, xb, wb, sb);
+  // ST_RING_BYTES of weights in flight, within what shared memory holds
+  // beside the barriers, the alignment slack and the kernel's static word
+  a.stages = min((ST_RING_BYTES + wb + sb - 1) / (wb + sb), (ST_SMEM - 1024 - 256) / (xb + wb + sb + 16));
+  const int bytes = a.stages * (xb + wb + sb + 16) + 1024;
+  auto kernel = qgemm_stream_kernel<BITS, MT, KMAJ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ctas, ST_THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, bool KMAJ>
+int launch_stream(StreamArgs& a, int mt, int ctas, cudaStream_t stream) {
+  switch (mt) {
+    case 1: return launch_stream_t<BITS, 1, KMAJ>(a, ctas, stream);
+    case 2: return launch_stream_t<BITS, 2, KMAJ>(a, ctas, stream);
+    case 4: return launch_stream_t<BITS, 4, KMAJ>(a, ctas, stream);
+    case 8: return launch_stream_t<BITS, 8, KMAJ>(a, ctas, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // f32 on the CUDA cores: one output column a thread, 8 rows of x a block,
@@ -1038,4 +1561,93 @@ extern "C" int dabt_qgemm(const void* x, const void* w, const void* scale, void*
                            ksplit, st);
   return dispatch_mma<4>(mt, warps_m, x, w, scale, y, scratch, counters, M, N, K, group, kchunk,
                          ksplit, st);
+}
+
+// The stream route (bf16 x [M, K], M <= 64): `members` (1-3) products that
+// share x, member i with w_i (int8 [K, N_i] or packed int4 [K/2, N_i]),
+// scale_i and y_i [M, N_i]; N_i a multiple of 16 and every pointer on a
+// 16-byte boundary (TMA's terms).  kmajor: the tied head, one int8 member
+// w [N, K] (N a multiple of 8), no scale.  The grid is ceil(granules /
+// ceil(granules / sms)) blocks (``kernels.qgemm_stream_plan``); scratch
+// holds 2 x blocks x 8 MT x 256 floats (MT = M rounded up to 8, 16, 32 or
+// 64, over 8) and counters one zeroed int per column tile of all members,
+// which every call leaves at zero.  Returns cudaGetLastError(), or cudaErrorInvalidValue for what the
+// kernel does not take.
+extern "C" int dabt_qgemm_stream(const void* x, const void* w0, const void* w1, const void* w2,
+                                 const void* s0, const void* s1, const void* s2, void* y0,
+                                 void* y1, void* y2, int n0, int n1, int n2, int members,
+                                 int bits, int M, int K, int group, int kmajor, int sms,
+                                 void* scratch, void* counters, void* stream) {
+  const void* ws[3] = {w0, w1, w2};
+  const void* ss[3] = {s0, s1, s2};
+  void* ys[3] = {y0, y1, y2};
+  const int ns[3] = {n0, n1, n2};
+  if (members < 1 || members > 3 || M < 1 || M > 64 || K < 16 || K % 16 || sms < 1 ||
+      (bits != 8 && bits != 4) || (kmajor && (bits != 8 || members != 1)) ||
+      (bits == 4 && (group < 16 || group % 16 || K % group)) || scratch == nullptr ||
+      counters == nullptr || x == nullptr || (uintptr_t)x % 16)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < members; ++i)
+    if (ns[i] < 8 || ns[i] % (kmajor ? 8 : 16) || ws[i] == nullptr || ys[i] == nullptr ||
+        ((uintptr_t)ws[i] | (uintptr_t)ys[i]) % 16 ||
+        (!kmajor && (ss[i] == nullptr || (uintptr_t)ss[i] % 16)))
+      return (int)cudaErrorInvalidValue;
+  const int mt = M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8;
+  StreamArgs a;
+  memset(&a, 0, sizeof(a));
+  a.M = M;
+  a.K = K;
+  a.group = bits == 4 ? group : 0;
+  a.srows = bits == 4 ? wg_scale_rows(group) : 0;
+  int granule = ST_KT;
+  if (bits == 4)
+    while (granule % group) granule += ST_KT;  // lcm(64, group)
+  a.granule = granule;
+  a.gcount = (K + granule - 1) / granule;
+  a.scratch = static_cast<float*>(scratch);
+  a.counters = static_cast<int*>(counters);
+  bool ok = tensor_map(&a.tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, ST_KT,
+                       8 * mt, CU_TENSOR_MAP_SWIZZLE_128B);
+  int tiles = 0;
+  for (int i = 0; i < 3; ++i) {
+    const int j = i < members ? i : 0;  // members past `members` repeat member 0, unused
+    const int N = ns[j];
+    if (kmajor)
+      ok = ok && tensor_map(&a.tw[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, ws[j], K, N, K, ST_KT, ST_BOX,
+                            CU_TENSOR_MAP_SWIZZLE_64B, ST_L2);
+    else
+      ok = ok && tensor_map(&a.tw[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, ws[j], N, bits == 8 ? K : K / 2,
+                            N, ST_BOX, bits == 8 ? ST_KT : ST_KT / 2, CU_TENSOR_MAP_SWIZZLE_128B, ST_L2);
+    if (bits == 4)
+      ok = ok && tensor_map(&a.ts[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ss[j], N, K / group,
+                            (uint64_t)N * 4, ST_BOX, a.srows, CU_TENSOR_MAP_SWIZZLE_NONE, ST_L2);
+    else
+      a.ts[i] = a.tw[i];
+    a.scale[i] = static_cast<const float*>(ss[j]);
+    a.y[i] = static_cast<__nv_bfloat16*>(ys[j]);
+    a.n[i] = N;
+    a.tiles[i] = i < members ? (N + ST_BN - 1) / ST_BN : 0;
+    tiles += a.tiles[i];
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  a.total = tiles * a.gcount;
+  // as few blocks as keep the most granules a block at ceil(total / sms):
+  // equal ranges then often end on tile boundaries, fewer partials
+  const int ctas = (a.total + (a.total + sms - 1) / sms - 1) / ((a.total + sms - 1) / sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kmajor) return launch_stream<8, true>(a, mt, ctas, st);
+  if (bits == 8) return launch_stream<8, false>(a, mt, ctas, st);
+  return launch_stream<4, false>(a, mt, ctas, st);
+}
+
+// The tied head in f32 (CUDA cores): x f32 [M, K] already scaled, q int8
+// [N, K], y f32 [M, N]; K a multiple of 16, x and q on 16-byte boundaries.
+extern "C" int dabt_qgemm_tied_f32(const void* x, const void* q, void* y, int M, int N, int K,
+                                   void* stream) {
+  if (M < 1 || N < 1 || K < 16 || K % 16 || ((uintptr_t)x | (uintptr_t)q) % 16)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + THREADS / 32 - 1) / (THREADS / 32), (M + 7) / 8);
+  qgemm_tied_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q), static_cast<float*>(y), M, N, K);
+  return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -88,6 +88,13 @@ _EXTRA_SYMBOLS = {
         # mma, B, H, KH, page, NB, D -> f32 scratch floats, -1 if not taken
         "dabt_paged_decode_scratch": ([_I] * 7, ctypes.c_longlong),
     },
+    "qgemm": {
+        # x, w0-w2, scale0-scale2, y0-y2, n0-n2, members, bits, M, K, group,
+        # kmajor, sms, scratch, counters, stream
+        "dabt_qgemm_stream": ([_P] * 10 + [_I] * 10 + [_P] * 3, ctypes.c_int),
+        # x, q, y, M, N, K, stream
+        "dabt_qgemm_tied_f32": ([_P] * 3 + [_I] * 3 + [_P], ctypes.c_int),
+    },
 }
 
 # bf16 head dims of the tensor-core paged decode kernel; the CUDA-core split
@@ -105,10 +112,11 @@ PAGED_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
 
 # qgemm launches by weight format, counted beside LAUNCHES like PAGED_ROUTES
 QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
-# and by route: "mma" (the direct-load kernel: decode, and prefill where
-# TMA cannot take N or a pointer), "wgmma" (the prefill kernel), "cuda_core"
-# (f32)
-QGEMM_ROUTES: Dict[str, int] = {"mma": 0, "wgmma": 0, "cuda_core": 0}
+# and by route: "stream" (the decode kernel, M <= 64, one launch for up to
+# three members; also the tied int8 head), "mma" (the direct-load kernel:
+# where TMA cannot take N or a pointer), "wgmma" (the prefill kernel),
+# "cuda_core" (f32)
+QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 0}
 # a kernel's launches by kind, for the kernels that count them
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
@@ -126,6 +134,13 @@ QGEMM_WAVE_US = 3.5
 QGEMM_PARTIAL_US = 0.0000033
 # the most f32 partials (16 MiB) a split wgmma qgemm call writes
 QGEMM_PARTIAL_FLOATS = 1 << 22
+# the stream route (qgemm_stream_kernel): rows of K a stage (and a granule
+# of int8 work), output columns a tile (two 128-column TMA boxes), the most
+# rows of x a launch, and the most f32 partials (32 MiB) its scratch holds
+QGEMM_STREAM_KT = 64
+QGEMM_STREAM_BN = 256
+QGEMM_STREAM_MAX_M = 64
+QGEMM_STREAM_PARTIAL_FLOATS = 1 << 23
 
 # split-K scratch per (kernel, device, stream): (f32 partials, int32
 # counters); the counters start at zero and every call leaves them at zero
@@ -493,16 +508,20 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tens
     caller (``ops.quant.qeinsum``) validated the arguments: ``q`` int8
     ``[K, N]`` (``group`` 0, ``scale`` per column) or packed int4 ``[K/2,
     N]`` (``scale`` per ``group`` rows and column), x and out contiguous in
-    one type.  A bf16 call past 64 rows with N a multiple of 16 and the
-    tensors on 16-byte boundaries (which TMA needs) takes the wgmma kernel,
-    other bf16 calls the direct-load kernel, f32 the CUDA-core one
-    (``QGEMM_ROUTES`` counts which).  A bf16 call that splits K takes its f32
-    partials and counters from the per-(device, stream) scratch, like paged
-    decode."""
+    one type.  With N a multiple of 16 and the tensors on 16-byte
+    boundaries (which TMA needs), a bf16 call of at most 64 rows takes the
+    stream kernel (:func:`qgemm_stream`) and one past 64 rows the wgmma
+    kernel; other bf16 calls take the direct-load kernel, f32 the CUDA-core
+    one (``QGEMM_ROUTES`` counts which).  A bf16 call that splits K takes
+    its f32 partials and counters from the per-(device, stream) scratch,
+    like paged decode."""
     M, K = x.shape
     N = out.shape[1]
     bits = 4 if group else 8
     dt = dtype_code(x.dtype)
+    if qgemm_stream_takes(x, (q, scale, out), (N,)):
+        qgemm_stream(x, [q], [scale], [out], group=group)
+        return
     mt = warps_m = ksplit = 1
     kchunk = K
     stream = _stream(x)
@@ -523,4 +542,146 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tens
         )
     route = "cuda_core" if dt == _DTYPE_CODE[torch.float32] else "wgmma" if warps_m == 8 else "mma"
     _count("qgemm", f"int{bits}", route)
+    _check("qgemm", err)
+
+
+class StreamUnit(NamedTuple):
+    """One unit of a stream-route block: rows ``[k0, k1)`` of K of column
+    tile ``tile`` of member ``member``; ``slot`` the f32 partial it writes
+    (-1: the block owns the whole tile and writes y), ``splits`` the blocks
+    the tile's K is cut between."""
+
+    member: int
+    tile: int
+    k0: int
+    k1: int
+    slot: int
+    splits: int
+
+
+class StreamPlan(NamedTuple):
+    """A stream-route launch (``qgemm_stream_kernel``): ``mt`` m-tiles of 8
+    rows of x, K in granules of ``granule`` rows (``gcount`` a tile),
+    ``tiles`` column tiles per member, ``total`` granules, ``ctas`` blocks,
+    each block's units in order, and the f32 partial floats its scratch
+    holds (two slots a block)."""
+
+    mt: int
+    granule: int
+    gcount: int
+    tiles: tuple
+    total: int
+    ctas: int
+    units: tuple
+    partial_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def qgemm_stream_plan(M: int, Ns: tuple, K: int, bits: int, group: int,
+                      sms: int = 132) -> StreamPlan:
+    """The work of one stream-route launch over members of widths ``Ns``
+    (the same arithmetic as ``csrc/qgemm.cu``'s ``st_unit``, ``st_first``
+    and ``st_owner``).  The members' column tiles of ``QGEMM_STREAM_BN``
+    form one sequence of granules, each tile's K cut into ``granule`` rows
+    (``QGEMM_STREAM_KT``; int4: lcm with the group, so every range starts on
+    a group boundary); block ``c`` of ``ctas`` takes granules ``[c total //
+    ctas, (c + 1) total // ctas)``, cut where a tile ends, ``ctas`` the
+    fewest blocks that keep a block's share at ``ceil(total / sms)`` (the
+    ranges then often end on tile boundaries: fewer partials).  A
+    tile cut between blocks sums their partials in block order; a block's
+    first unit writes slot ``2c``, its last ``2c + 1``."""
+    mt = next(t for t in (1, 2, 4, 8) if 8 * t >= M)
+    granule = math.lcm(QGEMM_STREAM_KT, group) if bits == 4 else QGEMM_STREAM_KT
+    gcount = -(-K // granule)
+    tiles = tuple(-(-n // QGEMM_STREAM_BN) for n in Ns)
+    total = sum(tiles) * gcount
+    per = -(-total // sms)  # the most granules a block takes
+    ctas = -(-total // per)
+
+    def first(c):
+        return c * total // ctas
+
+    def owner(s):
+        return ((s + 1) * ctas - 1) // total
+
+    units = []
+    for c in range(ctas):
+        s, end, mine = first(c), first(c + 1), []
+        while s < end:
+            gt, g0 = divmod(s, gcount)
+            g1 = min(gcount, g0 + end - s)
+            member, t = 0, gt
+            while t >= tiles[member]:
+                t -= tiles[member]
+                member += 1
+            cf, cl = owner(gt * gcount), owner(gt * gcount + gcount - 1)
+            mine.append(StreamUnit(member, t, g0 * granule, min(K, g1 * granule),
+                                   -1 if cf == cl else 2 * c + (s != first(c)), cl - cf + 1))
+            s += g1 - g0
+        units.append(tuple(mine))
+    return StreamPlan(mt, granule, gcount, tiles, total, ctas, tuple(units),
+                      2 * ctas * 8 * mt * QGEMM_STREAM_BN)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def qgemm_stream_takes(x: torch.Tensor, tensors: Sequence[torch.Tensor], Ns: Sequence[int]) -> bool:
+    """Whether the stream route takes a bf16 call: at most
+    ``QGEMM_STREAM_MAX_M`` rows of x, every width a multiple of 16 and
+    every tensor on a 16-byte boundary (TMA's terms)."""
+    return (x.dtype == torch.bfloat16 and 0 < x.shape[0] <= QGEMM_STREAM_MAX_M
+            and all(n % 16 == 0 for n in Ns)
+            and not any(t.data_ptr() % 16 for t in (x, *tensors)))
+
+
+def qgemm_stream(x: torch.Tensor, qs: Sequence[torch.Tensor], scales: Sequence,
+                 outs: Sequence[torch.Tensor], *, group: int, kmajor: bool = False) -> None:
+    """One stream-route launch: ``outs[i] = x . W_i`` for the 1-3 members
+    (``qs[i]`` int8 ``[K, N_i]`` or packed int4 ``[K/2, N_i]``, ``scales[i]``
+    per column or per ``group`` rows), bf16 x ``[M, K]`` with M <= 64; the
+    caller checked :func:`qgemm_stream_takes`.  ``kmajor``: one int8 member
+    ``[N, K]`` and no scale (the tied head).  The split tiles' partials and
+    counters come from the per-(device, stream) scratch."""
+    M, K = x.shape
+    Ns = tuple(o.shape[1] for o in outs)
+    bits = 4 if group else 8
+    sms = _sm_count(x.device.index)
+    plan = qgemm_stream_plan(M, Ns, K, bits, group, sms)
+    stream = _stream(x)
+    _fn("qgemm")  # builds and loads the library if needed
+    pad = [None] * (3 - len(qs))
+    with torch.cuda.device(x.device):
+        scratch, counters = _scratch_buffers("qgemm", x.device, stream, plan.partial_floats,
+                                             sum(plan.tiles))
+        err = _libs["qgemm"].dabt_qgemm_stream(
+            x.data_ptr(), *[q.data_ptr() for q in qs], *pad,
+            *[s.data_ptr() if s is not None else None for s in scales], *pad,
+            *[o.data_ptr() for o in outs], *pad, *Ns, *[0] * len(pad),
+            len(qs), bits, M, K, group, int(kmajor), sms,
+            scratch.data_ptr(), counters.data_ptr(), stream,
+        )
+    _count("qgemm", f"int{bits}", "stream")
+    _check("qgemm", err)
+
+
+def qgemm_tied(xs: torch.Tensor, q: torch.Tensor, out: torch.Tensor) -> None:
+    """The tied int8 head: ``out[M, V] = xs[M, E] . q[V, E]^T``, ``xs``
+    already scaled per E (``ops.quant.tied_head``, which validated the
+    arguments).  bf16 takes the stream route's K-contiguous form, 64 rows of
+    x a launch; f32 the CUDA-core kernel."""
+    M, K = xs.shape
+    N = q.shape[0]
+    if xs.dtype == torch.bfloat16:
+        for m0 in range(0, M, QGEMM_STREAM_MAX_M):
+            rows = slice(m0, min(M, m0 + QGEMM_STREAM_MAX_M))
+            qgemm_stream(xs[rows], [q], [None], [out[rows]], group=0, kmajor=True)
+        return
+    _fn("qgemm")
+    with torch.cuda.device(xs.device):
+        err = _libs["qgemm"].dabt_qgemm_tied_f32(xs.data_ptr(), q.data_ptr(), out.data_ptr(),
+                                                 M, N, K, _stream(xs))
+    _count("qgemm", "int8", "cuda_core")
     _check("qgemm", err)

@@ -39,7 +39,8 @@ from ..ops.attention import (
     paged_gqa_decode_attention,
 )
 from ..ops.norms import rms_norm
-from ..ops.quant import INT4_GROUP_SIZE, QTensor, QTensor4, QuantizedWeight, _int4_group, qeinsum
+from ..ops.quant import (INT4_GROUP_SIZE, QTensor, QTensor4, QuantizedWeight, _int4_group,
+                         qeinsum, qeinsum_group, tied_head)
 from ..ops.rope import apply_rope, rope_frequencies
 from .config import DecoderConfig
 
@@ -214,18 +215,12 @@ def _head_logits(params: Params, cfg: DecoderConfig, x: torch.Tensor) -> torch.T
     """Logits projection ``[..., E] -> [..., V]`` in model dtype.  Untied,
     through ``qeinsum`` (an int8 head launches the qgemm kernel on the
     card).  A tied int8 table ``[V, E]`` carries per-E scales, which land on
-    ``x`` (x . (q s)^T == (x s) . q^T, as in JAX); the kernel does not take
-    its transposed layout, so on the card it raises."""
+    ``x`` (x . (q s)^T == (x s) . q^T, as in JAX): ``tied_head``, on the
+    card the qgemm kernel's K-contiguous form over the table."""
     if cfg.tie_embeddings:
         w = params["tok_embed"]
         if isinstance(w, QTensor):
-            if x.device.type == "cuda":
-                raise NotImplementedError(
-                    "a tied int8 embedding table as the head: the qgemm kernel takes "
-                    "[in, out] weights only (ROADMAP Queue 2, kernel work)"
-                )
-            xs = x * w.scale.squeeze(-2).to(cfg.dtype)
-            return torch.einsum("...e,ve->...v", xs, w.q.to(cfg.dtype))
+            return tied_head(x, w, cfg.dtype)
         return torch.einsum("...e,ve->...v", x, w.to(cfg.dtype))
     return qeinsum("...e,ev->...v", x, params["lm_head"], cfg.dtype)
 
@@ -237,17 +232,16 @@ def _mlp(cfg: DecoderConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         act = functools.partial(torch.nn.functional.gelu, approximate="tanh")
     else:
         act = torch.nn.functional.silu
-    h = act(qeinsum("bse,ef->bsf", x, p["w_gate"], cfg.dtype)) * qeinsum(
-        "bse,ef->bsf", x, p["w_up"], cfg.dtype
-    )
+    # gate and up in one qgemm launch where the stream route takes them
+    gate, up = qeinsum_group("bse,ef->bsf", x, (p["w_gate"], p["w_up"]), cfg.dtype)
+    h = act(gate) * up
     return qeinsum("bsf,fe->bse", h, p["w_down"], cfg.dtype)
 
 
 def _qkv(cfg: DecoderConfig, p: Params, x: torch.Tensor):
-    """Q/K/V projections (+ Qwen2 biases): [B, S, H*D], [B, S, KH*D] x2."""
-    q = qeinsum("bse,eo->bso", x, p["wq"], cfg.dtype)
-    k = qeinsum("bse,eo->bso", x, p["wk"], cfg.dtype)
-    v = qeinsum("bse,eo->bso", x, p["wv"], cfg.dtype)
+    """Q/K/V projections (+ Qwen2 biases): [B, S, H*D], [B, S, KH*D] x2;
+    quantized, one qgemm launch where the stream route takes them."""
+    q, k, v = qeinsum_group("bse,eo->bso", x, (p["wq"], p["wk"], p["wv"]), cfg.dtype)
     if cfg.attn_bias:
         q = q + p["bq"]
         k = k + p["bk"]

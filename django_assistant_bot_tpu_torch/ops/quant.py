@@ -20,6 +20,10 @@ kernel (``csrc/qgemm.cu`` via :func:`~..kernels.qgemm`), which reads only
 the integers and dequantizes in registers.  A call the kernel does not take
 (a pattern outside ``x[..., in] . w[in, out]``, or what
 :func:`kernel_refusal` names) raises; there is no fallback.
+:func:`qeinsum_group` runs projections of one x (QKV, gate/up) as one
+launch of the kernel's stream route where it takes them, and
+:func:`tied_head` a tied int8 embedding table as the head (the kernel's
+K-contiguous form on the card, :func:`tied_head_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -243,10 +247,27 @@ def kernel_refusal(w: Any, dtype: torch.dtype) -> Optional[str]:
     return None
 
 
+def tied_head_refusal(w: Any, dtype: torch.dtype) -> Optional[str]:
+    """Why the qgemm kernel cannot take the tied int8 table ``w`` (``q``
+    ``[V, E]``, K-contiguous) as the head with activations in ``dtype``
+    (None if it can): f32 or bf16, an int8 table, ``E`` a multiple of 16,
+    ``V`` of 8, ``q`` contiguous on a 16-byte boundary."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"activations must be float32 or bfloat16, got {dtype}"
+    if not isinstance(w, QTensor) or w.q.dim() != 2:
+        return f"the tied head takes a 2-D int8 table, got {w!r}"
+    V, E = w.q.shape
+    if E % 16 or V % 8:
+        return f"hidden size {E} must be a multiple of 16 and vocab size {V} of 8"
+    if not w.q.is_contiguous() or w.q.data_ptr() % 16:
+        return "q must be contiguous and 16-byte aligned"
+    return None
+
+
 def check_kernel_params(params: Dict[str, Any], dtype: torch.dtype) -> None:
     """Refuse, before any step runs, decoder params whose quantized
-    projections the kernel would not take on the card (ValueError naming the
-    leaf and the reason), and a tied int8 head (NotImplementedError)."""
+    projections or tied int8 head the kernel would not take on the card
+    (ValueError naming the leaf and the reason)."""
     leaves = [(f"layers.{k}", w) for k, w in params["layers"].items()]
     leaves.append(("lm_head", params.get("lm_head")))
     for name, w in leaves:
@@ -256,10 +277,9 @@ def check_kernel_params(params: Dict[str, Any], dtype: torch.dtype) -> None:
             if why is not None:
                 raise ValueError(f"{name}: the qgemm kernel does not take this weight: {why}")
     if "lm_head" not in params and isinstance(params["tok_embed"], QuantizedWeight):
-        raise NotImplementedError(
-            "a tied int8 embedding table as the head: the qgemm kernel takes [in, out] "
-            "weights only (ROADMAP Queue 2, kernel work)"
-        )
+        why = tied_head_refusal(params["tok_embed"], dtype)
+        if why is not None:
+            raise ValueError(f"tok_embed: the qgemm kernel does not take this tied head: {why}")
 
 
 def qeinsum(pattern: str, x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.Tensor:
@@ -293,6 +313,80 @@ def qeinsum(pattern: str, x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.
     return y.reshape(x.shape[:-1] + (N,))
 
 
+def _stream_group(x: torch.Tensor, ws, dtype: torch.dtype) -> Optional[list]:
+    """The members of a grouped projection as one stream-route launch, or
+    None where the stream route does not take the call (see
+    :func:`qeinsum_group`)."""
+    first = ws[0]
+    if not (x.device.type == "cuda" and x.dtype == dtype == torch.bfloat16
+            and 1 <= len(ws) <= 3 and isinstance(first, QuantizedWeight)):
+        return None
+    K = first.in_features
+    group = first.group_size if first.bits == 4 else 0
+    if x.shape[-1] != K:
+        return None
+    for w in ws:
+        if not (type(w) is type(first) and w.q.dim() == 2 and w.in_features == K
+                and (w.group_size if w.bits == 4 else 0) == group
+                and kernel_refusal(w, dtype) is None):
+            return None
+    from .. import kernels
+
+    x2 = x.reshape(-1, K).contiguous()
+    Ns = [w.q.shape[-1] for w in ws]
+    if not kernels.qgemm_stream_takes(x2, [t for w in ws for t in (w.q, w.scale)], Ns):
+        return None
+    outs = [torch.empty((x2.shape[0], n), dtype=dtype, device=x.device) for n in Ns]
+    kernels.qgemm_stream(x2, [w.q for w in ws], [w.scale for w in ws], outs, group=group)
+    return [y.reshape(x.shape[:-1] + (n,)) for y, n in zip(outs, Ns)]
+
+
+def qeinsum_group(pattern: str, x: torch.Tensor, ws, dtype: torch.dtype) -> list:
+    """``[qeinsum(pattern, x, w, dtype) for w in ws]``: projections of one
+    x (QKV; gate and up).  On the card, when every member is a quantized
+    weight of one format that the stream route takes (bf16, at most 64 rows
+    of x, widths a multiple of 16, 16-byte aligned tensors), the products
+    run in one launch of the stream kernel; otherwise (the CPU's plain
+    twin, dense weights, the prefill route past 64 rows, a member the stream
+    route does not take) each member is its own ``qeinsum`` call.  The
+    weights stay separate leaves: nothing is concatenated or copied."""
+    if _is_projection(pattern):
+        ys = _stream_group(x, list(ws), dtype)
+        if ys is not None:
+            return ys
+    return [qeinsum(pattern, x, w, dtype) for w in ws]
+
+
+def tied_head_plain(x: torch.Tensor, w: QTensor, dtype: torch.dtype) -> torch.Tensor:
+    """The JAX ``_head_logits`` on a tied int8 table ``[V, E]`` (per-E
+    scales): the scales land on x in ``dtype`` (``x . (q s)^T == (x s) .
+    q^T``), then the product over E in ``dtype``."""
+    xs = x * w.scale.squeeze(-2).to(dtype)
+    return torch.einsum("...e,ve->...v", xs, w.q.to(dtype))
+
+
+def tied_head(x: torch.Tensor, w: QTensor, dtype: torch.dtype) -> torch.Tensor:
+    """Logits of a tied int8 table: on the CPU :func:`tied_head_plain`; on
+    the card x is scaled as there (a PyTorch product in ``dtype``) and the
+    qgemm kernel's K-contiguous form reads the table
+    (``kernels.qgemm_tied``); what :func:`tied_head_refusal` names raises."""
+    if x.device.type != "cuda":
+        return tied_head_plain(x, w, dtype)
+    why = tied_head_refusal(w, dtype)
+    if why is None and x.dtype != dtype:
+        why = f"activations are {x.dtype}, the call asks for {dtype}"
+    if why is not None:
+        raise ValueError(f"qgemm kernel refuses the tied head: {why}")
+    from .. import kernels
+
+    V, E = w.q.shape
+    xs = (x * w.scale.squeeze(-2).to(dtype)).reshape(-1, E).contiguous()
+    y = torch.empty((xs.shape[0], V), dtype=dtype, device=x.device)
+    if xs.shape[0]:
+        kernels.qgemm_tied(xs, w.q, y)
+    return y.reshape(x.shape[:-1] + (V,))
+
+
 def qgemm_bf16_bound(x: torch.Tensor, w: Any, ref: torch.Tensor) -> torch.Tensor:
     """Per-element bound on a bf16 ``qeinsum`` output against the f32
     ``ref`` on the same (bf16-valued) ``x``, ``A = |x| . |deq w|``; bf16
@@ -306,7 +400,19 @@ def qgemm_bf16_bound(x: torch.Tensor, w: Any, ref: torch.Tensor) -> torch.Tensor
     to ``3u`` of that group's share of ``A``, errors that partly cancel
     across groups; the tier-1 tests show the JAX function inside it)."""
     a = torch.matmul(x.float().abs(), deq(w, torch.float32).abs())
-    if w.bits == 4:
+    return _bound_from(a, w.bits, ref)
+
+
+def tied_head_bf16_bound(xs: torch.Tensor, w: QTensor, ref: torch.Tensor) -> torch.Tensor:
+    """:func:`qgemm_bf16_bound`'s int8 bound for the tied head: ``ref`` the
+    f32 product of the bf16 ``xs`` (x already scaled) with the table, ``A =
+    |xs| . |q|^T`` (only the sum rounds; the int8 bound's margin stays)."""
+    a = torch.matmul(xs.float().abs(), w.q.float().abs().T)
+    return _bound_from(a, 8, ref)
+
+
+def _bound_from(a: torch.Tensor, bits: int, ref: torch.Tensor) -> torch.Tensor:
+    if bits == 4:
         return 2.0 ** -7 * ref.abs() + 2.0 ** -8 * a + 1e-4
     return 2.0 ** -6 * ref.abs() + 2.0 ** -12 * a + 1e-4
 

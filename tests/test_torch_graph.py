@@ -23,10 +23,14 @@ package:
   request served after it is bitwise the one a fresh engine serves, pools
   included, and its replays are still counted;
 - a captured M = 512 quantized projection (the wgmma kernel, K split at
-  wk/wv's width) replays bit for bit as the eager call.
+  wk/wv's width) replays bit for bit as the eager call;
+- a tied int8 embedding table as the head: a bf16 replay equals the eager
+  steps bitwise, and an f32 engine's greedy ids on the card equal the
+  CPU's.
 """
 
 import contextlib
+import dataclasses
 
 import pytest
 import torch
@@ -40,6 +44,7 @@ from django_assistant_bot_tpu_torch.ops.quant import (
     QTensor4,
     qeinsum,
     quantize_decoder_params,
+    quantize_tensor,
 )
 from django_assistant_bot_tpu_torch.ops.sampling import gumbel_noise
 from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
@@ -337,11 +342,16 @@ def test_replay_after_in_place_restart_equals_fresh_engine():
 def test_quantized_replay_bitwise_equal_to_eager_and_counted(dtype, fmt):
     """Quantized projections in the captured tick: a replay equals the K
     steps run eagerly bitwise (the qgemm partials sum in a fixed order),
-    and each replay counts 7 qgemm launches a layer a step, by format."""
+    and each replay counts its qgemm launches a layer a step by format:
+    bf16 4 on the stream route (QKV and gate/up one launch each, wo, down),
+    f32 7 on the CUDA-core route (one a projection)."""
     eng = _engine(dtype, fmt=fmt)
     L = eng.cfg.num_layers
-    assert eng._graph_launches.launches["qgemm"] == len(QUANTIZABLE) * L * K
-    assert eng._graph_launches.sub["qgemm"][fmt] == len(QUANTIZABLE) * L * K
+    per = 4 if dtype == torch.bfloat16 else len(QUANTIZABLE)
+    route = "stream" if dtype == torch.bfloat16 else "cuda_core"
+    assert eng._graph_launches.launches["qgemm"] == per * L * K
+    assert eng._graph_launches.sub["qgemm"][fmt] == per * L * K
+    assert eng._graph_launches.sub["qgemm_route"][route] == per * L * K
     assert eng.decode_path_stats()["weight_bits"] == (8 if fmt == "int8" else 4)
     _mid_decode(eng, torch.Generator(device="cuda").manual_seed(1))
     before, replayed, eager = _replay_vs_eager(eng, eng._graph, [eng._tick_body])
@@ -351,7 +361,9 @@ def test_quantized_replay_bitwise_equal_to_eager_and_counted(dtype, fmt):
     eng._launch_tick(False)
     eng._launch_tick(True)
     torch.cuda.synchronize()
-    assert kernels.QGEMM_FORMATS[fmt] == 2 * len(QUANTIZABLE) * L * K + len(QUANTIZABLE) * L
+    # two ticks, and the piggybacked chunk's prefill (512 rows: the wgmma
+    # route, one launch a projection)
+    assert kernels.QGEMM_FORMATS[fmt] == 2 * per * L * K + len(QUANTIZABLE) * L
 
 
 @pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024)])
@@ -395,6 +407,44 @@ def test_quantized_prefill_projection_replay_bitwise_equal_to_eager(fmt, K, N):
     if N == 1024:
         (part, counters), = store.values()
         assert int(counters.abs().sum()) == 0  # each call leaves its counters at zero
+
+
+def _tied_engine(dtype, device="cuda"):
+    """A tied int8 embedding table as the head (per-E scales), int8
+    projections."""
+    cfg = dataclasses.replace(_cfg(dtype), tie_embeddings=True)
+    dense = llama.init(_cfg(dtype), torch.Generator().manual_seed(3), "cpu")
+    params = quantize_decoder_params({k: v for k, v in dense.items() if k != "lm_head"})
+    params["tok_embed"] = quantize_tensor(dense["tok_embed"])
+    params = {k: ({n: w.to(device) for n, w in v.items()} if isinstance(v, dict) else v.to(device))
+              for k, v in params.items()}
+    return GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
+                            max_seq_len=1024, decode_steps=K, chunk_size=512)
+
+
+def test_tied_int8_head_replay_bitwise_equal_to_eager_and_engine_matches_cpu():
+    """The tied int8 head on the card: in bf16 a replay of the captured tick
+    (the head on the stream kernel's K-contiguous form) equals the K steps
+    run eagerly bit for bit; in f32 the engine's greedy ids on the card (the
+    head on the CUDA-core kernel) equal the CPU engine's."""
+    eng = _tied_engine(torch.bfloat16)
+    L = eng.cfg.num_layers
+    # 4 stream launches a layer a step, and the head's one a step
+    assert eng._graph_launches.sub["qgemm_route"]["stream"] == (4 * L + 1) * K
+    _mid_decode(eng, torch.Generator(device="cuda").manual_seed(6))
+    before, replayed, eager = _replay_vs_eager(eng, eng._graph, [eng._tick_body])
+    for name, got, want in zip(("k", "v", "lengths", "tokens", "toks"), replayed, eager):
+        assert torch.equal(got, want), name
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 255, (n,), generator=gen).tolist() for n in (40, 300)]
+    ids = {}
+    for device in ("cuda", "cpu"):
+        e = _tied_engine(torch.float32, device=device)
+        e._running = True
+        futs = [e.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+        _crank(e, futs)
+        ids[device] = [f.result(timeout=0).token_ids for f in futs]
+    assert ids["cuda"] == ids["cpu"]
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4"])

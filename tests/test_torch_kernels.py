@@ -28,8 +28,11 @@ from django_assistant_bot_tpu_torch.ops.quant import (
     QTensor4,
     deq,
     qeinsum,
+    qeinsum_group,
     qeinsum_plain,
     qgemm_bf16_bound,
+    tied_head,
+    tied_head_bf16_bound,
 )
 from django_assistant_bot_tpu_torch.storage import VectorIndex, topk_scores
 from django_assistant_bot_tpu_torch.storage.knn_check import topk_agreement
@@ -443,14 +446,15 @@ def _check_qgemm(M, K, N, fmt, g, dtype, seed=0):
 
 @pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                                  (4096, 1040), (4096, 1032)])
-@pytest.mark.parametrize("M", [1, 8, 16, 37, 65, 128, 200, 512, 1024, 2048])
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 64, 65, 128, 200, 512, 1024, 2048])
 @pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64), ("int4", 128)])
 def test_qgemm_kernel_matches_plain_bf16(fmt, g, M, K, N):
     """bf16 at the projection shapes of Llama-3-8B and two ragged widths
-    (N = 1032 is off TMA's multiple of 16, so M > 64 takes the direct-load
-    kernel there), against the f32 plain twin within ``qgemm_bf16_bound``;
-    M > 64 takes the wgmma kernel, held at its tile edges (65, 128) and at
-    the sizes of a wave prefill (1024, 2048)."""
+    (N = 1032 is off TMA's multiple of 16, so it takes the direct-load
+    kernel at every M), against the f32 plain twin within
+    ``qgemm_bf16_bound``; M <= 64 takes the stream kernel, M > 64 the wgmma
+    kernel, held at its tile edges (65, 128) and at the sizes of a wave
+    prefill (1024, 2048)."""
     _check_qgemm(M, K, N, fmt, g, torch.bfloat16)
 
 
@@ -461,15 +465,16 @@ def test_qgemm_kernel_matches_plain_f32(fmt, g, M, K, N):
     _check_qgemm(M, K, N, fmt, g, torch.float32)
 
 
-@pytest.mark.parametrize("M,K,N,route", [(8, 4096, 4096, "mma"), (512, 4096, 4096, "wgmma"),
-                                         (512, 4096, 1024, "wgmma")])
+@pytest.mark.parametrize("M,K,N,route", [(8, 4096, 4096, "stream"), (512, 4096, 4096, "wgmma"),
+                                         (512, 4096, 1024, "wgmma"), (8, 4096, 1032, "mma")])
 @pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64)])
 def test_qgemm_kernel_repeats_bitwise_and_counts_its_format(fmt, g, M, K, N, route):
     """A second call equals the first bit for bit, with one launch counted
-    by format and by route: decode (M = 8) on the direct-load kernel, prefill
+    by format and by route: decode (M = 8) on the stream kernel (and on the
+    direct-load kernel at N = 1032, off TMA's multiple of 16), prefill
     (M = 512) on the wgmma kernel, wk/wv's width there with K split."""
     bits = 8 if fmt == "int8" else 4
-    if (K, N) == (4096, 1024):
+    if (M, K, N) == (512, 4096, 1024):
         assert kernels.qgemm_plan(M, N, K, bits, g)[2] > 1
     x, w, out = _check_qgemm(M, K, N, fmt, g, torch.bfloat16, seed=3)
     kernels.reset_counts()
@@ -478,8 +483,89 @@ def test_qgemm_kernel_repeats_bitwise_and_counts_its_format(fmt, g, M, K, N, rou
     assert torch.equal(out, again)  # the split-K partials sum in a fixed order
     assert kernels.launch_counts()["qgemm"] == 1
     assert kernels.QGEMM_FORMATS == {"int8": int(fmt == "int8"), "int4": int(fmt == "int4")}
-    assert kernels.QGEMM_ROUTES == {"mma": int(route == "mma"), "wgmma": int(route == "wgmma"),
-                                    "cuda_core": 0}
+    assert kernels.QGEMM_ROUTES == {r: int(r == route) for r in ("stream", "mma", "wgmma",
+                                                                 "cuda_core")}
+
+
+# Llama-3-8B's grouped decode projections (QKV; gate/up), the tiny test
+# model's, and a member narrower than a tile
+QGEMM_GROUPS = [(4096, (4096, 1024, 1024)), (4096, (14336, 14336)), (256, (256, 128, 128)),
+                (4096, (1040, 48))]
+
+
+@pytest.mark.parametrize("K,Ns", QGEMM_GROUPS)
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 64])
+@pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64), ("int4", 128)])
+def test_qgemm_stream_group_matches_plain_and_repeats_bitwise(fmt, g, M, K, Ns):
+    """One stream launch for 2-3 members that share x: each output within
+    ``qgemm_bf16_bound`` of its f32 plain twin (as is the member's own
+    single launch, whose K splits fall elsewhere) and equal bit for bit to
+    a repeat of the group."""
+    ws = [_qweight(K, n, fmt, g, seed=i) for i, n in enumerate(Ns)]
+    x = torch.randn((M, K), generator=torch.Generator(device="cuda").manual_seed(M),
+                    device="cuda").to(torch.bfloat16)
+    kernels.reset_counts()
+    ys = qeinsum_group("me,eo->mo", x, ws, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qgemm"] == 1 and kernels.QGEMM_ROUTES["stream"] == 1
+    again = qeinsum_group("me,eo->mo", x, ws, torch.bfloat16)
+    alone = [qeinsum("me,eo->mo", x, w, torch.bfloat16) for w in ws]
+    torch.cuda.synchronize()
+    assert kernels.QGEMM_ROUTES["stream"] == 2 + len(ws)
+    for y, y2, y1, w in zip(ys, again, alone, ws):
+        ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
+        bound = qgemm_bf16_bound(x.float(), w, ref)
+        for out in (y, y1):
+            assert out.shape == (M, w.q.shape[1]) and bool(torch.isfinite(out).all())
+            err = (out.float() - ref).abs()
+            assert bool((err <= bound).all()), (err / bound).max().item()
+        assert torch.equal(y, y2)
+
+
+def test_qgemm_group_takes_one_launch_per_member_off_the_stream_route():
+    """Past 64 rows (the prefill route), or with a member the stream route
+    does not take (N = 1032), ``qeinsum_group`` is one ``qeinsum`` a
+    member, each equal to the member's own call."""
+    K = 4096
+    for M, Ns in ((65, (4096, 1024)), (8, (1024, 1032))):
+        ws = [_qweight(K, n, "int8", 0, seed=i) for i, n in enumerate(Ns)]
+        x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
+        kernels.reset_counts()
+        ys = qeinsum_group("me,eo->mo", x, ws, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["qgemm"] == len(ws)
+        for y, w in zip(ys, ws):
+            assert torch.equal(y, qeinsum("me,eo->mo", x, w, torch.bfloat16))
+
+
+@pytest.mark.parametrize("M", [1, 8, 37, 64, 70])
+@pytest.mark.parametrize("V,E", [(128256, 4096), (512, 256), (1000, 64)])
+def test_tied_head_kernel_matches_plain(M, V, E):
+    """The tied int8 head (the table ``[V, E]`` K-contiguous, per-E scales
+    on x): bf16 on the stream route's K-contiguous form within the int8
+    bound of the f32 product on the same scaled x, repeats bitwise; f32 on
+    the CUDA-core kernel within 1e-4 of |xs| . |q|^T."""
+    gen = torch.Generator().manual_seed(V + M)
+    w = QTensor(torch.randint(-127, 128, (V, E), generator=gen, dtype=torch.int8).cuda(),
+                (torch.exp(torch.rand((1, E), generator=gen) * 4.6) * 1e-3).cuda())
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((M, E), generator=gen).to(dtype).cuda()
+        kernels.reset_counts()
+        out = tied_head(x, w, dtype)
+        again = tied_head(x, w, dtype)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["qgemm"] == 2 * (-(-M // 64) if dtype == torch.bfloat16 else 1)
+        route = "stream" if dtype == torch.bfloat16 else "cuda_core"
+        assert kernels.QGEMM_ROUTES[route] == kernels.launch_counts()["qgemm"]
+        xs = (x * w.scale.squeeze(-2).to(dtype)).float()
+        ref = xs @ w.q.float().T
+        assert out.dtype == dtype and out.shape == (M, V) and torch.equal(out, again)
+        err = (out.float() - ref).abs()
+        if dtype == torch.bfloat16:
+            bound = tied_head_bf16_bound(xs, w, ref)
+        else:
+            bound = F32_TOL * (xs.abs() @ w.q.float().abs().T) + 1e-6
+        assert bool((err <= bound).all()), (err / bound).max().item()
 
 
 def test_qgemm_kernel_refuses_what_it_does_not_take():

@@ -269,7 +269,8 @@ def test_params_from_jax_prefill_matches_jax(jax_trees, which):
 
 def test_embed_and_tied_head_of_an_int8_table_match_jax():
     """int8 tables: the gathered rows dequantized (``_embed``), and a tied
-    head whose per-E scales land on x (the CPU path; the card refuses it)."""
+    head whose per-E scales land on x (the CPU path; the card takes it on
+    the qgemm kernel's K-contiguous form, so the build check accepts it)."""
     import dataclasses
 
     jcfg = dataclasses.replace(JaxDecoderConfig.tiny(), tie_embeddings=True)
@@ -285,8 +286,7 @@ def test_embed_and_tied_head_of_an_int8_table_match_jax():
     want = np.asarray(jllama._head_logits(jparams, jcfg, jnp.asarray(x)))
     got = llama._head_logits(params, cfg, torch.from_numpy(x))
     assert np.abs(got.numpy() - want).max() <= 1e-5
-    with pytest.raises(NotImplementedError, match="tied int8"):
-        tq.check_kernel_params(params, cfg.dtype)
+    assert tq.check_kernel_params(params, cfg.dtype) is None
 
 
 def _crank(eng, futs, limit=2000):
