@@ -29,6 +29,13 @@ exits non-zero):
    and its time at M 8 (each projection and each grouped launch, with the
    stream-read yardstick and the direct-load kernel beside it) and 512
    (gate/up and down also 2048) beside cuBLAS on the dequantized weight;
+   qgemm's generic route (int4 groups 8 / 4 / 24, widths off 16 and 8, a
+   tied head at V 1,000, E 40; M 8 and 512) and the tied int8 head's time
+   at Llama-3-8B's [128,256, 4096] table beside ``torch.matmul``; the fused
+   sampler at B 8, V 128,256, k 50 (f32 and bf16, with and without a JSON
+   mask, a planted tie block): ids and FSM states equal to the plain
+   twin's but for rows at the top-p boundary (counted), its time beside
+   ``torch.topk`` alone;
 3. small f32 models on the card (kernels) against the same models on the
    CPU (plain twins): the decoder's prefill logits and the engine's greedy
    token ids at the default loop (on the card the fused 8-step tick
@@ -36,8 +43,11 @@ exits non-zero):
    loop eagerly), and on the card at ``decode_steps=1`` too, then the same
    at int8 and int4 (``quantize_decoder_params``; the qgemm kernel on the
    card, its plain twin on the CPU), and a tied int8 head (the kernel's
-   K-contiguous form); the tiny encoder's ``encode`` and an
-   ``EmbeddingEngine`` coalescing three calls;
+   K-contiguous form); ``quantize="int4", quant_group_size=8`` on the tiny
+   decoder (the generic route) card vs CPU and over ``/dialog/``; greedy
+   JSON-mode ids card vs CPU (the JSON tick's graph captured at the first
+   JSON request, sampler launches = sampling steps); the tiny encoder's
+   ``encode`` and an ``EmbeddingEngine`` coalescing three calls;
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
    weights drawn on the card, a ``GenerationEngine`` at the default loop
    (fused 8-step ticks as a CUDA graph, piggybacked prefill, the admission
@@ -46,8 +56,9 @@ exits non-zero):
    the 512 prefill bucket, one through chunked prefill); launch counts are
    zeroed just before the requests and read just after (a graph's launches
    are counted at each replay), both kernels must have run, every paged
-   call through the tensor-core kernel, 32 paged launches per decode step;
-   the four requests read over 6 runs (medians and spreads, as phase 7);
+   call through the tensor-core kernel, 32 paged launches per decode step,
+   one sampler launch per sampling step (decode steps and activations);
+   the four requests read over 6 runs (medians and spreads, as phase 8);
    then a RAG wave on the same engine (a ~1,500-token shared head: one
    miss that registers it, one hit alone, six hits together, one of them
    chunked after the hit; exact hit and copy-on-write counts, the pool back
@@ -68,14 +79,24 @@ exits non-zero):
    in one server, a 1,000,000-row corpus on the card, embed -> exact top-k
    (the KNN kernel) -> answer over the whole top-3 passages (a chunked
    prefill, then paged decode), with its checks and readings;
-7. int8 and then int4 Llama-3-8B (``init_int8`` / ``init_int4``, 32
+7. SSE streaming and JSON-constrained ``/dialog/`` at full width
+   (:func:`stream_json_phase`): a fresh engine over phase 4's bf16
+   tensors, ``warmup(json=True)`` by the registry before ``start()``; the
+   warmup's time and ``probe_decode`` beside the replayed step; two greedy
+   streams (their deltas equal to their non-streaming twins' text), a
+   dropped stream (its slot free within one tick), eight JSON requests at
+   temperature 0.8 with two plain ones (the JSON answers parse or are live
+   prefixes, the plain ones equal their solo runs), no graph captured and
+   no library built by a request after the warmup, sampler launches =
+   sampling steps;
+8. int8 and then int4 Llama-3-8B (``init_int8`` / ``init_int4``, 32
    layers, full width) behind ``/dialog/`` with ``quantize`` set
    (:func:`quant_phase`): phase 4's four requests, qgemm launches = 4 x 32
    x decode steps (the stream kernel) + 7 x 32 x prefill forwards (the
    wgmma kernel), ``weight_bits`` in
    ``/healthz`` and ``/metrics``, the weight bytes on the card, readings over 6 runs and
    the decode breakdown;
-8. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
+9. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
    line, and the final ``{"ok": true, ...}`` line.
 """
 
@@ -185,14 +206,15 @@ def device_ms(fn, iters: int) -> float:
     that ``iters`` calls launch (torch.profiler), over ``iters``, after a
     warm-up call.  Host time between launches is left out, so this is the
     kernel's time even where :func:`time_ms` measures the host's launch rate.
-    Fails if three profiles in a row saw no device time (now and then a
-    profile comes back without its kernel records; it is taken again)."""
+    Fails if eight profiles in a row saw no device time (now and then a
+    profile comes back without its kernel records, sometimes two or three
+    in a row; it is taken again after a pause that grows each time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -202,7 +224,8 @@ def device_ms(fn, iters: int) -> float:
         if total_us > 0:
             return total_us / iters / 1e3
         log("  torch.profiler saw no device time; profiling again")
-    fail("torch.profiler saw no device time in three profiles: device_ms not measured")
+        time.sleep(0.25 * (attempt + 1))
+    fail("torch.profiler saw no device time in eight profiles: device_ms not measured")
 
 
 def timed(fn, iters: int) -> tuple:
@@ -226,7 +249,7 @@ def env_and_build():
         spills = [sp for _, _, sp in table]
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
-        if name in ("paged_decode", "knn_topk", "qgemm"):
+        if name in ("paged_decode", "knn_topk", "qgemm", "sample"):
             log(f"  ptxas[{name}] per kernel: " + "; ".join(
                 f"{label} {r} regs, {sp} B spilled" for label, r, sp in table))
     # the f32 references below are true f32 products, not TF32
@@ -278,9 +301,9 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
-    r"|qgemm_stream_kernel|qgemm_f32_kernel)I(\w*?)EEv"
+    r"|qgemm_stream_kernel|qgemm_cc_kernel)I(\w*?)EEv"
 )
-_PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel|qgemm_tied_f32_kernel)E")
+_PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel|sample_kernel)E")
 
 
 def kernel_label(mangled: str) -> str:
@@ -950,7 +973,7 @@ def check_qgemm(gen) -> list:
     rows += [(fmt, g, label, K, Ns, 1, 8) for fmt, g in (("int8", 0), ("int4", 64))
              for label, K, Ns in QGEMM_GROUPS]
     rows.append(("int8", 0, "head", *QGEMM_HEAD[:1], QGEMM_HEAD[1:], 0, 8))
-    take = kernels.qgemm_stream_takes
+    route0 = kernels.qgemm_route
     for fmt, g, label, K, Ns, per, M in rows:
         bits = 8 if fmt == "int8" else 4
         wbytes = sum(K * N * bits // 8 for N in Ns)
@@ -971,11 +994,12 @@ def check_qgemm(gen) -> list:
         if M == 8:
             read_ms = stream_read_ms(lambda c: [w.q for w in c], copies, iters)
             # the direct-load kernel on the same calls (the earlier decode route)
-            kernels.qgemm_stream_takes = lambda *a, **k: False
+            kernels.qgemm_route = lambda *a, **k: (
+                "mma" if route0(*a, **k) == "stream" else route0(*a, **k))
             try:
                 mma_ms, mma_dev = timed(kernel, iters)
             finally:
-                kernels.qgemm_stream_takes = take
+                kernels.qgemm_route = route0
             extra = (f"; stream-read yardstick device {read_ms:.4f} ms (share of it, device "
                      f"{read_ms / dev:.3f}); the direct-load kernel ({len(Ns)} launch"
                      f"{'es' if len(Ns) > 1 else ''}) wall {mma_ms:.4f} ms (device {mma_dev:.4f})")
@@ -1006,10 +1030,204 @@ def check_qgemm(gen) -> list:
     } for key in ("int8", "int4", "prefill_int8", "prefill_int4")]
 
 
+# the generic qgemm route's shapes (ROADMAP Queue 3 entry 7): (K, N, fmt,
+# group); a quant_group_size of 6 packs at 4 at in 4096 (_int4_group)
+GENERIC_SHAPES = [(4096, 4096, "int4", 8), (4096, 4096, "int4", 4), (48, 40, "int4", 24),
+                  (40, 44, "int8", 0)]
+
+
+def check_qgemm_generic(gen) -> dict:
+    """The generic route (``qgemm_cc_kernel``, CUDA cores) against
+    ``qeinsum_plain`` at the shapes no tensor-core route takes, each at M 8
+    and 512, in bf16 (``qgemm_bf16_bound``); the tied int8 head at V = 1000,
+    E = 40 there too; every call counted on ``"generic"``.  Then its time
+    at int4 g = 8, 4096 x 4096, M = 8, beside the bound, the plain twin and
+    cuBLAS on the dequantized weight; and the tied int8 head at Llama-3-8B's
+    [128,256, 4096] table, M = 8 (the stream route's K-contiguous form),
+    beside ``torch.matmul`` on its bf16 table and its plain twin."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.quant import (
+        QTensor, deq, qeinsum, qeinsum_plain, tied_head, tied_head_plain)
+
+    worst = 0.0
+    for K, N, fmt, g in GENERIC_SHAPES:
+        for M in (8, 512):
+            before = kernels.QGEMM_ROUTES["generic"]
+            err, ratio = _qgemm_case(M, K, N, fmt, g, torch.bfloat16, gen)
+            routed = kernels.QGEMM_ROUTES["generic"] - before
+            log(f"  qgemm generic {fmt}{f' g={g}' if g else ''} M={M} K={K} N={N} bf16: "
+                f"max_abs_err {err:.3e}, worst err/bound {ratio:.3f}, generic launches {routed}")
+            if not ratio <= 1.0 or routed != 1:
+                fail(f"qgemm generic {fmt} g={g} M={M} K={K} N={N}: err/bound {ratio}, "
+                     f"generic launches {routed}")
+            worst = max(worst, err)
+    for M in (8, 512):
+        before = kernels.QGEMM_ROUTES["generic"]
+        err, ratio = _tied_case(M, 1000, 40, torch.bfloat16, gen)
+        log(f"  qgemm generic tied head M={M} V=1000 E=40 bf16: max_abs_err {err:.3e}, worst "
+            f"err/bound {ratio:.3f}, generic launches {kernels.QGEMM_ROUTES['generic'] - before}")
+        if not ratio <= 1.0 or kernels.QGEMM_ROUTES["generic"] - before != 2:
+            fail(f"the generic tied head M={M} disagrees or left the generic route: {ratio}")
+        worst = max(worst, err)
+    # timing: int4 g = 8 at 4096 x 4096, M = 8 (the tiny int4-g8 decoder's
+    # route, at a Llama projection's size)
+    K, N, g, M = 4096, 4096, 8, 8
+    w = _qweight(K, N, "int4", g, gen)
+    wd = deq(w, torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    ms, dev = timed(lambda: qeinsum("me,eo->mo", x, w, torch.bfloat16), 20)
+    library_ms = time_ms(lambda: torch.matmul(x, wd), 50)
+    plain_ms = time_ms(lambda: qeinsum_plain("me,eo->mo", x, w, torch.bfloat16), 3)
+    bound_ms, bound_by = qgemm_bound_ms(M, K, N, 4, g)
+    log(f"  qgemm generic timing int4 g=8 M={M} K={K} N={N} bf16: kernel wall {ms:.4f} ms "
+        f"(device {dev:.4f}), library (cuBLAS on the bf16 weight) wall {library_ms:.4f} ms, "
+        f"plain wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); share of the "
+        f"bound, device {bound_ms / dev:.4f}")
+    entry = dict(name="qgemm_generic", route="cuda", source=f"{PKG}/csrc/qgemm.cu",
+                 replaces="django_assistant_bot_tpu/ops/quant.py:160", max_abs_err=worst, ms=ms,
+                 device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms)
+    del w, wd
+    # the tied int8 head at Llama-3-8B's table, M = 8
+    V, E, M = 128256, 4096, 8
+    tw = QTensor(torch.randint(-127, 128, (V, E), generator=gen, device="cuda", dtype=torch.int8),
+                 torch.exp(torch.rand((1, E), generator=gen, device="cuda") * 4.6) * 1e-3)
+    table = deq(tw, torch.bfloat16)  # the bf16 table the library reads
+    x = torch.randn((M, E), generator=gen, device="cuda").to(torch.bfloat16)
+    ms, dev = timed(lambda: tied_head(x, tw, torch.bfloat16), 50)
+    lib_ms, lib_dev = timed(lambda: torch.matmul(x, table.T), 50)
+    plain_ms = time_ms(lambda: tied_head_plain(x, tw, torch.bfloat16), 5)
+    nbytes = V * E + 4 * E + 2 * M * E + 2 * M * V
+    bound_ms = max(nbytes / PEAK_HBM_BYTES, 2.0 * M * V * E / PEAK_BF16_FLOPS) * 1e3
+    log(f"  qgemm tied int8 head timing V={V} E={E} M={M} bf16 (stream route, K-contiguous; "
+        f"the table {V * E / 1e6:.1f} MB, L2 holds 50 MB): kernel wall {ms:.4f} ms (device "
+        f"{dev:.4f}), library torch.matmul on the bf16 table wall {lib_ms:.4f} ms (device "
+        f"{lib_dev:.4f}), plain wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); share "
+        f"of the bound, device {bound_ms / dev:.3f}")
+    del tw, table
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _sample_inputs(B, V, dtype, json_rows, ties, gen):
+    """Logits and the sampler's keywords for one phase-2 case: rows greedy
+    and sampled, top_p 0.5 / 0.95 / 1.0 among them, the noise pre-drawn;
+    with ``json_rows`` the byte tokenizer's real JSON FSM (padded to V as
+    the engine pads it) masks the odd rows, each in another state; ``ties``
+    plants a block of equal maxima and rounds the rest (ties everywhere)."""
+    import numpy as np
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.sampling import gumbel_noise
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer
+    from django_assistant_bot_tpu_torch.serving.engine import token_fsm
+
+    logits = torch.randn((B, V), generator=gen, device="cuda") * 3
+    if ties:
+        logits = logits.round()
+        logits[:, 70_000:70_400] = 12.0
+    logits = logits.to(dtype)
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.0, 1.3, 0.8, 0.0, 0.5][:B], device="cuda")
+    top_ps = torch.tensor([0.5, 0.95, 1.0, 0.95, 0.5, 1.0, 0.95, 0.95][:B], device="cuda")
+    kw = dict(temperature=temps, top_k=50, top_p=top_ps,
+              gumbel=gumbel_noise(torch.empty((B, 50), device="cuda"), gen))
+    if json_rows:
+        fsm = token_fsm(ByteTokenizer())
+        S, Vt = fsm.allowed.shape
+        allowed = np.zeros((S, V), bool)
+        allowed[:, :Vt] = fsm.allowed
+        nxt = np.full((S, V), fsm.dead, np.int32)
+        nxt[:, :Vt] = fsm.next_state
+        # states reached by real prefixes: the initial one, inside a string,
+        # after a key's colon, after '{'
+        states = [fsm.initial]
+        for text in ('{"a', '{"a":', "{"):
+            st = fsm.initial
+            for ch in text.encode():
+                st = int(fsm.next_state[st, ch])
+            states.append(st)
+        kw.update(allowed=torch.from_numpy(allowed).cuda(), next_state=torch.from_numpy(nxt).cuda(),
+                  fsm_state=torch.tensor([states[i % 4] for i in range(B)], dtype=torch.int32,
+                                         device="cuda"),
+                  jmask=torch.tensor([i % 2 == 1 for i in range(B)], device="cuda"))
+    return logits, kw
+
+
+def check_sample(gen) -> dict:
+    """The fused sampler (``csrc/sample.cu``) against its plain twin at B =
+    8, V = 128,256, k = 50: f32 and bf16 logits, with and without a JSON
+    mask from the real FSM at the byte tokenizer, and a planted tie block;
+    ids and advanced states must be equal, except rows whose plain-twin
+    top-p margin ``|cum - p - top_p|`` is under 1e-6 (counted and printed).
+    Then its time (wall, device), bound (the logits read once, plus the mask
+    rows in a JSON step), the plain twin's, and ``torch.topk(k=50)`` alone
+    over the same logits: a partial yardstick (the top-k of the library
+    route, not the whole function)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.sampling import (
+        sample_logits, sample_logits_plain, top_p_margin)
+
+    B, V = 8, 128256
+    cases = [(torch.float32, False, False), (torch.bfloat16, False, False),
+             (torch.float32, True, False), (torch.bfloat16, True, True),
+             (torch.float32, False, True)]
+    boundary = 0
+    for dtype, json_rows, ties in cases:
+        logits, kw = _sample_inputs(B, V, dtype, json_rows, ties, gen)
+        before = kernels.LAUNCHES["sample"]
+        got = sample_logits(logits, **kw)
+        launched = kernels.LAUNCHES["sample"] - before
+        want = sample_logits_plain(logits, **kw)
+        margin = top_p_margin(logits, **kw)
+        torch.cuda.synchronize()
+        ids, states = got if json_rows else (got, None)
+        wids, wstates = want if json_rows else (want, None)
+        near = margin < 1e-6
+        differ = (ids != wids) & ~near
+        if states is not None:
+            differ |= (states != wstates) & ~near
+        boundary += int(near.sum())
+        log(f"  sample B={B} V={V} k=50 {str(dtype)[6:]} json={json_rows} ties={ties}: ids "
+            f"{ids.tolist()} (plain {wids.tolist()}){'' if states is None else f', states {states.tolist()} (plain {wstates.tolist()})'}; "
+            f"rows at the top-p boundary (margin < 1e-6): {int(near.sum())}; "
+            f"least margin {margin.min().item():.3e}; launches {launched}")
+        if bool(differ.any()) or launched != 1:
+            fail(f"sample {dtype} json={json_rows} ties={ties} disagrees with its plain twin "
+                 f"(rows {differ.nonzero().flatten().tolist()}) or launched {launched}")
+        if json_rows:
+            ok = kw["allowed"][kw["fsm_state"].long(), ids.long()]
+            if not bool((ok | ~kw["jmask"]).all()):
+                fail("a JSON row of the sampler took a token its state does not allow")
+    log(f"  sample: {boundary} row(s) excepted at the top-p boundary over {len(cases)} cases")
+    # timing: the main path's step (f32 logits, no JSON) and a JSON step
+    out = {}
+    for json_rows in (False, True):
+        logits, kw = _sample_inputs(B, V, torch.float32, json_rows, False, gen)
+        ms, dev = timed(lambda: sample_logits(logits, **kw), 200)
+        plain_ms = time_ms(lambda: sample_logits_plain(logits, **kw), 5)
+        topk_ms, topk_dev = timed(lambda: torch.topk(logits, 50, dim=-1), 200)
+        nbytes = B * V * 4 + (B * V if json_rows else 0) + B * 50 * 4 + B * 4 * 4
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        log(f"  sample timing B={B} V={V} k=50 f32 json={json_rows}: kernel wall {ms:.4f} ms "
+            f"(device {dev:.4f}), bound {bound_ms:.5f} ms (bytes), plain wall {plain_ms:.4f} ms, "
+            f"torch.topk(k=50) alone (a partial yardstick) wall {topk_ms:.4f} ms (device "
+            f"{topk_dev:.4f}); share of the bound, device {bound_ms / dev:.4f}")
+        if not json_rows:
+            out = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by="bytes", library_ms=topk_ms)
+    return {"name": "sample", "route": "cuda", "source": f"{PKG}/csrc/sample.cu",
+            "replaces": "django_assistant_bot_tpu/ops/sampling.py:73", "max_abs_err": 0.0, **out}
+
+
 # --------------------------------------------------------------------- phase 3
-def small_reference():
+def small_reference() -> int:
     """A small f32 model (head_dim 64, so both kernels run) on the card
-    against the same model on the CPU, where the plain twins run."""
+    against the same model on the CPU, where the plain twins run; returns
+    the generic qgemm route's launches on the int4 g=8 tiny decoder."""
     import torch
 
     from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
@@ -1070,6 +1288,111 @@ def small_reference():
     for fmt in ("int8", "int4"):
         small_quantized(cfg, params_cpu, fmt, ids, lengths, prompts, run)
     small_tied(cfg, params_cpu, prompts)
+    generic = small_int4_g8()
+    small_json(cfg, params_cpu, params_gpu, prompts)
+    return generic
+
+
+def sampling_steps(eng) -> int:
+    """Sampling steps the engine has run: a decode step each, and an
+    activation (a wave group's or a final chunk's first tokens) each."""
+    return eng.steps + eng.activations
+
+
+def small_int4_g8() -> int:
+    """``quantize="int4", quant_group_size=8`` (a group no tensor-core route
+    takes) on the tiny decoder: the registry builds and quantizes it on the
+    CPU; the same weights on the card behind the registry serve ``/dialog/``
+    and give the CPU port's greedy ids (the generic route)."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    prompts = [torch.randint(1, 255, (n,), generator=torch.Generator().manual_seed(n)).tolist()
+               for n in (20, 90, 200)]
+    name = "tiny-int4-g8"
+    knobs = dict(tiny=True, quantize="int4", quant_group_size=8, max_slots=4)
+    cpu_registry = ModelRegistry()
+    cpu = cpu_registry.load(ModelSpec(name=name, device="cpu", **knobs))
+    want = [f.result(timeout=300).token_ids
+            for f in [cpu.submit(p, max_tokens=16, temperature=0.0) for p in prompts]]
+    cpu_registry.stop()
+    spec = ModelSpec(name=name, device="cuda", **knobs)
+    params = {k: ({n: w.to("cuda") for n, w in v.items()} if isinstance(v, dict) else v.to("cuda"))
+              for k, v in cpu.params.items()}
+    registry = ModelRegistry()
+    kernels.reset_counts()
+    eng = registry.load(spec, engine=GenerationEngine(cpu.cfg, params, ByteTokenizer(),
+                                                      device="cuda", **spec.engine_kwargs()))
+    got = [f.result(timeout=300).token_ids
+           for f in [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]]
+    generic = kernels.QGEMM_ROUTES["generic"]
+    port = _free_port()
+
+    async def one():
+        runner = web.AppRunner(create_app(registry))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                return await _post(session, port, name, _chat(60, 5))
+        finally:
+            await runner.cleanup()  # stops the registry's engine
+
+    status, body, _ = asyncio.run(one())
+    log(f"  tiny int4 g=8 decoder (group {cpu.params['layers']['wq'].group_size}): greedy ids, "
+        f"card ({generic} generic qgemm launches) vs CPU: "
+        f"{'identical' if got == want else 'DIFFER'}; /dialog/ on the card {status}")
+    if generic <= 0 or eng.weight_bits != 4:
+        fail(f"the int4 g=8 tiny decoder ran no generic qgemm launch ({generic})")
+    if status != 200 or "result" not in body.get("response", {}):
+        fail(f"/dialog/ on the int4 g=8 tiny decoder returned {status}: {body}")
+    if got != want:
+        fail(f"int4 g=8 greedy ids differ: card {got}, CPU {want}")
+    return generic
+
+
+def small_json(cfg, params_cpu, params_gpu, prompts) -> None:
+    """JSON mode on the small f32 model: greedy JSON requests (and a plain
+    one beside them) on the card (the JSON tick's graph captured at the
+    first JSON request; the fused sampler with the FSM mask) give the CPU
+    port's ids; the sampler's launches equal the sampling steps."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+    def run(device, params):
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device,
+                               max_slots=4, max_seq_len=1024, chunk_size=512)
+        eng._running = True
+        kernels.reset_counts()
+        steps0 = sampling_steps(eng)
+        futs = [eng.submit(p, max_tokens=40, temperature=0.0, json_format=i < 3)
+                for i, p in enumerate(prompts)]
+        _crank(eng, futs)
+        eng._running = False
+        return ([f.result(timeout=0).token_ids for f in futs], eng,
+                sampling_steps(eng) - steps0, kernels.launch_counts()["sample"])
+
+    ids_gpu, eng, steps, launches = run("cuda", params_gpu)
+    ids_cpu, _, _, _ = run("cpu", params_cpu)
+    st = eng.tick_stats()
+    log(f"  small model JSON engine greedy ids, card (JSON graph captured at the first JSON "
+        f"request: {eng._json_graph is not None}; {st['json_downgraded_ticks']} single-step "
+        f"JSON ticks) vs CPU: {'identical' if ids_gpu == ids_cpu else 'DIFFER'}; sampler "
+        f"launches {launches} for {steps} sampling steps")
+    if eng._json_graph is None or st["json_downgraded_ticks"] <= 0:
+        fail(f"the JSON engine on the card did not run its JSON tick graph: {st}")
+    if launches != steps:
+        fail(f"sampler launches {launches} != sampling steps {steps}")
+    if ids_gpu != ids_cpu:
+        fail(f"JSON greedy ids differ: card {ids_gpu}, CPU {ids_cpu}")
 
 
 def small_tied(cfg, params_cpu, prompts) -> None:
@@ -1475,11 +1798,13 @@ def main_path(card: str) -> dict:
                         torch.cuda.synchronize()
                         kernels.reset_counts()
                         steps0, kv0, tick0 = eng.steps, eng.kv_stats(), _tick_counters(eng)
+                        samp0 = sampling_steps(eng)
                         t = time.perf_counter()
                         res = await asyncio.gather(*(_post(session, port, name, m) for m in group))
                         wall = time.perf_counter() - t
                         out.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
                                         routes=dict(kernels.PAGED_ROUTES),
+                                        samples=sampling_steps(eng) - samp0,
                                         steps=eng.steps - steps0, kv0=kv0, kv1=eng.kv_stats(),
                                         ticks=[b - a for a, b in zip(tick0, _tick_counters(eng))]))
                     return out
@@ -1489,7 +1814,7 @@ def main_path(card: str) -> dict:
         return asyncio.run(drive())
 
     # the four requests six times (the first counted, all six read, as in
-    # phase 7), then the RAG wave
+    # phase 8), then the RAG wave
     runs = serve(engine, [list(messages.values())] * 6 + [rag[:1], rag[1:2], rag[2:]])
     reads, rag_runs = runs[:6], runs[6:]
     main = reads[0]
@@ -1512,6 +1837,10 @@ def main_path(card: str) -> dict:
     if counts["paged_decode"] != cfg.num_layers * steps:
         fail(f"replay-counted paged launches {counts['paged_decode']} != {cfg.num_layers} x "
              f"{steps} decode steps")
+    log(f"  sampler launches {counts['sample']} for {main['samples']} sampling steps "
+        f"({steps} decode steps and {main['samples'] - steps} activations)")
+    if counts["sample"] != main["samples"]:
+        fail(f"sampler launches {counts['sample']} != {main['samples']} sampling steps")
     all_ttfts, all_rates = [], []
     for run in reads:
         t, r, _ = _check_dialogs(tok, list(messages.items()), run["results"])
@@ -2186,6 +2515,283 @@ def rag_phase(card: str, dec_spec, dec_engine) -> dict:
 
 
 # --------------------------------------------------------------------- phase 7
+async def _post_stream(session, port, name, msgs, *, max_tokens=32, temperature=0.0,
+                       close_after_s=0.0):
+    """A ``"stream": true`` /dialog/ request: (status, delta events, client
+    seconds of each delta event's arrival after the send, terminal event,
+    client seconds to the response's headers).  The server sends its
+    headers once the first token reached the host, so the last is the
+    client's TTFT.  ``close_after_s`` > 0 drops the connection that long
+    after the headers."""
+    t0 = time.perf_counter()
+    events, arrivals, terminal = [], [], None
+    async with session.post(
+        f"http://127.0.0.1:{port}/dialog/",
+        json={"model": name, "messages": msgs, "max_tokens": max_tokens,
+              "temperature": temperature, "stream": True},
+    ) as resp:
+        t_headers = time.perf_counter() - t0
+        if resp.status != 200:
+            return resp.status, await resp.json(), [], None, t_headers
+        if close_after_s:
+            await asyncio.sleep(close_after_s)
+            resp.close()
+            return 200, events, arrivals, None, t_headers
+        async for raw in resp.content:
+            line = raw.decode("utf-8").strip()
+            if not line.startswith("data:"):
+                continue
+            data = line[len("data:"):].strip()
+            if data == "[DONE]":
+                break
+            ev = json.loads(data)
+            if ev.get("done"):
+                terminal = ev
+            else:
+                events.append(ev)
+                arrivals.append(time.perf_counter() - t0)
+    return 200, events, arrivals, terminal, t_headers
+
+
+async def _post_json(session, port, name, msgs, *, max_tokens, temperature, json_format):
+    async with session.post(
+        f"http://127.0.0.1:{port}/dialog/",
+        json={"model": name, "messages": msgs, "max_tokens": max_tokens,
+              "temperature": temperature, "json_format": json_format},
+    ) as resp:
+        return resp.status, await resp.json()
+
+
+def stream_json_phase(card: str, cfg, params) -> dict:
+    """The bot's two request shapes at full width: a fresh
+    ``GenerationEngine`` over phase 4's bf16 Llama-3-8B tensors (32 layers,
+    the byte tokenizer, the default loop; the head's columns past the 256
+    byte ids zeroed in place, so the answers are bytes and the streams
+    carry text), registered with ``warmup`` and
+    ``warmup_json`` so the registry runs ``warmup(json=True)`` before
+    ``start()``, behind ``create_app``.  Reads the warmup's wall time and
+    ``probe_decode``'s seconds per step beside the replayed tick's per-step
+    span; then, launch counts zeroed before each group and read after:
+
+    1. two greedy ``"stream": true`` requests beside two plain ones,
+       concurrently: each stream's deltas concatenate to its non-streaming
+       twin's text (the same request sent after, alone), byte for byte; TTFT
+       and inter-token gaps from the events' arrival times (client side);
+    2. a stream dropped after two events: its slot frees, with at most one
+       tick issued between the request's cancel and its release;
+    3. eight ``json_format`` requests at temperature 0.8 (96 tokens) with two
+       plain greedy ones: each JSON answer that is not length-limited
+       parses, each length-limited one is a live prefix of the JSON DFA, the
+       plain ones equal their solo runs; single-step JSON ticks counted;
+    4. the first request after the warmup captured no graph and built no
+       library; the sampler's launches equal the sampling steps in every
+       group; the JSON tick's replay per step.
+    Returns the launch counts of group 1."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.json_fsm import build_char_dfa
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    name = "llama3-8b-stream-json"
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, warmup=True,
+                     warmup_json=True)
+    # random weights put ~0.2% of their mass on the byte tokenizer's 256 byte
+    # ids, so a stream would carry almost no text: the head's columns past
+    # them are zeroed in place (phase 4's tensors, no copy; phase 8 draws
+    # its own), so greedy picks bytes, valid UTF-8 or not, and the deltas
+    # carry real text through the incremental detokenizer
+    params["lm_head"][:, 256:].zero_()
+    t0 = time.perf_counter()
+    engine = GenerationEngine(cfg, params, ByteTokenizer(), device="cuda", **spec.engine_kwargs())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    registry = ModelRegistry()
+    t0 = time.perf_counter()
+    registry.load(spec, engine=engine)  # warmup(json=True), then start()
+    warmup_s = time.perf_counter() - t0
+    captures, libs = engine.graph_captures, kernels.loaded()
+    if engine._json_graph is None or captures != 3:
+        fail(f"warmup(json=True) left the JSON graph uncaptured ({captures} captures)")
+    probe_s = engine.probe_decode(iters=16)
+    with engine._iter_lock:
+        K = engine.decode_steps
+        replay = [ms / K for ms in _graph_span_ms(engine._graph.replay, 10)]
+        json_replay = _graph_span_ms(engine._json_graph.replay, 10)
+        for t in (engine._cache.lengths, engine._tokens_dev, engine._toks_dev):
+            t.zero_()
+    log(f"  engine built in {build_s:.2f} s; registry load with warmup(json=True) and start "
+        f"{warmup_s:.2f} s [{card}]; probe_decode {probe_s * 1e3:.4f} ms per step (16 tick "
+        f"replays back to back, slots idle) beside the replayed {K}-step tick's span per step "
+        f"{_stat(replay, 'ms')}; the JSON tick's replay (one step) {_stat(json_replay, 'ms')}")
+    # prompt sizes: each request of a concurrent group alone in its prefill
+    # bucket (256 and 512 for the streams and the JSON wave's plain ones, 64
+    # and 128 for the plain ones beside the streams, the JSON prompts ~50
+    # tokens), so each prefills as a batch of one, as its solo twin does,
+    # and a decode row depends on its own history only: equal text, bitwise
+    stream_msgs = [_chat(200, 31), _chat(420, 32)]
+    beside_msgs = [_chat(40, 33), _chat(100, 34)]
+    plain_msgs = [_chat(200, 41), _chat(420, 42)]
+    json_msgs = [[{"role": "user", "content": f"Reply with a JSON object describing item {i}."}]
+                 for i in range(8)]
+    port = _free_port()
+    reads = {}
+
+    def group_counts(fn):
+        async def run(session):
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            samp0, json0 = sampling_steps(engine), engine._json_downgraded_ticks
+            out = await fn(session)
+            torch.cuda.synchronize()
+            return out, kernels.launch_counts(), sampling_steps(engine) - samp0, \
+                engine._json_downgraded_ticks - json0
+        return run
+
+    async def drive():
+        runner = web.AppRunner(create_app(registry))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                # plain solo runs first (the JSON wave's plain twins)
+                solo = [await _post(session, port, name, m) for m in plain_msgs]
+                reads["captures_after_first"] = engine.graph_captures
+                reads["libs_after_first"] = kernels.loaded()
+
+                async def streams(session):
+                    return await asyncio.gather(
+                        *(_post_stream(session, port, name, m) for m in stream_msgs),
+                        *(_post(session, port, name, m) for m in beside_msgs))
+                reads["streams"] = await group_counts(streams)(session)
+                reads["twins"] = [await _post(session, port, name, m) for m in stream_msgs]
+
+                # the disconnect: the request's cancel and its slot's release,
+                # in ticks issued
+                marks = {}
+                submit, release = engine.submit, engine._release
+
+                def submit_marked(*a, **kw):
+                    fut = submit(*a, **kw)
+                    if kw.get("stream") is not None:
+                        fut.add_done_callback(lambda f: marks.setdefault(
+                            "cancel", engine._ticks_issued) if f.cancelled() else None)
+                    return fut
+
+                def release_marked(slot):
+                    s = engine._slots[slot]
+                    if s is not None and s.request.future.cancelled():
+                        marks.setdefault("release", engine._ticks_issued)
+                    return release(slot)
+
+                engine.submit, engine._release = submit_marked, release_marked
+                try:
+                    before = engine.cancelled_slots
+                    await _post_stream(session, port, name, _chat(150, 51), max_tokens=1024,
+                                       temperature=0.8, close_after_s=0.3)
+                    deadline = time.monotonic() + 30
+                    while time.monotonic() < deadline and not (
+                            engine.num_active == 0 and engine.cancelled_slots > before):
+                        await asyncio.sleep(0.005)
+                finally:
+                    engine.submit, engine._release = submit, release
+                reads["disconnect"] = (marks, engine.cancelled_slots - before, engine.num_active)
+
+                async def json_wave(session):
+                    return await asyncio.gather(
+                        *(_post_json(session, port, name, m, max_tokens=96, temperature=0.8,
+                                     json_format=True) for m in json_msgs),
+                        *(_post(session, port, name, m) for m in plain_msgs))
+                reads["json"] = await group_counts(json_wave)(session)
+                reads["solo"] = solo
+                reads["healthz"] = await (await session.get(
+                    f"http://127.0.0.1:{port}/healthz")).json()
+        finally:
+            await runner.cleanup()  # stops the registry's engine
+
+    asyncio.run(drive())
+    if reads["captures_after_first"] != captures or reads["libs_after_first"] != libs:
+        fail(f"the first request after warmup captured a graph or built a library: captures "
+             f"{captures} -> {reads['captures_after_first']}, libraries {sorted(libs)} -> "
+             f"{sorted(reads['libs_after_first'])}")
+    (results, counts, samples, _) = reads["streams"]
+    if any(st != 200 for st, _, _ in results[2:]):
+        fail(f"a plain request beside the streams failed: {results[2:]}")
+    ttft, engine_ttft, per_token, gaps = [], [], [], []
+    for (st, events, arrivals, terminal, t_headers), (pst, body, _) in zip(results[:2],
+                                                                           reads["twins"]):
+        if st != 200 or terminal is None or pst != 200:
+            fail(f"stream request failed: {st} {events} / twin {pst} {body}")
+        text = "".join(e["delta"] for e in events)
+        twin = body["response"]["result"]
+        if text != terminal["result"] or text != twin:
+            fail(f"a stream's deltas differ from its non-streaming twin: {text!r} vs {twin!r}")
+        u = terminal["usage"]
+        ttft.append(t_headers)
+        engine_ttft.append(u["ttft_s"])
+        if u["completion_tokens"] > 1:
+            per_token.append((u["latency_s"] - u["ttft_s"]) / (u["completion_tokens"] - 1))
+        gaps += [b - a for a, b in zip(arrivals, arrivals[1:]) if b > a]
+    log(f"  two greedy streams beside two plain requests, concurrently: deltas equal the "
+        f"non-streaming twins' text (each sent alone after) byte for byte "
+        f"({[len(r[1]) for r in results[:2]]} delta events, "
+        f"{[r[3]['usage']['completion_tokens'] for r in results[:2]]} tokens); stream TTFT, "
+        f"client (headers, sent at the first token) {_stat(ttft)}, engine (terminal event's "
+        f"usage) {_stat(engine_ttft)}; inter-token from the terminal event (latency - ttft) / "
+        f"(tokens - 1) {_stat(per_token) if per_token else 'none'}; gaps between delta events "
+        f"(a fused tick delivers {K} tokens at once) {_stat(gaps) if gaps else 'none'}")
+    if counts["sample"] != samples:
+        fail(f"streams: sampler launches {counts['sample']} != {samples} sampling steps")
+    marks, cancelled, active = reads["disconnect"]
+    ticks_between = marks.get("release", 10**9) - marks.get("cancel", 0)
+    log(f"  stream dropped 0.3 s after its headers: slot freed (active {active}, cancelled +{cancelled}); "
+        f"ticks issued between the cancel and the release: {ticks_between}")
+    if active != 0 or cancelled < 1 or "cancel" not in marks or ticks_between > 1:
+        fail(f"the dropped stream's slot was not freed within one tick: {marks}, {cancelled}")
+    (results, jcounts, jsamples, downgraded) = reads["json"]
+    dfa = build_char_dfa(max_depth=4)
+    parsed = limited = 0
+    for st, body in results[:8]:
+        if st != 200:
+            fail(f"json_format request returned {st}: {body}")
+        r = body["response"]
+        if not r["length_limited"]:
+            try:
+                obj = json.loads(r["result"])
+            except ValueError:
+                fail(f"a finished JSON answer does not parse: {r['result']!r}")
+            if not isinstance(obj, (dict, list)):
+                fail(f"a JSON answer is not an object or array: {r['result']!r}")
+            parsed += 1
+        else:
+            state = dfa.initial
+            for b in r["result"].encode("utf-8"):
+                state = int(dfa.table[state, b])
+            if state == dfa.dead:
+                fail(f"a length-limited JSON answer is not a live prefix: {r['result']!r}")
+            limited += 1
+    for (st, body, _), (sst, sbody, _) in zip(results[8:], reads["solo"]):
+        if st != 200 or body["response"]["result"] != sbody["response"]["result"]:
+            fail(f"a plain request beside JSON ones differs from its solo run: {body} vs {sbody}")
+    log(f"  8 json_format requests at temperature 0.8 with 2 plain greedy ones: {parsed} parse, "
+        f"{limited} length-limited (live prefixes); the plain ones equal their solo runs; "
+        f"{downgraded} single-step JSON ticks; sampler launches {jcounts['sample']} for "
+        f"{jsamples} sampling steps; paged launches {jcounts['paged_decode']}")
+    if jcounts["sample"] != jsamples or downgraded <= 0:
+        fail(f"json wave: sampler launches {jcounts['sample']} != {jsamples} sampling steps, "
+             f"or no JSON tick ({downgraded})")
+    g = reads["healthz"]["generators"][name]
+    log(f"  /healthz stream block {json.dumps(g['stream'])}; json_downgraded_ticks "
+        f"{g['json_downgraded_ticks']}")
+    del engine, registry
+    return counts
+
+
+# --------------------------------------------------------------------- phase 8
 def projection_bytes(cfg, fmt: str, group: int = 64) -> int:
     """Bytes of the layer projections of ``cfg`` at ``fmt``: bf16 (2 bytes a
     weight), or the integers (1 byte a weight, or 0.5 packed) and their f32
@@ -2282,6 +2888,7 @@ def quant_phase(card: str) -> dict:
                         kernels.reset_counts()
                         forwards[0] = 0
                         steps0, pig0 = engine.steps, engine._prefill_chunks_piggybacked
+                        samp0 = sampling_steps(engine)
                         t = time.perf_counter()
                         res = await asyncio.gather(*(_post(session, port, name, m)
                                                      for m in messages.values()))
@@ -2289,6 +2896,7 @@ def quant_phase(card: str) -> dict:
                         runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
                                          formats=dict(kernels.QGEMM_FORMATS),
                                          routes=dict(kernels.QGEMM_ROUTES),
+                                         samples=sampling_steps(engine) - samp0,
                                          steps=engine.steps - steps0, forwards=forwards[0]
                                          + engine._prefill_chunks_piggybacked - pig0))
                     health = await (await session.get(f"http://127.0.0.1:{port}/healthz")).json()
@@ -2322,11 +2930,13 @@ def quant_phase(card: str) -> dict:
             fail(f"{fmt}: qgemm launches {counts['qgemm']} != 4 x {cfg.num_layers} x {steps} "
                  f"steps + 7 x {cfg.num_layers} x {fwd} prefill forwards")
         if (routes["stream"], routes["wgmma"]) != (want_dec, want_pre) or routes["mma"] or \
-                routes["cuda_core"]:
+                routes["cuda_core"] or routes["generic"]:
             fail(f"{fmt}: qgemm routes {routes}: want every decode launch on the stream kernel "
                  f"({want_dec}) and every prefill launch on the wgmma kernel ({want_pre})")
         if counts["paged_decode"] != cfg.num_layers * steps or counts["flash_prefill"] <= 0:
             fail(f"{fmt}: paged or flash launches wrong: {counts}")
+        if counts["sample"] != first["samples"]:
+            fail(f"{fmt}: sampler launches {counts['sample']} != {first['samples']} sampling steps")
         bits = {"int8": 8, "int4": 4}[fmt]
         gauge = [v for _, lab, v in fams.get("dabt_weight_bits", {}).get("samples", [])
                  if lab.get("model") == name]
@@ -2377,10 +2987,11 @@ def main() -> int:
 
     log("== phase 2: kernels vs plain twins")
     # the engine's page at 4096 for paged decode
-    entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen), *check_qgemm(gen)]
+    entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen), *check_qgemm(gen),
+               check_qgemm_generic(gen), check_sample(gen)]
 
     log("== phase 3: small f32 models, card vs CPU")
-    small_reference()
+    generic_launches = small_reference()
     small_encoder()
 
     log("== phase 4: main path, full-width Llama-3-8B over /dialog/")
@@ -2392,25 +3003,35 @@ def main() -> int:
 
     log("== phase 6: the RAG request at full width: /embeddings/ -> KNN -> /dialog/")
     rag_counts = rag_phase(card, dec_spec, dec_engine)
+    cfg, params = dec_engine.cfg, dec_engine.params
     del dec_engine
     gc_collect()
 
-    log("== phase 7: int8 and int4 Llama-3-8B over /dialog/ (the qgemm kernel)")
+    log("== phase 7: SSE streaming and JSON-constrained /dialog/ at full width, after warmup")
+    stream_counts = stream_json_phase(card, cfg, params)
+    del params
+    gc_collect()
+
+    log("== phase 8: int8 and int4 Llama-3-8B over /dialog/ (the qgemm kernel)")
     log(f"  card memory before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     q_counts = quant_phase(card)
 
-    # each kernel's launches on its own slice's main path: flash and paged
-    # decode on phase 4's requests, the KNN on phase 6's RAG requests, qgemm
-    # on phase 7's requests in its format
+    # each kernel's launches on its own slice's main path: flash, paged
+    # decode and the sampler on phase 4's requests, the KNN on phase 6's RAG
+    # requests, qgemm on phase 8's requests in its format, its generic route
+    # on phase 3's int4 g=8 decoder
     for e in entries:
-        if e["name"].startswith("qgemm_prefill_"):
+        if e["name"] == "qgemm_generic":
+            e["launches"] = generic_launches
+        elif e["name"].startswith("qgemm_prefill_"):
             e["launches"] = q_counts[e["name"][len("qgemm_prefill_"):]]["prefill"]
         elif e["name"].startswith("qgemm_"):
             e["launches"] = q_counts[e["name"][len("qgemm_"):]]["decode"]
         else:
             e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
     log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "
-        f"qgemm {json.dumps(q_counts)} (phase 7)")
+        f"{json.dumps(stream_counts)} (phase 7, the streams), qgemm {json.dumps(q_counts)} "
+        f"(phase 8), qgemm generic {generic_launches} (phase 3)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -80,9 +80,16 @@
 // on group boundaries and the partials go through the same kind of counter
 // as the direct-load kernel's, so small N fills the card with one launch
 // and replays equal eager calls bit for bit.
-// The f32 route (`qgemm_f32_kernel`, the small f32 parity models) runs on
-// the CUDA cores, one output column a thread, 8 rows of x a block;
-// `qgemm_tied_f32_kernel` is its tied-head form (a warp a row of the table).
+// The f32 route (the small f32 parity models, the tied head too) runs on
+// the CUDA cores in `qgemm_cc_kernel`, one output column a thread, 8 rows of
+// x a block.  The generic route is `qgemm_cc_kernel` too, in bf16: every shape the
+// tensor-core kernels do not take (int4 groups that are not a multiple of 16,
+// in not a multiple of 16, out not a multiple of 8, q or scale off 16 bytes,
+// a tied head whose E or V is off those multiples), element-wise loads with
+// bounds checks.  It is bound by the CUDA cores' FMA rate (2 M K N operations
+// at about 67 TFLOP/s f32, before its re-reads of W from L2), far from the
+// tensor cores' 989 TFLOP/s; no Llama-3 shape takes it, so it is off the main
+// path, there for the groups and widths the JAX package serves.
 //
 // Not done here (later work): a persistent prefill grid, TMA multicast of x
 // across a cluster, and `wgmma` at decode past 32 rows of x.
@@ -1292,40 +1299,6 @@ qgemm_stream_kernel(const __grid_constant__ StreamArgs a) {
   }
 }
 
-// The tied head in f32 on the CUDA cores: y[m, n] = sum_k x[m, k] q[n, k],
-// q int8 [N, K] (K contiguous), x already scaled per k.  A warp takes one
-// row of q (four bytes a lane a step) for 8 rows of x, then sums its lanes.
-__global__ void __launch_bounds__(THREADS)
-qgemm_tied_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
-                      float* __restrict__ y, int M, int N, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (THREADS / 32) + warp, m0 = blockIdx.y * 8;
-  if (n >= N) return;
-  float acc[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) acc[r] = 0.0f;
-  const int8_t* row = q + (size_t)n * K;
-  for (int k = 4 * lane; k < K; k += 128) {
-    const char4 w = *reinterpret_cast<const char4*>(row + k);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      if (m0 + r < M) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k));
-        acc[r] = fmaf(v.x, (float)w.x, acc[r]);
-        acc[r] = fmaf(v.y, (float)w.y, acc[r]);
-        acc[r] = fmaf(v.z, (float)w.z, acc[r]);
-        acc[r] = fmaf(v.w, (float)w.w, acc[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xFFFFFFFFu, acc[r], o);
-    if (lane == 0 && m0 + r < M) y[(size_t)(m0 + r) * N + n] = acc[r];
-  }
-}
-
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1430,13 +1403,27 @@ int launch_stream(StreamArgs& a, int mt, int ctas, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// f32 on the CUDA cores: one output column a thread, 8 rows of x a block,
-// the rows' K values staged in shared memory 64 at a time.
-template <int BITS>
+// The CUDA-core kernel: the f32 route, and the generic route of every shape
+// the tensor-core kernels do not take.  One output column a thread, 8 rows of
+// x a block, the rows' K values staged in shared memory 64 at a time (as
+// f32); every load is bounds-checked and element-wise, so any M, N, K and
+// any element-aligned pointer will do.  The weight is read as int8 [K, N],
+// packed int4 [K/2, N] with any even group g dividing K (the group's partial
+// flushed every g rows), or, KMAJ, the tied head's int8 [N, K] with no scale.
+// round() is T's rounding (the identity for f32): int8 y = round(round(sum)
+// * round(scale)), int4 y = round(sum_G round(partial_G) * round(scale_G)).
+template <typename T> __device__ __forceinline__ float round_to(float v) { return v; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) { return bf16_round(v); }
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_t(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_t(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T, int BITS, bool KMAJ>
 __global__ void __launch_bounds__(THREADS)
-qgemm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
-                 const float* __restrict__ scale, float* __restrict__ y, int M, int N, int K,
-                 int group) {
+qgemm_cc_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
+                const float* __restrict__ scale, T* __restrict__ y, int M, int N, int K,
+                int group) {
   constexpr int KC = 64;
   __shared__ float xs[8][KC];
   const int n = blockIdx.x * THREADS + threadIdx.x;
@@ -1444,10 +1431,11 @@ qgemm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
   float acc[8], part[8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) acc[r] = part[r] = 0.0f;
+  int left = group;  // rows of K until the int4 group's flush
   for (int kc = 0; kc < K; kc += KC) {
     for (int i = threadIdx.x; i < 8 * KC; i += THREADS) {
       const int r = i / KC, c = i % KC;
-      xs[r][c] = m0 + r < M && kc + c < K ? x[(size_t)(m0 + r) * K + kc + c] : 0.0f;
+      xs[r][c] = m0 + r < M && kc + c < K ? as_f32(x[(size_t)(m0 + r) * K + kc + c]) : 0.0f;
     }
     __syncthreads();
     if (n < N) {
@@ -1456,7 +1444,7 @@ qgemm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
         const int k = kc + c;
         float wv;
         if (BITS == 8) {
-          wv = (float)(int8_t)w[(size_t)k * N + n];
+          wv = (float)(int8_t)w[KMAJ ? (size_t)n * K + k : (size_t)k * N + n];
         } else {
           const uint32_t b = w[(size_t)(k >> 1) * N + n];
           const int nib = (k & 1) ? (b >> 4) : (b & 15);
@@ -1464,23 +1452,35 @@ qgemm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
         }
 #pragma unroll
         for (int r = 0; r < 8; ++r) part[r] = fmaf(xs[r][c], wv, part[r]);
-        if (BITS == 4 && (k + 1) % group == 0) {
-          const float s = scale[(size_t)(k / group) * N + n];
+        if (BITS == 4 && --left == 0) {
+          const float s = round_to<T>(scale[(size_t)(k / group) * N + n]);
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
-            acc[r] += part[r] * s;
+            acc[r] += round_to<T>(part[r]) * s;
             part[r] = 0.0f;
           }
+          left = group;
         }
       }
     }
     __syncthreads();
   }
   if (n >= N) return;
-  const float s8 = BITS == 8 ? scale[n] : 1.0f;
+  const float s8 = BITS == 8 && scale != nullptr ? round_to<T>(scale[n]) : 1.0f;
 #pragma unroll
   for (int r = 0; r < 8; ++r)
-    if (m0 + r < M) y[(size_t)(m0 + r) * N + n] = BITS == 8 ? part[r] * s8 : acc[r];
+    if (m0 + r < M)
+      store_t(y + (size_t)(m0 + r) * N + n, BITS == 8 ? round_to<T>(part[r]) * s8 : acc[r]);
+}
+
+template <typename T, int BITS, bool KMAJ>
+int launch_cc(const void* x, const void* w, const void* scale, void* y, int M, int N, int K,
+              int group, cudaStream_t stream) {
+  dim3 grid((N + THREADS - 1) / THREADS, (M + 7) / 8);
+  qgemm_cc_kernel<T, BITS, KMAJ><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+      static_cast<T*>(y), M, N, K, group);
+  return (int)cudaGetLastError();
 }
 
 template <int BITS, int MT, int WARPS_M>
@@ -1518,8 +1518,8 @@ int dispatch_mma(int mt, int warps_m, const void* x, const void* w, const void* 
 }  // namespace
 
 // x [M, K], w (int8 [K, N] or packed int4 [K/2, N]), scale (f32 [N] or
-// [K/group, N]), y [M, N]; dtype 0 = f32 (CUDA cores), 1 = bf16 (tensor
-// cores); bits 8 or 4; (mt, warps_m, ksplit, kchunk) the host's plan (bf16
+// [K/group, N]), y [M, N]; dtype 1 = bf16 (tensor cores; f32 takes
+// `dabt_qgemm_generic`); bits 8 or 4; (mt, warps_m, ksplit, kchunk) the host's plan (bf16
 // only): warps_m 8 takes the wgmma kernel (mt 2: two warpgroups of 64 rows,
 // eight warps of 16; N a multiple of 16 and x, w and scale on 16-byte
 // boundaries, which TMA needs; kchunk a multiple of 64), 1 or 4 the
@@ -1537,18 +1537,6 @@ extern "C" int dabt_qgemm(const void* x, const void* w, const void* scale, void*
   if (M < 1 || N < 8 || K < 16 || N % 8 || K % 16 || (bits != 8 && bits != 4))
     return (int)cudaErrorInvalidValue;
   if (bits == 4 && (group < 16 || group % 16 || K % group)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    dim3 grid((N + THREADS - 1) / THREADS, (M + 7) / 8);
-    if (bits == 8)
-      qgemm_f32_kernel<8><<<grid, THREADS, 0, st>>>(static_cast<const float*>(x),
-          static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-          static_cast<float*>(y), M, N, K, group);
-    else
-      qgemm_f32_kernel<4><<<grid, THREADS, 0, st>>>(static_cast<const float*>(x),
-          static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-          static_cast<float*>(y), M, N, K, group);
-    return (int)cudaGetLastError();
-  }
   if (dtype != 1 || (warps_m != 1 && warps_m != 4 && warps_m != 8) || ksplit < 1 ||
       kchunk < 16 || kchunk % 16 || (bits == 4 && kchunk % group) ||
       (long long)ksplit * (warps_m == 8 ? 1 : THREADS / 32 / warps_m) * kchunk < K ||
@@ -1640,14 +1628,28 @@ extern "C" int dabt_qgemm_stream(const void* x, const void* w0, const void* w1, 
   return launch_stream<4, false>(a, mt, ctas, st);
 }
 
-// The tied head in f32 (CUDA cores): x f32 [M, K] already scaled, q int8
-// [N, K], y f32 [M, N]; K a multiple of 16, x and q on 16-byte boundaries.
-extern "C" int dabt_qgemm_tied_f32(const void* x, const void* q, void* y, int M, int N, int K,
-                                   void* stream) {
-  if (M < 1 || N < 1 || K < 16 || K % 16 || ((uintptr_t)x | (uintptr_t)q) % 16)
+// The CUDA-core route (`qgemm_cc_kernel`): the f32 route, and the generic
+// route of the shapes the tensor-core kernels do not take.  x [M, K] f32
+// (dtype 0) or bf16 (1), y [M, N] of the same type; w int8 [K, N] with
+// scale [N], or packed int4 [K/2, N] with scale [K/group, N] (any even
+// group dividing K), or, kmajor, the tied head's int8 [N, K] with no scale
+// (x already scaled).  Any M, N, K and element-aligned pointers.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
+// take.
+extern "C" int dabt_qgemm_generic(const void* x, const void* w, const void* scale, void* y,
+                                  int dtype, int bits, int M, int N, int K, int group, int kmajor,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || N < 1 || K < 1 || (dtype != 0 && dtype != 1) || (bits != 8 && bits != 4) ||
+      x == nullptr || w == nullptr || y == nullptr || (!kmajor && scale == nullptr) ||
+      (kmajor && bits != 8) || (bits == 4 && (K % 2 || group < 2 || group % 2 || K % group)))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + THREADS / 32 - 1) / (THREADS / 32), (M + 7) / 8);
-  qgemm_tied_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(q), static_cast<float*>(y), M, N, K);
-  return (int)cudaGetLastError();
+  if (kmajor)
+    return dtype == 0 ? launch_cc<float, 8, true>(x, w, nullptr, y, M, N, K, 0, st)
+                      : launch_cc<__nv_bfloat16, 8, true>(x, w, nullptr, y, M, N, K, 0, st);
+  if (dtype == 0)
+    return bits == 8 ? launch_cc<float, 8, false>(x, w, scale, y, M, N, K, group, st)
+                     : launch_cc<float, 4, false>(x, w, scale, y, M, N, K, group, st);
+  return bits == 8 ? launch_cc<__nv_bfloat16, 8, false>(x, w, scale, y, M, N, K, group, st)
+                   : launch_cc<__nv_bfloat16, 4, false>(x, w, scale, y, M, N, K, group, st);
 }

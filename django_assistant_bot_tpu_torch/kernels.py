@@ -53,6 +53,7 @@ KERNELS = {
     "paged_decode": ("paged_decode", "dabt_paged_decode"),
     "knn_topk": ("knn_topk", "dabt_knn_topk"),
     "qgemm": ("qgemm", "dabt_qgemm"),
+    "sample": ("sample", "dabt_sample"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -81,6 +82,9 @@ _ARGTYPES = {
     # x, w, scale, y, scratch, counters, dtype, bits, M, N, K, group, mt,
     # warps_m, ksplit, kchunk, stream
     "qgemm": [_P] * 6 + [_I] * 10 + [_P],
+    # logits, temperature, top_p, gumbel, allowed, next_state, state, jmask,
+    # ids, state_out, gmax, counters, dtype, B, V, k, splits, stream
+    "sample": [_P] * 12 + [_I] * 5 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -92,8 +96,8 @@ _EXTRA_SYMBOLS = {
         # x, w0-w2, scale0-scale2, y0-y2, n0-n2, members, bits, M, K, group,
         # kmajor, sms, scratch, counters, stream
         "dabt_qgemm_stream": ([_P] * 10 + [_I] * 10 + [_P] * 3, ctypes.c_int),
-        # x, q, y, M, N, K, stream
-        "dabt_qgemm_tied_f32": ([_P] * 3 + [_I] * 3 + [_P], ctypes.c_int),
+        # x, w, scale, y, dtype, bits, M, N, K, group, kmajor, stream
+        "dabt_qgemm_generic": ([_P] * 4 + [_I] * 7 + [_P], ctypes.c_int),
     },
 }
 
@@ -112,11 +116,12 @@ PAGED_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
 
 # qgemm launches by weight format, counted beside LAUNCHES like PAGED_ROUTES
 QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
-# and by route: "stream" (the decode kernel, M <= 64, one launch for up to
-# three members; also the tied int8 head), "mma" (the direct-load kernel:
-# where TMA cannot take N or a pointer), "wgmma" (the prefill kernel),
-# "cuda_core" (f32)
-QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 0}
+# and by route (:func:`qgemm_route`): "stream" (the decode kernel, M <= 64,
+# one launch for up to three members; also the tied int8 head), "mma" (the
+# direct-load kernel: where TMA cannot take N or a pointer), "wgmma" (the
+# prefill kernel), "cuda_core" (f32), "generic" (the CUDA-core kernel on the
+# shapes no other route takes)
+QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 0, "generic": 0}
 # a kernel's launches by kind, for the kernels that count them
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
@@ -146,6 +151,11 @@ QGEMM_STREAM_PARTIAL_FLOATS = 1 << 23
 # counters); the counters start at zero and every call leaves them at zero
 # (a graph's owner keeps its own store, see private_paged_scratch)
 _split_scratch: Dict[tuple, tuple] = {}
+# the sampler (csrc/sample.cu): the largest top-k it takes, and the vocab
+# from which its top-k is hierarchical (ops/sampling.py's)
+SAMPLE_MAX_K = 256
+SAMPLE_HIER_MIN_VOCAB = 16_384
+
 # f32 scratch floats per (device, route, shapes), as the library reports them
 _paged_need: Dict[tuple, int] = {}
 
@@ -293,6 +303,11 @@ def build(names: Optional[Sequence[str]] = None) -> float:
                 getattr(lib, extra).restype = restype
             _libs[name] = lib
     return time.perf_counter() - t0
+
+
+def loaded() -> frozenset:
+    """The kernels whose libraries this process has built or loaded."""
+    return frozenset(_libs)
 
 
 def _fn(name: str):
@@ -502,45 +517,104 @@ def qgemm_tiles(M: int, N: int, mt: int, warps_m: int) -> int:
     return -(-N // QGEMM_TILE_N) * -(-M // (8 * mt * warps_m))
 
 
+def qgemm_route(dtype: torch.dtype, M: int, N: int, K: int, group: int, *,
+                qs_aligned: bool = True, aligned: bool = True) -> str:
+    """The route of a qgemm call ``[M, K] . [K, N]`` (``group`` 0: int8,
+    else int4 at that group); ``qs_aligned``: q and scale on 16-byte
+    boundaries, ``aligned``: x, q, scale and out all are.  K not a multiple
+    of 16, N not one of 8, an int4 group not one of 16, or q or scale off 16
+    bytes: ``"generic"``.  Otherwise f32 ``"cuda_core"``; bf16 with N a
+    multiple of 16 and every tensor aligned (TMA's terms) ``"stream"`` up to
+    ``QGEMM_STREAM_MAX_M`` rows and ``"wgmma"`` past them; other bf16 calls
+    ``"mma"``."""
+    if K % 16 or N % 8 or (group and group % 16) or not qs_aligned:
+        return "generic"
+    if dtype == torch.float32:
+        return "cuda_core"
+    if N % 16 == 0 and aligned:
+        return "stream" if M <= QGEMM_STREAM_MAX_M else "wgmma"
+    return "mma"
+
+
+def qgemm_tied_route(dtype: torch.dtype, V: int, E: int, *, aligned: bool = True) -> str:
+    """The route of the tied int8 head over a ``[V, E]`` table (``aligned``:
+    x and the table on 16-byte boundaries): bf16 with E a multiple of 16 and
+    V of 8 the stream kernel's K-contiguous form; f32 with E a multiple of
+    16 ``"cuda_core"``; anything else ``"generic"`` (both the CUDA-core
+    kernel's K-contiguous form)."""
+    if E % 16 == 0 and aligned:
+        if dtype == torch.bfloat16 and V % 8 == 0:
+            return "stream"
+        if dtype == torch.float32:
+            return "cuda_core"
+    return "generic"
+
+
+def _misaligned(*tensors: torch.Tensor) -> bool:
+    return any(t.data_ptr() % 16 for t in tensors)
+
+
 def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
           *, group: int) -> None:
     """Launch the weight-only GEMM ``out[M, N] = x[M, K] . W[K, N]``; the
     caller (``ops.quant.qeinsum``) validated the arguments: ``q`` int8
     ``[K, N]`` (``group`` 0, ``scale`` per column) or packed int4 ``[K/2,
-    N]`` (``scale`` per ``group`` rows and column), x and out contiguous in
-    one type.  With N a multiple of 16 and the tensors on 16-byte
-    boundaries (which TMA needs), a bf16 call of at most 64 rows takes the
-    stream kernel (:func:`qgemm_stream`) and one past 64 rows the wgmma
-    kernel; other bf16 calls take the direct-load kernel, f32 the CUDA-core
-    one (``QGEMM_ROUTES`` counts which).  A bf16 call that splits K takes
-    its f32 partials and counters from the per-(device, stream) scratch,
-    like paged decode."""
+    N]`` (``scale`` per ``group`` rows and column), every tensor contiguous,
+    x and out in one type.  :func:`qgemm_route` picks the kernel
+    (``QGEMM_ROUTES`` counts which): the stream kernel
+    (:func:`qgemm_stream`), the wgmma or the direct-load kernel, the f32
+    CUDA-core one, or the generic route (:func:`qgemm_generic`).  A bf16
+    call that splits K takes its f32 partials and counters from the
+    per-(device, stream) scratch, like paged decode."""
     M, K = x.shape
     N = out.shape[1]
     bits = 4 if group else 8
-    dt = dtype_code(x.dtype)
-    if qgemm_stream_takes(x, (q, scale, out), (N,)):
+    qs_aligned = not _misaligned(q, scale)
+    tma = qs_aligned and not _misaligned(x, out)
+    route = qgemm_route(x.dtype, M, N, K, group, qs_aligned=qs_aligned, aligned=tma)
+    if route == "stream":
         qgemm_stream(x, [q], [scale], [out], group=group)
         return
-    mt = warps_m = ksplit = 1
-    kchunk = K
+    if route in ("cuda_core", "generic"):
+        qgemm_generic(x, q, scale, out, group=group, route=route)
+        return
     stream = _stream(x)
     fn = _fn("qgemm")
     with torch.cuda.device(x.device):
         scratch = counters = None
-        if dt == _DTYPE_CODE[torch.bfloat16]:
-            tma = not any(t.data_ptr() % 16 for t in (x, q, scale, out))
-            mt, warps_m, ksplit, kchunk = qgemm_plan(M, N, K, bits, group, tma=tma)
-            if ksplit > 1:
-                scratch, counters = _scratch_buffers("qgemm", x.device, stream, ksplit * M * N,
-                                                     qgemm_tiles(M, N, mt, warps_m))
+        mt, warps_m, ksplit, kchunk = qgemm_plan(M, N, K, bits, group, tma=tma)
+        if ksplit > 1:
+            scratch, counters = _scratch_buffers("qgemm", x.device, stream, ksplit * M * N,
+                                                 qgemm_tiles(M, N, mt, warps_m))
         err = fn(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             counters.data_ptr() if counters is not None else None,
-            dt, bits, M, N, K, group, mt, warps_m, ksplit, kchunk, stream,
+            dtype_code(x.dtype), bits, M, N, K, group, mt, warps_m, ksplit, kchunk, stream,
         )
-    route = "cuda_core" if dt == _DTYPE_CODE[torch.float32] else "wgmma" if warps_m == 8 else "mma"
+    _count("qgemm", f"int{bits}", route)
+    _check("qgemm", err)
+
+
+def qgemm_generic(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
+                  out: torch.Tensor, *, group: int, kmajor: bool = False,
+                  route: str = "generic") -> None:
+    """One launch of the CUDA-core kernel (``qgemm_cc_kernel`` of
+    ``csrc/qgemm.cu``): ``out = x . W`` for any shape, with ``w`` int8
+    ``[K, N]``, packed int4 ``[K/2, N]`` at any even ``group`` dividing K,
+    or (``kmajor``) the tied head's int8 ``[N, K]`` with no scale;
+    contiguous tensors, x and out f32 or bf16.  Counted under ``route``:
+    ``"cuda_core"`` for f32 at the shapes the tensor-core kernels take,
+    ``"generic"`` for the rest."""
+    M, K = x.shape
+    N = out.shape[1]
+    bits = 4 if group else 8
+    _fn("qgemm")
+    with torch.cuda.device(x.device):
+        err = _libs["qgemm"].dabt_qgemm_generic(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
+            out.data_ptr(), dtype_code(x.dtype), bits, M, N, K, group, int(kmajor), _stream(x),
+        )
     _count("qgemm", f"int{bits}", route)
     _check("qgemm", err)
 
@@ -628,21 +702,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def qgemm_stream_takes(x: torch.Tensor, tensors: Sequence[torch.Tensor], Ns: Sequence[int]) -> bool:
-    """Whether the stream route takes a bf16 call: at most
-    ``QGEMM_STREAM_MAX_M`` rows of x, every width a multiple of 16 and
-    every tensor on a 16-byte boundary (TMA's terms)."""
-    return (x.dtype == torch.bfloat16 and 0 < x.shape[0] <= QGEMM_STREAM_MAX_M
-            and all(n % 16 == 0 for n in Ns)
-            and not any(t.data_ptr() % 16 for t in (x, *tensors)))
-
-
 def qgemm_stream(x: torch.Tensor, qs: Sequence[torch.Tensor], scales: Sequence,
                  outs: Sequence[torch.Tensor], *, group: int, kmajor: bool = False) -> None:
     """One stream-route launch: ``outs[i] = x . W_i`` for the 1-3 members
     (``qs[i]`` int8 ``[K, N_i]`` or packed int4 ``[K/2, N_i]``, ``scales[i]``
     per column or per ``group`` rows), bf16 x ``[M, K]`` with M <= 64; the
-    caller checked :func:`qgemm_stream_takes`.  ``kmajor``: one int8 member
+    caller checked that :func:`qgemm_route` gives ``"stream"`` for each.  ``kmajor``: one int8 member
     ``[N, K]`` and no scale (the tied head).  The split tiles' partials and
     counters come from the per-(device, stream) scratch."""
     M, K = x.shape
@@ -670,18 +735,60 @@ def qgemm_stream(x: torch.Tensor, qs: Sequence[torch.Tensor], scales: Sequence,
 def qgemm_tied(xs: torch.Tensor, q: torch.Tensor, out: torch.Tensor) -> None:
     """The tied int8 head: ``out[M, V] = xs[M, E] . q[V, E]^T``, ``xs``
     already scaled per E (``ops.quant.tied_head``, which validated the
-    arguments).  bf16 takes the stream route's K-contiguous form, 64 rows of
-    x a launch; f32 the CUDA-core kernel."""
+    arguments).  :func:`qgemm_tied_route` picks the stream route's
+    K-contiguous form (bf16, 64 rows of x a launch) or the CUDA-core
+    kernel's (f32, or a bf16 E or V off the stream form's multiples)."""
     M, K = xs.shape
-    N = q.shape[0]
-    if xs.dtype == torch.bfloat16:
-        for m0 in range(0, M, QGEMM_STREAM_MAX_M):
-            rows = slice(m0, min(M, m0 + QGEMM_STREAM_MAX_M))
-            qgemm_stream(xs[rows], [q], [None], [out[rows]], group=0, kmajor=True)
+    route = qgemm_tied_route(xs.dtype, q.shape[0], K, aligned=not _misaligned(xs, q))
+    if route != "stream":
+        qgemm_generic(xs, q, None, out, group=0, kmajor=True, route=route)
         return
-    _fn("qgemm")
-    with torch.cuda.device(xs.device):
-        err = _libs["qgemm"].dabt_qgemm_tied_f32(xs.data_ptr(), q.data_ptr(), out.data_ptr(),
-                                                 M, N, K, _stream(xs))
-    _count("qgemm", "int8", "cuda_core")
-    _check("qgemm", err)
+    for m0 in range(0, M, QGEMM_STREAM_MAX_M):
+        rows = slice(m0, min(M, m0 + QGEMM_STREAM_MAX_M))
+        qgemm_stream(xs[rows], [q], [None], [out[rows]], group=0, kmajor=True)
+
+
+def sample_splits(B: int, V: int, sms: int = 132) -> int:
+    """Blocks that share each row's first pass (the groups' maxima) in a
+    sampler launch: about two blocks per SM over the B rows, at least 8
+    groups a block; 1 below ``SAMPLE_HIER_MIN_VOCAB`` (no first pass)."""
+    if V < SAMPLE_HIER_MIN_VOCAB:
+        return 1
+    return max(1, min(-(-2 * sms // B), -(-V // 128) // 8))
+
+
+def sample(logits: torch.Tensor, temperature: torch.Tensor, top_p: torch.Tensor,
+           gumbel: torch.Tensor, ids: torch.Tensor, *, k: int,
+           allowed: Optional[torch.Tensor] = None, next_state: Optional[torch.Tensor] = None,
+           fsm_state: Optional[torch.Tensor] = None, jmask: Optional[torch.Tensor] = None,
+           state_out: Optional[torch.Tensor] = None) -> None:
+    """Launch the fused masked top-k / top-p / draw / FSM-advance kernel
+    (``csrc/sample.cu``), one launch a sampling step; the caller
+    (``ops.sampling.sample_logits``) validated the arguments: logits ``[B,
+    V]`` f32 or bf16, temperature and top_p ``[B]`` f32, gumbel ``[B, k]``
+    f32, ids ``[B]`` int32 out, and, for a JSON FSM, allowed ``[S, V]``
+    bool, next_state ``[S, V]`` int32, fsm_state and state_out ``[B]``
+    int32, jmask ``[B]`` bool, all contiguous on one card.  Past
+    ``SAMPLE_HIER_MIN_VOCAB`` the groups' maxima and the per-row counters
+    come from the per-(device, stream) scratch."""
+    B, V = logits.shape
+    stream = _stream(logits)
+    fn = _fn("sample")
+    json = allowed is not None
+    with torch.cuda.device(logits.device):
+        splits = sample_splits(B, V, _sm_count(logits.device.index))
+        gmax = counters = None
+        if V >= SAMPLE_HIER_MIN_VOCAB:
+            gmax, counters = _scratch_buffers("sample", logits.device, stream,
+                                              B * -(-V // 128), B)
+        err = fn(
+            logits.data_ptr(), temperature.data_ptr(), top_p.data_ptr(), gumbel.data_ptr(),
+            *([allowed.data_ptr(), next_state.data_ptr(), fsm_state.data_ptr(),
+               jmask.data_ptr()] if json else [None] * 4),
+            ids.data_ptr(), state_out.data_ptr() if json else None,
+            gmax.data_ptr() if gmax is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            dtype_code(logits.dtype), B, V, k, splits, stream,
+        )
+    _count("sample")
+    _check("sample", err)

@@ -11,7 +11,7 @@ from .attention import (
 )
 from .norms import layer_norm, rms_norm
 from .rope import apply_rope, rope_frequencies
-from .sampling import sample_logits, top_k_auto, top_k_hierarchical
+from .sampling import sample_logits, sample_logits_plain, top_k_auto, top_k_hierarchical
 
 __all__ = [
     "apply_rope",
@@ -26,6 +26,7 @@ __all__ = [
     "rms_norm",
     "rope_frequencies",
     "sample_logits",
+    "sample_logits_plain",
     "top_k_auto",
     "top_k_hierarchical",
 ]

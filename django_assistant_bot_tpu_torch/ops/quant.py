@@ -228,39 +228,30 @@ def qeinsum_plain(pattern: str, x: torch.Tensor, w: Any, dtype: torch.dtype) -> 
 
 
 def kernel_refusal(w: Any, dtype: torch.dtype) -> Optional[str]:
-    """Why the weight-only GEMM kernel cannot take a projection onto the
-    2-D quantized weight ``w`` with activations in ``dtype`` (None if it
-    can): f32 or bf16 activations, ``in`` a multiple of 16, ``out`` of 8,
-    int4 groups a multiple of 16, and 16-byte aligned q and scale."""
+    """Why no route of the weight-only GEMM kernel takes a projection onto
+    the quantized weight ``w`` with activations in ``dtype`` (None if one
+    does): the activations must be f32 or bf16 and the weight 2-D.  Every
+    shape and alignment the JAX package serves has a route
+    (``kernels.qgemm_route``): int4 groups that are not a multiple of 16,
+    widths off the tensor-core kernels' multiples and unaligned tensors take
+    the generic one."""
     if dtype not in (torch.float32, torch.bfloat16):
         return f"activations must be float32 or bfloat16, got {dtype}"
     if w.q.dim() != 2:
         return f"the kernel takes a 2-D weight, got q of shape {tuple(w.q.shape)}"
-    K, N = w.in_features, w.q.shape[-1]
-    if K % 16 or N % 8:
-        return f"in_features {K} must be a multiple of 16 and out_features {N} of 8"
-    if isinstance(w, QTensor4) and w.group_size % 16:
-        return f"int4 group size {w.group_size} must be a multiple of 16"
-    for t in (w.q, w.scale):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            return "q and scale must be contiguous and 16-byte aligned"
     return None
 
 
 def tied_head_refusal(w: Any, dtype: torch.dtype) -> Optional[str]:
-    """Why the qgemm kernel cannot take the tied int8 table ``w`` (``q``
-    ``[V, E]``, K-contiguous) as the head with activations in ``dtype``
-    (None if it can): f32 or bf16, an int8 table, ``E`` a multiple of 16,
-    ``V`` of 8, ``q`` contiguous on a 16-byte boundary."""
+    """Why the qgemm kernel cannot take the tied table ``w`` (``q`` ``[V,
+    E]``, K-contiguous) as the head with activations in ``dtype`` (None if
+    it can): f32 or bf16 and a 2-D int8 table.  Any E and V: what the stream
+    form does not take runs on the generic route
+    (``kernels.qgemm_tied_route``)."""
     if dtype not in (torch.float32, torch.bfloat16):
         return f"activations must be float32 or bfloat16, got {dtype}"
     if not isinstance(w, QTensor) or w.q.dim() != 2:
         return f"the tied head takes a 2-D int8 table, got {w!r}"
-    V, E = w.q.shape
-    if E % 16 or V % 8:
-        return f"hidden size {E} must be a multiple of 16 and vocab size {V} of 8"
-    if not w.q.is_contiguous() or w.q.data_ptr() % 16:
-        return "q must be contiguous and 16-byte aligned"
     return None
 
 
@@ -309,7 +300,8 @@ def qeinsum(pattern: str, x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.
     x2 = x.reshape(-1, K).contiguous()
     y = torch.empty((x2.shape[0], N), dtype=dtype, device=x.device)
     if x2.shape[0]:
-        kernels.qgemm(x2, w.q, w.scale, y, group=w.group_size if w.bits == 4 else 0)
+        kernels.qgemm(x2, w.q.contiguous(), w.scale.contiguous(), y,
+                      group=w.group_size if w.bits == 4 else 0)
     return y.reshape(x.shape[:-1] + (N,))
 
 
@@ -325,17 +317,20 @@ def _stream_group(x: torch.Tensor, ws, dtype: torch.dtype) -> Optional[list]:
     group = first.group_size if first.bits == 4 else 0
     if x.shape[-1] != K:
         return None
-    for w in ws:
-        if not (type(w) is type(first) and w.q.dim() == 2 and w.in_features == K
-                and (w.group_size if w.bits == 4 else 0) == group
-                and kernel_refusal(w, dtype) is None):
-            return None
     from .. import kernels
 
     x2 = x.reshape(-1, K).contiguous()
+    for w in ws:
+        if not (type(w) is type(first) and w.q.dim() == 2 and w.in_features == K
+                and (w.group_size if w.bits == 4 else 0) == group
+                and w.q.is_contiguous() and w.scale.is_contiguous()):
+            return None
+        aligned = not kernels._misaligned(x2, w.q, w.scale)
+        route = kernels.qgemm_route(dtype, x2.shape[0], w.q.shape[-1], K, group,
+                                    qs_aligned=aligned, aligned=aligned)
+        if route != "stream":
+            return None
     Ns = [w.q.shape[-1] for w in ws]
-    if not kernels.qgemm_stream_takes(x2, [t for w in ws for t in (w.q, w.scale)], Ns):
-        return None
     outs = [torch.empty((x2.shape[0], n), dtype=dtype, device=x.device) for n in Ns]
     kernels.qgemm_stream(x2, [w.q for w in ws], [w.scale for w in ws], outs, group=group)
     return [y.reshape(x.shape[:-1] + (n,)) for y, n in zip(outs, Ns)]
@@ -368,8 +363,9 @@ def tied_head_plain(x: torch.Tensor, w: QTensor, dtype: torch.dtype) -> torch.Te
 def tied_head(x: torch.Tensor, w: QTensor, dtype: torch.dtype) -> torch.Tensor:
     """Logits of a tied int8 table: on the CPU :func:`tied_head_plain`; on
     the card x is scaled as there (a PyTorch product in ``dtype``) and the
-    qgemm kernel's K-contiguous form reads the table
-    (``kernels.qgemm_tied``); what :func:`tied_head_refusal` names raises."""
+    qgemm kernel reads the table (``kernels.qgemm_tied``: the K-contiguous
+    stream form, or the generic route where that does not take E or V);
+    what :func:`tied_head_refusal` names raises."""
     if x.device.type != "cuda":
         return tied_head_plain(x, w, dtype)
     why = tied_head_refusal(w, dtype)
@@ -383,7 +379,7 @@ def tied_head(x: torch.Tensor, w: QTensor, dtype: torch.dtype) -> torch.Tensor:
     xs = (x * w.scale.squeeze(-2).to(dtype)).reshape(-1, E).contiguous()
     y = torch.empty((xs.shape[0], V), dtype=dtype, device=x.device)
     if xs.shape[0]:
-        kernels.qgemm_tied(xs, w.q, y)
+        kernels.qgemm_tied(xs, w.q.contiguous(), y)
     return y.reshape(x.shape[:-1] + (V,))
 
 

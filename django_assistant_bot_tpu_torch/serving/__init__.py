@@ -12,6 +12,7 @@ from .engine import (
 from .faults import FaultInjected, FaultInjector
 from .registry import ModelRegistry, ModelSpec
 from .scheduler import DeadlineExceeded, RequestScheduler, SchedulerConfig, SchedulerRejected
+from .streaming import IncrementalDetokenizer, StreamChunk, TokenStream
 from .tokenizer import ByteTokenizer, HFTokenizer, encode_chat_split, load_tokenizer
 
 __all__ = [
@@ -25,12 +26,15 @@ __all__ = [
     "GenerationEngine",
     "GenerationResult",
     "HFTokenizer",
+    "IncrementalDetokenizer",
     "ModelRegistry",
     "ModelSpec",
     "RequestPoisoned",
     "RequestScheduler",
     "SchedulerConfig",
     "SchedulerRejected",
+    "StreamChunk",
+    "TokenStream",
     "encode_chat_split",
     "load_tokenizer",
     "pick_bucket",

@@ -4,10 +4,10 @@ The port runs the JAX engine's default decode loop at the JAX ``ModelSpec``
 defaults: ``kv_layout="paged"`` with prefix sharing, fused
 ``decode_steps``-step ticks, chunked prefill piggybacked into the decode
 tick, the admission-controlled :class:`~.scheduler.RequestScheduler`, the
-observability plane and crash-only supervision.  Speculation, fp8 KV and
-JSON-constrained decoding are still accepted only at their off value and
-refused, naming their ROADMAP item, at any other.  What is ported is the JAX
-engine's own logic:
+observability plane and crash-only supervision, with token streaming and
+JSON-constrained decoding.  Speculation and fp8 KV are still accepted only
+at their off value and refused, naming their ROADMAP item, at any other.
+What is ported is the JAX engine's own logic:
 
 - **Admission.**  Free slots take queued requests in the scheduler's
   weighted-fair-share order (FIFO with ``scheduler=None``); each reserves
@@ -60,6 +60,22 @@ engine's own logic:
   :class:`EngineUnavailable`.  Garbage sampled ids and a failed
   detokenization are request poison: one request fails, the batch goes on.
   ``faults`` injects both kinds (:mod:`.faults`).
+- **Streaming.**  :meth:`GenerationEngine.generate_stream` yields text
+  deltas as the ids of in-flight ticks reach the host in
+  :meth:`~GenerationEngine._process_tick` (a deque append per token, no
+  device sync of its own; :mod:`.streaming`), then a terminal chunk with
+  the result.  Abandoning the iterator cancels the request, and the reap
+  frees its slot within one tick.
+- **JSON-constrained decoding.**  ``submit(json_format=True)`` samples under
+  the JSON grammar's token FSM (:mod:`..ops.json_fsm`, built on the host
+  once per tokenizer, its ``allowed`` / ``next_state`` tables on the device
+  padded to the model vocab).  A JSON slot's first token takes the initial
+  state's mask; while any JSON slot is live the engine issues single-step
+  JSON ticks (the JAX rule: ``json_downgraded_ticks`` counts them) and no
+  chunk piggybacks; each step masks the JSON rows by their state and
+  advances it in the fused sampler.  On the card the JSON tick is a third
+  CUDA graph in the same pool, captured at the first JSON request or in
+  :meth:`~GenerationEngine.warmup`.
 - **Observability.**  With ``obs`` on, :class:`~.obs.EngineObs` records
   TTFT, inter-token, queue-wait and tick histograms, request traces and a
   flight recorder, all host bookkeeping after a tick's ids reached the host;
@@ -78,6 +94,7 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from concurrent.futures import Future, InvalidStateError
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -88,11 +105,13 @@ from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..models import DecoderConfig, EncoderConfig, encoder, llama
 from ..ops.quant import check_kernel_params, weight_bits
+from ..ops.json_fsm import TokenFSM, fsm_for_tokenizer
 from ..ops.sampling import gumbel_noise, noise_width, sample_logits
 from .faults import FaultInjected, FaultInjector
 from .kv_pool import PageAllocator, SharedPrefix
 from .obs import EngineObs, new_trace_id
 from .scheduler import DeadlineExceeded, RequestScheduler, SchedulerRejected
+from .streaming import IncrementalDetokenizer, StreamChunk, TokenStream
 from .tokenizer import Tokenizer, encode_chat_split
 
 logger = logging.getLogger(__name__)
@@ -100,6 +119,19 @@ logger = logging.getLogger(__name__)
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 TOP_K = 50  # sampling's top-k, the JAX engine's default
 IDLE_POLL_S = 0.002  # loop sleep when there is no work
+
+# the JSON token FSM per tokenizer, built on the host once (ops/json_fsm.py)
+_FSM_CACHE: "weakref.WeakKeyDictionary[Any, TokenFSM]" = weakref.WeakKeyDictionary()
+_FSM_LOCK = threading.Lock()
+
+
+def token_fsm(tokenizer) -> TokenFSM:
+    """The JSON grammar's token FSM for ``tokenizer`` (cached per tokenizer)."""
+    with _FSM_LOCK:
+        fsm = _FSM_CACHE.get(tokenizer)
+        if fsm is None:
+            fsm = _FSM_CACHE[tokenizer] = fsm_for_tokenizer(tokenizer)
+        return fsm
 
 
 class RequestPoisoned(RuntimeError):
@@ -198,6 +230,11 @@ class _Request:
     # the request's correlation id (client X-Request-Id or generated at
     # submit), carried through the obs plane's traces and flight recorder
     trace_id: str = ""
+    # JSON-constrained decoding (ops/json_fsm.py)
+    json: bool = False
+    # per-token event sink (streaming.TokenStream), fed in _process_tick as
+    # the ids reach the host; None = request/response
+    stream: Any = None
 
 
 @dataclasses.dataclass
@@ -417,6 +454,11 @@ class GenerationEngine:
         self._block_tables = np.full((max_slots, self._kv_blocks), self._kv_sentinel, np.int32)
         self._temps = np.zeros((max_slots,), np.float32)
         self._top_ps = np.ones((max_slots,), np.float32)
+        # JSON slots, and the token FSM with its device tables (_ensure_fsm)
+        self._json = np.zeros((max_slots,), bool)
+        self._fsm: Optional[TokenFSM] = None
+        self._fsm_allowed_dev: Optional[torch.Tensor] = None
+        self._fsm_next_dev: Optional[torch.Tensor] = None
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self._alloc_device_state()
         self._running = False
@@ -424,7 +466,17 @@ class GenerationEngine:
         self._iter_lock = threading.Lock()
         self.steps = 0
         self.reclaimed_slots = 0
+        # the reclaimed slots whose client cancelled (a stream abandoned)
+        self.cancelled_slots = 0
+        # sampler calls that took first tokens (one per admitted wave group
+        # or final chunk): with ``steps``, the sampling steps
+        self.activations = 0
         self._ttft_s: "collections.deque[float]" = collections.deque(maxlen=1024)
+        # inter-token gaps as ids reach the host (across ticks)
+        self._itl_s: "collections.deque[float]" = collections.deque(maxlen=4096)
+        # streams owed a wakeup, notified once each at the end of _process_tick
+        self._stream_notify: set = set()
+        self._json_downgraded_ticks = 0
         self._ticks_issued = 0
         self._ticks_processed = 0
         self._tick_issue_s = 0.0
@@ -438,7 +490,10 @@ class GenerationEngine:
         self._graph_launches: Optional[kernels.GraphLaunches] = None
         self._piggyback_graph: Optional[torch.cuda.CUDAGraph] = None
         self._piggyback_launches: Optional[kernels.GraphLaunches] = None
+        self._json_graph: Optional[torch.cuda.CUDAGraph] = None
+        self._json_launches: Optional[kernels.GraphLaunches] = None
         self.graph_pool_bytes = 0
+        self.graph_captures = 0  # CUDA graphs this engine captured
         if self.device.type == "cuda":
             self._capture_tick()
 
@@ -458,6 +513,9 @@ class GenerationEngine:
         )
         self._temps_dev = torch.zeros((B,), dtype=torch.float32, device=dev)
         self._top_ps_dev = torch.ones((B,), dtype=torch.float32, device=dev)
+        # the JSON rows and their FSM states (advanced by the sampler)
+        self._json_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._fsm_states_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
         width = noise_width(self.cfg.vocab_size, TOP_K)
         self._noise = torch.zeros((K, B, width), dtype=torch.float32, device=dev)
         self._toks_dev = torch.zeros((K, B), dtype=torch.int32, device=dev)
@@ -482,6 +540,7 @@ class GenerationEngine:
         if self._chunking is not None or any(s is not None for s in self._slots):
             raise RuntimeError("reset() needs an engine with no request on a slot")
         self._sampling_dirty = True
+        self._json[:] = False
         self._kv_pool.reset()
         self._slot_pages = [[] for _ in range(self.max_slots)]
         self._block_tables[:] = self._kv_sentinel
@@ -501,7 +560,7 @@ class GenerationEngine:
         recovery, and the engine declares itself dead."""
         for t in (self._cache.k, self._cache.v, self._cache.lengths, self._tokens_dev,
                   self._toks_dev, self._chunk_ids_dev, self._chunk_slot_dev,
-                  self._chunk_start_dev):
+                  self._chunk_start_dev, self._fsm_states_dev):
             t.zero_()
         self._chunk_bt_dev.fill_(self._kv_sentinel)
         for _, counters in getattr(self, "_graph_scratch", {}).values():
@@ -559,6 +618,117 @@ class GenerationEngine:
         else:
             self._drain_incoming(err)
 
+    def warmup(self, seq_buckets: Optional[Sequence[int]] = None, json: bool = False) -> None:
+        """Do before :meth:`start` what the first requests would otherwise
+        do (the JAX ``warmup``'s compiles): on the card build every kernel
+        library; run a prefill, its page insert and the activation's sampler
+        at every (batch bucket, prefill bucket up to ``chunk_size``), the
+        suffix prefill of the prefix path and the page copy at each, and a
+        chunk when prompts can chunk (every write lands on the sentinel
+        slot and pages, so nothing is written); with ``json``, build the
+        token FSM, its tables and the JSON tick's graph.  The tick and
+        piggyback graphs were captured at construction.  After it, a request
+        builds no library and captures no graph (``graph_captures``)."""
+        if self._running:
+            raise RuntimeError("warmup() must run before start(): the engine thread owns the "
+                               "device state once running")
+        if self.device.type == "cuda":
+            kernels.build()
+        buckets = {b for b in (seq_buckets if seq_buckets is not None else self.prefill_buckets)
+                   if b <= self.chunk_size}
+        buckets.add(self.chunk_size)  # pick_bucket's fallback when no bucket fits
+        if json:
+            self._ensure_fsm()
+        dev, sentinel = self.device, self._kv_sentinel
+        with torch.no_grad():
+            for bucket in sorted(buckets):
+                for bp in self._batch_buckets():
+                    ids = torch.zeros((bp, bucket), dtype=torch.int32, device=dev)
+                    lengths = torch.ones((bp,), dtype=torch.int32, device=dev)
+                    slots = torch.full((bp,), self.max_slots, dtype=torch.int32, device=dev)
+                    bt = torch.full((bp, self._kv_blocks), sentinel, dtype=torch.int32, device=dev)
+                    logits, ks, vs = llama.prefill(self.params, self.cfg, ids, lengths)
+                    llama.insert_sequences_paged(self._cache, ks, vs, lengths, slots, bt)
+                    ones = torch.ones((bp,), dtype=torch.float32, device=dev)
+                    sample_logits(logits, temperature=ones, top_k=TOP_K, top_p=ones,
+                                  gumbel=torch.zeros((bp, TOP_K), device=dev))
+                    if self.prefix_cache_size > 0:
+                        zeros = torch.zeros((bp,), dtype=torch.int64, device=dev)
+                        llama.prefill_suffix_paged(self.params, self.cfg, ids, self._cache, bt,
+                                                   slots.long(), zeros, zeros)
+            if self.prefix_cache_size > 0:
+                llama.copy_pages(self._cache, torch.zeros((1,), dtype=torch.int64, device=dev),
+                                 torch.full((1,), sentinel, dtype=torch.int64, device=dev))
+            if self.chunk_size < self.max_seq_len - 1:
+                self._chunk_body()  # the staged chunk buffers: sentinel pages, slot 0
+        for t in (self._cache.lengths, self._chunk_ids_dev, self._chunk_slot_dev,
+                  self._chunk_start_dev):
+            t.zero_()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def probe_decode(self, iters: int = 16, fill_len: Optional[int] = None) -> float:
+        """Seconds per decode step of the tick alone: ``iters`` ticks issued
+        back to back (the graph's replays on the card) after one warm tick,
+        one sync at the end, divided by ``iters * decode_steps``.  Runs
+        under the loop-iteration lock on an idle engine (waits up to 10 s
+        for in-flight work to drain), so a request submitted meanwhile waits
+        in the queue.  ``fill_len=None`` probes with every slot inactive;
+        otherwise every slot gets a distinct round-robin page chain (the
+        registry's shared pages avoided) and the cache length ``fill_len``,
+        and runs active.  The lengths, block tables and token buffers are
+        reset afterwards (the pages' contents past every valid length are
+        garbage, as decode already allows)."""
+        deadline = time.monotonic() + 10.0
+        while True:
+            self._iter_lock.acquire()
+            if self.num_active == 0 and not self._inflight and self._chunking is None:
+                break
+            self._iter_lock.release()
+            if time.monotonic() >= deadline:
+                raise RuntimeError("probe_decode requires an idle engine")
+            time.sleep(0.01)
+        try:
+            with torch.no_grad():
+                return self._probe_decode_locked(int(iters), fill_len)
+        finally:
+            self._iter_lock.release()
+
+    def _probe_decode_locked(self, iters: int, fill_len: Optional[int]) -> float:
+        dev = self.device
+        if fill_len is not None:
+            avoid = {p for _, ent in self._kv_pool.shared_entries() for p in ent.pages}
+            scratch = [p for p in range(self._kv_pool.n_pages) if p not in avoid]
+            for b in range(self.max_slots):
+                for j in range(self._kv_blocks):
+                    self._block_tables[b, j] = scratch[(b * self._kv_blocks + j) % len(scratch)]
+            self._bt_dirty = True
+            # rows stay active (unfrozen) through the warm tick and the probe
+            fill = max(0, min(int(fill_len),
+                              self.max_seq_len - (iters + 1) * self.decode_steps - 2))
+            self._cache.lengths.fill_(fill)
+            self._upload_dirty()
+            self._active_dev.fill_(True)
+        else:
+            self._upload_dirty()
+        try:
+            self._launch_tick()  # warm
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self._launch_tick()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return (time.perf_counter() - t0) / (iters * self.decode_steps)
+        finally:
+            for t in (self._cache.lengths, self._tokens_dev, self._toks_dev):
+                t.zero_()
+            self._block_tables[:] = self._kv_sentinel
+            self._bt_dirty = True
+            self._sampling_dirty = True
+            self._upload_dirty()
+
     def submit(
         self,
         prompt_ids: Sequence[int],
@@ -571,6 +741,7 @@ class GenerationEngine:
         priority: str = "interactive",
         tenant: str = "default",
         deadline_s: Optional[float] = None,
+        stream: Optional[TokenStream] = None,
         trace_id: Optional[str] = None,
     ) -> Future:
         """Thread-safe submission; returns a concurrent Future[GenerationResult].
@@ -584,15 +755,19 @@ class GenerationEngine:
         With a scheduler attached, submission may raise
         :class:`SchedulerRejected` synchronously (load shed: the request was
         never queued); an expired deadline fails the future with
-        :class:`DeadlineExceeded` and frees the request's slot.  ``trace_id``
-        is the request's correlation id (generated when absent)."""
+        :class:`DeadlineExceeded` and frees the request's slot.
+        ``json_format``: sample under the JSON grammar's token FSM (the
+        output is one JSON object or array, or a prefix of one when length
+        limited).  ``stream``: a :class:`~.streaming.TokenStream` fed each
+        token as it reaches the host (EOS is not pushed), and closed by the
+        future's done-callback on every resolution path.  ``trace_id`` is
+        the request's correlation id (generated when absent)."""
         trace_id = trace_id or new_trace_id()
         if self.degraded():
             remaining = max(0.1, (self._degraded_until or 0.0) - time.monotonic())
             raise EngineUnavailable(
                 "engine degraded after repeated restarts", retry_after_s=remaining
             )
-        _refuse("json_format", json_format, False, "Queue 1 item 10 (JSON-constrained decoding)")
         prompt_ids = list(prompt_ids)
         limit = self.max_seq_len - 1  # room for at least one generated token
         if len(prompt_ids) > limit:
@@ -622,6 +797,10 @@ class GenerationEngine:
             admitted = True
         now = time.monotonic()
         fut: Future = Future()
+        if stream is not None:
+            # attached before the put: a future resolved at once still
+            # closes the stream
+            fut.add_done_callback(stream.finish)
         if self.obs is not None:
             self.obs.on_admit(trace_id, priority, tenant, len(prompt_ids))
         self._queue.put(
@@ -639,6 +818,8 @@ class GenerationEngine:
                 admitted=admitted,
                 kv_pages=kv_pages,
                 trace_id=trace_id,
+                json=bool(json_format),
+                stream=stream,
             )
         )
         # a stop() racing the put above would strand the request: re-check
@@ -672,6 +853,57 @@ class GenerationEngine:
         )
         return await asyncio.wrap_future(fut)
 
+    async def generate_stream(
+        self,
+        prompt,
+        *,
+        max_tokens: int = 1024,
+        temperature: float = 0.8,
+        top_p: float = 0.95,
+        json_format: bool = False,
+        priority: str = "interactive",
+        tenant: str = "default",
+        deadline_s: Optional[float] = None,
+        trace_id: Optional[str] = None,
+    ):
+        """Async iterator of :class:`~.streaming.StreamChunk`: UTF-8-safe
+        text deltas as the tokens reach the host, then one terminal chunk
+        with the finish reason and the :class:`GenerationResult`.  The
+        deltas concatenate to the non-streaming ``generate()`` text of the
+        same request, byte for byte.  Abandoning the iterator cancels the
+        request; the loop's reap frees its slot within one tick."""
+        if isinstance(prompt, str):
+            ids, plen = self.tokenizer.encode(prompt), 0
+        else:
+            ids, plen = encode_chat_split(self.tokenizer, prompt)
+        stream = TokenStream().bind(asyncio.get_running_loop(), capacity=int(max_tokens) + 2)
+        fut = self.submit(
+            ids, max_tokens=max_tokens, temperature=temperature, top_p=top_p,
+            json_format=json_format, prefix_len=plen, priority=priority, tenant=tenant,
+            deadline_s=deadline_s, stream=stream, trace_id=trace_id,
+        )
+        detok = IncrementalDetokenizer(self.tokenizer)
+        idx = 0
+        try:
+            async for kind, payload in stream:
+                if kind == "token":
+                    yield StreamChunk(index=idx, token_id=payload, text=detok.push(payload))
+                    idx += 1
+                    continue
+                if isinstance(payload, BaseException):
+                    raise payload
+                result: GenerationResult = payload
+                yield StreamChunk(
+                    index=idx, token_id=None, text=detok.flush(), done=True,
+                    finish_reason="length" if result.length_limited else "stop", result=result,
+                )
+                return
+        finally:
+            # the consumer is gone (disconnect, break, error): cancel, so the
+            # reap frees the slot within one tick
+            if not fut.done():
+                fut.cancel()
+
     @property
     def num_active(self) -> int:
         return sum(s is not None for s in self._slots)
@@ -699,6 +931,7 @@ class GenerationEngine:
             **self.decode_path_stats(),
             "kv": self.kv_stats(),
             "supervision": self.supervision_stats(),
+            "stream": self.latency_stats(),
         }
         if self.scheduler is not None:
             out["sched"] = self.scheduler.stats()
@@ -713,6 +946,31 @@ class GenerationEngine:
             **self._kv_pool.stats(),
             "prefix_hits": self.prefix_hits,
             "prefix_misses": self.prefix_misses,
+        }
+
+    @staticmethod
+    def _pctl_ms(samples, frac: float) -> float:
+        vals = sorted(samples)
+        if not vals:
+            return 0.0
+        idx = min(len(vals) - 1, max(0, round(frac * (len(vals) - 1))))
+        return round(vals[idx] * 1e3, 3)
+
+    def latency_stats(self) -> Dict[str, Any]:
+        """The streaming plane's latency gauges (the JAX ``latency_stats``):
+        TTFT (submit to the first token on the host) and inter-token gaps
+        (host arrivals across ticks: a fused tick delivers its tokens at
+        once) as p50 / p95 in ms with their sample counts, and the slots
+        reclaimed because their client cancelled."""
+        ttft, itl = list(self._ttft_s), list(self._itl_s)
+        return {
+            "ttft_p50_ms": self._pctl_ms(ttft, 0.50),
+            "ttft_p95_ms": self._pctl_ms(ttft, 0.95),
+            "ttft_n": len(ttft),
+            "itl_p50_ms": self._pctl_ms(itl, 0.50),
+            "itl_p95_ms": self._pctl_ms(itl, 0.95),
+            "itl_n": len(itl),
+            "cancelled_slots": self.cancelled_slots,
         }
 
     def degraded(self) -> bool:
@@ -755,10 +1013,12 @@ class GenerationEngine:
         ``decode_steps_effective`` key; the port never lowers it), the
         weight format's width in bits (16, 8 or 4), the CUDA graphs, and the
         piggybacked-prefill gauges (chunks that rode a tick,
-        and the fraction of ticks that waited on a chunk of their own)."""
+        and the fraction of ticks that waited on a chunk of their own), and
+        the single-step JSON ticks issued in place of fused ones."""
         return {
             "decode_steps": self.decode_steps,
-            "decode_steps_effective": self.decode_steps,
+            "decode_steps_effective": 1 if self._json.any() else self.decode_steps,
+            "json_downgraded_ticks": self._json_downgraded_ticks,
             "weight_bits": self.weight_bits,
             "cuda_graph": self._graph is not None,
             "prefill_piggyback": self.prefill_piggyback,
@@ -794,10 +1054,12 @@ class GenerationEngine:
                 if (
                     self.prefill_piggyback
                     and self.num_active > 0
+                    and not self._json.any()
                     and self._chunking.step < len(self._chunking.starts) - 1
                 ):
                     # the final chunk never piggybacks: its logits feed the
-                    # activation, as in the JAX engine
+                    # activation, as in the JAX engine; nor does a chunk
+                    # while a JSON slot is live (its ticks are single-step)
                     self._piggyback_step()
                     ticked = True
                 else:
@@ -873,6 +1135,7 @@ class GenerationEngine:
                 self._slots[i] = None
                 self._slot_epoch[i] += 1
             self._free_slot_pages(i)
+        self._json[:] = False
         self._sampling_dirty = True
         if self._chunking is not None:
             _safe_resolve(self._chunking.request.future, exc=err)
@@ -908,6 +1171,9 @@ class GenerationEngine:
             return False
         if running is not None:
             self.reclaimed_slots += 1
+            if not expired:
+                # a client that cancelled (a stream abandoned mid-generation)
+                self.cancelled_slots += 1
         if expired:
             msg = (f"deadline expired after {now - req.submitted_at:.2f}s in queue"
                    if running is None else f"deadline expired {running}")
@@ -1309,11 +1575,23 @@ class GenerationEngine:
         device, and make the wave's slots live."""
         temps = np.asarray([1.0] * pad + [r.temperature for r in reqs], np.float32)
         top_ps = np.asarray([1.0] * pad + [r.top_p for r in reqs], np.float32)
-        first = sample_logits(
-            logits, temperature=self._tensor(temps), top_k=TOP_K,
-            top_p=self._tensor(top_ps), generator=self._generator,
-        )
         idx = self._tensor(np.asarray(slots, np.int64))
+        kw = dict(temperature=self._tensor(temps), top_k=TOP_K, top_p=self._tensor(top_ps),
+                  generator=self._generator)
+        self.activations += 1
+        if any(r.json for r in reqs):
+            # JSON rows start in the FSM's initial state: its mask on the
+            # first token, then the state advances (JAX _make_activate)
+            self._ensure_fsm()
+            jmask = np.asarray([False] * pad + [r.json for r in reqs])
+            states = np.full((len(jmask),), self._fsm.initial, np.int32)
+            first, advanced = sample_logits(
+                logits, allowed=self._fsm_allowed_dev, fsm_state=self._tensor(states),
+                jmask=self._tensor(jmask), next_state=self._fsm_next_dev, **kw,
+            )
+            self._fsm_states_dev.index_put_((idx,), advanced[pad:])
+        else:
+            first = sample_logits(logits, **kw)
         self._tokens_dev.index_put_((idx,), first[pad:])
         now = time.monotonic()
         ref_slots = []
@@ -1323,6 +1601,7 @@ class GenerationEngine:
             self._slots[slot] = _Slot(request=req)
             self._temps[slot] = req.temperature
             self._top_ps[slot] = req.top_p
+            self._json[slot] = req.json
             ref_slots.append((slot, self._slot_epoch[slot]))
         self._sampling_dirty = True
         self._inflight.append(_TickRef(nxt=_HostCopy(first), slots=ref_slots, first=True, offset=pad))
@@ -1334,6 +1613,7 @@ class GenerationEngine:
             self._upload(self._active_dev, np.asarray([s is not None for s in self._slots]))
             self._upload(self._temps_dev, self._temps)
             self._upload(self._top_ps_dev, self._top_ps)
+            self._upload(self._json_dev, self._json)
             self._sampling_dirty = False
         if self._bt_dirty:
             self._upload(self._bt_dev, self._block_tables)
@@ -1356,6 +1636,63 @@ class GenerationEngine:
             self._toks_dev[i].copy_(nxt)
             self._tokens_dev.copy_(nxt)
 
+    def _json_tick_body(self) -> None:
+        """The JSON tick: one decode step, its sampling under the JSON rows'
+        FSM masks, and the advance of their states; its ids go to
+        ``_toks_dev[0]``.  On the card this is what the JSON graph holds."""
+        logits, _ = llama.decode_step_paged(
+            self.params, self.cfg, self._tokens_dev, self._cache, self._bt_dev,
+            active=self._active_dev,
+        )
+        nxt, states = sample_logits(
+            logits, temperature=self._temps_dev, top_k=TOP_K, top_p=self._top_ps_dev,
+            gumbel=self._noise[0], allowed=self._fsm_allowed_dev,
+            fsm_state=self._fsm_states_dev, jmask=self._json_dev, next_state=self._fsm_next_dev,
+        )
+        self._fsm_states_dev.copy_(states)
+        self._toks_dev[0].copy_(nxt)
+        self._tokens_dev.copy_(nxt)
+
+    def _ensure_fsm(self) -> None:
+        """The JSON token FSM (:func:`token_fsm`) and its tables on the
+        device, padded to the model vocab (ids past the tokenizer are never
+        valid JSON), as the JAX ``_ensure_fsm`` builds them; on the card also
+        the JSON tick's graph.  Once per engine."""
+        if self._fsm is not None:
+            return
+        fsm = token_fsm(self.tokenizer)
+        V = self.cfg.vocab_size
+        S, V_tok = fsm.allowed.shape
+        n = min(V_tok, V)
+        allowed = np.zeros((S, V), bool)
+        allowed[:, :n] = fsm.allowed[:, :n]
+        nxt = np.full((S, V), fsm.dead, np.int32)
+        nxt[:, :n] = fsm.next_state[:, :n]
+        self._fsm_allowed_dev = torch.from_numpy(allowed).to(self.device)
+        self._fsm_next_dev = torch.from_numpy(nxt).to(self.device)
+        self._fsm = fsm
+        if self.device.type == "cuda":
+            self._capture_json_tick()
+
+    def _capture_json_tick(self) -> None:
+        """Capture :meth:`_json_tick_body` as a CUDA graph in the tick's
+        pool, on the tick's capture stream and with its private kernel
+        scratch.  The JSON body runs the tick's kernels at the tick's shapes,
+        which the tick's warm-up already ran on that stream, so it needs no
+        warm-up of its own and may be captured while slots are live (a
+        capture runs nothing)."""
+        dev = self.device
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), kernels.private_paged_scratch(self._graph_scratch):
+            graph = torch.cuda.CUDAGraph()
+            with kernels.record_graph_launches() as launches:
+                with torch.cuda.graph(graph, pool=self._graph.pool(), stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self._json_tick_body()
+        self._json_graph, self._json_launches = graph, launches
+        self.graph_captures += 1
+
     def _capture_tick(self) -> None:
         """Capture :meth:`_tick_body` as a CUDA graph, and, when prompts can
         chunk with piggybacking on, :meth:`_chunk_body` followed by it as a
@@ -1376,7 +1713,7 @@ class GenerationEngine:
         piggyback = self.prefill_piggyback and self.chunk_size < self.max_seq_len - 1
         # made on the engine's stream, not inside the warm-up
         llama._rope_tables(self.cfg, self._kv_blocks * self.kv_page_size, dev)
-        stream = torch.cuda.Stream(dev)
+        stream = self._capture_stream = torch.cuda.Stream(dev)
         # the paged kernel's scratch and counters of these graphs, and nobody else's
         self._graph_scratch: Dict[tuple, tuple] = {}
         with torch.no_grad(), kernels.private_paged_scratch(self._graph_scratch):
@@ -1394,6 +1731,7 @@ class GenerationEngine:
                 with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
                     self._tick_body()
             self._graph, self._graph_launches = graph, launches
+            self.graph_captures += 1
             if piggyback:
                 graph = torch.cuda.CUDAGraph()
                 with kernels.record_graph_launches() as launches:
@@ -1402,18 +1740,26 @@ class GenerationEngine:
                         self._chunk_body()
                         self._tick_body()
                 self._piggyback_graph, self._piggyback_launches = graph, launches
+                self.graph_captures += 1
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         for t in (self._tokens_dev, self._toks_dev, self._cache.lengths):
             t.zero_()
         torch.cuda.synchronize(dev)
 
-    def _launch_tick(self, piggyback: bool = False) -> None:
+    def _launch_tick(self, piggyback: bool = False, json: bool = False) -> None:
         """Draw each step's noise into its buffer (one generator call per
         step, in step order), then run the tick, after the staged chunk when
-        ``piggyback``: replay its graph on the card, the bodies on the CPU."""
-        for i in range(self.decode_steps):
+        ``piggyback``, or the single-step JSON tick when ``json``: replay
+        its graph on the card, the bodies on the CPU."""
+        for i in range(1 if json else self.decode_steps):
             gumbel_noise(self._noise[i], self._generator)
-        if self._graph is None:
+        if json:
+            if self._json_graph is None:
+                self._json_tick_body()
+            else:
+                self._json_graph.replay()
+                self._json_launches.replayed()
+        elif self._graph is None:
             if piggyback:
                 self._chunk_body()
             self._tick_body()
@@ -1436,11 +1782,17 @@ class GenerationEngine:
             if delay:
                 time.sleep(delay)
         self._upload_dirty()
-        self._launch_tick(piggyback)
-        self.steps += self.decode_steps
+        # while a JSON slot is live the whole batch takes single-step JSON
+        # ticks (the JAX rule); a piggyback never coincides with one
+        json = bool(self._json.any())
+        if json and self.decode_steps > 1:
+            self._json_downgraded_ticks += 1
+        self._launch_tick(piggyback, json=json)
+        self.steps += 1 if json else self.decode_steps
         self._ticks_issued += 1
         live = [(i, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
-        self._inflight.append(_TickRef(nxt=_HostCopy(self._toks_dev), slots=live))
+        toks = self._toks_dev[:1] if json else self._toks_dev
+        self._inflight.append(_TickRef(nxt=_HostCopy(toks), slots=live))
         self._tick_issue_s += time.perf_counter() - t0
 
     def _process_tick(self):
@@ -1470,6 +1822,7 @@ class GenerationEngine:
                     continue  # reaped before its first token arrived
                 s.resident_steps += 1
                 self._consume_token(slot, s, int(vals[ref.offset + j]), now)
+            self._notify_streams()
             return
         for slot, epoch in ref.slots:
             s = self._slots[slot]
@@ -1481,6 +1834,13 @@ class GenerationEngine:
                 if s is None or self._slot_epoch[slot] != epoch:
                     continue  # finished by an earlier token; dropped
                 self._consume_token(slot, s, int(vals[k, slot]), now)
+        self._notify_streams()
+
+    def _notify_streams(self) -> None:
+        """One wakeup per stream that got tokens in this tick's processing."""
+        for st in self._stream_notify:
+            st.notify_now()
+        self._stream_notify.clear()
 
     def _consume_token(self, slot: int, s: _Slot, tok: int, now: float) -> None:
         if not 0 <= tok < self.cfg.vocab_size:
@@ -1491,22 +1851,30 @@ class GenerationEngine:
             ))
             return
         s.generated.append(tok)
-        self._note_token(s, now)
+        self._note_token(s, tok, now)
         if self._should_finish(s, tok):
             self._finish(slot)
 
-    def _note_token(self, s: _Slot, now: float) -> None:
+    def _note_token(self, s: _Slot, tok: int, now: float) -> None:
         """TTFT and inter-token samples where a token reaches the host (the
-        tokens of one tick share ``now``: gaps are sampled across ticks)."""
+        tokens of one tick share ``now``: gaps are sampled across ticks),
+        and the token pushed to the request's stream (a deque append; the id
+        is already on the host, so streaming adds no device sync).  EOS is
+        not pushed: ``_finish`` drops it from the text too."""
         req = s.request
         if req.first_token_at is None:
             req.first_token_at = now
             self._ttft_s.append(now - req.submitted_at)
             if self.obs is not None:
                 self.obs.on_first_token(now - req.submitted_at)
-        elif self.obs is not None and s.last_token_at is not None and now > s.last_token_at:
-            self.obs.on_token_gap(now - s.last_token_at)
+        elif s.last_token_at is not None and now > s.last_token_at:
+            self._itl_s.append(now - s.last_token_at)
+            if self.obs is not None:
+                self.obs.on_token_gap(now - s.last_token_at)
         s.last_token_at = now
+        if req.stream is not None and tok != self.tokenizer.eos_id:
+            if req.stream.push_token(tok, notify=False):
+                self._stream_notify.add(req.stream)
 
     def _should_finish(self, s: _Slot, tok: int) -> bool:
         if tok == self.tokenizer.eos_id:
@@ -1519,6 +1887,7 @@ class GenerationEngine:
     def _release(self, slot: int) -> None:
         self._slots[slot] = None
         self._slot_epoch[slot] += 1  # invalidate this slot's in-flight ticks
+        self._json[slot] = False
         self._sampling_dirty = True
         self._free_slot_pages(slot)
 
@@ -1619,6 +1988,7 @@ class GenerationEngine:
                     salvage.append(s.request)
             self._slots[i] = None
             self._slot_epoch[i] += 1
+        self._json[:] = False
         # a failure inside an activation can leave a request both slotted
         # and in _starting_batch: salvage each request once
         seen: set = set()
@@ -1742,9 +2112,17 @@ class EmbeddingEngine:
             _safe_resolve(fut, exc=err)
 
     def warmup(self, seq_buckets: Optional[Sequence[int]] = None) -> None:
-        raise NotImplementedError(
-            "EmbeddingEngine.warmup waits for ROADMAP Queue 1 item 5 (warmup)"
-        )
+        """Run the encoder once at every (batch bucket, sequence bucket)
+        shape (the JAX ``warmup``'s compiles), so no first-use cost (a
+        cuBLAS plan, a kernel build) lands on a live batch."""
+        with torch.no_grad():
+            for bucket in seq_buckets if seq_buckets is not None else self.seq_buckets:
+                for b in self._batch_buckets():
+                    ids = torch.zeros((b, bucket), dtype=torch.int32, device=self.device)
+                    mask = torch.ones((b, bucket), dtype=torch.int32, device=self.device)
+                    encoder.encode(self.params, self.cfg, ids, mask, normalize=self.normalize)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def embed_sync(self, texts: Sequence[str]) -> List[List[float]]:
         """Blocking batched embed (the engine thread's path)."""

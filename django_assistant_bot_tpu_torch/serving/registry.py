@@ -8,7 +8,8 @@ sharing, the observability plane and crash-only supervision included).  An
 encoder spec that sets a decoder-only knob is refused, as the JAX registry
 refuses it.  ``quantize`` ("int8" / "int4", with ``quant_group_size``)
 quantizes a decoder's layer projections on the host before placement, as
-the JAX registry does.  Keys of the JAX ``ModelSpec`` that are not ported yet are
+the JAX registry does; ``warmup`` / ``warmup_json`` run the engine's
+``warmup`` before it starts.  Keys of the JAX ``ModelSpec`` that are not ported yet are
 accepted only at the value the port implements and refused otherwise,
 naming their ROADMAP item; keys the JAX spec does not know are refused too.
 """
@@ -26,10 +27,8 @@ logger = logging.getLogger(__name__)
 # JAX ModelSpec keys not ported yet: key -> (the only accepted value, ROADMAP item)
 _DEFERRED: Dict[str, tuple] = {
     "checkpoint": (None, "Queue 1 item 4 (native checkpoints)"),
-    "warmup": (False, "Queue 1 item 5 (warmup)"),
     "kv_layout": ("paged", "Queue 1 item 8 (legacy contiguous KV)"),
     "speculative": (0, "Queue 1 item 9 (speculative decoding)"),
-    "warmup_json": (False, "Queue 1 item 10 (JSON-constrained decoding)"),
     "num_experts": (0, "Queue 1 item 11 (MoE)"),
     "kv_host_bytes": (0, "Queue 1 item 12 (tiered KV)"),
     "kv_spill_dir": (None, "Queue 1 item 12 (tiered KV)"),
@@ -191,6 +190,10 @@ class ModelSpec:
     max_batch: int = 64
     normalize: bool = False
     max_queue: int = 1024
+    # run the engine's warmup() before start (a decoder's with json=True
+    # when warmup_json, which implies it)
+    warmup: bool = False
+    warmup_json: bool = False
 
     @classmethod
     def from_dict(cls, name: str, d: Mapping[str, Any]) -> "ModelSpec":
@@ -358,6 +361,8 @@ class ModelRegistry:
             engine = GenerationEngine(
                 cfg, params, load_tokenizer(spec.path), device=device, **spec.engine_kwargs()
             )
+        if (spec.warmup or spec.warmup_json) and not engine._running:
+            engine.warmup(json=spec.warmup_json)
         engine.start()
         self.generators[name] = engine
         self.specs[name] = spec
@@ -385,6 +390,8 @@ class ModelRegistry:
                 cfg, params, load_tokenizer(spec.path), max_batch=spec.max_batch,
                 normalize=spec.normalize, max_queue=spec.max_queue, device=device,
             )
+        if spec.warmup and not engine._running:
+            engine.warmup()
         engine.start()
         self.embedders[name] = engine
         self.specs[name] = spec

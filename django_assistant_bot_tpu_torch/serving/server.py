@@ -6,8 +6,16 @@
   supported" for an unknown model, 429 with ``Retry-After`` when the
   embedding queue sheds, 500 with detail on failure.
 - ``POST /dialog/`` (and ``/dialog``) ``{model, messages, max_tokens,
-  temperature, top_p, priority, tenant, deadline_s}`` -> ``{"response":
-  {"result", "usage", "length_limited"}, "request_id"}``; 422 on a bad body,
+  temperature, top_p, json_format, stream, priority, tenant, deadline_s}``
+  -> ``{"response": {"result", "usage", "length_limited"}, "request_id"}``;
+  ``json_format`` constrains the result to one JSON object or array;
+  ``"stream": true`` answers ``text/event-stream`` instead (the JAX wire
+  format): a ``data:`` event per text delta ``{"delta", "index"}``, a
+  terminal ``{"done": true, "finish_reason", "result", "usage",
+  "length_limited", "request_id"}``, then ``data: [DONE]``; a failure after
+  the first token is an event with ``"finish_reason": "error"``, one before
+  it maps to its status as without streaming.  ``stream`` with
+  ``json_format`` is refused with a 422.  422 on a bad body,
   400 "Model is not supported" for an unknown model, 429 with
   ``Retry-After`` when the scheduler sheds the request, 504 when its
   deadline expires, 503 with ``Retry-After`` while the engine's restart
@@ -22,13 +30,13 @@
   cancelled drops.  ``GET /models``.
 - ``GET /metrics``: Prometheus text exposition (:func:`.obs.render_prometheus`).
 
-Request fields of features not ported yet (``stream``, ``json_format``) are
-refused with a 422 naming their ROADMAP item instead of being ignored.
 The fleet endpoints come with a later slice (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import asyncio
+import json
 import logging
 import math
 import re
@@ -51,12 +59,6 @@ MAX_MAX_TOKENS = 1 << 17  # sanity ceiling; engines clamp to max_seq_len anyway
 _REQ_ID_RE = re.compile(r"^[A-Za-z0-9._:-]{1,64}$")
 
 PRIORITIES = ("interactive", "background")
-
-# body fields of unported features -> (the value that means "off", ROADMAP item)
-_UNPORTED_FIELDS = {
-    "stream": (False, "Queue 1 item 6 (SSE streaming)"),
-    "json_format": (False, "Queue 1 item 10 (JSON-constrained decoding)"),
-}
 
 
 class _BadRequest(ValueError):
@@ -143,11 +145,85 @@ def _unavailable_response(e: EngineUnavailable, rid: str) -> web.Response:
     )
 
 
-def _refuse_unported(body: Mapping[str, Any]) -> None:
-    for field, (off, item) in _UNPORTED_FIELDS.items():
-        value = body.get(field, off)
-        if value != off:
-            raise _BadRequest(f"{field}={value!r} is not supported by this server yet (ROADMAP {item})")
+def _sse(payload) -> bytes:
+    data = payload if isinstance(payload, str) else json.dumps(payload)
+    return f"data: {data}\n\n".encode("utf-8")
+
+
+async def _stream_dialog(request: web.Request, eng, model: str, messages, rid: str,
+                         **gen_kwargs) -> web.StreamResponse:
+    """``"stream": true`` -> ``text/event-stream``.  The first chunk is
+    awaited before the response is prepared, so a shed, an open circuit, an
+    expired deadline or a failure before the first token maps to its status
+    as without streaming; later failures become an ``error`` event.  A
+    client that disconnects abandons the generator, whose cleanup cancels
+    the request: the loop's reap frees its slot within one tick."""
+    agen = eng.generate_stream(messages, trace_id=rid, **gen_kwargs)
+    try:
+        first = await agen.__anext__()
+    except StopAsyncIteration:
+        first = None
+    except SchedulerRejected as e:
+        return _shed_response(e, rid)
+    except EngineUnavailable as e:
+        return _unavailable_response(e, rid)
+    except DeadlineExceeded as e:
+        return _error_response(str(e), 504, rid)
+    except Exception as e:
+        logger.exception("stream dialog failed before its first token")
+        return _error_response(str(e), 500, rid)
+
+    resp = web.StreamResponse(status=200, headers={
+        "Content-Type": "text/event-stream", "Cache-Control": "no-cache",
+        "X-Accel-Buffering": "no", "X-Request-Id": rid,
+    })
+    await resp.prepare(request)
+    try:
+        chunk = first
+        while chunk is not None:
+            if request.transport is None or request.transport.is_closing():
+                # gone while its tokens decode to no text yet (nothing was
+                # written that could have failed): stop here all the same
+                raise ConnectionResetError("stream client disconnected")
+            if chunk.done:
+                if chunk.text:  # the held-back tail rides its own event
+                    await resp.write(_sse({"delta": chunk.text, "index": chunk.index}))
+                r = chunk.result
+                await resp.write(_sse({
+                    "done": True, "finish_reason": chunk.finish_reason, "result": r.text,
+                    "usage": r.usage_dict(model), "length_limited": r.length_limited,
+                    "request_id": rid,
+                }))
+                break
+            if chunk.text:
+                await resp.write(_sse({"delta": chunk.text, "index": chunk.index}))
+            try:
+                chunk = await agen.__anext__()
+            except StopAsyncIteration:
+                break
+        await resp.write(_sse("[DONE]"))
+        await resp.write_eof()
+    except asyncio.CancelledError:
+        # the handler was cancelled (the client went away): the finally's
+        # aclose() cancels the request
+        logger.info("stream client disconnected mid-generation")
+        raise
+    except ConnectionError:
+        # a write found the connection closed: the same, without a traceback
+        logger.info("stream client disconnected mid-generation")
+    except Exception as e:
+        # the response is committed to 200: the failure becomes an event
+        logger.exception("stream dialog failed mid-stream")
+        try:
+            await resp.write(_sse({"done": True, "finish_reason": "error", "error": str(e),
+                                   "request_id": rid}))
+            await resp.write(_sse("[DONE]"))
+            await resp.write_eof()
+        except ConnectionError:
+            pass
+    finally:
+        await agen.aclose()
+    return resp
 
 
 def create_app(registry: ModelRegistry) -> web.Application:
@@ -187,7 +263,15 @@ def create_app(registry: ModelRegistry) -> web.Application:
             messages = body["messages"]
             if not isinstance(messages, list):
                 raise ValueError("messages must be a list")
-            _refuse_unported(body)
+            json_format = bool(body.get("json_format", False))
+            stream = body.get("stream", False)
+            if not isinstance(stream, bool):
+                raise _BadRequest("stream must be a boolean")
+            if stream and json_format:
+                # partial JSON is not independently consumable (the JAX choice)
+                raise _BadRequest(
+                    "stream is not supported with json_format; request one or the other"
+                )
             temperature, top_p, max_tokens = _validate_sampling(body)
             priority, tenant, deadline_s = _scheduling_fields(request, body)
         except _BadRequest as e:
@@ -197,10 +281,17 @@ def create_app(registry: ModelRegistry) -> web.Application:
         eng = registry.get_generator(model)
         if eng is None:
             return _error_response("Model is not supported", 400, rid)
+        if stream:
+            return await _stream_dialog(
+                request, eng, model, messages, rid, max_tokens=max_tokens,
+                temperature=temperature, top_p=top_p, priority=priority, tenant=tenant,
+                deadline_s=deadline_s,
+            )
         try:
             result = await eng.generate(
                 messages, max_tokens=max_tokens, temperature=temperature, top_p=top_p,
-                priority=priority, tenant=tenant, deadline_s=deadline_s, trace_id=rid,
+                json_format=json_format, priority=priority, tenant=tenant,
+                deadline_s=deadline_s, trace_id=rid,
             )
         except SchedulerRejected as e:
             return _shed_response(e, rid)
@@ -279,8 +370,6 @@ def create_app(registry: ModelRegistry) -> web.Application:
 
 def load_config_file(path: str) -> Mapping[str, Any]:
     """TOML or JSON model config: ``[models.<name>] kind=... path=...``."""
-    import json
-
     if path.endswith(".toml"):
         import tomllib
 

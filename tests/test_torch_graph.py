@@ -183,7 +183,7 @@ def test_replays_count_their_launches(dtype, route):
     eng = _engine(dtype)
     for rec in (eng._graph_launches, eng._piggyback_launches):
         assert rec.launches == {"flash_prefill": 0, "paged_decode": K * eng.cfg.num_layers,
-                                "knn_topk": 0, "qgemm": 0}
+                                "knn_topk": 0, "qgemm": 0, "sample": K}
         assert rec.sub["paged_decode"][route] == K * eng.cfg.num_layers
     _mid_decode(eng, torch.Generator(device="cuda").manual_seed(4))
     kernels.reset_counts()
@@ -191,7 +191,8 @@ def test_replays_count_their_launches(dtype, route):
         eng._launch_tick(piggyback)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"flash_prefill": 0, "knn_topk": 0, "qgemm": 0,
-                                       "paged_decode": 3 * K * eng.cfg.num_layers}
+                                       "paged_decode": 3 * K * eng.cfg.num_layers,
+                                       "sample": 3 * K}
     assert kernels.PAGED_ROUTES[route] == 3 * K * eng.cfg.num_layers
     (part, counters), = eng._graph_scratch.values()
     assert int(counters.abs().sum()) == 0  # each call leaves its counters at zero

@@ -15,7 +15,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert "django_assistant_bot_tpu_torch.serving.scheduler" in names
-for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check", "ops.quant"):
+for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check", "ops.quant",
+            "ops.json_fsm", "ops.sampling", "serving.streaming"):
     assert "django_assistant_bot_tpu_torch." + new in names, new
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))
@@ -26,7 +27,8 @@ assert not bad, bad
 
 def test_port_import_graph_has_no_jax():
     """Importing the package and every submodule (the engine and its copy of
-    the scheduler, the encoder and the KNN index among them) leaves ``jax`` and the JAX package out of
+    the scheduler, the encoder, the KNN index, the JSON FSM and the
+    streaming plane among them) leaves ``jax`` and the JAX package out of
     ``sys.modules`` (a fresh interpreter: this test process has imported
     both)."""
     out = subprocess.run(
@@ -97,6 +99,19 @@ def test_embedding_entry_points_default_to_cuda():
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_every_kernel_has_its_launch_function():
+    """Each kernel ``kernels.py`` builds has the launch function of its name
+    (the one that counts its launches), and the sampler's launch plan is
+    one block a row below the hierarchical vocab."""
+    from django_assistant_bot_tpu_torch import kernels
+
+    for name in kernels.KERNELS:
+        assert callable(getattr(kernels, name, None)), name
+    assert kernels.sample_splits(8, 512) == 1
+    assert kernels.sample_splits(8, 128256) == 33
+    assert kernels.sample_splits(1, 128256) == 125
 
 
 def test_kernel_bindings_match_c_entry_points():

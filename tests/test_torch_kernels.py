@@ -34,6 +34,12 @@ from django_assistant_bot_tpu_torch.ops.quant import (
     tied_head,
     tied_head_bf16_bound,
 )
+from django_assistant_bot_tpu_torch.ops.sampling import (
+    gumbel_noise,
+    sample_logits,
+    sample_logits_plain,
+    top_p_margin,
+)
 from django_assistant_bot_tpu_torch.storage import VectorIndex, topk_scores
 from django_assistant_bot_tpu_torch.storage.knn_check import topk_agreement
 
@@ -484,7 +490,7 @@ def test_qgemm_kernel_repeats_bitwise_and_counts_its_format(fmt, g, M, K, N, rou
     assert kernels.launch_counts()["qgemm"] == 1
     assert kernels.QGEMM_FORMATS == {"int8": int(fmt == "int8"), "int4": int(fmt == "int4")}
     assert kernels.QGEMM_ROUTES == {r: int(r == route) for r in ("stream", "mma", "wgmma",
-                                                                 "cuda_core")}
+                                                                 "cuda_core", "generic")}
 
 
 # Llama-3-8B's grouped decode projections (QKV; gate/up), the tiny test
@@ -569,20 +575,32 @@ def test_tied_head_kernel_matches_plain(M, V, E):
 
 
 def test_qgemm_kernel_refuses_what_it_does_not_take():
+    """What no route takes raises on the card (f16 activations, mismatched
+    dtypes, a pattern outside x[..., in] . w[in, out]); an int4 group of 24
+    and a 60-wide slice, which the tensor-core kernels do not take, run on
+    the generic route within the plain twin's tolerance."""
     gen = torch.Generator().manual_seed(1)
     w24 = QTensor4(torch.randint(0, 256, (24, 64), generator=gen, dtype=torch.uint8).cuda(),
                    torch.rand((2, 64), generator=gen).cuda())  # K 48, group 24
     x = torch.randn((2, 48), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="group size 24"):
-        qeinsum("me,eo->mo", x, w24, torch.bfloat16)
+    kernels.reset_counts()
+    out = qeinsum("me,eo->mo", x, w24, torch.bfloat16)
+    ref = qeinsum_plain("me,eo->mo", x.float(), w24, torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.QGEMM_ROUTES["generic"] == 1
+    assert bool(((out.float() - ref).abs() <= qgemm_bf16_bound(x.float(), w24, ref)).all())
     w = _qweight(64, 64, "int8", 0, 2)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         qeinsum("me,eo->mo", torch.randn((2, 64), device="cuda").half(), w, torch.float16)
     with pytest.raises(ValueError, match="activations are"):
         qeinsum("me,eo->mo", torch.randn((2, 64), device="cuda"), w, torch.bfloat16)
     narrow = QTensor(w.q[:, :60], w.scale[:, :60])
-    with pytest.raises(ValueError, match="multiple"):
-        qeinsum("me,eo->mo", torch.randn((2, 64), device="cuda"), narrow, torch.float32)
+    xf = torch.randn((2, 64), device="cuda")
+    out = qeinsum("me,eo->mo", xf, narrow, torch.float32)
+    ref = qeinsum_plain("me,eo->mo", xf, narrow, torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.QGEMM_ROUTES["generic"] == 2 and out.shape == (2, 60)
+    assert (out - ref).abs().max().item() <= F32_TOL
     # a pattern outside x[..., in] . w[in, out] raises on the card (the CPU
     # dequantizes, as JAX does): no plain product runs on a CUDA tensor
     for pattern in ("bse,oe->bso", "...e,ve->...v"):
@@ -591,3 +609,106 @@ def test_qgemm_kernel_refuses_what_it_does_not_take():
     w4 = _qweight(64, 64, "int4", 16, 2)
     with pytest.raises(ValueError, match="only"):
         qeinsum("bse,oe->bso", torch.randn((1, 2, 64), device="cuda"), w4, torch.float32)
+
+
+# the shapes the tensor-core routes do not take (ROADMAP Queue 3 entry 7):
+# (M, K, N, fmt, group)
+GENERIC_SHAPES = [(M, K, N, fmt, g) for M in (8, 512) for K, N, fmt, g in (
+    (4096, 4096, "int4", 8), (4096, 4096, "int4", 4), (48, 40, "int4", 24), (40, 44, "int8", 0),
+    (256, 512, "int4", 2))]
+
+
+@pytest.mark.parametrize("M,K,N,fmt,g", GENERIC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qgemm_generic_route_matches_plain(M, K, N, fmt, g, dtype):
+    """The generic route (``qgemm_cc_kernel``) at int4 groups of 2 / 4 / 8
+    / 24 and widths off 16 and 8: within the plain twin's tolerance
+    (``qgemm_bf16_bound`` in bf16, summation order in f32), one launch
+    counted on ``"generic"``, bitwise on a repeat."""
+    kernels.reset_counts()
+    x, w, out = _check_qgemm(M, K, N, fmt, g, dtype, seed=4)
+    assert kernels.QGEMM_ROUTES["generic"] == 1 == kernels.launch_counts()["qgemm"]
+    assert torch.equal(out, qeinsum("me,eo->mo", x, w, dtype))
+
+
+@pytest.mark.parametrize("V,E", [(1000, 40), (1001, 64)])
+def test_tied_head_generic_route_matches_plain(V, E):
+    """A tied int8 table whose E is off 16 (or, in bf16, V off 8) takes the
+    generic route's K-contiguous form, within the int8 bound (bf16) or 1e-4
+    of |xs| . |q|^T (f32)."""
+    gen = torch.Generator().manual_seed(V)
+    w = QTensor(torch.randint(-127, 128, (V, E), generator=gen, dtype=torch.int8).cuda(),
+                (torch.exp(torch.rand((1, E), generator=gen) * 4.6) * 1e-3).cuda())
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in (8, 512):
+            x = torch.randn((M, E), generator=gen).to(dtype).cuda()
+            kernels.reset_counts()
+            out = tied_head(x, w, dtype)
+            torch.cuda.synchronize()
+            route = kernels.qgemm_tied_route(dtype, V, E)  # f32 at E 64: the tied f32 kernel
+            assert route == ("cuda_core" if dtype == torch.float32 and E % 16 == 0 else "generic")
+            assert kernels.QGEMM_ROUTES[route] == 1 == kernels.launch_counts()["qgemm"]
+            xs = (x * w.scale.squeeze(-2).to(dtype)).float()
+            ref = xs @ w.q.float().T
+            err = (out.float() - ref).abs()
+            if dtype == torch.bfloat16:
+                bound = tied_head_bf16_bound(xs, w, ref)
+            else:
+                bound = F32_TOL * (xs.abs() @ w.q.float().abs().T) + 1e-6
+            assert bool((err <= bound).all()), (err / bound).max().item()
+
+
+# ------------------------------------------------------------------ sampler
+def _sample_case(V, dtype, json_rows, ties, seed):
+    gen = torch.Generator().manual_seed(seed)
+    B, S = 8, 6
+    logits = torch.randn((B, V), generator=gen) * 3
+    if ties:
+        logits = logits.round()
+        logits[:, 1000 % V: 1000 % V + 300] = 9.0
+    logits = logits.to(dtype)
+    temps = torch.tensor([0.0, 0.7, 0.0, 1.0, 1.3, 0.0, 0.8, 0.5])
+    top_ps = torch.tensor([0.9, 0.5, 0.95, 1.0, 1.0, 0.95, 0.9, 0.5])
+    noise = gumbel_noise(torch.empty((B, 50)), gen)
+    kw = dict(temperature=temps, top_k=50, top_p=top_ps, gumbel=noise)
+    if json_rows:
+        allowed = torch.rand((S, V), generator=gen) < 0.3
+        allowed[1] = False
+        allowed[1, :7] = True
+        kw.update(allowed=allowed, next_state=torch.randint(0, S, (S, V), generator=gen,
+                                                            dtype=torch.int32),
+                  fsm_state=torch.tensor([0, 1, 2, 3, 0, 4, 5, 1], dtype=torch.int32),
+                  jmask=torch.tensor([1, 1, 1, 0, 1, 1, 0, 1], dtype=torch.bool))
+    return logits, kw
+
+
+@pytest.mark.parametrize("V", [512, 128256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("json_rows", [False, True])
+@pytest.mark.parametrize("ties", [False, True])
+def test_sample_kernel_matches_plain(V, dtype, json_rows, ties):
+    """The fused sampler against its plain twin on the card: equal ids (and
+    advanced FSM states), except a sampled row whose top-p boundary margin
+    is under 1e-6 (none in these cases); one launch a call."""
+    logits, kw = _sample_case(V, dtype, json_rows, ties, seed=V + json_rows + 2 * ties)
+    cuda = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    kernels.reset_counts()
+    got = sample_logits(logits.cuda(), **cuda)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sample"] == 1
+    want = sample_logits_plain(logits.cuda(), **cuda)
+    margin = top_p_margin(logits.cuda(), **cuda)
+    assert bool((margin >= 1e-6).all()), margin
+    if json_rows:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)
+    again = sample_logits(logits.cuda(), **cuda)
+    assert torch.equal(again if not json_rows else again[0], got if not json_rows else got[0])
+
+
+def test_sample_kernel_refuses_what_it_does_not_take():
+    x = torch.randn((2, 512), device="cuda")
+    for k in (0, 257, 512):
+        with pytest.raises(ValueError, match="top_k"):
+            sample_logits(x, top_k=k)

@@ -213,3 +213,49 @@ def test_tied_int8_engine_greedy_ids_identical_to_jax_engine():
         eng._running = False
         out.append([f.result(timeout=0).token_ids for f in futs])
     assert out[0] == out[1]
+
+
+# ------------------------------------------------------------- route chooser
+# Llama-3-8B's projections (in, out), each as a decode (M 8) and a prefill
+# (M 512) call, int8 and int4 at the default group and 128
+_LLAMA3 = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("K,N", _LLAMA3)
+@pytest.mark.parametrize("M", [1, 8, 64, 65, 512, 2048])
+@pytest.mark.parametrize("group", [0, 64, 128])
+def test_route_chooser_keeps_llama3_shapes_off_generic(K, N, M, group):
+    """Every Llama-3-8B projection keeps its tensor-core route (stream up
+    to 64 rows, wgmma past them); none takes the generic one."""
+    route = kernels.qgemm_route(torch.bfloat16, M, N, K, group)
+    assert route == ("stream" if M <= 64 else "wgmma")
+    assert kernels.qgemm_route(torch.float32, M, N, K, group) == "cuda_core"
+    assert kernels.qgemm_tied_route(torch.bfloat16, 128256, 4096) == "stream"
+
+
+@pytest.mark.parametrize("M", [8, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N,group,aligned", [
+    (4096, 4096, 8, True),   # int4 group 8
+    (4096, 4096, 4, True),   # quant_group_size 6 packs at 4 (_int4_group)
+    (48, 40, 24, True),      # group 24, out off 16
+    (40, 44, 0, True),       # int8, in off 16, out off 8
+    (256, 512, 2, True),     # the smallest group
+    (4096, 4096, 64, False),  # q or scale off 16 bytes
+])
+def test_route_chooser_sends_entry7_shapes_to_generic(K, N, group, aligned, dtype, M):
+    """The int4 groups, widths and alignments the JAX package serves but the
+    tensor-core kernels do not take (ROADMAP Queue 3 entry 7) route to the
+    generic kernel, and so does a tied head off E % 16 or V % 8."""
+    assert kernels.qgemm_route(dtype, M, N, K, group, qs_aligned=aligned,
+                               aligned=aligned) == "generic"
+    assert kernels.qgemm_tied_route(dtype, 1000, 40) == "generic"
+    assert kernels.qgemm_tied_route(dtype, 1001, 64) == ("generic" if dtype == torch.bfloat16
+                                                         else "cuda_core")
+
+
+def test_quantize_group_6_packs_at_4():
+    """``quant_group_size=6`` at in 4096 packs int4 at a group of 4 (the
+    largest even divisor <= 6), which the generic route serves."""
+    w = tq.quantize_tensor_int4(np.ones((4096, 16), np.float32), 6)
+    assert w.group_size == 4 and tq.kernel_refusal(w, torch.bfloat16) is None

@@ -332,24 +332,32 @@ def test_engine_greedy_ids_identical_to_jax_engine(jax_trees, which, decode_step
 
 # ------------------------------------------------------------ kernel routing
 def test_kernel_refusal_and_engine_build_check():
-    """What the qgemm kernel does not take is named before any step runs:
-    an int4 group that is not a multiple of 16, a width off the kernel's
-    multiples, activations that are neither f32 nor bf16."""
+    """What no qgemm route takes is named before any step runs (activations
+    that are neither f32 nor bf16, a weight that is not 2-D); the int4
+    groups and widths the JAX package serves but the tensor-core kernels do
+    not take (group 24, in 40) now route to the generic kernel, and the
+    engine's build check passes them."""
     rng = np.random.default_rng(8)
     ok = tq.quantize_tensor_int4(rng.normal(size=(64, 32)).astype(np.float32), 32)
     assert tq.kernel_refusal(ok, torch.bfloat16) is None
     assert tq.kernel_refusal(ok, torch.float32) is None
     assert "float32 or bfloat16" in tq.kernel_refusal(ok, torch.float16)
     odd = tq.quantize_tensor_int4(rng.normal(size=(48, 32)).astype(np.float32), 24)
-    assert "multiple of 16" in tq.kernel_refusal(odd, torch.bfloat16)
+    assert odd.group_size == 24
+    assert tq.kernel_refusal(odd, torch.bfloat16) is None
+    assert kernels.qgemm_route(torch.bfloat16, 8, 32, 48, 24) == "generic"
     narrow = tq.quantize_tensor(rng.normal(size=(40, 32)).astype(np.float32))
-    assert "multiple of 16" in tq.kernel_refusal(narrow, torch.bfloat16)
+    assert tq.kernel_refusal(narrow, torch.bfloat16) is None
+    assert kernels.qgemm_route(torch.bfloat16, 8, 32, 40, 0) == "generic"
+    stacked = tq.quantize_tensor(rng.normal(size=(2, 64, 32)).astype(np.float32))
+    assert "2-D" in tq.kernel_refusal(stacked, torch.bfloat16)
     cfg = DecoderConfig.tiny()
     params = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
     params["layers"]["wq"] = tq.quantize_tensor_int4(
         rng.normal(size=(2, 48, 32)).astype(np.float32), 24)
-    with pytest.raises(ValueError, match="layers.wq: .*group size 24"):
-        tq.check_kernel_params(params, cfg.dtype)
+    assert tq.check_kernel_params(params, cfg.dtype) is None
+    with pytest.raises(ValueError, match="layers.wq: .*float32 or bfloat16"):
+        tq.check_kernel_params(params, torch.float16)
     dense = llama.init(cfg, torch.Generator().manual_seed(0), "cpu")
     tq.check_kernel_params(tq.quantize_decoder_params(dense, "int4", 32), cfg.dtype)
     tq.check_kernel_params(tq.quantize_decoder_params(dense), cfg.dtype)
