@@ -35,7 +35,14 @@ exits non-zero):
    sampler at B 8, V 128,256, k 50 (f32 and bf16, with and without a JSON
    mask, a planted tie block): ids and FSM states equal to the plain
    twin's but for rows at the top-p boundary (counted), its time beside
-   ``torch.topk`` alone;
+   ``torch.topk`` alone; the ANN kernels (``ann_adc``, ``ann_rerank``) at
+   phase 9's geometry (2,000,000 x 768 through ``add`` + ``train()``,
+   4,096 lists, m 96, with duplicated rows for ties and one probed list
+   made all-invalid; Q 1 / 8 / 32, nprobe 64 / 256, shortlist 256, k 16):
+   ADC scores bit-equal to the twin's and the same positions, the rerank
+   within ``topk_score_bound``; their time at the main path's search (Q 8,
+   nprobe 64) beside the bound, the twins and, for the rerank, gather +
+   ``torch.bmm`` + ``torch.topk``;
 3. small f32 models on the card (kernels) against the same models on the
    CPU (plain twins): the decoder's prefill logits and the engine's greedy
    token ids at the default loop (on the card the fused 8-step tick
@@ -96,8 +103,18 @@ exits non-zero):
    wgmma kernel), ``weight_bits`` in
    ``/healthz`` and ``/metrics``, the weight bytes on the card, readings over 6 runs and
    the decode breakdown;
-9. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
-   line, and the final ``{"ok": true, ...}`` line.
+9. ANN retrieval at scale (:func:`ann_phase`), after phase 8's memory is
+   freed: 2,000,000 x 768 through ``ANNIndex.add`` and ``train()`` (wall
+   times, bytes on the card), 64 planted near-duplicate queries, ANN search
+   beside the exact tier over 6 batches at Q 1 / 8 / 32 (medians and
+   min-max), planted top-1 >= 99%, ``ann_adc`` / ``ann_rerank`` launches
+   equal to the ANN search batches with no plain-twin call, ``knn_topk``
+   for the exact tier, a recall@10 curve at nprobe 16 / 64 / 256 / 1024,
+   and the durability drill (:func:`durability_drill`: 65,536 x 768,
+   WAL + snapshot, reopen with equal searches, ``cli ann verify`` in a
+   subprocess clean and after a flipped byte);
+10. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
+    line, and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -249,9 +266,11 @@ def env_and_build():
         spills = [sp for _, _, sp in table]
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
-        if name in ("paged_decode", "knn_topk", "qgemm", "sample"):
+        if name in ("paged_decode", "knn_topk", "qgemm", "sample", "ann_adc", "ann_rerank"):
+            smem = ptxas_smem(text)
             log(f"  ptxas[{name}] per kernel: " + "; ".join(
-                f"{label} {r} regs, {sp} B spilled" for label, r, sp in table))
+                f"{label} {r} regs, {sp} B spilled, {smem.get(label, 0)} B static smem"
+                for label, r, sp in table))
     # the f32 references below are true f32 products, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -301,9 +320,10 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
-    r"|qgemm_stream_kernel|qgemm_cc_kernel)I(\w*?)EEv"
+    r"|qgemm_stream_kernel|qgemm_cc_kernel|adc_scan_kernel)I(\w*?)EEv"
 )
-_PLAIN_KERNEL_RE = re.compile(r"\d+(threshold_kernel|select_kernel|sample_kernel)E")
+_PLAIN_KERNEL_RE = re.compile(
+    r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel)E")
 
 
 def kernel_label(mangled: str) -> str:
@@ -328,6 +348,16 @@ def ptxas_table(text: str) -> list:
         rows.append((kernel_label(chunk.split("'", 1)[0]), int(regs.group(1)) if regs else 0,
                      int(spill.group(1)) if spill else 0))
     return rows
+
+
+def ptxas_smem(text: str) -> dict:
+    """Static shared memory bytes per kernel in an ``nvcc -Xptxas -v`` log
+    (dynamic shared memory, such as the ADC scan's LUT, is not in it)."""
+    out = {}
+    for chunk in text.split("Compiling entry function '")[1:]:
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        out[kernel_label(chunk.split("'", 1)[0])] = int(smem.group(1)) if smem else 0
+    return out
 
 
 SASS_OPS = ("HMMA", "LDGSTS", "HGMMA", "UTMALDG", "SYNCS")
@@ -1221,6 +1251,250 @@ def check_sample(gen) -> dict:
                        bound_by="bytes", library_ms=topk_ms)
     return {"name": "sample", "route": "cuda", "source": f"{PKG}/csrc/sample.cu",
             "replaces": "django_assistant_bot_tpu/ops/sampling.py:73", "max_abs_err": 0.0, **out}
+
+
+ANN_ROWS = 2_000_000  # the corpus of phases 2 and 9: 2,000,000 x 768
+ANN_DIM = 768
+ANN_CLUSTERS = 64  # make_clustered's geometry: 64 centres, 0.25 noise
+ANN_DUPS = 4096  # phase 2: rows [4096, 8192) repeat rows [0, 4096): exact ties
+ANN_PLANTED = 64  # phase 9: near-duplicate queries of 64 corpus rows
+ANN_QUERY_NOISE = 0.05  # per-dimension noise of a planted query (probe_recall's)
+ANN_DRILL_ROWS = 65_536  # the durability drill's corpus
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+
+
+def ann_build(n: int, dim: int, seed: int, dups: int = 0):
+    """An ``ANNIndex`` on the card built the way a user builds one: ``add``
+    in batches, then ``train()`` at the auto geometry.  The corpus is drawn
+    on the card in chunks from a seeded ``torch.Generator`` with
+    ``make_clustered``'s distribution (64 centres, 0.25 noise) and handed to
+    ``add`` as host rows; with ``dups``, rows ``[dups, 2 dups)`` repeat rows
+    ``[0, dups)``.  Returns (index, wall seconds: add, train and the train's
+    stages)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.storage.ann import ANNIndex
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn((ANN_CLUSTERS, dim), generator=gen, device="cuda")
+    index = ANNIndex(dim, seed=seed)
+    index.reserve(n)
+    t0 = time.perf_counter()
+    for s0 in range(0, n, 1 << 17):
+        e = min(n, s0 + (1 << 17))
+        pick = torch.randint(0, ANN_CLUSTERS, (e - s0,), generator=gen, device="cuda")
+        rows = centers[pick] + 0.25 * torch.randn((e - s0, dim), generator=gen, device="cuda")
+        if s0 == 0 and dups:
+            rows[dups:2 * dups] = rows[:dups]
+        index.add(range(s0, e), rows.cpu().numpy())
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.train()
+    torch.cuda.synchronize()
+    return index, {"add_s": add_s, "train_s": time.perf_counter() - t0, **index.last_restage}
+
+
+def ann_geometry(index) -> str:
+    st = index.stats()
+    return (f"nlist {st['nlist']}, m {st['m']}, list_cap {st['list_cap']} (fullest list "
+            f"{st['list_fill_max']}), nprobe {st['nprobe']}, rerank depth {st['rerank_depth']}; "
+            f"codes {index._codes.numel() / 1e9:.3f} GB, rerank tier "
+            f"{index._rerank.numel() * 2 / 1e9:.3f} GB on the card")
+
+
+def _timing_text(t: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in t.items())
+
+
+def adc_inputs(index, q, nprobe: int):
+    """The centroid top-``nprobe`` and the LUT of ``_adc_shortlist``."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.sampling import top_k_auto
+
+    top_c, top_ci = top_k_auto(q @ index._centroids.T, nprobe)
+    lut = torch.einsum("qms,mcs->qmc", q.reshape(q.shape[0], index.m, index.sub_dim),
+                       index._codebooks)
+    return top_c, top_ci, lut
+
+
+def adc_bound_ms(index, lvalid, top_ci, S: int) -> tuple:
+    """Least time for the ADC scan + shortlist: the probed lists (each list
+    once, however many queries probe it) read once, their validity bytes
+    and, for their valid slots, the m code bytes and the row position; the
+    f32 LUT, the probes and the outputs once; at the HBM rate, against one
+    f32 addition per valid code byte and query at the card's f32 rate."""
+    Q, P = top_ci.shape
+    _, L, m = index._codes.shape
+    lists = top_ci.unique().long()
+    valid_slots = int(lvalid[lists].sum())
+    nbytes = lists.numel() * L + valid_slots * (m + 4) + Q * m * 256 * 4 + Q * P * 8 + Q * S * 8
+    ops = float(lvalid[top_ci.long()].sum()) * m
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rerank_bound_ms(tier, rvalid, sl_scores, sl_pos, k: int) -> tuple:
+    """Least time for the rerank: the distinct rows the shortlist keeps
+    (finite score, valid row) read once (bf16), the shortlist, the f32
+    queries and the outputs once, at the HBM rate, against 2 D operations a
+    kept row at the f32 rate."""
+    import torch
+
+    Q, S = sl_pos.shape
+    D = tier.shape[1]
+    pos = sl_pos.long()
+    ok = torch.isfinite(sl_scores) & rvalid[pos]
+    rows = int(pos[ok].unique().numel())
+    nbytes = rows * D * 2 + Q * S * 9 + Q * D * 4 + Q * k * 8
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 2.0 * float(ok.sum()) * D / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_device_ms(fn, iters: int) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches (torch.profiler),
+    by kernel name; {} if the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {kernel_label(e.key): _device_us(e) / iters / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0}
+
+
+def _ties(scores) -> int:
+    """Adjacent equal finite scores in each row of a sorted result."""
+    import torch
+
+    s = scores[:, 1:]
+    return int(((s == scores[:, :-1]) & torch.isfinite(s)).sum())
+
+
+def check_ann(gen) -> list:
+    """``ann_adc`` and ``ann_rerank`` against their plain twins at the
+    phase-9 geometry: 2,000,000 x 768 built through ``add`` + ``train()``
+    (nlist 4096, m 96, list_cap as trained), with rows [4096, 8192)
+    repeating rows [0, 4096), queries near those rows (Q 1, 8, 32), nprobe 64
+    and 256, shortlist 256, k 16, and one probed list made all-invalid.
+    The ADC scores must equal the twin's bit for bit and the positions the
+    twin's (keys are unique under (score, lower flat index first)); the
+    rerank is held to ``rerank_agreement`` (``topk_score_bound``, ids at
+    separated ranks).  Then both kernels' time at the main path's search
+    (Q 8, the default nprobe 64, shortlist 256, k 16): wall and device ms,
+    the bound and its share, the plain twins' ms, and for the rerank the
+    library yardstick (gather + ``torch.bmm`` + ``torch.topk``); the ADC
+    scan has no library call that computes it."""
+    import numpy as np
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.storage.ann import (
+        adc_shortlist, adc_shortlist_plain, rerank, rerank_plain)
+    from django_assistant_bot_tpu_torch.storage.knn import _normalize
+    from django_assistant_bot_tpu_torch.storage.knn_check import rerank_agreement
+
+    index, t = ann_build(ANN_ROWS, ANN_DIM, seed=11, dups=ANN_DUPS)
+    log(f"  ann corpus {ANN_ROWS} x {ANN_DIM} ({ANN_DUPS} duplicated rows): wall s: "
+        f"{_timing_text(t)}; {ann_geometry(index)}")
+    smem = ptxas_smem(kernels.BUILD_LOG.get("ann_adc", "") + kernels.BUILD_LOG.get("ann_rerank", ""))
+    log(f"  ann shared memory per block: adc_scan_kernel {min(index.m, 192) * 1024} B dynamic "
+        f"(the LUT chunk), adc_select_kernel {smem.get('adc_select_kernel', 0)} B static + "
+        f"{32768 * 4} B dynamic (the key cache), rerank_kernel "
+        f"{smem.get('rerank_kernel', 0)} B static + {ANN_DIM * 4} B dynamic (the query)")
+    codes, lvalid, rowpos = index._codes, index._lvalid, index._rowpos
+    tier, rvalid = index._rerank, index._rvalid
+    rng = np.random.default_rng(2)
+
+    def queries(Q):
+        src = rng.choice(ANN_DUPS, size=Q, replace=False)
+        qs = index._mat[src] + ANN_QUERY_NOISE * rng.standard_normal((Q, ANN_DIM))
+        return torch.from_numpy(_normalize(qs).astype(np.float32)).cuda()
+
+    S, k = 256, 16
+    adc_ties = rr_ties = 0
+    worst, worst_err = 0.0, 0.0
+    for Q in (1, 8, 32):
+        q = queries(Q)
+        for P in (64, 256):
+            top_c, top_ci, lut = adc_inputs(index, q, P)
+            lv = lvalid.clone()
+            lv[top_ci[0, 1].long()] = False  # a probed list made all-invalid
+            got_s, got_p = adc_shortlist(codes, lv, rowpos, top_ci, top_c, lut, S)
+            want_s, want_p = adc_shortlist_plain(codes, lv, rowpos, top_ci, top_c, lut, S)
+            torch.cuda.synchronize()
+            same_s, same_p = torch.equal(got_s, want_s), torch.equal(got_p, want_p)
+            ties = _ties(want_s)
+            adc_ties += ties
+            log(f"  ann_adc Q={Q} nprobe={P} S={S}: scores bit-equal {same_s}, positions equal "
+                f"{same_p}, tied neighbours in the twin's shortlist {ties}, finite "
+                f"{int(torch.isfinite(want_s).sum())} of {Q * S}")
+            if not (same_s and same_p):
+                diff = (got_s - want_s).abs()
+                fail(f"ann_adc Q={Q} nprobe={P} disagrees with its plain twin: max |diff| "
+                     f"{diff[torch.isfinite(diff)].max().item() if bool(torch.isfinite(diff).any()) else 'inf'}, "
+                     f"{int((got_p != want_p).sum())} positions differ")
+            r_s, r_p = rerank(tier, rvalid, q, got_s, got_p, k)
+            torch.cuda.synchronize()
+            rep = rerank_agreement(tier, rvalid, q, got_s, got_p, r_s, r_p)
+            rr_ties += _ties(r_s)
+            log(f"  ann_rerank Q={Q} nprobe={P} S={S} k={k}: max_abs_err "
+                f"{rep['max_abs_err']:.3e}, worst err/bound {rep['worst']:.4f} (bound D 2^-22 "
+                f"|q| max|x|), ids compared {rep['ids_compared']}, tied neighbours {_ties(r_s)}")
+            if rep["problems"]:
+                fail(f"ann_rerank Q={Q} nprobe={P} disagrees with its plain twin: {rep['problems']}")
+            worst, worst_err = max(worst, rep["worst"]), max(worst_err, rep["max_abs_err"])
+    log(f"  ann: tied neighbours over the cases: ADC shortlists {adc_ties}, reranked top-k {rr_ties}")
+    if not adc_ties or not rr_ties:
+        fail("the planted duplicate rows gave no tie: the tie order went unchecked")
+
+    # timing at the main path's search: Q 8, the default nprobe, S 256, k 16
+    P = index._nprobe_eff()
+    q = queries(8)
+    top_c, top_ci, lut = adc_inputs(index, q, P)
+    args = (codes, lvalid, rowpos, top_ci, top_c, lut, S)
+    ms, dev = timed(lambda: adc_shortlist(*args), 30)
+    split = kernel_device_ms(lambda: adc_shortlist(*args), 10)
+    plain_ms = time_ms(lambda: adc_shortlist_plain(*args), 3)
+    bound_ms, bound_by = adc_bound_ms(index, lvalid, top_ci, S)
+    log(f"  ann_adc timing Q=8 nprobe={P} S={S} (list_cap {codes.shape[1]}): kernel wall "
+        f"{ms:.4f} ms (device {dev:.4f}: " + ", ".join(f"{n} {v:.4f}" for n, v in split.items())
+        + f"), plain wall {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); share of the "
+        f"bound, device {bound_ms / dev:.4f}; library: none (no PyTorch call computes the "
+        "LUT-sum scan)")
+    adc = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None)
+    sl_s, sl_p = adc_shortlist(*args)
+    rargs = (tier, rvalid, q, sl_s, sl_p, k)
+    r_ms, r_dev = timed(lambda: rerank(*rargs), 50)
+    r_plain = time_ms(lambda: rerank_plain(*rargs), 5)
+    pos = sl_p.long()
+    ok = torch.isfinite(sl_s) & rvalid[pos]
+    qb = q.to(torch.bfloat16)
+    lib_ms, lib_dev = timed(lambda: torch.topk(torch.bmm(tier[pos], qb[:, :, None]).squeeze(-1)
+                                               .float().masked_fill_(~ok, float("-inf")), k), 50)
+    r_bound, r_by = rerank_bound_ms(tier, rvalid, sl_s, sl_p, k)
+    log(f"  ann_rerank timing Q=8 S={S} k={k} D={ANN_DIM}: kernel wall {r_ms:.4f} ms (device "
+        f"{r_dev:.4f}), plain wall {r_plain:.4f} ms, library (gather + bmm + topk) wall "
+        f"{lib_ms:.4f} ms (device {lib_dev:.4f}), bound {r_bound:.5f} ms ({r_by}); share of the "
+        f"bound, device {r_bound / r_dev:.4f}")
+    rr = dict(ms=r_ms, device_ms=r_dev, plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
+              library_ms=lib_ms)
+    del index, codes, lvalid, rowpos, tier, rvalid, args, rargs, sl_s, sl_p, pos, ok
+    gc_collect()
+    return [
+        {"name": "ann_adc", "route": "cuda", "source": f"{PKG}/csrc/ann_adc.cu",
+         "replaces": "django_assistant_bot_tpu/storage/ann.py:208", "max_abs_err": 0.0, **adc},
+        {"name": "ann_rerank", "route": "cuda", "source": f"{PKG}/csrc/ann_rerank.cu",
+         "replaces": "django_assistant_bot_tpu/storage/ann.py:251", "max_abs_err": worst_err,
+         **rr},
+    ]
 
 
 # --------------------------------------------------------------------- phase 3
@@ -2955,6 +3229,181 @@ def quant_phase(card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- phase 9
+def ann_phase(card: str) -> dict:
+    """ANN retrieval at scale: 2,000,000 x 768 built through ``ANNIndex.add``
+    and ``train()`` at the auto geometry (wall time of the add, the train and
+    its stages; bytes of the codes and the rerank tier on the card); 64
+    planted near-duplicate queries; search latency over 6 batches at Q 1, 8
+    and 32, k 16 (medians and min-max), ANN ``search_batch`` at the default
+    nprobe beside the exact tier on the same rows (``_exact_batch``, the KNN
+    kernel); fails unless each planted query finds its source row top-1 in
+    >= 99% of them, ``ann_adc`` and ``ann_rerank`` each launched once per
+    ANN search batch with no call of a plain twin, and ``knn_topk`` ran for
+    the exact tier.  Then a recall@10 curve against the exact tier at
+    nprobe 16, 64, 256 and 1024 with the ANN search's ms per query, and
+    :func:`durability_drill`.  Returns the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.storage import ann as ann_mod
+    from django_assistant_bot_tpu_torch.storage import knn as knn_mod
+
+    index, t = ann_build(ANN_ROWS, ANN_DIM, seed=21)
+    log(f"  corpus {ANN_ROWS} x {ANN_DIM} through add + train(): wall s: {_timing_text(t)}")
+    log(f"  {ann_geometry(index)}; card memory {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    rng = np.random.default_rng(9)
+    src = rng.choice(ANN_ROWS, size=ANN_PLANTED, replace=False)
+    planted = (index._mat[src] + ANN_QUERY_NOISE
+               * rng.standard_normal((ANN_PLANTED, ANN_DIM))).astype(np.float32)
+    index.search_batch(planted[:8], k=16)  # warm: both paths once before the counted run
+    index._exact_batch(planted[:8], 16)
+
+    # the plain twins count their calls: the counted run must make none
+    plain_calls = {"adc_shortlist_plain": 0, "rerank_plain": 0, "topk_scores_plain": 0}
+    originals = {n: getattr(ann_mod if n != "topk_scores_plain" else knn_mod, n)
+                 for n in plain_calls}
+
+    def counting(name):
+        def call(*a, **kw):
+            plain_calls[name] += 1
+            return originals[name](*a, **kw)
+        return call
+
+    for name in plain_calls:
+        setattr(ann_mod if name != "topk_scores_plain" else knn_mod, name, counting(name))
+    try:
+        kernels.reset_counts()
+        ann_batches = exact_batches = 0
+        for Q in (1, 8, 32):
+            ann_ms, exact_ms = [], []
+            for b in range(6):
+                qs = planted[(b * Q) % ANN_PLANTED:][:Q]
+                t0 = time.perf_counter()
+                index.search_batch(qs, k=16)
+                ann_ms.append((time.perf_counter() - t0) * 1e3)
+                ann_batches += 1
+                t0 = time.perf_counter()
+                index._exact_batch(qs, 16)
+                exact_ms.append((time.perf_counter() - t0) * 1e3)
+                exact_batches += 1
+            log(f"  search Q={Q} k=16 (query bucket {max(8, Q)}), a batch: ANN (nprobe "
+                f"{index._nprobe_eff()}) {_stat(ann_ms, 'ms')}; exact tier (knn_topk over "
+                f"{ANN_ROWS} rows) {_stat(exact_ms, 'ms')}")
+        out = index.search_batch(planted, k=16)
+        ann_batches += 1
+        counts = kernels.launch_counts()
+    finally:
+        for name, fn in originals.items():
+            setattr(ann_mod if name != "topk_scores_plain" else knn_mod, name, fn)
+    top1 = sum(1 for row, s in zip(out, src) if row and row[0][0] == int(s))
+    log(f"  planted: {top1} of {ANN_PLANTED} source rows top-1 (score of the first "
+        f"{out[0][0][1]:.5f}); launches {json.dumps({k: counts[k] for k in ('ann_adc', 'ann_rerank', 'knn_topk')})} "
+        f"over {ann_batches} ANN and {exact_batches} exact batches; plain twin calls "
+        f"{json.dumps(plain_calls)}")
+    if top1 < 0.99 * ANN_PLANTED:
+        fail(f"only {top1} of {ANN_PLANTED} planted queries found their source row top-1")
+    if counts["ann_adc"] != ann_batches or counts["ann_rerank"] != ann_batches:
+        fail(f"ann_adc / ann_rerank launched {counts['ann_adc']} / {counts['ann_rerank']} times "
+             f"over {ann_batches} ANN search batches")
+    if counts["knn_topk"] != exact_batches:
+        fail(f"knn_topk launched {counts['knn_topk']} times over {exact_batches} exact batches")
+    if any(plain_calls.values()):
+        fail(f"a search ran a plain twin on the card: {plain_calls}")
+
+    for nprobe in (16, 64, 256, 1024):
+        t0 = time.perf_counter()
+        index.search_batch(planted, k=10, nprobe=nprobe)
+        ms_q = (time.perf_counter() - t0) * 1e3 / ANN_PLANTED
+        rec = index.probe_recall(n_queries=64, k=10, nprobe=nprobe, seed=0)
+        log(f"  recall curve: nprobe {rec['nprobe']:5d}  recall@10 {rec['recall_at_k']:.4f}  "
+            f"ANN {ms_q:.4f} ms/query (one batch of {ANN_PLANTED})")
+    del index, out
+    gc_collect()
+    durability_drill()
+    return {k: counts[k] for k in ("ann_adc", "ann_rerank", "knn_topk")}
+
+
+def _flip_byte(path: str) -> None:
+    import os
+
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def durability_drill() -> None:
+    """``DurableANN`` at 65,536 x 768 in a temp dir (the index on the card):
+    ingest 49,152 rows with a ledger key, ``train``, ``snapshot``, then
+    16,384 more rows and a ``remove`` of every 97th id (the WAL tail),
+    ``close``; reopen (snapshot + WAL-tail replay) and require searches
+    identical to those before the close; then ``cli ann verify --dir`` in a
+    subprocess: rc 0, and rc 1 naming the artifact after one flipped byte
+    in the snapshot's ``vectors.npy``."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from django_assistant_bot_tpu_torch.storage.ann import make_clustered
+    from django_assistant_bot_tpu_torch.storage.durable import DurableANN
+
+    rows = make_clustered(ANN_DRILL_ROWS, ANN_DIM, seed=5)
+    head = ANN_DRILL_ROWS * 3 // 4
+    q = rows[:: ANN_DRILL_ROWS // 16][:16] + 0.01
+    gone = list(range(0, ANN_DRILL_ROWS, 97))
+    d = tempfile.mkdtemp(prefix="dabt-ann-drill-")
+    try:
+        t0 = time.perf_counter()
+        dur = DurableANN(d, dim=ANN_DIM, fsync="always", seed=3)
+        dur.ingest(range(head), rows[:head], ledger_key="doc:0:v1")
+        dur.train()
+        t_train = time.perf_counter()
+        dur.snapshot()
+        t_snap = time.perf_counter()
+        dur.ingest(range(head, ANN_DRILL_ROWS), rows[head:], ledger_key="doc:1:v1")
+        dur.remove(gone)
+        before = dur.search_batch(q, k=10)
+        dur.close()
+        t1 = time.perf_counter()
+        back = DurableANN(d, dim=ANN_DIM, fsync="always", seed=3)
+        after = back.search_batch(q, k=10)
+        st = back.durability_stats()
+        t2 = time.perf_counter()
+        n_live = len(back)
+        back.close()
+        log(f"  durability drill {ANN_DRILL_ROWS} x {ANN_DIM}: ingest + train "
+            f"{t_train - t0:.2f} s, snapshot {t_snap - t_train:.2f} s, tail + close "
+            f"{t1 - t_snap:.2f} s; reopen {t2 - t1:.2f} s (recovery_s {st['recovery_s']:.2f}, "
+            f"replayed {st['replayed_records']} records, {n_live} rows live); searches equal "
+            f"{after == before}")
+        want_live = ANN_DRILL_ROWS - len(gone)
+        if not (st["recovered"] and st["replayed_records"] == 2 and n_live == want_live):
+            fail(f"durability drill: recovery {st} with {n_live} rows (want {want_live})")
+        if after != before:
+            fail("durability drill: searches after the reopen differ from those before the close")
+        cmd = [sys.executable, "-m", f"{PKG}.cli", "ann", "verify", "--dir", d]
+        ok = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(REPO))
+        snaps = os.path.join(d, "snapshots")
+        victim = os.path.join(snaps, sorted(os.listdir(snaps))[0], "vectors.npy")
+        _flip_byte(victim)
+        bad = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(REPO))
+        problems = json.loads(bad.stdout)["problems"] if bad.stdout.strip() else []
+        log(f"  cli ann verify: clean rc {ok.returncode}, after one flipped byte rc "
+            f"{bad.returncode}: {problems}")
+        if ok.returncode != 0 or not json.loads(ok.stdout)["ok"]:
+            fail(f"cli ann verify on the clean drill directory: rc {ok.returncode}\n{ok.stderr[-2000:]}")
+        if bad.returncode != 1 or not any("vectors.npy: crc32c mismatch" in p for p in problems):
+            fail(f"cli ann verify after a flipped byte: rc {bad.returncode}, {problems}\n"
+                 f"{bad.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def gc_collect() -> None:
     import gc
 
@@ -2988,7 +3437,7 @@ def main() -> int:
     log("== phase 2: kernels vs plain twins")
     # the engine's page at 4096 for paged decode
     entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen), *check_qgemm(gen),
-               check_qgemm_generic(gen), check_sample(gen)]
+               check_qgemm_generic(gen), check_sample(gen), *check_ann(gen)]
 
     log("== phase 3: small f32 models, card vs CPU")
     generic_launches = small_reference()
@@ -3015,13 +3464,19 @@ def main() -> int:
     log("== phase 8: int8 and int4 Llama-3-8B over /dialog/ (the qgemm kernel)")
     log(f"  card memory before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     q_counts = quant_phase(card)
+    gc_collect()
+
+    log("== phase 9: ANN retrieval at scale (2,000,000 x 768) and its durability drill")
+    ann_counts = ann_phase(card)
 
     # each kernel's launches on its own slice's main path: flash, paged
     # decode and the sampler on phase 4's requests, the KNN on phase 6's RAG
     # requests, qgemm on phase 8's requests in its format, its generic route
-    # on phase 3's int4 g=8 decoder
+    # on phase 3's int4 g=8 decoder, the ANN kernels on phase 9's searches
     for e in entries:
-        if e["name"] == "qgemm_generic":
+        if e["name"] in ("ann_adc", "ann_rerank"):
+            e["launches"] = ann_counts[e["name"]]
+        elif e["name"] == "qgemm_generic":
             e["launches"] = generic_launches
         elif e["name"].startswith("qgemm_prefill_"):
             e["launches"] = q_counts[e["name"][len("qgemm_prefill_"):]]["prefill"]
@@ -3031,7 +3486,8 @@ def main() -> int:
             e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
     log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "
         f"{json.dumps(stream_counts)} (phase 7, the streams), qgemm {json.dumps(q_counts)} "
-        f"(phase 8), qgemm generic {generic_launches} (phase 3)")
+        f"(phase 8), qgemm generic {generic_launches} (phase 3), {json.dumps(ann_counts)} "
+        "(phase 9)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -87,3 +87,57 @@ def encoder_params_from_jax(
         k: _tensor(f"layers.{k}", tree["layers"][k], cfg.dtype, dev) for k in _ENCODER_LAYER_KEYS
     }
     return out
+
+
+_ANN_TENSORS = {"centroids": np.float32, "codebooks": np.float32, "codes": np.uint8,
+                "lvalid": np.bool_, "rowpos": np.int32, "rvalid": np.bool_}
+
+
+def ann_from_jax(arrays: Mapping[str, Any], device: DeviceLike = "cuda"):
+    """The JAX ``ANNIndex``'s state (numpy arrays) -> a port
+    :class:`~.storage.ann.ANNIndex` holding exactly that state.
+
+    Keys: ``dim``, ``nlist``, ``m``, ``nprobe``, ``rerank_depth``, ``seed``;
+    ``ids`` (position order) and ``mat`` (the host f32 rows, ``[n, dim]``);
+    ``dead`` (tombstoned positions, optional); and, for a trained index,
+    ``centroids``, ``codebooks``, ``codes``, ``lvalid``, ``rowpos``,
+    ``row_list``, ``row_slot``, ``list_counts``; the rerank tier as
+    ``rerank_bits`` (its bf16 bits, uint16 ``[cap, dim]``), ``rvalid`` and
+    ``rerank_count``; ``list_sums`` (the drift gauge's, optional).  Tensors land on ``device`` with their bytes
+    unchanged."""
+    from .storage.ann import ANNIndex
+
+    index = ANNIndex(int(arrays["dim"]), nlist=int(arrays["nlist"]), m=int(arrays["m"]),
+                     nprobe=int(arrays["nprobe"]), rerank_depth=int(arrays["rerank_depth"]),
+                     seed=int(arrays.get("seed", 0)), device=device)
+    ids = [int(i) for i in np.asarray(arrays["ids"]).reshape(-1)]
+    mat = np.asarray(arrays["mat"], np.float32).reshape(len(ids), index.dim)
+    with index._lock:
+        index._grow_host(len(ids))
+        index._mat[: len(ids)] = mat
+        index._n = len(ids)
+        index._ids = ids
+        index._dead = {int(p) for p in np.asarray(arrays.get("dead", ())).reshape(-1)}
+        index._id_pos = {i: p for p, i in enumerate(ids) if p not in index._dead}
+        dev = index.device
+        if "rerank_bits" in arrays:
+            bits = np.array(np.asarray(arrays["rerank_bits"]).view(np.int16), copy=True)
+            index._rerank = torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+            index._rvalid = torch.from_numpy(np.array(arrays["rvalid"], np.bool_)).to(dev)
+            index._rerank_count = int(arrays["rerank_count"])
+            index._snapshot_ids = index._ids
+            index._rerank_dirty = False
+        if "centroids" in arrays:
+            for key, dtype in _ANN_TENSORS.items():
+                if key != "rvalid":
+                    arr = np.array(arrays[key], dtype, copy=True)
+                    setattr(index, "_" + key, torch.from_numpy(arr).to(dev))
+            n = len(ids)
+            index._row_list[:n] = np.asarray(arrays["row_list"], np.int32)[:n]
+            index._row_slot[:n] = np.asarray(arrays["row_slot"], np.int32)[:n]
+            index._list_counts = np.asarray(arrays["list_counts"], np.int64).copy()
+            index._list_sums = np.asarray(
+                arrays.get("list_sums", np.zeros((index.nlist, index.dim))), np.float32).copy()
+            index._list_nums = index._list_counts.copy()
+            index._trained = True
+    return index

@@ -54,6 +54,8 @@ KERNELS = {
     "knn_topk": ("knn_topk", "dabt_knn_topk"),
     "qgemm": ("qgemm", "dabt_qgemm"),
     "sample": ("sample", "dabt_sample"),
+    "ann_adc": ("ann_adc", "dabt_ann_adc"),
+    "ann_rerank": ("ann_rerank", "dabt_ann_rerank"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -85,6 +87,12 @@ _ARGTYPES = {
     # logits, temperature, top_p, gumbel, allowed, next_state, state, jmask,
     # ids, state_out, gmax, counters, dtype, B, V, k, splits, stream
     "sample": [_P] * 12 + [_I] * 5 + [_P],
+    # codes, lvalid, rowpos, top_ci, top_c, lut, scratch, out_scores, out_pos,
+    # nlist, L, m, Q, P, S, span, stream
+    "ann_adc": [_P] * 9 + [_I] * 7 + [_P],
+    # tier, rvalid, q, sl_scores, sl_pos, out_scores, out_pos, N, D, Q, S, k,
+    # stream
+    "ann_rerank": [_P] * 7 + [_I] * 5 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -792,3 +800,56 @@ def sample(logits: torch.Tensor, temperature: torch.Tensor, top_p: torch.Tensor,
         )
     _count("sample")
     _check("sample", err)
+
+
+@functools.lru_cache(maxsize=512)
+def ann_scan_span(Q: int, n_items: int, sms: int = 132) -> int:
+    """Flat (probe, slot) items a block of the ADC scan scores: about four
+    blocks an SM over the Q queries, 1,024 to 16,384 items a block (a block
+    stages its query's LUT once), a multiple of the scan's 512 threads."""
+    want = -(-Q * n_items // (4 * sms))
+    return min(16384, max(1024, -(-want // 512) * 512))
+
+
+def ann_adc(codes: torch.Tensor, lvalid: torch.Tensor, rowpos: torch.Tensor,
+            top_ci: torch.Tensor, top_c: torch.Tensor, lut: torch.Tensor,
+            scratch: torch.Tensor, out_scores: torch.Tensor, out_pos: torch.Tensor,
+            shortlist: int) -> None:
+    """Launch the ADC scan + shortlist (``csrc/ann_adc.cu``: a scan kernel
+    over :func:`ann_scan_span` flat (probe, slot) items a block, then a
+    select kernel a query); the caller (``storage.ann.adc_shortlist``) validated the
+    arguments and allocated ``scratch`` (``Q (P L + 2 ceil(P L / 32))``
+    floats: the scores, the 32-item groups' maxima, the candidate groups)
+    and the outputs (``[Q, shortlist]`` f32 scores, int32 row positions)."""
+    nlist, L, m = codes.shape
+    Q, P = top_ci.shape
+    fn = _fn("ann_adc")
+    with torch.cuda.device(codes.device):
+        span = ann_scan_span(Q, P * L, _sm_count(codes.device.index))
+        err = fn(
+            codes.data_ptr(), lvalid.data_ptr(), rowpos.data_ptr(), top_ci.data_ptr(),
+            top_c.data_ptr(), lut.data_ptr(), scratch.data_ptr(), out_scores.data_ptr(),
+            out_pos.data_ptr(), nlist, L, m, Q, P, shortlist, span, _stream(codes),
+        )
+    _count("ann_adc")
+    _check("ann_adc", err)
+
+
+def ann_rerank(tier: torch.Tensor, rvalid: torch.Tensor, q: torch.Tensor,
+               sl_scores: torch.Tensor, sl_pos: torch.Tensor, out_scores: torch.Tensor,
+               out_pos: torch.Tensor, k: int) -> None:
+    """Launch the gather + exact bf16 dot + top-k over an ADC shortlist
+    (``csrc/ann_rerank.cu``, one block a query); the caller
+    (``storage.ann.rerank``) validated the arguments and allocated the
+    outputs (``[Q, k]`` f32 scores, int32 row positions)."""
+    N, D = tier.shape
+    Q, S = sl_pos.shape
+    fn = _fn("ann_rerank")
+    with torch.cuda.device(tier.device):
+        err = fn(
+            tier.data_ptr(), rvalid.data_ptr(), q.data_ptr(), sl_scores.data_ptr(),
+            sl_pos.data_ptr(), out_scores.data_ptr(), out_pos.data_ptr(), N, D, Q, S, k,
+            _stream(tier),
+        )
+    _count("ann_rerank")
+    _check("ann_rerank", err)

@@ -1,7 +1,8 @@
 """Deterministic, seeded fault injection for the serving plane (the port's copy
 of the JAX package's ``serving/faults.py``, which imports no JAX; the port keeps
 its own copy and imports nothing of that package).  The port's engine consults
-``ENGINE_SITES``; the other sites wait for the planes that consult them.
+``ENGINE_SITES`` and its storage plane ``STORAGE_SITES``; the other sites wait
+for the planes that consult them.
 
 Crash-only design (Candea & Fox) and chaos-engineering practice agree on one
 point: recovery paths that are never exercised don't work.  This module is the
@@ -101,9 +102,11 @@ Gating: engines take an injector from ``ModelSpec.faults`` (explicit) or from
 the ``DABT_FAULTS`` env var (JSON, with ``DABT_FAULT_SEED``).  With neither
 set, the engine holds ``None`` and the hot path pays a single ``is None``
 check (tests/test_torch_supervision.py asserts no injector method is entered
-on a fault-free engine).  The JAX package's HTTP-client helpers
-(``raise_http_fault``, the process-global injector) wait for the provider
-client they serve.
+on a fault-free engine).  The storage plane (``storage/durable.py``)
+consults the process-global injector (:func:`global_injector`, loaded once
+from the environment; tests set and reset it).  The JAX package's
+HTTP-client helper (``raise_http_fault``) waits for the provider client it
+serves.
 """
 
 from __future__ import annotations
@@ -364,3 +367,37 @@ class FaultInjector:
             for (site, key), s in self._subs.items():
                 out[f"{site}[{key}]"] = {"calls": s.calls, "fires": s.fires}
             return out
+
+
+# Process-global injector for call sites without a per-engine spec (the
+# storage plane).  Loaded once from the environment; tests override via
+# set_global_injector and MUST reset in teardown.
+_global: Optional[FaultInjector] = None
+_global_loaded = False
+_global_lock = threading.Lock()
+
+
+def global_injector() -> Optional[FaultInjector]:
+    global _global, _global_loaded
+    if _global_loaded:
+        return _global
+    with _global_lock:
+        if not _global_loaded:
+            _global = FaultInjector.from_env()
+            _global_loaded = True
+    return _global
+
+
+def set_global_injector(inj: Optional[FaultInjector]) -> None:
+    global _global, _global_loaded
+    with _global_lock:
+        _global = inj
+        _global_loaded = True
+
+
+def reset_global_injector() -> None:
+    """Forget the cached global injector (re-reads the env on next use)."""
+    global _global, _global_loaded
+    with _global_lock:
+        _global = None
+        _global_loaded = False

@@ -16,7 +16,8 @@ for name in names:
     importlib.import_module(name)
 assert "django_assistant_bot_tpu_torch.serving.scheduler" in names
 for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check", "ops.quant",
-            "ops.json_fsm", "ops.sampling", "serving.streaming"):
+            "ops.json_fsm", "ops.sampling", "serving.streaming", "storage.ann",
+            "storage.durable", "storage.integrity", "conf", "cli.ann"):
     assert "django_assistant_bot_tpu_torch." + new in names, new
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))
@@ -27,8 +28,9 @@ assert not bad, bad
 
 def test_port_import_graph_has_no_jax():
     """Importing the package and every submodule (the engine and its copy of
-    the scheduler, the encoder, the KNN index, the JSON FSM and the
-    streaming plane among them) leaves ``jax`` and the JAX package out of
+    the scheduler, the encoder, the KNN index, the JSON FSM, the streaming
+    plane, the ANN index, its durability plane, the settings and the ANN
+    CLI among them) leaves ``jax`` and the JAX package out of
     ``sys.modules`` (a fresh interpreter: this test process has imported
     both)."""
     out = subprocess.run(
@@ -36,7 +38,26 @@ def test_port_import_graph_has_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 19
+    assert n_modules >= 24
+
+
+def test_port_sources_name_no_jax():
+    """No source of the port, nor ``chip_smoke.py``, imports JAX or names a
+    module of the JAX package (a text scan, which also covers imports inside
+    functions that the import-graph test does not run)."""
+    import re
+    from pathlib import Path
+
+    import django_assistant_bot_tpu_torch as pkg
+
+    root = Path(pkg.__file__).resolve().parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    assert any(f.name == "ann.py" and f.parent.name == "storage" for f in files)
+    bad = re.compile(r"^\s*(import jax|from jax|import jaxlib|from jaxlib)|"
+                     r"django_assistant_bot_tpu\.|from django_assistant_bot_tpu import", re.M)
+    for f in files:
+        m = bad.search(f.read_text())
+        assert m is None, f"{f}: {m.group(0)!r}"
 
 
 def _needs_no_card():
@@ -96,6 +117,25 @@ def test_embedding_entry_points_default_to_cuda():
         lambda: encoder_params_from_jax({}, cfg),
         lambda: load_encoder("no-such-dir"),
         lambda: ModelRegistry.from_config({"e": {"kind": "encoder", "tiny": True}}),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_ann_entry_points_default_to_cuda(tmp_path):
+    """The ANN index, its durable wrapper, the bridge and ``cli ann`` default
+    to the card and raise without one."""
+    _needs_no_card()
+    from django_assistant_bot_tpu_torch.cli import main
+    from django_assistant_bot_tpu_torch.convert import ann_from_jax
+    from django_assistant_bot_tpu_torch.storage import ANNIndex, DurableANN
+
+    for call in (
+        lambda: ANNIndex(8),
+        lambda: DurableANN(str(tmp_path / "d"), dim=8),
+        lambda: ann_from_jax({"dim": 8, "nlist": 0, "m": 0, "nprobe": 0, "rerank_depth": 256}),
+        lambda: main(["ann", "train", "--synthetic", "64", "--dim", "8"]),
+        lambda: main(["ann", "restore", "--dir", str(tmp_path / "e"), "--dim", "8"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

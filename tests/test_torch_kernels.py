@@ -41,7 +41,14 @@ from django_assistant_bot_tpu_torch.ops.sampling import (
     top_p_margin,
 )
 from django_assistant_bot_tpu_torch.storage import VectorIndex, topk_scores
-from django_assistant_bot_tpu_torch.storage.knn_check import topk_agreement
+from django_assistant_bot_tpu_torch.storage.ann import (
+    ANNIndex,
+    adc_shortlist,
+    adc_shortlist_plain,
+    make_clustered,
+    rerank,
+)
+from django_assistant_bot_tpu_torch.storage.knn_check import rerank_agreement, topk_agreement
 
 pytestmark = [
     pytest.mark.cuda,
@@ -712,3 +719,129 @@ def test_sample_kernel_refuses_what_it_does_not_take():
     for k in (0, 257, 512):
         with pytest.raises(ValueError, match="top_k"):
             sample_logits(x, top_k=k)
+
+
+def _adc_inputs(nlist, L, m, Q, P, seed, *, dead_list=True, dups=True):
+    """IVF code blocks on the card with planted ties: list 1 repeats list 0
+    (equal centroid scores make its slots tie with list 0's bit for bit),
+    duplicate code rows inside list 0, and one all-invalid list."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(0, 256, (nlist, L, m), generator=g, device="cuda", dtype=torch.uint8)
+    lvalid = torch.rand((nlist, L), generator=g, device="cuda") < 0.9
+    rowpos = torch.randperm(nlist * L, generator=g, device="cuda").to(torch.int32).reshape(nlist, L)
+    if dups:
+        codes[0, L // 2:] = codes[0, : L - L // 2]
+        codes[1], lvalid[1] = codes[0], lvalid[0]
+    if dead_list:
+        lvalid[2] = False
+    scores = torch.rand((Q, nlist), generator=g, device="cuda")
+    scores[:, 1] = scores[:, 0]
+    scores[:, :3] += 2.0  # lists 0-2 probed by every query
+    top_c, top_ci = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_c, top_ci = top_c[:, :P].contiguous(), top_ci[:, :P].to(torch.int32).contiguous()
+    lut = torch.randn((Q, m, 256), generator=g, device="cuda")
+    return codes, lvalid, rowpos, top_ci, top_c, lut
+
+
+@pytest.mark.parametrize("Q", [1, 8, 128])
+@pytest.mark.parametrize("m,L", [(96, 256), (12, 128), (6, 64), (200, 64), (48, 100)])
+def test_ann_adc_kernel_matches_plain(m, L, Q):
+    """``ann_adc`` against ``adc_shortlist_plain``: scores bit for bit and
+    the same row positions (keys are unique: ties go lower flat index
+    first), at m on each code-load width (16-byte, 4-byte, single bytes),
+    past the LUT's shared-memory chunk (m = 200), with ties and an
+    all-invalid list, at Q 1, 8 and 128."""
+    nlist, P = 16, 6
+    args = _adc_inputs(nlist, L, m, Q, P, seed=m + L + Q)
+    for S in (1, 256, min(P * L, 2048)):
+        n0 = kernels.LAUNCHES["ann_adc"]
+        got_s, got_p = adc_shortlist(*args, S)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["ann_adc"] == n0 + 1
+        want_s, want_p = adc_shortlist_plain(*args, S)
+        assert torch.equal(got_s, want_s), (S, (got_s - want_s).abs().max().item())
+        assert torch.equal(got_p, want_p), S
+
+
+@pytest.mark.parametrize("L,P,S,density", [(4096, 8, 256, 0.02), (8192, 32, 2048, 1.0),
+                                            (30592, 64, 256, 0.016)])
+def test_ann_adc_kernel_long_scans(L, P, S, density):
+    """Scans of many groups: the select's candidate groups (those whose
+    maximum reaches the S-th largest group maximum) on sparse lists, as
+    k-means leaves them, and a candidate set past the shared-memory cache
+    (S 2,048 on full lists); bit-equal scores and the same positions."""
+    nlist, m, Q = 2 * P, 96, 8
+    codes, lvalid, rowpos, top_ci, top_c, lut = _adc_inputs(nlist, L, m, Q, P, seed=L + P)
+    g = torch.Generator(device="cuda").manual_seed(S)
+    lvalid &= torch.rand(lvalid.shape, generator=g, device="cuda") < density
+    args = (codes, lvalid, rowpos, top_ci, top_c, lut, S)
+    got_s, got_p = adc_shortlist(*args)
+    want_s, want_p = adc_shortlist_plain(*args)
+    assert torch.equal(got_s, want_s) and torch.equal(got_p, want_p)
+
+
+def test_ann_adc_kernel_all_invalid_and_refusals():
+    """Every probed list invalid: the shortlist is all -inf, positions in
+    flat order; a shortlist past 2,048 or past P L raises."""
+    args = list(_adc_inputs(8, 64, 16, 2, 3, seed=5, dups=False))
+    args[1] = torch.zeros_like(args[1])
+    got_s, got_p = adc_shortlist(*args, 100)
+    want_s, want_p = adc_shortlist_plain(*args, 100)
+    assert bool(torch.isinf(got_s).all()) and torch.equal(got_p, want_p)
+    with pytest.raises(ValueError):
+        adc_shortlist(*args, 3 * 64 + 1)
+
+
+def _rerank_case(N, D, Q, S, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((N, D), generator=g, device="cuda")
+    x[N // 2:] = x[: N - N // 2]  # duplicate rows: exact ties
+    tier = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    rvalid = torch.rand(N, generator=g, device="cuda") < 0.9
+    q = torch.randn((Q, D), generator=g, device="cuda")
+    q = q / q.norm(dim=1, keepdim=True)
+    sl_pos = torch.randint(0, N, (Q, S), generator=g, device="cuda", dtype=torch.int32)
+    sl_scores = torch.rand((Q, S), generator=g, device="cuda")
+    sl_scores[:, ::7] = float("-inf")
+    return tier, rvalid, q, sl_scores, sl_pos
+
+
+@pytest.mark.parametrize("Q", [1, 8, 128])
+@pytest.mark.parametrize("D,S,k", [(768, 256, 16), (64, 1024, 1024), (20, 100, 7)])
+def test_ann_rerank_kernel_matches_plain(D, S, k, Q):
+    """``ann_rerank`` against ``rerank_plain`` by ``rerank_agreement``: the
+    same finite slots, scores within ``topk_score_bound``, the same
+    positions at every rank further than twice the bound from its
+    neighbours (duplicate rows tie), and each returned position's own
+    score; D off 8 takes the scalar loads."""
+    args = _rerank_case(4096, D, Q, S, seed=D + S + Q)
+    n0 = kernels.LAUNCHES["ann_rerank"]
+    got_s, got_p = rerank(*args, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ann_rerank"] == n0 + 1
+    report = rerank_agreement(*args, got_s, got_p)
+    assert not report["problems"], report
+
+
+def test_ann_index_on_the_card_matches_cpu():
+    """A trained index on the card (both kernels, ``knn_topk`` for the exact
+    tier) against the same rows on the CPU (plain twins): ids equal,
+    scores within the bound; each path launched its kernels."""
+    dim, n = 64, 6000
+    rows = make_clustered(n, dim, seed=0)
+    gpu, cpu = ANNIndex(dim, seed=0), ANNIndex(dim, seed=0, device="cpu")
+    for ix in (gpu, cpu):
+        ix.add(range(n), rows)
+    qs = rows[::600] + 0.01
+    assert [[i for i, _ in r] for r in gpu.search_batch(qs, k=5)] == \
+        [[i for i, _ in r] for r in cpu.search_batch(qs, k=5)]
+    for ix in (gpu, cpu):
+        ix.train()
+    # the two trainings run the same steps in other summation orders: hold
+    # the card's search to the card's own exact tier instead
+    n0 = dict(kernels.LAUNCHES)
+    rec = gpu.probe_recall(n_queries=64, k=10, seed=0)
+    assert rec["recall_at_k"] >= 0.9
+    assert kernels.LAUNCHES["ann_adc"] == n0["ann_adc"] + 1
+    assert kernels.LAUNCHES["ann_rerank"] == n0["ann_rerank"] + 1
+    assert kernels.LAUNCHES["knn_topk"] == n0["knn_topk"] + 1
