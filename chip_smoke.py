@@ -42,7 +42,14 @@ exits non-zero):
    ADC scores bit-equal to the twin's and the same positions, the rerank
    within ``topk_score_bound``; their time at the main path's search (Q 8,
    nprobe 64) beside the bound, the twins and, for the rerank, gather +
-   ``torch.bmm`` + ``torch.topk``;
+   ``torch.bmm`` + ``torch.topk``; the MoE kernels (``moe_route``, the
+   grouped ``moe_gemm`` with its gate/up and down epilogues,
+   ``moe_combine``) at Mixtral 8x7B's widths (:func:`check_moe`: T 8, 512
+   and 2,048, a capacity factor that drops, every token on two experts;
+   bf16 and f32): routing equal outside tokens near a tie, each GEMM within
+   ``moe_gemm_bf16_bound``, the combine bit-equal; their time at the decode
+   tick's shape beside the bound, the twins and ``torch.bmm`` over the
+   dense dispatch;
 3. small f32 models on the card (kernels) against the same models on the
    CPU (plain twins): the decoder's prefill logits and the engine's greedy
    token ids at the default loop (on the card the fused 8-step tick
@@ -54,7 +61,10 @@ exits non-zero):
    decoder (the generic route) card vs CPU and over ``/dialog/``; greedy
    JSON-mode ids card vs CPU (the JSON tick's graph captured at the first
    JSON request, sampler launches = sampling steps); the tiny encoder's
-   ``encode`` and an ``EmbeddingEngine`` coalescing three calls;
+   ``encode`` and an ``EmbeddingEngine`` coalescing three calls; the tiny
+   MoE decoder (``ModelSpec(tiny=True, num_experts=4)``, f32) card vs CPU:
+   prefill logits, greedy ids at the default loop and ``/dialog/`` answers
+   (:func:`small_moe`);
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
    weights drawn on the card, a ``GenerationEngine`` at the default loop
    (fused 8-step ticks as a CUDA graph, piggybacked prefill, the admission
@@ -113,7 +123,16 @@ exits non-zero):
    and the durability drill (:func:`durability_drill`: 65,536 x 768,
    WAL + snapshot, reopen with equal searches, ``cli ann verify`` in a
    subprocess clean and after a flipped byte);
-10. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
+10. Mixtral 8x7B at full width, 24 of its 32 layers (the most whose bf16
+    weights fit the card), bf16 random weights drawn on the card, behind
+    ``/dialog/`` at the JAX ``ModelSpec`` defaults (:func:`mixtral_phase`),
+    after every engine of the earlier phases is stopped and allocated
+    memory checked near zero: phase 4's four requests over 6 runs, MoE
+    launches = 4 x 24 per forward (route, gate/up, down, combine) with no
+    plain twin called, one layer's ``moe_mlp`` on a real chunk's
+    activations held to its twins, the live experts a decode step, and the
+    decode breakdown (MoE kernels, attention and the rest);
+11. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
     line, and the final ``{"ok": true, ...}`` line.
 """
 
@@ -266,7 +285,8 @@ def env_and_build():
         spills = [sp for _, _, sp in table]
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
-        if name in ("paged_decode", "knn_topk", "qgemm", "sample", "ann_adc", "ann_rerank"):
+        if name in ("paged_decode", "knn_topk", "qgemm", "sample", "ann_adc", "ann_rerank",
+                    "moe_route", "moe_gemm"):
             smem = ptxas_smem(text)
             log(f"  ptxas[{name}] per kernel: " + "; ".join(
                 f"{label} {r} regs, {sp} B spilled, {smem.get(label, 0)} B static smem"
@@ -320,10 +340,12 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
-    r"|qgemm_stream_kernel|qgemm_cc_kernel|adc_scan_kernel)I(\w*?)EEv"
+    r"|qgemm_stream_kernel|qgemm_cc_kernel|adc_scan_kernel|moe_route_topk_kernel"
+    r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_cc_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(
-    r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel)E")
+    r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel"
+    r"|moe_route_scan_kernel)E")
 
 
 def kernel_label(mangled: str) -> str:
@@ -1497,6 +1519,230 @@ def check_ann(gen) -> list:
     ]
 
 
+MOE_E, MOE_F, MOE_X, MOE_K = 4096, 14336, 8, 2  # Mixtral 8x7B's layer (config.py:261-275)
+PEAK_F32_FLOPS = 67e12  # the CUDA cores' f32 rate (the router, the combine, the f32 GEMMs)
+
+
+def moe_layer_weights(dtype, gen) -> dict:
+    """One Mixtral-width MoE layer's random weights (``llama.init``'s scales)."""
+    import torch
+
+    E, F, X = MOE_E, MOE_F, MOE_X
+
+    def w(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    return {"router": w((E, X), E ** -0.5), "w_gate": w((X, E, F), E ** -0.5),
+            "w_up": w((X, E, F), E ** -0.5), "w_down": w((X, F, E), F ** -0.5)}
+
+
+def moe_bounds_ms(x, p, routing) -> dict:
+    """Each MoE kernel's bound on this run's routing: (ms, "bytes" or
+    "operations"), the larger of the bytes it must move (each input read
+    once, each output written once: only the live experts' weights, the
+    kept rows) at 3.35 TB/s and its operations at the tensor cores' bf16
+    rate (the GEMMs in bf16) or the CUDA cores' f32 rate."""
+    import torch
+
+    tok_slot, _, slot_tok, fill = routing
+    T, E = x.shape
+    X, _, F = p["w_gate"].shape
+    K = tok_slot.shape[1]
+    C = slot_tok.shape[1]
+    es = x.element_size()
+    live = int((fill > 0).sum())
+    rows = int(fill.sum())
+    kept = int((tok_slot >= 0).sum())
+    gemm_peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+    def bound(nbytes, ops, peak):
+        b, o = nbytes / PEAK_HBM_BYTES * 1e3, ops / peak * 1e3
+        return (b, "bytes") if b >= o else (o, "operations")
+
+    return {
+        "route": bound(T * E * es + E * X * es + T * K * 8 + X * C * 4 + X * 4, 2 * T * E * X,
+                       PEAK_F32_FLOPS),
+        "gate_up": bound(live * 2 * E * F * es + rows * E * es + rows * F * es, 4 * rows * E * F,
+                         gemm_peak),
+        "down": bound(live * F * E * es + rows * F * es + rows * E * es, 2 * rows * F * E,
+                      gemm_peak),
+        "combine": bound(kept * E * es + T * K * 8 + T * E * es, 2 * kept * E, PEAK_F32_FLOPS),
+    }
+
+
+def check_moe_layer(x, p, C, label: str, *, drops_expected=False) -> dict:
+    """The four MoE kernels on ``x [T, E]`` through one layer ``p`` at
+    capacity ``C``, each against its plain twin on the card: the routing
+    (ids and gates equal outside tokens near a tie, slots and fill equal
+    outside the flagged tokens, all equal when none is near), each GEMM
+    epilogue within ``moe_gemm_bf16_bound`` (bf16) or ``F32_TOL`` (f32) on
+    its live rows, the combine bit-equal given the kernel's ``ye``.
+    Returns the errors and the routing."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    K = MOE_K
+    routing = moe.moe_route(x, p["router"], K, C)
+    want = moe.moe_route_plain(x, p["router"], K, C)
+    near, flagged = moe.route_margin(x, p["router"], K)
+    tok_slot, tok_gate, slot_tok, fill = routing
+    both = (tok_slot >= 0) & (want[0] >= 0) & ~near[:, None]
+    ids_ok = bool(((tok_slot // C) == (want[0] // C))[both].all())
+    gate_err = (tok_gate - want[1]).abs()[~near].max().item() if bool((~near).any()) else 0.0
+    slots_ok = bool((tok_slot == want[0])[~flagged].all())
+    exact = torch.equal(tok_slot, want[0]) and torch.equal(slot_tok, want[2]) and \
+        torch.equal(fill, want[3])
+    drops = int((tok_slot < 0).sum())
+    live_experts = int((fill > 0).sum())
+    live = torch.arange(C, device="cuda")[None, :, None] < fill[:, None, None].long()
+    h = moe.moe_expert_gemm(x, slot_tok, fill, p["w_gate"], p["w_up"], epilogue="gate_up")
+    ye = moe.moe_expert_gemm(h, slot_tok, fill, p["w_down"], epilogue="down")
+    errs = {}
+    for kind, out, args in (("gate_up", h, (x, slot_tok, p["w_gate"], p["w_up"])),
+                            ("down", ye, (h, slot_tok, p["w_down"]))):
+        if x.dtype == torch.bfloat16:
+            ref, bound = moe.moe_gemm_bf16_bound(*args, epilogue=kind)
+        else:
+            ref = moe.moe_expert_gemm_plain(*args[:2], fill, *args[2:], epilogue=kind)
+            bound = torch.full_like(ref, F32_TOL)
+        # rows past fill are never written (nor read), and the down reference
+        # over them reads that garbage: only the live rows count, and a NaN
+        # there fails the check
+        diff = torch.where(live, (out.float() - ref).abs(), 0.0)
+        ratio = torch.where(live, diff / bound, 0.0)
+        errs[kind] = (diff.max().item(), ratio.max().item() if bool(ratio.isfinite().all())
+                      else float("inf"))
+    out = moe.moe_combine(tok_slot, tok_gate, ye)
+    plain = moe.moe_combine_plain(tok_slot, tok_gate, ye)
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    combine_equal = torch.equal(out.view(bits), plain.view(bits))
+    torch.cuda.synchronize()
+    log(f"  {label}: C {C}, fill {fill.tolist()} ({live_experts} live experts, {drops} dropped "
+        f"choices); route: near-tie tokens {int(near.sum())}, flagged {int(flagged.sum())}, ids "
+        f"equal outside them {ids_ok}, gates max err {gate_err:.2e}, slots equal outside the "
+        f"flagged {slots_ok}, all equal {exact}; gate_up max_abs_err {errs['gate_up'][0]:.3e} "
+        f"worst err/bound {errs['gate_up'][1]:.4f}; down max_abs_err {errs['down'][0]:.3e} worst "
+        f"err/bound {errs['down'][1]:.4f}; combine bit-equal {combine_equal}")
+    if not (ids_ok and gate_err <= 1e-5 and slots_ok and (exact or bool(near.any()))):
+        fail(f"moe_route {label} disagrees with its plain twin outside the flagged tokens")
+    if errs["gate_up"][1] > 1 or errs["down"][1] > 1 or not combine_equal:
+        fail(f"MoE kernels {label} outside their bounds: {errs}, combine equal {combine_equal}")
+    if drops_expected and not drops:
+        fail(f"{label}: the forced-drop case dropped nothing")
+    return dict(routing=routing, errs=errs, gate_err=gate_err, drops=drops)
+
+
+def check_moe(gen) -> list:
+    """The MoE kernels (``csrc/moe_route.cu``, ``csrc/moe_gemm.cu``) against
+    their twins at Mixtral 8x7B's widths, one layer of random weights: T 8
+    (a decode tick, C 8), 512 (a chunk, C 160) and 2,048 (``[4, 512]``, C
+    640), T 512 at capacity factor 0.25 (drops), T 512 with every token
+    routed to two experts (six empty experts, their tiles skipped); bf16,
+    and f32 at T 8 and 512.  Then the time of each kernel at the decode
+    tick's shape (wall and device), its bound, its twin's time and the
+    yardstick: ``torch.bmm`` over the dense ``[X, C, E]`` dispatch (what the
+    JAX einsums compute, reading every expert), and for the combine one
+    ``torch.matmul`` of the dense combine."""
+    import dataclasses
+
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import DecoderConfig
+    from django_assistant_bot_tpu_torch.models.mixtral import expert_capacity
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    cfg = DecoderConfig.mixtral_8x7b()
+    worst = {"route": 0.0, "gate_up": 0.0, "down": 0.0, "combine": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = moe_layer_weights(dtype, gen)
+        cases = [(8, 1.25, False), (512, 1.25, False), (2048, 1.25, False), (512, 0.25, False),
+                 (512, 1.25, True)]
+        if dtype == torch.float32:
+            cases = cases[:2]
+        for T, factor, skew in cases:
+            x = torch.randn((T, MOE_E), generator=gen, device="cuda")
+            pp = p
+            if skew:  # a constant feature that sends every token to experts 0 and 1
+                x[:, 0] = 10.0
+                router = p["router"].float().clone()
+                router[0, :] = -5.0
+                router[0, 0], router[0, 1] = 5.0, 4.0
+                pp = {**p, "router": router.to(dtype)}
+            x = x.to(dtype)
+            C = expert_capacity(dataclasses.replace(cfg, expert_capacity_factor=factor), T)
+            label = (f"moe {str(dtype)[6:]} T={T} factor={factor}"
+                     + (" (every token to experts 0 and 1)" if skew else ""))
+            r = check_moe_layer(x, pp, C, label, drops_expected=factor < 1)
+            if skew and int((r["routing"][3] > 0).sum()) != 2:
+                fail(f"{label}: want exactly two live experts")
+            for kind in ("gate_up", "down"):
+                worst[kind] = max(worst[kind], r["errs"][kind][0])
+            worst["route"] = max(worst["route"], r["gate_err"])
+        del p
+    log(f"  moe: bf16 bounds, gate/up {moe.MOE_GEMM_BF16_BOUND_TEXT['gate_up']}; down "
+        f"{moe.MOE_GEMM_BF16_BOUND_TEXT['down']} (on the live rows); f32 {F32_TOL:.0e}; worst "
+        f"max_abs_err {worst}")
+    # timing at the decode tick's shape (T 8), bf16, and at a chunk and a [4, 512] prefill
+    p = moe_layer_weights(torch.bfloat16, gen)
+    out = {}
+    for T in (8, 512, 2048):
+        x = torch.randn((T, MOE_E), generator=gen, device="cuda").to(torch.bfloat16)
+        C = expert_capacity(cfg, T)
+        routing = moe.moe_route(x, p["router"], MOE_K, C)
+        tok_slot, tok_gate, slot_tok, fill = routing
+        h = moe.moe_expert_gemm(x, slot_tok, fill, p["w_gate"], p["w_up"], epilogue="gate_up")
+        ye = moe.moe_expert_gemm(h, slot_tok, fill, p["w_down"], epilogue="down")
+        xe = moe._gate_up_inputs(x, slot_tok)
+        dense_comb = torch.zeros((T, MOE_X * C), device="cuda", dtype=torch.bfloat16)
+        kept = tok_slot >= 0
+        rows = torch.arange(T, device="cuda")[:, None].expand(T, MOE_K)
+        dense_comb[rows[kept], tok_slot[kept].long()] = tok_gate[kept].to(torch.bfloat16)
+        bounds = moe_bounds_ms(x, p, routing)
+        calls = {
+            "route": (lambda: moe.moe_route(x, p["router"], MOE_K, C),
+                      lambda: moe.moe_route_plain(x, p["router"], MOE_K, C), None),
+            "gate_up": (lambda: moe.moe_expert_gemm(x, slot_tok, fill, p["w_gate"], p["w_up"],
+                                                    epilogue="gate_up"),
+                        lambda: moe.moe_expert_gemm_plain(x, slot_tok, fill, p["w_gate"],
+                                                          p["w_up"], epilogue="gate_up"),
+                        lambda: (torch.bmm(xe, p["w_gate"]), torch.bmm(xe, p["w_up"]))),
+            "down": (lambda: moe.moe_expert_gemm(h, slot_tok, fill, p["w_down"], epilogue="down"),
+                     lambda: moe.moe_expert_gemm_plain(h, slot_tok, fill, p["w_down"],
+                                                       epilogue="down"),
+                     lambda: torch.bmm(h, p["w_down"])),
+            "combine": (lambda: moe.moe_combine(tok_slot, tok_gate, ye),
+                        lambda: moe.moe_combine_plain(tok_slot, tok_gate, ye),
+                        lambda: torch.matmul(dense_comb, ye.reshape(MOE_X * C, MOE_E))),
+        }
+        for kind, (fn, plain, lib) in calls.items():
+            ms, dev = timed(fn, 50)
+            plain_ms = time_ms(plain, 5)
+            lib_ms = lib_dev = None
+            if lib is not None:
+                lib_ms, lib_dev = timed(lib, 50)
+            bound_ms, bound_by = bounds[kind]
+            log(f"  moe {kind} timing T={T} C={C} ({int((fill > 0).sum())} live experts) bf16: "
+                f"kernel wall {ms:.4f} ms (device {dev:.4f}), plain twin wall {plain_ms:.4f} ms, "
+                + (f"yardstick wall {lib_ms:.4f} ms (device {lib_dev:.4f}), "
+                   if lib is not None else "no library call, ")
+                + f"bound {bound_ms:.5f} ms ({bound_by}); share of the bound, device "
+                f"{bound_ms / dev:.4f}")
+            if T == 8:
+                out[kind] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=lib_ms)
+    del p
+    gc_collect()
+    src = {"route": "moe_route.cu", "gate_up": "moe_gemm.cu", "down": "moe_gemm.cu",
+           "combine": "moe_route.cu"}
+    replaces = {"route": 46, "gate_up": 65, "down": 70, "combine": 72}
+    names = {"route": "moe_route", "gate_up": "moe_gemm_gate_up", "down": "moe_gemm_down",
+             "combine": "moe_combine"}
+    return [{"name": names[k], "route": "cuda", "source": f"{PKG}/csrc/{src[k]}",
+             "replaces": f"django_assistant_bot_tpu/models/mixtral.py:{replaces[k]}",
+             "max_abs_err": worst[k], **out[k]} for k in names]
+
+
 # --------------------------------------------------------------------- phase 3
 def small_reference() -> int:
     """A small f32 model (head_dim 64, so both kernels run) on the card
@@ -1906,6 +2152,112 @@ def small_encoder() -> None:
         f"against the CPU engine max_abs_err {err:.3e}")
     if batches != [6] or err > 1e-5:
         fail(f"tiny EmbeddingEngine: batches {batches}, err {err}")
+
+
+def small_moe() -> dict:
+    """``ModelSpec(tiny=True, num_experts=4)`` in f32 (E 64, 4 experts, top
+    2) on the card (the MoE kernels, the CUDA graphs) against the same
+    weights on the CPU (the twins): prefill logits within 1e-4; greedy ids
+    at the default loop (8-step ticks replayed as a graph, a piggybacked
+    chunk) equal; then two greedy ``/dialog/`` requests through a
+    ``ModelRegistry`` behind ``create_app`` on each side, equal answers.
+    Returns the card's MoE launches over the engine run."""
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    spec = {"kind": "decoder", "tiny": True, "num_experts": 4, "dtype": "float32",
+            "max_slots": 4, "max_seq_len": 256, "chunk_size": 64}
+    cfg = DecoderConfig.tiny(num_experts=4)
+    params_cpu = llama.init(cfg, torch.Generator().manual_seed(8), "cpu")
+    params_gpu = {k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict) else v.cuda())
+                  for k, v in params_cpu.items()}
+    ids = torch.randint(1, 255, (2, 64), generator=torch.Generator().manual_seed(9), dtype=torch.int32)
+    lengths = torch.tensor([64, 30], dtype=torch.int32)
+    lc, _, _ = llama.prefill(params_cpu, cfg, ids, lengths)
+    lg, _, _ = llama.prefill(params_gpu, cfg, ids.cuda(), lengths.cuda())
+    err = (lg.cpu() - lc).abs().max().item()
+    log(f"  tiny MoE (4 experts, top 2) prefill, card vs CPU: logits max_abs_err {err:.3e} "
+        f"(bound 1e-04)")
+    if not (bool(torch.isfinite(lg).all()) and err <= 1e-4):
+        fail(f"tiny MoE prefill on the card disagrees with the CPU: {err}")
+    prompts = [torch.randint(1, 255, (n,), generator=torch.Generator().manual_seed(n)).tolist()
+               for n in (9, 40, 150, 70)]
+
+    def engine(device, params):
+        s = ModelSpec.from_dict("tiny-moe", {**spec, "device": device})
+        # FIFO admission on both sides: the waves do not depend on the clock
+        return s, GenerationEngine(cfg, params, ByteTokenizer(), device=device,
+                                   **{**s.engine_kwargs(), "scheduler": None})
+
+    def crank(eng):
+        eng._running = True
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+        with torch.no_grad():
+            for _ in range(1000):
+                if all(f.done() for f in futs):
+                    break
+                eng._loop_iteration()
+        eng._running = False
+        return [f.result(timeout=0).token_ids for f in futs], eng.decode_path_stats()
+
+    _, card_eng = engine("cuda", params_gpu)
+    kernels.reset_counts()
+    ids_gpu, dec = crank(card_eng)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if k.startswith("moe")}
+    routes = dict(kernels.MOE_GEMM_ROUTES)
+    ids_cpu, _ = crank(engine("cpu", params_cpu)[1])
+    log(f"  tiny MoE engine greedy ids at the default loop, card (CUDA graph, "
+        f"{dec['decode_steps']}-step ticks, {dec['prefill_chunks_piggybacked']} piggybacked "
+        f"chunks) vs CPU (eager): {'identical' if ids_gpu == ids_cpu else 'DIFFER'}; MoE "
+        f"launches {counts}, grouped GEMM routes {routes}")
+    if not (dec["cuda_graph"] and dec["decode_steps"] == 8 and dec["prefill_chunks_piggybacked"]):
+        fail(f"the tiny MoE card engine did not run the graph / fused ticks / piggyback: {dec}")
+    if ids_gpu != ids_cpu:
+        fail(f"tiny MoE greedy ids differ: card {ids_gpu} vs CPU {ids_cpu}")
+    if not (counts["moe_route"] and counts["moe_gemm"] == 2 * counts["moe_route"]
+            == 2 * counts["moe_combine"] and routes["cuda_core"] == counts["moe_gemm"]):
+        fail(f"tiny MoE: kernel launches {counts}, routes {routes}")
+
+    chats = [[{"role": "user", "content": "route me " * 3}],
+             [{"role": "user", "content": "experts " * 30}]]
+    answers = {}
+    for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        s, eng = engine(device, params)
+        registry = ModelRegistry()
+        registry.load(s, engine=eng)
+        loop = asyncio.new_event_loop()
+        client = TestClient(TestServer(create_app(registry)), loop=loop)
+
+        async def go():
+            out = []
+            for msgs in chats:
+                resp = await client.post("/dialog/", json={
+                    "model": "tiny-moe", "messages": msgs, "max_tokens": 12, "temperature": 0.0})
+                if resp.status != 200:
+                    fail(f"tiny MoE /dialog/ on {device} returned {resp.status}")
+                out.append((await resp.json())["response"]["result"])
+            return out
+
+        try:
+            loop.run_until_complete(client.start_server())
+            answers[device] = loop.run_until_complete(go())
+        finally:
+            loop.run_until_complete(client.close())
+            registry.stop()
+            loop.close()
+    log(f"  tiny MoE over /dialog/: card and CPU answers "
+        f"{'equal' if answers['cuda'] == answers['cpu'] else 'DIFFER'} "
+        f"({[len(a) for a in answers['cuda']]} chars)")
+    if answers["cuda"] != answers["cpu"]:
+        fail(f"tiny MoE /dialog/ answers differ: {answers}")
+    return counts
 
 
 # --------------------------------------------------------------------- phase 4
@@ -2319,9 +2671,12 @@ def _timed_run(fn, n: int, per: int, label: str, unit: str = "step", batches: in
     table = sorted(tables, key=lambda t: part(t)[0])[(batches - 1) // 2]
     for ms, calls, name in sorted(table, reverse=True)[:6]:
         log(f"    {ms:.4f} ms/{unit} in {calls:g} launches/{unit}: {name[:90]}")
-    for word in ("paged", "qgemm"):
+    words = ("paged", "qgemm", "moe")
+    for word in words:
         ms = [part(t, word)[0] for t in tables]
         log(f"    {word}: {stat(ms)}/{unit} in {part(table, word)[1]:g} launches/{unit}")
+    rest = [part(t)[0] - sum(part(t, w)[0] for w in words) for t in tables]
+    log(f"    the rest (neither {', '.join(words)}): {stat(rest)}/{unit}")
     log(f"    all kernels: {part(table)[1]:g} launches/{unit}")
 
 
@@ -2376,7 +2731,10 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
     cache = llama.init_paged_cache(cfg, B, B * NB, page, device="cuda")
     start = torch.tensor([5, 511, 512, 1041, 1836, 3000, 1500, 700], dtype=torch.int32, device="cuda")
     bt = torch.arange(B * NB, dtype=torch.int32, device="cuda").reshape(B, NB)
-    tokens = torch.zeros(B, dtype=torch.int32, device="cuda")
+    # random tokens: a MoE model routes them to about as many experts as a
+    # live batch does (a Llama-3 step does not depend on them)
+    tokens = torch.randint(1, 255, (B,), generator=torch.Generator(device="cuda").manual_seed(7),
+                           device="cuda", dtype=torch.int32)
 
     def step():
         cache.lengths.copy_(start)
@@ -2389,10 +2747,12 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
 
     def tick(piggyback=False):
         engine._cache.lengths.copy_(start)
+        engine._tokens_dev.copy_(tokens)
         engine._launch_tick(piggyback)
 
     def chunk_then_tick():
         engine._cache.lengths.copy_(start)
+        engine._tokens_dev.copy_(tokens)
         engine._chunk_body()
         engine._launch_tick()
 
@@ -3404,6 +3764,247 @@ def durability_drill() -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# --------------------------------------------------------------------- phase 10
+MIXTRAL_LAYERS = 24  # the deepest cut of Mixtral 8x7B's 32 layers whose bf16 weights fit one card
+
+
+def _moe_layer_input(params, cfg, ids, layer: int):
+    """The MLP input of ``layer`` in a prefill of ``ids`` (the residual
+    after its attention, normalised): ``llama._mlp`` is wrapped to keep it,
+    and the forward stops there."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import llama
+
+    seen = []
+
+    class _Stop(Exception):
+        pass
+
+    mlp = llama._mlp
+
+    def keep(c, p, h):
+        seen.append(h)
+        if len(seen) > layer:
+            raise _Stop
+        return mlp(c, p, h)
+
+    llama._mlp = keep
+    try:
+        llama.prefill(params, cfg, ids, torch.tensor([ids.shape[1]], dtype=torch.int32,
+                                                     device=ids.device))
+    except _Stop:
+        pass
+    finally:
+        llama._mlp = mlp
+    return seen[layer]
+
+
+def mixtral_phase(card: str) -> dict:
+    """Mixtral 8x7B at full width and 24 of its 32 layers (bf16, random
+    weights drawn on the card from a seed) behind ``/dialog/`` in a
+    ``ModelRegistry`` / ``create_app`` server, the engine at the JAX
+    ``ModelSpec`` defaults (8 slots, ``max_seq_len`` 4096, page 512, 8-step
+    ticks as a CUDA graph, piggybacked chunks).  Allocated memory must be
+    near zero before the weights are drawn.  Phase 4's four requests, 32
+    greedy tokens each, over 6 runs (the first counted): launch counts
+    zeroed just before and read just after; ``moe_route`` = ``moe_combine``
+    = 24 x (decode steps + prefill forwards), the grouped GEMM's gate/up
+    and down launches likewise, all on its tensor-core route; no plain twin
+    called; paged decode = 24 x decode steps, flash and the sampler
+    launched, qgemm not.  Then one layer's ``moe_mlp`` on a real chunk's
+    activations held to its twins, the live experts of a decode step, the
+    decode breakdown (the eager step's device time split into MoE kernels,
+    attention and the rest; the replayed tick per step) and the readings
+    (medians and min-max).  Returns the counted run's MoE launches."""
+    import dataclasses
+
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import DecoderConfig, llama, mixtral
+    from django_assistant_bot_tpu_torch.models.mixtral import expert_capacity
+    from django_assistant_bot_tpu_torch.ops import moe
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    stopped = stop_engines()
+    gc_collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    log(f"  stopped {stopped} engine(s) that earlier phases left serving")
+    log(f"  card memory before the weights: {before / 2**30:.3f} GiB allocated")
+    if before > 1 << 30:
+        fail(f"phase 10 starts with {before / 2**30:.2f} GiB still allocated")
+    cfg = dataclasses.replace(DecoderConfig.mixtral_8x7b(), num_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(31), "cuda")
+    torch.cuda.synchronize()
+    layers = params["layers"]
+    expert_bytes = sum(layers[k].numel() * 2 for k in ("w_gate", "w_up", "w_down"))
+    total = torch.cuda.memory_allocated() - before
+    log(f"  Mixtral 8x7B ({cfg.num_layers} of 32 layers, E {cfg.hidden_size}, F "
+        f"{cfg.intermediate_size}, {cfg.num_experts} experts, top {cfg.experts_per_token}, V "
+        f"{cfg.vocab_size}) drawn on the card in {time.perf_counter() - t0:.1f} s: weights "
+        f"{total / 1e9:.3f} GB allocated (experts {expert_bytes / 1e9:.3f} GB, "
+        f"{expert_bytes / cfg.num_layers / cfg.num_experts / 1e6:.1f} MB an expert)")
+    name = "mixtral-8x7b-24l-random"
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096)
+    engine, build_s = _build_engine(cfg, params, spec)
+    registry = ModelRegistry()
+    registry.load(spec, engine=engine)
+    log(f"  engine built in {build_s:.2f} s (graphs captured), KV pool "
+        f"{engine._kv_pool.n_pages} pages of {engine.kv_page_size}, graph pool "
+        f"{engine.graph_pool_bytes / 2**20:.1f} MiB; card memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    tok = ByteTokenizer()
+    messages = four_requests(tok)
+    port = _free_port()
+    forwards = [0]
+    plain_calls = {n: 0 for n in ("moe_route_plain", "moe_expert_gemm_plain",
+                                  "moe_combine_plain", "moe_mlp_plain")}
+    patched = []
+
+    def count(module, fn_name, counter, key):
+        orig = getattr(module, fn_name)
+
+        def counted(*a, _orig=orig, **kw):
+            counter[key] += 1
+            return _orig(*a, **kw)
+
+        patched.append((module, fn_name, orig))
+        setattr(module, fn_name, counted)
+
+    for fn_name in ("prefill", "prefill_suffix_paged"):
+        count(llama, fn_name, forwards, 0)
+    for fn_name in ("moe_route_plain", "moe_expert_gemm_plain", "moe_combine_plain"):
+        count(moe, fn_name, plain_calls, fn_name)
+    count(mixtral, "moe_mlp_plain", plain_calls, "moe_mlp_plain")
+
+    async def drive():
+        runner = web.AppRunner(create_app(registry))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                st, body, _ = await _post(session, port, name, _chat(300, 99))
+                if st != 200:
+                    fail(f"Mixtral warm-up /dialog/ returned {st}: {body}")
+                runs = []
+                for _ in range(6):  # the first counted, all six read
+                    torch.cuda.synchronize()
+                    kernels.reset_counts()
+                    forwards[0] = 0
+                    steps0, pig0 = engine.steps, engine._prefill_chunks_piggybacked
+                    samp0 = sampling_steps(engine)
+                    t = time.perf_counter()
+                    res = await asyncio.gather(*(_post(session, port, name, m)
+                                                 for m in messages.values()))
+                    wall = time.perf_counter() - t
+                    runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
+                                     epilogues=dict(kernels.MOE_GEMM_EPILOGUES),
+                                     routes=dict(kernels.MOE_GEMM_ROUTES),
+                                     samples=sampling_steps(engine) - samp0,
+                                     steps=engine.steps - steps0, forwards=forwards[0]
+                                     + engine._prefill_chunks_piggybacked - pig0))
+                return runs
+        finally:
+            await runner.cleanup()
+
+    try:
+        runs = asyncio.run(drive())
+    finally:
+        for module, fn_name, orig in patched:
+            setattr(module, fn_name, orig)
+    first = runs[0]
+    ttfts, rates = [], []
+    for run in runs:
+        t, r, _ = _check_dialogs(tok, list(messages.items()), run["results"])
+        ttfts += t
+        rates += r
+    counts, steps, fwd = first["counts"], first["steps"], first["forwards"]
+    L = cfg.num_layers
+    want = L * (steps + fwd)
+    log(f"  Mixtral main path on {card}: launches {counts}, grouped GEMM by epilogue "
+        f"{first['epilogues']}, by route {first['routes']}; {steps} decode steps, {fwd} prefill "
+        f"forwards: moe_route {counts['moe_route']} ({L} x ({steps} + {fwd}) = {want}); plain "
+        f"twin calls {plain_calls}")
+    if not (counts["moe_route"] == counts["moe_combine"] == want
+            and first["epilogues"] == {"gate_up": want, "down": want}
+            and counts["moe_gemm"] == 2 * want and first["routes"]["mma"] == 2 * want):
+        fail(f"Mixtral: MoE launches {counts}, {first['epilogues']}, {first['routes']}: want "
+             f"{want} of each (the gate/up and down launches on the mma route)")
+    if any(plain_calls.values()):
+        fail(f"Mixtral: a plain twin ran on the main path: {plain_calls}")
+    if counts["paged_decode"] != L * steps or counts["flash_prefill"] <= 0 or counts["qgemm"]:
+        fail(f"Mixtral: paged / flash / qgemm launches wrong: {counts}")
+    if counts["sample"] != first["samples"]:
+        fail(f"Mixtral: sampler launches {counts['sample']} != {first['samples']} sampling steps")
+    log(f"  Mixtral readings over {len(runs)} runs of the four requests [{card}]: TTFT "
+        f"{_stat(ttfts)}; decode {_stat(rates, 'tok/s')} per request; run wall "
+        f"{_stat([r['wall'] for r in runs])}")
+
+    # one layer's moe_mlp on a real chunk's activations, held to its twins
+    ids = torch.tensor([tok.encode_chat(messages["c"])[:engine.chunk_size]], dtype=torch.int32,
+                       device="cuda")
+    with torch.no_grad():
+        h = _moe_layer_input(params, cfg, ids, layer=1)
+        p1 = llama._layer(params, 1)
+        T = h.shape[0] * h.shape[1]
+        check_moe_layer(h.reshape(T, -1), p1, expert_capacity(cfg, T),
+                        f"Mixtral layer 1 on a real {T}-token chunk")
+        # the live experts of a decode step: 8 slots, random tokens
+        live = []
+        route = mixtral.moe_route
+
+        def record(*a, **kw):
+            out = route(*a, **kw)
+            live.append((out[3] > 0).sum())
+            return out
+
+        tokens = torch.randint(1, 255, (8,), generator=torch.Generator(device="cuda").manual_seed(5),
+                               device="cuda", dtype=torch.int32)
+        cache = llama.init_paged_cache(cfg, 8, 8, engine.kv_page_size, device="cuda")
+        mixtral.moe_route = record
+        try:
+            llama.decode_step_paged(params, cfg, tokens, cache,
+                                    torch.arange(8, dtype=torch.int32, device="cuda")[:, None])
+        finally:
+            mixtral.moe_route = route
+        per_layer = [int(n) for n in live]
+        del cache
+    mean_live = statistics.mean(per_layer)
+    log(f"  live experts a decode step (8 slots, random tokens), per layer: {per_layer}, mean "
+        f"{mean_live:.2f} of {cfg.num_experts}: {mean_live * expert_bytes / cfg.num_experts / 1e9:.3f}"
+        f" GB of expert weights read a step")
+    decode_breakdown(cfg, params, engine, label="Mixtral ")
+    moe_counts = {"moe_route": counts["moe_route"], "moe_combine": counts["moe_combine"],
+                  "moe_gemm_gate_up": first["epilogues"]["gate_up"],
+                  "moe_gemm_down": first["epilogues"]["down"]}
+    registry.stop()
+    del engine, registry, params, layers
+    gc_collect()
+    return moe_counts
+
+
+def stop_engines() -> int:
+    """Stop every engine an earlier phase left running (its loop thread
+    holds it, and so its weights and pools, alive); returns how many."""
+    import gc
+
+    from django_assistant_bot_tpu_torch.serving import EmbeddingEngine, GenerationEngine
+
+    live = [o for o in gc.get_objects()
+            if isinstance(o, (GenerationEngine, EmbeddingEngine)) and o._running]
+    for eng in live:
+        eng.stop()
+    return len(live)
+
+
 def gc_collect() -> None:
     import gc
 
@@ -3437,11 +4038,12 @@ def main() -> int:
     log("== phase 2: kernels vs plain twins")
     # the engine's page at 4096 for paged decode
     entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen), *check_qgemm(gen),
-               check_qgemm_generic(gen), check_sample(gen), *check_ann(gen)]
+               check_qgemm_generic(gen), check_sample(gen), *check_ann(gen), *check_moe(gen)]
 
     log("== phase 3: small f32 models, card vs CPU")
     generic_launches = small_reference()
     small_encoder()
+    small_moe()
 
     log("== phase 4: main path, full-width Llama-3-8B over /dialog/")
     counts, dec_spec, dec_engine = main_path(card)
@@ -3468,13 +4070,21 @@ def main() -> int:
 
     log("== phase 9: ANN retrieval at scale (2,000,000 x 768) and its durability drill")
     ann_counts = ann_phase(card)
+    gc_collect()
+
+    log(f"== phase 10: Mixtral 8x7B ({MIXTRAL_LAYERS} of 32 layers, full width, bf16) over "
+        "/dialog/ (the MoE kernels)")
+    moe_counts = mixtral_phase(card)
 
     # each kernel's launches on its own slice's main path: flash, paged
     # decode and the sampler on phase 4's requests, the KNN on phase 6's RAG
     # requests, qgemm on phase 8's requests in its format, its generic route
-    # on phase 3's int4 g=8 decoder, the ANN kernels on phase 9's searches
+    # on phase 3's int4 g=8 decoder, the ANN kernels on phase 9's searches,
+    # the MoE kernels on phase 10's requests
     for e in entries:
-        if e["name"] in ("ann_adc", "ann_rerank"):
+        if e["name"] in moe_counts:
+            e["launches"] = moe_counts[e["name"]]
+        elif e["name"] in ("ann_adc", "ann_rerank"):
             e["launches"] = ann_counts[e["name"]]
         elif e["name"] == "qgemm_generic":
             e["launches"] = generic_launches
@@ -3487,7 +4097,7 @@ def main() -> int:
     log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "
         f"{json.dumps(stream_counts)} (phase 7, the streams), qgemm {json.dumps(q_counts)} "
         f"(phase 8), qgemm generic {generic_launches} (phase 3), {json.dumps(ann_counts)} "
-        "(phase 9)")
+        f"(phase 9), {json.dumps(moe_counts)} (phase 10)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": entries}))

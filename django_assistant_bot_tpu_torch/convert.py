@@ -8,7 +8,9 @@ as tensors in ``cfg.dtype`` on ``device``.
 A quantized decoder leaf (the JAX ``QTensor``/``QTensor4`` NamedTuple, here
 a tuple with ``q`` and ``scale`` fields of numpy arrays) becomes the port's
 :class:`~.ops.quant.QTensor` (int8 ``q``) or :class:`~.ops.quant.QTensor4`
-(uint8 ``q``) with the same bytes and layout and f32 scales.
+(uint8 ``q``) with the same bytes and layout and f32 scales.  A MoE
+(Mixtral) tree's ``router``, ``w_gate``, ``w_up`` and ``w_down`` come across
+unchanged; quantized experts are refused (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -20,10 +22,14 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models.config import DecoderConfig, EncoderConfig
+from .models.mixtral import QUANTIZED_EXPERTS
 from .ops.quant import QTensor, QTensor4
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm", "mlp_norm")
 _BIAS_KEYS = ("bq", "bk", "bv")
+# a Mixtral layer's MoE leaves: the router [L, E, X] and the expert stacks
+# [L, X, in, out], carried across as they are
+_MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
 
 
 def _tensor(name: str, leaf: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -57,10 +63,16 @@ def params_from_jax(
 ) -> dict:
     """JAX decoder params (numpy leaves) -> the port's params dict."""
     dev = resolve_device(device)
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
     layers_in = tree["layers"]
     keys = _LAYER_KEYS + (_BIAS_KEYS if cfg.attn_bias else ())
+    if cfg.is_moe:
+        quantized = [k for k in _MOE_KEYS if hasattr(layers_in[k], "q")]
+        if quantized:
+            raise NotImplementedError(
+                f"quantized MoE experts ({', '.join(quantized)}) are not ported yet; "
+                f"{QUANTIZED_EXPERTS}"
+            )
+        keys += ("router",)
     layers = {k: _leaf(f"layers.{k}", layers_in[k], cfg.dtype, dev) for k in keys}
     out = {
         "tok_embed": _leaf("tok_embed", tree["tok_embed"], cfg.dtype, dev),

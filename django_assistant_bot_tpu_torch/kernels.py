@@ -56,11 +56,15 @@ KERNELS = {
     "sample": ("sample", "dabt_sample"),
     "ann_adc": ("ann_adc", "dabt_ann_adc"),
     "ann_rerank": ("ann_rerank", "dabt_ann_rerank"),
+    # the MoE routing source holds two kernels, an entry each
+    "moe_route": ("moe_route", "dabt_moe_route"),
+    "moe_combine": ("moe_route", "dabt_moe_combine"),
+    "moe_gemm": ("moe_gemm", "dabt_moe_gemm"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-# nvcc's stderr per kernel from the last build in this process (ptxas
+# nvcc's stderr per source stem from the last build in this process (ptxas
 # register / shared-memory report); empty for a library reused from disk
 BUILD_LOG: Dict[str, str] = {}
 
@@ -93,6 +97,14 @@ _ARGTYPES = {
     # tier, rvalid, q, sl_scores, sl_pos, out_scores, out_pos, N, D, Q, S, k,
     # stream
     "ann_rerank": [_P] * 7 + [_I] * 5 + [_P],
+    # x, router, tok_slot, tok_gate, slot_tok, fill, dtype, T, E, X, K, C,
+    # stream
+    "moe_route": [_P] * 6 + [_I] * 6 + [_P],
+    # tok_slot, tok_gate, ye, out, dtype, T, E, K, stream
+    "moe_combine": [_P] * 4 + [_I] * 4 + [_P],
+    # a, slot_tok, fill, w0, w1, out, dtype, epilogue, route, X, C, K, N,
+    # stream
+    "moe_gemm": [_P] * 6 + [_I] * 7 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -130,10 +142,17 @@ QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
 # prefill kernel), "cuda_core" (f32), "generic" (the CUDA-core kernel on the
 # shapes no other route takes)
 QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 0, "generic": 0}
+# the grouped expert GEMM's launches by epilogue ("gate_up", "down") and by
+# route ("mma": the tensor-core kernel, bf16 with K and N multiples of
+# MOE_GEMM_TILE on 16-byte boundaries; "cuda_core": the rest, f32 included)
+MOE_GEMM_EPILOGUES: Dict[str, int] = {"gate_up": 0, "down": 0}
+MOE_GEMM_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
+MOE_GEMM_TILE = 64
 # a kernel's launches by kind, for the kernels that count them
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
     "paged_decode": PAGED_ROUTES, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
+    "moe_gemm": MOE_GEMM_EPILOGUES, "moe_gemm_route": MOE_GEMM_ROUTES,
 }
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
 QGEMM_TILE_N = 64
@@ -276,25 +295,24 @@ def build(names: Optional[Sequence[str]] = None) -> float:
         todo = [n for n in names if n not in _libs]
         procs = {}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for name in todo:
-            stem = KERNELS[name][0]
+        for stem in dict.fromkeys(KERNELS[n][0] for n in todo):
             out = _lib_path(stem)
             if out.exists():
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")]
-            procs[name] = (
+            procs[stem] = (
                 subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
                 tmp,
                 out,
             )
         failed = []
-        for name, (proc, tmp, out) in procs.items():
+        for stem, (proc, tmp, out) in procs.items():
             stdout, stderr = proc.communicate()
-            BUILD_LOG[name] = stdout + stderr
+            BUILD_LOG[stem] = stdout + stderr
             if proc.returncode != 0:
-                failed.append(f"{name}: nvcc exited {proc.returncode}\n{stderr}")
+                failed.append(f"{stem}: nvcc exited {proc.returncode}\n{stderr}")
                 os.unlink(tmp)
             else:
                 os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
@@ -853,3 +871,62 @@ def ann_rerank(tier: torch.Tensor, rvalid: torch.Tensor, q: torch.Tensor,
         )
     _count("ann_rerank")
     _check("ann_rerank", err)
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, tok_slot: torch.Tensor,
+              tok_gate: torch.Tensor, slot_tok: torch.Tensor, fill: torch.Tensor) -> None:
+    """Launch the MoE routing (``csrc/moe_route.cu``: the router's top-k a
+    block a token, then the one-block capacity scan); the caller
+    (``ops.moe.moe_route``) validated the arguments and allocated the
+    outputs: tok_slot / tok_gate ``[T, K]`` int32 / f32, slot_tok ``[X, C]``
+    and fill ``[X]`` int32."""
+    T, E = x.shape
+    X = router.shape[1]
+    K = tok_slot.shape[1]
+    fn = _fn("moe_route")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), router.data_ptr(), tok_slot.data_ptr(), tok_gate.data_ptr(),
+                 slot_tok.data_ptr(), fill.data_ptr(), dtype_code(x.dtype), T, E, X, K,
+                 slot_tok.shape[1], _stream(x))
+    _count("moe_route")
+    _check("moe_route", err)
+
+
+def moe_gemm(a: torch.Tensor, slot_tok: torch.Tensor, fill: torch.Tensor, w0: torch.Tensor,
+             w1: Optional[torch.Tensor], out: torch.Tensor, *, epilogue: str) -> None:
+    """Launch one grouped expert GEMM (``csrc/moe_gemm.cu``): ``epilogue``
+    ``"gate_up"`` (a = x ``[T, K]``, w0 / w1 = Wg / Wu ``[X, K, N]``) or
+    ``"down"`` (a = h ``[X, C, K]``, w0 = Wd, w1 None), into out ``[X, C,
+    N]``; the caller (``ops.moe.moe_expert_gemm``) validated the arguments.
+    Route ``"mma"`` for bf16 with K and N multiples of ``MOE_GEMM_TILE`` and
+    every operand on a 16-byte boundary, else ``"cuda_core"``;
+    ``MOE_GEMM_EPILOGUES`` and ``MOE_GEMM_ROUTES`` count the launch's kind."""
+    X, K, N = w0.shape
+    C = slot_tok.shape[1]
+    operands = [t for t in (a, w0, w1) if t is not None]
+    mma = (a.dtype == torch.bfloat16 and K % MOE_GEMM_TILE == 0 and N % MOE_GEMM_TILE == 0
+           and not _misaligned(*operands))
+    route = "mma" if mma else "cuda_core"
+    fn = _fn("moe_gemm")
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), slot_tok.data_ptr(), fill.data_ptr(), w0.data_ptr(),
+                 w1.data_ptr() if w1 is not None else None, out.data_ptr(),
+                 dtype_code(a.dtype), 0 if epilogue == "gate_up" else 1, 0 if mma else 1,
+                 X, C, K, N, _stream(a))
+    _count("moe_gemm", kind=epilogue, route=route)
+    _check("moe_gemm", err)
+
+
+def moe_combine(tok_slot: torch.Tensor, tok_gate: torch.Tensor, ye: torch.Tensor,
+                out: torch.Tensor) -> None:
+    """Launch the MoE combine (``csrc/moe_route.cu``, one thread an output
+    element); the caller (``ops.moe.moe_combine``) validated the arguments
+    and allocated out ``[T, E]`` in ye's dtype."""
+    T, K = tok_slot.shape
+    E = ye.shape[-1]
+    fn = _fn("moe_combine")
+    with torch.cuda.device(ye.device):
+        err = fn(tok_slot.data_ptr(), tok_gate.data_ptr(), ye.data_ptr(), out.data_ptr(),
+                 dtype_code(ye.dtype), T, E, K, _stream(ye))
+    _count("moe_combine")
+    _check("moe_combine", err)

@@ -1,6 +1,7 @@
-"""Model families of the port: the Llama-family decoder and the BERT encoder."""
+"""Model families of the port: the Llama-family decoder (with Mixtral's MoE
+MLP) and the BERT encoder."""
 
-from . import encoder, llama
+from . import encoder, llama, mixtral
 from .config import DecoderConfig, EncoderConfig
 
-__all__ = ["DecoderConfig", "EncoderConfig", "encoder", "llama"]
+__all__ = ["DecoderConfig", "EncoderConfig", "encoder", "llama", "mixtral"]

@@ -229,6 +229,22 @@ class DecoderConfig:
         return cls(dtype=dtype)
 
     @classmethod
+    def mixtral_8x7b(cls, dtype=torch.bfloat16) -> "DecoderConfig":
+        return cls(
+            vocab_size=32_000,
+            hidden_size=4096,
+            intermediate_size=14_336,
+            num_layers=32,
+            num_heads=32,
+            num_kv_heads=8,
+            rope_theta=1e6,
+            num_experts=8,
+            experts_per_token=2,
+            max_seq_len=32_768,
+            dtype=dtype,
+        )
+
+    @classmethod
     def tiny(cls, *, num_experts: int = 0) -> "DecoderConfig":
         return cls(
             vocab_size=512,

@@ -6,9 +6,9 @@ Tensors are read shard by shard straight into torch, transposed to the
 ``[in, out]`` einsum convention, stacked along the leading layer axis and
 cast to the target dtype on the target device.  Same families as the JAX
 loader (Llama-3, Mistral, Qwen2 with qkv biases, Gemma with the (1+w) norm
-fold in f32, Phi-3 fused projections) and BERT encoders (an optional
-``bert.`` prefix stripped); Mixtral waits for the MoE slice (ROADMAP Queue 1
-item 11).  Unknown decoder model types are refused.
+fold in f32, Phi-3 fused projections, Mixtral's router and experts stacked
+``[L, X, in, out]``) and BERT encoders (an optional ``bert.`` prefix
+stripped).  Unknown decoder model types are refused.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .config import DecoderConfig, EncoderConfig
 
-_SUPPORTED_DECODERS = {"llama", "mistral", "qwen2", "gemma", "phi3"}
+_SUPPORTED_DECODERS = {"llama", "mistral", "mixtral", "qwen2", "gemma", "phi3"}
 
 
 def _read_safetensors(model_dir: str) -> Dict[str, torch.Tensor]:
@@ -103,12 +103,10 @@ def load_encoder(
 def load_decoder(
     model_dir: str, dtype: torch.dtype = torch.bfloat16, device: DeviceLike = "cuda"
 ) -> tuple[DecoderConfig, Dict[str, Any]]:
-    """Load a Llama/Qwen2/Gemma/Phi-3 checkpoint dir -> (DecoderConfig, params)."""
+    """Load a Llama/Qwen2/Gemma/Phi-3/Mixtral checkpoint dir -> (DecoderConfig, params)."""
     dev = resolve_device(device)
     hf = read_hf_config(model_dir)
     model_type = hf.get("model_type")
-    if model_type == "mixtral" or hf.get("num_local_experts"):
-        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
     if model_type is not None and model_type not in _SUPPORTED_DECODERS:
         raise ValueError(
             f"unsupported decoder model_type {model_type!r}; "
@@ -139,9 +137,25 @@ def load_decoder(
         layers["wq"] = _stack(t, pre + "self_attn.q_proj.weight", L, T=True)
         layers["wk"] = _stack(t, pre + "self_attn.k_proj.weight", L, T=True)
         layers["wv"] = _stack(t, pre + "self_attn.v_proj.weight", L, T=True)
-        layers["w_gate"] = _stack(t, pre + "mlp.gate_proj.weight", L, T=True)
-        layers["w_up"] = _stack(t, pre + "mlp.up_proj.weight", L, T=True)
-    layers["w_down"] = _stack(t, pre + "mlp.down_proj.weight", L, T=True)
+    if cfg.is_moe:
+        X = cfg.num_experts
+
+        def experts(w: str) -> torch.Tensor:  # [L, X, in, out]
+            return torch.stack([
+                torch.stack([t[f"model.layers.{i}.block_sparse_moe.experts.{j}.{w}.weight"].T
+                             for j in range(X)])
+                for i in range(L)
+            ])
+
+        layers["router"] = _stack(t, pre + "block_sparse_moe.gate.weight", L, T=True)
+        layers["w_gate"] = experts("w1")
+        layers["w_up"] = experts("w3")
+        layers["w_down"] = experts("w2")
+    else:
+        if model_type != "phi3":
+            layers["w_gate"] = _stack(t, pre + "mlp.gate_proj.weight", L, T=True)
+            layers["w_up"] = _stack(t, pre + "mlp.up_proj.weight", L, T=True)
+        layers["w_down"] = _stack(t, pre + "mlp.down_proj.weight", L, T=True)
     if cfg.attn_bias:  # Qwen2 family: qkv biases (o_proj stays bias-free)
         layers["bq"] = _stack(t, pre + "self_attn.q_proj.bias", L)
         layers["bk"] = _stack(t, pre + "self_attn.k_proj.bias", L)

@@ -8,7 +8,9 @@ axis becomes a Python loop over layers (:func:`_layer_windows` keeps the
 full/sliding-window split of ``_scan_window_split``).  A projection leaf may
 be a quantized weight (``ops.quant.QTensor`` / ``QTensor4``, from
 ``quantize_decoder_params``, :func:`init_int8` or :func:`init_int4`), and
-the embedding and head tables int8 ``QTensor``s.
+the embedding and head tables int8 ``QTensor``s.  With ``cfg.is_moe`` (Mixtral)
+the MLP is :func:`.mixtral.moe_mlp`: a ``router`` ``[L, E, X]`` and expert
+stacks ``w_gate`` / ``w_up`` ``[L, X, E, F]``, ``w_down`` ``[L, X, F, E]``.
 
 Paged KV: :class:`PagedKVCache` holds ``[L, P + 1, KH, page, D]`` pools.
 Pages ``0..P-1`` are the JAX package's pool; page ``P`` is a dump page that is
@@ -43,6 +45,7 @@ from ..ops.quant import (INT4_GROUP_SIZE, QTensor, QTensor4, QuantizedWeight, _i
                          qeinsum, qeinsum_group, tied_head)
 from ..ops.rope import apply_rope, rope_frequencies
 from .config import DecoderConfig
+from .mixtral import QUANTIZED_EXPERTS, moe_mlp
 
 Params = Dict[str, Any]
 
@@ -65,8 +68,6 @@ def init(cfg: DecoderConfig, generator: torch.Generator, device: DeviceLike = "c
     def ones(shape):
         return torch.ones(shape, device=device, dtype=cfg.dtype)
 
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
     layers = {
         "attn_norm": ones((L, E)),
         "wq": dense((L, E, H * D)),
@@ -74,10 +75,17 @@ def init(cfg: DecoderConfig, generator: torch.Generator, device: DeviceLike = "c
         "wv": dense((L, E, KH * D)),
         "wo": dense((L, H * D, E)),
         "mlp_norm": ones((L, E)),
-        "w_gate": dense((L, E, F)),
-        "w_up": dense((L, E, F)),
-        "w_down": dense((L, F, E), scale=F ** -0.5),
     }
+    if cfg.is_moe:  # Mixtral: the router and X experts per layer
+        X = cfg.num_experts
+        layers["router"] = dense((L, E, X))
+        layers["w_gate"] = dense((L, X, E, F))
+        layers["w_up"] = dense((L, X, E, F))
+        layers["w_down"] = dense((L, X, F, E), scale=F ** -0.5)
+    else:
+        layers["w_gate"] = dense((L, E, F))
+        layers["w_up"] = dense((L, E, F))
+        layers["w_down"] = dense((L, F, E), scale=F ** -0.5)
     if cfg.attn_bias:
         for name, width in (("bq", H * D), ("bk", KH * D), ("bv", KH * D)):
             layers[name] = torch.zeros((L, width), device=device, dtype=cfg.dtype)
@@ -117,7 +125,7 @@ def _synth_quant_params(
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = E ** -0.5
     if cfg.is_moe:
-        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
+        raise NotImplementedError(f"quantized MoE experts are not ported yet; {QUANTIZED_EXPERTS}")
 
     def qdense8(shape, target_std=None):
         q = torch.randint(-127, 128, shape, generator=generator, device=device, dtype=torch.int8)
@@ -193,7 +201,8 @@ def init_int4(cfg: DecoderConfig, generator: torch.Generator, device: DeviceLike
 
 def _layer(params: Params, l: int) -> Params:
     """Layer ``l``'s slice of the stacked ``layers`` dict (views; a quantized
-    leaf slices its q and its scale)."""
+    leaf slices its q and its scale; a MoE layer's ``[L, X, ...]`` expert
+    stacks give ``[X, ...]``)."""
     return {name: w.layer(l) if isinstance(w, QuantizedWeight) else w[l]
             for name, w in params["layers"].items()}
 
@@ -227,7 +236,7 @@ def _head_logits(params: Params, cfg: DecoderConfig, x: torch.Tensor) -> torch.T
 
 def _mlp(cfg: DecoderConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.is_moe:
-        raise NotImplementedError("MoE decoders wait for ROADMAP Queue 1 item 11")
+        return moe_mlp(cfg, p, x)
     if cfg.hidden_act == "gelu_tanh":
         act = functools.partial(torch.nn.functional.gelu, approximate="tanh")
     else:

@@ -8,7 +8,9 @@ sharing, the observability plane and crash-only supervision included).  An
 encoder spec that sets a decoder-only knob is refused, as the JAX registry
 refuses it.  ``quantize`` ("int8" / "int4", with ``quant_group_size``)
 quantizes a decoder's layer projections on the host before placement, as
-the JAX registry does; ``warmup`` / ``warmup_json`` run the engine's
+the JAX registry does (a MoE decoder's is refused: ROADMAP Queue 1 item 17);
+``num_experts`` makes a ``tiny`` decoder a Mixtral MoE, and a ``path`` serves
+a Mixtral checkpoint; ``warmup`` / ``warmup_json`` run the engine's
 ``warmup`` before it starts.  Keys of the JAX ``ModelSpec`` that are not ported yet are
 accepted only at the value the port implements and refused otherwise,
 naming their ROADMAP item; keys the JAX spec does not know are refused too.
@@ -29,7 +31,6 @@ _DEFERRED: Dict[str, tuple] = {
     "checkpoint": (None, "Queue 1 item 4 (native checkpoints)"),
     "kv_layout": ("paged", "Queue 1 item 8 (legacy contiguous KV)"),
     "speculative": (0, "Queue 1 item 9 (speculative decoding)"),
-    "num_experts": (0, "Queue 1 item 11 (MoE)"),
     "kv_host_bytes": (0, "Queue 1 item 12 (tiered KV)"),
     "kv_spill_dir": (None, "Queue 1 item 12 (tiered KV)"),
     "replicas": (1, "Queue 1 item 12 (router)"),
@@ -77,11 +78,20 @@ def _check_quantize(spec: "ModelSpec") -> None:
         )
     if spec.quantize and spec.quantize not in _QUANT_BITS:
         raise ValueError(f"model {name}: unknown quantize={spec.quantize!r}")
+    if spec.quantize and spec.num_experts:
+        _refuse_quantized_moe(name, spec.quantize)
     if spec.quant_group_size < 2 or spec.quant_group_size % 2:
         raise ValueError(
             f"model {name}: quant_group_size must be an even int >= 2 "
             f"(got {spec.quant_group_size})"
         )
+
+
+def _refuse_quantized_moe(name: str, quantize: str) -> None:
+    from ..models.mixtral import QUANTIZED_EXPERTS
+
+    raise ValueError(f"model {name}: quantize={quantize!r} with a MoE decoder is not ported "
+                     f"yet; {QUANTIZED_EXPERTS}")
 
 
 def _apply_quantize(spec: "ModelSpec", params: Dict[str, Any]) -> Dict[str, Any]:
@@ -141,6 +151,9 @@ class ModelSpec:
     # output channel) or "int4" (per quant_group_size rows and channel)
     quantize: Optional[str] = None
     quant_group_size: int = 64
+    # Mixtral MoE on a random tiny decoder (``tiny``): experts per layer, 0 =
+    # dense (a ``path`` checkpoint brings its own from its config)
+    num_experts: int = 0
     max_slots: int = 8
     max_seq_len: Optional[int] = None
     chunk_size: int = 512
@@ -348,7 +361,7 @@ class ModelRegistry:
                 cfg, params = load_decoder(spec.path, dtype=dtype,
                                            device="cpu" if spec.quantize else device)
             elif spec.tiny:
-                cfg = DecoderConfig.tiny()
+                cfg = DecoderConfig.tiny(num_experts=spec.num_experts)
                 if spec.max_seq_len and spec.max_seq_len > cfg.max_seq_len:
                     # a random tiny model has no pretrained context limit
                     cfg = dataclasses.replace(cfg, max_seq_len=int(spec.max_seq_len))
@@ -357,6 +370,8 @@ class ModelRegistry:
             else:
                 raise ValueError(f"model {name}: need path or tiny=true")
             if spec.quantize:
+                if cfg.is_moe:
+                    _refuse_quantized_moe(name, spec.quantize)
                 params = _params_to(_apply_quantize(spec, params), device)
             engine = GenerationEngine(
                 cfg, params, load_tokenizer(spec.path), device=device, **spec.engine_kwargs()

@@ -26,7 +26,10 @@ package:
   wk/wv's width) replays bit for bit as the eager call;
 - a tied int8 embedding table as the head: a bf16 replay equals the eager
   steps bitwise, and an f32 engine's greedy ids on the card equal the
-  CPU's.
+  CPU's;
+- a Mixtral MoE decoder (4 experts, top 2): the tick, piggyback and JSON
+  graphs replay bit for bit as their bodies run eagerly, and count the four
+  MoE launches a layer a forward at each replay.
 """
 
 import contextlib
@@ -79,7 +82,8 @@ def _engine(dtype, device="cuda", fmt=None, **kw):
 
 def _state(eng):
     c = eng._cache
-    return [c.k, c.v, c.lengths, eng._tokens_dev, eng._toks_dev]
+    # the JSON FSM states last: a JSON tick advances them
+    return [c.k, c.v, c.lengths, eng._tokens_dev, eng._toks_dev, eng._fsm_states_dev]
 
 
 def _replay_vs_eager(eng, graph, bodies):
@@ -182,17 +186,16 @@ def test_replay_after_prefill_waves_matches_cpu_engine():
 def test_replays_count_their_launches(dtype, route):
     eng = _engine(dtype)
     for rec in (eng._graph_launches, eng._piggyback_launches):
-        assert rec.launches == {"flash_prefill": 0, "paged_decode": K * eng.cfg.num_layers,
-                                "knn_topk": 0, "qgemm": 0, "sample": K}
+        assert {k: n for k, n in rec.launches.items() if n} == {
+            "paged_decode": K * eng.cfg.num_layers, "sample": K}
         assert rec.sub["paged_decode"][route] == K * eng.cfg.num_layers
     _mid_decode(eng, torch.Generator(device="cuda").manual_seed(4))
     kernels.reset_counts()
     for piggyback in (False, True, False):
         eng._launch_tick(piggyback)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"flash_prefill": 0, "knn_topk": 0, "qgemm": 0,
-                                       "paged_decode": 3 * K * eng.cfg.num_layers,
-                                       "sample": 3 * K}
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == {
+        "paged_decode": 3 * K * eng.cfg.num_layers, "sample": 3 * K}
     assert kernels.PAGED_ROUTES[route] == 3 * K * eng.cfg.num_layers
     (part, counters), = eng._graph_scratch.values()
     assert int(counters.abs().sum()) == 0  # each call leaves its counters at zero
@@ -470,3 +473,43 @@ def test_quantized_engine_on_the_card_matches_the_cpu(fmt):
     cpu, _ = run("cpu")
     assert card == cpu
     assert dec["cuda_graph"] and dec["prefill_chunks_piggybacked"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_graphs_replay_bitwise_and_count_their_launches(dtype):
+    cfg = dataclasses.replace(_cfg(dtype), num_experts=4)
+    params = llama.init(cfg, torch.Generator().manual_seed(3), "cpu")
+    params = {k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict) else v.cuda())
+              for k, v in params.items()}
+    eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cuda", max_slots=4,
+                           max_seq_len=1024, decode_steps=K, chunk_size=512)
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    _mid_decode(eng, gen)
+    eng._chunk_ids_dev.copy_(torch.randint(1, 255, (1, eng.chunk_size), generator=gen,
+                                           device="cuda", dtype=torch.int32))
+    eng._chunk_bt_dev.copy_(eng._bt_dev[2])
+    eng._chunk_slot_dev.fill_(2)
+    eng._chunk_start_dev.fill_(256)
+    eng._ensure_fsm()  # captures the JSON tick's graph
+    eng._json_dev.copy_(torch.tensor([True, False, False, True]))
+    for graph, bodies in ((eng._graph, [eng._tick_body]),
+                          (eng._piggyback_graph, [eng._chunk_body, eng._tick_body]),
+                          (eng._json_graph, [eng._json_tick_body])):
+        _, replayed, eager = _replay_vs_eager(eng, graph, bodies)
+        for name, got, want in zip(("k", "v", "lengths", "tokens", "toks", "fsm"), replayed,
+                                   eager):
+            assert torch.equal(got, want), name
+    route = "mma" if dtype == torch.bfloat16 else "cuda_core"
+    for rec, forwards in ((eng._graph_launches, K), (eng._piggyback_launches, K + 1),
+                          (eng._json_launches, 1)):
+        assert {k: rec.launches[k] for k in ("moe_route", "moe_gemm", "moe_combine")} == {
+            "moe_route": L * forwards, "moe_gemm": 2 * L * forwards,
+            "moe_combine": L * forwards}
+        assert rec.sub["moe_gemm"] == {"gate_up": L * forwards, "down": L * forwards}
+        assert rec.sub["moe_gemm_route"][route] == 2 * L * forwards
+    kernels.reset_counts()
+    eng._launch_tick(True)
+    eng._launch_tick(json=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_route"] == L * (K + 2)

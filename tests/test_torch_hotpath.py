@@ -85,3 +85,24 @@ class E:
     methods = {f.name: f for f in node.body}
     reached = _reach(methods, ["_issue_tick"])
     assert [s for n in reached for s in _syncs(methods[n])] == ["_deeper:10 .tolist()"]
+
+
+def test_moe_layer_has_no_host_sync():
+    """The MoE MLP a decode step (and its CUDA graph) runs: ``moe_mlp``, the
+    three wrappers' card paths and their launch functions read nothing on
+    the host (no ``.item()`` / ``.tolist()`` / ``.cpu()`` / ``nonzero`` /
+    synchronize): the capacity depends on the shape alone and the experts'
+    fills stay on the card."""
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import mixtral
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    fns = [mixtral.moe_mlp, mixtral.expert_capacity, moe.moe_route, moe.moe_expert_gemm,
+           moe.moe_combine, kernels.moe_route, kernels.moe_gemm, kernels.moe_combine]
+    found = []
+    for fn in fns:
+        (node,) = ast.parse(inspect.getsource(fn)).body
+        found += _syncs(node)
+        found += [f"{fn.__name__}:{n.lineno} nonzero" for n in ast.walk(node)
+                  if isinstance(n, ast.Attribute) and n.attr == "nonzero"]
+    assert not found, found

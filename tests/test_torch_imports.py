@@ -17,7 +17,8 @@ for name in names:
 assert "django_assistant_bot_tpu_torch.serving.scheduler" in names
 for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check", "ops.quant",
             "ops.json_fsm", "ops.sampling", "serving.streaming", "storage.ann",
-            "storage.durable", "storage.integrity", "conf", "cli.ann"):
+            "storage.durable", "storage.integrity", "conf", "cli.ann", "models.mixtral",
+            "ops.moe"):
     assert "django_assistant_bot_tpu_torch." + new in names, new
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))
@@ -29,8 +30,8 @@ assert not bad, bad
 def test_port_import_graph_has_no_jax():
     """Importing the package and every submodule (the engine and its copy of
     the scheduler, the encoder, the KNN index, the JSON FSM, the streaming
-    plane, the ANN index, its durability plane, the settings and the ANN
-    CLI among them) leaves ``jax`` and the JAX package out of
+    plane, the ANN index, its durability plane, the settings, the ANN CLI,
+    the MoE MLP and its ops among them) leaves ``jax`` and the JAX package out of
     ``sys.modules`` (a fresh interpreter: this test process has imported
     both)."""
     out = subprocess.run(
@@ -53,6 +54,8 @@ def test_port_sources_name_no_jax():
     root = Path(pkg.__file__).resolve().parent
     files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     assert any(f.name == "ann.py" and f.parent.name == "storage" for f in files)
+    assert any(f.name == "moe.py" and f.parent.name == "ops" for f in files)
+    assert any(f.name == "mixtral.py" and f.parent.name == "models" for f in files)
     bad = re.compile(r"^\s*(import jax|from jax|import jaxlib|from jaxlib)|"
                      r"django_assistant_bot_tpu\.|from django_assistant_bot_tpu import", re.M)
     for f in files:

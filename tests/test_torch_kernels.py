@@ -845,3 +845,175 @@ def test_ann_index_on_the_card_matches_cpu():
     assert kernels.LAUNCHES["ann_adc"] == n0["ann_adc"] + 1
     assert kernels.LAUNCHES["ann_rerank"] == n0["ann_rerank"] + 1
     assert kernels.LAUNCHES["knn_topk"] == n0["knn_topk"] + 1
+
+
+# ------------------------------------------------------------------ MoE
+def _capacity(T, X, K, factor):
+    from django_assistant_bot_tpu_torch.models.config import DecoderConfig
+    from django_assistant_bot_tpu_torch.models.mixtral import expert_capacity
+
+    cfg = DecoderConfig(num_experts=X, experts_per_token=K, expert_capacity_factor=factor)
+    return expert_capacity(cfg, T)
+
+
+def _moe_inputs(T, E, X, F, dtype, seed, *, tie=False, skew=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((T, E), generator=g, device="cuda")
+    router = torch.randn((E, X), generator=g, device="cuda") * E ** -0.5
+    if tie:
+        router[:, 2] = router[:, 1]  # equal logits for experts 1 and 2
+    if skew:  # a constant feature that sends every token to experts 0 and 1
+        x[:, 0] = 10.0
+        router[0, :] = -5.0
+        router[0, 0], router[0, 1] = 5.0, 4.0
+    w_gate = (torch.randn((X, E, F), generator=g, device="cuda") * E ** -0.5).to(dtype)
+    w_up = (torch.randn((X, E, F), generator=g, device="cuda") * E ** -0.5).to(dtype)
+    w_down = (torch.randn((X, F, E), generator=g, device="cuda") * F ** -0.5).to(dtype)
+    return x.to(dtype), router.to(dtype), w_gate, w_up, w_down
+
+
+def _check_route(x, router, top_k, C):
+    """The routing kernel against its twin: ids (the kept slots' experts)
+    and gates equal outside near ties, slots equal outside the flagged
+    tokens, and everything equal when no token is near a tie."""
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    got = moe.moe_route(x, router, top_k, C)
+    want = moe.moe_route_plain(x, router, top_k, C)
+    torch.cuda.synchronize()
+    near, flagged = moe.route_margin(x, router, top_k)
+    tok_slot, tok_gate, slot_tok, fill = got
+    both = (tok_slot >= 0) & (want[0] >= 0) & ~near[:, None]
+    assert bool(((tok_slot // C) == (want[0] // C))[both].all())
+    assert bool(((tok_gate - want[1]).abs()[~near] <= 1e-5).all())
+    assert bool((tok_slot == want[0])[~flagged].all())
+    if not bool(near.any()):
+        assert torch.equal(tok_slot, want[0]) and torch.equal(slot_tok, want[2])
+        assert torch.equal(fill, want[3])
+    return got, want, near
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,factor", [(8, 1.25), (512, 1.25), (2048, 1.25), (512, 0.25)])
+@pytest.mark.parametrize("tie", [False, True])
+def test_moe_route_kernel_matches_plain(dtype, T, factor, tie):
+    E, X, K = 4096, 8, 2
+    C = _capacity(T, X, K, factor)
+    x, router, *_ = _moe_inputs(T, E, X, 64, dtype, T, tie=tie)
+    before = kernels.LAUNCHES["moe_route"]
+    (tok_slot, _, slot_tok, fill), want, near = _check_route(x, router, K, C)
+    assert kernels.LAUNCHES["moe_route"] == before + 1
+    assert int(near.sum()) <= max(2, T // 256)
+    if factor < 1:
+        assert bool((tok_slot < 0).any())
+    # slot_tok and fill are the inverse of tok_slot
+    for xi in range(X):
+        live = slot_tok[xi, : int(fill[xi])]
+        assert bool((live >= 0).all()) and bool((slot_tok[xi, int(fill[xi]):] == -1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,E,F,skew", [(8, 4096, 14336, False), (512, 1024, 2048, False),
+                                         (64, 256, 512, True), (37, 96, 80, False)])
+def test_moe_expert_gemm_kernel_matches_plain(dtype, T, E, F, skew):
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    X, K = 8, 2
+    C = _capacity(T, X, K, 1.25)
+    x, router, wg, wu, wd = _moe_inputs(T, E, X, F, dtype, 7 + T, skew=skew)
+    tok_slot, tok_gate, slot_tok, fill = moe.moe_route(x, router, K, C)
+    if skew:
+        assert int((fill > 0).sum()) == 2  # six empty experts
+    live = torch.arange(C, device="cuda")[None, :, None] < fill[:, None, None].long()
+    sub = dict(kernels.MOE_GEMM_EPILOGUES)
+    h = moe.moe_expert_gemm(x, slot_tok, fill, wg, wu, epilogue="gate_up")
+    ye = moe.moe_expert_gemm(h, slot_tok, fill, wd, epilogue="down")
+    torch.cuda.synchronize()
+    assert kernels.MOE_GEMM_EPILOGUES["gate_up"] == sub["gate_up"] + 1
+    assert kernels.MOE_GEMM_EPILOGUES["down"] == sub["down"] + 1
+    for out, args, kind in ((h, (x, slot_tok, wg, wu), "gate_up"), (ye, (h, slot_tok, wd), "down")):
+        if dtype == torch.bfloat16:
+            ref, bound = moe.moe_gemm_bf16_bound(*args, epilogue=kind)
+        else:
+            ref = moe.moe_expert_gemm_plain(*args[:2], fill, *args[2:], epilogue=kind)
+            bound = torch.full_like(ref, F32_TOL) + 1e-5 * ref.abs()
+        ok = ((out.float() - ref).abs() <= bound) | ~live  # a NaN in a live row fails
+        assert bool(ok.all()), (kind, ((out.float() - ref).abs() / bound)[live.expand_as(ok)].max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,factor", [(8, 1.25), (512, 0.25)])
+def test_moe_combine_kernel_bit_equal(dtype, T, factor):
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    E, X, K = 512, 8, 2
+    C = _capacity(T, X, K, factor)
+    x, router, *_ = _moe_inputs(T, E, X, 64, dtype, 3)
+    tok_slot, tok_gate, slot_tok, fill = moe.moe_route(x, router, K, C)
+    ye = torch.randn((X, C, E), device="cuda").to(dtype)
+    before = kernels.LAUNCHES["moe_combine"]
+    out = moe.moe_combine(tok_slot, tok_gate, ye)
+    assert kernels.LAUNCHES["moe_combine"] == before + 1
+    want = moe.moe_combine_plain(tok_slot, tok_gate, ye)
+    assert torch.equal(out.view(torch.int16) if dtype == torch.bfloat16 else out.view(torch.int32),
+                       want.view(torch.int16) if dtype == torch.bfloat16 else want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_mlp_on_the_card_matches_cpu_and_replays_in_a_graph(dtype):
+    """``moe_mlp`` on the card (four kernel launches, counted at each replay
+    of a CUDA graph that captured it) against the twins on the CPU."""
+    from django_assistant_bot_tpu_torch.models.config import DecoderConfig
+    from django_assistant_bot_tpu_torch.models.mixtral import moe_mlp
+
+    cfg = DecoderConfig(hidden_size=256, intermediate_size=512, num_experts=4,
+                        experts_per_token=2, dtype=dtype)
+    x, router, wg, wu, wd = _moe_inputs(64, 256, 4, 512, dtype, 11)
+    p = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
+    xb = x.reshape(8, 8, 256)
+    before = kernels.launch_counts()
+    out = moe_mlp(cfg, p, xb)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in ("moe_route", "moe_gemm", "moe_combine")} == {
+        "moe_route": 1, "moe_gemm": 2, "moe_combine": 1}
+    cpu = moe_mlp(cfg, {k: v.cpu() for k, v in p.items()}, xb.cpu()).float().reshape(64, -1)
+    err = (out.cpu().float().reshape(64, -1) - cpu).abs()
+    if dtype == torch.bfloat16:
+        # bf16 products rounded after sums in other orders move h and ye by
+        # an ulp here and there: held per row to 2^-7 of its largest value;
+        # a token near a routing tie may take another expert and is left out
+        from django_assistant_bot_tpu_torch.ops.moe import route_margin
+
+        near, _ = route_margin(x.cpu(), router.cpu(), 2)
+        tol = 2.0 ** -6 * cpu.abs() + 2.0 ** -7 * cpu.abs().amax(-1, keepdim=True)
+        assert bool((err <= tol)[~near].all()), (err / tol).max().item()
+    else:
+        assert err.max().item() <= F32_TOL
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe_mlp(cfg, p, xb)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with kernels.record_graph_launches() as rec:
+        with torch.cuda.graph(graph):
+            static = moe_mlp(cfg, p, xb)
+    assert rec.launches["moe_route"] == 1 and rec.launches["moe_gemm"] == 2
+    before = kernels.launch_counts()
+    graph.replay()
+    rec.replayed()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_combine"] == before["moe_combine"] + 1
+    assert torch.equal(static, out)
+
+
+def test_moe_wrappers_refuse_what_they_do_not_take():
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    x = torch.zeros((4, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        moe.moe_route(x, torch.zeros((64, 4), device="cuda", dtype=torch.float16), 2, 8)
+    with pytest.raises(ValueError):  # more experts than the kernel's lanes
+        moe.moe_route(x.float(), torch.zeros((64, 33), device="cuda"), 2, 8)
+    with pytest.raises(ValueError):  # a mix of devices
+        moe.moe_route(x.float(), torch.zeros((64, 4)), 2, 8)

@@ -208,11 +208,12 @@ def test_load_decoder_matches_jax_loader(synth_dir):
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
 
 
-@pytest.mark.parametrize("family", ["mistral", "qwen2", "gemma", "phi3"])
+@pytest.mark.parametrize("family", ["mistral", "qwen2", "gemma", "phi3", "mixtral"])
 def test_load_decoder_families_match_jax_loader(family, tmp_path):
     """The family-specific mappings: Mistral's sliding window, Qwen2's qkv
     biases and max_window_layers split, Gemma's (1+w) norm fold, GeGLU,
-    scaled and tied embeddings, Phi-3's fused projections."""
+    scaled and tied embeddings, Phi-3's fused projections, Mixtral's router
+    and stacked experts."""
     transformers = pytest.importorskip("transformers")
     from django_assistant_bot_tpu.models.hf_loader import load_decoder as jax_load
     from django_assistant_bot_tpu_torch.models.hf_loader import load_decoder
@@ -227,6 +228,7 @@ def test_load_decoder_families_match_jax_loader(family, tmp_path):
                   dict(use_sliding_window=True, sliding_window=16, max_window_layers=1)),
         "gemma": ("GemmaConfig", "GemmaForCausalLM", dict(head_dim=16)),
         "phi3": ("Phi3Config", "Phi3ForCausalLM", dict(pad_token_id=0)),
+        "mixtral": ("MixtralConfig", "MixtralForCausalLM", dict(num_local_experts=4)),
     }[family]
     torch.manual_seed(0)
     model = getattr(transformers, model_cls)(getattr(transformers, config_cls)(**common, **extra))
