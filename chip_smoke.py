@@ -5,8 +5,9 @@
 
 Needs one CUDA card, ``nvcc`` and the repository checkout around this file;
 without a card, or run from a directory that holds only this script, it
-exits non-zero before printing any result.  Phases, in order (any failure
-exits non-zero):
+exits non-zero before printing any result.  Phases, in the order they run
+(1-7, 11, 8-10; any failure exits non-zero; each phase's wall seconds are
+printed on a line of their own):
 
 1. environment (torch / CUDA versions, ``nvidia-smi`` name and power limit)
    and the kernel build from ``django_assistant_bot_tpu_torch/csrc`` (one
@@ -16,7 +17,9 @@ exits non-zero):
    plain twin's time and, where one PyTorch call computes the same
    function, that call's time (a yardstick only; the port never calls it);
    ``ms`` is the wall time per call over back-to-back calls (CUDA events),
-   ``device_ms`` the summed kernel time per call (torch.profiler); the
+   ``device_ms`` the summed kernel time per call (torch.profiler; where
+   its profiles all come back without kernel records, the CUDA-event span
+   of a call, logged as such and counted at the end); the
    HMMA / LDGSTS / HGMMA / UTMALDG / SYNCS counts of the libraries; for
    paged decode also the main path's own decode shape and a bitwise repeat
    check (``paged_live_keys`` and ``paged_bound_ms`` are also imported by
@@ -35,14 +38,20 @@ exits non-zero):
    sampler at B 8, V 128,256, k 50 (f32 and bf16, with and without a JSON
    mask, a planted tie block): ids and FSM states equal to the plain
    twin's but for rows at the top-p boundary (counted), its time beside
-   ``torch.topk`` alone; the ANN kernels (``ann_adc``, ``ann_rerank``) at
-   phase 9's geometry (2,000,000 x 768 through ``add`` + ``train()``,
-   4,096 lists, m 96, with duplicated rows for ties and one probed list
-   made all-invalid; Q 1 / 8 / 32, nprobe 64 / 256, shortlist 256, k 16):
-   ADC scores bit-equal to the twin's and the same positions, the rerank
-   within ``topk_score_bound``; their time at the main path's search (Q 8,
-   nprobe 64) beside the bound, the twins and, for the rerank, gather +
-   ``torch.bmm`` + ``torch.topk``; the MoE kernels (``moe_route``, the
+   ``torch.topk`` alone; the ANN kernels (``ann_adc``, ``ann_rerank``),
+   checked in phase 9 on its corpus, built once (2,000,000 x 768 through
+   ``add`` + ``train()``, 4,096 lists, m 96, with duplicated rows for ties
+   and one probed list made all-invalid; Q 1 / 8 / 32, nprobe 64 / 256,
+   shortlist 256, k 16): ADC scores bit-equal to the twin's and the same
+   positions, the rerank within ``topk_score_bound``; their time at the
+   main path's search (Q 8, nprobe 64) beside the bound, the twins and,
+   for the rerank, gather + ``torch.bmm`` + ``torch.topk``; the paged tree
+   attention (``paged_tree``, :func:`check_paged_tree`) at 8 slots of
+   Llama-3-8B's heads and the (4, 4) tree at 10,208 and 1,868 live prefix
+   keys (a row at length 0), bf16 within ``paged_tree_bf16_bound`` (also
+   with a window), f32 within 1e-4, bitwise repeatable, its time beside the
+   bound, the twin and a dense gather + ``scaled_dot_product_attention``;
+   the MoE kernels (``moe_route``, the
    grouped ``moe_gemm`` with its gate/up and down epilogues,
    ``moe_combine``) at Mixtral 8x7B's widths (:func:`check_moe`: T 8, 512
    and 2,048, a capacity factor that drops, every token on two experts;
@@ -64,7 +73,9 @@ exits non-zero):
    ``encode`` and an ``EmbeddingEngine`` coalescing three calls; the tiny
    MoE decoder (``ModelSpec(tiny=True, num_experts=4)``, f32) card vs CPU:
    prefill logits, greedy ids at the default loop and ``/dialog/`` answers
-   (:func:`small_moe`);
+   (:func:`small_moe`); speculative engines (K 4, N 4) on the small f32
+   model, dense and int8: greedy ids card vs CPU vs the card's plain engine,
+   ``paged_tree`` launches = layers x verify steps (:func:`small_spec`);
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
    weights drawn on the card, a ``GenerationEngine`` at the default loop
    (fused 8-step ticks as a CUDA graph, piggybacked prefill, the admission
@@ -115,7 +126,8 @@ exits non-zero):
    the decode breakdown;
 9. ANN retrieval at scale (:func:`ann_phase`), after phase 8's memory is
    freed: 2,000,000 x 768 through ``ANNIndex.add`` and ``train()`` (wall
-   times, bytes on the card), 64 planted near-duplicate queries, ANN search
+   times, bytes on the card), phase 2's ANN kernel checks on it, 64
+   planted near-duplicate queries, ANN search
    beside the exact tier over 6 batches at Q 1 / 8 / 32 (medians and
    min-max), planted top-1 >= 99%, ``ann_adc`` / ``ann_rerank`` launches
    equal to the ANN search batches with no plain-twin call, ``knn_topk``
@@ -132,8 +144,20 @@ exits non-zero):
     plain twin called, one layer's ``moe_mlp`` on a real chunk's
     activations held to its twins, the live experts a decode step, and the
     decode breakdown (MoE kernels, attention and the rest);
-11. the ``kernels:`` launch-count line, the card line, the per-kernel JSON
-    line, and the final ``{"ok": true, ...}`` line.
+11. (run right after phase 7, on phase 4's tensors) tree-verified
+    speculative decoding at full width (:func:`spec_phase`): ``speculative
+    = 4, spec_width = 4`` behind ``/dialog/`` with ``warmup``; the warmup's
+    time, ``probe_spec`` per rung beside the plain tick, each rung's graph
+    span; phase 4's four requests and four chats quoting a passage, each
+    asking for 256 tokens, over 5 runs (TTFT, tok/s, drafted / accepted,
+    tokens a verify step), paged tree launches = 32 x verify steps; greedy
+    ids equal to a plain engine's but at flagged near ties, the verify
+    path's logits on one state within ``VERIFY_DRIFT_ULPS`` of the decode
+    step's; the eager verify step's device split (drafter, tree attention,
+    GEMMs, sampler, commit; :func:`verify_breakdown`);
+12. the phases' wall seconds, the ``kernels:`` launch-count line, the card
+    line, the per-kernel JSON line, and the final ``{"ok": true, ...}``
+    line.
 """
 
 from __future__ import annotations
@@ -237,31 +261,55 @@ def _device_us(event) -> float:
     return dev_us if dev_us is not None else getattr(event, "self_cuda_time_total", 0)
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device milliseconds per call: the summed duration of the CUDA kernels
-    that ``iters`` calls launch (torch.profiler), over ``iters``, after a
-    warm-up call.  Host time between launches is left out, so this is the
-    kernel's time even where :func:`time_ms` measures the host's launch rate.
-    Fails if eight profiles in a row saw no device time (now and then a
-    profile comes back without its kernel records, sometimes two or three
-    in a row; it is taken again after a pause that grows each time)."""
+EVENT_SPAN = "event span (torch.profiler saw no kernel records)"
+PROFILER_LOST = [0]  # calls whose device time was taken with CUDA events instead
+
+
+def device_ms_by_kernel(fn, iters: int, warm: int = 1) -> dict:
+    """Device milliseconds per call of each CUDA kernel that ``iters`` calls
+    of ``fn`` launch, by the profiler's kernel name (torch.profiler; summed
+    durations over ``iters``), after ``warm`` warm-up calls.  Host time
+    between launches is left out.  Now and then a profile comes back without
+    its kernel records, sometimes several in a row; it is taken again after
+    a pause that grows each time, up to eight profiles (two once a call has
+    used up its eight).  Where every profile came back empty the device
+    time is taken with CUDA events instead, a call at a time (first launch
+    to last end, so gaps between its launches count), as
+    ``{EVENT_SPAN: ms}``; the call is logged and counted in
+    :data:`PROFILER_LOST`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
-    for attempt in range(8):
+    attempts = 2 if PROFILER_LOST[0] else 8
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(_device_us(e) for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / iters / 1e3
+        out = {}
+        for e in prof.key_averages():
+            us = _device_us(e)
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                out[e.key] = out.get(e.key, 0.0) + us / iters / 1e3
+        if out:
+            return out
         log("  torch.profiler saw no device time; profiling again")
         time.sleep(0.25 * (attempt + 1))
-    fail("torch.profiler saw no device time in eight profiles: device_ms not measured")
+    PROFILER_LOST[0] += 1
+    ms = statistics.mean(_event_span_ms(fn, iters))
+    log(f"  torch.profiler saw no device time in {attempts} profiles: device time taken "
+        f"with CUDA events instead, {ms:.4f} ms per call")
+    return {EVENT_SPAN: ms}
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device milliseconds per call (:func:`device_ms_by_kernel`, summed), so
+    the kernels' time even where :func:`time_ms` measures the host's launch
+    rate."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def timed(fn, iters: int) -> tuple:
@@ -286,7 +334,7 @@ def env_and_build():
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
         if name in ("paged_decode", "knn_topk", "qgemm", "sample", "ann_adc", "ann_rerank",
-                    "moe_route", "moe_gemm"):
+                    "moe_route", "moe_gemm", "paged_tree"):
             smem = ptxas_smem(text)
             log(f"  ptxas[{name}] per kernel: " + "; ".join(
                 f"{label} {r} regs, {sp} B spilled, {smem.get(label, 0)} B static smem"
@@ -341,7 +389,8 @@ _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
     r"|qgemm_stream_kernel|qgemm_cc_kernel|adc_scan_kernel|moe_route_topk_kernel"
-    r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_cc_kernel)I(\w*?)EEv"
+    r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_cc_kernel|paged_tree_mma_kernel"
+    r"|paged_tree_cc_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(
     r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel"
@@ -662,6 +711,174 @@ def check_paged(gen, page: int) -> dict:
         "max_abs_err": worst,
         **result,
         "library_ms": None,
+    }
+
+
+TREE_WIDTH, TREE_DEPTH = 4, 4  # phase 11's tree: T = 1 + 4 x 4 = 17 nodes
+
+
+def _tree_case(lengths, dtype, gen, *, B=8, H=32, KH=8, D=128, page=512, NB=8):
+    """Random pools, tree queries and tree K/V at Llama-3-8B's heads for
+    ``lengths`` (each row's pages a random chain, sentinels past its
+    allocation); the (4, 4) tree's mask and depths."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.speculative import make_tree_spec
+
+    spec = make_tree_spec(TREE_WIDTH, TREE_DEPTH)
+    T, P = spec.size, B * NB
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=dtype)  # noqa: E731
+    q, kp, vp, tk, tv = mk(B, H, T, D), mk(P, KH, page, D), mk(P, KH, page, D), \
+        mk(B, KH, T, D), mk(B, KH, T, D)
+    bt = torch.randperm(P, generator=torch.Generator().manual_seed(1)).reshape(B, NB)
+    bt = bt.to(torch.int32)
+    for b, n in enumerate(lengths):
+        bt[b, -(-n // page):] = P
+    return (q, kp, vp, bt.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda"), tk, tv,
+            torch.from_numpy(spec.anc_mask).cuda(), torch.from_numpy(spec.depths).cuda())
+
+
+def _tree_check(args, window=None) -> tuple:
+    """(output, (max abs err, max rel err, worst err/bound)) of the kernel
+    against the f32 twin on the same inputs (bf16: ``paged_tree_bf16_bound``)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_tree_attention, paged_tree_attention_plain, paged_tree_bf16_bound)
+
+    q, kp, vp, bt, ln, tk, tv, anc, dep = args
+    out = paged_tree_attention(*args, window=window)
+    fargs = (q.float(), kp.float(), vp.float(), bt, ln, tk.float(), tv.float(), anc, dep)
+    ref = paged_tree_attention_plain(*fargs, window=window)
+    bound = None
+    if q.dtype == torch.bfloat16:
+        bound = paged_tree_bf16_bound(*fargs, ref, window=window)
+    torch.cuda.synchronize()
+    return out, compare(out, ref, bound)
+
+
+def tree_bound_ms(args) -> tuple:
+    """Least time for the tree read: each live prefix key's K and V (below
+    the row's length) read once, the tree's K/V, q, out, the block tables,
+    lengths, mask and depths moved once, at the HBM rate, against 4 D H T
+    operations per live prefix key and 4 D H per ancestor pair of the tree
+    at the bf16 tensor-core peak."""
+    q, kp, vp, bt, ln, tk, tv, anc, dep = args
+    B, H, T, D = q.shape
+    KH = kp.shape[1]
+    live = int(ln.sum())
+    pairs = int(anc.sum()) * B
+    nbytes = ((live * KH * D * 2 + tk.numel() + tv.numel() + 2 * q.numel()) * q.element_size()
+              + bt.numel() * 4 + B * 4 + anc.numel() + T * 4)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = (4.0 * D * H * T * live + 4.0 * D * H * pairs) / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tree_library_call(args):
+    """The library yardstick (the port never calls it): every row's pages up
+    to the batch's longest prefix gathered dense, the tree's K/V
+    concatenated, then one ``scaled_dot_product_attention`` under the
+    [B, 1, T, S + T] mask (the prefix below each row's length, the tree's
+    ancestors)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, kp, vp, bt, ln, tk, tv, anc, dep = args
+    B, H, T, D = q.shape
+    P, KH, page, _ = kp.shape
+    nb = -(-int(ln.max()) // page)
+    S = nb * page
+    kpos = torch.arange(S, device=q.device)
+    prefix = (kpos[None, :] < ln[:, None].long())[:, None, None, :].expand(B, 1, T, S)
+    mask = torch.cat([prefix, anc[None, None].expand(B, 1, T, T)], dim=3)
+    phys = bt[:, :nb].long().clamp(0, P - 1)
+
+    def call():
+        k = kp[phys].permute(0, 2, 1, 3, 4).reshape(B, KH, S, D)
+        v = vp[phys].permute(0, 2, 1, 3, 4).reshape(B, KH, S, D)
+        k = torch.cat([k, tk], dim=2)
+        v = torch.cat([v, tv], dim=2)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    return call
+
+
+def check_paged_tree(gen) -> dict:
+    """``paged_tree`` (the speculative verify read) against its twin at the
+    main path's shapes: 8 slots of Llama-3-8B's heads (H 32, KH 8, D 128),
+    page 512, the (4, 4) tree (T 17): 10,208 live prefix keys (paged
+    decode's timed rows) and 1,868 (phase 4's four requests mid-decode, four
+    idle slots, one of them at length 0); bf16 (the tensor-core kernel)
+    within ``paged_tree_bf16_bound``, also with a window, f32 (the CUDA-core
+    kernel) within 1e-4; two calls bitwise equal.  Then its time at both:
+    wall and device ms, the bound and its share, the plain twin's time, and
+    the library yardstick (:func:`tree_library_call`)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_tree_attention, paged_tree_attention_plain)
+
+    shapes = {"timed": [6, 512, 513, 1042, 1837, 4096, 1501, 701],
+              "main-path": [106, 356, 486, 917, 1, 1, 1, 0]}
+    worst = 0.0
+    for label, lengths in shapes.items():
+        for dtype, window in ((torch.bfloat16, None), (torch.bfloat16, 700), (torch.float32, None)):
+            args = _tree_case(lengths, dtype, gen)
+            routes = dict(kernels.PAGED_TREE_ROUTES)
+            out, (err, rel, ratio) = _tree_check(args, window)
+            route = "mma" if dtype == torch.bfloat16 else "cuda_core"
+            text = BF16_P_TEXT if dtype == torch.bfloat16 else tol_text(dtype)
+            log(f"  paged_tree ({label}, {sum(lengths)} live keys) B=8 H=32 KH=8 D=128 T=17 "
+                f"page=512 {str(dtype)[6:]} window={window}: max_abs_err {err:.3e}, max_rel_err "
+                f"{rel:.3e}, worst err/bound {ratio:.3f} ({text}), route {route}")
+            if kernels.PAGED_TREE_ROUTES[route] != routes[route] + 1:
+                fail(f"paged_tree ({label}) did not take the {route} route")
+            if not ratio <= 1.0:
+                fail(f"paged_tree ({label}, {dtype}, window {window}) disagrees with its twin: "
+                     f"err/bound {ratio} > 1")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+    log(f"  paged_tree SASS: {sass_counts(kernels.lib_path('paged_tree'))}")
+    result = {}
+    for label, lengths in shapes.items():
+        args = _tree_case(lengths, torch.bfloat16, gen)
+        out, (err, _, ratio) = _tree_check(args)
+        again = paged_tree_attention(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            fail(f"paged_tree ({label}): two calls on the same inputs differ")
+        ms, dev = timed(lambda: paged_tree_attention(*args), 200)
+        q, kp, vp, bt, ln, tk, tv, anc, dep = args
+        fargs = (q.float(), kp.float(), vp.float(), bt, ln, tk.float(), tv.float(), anc, dep)
+        plain_ms = time_ms(lambda: paged_tree_attention_plain(*fargs), 5)
+        lib = tree_library_call(args)
+        lib_out = lib()
+        lib_err = (lib_out.float() - out.float()).abs().max().item()
+        lib_ms, lib_dev = timed(lib, 50)
+        bound_ms, bound_by = tree_bound_ms(args)
+        plan = kernels.paged_tree_plan(8, 32, 8, q.shape[2], 512, 8)
+        log(f"  paged_tree timing ({label}) B=8 H=32 KH=8 D=128 T=17 page=512 bf16, "
+            f"{sum(lengths)} live keys, plan (warps, row chunks, splits) {plan}: kernel wall "
+            f"{ms:.4f} ms (device {dev:.4f}), plain wall {plain_ms:.4f} ms, library (dense page "
+            f"gather + concat + scaled_dot_product_attention) wall {lib_ms:.4f} ms (device "
+            f"{lib_dev:.4f}; max |library - kernel| {lib_err:.3e}), bound {bound_ms:.4f} ms "
+            f"({bound_by}); share of the bound: wall {bound_ms / ms:.3f}, device "
+            f"{bound_ms / dev:.3f}; repeat bitwise-equal; worst err/bound {ratio:.3f}")
+        if label == "timed":
+            result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms)
+        else:
+            result.update(main_path_ms=ms, main_path_device_ms=dev, main_path_bound_ms=bound_ms,
+                          main_path_library_ms=lib_ms)
+    return {
+        "name": "paged_tree",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/paged_tree.cu",
+        "replaces": "django_assistant_bot_tpu/ops/attention.py:328",
+        "max_abs_err": worst,
+        **result,
     }
 
 
@@ -1376,19 +1593,13 @@ def rerank_bound_ms(tier, rvalid, sl_scores, sl_pos, k: int) -> tuple:
 
 
 def kernel_device_ms(fn, iters: int) -> dict:
-    """Device ms per call of each CUDA kernel ``fn`` launches (torch.profiler),
-    by kernel name; {} if the profiler saw none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {kernel_label(e.key): _device_us(e) / iters / 1e3 for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0}
+    """:func:`device_ms_by_kernel` with each name shortened by
+    :func:`kernel_label`."""
+    out = {}
+    for name, ms in device_ms_by_kernel(fn, iters).items():
+        label = kernel_label(name)
+        out[label] = out.get(label, 0.0) + ms
+    return out
 
 
 def _ties(scores) -> int:
@@ -1399,11 +1610,11 @@ def _ties(scores) -> int:
     return int(((s == scores[:, :-1]) & torch.isfinite(s)).sum())
 
 
-def check_ann(gen) -> list:
-    """``ann_adc`` and ``ann_rerank`` against their plain twins at the
-    phase-9 geometry: 2,000,000 x 768 built through ``add`` + ``train()``
-    (nlist 4096, m 96, list_cap as trained), with rows [4096, 8192)
-    repeating rows [0, 4096), queries near those rows (Q 1, 8, 32), nprobe 64
+def check_ann(index) -> list:
+    """``ann_adc`` and ``ann_rerank`` against their plain twins on phase 9's
+    index (built once, there): 2,000,000 x 768 through ``add`` +
+    ``train()`` (nlist 4096, m 96, list_cap as trained), with rows [4096,
+    8192) repeating rows [0, 4096), queries near those rows (Q 1, 8, 32), nprobe 64
     and 256, shortlist 256, k 16, and one probed list made all-invalid.
     The ADC scores must equal the twin's bit for bit and the positions the
     twin's (keys are unique under (score, lower flat index first)); the
@@ -1422,9 +1633,6 @@ def check_ann(gen) -> list:
     from django_assistant_bot_tpu_torch.storage.knn import _normalize
     from django_assistant_bot_tpu_torch.storage.knn_check import rerank_agreement
 
-    index, t = ann_build(ANN_ROWS, ANN_DIM, seed=11, dups=ANN_DUPS)
-    log(f"  ann corpus {ANN_ROWS} x {ANN_DIM} ({ANN_DUPS} duplicated rows): wall s: "
-        f"{_timing_text(t)}; {ann_geometry(index)}")
     smem = ptxas_smem(kernels.BUILD_LOG.get("ann_adc", "") + kernels.BUILD_LOG.get("ann_rerank", ""))
     log(f"  ann shared memory per block: adc_scan_kernel {min(index.m, 192) * 1024} B dynamic "
         f"(the LUT chunk), adc_select_kernel {smem.get('adc_select_kernel', 0)} B static + "
@@ -1481,8 +1689,9 @@ def check_ann(gen) -> list:
     q = queries(8)
     top_c, top_ci, lut = adc_inputs(index, q, P)
     args = (codes, lvalid, rowpos, top_ci, top_c, lut, S)
-    ms, dev = timed(lambda: adc_shortlist(*args), 30)
-    split = kernel_device_ms(lambda: adc_shortlist(*args), 10)
+    ms = time_ms(lambda: adc_shortlist(*args), 30)
+    split = kernel_device_ms(lambda: adc_shortlist(*args), 30)
+    dev = sum(split.values())
     plain_ms = time_ms(lambda: adc_shortlist_plain(*args), 3)
     bound_ms, bound_by = adc_bound_ms(index, lvalid, top_ci, S)
     log(f"  ann_adc timing Q=8 nprobe={P} S={S} (list_cap {codes.shape[1]}): kernel wall "
@@ -1508,8 +1717,7 @@ def check_ann(gen) -> list:
         f"bound, device {r_bound / r_dev:.4f}")
     rr = dict(ms=r_ms, device_ms=r_dev, plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
               library_ms=lib_ms)
-    del index, codes, lvalid, rowpos, tier, rvalid, args, rargs, sl_s, sl_p, pos, ok
-    gc_collect()
+    del codes, lvalid, rowpos, tier, rvalid, args, rargs, sl_s, sl_p, pos, ok
     return [
         {"name": "ann_adc", "route": "cuda", "source": f"{PKG}/csrc/ann_adc.cu",
          "replaces": "django_assistant_bot_tpu/storage/ann.py:208", "max_abs_err": 0.0, **adc},
@@ -1810,7 +2018,62 @@ def small_reference() -> int:
     small_tied(cfg, params_cpu, prompts)
     generic = small_int4_g8()
     small_json(cfg, params_cpu, params_gpu, prompts)
+    small_spec(cfg, params_cpu)
     return generic
+
+
+def small_spec(cfg, params_cpu) -> None:
+    """Speculative engines (``speculative=4, spec_width=4``, the
+    controller re-probing every tick) on the small f32 model, dense and
+    int8 (``quantize_decoder_params``): greedy ids on the card (each rung's
+    tick a CUDA graph, the paged tree kernel's CUDA-core route at f32) equal
+    to the CPU spec engine's (the twins) and to the card's plain engine's;
+    drafts accepted; ``paged_tree`` launches = layers x verify steps."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.quant import quantize_decoder_params
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+    gen = torch.Generator().manual_seed(12)
+    motif = torch.randint(1, 255, (11,), generator=gen).tolist()
+    prompts = [motif * 8, torch.randint(1, 255, (300,), generator=gen).tolist(),
+               motif * 30 + [3, 4], torch.randint(1, 255, (40,), generator=gen).tolist() * 3]
+
+    def run(device, params, **kw):
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
+                               max_seq_len=1024, chunk_size=512, **kw)
+        eng._running = True
+        kernels.reset_counts()
+        futs = [eng.submit(p, max_tokens=32, temperature=0.0) for p in prompts]
+        _crank(eng, futs)
+        eng._running = False
+        counts = {**kernels.launch_counts(), "tree_routes": dict(kernels.PAGED_TREE_ROUTES)}
+        return [f.result(timeout=0).token_ids for f in futs], eng, counts
+
+    spec_kw = dict(speculative=4, spec_width=4, spec_probe_every=1)
+    for fmt in ("dense", "int8"):
+        pc = params_cpu if fmt == "dense" else quantize_decoder_params(params_cpu, "int8")
+        pg = {k: ({n: w.to("cuda") for n, w in v.items()} if isinstance(v, dict) else v.to("cuda"))
+              for k, v in pc.items()}
+        card, eng, counts = run("cuda", pg, **spec_kw)
+        cpu, _, _ = run("cpu", pc, **spec_kw)
+        plain, _, _ = run("cuda", pg)
+        st = eng.spec_stats()
+        verify_steps = eng.spec_ticks_issued * eng.decode_steps
+        log(f"  small model {fmt} spec engine (K 4, N 4; {len(eng._spec_graphs)} rung graphs): "
+            f"greedy ids card vs CPU {'identical' if card == cpu else 'DIFFER'}, vs the card's "
+            f"plain engine {'identical' if card == plain else 'DIFFER'}; drafted "
+            f"{st['spec_drafted']}, accepted {st['spec_accepted']}, {eng.spec_ticks_issued} spec "
+            f"ticks; paged_tree launches {counts['paged_tree']} (routes {counts['tree_routes']})")
+        if card != cpu or card != plain:
+            fail(f"small {fmt} spec engine: card {card} vs CPU {cpu} vs plain {plain}")
+        if not (st["spec_drafted"] > 0 and st["spec_accepted"] > 0
+                and len(eng._spec_graphs) == len(eng._spec_ctl.rungs)):
+            fail(f"small {fmt} spec engine did not speculate on its graphs: {st}")
+        if counts["paged_tree"] != cfg.num_layers * verify_steps:
+            fail(f"small {fmt} spec engine: paged_tree launches {counts['paged_tree']} != "
+                 f"{cfg.num_layers} x {verify_steps} verify steps")
 
 
 def sampling_steps(eng) -> int:
@@ -2295,19 +2558,20 @@ def _rag_chats(tok, head_tokens: int, questions) -> list:
     return chats
 
 
-async def _post(session, port, name, msgs):
+async def _post(session, port, name, msgs, max_tokens=32):
     t = time.perf_counter()
     async with session.post(
         f"http://127.0.0.1:{port}/dialog/",
-        json={"model": name, "messages": msgs, "max_tokens": 32, "temperature": 0.0},
+        json={"model": name, "messages": msgs, "max_tokens": max_tokens, "temperature": 0.0},
     ) as resp:
         body = await resp.json()
         return resp.status, body, time.perf_counter() - t
 
 
-def _check_dialogs(tok, key_msgs, results) -> tuple:
-    """Wire and usage checks of a run's /dialog/ results; returns (TTFTs,
-    per-request decode rates, completion tokens)."""
+def _check_dialogs(tok, key_msgs, results, max_tokens=32) -> tuple:
+    """Wire and usage checks of a run's /dialog/ results (each asked for
+    ``max_tokens``); returns (TTFTs, per-request decode rates, completion
+    tokens)."""
     ttfts, rates, completion = [], [], 0
     for (key, msgs), (status, body, _) in zip(key_msgs, results):
         if status != 200:
@@ -2317,7 +2581,7 @@ def _check_dialogs(tok, key_msgs, results) -> tuple:
             fail(f"/dialog/ ({key}) wire fields missing: {body}")
         u = r["usage"]
         want_prompt = len(tok.encode_chat(msgs))
-        if not (u["prompt_tokens"] == want_prompt and 1 <= u["completion_tokens"] <= 32
+        if not (u["prompt_tokens"] == want_prompt and 1 <= u["completion_tokens"] <= max_tokens
                 and u["total_tokens"] == u["prompt_tokens"] + u["completion_tokens"]
                 and isinstance(r["result"], str)):
             fail(f"/dialog/ ({key}) usage wrong (prompt should be {want_prompt}): {u}")
@@ -2696,16 +2960,17 @@ def _sync_and_enqueue_ms(fn, n: int, per: int) -> tuple:
     return (time.perf_counter() - t0) / n / per * 1e3, enqueue_ms
 
 
-def _graph_span_ms(replay, n: int) -> list:
+def _event_span_ms(fn, n: int) -> list:
     """Milliseconds between CUDA events recorded just before and just after
-    each of ``n`` calls of ``replay`` (one graph launch each)."""
+    each of ``n`` calls of ``fn`` (a graph's replay, or eager launches),
+    synchronised after each call."""
     import torch
 
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     spans = []
     for _ in range(n):
         ev0.record()
-        replay()
+        fn()
         ev1.record()
         torch.cuda.synchronize()
         spans.append(ev0.elapsed_time(ev1))
@@ -2759,7 +3024,7 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
     with torch.no_grad():
         _timed_run(step, 10, 1, f"{label}eager decode step, 8 slots, full width", batches=6)
         timing = [_sync_and_enqueue_ms(tick, 10, K) for _ in range(6)]
-        spans = [ms / K for ms in _graph_span_ms(engine._graph.replay, 10)]
+        spans = [ms / K for ms in _event_span_ms(engine._graph.replay, 10)]
         log(f"  {label}graph replay of the {K}-step tick, 8 slots, full width, per step over 6 "
             f"batches of 10 replays: synchronised {_stat([w for w, _ in timing], 'ms')}, host "
             f"enqueue {_stat([e for _, e in timing], 'ms')}; device time at most the graph span "
@@ -2775,7 +3040,7 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
         engine._chunk_start_dev.zero_()
         pig = [_sync_and_enqueue_ms(lambda: tick(True), 3, 1)[0] for _ in range(6)]
         seq = [_sync_and_enqueue_ms(chunk_then_tick, 3, 1)[0] for _ in range(6)]
-        pig_span = _graph_span_ms(engine._piggyback_graph.replay, 6)
+        pig_span = _event_span_ms(engine._piggyback_graph.replay, 6)
         log(f"  {label}a {engine.chunk_size}-token chunk and the {K}-step tick, 6 batches of 3: "
             f"one piggyback replay synchronised {_stat(pig, 'ms')} (graph span "
             f"{_stat(pig_span, 'ms')}), the chunk eager then the tick's replay synchronised "
@@ -3254,8 +3519,8 @@ def stream_json_phase(card: str, cfg, params) -> dict:
     probe_s = engine.probe_decode(iters=16)
     with engine._iter_lock:
         K = engine.decode_steps
-        replay = [ms / K for ms in _graph_span_ms(engine._graph.replay, 10)]
-        json_replay = _graph_span_ms(engine._json_graph.replay, 10)
+        replay = [ms / K for ms in _event_span_ms(engine._graph.replay, 10)]
+        json_replay = _event_span_ms(engine._json_graph.replay, 10)
         for t in (engine._cache.lengths, engine._tokens_dev, engine._toks_dev):
             t.zero_()
     log(f"  engine built in {build_s:.2f} s; registry load with warmup(json=True) and start "
@@ -3426,6 +3691,442 @@ def stream_json_phase(card: str, cfg, params) -> dict:
 
 
 # --------------------------------------------------------------------- phase 8
+SPEC_K, SPEC_N = 4, 4  # phase 11: speculative = 4, spec_width = 4
+SPEC_RUNS = 5
+# On one state (a prefix prefilled into pages) the verify path's logits are
+# held within this many bf16 ulps of max|logit| of the plain decode step's:
+# 3.00-4.12 were read at 8 positions, and the prefill path, another rounding
+# of the same forward, lay 3.00-4.19 from it.  A spec / plain greedy
+# divergence is flagged, not failed, where the plain path's top-two margin
+# is within the verify path's distance read at that position.
+VERIFY_DRIFT_ULPS = 5
+SPEC_MAX_TOKENS = 256  # phase 11's answers: a RAG answer's length, not a probe's
+
+
+def _quote_chats(n: int) -> list:
+    """RAG-style chats that quote a passage: a system prompt, a ~1,200-
+    character passage, and a question asking for a sentence of it."""
+    chats = []
+    for i in range(n):
+        passage = _chat(1200, 500 + i)[0]["content"]
+        first = passage[:160]
+        chats.append([
+            {"role": "system", "content": "Answer by quoting the passage word for word."},
+            {"role": "user", "content": f"Passage: {passage}"},
+            {"role": "user", "content": f"Quote the sentence that starts with: {first}"},
+        ])
+    return chats
+
+
+def _bf16_ulp(x: float) -> float:
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _by_family(per_kernel: dict) -> dict:
+    """Device ms by kernel family: ``tree`` (paged_tree), ``gemm`` (cuBLAS /
+    CUTLASS / nvjet products), ``sample`` (the sampler kernel), ``other``;
+    and ``total``.  An :data:`EVENT_SPAN` reading has only a total: its
+    families are nan (not measured)."""
+    if EVENT_SPAN in per_kernel:
+        nan = float("nan")
+        return {"tree": nan, "gemm": nan, "sample": nan, "other": nan,
+                "total": per_kernel[EVENT_SPAN]}
+    out = {"tree": 0.0, "gemm": 0.0, "sample": 0.0, "other": 0.0}
+    for name, ms in per_kernel.items():
+        name = name.lower()
+        if "paged_tree" in name:
+            key = "tree"
+        elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+            key = "gemm"
+        elif "sample_kernel" in name:
+            key = "sample"
+        else:
+            key = "other"
+        out[key] += ms
+    out["total"] = sum(out.values())
+    return out
+
+
+def verify_breakdown(cfg, params, label: str) -> None:
+    """Where an eager verify step's device time goes at full width: 8 slots
+    at paged decode's timed lengths, the longest row cut to leave the tree
+    its room (10,198 live keys), each row's history
+    repeating a motif, the (4, 4) tree: the drafter (``build_tree_draft`` +
+    ``flatten_tree``), the verify forward (its tree attention, its GEMMs and
+    the rest), the acceptance (the sampler's position-0 draw and the argmax
+    work), the commit and the history / length updates, each by
+    torch.profiler; the drafter's CUDA graph pool (one capture of it
+    alone)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import llama
+    from django_assistant_bot_tpu_torch.ops.sampling import gumbel_noise
+    from django_assistant_bot_tpu_torch.ops.speculative import (
+        accept_tree, build_tree_draft, flatten_tree, make_tree_spec)
+
+    B, page, NB, S = 8, 512, 8, 4096
+    spec = make_tree_spec(SPEC_N, SPEC_K)
+    cache = llama.init_paged_cache(cfg, B, B * NB, page, device="cuda")
+    start = torch.tensor([6, 512, 513, 1042, 1837, 4096 - 2 * (SPEC_K + 1), 1501, 701],
+                         dtype=torch.int32, device="cuda")
+    cache.lengths.copy_(start)
+    bt = torch.arange(B * NB, dtype=torch.int32, device="cuda").reshape(B, NB)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    motif = torch.randint(1, 255, (37,), generator=gen, device="cuda", dtype=torch.int32)
+    hist = motif.repeat(S // 37 + 1)[:S].repeat(B, 1).contiguous()
+    tokens = hist[torch.arange(B, device="cuda"), start.long()].contiguous()
+    depths = torch.from_numpy(spec.depths).cuda()
+    anc = torch.from_numpy(spec.anc_mask).cuda()
+    branch = torch.from_numpy(spec.branch_nodes).long().cuda()
+    temps = torch.zeros(B, device="cuda")
+    top_ps = torch.ones(B, device="cuda")
+    noise = torch.empty((B, 50), device="cuda")
+    gumbel_noise(noise, gen)
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    state = {}
+
+    def draft():
+        state["tree"] = flatten_tree(tokens, build_tree_draft(hist, cache.lengths, tokens,
+                                                              SPEC_N, SPEC_K))
+
+    def verify():
+        state["v"] = llama.verify_tree_step_paged(params, cfg, state["tree"], cache, bt, depths,
+                                                  anc)
+
+    def accept():
+        state["a"] = accept_tree(state["v"][0], state["tree"], spec, temperature=temps,
+                                 top_k=50, top_p=top_ps, gumbel=noise, branch=branch)
+
+    def commit():
+        out, n_new, bonus, path_idx = state["a"]
+        llama.commit_tree_path_paged(cache, state["v"][1], state["v"][2], path_idx, bt, n_new,
+                                     active)
+
+    def step():
+        cache.lengths.copy_(start)
+        draft()
+        verify()
+        accept()
+        commit()
+
+    with torch.no_grad():
+        step()
+        parts = {"drafter": draft, "verify": verify, "accept": accept, "commit": commit}
+        split = {k: _by_family(device_ms_by_kernel(fn, 10, warm=3)) for k, fn in parts.items()}
+        whole = _by_family(device_ms_by_kernel(step, 10, warm=3))
+        wall = [_sync_and_enqueue_ms(step, 10, 1) for _ in range(3)]
+        n_new = state["a"][1]
+        # the drafter alone as a CUDA graph: its pool is its intermediates
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            draft()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            draft()
+        pool = torch.cuda.memory_reserved() - r0
+        ev = _event_span_ms(g.replay, 10)
+        del g
+    v = split["verify"]
+    log(f"  {label}: eager verify step, 8 slots, (4, 4) tree, {int(start.sum())} live prefix "
+        f"keys, full width: device time {whole['total']:.4f} ms; synchronised {_stat([w for w, _ in wall], 'ms')}, "
+        f"host enqueue {_stat([e for _, e in wall], 'ms')}; drafts accepted a row on this "
+        f"input "
+        f"{n_new.float().mean().item() - 1:.2f}")
+    log(f"    drafter {split['drafter']['total']:.4f} ms (its graph replay span "
+        f"{_stat(ev, 'ms')}; the drafter's graph pool {pool / 2**20:.3f} MiB); verify forward "
+        f"{v['total']:.4f} ms: tree attention {v['tree']:.4f} ms ({v['tree'] / cfg.num_layers:.4f} "
+        f"a layer), GEMMs {v['gemm']:.4f} ms, the rest {v['other'] + v['sample']:.4f} ms; "
+        f"acceptance {split['accept']['total']:.4f} ms (sampler {split['accept']['sample']:.4f} "
+        f"ms); commit {split['commit']['total']:.4f} ms")
+
+
+def _path_drift(cfg, params, prefix: list, tree_spec) -> tuple:
+    """The logits for the token after ``prefix`` through three paths on one
+    state: ``prefix[:-1]`` prefilled into a one-slot page table, then a
+    verify step (the (N, K) tree rooted at ``prefix[-1]``; its root's row)
+    and a plain decode step of ``prefix[-1]``; and ``prefill`` of the whole
+    prefix.  Returns (the decode row, the verify row's and the prefill
+    row's max |difference| from it in bf16 ulps of its max|logit|)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import llama
+
+    page, NB = 512, 8
+    dev = "cuda"
+
+    def padded(ids):
+        out = torch.zeros((1, -(-len(ids) // 64) * 64), dtype=torch.int32, device=dev)
+        out[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        return out, torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+
+    with torch.no_grad():
+        ids, n = padded(prefix[:-1])
+        _, ks, vs = llama.prefill(params, cfg, ids, n)
+        cache = llama.init_paged_cache(cfg, 1, NB, page, device=dev)
+        bt = torch.arange(NB, dtype=torch.int32, device=dev)[None]
+        llama.insert_sequences_paged(cache, ks, vs, n, torch.zeros(1, dtype=torch.int32,
+                                                                   device=dev), bt)
+        del ks, vs
+        last = torch.tensor([prefix[-1]], dtype=torch.int32, device=dev)
+        tree = last[:, None].repeat(1, len(tree_spec.depths))
+        ver = llama.verify_tree_step_paged(
+            params, cfg, tree, cache, bt, torch.from_numpy(tree_spec.depths).to(dev),
+            torch.from_numpy(tree_spec.anc_mask).to(dev))[0][0, 0]
+        dec = llama.decode_step_paged(params, cfg, last, cache, bt)[0][0]
+        del cache
+        ids, n = padded(prefix)
+        pre = llama.prefill(params, cfg, ids, n)[0][0]
+    ulp = _bf16_ulp(float(dec.abs().max()))
+    return (dec, float((ver - dec).abs().max()) / ulp, float((pre - dec).abs().max()) / ulp)
+
+
+def _spec_serve(card, cfg, engine, spec, key_msgs, label) -> tuple:
+    """Register ``engine`` for ``spec`` (a spec engine's warmup times each
+    rung's tick against the plain tick, then it starts), read
+    ``probe_spec`` and each rung's graph span, serve ``key_msgs``
+    concurrently over ``/dialog/`` ``SPEC_RUNS`` times (launch counts
+    zeroed before each run and read after: ``paged_tree`` = 32 x verify
+    steps, sampler = sampling steps), then submit them once more for their
+    greedy ids.  A plain engine (``speculative`` 0) serves the same runs
+    for its readings.  Returns (first run's launches, drafted in the runs,
+    the ids)."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    tok = ByteTokenizer()
+    registry = ModelRegistry()
+    t0 = time.perf_counter()
+    registry.load(spec, engine=engine)  # warmup (the measured cost ratios), then start
+    warmup_s = time.perf_counter() - t0
+    if engine.speculative:
+        rungs = engine._spec_ctl.rungs
+        costs = dict(engine._spec_ctl.cost_ratio)
+        probe = engine.probe_spec(iters=8)
+        with engine._iter_lock:
+            plain_span = _event_span_ms(engine._graph.replay, 10)
+            spans = {r: _event_span_ms(engine._spec_graphs[r][0].replay, 10) for r in rungs}
+            for t in (engine._cache.lengths, engine._tokens_dev, engine._toks_dev):
+                t.zero_()
+        log(f"  {label}: registry load with warmup and start {warmup_s:.2f} s [{card}]; warmup "
+            "cost ratios " + ", ".join(f"{w}x{k} {r:.3f}" for (w, k), r in costs.items()))
+        log(f"  {label}: probe_spec (slots idle, 8 ticks back to back): plain tick "
+            f"{probe['plain_tick_s'] * 1e3:.4f} ms; " + "; ".join(
+                f"{key}: {r['tick_s'] * 1e3:.4f} ms, cost ratio {r['cost_ratio']:.3f}, "
+                f"breakeven accept rate {r['breakeven_accept_rate']:.3f}"
+                for key, r in probe["rungs"].items()))
+        log(f"  {label}: graph spans (CUDA events around one replay, slots idle): plain "
+            f"1-step tick {_stat(plain_span, 'ms')}; " + "; ".join(
+                f"{w}x{k} verify tick {_stat(sp, 'ms')}" for (w, k), sp in spans.items()))
+    port = _free_port()
+    name = spec.name
+
+    def spec_counters():
+        return (engine.spec_drafted, engine.spec_accepted, engine.spec_ticks_issued,
+                engine.spec_row_steps, engine.steps, sampling_steps(engine), engine._ticks_issued)
+
+    async def drive():
+        runner = web.AppRunner(create_app(registry))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                st, body, _ = await _post(session, port, name, _chat(300, 99))  # warm
+                if st != 200:
+                    fail(f"warm-up /dialog/ returned {st}: {body}")
+                runs = []
+                for _ in range(SPEC_RUNS):
+                    torch.cuda.synchronize()
+                    kernels.reset_counts()
+                    c0 = spec_counters()
+                    t = time.perf_counter()
+                    res = await asyncio.gather(*(_post(session, port, name, m, SPEC_MAX_TOKENS)
+                                                 for _, m in key_msgs))
+                    wall = time.perf_counter() - t
+                    torch.cuda.synchronize()
+                    runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
+                                     routes=dict(kernels.PAGED_TREE_ROUTES),
+                                     delta=[b - a for a, b in zip(c0, spec_counters())]))
+                futs = [engine.submit(tok.encode_chat(m), max_tokens=SPEC_MAX_TOKENS,
+                                      temperature=0.0) for _, m in key_msgs]
+                return runs, [f.result(timeout=600).token_ids for f in futs]
+        finally:
+            await runner.cleanup()  # stops the registry's engine
+
+    runs, ids = asyncio.run(drive())
+    all_ttfts, all_rates, drafted_all = [], [], 0
+    for i, run in enumerate(runs):
+        check = _check_dialogs if i == 0 else _quiet_check
+        ttfts, rates, _ = check(tok, key_msgs, run["results"], SPEC_MAX_TOKENS)
+        all_ttfts += ttfts
+        all_rates += rates
+        drafted, accepted, ticks, row_steps, steps, samples, all_ticks = run["delta"]
+        drafted_all += drafted
+        counts = run["counts"]
+        verify_steps = ticks * engine.decode_steps
+        spec_text = (f"{ticks} spec ticks, drafted {drafted}, accepted {accepted} (accept rate "
+                     f"{accepted / max(1, drafted):.4f}), tokens a verify step per greedy row "
+                     f"{(accepted + row_steps) / max(1, row_steps):.3f}; " if engine.speculative
+                     else "")
+        log(f"  {label} run {i + 1}: {len(key_msgs)} concurrent requests in {run['wall']:.3f} s; "
+            f"{steps - verify_steps} plain steps in {all_ticks - ticks} plain ticks; {spec_text}"
+            f"launches paged_tree {counts['paged_tree']} (routes {run['routes']}), paged_decode "
+            f"{counts['paged_decode']}, flash_prefill {counts['flash_prefill']}, sample "
+            f"{counts['sample']} for {samples} sampling steps")
+        if counts["paged_tree"] != cfg.num_layers * verify_steps:
+            fail(f"{label}: paged_tree launches {counts['paged_tree']} != {cfg.num_layers} x "
+                 f"{verify_steps} verify steps")
+        if run["routes"]["cuda_core"]:
+            fail(f"{label}: a bf16 verify step left the tensor-core tree kernel: {run['routes']}")
+        if counts["sample"] != samples:
+            fail(f"{label}: sampler launches {counts['sample']} != {samples} sampling steps")
+    log(f"  {label} readings over {SPEC_RUNS} runs of the eight requests [{card}]: TTFT "
+        f"{_stat(all_ttfts)}; decode {_stat(all_rates, 'tok/s')} per request; run wall "
+        f"{_stat([r['wall'] for r in runs])}")
+    if not engine.speculative:
+        return runs[0]["counts"], 0, ids
+    st = engine.spec_stats()
+    log(f"  {label}: cumulative drafted {st['spec_drafted']}, accepted "
+        f"{st['spec_accepted']} (rate {st['spec_accept_rate']}), spec ticks {st['spec_ticks']}, "
+        f"plain ticks by the controller {st['spec_skipped_accept']}, by load "
+        f"{st['spec_skipped_load']}; controller "
+        + json.dumps({k: st[k] for k in ("spec_tree_width", "spec_tree_depth",
+                                         "spec_auto_disabled", "spec_expected_speedup",
+                                         "spec_rung_accept_emas")}))
+    return runs[0]["counts"], drafted_all, ids
+
+
+def spec_phase(card: str, cfg, params) -> dict:
+    """Tree-verified speculative decoding at full width over phase 4's bf16
+    Llama-3-8B tensors (phase 7's head, its columns past the byte ids
+    zeroed), behind ``create_app``: phase 4's four requests and four
+    RAG-style chats that quote a passage, each asking for
+    ``SPEC_MAX_TOKENS`` (:func:`_spec_serve`), on
+
+    1. the registry's spec engine, ``ModelSpec(speculative = 4, spec_width =
+       4, warmup = True)``: the acceptance-EMA controller as users get it
+       (it turns speculation off where acceptance cannot pay for a verify
+       forward, and re-probes every 64 ticks);
+    2. the same engine with ``spec_probe_every = 1``: a disabled controller
+       re-probes every tick, so every tick verifies a tree; its greedy ids
+       against a plain engine's (the default loop): equal, but for a
+       divergence at a position where the plain path's top two logits
+       lie within the verify path's distance from it there, flagged and
+       counted; at each request's divergence (or last token) the three
+       paths on one state (:func:`_path_drift`), the verify path held
+       within ``VERIFY_DRIFT_ULPS`` of the plain decode step;
+
+    then :func:`verify_breakdown`.  Fails unless the first engine drafted.
+    Returns engine 1's first run's launches."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.speculative import make_tree_spec
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+    from django_assistant_bot_tpu_torch.serving.registry import ModelSpec
+
+    tok = ByteTokenizer()
+    key_msgs = list(four_requests(tok).items()) + [
+        (f"q{i}", m) for i, m in enumerate(_quote_chats(4))]
+    log(f"  card memory at the start: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    name = "llama3-8b-spec"
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096,
+                     speculative=SPEC_K, spec_width=SPEC_N, warmup=True)
+    results = {}
+    for label, extra in (("spec (registry defaults)", {}),
+                         ("spec (probe every tick)", {"spec_probe_every": 1})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = GenerationEngine(cfg, params, tok, device="cuda", **spec.engine_kwargs(),
+                                  **extra)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rungs = engine._spec_ctl.rungs
+        log(f"  {label}: engine (K {SPEC_K}, N {SPEC_N}; rungs {rungs}) built in {build_s:.2f} s "
+            f"with {engine.graph_captures} graphs (the plain 1-step tick and a verify tick a "
+            f"rung), graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB")
+        if not (engine.decode_steps == 1 and not engine.prefill_piggyback
+                and set(engine._spec_graphs) == set(rungs)
+                and engine.graph_captures == 1 + len(rungs)):
+            fail(f"{label}: the spec engine is not at its defaults: decode_steps "
+                 f"{engine.decode_steps}, piggyback {engine.prefill_piggyback}, graphs "
+                 f"{sorted(engine._spec_graphs)}")
+        results[label] = _spec_serve(card, cfg, engine, spec, key_msgs, label)
+        del engine
+        gc_collect()
+    (first, drafted, _), (_, forced_drafted, spec_ids) = results.values()
+    if drafted <= 0 or forced_drafted <= 0:
+        fail(f"a spec engine drafted nothing on the main path: {drafted}, {forced_drafted}")
+
+    # the plain engine (the default loop) on the same requests: its
+    # readings beside the spec engines', and the ids the spec ids are held to
+    plain_spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096,
+                           warmup=True)
+    plain = GenerationEngine(cfg, params, tok, device="cuda", **plain_spec.engine_kwargs())
+    _, _, plain_ids = _spec_serve(card, cfg, plain, plain_spec, key_msgs,
+                                  "plain (the default loop)")
+    del plain
+    gc_collect()
+    # each request's next token at its first divergence (or its last token)
+    # through the three paths on one state: the plain path's top-two margin
+    # there, and how far the verify and prefill paths' logits lie from it
+    tree_spec = make_tree_spec(SPEC_N, SPEC_K)
+    flagged, drifts = 0, []
+    for (key, msgs), a, b in zip(key_msgs, spec_ids, plain_ids):
+        pos = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        if a != b and pos >= min(len(a), len(b)):
+            fail(f"spec vs plain ({key}): one stops early without a divergence: {a} vs {b}")
+        at = pos if a != b else len(b) - 1
+        dec, d_v, d_p = _path_drift(cfg, params, tok.encode_chat(msgs) + b[:at], tree_spec)
+        drifts.append((d_v, d_p))
+        if a == b:
+            continue
+        top2 = torch.topk(dec, 2).values
+        margin = float(top2[0] - top2[1]) / _bf16_ulp(float(dec.abs().max()))
+        log(f"  spec vs plain ({key}): greedy ids diverge at token {pos} of {min(len(a), len(b))} "
+            f"(spec {a[pos]}, plain {b[pos]}); the plain path's top-two margin there "
+            f"{margin:.2f} bf16 ulps of max|logit|; the verify path's logits {d_v:.2f} from it "
+            f"there (the prefill path's {d_p:.2f})")
+        if margin > d_v:
+            fail(f"spec vs plain ({key}): an unflagged greedy divergence at token {pos} "
+                 f"(margin {margin:.2f} ulps, past the verify path's {d_v:.2f})")
+        flagged += 1
+    log(f"  spec (probe every tick) vs plain greedy ids: {len(key_msgs) - flagged} of "
+        f"{len(key_msgs)} identical, {flagged} flagged near-tie divergences")
+    v_max, p_max = max(d for d, _ in drifts), max(d for _, d in drifts)
+    log(f"  one state, three paths ({len(drifts)} positions): the verify path's logits at most "
+        f"{v_max:.2f} bf16 ulps of max|logit| from the plain decode step's (per position "
+        + ", ".join(f"{d:.2f}" for d, _ in drifts) + f"), the prefill path's at most {p_max:.2f} "
+        "(" + ", ".join(f"{d:.2f}" for _, d in drifts) + f"); held within {VERIFY_DRIFT_ULPS}")
+    if v_max > VERIFY_DRIFT_ULPS:
+        fail(f"the verify path's logits lie {v_max:.2f} bf16 ulps from the plain decode step's "
+             f"on one state (held within {VERIFY_DRIFT_ULPS})")
+    verify_breakdown(cfg, params, "spec breakdown")
+    gc_collect()
+    log(f"  card memory at the end: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    return first
+
+
+def _quiet_check(tok, key_msgs, results, max_tokens=32) -> tuple:
+    """:func:`_check_dialogs` without its per-request lines."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _check_dialogs(tok, key_msgs, results, max_tokens)
+
+
 def projection_bytes(cfg, fmt: str, group: int = 64) -> int:
     """Bytes of the layer projections of ``cfg`` at ``fmt``: bf16 (2 bytes a
     weight), or the integers (1 byte a weight, or 0.5 packed) and their f32
@@ -3590,11 +4291,13 @@ def quant_phase(card: str) -> dict:
 
 
 # --------------------------------------------------------------------- phase 9
-def ann_phase(card: str) -> dict:
+def ann_phase(card: str) -> tuple:
     """ANN retrieval at scale: 2,000,000 x 768 built through ``ANNIndex.add``
     and ``train()`` at the auto geometry (wall time of the add, the train and
-    its stages; bytes of the codes and the rerank tier on the card); 64
-    planted near-duplicate queries; search latency over 6 batches at Q 1, 8
+    its stages; bytes of the codes and the rerank tier on the card; rows
+    [4096, 8192) repeat rows [0, 4096), for the kernel checks' ties); phase
+    2's ANN kernel checks on it (:func:`check_ann`); 64 planted
+    near-duplicate queries of rows past the duplicated ones; search latency over 6 batches at Q 1, 8
     and 32, k 16 (medians and min-max), ANN ``search_batch`` at the default
     nprobe beside the exact tier on the same rows (``_exact_batch``, the KNN
     kernel); fails unless each planted query finds its source row top-1 in
@@ -3602,7 +4305,8 @@ def ann_phase(card: str) -> dict:
     ANN search batch with no call of a plain twin, and ``knn_topk`` ran for
     the exact tier.  Then a recall@10 curve against the exact tier at
     nprobe 16, 64, 256 and 1024 with the ANN search's ms per query, and
-    :func:`durability_drill`.  Returns the kernels' launches."""
+    :func:`durability_drill`.  Returns (the kernels' JSON entries, their
+    launches)."""
     import numpy as np
     import torch
 
@@ -3610,12 +4314,15 @@ def ann_phase(card: str) -> dict:
     from django_assistant_bot_tpu_torch.storage import ann as ann_mod
     from django_assistant_bot_tpu_torch.storage import knn as knn_mod
 
-    index, t = ann_build(ANN_ROWS, ANN_DIM, seed=21)
-    log(f"  corpus {ANN_ROWS} x {ANN_DIM} through add + train(): wall s: {_timing_text(t)}")
+    index, t = ann_build(ANN_ROWS, ANN_DIM, seed=21, dups=ANN_DUPS)
+    log(f"  corpus {ANN_ROWS} x {ANN_DIM} ({ANN_DUPS} duplicated rows) through add + train(): "
+        f"wall s: {_timing_text(t)}")
     log(f"  {ann_geometry(index)}; card memory {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
+    entries = check_ann(index)
     rng = np.random.default_rng(9)
-    src = rng.choice(ANN_ROWS, size=ANN_PLANTED, replace=False)
+    # planted sources past the duplicated rows: each has one top-1 row
+    src = 2 * ANN_DUPS + rng.choice(ANN_ROWS - 2 * ANN_DUPS, size=ANN_PLANTED, replace=False)
     planted = (index._mat[src] + ANN_QUERY_NOISE
                * rng.standard_normal((ANN_PLANTED, ANN_DIM))).astype(np.float32)
     index.search_batch(planted[:8], k=16)  # warm: both paths once before the counted run
@@ -3683,7 +4390,7 @@ def ann_phase(card: str) -> dict:
     del index, out
     gc_collect()
     durability_drill()
-    return {k: counts[k] for k in ("ann_adc", "ann_rerank", "knn_topk")}
+    return entries, {k: counts[k] for k in ("ann_adc", "ann_rerank", "knn_topk")}
 
 
 def _flip_byte(path: str) -> None:
@@ -4006,11 +4713,17 @@ def stop_engines() -> int:
 
 
 def gc_collect() -> None:
+    """Free what no live object holds: unreachable engines, the caching
+    allocator's free blocks, and the cuBLAS workspaces that PyTorch keeps
+    per stream (every engine's capture stream leaves one)."""
     import gc
 
     import torch
 
     gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     torch.cuda.empty_cache()
 
 
@@ -4029,63 +4742,88 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     t_start = time.perf_counter()
+    phase_s = {}
 
-    log("== phase 1: environment and build")
+    def phase(n, title):
+        """Log the previous phase's wall seconds on a line of its own and
+        open phase ``n``."""
+        now = time.perf_counter()
+        if phase_s:
+            last = list(phase_s)[-1]
+            phase_s[last] = now - phase_s[last]
+            log(f"phase {last} wall {phase_s[last]:.1f} s")
+        if n is not None:
+            phase_s[n] = now
+            log(f"== phase {n}: {title}")
+
+    phase(1, "environment and build")
     env_and_build()
     card = gpu_line()
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    log("== phase 2: kernels vs plain twins")
+    phase(2, "kernels vs plain twins (the ANN kernels' checks run on phase 9's corpus)")
     # the engine's page at 4096 for paged decode
-    entries = [check_flash(gen), check_paged(gen, page=512), check_knn(gen), *check_qgemm(gen),
-               check_qgemm_generic(gen), check_sample(gen), *check_ann(gen), *check_moe(gen)]
+    entries = [check_flash(gen), check_paged(gen, page=512), check_paged_tree(gen),
+               check_knn(gen), *check_qgemm(gen), check_qgemm_generic(gen), check_sample(gen),
+               *check_moe(gen)]
 
-    log("== phase 3: small f32 models, card vs CPU")
+    phase(3, "small f32 models, card vs CPU")
     generic_launches = small_reference()
     small_encoder()
     small_moe()
 
-    log("== phase 4: main path, full-width Llama-3-8B over /dialog/")
+    phase(4, "main path, full-width Llama-3-8B over /dialog/")
     counts, dec_spec, dec_engine = main_path(card)
 
-    log("== phase 5: load shedding, and cli serve --tiny --device cuda")
+    phase(5, "load shedding, and cli serve --tiny --device cuda")
     shed_check()
     serve_tiny_subprocess()
 
-    log("== phase 6: the RAG request at full width: /embeddings/ -> KNN -> /dialog/")
+    phase(6, "the RAG request at full width: /embeddings/ -> KNN -> /dialog/")
     rag_counts = rag_phase(card, dec_spec, dec_engine)
     cfg, params = dec_engine.cfg, dec_engine.params
     del dec_engine
     gc_collect()
 
-    log("== phase 7: SSE streaming and JSON-constrained /dialog/ at full width, after warmup")
+    phase(7, "SSE streaming and JSON-constrained /dialog/ at full width, after warmup")
     stream_counts = stream_json_phase(card, cfg, params)
+    gc_collect()
+
+    phase(11, f"tree-verified speculative decoding (K {SPEC_K}, N {SPEC_N}) on phase 4's "
+              "Llama-3-8B over /dialog/ (the paged tree kernel)")
+    spec_counts = spec_phase(card, cfg, params)
     del params
     gc_collect()
 
-    log("== phase 8: int8 and int4 Llama-3-8B over /dialog/ (the qgemm kernel)")
+    phase(8, "int8 and int4 Llama-3-8B over /dialog/ (the qgemm kernel)")
     log(f"  card memory before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     q_counts = quant_phase(card)
     gc_collect()
 
-    log("== phase 9: ANN retrieval at scale (2,000,000 x 768) and its durability drill")
-    ann_counts = ann_phase(card)
+    phase(9, "ANN retrieval at scale (2,000,000 x 768): phase 2's ANN kernel checks, the "
+             "searches and the durability drill")
+    ann_entries, ann_counts = ann_phase(card)
+    entries += ann_entries
     gc_collect()
 
-    log(f"== phase 10: Mixtral 8x7B ({MIXTRAL_LAYERS} of 32 layers, full width, bf16) over "
-        "/dialog/ (the MoE kernels)")
+    phase(10, f"Mixtral 8x7B ({MIXTRAL_LAYERS} of 32 layers, full width, bf16) over "
+              "/dialog/ (the MoE kernels)")
     moe_counts = mixtral_phase(card)
+    phase(None, "")
 
     # each kernel's launches on its own slice's main path: flash, paged
     # decode and the sampler on phase 4's requests, the KNN on phase 6's RAG
     # requests, qgemm on phase 8's requests in its format, its generic route
     # on phase 3's int4 g=8 decoder, the ANN kernels on phase 9's searches,
-    # the MoE kernels on phase 10's requests
+    # the MoE kernels on phase 10's requests, the paged tree kernel on phase
+    # 11's requests
     for e in entries:
         if e["name"] in moe_counts:
             e["launches"] = moe_counts[e["name"]]
         elif e["name"] in ("ann_adc", "ann_rerank"):
             e["launches"] = ann_counts[e["name"]]
+        elif e["name"] == "paged_tree":
+            e["launches"] = spec_counts["paged_tree"]
         elif e["name"] == "qgemm_generic":
             e["launches"] = generic_launches
         elif e["name"].startswith("qgemm_prefill_"):
@@ -4095,9 +4833,13 @@ def main() -> int:
         else:
             e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
     log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "
-        f"{json.dumps(stream_counts)} (phase 7, the streams), qgemm {json.dumps(q_counts)} "
+        f"{json.dumps(stream_counts)} (phase 7, the streams), {json.dumps(spec_counts)} "
+        f"(phase 11, the first spec run), qgemm {json.dumps(q_counts)} "
         f"(phase 8), qgemm generic {generic_launches} (phase 3), {json.dumps(ann_counts)} "
         f"(phase 9), {json.dumps(moe_counts)} (phase 10)")
+    log(f"device times taken with CUDA events where torch.profiler saw no kernel records: "
+        f"{PROFILER_LOST[0]}")
+    log("phase wall s: " + ", ".join(f"{n} {t:.1f}" for n, t in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": entries}))

@@ -60,6 +60,7 @@ KERNELS = {
     "moe_route": ("moe_route", "dabt_moe_route"),
     "moe_combine": ("moe_route", "dabt_moe_combine"),
     "moe_gemm": ("moe_gemm", "dabt_moe_gemm"),
+    "paged_tree": ("paged_tree", "dabt_paged_tree"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -105,6 +106,10 @@ _ARGTYPES = {
     # a, slot_tok, fill, w0, w1, out, dtype, epilogue, route, X, C, K, N,
     # stream
     "moe_gemm": [_P] * 6 + [_I] * 7 + [_P],
+    # q, k_pool, v_pool, block_tables, lengths, tree_k, tree_v, anc, depths,
+    # out, scratch, counters, mma, dtype, B, H, KH, T, P, page, NB, D,
+    # window, nsplit, warps, stream
+    "paged_tree": [_P] * 12 + [_I] * 13 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -148,11 +153,20 @@ QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 
 MOE_GEMM_EPILOGUES: Dict[str, int] = {"gate_up": 0, "down": 0}
 MOE_GEMM_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
 MOE_GEMM_TILE = 64
+# paged tree attention launches by route: "mma" (the tensor-core kernel:
+# bf16 at PAGED_MMA_HEAD_DIMS on 16-byte boundaries) or "cuda_core"
+PAGED_TREE_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
+# the tensor-core tree kernel's work split: the most blocks one (slot, KV
+# head) row group's prefix is cut between, and the most warps (16 query rows
+# each) a block
+PAGED_TREE_MAX_SPLIT = 16
+PAGED_TREE_MAX_WARPS = 8
 # a kernel's launches by kind, for the kernels that count them
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
     "paged_decode": PAGED_ROUTES, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
     "moe_gemm": MOE_GEMM_EPILOGUES, "moe_gemm_route": MOE_GEMM_ROUTES,
+    "paged_tree": PAGED_TREE_ROUTES,
 }
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
 QGEMM_TILE_N = 64
@@ -930,3 +944,60 @@ def moe_combine(tok_slot: torch.Tensor, tok_gate: torch.Tensor, ye: torch.Tensor
                  dtype_code(ye.dtype), T, E, K, _stream(ye))
     _count("moe_combine")
     _check("moe_combine", err)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_tree_plan(B: int, H: int, KH: int, T: int, page: int, NB: int,
+                    sms: int = 132) -> tuple:
+    """(warps, row chunks, nsplit) of a tensor-core paged tree launch, from
+    shapes alone (a CUDA graph captures it): the G T query rows of a (slot,
+    KV head) in warps of 16 rows, at most ``PAGED_TREE_MAX_WARPS`` a block
+    (further rows in further row chunks), and each row group's prefix cut
+    between ``nsplit`` blocks, about two blocks per SM over the grid, at
+    most ``PAGED_TREE_MAX_SPLIT`` and at most the row's 64-key tiles."""
+    R = H // KH * T
+    warps = min(PAGED_TREE_MAX_WARPS, -(-R // 16))
+    chunks = -(-R // (16 * warps))
+    tiles = -(-NB * page // 64)
+    nsplit = max(1, min(PAGED_TREE_MAX_SPLIT, tiles, -(-2 * sms // (B * KH * chunks))))
+    return warps, chunks, nsplit
+
+
+def paged_tree(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, out: torch.Tensor,
+    block_tables: torch.Tensor, lengths: torch.Tensor, tree_k: torch.Tensor,
+    tree_v: torch.Tensor, anc: torch.Tensor, depths: torch.Tensor, *, window: Optional[int],
+) -> None:
+    """Launch the paged tree attention kernel (``csrc/paged_tree.cu``); the
+    caller (``ops.attention.paged_tree_attention``) validated the arguments.
+    bf16 at ``PAGED_MMA_HEAD_DIMS`` with every operand on a 16-byte boundary
+    takes the tensor-core kernel (``PAGED_TREE_ROUTES`` counts the route),
+    split by :func:`paged_tree_plan`; its f32 partials and counters come
+    from the per-(device, stream) scratch, like paged decode's.  Everything
+    else takes the CUDA-core kernel."""
+    B, H, T, D = q.shape
+    P, KH, page, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    mma = (q.dtype == torch.bfloat16 and D in PAGED_MMA_HEAD_DIMS
+           and not _misaligned(q, k_pool, v_pool, tree_k, tree_v, out))
+    stream = _stream(q)
+    fn = _fn("paged_tree")
+    with torch.cuda.device(q.device):
+        warps, chunks, nsplit = paged_tree_plan(B, H, KH, T, page, NB,
+                                                _sm_count(q.device.index))
+        scratch = counters = None
+        if mma and nsplit > 1:
+            scratch, counters = _scratch_buffers(
+                "paged_tree", q.device, stream, B * KH * nsplit * (H // KH) * T * (D + 2),
+                B * KH * chunks)
+        err = fn(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), tree_k.data_ptr(), tree_v.data_ptr(), anc.data_ptr(),
+            depths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            int(mma), dtype_code(q.dtype), B, H, KH, T, P, page, NB, D,
+            int(window) if window is not None else 0, nsplit, warps, stream,
+        )
+    _count("paged_tree", "mma" if mma else "cuda_core")
+    _check("paged_tree", err)

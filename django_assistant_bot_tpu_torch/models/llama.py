@@ -22,6 +22,12 @@ logical ``P - 1`` as the JAX code does.  The functions that write the cache
 update its tensors in place (``lengths`` included) and return the cache, so
 a CUDA graph that captured the tensors' addresses keeps reading the live
 state.
+
+Speculative decoding's paged plane: :func:`verify_tree_step_paged` is a
+read-only forward over a flattened speculation tree (its attention reads
+the verified prefix in place, :func:`~..ops.attention.paged_tree_attention`)
+and :func:`commit_tree_path_paged` writes the accepted path's K/V through
+the block table, every other write going to the dump page.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ..ops.attention import (
     flash_eligible,
     gqa_dot_product_attention,
     paged_gqa_decode_attention,
+    paged_tree_attention,
 )
 from ..ops.norms import rms_norm
 from ..ops.quant import (INT4_GROUP_SIZE, QTensor, QTensor4, QuantizedWeight, _int4_group,
@@ -612,3 +619,109 @@ def decode_step_paged(
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
     logits = _head_logits(params, cfg, x)
     return logits.float(), cache
+
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the tree verify forward and the accepted-path commit
+# ---------------------------------------------------------------------------
+
+
+def verify_tree_step_paged(
+    params: Params,
+    cfg: DecoderConfig,
+    tree: torch.Tensor,  # [B, T] int flat speculation tree (col 0 = input token)
+    cache: PagedKVCache,
+    block_tables: torch.Tensor,  # [B, NB] int32
+    depths: torch.Tensor,  # [T] int32 node depths (root = 0)
+    anc_mask: torch.Tensor,  # [T, T] bool — anc_mask[t, u]: u ancestor-or-self of t
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One forward over every tree node -> (logits [B, T, V] f32, tks, tvs
+    [L, B, KH, T, D]).  Node t of row b runs at position ``lengths[b] +
+    depths[t]`` (RoPE at that position, clamped to the row), attends to the
+    row's verified prefix (positions < lengths) read in place from the page
+    pool plus its own root-path ancestors through the tree's fresh K/V.
+    Read-only with respect to the cache: the caller commits the accepted
+    path's K/V (:func:`commit_tree_path_paged`).  The projections are
+    :func:`_attn_proj` at the nodes' positions: the JAX ``_tree_qkv`` only
+    keeps the tree dim out of the mesh's sequence sharding, and the port
+    has no mesh."""
+    B, T = tree.shape
+    L, P1, KH, page, D = cache.k.shape
+    P = P1 - 1
+    NB = block_tables.shape[1]
+    S = NB * page
+    dev = tree.device
+    lengths = cache.lengths
+    pos = (lengths.long()[:, None] + depths.long()[None, :]).clamp(max=S - 1)
+    cos_t, sin_t = _rope_tables(cfg, S, dev)
+    cos, sin = cos_t[pos], sin_t[pos]  # [B, T, D/2]
+    bt = block_tables.to(torch.int32)
+    x = _embed(params, cfg, tree)  # [B, T, E]
+    tks, tvs = [], []
+    for l, window in enumerate(_layer_windows(cfg)):
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, p, h, cos, sin)
+        o = paged_tree_attention(
+            q, cache.k[l, :P], cache.v[l, :P], bt, lengths, k, v, anc_mask, depths,
+            window=window,
+        )  # [B, H, T, D]
+        o = o.transpose(1, 2).reshape(B, T, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+        tks.append(k)
+        tvs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = _head_logits(params, cfg, x)  # [B, T, V]
+    return logits.float(), torch.stack(tks), torch.stack(tvs)
+
+
+def _gather_tree_path(tks: torch.Tensor, path_idx: torch.Tensor) -> torch.Tensor:
+    """[L, B, KH, T, D] tree K/V stack + [B, C] flat node ids -> [L, B, KH, C, D]."""
+    L, B, KH, T, D = tks.shape
+    C = path_idx.shape[1]
+    idx = path_idx.long()[None, :, None, :, None].expand(L, B, KH, C, D)
+    return torch.gather(tks, 3, idx)
+
+
+def commit_tree_path_paged(
+    cache: PagedKVCache,
+    tks: torch.Tensor,  # [L, B, KH, T, D] from verify_tree_step_paged
+    tvs: torch.Tensor,
+    path_idx: torch.Tensor,  # [B, C] flat tree ids: root + winning branch
+    block_tables: torch.Tensor,  # [B, NB]
+    n_commit: torch.Tensor,  # [B] tokens of the path to commit (1 + accepted)
+    active: torch.Tensor,  # [B] bool
+) -> PagedKVCache:
+    """Write the accepted path's K/V at positions ``lengths + j`` through the
+    block table, in place: page ``block_table[b, (lengths + j) // page]``,
+    offset ``(lengths + j) % page``.  Only ``j < n_commit`` of active rows,
+    at a position inside the row and a block-table entry < P, lands in the
+    pool; every other write goes to the dump page (the JAX function's
+    dropped scatter): a write past the accepted run could alias a page
+    handed to another request.  ``cache.lengths`` is not advanced (the
+    caller does that once acceptance is known)."""
+    L, P1, KH, page, D = cache.k.shape
+    P = P1 - 1
+    B, C = path_idx.shape
+    NB = block_tables.shape[1]
+    S = NB * page
+    lengths = cache.lengths.long()
+    n_commit = n_commit.long()
+    pk = _gather_tree_path(tks, path_idx)  # [L, B, KH, C, D]
+    pv = _gather_tree_path(tvs, path_idx)
+    bt = block_tables.long()
+    for j in range(C):
+        pos = lengths + j
+        ok = active & (j < n_commit) & (pos < S)
+        blk = torch.clamp(pos // page, max=NB - 1)
+        off = torch.where(ok, pos % page, 0)
+        phys = torch.gather(bt, 1, blk[:, None])[:, 0]
+        phys_w = torch.where(ok, torch.clamp(phys, max=P), P)
+        # advanced indices (dims 1 and 3) around a slice put the batch dim
+        # first: values [B, L, KH, D]
+        cache.k[:, phys_w, :, off, :] = pk[:, :, :, j, :].transpose(0, 1).to(cache.k.dtype)
+        cache.v[:, phys_w, :, off, :] = pv[:, :, :, j, :].transpose(0, 1).to(cache.v.dtype)
+    return cache

@@ -11,6 +11,12 @@ hand-written Hopper kernels of the serving path.
   tensor it runs :func:`paged_gqa_decode_attention_plain`, which mirrors the
   JAX page loop.  bf16 outputs are held to :func:`paged_bf16_bound` on the
   card.
+- :func:`paged_tree_attention` — the speculative verify forward's read: T
+  tree queries per slot against the slot's verified prefix in the page
+  pool plus the tree's own ancestor-masked keys.  On a CUDA tensor it
+  launches ``csrc/paged_tree.cu``; on a CPU tensor it runs
+  :func:`paged_tree_attention_plain`.  bf16 outputs are held to
+  :func:`paged_tree_bf16_bound` on the card.
 - :func:`attention` — the dispatch: the flash kernel for mask-free CUDA
   prefill of at least 256 tokens, the plain path otherwise.  ``k``/``v``
   carry H heads either way; :func:`flash_attention` itself also takes KH
@@ -396,5 +402,190 @@ def paged_gqa_decode_attention(
     out = torch.empty_like(q)
     kernels.paged_decode(
         q, k_pool, v_pool, out, block_tables, positions, active, window=window
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paged tree attention (the speculative verify read): Hopper kernel + plain twin
+# ---------------------------------------------------------------------------
+
+# the most tree nodes the kernel takes (one key tile of the tree chunk)
+PAGED_TREE_MAX_T = 64
+
+
+def check_paged_tree_nodes(speculative: int, spec_width: int) -> None:
+    """Refuse, with ``ValueError``, a speculation tree the card's kernel
+    cannot take: ``1 + spec_width * speculative`` nodes past
+    ``PAGED_TREE_MAX_T``.  The CPU twin takes any tree; a spec engine on the
+    card checks this when it is built, and the registry when a spec is read."""
+    nodes = 1 + spec_width * speculative
+    if nodes > PAGED_TREE_MAX_T:
+        raise ValueError(
+            f"speculative={speculative} with spec_width={spec_width} verifies a "
+            f"{nodes}-node tree; the card's paged tree kernel takes at most "
+            f"{PAGED_TREE_MAX_T} nodes (1 + spec_width * speculative) until ROADMAP "
+            f"Queue 2 follow-up 14 (the tree in several key tiles); on the card keep "
+            f"spec_width * speculative <= {PAGED_TREE_MAX_T - 1}"
+        )
+
+
+def paged_tree_attention_plain(
+    q: torch.Tensor,  # [B, H, T, D] — one query per speculation-tree node
+    k_pool: torch.Tensor,  # [P, KH, page, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, NB] int; entries >= P unallocated
+    lengths: torch.Tensor,  # [B] int — verified prefix length per row
+    tree_k: torch.Tensor,  # [B, KH, T, D] — the tree's freshly-projected keys
+    tree_v: torch.Tensor,
+    anc_mask: torch.Tensor,  # [T, T] bool — anc_mask[t, u]: u ancestor-or-self of t
+    depths: torch.Tensor,  # [T] int node depths (root = 0)
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """The JAX page loop in plain PyTorch: logical blocks [lo, hi) over the
+    batch's longest prefix, one gathered page per row per step, f32 online
+    softmax with the finite ``NEG_INF`` mask (keys below the row's length,
+    and, with a window, above ``qpos - window`` for each node at ``qpos =
+    lengths + depths``), probabilities rounded to the pool's dtype before
+    P.V while ``l`` sums the unrounded ones; then the tree as the final
+    chunk under the ancestor mask (and the window on the keys' positions
+    ``lengths + depths``), probabilities rounded to ``q``'s dtype."""
+    _refuse_fp8("paged_tree_attention", False, k_pool, v_pool)
+    B, H, T, D = q.shape
+    P, KH, page, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    G = H // KH
+    scale = D ** -0.5
+    dev = q.device
+    qg = q.reshape(B, KH, G, T, D).float()
+    lengths = lengths.long()
+    depths = depths.long().to(dev)
+    hi = min((int(lengths.max()) + page - 1) // page, NB)
+    qpos = lengths[:, None] + depths[None, :]  # [B, T]
+    lo = 0
+    if window is not None:
+        lo = min(max(int(lengths.min()) - window + 1, 0) // page, hi)
+    m = torch.full((B, KH, G, T, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KH, G, T, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KH, G, T, D), dtype=torch.float32, device=dev)
+    offs = torch.arange(page, device=dev)
+
+    def update(m, l, acc, s, keep, v_blk, p_dtype):
+        # s [B, KH, G, T, n], keep [B, T, n], v_blk [B, KH, n, D]
+        s = torch.where(keep[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.matmul(p.to(p_dtype).float(), v_blk[:, :, None])
+        return m_new, l, acc
+
+    for ci in range(lo, hi):
+        phys = block_tables[:, ci].long().clamp(0, P - 1)
+        k_blk = k_pool[phys].float()  # [B, KH, page, D]
+        v_blk = v_pool[phys].float()
+        s = torch.matmul(qg, k_blk[:, :, None].transpose(-1, -2)) * scale  # [B,KH,G,T,page]
+        kpos = ci * page + offs
+        keep = (kpos[None, None, :] < lengths[:, None, None]).expand(B, T, page)
+        if window is not None:
+            keep = keep & (kpos[None, None, :] > qpos[:, :, None] - window)
+        m, l, acc = update(m, l, acc, s, keep, v_blk, v_pool.dtype)
+    tk = tree_k.to(q.dtype).float()
+    tv = tree_v.to(q.dtype).float()
+    s = torch.matmul(qg, tk[:, :, None].transpose(-1, -2)) * scale  # [B, KH, G, T, T]
+    keep = anc_mask.to(dev)[None].expand(B, T, T)
+    if window is not None:
+        keep = keep & (qpos[:, None, :] > qpos[:, :, None] - window)
+    _, l, acc = update(m, l, acc, s, keep, tv, q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.reshape(B, H, T, D)
+
+
+def paged_tree_bf16_bound(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    tree_k: torch.Tensor,
+    tree_v: torch.Tensor,
+    anc_mask: torch.Tensor,
+    depths: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-element bound on ``|out - ref|`` for a bf16 paged tree output
+    against the f32 plain twin ``ref`` on the same inputs:
+    ``2^-8 |ref| + 2^-8 A + 1e-4`` with ``A`` the same tree attention over
+    ``|v|`` (pool and tree) — :func:`paged_bf16_bound`'s argument: the
+    kernel, like the JAX function, rounds each probability to bf16 before
+    P.V (at most 2^-8 A while the normaliser sums the unrounded f32 p) and
+    rounds the output (2^-8 |out|); 1e-4 covers the f32 summation order."""
+    a = paged_tree_attention_plain(
+        q.float(), k_pool.float(), v_pool.float().abs(), block_tables, lengths,
+        tree_k.float(), tree_v.float().abs(), anc_mask, depths, window=window,
+    )
+    return 2.0 ** -8 * (ref.abs() + a) + 1e-4
+
+
+def paged_tree_attention(
+    q: torch.Tensor,  # [B, H, T, D]
+    k_pool: torch.Tensor,  # [P, KH, page, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, NB] int32
+    lengths: torch.Tensor,  # [B] int32
+    tree_k: torch.Tensor,  # [B, KH, T, D]
+    tree_v: torch.Tensor,
+    anc_mask: torch.Tensor,  # [T, T] bool
+    depths: torch.Tensor,  # [T] int32
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Paged tree attention.  CPU tensors run the plain twin; CUDA tensors
+    launch ``csrc/paged_tree.cu`` or raise on what it does not take."""
+    if q.device.type == "cpu":
+        return paged_tree_attention_plain(
+            q, k_pool, v_pool, block_tables, lengths, tree_k, tree_v, anc_mask, depths,
+            window=window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_tree_attention: unsupported device {q.device}")
+    _refuse_fp8("paged_tree_attention", False, k_pool, v_pool)
+    B, H, T, D = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != D:
+        raise ValueError(f"paged_tree_attention: bad pool shapes {tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    KH = k_pool.shape[1]
+    if H % KH:
+        raise ValueError(f"paged_tree_attention: KV heads {KH} must divide query heads {H}")
+    if D not in (16, 32, 64, 128, 256):
+        raise ValueError(f"paged tree kernel takes head_dim 16, 32, 64, 128 or 256, got {D}")
+    if not 1 <= T <= PAGED_TREE_MAX_T:
+        raise ValueError(f"paged tree kernel takes 1 to {PAGED_TREE_MAX_T} tree nodes, got {T}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"paged tree kernel takes matching f32 or bf16 q/pools, got {q.dtype}/{k_pool.dtype}")
+    if tuple(tree_k.shape) != (B, KH, T, D) or tree_v.shape != tree_k.shape:
+        raise ValueError(f"paged_tree_attention: tree K/V must be [{B}, {KH}, {T}, {D}], got {tuple(tree_k.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or block_tables.dtype != torch.int32:
+        raise ValueError("paged_tree_attention: block_tables must be [B, NB] int32")
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError("paged_tree_attention: lengths must be [B] int32")
+    if tuple(anc_mask.shape) != (T, T) or anc_mask.dtype != torch.bool:
+        raise ValueError(f"paged_tree_attention: anc_mask must be [{T}, {T}] bool")
+    if depths.shape != (T,) or depths.dtype != torch.int32:
+        raise ValueError(f"paged_tree_attention: depths must be [{T}] int32")
+    if window is not None and window <= 0:
+        raise ValueError(f"paged_tree_attention: window must be positive, got {window}")
+    for t in (k_pool, v_pool, block_tables, lengths, tree_k, tree_v, anc_mask, depths):
+        if t.device != q.device:
+            raise ValueError("paged_tree_attention: tensors on different devices")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged_tree_attention: pools must be contiguous")
+    q, tree_k, tree_v = (t.to(q.dtype).contiguous() for t in (q, tree_k, tree_v))
+    out = torch.empty_like(q)
+    kernels.paged_tree(
+        q, k_pool, v_pool, out, block_tables.contiguous(), lengths.contiguous(), tree_k,
+        tree_v, anc_mask.contiguous(), depths.contiguous(), window=window,
     )
     return out

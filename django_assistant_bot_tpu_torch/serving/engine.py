@@ -5,9 +5,9 @@ defaults: ``kv_layout="paged"`` with prefix sharing, fused
 ``decode_steps``-step ticks, chunked prefill piggybacked into the decode
 tick, the admission-controlled :class:`~.scheduler.RequestScheduler`, the
 observability plane and crash-only supervision, with token streaming and
-JSON-constrained decoding.  Speculation and fp8 KV are still accepted only
-at their off value and refused, naming their ROADMAP item, at any other.
-What is ported is the JAX engine's own logic:
+JSON-constrained decoding and tree-verified speculative decoding.  fp8 KV
+is still accepted only at its off value and refused, naming its ROADMAP
+item, at any other.  What is ported is the JAX engine's own logic:
 
 - **Admission.**  Free slots take queued requests in the scheduler's
   weighted-fair-share order (FIFO with ``scheduler=None``); each reserves
@@ -76,6 +76,24 @@ What is ported is the JAX engine's own logic:
   advances it in the fused sampler.  On the card the JSON tick is a third
   CUDA graph in the same pool, captured at the first JSON request or in
   :meth:`~GenerationEngine.warmup`.
+- **Speculative decoding.**  ``speculative=K`` (with ``spec_width=N``):
+  each tick drafts a token tree per slot from the slot's device token
+  history (prompt-lookup, :mod:`..ops.speculative`; the history is seeded
+  with the prompt at admission and extended by each verify step), verifies
+  every node in one read-only forward
+  (:func:`~..models.llama.verify_tree_step_paged`, whose attention is the
+  paged tree kernel on the card), accepts the longest root-to-leaf run
+  matching the model's argmax (greedy rows; sampled rows take the
+  position-0 draw), commits that path's K/V through the block table and
+  advances the lengths, tokens and history: up to K+1 tokens a slot per
+  verify step, greedy output unchanged.  A tick runs one verify step unless
+  ``decode_steps`` is given (then that many).  The JAX acceptance-EMA
+  controller picks a rung of the tree ladder per tick, or a plain tick when
+  no rung pays for its verify forward at the measured cost ratios
+  (:meth:`~GenerationEngine.probe_spec`); under the scheduler's
+  degradation band the engine ticks plain.  On the card each rung's tick is
+  its own CUDA graph in the tick's pool, captured at construction.  Spec
+  engines do not piggyback chunks and refuse ``json_format``, as in JAX.
 - **Observability.**  With ``obs`` on, :class:`~.obs.EngineObs` records
   TTFT, inter-token, queue-wait and tick histograms, request traces and a
   flight recorder, all host bookkeeping after a tick's ids reached the host;
@@ -89,6 +107,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import dataclasses
 import logging
 import queue
@@ -104,9 +123,19 @@ import torch
 from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..models import DecoderConfig, EncoderConfig, encoder, llama
+from ..ops.attention import check_paged_tree_nodes
 from ..ops.quant import check_kernel_params, weight_bits
 from ..ops.json_fsm import TokenFSM, fsm_for_tokenizer
 from ..ops.sampling import gumbel_noise, noise_width, sample_logits
+from ..ops.speculative import (
+    SpecController,
+    accept_tree,
+    breakeven_accept_rate,
+    build_tree_draft,
+    default_rungs,
+    flatten_tree,
+    make_tree_spec,
+)
 from .faults import FaultInjected, FaultInjector
 from .kv_pool import PageAllocator, SharedPrefix
 from .obs import EngineObs, new_trace_id
@@ -284,6 +313,11 @@ class _TickRef:
     slots: List[tuple]
     first: bool = False
     offset: int = 0
+    # a speculative tick: ``nxt`` is ``[N, K+1, max_slots]`` ids and
+    # ``n_new`` ``[N, max_slots]`` valid-token counts (entry k of a step is
+    # real only for k < n_new), drafted at ``spec_rung`` (width, depth)
+    n_new: Optional[_HostCopy] = None
+    spec_rung: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -333,14 +367,16 @@ class GenerationEngine:
         name: str = "engine",
         obs: bool = True,
         obs_dump_dir: Optional[str] = None,
+        speculative: int = 0,
+        spec_width: int = 4,
+        spec_probe_every: int = 64,
+        spec_explore_every: int = 32,
         # the JAX engine's knobs that are ported only at their off value
         kv_layout: str = "paged",
-        speculative: int = 0,
         kv_cache_dtype: Optional[str] = None,
         attn_fp8: bool = False,
     ):
         _refuse("kv_layout", kv_layout, "paged", "Queue 1 item 8 (legacy contiguous KV)")
-        _refuse("speculative", speculative, 0, "Queue 1 item 9 (speculative decoding)")
         _refuse("kv_cache_dtype", kv_cache_dtype, None, "Queue 2 entry 5 (fp8 KV)")
         _refuse("attn_fp8", attn_fp8, False, "Queue 2 entry 5 (fp8 KV)")
         if decode_steps is not None and int(decode_steps) < 1:
@@ -369,9 +405,46 @@ class GenerationEngine:
         )
         self.chunk_size = int(min(chunk_size, self.max_seq_len))
         self.lookahead = max(0, int(lookahead))
-        # the JAX resolution: decode_steps wins when given, else burst
-        self.decode_steps = max(1, int(decode_steps if decode_steps is not None else burst))
-        self.prefill_piggyback = bool(prefill_piggyback)
+        # the JAX resolution: decode_steps wins when given, else burst; a
+        # speculative engine runs one verify step a tick unless decode_steps
+        # asks for more (burst describes plain-decode dispatch amortization)
+        self.speculative = max(0, int(speculative))
+        if decode_steps is not None:
+            self.decode_steps = max(1, int(decode_steps))
+        else:
+            self.decode_steps = 1 if self.speculative else max(1, int(burst))
+        self.spec_width = max(1, int(spec_width)) if self.speculative else 0
+        if self.speculative and self.decode_steps * (self.speculative + 1) > self.max_seq_len // 4:
+            # each verify step writes up to K+1 positions and that much
+            # finish headroom is reserved: fail at load, as the JAX engine
+            raise ValueError(
+                f"speculative={self.speculative} x decode_steps="
+                f"{self.decode_steps} too large for max_seq_len="
+                f"{self.max_seq_len}: each tick writes up to "
+                f"decode_steps*(K+1) positions and that many tokens of "
+                f"finish headroom are reserved; keep decode_steps*(K+1) "
+                f"<= max_seq_len // 4 ({self.max_seq_len // 4})"
+            )
+        if self.speculative and self.device.type == "cuda":
+            check_paged_tree_nodes(self.speculative, self.spec_width)
+        # spec engines keep sequential chunking: the spec tick owns the
+        # token / history chain a piggybacked chunk would fork (JAX)
+        self.prefill_piggyback = bool(prefill_piggyback) and not self.speculative
+        self.spec_drafted = 0  # draft tokens proposed (greedy rows only)
+        self.spec_accepted = 0  # draft tokens accepted
+        self.spec_ticks_issued = 0  # speculative ticks dispatched
+        self.spec_skipped_load = 0  # plain ticks forced by queue pressure
+        self.spec_skipped_accept = 0  # plain ticks forced by the controller
+        self.spec_row_steps = 0  # verify steps of greedy rows (K drafted each)
+        self._spec_ctl: Optional[SpecController] = None
+        if self.speculative:
+            # one program (a CUDA graph on the card) per rung of the
+            # controller's shrink ladder; the tree shape is static in each
+            self._spec_ctl = SpecController(
+                rungs=default_rungs(self.spec_width, self.speculative),
+                probe_every=max(1, int(spec_probe_every)),
+                explore_every=max(1, int(spec_explore_every)),
+            )
 
         page = int(kv_page_size) or self._resolve_kv_chunk(decode_kv_chunk) or 0
         if not page:
@@ -413,6 +486,10 @@ class GenerationEngine:
         if scheduler is not None:
             scheduler.bind_slots(max_slots)
             scheduler.bind_kv(self._kv_pool.available, self._kv_pool.n_pages)
+            if self.speculative:
+                # load-disable vs acceptance-disable, side by side in the
+                # scheduler's own stats
+                scheduler.bind_spec(self._spec_disabled_gauge)
             if self.obs is not None:
                 # once warm, the realized queue waits floor the estimated
                 # wait of admission and of the 429's Retry-After
@@ -492,6 +569,8 @@ class GenerationEngine:
         self._piggyback_launches: Optional[kernels.GraphLaunches] = None
         self._json_graph: Optional[torch.cuda.CUDAGraph] = None
         self._json_launches: Optional[kernels.GraphLaunches] = None
+        # each speculative rung's tick: (graph, its launches)
+        self._spec_graphs: Dict[tuple, tuple] = {}
         self.graph_pool_bytes = 0
         self.graph_captures = 0  # CUDA graphs this engine captured
         if self.device.type == "cuda":
@@ -527,6 +606,25 @@ class GenerationEngine:
         )
         self._chunk_slot_dev = torch.zeros((1,), dtype=torch.int64, device=dev)
         self._chunk_start_dev = torch.zeros((1,), dtype=torch.int64, device=dev)
+        # speculation: the token history (the draft source), each rung's
+        # tree constants and output buffers (ids [K, K+1, B], counts [K, B])
+        self._history_dev = None
+        self._spec_consts: Dict[tuple, tuple] = {}
+        self._spec_out: Dict[tuple, tuple] = {}
+        if self.speculative:
+            self._history_dev = torch.zeros((B, self.max_seq_len), dtype=torch.int32, device=dev)
+            for rung in self._spec_ctl.rungs:
+                spec = make_tree_spec(*rung)
+                self._spec_consts[rung] = (
+                    spec,
+                    torch.as_tensor(spec.depths, dtype=torch.int32, device=dev),
+                    torch.as_tensor(spec.anc_mask, dtype=torch.bool, device=dev),
+                    torch.as_tensor(spec.branch_nodes, dtype=torch.long, device=dev),
+                )
+                self._spec_out[rung] = (
+                    torch.zeros((K, spec.depth + 1, B), dtype=torch.int32, device=dev),
+                    torch.zeros((K, B), dtype=torch.int32, device=dev),
+                )
         self._bt_dirty = True
         self._sampling_dirty = True
 
@@ -563,6 +661,11 @@ class GenerationEngine:
                   self._chunk_start_dev, self._fsm_states_dev):
             t.zero_()
         self._chunk_bt_dev.fill_(self._kv_sentinel)
+        if self._history_dev is not None:
+            self._history_dev.zero_()
+            for toks, n_new in self._spec_out.values():
+                toks.zero_()
+                n_new.zero_()
         for _, counters in getattr(self, "_graph_scratch", {}).values():
             counters.zero_()
         self._reseeds += 1
@@ -628,7 +731,9 @@ class GenerationEngine:
         slot and pages, so nothing is written); with ``json``, build the
         token FSM, its tables and the JSON tick's graph.  The tick and
         piggyback graphs were captured at construction.  After it, a request
-        builds no library and captures no graph (``graph_captures``)."""
+        builds no library and captures no graph (``graph_captures``).  A
+        speculative engine then times each rung's tick against the plain
+        tick (:meth:`_measure_spec_costs`), feeding the controller."""
         if self._running:
             raise RuntimeError("warmup() must run before start(): the engine thread owns the "
                                "device state once running")
@@ -664,6 +769,11 @@ class GenerationEngine:
         for t in (self._cache.lengths, self._chunk_ids_dev, self._chunk_slot_dev,
                   self._chunk_start_dev):
             t.zero_()
+        if self.speculative:
+            # the controller's breakeven test then runs on measured
+            # verify / plain cost ratios instead of its default
+            with torch.no_grad():
+                self._measure_spec_costs(iters=4)
         if self.device.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -679,6 +789,15 @@ class GenerationEngine:
         and runs active.  The lengths, block tables and token buffers are
         reset afterwards (the pages' contents past every valid length are
         garbage, as decode already allows)."""
+        with self._idle("probe_decode"), torch.no_grad():
+            return self._probe_decode_locked(int(iters), fill_len)
+
+    @contextlib.contextmanager
+    def _idle(self, what: str):
+        """Hold the loop-iteration lock on an idle engine (no live slot,
+        nothing in flight, no chunked prefill), waiting up to 10 s for
+        in-flight work to drain; a request submitted meanwhile waits in the
+        queue."""
         deadline = time.monotonic() + 10.0
         while True:
             self._iter_lock.acquire()
@@ -686,11 +805,10 @@ class GenerationEngine:
                 break
             self._iter_lock.release()
             if time.monotonic() >= deadline:
-                raise RuntimeError("probe_decode requires an idle engine")
+                raise RuntimeError(f"{what} requires an idle engine")
             time.sleep(0.01)
         try:
-            with torch.no_grad():
-                return self._probe_decode_locked(int(iters), fill_len)
+            yield
         finally:
             self._iter_lock.release()
 
@@ -729,6 +847,52 @@ class GenerationEngine:
             self._sampling_dirty = True
             self._upload_dirty()
 
+    def probe_spec(self, iters: int = 8) -> Dict[str, Any]:
+        """Measured verify / plain tick costs per tree rung on an idle engine
+        (the lock discipline of :meth:`probe_decode`): seconds per plain
+        tick, per speculative tick of every (width, depth) rung, the cost
+        ratios and each rung's breakeven accept rate.  Feeds the
+        controller's cost table (the JAX ``probe_spec``)."""
+        if not self.speculative:
+            raise RuntimeError("probe_spec requires a speculative engine")
+        with self._idle("probe_spec"), torch.no_grad():
+            return self._measure_spec_costs(int(iters))
+
+    def _measure_spec_costs(self, iters: int = 4) -> Dict[str, Any]:
+        """Time the plain tick and every rung's tick (graph replays on the
+        card), each ``iters`` times back to back after a warm one, with
+        every slot inactive (nothing is written but the dump page and the
+        output buffers), one sync per series; feed the cost ratios to the
+        controller.  Called from :meth:`warmup` and :meth:`probe_spec`."""
+        self._upload_dirty()  # an idle engine: every slot inactive
+        dev = self.device
+
+        def series(launch) -> float:
+            launch()  # warm
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                launch()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return (time.perf_counter() - t0) / iters
+
+        plain_s = series(self._launch_tick)
+        out: Dict[str, Any] = {"plain_tick_s": plain_s, "rungs": {}}
+        for rung in self._spec_ctl.rungs:
+            spec_s = series(lambda: self._launch_spec_tick(rung))
+            ratio = spec_s / max(plain_s, 1e-9)
+            self._spec_ctl.note_cost(rung, ratio)
+            out["rungs"][f"{rung[0]}x{rung[1]}"] = {
+                "width": rung[0],
+                "depth": rung[1],
+                "tick_s": spec_s,
+                "cost_ratio": ratio,
+                "breakeven_accept_rate": breakeven_accept_rate(ratio, rung[1]),
+            }
+        return out
+
     def submit(
         self,
         prompt_ids: Sequence[int],
@@ -763,6 +927,12 @@ class GenerationEngine:
         future's done-callback on every resolution path.  ``trace_id`` is
         the request's correlation id (generated when absent)."""
         trace_id = trace_id or new_trace_id()
+        if json_format and self.speculative:
+            raise ValueError(
+                "speculative decoding and json_format are mutually exclusive "
+                "(the JSON token-FSM advances one sequential state per token); "
+                "serve JSON traffic from a non-speculative model entry"
+            )
         if self.degraded():
             remaining = max(0.1, (self._degraded_until or 0.0) - time.monotonic())
             raise EngineUnavailable(
@@ -935,7 +1105,40 @@ class GenerationEngine:
         }
         if self.scheduler is not None:
             out["sched"] = self.scheduler.stats()
+        if self.speculative:
+            out["spec"] = self.spec_stats()
         return out
+
+    def spec_stats(self) -> Optional[Dict[str, Any]]:
+        """Speculation gauges, or None on a non-speculative engine (the
+        JAX ``spec_stats``): cumulative draft / accept counters, the
+        controller's state (acceptance EMAs per rung, the rung issued) and
+        why speculation is off, if it is: ``spec_auto_disabled`` the
+        controller's breakeven verdict, ``spec_load_disabled`` the
+        scheduler's degradation band."""
+        if not self.speculative:
+            return None
+        out = {
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": round(self.spec_accepted / max(1, self.spec_drafted), 4),
+            "spec_load_disabled": bool(self.scheduler is not None and self.scheduler.degraded()),
+            "spec_ticks": self.spec_ticks_issued,
+            "spec_skipped_load": self.spec_skipped_load,
+            "spec_skipped_accept": self.spec_skipped_accept,
+        }
+        out.update(self._spec_ctl.stats())
+        return out
+
+    def _spec_disabled_gauge(self) -> Dict[str, Any]:
+        """The gauge bound into the scheduler's stats: which mechanism (if
+        any) holds speculation off, and the tick counters behind it."""
+        return {
+            "load": bool(self.scheduler is not None and self.scheduler.degraded()),
+            "acceptance": bool(self._spec_ctl is not None and self._spec_ctl.disabled),
+            "skipped_load_ticks": self.spec_skipped_load,
+            "skipped_accept_ticks": self.spec_skipped_accept,
+        }
 
     def kv_stats(self) -> Dict[str, Any]:
         """The KV plane's gauges: the pool (pages used, free, obtainable,
@@ -1035,6 +1238,7 @@ class GenerationEngine:
         tick's ids in :meth:`_process_tick`."""
         return {
             **self.stats(),
+            **(self.spec_stats() or {}),
             "issue_ms": round(self._tick_issue_s / max(1, self._ticks_issued) * 1e3, 3),
             "block_ms": round(self._tick_block_s / max(1, self._ticks_processed) * 1e3, 3),
             "graph_pool_bytes": self.graph_pool_bytes,
@@ -1603,6 +1807,13 @@ class GenerationEngine:
             self._top_ps[slot] = req.top_p
             self._json[slot] = req.json
             ref_slots.append((slot, self._slot_epoch[slot]))
+            if self.speculative:
+                # the prompt is the draft source (prompt-lookup): seed the
+                # slot's history row with it, in stream order
+                row = np.zeros((self.max_seq_len,), np.int32)
+                n = min(len(req.prompt_ids), self.max_seq_len)
+                row[:n] = req.prompt_ids[:n]
+                self._upload(self._history_dev[slot], row)
         self._sampling_dirty = True
         self._inflight.append(_TickRef(nxt=_HostCopy(first), slots=ref_slots, first=True, offset=pad))
 
@@ -1652,6 +1863,62 @@ class GenerationEngine:
         self._fsm_states_dev.copy_(states)
         self._toks_dev[0].copy_(nxt)
         self._tokens_dev.copy_(nxt)
+
+    def _spec_tick_body(self, rung: tuple) -> None:
+        """One speculative tick at ``rung`` (width N, depth K):
+        ``decode_steps`` chained verify steps over the engine's buffers, each
+        draft (from the history) -> flat tree -> read-only verify forward ->
+        acceptance (step ``i``'s position-0 draw reading noise ``i``) ->
+        accepted-path commit (inactive rows and everything past the run go
+        to the dump page) -> history, length and token update, as the JAX
+        ``_make_spec_tick`` body.  Ids go to the rung's ``[steps, K+1, B]``
+        buffer, counts to its ``[steps, B]`` one.  On the card this is what
+        the rung's graph holds."""
+        spec, depths, anc, branch = self._spec_consts[rung]
+        N, K = rung
+        toks_out, n_out = self._spec_out[rung]
+        cache, active, hist = self._cache, self._active_dev, self._history_dev
+        S = self.max_seq_len
+        rel0 = torch.arange(S, device=self.device)[None, :]
+        for i in range(self.decode_steps):
+            tokens = self._tokens_dev
+            draft = build_tree_draft(hist, cache.lengths, tokens, N, K)
+            tree = flatten_tree(tokens, draft)  # [B, 1 + N*K]
+            logits, tks, tvs = llama.verify_tree_step_paged(
+                self.params, self.cfg, tree, cache, self._bt_dev, depths, anc)
+            out, n_new, bonus, path_idx = accept_tree(
+                logits, tree, spec, temperature=self._temps_dev, top_k=TOP_K,
+                top_p=self._top_ps_dev, gumbel=self._noise[i], branch=branch)
+            n_new = torch.where(active, n_new, 0)
+            llama.commit_tree_path_paged(cache, tks, tvs, path_idx, self._bt_dev, n_new, active)
+            # the input token and the accepted ones into the history at
+            # positions lengths .. lengths + K + 1 (past the run: garbage the
+            # next steps overwrite; the drafter never reads past the length)
+            row_tokens = torch.cat([tokens[:, None], out], dim=1)  # [B, K + 2]
+            pos = torch.clamp(cache.lengths.long(), max=S - (K + 2))
+            rel = rel0 - pos[:, None]
+            in_window = (rel >= 0) & (rel < K + 2)
+            gathered = torch.gather(row_tokens, 1, rel.clamp(0, K + 1))
+            upd = torch.where(in_window & active[:, None], gathered, hist)
+            hist.copy_(upd)
+            cache.lengths.copy_(torch.where(
+                active, torch.clamp(cache.lengths + n_new, max=S), cache.lengths))
+            self._tokens_dev.copy_(torch.where(active, bonus, tokens))
+            toks_out[i].copy_(out.T)
+            n_out[i].copy_(n_new)
+
+    def _launch_spec_tick(self, rung: tuple) -> None:
+        """Draw each verify step's noise (one generator call a step, as a
+        plain tick draws), then run ``rung``'s tick: its graph's replay on
+        the card, the body on the CPU."""
+        for i in range(self.decode_steps):
+            gumbel_noise(self._noise[i], self._generator)
+        graph = self._spec_graphs.get(rung)
+        if graph is None:
+            self._spec_tick_body(rung)
+        else:
+            graph[0].replay()
+            graph[1].replayed()
 
     def _ensure_fsm(self) -> None:
         """The JSON token FSM (:func:`token_fsm`) and its tables on the
@@ -1706,9 +1973,13 @@ class GenerationEngine:
         paged kernel's scratch and counters are the graphs' own
         (:func:`~..kernels.private_paged_scratch`), allocated by the
         warm-up, so no eager call shares them; the two graphs share one
-        memory pool, as they replay one at a time on one stream.  The
-        launches recorded in a graph are counted at each of its replays.  A
-        failure raises: there is no eager fallback on the card."""
+        memory pool, as they replay one at a time on one stream.  A
+        speculative engine also captures each rung's tick
+        (:meth:`_spec_tick_body`) in that pool, after every body's warm-up
+        (with every slot inactive a verify step writes only the dump page
+        and its output buffers).  The launches recorded in a graph are
+        counted at each of its replays.  A failure raises: there is no
+        eager fallback on the card."""
         dev = self.device
         piggyback = self.prefill_piggyback and self.chunk_size < self.max_seq_len - 1
         # made on the engine's stream, not inside the warm-up
@@ -1722,6 +1993,10 @@ class GenerationEngine:
                 if piggyback:
                     self._chunk_body()
                 self._tick_body()
+                # every body warms up before any capture: a later warm-up
+                # that grew a kernel's scratch would move it under a graph
+                for rung in self._spec_consts:
+                    self._spec_tick_body(rung)
             torch.cuda.current_stream(dev).wait_stream(stream)
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()  # what the captures reserve is then their pool
@@ -1741,9 +2016,20 @@ class GenerationEngine:
                         self._tick_body()
                 self._piggyback_graph, self._piggyback_launches = graph, launches
                 self.graph_captures += 1
+            for rung in self._spec_consts:
+                graph = torch.cuda.CUDAGraph()
+                with kernels.record_graph_launches() as launches:
+                    with torch.cuda.graph(graph, pool=self._graph.pool(), stream=stream,
+                                          capture_error_mode="thread_local"):
+                        self._spec_tick_body(rung)
+                self._spec_graphs[rung] = (graph, launches)
+                self.graph_captures += 1
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         for t in (self._tokens_dev, self._toks_dev, self._cache.lengths):
             t.zero_()
+        for toks, n_new in self._spec_out.values():
+            toks.zero_()
+            n_new.zero_()
         torch.cuda.synchronize(dev)
 
     def _launch_tick(self, piggyback: bool = False, json: bool = False) -> None:
@@ -1782,6 +2068,18 @@ class GenerationEngine:
             if delay:
                 time.sleep(delay)
         self._upload_dirty()
+        if self.speculative:
+            if self.scheduler is not None and self.scheduler.degraded():
+                # under queue pressure a verify forward is wasted work at low
+                # acceptance: a plain tick (the JAX degradation rule)
+                self.spec_skipped_load += 1
+            else:
+                rung = self._spec_ctl.rung()
+                if rung is None:
+                    self.spec_skipped_accept += 1
+                else:
+                    self._issue_spec_tick(t0, rung)
+                    return
         # while a JSON slot is live the whole batch takes single-step JSON
         # ticks (the JAX rule); a piggyback never coincides with one
         json = bool(self._json.any())
@@ -1793,6 +2091,20 @@ class GenerationEngine:
         live = [(i, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
         toks = self._toks_dev[:1] if json else self._toks_dev
         self._inflight.append(_TickRef(nxt=_HostCopy(toks), slots=live))
+        self._tick_issue_s += time.perf_counter() - t0
+
+    def _issue_spec_tick(self, t0: float, rung: tuple) -> None:
+        """Dispatch one speculative tick at the controller's rung without
+        waiting for its result; each of its verify steps advances a slot by
+        1 to K+1 tokens."""
+        self._launch_spec_tick(rung)
+        self.steps += self.decode_steps
+        self.spec_ticks_issued += 1
+        self._ticks_issued += 1
+        live = [(i, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
+        toks, n_new = self._spec_out[rung]
+        self._inflight.append(_TickRef(nxt=_HostCopy(toks), slots=live,
+                                       n_new=_HostCopy(n_new), spec_rung=rung))
         self._tick_issue_s += time.perf_counter() - t0
 
     def _process_tick(self):
@@ -1824,6 +2136,10 @@ class GenerationEngine:
                 self._consume_token(slot, s, int(vals[ref.offset + j]), now)
             self._notify_streams()
             return
+        if ref.n_new is not None:
+            self._process_spec_tick(ref, vals, now)
+            self._notify_streams()
+            return
         for slot, epoch in ref.slots:
             s = self._slots[slot]
             if s is not None and self._slot_epoch[slot] == epoch:
@@ -1836,24 +2152,59 @@ class GenerationEngine:
                 self._consume_token(slot, s, int(vals[k, slot]), now)
         self._notify_streams()
 
+    def _process_spec_tick(self, ref: _TickRef, vals: np.ndarray, now: float) -> None:
+        """A speculative tick's tokens, verify step by step (the JAX
+        accounting): each live slot takes its step's ``n_new`` tokens
+        (stopping at its finish), is charged ``n_new`` resident steps, and
+        greedy rows add K drafted and ``n_new - 1`` accepted tokens, which
+        the controller folds into the rung's acceptance EMA."""
+        counts = ref.n_new.numpy()  # [steps, B]
+        K = ref.spec_rung[1]
+        greedy_row_steps = 0
+        tick_accepted = 0
+        for step in range(counts.shape[0]):
+            for slot, epoch in ref.slots:
+                s = self._slots[slot]
+                if s is None or self._slot_epoch[slot] != epoch:
+                    continue  # finished by an earlier step; drafts dropped
+                n = int(counts[step, slot])
+                s.resident_steps += max(1, n)
+                if s.request.temperature <= 0:
+                    self.spec_drafted += K
+                    self.spec_accepted += max(0, n - 1)
+                    greedy_row_steps += 1
+                    tick_accepted += max(0, n - 1)
+                for k in range(n):
+                    if self._consume_token(slot, s, int(vals[step, k, slot]), now):
+                        break  # the rest are post-finish garbage
+        self.spec_row_steps += greedy_row_steps
+        if greedy_row_steps:
+            self._spec_ctl.note_tick(tick_accepted, K, greedy_row_steps, rung=ref.spec_rung)
+            if self.obs is not None:
+                self.obs.on_spec_tick(tick_accepted, K * greedy_row_steps)
+
     def _notify_streams(self) -> None:
         """One wakeup per stream that got tokens in this tick's processing."""
         for st in self._stream_notify:
             st.notify_now()
         self._stream_notify.clear()
 
-    def _consume_token(self, slot: int, s: _Slot, tok: int, now: float) -> None:
+    def _consume_token(self, slot: int, s: _Slot, tok: int, now: float) -> bool:
+        """Append one sampled id to its slot; True when the slot is no
+        longer live (finished or quarantined)."""
         if not 0 <= tok < self.cfg.vocab_size:
             # what a NaN'd logits row degenerates to: request poison
             self._quarantine(slot, RequestPoisoned(
                 f"sampled id {tok} outside vocab [0, {self.cfg.vocab_size})"
                 " — NaN/corrupt logits suspected; request quarantined", slot=slot,
             ))
-            return
+            return True
         s.generated.append(tok)
         self._note_token(s, tok, now)
         if self._should_finish(s, tok):
             self._finish(slot)
+            return True
+        return False
 
     def _note_token(self, s: _Slot, tok: int, now: float) -> None:
         """TTFT and inter-token samples where a token reaches the host (the
@@ -1881,8 +2232,11 @@ class GenerationEngine:
             return True
         if len(s.generated) >= s.request.max_tokens:
             return True
-        # cache full -> decode_step freezes the slot; finish as length-limited
-        return len(s.request.prompt_ids) + len(s.generated) >= self.max_seq_len
+        # cache full -> decode_step freezes the slot; finish as length-
+        # limited.  A speculative tick commits up to decode_steps * (K + 1)
+        # positions, so spec engines keep that much headroom, less one
+        headroom = self.decode_steps * (self.speculative + 1) - 1 if self.speculative else 0
+        return len(s.request.prompt_ids) + len(s.generated) >= self.max_seq_len - headroom
 
     def _release(self, slot: int) -> None:
         self._slots[slot] = None

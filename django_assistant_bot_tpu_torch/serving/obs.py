@@ -53,6 +53,7 @@ TTFT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 3
 ITL_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
 WAIT_BUCKETS = TTFT_BUCKETS
 TICK_BUCKETS = ITL_BUCKETS
+ACCEPT_BUCKETS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 
 
 def new_trace_id() -> str:
@@ -462,6 +463,7 @@ class EngineObs:
         self.itl_s = Histogram(ITL_BUCKETS)
         self.queue_wait_s = Histogram(WAIT_BUCKETS)
         self.tick_s = Histogram(TICK_BUCKETS)
+        self.accept_ratio = Histogram(ACCEPT_BUCKETS)
         self.flight = FlightRecorder(
             flight_capacity, name=name, clock=clock, dump_dir=dump_dir
         )
@@ -486,6 +488,11 @@ class EngineObs:
                 active=active,
                 block_ms=round(block_s * 1e3, 3),
             )
+
+    def on_spec_tick(self, accepted: int, drafted: int) -> None:
+        """One processed speculative tick: its greedy rows' accept ratio."""
+        if drafted > 0:
+            self.accept_ratio.observe(accepted / drafted)
 
     def on_first_token(self, ttft_s: float) -> None:
         self.ttft_s.observe(ttft_s)
@@ -613,12 +620,21 @@ def render_prometheus(registry: Any) -> str:
         x.add("dabt_kv_shared_pages", "gauge", "KV pool pages held by the prefix registry", kv.get("kv_shared_pages"), lab)
         x.add("dabt_kv_cow_copies_total", "counter", "boundary pages cloned for a prefix sharer", kv.get("kv_cow_copies"), lab)
         x.add("dabt_kv_evictions_total", "counter", "prefix registry entries evicted", kv.get("kv_evictions"), lab)
+        spec = eng.spec_stats() if callable(getattr(eng, "spec_stats", None)) else None
+        if spec is not None:
+            x.add("dabt_spec_drafted_total", "counter", "speculative tokens drafted", spec["spec_drafted"], lab)
+            x.add("dabt_spec_accepted_total", "counter", "speculative tokens accepted", spec["spec_accepted"], lab)
+            x.add("dabt_spec_accept_rate", "gauge", "cumulative speculative accept rate", spec["spec_accept_rate"], lab)
+            x.add("dabt_spec_tree_width", "gauge", "speculative tree width the controller currently issues", spec.get("spec_tree_width"), lab)
+            x.add("dabt_spec_tree_depth", "gauge", "speculative tree depth (K) the controller currently issues", spec.get("spec_tree_depth"), lab)
+            x.add("dabt_spec_verify_steps", "gauge", "scanned verify passes per speculative tick (decode_steps)", eng.decode_steps, lab)
         obs = getattr(eng, "obs", None)
         if obs is not None:
             x.add_histogram("dabt_ttft_seconds", "time to first token (submit -> first host token)", obs.ttft_s, lab)
             x.add_histogram("dabt_itl_seconds", "inter-token latency (host batch-arrival gaps)", obs.itl_s, lab)
             x.add_histogram("dabt_queue_wait_seconds", "admission queue wait (submit -> prefill start)", obs.queue_wait_s, lab)
             x.add_histogram("dabt_tick_seconds", "decode tick result wait in _process_tick", obs.tick_s, lab)
+            x.add_histogram("dabt_spec_tick_accept_ratio", "per-tick speculative accept ratio (greedy rows)", obs.accept_ratio, lab)
             x.add("dabt_traces_total", "counter", "completed request traces recorded", obs.traces_total, lab)
             x.add("dabt_flight_dumps_total", "counter", "flight-recorder dumps written", obs.flight.dumps, lab)
     for model, emb in sorted(getattr(registry, "embedders", {}).items()):

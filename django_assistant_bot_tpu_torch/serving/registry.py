@@ -11,7 +11,9 @@ quantizes a decoder's layer projections on the host before placement, as
 the JAX registry does (a MoE decoder's is refused: ROADMAP Queue 1 item 17);
 ``num_experts`` makes a ``tiny`` decoder a Mixtral MoE, and a ``path`` serves
 a Mixtral checkpoint; ``warmup`` / ``warmup_json`` run the engine's
-``warmup`` before it starts.  Keys of the JAX ``ModelSpec`` that are not ported yet are
+``warmup`` before it starts; ``speculative`` / ``spec_width`` serve
+tree-verified speculative decoding, refused on an encoder and with
+``warmup_json`` as in JAX.  Keys of the JAX ``ModelSpec`` that are not ported yet are
 accepted only at the value the port implements and refused otherwise,
 naming their ROADMAP item; keys the JAX spec does not know are refused too.
 """
@@ -24,13 +26,14 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
+from ..ops.attention import check_paged_tree_nodes
+
 logger = logging.getLogger(__name__)
 
 # JAX ModelSpec keys not ported yet: key -> (the only accepted value, ROADMAP item)
 _DEFERRED: Dict[str, tuple] = {
     "checkpoint": (None, "Queue 1 item 4 (native checkpoints)"),
     "kv_layout": ("paged", "Queue 1 item 8 (legacy contiguous KV)"),
-    "speculative": (0, "Queue 1 item 9 (speculative decoding)"),
     "kv_host_bytes": (0, "Queue 1 item 12 (tiered KV)"),
     "kv_spill_dir": (None, "Queue 1 item 12 (tiered KV)"),
     "replicas": (1, "Queue 1 item 12 (router)"),
@@ -44,7 +47,6 @@ _DEFERRED: Dict[str, tuple] = {
 _ABSENT = object()  # knobs of unported features: refused whenever present
 # JAX ModelSpec key prefixes / names of unported features -> ROADMAP item
 _DEFERRED_FAMILIES = (
-    (("spec_",), "Queue 1 item 9 (speculative decoding)"),
     (("kv_host_writethrough", "router_", "autoscale_"), "Queue 1 item 12 (tiered KV, router, autoscaler)"),
 )
 # decoder-only knobs the JAX registry refuses on an encoder: key -> test of
@@ -66,6 +68,24 @@ _DECODER_ONLY = {
 }
 _KINDS = ("decoder", "encoder")
 _QUANT_BITS = {"int8": 8, "int4": 4}
+
+
+def _check_speculative(spec: "ModelSpec") -> None:
+    """The JAX registry's speculative checks and messages, and on the card
+    the tree kernel's limit (:func:`check_paged_tree_nodes`)."""
+    name = spec.name.lower()
+    if spec.speculative and spec.kind == "encoder":
+        raise ValueError(f"model {name}: speculative is decoder-only")
+    if spec.speculative and spec.warmup_json:
+        raise ValueError(
+            f"model {name}: speculative excludes JSON-constrained decoding "
+            "(the token FSM is sequential); use a separate model entry"
+        )
+    if spec.speculative and torch.device(spec.device).type == "cuda":
+        try:
+            check_paged_tree_nodes(spec.speculative, max(1, spec.spec_width))
+        except ValueError as e:
+            raise ValueError(f"model {name}: {e}") from None
 
 
 def _check_quantize(spec: "ModelSpec") -> None:
@@ -165,6 +185,10 @@ class ModelSpec:
     decode_kv_chunk: Optional[int] = 0
     kv_page_size: int = 0
     kv_pages: int = 0
+    # tree-verified prompt-lookup speculative decoding: up to `spec_width`
+    # distinct continuations of depth `speculative` verified a tick (0 = off)
+    speculative: int = 0
+    spec_width: int = 4
     # admission-controlled scheduling (serving/scheduler.py); False keeps the
     # unbounded FIFO.  The sched_* knobs are the JAX spec's, same defaults.
     scheduler: bool = True
@@ -244,6 +268,7 @@ class ModelSpec:
             kwargs[key] = value
         spec = cls(name=name, **kwargs)
         _check_quantize(spec)
+        _check_speculative(spec)
         if spec.dtype not in _DTYPES:
             raise ValueError(f"model {name}: dtype must be one of {sorted(_DTYPES)}")
         if spec.decode_steps < 0:
@@ -297,6 +322,8 @@ class ModelSpec:
             decode_kv_chunk=self.decode_kv_chunk,
             kv_page_size=self.kv_page_size,
             kv_pages=self.kv_pages,
+            speculative=self.speculative,
+            spec_width=self.spec_width,
             prefix_cache_size=self.prefix_cache,
             prefix_min_tokens=self.prefix_min_tokens,
             prefix_cache_max_bytes=self.prefix_cache_max_bytes,
@@ -348,6 +375,7 @@ class ModelRegistry:
 
         name = spec.name.lower()
         _check_quantize(spec)
+        _check_speculative(spec)
         if spec.kind == "encoder":
             return self._load_encoder(name, spec, engine)
         if engine is None:

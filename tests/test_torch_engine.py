@@ -157,6 +157,11 @@ def test_pick_bucket():
 )
 def test_engine_refuses_unported_knobs(tiny_models, knob, value, item):
     _, _, cfg, params = tiny_models
+    if knob == "speculative":
+        # Queue 1 item 9 (speculative decoding) is ported: the engine takes it
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **{knob: value})
+        assert eng.speculative == value and eng.spec_stats()["spec_tree_depth"] == value
+        return
     with pytest.raises(NotImplementedError, match=item):
         GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **{knob: value})
 
@@ -179,6 +184,9 @@ def test_spec_refuses_unported_keys(key, value, item):
     elif key == "quantize":
         # Queue 2 entry 3 (int8/int4 qeinsum) is ported: the spec is accepted
         assert ModelSpec.from_dict("m", spec).quantize == "int8"
+    elif key == "speculative":
+        # Queue 1 item 9 (speculative decoding) is ported: the spec is accepted
+        assert ModelSpec.from_dict("m", spec).engine_kwargs()["speculative"] == 2
     else:
         with pytest.raises(NotImplementedError, match=item):
             ModelSpec.from_dict("m", spec)

@@ -29,7 +29,11 @@ package:
   CPU's;
 - a Mixtral MoE decoder (4 experts, top 2): the tick, piggyback and JSON
   graphs replay bit for bit as their bodies run eagerly, and count the four
-  MoE launches a layer a forward at each replay.
+  MoE launches a layer a forward at each replay;
+- a speculative engine: each rung's graph replays bit for bit as its body
+  run eagerly and counts its paged tree and sampler launches; an f32 spec
+  engine's greedy ids on the card equal the CPU spec engine's and the
+  card's plain engine's.
 """
 
 import contextlib
@@ -76,8 +80,9 @@ def _engine(dtype, device="cuda", fmt=None, **kw):
     params = {k: ({n: w.to(device) for n, w in v.items()} if isinstance(v, dict) else v.to(device))
               for k, v in params.items()}
     kw.setdefault("chunk_size", 512)
+    kw.setdefault("decode_steps", K)
     return GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
-                            max_seq_len=1024, decode_steps=K, **kw)
+                            max_seq_len=1024, **kw)
 
 
 def _state(eng):
@@ -115,7 +120,7 @@ def _mid_decode(eng, gen):
     eng._temps_dev.copy_(torch.tensor([0.0, 0.8, 0.0, 1.0]))
     eng._top_ps_dev.copy_(torch.tensor([1.0, 0.9, 1.0, 0.95]))
     eng._tokens_dev.copy_(torch.tensor([7, 300, 0, 42], dtype=torch.int32))
-    for i in range(K):
+    for i in range(eng.decode_steps):
         gumbel_noise(eng._noise[i], gen)
 
 
@@ -513,3 +518,85 @@ def test_moe_graphs_replay_bitwise_and_count_their_launches(dtype):
     eng._launch_tick(json=True)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["moe_route"] == L * (K + 2)
+
+
+def _spec_state(eng, rung):
+    return _state(eng)[:5] + [eng._history_dev, *eng._spec_out[rung]]
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"), (torch.float32, "cuda_core")])
+def test_spec_rung_graphs_replay_bitwise_and_count_their_launches(dtype, route):
+    """Each rung's captured speculative tick (2 verify steps) replays bit
+    for bit as its body run eagerly from the same mid-decode state (ragged
+    rows, one inactive, one sampled, a repetitive history), and counts
+    ``paged_tree`` L launches a verify step and one sampler launch a step."""
+    eng = _engine(dtype, speculative=3, spec_width=2, decode_steps=2)
+    L, steps = eng.cfg.num_layers, eng.decode_steps
+    assert set(eng._spec_graphs) == set(eng._spec_ctl.rungs) == {(2, 3), (1, 3), (1, 1)}
+    assert eng.graph_captures == 1 + len(eng._spec_graphs) and eng._piggyback_graph is None
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    _mid_decode(eng, gen)
+    motif = torch.tensor([7, 300, 42, 9, 300, 42], dtype=torch.int32)
+    eng._history_dev.copy_(motif.repeat(eng.max_seq_len // 6 + 1)[: eng.max_seq_len]
+                           .expand(eng.max_slots, -1))
+    for rung, (graph, rec) in eng._spec_graphs.items():
+        assert {k: n for k, n in rec.launches.items() if n} == {
+            "paged_tree": steps * L, "sample": steps}
+        assert rec.sub["paged_tree"][route] == steps * L
+        state = [t.clone() for t in _spec_state(eng, rung)]
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = [t.clone() for t in _spec_state(eng, rung)]
+        for t, b in zip(_spec_state(eng, rung), state):
+            t.copy_(b)
+        with torch.no_grad():
+            eng._spec_tick_body(rung)
+        torch.cuda.synchronize()
+        for name, got, want in zip(("k", "v", "lengths", "tokens", "toks", "history", "spec_toks",
+                                    "n_new"), replayed, _spec_state(eng, rung)):
+            assert torch.equal(got, want), (rung, name)
+        n_new = replayed[-1]
+        assert bool((n_new[:, 2] == 0).all()) and bool((n_new[:, [0, 1, 3]] >= 1).all())
+        grown = replayed[2] - state[2]
+        assert grown.tolist() == n_new.sum(0).tolist()
+    kernels.reset_counts()
+    for rung in eng._spec_ctl.rungs:
+        eng._launch_spec_tick(rung)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_tree"] == 3 * steps * L
+    assert kernels.PAGED_TREE_ROUTES[route] == 3 * steps * L
+
+
+def test_spec_engine_on_the_card_matches_cpu_and_plain():
+    """f32 spec engine: greedy ids on the card equal the CPU spec engine's
+    and the card's plain engine's, with drafts accepted; the verify ticks
+    ran as replays (paged_tree launches = L x verify steps)."""
+    gen = torch.Generator().manual_seed(8)
+    motif = torch.randint(1, 255, (9,), generator=gen).tolist()
+    prompts = [motif * 6, torch.randint(1, 255, (300,), generator=gen).tolist(), motif * 20]
+
+    def run(device, **kw):
+        eng = _engine(torch.float32, device=device, decode_steps=None, **kw)
+        eng._running = True
+        kernels.reset_counts()
+        futs = [eng.submit(p, max_tokens=24, temperature=0.0) for p in prompts]
+        for _ in range(2000):
+            if all(f.done() for f in futs):
+                break
+            eng._loop_iteration()
+        return [f.result(timeout=0).token_ids for f in futs], eng, kernels.launch_counts()
+
+    card, eng, counts = run("cuda", speculative=4, spec_width=2, spec_probe_every=1)
+    cpu, _, _ = run("cpu", speculative=4, spec_width=2, spec_probe_every=1)
+    plain, _, _ = run("cuda")
+    assert card == cpu == plain
+    st = eng.spec_stats()
+    assert st["spec_drafted"] > 0 and st["spec_accepted"] > 0
+    assert counts["paged_tree"] == eng.cfg.num_layers * eng.spec_ticks_issued * eng.decode_steps
+
+
+def test_spec_engine_on_the_card_refuses_a_tree_past_the_kernel_tile():
+    """A 65-node tree (speculative 16, spec_width 4) is refused when the card
+    engine is built, before any capture, naming the ROADMAP follow-up."""
+    with pytest.raises(ValueError, match="65-node tree.*follow-up 14"):
+        _engine(torch.bfloat16, decode_steps=None, speculative=16, spec_width=4)

@@ -106,3 +106,37 @@ def test_moe_layer_has_no_host_sync():
         found += [f"{fn.__name__}:{n.lineno} nonzero" for n in ast.walk(node)
                   if isinstance(n, ast.Attribute) and n.attr == "nonzero"]
     assert not found, found
+
+
+def test_spec_tick_is_scanned_and_has_no_host_sync():
+    """The speculative tick is on the scanned path (its issue, launch, body
+    and processing are reached from the roots), and what its body runs (the
+    drafter, acceptance, the verify forward, the paged tree wrapper's card
+    path and launch function, the commit) reads nothing on the host: each
+    verify step's graph replays with no host round trip."""
+    import importlib
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import llama
+    from django_assistant_bot_tpu_torch.ops import speculative
+
+    attention = importlib.import_module("django_assistant_bot_tpu_torch.ops.attention")
+    reached = _reach(_methods(engine.GenerationEngine), ("_issue_tick", "_process_tick"))
+    for name in ("_issue_spec_tick", "_launch_spec_tick", "_spec_tick_body",
+                 "_process_spec_tick"):
+        assert name in reached, name
+    fns = [speculative.build_tree_draft, speculative.flatten_tree, speculative.accept_tree,
+           llama.verify_tree_step_paged, llama._gather_tree_path,
+           llama.commit_tree_path_paged, attention.paged_tree_attention,
+           kernels.paged_tree, kernels.paged_tree_plan]
+    found = []
+    for fn in fns:
+        (node,) = ast.parse(inspect.getsource(fn)).body
+        found += _syncs(node)
+        found += [f"{fn.__name__}:{n.lineno} int()" for n in ast.walk(node)
+                  if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                  and n.func.id in ("int", "float", "bool") and n.args
+                  and isinstance(n.args[0], ast.Call)
+                  and isinstance(n.args[0].func, ast.Attribute)
+                  and n.args[0].func.attr in ("max", "min", "sum", "any", "all")]
+    assert not found, found

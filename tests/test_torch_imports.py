@@ -18,7 +18,7 @@ assert "django_assistant_bot_tpu_torch.serving.scheduler" in names
 for new in ("models.encoder", "storage", "storage.knn", "storage.knn_check", "ops.quant",
             "ops.json_fsm", "ops.sampling", "serving.streaming", "storage.ann",
             "storage.durable", "storage.integrity", "conf", "cli.ann", "models.mixtral",
-            "ops.moe"):
+            "ops.moe", "ops.speculative"):
     assert "django_assistant_bot_tpu_torch." + new in names, new
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "django_assistant_bot_tpu"))
@@ -31,7 +31,8 @@ def test_port_import_graph_has_no_jax():
     """Importing the package and every submodule (the engine and its copy of
     the scheduler, the encoder, the KNN index, the JSON FSM, the streaming
     plane, the ANN index, its durability plane, the settings, the ANN CLI,
-    the MoE MLP and its ops among them) leaves ``jax`` and the JAX package out of
+    the MoE MLP and its ops, the speculative drafter and controller among
+    them) leaves ``jax`` and the JAX package out of
     ``sys.modules`` (a fresh interpreter: this test process has imported
     both)."""
     out = subprocess.run(
@@ -56,6 +57,7 @@ def test_port_sources_name_no_jax():
     assert any(f.name == "ann.py" and f.parent.name == "storage" for f in files)
     assert any(f.name == "moe.py" and f.parent.name == "ops" for f in files)
     assert any(f.name == "mixtral.py" and f.parent.name == "models" for f in files)
+    assert any(f.name == "speculative.py" and f.parent.name == "ops" for f in files)
     bad = re.compile(r"^\s*(import jax|from jax|import jaxlib|from jaxlib)|"
                      r"django_assistant_bot_tpu\.|from django_assistant_bot_tpu import", re.M)
     for f in files:
@@ -185,3 +187,29 @@ def test_kernel_bindings_match_c_entry_points():
         assert kinds[m.group(1)] is restype, symbol
         params = [kind(p) for p in m.group(2).split(",")]
         assert params == list(argtypes), symbol
+
+
+def test_kernel_sources_name_what_they_replace_and_build_lazily():
+    """Every kernel source (the paged tree kernel among them) is CUDA C++
+    for ``sm_90a`` that names the JAX function it replaces, and importing
+    the package builds and loads none of them (a fresh interpreter)."""
+    import re
+
+    from django_assistant_bot_tpu_torch import kernels
+
+    stems = {stem for stem, _ in kernels.KERNELS.values()}
+    assert "paged_tree" in stems and kernels.KERNELS["paged_tree"][1] == "dabt_paged_tree"
+    for stem in stems:
+        head = (kernels.CSRC / f"{stem}.cu").read_text()[:3000]
+        assert "sm_90a" in head, stem
+        assert re.search(r"Replaces: django_assistant_bot_tpu/\S+\.py", head), stem
+        assert "#include <torch" not in head, stem
+    code = ("import django_assistant_bot_tpu_torch.ops.speculative, "
+            "django_assistant_bot_tpu_torch.serving.engine\n"
+            "from django_assistant_bot_tpu_torch import kernels\n"
+            "assert not kernels.loaded(), kernels.loaded()\n"
+            "print(sorted(kernels.LAUNCHES))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "paged_tree" in out.stdout

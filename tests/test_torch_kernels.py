@@ -22,7 +22,11 @@ from django_assistant_bot_tpu_torch.ops.attention import (
     paged_bf16_bound,
     paged_gqa_decode_attention,
     paged_gqa_decode_attention_plain,
+    paged_tree_attention,
+    paged_tree_attention_plain,
+    paged_tree_bf16_bound,
 )
+from django_assistant_bot_tpu_torch.ops.speculative import make_tree_spec
 from django_assistant_bot_tpu_torch.ops.quant import (
     QTensor,
     QTensor4,
@@ -295,6 +299,131 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
             q, pool, pool, torch.zeros((1, 2), dtype=torch.int32, device="cuda"),
             torch.zeros((1,), dtype=torch.int32, device="cuda"),
         )
+
+
+def _tree_inputs(dtype, D, G, *, page, NB, lengths, width=4, depth=4, KH=2, offset=0,
+                 stale=()):
+    """Pools, tree queries and tree K/V for ``lengths`` (each row's pages a
+    random chain, sentinels past its allocation; rows in ``stale`` have
+    sentinels inside their length, as a freed slot's stale length would);
+    ``offset`` elements of a larger buffer precede each tensor (to put them
+    off 16 bytes)."""
+    rng = np.random.default_rng(3)
+    spec = make_tree_spec(width, depth)
+    B, T, H = len(lengths), spec.size, KH * G
+    P = B * NB + 3
+    bt = rng.permutation(P)[: B * NB].reshape(B, NB).astype(np.int32)
+    for b, n in enumerate(lengths):
+        bt[b, -(-n // page):] = P + b
+        if b in stale:
+            bt[b, 1:] = P
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def mk(*shape):
+        n = int(np.prod(shape))
+        flat = torch.randn((n + offset,), generator=gen, device="cuda", dtype=dtype)
+        return flat[offset:].view(shape)
+
+    q, k_pool, v_pool = mk(B, H, T, D), mk(P, KH, page, D), mk(P, KH, page, D)
+    tk, tv = mk(B, KH, T, D), mk(B, KH, T, D)
+    return (q, k_pool, v_pool, torch.from_numpy(bt).cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), tk, tv,
+            torch.from_numpy(spec.anc_mask).cuda(),
+            torch.from_numpy(spec.depths).cuda())
+
+
+def _assert_tree_close(out, args, window):
+    q, kp, vp, bt, lengths, tk, tv, anc, depths = args
+    fargs = (q.float(), kp.float(), vp.float(), bt, lengths, tk.float(), tv.float(), anc, depths)
+    ref = paged_tree_attention_plain(*fargs, window=window)
+    bound = paged_tree_bf16_bound(*fargs, ref, window=window) if out.dtype == torch.bfloat16 else None
+    assert bool(torch.isfinite(out).all())
+    _assert_close(out, ref, bound)
+
+
+_TREE_MAIN = dict(page=512, NB=8, KH=8, lengths=[105, 355, 485, 915, 0, 4000, 1500, 2848])
+
+
+@pytest.mark.parametrize(
+    "dtype,window,D,G,layout",
+    [
+        # the CUDA-core kernel: f32 at every head dim, bf16 at 16 / 32 / 256
+        *((torch.float32, w, D, 2, dict(page=16, NB=6, lengths=[0, 9, 40, 95]))
+          for D in (16, 32, 64, 128, 256) for w in (None, 7)),
+        *((torch.bfloat16, None, D, 2, dict(page=16, NB=6, lengths=[0, 9, 40, 95]))
+          for D in (16, 32, 256)),
+        # the tensor-core kernel at every group size, with and without a window
+        *((torch.bfloat16, w, D, G, dict(page=64, NB=8, lengths=[0, 1, 63, 64, 300, 511]))
+          for D in (64, 128) for G in (1, 2, 4, 8) for w in (None, 40)),
+        # the main path's shapes: Llama-3-8B's heads, page 512, ragged rows
+        (torch.bfloat16, None, 128, 4, _TREE_MAIN),
+        (torch.float32, None, 128, 4, _TREE_MAIN),
+        # a window that starts inside a tile, a page off the 64-key tile
+        (torch.bfloat16, 100, 128, 4, dict(page=512, NB=4, lengths=[1000, 1500, 2047, 1100])),
+        (torch.bfloat16, None, 128, 4, dict(page=100, NB=5, lengths=[499, 99, 100, 250])),
+        # G T past 128 rows (G 8, a 33-node tree): a second row chunk
+        (torch.bfloat16, None, 128, 8,
+         dict(page=512, NB=4, lengths=[2000, 17], width=8, depth=4, KH=8)),
+        # one-node and single-branch trees, 33 slots
+        (torch.bfloat16, None, 128, 4,
+         dict(page=16, NB=4, lengths=[(5 * i) % 64 for i in range(33)], width=1, depth=1)),
+        (torch.bfloat16, None, 64, 4, dict(page=32, NB=4, lengths=[3, 77, 127, 0], width=1,
+                                           depth=4)),
+        # a stale row: sentinel entries inside its length clamp to page P - 1
+        (torch.bfloat16, None, 128, 4, dict(page=64, NB=4, lengths=[200, 150], stale=(1,))),
+        (torch.float32, None, 128, 4, dict(page=64, NB=4, lengths=[200, 150], stale=(1,))),
+    ],
+)
+def test_paged_tree_kernel_matches_plain(dtype, window, D, G, layout):
+    args = _tree_inputs(dtype, D, G, **layout)
+    before = kernels.launch_counts()["paged_tree"]
+    routes = dict(kernels.PAGED_TREE_ROUTES)
+    out = paged_tree_attention(*args, window=window)
+    assert kernels.launch_counts()["paged_tree"] == before + 1
+    route = "mma" if dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS else "cuda_core"
+    assert kernels.PAGED_TREE_ROUTES[route] == routes[route] + 1
+    _assert_tree_close(out, args, window)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_tree_kernel_repeats_bitwise(D):
+    """Two calls on the same inputs give bitwise-equal outputs (the split's
+    counters back at zero, a fixed merge order), also after a call at
+    another shape."""
+    args = _tree_inputs(torch.bfloat16, D, 4, **_TREE_MAIN)
+    first = paged_tree_attention(*args)
+    second = paged_tree_attention(*args)
+    other = _tree_inputs(torch.bfloat16, D, 4, page=64, NB=8, lengths=[0, 1, 63, 64, 300, 511])
+    paged_tree_attention(*other, window=40)
+    third = paged_tree_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, third)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_tree_kernel_off_16_bytes_takes_cuda_core_route(D):
+    args = _tree_inputs(torch.bfloat16, D, 4, offset=4, page=64, NB=4, lengths=[3, 70, 200, 0])
+    assert all(t.data_ptr() % 16 == 8 for t in (args[0], args[1], args[2]))
+    routes = dict(kernels.PAGED_TREE_ROUTES)
+    out = paged_tree_attention(*args)
+    assert kernels.PAGED_TREE_ROUTES["cuda_core"] == routes["cuda_core"] + 1
+    assert kernels.PAGED_TREE_ROUTES["mma"] == routes["mma"]
+    _assert_tree_close(out, args, None)
+
+
+def test_paged_tree_wrapper_refuses_what_it_does_not_take():
+    args = list(_tree_inputs(torch.bfloat16, 128, 4, page=64, NB=4, lengths=[3, 70]))
+    big = make_tree_spec(8, 8)  # 65 nodes: past the kernel's one tree tile
+    with pytest.raises(ValueError, match="tree nodes"):
+        paged_tree_attention(args[0].new_zeros((2, 8, 65, 128)), *args[1:5],
+                             args[5].new_zeros((2, 2, 65, 128)), args[6].new_zeros((2, 2, 65, 128)),
+                             torch.from_numpy(big.anc_mask).cuda(),
+                             torch.from_numpy(big.depths).cuda())
+    with pytest.raises(ValueError, match="lengths"):
+        paged_tree_attention(*args[:4], args[4].long(), *args[5:])
+    with pytest.raises(TypeError):
+        paged_tree_attention(args[0].half(), *args[1:])
 
 
 def _knn_inputs(N, D, Q, seed, *, dup_rows=0):
