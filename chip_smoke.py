@@ -6,7 +6,7 @@
 Needs one CUDA card, ``nvcc`` and the repository checkout around this file;
 without a card, or run from a directory that holds only this script, it
 exits non-zero before printing any result.  Phases, in the order they run
-(1-7, 11, 8-10; any failure exits non-zero; each phase's wall seconds are
+(1-7, 11, 12, 8-10; any failure exits non-zero; each phase's wall seconds are
 printed on a line of their own):
 
 1. environment (torch / CUDA versions, ``nvidia-smi`` name and power limit)
@@ -50,7 +50,18 @@ printed on a line of their own):
    Llama-3-8B's heads and the (4, 4) tree at 10,208 and 1,868 live prefix
    keys (a row at length 0), bf16 within ``paged_tree_bf16_bound`` (also
    with a window), f32 within 1e-4, bitwise repeatable, its time beside the
-   bound, the twin and a dense gather + ``scaled_dot_product_attention``;
+   bound, the twin and a dense gather + ``scaled_dot_product_attention``
+   (the same yardstick for paged decode); the fp8 forms of both paged
+   kernels, in the same two functions (:func:`check_paged`,
+   :func:`check_paged_tree`): the dequant read of e4m3 and e5m2 pools
+   under bf16 and f32 queries, the in-dot read, and the tree read over fp8
+   pages, at the same shapes, each within its bound of the twin on the
+   same pools, bitwise repeatable, the in-dot read also on
+   ``paged_fp8_dot_probe``'s inputs to ``paged_bf16_bound`` while the
+   dequant read of the same scores misses it (:func:`check_indot_probe`),
+   their times beside the byte bound at 1 byte a pool value, the twin and
+   the yardstick; and the pool writes' cast on the card against the CPU's
+   bits (:func:`check_kv_cast`, with what torch's own CUDA cast does);
    the MoE kernels (``moe_route``, the
    grouped ``moe_gemm`` with its gate/up and down epilogues,
    ``moe_combine``) at Mixtral 8x7B's widths (:func:`check_moe`: T 8, 512
@@ -76,6 +87,9 @@ printed on a line of their own):
    (:func:`small_moe`); speculative engines (K 4, N 4) on the small f32
    model, dense and int8: greedy ids card vs CPU vs the card's plain engine,
    ``paged_tree`` launches = layers x verify steps (:func:`small_spec`);
+   the small model's engine on ``kv_cache_dtype`` "fp8", "fp8_e5m2",
+   "bf16" and "fp8" with ``attn_fp8``, a prefix wave and a spec engine on
+   an fp8 pool, card vs CPU (:func:`small_fp8`);
 4. the main path at full width: a 32-layer bf16 Llama-3-8B with random
    weights drawn on the card, a ``GenerationEngine`` at the default loop
    (fused 8-step ticks as a CUDA graph, piggybacked prefill, the admission
@@ -93,8 +107,8 @@ printed on a line of their own):
    to the registry's pages); the decode breakdown: the eager step and the
    replay of the engine's captured 8-step tick, per step, side by side, and
    a 512-token chunk with the tick as one replay of the piggyback graph
-   against the chunk run eagerly before the tick's replay, each over 6
-   batches (medians and spreads); the four
+   against the chunk run eagerly before the tick's replay, over 4 (eager
+   step) and 6 batches (medians and spreads); the four
    requests again with ``obs`` off; and the RAG hits served alone by an
    engine with prefix sharing off, their first-step logits held to the
    hits';
@@ -149,13 +163,21 @@ printed on a line of their own):
     = 4, spec_width = 4`` behind ``/dialog/`` with ``warmup``; the warmup's
     time, ``probe_spec`` per rung beside the plain tick, each rung's graph
     span; phase 4's four requests and four chats quoting a passage, each
-    asking for 256 tokens, over 5 runs (TTFT, tok/s, drafted / accepted,
+    asking for 256 tokens, over 3 runs (TTFT, tok/s, drafted / accepted,
     tokens a verify step), paged tree launches = 32 x verify steps; greedy
     ids equal to a plain engine's but at flagged near ties, the verify
     path's logits on one state within ``VERIFY_DRIFT_ULPS`` of the decode
     step's; the eager verify step's device split (drafter, tree attention,
     GEMMs, sampler, commit; :func:`verify_breakdown`);
-12. the phases' wall seconds, the ``kernels:`` launch-count line, the card
+12. (run right after phase 11, on phase 4's tensors) fp8 KV pools at full
+    width (:func:`fp8_phase`): one decode step's logits from identical
+    prefills, each fp8 pool against a bf16 one (cosine >= 0.98); phase 4's
+    four requests over 5 runs on engines with ``kv_cache_dtype="fp8"``
+    (dequant, then ``attn_fp8``) and ``"fp8_e5m2"``: pool bytes half phase
+    4's, 32 paged launches a decode step all on the pool's fp8 read, TTFT
+    and tok/s and the decode breakdown beside phase 4's; a spec engine on an
+    fp8 pool (tree launches on the fp8 read);
+13. the phases' wall seconds, the ``kernels:`` launch-count line, the card
     line, the per-kernel JSON line, and the final ``{"ok": true, ...}``
     line.
 """
@@ -596,18 +618,167 @@ def paged_live_keys(positions, inactive, page, NB, window=None) -> int:
     return live
 
 
-def paged_bound_ms(live, B, H, KH, D, NB) -> tuple:
-    """Least time for the same work: the live keys' K and V read once, q read
-    and out written once, the block tables and positions read, at the HBM
+def paged_bound_ms(live, B, H, KH, D, NB, kv_bytes=2, q_bytes=2) -> tuple:
+    """Least time for the same work: the live keys' K and V read once (at
+    ``kv_bytes`` a value: 1 from an fp8 pool), q read and out written once
+    (``q_bytes`` a value), the block tables and positions read, at the HBM
     rate, against 4 H D operations per live key of a KV head at the bf16
     tensor-core peak."""
-    nbytes = live * KH * D * 2 * 2 + 2 * B * H * D * 2 + B * NB * 4 + B * 4
+    nbytes = (live * KH * D * 2 * kv_bytes + 2 * B * H * D * q_bytes + B * NB * 4 + B * 4)
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = 4.0 * live * H * D / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_paged(gen, page: int) -> dict:
+def gather_pages(q, kp, vp, bt, nb: int) -> tuple:
+    """K and V of each row's first ``nb`` pages gathered dense, [B, KH, nb
+    page, D] each, and widened to q's dtype: the library yardsticks'
+    gather (the port never calls it)."""
+    P, KH, page, D = kp.shape
+    phys = bt[:, :nb].long().clamp(0, P - 1)
+    return tuple(t[phys].permute(0, 2, 1, 3, 4).reshape(q.shape[0], KH, nb * page, D).to(q.dtype)
+                 for t in (kp, vp))
+
+
+def paged_library_call(args, active, window=None):
+    """The library yardstick of a paged decode call (the port never calls
+    it): every row's pages up to the batch's last live block gathered dense
+    and widened to q's dtype, then one ``scaled_dot_product_attention``
+    under each row's mask (keys up to its position, inside the window)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, kp, vp, bt, pos = args
+    page = kp.shape[2]
+    nb = min(int(pos[active].max()) // page + 1, bt.shape[1])
+    kpos = torch.arange(nb * page, device=q.device)
+    keep = kpos[None, :] <= pos[:, None].long()
+    if window is not None:
+        keep &= kpos[None, :] > pos[:, None].long() - window
+    mask = keep[:, None, None, :]
+
+    def call():
+        k, v = gather_pages(q, kp, vp, bt, nb)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    return call
+
+
+# fp8 pools (kv_cache_dtype "fp8" / "fp8_e5m2"): the storage formats
+FP8_KV = {"e4m3": "float8_e4m3fn", "e5m2": "float8_e5m2"}
+FP8_DOT_TEXT = "bound 2^-m*A + u*S + 2^-8*|ref| + 1e-4 (paged_fp8_dot_bound)"
+PROBE_TEXT = f"{BF16_P_TEXT} on paged_fp8_dot_probe's inputs"
+
+
+def _kv_dtype(fmt: str):
+    import torch
+
+    return getattr(torch, FP8_KV[fmt]) if fmt in FP8_KV else torch.bfloat16
+
+
+def narrow_pools(args, fmt, qdtype):
+    """A paged decode or tree case with q (and the tree's own K/V) in
+    ``qdtype`` and the pools cast to ``fmt`` through the pool writes' cast;
+    ``fmt`` None keeps the pools in ``qdtype``."""
+    from django_assistant_bot_tpu_torch.ops.quant import to_kv_dtype
+
+    q, kp, vp, *rest = args
+    dt = qdtype if fmt is None else _kv_dtype(fmt)
+    if len(rest) > 2:  # the tree's: block tables, lengths, tree K, tree V, mask, depths
+        rest[2], rest[3] = rest[2].to(qdtype), rest[3].to(qdtype)
+    return (q.to(qdtype), to_kv_dtype(kp, dt), to_kv_dtype(vp, dt), *rest)
+
+
+def _narrow_check(args, active, window, fp8_dot) -> tuple:
+    """(output, (max abs err, max rel err, worst err/bound)) of the paged
+    kernel on narrow pools against the plain twin on the same pools: the
+    dequant read of bf16 q within ``paged_bf16_bound``, of f32 q within
+    1e-4, the in-dot read within ``paged_fp8_dot_bound``."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_bf16_bound, paged_fp8_dot_bound, paged_gqa_decode_attention,
+        paged_gqa_decode_attention_plain)
+
+    q, kp, vp, bt, pos = args
+    out = paged_gqa_decode_attention(*args, active=active, window=window, fp8_dot=fp8_dot)
+    fargs = (q.float(), kp, vp, bt, pos)
+    ref = paged_gqa_decode_attention_plain(*fargs, active=active, window=window,
+                                           fp8_dot=fp8_dot)
+    if fp8_dot:
+        bound = paged_fp8_dot_bound(*fargs, ref, active=active, window=window)
+    elif q.dtype == torch.bfloat16:
+        bound = paged_bf16_bound(*fargs, ref, active=active, window=window)
+    else:
+        bound = torch.full_like(ref, F32_TOL)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref).abs()
+    rel = (diff / ref.abs().clamp_min(BF16_ABS)).max().item()
+    return out, (diff.max().item(), rel, (diff / bound).max().item())
+
+
+def check_indot_probe(shapes, B, H, KH, D, page, NB, gen) -> None:
+    """K2 on ``paged_fp8_dot_probe``'s inputs at the given shapes, e4m3 and
+    e5m2, bf16 and f32 queries: every p rounded at the same scale on both
+    sides, so the kernel is held to ``paged_bf16_bound`` of the twin, and
+    the control, K1 on the same inputs (the same scores, P not rounded to
+    fp8), must miss that bound: else the check could not see a kernel that
+    skips the in-dot scheme's rounding of P."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_bf16_bound, paged_fp8_dot_probe, paged_gqa_decode_attention,
+        paged_gqa_decode_attention_plain)
+
+    for fmt in FP8_KV:
+        probe = paged_fp8_dot_probe(B, H, KH, D, B * NB, page, _kv_dtype(fmt), torch.float32,
+                                    torch.Generator().manual_seed(0))
+        for label, (pos_list, inact) in shapes.items():
+            base, active, _, _ = _paged_case(B, H, KH, D, page, NB, torch.bfloat16, pos_list,
+                                             inact, None, gen)
+            for qdtype in (torch.bfloat16, torch.float32):
+                q, kp, vp = (t.cuda() for t in probe)
+                args = (q.to(qdtype), kp, vp, *base[3:])
+                ref = paged_gqa_decode_attention_plain(q, kp, vp, *base[3:], active=active,
+                                                       fp8_dot=True)
+                bound = paged_bf16_bound(q, kp, vp, *base[3:], ref, active=active)
+                ratios = []
+                for fp8_dot in (True, False):
+                    out = paged_gqa_decode_attention(*args, active=active, fp8_dot=fp8_dot)
+                    torch.cuda.synchronize()
+                    ratios.append(((out.float() - ref).abs() / bound).max().item())
+                log(f"  paged {fmt} in-dot read on paged_fp8_dot_probe's inputs ({label}) "
+                    f"{str(qdtype)[6:]} q: worst err/bound {ratios[0]:.3f} ({PROBE_TEXT}); the "
+                    f"control, the dequant read of the same scores: {ratios[1]:.3f}")
+                if not ratios[0] <= 1.0:
+                    fail(f"paged decode in-dot ({fmt}, {label}, {qdtype}) on the probe's inputs "
+                         f"disagrees with its twin: err/bound {ratios[0]} > 1")
+                if not ratios[1] > 1.0:
+                    fail(f"the in-dot probe ({fmt}, {label}, {qdtype}) cannot tell the in-dot "
+                         f"read from the dequant read: control err/bound {ratios[1]} <= 1")
+
+
+# the paged decode reads timed in phase 2: (entry, pool format, in-dot, the
+# JAX function's line)
+PAGED_TIMED = (("paged_decode", None, False, "228"), ("paged_decode_fp8", "e4m3", False, "299"),
+               ("paged_decode_fp8_dot", "e4m3", True, "293"))
+
+
+def check_paged(gen, page: int) -> list:
+    """Paged decode against its twin.  Its native read (the pool in q's
+    dtype): bf16 within ``paged_bf16_bound``, f32 within 1e-4, at the main
+    path's shape (B 8, H 32, KH 8, D 128; 10,208 live keys with row 6
+    inactive), with windows, small and Gemma's head dims, every group size,
+    and rows over many runs.  K1 (the dequant read of an fp8 pool) and K2
+    (the fp8 in-dot read) at the main path's shapes (10,208 and phase 4's
+    1,868 live keys), e4m3 and e5m2, bf16 and f32 queries, with and without
+    a window, each within its bound of the twin on the same pools, on its
+    form (``kernels.PAGED_FORMS``) and, for bf16 queries, bitwise
+    repeatable; K2 also on :func:`check_indot_probe`'s inputs.  Then each
+    read of ``PAGED_TIMED`` at both shapes: wall and device ms, the byte
+    bound (at 1 byte a value from an fp8 pool) and its share, the twin's
+    time, and the library yardstick (:func:`paged_library_call`).  The cast
+    the pool writes take is checked first (:func:`check_kv_cast`)."""
     import torch
 
     from django_assistant_bot_tpu_torch import kernels
@@ -616,6 +787,7 @@ def check_paged(gen, page: int) -> dict:
         paged_gqa_decode_attention_plain,
     )
 
+    check_kv_cast()
     B, H, KH, D, NB = 8, 32, 8, 128, 8
     # ragged rows over several pages; row 6 inactive (inside the active range)
     positions = [5, page - 1, page, 2 * page + 17, 3 * page + 300, NB * page - 1, 1500, 700]
@@ -626,7 +798,7 @@ def check_paged(gen, page: int) -> dict:
         (torch.float32, None),
         (torch.float32, 700),
     ]
-    worst = 0.0
+    worst = {None: 0.0, False: 0.0, True: 0.0}  # native, dequant, in-dot (bf16 q)
     for dtype, window in cases:
         _, _, (err, rel, ratio), _ = _paged_case(
             B, H, KH, D, page, NB, dtype, positions, inactive, window, gen
@@ -637,7 +809,7 @@ def check_paged(gen, page: int) -> dict:
         if not ratio <= 1.0:
             fail(f"paged_decode disagrees with its plain twin: err/bound {ratio} > 1")
         if dtype == torch.bfloat16:
-            worst = max(worst, err)
+            worst[None] = max(worst[None], err)
     # small head dims (the tiny model's D=16) and Gemma's 256, at G = 2, and
     # the tensor-core kernel at D=64 and every group size
     small = [(4, 2, D2, torch.float32) for D2 in (16, 32, 64, 256)]
@@ -652,7 +824,7 @@ def check_paged(gen, page: int) -> dict:
         if not ratio <= 1.0:
             fail(f"paged_decode H={H2} KH={KH2} D={D2} disagrees with its plain twin: {err}")
         if dtype == torch.bfloat16:
-            worst = max(worst, err)
+            worst[None] = max(worst[None], err)
     # G = 8 (H=64, KH=8) with long rows: a row's runs span more than 16 and
     # more than 32 blocks, so the final merge takes several batches of runs
     for D2, NB2, pos2 in ((64, 8, [4095]), (128, 8, [4095, 3000]), (64, 32, [16383]),
@@ -665,53 +837,136 @@ def check_paged(gen, page: int) -> dict:
         if not ratio <= 1.0:
             fail(f"paged_decode H=64 KH=8 D={D2} positions {pos2} disagrees with its plain "
                  f"twin: err/bound {ratio} > 1")
-        worst = max(worst, err)
+        worst[None] = max(worst[None], err)
     log(f"  paged SASS: {sass_counts(kernels.lib_path('paged_decode'))}")
 
-    # timings: the long ragged timed shape (the JSON line's numbers), then the main
+    # the long ragged timed shape (the JSON line's numbers), then the main
     # path's own: phase 4's four requests in mid-decode, rows 4-7 idle slots
-    timed_cases = [
-        ("timed", positions, inactive, 200),
-        ("main-path", [105, 355, 485, 915, 0, 0, 0, 0], [4, 5, 6, 7], 200),
-    ]
-    result = {}
-    for label, pos_list, inact, iters in timed_cases:
-        args, active, (err, _, ratio), out = _paged_case(
-            B, H, KH, D, page, NB, torch.bfloat16, pos_list, inact, None, gen
-        )
-        if not ratio <= 1.0:
-            fail(f"paged_decode ({label} shape) disagrees with its plain twin: {ratio} > 1")
-        again = paged_gqa_decode_attention(*args, active=active)
-        torch.cuda.synchronize()
-        if not torch.equal(out, again):
-            fail(f"paged_decode ({label} shape): two calls on the same inputs differ")
-        ms, dev = timed(lambda: paged_gqa_decode_attention(*args, active=active), iters)
-        q, kp, vp, bt, pos_t = args
-        fargs = (q.float(), kp.float(), vp.float(), bt, pos_t)
-        plain_ms = time_ms(lambda: paged_gqa_decode_attention_plain(*fargs, active=active), 10)
-        live = paged_live_keys(pos_list, inact, page, NB)
-        bound_ms, bound_by = paged_bound_ms(live, B, H, KH, D, NB)
-        scratch = kernels.paged_scratch_floats(q.device, (1, B, H, KH, page, NB, D))
-        log(f"  paged timing ({label}) B={B} H={H} KH={KH} D={D} page={page} bf16, "
-            f"{live} live keys: kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); share of the bound: "
-            f"wall {bound_ms / ms:.3f}, device {bound_ms / dev:.3f}; repeat bitwise-equal; "
-            f"worst err/bound {ratio:.3f}; scratch {scratch} f32")
-        if label == "timed":
-            result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-        else:
-            result.update(main_path_ms=ms, main_path_device_ms=dev,
-                          main_path_bound_ms=bound_ms)
-    return {
-        "name": "paged_decode",
-        "route": "cuda",
-        "source": f"{PKG}/csrc/paged_decode.cu",
-        "replaces": "django_assistant_bot_tpu/ops/attention.py:228",
-        "max_abs_err": worst,
-        **result,
-        "library_ms": None,
-    }
+    shapes = {"timed": (positions, inactive),
+              "main-path": ([105, 355, 485, 915, 0, 0, 0, 0], [4, 5, 6, 7])}
+    for label, (pos_list, inact) in shapes.items():
+        base, active, _, _ = _paged_case(B, H, KH, D, page, NB, torch.bfloat16, pos_list, inact,
+                                         None, gen)
+        for fmt in FP8_KV:
+            for qdtype in (torch.bfloat16, torch.float32):
+                args = narrow_pools(base, fmt, qdtype)
+                for fp8_dot in (False, True):
+                    for window in (None, 1000):
+                        route = "mma" if qdtype == torch.bfloat16 else "cuda_core"
+                        form = f"{route}:{fmt}/{'in_dot' if fp8_dot else 'dequant'}"
+                        before = kernels.PAGED_FORMS[form]
+                        out, (err, rel, ratio) = _narrow_check(args, active, window, fp8_dot)
+                        text = (FP8_DOT_TEXT if fp8_dot else BF16_P_TEXT
+                                if qdtype == torch.bfloat16 else tol_text(qdtype))
+                        log(f"  paged {fmt} pool, {'in-dot' if fp8_dot else 'dequant'} read "
+                            f"({label}) {str(qdtype)[6:]} q window={window}: max_abs_err "
+                            f"{err:.3e}, max_rel_err {rel:.3e}, worst err/bound {ratio:.3f} "
+                            f"({text}), form {form}")
+                        if kernels.PAGED_FORMS[form] != before + 1:
+                            fail(f"paged decode ({fmt}, fp8_dot {fp8_dot}) did not take {form}")
+                        if not ratio <= 1.0:
+                            fail(f"paged decode on an {fmt} pool (fp8_dot {fp8_dot}, {label}, "
+                                 f"{qdtype}, window {window}) disagrees with its twin: "
+                                 f"err/bound {ratio} > 1")
+                        if qdtype == torch.bfloat16:
+                            worst[fp8_dot] = max(worst[fp8_dot], err)
+                            again = paged_gqa_decode_attention(*args, active=active,
+                                                               window=window, fp8_dot=fp8_dot)
+                            torch.cuda.synchronize()
+                            if not torch.equal(out, again):
+                                fail(f"paged decode ({fmt}, fp8_dot {fp8_dot}, {label}): two "
+                                     "calls on the same inputs differ")
+    check_indot_probe(shapes, B, H, KH, D, page, NB, gen)
+
+    entries = []
+    for name, fmt, fp8_dot, line in PAGED_TIMED:
+        result = {}
+        for label, (pos_list, inact) in shapes.items():
+            base, active, (err, _, ratio), out = _paged_case(
+                B, H, KH, D, page, NB, torch.bfloat16, pos_list, inact, None, gen)
+            if not ratio <= 1.0:
+                fail(f"paged_decode ({label} shape) disagrees with its plain twin: {ratio} > 1")
+            args = narrow_pools(base, fmt, torch.bfloat16)
+            def fn():
+                return paged_gqa_decode_attention(*args, active=active, fp8_dot=fp8_dot)
+
+            out, again = fn(), fn()
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                fail(f"{name} ({label} shape): two calls on the same inputs differ")
+            ms, dev = timed(fn, 200)
+            q, kp, vp, bt, pos_t = args
+            pools = (kp, vp) if fmt else (kp.float(), vp.float())  # the twin reads any pool
+            plain_ms = time_ms(lambda: paged_gqa_decode_attention_plain(
+                q.float(), *pools, bt, pos_t, active=active, fp8_dot=fp8_dot), 10)
+            lib = paged_library_call(args, active)
+            lib_err = (lib().float() - out.float())[active].abs().max().item()
+            lib_ms, lib_dev = timed(lib, 50)
+            live = paged_live_keys(pos_list, inact, page, NB)
+            bound_ms, bound_by = paged_bound_ms(live, B, H, KH, D, NB,
+                                                kv_bytes=kp.element_size())
+            scratch = kernels.paged_scratch_floats(
+                q.device, (1, kernels._KV_CODE[kp.dtype], B, H, KH, page, NB, D))
+            pool = ("bf16 pool" if fmt is None
+                    else f"{fmt} pool, {'in-dot' if fp8_dot else 'dequant'} read")
+            log(f"  paged timing, {pool} ({label}) B={B} H={H} KH={KH} D={D} page={page} bf16 q, "
+                f"{live} live keys: kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall "
+                f"{plain_ms:.4f} ms, library (pages gathered, widened to q's dtype + "
+                f"scaled_dot_product_attention) wall {lib_ms:.4f} ms (device {lib_dev:.4f}; max "
+                f"|library - kernel| over active rows {lib_err:.3e}), bound at "
+                f"{kp.element_size()} byte(s) a pool value {bound_ms:.4f} ms ({bound_by}); share "
+                f"of the bound: wall {bound_ms / ms:.3f}, device {bound_ms / dev:.3f}; repeat "
+                f"bitwise-equal; scratch {scratch} f32")
+            if label == "timed":
+                result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=lib_ms)
+            else:
+                result.update(main_path_ms=ms, main_path_device_ms=dev,
+                              main_path_bound_ms=bound_ms, main_path_library_ms=lib_ms)
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{PKG}/csrc/paged_decode.cu",
+            "replaces": f"django_assistant_bot_tpu/ops/attention.py:{line}",
+            "max_abs_err": worst[None if fmt is None else fp8_dot],
+            **result,
+        })
+    return entries
+
+
+def check_kv_cast() -> None:
+    """``to_kv_dtype`` (every pool write's cast) on the card against the
+    CPU's bits (the tier-1 tests hold the CPU's to JAX's ``astype``) on a
+    grid over +-500, the e5m2 overflow edge, subnormals, inf and NaN, from
+    f32 and bf16 (NaN as NaN); and what torch's own CUDA cast gives past
+    e4m3's range (JAX: NaN)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.quant import to_kv_dtype
+
+    extra = [464.0, -464.0, 464.0001, 448.0, 61440.0, -61440.0, 61439.99, 57344.0, 65536.0,
+             1e6, float("inf"), float("-inf"), float("nan"), 0.0, -0.0]
+    sub = [2.0 ** -e for e in range(6, 20)]
+    grid = torch.cat([torch.linspace(-500, 500, 200_001), torch.tensor(extra + sub),
+                      -torch.tensor(sub) * 1.37])
+    n = 0
+    for src in (torch.float32, torch.bfloat16):
+        x = grid.to(src)
+        for fmt in FP8_KV:
+            dt = _kv_dtype(fmt)
+            cpu = to_kv_dtype(x, dt)
+            card = to_kv_dtype(x.cuda(), dt).cpu()
+            nan = torch.isnan(cpu.float())
+            same = (torch.equal(torch.isnan(card.float()), nan)
+                    and torch.equal(card.view(torch.uint8)[~nan], cpu.view(torch.uint8)[~nan]))
+            if not same:
+                fail(f"to_kv_dtype on the card ({fmt} from {src}) differs from the CPU's bits")
+            n += x.numel()
+    probe = torch.tensor([464.1, 1000.0, float("inf")], device="cuda")
+    raw = probe.to(torch.float8_e4m3fn).float().tolist()
+    log(f"  pool cast on the card: to_kv_dtype bit-equal to the CPU's over {n} values (e4m3 and "
+        f"e5m2, from f32 and bf16, NaN as NaN); torch's own CUDA cast of 464.1, 1000, inf to "
+        f"e4m3fn gives {raw} (JAX's astype: NaN)")
 
 
 TREE_WIDTH, TREE_DEPTH = 4, 4  # phase 11's tree: T = 1 + 4 x 4 = 17 nodes
@@ -757,18 +1012,21 @@ def _tree_check(args, window=None) -> tuple:
     return out, compare(out, ref, bound)
 
 
-def tree_bound_ms(args) -> tuple:
+def tree_bound_ms(args, kv_bytes=None) -> tuple:
     """Least time for the tree read: each live prefix key's K and V (below
-    the row's length) read once, the tree's K/V, q, out, the block tables,
-    lengths, mask and depths moved once, at the HBM rate, against 4 D H T
-    operations per live prefix key and 4 D H per ancestor pair of the tree
-    at the bf16 tensor-core peak."""
+    the row's length) read once (at ``kv_bytes`` a value, default q's
+    size), the tree's K/V, q, out, the block tables, lengths, mask and
+    depths moved once, at the HBM rate, against 4 D H T operations per live
+    prefix key and 4 D H per ancestor pair of the tree at the bf16
+    tensor-core peak."""
     q, kp, vp, bt, ln, tk, tv, anc, dep = args
     B, H, T, D = q.shape
     KH = kp.shape[1]
     live = int(ln.sum())
     pairs = int(anc.sum()) * B
-    nbytes = ((live * KH * D * 2 + tk.numel() + tv.numel() + 2 * q.numel()) * q.element_size()
+    kv_bytes = q.element_size() if kv_bytes is None else kv_bytes
+    nbytes = (live * KH * D * 2 * kv_bytes
+              + (tk.numel() + tv.numel() + 2 * q.numel()) * q.element_size()
               + bt.numel() * 4 + B * 4 + anc.numel() + T * 4)
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = (4.0 * D * H * T * live + 4.0 * D * H * pairs) / PEAK_BF16_FLOPS * 1e3
@@ -777,26 +1035,24 @@ def tree_bound_ms(args) -> tuple:
 
 def tree_library_call(args):
     """The library yardstick (the port never calls it): every row's pages up
-    to the batch's longest prefix gathered dense, the tree's K/V
-    concatenated, then one ``scaled_dot_product_attention`` under the
-    [B, 1, T, S + T] mask (the prefix below each row's length, the tree's
-    ancestors)."""
+    to the batch's longest prefix gathered dense (:func:`gather_pages`), the
+    tree's K/V concatenated, then one ``scaled_dot_product_attention`` under
+    the [B, 1, T, S + T] mask (the prefix below each row's length, the
+    tree's ancestors)."""
     import torch
     import torch.nn.functional as F
 
     q, kp, vp, bt, ln, tk, tv, anc, dep = args
     B, H, T, D = q.shape
-    P, KH, page, _ = kp.shape
+    page = kp.shape[2]
     nb = -(-int(ln.max()) // page)
     S = nb * page
     kpos = torch.arange(S, device=q.device)
     prefix = (kpos[None, :] < ln[:, None].long())[:, None, None, :].expand(B, 1, T, S)
     mask = torch.cat([prefix, anc[None, None].expand(B, 1, T, T)], dim=3)
-    phys = bt[:, :nb].long().clamp(0, P - 1)
 
     def call():
-        k = kp[phys].permute(0, 2, 1, 3, 4).reshape(B, KH, S, D)
-        v = vp[phys].permute(0, 2, 1, 3, 4).reshape(B, KH, S, D)
+        k, v = gather_pages(q, kp, vp, bt, nb)
         k = torch.cat([k, tk], dim=2)
         v = torch.cat([v, tv], dim=2)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
@@ -804,16 +1060,24 @@ def tree_library_call(args):
     return call
 
 
-def check_paged_tree(gen) -> dict:
+# the tree reads timed in phase 2: (entry, pool format, the JAX function's line)
+TREE_TIMED = (("paged_tree", None, "328"), ("paged_tree_fp8", "e4m3", "377"))
+
+
+def check_paged_tree(gen) -> list:
     """``paged_tree`` (the speculative verify read) against its twin at the
     main path's shapes: 8 slots of Llama-3-8B's heads (H 32, KH 8, D 128),
     page 512, the (4, 4) tree (T 17): 10,208 live prefix keys (paged
     decode's timed rows) and 1,868 (phase 4's four requests mid-decode, four
-    idle slots, one of them at length 0); bf16 (the tensor-core kernel)
+    idle slots, one of them at length 0); over pools in q's dtype and (K3)
+    over e4m3 and e5m2 prefix pages (the tree's own K/V in q's dtype; the
+    JAX tree read has no in-dot scheme); bf16 (the tensor-core kernel)
     within ``paged_tree_bf16_bound``, also with a window, f32 (the CUDA-core
-    kernel) within 1e-4; two calls bitwise equal.  Then its time at both:
-    wall and device ms, the bound and its share, the plain twin's time, and
-    the library yardstick (:func:`tree_library_call`)."""
+    kernel) within 1e-4; each call on its form (``kernels.PAGED_TREE_FORMS``),
+    two bf16 calls bitwise equal.  Then each read of ``TREE_TIMED`` at both
+    shapes: wall and device ms, the byte bound (at 1 byte a pool value from
+    an fp8 pool) and its share, the plain twin's time, and the library
+    yardstick (:func:`tree_library_call`)."""
     import torch
 
     from django_assistant_bot_tpu_torch import kernels
@@ -822,64 +1086,74 @@ def check_paged_tree(gen) -> dict:
 
     shapes = {"timed": [6, 512, 513, 1042, 1837, 4096, 1501, 701],
               "main-path": [106, 356, 486, 917, 1, 1, 1, 0]}
-    worst = 0.0
+    worst = {None: 0.0, "e4m3": 0.0}
     for label, lengths in shapes.items():
-        for dtype, window in ((torch.bfloat16, None), (torch.bfloat16, 700), (torch.float32, None)):
-            args = _tree_case(lengths, dtype, gen)
-            routes = dict(kernels.PAGED_TREE_ROUTES)
-            out, (err, rel, ratio) = _tree_check(args, window)
-            route = "mma" if dtype == torch.bfloat16 else "cuda_core"
-            text = BF16_P_TEXT if dtype == torch.bfloat16 else tol_text(dtype)
-            log(f"  paged_tree ({label}, {sum(lengths)} live keys) B=8 H=32 KH=8 D=128 T=17 "
-                f"page=512 {str(dtype)[6:]} window={window}: max_abs_err {err:.3e}, max_rel_err "
-                f"{rel:.3e}, worst err/bound {ratio:.3f} ({text}), route {route}")
-            if kernels.PAGED_TREE_ROUTES[route] != routes[route] + 1:
-                fail(f"paged_tree ({label}) did not take the {route} route")
-            if not ratio <= 1.0:
-                fail(f"paged_tree ({label}, {dtype}, window {window}) disagrees with its twin: "
-                     f"err/bound {ratio} > 1")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
+        base = _tree_case(lengths, torch.bfloat16, gen)
+        for fmt in (None, *FP8_KV):
+            for dtype, window in ((torch.bfloat16, None), (torch.bfloat16, 700),
+                                  (torch.float32, None)):
+                args = (_tree_case(lengths, dtype, gen) if fmt is None
+                        else narrow_pools(base, fmt, dtype))
+                route = "mma" if dtype == torch.bfloat16 else "cuda_core"
+                form = f"{route}:{'native' if fmt is None else fmt + '/dequant'}"
+                before = kernels.PAGED_TREE_FORMS[form]
+                out, (err, rel, ratio) = _tree_check(args, window)
+                text = BF16_P_TEXT if dtype == torch.bfloat16 else tol_text(dtype)
+                log(f"  paged_tree {fmt or 'native'} pool ({label}, {sum(lengths)} live keys) "
+                    f"B=8 H=32 KH=8 D=128 T=17 page=512 {str(dtype)[6:]} window={window}: "
+                    f"max_abs_err {err:.3e}, max_rel_err {rel:.3e}, worst err/bound {ratio:.3f} "
+                    f"({text}), form {form}")
+                if kernels.PAGED_TREE_FORMS[form] != before + 1:
+                    fail(f"paged_tree ({label}) did not take {form}")
+                if not ratio <= 1.0:
+                    fail(f"paged_tree ({fmt or 'native'} pool, {label}, {dtype}, window "
+                         f"{window}) disagrees with its twin: err/bound {ratio} > 1")
+                if dtype == torch.bfloat16:
+                    worst[fmt] = max(worst.get(fmt, 0.0), err)
+                    again = paged_tree_attention(*args, window=window)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, again):
+                        fail(f"paged_tree ({fmt or 'native'}, {label}): two calls on the same "
+                             "inputs differ")
     log(f"  paged_tree SASS: {sass_counts(kernels.lib_path('paged_tree'))}")
-    result = {}
-    for label, lengths in shapes.items():
-        args = _tree_case(lengths, torch.bfloat16, gen)
-        out, (err, _, ratio) = _tree_check(args)
-        again = paged_tree_attention(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(out, again):
-            fail(f"paged_tree ({label}): two calls on the same inputs differ")
-        ms, dev = timed(lambda: paged_tree_attention(*args), 200)
-        q, kp, vp, bt, ln, tk, tv, anc, dep = args
-        fargs = (q.float(), kp.float(), vp.float(), bt, ln, tk.float(), tv.float(), anc, dep)
-        plain_ms = time_ms(lambda: paged_tree_attention_plain(*fargs), 5)
-        lib = tree_library_call(args)
-        lib_out = lib()
-        lib_err = (lib_out.float() - out.float()).abs().max().item()
-        lib_ms, lib_dev = timed(lib, 50)
-        bound_ms, bound_by = tree_bound_ms(args)
-        plan = kernels.paged_tree_plan(8, 32, 8, q.shape[2], 512, 8)
-        log(f"  paged_tree timing ({label}) B=8 H=32 KH=8 D=128 T=17 page=512 bf16, "
-            f"{sum(lengths)} live keys, plan (warps, row chunks, splits) {plan}: kernel wall "
-            f"{ms:.4f} ms (device {dev:.4f}), plain wall {plain_ms:.4f} ms, library (dense page "
-            f"gather + concat + scaled_dot_product_attention) wall {lib_ms:.4f} ms (device "
-            f"{lib_dev:.4f}; max |library - kernel| {lib_err:.3e}), bound {bound_ms:.4f} ms "
-            f"({bound_by}); share of the bound: wall {bound_ms / ms:.3f}, device "
-            f"{bound_ms / dev:.3f}; repeat bitwise-equal; worst err/bound {ratio:.3f}")
-        if label == "timed":
-            result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=lib_ms)
-        else:
-            result.update(main_path_ms=ms, main_path_device_ms=dev, main_path_bound_ms=bound_ms,
-                          main_path_library_ms=lib_ms)
-    return {
-        "name": "paged_tree",
-        "route": "cuda",
-        "source": f"{PKG}/csrc/paged_tree.cu",
-        "replaces": "django_assistant_bot_tpu/ops/attention.py:328",
-        "max_abs_err": worst,
-        **result,
-    }
+    entries = []
+    for name, fmt, line in TREE_TIMED:
+        result = {}
+        for label, lengths in shapes.items():
+            args = narrow_pools(_tree_case(lengths, torch.bfloat16, gen), fmt, torch.bfloat16)
+            out = paged_tree_attention(*args)
+            ms, dev = timed(lambda: paged_tree_attention(*args), 200)
+            q, kp, vp, bt, ln, tk, tv, anc, dep = args
+            fargs = (q.float(), kp.float(), vp.float(), bt, ln, tk.float(), tv.float(), anc, dep)
+            plain_ms = time_ms(lambda: paged_tree_attention_plain(*fargs), 5)
+            lib = tree_library_call(args)
+            lib_err = (lib().float() - out.float()).abs().max().item()
+            lib_ms, lib_dev = timed(lib, 50)
+            bound_ms, bound_by = tree_bound_ms(args, kv_bytes=kp.element_size())
+            plan = kernels.paged_tree_plan(8, 32, 8, q.shape[2], 512, 8)
+            log(f"  paged_tree timing, {fmt or 'bf16'} pool ({label}) B=8 H=32 KH=8 D=128 T=17 "
+                f"page=512 bf16 q, {sum(lengths)} live keys, plan (warps, row chunks, splits) "
+                f"{plan}: kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall {plain_ms:.4f} "
+                f"ms, library (pages gathered, widened to q's dtype + concat + "
+                f"scaled_dot_product_attention) wall {lib_ms:.4f} ms (device {lib_dev:.4f}; max "
+                f"|library - kernel| {lib_err:.3e}), bound at {kp.element_size()} byte(s) a pool "
+                f"value {bound_ms:.4f} ms ({bound_by}); share of the bound: wall "
+                f"{bound_ms / ms:.3f}, device {bound_ms / dev:.3f}")
+            if label == "timed":
+                result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=lib_ms)
+            else:
+                result.update(main_path_ms=ms, main_path_device_ms=dev,
+                              main_path_bound_ms=bound_ms, main_path_library_ms=lib_ms)
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{PKG}/csrc/paged_tree.cu",
+            "replaces": f"django_assistant_bot_tpu/ops/attention.py:{line}",
+            "max_abs_err": worst[fmt],
+            **result,
+        })
+    return entries
 
 
 def knn_bound_ms(Q, live, N, D, k) -> tuple:
@@ -2019,6 +2293,7 @@ def small_reference() -> int:
     generic = small_int4_g8()
     small_json(cfg, params_cpu, params_gpu, prompts)
     small_spec(cfg, params_cpu)
+    small_fp8(cfg, params_cpu, params_gpu, prompts)
     return generic
 
 
@@ -2048,7 +2323,8 @@ def small_spec(cfg, params_cpu) -> None:
         futs = [eng.submit(p, max_tokens=32, temperature=0.0) for p in prompts]
         _crank(eng, futs)
         eng._running = False
-        counts = {**kernels.launch_counts(), "tree_routes": dict(kernels.PAGED_TREE_ROUTES)}
+        counts = {**kernels.launch_counts(),
+                  "tree_routes": kernels.by_route(kernels.PAGED_TREE_FORMS)}
         return [f.result(timeout=0).token_ids for f in futs], eng, counts
 
     spec_kw = dict(speculative=4, spec_width=4, spec_probe_every=1)
@@ -2074,6 +2350,70 @@ def small_spec(cfg, params_cpu) -> None:
         if counts["paged_tree"] != cfg.num_layers * verify_steps:
             fail(f"small {fmt} spec engine: paged_tree launches {counts['paged_tree']} != "
                  f"{cfg.num_layers} x {verify_steps} verify steps")
+
+
+def small_fp8(cfg, params_cpu, params_gpu, prompts) -> None:
+    """The small f32 model's engine on narrow pools (``kv_cache_dtype``
+    "fp8", "fp8_e5m2", "bf16", and "fp8" with ``attn_fp8``) at the default
+    loop (graph ticks, a piggybacked chunk): greedy ids on the card equal
+    the CPU engine's, every paged launch on the pool's read
+    (``kernels.PAGED_FORMS``, the CUDA-core kernels at f32); then a prefix
+    wave on an fp8 pool and a spec engine (K 4, N 4) on one, card vs CPU."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+
+    def run(device, params, **kw):
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
+                               max_seq_len=1024, chunk_size=512, **kw)
+        eng._running = True
+        kernels.reset_counts()
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+        with torch.no_grad():
+            _crank(eng, futs)
+        eng._running = False
+        return ([f.result(timeout=0).token_ids for f in futs], eng,
+                kernels.launch_counts()["paged_decode"], dict(kernels.PAGED_FORMS))
+
+    for kv, attn_fp8 in (("fp8", False), ("fp8_e5m2", False), ("bf16", False), ("fp8", True)):
+        kw = dict(kv_cache_dtype=kv, attn_fp8=attn_fp8)
+        card, eng, paged, forms = run("cuda", params_gpu, **kw)
+        cpu, _, _, _ = run("cpu", params_cpu, **kw)
+        fmt = {"fp8": "e4m3", "fp8_e5m2": "e5m2", "bf16": "bf16"}[kv]
+        form = f"cuda_core:{fmt}/{'in_dot' if attn_fp8 else 'dequant'}"
+        dec = eng.decode_path_stats()
+        log(f"  small model engine, kv_cache_dtype={kv} attn_fp8={attn_fp8} (pool "
+            f"{eng._cache.k.dtype}): greedy ids card vs CPU "
+            f"{'identical' if card == cpu else 'DIFFER'}; paged launches {paged}, {form} "
+            f"{forms[form]}; {dec['prefill_chunks_piggybacked']} piggybacked chunks")
+        if card != cpu:
+            fail(f"small fp8 engine ({kv}, attn_fp8 {attn_fp8}): card {card} vs CPU {cpu}")
+        if not (paged > 0 and forms[form] == paged and dec["cuda_graph"]
+                and dec["prefill_chunks_piggybacked"] > 0 and dec["attn_fp8"] is attn_fp8):
+            fail(f"small fp8 engine ({kv}, attn_fp8 {attn_fp8}) left its read: {forms}, {dec}")
+    small_prefix_wave(cfg, params_cpu, params_gpu, kv_cache_dtype="fp8")
+    gen = torch.Generator().manual_seed(12)
+    motif = torch.randint(1, 255, (11,), generator=gen).tolist()
+    spec_prompts = [motif * 8, torch.randint(1, 255, (300,), generator=gen).tolist()]
+    spec_kw = dict(speculative=4, spec_width=4, spec_probe_every=1, kv_cache_dtype="fp8")
+    out = []
+    for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
+                               max_seq_len=1024, chunk_size=512, **spec_kw)
+        eng._running = True
+        kernels.reset_counts()
+        futs = [eng.submit(p, max_tokens=32, temperature=0.0) for p in spec_prompts]
+        _crank(eng, futs)
+        out.append(([f.result(timeout=0).token_ids for f in futs], eng.spec_stats(),
+                    dict(kernels.PAGED_TREE_FORMS)))
+    (card, st, forms), (cpu, _, _) = out
+    log(f"  small model spec engine (K 4, N 4) on an fp8 pool: greedy ids card vs CPU "
+        f"{'identical' if card == cpu else 'DIFFER'}; drafted {st['spec_drafted']}, accepted "
+        f"{st['spec_accepted']}; tree launches cuda_core:e4m3/dequant "
+        f"{forms['cuda_core:e4m3/dequant']}")
+    if card != cpu or not st["spec_drafted"] or not forms["cuda_core:e4m3/dequant"]:
+        fail(f"small fp8 spec engine: card {card} vs CPU {cpu}, {st}, {forms}")
 
 
 def sampling_steps(eng) -> int:
@@ -2285,7 +2625,7 @@ def _crank(eng, futs, limit=2000):
     fail("requests did not finish within the crank budget")
 
 
-def small_prefix_wave(cfg, params_cpu, params_gpu) -> None:
+def small_prefix_wave(cfg, params_cpu, params_gpu, **pool) -> None:
     """Prefix sharing on the small f32 model: a 200-token head (page 64:
     three full pages and an 8-token boundary page) registered by a first
     chat, then a wave of three hits: two short questions (one suffix prefill
@@ -2293,7 +2633,10 @@ def small_prefix_wave(cfg, params_cpu, params_gpu) -> None:
     remainder is longer than a chunk, so it continues as chunks from the
     head's length (the first piggybacked on the live batch).  Greedy ids on
     the card (graph ticks) equal the CPU's and the card's with the prefix
-    cache off; hit, miss and COW counters exact."""
+    cache off; hit, miss and COW counters exact.  ``pool`` (an engine's
+    ``kv_cache_dtype``) runs the wave on a narrow pool, where a hit reads
+    the head from fp8 pages and a cold prefill does not, so only card and
+    CPU are held equal."""
     import torch
 
     from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
@@ -2306,7 +2649,7 @@ def small_prefix_wave(cfg, params_cpu, params_gpu) -> None:
     def run(device, params, prefix_cache):
         eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device, max_slots=4,
                                max_seq_len=1024, chunk_size=512, kv_page_size=64,
-                               prefix_cache_size=prefix_cache, prefix_min_tokens=32)
+                               prefix_cache_size=prefix_cache, prefix_min_tokens=32, **pool)
         eng._running = True
         f0 = eng.submit(first, max_tokens=16, temperature=0.0, prefix_len=len(head))
         _crank(eng, [f0])
@@ -2320,7 +2663,8 @@ def small_prefix_wave(cfg, params_cpu, params_gpu) -> None:
     cold, kv_cold, _ = run("cuda", params_gpu, 0)
     counters = {k: kv[k] for k in ("prefix_hits", "prefix_misses", "kv_cow_copies",
                                    "kv_shared_pages", "kv_pages_used")}
-    log(f"  small model prefix wave (200-token head, page 64): greedy ids card vs CPU "
+    log(f"  small model prefix wave (200-token head, page 64{', ' if pool else ''}"
+        f"{', '.join(f'{k}={v}' for k, v in pool.items())}): greedy ids card vs CPU "
         f"{'identical' if card == cpu else 'DIFFER'}, vs the card without the prefix cache "
         f"{'identical' if card == cold else 'DIFFER'}; {counters}; "
         f"{dec['prefill_chunks_piggybacked']} chunk piggybacked from the hit")
@@ -2330,7 +2674,7 @@ def small_prefix_wave(cfg, params_cpu, params_gpu) -> None:
         fail(f"prefix counters: card {counters} (want {want}), CPU hits {kv_cpu['prefix_hits']}")
     if dec["prefill_chunks_piggybacked"] < 1:
         fail("the chunked hit did not piggyback on the card")
-    if card != cpu or card != cold:
+    if card != cpu or (card != cold and not pool):
         fail(f"prefix wave greedy ids differ: card {card}, CPU {cpu}, cache off {cold}")
 
 
@@ -2625,15 +2969,11 @@ def main_path(card: str) -> dict:
     and the decode breakdown; then the four requests again on an engine with
     ``obs`` off; last, the RAG hits on an engine with prefix sharing off,
     held to the hits' own first-step logits."""
-    import aiohttp
     import torch
-    from aiohttp import web
 
-    from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
     from django_assistant_bot_tpu_torch.serving import ByteTokenizer
-    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry, ModelSpec
-    from django_assistant_bot_tpu_torch.serving.server import create_app
+    from django_assistant_bot_tpu_torch.serving.registry import ModelSpec
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2665,43 +3005,9 @@ def main_path(card: str) -> dict:
     head_tokens = 1500
     rag = _rag_chats(tok, head_tokens, [100, 100, 60, 90, 120, 160, 200, 700])
     hit_logits = record_first_logits(engine)
+
     def serve(eng, groups):
-        """Serve ``groups`` of chats over /dialog/ (each group concurrently,
-        after the previous one finished), launch counts reset before each
-        group and read after it."""
-        registry = ModelRegistry()
-        registry.load(spec, engine=eng)
-        port = _free_port()
-
-        async def drive():
-            runner = web.AppRunner(create_app(registry))
-            await runner.setup()
-            await web.TCPSite(runner, "127.0.0.1", port).start()
-            try:
-                async with aiohttp.ClientSession() as session:
-                    # warm-up: first CUDA/cuBLAS use, outside the counted runs
-                    st, body, _ = await _post(session, port, name, _chat(300, 99))
-                    if st != 200:
-                        fail(f"warm-up /dialog/ returned {st}: {body}")
-                    out = []
-                    for group in groups:
-                        torch.cuda.synchronize()
-                        kernels.reset_counts()
-                        steps0, kv0, tick0 = eng.steps, eng.kv_stats(), _tick_counters(eng)
-                        samp0 = sampling_steps(eng)
-                        t = time.perf_counter()
-                        res = await asyncio.gather(*(_post(session, port, name, m) for m in group))
-                        wall = time.perf_counter() - t
-                        out.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
-                                        routes=dict(kernels.PAGED_ROUTES),
-                                        samples=sampling_steps(eng) - samp0,
-                                        steps=eng.steps - steps0, kv0=kv0, kv1=eng.kv_stats(),
-                                        ticks=[b - a for a, b in zip(tick0, _tick_counters(eng))]))
-                    return out
-            finally:
-                await runner.cleanup()  # stops the registry's engines
-
-        return asyncio.run(drive())
+        return _serve(spec, eng, groups)
 
     # the four requests six times (the first counted, all six read, as in
     # phase 8), then the RAG wave
@@ -2742,7 +3048,8 @@ def main_path(card: str) -> dict:
     rag_wave_report(cfg, engine, tok, rag, *rag_runs)
     log(f"  tick_stats: {json.dumps(engine.tick_stats())}")
     obs_on = _tick_reading(main, rates)
-    decode_breakdown(cfg, params, engine)
+    PHASE4.update(ttfts=all_ttfts, rates=all_rates, pool_bytes=pool_bytes(engine),
+                  breakdown=decode_breakdown(cfg, params, engine))
 
     # the obs A/B: the same four requests on an engine with the obs plane off
     spec_off = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, obs=False)
@@ -2773,6 +3080,66 @@ def main_path(card: str) -> dict:
     del engine._activate_batch
     engine.reset()
     return counts, spec, engine
+
+
+def _serve(spec, eng, groups) -> list:
+    """Serve ``groups`` of chats over /dialog/ on ``eng`` behind a registry
+    of ``spec`` (each group concurrently, after the previous one finished,
+    after one warm-up request), launch counts reset before each group and
+    read after it; the server stops the engine at the end."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.serving.registry import ModelRegistry
+    from django_assistant_bot_tpu_torch.serving.server import create_app
+
+    name = spec.name
+    registry = ModelRegistry()
+    registry.load(spec, engine=eng)
+    port = _free_port()
+
+    async def drive():
+        runner = web.AppRunner(create_app(registry))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        try:
+            async with aiohttp.ClientSession() as session:
+                # warm-up: first CUDA/cuBLAS use, outside the counted runs
+                st, body, _ = await _post(session, port, name, _chat(300, 99))
+                if st != 200:
+                    fail(f"warm-up /dialog/ returned {st}: {body}")
+                out = []
+                for group in groups:
+                    torch.cuda.synchronize()
+                    kernels.reset_counts()
+                    steps0, kv0, tick0 = eng.steps, eng.kv_stats(), _tick_counters(eng)
+                    samp0 = sampling_steps(eng)
+                    t = time.perf_counter()
+                    res = await asyncio.gather(*(_post(session, port, name, m) for m in group))
+                    wall = time.perf_counter() - t
+                    out.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
+                                    routes=kernels.by_route(kernels.PAGED_FORMS),
+                                    forms=dict(kernels.PAGED_FORMS),
+                                    tree_forms=dict(kernels.PAGED_TREE_FORMS),
+                                    samples=sampling_steps(eng) - samp0,
+                                    steps=eng.steps - steps0, kv0=kv0, kv1=eng.kv_stats(),
+                                    ticks=[b - a for a, b in zip(tick0, _tick_counters(eng))]))
+                return out
+        finally:
+            await runner.cleanup()  # stops the registry's engines
+
+    return asyncio.run(drive())
+
+
+# phase 4's bf16-pool readings, which phase 12 sets its fp8 pools beside
+PHASE4: dict = {}
+
+
+def pool_bytes(eng) -> int:
+    """The bytes of an engine's K and V page pools (the dump page included)."""
+    return sum(t.numel() * t.element_size() for t in (eng._cache.k, eng._cache.v))
 
 
 def _tick_counters(eng) -> tuple:
@@ -2896,12 +3263,14 @@ def hit_vs_cold(cfg, tok, chats, hit_logits, cold_logits, hit_runs, cold_runs) -
         f"{len(chats)}")
 
 
-def _timed_run(fn, n: int, per: int, label: str, unit: str = "step", batches: int = 1) -> None:
+def _timed_run(fn, n: int, per: int, label: str, unit: str = "step", batches: int = 1) -> dict:
     """Log the synchronised, host-enqueue and device kernel time of ``fn``
     per ``unit`` (``fn`` runs ``per`` of them; a decode step by default),
     the idle share, and the device time by kernel from torch.profiler, each
     over ``batches`` batches of ``n`` calls (medians and spreads when there
-    are several; the kernel table from the batch of median device time)."""
+    are several; the kernel table from the batch of median device time).
+    Returns the medians: ``wall_ms``, ``device_ms`` and the paged kernels'
+    ``paged_ms``, per ``unit``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2942,6 +3311,8 @@ def _timed_run(fn, n: int, per: int, label: str, unit: str = "step", batches: in
     rest = [part(t)[0] - sum(part(t, w)[0] for w in words) for t in tables]
     log(f"    the rest (neither {', '.join(words)}): {stat(rest)}/{unit}")
     log(f"    all kernels: {part(table)[1]:g} launches/{unit}")
+    return {"wall_ms": wall_ms, "device_ms": busy_ms,
+            "paged_ms": statistics.median(part(t, "paged")[0] for t in tables)}
 
 
 def _sync_and_enqueue_ms(fn, n: int, per: int) -> tuple:
@@ -2977,7 +3348,14 @@ def _event_span_ms(fn, n: int) -> list:
     return spans
 
 
-def decode_breakdown(cfg, params, engine, label: str = "") -> None:
+# profiled batches of the eager step in a decode breakdown (each a
+# torch.profiler trace of ten eager steps, the costliest part of a breakdown)
+BREAKDOWN_BATCHES = 4
+
+
+def decode_breakdown(cfg, params, engine, label: str = "", kv_dtype=None,
+                     attn_fp8: bool = False, batches: int = BREAKDOWN_BATCHES,
+                     chunk: bool = True) -> dict:
     """Where a full-width decode step's time goes: 8 slots at ragged
     positions; the eager step (a fresh pool, ``decode_step_paged`` issued op
     by op; torch.profiler's kernel time), then the engine's captured 8-step
@@ -2987,13 +3365,18 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
     events around the graph's launch (the span also holds the card's wait
     for the launch), and its idle share is not measured.  Last, a
     512-token chunk with the tick: one replay of the piggyback graph against
-    the chunk issued eagerly, then the tick's replay."""
+    the chunk issued eagerly, then the tick's replay.  ``kv_dtype`` and
+    ``attn_fp8`` set the eager step's pool and read (the engine's tick has
+    its own); ``batches`` is the eager step's profiled batches, ``chunk``
+    times the chunk with the tick.  Returns the eager step's medians
+    (``_timed_run``) and the replay's per step, ``replay_ms``
+    (synchronised) and ``span_ms``."""
     import torch
 
     from django_assistant_bot_tpu_torch.models import llama
 
     B, page, NB = 8, 512, 8
-    cache = llama.init_paged_cache(cfg, B, B * NB, page, device="cuda")
+    cache = llama.init_paged_cache(cfg, B, B * NB, page, dtype=kv_dtype, device="cuda")
     start = torch.tensor([5, 511, 512, 1041, 1836, 3000, 1500, 700], dtype=torch.int32, device="cuda")
     bt = torch.arange(B * NB, dtype=torch.int32, device="cuda").reshape(B, NB)
     # random tokens: a MoE model routes them to about as many experts as a
@@ -3003,7 +3386,7 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
 
     def step():
         cache.lengths.copy_(start)
-        llama.decode_step_paged(params, cfg, tokens, cache, bt)
+        llama.decode_step_paged(params, cfg, tokens, cache, bt, attn_fp8=attn_fp8)
 
     K = engine.decode_steps
     engine._bt_dev.copy_(bt)
@@ -3022,7 +3405,8 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
         engine._launch_tick()
 
     with torch.no_grad():
-        _timed_run(step, 10, 1, f"{label}eager decode step, 8 slots, full width", batches=6)
+        eager = _timed_run(step, 10, 1, f"{label}eager decode step, 8 slots, full width",
+                           batches=batches)
         timing = [_sync_and_enqueue_ms(tick, 10, K) for _ in range(6)]
         spans = [ms / K for ms in _event_span_ms(engine._graph.replay, 10)]
         log(f"  {label}graph replay of the {K}-step tick, 8 slots, full width, per step over 6 "
@@ -3032,19 +3416,22 @@ def decode_breakdown(cfg, params, engine, label: str = "") -> None:
             f"share not measured; {engine._graph_launches.launches['paged_decode'] // K} paged "
             f"launches per step (recorded at capture); graph pool "
             f"{engine.graph_pool_bytes / 2**20:.1f} MiB")
-        # the chunk's page chain all sentinels: it writes the dump page and
-        # slot 0's length only (the work of a real chunk: the row is gathered
-        # and written back whole)
-        engine._chunk_bt_dev.fill_(engine._kv_sentinel)
-        engine._chunk_slot_dev.zero_()
-        engine._chunk_start_dev.zero_()
-        pig = [_sync_and_enqueue_ms(lambda: tick(True), 3, 1)[0] for _ in range(6)]
-        seq = [_sync_and_enqueue_ms(chunk_then_tick, 3, 1)[0] for _ in range(6)]
-        pig_span = _event_span_ms(engine._piggyback_graph.replay, 6)
-        log(f"  {label}a {engine.chunk_size}-token chunk and the {K}-step tick, 6 batches of 3: "
-            f"one piggyback replay synchronised {_stat(pig, 'ms')} (graph span "
-            f"{_stat(pig_span, 'ms')}), the chunk eager then the tick's replay synchronised "
-            f"{_stat(seq, 'ms')}")
+        if chunk:
+            # the chunk's page chain all sentinels: it writes the dump page
+            # and slot 0's length only (the work of a real chunk: the row is
+            # gathered and written back whole)
+            engine._chunk_bt_dev.fill_(engine._kv_sentinel)
+            engine._chunk_slot_dev.zero_()
+            engine._chunk_start_dev.zero_()
+            pig = [_sync_and_enqueue_ms(lambda: tick(True), 3, 1)[0] for _ in range(6)]
+            seq = [_sync_and_enqueue_ms(chunk_then_tick, 3, 1)[0] for _ in range(6)]
+            pig_span = _event_span_ms(engine._piggyback_graph.replay, 6)
+            log(f"  {label}a {engine.chunk_size}-token chunk and the {K}-step tick, 6 batches "
+                f"of 3: one piggyback replay synchronised {_stat(pig, 'ms')} (graph span "
+                f"{_stat(pig_span, 'ms')}), the chunk eager then the tick's replay "
+                f"synchronised {_stat(seq, 'ms')}")
+    return {**eager, "replay_ms": statistics.median(w for w, _ in timing),
+            "span_ms": statistics.median(spans)}
 
 
 # --------------------------------------------------------------------- phase 5
@@ -3692,7 +4079,7 @@ def stream_json_phase(card: str, cfg, params) -> dict:
 
 # --------------------------------------------------------------------- phase 8
 SPEC_K, SPEC_N = 4, 4  # phase 11: speculative = 4, spec_width = 4
-SPEC_RUNS = 5
+SPEC_RUNS = 3
 # On one state (a prefix prefilled into pages) the verify path's logits are
 # held within this many bf16 ulps of max|logit| of the plain decode step's:
 # 3.00-4.12 were read at 8 positions, and the prefill path, another rounding
@@ -3957,7 +4344,7 @@ def _spec_serve(card, cfg, engine, spec, key_msgs, label) -> tuple:
                     wall = time.perf_counter() - t
                     torch.cuda.synchronize()
                     runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
-                                     routes=dict(kernels.PAGED_TREE_ROUTES),
+                                     routes=kernels.by_route(kernels.PAGED_TREE_FORMS),
                                      delta=[b - a for a, b in zip(c0, spec_counters())]))
                 futs = [engine.submit(tok.encode_chat(m), max_tokens=SPEC_MAX_TOKENS,
                                       temperature=0.0) for _, m in key_msgs]
@@ -4116,6 +4503,141 @@ def spec_phase(card: str, cfg, params) -> dict:
     gc_collect()
     log(f"  card memory at the end: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     return first
+
+
+# phase 12: the engines on fp8 pools (kv_cache_dtype, attn_fp8) and their runs
+FP8_ENGINES = (("fp8", False), ("fp8", True), ("fp8_e5m2", False))
+FP8_RUNS = 5
+
+
+def fp8_logits_cosine(cfg, params) -> None:
+    """One decode step's logits from identical prefills (a 480-token prompt
+    prefilled once, its K/V written into a bf16 pool and into each fp8
+    pool): cosine against the bf16 pool's at least 0.98 for every fp8 pool
+    and read (the JAX contract of tests/test_serving.py:903)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import llama
+    from django_assistant_bot_tpu_torch.ops.quant import KV_CACHE_DTYPES
+
+    ids = torch.randint(1, 255, (1, 512), generator=torch.Generator().manual_seed(21),
+                        dtype=torch.int32).cuda()
+    lengths = torch.tensor([480], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        _, ks, vs = llama.prefill(params, cfg, ids, lengths)
+        out = {}
+        for kv, attn in ((None, False),) + FP8_ENGINES:
+            cache = llama.init_paged_cache(cfg, 1, 2, 512, dtype=KV_CACHE_DTYPES[kv],
+                                           device="cuda")
+            bt = torch.tensor([[0, 1]], dtype=torch.int32, device="cuda")
+            llama.insert_sequences_paged(cache, ks, vs, lengths,
+                                         torch.zeros((1,), dtype=torch.int32, device="cuda"), bt)
+            step, _ = llama.decode_step_paged(
+                params, cfg, torch.tensor([5], dtype=torch.int32, device="cuda"), cache, bt,
+                attn_fp8=attn)
+            out[(kv, attn)] = step[0].float()
+            del cache
+    base = out[(None, False)]
+    for kv, attn in FP8_ENGINES:
+        a = out[(kv, attn)]
+        cos = float(torch.dot(a, base) / (a.norm() * base.norm()))
+        log(f"  one decode step's logits from identical prefills, {kv} pool"
+            f"{' in-dot' if attn else ''} vs the bf16 pool: cosine {cos:.6f}, max |diff| "
+            f"{(a - base).abs().max().item():.4f} (max |logit| {base.abs().max().item():.4f}), "
+            f"argmax {'equal' if int(a.argmax()) == int(base.argmax()) else 'differs'}")
+        if not cos >= 0.98:
+            fail(f"{kv} pool (attn_fp8 {attn}): logits cosine {cos} < 0.98 against the bf16 pool")
+
+
+def fp8_phase(card: str, cfg, params) -> dict:
+    """fp8 KV pools at full width over phase 4's bf16 Llama-3-8B tensors
+    (phase 7's head): first :func:`fp8_logits_cosine`; then, for
+    ``kv_cache_dtype="fp8"`` (dequant read, then ``attn_fp8``) and
+    ``"fp8_e5m2"``, an engine at the JAX ``ModelSpec`` defaults serving
+    phase 4's four requests ``FP8_RUNS`` times over /dialog/: the pool's
+    bytes half phase 4's, paged launches = 32 x decode steps, every one on
+    the pool's read of the tensor-core kernel (``kernels.PAGED_FORMS``),
+    TTFT and tok/s per request beside phase 4's, and the decode breakdown
+    (the eager step on a pool of the engine's dtype and read, the replayed
+    8-step tick) beside phase 4's; last a spec engine (K 4, N 4, every tick
+    verifying) on an fp8 pool for one run: tree launches on the fp8 read.
+    Returns each kernel form's launches on its engine's first run."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
+    from django_assistant_bot_tpu_torch.serving.registry import ModelSpec
+
+    t0 = time.perf_counter()
+    fp8_logits_cosine(cfg, params)
+    log(f"  (cosine check {time.perf_counter() - t0:.1f} s)")
+    tok = ByteTokenizer()
+    messages = four_requests(tok)
+    name = "llama3-8b-fp8"
+    launches = {}
+    b4 = PHASE4["breakdown"]
+    for kv, attn in FP8_ENGINES:
+        t0 = time.perf_counter()
+        fmt = "e4m3" if kv == "fp8" else "e5m2"
+        form = f"mma:{fmt}/{'in_dot' if attn else 'dequant'}"
+        label = f"{kv}{' attn_fp8' if attn else ''}"
+        spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096,
+                         kv_cache_dtype=kv, attn_fp8=attn)
+        engine, build_s = _build_engine(cfg, params, spec)
+        pb = pool_bytes(engine)
+        if pb * 2 != PHASE4["pool_bytes"]:
+            fail(f"{label}: pool {pb} bytes, not half of phase 4's {PHASE4['pool_bytes']}")
+        runs = _serve(spec, engine, [list(messages.values())] * FP8_RUNS)
+        first = runs[0]
+        counts, forms, steps = first["counts"], first["forms"], first["steps"]
+        ttfts, rates = [], []
+        for run in runs:
+            t, r, _ = _check_dialogs(tok, list(messages.items()), run["results"])
+            ttfts += t
+            rates += r
+        log(f"  {label}: pool {engine._cache.k.dtype}, {pb / 1e9:.3f} GB against phase 4's bf16 "
+            f"{PHASE4['pool_bytes'] / 1e9:.3f} GB; engine built in {build_s:.2f} s; first run: "
+            f"{counts['paged_decode']} paged launches for {steps} decode steps "
+            f"({counts['paged_decode'] / max(1, steps):g} a step), {form} {forms[form]}")
+        if counts["paged_decode"] != cfg.num_layers * steps or steps <= 0:
+            fail(f"{label}: paged launches {counts['paged_decode']} != {cfg.num_layers} x "
+                 f"{steps} decode steps")
+        if forms[form] != counts["paged_decode"]:
+            fail(f"{label}: paged launches left the {form} read: {forms}")
+        log(f"  {label} readings over {len(runs)} runs of the four requests [{card}]: TTFT "
+            f"{_stat(ttfts)} (phase 4's bf16 pool: {_stat(PHASE4['ttfts'])}); decode "
+            f"{_stat(rates, 'tok/s')} per request (phase 4: {_stat(PHASE4['rates'], 'tok/s')}); "
+            f"run wall {_stat([r['wall'] for r in runs])}")
+        br = decode_breakdown(cfg, params, engine, label=f"{label}: ",
+                              kv_dtype=engine.kv_cache_dtype, attn_fp8=attn, batches=3,
+                              chunk=False)
+        log(f"  {label} against phase 4's bf16 pool, per decode step: replayed 8-step tick "
+            f"{br['replay_ms']:.4f} ms (bf16 {b4['replay_ms']:.4f}; graph span "
+            f"{br['span_ms']:.4f} vs {b4['span_ms']:.4f}); eager step's paged kernels device "
+            f"{br['paged_ms']:.4f} ms (bf16 {b4['paged_ms']:.4f}), all kernels "
+            f"{br['device_ms']:.4f} ms (bf16 {b4['device_ms']:.4f})")
+        launches[form] = counts["paged_decode"]
+        del engine
+        gc_collect()
+        log(f"  ({label}: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096,
+                     kv_cache_dtype="fp8", speculative=SPEC_K, spec_width=SPEC_N)
+    engine = GenerationEngine(cfg, params, tok, device="cuda", **spec.engine_kwargs(),
+                              spec_probe_every=1)
+    (run,) = _serve(spec, engine, [list(messages.values())])
+    _check_dialogs(tok, list(messages.items()), run["results"])
+    tree, tforms = run["counts"]["paged_tree"], run["tree_forms"]
+    log(f"  spec engine (K {SPEC_K}, N {SPEC_N}, every tick verifying) on an fp8 pool, one run "
+        f"of the four requests: {tree} paged_tree launches, mma:e4m3/dequant "
+        f"{tforms['mma:e4m3/dequant']}; drafted {engine.spec_drafted}, accepted "
+        f"{engine.spec_accepted}")
+    if tree <= 0 or tforms["mma:e4m3/dequant"] != tree:
+        fail(f"the fp8 spec engine's tree reads left the fp8 form: {tforms}")
+    launches["tree:mma:e4m3/dequant"] = tree
+    del engine
+    gc_collect()
+    log(f"  (the fp8 spec engine: {time.perf_counter() - t0:.1f} s)")
+    return launches
 
 
 def _quiet_check(tok, key_msgs, results, max_tokens=32) -> tuple:
@@ -4763,7 +5285,7 @@ def main() -> int:
 
     phase(2, "kernels vs plain twins (the ANN kernels' checks run on phase 9's corpus)")
     # the engine's page at 4096 for paged decode
-    entries = [check_flash(gen), check_paged(gen, page=512), check_paged_tree(gen),
+    entries = [check_flash(gen), *check_paged(gen, page=512), *check_paged_tree(gen),
                check_knn(gen), *check_qgemm(gen), check_qgemm_generic(gen), check_sample(gen),
                *check_moe(gen)]
 
@@ -4792,6 +5314,11 @@ def main() -> int:
     phase(11, f"tree-verified speculative decoding (K {SPEC_K}, N {SPEC_N}) on phase 4's "
               "Llama-3-8B over /dialog/ (the paged tree kernel)")
     spec_counts = spec_phase(card, cfg, params)
+    gc_collect()
+
+    phase(12, "fp8 KV pools at full width over /dialog/ (kv_cache_dtype fp8 and fp8_e5m2, "
+              "attn_fp8)")
+    fp8_counts = fp8_phase(card, cfg, params)
     del params
     gc_collect()
 
@@ -4824,6 +5351,12 @@ def main() -> int:
             e["launches"] = ann_counts[e["name"]]
         elif e["name"] == "paged_tree":
             e["launches"] = spec_counts["paged_tree"]
+        elif e["name"] == "paged_decode_fp8":
+            e["launches"] = fp8_counts["mma:e4m3/dequant"]
+        elif e["name"] == "paged_decode_fp8_dot":
+            e["launches"] = fp8_counts["mma:e4m3/in_dot"]
+        elif e["name"] == "paged_tree_fp8":
+            e["launches"] = fp8_counts["tree:mma:e4m3/dequant"]
         elif e["name"] == "qgemm_generic":
             e["launches"] = generic_launches
         elif e["name"].startswith("qgemm_prefill_"):
@@ -4834,7 +5367,8 @@ def main() -> int:
             e["launches"] = rag_counts[e["name"]] if e["name"] == "knn_topk" else counts[e["name"]]
     log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "
         f"{json.dumps(stream_counts)} (phase 7, the streams), {json.dumps(spec_counts)} "
-        f"(phase 11, the first spec run), qgemm {json.dumps(q_counts)} "
+        f"(phase 11, the first spec run), {json.dumps(fp8_counts)} (phase 12, by form), "
+        f"qgemm {json.dumps(q_counts)} "
         f"(phase 8), qgemm generic {generic_launches} (phase 3), {json.dumps(ann_counts)} "
         f"(phase 9), {json.dumps(moe_counts)} (phase 10)")
     log(f"device times taken with CUDA events where torch.profiler saw no kernel records: "

@@ -9,14 +9,20 @@
 //
 // Layouts: q, out are [B, H, 1, D]; k_pool, v_pool are [P, KH, page, D];
 // block_tables [B, NB] int32 (entries >= P mean "unallocated"); positions [B]
-// int32; active [B] bool or null.  Types: bf16 and f32 pools (same type as q);
-// accumulation in f32.
+// int32; active [B] bool or null.  Types: f32 or bf16 q; pools of q's type,
+// bf16 under f32 q, or fp8 (e4m3fn, e5m2: the engine's kv_cache_dtype);
+// accumulation in f32.  A pool of another type than q is read as the JAX
+// function reads it (:299-304): its values widened to q's type, exactly,
+// since every bf16, e4m3 and e5m2 value is an f32 and a bf16 value.  With
+// indot (its fp8_dot, :287-297) the query is quantized to the pool's fp8
+// format first (see paged_mma_kernel).
 //
 // What bounds it on the H100: each key is used by the G = H / KH query heads
-// of one token, so the work is ~4 G operations per 2 D bytes of K/V read, far
-// below the card's ~295 operations per byte.  The bound is the live K/V bytes
-// over the 3.35 TB/s of HBM (0.0125 ms for 10,208 live keys of Llama-3-8B at
-// 8 KV heads and D = 128).
+// of one token, so the work is ~4 G operations per 2 D bytes of K/V read
+// (per D bytes from an fp8 pool), far below the card's ~295 operations per
+// byte.  The bound is the live K/V bytes over the 3.35 TB/s of HBM (0.0125
+// ms for 10,208 live keys of Llama-3-8B at 8 KV heads and D = 128 from a
+// bf16 pool, about half that from an fp8 one).
 //
 // Which keys a row reads (the same for both kernels below).  The JAX loop
 // runs logical blocks [lo, hi) from the batch's largest active position (and,
@@ -30,9 +36,10 @@
 // a row with no live key at all writes zeros).  Sentinel entries (>= P)
 // clamp to page P - 1, exactly as the JAX code clamps, and stay masked.
 //
-// Numerics: the probabilities are rounded to the pool's type before P.V, as
-// the JAX function does (`p.astype(v_blk.dtype)`, :314-317), while the
-// normaliser l sums the unrounded f32 p (:313).
+// Numerics: the probabilities are rounded to the type of the values P.V
+// takes, as the JAX function does (`p.astype(v_blk.dtype)`, :314-317): q's
+// type for the dequant read, the pool's fp8 format in-dot; the normaliser l
+// sums the unrounded f32 p (:313).
 //
 // * bf16 at D = 64 and 128 with q and the pools on 16-byte boundaries
 //   (Llama; the serving path; the caller picks the route, `mma` below):
@@ -81,7 +88,7 @@
 //      order and the split depend on the inputs alone, so two calls on the
 //      same inputs give bitwise-equal outputs.
 //
-// * f32 pools (tight checks), bf16 at D = 16, 32 and 256 (a warp's 16 x 256
+// * f32 q (tight checks) over any pool, bf16 at D = 16, 32 and 256 (a warp's 16 x 256
 //   f32 O accumulator alone would take 128 registers a lane, which spilled
 //   in the flash kernel) or inputs off 16-byte boundaries:
 //   `paged_decode_split_kernel`
@@ -95,6 +102,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -106,15 +114,63 @@ constexpr int NW = 8;     // warps per block
 constexpr int U = 4;      // key rows per warp step
 constexpr int MAXG = 8;   // query heads per KV head supported
 
+// page-pool storage formats (kernels._KV_CODE); q is KV_F32 or KV_BF16
+constexpr int KV_F32 = 0, KV_BF16 = 1, KV_E4M3 = 2, KV_E5M2 = 3;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// x as the pool's type holds it: the JAX function's p.astype(v_blk.dtype)
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
+// The fp8 conversions below convert in both formats and select (both are
+// single instructions on sm_89+), so the format stays a runtime value with
+// no branch in the unrolled loops that call them.
+
+// two fp8 values (the first in the low byte) -> f16x2, exactly: every e4m3
+// and e5m2 value is an f16 value
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t x, bool e4m3) {
+  const unsigned short v = (unsigned short)(x & 0xffffu);
+  uint32_t a, b;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(a) : "h"(v));
+  asm("cvt.rn.f16x2.e5m2x2 %0, %1;\n" : "=r"(b) : "h"(v));
+  return e4m3 ? a : b;
+}
+
+// two floats rounded to fp8 (nearest, ties to even, as torch and ml_dtypes
+// cast), the first in the low byte.  The cast saturates past the format's
+// largest value where ml_dtypes gives NaN or inf; no caller passes such a
+// value (P <= 1, a quantized query element <= the format's largest value
+// times (1 + 2^-23)).
+__device__ __forceinline__ uint32_t f32x2_to_fp8x2(float lo, float hi, bool e4m3) {
+  unsigned short a, b;
+  asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;\n" : "=h"(a) : "f"(hi), "f"(lo));
+  asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;\n" : "=h"(b) : "f"(hi), "f"(lo));
+  return e4m3 ? a : b;
+}
+
+// an fp8 value (the low byte of x) as f32, exactly
+__device__ __forceinline__ float fp8_to_f32(uint32_t x, bool e4m3) {
+  return __half2float(__ushort_as_half((unsigned short)(fp8x2_to_f16x2(x, e4m3) & 0xffffu)));
+}
+
+// x / y rounded to nearest (IEEE division's bits), given r = RN(1 / y):
+// Markstein's correction, one product and two fused multiply-adds.  An
+// IEEE division per element of a query row, at every run a block starts,
+// took about half of the in-dot read's time at Llama-3-8B's decode shape.
+__device__ __forceinline__ float div_rn(float x, float y, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, y, x), r, q);
+}
+
+// the largest finite value of an fp8 format (ml_dtypes.finfo(...).max)
+__device__ __forceinline__ float fp8_max(bool e4m3) { return e4m3 ? 448.f : 57344.f; }
+
+// x rounded to the format `fmt` holds, as f32: nothing for f32, bf16, or
+// fp8 (see f32x2_to_fp8x2)
+__device__ __forceinline__ float round_to(float x, int fmt) {
+  if (fmt == KV_F32) return x;
+  if (fmt == KV_BF16) return __bfloat162float(__float2bfloat16(x));
+  return fp8_to_f32(f32x2_to_fp8x2(x, 0.f, fmt == KV_E4M3), fmt == KV_E4M3);
 }
 
 // EPL consecutive elements of a row as f32 (vector loads where they fit)
@@ -144,6 +200,22 @@ template <>
 __device__ __forceinline__ void load_row<float, 2>(const float* p, float* out) {
   const float2 a = *reinterpret_cast<const float2*>(p);
   out[0] = a.x; out[1] = a.y;
+}
+
+// EPL consecutive pool elements at element offset `off` as f32, in the
+// pool's storage format (a warp-uniform branch; the f32 and bf16 pools take
+// the vector loads above)
+template <int EPL>
+__device__ __forceinline__ void load_pool_row(const void* pool, size_t off, int fmt, float* out) {
+  if (fmt == KV_F32) {
+    load_row<float, EPL>(static_cast<const float*>(pool) + off, out);
+  } else if (fmt == KV_BF16) {
+    load_row<__nv_bfloat16, EPL>(static_cast<const __nv_bfloat16*>(pool) + off, out);
+  } else {
+    const uint8_t* p = static_cast<const uint8_t*>(pool) + off;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) out[e] = fp8_to_f32(p[e], fmt == KV_E4M3);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -177,16 +249,22 @@ __device__ __forceinline__ void batch_range(const int* positions, const uint8_t*
 
 // (min 1 block per SM: ptxas may take up to 255 registers, which keeps the
 // larger variants from spilling)
+//
+// kfmt: the pools' storage format, q's own or a narrower one (dequant read:
+// values widened exactly to f32, P rounded to q's type); indot: the fp8
+// in-dot scheme (fp8 pools only): each query row quantized to the pool's
+// format with its scale max(amax / max, 1e-12), the scale on the f32 score
+// partials, P rounded to the pool's format.
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(NW * 32, 1)
-paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                          const T* __restrict__ v_pool,
+paged_decode_split_kernel(const T* __restrict__ q, const void* __restrict__ k_pool,
+                          const void* __restrict__ v_pool,
                           const int* __restrict__ block_tables,
                           const int* __restrict__ positions,
                           const uint8_t* __restrict__ active, float* __restrict__ part_m,
                           float* __restrict__ part_l, float* __restrict__ part_acc,
                           int B, int KH, int P, int page, int NB, int window,
-                          float scale) {
+                          float scale, int kfmt, int indot) {
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // elements per lane
   constexpr int LANES = D >= 32 ? 32 : D;     // lanes holding elements
   __shared__ float s_m[NW][G];
@@ -221,6 +299,7 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int c_hi = s_range[1];
 
   float qf[G][EPL];
+  float sscale[G];  // the score scale of each query head
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (lane_on) {
@@ -229,7 +308,22 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int e = 0; e < EPL; ++e) qf[g][e] = 0.f;
     }
+    sscale[g] = scale;
+    if (indot) {  // quantize_fp8 of the row, in its f32 arithmetic
+      float amax = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) amax = fmaxf(amax, fabsf(qf[g][e]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float qs = fmaxf(__fdiv_rn(amax, fp8_max(kfmt == KV_E4M3)), 1e-12f);
+      const float qr = __frcp_rn(qs);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qf[g][e] = round_to(div_rn(qf[g][e], qs, qr), kfmt);
+      sscale[g] = __fmul_rn(qs, scale);
+    }
   }
+  // P in q's type for the dequant read, in the pool's fp8 format in-dot
+  const int pfmt = indot ? kfmt : (sizeof(T) == 4 ? KV_F32 : KV_BF16);
   float m[G], l[G], acc[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -243,8 +337,6 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   for (int ci = c_lo; ci < c_hi; ++ci) {
     const int phys = min(max(bt[ci], 0), P - 1);
     const size_t base = ((size_t)phys * KH + kh) * page * D;
-    const T* kp = k_pool + base;
-    const T* vp = v_pool + base;
     const int first = ci * page;
     for (int t0 = warp * U; t0 < page; t0 += NW * U) {
       if (first + t0 > pos) break;  // rows run in increasing t: the rest are masked
@@ -252,8 +344,9 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (lane_on) {
-          load_row<T, EPL>(kp + (size_t)(t0 + u) * D + lane * EPL, kr[u]);
-          load_row<T, EPL>(vp + (size_t)(t0 + u) * D + lane * EPL, vr[u]);
+          const size_t off = base + (size_t)(t0 + u) * D + lane * EPL;
+          load_pool_row<EPL>(k_pool, off, kfmt, kr[u]);
+          load_pool_row<EPL>(v_pool, off, kfmt, vr[u]);
         } else {
 #pragma unroll
           for (int e = 0; e < EPL; ++e) kr[u][e] = vr[u][e] = 0.f;
@@ -278,7 +371,7 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         float mx = m[g];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          sc[u] = live[u] ? sc[u] * scale : -INFINITY;
+          sc[u] = live[u] ? sc[u] * sscale[g] : -INFINITY;
           mx = fmaxf(mx, sc[u]);
         }
         if (mx == -INFINITY) continue;  // nothing live yet (warp-uniform)
@@ -292,11 +385,14 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         }
         l[g] = alpha * l[g] + psum;
         m[g] = mx;
+        float pr[U];  // P as P.V takes it
+#pragma unroll
+        for (int u = 0; u < U; ++u) pr[u] = round_to(p[u], pfmt);
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
           float a = alpha * acc[g][e];
 #pragma unroll
-          for (int u = 0; u < U; ++u) a = fmaf(round_as(p[u], k_pool), vr[u][e], a);
+          for (int u = 0; u < U; ++u) a = fmaf(pr[u], vr[u][e], a);
           acc[g][e] = a;
         }
       }
@@ -362,22 +458,21 @@ __global__ void paged_decode_combine_kernel(const float* __restrict__ part_m,
 }
 
 template <typename T, int D>
-cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch_split(const void* q, const void* kk, const void* vv, void* o,
                          const int* bt, const int* pos, const uint8_t* active, float* pm,
                          float* pl, float* pacc, int B, int H, int KH, int P, int page,
-                         int NB, int window, cudaStream_t s) {
+                         int NB, int window, int kfmt, int indot, cudaStream_t s) {
   const int G = H / KH;
   const int n_split = NB;  // one split per logical page
   const float scale = 1.0f / sqrtf((float)D);
   dim3 grid(B, KH, n_split);
   const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
   switch (G) {
-#define DABT_CASE(GG)                                                                  \
-  case GG:                                                                             \
-    paged_decode_split_kernel<T, D, GG><<<grid, NW * 32, 0, s>>>(                      \
-        qq, kk, vv, bt, pos, active, pm, pl, pacc, B, KH, P, page, NB, window, scale); \
+#define DABT_CASE(GG)                                                                 \
+  case GG:                                                                            \
+    paged_decode_split_kernel<T, D, GG><<<grid, NW * 32, 0, s>>>(                     \
+        qq, kk, vv, bt, pos, active, pm, pl, pacc, B, KH, P, page, NB, window, scale, \
+        kfmt, indot);                                                                 \
     break;
     DABT_CASE(1)
     DABT_CASE(2)
@@ -385,7 +480,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
     case 8:
       if constexpr (D * 8 <= 1024) {
         paged_decode_split_kernel<T, D, 8><<<grid, NW * 32, 0, s>>>(
-            qq, kk, vv, bt, pos, active, pm, pl, pacc, B, KH, P, page, NB, window, scale);
+            qq, kk, vv, bt, pos, active, pm, pl, pacc, B, KH, P, page, NB, window, scale,
+            kfmt, indot);
         break;
       } else {
         return cudaErrorInvalidValue;
@@ -468,6 +564,24 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// bf16x2 -> two floats (the low half first), exactly
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+}
+
+// two fp8 values (the first in the low byte) -> bf16x2, exactly
+__device__ __forceinline__ uint32_t widen_fp8x2(uint32_t x, bool e4m3) {
+  const uint32_t h = fp8x2_to_f16x2(x, e4m3);
+  return pack_bf16(__half2float(__ushort_as_half((unsigned short)(h & 0xffffu))),
+                   __half2float(__ushort_as_half((unsigned short)(h >> 16))));
+}
+
+// two floats rounded to fp8, then as bf16x2: the in-dot scheme's
+// p.astype(v_blk.dtype) (P <= 1 never saturates)
+__device__ __forceinline__ uint32_t pack_fp8_bf16(float lo, float hi, bool e4m3) {
+  return widen_fp8x2(f32x2_to_fp8x2(lo, hi, e4m3), e4m3);
 }
 
 // element offset of (row, 16-byte chunk) in a [rows][D] bf16 tile whose
@@ -557,6 +671,50 @@ __device__ __forceinline__ bool key_live(const Item& it, int kc, int page) {
   return it.off + kc < page && kpos >= it.keys.klo && kpos <= it.keys.khi;
 }
 
+// fp8 pools: the item's K and V chunks into one ring stage as they lie in
+// the pool (D bytes a key row, 16 a thread), unswizzled; keys the row does
+// not read are zero-filled, not loaded
+template <int D>
+__device__ __forceinline__ void load_item_fp8(uint8_t* ks, uint8_t* vs, const uint8_t* k_pool,
+                                              const uint8_t* v_pool, const Item& it, int phys,
+                                              int KH, int page, int tid) {
+  constexpr int CPR = D / 16;  // 16-byte chunks per row
+  const size_t base = (((size_t)phys * KH + it.kh) * page + it.off) * D;
+#pragma unroll
+  for (int i = 0; i < CK * CPR / MT; ++i) {
+    const int idx = tid + i * MT;
+    const int row = idx / CPR;
+    const int ch = idx % CPR;
+    const bool live = key_live(it, row, page);
+    const size_t src = live ? base + (size_t)row * D + ch * 16 : 0;
+    const int bytes = live ? 16 : 0;
+    cp_async16(smem_u32(ks + row * D + ch * 16), k_pool + src, bytes);
+    cp_async16(smem_u32(vs + row * D + ch * 16), v_pool + src, bytes);
+  }
+}
+
+// fp8 pools: one ring stage's chunk widened exactly to bf16 into the
+// swizzled tile the products read (16 fp8 values a thread per 16 bytes,
+// two swizzled 16-byte chunks out)
+template <int D>
+__device__ __forceinline__ void widen_tile(const uint8_t* raw, __nv_bfloat16* dst, bool kind,
+                                           int tid) {
+  constexpr int CPR = D / 16;
+#pragma unroll
+  for (int i = 0; i < CK * CPR / MT; ++i) {
+    const int idx = tid + i * MT;
+    const int row = idx / CPR;
+    const int ch = idx % CPR;
+    const uint4 r = *reinterpret_cast<const uint4*>(raw + row * D + ch * 16);
+    *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * ch)) =
+        make_uint4(widen_fp8x2(r.x, kind), widen_fp8x2(r.x >> 16, kind),
+                   widen_fp8x2(r.y, kind), widen_fp8x2(r.y >> 16, kind));
+    *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * ch + 1)) =
+        make_uint4(widen_fp8x2(r.z, kind), widen_fp8x2(r.z >> 16, kind),
+                   widen_fp8x2(r.w, kind), widen_fp8x2(r.w >> 16, kind));
+  }
+}
+
 // the item's K and V chunks into one ring stage, swizzled; keys the row
 // does not read are zero-filled, not loaded
 template <int D>
@@ -582,24 +740,42 @@ __device__ __forceinline__ void load_item(__nv_bfloat16* ks, __nv_bfloat16* vs,
 // (min 2 blocks per SM at D = 128, as many as its 96 KB ring leaves room
 // for, 3 at D = 64: without a bound ptxas held the D = 128 variants to 168
 // registers and spilled; with it none spills)
-template <int D, int G>
+//
+// FP8: the pools hold e4m3 or e5m2 (kfmt).  The ring then holds each item
+// as it lies in the pool (1 byte a value, so half the bytes stream), and
+// after it lands the block widens it exactly to bf16 into one swizzled
+// K/V tile (`widen_tile`), which the unchanged products read through
+// `ldmatrix`: `cp.async` moves bytes without converting them, and
+// `ldmatrix.trans` takes 16-bit elements only.  The dequant read is then
+// the bf16 kernel on exact bf16 copies of the pool's values.  indot (the
+// JAX fp8_dot scheme): each query row is quantized to the pool's format in
+// the prologue (scale max(amax / max, 1e-12), JAX's f32 arithmetic), the
+// scale goes on the f32 score partials, and P is rounded to the pool's
+// format before P.V.  Both products stay bf16 `mma.sync` on the widened
+// values: an fp8 x fp8 product is exact in the f32 accumulator either way,
+// and the kernel is bound by bytes, not by the tensor cores' rate.
+template <int D, int G, bool FP8>
 __global__ void __launch_bounds__(MT, D == 128 ? 2 : 3)
-paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pool,
-                 const __nv_bfloat16* __restrict__ v_pool, __nv_bfloat16* __restrict__ out,
+paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
+                 const void* __restrict__ v_pool, __nv_bfloat16* __restrict__ out,
                  const int* __restrict__ block_tables, const int* __restrict__ positions,
                  const uint8_t* __restrict__ active, float* __restrict__ part_m,
                  float* __restrict__ part_l, float* __restrict__ part_acc,
                  int* __restrict__ counters, int B, int KH, int P, int page, int NB,
-                 int window, float scale_log2) {
+                 int window, float scale_log2, float scale, int kfmt, int indot) {
   constexpr int KSTEPS = D / 16;  // k-steps of S = Q.K^T
   constexpr int DT = D / 8;       // 8-column n-tiles of O
   constexpr int EPT = (G * D + MT - 1) / MT;  // output elements per thread in the merge
   constexpr int RB = 32;          // runs the merge takes at once
   static_assert(RB * (2 * G + 1) + 3 * G <= MW * G * D, "merge buffer");
+  constexpr int ESZ = FP8 ? 1 : 2;  // bytes of a pool value
   extern __shared__ __align__(128) unsigned char smem_bytes[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_bytes);  // [STAGES][CK][D]
-  __nv_bfloat16* Vs = Ks + STAGES * CK * D;                           // [STAGES][CK][D]
-  float* s_wo = reinterpret_cast<float*>(Vs + STAGES * CK * D);       // [MW][G][D]
+  unsigned char* Kr = smem_bytes;              // [STAGES][CK][D] pool values
+  unsigned char* Vr = Kr + STAGES * CK * D * ESZ;  // [STAGES][CK][D]
+  // FP8: the item widened to bf16, K then V, [CK][D] each, swizzled
+  __nv_bfloat16* Kw = reinterpret_cast<__nv_bfloat16*>(Vr + STAGES * CK * D * ESZ);
+  __nv_bfloat16* Vw = Kw + (FP8 ? CK * D : 0);
+  float* s_wo = reinterpret_cast<float*>(Vw + (FP8 ? CK * D : 0));  // [MW][G][D]
   float* s_wm = s_wo + MW * G * D;                                    // [MW][G]
   float* s_wl = s_wm + MW * G;                                        // [MW][G]
   int* s_items = reinterpret_cast<int*>(s_wl + MW * G);               // [B + 1]
@@ -612,6 +788,21 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int t = lane & 3;   // accumulator columns 2t, 2t + 1 within each 8
   const int H = KH * G;
   const int cpp = (page + CK - 1) / CK;  // chunks per page
+  const bool kind = kfmt == KV_E4M3;  // else e5m2 (FP8)
+
+  // the item's K and V into ring stage `stage`
+  auto load_stage = [&](int stage, const Item& it, int phys) {
+    if constexpr (FP8) {
+      load_item_fp8<D>(Kr + stage * CK * D, Vr + stage * CK * D,
+                       static_cast<const uint8_t*>(k_pool), static_cast<const uint8_t*>(v_pool),
+                       it, phys, KH, page, tid);
+    } else {
+      load_item<D>(reinterpret_cast<__nv_bfloat16*>(Kr) + stage * CK * D,
+                   reinterpret_cast<__nv_bfloat16*>(Vr) + stage * CK * D,
+                   static_cast<const __nv_bfloat16*>(k_pool),
+                   static_cast<const __nv_bfloat16*>(v_pool), it, phys, KH, page, tid);
+    }
+  };
 
   int lo, hi;
   batch_range(positions, active, B, page, NB, window, lo, hi);
@@ -666,9 +857,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (i0 + s < i1)
-      load_item<D>(Ks + s * CK * D, Vs + s * CK * D, k_pool, v_pool, first[s], first_phys[s],
-                   KH, page, tid);
+    if (i0 + s < i1) load_stage(s, first[s], first_phys[s]);
     cp_async_commit();
   }
   // the item after those, located one step early: its block-table read is
@@ -686,6 +875,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int krow = warp * 16;  // this warp's 16 keys of a chunk
 
   uint32_t qf[KSTEPS][2];  // Q's A fragments (rows g; rows g + 8 are padding)
+  float sl2 = scale_log2;  // row g's score scale, log2 units
   float oacc[DT][4];
   float m = -INFINITY;  // running max of row g, log2 units
   float l = 0.f;        // this lane's part of row g's running sum
@@ -694,9 +884,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int i = i0; i < i1; ++i) {
     const int st = (i - i0) % STAGES;
     if (i + STAGES - 1 < i1) {  // refill the stage the previous item used
-      const int ss = (i - i0 + STAGES - 1) % STAGES;
-      load_item<D>(Ks + ss * CK * D, Vs + ss * CK * D, k_pool, v_pool, nx, nx_phys, KH, page,
-                   tid);
+      load_stage((i - i0 + STAGES - 1) % STAGES, nx, nx_phys);
     }
     cp_async_commit();
     if (i + STAGES < i1) {
@@ -712,6 +900,29 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         qf[ks][0] = g < G ? *reinterpret_cast<const uint32_t*>(qr + ks * 16) : 0u;
         qf[ks][1] = g < G ? *reinterpret_cast<const uint32_t*>(qr + ks * 16 + 8) : 0u;
       }
+      if (FP8 && indot) {
+        // quantize_fp8 of row g: its four lanes hold the row's D values
+        float qv[KSTEPS][4];
+        float amax = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks) {
+          const float2 a = unpack_bf16(qf[ks][0]);
+          const float2 c = unpack_bf16(qf[ks][1]);
+          qv[ks][0] = a.x; qv[ks][1] = a.y; qv[ks][2] = c.x; qv[ks][3] = c.y;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(qv[ks][e]));
+        }
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+        const float qs = fmaxf(__fdiv_rn(amax, fp8_max(kind)), 1e-12f);
+        const float qr = __frcp_rn(qs);
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks) {
+          qf[ks][0] = pack_fp8_bf16(div_rn(qv[ks][0], qs, qr), div_rn(qv[ks][1], qs, qr), kind);
+          qf[ks][1] = pack_fp8_bf16(div_rn(qv[ks][2], qs, qr), div_rn(qv[ks][3], qs, qr), kind);
+        }
+        sl2 = __fmul_rn(qs, scale) * LOG2E;
+      }
 #pragma unroll
       for (int d = 0; d < DT; ++d) oacc[d][0] = oacc[d][1] = oacc[d][2] = oacc[d][3] = 0.f;
       m = -INFINITY;
@@ -719,8 +930,15 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    const __nv_bfloat16* Kt = Ks + st * CK * D;
-    const __nv_bfloat16* Vt = Vs + st * CK * D;
+    const __nv_bfloat16* Kt = reinterpret_cast<const __nv_bfloat16*>(Kr) + st * CK * D;
+    const __nv_bfloat16* Vt = reinterpret_cast<const __nv_bfloat16*>(Vr) + st * CK * D;
+    if constexpr (FP8) {
+      widen_tile<D>(Kr + st * CK * D, Kw, kind, tid);
+      widen_tile<D>(Vr + st * CK * D, Vw, kind, tid);
+      __syncthreads();
+      Kt = Kw;
+      Vt = Vw;
+    }
 
     // S = Q.K^T for the warp's 16 keys: n-tiles of keys krow + [0, 8) and + [8, 16)
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -741,7 +959,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int kc = krow + 8 * j + 2 * t + e;
-        x[j][e] = key_live(it, kc, page) ? s[j][e] * scale_log2 : -INFINITY;
+        x[j][e] = key_live(it, kc, page) ? s[j][e] * sl2 : -INFINITY;
         mx = fmaxf(mx, x[j][e]);
       }
     }
@@ -764,9 +982,13 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         oacc[d][0] *= alpha;
         oacc[d][1] *= alpha;
       }
-      // O += P.V over the warp's 16 keys; P rounded to bf16 here
-      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u, pack_bf16(p[1][0], p[1][1]),
-                              0u};
+      // O += P.V over the warp's 16 keys; P rounded to bf16 here (in-dot:
+      // to the pool's fp8 format, then exactly to bf16)
+      uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u, pack_bf16(p[1][0], p[1][1]), 0u};
+      if (FP8 && indot) {
+        pa[0] = pack_fp8_bf16(p[0][0], p[0][1], kind);
+        pa[2] = pack_fp8_bf16(p[1][0], p[1][1], kind);
+      }
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vf[4];
@@ -925,12 +1147,13 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #undef DABT_LOCATE
 }
 
-// dynamic shared memory of paged_mma_kernel<D, G> for B slots: the K/V ring,
-// the warps' merge buffers and the slots' item prefix
-template <int D, int G>
+// dynamic shared memory of paged_mma_kernel<D, G, FP8> for B slots: the K/V
+// ring, the widened tile pair (FP8), the warps' merge buffers and the
+// slots' item prefix
+template <int D, int G, bool FP8>
 size_t mma_smem(int B) {
-  return sizeof(__nv_bfloat16) * 2 * STAGES * CK * D + sizeof(float) * MW * G * (D + 2) +
-         sizeof(int) * (B + 1);
+  return (FP8 ? 1 : 2) * 2 * STAGES * CK * D + (FP8 ? sizeof(__nv_bfloat16) * 2 * CK * D : 0) +
+         sizeof(float) * MW * G * (D + 2) + sizeof(int) * (B + 1);
 }
 
 template <typename K>
@@ -980,13 +1203,15 @@ cudaError_t grid_blocks(K kernel, size_t smem, std::atomic<long long>* cache, in
   return cudaSuccess;
 }
 
-// paged_mma_kernel<D, G>'s grid: as many blocks as fit on the card, at most
-// one per item of every row at its most (NB pages of ceil(page / CK) chunks)
-template <int D, int G>
+// paged_mma_kernel<D, G, FP8>'s grid: as many blocks as fit on the card, at
+// most one per item of every row at its most (NB pages of ceil(page / CK)
+// chunks)
+template <int D, int G, bool FP8>
 cudaError_t mma_grid(int B, int KH, int page, int NB, int& nblk) {
   static std::atomic<long long> cache[32];
   int fit = 0;
-  cudaError_t err = grid_blocks(paged_mma_kernel<D, G>, mma_smem<D, G>(B), cache, fit);
+  cudaError_t err =
+      grid_blocks(paged_mma_kernel<D, G, FP8>, mma_smem<D, G, FP8>(B), cache, fit);
   if (err != cudaSuccess) return err;
   const long long most = (long long)B * KH * NB * ((page + CK - 1) / CK);
   nblk = (int)(most < fit ? most : fit);
@@ -999,13 +1224,13 @@ long long mma_scratch(int nblk) {
   return 2LL * nblk * G * (D + 2);
 }
 
-template <int D, int G>
+template <int D, int G, bool FP8>
 cudaError_t launch_mma_g(const void* q, const void* k, const void* v, void* o, const int* bt,
                          const int* pos, const uint8_t* active, float* scratch,
                          long long scratch_floats, int* counters, int B, int KH, int P,
-                         int page, int NB, int window, cudaStream_t s) {
+                         int page, int NB, int window, int kfmt, int indot, cudaStream_t s) {
   int nblk = 0;
-  cudaError_t err = mma_grid<D, G>(B, KH, page, NB, nblk);
+  cudaError_t err = mma_grid<D, G, FP8>(B, KH, page, NB, nblk);
   if (err != cudaSuccess) return err;
   if (scratch_floats < mma_scratch<D, G>(nblk)) return cudaErrorInvalidValue;
   // two partials per block (see run_start): maxima [2 nblk][G], sums
@@ -1013,23 +1238,23 @@ cudaError_t launch_mma_g(const void* q, const void* k, const void* v, void* o, c
   float* pm = scratch;
   float* pl = pm + 2LL * nblk * G;
   float* pacc = pl + 2LL * nblk * G;
-  paged_mma_kernel<D, G><<<nblk, MT, mma_smem<D, G>(B), s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), bt, pos, active,
-      pm, pl, pacc, counters, B, KH, P, page, NB, window, LOG2E / sqrtf((float)D));
+  paged_mma_kernel<D, G, FP8><<<nblk, MT, mma_smem<D, G, FP8>(B), s>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v, static_cast<__nv_bfloat16*>(o), bt, pos,
+      active, pm, pl, pacc, counters, B, KH, P, page, NB, window, LOG2E / sqrtf((float)D),
+      1.0f / sqrtf((float)D), kfmt, indot);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool FP8>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, const int* bt,
                        const int* pos, const uint8_t* active, float* scratch,
                        long long scratch_floats, int* counters, int B, int H, int KH, int P,
-                       int page, int NB, int window, cudaStream_t s) {
+                       int page, int NB, int window, int kfmt, int indot, cudaStream_t s) {
   switch (H / KH) {
-#define DABT_G(GG)                                                                      \
-  case GG:                                                                              \
-    return launch_mma_g<D, GG>(q, k, v, o, bt, pos, active, scratch, scratch_floats,    \
-                               counters, B, KH, P, page, NB, window, s);
+#define DABT_G(GG)                                                                         \
+  case GG:                                                                                 \
+    return launch_mma_g<D, GG, FP8>(q, k, v, o, bt, pos, active, scratch, scratch_floats,  \
+                                    counters, B, KH, P, page, NB, window, kfmt, indot, s);
     DABT_G(1)
     DABT_G(2)
     DABT_G(4)
@@ -1040,13 +1265,13 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, con
   }
 }
 
-template <int D>
+template <int D, bool FP8>
 long long mma_scratch_floats(int B, int H, int KH, int page, int NB) {
   int nblk = 0;
   switch (H / KH) {
-#define DABT_G(GG)                                                   \
-  case GG:                                                           \
-    if (mma_grid<D, GG>(B, KH, page, NB, nblk) != cudaSuccess) return -1; \
+#define DABT_G(GG)                                                             \
+  case GG:                                                                     \
+    if (mma_grid<D, GG, FP8>(B, KH, page, NB, nblk) != cudaSuccess) return -1; \
     return mma_scratch<D, GG>(nblk);
     DABT_G(1)
     DABT_G(2)
@@ -1065,31 +1290,38 @@ bool shapes_taken(int B, int H, int KH, int page, int NB) {
 }  // namespace
 
 // The f32 scratch floats that dabt_paged_decode needs for these shapes on
-// the current device, by route (mma = 1: the tensor-core kernel, bf16 at
-// D = 64 or 128; 0: the CUDA-core split + combine kernels), or -1 for
-// shapes the route does not take.
-extern "C" long long dabt_paged_decode_scratch(int mma, int B, int H, int KH, int page, int NB,
-                                               int D) {
+// the current device, by route (mma = 1: the tensor-core kernel, bf16
+// queries at D = 64 or 128 over a pool in format kfmt; 0: the CUDA-core
+// split + combine kernels), or -1 for shapes the route does not take.
+extern "C" long long dabt_paged_decode_scratch(int mma, int kfmt, int B, int H, int KH,
+                                               int page, int NB, int D) {
   if (!shapes_taken(B, H, KH, page, NB)) return -1;
   if (!mma) return (long long)B * H * NB * (D + 2);  // a partial per page split
-  if (D == 64) return mma_scratch_floats<64>(B, H, KH, page, NB);
-  if (D == 128) return mma_scratch_floats<128>(B, H, KH, page, NB);
+  const bool f8 = kfmt == KV_E4M3 || kfmt == KV_E5M2;
+  if (D == 64) return f8 ? mma_scratch_floats<64, true>(B, H, KH, page, NB)
+                         : mma_scratch_floats<64, false>(B, H, KH, page, NB);
+  if (D == 128) return f8 ? mma_scratch_floats<128, true>(B, H, KH, page, NB)
+                          : mma_scratch_floats<128, false>(B, H, KH, page, NB);
   return -1;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  active may be null (every row active).
-// mma: the route, as for dabt_paged_decode_scratch; the tensor-core kernel
-// copies 16 bytes at a time, so q and the pools must lie on 16-byte
-// boundaries for it.  scratch: scratch_floats f32, at least what
-// dabt_paged_decode_scratch asks; counters: B * KH int32, zero before the
-// first call (each call leaves them zero).  window <= 0 means no sliding
-// window.  Returns a cudaError_t (0 = success).
+// dtype: q's, 0 = float32, 1 = bfloat16.  kfmt: the pools' storage format,
+// 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn, 3 = float8_e5m2: q's own,
+// bf16 under f32 queries, or fp8.  indot = 1: the fp8 in-dot read (fp8
+// pools only); 0: the dequant read (values widened exactly to q's type, P
+// rounded to q's type).  active may be null (every row active).  mma: the
+// route, as for dabt_paged_decode_scratch; the tensor-core kernel copies 16
+// bytes at a time, so q and the pools must lie on 16-byte boundaries for it.
+// scratch: scratch_floats f32, at least what dabt_paged_decode_scratch
+// asks; counters: B * KH int32, zero before the first call (each call
+// leaves them zero).  window <= 0 means no sliding window.  Returns a
+// cudaError_t (0 = success).
 extern "C" int dabt_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                  void* out, const void* block_tables,
                                  const void* positions, const void* active, void* scratch,
                                  long long scratch_floats, void* counters, int mma, int dtype,
-                                 int B, int H, int KH, int P, int page, int NB, int D,
-                                 int window, void* stream) {
+                                 int kfmt, int indot, int B, int H, int KH, int P, int page,
+                                 int NB, int D, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* pos = static_cast<const int*>(positions);
@@ -1097,15 +1329,22 @@ extern "C" int dabt_paged_decode(const void* q, const void* k_pool, const void* 
   float* sc = static_cast<float*>(scratch);
   int* cnt = static_cast<int*>(counters);
   if (!shapes_taken(B, H, KH, page, NB)) return (int)cudaErrorInvalidValue;
+  const bool f8 = kfmt == KV_E4M3 || kfmt == KV_E5M2;
+  if (kfmt < KV_F32 || kfmt > KV_E5M2 || (indot && !f8) || (dtype == 1 && kfmt == KV_F32) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (mma) {
     if (dtype != 1 || ((uintptr_t)q | (uintptr_t)k_pool | (uintptr_t)v_pool) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    if (D == 64)
-      return (int)launch_mma<64>(q, k_pool, v_pool, out, bt, pos, act, sc, scratch_floats, cnt,
-                                 B, H, KH, P, page, NB, window, s);
-    if (D == 128)
-      return (int)launch_mma<128>(q, k_pool, v_pool, out, bt, pos, act, sc, scratch_floats, cnt,
-                                  B, H, KH, P, page, NB, window, s);
+#define DABT_M(DD, F8)                                                                      \
+  if (D == DD && f8 == F8)                                                                  \
+    return (int)launch_mma<DD, F8>(q, k_pool, v_pool, out, bt, pos, act, sc, scratch_floats, \
+                                   cnt, B, H, KH, P, page, NB, window, kfmt, indot, s);
+    DABT_M(64, false)
+    DABT_M(64, true)
+    DABT_M(128, false)
+    DABT_M(128, true)
+#undef DABT_M
     return (int)cudaErrorInvalidValue;
   }
   const long long n = (long long)B * H * NB;
@@ -1116,7 +1355,7 @@ extern "C" int dabt_paged_decode(const void* q, const void* k_pool, const void* 
 #define DABT_D(TT, CODE, DD)                                                               \
   if (dtype == CODE && D == DD)                                                            \
     return (int)launch_split<TT, DD>(q, k_pool, v_pool, out, bt, pos, act, pm, pl, pacc, \
-                                     B, H, KH, P, page, NB, window, s);
+                                     B, H, KH, P, page, NB, window, kfmt, indot, s);
   DABT_D(float, 0, 16)
   DABT_D(float, 0, 32)
   DABT_D(float, 0, 64)

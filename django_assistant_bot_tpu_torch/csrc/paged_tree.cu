@@ -33,9 +33,13 @@
 // with lengths == 0 reads no page; its nodes attend to their ancestors in
 // the tree only.
 //
-// Numerics: the probabilities are rounded to the inputs' type before P.V,
-// as the JAX function does (`p.astype(v_blk.dtype)`, :391, :420), while the
-// normaliser l sums the unrounded f32 p.
+// Pools of another type than q (bf16 under f32 q, or fp8 e4m3fn / e5m2: the
+// engine's kv_cache_dtype) are read as the JAX function reads them (:377-
+// 393): each value widened exactly to q's type.
+//
+// Numerics: the probabilities are rounded to q's type before P.V, as the
+// JAX function does (`p.astype(v_blk.dtype)` on values in q's type, :391,
+// :420), while the normaliser l sums the unrounded f32 p.
 //
 // * bf16 at D = 64 and 128 with every tensor on a 16-byte boundary (Llama;
 //   the serving path): `paged_tree_mma_kernel`, flash prefill's structure
@@ -72,6 +76,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -85,16 +90,38 @@ constexpr int MAX_SPLIT = 16;   // blocks one row group's prefix is cut between
 constexpr int MAX_WARPS = 8;    // mma kernel: warps of 16 query rows per block
 constexpr int CC_WARPS = 4;     // CUDA-core kernel: warps (query rows) per block
 constexpr float LOG2E = 1.4426950408889634f;
+// page-pool storage formats (kernels._KV_CODE)
+constexpr int KV_F32 = 0, KV_BF16 = 1, KV_E4M3 = 2, KV_E5M2 = 3;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// x as the inputs' type holds it: the JAX function's p.astype(v.dtype)
+// x as q's type holds it: the JAX function's p.astype(v.dtype), v being a
+// page widened to q's type or the tree's own values
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// two fp8 values (the first in the low byte) -> f16x2, exactly: every e4m3
+// and e5m2 value is an f16 value.  Both conversions and a select (each one
+// instruction on sm_89+), so the format is a runtime value with no branch.
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t x, bool e4m3) {
+  const unsigned short v = (unsigned short)(x & 0xffffu);
+  uint32_t a, b;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(a) : "h"(v));
+  asm("cvt.rn.f16x2.e5m2x2 %0, %1;\n" : "=r"(b) : "h"(v));
+  return e4m3 ? a : b;
+}
+
+// pool value i as f32, in the pool's storage format (exact for each)
+__device__ __forceinline__ float pool_val(const void* pool, size_t i, int fmt) {
+  if (fmt == KV_F32) return static_cast<const float*>(pool)[i];
+  if (fmt == KV_BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(pool)[i]);
+  const uint32_t h = fp8x2_to_f16x2(static_cast<const uint8_t*>(pool)[i], fmt == KV_E4M3);
+  return __half2float(__ushort_as_half((unsigned short)(h & 0xffffu)));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -126,14 +153,16 @@ __device__ __forceinline__ size_t pool_row(const int* bt_row, int kpos, int kh, 
 
 // ------------------------------------------------------------------ f32, CUDA cores
 
+// (pools in format kfmt: q's type, bf16 under f32 q, or fp8; the tree's
+// own K/V in q's type)
 template <typename T, int D>
 __global__ void __launch_bounds__(CC_WARPS * 32)
-paged_tree_cc_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                     const T* __restrict__ v_pool, const int* __restrict__ block_tables,
+paged_tree_cc_kernel(const T* __restrict__ q, const void* __restrict__ k_pool,
+                     const void* __restrict__ v_pool, const int* __restrict__ block_tables,
                      const int* __restrict__ lengths, const T* __restrict__ tree_k,
                      const T* __restrict__ tree_v, const uint8_t* __restrict__ anc,
                      const int* __restrict__ depths, T* __restrict__ out, int H, int KH,
-                     int T_, int P, int page, int NB, int window, float scale) {
+                     int T_, int P, int page, int NB, int window, float scale, int kfmt) {
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // output columns per lane
   constexpr int LANES = D >= 32 ? 32 : D;    // lanes holding columns
   __shared__ float s_q[CC_WARPS][D];
@@ -160,8 +189,9 @@ paged_tree_cc_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
 
   // one online-softmax step over 32 keys: lane j scores key j (s, keep);
-  // row_of(j) is the element offset of key j's V row
-  auto step = [&](float s, bool keep, const T* vbase, size_t my_row) {
+  // my_row is the element offset of this lane's key's V row, in the pool
+  // (prefix) or in the tree's V
+  auto step = [&](float s, bool keep, bool prefix, size_t my_row) {
     const float mx = warp_max(keep ? s : -INFINITY);
     const float m_new = fmaxf(m, mx);
     const float mref = m_new == -INFINITY ? 0.f : m_new;
@@ -173,12 +203,15 @@ paged_tree_cc_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
     const unsigned live = __ballot_sync(0xffffffffu, keep);
     for (int j = 0; j < 32; ++j) {
-      const float pj = round_as(__shfl_sync(0xffffffffu, p, j), vbase);
+      const float pj = round_as(__shfl_sync(0xffffffffu, p, j), q);
       const unsigned long long rj = __shfl_sync(0xffffffffu, (unsigned long long)my_row, j);
       if (!((live >> j) & 1u)) continue;
       if (lane < LANES) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pj, to_f32(vbase[rj + lane + 32 * e]), acc[e]);
+        for (int e = 0; e < EPL; ++e) {
+          const size_t vi = rj + lane + 32 * e;
+          acc[e] = fmaf(pj, prefix ? pool_val(v_pool, vi, kfmt) : to_f32(tree_v[vi]), acc[e]);
+        }
       }
     }
   };
@@ -190,12 +223,11 @@ paged_tree_cc_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     size_t row = 0;
     if (keep) {
       row = pool_row(bt_row, kpos, kh, KH, P, page, D);
-      const T* kr = k_pool + row;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(s_q[warp][d], to_f32(kr[d]), s);
+      for (int d = 0; d < D; ++d) s = fmaf(s_q[warp][d], pool_val(k_pool, row + d, kfmt), s);
       s *= scale;
     }
-    step(s, keep, v_pool, row);
+    step(s, keep, true, row);
   }
   // the tree: one more step under the ancestor mask (T <= 32 here, or two)
   for (int ubase = 0; ubase < T_; ubase += 32) {
@@ -210,7 +242,7 @@ paged_tree_cc_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       for (int d = 0; d < D; ++d) s = fmaf(s_q[warp][d], to_f32(kr[d]), s);
       s *= scale;
     }
-    step(s, keep, tree_v, row);
+    step(s, keep, false, row);
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
   T* orow = out + ((size_t)bk * R + r) * D;
@@ -224,13 +256,14 @@ template <typename T, int D>
 cudaError_t launch_cc(const void* q, const void* k_pool, const void* v_pool, const int* bt,
                       const int* lengths, const void* tree_k, const void* tree_v,
                       const uint8_t* anc, const int* depths, void* out, int B, int H, int KH,
-                      int T_, int P, int page, int NB, int window, cudaStream_t stream) {
+                      int T_, int P, int page, int NB, int window, int kfmt,
+                      cudaStream_t stream) {
   const int R = (H / KH) * T_;
   dim3 grid(B * KH, (R + CC_WARPS - 1) / CC_WARPS);
   paged_tree_cc_kernel<T, D><<<grid, CC_WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      bt, lengths, static_cast<const T*>(tree_k), static_cast<const T*>(tree_v), anc, depths,
-      static_cast<T*>(out), H, KH, T_, P, page, NB, window, 1.0f / sqrtf((float)D));
+      static_cast<const T*>(q), k_pool, v_pool, bt, lengths, static_cast<const T*>(tree_k),
+      static_cast<const T*>(tree_v), anc, depths, static_cast<T*>(out), H, KH, T_, P, page, NB,
+      window, 1.0f / sqrtf((float)D), kfmt);
   return cudaGetLastError();
 }
 
@@ -287,6 +320,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two fp8 values (the first in the low byte) -> bf16x2, exactly
+__device__ __forceinline__ uint32_t widen_fp8x2(uint32_t x, bool e4m3) {
+  const uint32_t h = fp8x2_to_f16x2(x, e4m3);
+  return pack_bf16(__half2float(__ushort_as_half((unsigned short)(h & 0xffffu))),
+                   __half2float(__ushort_as_half((unsigned short)(h >> 16))));
+}
+
 // element offset of (row, 16-byte chunk) in a [rows][D] bf16 tile whose
 // chunks are swizzled by XOR with row % 8
 template <int D>
@@ -339,17 +379,67 @@ __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* Kd, __nv_bfloat16* V
   }
 }
 
+// fp8 pools: one prefix tile's K and V rows [kbase, kbase + 64) as they lie
+// in the pool (D bytes a key, 16 a thread), unswizzled, through the block
+// table; rows past the live range are zero-filled
 template <int D>
+__device__ __forceinline__ void load_kv_tile_fp8(uint8_t* Kd, uint8_t* Vd, const uint8_t* k_pool,
+                                                 const uint8_t* v_pool, const int* bt_row,
+                                                 int kbase, int kend, int kh, int KH, int P,
+                                                 int page, int tid, int nthreads) {
+  constexpr int CPR = D / 16;
+  for (int idx = tid; idx < BK * CPR; idx += nthreads) {
+    const int row = idx / CPR;
+    const int ch = idx - row * CPR;
+    const int key = kbase + row;
+    const int o = row * D + ch * 16;
+    if (key < kend) {
+      const size_t src = pool_row(bt_row, key, kh, KH, P, page, D) + ch * 16;
+      cp_async16(smem_u32(Kd + o), k_pool + src);
+      cp_async16(smem_u32(Vd + o), v_pool + src);
+    } else {
+      *reinterpret_cast<uint4*>(Kd + o) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(Vd + o) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// fp8 pools: a landed tile widened exactly to bf16 into the swizzled stage
+// the products read (16 values a thread per 16 bytes)
+template <int D>
+__device__ __forceinline__ void widen_tile(const uint8_t* raw, __nv_bfloat16* dst, bool kind,
+                                           int tid, int nthreads) {
+  constexpr int CPR = D / 16;
+  for (int idx = tid; idx < BK * CPR; idx += nthreads) {
+    const int row = idx / CPR;
+    const int ch = idx - row * CPR;
+    const uint4 r = *reinterpret_cast<const uint4*>(raw + row * D + ch * 16);
+    *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * ch)) =
+        make_uint4(widen_fp8x2(r.x, kind), widen_fp8x2(r.x >> 16, kind),
+                   widen_fp8x2(r.y, kind), widen_fp8x2(r.y >> 16, kind));
+    *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * ch + 1)) =
+        make_uint4(widen_fp8x2(r.z, kind), widen_fp8x2(r.z >> 16, kind),
+                   widen_fp8x2(r.w, kind), widen_fp8x2(r.w >> 16, kind));
+  }
+}
+
+// FP8: the pools hold e4m3 or e5m2 (kfmt).  Prefix tiles then land as they
+// lie in the pool (half the bytes of bf16) in a second double buffer, and
+// once landed the block widens them exactly to bf16 into the stage the
+// unchanged products read (`cp.async` does not convert, `ldmatrix.trans`
+// takes 16-bit elements only); the tree tile, in q's type, lands in the
+// stage directly.  This is the JAX function's dequant read (:377-393): the
+// tree read has no in-dot scheme there.
+template <int D, bool FP8>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-paged_tree_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k_pool,
-                      const __nv_bfloat16* __restrict__ v_pool,
+paged_tree_mma_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
+                      const void* __restrict__ v_pool,
                       const int* __restrict__ block_tables, const int* __restrict__ lengths,
                       const __nv_bfloat16* __restrict__ tree_k,
                       const __nv_bfloat16* __restrict__ tree_v, const uint8_t* __restrict__ anc,
                       const int* __restrict__ depths, __nv_bfloat16* __restrict__ out,
                       float* __restrict__ scratch, int* __restrict__ counters, int H, int KH,
-                      int T_, int P, int page, int NB, int window, float scale_log2) {
+                      int T_, int P, int page, int NB, int window, float scale_log2, int kfmt) {
   constexpr int KSTEPS = D / 16;  // k-steps of S = Q.K^T
   constexpr int NT = BK / 8;      // 8-key n-tiles of S
   constexpr int DT = D / 8;       // 8-column n-tiles of O
@@ -363,7 +453,10 @@ paged_tree_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = Vs + 2 * BK * D;                                // [RB][D]
   uint8_t* s_anc = reinterpret_cast<uint8_t*>(Qs + RB * D);           // [T][T]
   int* s_dep = reinterpret_cast<int*>(s_anc + MAX_T * MAX_T);         // [T]
+  uint8_t* Kr = reinterpret_cast<uint8_t*>(s_dep + MAX_T);            // FP8: [2][BK][D]
+  uint8_t* Vr = Kr + 2 * BK * D;                                      // FP8: [2][BK][D]
   __shared__ int s_last;
+  const bool kind = kfmt == KV_E4M3;  // else e5m2 (FP8)
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -396,8 +489,16 @@ paged_tree_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const bool tree = i >= t_hi - t_lo;
     const int kbase = tree ? 0 : klo + (t_lo + i) * BK;
     const int kend = tree ? T_ : klen;
-    load_kv_tile<D>(Ks + stage * BK * D, Vs + stage * BK * D, k_pool, v_pool, bt_row, tk, tv,
-                    tree, kbase, kend, kh, KH, P, page, tid, nthreads);
+    if (FP8 && !tree) {
+      load_kv_tile_fp8<D>(Kr + stage * BK * D, Vr + stage * BK * D,
+                          static_cast<const uint8_t*>(k_pool), static_cast<const uint8_t*>(v_pool),
+                          bt_row, kbase, kend, kh, KH, P, page, tid, nthreads);
+    } else {
+      load_kv_tile<D>(Ks + stage * BK * D, Vs + stage * BK * D,
+                      FP8 ? nullptr : static_cast<const __nv_bfloat16*>(k_pool),
+                      FP8 ? nullptr : static_cast<const __nv_bfloat16*>(v_pool), bt_row, tk, tv,
+                      tree, kbase, kend, kh, KH, P, page, tid, nthreads);
+    }
   };
 
   // the block's query rows (zero past R), the tree's mask and depths
@@ -445,6 +546,14 @@ paged_tree_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
+    const bool tree = i >= t_hi - t_lo;
+    if constexpr (FP8) {
+      if (!tree) {  // block-uniform
+        widen_tile<D>(Kr + st * BK * D, Ks + st * BK * D, kind, tid, nthreads);
+        widen_tile<D>(Vr + st * BK * D, Vs + st * BK * D, kind, tid, nthreads);
+        __syncthreads();
+      }
+    }
     if (i == 0) {
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks)
@@ -454,7 +563,6 @@ paged_tree_mma_kernel(const __nv_bfloat16* __restrict__ q,
       qpa = len + s_dep[ta];
       qpb = len + s_dep[tb];
     }
-    const bool tree = i >= t_hi - t_lo;
     const int kbase = tree ? 0 : klo + (t_lo + i) * BK;
     const __nv_bfloat16* Kt = Ks + st * BK * D;
     const __nv_bfloat16* Vt = Vs + st * BK * D;
@@ -651,47 +759,52 @@ cudaError_t allow_smem(K kernel, size_t smem, std::atomic<uint32_t>& done) {
   return err;
 }
 
-template <int D>
+// the K/V stages, the block's query rows, the tree's mask and depths, and
+// (FP8) the double buffer of raw prefix tiles
+template <int D, bool FP8>
 size_t mma_smem(int warps) {
   return sizeof(__nv_bfloat16) * (4 * BK * D + 16 * warps * D) + MAX_T * MAX_T +
-         sizeof(int) * MAX_T;
+         sizeof(int) * MAX_T + (FP8 ? 4 * BK * D : 0);
 }
 
-template <int D>
+template <int D, bool FP8>
 cudaError_t launch_mma(const void* q, const void* k_pool, const void* v_pool, const int* bt,
                        const int* lengths, const void* tree_k, const void* tree_v,
                        const uint8_t* anc, const int* depths, void* out, float* scratch,
                        int* counters, int B, int H, int KH, int T_, int P, int page, int NB,
-                       int window, int nsplit, int warps, cudaStream_t stream) {
+                       int window, int nsplit, int warps, int kfmt, cudaStream_t stream) {
   const int R = (H / KH) * T_;
   const int rc = (R + 16 * warps - 1) / (16 * warps);
   static std::atomic<uint32_t> smem_set{0};
-  cudaError_t err = allow_smem(paged_tree_mma_kernel<D>, mma_smem<D>(MAX_WARPS), smem_set);
+  cudaError_t err =
+      allow_smem(paged_tree_mma_kernel<D, FP8>, mma_smem<D, FP8>(MAX_WARPS), smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid(B * KH, nsplit, rc);
-  paged_tree_mma_kernel<D><<<grid, warps * 32, mma_smem<D>(warps), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool), bt, lengths,
+  paged_tree_mma_kernel<D, FP8><<<grid, warps * 32, mma_smem<D, FP8>(warps), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k_pool, v_pool, bt, lengths,
       static_cast<const __nv_bfloat16*>(tree_k), static_cast<const __nv_bfloat16*>(tree_v), anc,
       depths, static_cast<__nv_bfloat16*>(out), scratch, counters, H, KH, T_, P, page, NB,
-      window, LOG2E / sqrtf((float)D));
+      window, LOG2E / sqrtf((float)D), kfmt);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// mma: 1 = the tensor-core kernel (bf16, D 64 or 128, 16-byte aligned), 0 =
-// the CUDA-core kernel.  dtype: 0 = float32, 1 = bfloat16.  window <= 0
-// means no window.  nsplit (1..16) and warps (1..8) are the mma kernel's
-// work split (kernels.paged_tree_plan); with nsplit > 1, scratch holds
-// B * KH * nsplit * (H / KH) * T * (D + 2) floats and counters B * KH *
-// ceil((H / KH) * T / (16 * warps)) zeroed ints, left at zero.  Returns a
-// cudaError_t (0 = success); shapes are validated by the caller.
+// mma: 1 = the tensor-core kernel (bf16 q, D 64 or 128, 16-byte aligned), 0
+// = the CUDA-core kernel.  dtype: q's, 0 = float32, 1 = bfloat16.  kfmt: the
+// pools' storage format, 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn, 3 =
+// float8_e5m2 (q's own, bf16 under f32 q, or fp8; read widened to q's
+// type); the tree's K/V are in q's type.  window <= 0 means no window.
+// nsplit (1..16) and warps (1..8) are the mma kernel's work split
+// (kernels.paged_tree_plan); with nsplit > 1, scratch holds B * KH * nsplit
+// * (H / KH) * T * (D + 2) floats and counters B * KH * ceil((H / KH) * T /
+// (16 * warps)) zeroed ints, left at zero.  Returns a cudaError_t (0 =
+// success); shapes are validated by the caller.
 extern "C" int dabt_paged_tree(const void* q, const void* k_pool, const void* v_pool,
                                const void* block_tables, const void* lengths,
                                const void* tree_k, const void* tree_v, const void* anc,
                                const void* depths, void* out, void* scratch, void* counters,
-                               int mma, int dtype, int B, int H, int KH, int T_, int P,
+                               int mma, int dtype, int kfmt, int B, int H, int KH, int T_, int P,
                                int page, int NB, int D, int window, int nsplit, int warps,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -701,6 +814,8 @@ extern "C" int dabt_paged_tree(const void* q, const void* k_pool, const void* v_
   const int* dep = static_cast<const int*>(depths);
   if (KH <= 0 || H % KH != 0 || T_ < 1 || T_ > MAX_T || P < 1 || page < 1 || NB < 1)
     return (int)cudaErrorInvalidValue;
+  if (kfmt < KV_F32 || kfmt > KV_E5M2 || (dtype == 1 && kfmt == KV_F32))
+    return (int)cudaErrorInvalidValue;
   if (mma) {
     if (dtype != 1 || nsplit < 1 || nsplit > MAX_SPLIT || warps < 1 || warps > MAX_WARPS)
       return (int)cudaErrorInvalidValue;
@@ -708,18 +823,23 @@ extern "C" int dabt_paged_tree(const void* q, const void* k_pool, const void* v_
       return (int)cudaErrorInvalidValue;
     float* sc = static_cast<float*>(scratch);
     int* ct = static_cast<int*>(counters);
-    if (D == 64)
-      return (int)launch_mma<64>(q, k_pool, v_pool, bt, len, tree_k, tree_v, an, dep, out, sc,
-                                 ct, B, H, KH, T_, P, page, NB, window, nsplit, warps, s);
-    if (D == 128)
-      return (int)launch_mma<128>(q, k_pool, v_pool, bt, len, tree_k, tree_v, an, dep, out, sc,
-                                  ct, B, H, KH, T_, P, page, NB, window, nsplit, warps, s);
+    const bool f8 = kfmt == KV_E4M3 || kfmt == KV_E5M2;
+#define DABT_M(DIM, F8)                                                                      \
+  if (D == DIM && f8 == F8)                                                                  \
+    return (int)launch_mma<DIM, F8>(q, k_pool, v_pool, bt, len, tree_k, tree_v, an, dep, out, \
+                                    sc, ct, B, H, KH, T_, P, page, NB, window, nsplit, warps, \
+                                    kfmt, s);
+    DABT_M(64, false)
+    DABT_M(64, true)
+    DABT_M(128, false)
+    DABT_M(128, true)
+#undef DABT_M
     return (int)cudaErrorInvalidValue;
   }
 #define DABT_CC(TYPE, DIM)                                                                  \
   if (D == DIM)                                                                             \
     return (int)launch_cc<TYPE, DIM>(q, k_pool, v_pool, bt, len, tree_k, tree_v, an, dep, out, \
-                                     B, H, KH, T_, P, page, NB, window, s);
+                                     B, H, KH, T_, P, page, NB, window, kfmt, s);
   if (dtype == 0) {
     DABT_CC(float, 16) DABT_CC(float, 32) DABT_CC(float, 64) DABT_CC(float, 128)
     DABT_CC(float, 256)

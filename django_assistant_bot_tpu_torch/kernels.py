@@ -73,6 +73,11 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# page-pool storage formats of the paged kernels (csrc/paged_decode.cu,
+# paged_tree.cu): f32 and bf16 as _DTYPE_CODE, then the two fp8 formats
+_KV_CODE = {**_DTYPE_CODE, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+_KV_NAME = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3",
+            torch.float8_e5m2: "e5m2"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,9 +85,9 @@ _ARGTYPES = {
     # q, k, v, o, dtype, B, H, KH, Sq, Sk, D, causal, window, stream
     "flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pool, v_pool, out, block_tables, positions, active, scratch,
-    # scratch_floats, counters, mma, dtype, B, H, KH, P, page, NB, D, window,
-    # stream
-    "paged_decode": [_P] * 8 + [ctypes.c_longlong, _P] + [_I] * 10 + [_P],
+    # scratch_floats, counters, mma, dtype, kv format, in-dot, B, H, KH, P,
+    # page, NB, D, window, stream
+    "paged_decode": [_P] * 8 + [ctypes.c_longlong, _P] + [_I] * 12 + [_P],
     # index, queries, valid, out_scores, out_ids, scratch, cand, N, D, Q, k,
     # cap, stream
     "knn_topk": [_P] * 7 + [_I] * 4 + [ctypes.c_longlong, _P, _I, _P],
@@ -107,15 +112,16 @@ _ARGTYPES = {
     # stream
     "moe_gemm": [_P] * 6 + [_I] * 7 + [_P],
     # q, k_pool, v_pool, block_tables, lengths, tree_k, tree_v, anc, depths,
-    # out, scratch, counters, mma, dtype, B, H, KH, T, P, page, NB, D,
-    # window, nsplit, warps, stream
-    "paged_tree": [_P] * 12 + [_I] * 13 + [_P],
+    # out, scratch, counters, mma, dtype, kv format, B, H, KH, T, P, page,
+    # NB, D, window, nsplit, warps, stream
+    "paged_tree": [_P] * 12 + [_I] * 14 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
     "paged_decode": {
-        # mma, B, H, KH, page, NB, D -> f32 scratch floats, -1 if not taken
-        "dabt_paged_decode_scratch": ([_I] * 7, ctypes.c_longlong),
+        # mma, kv format, B, H, KH, page, NB, D -> f32 scratch floats, -1 if
+        # not taken
+        "dabt_paged_decode_scratch": ([_I] * 8, ctypes.c_longlong),
     },
     "qgemm": {
         # x, w0-w2, scale0-scale2, y0-y2, n0-n2, members, bits, M, K, group,
@@ -134,12 +140,18 @@ PAGED_MMA_HEAD_DIMS = (64, 128)
 # csrc/knn_topk.cu); a larger k sorts in a global buffer the caller gives
 KNN_SORT_CAP = 16384
 
-# paged decode launches by route: "mma" (the tensor-core kernel) or
-# "cuda_core" (split + combine); counted beside LAUNCHES, so a run can show
-# which kernel its paged calls took
-PAGED_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
+# the pool read of each paged launch: "native" (the pool in q's dtype),
+# "<format>/dequant" (a bf16 or fp8 pool widened to q's dtype in the kernel)
+# or "<format>/in_dot" (the fp8 in-dot scheme)
+PAGED_READS = ("native", "bf16/dequant", "e4m3/dequant", "e5m2/dequant", "e4m3/in_dot",
+               "e5m2/in_dot")
+# paged decode launches by route and read, "<route>:<read>": the route "mma"
+# (the tensor-core kernel) or "cuda_core" (split + combine); counted beside
+# LAUNCHES, so a run can show which kernel and read its paged calls took
+# (:func:`by_route` sums them per route)
+PAGED_FORMS: Dict[str, int] = {f"{r}:{m}": 0 for r in ("mma", "cuda_core") for m in PAGED_READS}
 
-# qgemm launches by weight format, counted beside LAUNCHES like PAGED_ROUTES
+# qgemm launches by weight format, counted beside LAUNCHES like PAGED_FORMS
 QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
 # and by route (:func:`qgemm_route`): "stream" (the decode kernel, M <= 64,
 # one launch for up to three members; also the tied int8 head), "mma" (the
@@ -153,9 +165,11 @@ QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 
 MOE_GEMM_EPILOGUES: Dict[str, int] = {"gate_up": 0, "down": 0}
 MOE_GEMM_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
 MOE_GEMM_TILE = 64
-# paged tree attention launches by route: "mma" (the tensor-core kernel:
-# bf16 at PAGED_MMA_HEAD_DIMS on 16-byte boundaries) or "cuda_core"
-PAGED_TREE_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
+# paged tree attention launches by route and read, as PAGED_FORMS: "mma"
+# (the tensor-core kernel: bf16 at PAGED_MMA_HEAD_DIMS on 16-byte boundaries)
+# or "cuda_core" (the tree read has no in-dot scheme)
+PAGED_TREE_FORMS: Dict[str, int] = {f"{r}:{m}": 0 for r in ("mma", "cuda_core")
+                                    for m in PAGED_READS if "in_dot" not in m}
 # the tensor-core tree kernel's work split: the most blocks one (slot, KV
 # head) row group's prefix is cut between, and the most warps (16 query rows
 # each) a block
@@ -164,9 +178,9 @@ PAGED_TREE_MAX_WARPS = 8
 # a kernel's launches by kind, for the kernels that count them
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
-    "paged_decode": PAGED_ROUTES, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
+    "paged_decode": PAGED_FORMS, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
     "moe_gemm": MOE_GEMM_EPILOGUES, "moe_gemm_route": MOE_GEMM_ROUTES,
-    "paged_tree": PAGED_TREE_ROUTES,
+    "paged_tree": PAGED_TREE_FORMS,
 }
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
 QGEMM_TILE_N = 64
@@ -279,6 +293,15 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+def by_route(forms: Dict[str, int]) -> Dict[str, int]:
+    """Launches per route ("mma", "cuda_core") of a count keyed
+    "<route>:<read>" (``PAGED_FORMS``, ``PAGED_TREE_FORMS``)."""
+    routes = {"mma": 0, "cuda_core": 0}
+    for form, n in forms.items():
+        routes[form.split(":", 1)[0]] += n
+    return routes
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -389,10 +412,18 @@ def flash_prefill(
     _check("flash_prefill", err)
 
 
+def paged_read(q_dtype: torch.dtype, kv_dtype: torch.dtype, fp8_dot: bool = False) -> str:
+    """The pool read of a paged launch, as ``PAGED_READS`` names it."""
+    if kv_dtype == q_dtype:
+        return "native"
+    return f"{_KV_NAME[kv_dtype]}/{'in_dot' if fp8_dot else 'dequant'}"
+
+
 def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
     """The f32 scratch floats a paged decode call needs on ``device``, as the
-    library reports them for ``shapes`` = (mma, B, H, KH, page, NB, D)
-    (cached per device and shapes)."""
+    library reports them for ``shapes`` = (mma, kv format, B, H, KH, page,
+    NB, D) (cached per device and shapes; the format's code as
+    ``_KV_CODE``)."""
     key = (device.index, *shapes)
     need = _paged_need.get(key)
     if need is None:
@@ -401,7 +432,8 @@ def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
             need = _libs["paged_decode"].dabt_paged_decode_scratch(*shapes)
         if need < 0:
             raise RuntimeError(
-                f"paged decode kernel does not take (mma, B, H, KH, page, NB, D) = {shapes}"
+                f"paged decode kernel does not take (mma, kv format, B, H, KH, page, NB, D) = "
+                f"{shapes}"
             )
         _paged_need[key] = need
     return need
@@ -437,24 +469,26 @@ def _scratch_buffers(kernel: str, device: torch.device, stream: int, need: int, 
 def paged_decode(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, out: torch.Tensor,
     block_tables: torch.Tensor, positions: torch.Tensor, active: Optional[torch.Tensor],
-    *, window: Optional[int],
+    *, window: Optional[int], fp8_dot: bool = False,
 ) -> None:
     """Launch the paged decode kernel; the caller validated the arguments.
-    bf16 at ``PAGED_MMA_HEAD_DIMS`` with q and the pools on 16-byte
-    boundaries takes the tensor-core kernel, everything else the CUDA-core
-    split and combine kernels; ``PAGED_ROUTES`` counts which.  The f32
-    scratch (partials; its size is the library's answer for the shapes) and
-    the counters, one per (slot, KV head), are kept per device and stream,
-    not allocated per call."""
+    bf16 queries at ``PAGED_MMA_HEAD_DIMS`` with q and the pools on 16-byte
+    boundaries take the tensor-core kernel (over a bf16 or fp8 pool),
+    everything else the CUDA-core split and combine kernels;
+    ``PAGED_FORMS`` counts the route and the pool read (:func:`paged_read`).
+    The f32 scratch (partials; its size is the library's answer for the
+    shapes) and the counters, one per (slot, KV head), are kept per device
+    and stream, not allocated per call."""
     B, H, _, D = q.shape
     P, KH, page, _ = k_pool.shape
     NB = block_tables.shape[1]
     mma = (q.dtype == torch.bfloat16 and D in PAGED_MMA_HEAD_DIMS
            and not any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)))
+    kfmt = _KV_CODE[k_pool.dtype]
     stream = _stream(q)
     fn = _fn("paged_decode")
     with torch.cuda.device(q.device):
-        shapes = (int(mma), B, H, KH, page, NB, D)
+        shapes = (int(mma), kfmt, B, H, KH, page, NB, D)
         scratch, counters = _scratch_buffers(
             "paged_decode", q.device, stream, paged_scratch_floats(q.device, shapes), B * KH
         )
@@ -463,10 +497,11 @@ def paged_decode(
             block_tables.data_ptr(), positions.data_ptr(),
             active.data_ptr() if active is not None else None,
             scratch.data_ptr(), scratch.numel(), counters.data_ptr(), int(mma),
-            dtype_code(q.dtype), B, H, KH, P, page, NB, D,
+            dtype_code(q.dtype), kfmt, int(fp8_dot), B, H, KH, P, page, NB, D,
             int(window) if window is not None else 0, stream,
         )
-    _count("paged_decode", "mma" if mma else "cuda_core")
+    route = "mma" if mma else "cuda_core"
+    _count("paged_decode", f"{route}:{paged_read(q.dtype, k_pool.dtype, fp8_dot)}")
     _check("paged_decode", err)
 
 
@@ -971,10 +1006,11 @@ def paged_tree(
     """Launch the paged tree attention kernel (``csrc/paged_tree.cu``); the
     caller (``ops.attention.paged_tree_attention``) validated the arguments.
     bf16 at ``PAGED_MMA_HEAD_DIMS`` with every operand on a 16-byte boundary
-    takes the tensor-core kernel (``PAGED_TREE_ROUTES`` counts the route),
+    takes the tensor-core kernel,
     split by :func:`paged_tree_plan`; its f32 partials and counters come
     from the per-(device, stream) scratch, like paged decode's.  Everything
-    else takes the CUDA-core kernel."""
+    else takes the CUDA-core kernel.  The pools may be bf16 or fp8 (widened
+    to q's dtype in the kernel); ``PAGED_TREE_FORMS`` counts route and read."""
     B, H, T, D = q.shape
     P, KH, page, _ = k_pool.shape
     NB = block_tables.shape[1]
@@ -996,8 +1032,9 @@ def paged_tree(
             depths.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             counters.data_ptr() if counters is not None else None,
-            int(mma), dtype_code(q.dtype), B, H, KH, T, P, page, NB, D,
+            int(mma), dtype_code(q.dtype), _KV_CODE[k_pool.dtype], B, H, KH, T, P, page, NB, D,
             int(window) if window is not None else 0, nsplit, warps, stream,
         )
-    _count("paged_tree", "mma" if mma else "cuda_core")
+    route = "mma" if mma else "cuda_core"
+    _count("paged_tree", f"{route}:{paged_read(q.dtype, k_pool.dtype)}")
     _check("paged_tree", err)

@@ -18,7 +18,11 @@ written and never read.  The JAX code drops out-of-range scatter rows
 (``mode="drop"``, index ``P``); PyTorch has no such mode and an index of P
 would fault, so writes aimed at P land in the dump page instead — no host
 round trip per layer — and every read clamps block-table entries to the
-logical ``P - 1`` as the JAX code does.  The functions that write the cache
+logical ``P - 1`` as the JAX code does.  The pools may hold another dtype
+than the model's (``init_paged_cache(dtype=)``: bf16, or fp8 to halve the
+bytes); every write casts through :func:`~..ops.quant.to_kv_dtype`, JAX's
+``astype`` bit for bit, and every read widens as the JAX functions do.
+The functions that write the cache
 update its tensors in place (``lengths`` included) and return the cache, so
 a CUDA graph that captured the tensors' addresses keeps reading the live
 state.
@@ -49,7 +53,7 @@ from ..ops.attention import (
 )
 from ..ops.norms import rms_norm
 from ..ops.quant import (INT4_GROUP_SIZE, QTensor, QTensor4, QuantizedWeight, _int4_group,
-                         qeinsum, qeinsum_group, tied_head)
+                         qeinsum, qeinsum_group, tied_head, to_kv_dtype)
 from ..ops.rope import apply_rope, rope_frequencies
 from .config import DecoderConfig
 from .mixtral import QUANTIZED_EXPERTS, moe_mlp
@@ -420,7 +424,7 @@ def _scatter_paged_rows(
     B, NB = block_tables.shape
     tgt = torch.where(write, block_tables.long().clamp(max=P), P).reshape(-1)
     blocks = rows.reshape(B, KH, NB, page, D).transpose(1, 2).reshape(B * NB, KH, page, D)
-    pool[tgt] = blocks.to(pool.dtype)
+    pool[tgt] = to_kv_dtype(blocks, pool.dtype)
 
 
 def _set_lengths(lengths: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> None:
@@ -453,8 +457,8 @@ def insert_sequences_paged(
         vs = torch.nn.functional.pad(vs, (0, 0, 0, pad_s))
     for j in range(nbw):
         tgt = block_tables[:, j].long().clamp(max=P)
-        cache.k[:, tgt] = ks[:, :, :, j * page : (j + 1) * page].to(cache.k.dtype)
-        cache.v[:, tgt] = vs[:, :, :, j * page : (j + 1) * page].to(cache.v.dtype)
+        cache.k[:, tgt] = to_kv_dtype(ks[:, :, :, j * page : (j + 1) * page], cache.k.dtype)
+        cache.v[:, tgt] = to_kv_dtype(vs[:, :, :, j * page : (j + 1) * page], cache.v.dtype)
     _set_lengths(cache.lengths, slots, lengths)
     return cache
 
@@ -518,8 +522,8 @@ def prefill_suffix_paged(
         q, k, v = _attn_proj(cfg, p, h, cos, sin)
         k_row = _gather_paged_rows(cache.k[l], block_tables)
         v_row = _gather_paged_rows(cache.v[l], block_tables)
-        k_row[rows, :, wpos, :] = k.transpose(1, 2).to(k_row.dtype)
-        v_row[rows, :, wpos, :] = v.transpose(1, 2).to(v_row.dtype)
+        k_row[rows, :, wpos, :] = to_kv_dtype(k.transpose(1, 2), k_row.dtype)
+        v_row[rows, :, wpos, :] = to_kv_dtype(v.transpose(1, 2), v_row.dtype)
         o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
         o = o.transpose(1, 2).reshape(B, C, -1)
         x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
@@ -570,12 +574,15 @@ def decode_step_paged(
     block_tables: torch.Tensor,  # [B, NB] int32
     *,
     active: Optional[torch.Tensor] = None,  # [B] bool; inactive slots are frozen
+    attn_fp8: bool = False,  # fp8 in-dot attention (needs an fp8 pool)
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """One autoregressive step for every active slot -> (logits [B, V] f32,
-    cache).  The K/V write goes to ``block_table[b, pos // page]`` at offset
-    ``pos % page``; inactive rows and rows past their allocation write the
-    dump page (the JAX code's dropped P-sentinel scatter), so a stale row can
-    never land in a page re-assigned to another request."""
+    cache).  ``attn_fp8`` reads an fp8 pool with the in-dot scheme
+    (``fp8_dot`` of :func:`paged_gqa_decode_attention`).  The K/V write goes
+    to ``block_table[b, pos // page]`` at offset ``pos % page``; inactive
+    rows and rows past their allocation write the dump page (the JAX code's
+    dropped P-sentinel scatter), so a stale row can never land in a page
+    re-assigned to another request."""
     B = tokens.shape[0]
     L, P1, KH, page, D = cache.k.shape
     P = P1 - 1
@@ -605,11 +612,11 @@ def decode_step_paged(
         q = apply_rope(q.reshape(B, 1, H, D), cos, sin).transpose(1, 2)
         k = apply_rope(k.reshape(B, 1, KH, D), cos, sin).transpose(1, 2)
         v = v.reshape(B, 1, KH, D).transpose(1, 2)
-        cache.k[l][phys_w, :, off, :] = k[:, :, 0, :].to(cache.k.dtype)
-        cache.v[l][phys_w, :, off, :] = v[:, :, 0, :].to(cache.v.dtype)
+        cache.k[l][phys_w, :, off, :] = to_kv_dtype(k[:, :, 0, :], cache.k.dtype)
+        cache.v[l][phys_w, :, off, :] = to_kv_dtype(v[:, :, 0, :], cache.v.dtype)
         o = paged_gqa_decode_attention(
             q, cache.k[l, :P], cache.v[l, :P], bt, positions,
-            active=active, window=window,
+            active=active, window=window, fp8_dot=attn_fp8,
         )  # [B, H, 1, D]
         o = o.transpose(1, 2).reshape(B, 1, -1)
         x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
@@ -722,6 +729,8 @@ def commit_tree_path_paged(
         phys_w = torch.where(ok, torch.clamp(phys, max=P), P)
         # advanced indices (dims 1 and 3) around a slice put the batch dim
         # first: values [B, L, KH, D]
-        cache.k[:, phys_w, :, off, :] = pk[:, :, :, j, :].transpose(0, 1).to(cache.k.dtype)
-        cache.v[:, phys_w, :, off, :] = pv[:, :, :, j, :].transpose(0, 1).to(cache.v.dtype)
+        cache.k[:, phys_w, :, off, :] = to_kv_dtype(
+            pk[:, :, :, j, :].transpose(0, 1), cache.k.dtype)
+        cache.v[:, phys_w, :, off, :] = to_kv_dtype(
+            pv[:, :, :, j, :].transpose(0, 1), cache.v.dtype)
     return cache

@@ -23,28 +23,50 @@ hand-written Hopper kernels of the serving path.
   heads dividing H, which is how ``llama.prefill`` calls it.
 
 Layouts are the JAX package's: ``[B, H, S, D]`` activations and
-``[P, KH, page, D]`` page pools.  The fp8 in-dot branch (``fp8_dot=True``)
-and fp8 pools wait for ROADMAP Queue 2 entry 5.
+``[P, KH, page, D]`` page pools.  A pool may hold another dtype than q (the
+engine's ``kv_cache_dtype``): bf16 under f32 queries, or fp8 (e4m3fn,
+e5m2).  Both paged reads then dequantize per page as the JAX functions do
+(the pool's values widened exactly to q's dtype, P rounded to q's dtype);
+paged decode also takes the JAX in-dot scheme, ``fp8_dot=True``: the query
+quantized to the pool's fp8 format (:func:`~.quant.quantize_fp8`), its
+scale on the f32 score partials, P rounded to the pool's format before
+P.V, held to :func:`paged_fp8_dot_bound` on the card.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from .. import kernels
+from .quant import FP8_DTYPES, quantize_fp8, to_kv_dtype
 
 NEG_INF = -1e30
 
-_FP8_ITEM = 1  # element size of the fp8 formats
+
+def _check_fp8_dot(kv_dtype: torch.dtype, site: str) -> None:
+    """The JAX check (and message) of ``fp8_dot=True`` on a pool that is
+    not fp8."""
+    if kv_dtype not in FP8_DTYPES:
+        raise ValueError(
+            f"{site}: fp8_dot=True requires an fp8 KV cache "
+            f"(float8_e4m3fn / float8_e5m2), got {kv_dtype}"
+        )
 
 
-def _refuse_fp8(site: str, fp8_dot: bool, *pools: torch.Tensor) -> None:
-    if fp8_dot or any(p.element_size() == _FP8_ITEM for p in pools):
-        raise NotImplementedError(
-            f"{site}: fp8 KV pools and fp8_dot wait for the fp8 decode kernel "
-            "(ROADMAP Queue 2 entry 5)"
+def _check_pool_dtype(site: str, q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor) -> None:
+    """The pools the card's paged kernels read: f32 or bf16 queries over a
+    pool of their own dtype, bf16 pools under f32 queries, and fp8 pools
+    (e4m3fn, e5m2) under either, K and V alike."""
+    ok = (q.dtype in (torch.float32, torch.bfloat16) and k_pool.dtype == v_pool.dtype
+          and (k_pool.dtype in (q.dtype, torch.bfloat16) or k_pool.dtype in FP8_DTYPES))
+    if not ok:
+        raise TypeError(
+            f"{site} kernel takes f32 or bf16 queries over pools of their dtype, bf16 or fp8; "
+            f"got {q.dtype} queries over {k_pool.dtype}/{v_pool.dtype} pools"
         )
 
 
@@ -267,9 +289,66 @@ def _decode_range(positions, active, page: int, NB: int, window: Optional[int]):
     return lo, hi
 
 
+def _paged_decode_loop(
+    q, k_pool, v_pool, block_tables, positions, active, window, fp8_dot, *,
+    round_p: bool = True, ones: bool = False,
+):
+    """The JAX page loop of :func:`paged_gqa_decode_attention_plain` ->
+    (acc [B, KH, G, D], l [B, KH, G, 1]), both f32.  ``round_p=False``
+    leaves P unrounded; ``ones`` weighs every kept key 1 (the bounds' sums)."""
+    B, H, Sq, D = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode attention expects Sq=1 queries, got {Sq}")
+    P, KH, page, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    G = H // KH
+    scale = D ** -0.5
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=q.device)
+    qg = q.reshape(B, KH, G, D)
+    if fp8_dot:
+        _check_fp8_dot(k_pool.dtype, "paged_gqa_decode_attention")
+        qg_q, qg_s = quantize_fp8(qg, axis=-1, dtype=k_pool.dtype)
+        qg = qg_q.float()
+        s_scale = qg_s * scale  # the f32 scale on the f32 partials
+        p_dtype = v_pool.dtype  # P in the pool's fp8 format, as p.astype(v_blk.dtype)
+    else:
+        qg = qg.float()
+        s_scale = scale
+        # the dequant read widens the page to q's dtype, so p.astype(v_blk.dtype)
+        # rounds P to q's dtype
+        p_dtype = q.dtype
+    lo, hi = _decode_range(positions, active, page, NB, window)
+    m = torch.full((B, KH, G, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KH, G, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KH, G, D), dtype=torch.float32, device=q.device)
+    offs = torch.arange(page, device=q.device)
+    for ci in range(lo, hi):
+        phys = block_tables[:, ci].long().clamp(0, P - 1)
+        k_blk = k_pool[phys].float()  # [B, KH, page, D], exact for every pool dtype
+        v_blk = v_pool[phys].float()
+        s = torch.matmul(qg, k_blk.transpose(-1, -2)) * s_scale  # [B, KH, G, page]
+        kpos = ci * page + offs
+        keep = kpos[None, :] <= positions[:, None]
+        if window is not None:
+            keep &= kpos[None, :] > positions[:, None] - window
+        s = torch.where(keep[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        if ones:
+            p = keep[:, None, None, :].expand_as(p).float()
+            alpha = torch.ones_like(alpha)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)  # the unrounded f32 p
+        pv = to_kv_dtype(p, p_dtype).float() if round_p else p
+        acc = alpha * acc + torch.matmul(pv, v_blk)
+        m = m_new
+    return acc, l
+
+
 def paged_gqa_decode_attention_plain(
     q: torch.Tensor,  # [B, H, 1, D]
-    k_pool: torch.Tensor,  # [P, KH, page, D]
+    k_pool: torch.Tensor,  # [P, KH, page, D], q's dtype, bf16 or fp8
     v_pool: torch.Tensor,
     block_tables: torch.Tensor,  # [B, NB] int; entries >= P mean unallocated
     positions: torch.Tensor,  # [B] int
@@ -280,41 +359,14 @@ def paged_gqa_decode_attention_plain(
 ) -> torch.Tensor:
     """The JAX page loop in plain PyTorch: logical blocks [lo, hi) of the
     batch, one gathered page per row per step, f32 online softmax with the
-    finite ``NEG_INF`` mask, probabilities rounded to the pool's dtype before
-    P.V (a no-op for f32 pools)."""
-    _refuse_fp8("paged_gqa_decode_attention", fp8_dot, k_pool, v_pool)
-    B, H, Sq, D = q.shape
-    if Sq != 1:
-        raise ValueError(f"decode attention expects Sq=1 queries, got {Sq}")
-    P, KH, page, _ = k_pool.shape
-    NB = block_tables.shape[1]
-    G = H // KH
-    scale = D ** -0.5
-    if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=q.device)
-    qg = q.reshape(B, KH, G, D).float()
-    lo, hi = _decode_range(positions, active, page, NB, window)
-    m = torch.full((B, KH, G, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KH, G, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KH, G, D), dtype=torch.float32, device=q.device)
-    offs = torch.arange(page, device=q.device)
-    for ci in range(lo, hi):
-        phys = block_tables[:, ci].long().clamp(0, P - 1)
-        k_blk = k_pool[phys].float()  # [B, KH, page, D]
-        v_blk = v_pool[phys].float()
-        s = torch.matmul(qg, k_blk.transpose(-1, -2)) * scale  # [B, KH, G, page]
-        kpos = ci * page + offs
-        keep = kpos[None, :] <= positions[:, None]
-        if window is not None:
-            keep &= kpos[None, :] > positions[:, None] - window
-        s = torch.where(keep[:, None, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)  # the unrounded f32 p
-        # P in the pool's dtype before P.V, as the JAX loop's p.astype(v_blk.dtype)
-        acc = alpha * acc + torch.matmul(p.to(v_pool.dtype).float(), v_blk)
-        m = m_new
+    finite ``NEG_INF`` mask.  The dequant read widens each page exactly and
+    rounds P to q's dtype before P.V (a no-op for f32 queries); with
+    ``fp8_dot`` the query is quantized to the pool's fp8 format, its scale
+    multiplies the f32 score partials, and P is rounded to the pool's format
+    before P.V.  ``l`` sums the unrounded f32 p either way."""
+    B, H, _, D = q.shape
+    acc, l = _paged_decode_loop(q, k_pool, v_pool, block_tables, positions, active, window,
+                                fp8_dot)
     out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
     return out.reshape(B, H, 1, D)
 
@@ -337,12 +389,126 @@ def paged_bf16_bound(
     the same argument: the kernel, like the JAX function, rounds each
     probability to bf16 before P.V (moving the output by at most 2^-8 A
     while the normaliser sums the unrounded f32 p) and rounds the output
-    (2^-8 |out|); 1e-4 covers the f32 summation order."""
+    (2^-8 |out|); 1e-4 covers the f32 summation order.  It holds for the
+    dequant read of a bf16 or fp8 pool too: every value of those formats is
+    a bf16 value, so widening a page is exact."""
     a = paged_gqa_decode_attention_plain(
         q.float(), k_pool.float(), v_pool.float().abs(), block_tables, positions,
         active=active, window=window,
     )
     return 2.0 ** -8 * (ref.abs() + a) + 1e-4
+
+
+# fp8 formats: (mantissa bits m, the subnormal spacing u)
+_FP8_STEPS = {torch.float8_e4m3fn: (3, 2.0 ** -9), torch.float8_e5m2: (2, 2.0 ** -16)}
+
+
+def paged_fp8_dot_bound(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    positions: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    active: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-element bound on ``|out - ref|`` for an ``fp8_dot=True`` paged
+    decode output (the card's kernel, or the JAX function) against the
+    port's plain twin ``ref`` on the same inputs (q in its own dtype, the
+    fp8 pools): ``2^-m A + u S + 2^-8 |ref| + 1e-4``, where m is the pool
+    format's mantissa bits (3 for e4m3fn, 2 for e5m2), u its subnormal
+    spacing (2^-9, 2^-16), ``A`` the in-dot attention over ``|v|`` with
+    unrounded P, and ``S`` the sum of ``|v|`` over a row's kept keys over
+    its normaliser ``l``.
+
+    Why: every side rounds each probability to the fp8 format before P.V,
+    but each at its own scale.  The JAX loop and the twin take p = exp(s -
+    m) against the running max of whole pages; the kernels against the
+    running max of their own tiles (each warp's 16 keys of a chunk in the
+    tensor-core kernel, each warp's 4 keys in the CUDA-core kernel), and
+    rescale later.  The same key's p is then rounded at two scales that
+    differ by a factor that is not a power of two, so the two roundings
+    can land a step apart: each is within half a step, at most 2^-(m+1) p
+    for a normal p and u / 2 for a subnormal one.  The output so moves by
+    at most ``(2^-m p + u) |v| / l`` summed over the keys: ``2^-m A + u
+    S``.  The quantized query is bit-equal on both sides (the same f32
+    division and rounding); rounding the output adds 2^-8 |out| (bf16
+    queries), and 1e-4 covers the f32 sums.
+
+    The bound is that loose (2^-3 A for e4m3) because of the scales, so on
+    random inputs it cannot show whether a kernel rounds P at all (P
+    rounded to bf16 instead moves the output by about 2^-4 A).  That is
+    checked on :func:`paged_fp8_dot_probe`'s inputs, where every side rounds
+    at the same scale, to ``paged_bf16_bound``."""
+    m_bits, u = _FP8_STEPS[v_pool.dtype]
+    absv = v_pool.float().abs().to(v_pool.dtype)  # |v| is exact in the format
+    args = (q, k_pool, absv, block_tables, positions, active, window, True)
+    acc, l = _paged_decode_loop(*args, round_p=False)
+    a = acc / torch.clamp(l, min=1e-30)
+    tot, _ = _paged_decode_loop(*args, round_p=False, ones=True)
+    S = tot / torch.clamp(l, min=1e-30)
+    B, H, _, D = q.shape
+    bound = 2.0 ** -m_bits * a + u * S
+    return bound.reshape(B, H, 1, D) + 2.0 ** -8 * ref.abs() + 1e-4
+
+
+def paged_fp8_dot_probe(
+    B: int, H: int, KH: int, D: int, P: int, page: int, kv_dtype: torch.dtype,
+    q_dtype: torch.dtype, generator: torch.Generator,
+) -> tuple:
+    """CPU inputs (q [B, H, 1, D] in ``q_dtype``; K and V pools [P, KH,
+    page, D] in the fp8 ``kv_dtype``) on which an ``fp8_dot=True`` read
+    must meet ``paged_bf16_bound`` (2^-8 (|ref| + A) + 1e-4, A = ref here)
+    against the plain twin: every side rounds each p at the same scale and
+    no p lies near a rounding boundary, so a read that rounds P to another
+    format, or skips pages, misses it.
+
+    - Query head g of a KV head holds ``a = 7 2^k`` at components 2g, 2g +
+      1 and zeros elsewhere: ``quantize_fp8`` is exact (its scale a power
+      of two, the quantized value the format's max), so the in-dot scores
+      equal the dequant read's, which is the control: the same scores with
+      P unrounded (f32 q) or rounded to bf16.
+    - Every key at a position 0 mod 4 is the max key (components 2g, 2g + 1
+      equal to 2): every tile of either kernel (4 or 16 aligned keys) and
+      every page of the JAX loop holds it, so every running max is the
+      row's max from the first tile on, and p = exp(s - max) everywhere.
+    - Every other key's components (2g, 2g + 1) are a pair of format
+      values whose p lies 0.2 to 0.4 of a format step above a grid point
+      in [0.25, 1): f32 differences in p cannot flip its rounding, and the
+      rounding lowers it by at least 0.2 of a step (2^-5.3 of p in e4m3).
+    - V is positive, column d large (1/16 elsewhere) on the physical pages
+      that are d mod 8, so that a dropped page takes most of some column.
+    """
+    G = H // KH
+    if 2 * G > D or page % 4 or kv_dtype not in FP8_DTYPES:
+        raise ValueError(f"paged_fp8_dot_probe: needs 2 H / KH <= D, a page of 4 n keys and "
+                         f"an fp8 pool, got H={H} KH={KH} D={D} page={page} {kv_dtype}")
+    a = 7.0 * 2.0 ** round(math.log2(0.7 * D ** 0.5 / 7.0))
+    c = a * D ** -0.5  # the score of one unit of k[2g] + k[2g + 1]
+    fin = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(kv_dtype).double()
+    fin = torch.unique(fin[torch.isfinite(fin) & (fin >= 0)])  # the format's grid, sorted
+    vals = fin[(fin >= 0.5) & (fin <= 2.0)]
+    x, y = torch.meshgrid(vals, vals, indexing="ij")
+    p = torch.exp(c * (x + y - 4.0)).flatten()
+    at = torch.searchsorted(fin, p, right=True) - 1  # the grid point at or below p
+    frac = (p - fin[at]) / (fin[at + 1] - fin[at])
+    ok = (p >= 0.25) & (p < 1.0) & (frac >= 0.2) & (frac <= 0.4)
+    pairs = torch.stack([x.flatten(), y.flatten()], 1)[ok]
+    if not len(pairs):
+        raise ValueError(f"paged_fp8_dot_probe: no key pair for {kv_dtype} at D={D}")
+    k = torch.randn((P, KH, page, D), generator=generator, dtype=torch.float64)
+    pick = pairs[torch.randint(len(pairs), (P, KH, page, G), generator=generator)]
+    k[..., :2 * G] = pick.reshape(P, KH, page, 2 * G)
+    k[:, :, ::4, :2 * G] = 2.0
+    heavy = (torch.arange(D)[None, :] % 8 == torch.arange(P)[:, None] % 8).double()
+    v = torch.randn((P, KH, page, D), generator=generator, dtype=torch.float64).abs()
+    v = v * (heavy + (1 - heavy) / 16)[:, None, None, :]
+    q = torch.zeros((B, H, 1, D), dtype=torch.float64)
+    for h in range(H):
+        q[:, h, 0, 2 * (h % G):2 * (h % G) + 2] = a
+    return (q.to(q_dtype), to_kv_dtype(k.float(), kv_dtype), to_kv_dtype(v.float(), kv_dtype))
 
 
 def paged_gqa_decode_attention(
@@ -357,7 +523,9 @@ def paged_gqa_decode_attention(
     fp8_dot: bool = False,
 ) -> torch.Tensor:
     """Paged decode attention.  CPU tensors run the plain twin; CUDA tensors
-    launch ``csrc/paged_decode.cu`` or raise on what it does not take."""
+    launch ``csrc/paged_decode.cu`` or raise on what it does not take.  The
+    pools may be q's dtype, bf16 under f32 queries, or fp8 (the dequant
+    read, or the in-dot scheme with ``fp8_dot``, which needs an fp8 pool)."""
     if q.device.type == "cpu":
         return paged_gqa_decode_attention_plain(
             q, k_pool, v_pool, block_tables, positions,
@@ -365,7 +533,8 @@ def paged_gqa_decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_gqa_decode_attention: unsupported device {q.device}")
-    _refuse_fp8("paged_gqa_decode_attention", fp8_dot, k_pool, v_pool)
+    if fp8_dot:
+        _check_fp8_dot(k_pool.dtype, "paged_gqa_decode_attention")
     B, H, Sq, D = q.shape
     if Sq != 1:
         raise ValueError(f"decode attention expects Sq=1 queries, got {Sq}")
@@ -380,8 +549,7 @@ def paged_gqa_decode_attention(
         raise ValueError(f"paged decode kernel takes H/KH up to 4 at head_dim 256, got {H // KH}")
     if k_pool.shape[2] % 4:
         raise ValueError(f"paged decode kernel takes a page size divisible by 4, got {k_pool.shape[2]}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"paged decode kernel takes matching f32 or bf16 q/pools, got {q.dtype}/{k_pool.dtype}")
+    _check_pool_dtype("paged decode", q, k_pool, v_pool)
     if block_tables.dim() != 2 or block_tables.shape[0] != B or block_tables.dtype != torch.int32:
         raise ValueError("paged_gqa_decode_attention: block_tables must be [B, NB] int32")
     if positions.shape != (B,) or positions.dtype != torch.int32:
@@ -401,7 +569,7 @@ def paged_gqa_decode_attention(
     active = active.contiguous() if active is not None else None
     out = torch.empty_like(q)
     kernels.paged_decode(
-        q, k_pool, v_pool, out, block_tables, positions, active, window=window
+        q, k_pool, v_pool, out, block_tables, positions, active, window=window, fp8_dot=fp8_dot
     )
     return out
 
@@ -447,11 +615,13 @@ def paged_tree_attention_plain(
     batch's longest prefix, one gathered page per row per step, f32 online
     softmax with the finite ``NEG_INF`` mask (keys below the row's length,
     and, with a window, above ``qpos - window`` for each node at ``qpos =
-    lengths + depths``), probabilities rounded to the pool's dtype before
+    lengths + depths``), probabilities rounded to q's dtype before
     P.V while ``l`` sums the unrounded ones; then the tree as the final
     chunk under the ancestor mask (and the window on the keys' positions
-    ``lengths + depths``), probabilities rounded to ``q``'s dtype."""
-    _refuse_fp8("paged_tree_attention", False, k_pool, v_pool)
+    ``lengths + depths``), probabilities rounded to ``q``'s dtype.  A pool
+    of another dtype (bf16 under f32 queries, fp8) is read as the JAX
+    function reads it: each page widened exactly to q's dtype, so P rounds
+    to q's dtype there too; the tree's own K/V are in q's dtype."""
     B, H, T, D = q.shape
     P, KH, page, _ = k_pool.shape
     NB = block_tables.shape[1]
@@ -490,7 +660,7 @@ def paged_tree_attention_plain(
         keep = (kpos[None, None, :] < lengths[:, None, None]).expand(B, T, page)
         if window is not None:
             keep = keep & (kpos[None, None, :] > qpos[:, :, None] - window)
-        m, l, acc = update(m, l, acc, s, keep, v_blk, v_pool.dtype)
+        m, l, acc = update(m, l, acc, s, keep, v_blk, q.dtype)
     tk = tree_k.to(q.dtype).float()
     tv = tree_v.to(q.dtype).float()
     s = torch.matmul(qg, tk[:, :, None].transpose(-1, -2)) * scale  # [B, KH, G, T, T]
@@ -544,7 +714,9 @@ def paged_tree_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Paged tree attention.  CPU tensors run the plain twin; CUDA tensors
-    launch ``csrc/paged_tree.cu`` or raise on what it does not take."""
+    launch ``csrc/paged_tree.cu`` or raise on what it does not take.  The
+    pools may be q's dtype, bf16 under f32 queries, or fp8 (the dequant
+    read; the JAX function has no in-dot scheme here)."""
     if q.device.type == "cpu":
         return paged_tree_attention_plain(
             q, k_pool, v_pool, block_tables, lengths, tree_k, tree_v, anc_mask, depths,
@@ -552,7 +724,6 @@ def paged_tree_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_tree_attention: unsupported device {q.device}")
-    _refuse_fp8("paged_tree_attention", False, k_pool, v_pool)
     B, H, T, D = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != D:
         raise ValueError(f"paged_tree_attention: bad pool shapes {tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
@@ -563,8 +734,7 @@ def paged_tree_attention(
         raise ValueError(f"paged tree kernel takes head_dim 16, 32, 64, 128 or 256, got {D}")
     if not 1 <= T <= PAGED_TREE_MAX_T:
         raise ValueError(f"paged tree kernel takes 1 to {PAGED_TREE_MAX_T} tree nodes, got {T}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"paged tree kernel takes matching f32 or bf16 q/pools, got {q.dtype}/{k_pool.dtype}")
+    _check_pool_dtype("paged tree", q, k_pool, v_pool)
     if tuple(tree_k.shape) != (B, KH, T, D) or tree_v.shape != tree_k.shape:
         raise ValueError(f"paged_tree_attention: tree K/V must be [{B}, {KH}, {T}, {D}], got {tuple(tree_k.shape)}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B or block_tables.dtype != torch.int32:

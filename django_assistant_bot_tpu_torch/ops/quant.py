@@ -39,6 +39,56 @@ QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # default int4 group width along the contraction axis (the JAX package's)
 INT4_GROUP_SIZE = 64
 
+# the JAX engine's kv_cache_dtype knob -> pool dtype (None: the model's);
+# "bf16" is bfloat16 even under an f32 model, fp8 halves the pool's bytes
+KV_CACHE_DTYPES = {
+    None: None,
+    "bf16": torch.bfloat16,
+    "fp8": torch.float8_e4m3fn,
+    "fp8_e5m2": torch.float8_e5m2,
+}
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+# |x| past which ml_dtypes (and so JAX's astype) rounds to NaN in e4m3fn
+# (the midpoint of 448 and the 480 the format lacks; 464 itself rounds to
+# even, 448), and to inf in e5m2 (the midpoint of 57344 and 65536)
+_E4M3_NAN_FROM = 464.0
+_E5M2_INF_FROM = 61440.0
+
+
+def to_kv_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.astype(dtype)`` as JAX computes it, for a page-pool write.
+    On the CPU torch's ``.to(float8_e4m3fn)`` saturates (464.1, 1000 and
+    inf become +-448) where ml_dtypes gives NaN past 464; inside that range
+    the two round alike (round to nearest even, subnormals included).  So
+    on the CPU the values past the edge are set to JAX's result first (NaN
+    for e4m3fn, signed inf for e5m2), then cast.  On the card torch's cast
+    already gives those bits (c10's scalar conversion, no saturation), so a
+    CUDA tensor takes ``.to`` alone: the fix-up would cost five elementwise
+    launches a write.  ``chip_smoke.py`` phase 2 and the card tests hold
+    the card's bits to the CPU's on a grid past both formats' edges.  Plain
+    elementwise torch either way, which a CUDA graph captures.  Other
+    dtypes cast as ``.to``."""
+    if x.dtype == dtype or x.device.type == "cuda":
+        return x.to(dtype)
+    if dtype == torch.float8_e4m3fn:
+        x = torch.where(x.abs() > _E4M3_NAN_FROM, torch.full_like(x, float("nan")), x)
+    elif dtype == torch.float8_e5m2:
+        x = torch.where(x.abs() >= _E5M2_INF_FROM, x * float("inf"), x)
+    return x.to(dtype)
+
+
+def quantize_fp8(x: torch.Tensor, axis: int = -1, dtype: torch.dtype = torch.float8_e4m3fn):
+    """Symmetric per-vector fp8 quantization along ``axis`` -> ``(q, scale)``,
+    the JAX function's arithmetic: ``scale = max(amax / finfo.max, 1e-12)``
+    in f32 (kept with size 1 on ``axis``), ``q = x / scale`` cast to
+    ``dtype`` (:func:`to_kv_dtype`).  The in-dot decode quantizes its query
+    with it; the card's kernels do the same arithmetic in their prologue."""
+    fmax = float(torch.finfo(dtype).max)
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp_min(amax / fmax, 1e-12)
+    return to_kv_dtype(xf / scale, dtype), scale
+
 
 class QuantizedWeight:
     """What the two formats share: the integer payload ``q``, the f32

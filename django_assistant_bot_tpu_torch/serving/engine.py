@@ -5,9 +5,10 @@ defaults: ``kv_layout="paged"`` with prefix sharing, fused
 ``decode_steps``-step ticks, chunked prefill piggybacked into the decode
 tick, the admission-controlled :class:`~.scheduler.RequestScheduler`, the
 observability plane and crash-only supervision, with token streaming and
-JSON-constrained decoding and tree-verified speculative decoding.  fp8 KV
-is still accepted only at its off value and refused, naming its ROADMAP
-item, at any other.  What is ported is the JAX engine's own logic:
+JSON-constrained decoding and tree-verified speculative decoding, over a
+page pool of the model's dtype, bf16 or fp8 (``kv_cache_dtype``), read by
+the dequant path or, with ``attn_fp8``, by the fp8 in-dot decode.  What is
+ported is the JAX engine's own logic:
 
 - **Admission.**  Free slots take queued requests in the scheduler's
   weighted-fair-share order (FIFO with ``scheduler=None``); each reserves
@@ -124,7 +125,7 @@ from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..models import DecoderConfig, EncoderConfig, encoder, llama
 from ..ops.attention import check_paged_tree_nodes
-from ..ops.quant import check_kernel_params, weight_bits
+from ..ops.quant import FP8_DTYPES, KV_CACHE_DTYPES, check_kernel_params, weight_bits
 from ..ops.json_fsm import TokenFSM, fsm_for_tokenizer
 from ..ops.sampling import gumbel_noise, noise_width, sample_logits
 from ..ops.speculative import (
@@ -377,8 +378,22 @@ class GenerationEngine:
         attn_fp8: bool = False,
     ):
         _refuse("kv_layout", kv_layout, "paged", "Queue 1 item 8 (legacy contiguous KV)")
-        _refuse("kv_cache_dtype", kv_cache_dtype, None, "Queue 2 entry 5 (fp8 KV)")
-        _refuse("attn_fp8", attn_fp8, False, "Queue 2 entry 5 (fp8 KV)")
+        # the page pool's precision (None: the model's dtype): "fp8" halves
+        # the KV bytes; K/V cast at the pool write and widen in the read
+        if kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                f"unknown kv_cache_dtype {kv_cache_dtype!r}; "
+                f"expected one of {sorted(k for k in KV_CACHE_DTYPES if k)}"
+            )
+        self.kv_cache_dtype = KV_CACHE_DTYPES[kv_cache_dtype]
+        # fp8 in-dot decode attention: the query quantized to the pool's fp8
+        # format, both products on fp8 values (needs an fp8 pool)
+        self.attn_fp8 = bool(attn_fp8)
+        if self.attn_fp8 and self.kv_cache_dtype not in FP8_DTYPES:
+            raise ValueError(
+                "attn_fp8=True requires an fp8 KV cache "
+                "(kv_cache_dtype='fp8' or 'fp8_e5m2')"
+            )
         if decode_steps is not None and int(decode_steps) < 1:
             raise ValueError(f"decode_steps must be >= 1 (got {decode_steps})")
         self.device = resolve_device(device)
@@ -474,7 +489,8 @@ class GenerationEngine:
         self.prefix_cache_max_bytes = int(prefix_cache_max_bytes)
         self.prefix_hits = 0
         self.prefix_misses = 0
-        page_bytes = cfg.num_layers * cfg.num_kv_heads * page * cfg.head_dim * 2 * cfg.dtype.itemsize
+        kv_itemsize = (self.kv_cache_dtype or cfg.dtype).itemsize
+        page_bytes = cfg.num_layers * cfg.num_kv_heads * page * cfg.head_dim * 2 * kv_itemsize
         self._kv_pool = PageAllocator(
             n_pages, page, page_bytes=page_bytes, max_shared_bytes=self.prefix_cache_max_bytes,
             max_shared_entries=self.prefix_cache_size, min_prefix_tokens=self.prefix_min_tokens,
@@ -583,7 +599,8 @@ class GenerationEngine:
         them are in place (``copy_``, ``index_put_``, ``add_``)."""
         B, K, dev = self.max_slots, self.decode_steps, self.device
         self._cache = llama.init_paged_cache(
-            self.cfg, B, self._kv_pool.n_pages, self.kv_page_size, device=dev
+            self.cfg, B, self._kv_pool.n_pages, self.kv_page_size, dtype=self.kv_cache_dtype,
+            device=dev,
         )
         self._tokens_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._active_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -1216,8 +1233,9 @@ class GenerationEngine:
         ``decode_steps_effective`` key; the port never lowers it), the
         weight format's width in bits (16, 8 or 4), the CUDA graphs, and the
         piggybacked-prefill gauges (chunks that rode a tick,
-        and the fraction of ticks that waited on a chunk of their own), and
-        the single-step JSON ticks issued in place of fused ones."""
+        and the fraction of ticks that waited on a chunk of their own), the
+        single-step JSON ticks issued in place of fused ones, and whether the
+        decode attention runs the fp8 in-dot scheme (``attn_fp8``)."""
         return {
             "decode_steps": self.decode_steps,
             "decode_steps_effective": 1 if self._json.any() else self.decode_steps,
@@ -1229,6 +1247,8 @@ class GenerationEngine:
             "prefill_displacement_frac": round(
                 self._prefill_displaced_ticks / max(1, self._ticks_issued), 4
             ),
+            # whether the decode attention reads the fp8 pool in-dot
+            "attn_fp8": self.attn_fp8,
         }
 
     def tick_stats(self) -> Dict[str, Any]:
@@ -1838,7 +1858,7 @@ class GenerationEngine:
         for i in range(self.decode_steps):
             logits, _ = llama.decode_step_paged(
                 self.params, self.cfg, self._tokens_dev, self._cache, self._bt_dev,
-                active=self._active_dev,
+                active=self._active_dev, attn_fp8=self.attn_fp8,
             )
             nxt = sample_logits(
                 logits, temperature=self._temps_dev, top_k=TOP_K,
@@ -1853,7 +1873,7 @@ class GenerationEngine:
         ``_toks_dev[0]``.  On the card this is what the JSON graph holds."""
         logits, _ = llama.decode_step_paged(
             self.params, self.cfg, self._tokens_dev, self._cache, self._bt_dev,
-            active=self._active_dev,
+            active=self._active_dev, attn_fp8=self.attn_fp8,
         )
         nxt, states = sample_logits(
             logits, temperature=self._temps_dev, top_k=TOP_K, top_p=self._top_ps_dev,

@@ -13,7 +13,9 @@ the JAX registry does (a MoE decoder's is refused: ROADMAP Queue 1 item 17);
 a Mixtral checkpoint; ``warmup`` / ``warmup_json`` run the engine's
 ``warmup`` before it starts; ``speculative`` / ``spec_width`` serve
 tree-verified speculative decoding, refused on an encoder and with
-``warmup_json`` as in JAX.  Keys of the JAX ``ModelSpec`` that are not ported yet are
+``warmup_json`` as in JAX; ``kv_cache_dtype`` ("bf16", "fp8", "fp8_e5m2")
+sets the page pool's precision and ``attn_fp8`` the fp8 in-dot decode,
+checked with the JAX registry's messages.  Keys of the JAX ``ModelSpec`` that are not ported yet are
 accepted only at the value the port implements and refused otherwise,
 naming their ROADMAP item; keys the JAX spec does not know are refused too.
 """
@@ -41,8 +43,6 @@ _DEFERRED: Dict[str, tuple] = {
     "autoscale": (False, "Queue 1 item 12 (autoscaler)"),
     "pool": ("unified", "Queue 1 item 13 (cross-host fleet)"),
     "replica_devices": (0, "Queue 1 item 15 (parallelism)"),
-    "kv_cache_dtype": (None, "Queue 2 entry 5 (fp8 KV)"),
-    "attn_fp8": (False, "Queue 2 entry 5 (fp8 KV)"),
 }
 _ABSENT = object()  # knobs of unported features: refused whenever present
 # JAX ModelSpec key prefixes / names of unported features -> ROADMAP item
@@ -86,6 +86,31 @@ def _check_speculative(spec: "ModelSpec") -> None:
             check_paged_tree_nodes(spec.speculative, max(1, spec.spec_width))
         except ValueError as e:
             raise ValueError(f"model {name}: {e}") from None
+
+
+def _check_kv_cache(spec: "ModelSpec") -> None:
+    """The JAX registry's ``kv_cache_dtype`` / ``attn_fp8`` checks, with its
+    messages."""
+    from ..ops.quant import KV_CACHE_DTYPES
+
+    name = spec.name.lower()
+    if spec.kv_cache_dtype is not None and spec.kind == "encoder":
+        raise ValueError(
+            f"model {name}: kv_cache_dtype is decoder-only (encoders have no KV cache)"
+        )
+    if spec.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(
+            f"model {name}: unknown kv_cache_dtype={spec.kv_cache_dtype!r}; "
+            f"expected one of {sorted(k for k in KV_CACHE_DTYPES if k)}"
+        )
+    if spec.attn_fp8 and spec.kind == "encoder":
+        raise ValueError(f"model {name}: attn_fp8 is decoder-only")
+    if spec.attn_fp8 and spec.kv_cache_dtype not in ("fp8", "fp8_e5m2"):
+        raise ValueError(
+            f"model {name}: attn_fp8 requires an fp8 KV cache "
+            f"(kv_cache_dtype='fp8' or 'fp8_e5m2', got {spec.kv_cache_dtype!r}) — the "
+            "in-dot scheme consumes the stored fp8 operand directly"
+        )
 
 
 def _check_quantize(spec: "ModelSpec") -> None:
@@ -185,6 +210,12 @@ class ModelSpec:
     decode_kv_chunk: Optional[int] = 0
     kv_page_size: int = 0
     kv_pages: int = 0
+    # the page pool's precision: None (the model's dtype), "bf16", "fp8"
+    # (e4m3) or "fp8_e5m2"; fp8 halves the KV bytes (lossy, opt-in)
+    kv_cache_dtype: Optional[str] = None
+    # fp8 in-dot decode attention: the query quantized to the pool's fp8
+    # format, both products on fp8 values (needs an fp8 kv_cache_dtype)
+    attn_fp8: bool = False
     # tree-verified prompt-lookup speculative decoding: up to `spec_width`
     # distinct continuations of depth `speculative` verified a tick (0 = off)
     speculative: int = 0
@@ -269,6 +300,7 @@ class ModelSpec:
         spec = cls(name=name, **kwargs)
         _check_quantize(spec)
         _check_speculative(spec)
+        _check_kv_cache(spec)
         if spec.dtype not in _DTYPES:
             raise ValueError(f"model {name}: dtype must be one of {sorted(_DTYPES)}")
         if spec.decode_steps < 0:
@@ -322,6 +354,8 @@ class ModelSpec:
             decode_kv_chunk=self.decode_kv_chunk,
             kv_page_size=self.kv_page_size,
             kv_pages=self.kv_pages,
+            kv_cache_dtype=self.kv_cache_dtype,
+            attn_fp8=self.attn_fp8,
             speculative=self.speculative,
             spec_width=self.spec_width,
             prefix_cache_size=self.prefix_cache,
@@ -376,6 +410,7 @@ class ModelRegistry:
         name = spec.name.lower()
         _check_quantize(spec)
         _check_speculative(spec)
+        _check_kv_cache(spec)
         if spec.kind == "encoder":
             return self._load_encoder(name, spec, engine)
         if engine is None:

@@ -16,6 +16,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -161,6 +162,15 @@ def test_engine_refuses_unported_knobs(tiny_models, knob, value, item):
         # Queue 1 item 9 (speculative decoding) is ported: the engine takes it
         eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **{knob: value})
         assert eng.speculative == value and eng.spec_stats()["spec_tree_depth"] == value
+        return
+    if item == "Queue 2 entry 5":
+        # fp8 KV pools and the in-dot read are ported: the engine takes them
+        # (attn_fp8 on an fp8 pool, as the JAX engine requires)
+        kw = {knob: value} if knob == "kv_cache_dtype" else {knob: value, "kv_cache_dtype": "fp8"}
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **kw)
+        want = {"fp8": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}[kw["kv_cache_dtype"]]
+        assert eng._cache.k.dtype == eng._cache.v.dtype == want
+        assert eng.decode_path_stats()["attn_fp8"] is (knob == "attn_fp8")
         return
     with pytest.raises(NotImplementedError, match=item):
         GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **{knob: value})

@@ -33,7 +33,10 @@ package:
 - a speculative engine: each rung's graph replays bit for bit as its body
   run eagerly and counts its paged tree and sampler launches; an f32 spec
   engine's greedy ids on the card equal the CPU spec engine's and the
-  card's plain engine's.
+  card's plain engine's;
+- narrow pools (``kv_cache_dtype`` fp8 / fp8_e5m2 / bf16, ``attn_fp8``):
+  a replay bitwise the eager steps, every recorded paged launch on the
+  pool's read; an f32 fp8 in-dot engine's greedy ids equal the CPU's.
 """
 
 import contextlib
@@ -193,7 +196,7 @@ def test_replays_count_their_launches(dtype, route):
     for rec in (eng._graph_launches, eng._piggyback_launches):
         assert {k: n for k, n in rec.launches.items() if n} == {
             "paged_decode": K * eng.cfg.num_layers, "sample": K}
-        assert rec.sub["paged_decode"][route] == K * eng.cfg.num_layers
+        assert kernels.by_route(rec.sub["paged_decode"])[route] == K * eng.cfg.num_layers
     _mid_decode(eng, torch.Generator(device="cuda").manual_seed(4))
     kernels.reset_counts()
     for piggyback in (False, True, False):
@@ -201,9 +204,57 @@ def test_replays_count_their_launches(dtype, route):
     torch.cuda.synchronize()
     assert {k: n for k, n in kernels.launch_counts().items() if n} == {
         "paged_decode": 3 * K * eng.cfg.num_layers, "sample": 3 * K}
-    assert kernels.PAGED_ROUTES[route] == 3 * K * eng.cfg.num_layers
+    assert kernels.by_route(kernels.PAGED_FORMS)[route] == 3 * K * eng.cfg.num_layers
     (part, counters), = eng._graph_scratch.values()
     assert int(counters.abs().sum()) == 0  # each call leaves its counters at zero
+
+
+_FP8_CASES = [("fp8", False, torch.bfloat16), ("fp8", True, torch.bfloat16),
+              ("fp8_e5m2", False, torch.bfloat16), ("fp8_e5m2", True, torch.float32),
+              ("bf16", False, torch.float32)]
+
+
+@pytest.mark.parametrize("kv,attn_fp8,dtype", _FP8_CASES)
+def test_narrow_pool_replay_bitwise_equal_to_eager_and_counted(kv, attn_fp8, dtype):
+    """An engine on a narrow pool (``kv_cache_dtype``, ``attn_fp8``): one
+    replay of its tick is bitwise the K steps run eagerly (the pool writes'
+    cast captured with them), and every paged launch the graph recorded is
+    on the pool's read (``PAGED_FORMS``)."""
+    eng = _engine(dtype, kv_cache_dtype=kv, attn_fp8=attn_fp8)
+    assert eng._cache.k.dtype == {"fp8": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2,
+                                  "bf16": torch.bfloat16}[kv]
+    _mid_decode(eng, torch.Generator(device="cuda").manual_seed(11))
+    _, replayed, eager = _replay_vs_eager(eng, eng._graph, [eng._tick_body])
+    for name, got, want in zip(("k", "v", "lengths", "tokens", "toks"), replayed, eager):
+        assert torch.equal(got.view(torch.uint8) if got.element_size() == 1 else got,
+                           want.view(torch.uint8) if want.element_size() == 1 else want), name
+    route = "mma" if dtype == torch.bfloat16 else "cuda_core"
+    fmt = {"fp8": "e4m3", "fp8_e5m2": "e5m2", "bf16": "bf16"}[kv]
+    form = f"{route}:{fmt}/{'in_dot' if attn_fp8 else 'dequant'}"
+    for rec in (eng._graph_launches, eng._piggyback_launches):
+        assert rec.sub["paged_decode"][form] == K * eng.cfg.num_layers
+
+
+def test_fp8_engine_on_the_card_matches_the_cpu():
+    """An f32 engine on an fp8 pool with the in-dot read: greedy ids on the
+    card (graph ticks, a piggybacked chunk) equal the CPU engine's."""
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 255, (n,), generator=gen).tolist() for n in (40, 300, 700)]
+
+    def run(device):
+        eng = _engine(torch.float32, device=device, kv_cache_dtype="fp8", attn_fp8=True)
+        eng._running = True
+        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+        for _ in range(500):
+            if all(f.done() for f in futs):
+                break
+            eng._loop_iteration()
+        return [f.result(timeout=0).token_ids for f in futs], eng.decode_path_stats()
+
+    card, dec = run("cuda")
+    cpu, _ = run("cpu")
+    assert card == cpu
+    assert dec["cuda_graph"] and dec["attn_fp8"] and dec["prefill_chunks_piggybacked"] > 0
 
 
 def test_capture_needs_scratch_and_recording():
@@ -542,7 +593,7 @@ def test_spec_rung_graphs_replay_bitwise_and_count_their_launches(dtype, route):
     for rung, (graph, rec) in eng._spec_graphs.items():
         assert {k: n for k, n in rec.launches.items() if n} == {
             "paged_tree": steps * L, "sample": steps}
-        assert rec.sub["paged_tree"][route] == steps * L
+        assert kernels.by_route(rec.sub["paged_tree"])[route] == steps * L
         state = [t.clone() for t in _spec_state(eng, rung)]
         graph.replay()
         torch.cuda.synchronize()
@@ -564,7 +615,7 @@ def test_spec_rung_graphs_replay_bitwise_and_count_their_launches(dtype, route):
         eng._launch_spec_tick(rung)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["paged_tree"] == 3 * steps * L
-    assert kernels.PAGED_TREE_ROUTES[route] == 3 * steps * L
+    assert kernels.by_route(kernels.PAGED_TREE_FORMS)[route] == 3 * steps * L
 
 
 def test_spec_engine_on_the_card_matches_cpu_and_plain():

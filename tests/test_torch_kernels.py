@@ -20,6 +20,8 @@ from django_assistant_bot_tpu_torch.ops.attention import (
     flash_attention_plain,
     flash_bf16_bound,
     paged_bf16_bound,
+    paged_fp8_dot_bound,
+    paged_fp8_dot_probe,
     paged_gqa_decode_attention,
     paged_gqa_decode_attention_plain,
     paged_tree_attention,
@@ -37,6 +39,7 @@ from django_assistant_bot_tpu_torch.ops.quant import (
     qgemm_bf16_bound,
     tied_head,
     tied_head_bf16_bound,
+    to_kv_dtype,
 )
 from django_assistant_bot_tpu_torch.ops.sampling import (
     gumbel_noise,
@@ -230,11 +233,11 @@ def _paged_inputs(dtype, D, G, *, page, NB, positions, inactive, KH=2, offset=0)
 def test_paged_kernel_matches_plain(dtype, window, D, G, layout):
     args, active = _paged_inputs(dtype, D, G, **layout)
     before = kernels.launch_counts()["paged_decode"]
-    routes = dict(kernels.PAGED_ROUTES)
+    routes = kernels.by_route(kernels.PAGED_FORMS)
     out = paged_gqa_decode_attention(*args, active=active, window=window)
     assert kernels.launch_counts()["paged_decode"] == before + 1
     route = "mma" if dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS else "cuda_core"
-    assert kernels.PAGED_ROUTES[route] == routes[route] + 1
+    assert kernels.by_route(kernels.PAGED_FORMS)[route] == routes[route] + 1
     q, k_pool, v_pool, bt, pos = args
     fargs = (q.float(), k_pool.float(), v_pool.float(), bt, pos)
     ref = paged_gqa_decode_attention_plain(*fargs, active=active, window=window)
@@ -271,10 +274,10 @@ def test_paged_kernel_off_16_bytes_takes_cuda_core_route(D):
     layout = dict(page=64, NB=4, positions=[3, 70, 200, 255], inactive=[1], KH=8)
     args, active = _paged_inputs(torch.bfloat16, D, 4, offset=4, **layout)
     assert all(t.data_ptr() % 16 == 8 for t in args[:3])
-    routes = dict(kernels.PAGED_ROUTES)
+    routes = kernels.by_route(kernels.PAGED_FORMS)
     out = paged_gqa_decode_attention(*args, active=active)
-    assert kernels.PAGED_ROUTES["cuda_core"] == routes["cuda_core"] + 1
-    assert kernels.PAGED_ROUTES["mma"] == routes["mma"]
+    assert kernels.by_route(kernels.PAGED_FORMS) == {
+        "mma": routes["mma"], "cuda_core": routes["cuda_core"] + 1}
     q, k_pool, v_pool, bt, pos = args
     fargs = (q.float(), k_pool.float(), v_pool.float(), bt, pos)
     ref = paged_gqa_decode_attention_plain(*fargs, active=active)
@@ -299,6 +302,152 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
             q, pool, pool, torch.zeros((1, 2), dtype=torch.int32, device="cuda"),
             torch.zeros((1,), dtype=torch.int32, device="cuda"),
         )
+
+
+# ------------------------------------------------------------- narrow pools
+# the pool formats a paged read takes besides q's own (kv_cache_dtype)
+_KV = {"bf16": torch.bfloat16, "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+
+
+def _narrow(pool, kv):
+    return to_kv_dtype(pool, _KV[kv])
+
+
+def _assert_within(out, ref, bound):
+    diff = (out.float() - ref).abs()
+    assert bool(torch.isfinite(out).all())
+    assert bool((diff <= bound).all()), (diff / bound).max().item()
+
+
+_NARROW_CASES = [
+    # (q dtype, D, G, window, layout): the tensor-core kernel at both head
+    # dims and every group size, the CUDA-core kernels at the tiny model's
+    # D 16 and at 256, the main path's shape, a window inside a chunk, 260
+    # slots, a page off the 64-key chunk
+    *((torch.bfloat16, D, G, w, _PAGED_DEFAULT) for D in (64, 128) for G in (1, 2, 4, 8)
+      for w in (None, 40)),
+    (torch.bfloat16, 16, 2, None, _PAGED_DEFAULT),
+    (torch.bfloat16, 256, 2, 40, _PAGED_DEFAULT),
+    (torch.float32, 16, 2, None, _PAGED_DEFAULT),
+    (torch.float32, 128, 4, 40, _PAGED_DEFAULT),
+    (torch.float32, 64, 8, None, _PAGED_DEFAULT),
+    (torch.bfloat16, 128, 4, None,
+     dict(page=512, NB=8, positions=[5, 511, 512, 1041, 1836, 4095, 1500, 700], inactive=[6],
+          KH=8)),
+    (torch.bfloat16, 128, 4, 100,
+     dict(page=512, NB=4, positions=[1000, 1500, 2047, 1100], inactive=[3])),
+    (torch.bfloat16, 128, 4, None,
+     dict(page=16, NB=2, positions=[(7 * i) % 32 for i in range(260)], inactive=[])),
+    (torch.bfloat16, 128, 4, None,
+     dict(page=100, NB=5, positions=[499, 99, 100, 250], inactive=[])),
+]
+
+
+@pytest.mark.parametrize("kv,fp8_dot", [("e4m3", False), ("e5m2", False), ("e4m3", True),
+                                        ("e5m2", True), ("bf16", False)])
+@pytest.mark.parametrize("dtype,D,G,window,layout", _NARROW_CASES)
+def test_paged_kernel_reads_narrow_pools(dtype, D, G, window, layout, kv, fp8_dot):
+    """K1 (the dequant read of a bf16 or fp8 pool) and K2 (the fp8 in-dot
+    read) against the plain twin on the same pools: the dequant read of a
+    bf16 output within ``paged_bf16_bound`` (the widening is exact), of an
+    f32 output within 1e-4; the in-dot read within ``paged_fp8_dot_bound``.
+    The call takes the expected route and is counted under its read."""
+    if kv == "bf16" and dtype == torch.bfloat16:
+        pytest.skip("a bf16 pool under bf16 queries is the native read")
+    args, active = _paged_inputs(dtype, D, G, **layout)
+    q, k_pool, v_pool, bt, pos = args
+    k_pool, v_pool = _narrow(k_pool, kv), _narrow(v_pool, kv)
+    route = "mma" if dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS else "cuda_core"
+    form = f"{route}:{kv}/{'in_dot' if fp8_dot else 'dequant'}"
+    forms = dict(kernels.PAGED_FORMS)
+    out = paged_gqa_decode_attention(q, k_pool, v_pool, bt, pos, active=active, window=window,
+                                     fp8_dot=fp8_dot)
+    assert kernels.PAGED_FORMS[form] == forms[form] + 1
+    fargs = (q.float(), k_pool, v_pool, bt, pos)
+    ref = paged_gqa_decode_attention_plain(*fargs, active=active, window=window,
+                                           fp8_dot=fp8_dot)
+    if fp8_dot:
+        bound = paged_fp8_dot_bound(*fargs, ref, active=active, window=window)
+    elif dtype == torch.bfloat16:
+        bound = paged_bf16_bound(*fargs, ref, active=active, window=window)
+    else:
+        bound = torch.full_like(ref, F32_TOL)
+    _assert_within(out, ref, bound)
+
+
+_PHASE2_LAYOUT = dict(page=512, NB=8, positions=[5, 511, 512, 1041, 1836, 4095, 1500, 700],
+                     inactive=[6], KH=8)
+
+
+@pytest.mark.parametrize("kv", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("dtype,D,G,layout", [
+    # the tensor-core kernel and the CUDA-core kernels, at the main path's
+    # shape and at the small default one
+    (torch.bfloat16, 128, 4, _PHASE2_LAYOUT),
+    (torch.bfloat16, 64, 8, _PAGED_DEFAULT),
+    (torch.float32, 128, 4, _PHASE2_LAYOUT),
+    (torch.float32, 16, 2, _PAGED_DEFAULT),
+])
+def test_paged_kernel_indot_rounds_p_as_the_twin(dtype, D, G, layout, kv):
+    """K2 on ``paged_fp8_dot_probe``'s inputs, where the kernel and the twin
+    round every p at the same scale: within ``paged_bf16_bound`` of the
+    twin.  The control, K1 (the dequant read) on the same inputs, has the
+    same scores and P not rounded to fp8, and misses that bound."""
+    (_, _, _, bt, pos), active = _paged_inputs(dtype, D, G, **layout)
+    KH = layout.get("KH", 2)
+    B, page = len(layout["positions"]), layout["page"]
+    P = B * layout["NB"] + 3  # as _paged_inputs: its sentinels lie past P
+    q, k_pool, v_pool = (t.cuda() for t in paged_fp8_dot_probe(
+        B, KH * G, KH, D, P, page, _KV[kv], dtype, torch.Generator().manual_seed(0)))
+    args = (q, k_pool, v_pool, bt, pos)
+    ref = paged_gqa_decode_attention_plain(q.float(), *args[1:], active=active, fp8_dot=True)
+    bound = paged_bf16_bound(q.float(), *args[1:], ref, active=active)
+    _assert_within(paged_gqa_decode_attention(*args, active=active, fp8_dot=True), ref, bound)
+    control = paged_gqa_decode_attention(*args, active=active)
+    assert not bool(((control.float() - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("kv,fp8_dot", [("e4m3", False), ("e5m2", True), ("e4m3", True)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_kernel_narrow_pools_repeat_bitwise(D, kv, fp8_dot):
+    layout = dict(page=512, NB=8, positions=[5, 511, 512, 1041, 1836, 4095, 1500, 700],
+                  inactive=[6])
+    (q, kp, vp, bt, pos), active = _paged_inputs(torch.bfloat16, D, 4, KH=8, **layout)
+    args = (q, _narrow(kp, kv), _narrow(vp, kv), bt, pos)
+    first = paged_gqa_decode_attention(*args, active=active, fp8_dot=fp8_dot)
+    other, other_active = _paged_inputs(torch.bfloat16, D, 4, KH=8, **_PAGED_DEFAULT)
+    paged_gqa_decode_attention(*other, active=other_active, window=40)
+    second = paged_gqa_decode_attention(*args, active=active, fp8_dot=fp8_dot)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_paged_kernel_refuses_pools_it_does_not_take():
+    (q, kp, vp, bt, pos), active = _paged_inputs(torch.bfloat16, 128, 4, **_PAGED_DEFAULT)
+    with pytest.raises(ValueError, match="fp8"):  # in-dot needs an fp8 pool
+        paged_gqa_decode_attention(q, kp, vp, bt, pos, active=active, fp8_dot=True)
+    with pytest.raises(TypeError):  # an f32 pool under bf16 queries
+        paged_gqa_decode_attention(q, kp.float(), vp.float(), bt, pos, active=active)
+    with pytest.raises(TypeError):  # K and V in two formats
+        paged_gqa_decode_attention(q, _narrow(kp, "e4m3"), _narrow(vp, "e5m2"), bt, pos)
+
+
+def test_kv_cast_on_the_card_matches_the_cpu():
+    """``to_kv_dtype`` on the card gives the CPU's bits (which the CPU tests
+    hold to JAX's ``astype``) on a grid over +-500, the e5m2 overflow edge,
+    subnormals, inf and NaN, from f32 and from bf16; NaN as NaN."""
+    grid = np.concatenate([
+        np.linspace(-500, 500, 100_001), [464, -464, 464.0001, 61440, -61440, 61439.99, 57344,
+                                          65536, 1e6, np.inf, -np.inf, np.nan, -0.0],
+        2.0 ** -np.arange(6, 20), -(2.0 ** -np.arange(6, 20)) * 1.37]).astype(np.float32)
+    for src in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(grid).to(src)
+        for kv in ("e4m3", "e5m2"):
+            cpu = to_kv_dtype(x, _KV[kv])
+            card = to_kv_dtype(x.cuda(), _KV[kv]).cpu()
+            nan = torch.isnan(cpu.float())
+            assert torch.equal(torch.isnan(card.float()), nan)
+            assert torch.equal(card.view(torch.uint8)[~nan], cpu.view(torch.uint8)[~nan])
 
 
 def _tree_inputs(dtype, D, G, *, page, NB, lengths, width=4, depth=4, KH=2, offset=0,
@@ -377,11 +526,11 @@ _TREE_MAIN = dict(page=512, NB=8, KH=8, lengths=[105, 355, 485, 915, 0, 4000, 15
 def test_paged_tree_kernel_matches_plain(dtype, window, D, G, layout):
     args = _tree_inputs(dtype, D, G, **layout)
     before = kernels.launch_counts()["paged_tree"]
-    routes = dict(kernels.PAGED_TREE_ROUTES)
+    routes = kernels.by_route(kernels.PAGED_TREE_FORMS)
     out = paged_tree_attention(*args, window=window)
     assert kernels.launch_counts()["paged_tree"] == before + 1
     route = "mma" if dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS else "cuda_core"
-    assert kernels.PAGED_TREE_ROUTES[route] == routes[route] + 1
+    assert kernels.by_route(kernels.PAGED_TREE_FORMS)[route] == routes[route] + 1
     _assert_tree_close(out, args, window)
 
 
@@ -405,10 +554,10 @@ def test_paged_tree_kernel_repeats_bitwise(D):
 def test_paged_tree_kernel_off_16_bytes_takes_cuda_core_route(D):
     args = _tree_inputs(torch.bfloat16, D, 4, offset=4, page=64, NB=4, lengths=[3, 70, 200, 0])
     assert all(t.data_ptr() % 16 == 8 for t in (args[0], args[1], args[2]))
-    routes = dict(kernels.PAGED_TREE_ROUTES)
+    routes = kernels.by_route(kernels.PAGED_TREE_FORMS)
     out = paged_tree_attention(*args)
-    assert kernels.PAGED_TREE_ROUTES["cuda_core"] == routes["cuda_core"] + 1
-    assert kernels.PAGED_TREE_ROUTES["mma"] == routes["mma"]
+    assert kernels.by_route(kernels.PAGED_TREE_FORMS) == {
+        "mma": routes["mma"], "cuda_core": routes["cuda_core"] + 1}
     _assert_tree_close(out, args, None)
 
 
@@ -424,6 +573,38 @@ def test_paged_tree_wrapper_refuses_what_it_does_not_take():
         paged_tree_attention(*args[:4], args[4].long(), *args[5:])
     with pytest.raises(TypeError):
         paged_tree_attention(args[0].half(), *args[1:])
+
+
+@pytest.mark.parametrize("kv", ["e4m3", "e5m2", "bf16"])
+@pytest.mark.parametrize(
+    "dtype,window,D,G,layout",
+    [
+        (torch.float32, None, 16, 2, dict(page=16, NB=6, lengths=[0, 9, 40, 95])),
+        (torch.float32, 7, 128, 4, dict(page=16, NB=6, lengths=[0, 9, 40, 95])),
+        (torch.bfloat16, None, 16, 2, dict(page=16, NB=6, lengths=[0, 9, 40, 95])),
+        *((torch.bfloat16, w, D, G, dict(page=64, NB=8, lengths=[0, 1, 63, 64, 300, 511]))
+          for D in (64, 128) for G in (1, 4, 8) for w in (None, 40)),
+        (torch.bfloat16, None, 128, 4, _TREE_MAIN),
+        (torch.bfloat16, 100, 128, 4, dict(page=512, NB=4, lengths=[1000, 1500, 2047, 1100])),
+        (torch.bfloat16, None, 128, 4, dict(page=64, NB=4, lengths=[200, 150], stale=(1,))),
+    ],
+)
+def test_paged_tree_kernel_reads_narrow_pools(dtype, window, D, G, layout, kv):
+    """K3: the tree read over bf16 / fp8 prefix pages (the tree's own K/V in
+    q's dtype) against the twin on the same pools, counted under its read."""
+    if kv == "bf16" and dtype == torch.bfloat16:
+        pytest.skip("a bf16 pool under bf16 queries is the native read")
+    args = list(_tree_inputs(dtype, D, G, **layout))
+    args[1], args[2] = _narrow(args[1], kv), _narrow(args[2], kv)
+    route = "mma" if dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS else "cuda_core"
+    form = f"{route}:{kv}/dequant"
+    forms = dict(kernels.PAGED_TREE_FORMS)
+    out = paged_tree_attention(*args, window=window)
+    assert kernels.PAGED_TREE_FORMS[form] == forms[form] + 1
+    _assert_tree_close(out, args, window)
+    again = paged_tree_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 def _knn_inputs(N, D, Q, seed, *, dup_rows=0):

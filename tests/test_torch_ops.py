@@ -231,12 +231,25 @@ def test_paged_bf16_bound_holds_for_jax(paged_bf16_inputs, window, active):
 
 
 def test_paged_decode_refuses_fp8():
-    q = torch.zeros(1, 2, 1, 16)
-    pool = torch.zeros(2, 1, 8, 16, dtype=torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="Queue 2 entry 5"):
-        paged_gqa_decode_attention(
-            q, pool, pool, torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
-        )
+    """An fp8 pool is served now (the dequant read and the in-dot scheme,
+    each equal to the JAX function within f32 summation order); what is
+    still refused is the JAX refusal: ``fp8_dot`` on a pool that is not fp8
+    raises naming fp8."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 4, 1, 16)).astype(np.float32)
+    k = rng.normal(size=(6, 2, 8, 16)).astype(np.float32)
+    v = rng.normal(size=(6, 2, 8, 16)).astype(np.float32)
+    bt = np.asarray([[4, 1, 6], [0, 2, 3]], np.int32)  # 6: a sentinel
+    pos = np.asarray([13, 20], np.int32)
+    jk, jv = (jnp.asarray(a).astype(jnp.float8_e4m3fn) for a in (k, v))
+    tk, tv = (_t(np.asarray(a.astype(jnp.float32))).to(torch.float8_e4m3fn) for a in (jk, jv))
+    for fp8_dot in (False, True):
+        want = np.asarray(jattn.paged_gqa_decode_attention(
+            jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(pos), fp8_dot=fp8_dot))
+        got = paged_gqa_decode_attention(_t(q), tk, tv, _t(bt), _t(pos), fp8_dot=fp8_dot)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="fp8"):
+        paged_gqa_decode_attention(_t(q), _t(k), _t(v), _t(bt), _t(pos), fp8_dot=True)
 
 
 # ------------------------------------------------------------------ sampling

@@ -329,11 +329,21 @@ def test_paged_tree_bf16_bound_holds_for_the_jax_function():
 
 
 def test_paged_tree_wrapper_refuses_fp8_pools():
+    """fp8 prefix pools are served now: the wrapper reads them as the JAX
+    function does (each page widened to q's dtype, the tree's own K/V in
+    q's dtype), equal to it within f32 summation order, in both formats."""
     c = _tree_case(14, [3, 4, 5, 6])
-    args = list(_tree_args(c))
-    args[1] = args[1].to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="Queue 2 entry 5"):
-        paged_tree_attention(*args)
+    for jdt, tdt in ((jnp.float8_e4m3fn, torch.float8_e4m3fn),
+                     (jnp.float8_e5m2, torch.float8_e5m2)):
+        jk, jv = (jnp.asarray(c[n]).astype(jdt) for n in ("k_pool", "v_pool"))
+        want = np.asarray(jax_paged_tree_attention(
+            jnp.asarray(c["q"]), jk, jv, jnp.asarray(c["bt"]), jnp.asarray(c["lengths"]),
+            jnp.asarray(c["tk"]), jnp.asarray(c["tv"]), jnp.asarray(c["anc"]),
+            jnp.asarray(c["depths"])))
+        args = list(_tree_args(c))
+        args[1], args[2] = (_t(np.asarray(a.astype(jnp.float32))).to(tdt) for a in (jk, jv))
+        got = paged_tree_attention(*args).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 # ------------------------------------------------------------ verify / commit
