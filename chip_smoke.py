@@ -6,7 +6,7 @@
 Needs one CUDA card, ``nvcc`` and the repository checkout around this file;
 without a card, or run from a directory that holds only this script, it
 exits non-zero before printing any result.  Phases, in the order they run
-(1-7, 11, 12, 8-10; any failure exits non-zero; each phase's wall seconds are
+(1-7, 11, 12, 13, 8-10; any failure exits non-zero; each phase's wall seconds are
 printed on a line of their own):
 
 1. environment (torch / CUDA versions, ``nvidia-smi`` name and power limit)
@@ -62,6 +62,15 @@ printed on a line of their own):
    their times beside the byte bound at 1 byte a pool value, the twin and
    the yardstick; and the pool writes' cast on the card against the CPU's
    bits (:func:`check_kv_cast`, with what torch's own CUDA cast does);
+   the chunked decode read over the legacy slot cache (``chunked_decode``,
+   the paged kernels' contiguous form; :func:`check_chunked`) at B 8, H
+   32, KH 8, D 128, S 4096, chunk 512: bf16 and f32 queries, the native,
+   dequant and in-dot reads of e4m3 and e5m2 caches, ragged rows with one
+   inactive, a window past chunk 0, a batch whose ``hi`` is 1, each within
+   its bound of the twin and bit-equal to ``paged_decode`` on the same K/V
+   laid out as pages, the in-dot read on the probe's inputs, and its time
+   at 10,208 and 1,868 live keys beside the bound, the twin and
+   ``scaled_dot_product_attention`` over the live chunks;
    the MoE kernels (``moe_route``, the
    grouped ``moe_gemm`` with its gate/up and down epilogues,
    ``moe_combine``) at Mixtral 8x7B's widths (:func:`check_moe`: T 8, 512
@@ -177,7 +186,16 @@ printed on a line of their own):
     4's, 32 paged launches a decode step all on the pool's fp8 read, TTFT
     and tok/s and the decode breakdown beside phase 4's; a spec engine on an
     fp8 pool (tree launches on the fp8 read);
-13. the phases' wall seconds, the ``kernels:`` launch-count line, the card
+13. (run right after phase 12, on phase 4's tensors) the legacy contiguous
+    KV layout at full width (:func:`legacy_phase`): a paged and a
+    ``kv_layout="legacy"`` engine (``decode_kv_chunk`` 512, a 4.3 GB slot
+    cache) cranked through one trace, greedy ids equal, a shared-prefix
+    pair hitting the pinned-prefix LRU; phase 4's four requests over
+    /dialog/ through the registry on the legacy spec twice:
+    ``chunked_decode`` launches = 32 x decode steps, TTFT, tok/s,
+    ``kv_read_frac`` and the replayed step beside phase 4's; an fp8
+    ``attn_fp8`` legacy engine for one run;
+14. the phases' wall seconds, the ``kernels:`` launch-count line, the card
     line, the per-kernel JSON line, and the final ``{"ok": true, ...}``
     line.
 """
@@ -932,6 +950,215 @@ def check_paged(gen, page: int) -> list:
             **result,
         })
     return entries
+
+
+# ----------------------------------------------- chunked decode (the legacy slot cache)
+def _chunked_case(B, H, KH, D, chunk, NB, dtype, positions, inactive, gen):
+    """Random queries and a slot cache ``[B, KH, NB * chunk, D]`` in
+    ``dtype`` for ``positions`` (rows in ``inactive`` off)."""
+    import torch
+
+    S = NB * chunk
+    q = torch.randn((B, H, 1, D), generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn((B, KH, S, D), generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn((B, KH, S, D), generator=gen, device="cuda", dtype=dtype)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    active = torch.ones(B, dtype=torch.bool)
+    active[list(inactive)] = False
+    return q, k, v, pos, active.cuda()
+
+
+def _as_pages(cache, chunk) -> tuple:
+    """The slot cache's chunks as a page pool (page ``b * NB + j`` is chunk
+    j of row b) and its identity block table."""
+    import torch
+
+    B, KH, S, D = cache.shape
+    NB = S // chunk
+    pool = cache.reshape(B, KH, NB, chunk, D).transpose(1, 2).reshape(B * NB, KH, chunk, D)
+    bt = torch.arange(B * NB, dtype=torch.int32, device=cache.device).reshape(B, NB)
+    return pool.contiguous(), bt
+
+
+def chunked_library_call(q, k, v, pos, active, chunk):
+    """The library yardstick of a chunked decode call (the port never calls
+    it): the cache sliced to the batch's live chunks, ``[:, :, :hi *
+    chunk]`` (a view: no copy), widened to q's dtype where it is narrower,
+    and one ``scaled_dot_product_attention`` under each row's causal mask
+    with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+
+    hi = int(pos[active].max()) // chunk + 1
+    kpos = torch.arange(hi * chunk, device=q.device)
+    mask = (kpos[None, :] <= pos[:, None].long())[:, None, None, :]
+
+    def call():
+        kk, vv = k[:, :, :hi * chunk], v[:, :, :hi * chunk]
+        if kk.dtype != q.dtype:
+            kk, vv = kk.to(q.dtype), vv.to(q.dtype)
+        return F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, enable_gqa=True)
+
+    return call
+
+
+def check_chunked(gen) -> list:
+    """The chunked decode read (``kernels.chunked_decode``: the paged
+    kernels' contiguous form over the legacy slot cache) against its twin:
+    bf16 and f32 queries; the native read, K1 (the dequant read) and K2
+    (the in-dot read) of e4m3 and e5m2 caches; ragged rows with one
+    inactive, a window whose lower chunk is past 0, a batch whose ``hi`` is
+    1; bf16 outputs within ``chunked_bf16_bound``, f32 within 1e-4, in-dot
+    within ``chunked_fp8_dot_bound``, each counted on its form
+    (``kernels.CHUNKED_FORMS``) and never as ``paged_decode``.  Every case
+    is also laid out as pages with an identity block table and read by
+    ``paged_decode``: the bytes must be equal (one reduction order).  K2 on
+    ``paged_fp8_dot_probe``'s inputs laid out as the cache: within
+    ``chunked_bf16_bound``, the dequant control outside it.  Then the
+    native bf16 read timed at B 8, H 32, KH 8, D 128, S 4096, chunk 512 at
+    10,208 and 1,868 live keys (phase 2's paged shapes): wall and device
+    ms, the byte bound and its share, the twin's ms, and
+    ``scaled_dot_product_attention`` over the live chunks."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        chunked_bf16_bound, chunked_fp8_dot_bound, chunked_gqa_decode_attention,
+        chunked_gqa_decode_attention_plain, paged_fp8_dot_probe, paged_gqa_decode_attention)
+    from django_assistant_bot_tpu_torch.ops.quant import to_kv_dtype
+
+    B, H, KH, D, chunk, NB = 8, 32, 8, 128, 512, 8
+    shapes = {
+        "timed": ([5, 511, 512, 1041, 1836, 4095, 1500, 700], [6], None),
+        "main-path": ([105, 355, 485, 915, 0, 0, 0, 0], [4, 5, 6, 7], None),
+        "window lo > 0": ([1000, 1500, 2047, 1100, 3000, 2500, 4000, 1200], [3], 700),
+        "hi = 1": ([0, 3, 511, 100, 0, 7, 1, 2], [], None),
+    }
+    worst = 0.0
+    for label, (positions, inactive, window) in shapes.items():
+        for qdtype in (torch.bfloat16, torch.float32):
+            q, k, v, pos, active = _chunked_case(B, H, KH, D, chunk, NB, qdtype, positions,
+                                                 inactive, gen)
+            for fmt, fp8_dot in ((None, False), ("e4m3", False), ("e5m2", False),
+                                 ("e4m3", True), ("e5m2", True)):
+                if fmt is None:
+                    kc, vc = k, v
+                else:
+                    kc, vc = (to_kv_dtype(t, _kv_dtype(fmt)) for t in (k, v))
+                route = "mma" if qdtype == torch.bfloat16 else "cuda_core"
+                form = f"{route}:{kernels.paged_read(qdtype, kc.dtype, fp8_dot)}"
+                before, forms = kernels.launch_counts(), dict(kernels.CHUNKED_FORMS)
+                kw = dict(chunk=chunk, active=active, window=window)
+                out = chunked_gqa_decode_attention(q, kc, vc, pos, fp8_dot=fp8_dot, **kw)
+                after = kernels.launch_counts()
+                if (after["chunked_decode"] != before["chunked_decode"] + 1
+                        or after["paged_decode"] != before["paged_decode"]
+                        or kernels.CHUNKED_FORMS[form] != forms[form] + 1):
+                    fail(f"chunked decode ({label}, {fmt}, fp8_dot {fp8_dot}) was not counted "
+                         f"once on {form}")
+                ref = chunked_gqa_decode_attention_plain(q.float(), kc, vc, pos, fp8_dot=fp8_dot,
+                                                         **kw)
+                if fp8_dot:
+                    bound, text = chunked_fp8_dot_bound(q.float(), kc, vc, pos, ref, **kw), \
+                        FP8_DOT_TEXT.replace("paged", "chunked")
+                elif qdtype == torch.bfloat16:
+                    bound, text = chunked_bf16_bound(q.float(), kc, vc, pos, ref, **kw), \
+                        BF16_P_TEXT
+                else:
+                    bound, text = torch.full_like(ref, F32_TOL), tol_text(qdtype)
+                kp, bt = _as_pages(kc, chunk)
+                vp, _ = _as_pages(vc, chunk)
+                paged = paged_gqa_decode_attention(q, kp, vp, bt, pos, active=active,
+                                                   window=window, fp8_dot=fp8_dot)
+                torch.cuda.synchronize()
+                live = active[:, None, None, None].expand_as(ref)
+                diff = (out.float() - ref).abs()
+                err, ratio = diff[live].max().item(), (diff / bound)[live].max().item()
+                same = torch.equal(out.view(torch.uint8), paged.view(torch.uint8))
+                log(f"  chunked {label} {str(qdtype)[6:]} q, "
+                    f"{'native' if fmt is None else fmt + (' in-dot' if fp8_dot else ' dequant')} "
+                    f"read, window={window}: max_abs_err {err:.3e}, worst err/bound "
+                    f"{ratio:.3f} ({text}), {form}; bit-equal to paged_decode on the same "
+                    f"K/V as pages: {same}")
+                if not ratio <= 1.0 or not bool(torch.isfinite(out[live]).all()):
+                    fail(f"chunked decode ({label}, {qdtype}, {fmt}, fp8_dot {fp8_dot}) "
+                         f"disagrees with its twin: err/bound {ratio} > 1")
+                if not same:
+                    fail(f"chunked decode ({label}, {qdtype}, {fmt}, fp8_dot {fp8_dot}) differs "
+                         "from paged_decode on the same K/V laid out as pages")
+                if qdtype == torch.bfloat16 and fmt is None:
+                    worst = max(worst, err)
+    # K2 on the probe's inputs laid out as the slot cache
+    for fmt in FP8_KV:
+        q, kp, vp = (t.cuda() for t in paged_fp8_dot_probe(
+            B, H, KH, D, B * NB, chunk, _kv_dtype(fmt), torch.float32,
+            torch.Generator().manual_seed(0)))
+        k, v = (t.view(torch.uint8).reshape(B, NB, KH, chunk, D).transpose(1, 2)
+                .reshape(B, KH, NB * chunk, D).contiguous().view(_kv_dtype(fmt)) for t in (kp, vp))
+        positions, inactive, _ = shapes["timed"]
+        _, _, _, pos, active = _chunked_case(B, H, KH, D, chunk, NB, torch.bfloat16, positions,
+                                             inactive, gen)
+        kw = dict(chunk=chunk, active=active)
+        ref = chunked_gqa_decode_attention_plain(q, k, v, pos, fp8_dot=True, **kw)
+        bound = chunked_bf16_bound(q, k, v, pos, ref, **kw)
+        for qdtype in (torch.bfloat16, torch.float32):
+            ratios = []
+            for fp8_dot in (True, False):
+                out = chunked_gqa_decode_attention(q.to(qdtype), k, v, pos, fp8_dot=fp8_dot, **kw)
+                torch.cuda.synchronize()
+                ratios.append(((out.float() - ref).abs() / bound).max().item())
+            log(f"  chunked {fmt} in-dot read on paged_fp8_dot_probe's inputs {str(qdtype)[6:]} "
+                f"q: worst err/bound {ratios[0]:.3f} ({PROBE_TEXT}); the control, the dequant "
+                f"read of the same scores: {ratios[1]:.3f}")
+            if not ratios[0] <= 1.0:
+                fail(f"chunked in-dot ({fmt}, {qdtype}) on the probe's inputs disagrees with its "
+                     f"twin: err/bound {ratios[0]} > 1")
+            if not ratios[1] > 1.0:
+                fail(f"the chunked in-dot probe ({fmt}, {qdtype}) cannot tell the in-dot read "
+                     f"from the dequant read: control err/bound {ratios[1]} <= 1")
+
+    result = {}
+    for label in ("timed", "main-path"):
+        positions, inactive, _ = shapes[label]
+        q, k, v, pos, active = _chunked_case(B, H, KH, D, chunk, NB, torch.bfloat16, positions,
+                                             inactive, gen)
+
+        def fn():
+            return chunked_gqa_decode_attention(q, k, v, pos, chunk=chunk, active=active)
+
+        out, again = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            fail(f"chunked_decode ({label} shape): two calls on the same inputs differ")
+        ms, dev = timed(fn, 200)
+        plain_ms = time_ms(lambda: chunked_gqa_decode_attention_plain(
+            q.float(), k.float(), v.float(), pos, chunk=chunk, active=active), 10)
+        lib = chunked_library_call(q, k, v, pos, active, chunk)
+        lib_err = (lib().float() - out.float())[active].abs().max().item()
+        lib_ms, lib_dev = timed(lib, 50)
+        live = paged_live_keys(positions, inactive, chunk, NB)
+        # no block table: NB = 0 leaves its bytes out of the bound
+        bound_ms, bound_by = paged_bound_ms(live, B, H, KH, D, 0)
+        log(f"  chunked timing ({label}) B={B} H={H} KH={KH} D={D} S={NB * chunk} chunk={chunk} "
+            f"bf16, {live} live keys: kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall "
+            f"{plain_ms:.4f} ms, library (the live chunks' slice + scaled_dot_product_attention "
+            f"with enable_gqa) wall {lib_ms:.4f} ms (device {lib_dev:.4f}; max |library - "
+            f"kernel| over active rows {lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}); "
+            f"share of the bound: wall {bound_ms / ms:.3f}, device {bound_ms / dev:.3f}")
+        if label == "timed":
+            result = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms)
+        else:
+            result.update(main_path_ms=ms, main_path_device_ms=dev,
+                          main_path_bound_ms=bound_ms, main_path_library_ms=lib_ms)
+    return [{
+        "name": "chunked_decode",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/paged_decode.cu",
+        "replaces": "django_assistant_bot_tpu/ops/attention.py:223",
+        "max_abs_err": worst,
+        **result,
+    }]
 
 
 def check_kv_cast() -> None:
@@ -3122,6 +3349,7 @@ def _serve(spec, eng, groups) -> list:
                     out.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
                                     routes=kernels.by_route(kernels.PAGED_FORMS),
                                     forms=dict(kernels.PAGED_FORMS),
+                                    chunked_forms=dict(kernels.CHUNKED_FORMS),
                                     tree_forms=dict(kernels.PAGED_TREE_FORMS),
                                     samples=sampling_steps(eng) - samp0,
                                     steps=eng.steps - steps0, kv0=kv0, kv1=eng.kv_stats(),
@@ -5220,6 +5448,178 @@ def mixtral_phase(card: str) -> dict:
     return moe_counts
 
 
+# --------------------------------------------------------------------- phase 13
+LEGACY_CHUNK = 512  # decode_kv_chunk of phase 13's engines: phase 4's page
+LEGACY_PREFIX_HEAD = 1500  # the shared-prefix pair's head, in tokens
+
+
+def _legacy_spec(name: str, **kw):
+    """A spec of the JAX ``ModelSpec`` defaults on the legacy layout, read
+    from a config mapping as ``cli serve`` reads one."""
+    from django_assistant_bot_tpu_torch.serving.registry import ModelSpec
+
+    conf = {"device": "cuda", "max_slots": 8, "max_seq_len": 4096, **kw}
+    return ModelSpec.from_dict(name, conf)
+
+
+def _crank_ids(eng, tok, waves) -> list:
+    """Greedy ids of ``waves`` (lists of chats, each submitted together after
+    the previous wave finished) on an engine driven by this thread alone
+    (``_loop_iteration``), so two engines see the same admissions and ticks;
+    a chat's messages before the last are its declared prefix."""
+    from django_assistant_bot_tpu_torch.serving import encode_chat_split
+
+    eng._running = True
+    out = []
+    for wave in waves:
+        futs = []
+        for msgs in wave:
+            ids, plen = encode_chat_split(tok, msgs)
+            futs.append(eng.submit(ids, max_tokens=32, temperature=0.0, prefix_len=plen))
+        _crank(eng, futs, limit=20000)
+        out += [f.result(timeout=0).token_ids for f in futs]
+    eng._running = False
+    return out
+
+
+def legacy_phase(card: str, cfg, params) -> dict:
+    """The legacy contiguous KV layout at full width over phase 4's bf16
+    Llama-3-8B tensors (the head's columns past the byte ids zeroed by
+    phase 7): a paged engine at phase 4's spec and a ``kv_layout="legacy"``
+    engine (8 slots, ``max_seq_len`` 4096, ``decode_kv_chunk`` 512: a
+    4.3 GB slot cache), both at the default loop, cranked through the same
+    trace (phase 4's four requests together, then a shared-prefix pair one
+    after the other): greedy ids equal, the pair's second request a hit of
+    the paged registry and of the legacy pinned-prefix LRU
+    (``prefix_entries``, ``prefix_bytes``).  Then phase 4's four requests
+    over /dialog/ through the registry on the legacy spec, twice, launch
+    counts zeroed before each run: ``chunked_decode`` = 32 x decode steps on
+    the tensor-core form, no ``paged_decode``; TTFT, tok/s per request and
+    ``kv_read_frac``; the replayed 8-step tick per step beside phase 4's.
+    Last a short ``kv_cache_dtype="fp8"`` + ``attn_fp8`` legacy engine: one
+    run, its chunked launches on the e4m3 in-dot form.  Returns the first
+    legacy run's launches and the fp8 run's."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.serving import ByteTokenizer
+
+    tok = ByteTokenizer()
+    messages = four_requests(tok)
+    pair = _rag_chats(tok, LEGACY_PREFIX_HEAD, [100, 120])  # one two-message head
+    waves = [list(messages.values()), pair[:1], pair[1:]]
+    name = "llama3-8b-legacy"
+    ids = {}
+    for layout in ("paged", "legacy"):
+        t0 = time.perf_counter()
+        kw = {"kv_layout": "legacy", "decode_kv_chunk": LEGACY_CHUNK} if layout == "legacy" else {}
+        spec = _legacy_spec(name, **kw)
+        engine, build_s = _build_engine(cfg, params, spec)
+        if layout == "legacy":
+            gib = pool_bytes(engine) / 2**30
+            log(f"  legacy engine: slot cache {tuple(engine._cache.k.shape)} x2 "
+                f"{engine._cache.k.dtype}, {gib:.2f} GiB; built in {build_s:.2f} s; decode path "
+                f"{engine.decode_path_stats()}")
+            if engine.paged or engine.decode_kv_chunk != LEGACY_CHUNK:
+                fail(f"the legacy spec built a {engine.kv_stats()} engine")
+        ids[layout] = _crank_ids(engine, tok, waves)
+        kv = engine.kv_stats()
+        log(f"  {layout}: the trace's ids in {time.perf_counter() - t0:.1f} s (build included); "
+            f"kv_stats {json.dumps(kv)}")
+        if kv["prefix_hits"] != 1:
+            fail(f"{layout}: the shared-prefix pair's second request did not hit: {kv}")
+        if layout == "legacy":
+            if kv["prefix_entries"] < 1 or kv["prefix_bytes"] <= 0:
+                fail(f"the legacy pinned-prefix LRU holds nothing after the pair: {kv}")
+            legacy_engine = engine
+        else:
+            del engine
+            gc_collect()
+    same = [a == b for a, b in zip(ids["paged"], ids["legacy"])]
+    log(f"  greedy ids legacy == paged, request by request: {same}")
+    if not all(same):
+        fail(f"legacy greedy ids differ from the paged engine's: {same}")
+
+    legacy_engine.reset()
+    spec = _legacy_spec(name, kv_layout="legacy", decode_kv_chunk=LEGACY_CHUNK)
+    runs = _serve(spec, legacy_engine, [list(messages.values())] * 2)
+    first = runs[0]
+    counts, steps = first["counts"], first["steps"]
+    forms = first.get("chunked_forms", {})
+    ttfts, rates = [], []
+    for run in runs:
+        t, r, _ = _check_dialogs(tok, list(messages.items()), run["results"])
+        ttfts += t
+        rates += r
+    log(f"  legacy /dialog/ through the registry, first run: {counts['chunked_decode']} "
+        f"chunked launches for {steps} decode steps ({counts['chunked_decode'] / max(1, steps):g} "
+        f"a step), by form {forms}, paged_decode {counts['paged_decode']}, flash "
+        f"{counts['flash_prefill']}")
+    if steps <= 0 or counts["chunked_decode"] != cfg.num_layers * steps:
+        fail(f"legacy: chunked launches {counts['chunked_decode']} != {cfg.num_layers} x {steps} "
+             "decode steps")
+    if counts["paged_decode"] != 0 or counts["flash_prefill"] <= 0:
+        fail(f"legacy: the run left the chunked read or skipped flash prefill: {counts}")
+    if forms.get("mma:native") != counts["chunked_decode"]:
+        fail(f"legacy: chunked launches left the tensor-core native read: {forms}")
+    st = legacy_engine.tick_stats()
+    log(f"  legacy readings over {len(runs)} runs of the four requests [{card}]: TTFT "
+        f"{_stat(ttfts)} (phase 4's paged engine: {_stat(PHASE4['ttfts'])}); decode "
+        f"{_stat(rates, 'tok/s')} per request (phase 4: {_stat(PHASE4['rates'], 'tok/s')}); "
+        f"kv_read_frac {st['kv_read_frac']}; ttft_p50_ms {st['ttft_p50_ms']}, itl_p50_ms "
+        f"{st['itl_p50_ms']}")
+    # the replayed tick per step at phase 4's breakdown positions (the
+    # engine was stopped by the server; its graph and buffers stay)
+    start = torch.tensor([5, 511, 512, 1041, 1836, 3000, 1500, 700], dtype=torch.int32,
+                         device="cuda")
+    tokens = torch.randint(1, 255, (8,), generator=torch.Generator(device="cuda").manual_seed(7),
+                           device="cuda", dtype=torch.int32)
+    K = legacy_engine.decode_steps
+    legacy_engine._active_dev.fill_(True)
+    legacy_engine._temps_dev.zero_()
+
+    def tick():
+        legacy_engine._cache.lengths.copy_(start)
+        legacy_engine._tokens_dev.copy_(tokens)
+        legacy_engine._launch_tick()
+
+    with torch.no_grad():
+        timing = [_sync_and_enqueue_ms(tick, 10, K) for _ in range(6)]
+        spans = [ms / K for ms in _event_span_ms(legacy_engine._graph.replay, 10)]
+    b4 = PHASE4["breakdown"]
+    per_step = legacy_engine._graph_launches.launches["chunked_decode"] // K
+    log(f"  legacy graph replay of the {K}-step tick, 8 slots, full width, per step over 6 "
+        f"batches of 10 replays: synchronised {_stat([w for w, _ in timing], 'ms')} (phase 4's "
+        f"paged tick {b4['replay_ms']:.4f} ms), graph span {_stat(spans, 'ms')} (phase 4 "
+        f"{b4['span_ms']:.4f} ms); {per_step} chunked launches per step (recorded at capture)")
+    if per_step != cfg.num_layers:
+        fail(f"the legacy tick's graph holds {per_step} chunked launches a step")
+    launches = {"native": counts["chunked_decode"]}
+    del legacy_engine
+    gc_collect()
+
+    t0 = time.perf_counter()
+    spec = _legacy_spec(name, kv_layout="legacy", decode_kv_chunk=LEGACY_CHUNK,
+                        kv_cache_dtype="fp8", attn_fp8=True)
+    engine, _ = _build_engine(cfg, params, spec)
+    (run,) = _serve(spec, engine, [list(messages.values())])
+    _check_dialogs(tok, list(messages.items()), run["results"])
+    counts, steps, forms = run["counts"], run["steps"], run.get("chunked_forms", {})
+    log(f"  fp8 attn_fp8 legacy engine ({engine._cache.k.dtype} slot cache, "
+        f"{pool_bytes(engine) / 2**30:.2f} GiB), one run: {counts['chunked_decode']} chunked "
+        f"launches for {steps} decode steps, by form {forms} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if steps <= 0 or counts["chunked_decode"] != cfg.num_layers * steps:
+        fail(f"fp8 legacy: chunked launches {counts['chunked_decode']} != {cfg.num_layers} x "
+             f"{steps}")
+    if forms.get("mma:e4m3/in_dot") != counts["chunked_decode"]:
+        fail(f"fp8 legacy: chunked launches left the e4m3 in-dot read: {forms}")
+    launches["e4m3/in_dot"] = counts["chunked_decode"]
+    del engine
+    gc_collect()
+    return launches
+
+
 def stop_engines() -> int:
     """Stop every engine an earlier phase left running (its loop thread
     holds it, and so its weights and pools, alive); returns how many."""
@@ -5285,7 +5685,8 @@ def main() -> int:
 
     phase(2, "kernels vs plain twins (the ANN kernels' checks run on phase 9's corpus)")
     # the engine's page at 4096 for paged decode
-    entries = [check_flash(gen), *check_paged(gen, page=512), *check_paged_tree(gen),
+    entries = [check_flash(gen), *check_paged(gen, page=512), *check_chunked(gen),
+               *check_paged_tree(gen),
                check_knn(gen), *check_qgemm(gen), check_qgemm_generic(gen), check_sample(gen),
                *check_moe(gen)]
 
@@ -5319,6 +5720,11 @@ def main() -> int:
     phase(12, "fp8 KV pools at full width over /dialog/ (kv_cache_dtype fp8 and fp8_e5m2, "
               "attn_fp8)")
     fp8_counts = fp8_phase(card, cfg, params)
+    gc_collect()
+
+    phase(13, "the legacy contiguous KV layout at full width over /dialog/ (the chunked "
+              "decode kernel)")
+    legacy_counts = legacy_phase(card, cfg, params)
     del params
     gc_collect()
 
@@ -5343,7 +5749,7 @@ def main() -> int:
     # requests, qgemm on phase 8's requests in its format, its generic route
     # on phase 3's int4 g=8 decoder, the ANN kernels on phase 9's searches,
     # the MoE kernels on phase 10's requests, the paged tree kernel on phase
-    # 11's requests
+    # 11's requests, the chunked decode on phase 13's
     for e in entries:
         if e["name"] in moe_counts:
             e["launches"] = moe_counts[e["name"]]
@@ -5351,6 +5757,8 @@ def main() -> int:
             e["launches"] = ann_counts[e["name"]]
         elif e["name"] == "paged_tree":
             e["launches"] = spec_counts["paged_tree"]
+        elif e["name"] == "chunked_decode":
+            e["launches"] = legacy_counts["native"]
         elif e["name"] == "paged_decode_fp8":
             e["launches"] = fp8_counts["mma:e4m3/dequant"]
         elif e["name"] == "paged_decode_fp8_dot":
@@ -5368,6 +5776,7 @@ def main() -> int:
     log(f"kernels: {json.dumps(counts)} (phase 4), {json.dumps(rag_counts)} (phase 6), "
         f"{json.dumps(stream_counts)} (phase 7, the streams), {json.dumps(spec_counts)} "
         f"(phase 11, the first spec run), {json.dumps(fp8_counts)} (phase 12, by form), "
+        f"chunked_decode {json.dumps(legacy_counts)} (phase 13, by form), "
         f"qgemm {json.dumps(q_counts)} "
         f"(phase 8), qgemm generic {generic_launches} (phase 3), {json.dumps(ann_counts)} "
         f"(phase 9), {json.dumps(moe_counts)} (phase 10)")

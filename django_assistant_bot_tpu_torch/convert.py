@@ -11,6 +11,10 @@ a tuple with ``q`` and ``scale`` fields of numpy arrays) becomes the port's
 (uint8 ``q``) with the same bytes and layout and f32 scales.  A MoE
 (Mixtral) tree's ``router``, ``w_gate``, ``w_up`` and ``w_down`` come across
 unchanged; quantized experts are refused (ROADMAP Queue 1 item 17).
+:func:`kv_cache_from_jax` and :func:`kv_cache_to_numpy` carry a legacy slot
+cache (the JAX ``KVCache``: ``k``, ``v``, ``lengths``) across both ways with
+its bytes unchanged, fp8 and bf16 leaves included, so that both packages
+can start from one cache state.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models.config import DecoderConfig, EncoderConfig
+from .models.llama import KVCache
 from .models.mixtral import QUANTIZED_EXPERTS
 from .ops.quant import QTensor, QTensor4
 
@@ -153,3 +158,46 @@ def ann_from_jax(arrays: Mapping[str, Any], device: DeviceLike = "cuda"):
             index._list_nums = index._list_counts.copy()
             index._trained = True
     return index
+
+
+# the narrow cache dtypes by numpy name (ml_dtypes' names) and their bits
+_NARROW = {"bfloat16": (torch.bfloat16, np.int16), "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8),
+           "float8_e5m2": (torch.float8_e5m2, np.uint8)}
+
+
+def _cache_leaf(arr: Any, device: torch.device) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name in _NARROW:
+        tdt, bits = _NARROW[a.dtype.name]
+        return torch.from_numpy(np.ascontiguousarray(a).view(bits).copy()).view(tdt).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def kv_cache_from_jax(cache: Any, device: DeviceLike = "cuda") -> KVCache:
+    """A JAX legacy ``KVCache`` with numpy leaves (``jax.tree.map(np.asarray,
+    cache)``; fields ``k``, ``v`` ``[L, B, KH, S, D]`` and ``lengths``) -> the
+    port's :class:`~.models.llama.KVCache` on ``device``, the same bytes
+    (f32, bf16, e4m3fn or e5m2 leaves)."""
+    dev = resolve_device(device)
+    return KVCache(k=_cache_leaf(cache.k, dev), v=_cache_leaf(cache.v, dev),
+                   lengths=_cache_leaf(cache.lengths, dev).to(torch.int32))
+
+
+def kv_cache_to_numpy(cache: KVCache) -> dict:
+    """The port's legacy cache -> ``{"k", "v", "lengths"}`` numpy arrays with
+    the same bytes: f32 as f32, bf16 and fp8 as ``ml_dtypes`` arrays (numpy
+    has no such dtypes), which ``jnp.asarray`` takes as they are."""
+    by_dtype = {tdt: (n, bits) for n, (tdt, bits) in _NARROW.items()}
+    out = {}
+    for name in ("k", "v"):
+        t = getattr(cache, name).detach().cpu().contiguous()
+        if t.dtype not in by_dtype:
+            out[name] = t.numpy().copy()
+            continue
+        import ml_dtypes  # the narrow formats' numpy dtypes, for the caller's arrays
+
+        n, bits = by_dtype[t.dtype]
+        raw = t.view(torch.int16 if bits is np.int16 else torch.uint8).numpy()
+        out[name] = raw.copy().view(getattr(ml_dtypes, n))
+    out["lengths"] = cache.lengths.detach().cpu().numpy().astype(np.int32)
+    return out

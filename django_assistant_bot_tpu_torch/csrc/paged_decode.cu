@@ -17,6 +17,16 @@
 // indot (its fp8_dot, :287-297) the query is quantized to the pool's fp8
 // format first (see paged_mma_kernel).
 //
+// The contiguous form (dabt_chunked_decode) replaces
+// `chunked_gqa_decode_attention` (:109-225, the fori_loop at :223): the
+// same kernels over the legacy slot cache [B, KH, S, D] with no block
+// table, chunk c of row b read in place at b*KH*S*D + kh*S*D + c*chunk*D
+// (the page is the chunk; the row's NB = S / chunk chunks are its logical
+// blocks; see block_index).  Nothing else differs: the same work split,
+// reduction order and rounding, so a paged read whose pages hold a
+// contiguous cache's chunks gives the same bytes (the contract
+// tests/test_kv_paging.py:229-283 pins in the JAX package).
+//
 // What bounds it on the H100: each key is used by the G = H / KH query heads
 // of one token, so the work is ~4 G operations per 2 D bytes of K/V read
 // (per D bytes from an fp8 pool), far below the card's ~295 operations per
@@ -247,6 +257,19 @@ __device__ __forceinline__ void batch_range(const int* positions, const uint8_t*
   if (window > 0) lo = min(max(min_pos - window + 1, 0) / page, hi);
 }
 
+// The (page, KV head) block that holds logical block ci of (slot b, KV head
+// kh), whose first element is at block * page * D: through the block table,
+// page phys of the pool [P, KH, page, D] (sentinels >= P clamp to P - 1, as
+// the JAX code clamps) -> phys * KH + kh; with no block table, chunk ci of
+// row b in the contiguous slot cache [B, KH, NB * page, D] -> (b * KH + kh)
+// * NB + ci.  An int, as the page index was: a 64-bit address per ring
+// stage costs the D = 128, G = 8 kernel spills.
+__device__ __forceinline__ int block_index(const int* block_tables, int b, int kh, int ci,
+                                           int KH, int P, int NB) {
+  if (block_tables == nullptr) return (b * KH + kh) * NB + ci;
+  return min(max(block_tables[(size_t)b * NB + ci], 0), P - 1) * KH + kh;
+}
+
 // (min 1 block per SM: ptxas may take up to 255 registers, which keeps the
 // larger variants from spilling)
 //
@@ -333,10 +356,8 @@ paged_decode_split_kernel(const T* __restrict__ q, const void* __restrict__ k_po
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
-  const int* bt = block_tables + (size_t)b * NB;
   for (int ci = c_lo; ci < c_hi; ++ci) {
-    const int phys = min(max(bt[ci], 0), P - 1);
-    const size_t base = ((size_t)phys * KH + kh) * page * D;
+    const size_t base = (size_t)block_index(block_tables, b, kh, ci, KH, P, NB) * page * D;
     const int first = ci * page;
     for (int t0 = warp * U; t0 < page; t0 += NW * U) {
       if (first + t0 > pos) break;  // rows run in increasing t: the rest are masked
@@ -648,10 +669,10 @@ __device__ __forceinline__ Item locate(int i, const int* s_items, int B, int KH,
   return it;
 }
 
-// the item's physical page: sentinels (>= P) clamp to P - 1, as the JAX code
-__device__ __forceinline__ int phys_page(const Item& it, const int* block_tables, int P,
-                                         int NB) {
-  return min(max(block_tables[(size_t)it.b * NB + it.pi], 0), P - 1);
+// the item's block (see block_index)
+__device__ __forceinline__ int item_block(const Item& it, const int* block_tables, int KH, int P,
+                                          int NB) {
+  return block_index(block_tables, it.b, it.kh, it.pi, KH, P, NB);
 }
 
 // The blocks' item ranges: block k takes [run_start(k), run_start(k + 1)) of
@@ -676,10 +697,10 @@ __device__ __forceinline__ bool key_live(const Item& it, int kc, int page) {
 // not read are zero-filled, not loaded
 template <int D>
 __device__ __forceinline__ void load_item_fp8(uint8_t* ks, uint8_t* vs, const uint8_t* k_pool,
-                                              const uint8_t* v_pool, const Item& it, int phys,
-                                              int KH, int page, int tid) {
+                                              const uint8_t* v_pool, const Item& it, int blk,
+                                              int page, int tid) {
   constexpr int CPR = D / 16;  // 16-byte chunks per row
-  const size_t base = (((size_t)phys * KH + it.kh) * page + it.off) * D;
+  const size_t base = ((size_t)blk * page + it.off) * D;
 #pragma unroll
   for (int i = 0; i < CK * CPR / MT; ++i) {
     const int idx = tid + i * MT;
@@ -721,9 +742,9 @@ template <int D>
 __device__ __forceinline__ void load_item(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                           const __nv_bfloat16* k_pool,
                                           const __nv_bfloat16* v_pool, const Item& it,
-                                          int phys, int KH, int page, int tid) {
+                                          int blk, int page, int tid) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
-  const size_t base = (((size_t)phys * KH + it.kh) * page + it.off) * D;
+  const size_t base = ((size_t)blk * page + it.off) * D;
 #pragma unroll
   for (int i = 0; i < CK * CPR / MT; ++i) {
     const int idx = tid + i * MT;
@@ -791,16 +812,16 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
   const bool kind = kfmt == KV_E4M3;  // else e5m2 (FP8)
 
   // the item's K and V into ring stage `stage`
-  auto load_stage = [&](int stage, const Item& it, int phys) {
+  auto load_stage = [&](int stage, const Item& it, int blk) {
     if constexpr (FP8) {
       load_item_fp8<D>(Kr + stage * CK * D, Vr + stage * CK * D,
                        static_cast<const uint8_t*>(k_pool), static_cast<const uint8_t*>(v_pool),
-                       it, phys, KH, page, tid);
+                       it, blk, page, tid);
     } else {
       load_item<D>(reinterpret_cast<__nv_bfloat16*>(Kr) + stage * CK * D,
                    reinterpret_cast<__nv_bfloat16*>(Vr) + stage * CK * D,
                    static_cast<const __nv_bfloat16*>(k_pool),
-                   static_cast<const __nv_bfloat16*>(v_pool), it, phys, KH, page, tid);
+                   static_cast<const __nv_bfloat16*>(v_pool), it, blk, page, tid);
     }
   };
 
@@ -849,21 +870,21 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
   // the first items' block-table entries are all read before any copy
   // is issued, so their latencies overlap
   Item first[STAGES - 1];
-  int first_phys[STAGES - 1];
+  int first_blk[STAGES - 1];
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     first[s] = DABT_LOCATE(min(i0 + s, i1 - 1));
-    first_phys[s] = phys_page(first[s], block_tables, P, NB);
+    first_blk[s] = item_block(first[s], block_tables, KH, P, NB);
   }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (i0 + s < i1) load_stage(s, first[s], first_phys[s]);
+    if (i0 + s < i1) load_stage(s, first[s], first_blk[s]);
     cp_async_commit();
   }
   // the item after those, located one step early: its block-table read is
   // in flight while an item computes, off the path of the next refill
   Item nx = DABT_LOCATE(min(i0 + STAGES - 1, i1 - 1));
-  int nx_phys = phys_page(nx, block_tables, P, NB);
+  int nx_blk = item_block(nx, block_tables, KH, P, NB);
 
   // ldmatrix row addresses, as in flash_prefill.cu: lane l names row
   // (l % 16) of a 16-row A tile, chunk l / 16; for K's B fragments, row
@@ -884,12 +905,12 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k
   for (int i = i0; i < i1; ++i) {
     const int st = (i - i0) % STAGES;
     if (i + STAGES - 1 < i1) {  // refill the stage the previous item used
-      load_stage((i - i0 + STAGES - 1) % STAGES, nx, nx_phys);
+      load_stage((i - i0 + STAGES - 1) % STAGES, nx, nx_blk);
     }
     cp_async_commit();
     if (i + STAGES < i1) {
       nx = DABT_LOCATE(i + STAGES);
-      nx_phys = phys_page(nx, block_tables, P, NB);
+      nx_blk = item_block(nx, block_tables, KH, P, NB);
     }
 
     const Item it = DABT_LOCATE(i);
@@ -1305,29 +1326,14 @@ extern "C" long long dabt_paged_decode_scratch(int mma, int kfmt, int B, int H, 
   return -1;
 }
 
-// dtype: q's, 0 = float32, 1 = bfloat16.  kfmt: the pools' storage format,
-// 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn, 3 = float8_e5m2: q's own,
-// bf16 under f32 queries, or fp8.  indot = 1: the fp8 in-dot read (fp8
-// pools only); 0: the dequant read (values widened exactly to q's type, P
-// rounded to q's type).  active may be null (every row active).  mma: the
-// route, as for dabt_paged_decode_scratch; the tensor-core kernel copies 16
-// bytes at a time, so q and the pools must lie on 16-byte boundaries for it.
-// scratch: scratch_floats f32, at least what dabt_paged_decode_scratch
-// asks; counters: B * KH int32, zero before the first call (each call
-// leaves them zero).  window <= 0 means no sliding window.  Returns a
-// cudaError_t (0 = success).
-extern "C" int dabt_paged_decode(const void* q, const void* k_pool, const void* v_pool,
-                                 void* out, const void* block_tables,
-                                 const void* positions, const void* active, void* scratch,
-                                 long long scratch_floats, void* counters, int mma, int dtype,
-                                 int kfmt, int indot, int B, int H, int KH, int P, int page,
-                                 int NB, int D, int window, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* pos = static_cast<const int*>(positions);
-  const uint8_t* act = static_cast<const uint8_t*>(active);
-  float* sc = static_cast<float*>(scratch);
-  int* cnt = static_cast<int*>(counters);
+namespace {
+
+// One paged or contiguous decode read (block_tables null: the contiguous
+// slot cache, see block_index); the arguments as dabt_paged_decode's.
+int decode(const void* q, const void* k_pool, const void* v_pool, void* out,
+           const int* bt, const int* pos, const uint8_t* act, float* sc,
+           long long scratch_floats, int* cnt, int mma, int dtype, int kfmt, int indot, int B,
+           int H, int KH, int P, int page, int NB, int D, int window, cudaStream_t s) {
   if (!shapes_taken(B, H, KH, page, NB)) return (int)cudaErrorInvalidValue;
   const bool f8 = kfmt == KV_E4M3 || kfmt == KV_E5M2;
   if (kfmt < KV_F32 || kfmt > KV_E5M2 || (indot && !f8) || (dtype == 1 && kfmt == KV_F32) ||
@@ -1368,4 +1374,48 @@ extern "C" int dabt_paged_decode(const void* q, const void* k_pool, const void* 
   DABT_D(__nv_bfloat16, 1, 256)
 #undef DABT_D
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: q's, 0 = float32, 1 = bfloat16.  kfmt: the pools' storage format,
+// 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn, 3 = float8_e5m2: q's own,
+// bf16 under f32 queries, or fp8.  indot = 1: the fp8 in-dot read (fp8
+// pools only); 0: the dequant read (values widened exactly to q's type, P
+// rounded to q's type).  active may be null (every row active).  mma: the
+// route, as for dabt_paged_decode_scratch; the tensor-core kernel copies 16
+// bytes at a time, so q and the pools must lie on 16-byte boundaries for it.
+// scratch: scratch_floats f32, at least what dabt_paged_decode_scratch
+// asks; counters: B * KH int32, zero before the first call (each call
+// leaves them zero).  window <= 0 means no sliding window.  Returns a
+// cudaError_t (0 = success).
+extern "C" int dabt_paged_decode(const void* q, const void* k_pool, const void* v_pool,
+                                 void* out, const void* block_tables,
+                                 const void* positions, const void* active, void* scratch,
+                                 long long scratch_floats, void* counters, int mma, int dtype,
+                                 int kfmt, int indot, int B, int H, int KH, int P, int page,
+                                 int NB, int D, int window, void* stream) {
+  if (block_tables == nullptr) return (int)cudaErrorInvalidValue;
+  return decode(q, k_pool, v_pool, out, static_cast<const int*>(block_tables),
+                static_cast<const int*>(positions), static_cast<const uint8_t*>(active),
+                static_cast<float*>(scratch), scratch_floats, static_cast<int*>(counters), mma,
+                dtype, kfmt, indot, B, H, KH, P, page, NB, D, window,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The contiguous form: k_cache, v_cache are the slot cache [B, KH, S, D]
+// (one layer of the legacy KV cache), read in chunk-wide slices (chunk
+// divides S; the chunk takes the page's part everywhere above).  The other
+// arguments and the scratch (dabt_paged_decode_scratch with page = chunk,
+// NB = S / chunk) as dabt_paged_decode's.
+extern "C" int dabt_chunked_decode(const void* q, const void* k_cache, const void* v_cache,
+                                   void* out, const void* positions, const void* active,
+                                   void* scratch, long long scratch_floats, void* counters,
+                                   int mma, int dtype, int kfmt, int indot, int B, int H, int KH,
+                                   int S, int chunk, int D, int window, void* stream) {
+  if (chunk <= 0 || S % chunk != 0) return (int)cudaErrorInvalidValue;
+  return decode(q, k_cache, v_cache, out, nullptr, static_cast<const int*>(positions),
+                static_cast<const uint8_t*>(active), static_cast<float*>(scratch),
+                scratch_floats, static_cast<int*>(counters), mma, dtype, kfmt, indot, B, H, KH,
+                B, chunk, S / chunk, D, window, static_cast<cudaStream_t>(stream));
 }

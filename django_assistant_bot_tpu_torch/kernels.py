@@ -61,6 +61,9 @@ KERNELS = {
     "moe_combine": ("moe_route", "dabt_moe_combine"),
     "moe_gemm": ("moe_gemm", "dabt_moe_gemm"),
     "paged_tree": ("paged_tree", "dabt_paged_tree"),
+    # the paged decode source's contiguous form: the legacy slot cache read
+    # in chunks, with no block table
+    "chunked_decode": ("paged_decode", "dabt_chunked_decode"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -115,6 +118,10 @@ _ARGTYPES = {
     # out, scratch, counters, mma, dtype, kv format, B, H, KH, T, P, page,
     # NB, D, window, nsplit, warps, stream
     "paged_tree": [_P] * 12 + [_I] * 14 + [_P],
+    # q, k_cache, v_cache, out, positions, active, scratch, scratch_floats,
+    # counters, mma, dtype, kv format, in-dot, B, H, KH, S, chunk, D,
+    # window, stream
+    "chunked_decode": [_P] * 7 + [ctypes.c_longlong, _P] + [_I] * 11 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -150,6 +157,9 @@ PAGED_READS = ("native", "bf16/dequant", "e4m3/dequant", "e5m2/dequant", "e4m3/i
 # LAUNCHES, so a run can show which kernel and read its paged calls took
 # (:func:`by_route` sums them per route)
 PAGED_FORMS: Dict[str, int] = {f"{r}:{m}": 0 for r in ("mma", "cuda_core") for m in PAGED_READS}
+# chunked decode launches (the legacy slot cache) by route and read, keyed
+# as PAGED_FORMS: the same kernels and routes over the contiguous cache
+CHUNKED_FORMS: Dict[str, int] = dict.fromkeys(PAGED_FORMS, 0)
 
 # qgemm launches by weight format, counted beside LAUNCHES like PAGED_FORMS
 QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
@@ -180,7 +190,7 @@ PAGED_TREE_MAX_WARPS = 8
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
     "paged_decode": PAGED_FORMS, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
     "moe_gemm": MOE_GEMM_EPILOGUES, "moe_gemm_route": MOE_GEMM_ROUTES,
-    "paged_tree": PAGED_TREE_FORMS,
+    "paged_tree": PAGED_TREE_FORMS, "chunked_decode": CHUNKED_FORMS,
 }
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
 QGEMM_TILE_N = 64
@@ -295,7 +305,8 @@ def launch_counts() -> Dict[str, int]:
 
 def by_route(forms: Dict[str, int]) -> Dict[str, int]:
     """Launches per route ("mma", "cuda_core") of a count keyed
-    "<route>:<read>" (``PAGED_FORMS``, ``PAGED_TREE_FORMS``)."""
+    "<route>:<read>" (``PAGED_FORMS``, ``CHUNKED_FORMS``,
+    ``PAGED_TREE_FORMS``)."""
     routes = {"mma": 0, "cuda_core": 0}
     for form, n in forms.items():
         routes[form.split(":", 1)[0]] += n
@@ -440,7 +451,7 @@ def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
 
 
 def _scratch_buffers(kernel: str, device: torch.device, stream: int, need: int, n_rows: int):
-    """The scratch of ``kernel`` (paged decode or qgemm) on (device,
+    """The scratch of ``kernel`` (paged or chunked decode, or qgemm) on (device,
     stream), grown to ``need`` f32 floats and ``n_rows`` counters.  A graph
     captures the buffers' addresses, so they must exist before its capture
     (a warm-up call on the capture stream makes them): growing them during a
@@ -503,6 +514,41 @@ def paged_decode(
     route = "mma" if mma else "cuda_core"
     _count("paged_decode", f"{route}:{paged_read(q.dtype, k_pool.dtype, fp8_dot)}")
     _check("paged_decode", err)
+
+
+def chunked_decode(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, out: torch.Tensor,
+    positions: torch.Tensor, active: Optional[torch.Tensor],
+    *, chunk: int, window: Optional[int], fp8_dot: bool = False,
+) -> None:
+    """Launch the paged decode kernels' contiguous form over the slot cache
+    ``[B, KH, S, D]`` in ``chunk``-wide slices; the caller validated the
+    arguments.  Routes, scratch and counts as :func:`paged_decode` (the
+    scratch is the paged read's with the chunk as the page, kept apart from
+    it), launches counted under ``chunked_decode`` and ``CHUNKED_FORMS``."""
+    B, H, _, D = q.shape
+    _, KH, S, _ = k_cache.shape
+    NB = S // chunk
+    mma = (q.dtype == torch.bfloat16 and D in PAGED_MMA_HEAD_DIMS
+           and not any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)))
+    kfmt = _KV_CODE[k_cache.dtype]
+    stream = _stream(q)
+    fn = _fn("chunked_decode")
+    with torch.cuda.device(q.device):
+        shapes = (int(mma), kfmt, B, H, KH, chunk, NB, D)
+        scratch, counters = _scratch_buffers(
+            "chunked_decode", q.device, stream, paged_scratch_floats(q.device, shapes), B * KH
+        )
+        err = fn(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            positions.data_ptr(), active.data_ptr() if active is not None else None,
+            scratch.data_ptr(), scratch.numel(), counters.data_ptr(), int(mma),
+            dtype_code(q.dtype), kfmt, int(fp8_dot), B, H, KH, S, chunk, D,
+            int(window) if window is not None else 0, stream,
+        )
+    route = "mma" if mma else "cuda_core"
+    _count("chunked_decode", f"{route}:{paged_read(q.dtype, k_cache.dtype, fp8_dot)}")
+    _check("chunked_decode", err)
 
 
 def knn_topk(

@@ -12,6 +12,17 @@ the embedding and head tables int8 ``QTensor``s.  With ``cfg.is_moe`` (Mixtral)
 the MLP is :func:`.mixtral.moe_mlp`: a ``router`` ``[L, E, X]`` and expert
 stacks ``w_gate`` / ``w_up`` ``[L, X, E, F]``, ``w_down`` ``[L, X, F, E]``.
 
+Legacy KV: :class:`KVCache` is the JAX package's contiguous slot cache,
+``[L, B, KH, S, D]``, one row of ``max_len`` positions per slot (the JAX
+layout, which ``insert_prefix`` / ``extract_prefix`` keep).
+:func:`decode_step` reads it through the chunked kernel
+(:func:`~..ops.attention.chunked_gqa_decode_attention`, ``kv_chunk``) or,
+with ``kv_chunk=None``, plain attention over the whole row, as the JAX
+function does.  Writes follow ``dynamic_update_slice``: a window that
+would run past a row starts earlier so that it ends at the row's end, and
+rows a batch writes twice (a prefill wave's pad rows alias its first
+slot, before it) take the later row's values, as JAX's in-order scan.
+
 Paged KV: :class:`PagedKVCache` holds ``[L, P + 1, KH, page, D]`` pools.
 Pages ``0..P-1`` are the JAX package's pool; page ``P`` is a dump page that is
 written and never read.  The JAX code drops out-of-range scatter rows
@@ -48,6 +59,7 @@ from ..ops.attention import (
     flash_attention,
     flash_eligible,
     gqa_dot_product_attention,
+    chunked_gqa_decode_attention,
     paged_gqa_decode_attention,
     paged_tree_attention,
 )
@@ -357,6 +369,343 @@ def prefill(
 
 
 # ---------------------------------------------------------------------------
+# Legacy KV cache: the contiguous slot cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The contiguous slot cache: ``k``/``v`` ``[L, B, KH, S, D]`` and
+    ``lengths`` ``[B]`` int32 tokens present per slot."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def init_cache(
+    cfg: DecoderConfig,
+    batch: int,
+    max_len: int,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[torch.device] = None,
+) -> KVCache:
+    dtype = dtype or cfg.dtype
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _one(v, device: torch.device) -> torch.Tensor:
+    """An int or a tensor as a ``[1]`` int64 tensor on ``device`` (no copy
+    of an int64 device tensor, ``torch.full`` for an int: capture-safe)."""
+    if torch.is_tensor(v):
+        return v.reshape(1).long()
+    return torch.full((1,), int(v), dtype=torch.int64, device=device)
+
+
+def _write_cache(cache_k: torch.Tensor, new_k: torch.Tensor, starts: torch.Tensor) -> None:
+    """Per row ``dynamic_update_slice``, in place: ``cache_k`` ``[B, KH, S,
+    D]``, ``new_k`` ``[B, KH, Sn, D]`` at positions ``starts[b] + [0, Sn)``,
+    each start clamped to ``[0, S - Sn]`` as JAX clamps it."""
+    B, _, S, _ = cache_k.shape
+    Sn = new_k.shape[2]
+    st = starts.long().clamp(0, S - Sn)
+    idx = st[:, None] + torch.arange(Sn, device=cache_k.device)[None, :]  # [B, Sn]
+    rows = torch.arange(B, device=cache_k.device)[:, None]
+    # advanced indices (dims 0 and 2) around a slice: values [B, Sn, KH, D]
+    cache_k[rows, :, idx, :] = to_kv_dtype(new_k.transpose(1, 2), cache_k.dtype)
+
+
+def _last_writer(slots: torch.Tensor) -> torch.Tensor:
+    """``[B]`` -> for each row, the last row of the batch with the same slot.
+    A scatter that writes row ``last[b]``'s values wherever row ``b`` would
+    writes equal values at every repeated index, so it lands what JAX's
+    in-order scan lands (the later row wins) whatever order the writes
+    take."""
+    B = slots.shape[0]
+    same = slots[:, None] == slots[None, :]
+    order = torch.arange(B, device=slots.device)
+    return torch.where(same, order[None, :], -1).amax(dim=1)
+
+
+def insert_sequences(
+    cache: KVCache,
+    ks: torch.Tensor,  # [L, B, KH, Sb, D] from prefill
+    vs: torch.Tensor,
+    lengths: torch.Tensor,  # [B]
+    slots: torch.Tensor,  # [B] target slot per prefilled row (pad rows alias a real one)
+) -> KVCache:
+    """Write prefilled K/V rows into their slots (positions [0, Sb)) and set
+    the slots' lengths, in place.  A slot named twice takes the later row
+    (:func:`_last_writer`), as the JAX scan's row order does."""
+    Sb = ks.shape[3]
+    sl = slots.long()
+    last = _last_writer(sl)
+    cache.k[:, sl, :, :Sb] = to_kv_dtype(ks[:, last], cache.k.dtype)
+    cache.v[:, sl, :, :Sb] = to_kv_dtype(vs[:, last], cache.v.dtype)
+    cache.lengths[sl] = lengths.to(cache.lengths.dtype)[last]
+    return cache
+
+
+def prefill_suffix(
+    params: Params,
+    cfg: DecoderConfig,
+    input_ids: torch.Tensor,  # [B, C] right-padded suffix tokens (C a bucket)
+    cache: KVCache,
+    slots: torch.Tensor,  # [B] target slot per row (pad rows alias a real one)
+    starts: torch.Tensor,  # [B] tokens already present (the prefix length)
+    valids: torch.Tensor,  # [B] real (non-pad) tokens per row
+) -> tuple[torch.Tensor, KVCache]:
+    """Continue each row from the prefix already in its slot row: the
+    suffix runs at RoPE positions ``start + i`` against the whole row up to
+    its own position (plain attention, as the JAX function), its K/V
+    written at ``start`` (clamped inside the row), and the rows written back
+    in row order with ``lengths[slot] = start + valid``.  Returns
+    (last-token logits [B, V] f32, cache), the cache updated in place."""
+    B, C = input_ids.shape
+    S = cache.max_len
+    dev = input_ids.device
+    starts = starts.long()
+    pos = starts[:, None] + torch.arange(C, device=dev)[None, :]  # [B, C]
+    cos_t, sin_t = _rope_tables(cfg, S, dev)
+    rope_pos = pos.clamp(max=S - 1)
+    cos, sin = cos_t[rope_pos], sin_t[rope_pos]
+    x = _embed(params, cfg, input_ids)
+    kpos = torch.arange(S, device=dev)[None, None, None, :]
+    causal_keep = kpos <= pos[:, None, :, None]  # [B, 1, C, S]
+    sl = slots.long()
+    last = _last_writer(sl)
+    for l, window in enumerate(_layer_windows(cfg)):
+        attn_mask = causal_keep
+        if window is not None:
+            attn_mask = attn_mask & (kpos > pos[:, None, :, None] - window)
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, p, h, cos, sin)
+        k_row = cache.k[l][sl]  # [B, KH, S, D], the rows as they were
+        v_row = cache.v[l][sl]
+        _write_cache(k_row, k, starts)
+        _write_cache(v_row, v, starts)
+        o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
+        o = o.transpose(1, 2).reshape(B, C, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+        cache.k[l][sl] = k_row[last]
+        cache.v[l][sl] = v_row[last]
+    cache.lengths[sl] = (starts + valids.long()).to(cache.lengths.dtype)[last]
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    last_tok = x[torch.arange(B, device=dev), (valids.long() - 1).clamp(min=0)]
+    logits = _head_logits(params, cfg, last_tok)
+    return logits.float(), cache
+
+
+def prefill_chunk(
+    params: Params,
+    cfg: DecoderConfig,
+    input_ids: torch.Tensor,  # [1, C] one chunk of one prompt
+    cache: KVCache,
+    slot,  # int, or a [1] int64 tensor on the cache's device
+    start,  # tokens already written for this slot: int, or a [1] int64 tensor
+    valid,  # real (non-pad) tokens in this chunk: int, or a [1] int64 tensor
+) -> tuple[torch.Tensor, KVCache]:
+    """Extend one slot's row by a chunk of prompt tokens: a one-row
+    :func:`prefill_suffix` (logits [1, V] f32 at chunk index ``valid - 1``;
+    ``lengths[slot] = start + valid``).  With ``slot`` and ``start`` as
+    device tensors the call makes no host round trip and its shapes do not
+    depend on them, so one CUDA graph serves every chunk."""
+    dev = input_ids.device
+    return prefill_suffix(params, cfg, input_ids, cache, _one(slot, dev), _one(start, dev),
+                          _one(valid, dev))
+
+
+def insert_prefix(
+    cache: KVCache,
+    pk: torch.Tensor,  # [L, KH, Pb, D] roped prefix K (positions [0, Pb))
+    pv: torch.Tensor,
+    slot,  # int, or a [1] int tensor
+) -> KVCache:
+    """Copy a cached prefix's K/V into a slot's row (positions [0, Pb)), in
+    place.  ``Pb`` may exceed the prefix's length (bucket padding); the
+    suffix prefill overwrites or masks the tail and sets the length."""
+    sl = _one(slot, cache.k.device)
+    Pb = pk.shape[2]
+    cache.k[:, sl, :, :Pb] = to_kv_dtype(pk[:, None], cache.k.dtype)
+    cache.v[:, sl, :, :Pb] = to_kv_dtype(pv[:, None], cache.v.dtype)
+    return cache
+
+
+def extract_prefix(cache: KVCache, slot, pb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first ``pb`` positions of a slot's row -> ([L, KH, pb, D]) x2, a
+    copy (post-RoPE K at absolute positions [0, pb), right for every later
+    consumer, which places the prefix at the same offsets)."""
+    sl = _one(slot, cache.k.device)
+    return (cache.k.index_select(1, sl)[:, 0, :, :pb].clone(),
+            cache.v.index_select(1, sl)[:, 0, :, :pb].clone())
+
+
+def decode_step(
+    params: Params,
+    cfg: DecoderConfig,
+    tokens: torch.Tensor,  # [B] int — last sampled token per slot
+    cache: KVCache,
+    *,
+    active: Optional[torch.Tensor] = None,  # [B] bool; inactive slots are frozen
+    kv_chunk: Optional[int] = None,  # the chunked, length-aware read
+    attn_fp8: bool = False,  # fp8 in-dot attention (needs kv_chunk and an fp8 cache)
+) -> tuple[torch.Tensor, KVCache]:
+    """One autoregressive step for every active slot over the slot cache ->
+    (logits [B, V] f32, cache), in place.  ``kv_chunk`` (dividing the row,
+    below it) reads the cache through :func:`chunked_gqa_decode_attention`,
+    only the chunks up to the batch's longest live position; ``None`` (or a
+    chunk of the whole row) is the full-row read, plain attention under the
+    causal mask as the JAX function's.  ``attn_fp8`` needs the chunked
+    read.  Slots whose row is full are frozen (``lengths < max_len``).  As
+    in the JAX function, every slot, inactive ones too, writes its K/V at
+    ``min(lengths, max_len - 1)``: a stale slot's write lands past its
+    valid length, where no read looks and the next prefill overwrites."""
+    B = tokens.shape[0]
+    L, _, KH, S, D = cache.k.shape
+    H = cfg.num_heads
+    dev = tokens.device
+    if kv_chunk is not None and kv_chunk < S and (kv_chunk <= 0 or S % kv_chunk):
+        raise ValueError(
+            f"kv_chunk={kv_chunk} must divide cache max_len={S} "
+            "(or be None / >= max_len for the full-cache read)"
+        )
+    chunked = kv_chunk is not None and kv_chunk < S
+    if attn_fp8 and not chunked:
+        raise ValueError(
+            "attn_fp8 requires the chunked KV read (set decode_kv_chunk) — "
+            "the full-cache gqa path has no in-dot fp8 scheme"
+        )
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+    active = active & (cache.lengths < S)
+    positions = torch.clamp(cache.lengths, max=S - 1)
+    pos_l = positions.long()
+    cos_t, sin_t = _rope_tables(cfg, S, dev)
+    cos = cos_t[pos_l][:, None, :]
+    sin = sin_t[pos_l][:, None, :]
+    x = _embed(params, cfg, tokens)[:, None, :]  # [B, 1, E]
+    rows = torch.arange(B, device=dev)
+    kpos = torch.arange(S, device=dev)[None, :]
+    causal_keep = (kpos <= positions[:, None])[:, None, None, :]  # [B, 1, 1, S]
+    for l, window in enumerate(_layer_windows(cfg)):
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(cfg, p, h)
+        q = apply_rope(q.reshape(B, 1, H, D), cos, sin).transpose(1, 2)
+        k = apply_rope(k.reshape(B, 1, KH, D), cos, sin).transpose(1, 2)
+        v = v.reshape(B, 1, KH, D).transpose(1, 2)
+        cache.k[l][rows, :, pos_l, :] = to_kv_dtype(k[:, :, 0, :], cache.k.dtype)
+        cache.v[l][rows, :, pos_l, :] = to_kv_dtype(v[:, :, 0, :], cache.v.dtype)
+        if chunked:
+            o = chunked_gqa_decode_attention(
+                q, cache.k[l], cache.v[l], positions, chunk=kv_chunk, active=active,
+                window=window, fp8_dot=attn_fp8,
+            )  # [B, H, 1, D]
+        else:
+            mask = causal_keep
+            if window is not None:
+                mask = mask & (kpos > positions[:, None] - window)[:, None, None, :]
+            o = gqa_dot_product_attention(q, cache.k[l], cache.v[l], mask=mask)
+        o = o.transpose(1, 2).reshape(B, 1, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+    cache.lengths.add_(active.to(cache.lengths.dtype))
+    x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
+    logits = _head_logits(params, cfg, x)
+    return logits.float(), cache
+
+
+def verify_tree_step(
+    params: Params,
+    cfg: DecoderConfig,
+    tree: torch.Tensor,  # [B, T] int flat speculation tree (col 0 = input token)
+    cache: KVCache,
+    depths: torch.Tensor,  # [T] int node depths (root = 0)
+    anc_mask: torch.Tensor,  # [T, T] bool — anc_mask[t, u]: u ancestor-or-self of t
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tree-verify forward against the slot cache -> (logits [B, T, V]
+    f32, tks, tvs [L, B, KH, T, D]), read-only: node t of row b runs at
+    position ``lengths[b] + depths[t]`` (clamped to the row) and attends,
+    through plain attention over the row's keys followed by the tree's own
+    as the JAX function's, to the verified prefix (positions < lengths) and
+    its root-path ancestors.  The caller commits the accepted path
+    (:func:`commit_tree_path`)."""
+    B, T = tree.shape
+    S = cache.max_len
+    dev = tree.device
+    lengths = cache.lengths.long()
+    depths_l = depths.long().to(dev)
+    pos = (lengths[:, None] + depths_l[None, :]).clamp(max=S - 1)  # [B, T]
+    cos_t, sin_t = _rope_tables(cfg, S, dev)
+    cos, sin = cos_t[pos], sin_t[pos]
+    x = _embed(params, cfg, tree)  # [B, T, E]
+    kpos = torch.arange(S, device=dev)[None, None, None, :]
+    prefix_keep = (kpos < lengths[:, None, None, None]).expand(B, 1, T, S)
+    anc = anc_mask.to(dev)[None, None]  # [1, 1, T, T]
+    tks, tvs = [], []
+    for l, window in enumerate(_layer_windows(cfg)):
+        cache_mask, tree_keep = prefix_keep, anc
+        if window is not None:
+            cache_mask = cache_mask & (kpos > pos[:, None, :, None] - window)
+            upos = lengths[:, None, None, None] + depths_l[None, None, None, :]
+            tree_keep = tree_keep & (upos > pos[:, None, :, None] - window)
+        attn_mask = torch.cat([cache_mask, tree_keep.expand(B, 1, T, T)], dim=3)
+        p = _layer(params, l)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _attn_proj(cfg, p, h, cos, sin)
+        keys = torch.cat([cache.k[l].to(k.dtype), k], dim=2)
+        vals = torch.cat([cache.v[l].to(v.dtype), v], dim=2)
+        o = gqa_dot_product_attention(q, keys, vals, mask=attn_mask)
+        o = o.transpose(1, 2).reshape(B, T, -1)
+        x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
+        h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp(cfg, p, h)
+        tks.append(k)
+        tvs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = _head_logits(params, cfg, x)
+    return logits.float(), torch.stack(tks), torch.stack(tvs)
+
+
+def commit_tree_path(
+    cache: KVCache,
+    tks: torch.Tensor,  # [L, B, KH, T, D] from verify_tree_step
+    tvs: torch.Tensor,
+    path_idx: torch.Tensor,  # [B, C] flat tree ids: root + winning branch
+) -> KVCache:
+    """Write the path's K/V at positions ``[lengths, lengths + C)`` of
+    every row, in place (the start clamped inside the row, as
+    ``dynamic_update_slice``).  Positions past the accepted run take the
+    rejected rest of the branch: garbage past the new valid length, masked
+    by every later read and overwritten when real tokens land there, the
+    contiguous layout's discipline.  ``cache.lengths`` is not advanced."""
+    L, B, KH, S, D = cache.k.shape
+    C = path_idx.shape[1]
+    pk = _gather_tree_path(tks, path_idx)  # [L, B, KH, C, D]
+    pv = _gather_tree_path(tvs, path_idx)
+    st = cache.lengths.long().clamp(0, S - C)
+    idx = st[:, None] + torch.arange(C, device=st.device)[None, :]  # [B, C]
+    rows = torch.arange(B, device=st.device)[:, None]
+    # advanced indices (dims 1 and 3) around a slice: values [B, C, L, KH, D]
+    cache.k[:, rows, :, idx, :] = to_kv_dtype(pk.permute(1, 3, 0, 2, 4), cache.k.dtype)
+    cache.v[:, rows, :, idx, :] = to_kv_dtype(pv.permute(1, 3, 0, 2, 4), cache.v.dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # Paged KV cache
 # ---------------------------------------------------------------------------
 
@@ -556,14 +905,9 @@ def prefill_chunk_paged(
     S = block_table.shape[0] * cache.page_size
     if isinstance(start, int) and start + C > S:
         raise ValueError(f"chunk [{start}, {start + C}) runs past the cache ({S})")
-
-    def one(v):  # a [1] int64 device tensor (torch.full: no copy, capture-safe)
-        if torch.is_tensor(v):
-            return v.reshape(1)
-        return torch.full((1,), v, dtype=torch.int64, device=input_ids.device)
-
+    dev = input_ids.device
     return prefill_suffix_paged(params, cfg, input_ids, cache, block_table[None, :],
-                                one(slot), one(start), one(valid))
+                                _one(slot, dev), _one(start, dev), _one(valid, dev))
 
 
 def decode_step_paged(

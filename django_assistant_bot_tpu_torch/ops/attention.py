@@ -11,6 +11,14 @@ hand-written Hopper kernels of the serving path.
   tensor it runs :func:`paged_gqa_decode_attention_plain`, which mirrors the
   JAX page loop.  bf16 outputs are held to :func:`paged_bf16_bound` on the
   card.
+- :func:`chunked_gqa_decode_attention` — one query per slot against the
+  legacy contiguous slot cache ``[B, KH, S, D]``, read in ``chunk``-wide
+  slices up to the batch's longest live position.  On a CUDA tensor it
+  launches the contiguous form of ``csrc/paged_decode.cu`` (the same
+  kernels, the page being the chunk); on a CPU tensor it runs
+  :func:`chunked_gqa_decode_attention_plain`, the paged twin's loop over
+  the cache's chunks, so a paged read whose pages hold the cache's chunks
+  gives the same bytes.
 - :func:`paged_tree_attention` — the speculative verify forward's read: T
   tree queries per slot against the slot's verified prefix in the page
   pool plus the tree's own ancestor-masked keys.  On a CUDA tensor it
@@ -289,29 +297,29 @@ def _decode_range(positions, active, page: int, NB: int, window: Optional[int]):
     return lo, hi
 
 
-def _paged_decode_loop(
-    q, k_pool, v_pool, block_tables, positions, active, window, fp8_dot, *,
-    round_p: bool = True, ones: bool = False,
+def _decode_loop(
+    q, k_dtype, v_dtype, KH: int, page: int, NB: int, fetch, positions, active, window, fp8_dot,
+    site, *, round_p: bool = True, ones: bool = False,
 ):
-    """The JAX page loop of :func:`paged_gqa_decode_attention_plain` ->
-    (acc [B, KH, G, D], l [B, KH, G, 1]), both f32.  ``round_p=False``
-    leaves P unrounded; ``ones`` weighs every kept key 1 (the bounds' sums)."""
+    """The JAX decode loop shared by the paged and the chunked reads ->
+    (acc [B, KH, G, D], l [B, KH, G, 1]), both f32: logical blocks [lo, hi)
+    of ``page`` keys each, ``fetch(ci)`` giving block ``ci``'s K and V rows
+    ``[B, KH, page, D]`` widened exactly to f32.  ``round_p=False`` leaves
+    P unrounded; ``ones`` weighs every kept key 1 (the bounds' sums)."""
     B, H, Sq, D = q.shape
     if Sq != 1:
         raise ValueError(f"decode attention expects Sq=1 queries, got {Sq}")
-    P, KH, page, _ = k_pool.shape
-    NB = block_tables.shape[1]
     G = H // KH
     scale = D ** -0.5
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=q.device)
     qg = q.reshape(B, KH, G, D)
     if fp8_dot:
-        _check_fp8_dot(k_pool.dtype, "paged_gqa_decode_attention")
-        qg_q, qg_s = quantize_fp8(qg, axis=-1, dtype=k_pool.dtype)
+        _check_fp8_dot(k_dtype, site)
+        qg_q, qg_s = quantize_fp8(qg, axis=-1, dtype=k_dtype)
         qg = qg_q.float()
         s_scale = qg_s * scale  # the f32 scale on the f32 partials
-        p_dtype = v_pool.dtype  # P in the pool's fp8 format, as p.astype(v_blk.dtype)
+        p_dtype = v_dtype  # P in the pool's fp8 format, as p.astype(v_blk.dtype)
     else:
         qg = qg.float()
         s_scale = scale
@@ -324,9 +332,7 @@ def _paged_decode_loop(
     acc = torch.zeros((B, KH, G, D), dtype=torch.float32, device=q.device)
     offs = torch.arange(page, device=q.device)
     for ci in range(lo, hi):
-        phys = block_tables[:, ci].long().clamp(0, P - 1)
-        k_blk = k_pool[phys].float()  # [B, KH, page, D], exact for every pool dtype
-        v_blk = v_pool[phys].float()
+        k_blk, v_blk = fetch(ci)
         s = torch.matmul(qg, k_blk.transpose(-1, -2)) * s_scale  # [B, KH, G, page]
         kpos = ci * page + offs
         keep = kpos[None, :] <= positions[:, None]
@@ -344,6 +350,51 @@ def _paged_decode_loop(
         acc = alpha * acc + torch.matmul(pv, v_blk)
         m = m_new
     return acc, l
+
+
+def _paged_decode_loop(
+    q, k_pool, v_pool, block_tables, positions, active, window, fp8_dot, *,
+    round_p: bool = True, ones: bool = False,
+):
+    """:func:`_decode_loop` over a page pool (:func:`paged_gqa_decode_attention_plain`):
+    block ``ci`` of each row is its page through the block table, sentinels
+    clamped to page ``P - 1`` (masked by the loop)."""
+    P, KH, page, _ = k_pool.shape
+
+    def fetch(ci):
+        phys = block_tables[:, ci].long().clamp(0, P - 1)
+        return k_pool[phys].float(), v_pool[phys].float()  # exact for every pool dtype
+
+    return _decode_loop(
+        q, k_pool.dtype, v_pool.dtype, KH, page, block_tables.shape[1], fetch, positions, active,
+        window, fp8_dot, "paged_gqa_decode_attention", round_p=round_p, ones=ones,
+    )
+
+
+def _check_chunk(S: int, chunk: int) -> int:
+    """The JAX check of the chunk width; the number of chunks of a row."""
+    if chunk <= 0 or S % chunk:
+        raise ValueError(f"chunk={chunk} must divide cache length {S}")
+    return S // chunk
+
+
+def _chunked_decode_loop(
+    q, k, v, positions, active, window, fp8_dot, chunk, *,
+    round_p: bool = True, ones: bool = False,
+):
+    """:func:`_decode_loop` over the contiguous slot cache ``[B, KH, S, D]``
+    (:func:`chunked_gqa_decode_attention_plain`): block ``ci`` of each row is
+    its chunk ``ci``, read in place."""
+    NB = _check_chunk(k.shape[2], chunk)
+
+    def fetch(ci):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        return k[:, :, sl].float(), v[:, :, sl].float()
+
+    return _decode_loop(
+        q, k.dtype, v.dtype, k.shape[1], chunk, NB, fetch, positions, active, window, fp8_dot,
+        "chunked_gqa_decode_attention", round_p=round_p, ones=ones,
+    )
 
 
 def paged_gqa_decode_attention_plain(
@@ -442,12 +493,21 @@ def paged_fp8_dot_bound(
     rounded to bf16 instead moves the output by about 2^-4 A).  That is
     checked on :func:`paged_fp8_dot_probe`'s inputs, where every side rounds
     at the same scale, to ``paged_bf16_bound``."""
-    m_bits, u = _FP8_STEPS[v_pool.dtype]
     absv = v_pool.float().abs().to(v_pool.dtype)  # |v| is exact in the format
-    args = (q, k_pool, absv, block_tables, positions, active, window, True)
-    acc, l = _paged_decode_loop(*args, round_p=False)
+    return _fp8_dot_bound(
+        lambda **kw: _paged_decode_loop(q, k_pool, absv, block_tables, positions, active,
+                                        window, True, **kw),
+        q, v_pool.dtype, ref,
+    )
+
+
+def _fp8_dot_bound(loop, q, v_dtype, ref):
+    """:func:`paged_fp8_dot_bound` from ``loop``, the in-dot read over |v|
+    (keyword ``round_p`` / ``ones`` as :func:`_decode_loop`)."""
+    m_bits, u = _FP8_STEPS[v_dtype]
+    acc, l = loop(round_p=False)
     a = acc / torch.clamp(l, min=1e-30)
-    tot, _ = _paged_decode_loop(*args, round_p=False, ones=True)
+    tot, _ = loop(round_p=False, ones=True)
     S = tot / torch.clamp(l, min=1e-30)
     B, H, _, D = q.shape
     bound = 2.0 ** -m_bits * a + u * S
@@ -571,6 +631,139 @@ def paged_gqa_decode_attention(
     kernels.paged_decode(
         q, k_pool, v_pool, out, block_tables, positions, active, window=window, fp8_dot=fp8_dot
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Chunked decode over the legacy slot cache: Hopper kernel + plain twin
+# ---------------------------------------------------------------------------
+
+
+def chunked_gqa_decode_attention_plain(
+    q: torch.Tensor,  # [B, H, 1, D]
+    k: torch.Tensor,  # [B, KH, S, D] slot cache, q's dtype, bf16 or fp8
+    v: torch.Tensor,
+    positions: torch.Tensor,  # [B] int
+    *,
+    chunk: int,
+    active: Optional[torch.Tensor] = None,  # [B] bool
+    window: Optional[int] = None,
+    fp8_dot: bool = False,
+) -> torch.Tensor:
+    """The JAX chunk loop in plain PyTorch: chunks [lo, hi) of the batch
+    (hi from the largest active position, lo from the smallest with a
+    window; inactive rows widen neither), each row's slice of the cache read
+    in place, f32 online softmax with the finite ``NEG_INF`` mask.  The
+    numerics are :func:`paged_gqa_decode_attention_plain`'s (the same loop):
+    a narrower cache widened per chunk and P rounded to q's dtype, or with
+    ``fp8_dot`` the query quantized to the cache's fp8 format and P rounded
+    to it; ``l`` sums the unrounded f32 p.  ``hi`` is clamped to the row's
+    chunk count, which the JAX loop leaves to ``dynamic_slice``'s clamp (a
+    position past the cache, which no caller passes)."""
+    B, H, _, D = q.shape
+    acc, l = _chunked_decode_loop(q, k, v, positions, active, window, fp8_dot, chunk)
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.reshape(B, H, 1, D)
+
+
+def chunked_bf16_bound(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    positions: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    chunk: int,
+    active: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`paged_bf16_bound` for the chunked read (the same kernels and
+    rounding): ``2^-8 |ref| + 2^-8 A + 1e-4``, ``A`` the chunked read over
+    ``|v|``."""
+    acc, l = _chunked_decode_loop(q.float(), k.float(), v.float().abs(), positions, active,
+                                  window, False, chunk)
+    B, H, _, D = q.shape
+    a = (acc / torch.clamp(l, min=1e-30)).reshape(B, H, 1, D)
+    return 2.0 ** -8 * (ref.abs() + a) + 1e-4
+
+
+def chunked_fp8_dot_bound(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    positions: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    chunk: int,
+    active: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`paged_fp8_dot_bound` for the chunked in-dot read."""
+    absv = v.float().abs().to(v.dtype)
+    return _fp8_dot_bound(
+        lambda **kw: _chunked_decode_loop(q, k, absv, positions, active, window, True, chunk,
+                                          **kw),
+        q, v.dtype, ref,
+    )
+
+
+def chunked_gqa_decode_attention(
+    q: torch.Tensor,  # [B, H, 1, D]
+    k: torch.Tensor,  # [B, KH, S, D] slot cache
+    v: torch.Tensor,
+    positions: torch.Tensor,  # [B] int32
+    *,
+    chunk: int,
+    active: Optional[torch.Tensor] = None,  # [B] bool
+    window: Optional[int] = None,
+    fp8_dot: bool = False,
+) -> torch.Tensor:
+    """Chunked decode attention over the contiguous slot cache.  CPU tensors
+    run the plain twin; CUDA tensors launch the contiguous form of
+    ``csrc/paged_decode.cu`` (``kernels.chunked_decode``) or raise on what
+    it does not take.  The cache may be q's dtype, bf16 under f32 queries,
+    or fp8 (the dequant read, or the in-dot scheme with ``fp8_dot``)."""
+    if q.device.type == "cpu":
+        return chunked_gqa_decode_attention_plain(
+            q, k, v, positions, chunk=chunk, active=active, window=window, fp8_dot=fp8_dot,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"chunked_gqa_decode_attention: unsupported device {q.device}")
+    if fp8_dot:
+        _check_fp8_dot(k.dtype, "chunked_gqa_decode_attention")
+    B, H, Sq, D = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode attention expects Sq=1 queries, got {Sq}")
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"chunked_gqa_decode_attention: bad cache shapes {tuple(k.shape)} / {tuple(v.shape)}")
+    KH, S = k.shape[1], k.shape[2]
+    _check_chunk(S, chunk)
+    if H % KH or H // KH not in (1, 2, 4, 8):
+        raise ValueError(f"chunked decode kernel takes H/KH in 1, 2, 4, 8, got H={H} KH={KH}")
+    if D not in (16, 32, 64, 128, 256):
+        raise ValueError(f"chunked decode kernel takes head_dim 16, 32, 64, 128 or 256, got {D}")
+    if D == 256 and H // KH > 4:
+        raise ValueError(f"chunked decode kernel takes H/KH up to 4 at head_dim 256, got {H // KH}")
+    if chunk % 4:
+        raise ValueError(f"chunked decode kernel takes a chunk divisible by 4, got {chunk}")
+    _check_pool_dtype("chunked decode", q, k, v)
+    if positions.shape != (B,) or positions.dtype != torch.int32:
+        raise ValueError("chunked_gqa_decode_attention: positions must be [B] int32")
+    if active is not None and (active.shape != (B,) or active.dtype != torch.bool):
+        raise ValueError("chunked_gqa_decode_attention: active must be [B] bool")
+    if window is not None and window <= 0:
+        raise ValueError(f"chunked_gqa_decode_attention: window must be positive, got {window}")
+    for t in (k, v, positions) + ((active,) if active is not None else ()):
+        if t.device != q.device:
+            raise ValueError("chunked_gqa_decode_attention: tensors on different devices")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("chunked_gqa_decode_attention: the cache must be contiguous")
+    q = q.contiguous()
+    positions = positions.contiguous()
+    active = active.contiguous() if active is not None else None
+    out = torch.empty_like(q)
+    kernels.chunked_decode(q, k, v, out, positions, active, chunk=chunk, window=window,
+                           fp8_dot=fp8_dot)
     return out
 
 

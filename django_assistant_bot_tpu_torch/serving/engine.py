@@ -10,6 +10,19 @@ page pool of the model's dtype, bf16 or fp8 (``kv_cache_dtype``), read by
 the dequant path or, with ``attn_fp8``, by the fp8 in-dot decode.  What is
 ported is the JAX engine's own logic:
 
+- **KV layouts.**  ``kv_layout="paged"`` (the default, the rest of this
+  list) or ``"legacy"``: the JAX rollback plane, one contiguous slot cache
+  row of ``max_seq_len`` positions per slot (:class:`~..models.llama.
+  KVCache`), also taken when no page size divides the context.  Its decode
+  step reads ``decode_kv_chunk``-wide chunks up to the batch's longest live
+  position (the chunked decode kernel on the card) or, with None, the
+  whole row; a prefill wave's pad rows alias its first slot and are
+  written before it; prefix sharing pins a registered prefix's K/V
+  (``_prefix_lru``, LRU under ``prefix_cache_size`` and the byte budget)
+  and copies it into a hit's row; a speculative tick commits the accepted
+  path at each row's length.  The ticks, the piggyback program, JSON,
+  streaming and supervision are the paged layout's.
+
 - **Admission.**  Free slots take queued requests in the scheduler's
   weighted-fair-share order (FIFO with ``scheduler=None``); each reserves
   ``ceil((prompt + max_tokens) / page)`` pages up front, so decode can never
@@ -203,13 +216,6 @@ def pick_bucket(n: int, buckets: Sequence[int], cap: int) -> int:
     return cap
 
 
-def _refuse(knob: str, value: Any, ported: Any, item: str) -> None:
-    if value != ported:
-        raise NotImplementedError(
-            f"{knob}={value!r} is not ported yet (only {ported!r}); ROADMAP {item}"
-        )
-
-
 @dataclasses.dataclass
 class GenerationResult:
     token_ids: List[int]
@@ -322,6 +328,23 @@ class _TickRef:
 
 
 @dataclasses.dataclass
+class _Prefix:
+    """One cached prompt prefix of the legacy layout: post-RoPE K/V at
+    absolute positions [0, pb) (``[L, KH, pb, D]`` each).  ``length`` is the
+    prefix's token count; ``pb`` the bucket the tensors carry, whose tail
+    [length, pb) the consuming suffix prefill overwrites or masks."""
+
+    pk: torch.Tensor
+    pv: torch.Tensor
+    length: int
+    pb: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.pk.numel() * self.pk.element_size() * 2
+
+
+@dataclasses.dataclass
 class _ChunkedPrefill:
     """An in-flight chunked prefill: one chunk per engine-loop iteration."""
 
@@ -372,14 +395,21 @@ class GenerationEngine:
         spec_width: int = 4,
         spec_probe_every: int = 64,
         spec_explore_every: int = 32,
-        # the JAX engine's knobs that are ported only at their off value
         kv_layout: str = "paged",
         kv_cache_dtype: Optional[str] = None,
         attn_fp8: bool = False,
     ):
-        _refuse("kv_layout", kv_layout, "paged", "Queue 1 item 8 (legacy contiguous KV)")
-        # the page pool's precision (None: the model's dtype): "fp8" halves
-        # the KV bytes; K/V cast at the pool write and widen in the read
+        # "paged" (default): a pool of fixed-size pages plus per-slot block
+        # tables; "legacy": the contiguous [max_slots, max_seq_len] slot
+        # cache, the JAX engine's rollback and A/B plane.  A context no page
+        # size divides falls back to legacy below, so kv_stats() reports
+        # what was asked beside what runs.
+        if kv_layout not in ("paged", "legacy"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}; expected 'paged' or 'legacy'")
+        self.kv_layout_requested = kv_layout
+        self.paged = kv_layout == "paged"
+        # the KV cache's precision (None: the model's dtype): "fp8" halves
+        # the KV bytes; K/V cast at the cache write and widen in the read
         if kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(
                 f"unknown kv_cache_dtype {kv_cache_dtype!r}; "
@@ -440,8 +470,6 @@ class GenerationEngine:
                 f"finish headroom are reserved; keep decode_steps*(K+1) "
                 f"<= max_seq_len // 4 ({self.max_seq_len // 4})"
             )
-        if self.speculative and self.device.type == "cuda":
-            check_paged_tree_nodes(self.speculative, self.spec_width)
         # spec engines keep sequential chunking: the spec tick owns the
         # token / history chain a piggybacked chunk would fork (JAX)
         self.prefill_piggyback = bool(prefill_piggyback) and not self.speculative
@@ -461,26 +489,35 @@ class GenerationEngine:
                 explore_every=max(1, int(spec_explore_every)),
             )
 
-        page = int(kv_page_size) or self._resolve_kv_chunk(decode_kv_chunk) or 0
-        if not page:
-            for c in (512, 256, 128, 64, 32, 16, 8):
-                if self.max_seq_len % c == 0 and self.max_seq_len // c >= 2:
-                    page = c
-                    break
-        if not page or self.max_seq_len % page or self.max_seq_len // page < 2:
+        # the decode read's chunk (0 = auto, None = the full-row read on the
+        # legacy layout), and the page size it defaults to
+        self.decode_kv_chunk = self._resolve_kv_chunk(decode_kv_chunk)
+        self._kv_frac_sum = 0.0
+        self.kv_page_size = 0
+        self._kv_blocks = 1
+        self._kv_pool: Optional[PageAllocator] = None
+        self._kv_sentinel = 0
+        if self.paged:
+            page = int(kv_page_size) or self.decode_kv_chunk or 0
+            if not page:
+                for c in (512, 256, 128, 64, 32, 16, 8):
+                    if self.max_seq_len % c == 0 and self.max_seq_len // c >= 2:
+                        page = c
+                        break
+            if not page or self.max_seq_len % page or self.max_seq_len // page < 2:
+                logger.warning(
+                    "kv_layout='paged' needs a page size dividing max_seq_len=%d into >= 2 "
+                    "pages (got %s); falling back to the legacy slot cache",
+                    self.max_seq_len, page or None,
+                )
+                self.paged = False
+        if self.attn_fp8 and not self.paged and not self.decode_kv_chunk:
             raise ValueError(
-                f"paged KV needs a page size dividing max_seq_len={self.max_seq_len} "
-                f"into >= 2 pages (got {page or None}); the legacy fallback is "
-                "ROADMAP Queue 1 item 8"
+                "attn_fp8=True on the legacy KV layout requires the "
+                "chunked decode read (decode_kv_chunk != None)"
             )
-        self.kv_page_size = page
-        self._kv_blocks = self.max_seq_len // page
-        n_pages = int(kv_pages) or self.max_slots * self._kv_blocks
-        if n_pages < self._kv_blocks:
-            raise ValueError(
-                f"kv_pages={n_pages} cannot hold even one max-length request "
-                f"({self._kv_blocks} pages of {page})"
-            )
+        if self.speculative and self.paged and self.device.type == "cuda":
+            check_paged_tree_nodes(self.speculative, self.spec_width)
         # prefix sharing: LRU over at most prefix_cache_size registered
         # prefixes of >= prefix_min_tokens tokens, under a byte budget; 0
         # disables the path
@@ -489,19 +526,36 @@ class GenerationEngine:
         self.prefix_cache_max_bytes = int(prefix_cache_max_bytes)
         self.prefix_hits = 0
         self.prefix_misses = 0
-        kv_itemsize = (self.kv_cache_dtype or cfg.dtype).itemsize
-        page_bytes = cfg.num_layers * cfg.num_kv_heads * page * cfg.head_dim * 2 * kv_itemsize
-        self._kv_pool = PageAllocator(
-            n_pages, page, page_bytes=page_bytes, max_shared_bytes=self.prefix_cache_max_bytes,
-            max_shared_entries=self.prefix_cache_size, min_prefix_tokens=self.prefix_min_tokens,
-        )
-        self._kv_sentinel = n_pages  # block-table "unallocated" marker
+        # the legacy layout's prefix cache: post-RoPE K/V of registered
+        # prefixes pinned on the device (the paged layout shares pages)
+        self._prefix_lru: "collections.OrderedDict[tuple, _Prefix]" = collections.OrderedDict()
+        self._prefix_bytes = 0
+        if self.paged:
+            self.kv_page_size = page
+            self._kv_blocks = self.max_seq_len // page
+            n_pages = int(kv_pages) or self.max_slots * self._kv_blocks
+            if n_pages < self._kv_blocks:
+                raise ValueError(
+                    f"kv_pages={n_pages} cannot hold even one max-length request "
+                    f"({self._kv_blocks} pages of {page})"
+                )
+            kv_itemsize = (self.kv_cache_dtype or cfg.dtype).itemsize
+            page_bytes = cfg.num_layers * cfg.num_kv_heads * page * cfg.head_dim * 2 * kv_itemsize
+            self._kv_pool = PageAllocator(
+                n_pages, page, page_bytes=page_bytes,
+                max_shared_bytes=self.prefix_cache_max_bytes,
+                max_shared_entries=self.prefix_cache_size,
+                min_prefix_tokens=self.prefix_min_tokens,
+            )
+            self._kv_sentinel = n_pages  # block-table "unallocated" marker
 
         # admission control: the scheduler orders and admits; None keeps FIFO
         self.scheduler = scheduler
         if scheduler is not None:
             scheduler.bind_slots(max_slots)
-            scheduler.bind_kv(self._kv_pool.available, self._kv_pool.n_pages)
+            if self._kv_pool is not None:
+                # KV-pressure admission against the pool's obtainable pages
+                scheduler.bind_kv(self._kv_pool.available, self._kv_pool.n_pages)
             if self.speculative:
                 # load-disable vs acceptance-disable, side by side in the
                 # scheduler's own stats
@@ -598,10 +652,14 @@ class GenerationEngine:
         engine: a captured graph keeps their addresses, so later writes to
         them are in place (``copy_``, ``index_put_``, ``add_``)."""
         B, K, dev = self.max_slots, self.decode_steps, self.device
-        self._cache = llama.init_paged_cache(
-            self.cfg, B, self._kv_pool.n_pages, self.kv_page_size, dtype=self.kv_cache_dtype,
-            device=dev,
-        )
+        if self.paged:
+            self._cache = llama.init_paged_cache(
+                self.cfg, B, self._kv_pool.n_pages, self.kv_page_size,
+                dtype=self.kv_cache_dtype, device=dev,
+            )
+        else:
+            self._cache = llama.init_cache(self.cfg, B, self.max_seq_len,
+                                           dtype=self.kv_cache_dtype, device=dev)
         self._tokens_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._active_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
         self._bt_dev = torch.full(
@@ -648,15 +706,20 @@ class GenerationEngine:
     def reset(self) -> None:
         """Rebuild the engine in place with no request on it: the page pool
         and its prefix registry emptied, every slot's page chain dropped and
-        its block table back to the sentinel, then the device state
-        (:meth:`_reset_device_state`; the captured graphs are kept).  A
-        crash-only restart calls it once it has taken the requests off the
-        slots; otherwise call it on a stopped engine."""
+        its block table back to the sentinel (the legacy layout: the pinned
+        prefixes dropped, cut from the failed cache's lineage), then the
+        device state (:meth:`_reset_device_state`, a clean cache; the
+        captured graphs are kept).  A crash-only restart calls it once it
+        has taken the requests off the slots; otherwise call it on a stopped
+        engine."""
         if self._chunking is not None or any(s is not None for s in self._slots):
             raise RuntimeError("reset() needs an engine with no request on a slot")
         self._sampling_dirty = True
         self._json[:] = False
-        self._kv_pool.reset()
+        self._prefix_lru.clear()
+        self._prefix_bytes = 0
+        if self._kv_pool is not None:
+            self._kv_pool.reset()
         self._slot_pages = [[] for _ in range(self.max_slots)]
         self._block_tables[:] = self._kv_sentinel
         self._bt_dirty = True
@@ -665,7 +728,7 @@ class GenerationEngine:
     def _reset_device_state(self) -> None:
         """Rebuild the device state in place after a crash-only restart:
         every tensor the captured graphs read keeps its address, so the
-        graphs are not re-captured.  Zeroes the pools, lengths and token
+        graphs are not re-captured.  Zeroes the cache, lengths and token
         buffers, clears the staged chunk buffers (the chunk's page chain all
         sentinels), leaves the graphs' paged scratch counters at zero,
         re-seeds the generator with a reseed counter (distinct streams for
@@ -741,11 +804,12 @@ class GenerationEngine:
     def warmup(self, seq_buckets: Optional[Sequence[int]] = None, json: bool = False) -> None:
         """Do before :meth:`start` what the first requests would otherwise
         do (the JAX ``warmup``'s compiles): on the card build every kernel
-        library; run a prefill, its page insert and the activation's sampler
-        at every (batch bucket, prefill bucket up to ``chunk_size``), the
-        suffix prefill of the prefix path and the page copy at each, and a
-        chunk when prompts can chunk (every write lands on the sentinel
-        slot and pages, so nothing is written); with ``json``, build the
+        library; run a prefill, its insert and the activation's sampler at
+        every (batch bucket, prefill bucket up to ``chunk_size``), the suffix
+        prefill of the prefix path and the page copy at each, and a chunk
+        when prompts can chunk (paged: every write lands on the sentinel
+        slot and pages; legacy: on slot 0's row, whose length is zeroed
+        after, as the JAX warm-up's zero-length inserts); with ``json``, build the
         token FSM, its tables and the JSON tick's graph.  The tick and
         piggyback graphs were captured at construction.  After it, a request
         builds no library and captures no graph (``graph_captures``).  A
@@ -770,15 +834,21 @@ class GenerationEngine:
                     slots = torch.full((bp,), self.max_slots, dtype=torch.int32, device=dev)
                     bt = torch.full((bp, self._kv_blocks), sentinel, dtype=torch.int32, device=dev)
                     logits, ks, vs = llama.prefill(self.params, self.cfg, ids, lengths)
-                    llama.insert_sequences_paged(self._cache, ks, vs, lengths, slots, bt)
+                    zeros = torch.zeros((bp,), dtype=torch.int64, device=dev)
+                    if self.paged:
+                        llama.insert_sequences_paged(self._cache, ks, vs, lengths, slots, bt)
+                    else:
+                        llama.insert_sequences(self._cache, ks, vs, lengths, zeros)
                     ones = torch.ones((bp,), dtype=torch.float32, device=dev)
                     sample_logits(logits, temperature=ones, top_k=TOP_K, top_p=ones,
                                   gumbel=torch.zeros((bp, TOP_K), device=dev))
-                    if self.prefix_cache_size > 0:
-                        zeros = torch.zeros((bp,), dtype=torch.int64, device=dev)
+                    if self.prefix_cache_size > 0 and self.paged:
                         llama.prefill_suffix_paged(self.params, self.cfg, ids, self._cache, bt,
                                                    slots.long(), zeros, zeros)
-            if self.prefix_cache_size > 0:
+                    elif self.prefix_cache_size > 0:
+                        llama.prefill_suffix(self.params, self.cfg, ids, self._cache, zeros,
+                                             zeros, zeros)
+            if self.prefix_cache_size > 0 and self.paged:
                 llama.copy_pages(self._cache, torch.zeros((1,), dtype=torch.int64, device=dev),
                                  torch.full((1,), sentinel, dtype=torch.int64, device=dev))
             if self.chunk_size < self.max_seq_len - 1:
@@ -831,13 +901,14 @@ class GenerationEngine:
 
     def _probe_decode_locked(self, iters: int, fill_len: Optional[int]) -> float:
         dev = self.device
-        if fill_len is not None:
+        if fill_len is not None and self.paged:
             avoid = {p for _, ent in self._kv_pool.shared_entries() for p in ent.pages}
             scratch = [p for p in range(self._kv_pool.n_pages) if p not in avoid]
             for b in range(self.max_slots):
                 for j in range(self._kv_blocks):
                     self._block_tables[b, j] = scratch[(b * self._kv_blocks + j) % len(scratch)]
             self._bt_dirty = True
+        if fill_len is not None:
             # rows stay active (unfrozen) through the warm tick and the probe
             fill = max(0, min(int(fill_len),
                               self.max_seq_len - (iters + 1) * self.decode_steps - 2))
@@ -962,9 +1033,12 @@ class GenerationEngine:
             prefix_len = 0  # truncation drops leading tokens: the prefix is gone
         prefix_len = max(0, min(int(prefix_len), len(prompt_ids) - 1))
         # the worst-case page reservation: the scheduler's KV-pressure charge
-        # (prefix sharing only reduces the pages actually taken)
-        demand_tokens = min(len(prompt_ids) + int(max_tokens), self.max_seq_len)
-        kv_pages = -(-demand_tokens // self.kv_page_size)
+        # (prefix sharing only reduces the pages actually taken; the legacy
+        # layout reserves no pages)
+        kv_pages = 0
+        if self.paged:
+            demand_tokens = min(len(prompt_ids) + int(max_tokens), self.max_seq_len)
+            kv_pages = -(-demand_tokens // self.kv_page_size)
         admitted = False
         if self.scheduler is not None:
             if deadline_s is None:
@@ -976,11 +1050,12 @@ class GenerationEngine:
                 raise SchedulerRejected(adm.reason, adm.retry_after_s)
             if adm.clamp_max_tokens is not None:
                 max_tokens = min(max_tokens, adm.clamp_max_tokens)
-                demand_tokens = min(len(prompt_ids) + int(max_tokens), self.max_seq_len)
-                new_pages = -(-demand_tokens // self.kv_page_size)
-                if new_pages < kv_pages:
-                    self.scheduler.release_kv(kv_pages - new_pages)
-                    kv_pages = new_pages
+                if self.paged:  # the clamp shrinks the worst case: release the difference
+                    demand_tokens = min(len(prompt_ids) + int(max_tokens), self.max_seq_len)
+                    new_pages = -(-demand_tokens // self.kv_page_size)
+                    if new_pages < kv_pages:
+                        self.scheduler.release_kv(kv_pages - new_pages)
+                        kv_pages = new_pages
             admitted = True
         now = time.monotonic()
         fut: Future = Future()
@@ -1109,8 +1184,8 @@ class GenerationEngine:
             "active_slots": self.num_active,
             "steps": self.steps,
             "queued": self.queued_depth(),
-            "kv_pages_total": self._kv_pool.n_pages,
-            "kv_pages_free": self._kv_pool.pages_free,
+            "kv_pages_total": self._kv_pool.n_pages if self.paged else 0,
+            "kv_pages_free": self._kv_pool.pages_free if self.paged else 0,
             "kv_page_size": self.kv_page_size,
             "ttft_p50_s": ttft[len(ttft) // 2] if ttft else None,
             "ticks": self._ticks_issued,
@@ -1158,15 +1233,23 @@ class GenerationEngine:
         }
 
     def kv_stats(self) -> Dict[str, Any]:
-        """The KV plane's gauges: the pool (pages used, free, obtainable,
-        shared; registry entries; evictions and COW copies) and the prefix
-        hit and miss counters."""
-        return {
-            "kv_layout": "paged",
-            **self._kv_pool.stats(),
-            "prefix_hits": self.prefix_hits,
-            "prefix_misses": self.prefix_misses,
-        }
+        """The KV plane's gauges (the JAX ``kv_stats``): the layout, the one
+        the config asked for and the one that runs (a context no page
+        divides falls back to legacy), then the pool (pages used, free,
+        obtainable, shared; registry entries; evictions and COW copies) on
+        the paged layout, or the pinned prefixes' count and bytes on the
+        legacy one, and the prefix hit and miss counters."""
+        out: Dict[str, Any] = {"kv_layout": "paged" if self.paged else "legacy"}
+        out["kv_layout_requested"] = self.kv_layout_requested
+        out["kv_layout_effective"] = out["kv_layout"]
+        if self.paged:
+            out.update(self._kv_pool.stats())
+        else:
+            out["prefix_entries"] = len(self._prefix_lru)
+            out["prefix_bytes"] = self._prefix_bytes
+        out["prefix_hits"] = self.prefix_hits
+        out["prefix_misses"] = self.prefix_misses
+        return out
 
     @staticmethod
     def _pctl_ms(samples, frac: float) -> float:
@@ -1235,11 +1318,20 @@ class GenerationEngine:
         piggybacked-prefill gauges (chunks that rode a tick,
         and the fraction of ticks that waited on a chunk of their own), the
         single-step JSON ticks issued in place of fused ones, and whether the
-        decode attention runs the fp8 in-dot scheme (``attn_fp8``)."""
+        decode attention runs the fp8 in-dot scheme (``attn_fp8``).
+
+        ``upload_overlap_frac`` is the JAX gauge's fraction of sampling and
+        block-table upload cycles issued while a tick was in flight rather
+        than on the issue path.  The port issues every upload on the issue
+        path (:meth:`_upload_dirty` in :meth:`_issue_tick`: a copy from
+        pinned memory, non-blocking, ordered on the stream behind the ticks
+        in flight, so the host does not wait for it) and stages none ahead,
+        so it reports 0.0."""
         return {
             "decode_steps": self.decode_steps,
             "decode_steps_effective": 1 if self._json.any() else self.decode_steps,
             "json_downgraded_ticks": self._json_downgraded_ticks,
+            "upload_overlap_frac": 0.0,
             "weight_bits": self.weight_bits,
             "cuda_graph": self._graph is not None,
             "prefill_piggyback": self.prefill_piggyback,
@@ -1255,14 +1347,37 @@ class GenerationEngine:
         """:meth:`stats` plus the per-tick wall breakdown (ms per tick):
         ``issue_ms`` is what the host spends issuing a tick (uploads, noise,
         the replay or the eager steps), ``block_ms`` what it waits for a
-        tick's ids in :meth:`_process_tick`."""
+        tick's ids in :meth:`_process_tick`; ``kv_read_frac``, the average
+        share of the allocated KV row the decode read covered (the JAX
+        gauge: the live chunks' share per plain tick, 1.0 for a speculative
+        tick and with no chunked read); and the latency gauges
+        (:meth:`latency_stats`) at the top level, as the JAX engine has
+        them."""
+        n = self._ticks_issued
         return {
             **self.stats(),
             **(self.spec_stats() or {}),
-            "issue_ms": round(self._tick_issue_s / max(1, self._ticks_issued) * 1e3, 3),
+            **self.latency_stats(),
+            "issue_ms": round(self._tick_issue_s / max(1, n) * 1e3, 3),
             "block_ms": round(self._tick_block_s / max(1, self._ticks_processed) * 1e3, 3),
+            "kv_read_frac": round(self._kv_frac_sum / n, 4) if n else 1.0,
             "graph_pool_bytes": self.graph_pool_bytes,
         }
+
+    def _kv_read_frac(self) -> float:
+        """The share of the allocated row this tick's chunked read covers:
+        the chunks up to the longest live slot's position over the row's
+        chunks (the JAX host-side estimate, within a chunk of the device's
+        ``hi``), or 1.0 with no chunked read."""
+        c = self.decode_kv_chunk
+        if not c:
+            return 1.0
+        mx = 0
+        for s in self._slots:
+            if s is not None:
+                pos = len(s.request.prompt_ids) + len(s.generated)
+                mx = max(mx, min(pos, self.max_seq_len - 1))
+        return (mx // c + 1) / (self.max_seq_len // c)
 
     # ---------------------------------------------------------------- the loop
     def _loop_iteration(self) -> bool:
@@ -1425,13 +1540,26 @@ class GenerationEngine:
                 self._release(i)
 
     # --------------------------------------------------------------- admission
-    def _prefix_lookup(self, req: _Request) -> Optional[SharedPrefix]:
+    def _prefix_lookup(self, req: _Request):
         """The LONGEST registered prefix this prompt starts with (so a
         multi-turn dialog hits the previous turn's prefix even though its
-        declared split moved), LRU-touched, or None."""
+        declared split moved), LRU-touched, or None: the allocator's
+        registry on the paged layout (a :class:`~.kv_pool.SharedPrefix`), the
+        pinned-K/V LRU on the legacy one (a :class:`_Prefix`)."""
         if self.prefix_cache_size <= 0 or req.prefix_len < self.prefix_min_tokens:
             return None
-        return self._paged_usable_hit(req, self._kv_pool.lookup(req.prompt_ids, req.prefix_len))
+        if self.paged:
+            return self._paged_usable_hit(
+                req, self._kv_pool.lookup(req.prompt_ids, req.prefix_len))
+        n = len(req.prompt_ids)
+        best_key, best = None, None
+        for key, ent in self._prefix_lru.items():
+            if ent.length < n and (best is None or ent.length > best.length):
+                if tuple(req.prompt_ids[: ent.length]) == key:
+                    best, best_key = ent, key
+        if best_key is not None:
+            self._prefix_lru.move_to_end(best_key)
+        return best
 
     def _paged_usable_hit(self, req: _Request, hit: Optional[SharedPrefix]):
         """Reject a hit whose bucketed suffix prefill would run past the
@@ -1488,7 +1616,7 @@ class GenerationEngine:
         return True
 
     def _free_slot_pages(self, slot: int) -> None:
-        if not self._slot_pages[slot]:
+        if not self._slot_pages[slot]:  # (always, on the legacy layout)
             return
         self._kv_pool.decref(self._slot_pages[slot])
         self._slot_pages[slot] = []
@@ -1550,7 +1678,7 @@ class GenerationEngine:
             if must_wait(n_eff):
                 break
             slot = free[0]
-            if not self._paged_admit_slot(slot, req, hit):
+            if self.paged and not self._paged_admit_slot(slot, req, hit):
                 if hit is None:
                     break  # out of pages: the head waits for a slot to free
                 # the pinned hit may be what eviction needed: drop it and
@@ -1570,7 +1698,8 @@ class GenerationEngine:
                 req = taken
                 hit = self._prefix_lookup(req)
                 n_eff = len(req.prompt_ids) - (hit.length if hit else 0)
-                if must_wait(n_eff) or not self._paged_admit_slot(slot, req, hit):
+                if must_wait(n_eff) or (self.paged
+                                        and not self._paged_admit_slot(slot, req, hit)):
                     self._requeue_front(req)
                     break
             free.pop(0)
@@ -1610,7 +1739,7 @@ class GenerationEngine:
             admitted = True
         return admitted
 
-    def _count_prefix(self, req: _Request, hit: Optional[SharedPrefix]) -> None:
+    def _count_prefix(self, req: _Request, hit) -> None:
         """Hit and miss counters, once per admitted request that declared a
         cacheable prefix."""
         if self.prefix_cache_size > 0 and req.prefix_len >= self.prefix_min_tokens:
@@ -1649,7 +1778,10 @@ class GenerationEngine:
 
     def _start_batch(self, batch: List[tuple[int, _Request]]):
         """One prefill call for a bucket group of the wave (misses: the whole
-        prompt), registration of declared prefixes, then activation."""
+        prompt), registration of declared prefixes, then activation.  Pad
+        rows come first: paged, they carry the slot and page sentinels, so
+        their writes drop; legacy, they alias the first real slot, which
+        ``insert_sequences`` writes after them (the later row wins)."""
         reqs = [r for _, r in batch]
         slots = [s for s, _ in batch]
         bucket = pick_bucket(
@@ -1659,7 +1791,7 @@ class GenerationEngine:
         pad = Bp - len(batch)
         ids = np.full((Bp, bucket), self.tokenizer.pad_id, np.int32)
         lengths = np.zeros((Bp,), np.int32)
-        slot_arr = np.full((Bp,), self.max_slots, np.int32)  # pad rows: sentinel
+        slot_arr = np.full((Bp,), self.max_slots if self.paged else slots[0], np.int32)
         for j, req in enumerate(reqs):
             n = len(req.prompt_ids)
             ids[pad + j, :n] = req.prompt_ids
@@ -1667,19 +1799,23 @@ class GenerationEngine:
             slot_arr[pad + j] = slots[j]
         lengths_t = self._tensor(lengths)
         logits, ks, vs = llama.prefill(self.params, self.cfg, self._tensor(ids), lengths_t)
-        llama.insert_sequences_paged(
-            self._cache, ks, vs, lengths_t, self._tensor(slot_arr),
-            self._tensor(self._wave_block_tables(slots, pad)),
-        )
+        if self.paged:
+            llama.insert_sequences_paged(
+                self._cache, ks, vs, lengths_t, self._tensor(slot_arr),
+                self._tensor(self._wave_block_tables(slots, pad)),
+            )
+        else:
+            llama.insert_sequences(self._cache, ks, vs, lengths_t, self._tensor(slot_arr))
         for slot, req in batch:
             self._maybe_register_prefix(slot, req)
         self._activate_batch(slots, reqs, logits, pad=pad)
 
     def _start_suffix_batch(self, group: List[tuple]):
-        """Admit a wave of prefix hits: their shared pages are already wired
-        into the block tables (and the boundary pages cloned) by
-        :meth:`_paged_admit_slot`, so one batched suffix prefill continues
-        every row from its prefix length.  The skipped work is the prefix's
+        """Admit a wave of prefix hits: paged, their shared pages are already
+        wired into the block tables (and the boundary pages cloned) by
+        :meth:`_paged_admit_slot`; legacy, each pinned prefix is copied into
+        its slot's row.  Then one batched suffix prefill continues every row
+        from its prefix length.  The skipped work is the prefix's
         recompute."""
         slots = [s for s, _, _ in group]
         reqs = [r for _, r, _ in group]
@@ -1693,19 +1829,31 @@ class GenerationEngine:
         ids = np.full((Bp, bucket), self.tokenizer.pad_id, np.int32)
         starts = np.zeros((Bp,), np.int64)
         valids = np.zeros((Bp,), np.int64)
-        slot_arr = np.full((Bp,), self.max_slots, np.int64)  # pad rows: sentinel
+        slot_arr = np.full((Bp,), self.max_slots if self.paged else slots[0], np.int64)
         for j, (req, hit) in enumerate(zip(reqs, hits)):
-            # _paged_usable_hit keeps [start, start + bucket) inside the context
-            suffix = req.prompt_ids[hit.length : hit.length + bucket]
+            # the write window [start, start + bucket) stays inside the row:
+            # paged, _paged_usable_hit refused a hit that would cross it;
+            # legacy, the window slides left (the re-fed prefix tokens
+            # recompute the same K/V at the same positions)
+            start = min(hit.length, self.max_seq_len - bucket)
+            suffix = req.prompt_ids[start : start + bucket]
             ids[pad + j, : len(suffix)] = suffix
-            starts[pad + j] = hit.length
+            starts[pad + j] = start
             valids[pad + j] = len(suffix)
             slot_arr[pad + j] = slots[j]
-        logits, _ = llama.prefill_suffix_paged(
-            self.params, self.cfg, self._tensor(ids), self._cache,
-            self._tensor(self._wave_block_tables(slots, pad)), self._tensor(slot_arr),
-            self._tensor(starts), self._tensor(valids),
-        )
+        if self.paged:
+            logits, _ = llama.prefill_suffix_paged(
+                self.params, self.cfg, self._tensor(ids), self._cache,
+                self._tensor(self._wave_block_tables(slots, pad)), self._tensor(slot_arr),
+                self._tensor(starts), self._tensor(valids),
+            )
+        else:
+            for slot, hit in zip(slots, hits):
+                llama.insert_prefix(self._cache, hit.pk, hit.pv, slot)
+            logits, _ = llama.prefill_suffix(
+                self.params, self.cfg, self._tensor(ids), self._cache, self._tensor(slot_arr),
+                self._tensor(starts), self._tensor(valids),
+            )
         # a hit whose declared split extends past the matched prefix (a
         # multi-turn history that grew) registers the longer prefix
         for slot, req in zip(slots, reqs):
@@ -1713,10 +1861,27 @@ class GenerationEngine:
         self._activate_batch(slots, reqs, logits, pad=pad)
 
     def _maybe_register_prefix(self, slot: int, req: _Request) -> None:
-        """After ``slot``'s prefill, register the pages covering the
-        request's declared prefix with the allocator (refcounting only: no
-        copy, no memory beyond what the request holds)."""
+        """After ``slot``'s prefill, make the request's declared prefix
+        shareable: paged, register the pages covering it with the allocator
+        (refcounting only: no copy, no memory beyond what the request
+        holds); legacy, copy its K/V out of the slot's row into the pinned
+        LRU (post-RoPE, positions [0, pb)), evicting the least recently
+        used entries past ``prefix_cache_size`` or the byte budget."""
         if self.prefix_cache_size <= 0 or req.prefix_len < self.prefix_min_tokens:
+            return
+        if not self.paged:
+            key = tuple(req.prompt_ids[: req.prefix_len])
+            if key in self._prefix_lru:
+                return
+            pb = self._prefix_bucket(req.prefix_len)
+            pk, pv = llama.extract_prefix(self._cache, slot, pb)
+            ent = _Prefix(pk=pk, pv=pv, length=req.prefix_len, pb=pb)
+            self._prefix_lru[key] = ent
+            self._prefix_bytes += ent.nbytes
+            while self._prefix_lru and (len(self._prefix_lru) > self.prefix_cache_size
+                                        or self._prefix_bytes > self.prefix_cache_max_bytes):
+                _, old = self._prefix_lru.popitem(last=False)
+                self._prefix_bytes -= old.nbytes
             return
         nbp = -(-req.prefix_len // self.kv_page_size)
         pages = [int(p) for p in self._block_tables[slot, :nbp]]
@@ -1724,18 +1889,31 @@ class GenerationEngine:
             return  # the allocation does not cover the prefix
         self._kv_pool.register(req.prompt_ids, req.prefix_len, pages)
 
-    def _begin_chunked(self, slot: int, req: _Request, prefix: Optional[SharedPrefix] = None):
+    def _prefix_bucket(self, prefix_len: int) -> int:
+        """The positions a pinned legacy prefix carries: the smallest prefill
+        bucket that fits it, else the smallest multiple of the largest
+        bucket (never the whole row), capped at ``max_seq_len``."""
+        for b in self.prefill_buckets:
+            if prefix_len <= b:
+                return b
+        step = self.prefill_buckets[-1]
+        return min(-(-prefix_len // step) * step, self.max_seq_len)
+
+    def _begin_chunked(self, slot: int, req: _Request, prefix=None):
         """Split a long prompt into full chunks, from the prefix length when
-        a cached ``prefix`` is wired into the slot's pages; the final chunk
-        slides left to end at the prompt end (re-fed positions recompute
-        identical K/V), so no chunk carries pad tokens.  A remainder longer
-        than a chunk keeps the final chunk past the prefix."""
+        a cached ``prefix`` is wired into the slot's pages (legacy: copied
+        into its row here); the final chunk slides left to end at the prompt
+        end (re-fed positions recompute identical K/V), so no chunk carries
+        pad tokens.  A remainder longer than a chunk keeps the final chunk
+        past the prefix."""
         n = len(req.prompt_ids)
         base = prefix.length if prefix is not None else 0
         c = self.chunk_size
         flat = np.asarray(req.prompt_ids, np.int32)
         starts = list(range(base, n - c, c)) + [n - c]
         ids = np.stack([flat[s : s + c] for s in starts])
+        if prefix is not None and not self.paged:
+            llama.insert_prefix(self._cache, prefix.pk, prefix.pv, slot)
         req.started_at = time.monotonic()
         self._chunking = _ChunkedPrefill(request=req, slot=slot, ids=ids, starts=starts, n=n)
 
@@ -1744,18 +1922,25 @@ class GenerationEngine:
         order, and count it as taken."""
         j = st.step
         self._upload(self._chunk_ids_dev, st.ids[j : j + 1])
-        self._upload(self._chunk_bt_dev, self._block_tables[st.slot])
+        if self.paged:
+            self._upload(self._chunk_bt_dev, self._block_tables[st.slot])
         self._upload(self._chunk_slot_dev, np.asarray([st.slot], np.int64))
         self._upload(self._chunk_start_dev, np.asarray([st.starts[j]], np.int64))
         st.step += 1
 
     def _chunk_body(self) -> torch.Tensor:
-        """The staged chunk's forward and page writes (every chunk is full of
+        """The staged chunk's forward and cache writes (every chunk is full of
         real tokens); returns its logits.  The piggyback graph holds it."""
-        logits, _ = llama.prefill_chunk_paged(
-            self.params, self.cfg, self._chunk_ids_dev, self._cache, self._chunk_bt_dev,
-            self._chunk_slot_dev, self._chunk_start_dev, self.chunk_size,
-        )
+        if self.paged:
+            logits, _ = llama.prefill_chunk_paged(
+                self.params, self.cfg, self._chunk_ids_dev, self._cache, self._chunk_bt_dev,
+                self._chunk_slot_dev, self._chunk_start_dev, self.chunk_size,
+            )
+        else:
+            logits, _ = llama.prefill_chunk(
+                self.params, self.cfg, self._chunk_ids_dev, self._cache,
+                self._chunk_slot_dev, self._chunk_start_dev, self.chunk_size,
+            )
         return logits
 
     def _abandon_dead_prefill(self, st: _ChunkedPrefill) -> bool:
@@ -1850,16 +2035,30 @@ class GenerationEngine:
             self._upload(self._bt_dev, self._block_tables)
             self._bt_dirty = False
 
-    def _tick_body(self) -> None:
-        """The fused tick: ``decode_steps`` chained decode + sampling steps
-        over the engine's buffers, step ``i`` reading noise ``i``; ids go to
-        ``_toks_dev[i]`` and chain through ``_tokens_dev``.  On the card this
-        is what the graph holds."""
-        for i in range(self.decode_steps):
+    def _decode_step(self) -> torch.Tensor:
+        """One decode step of every slot over the engine's cache -> logits:
+        through the block tables (paged), or over the slot cache with the
+        chunked read of ``decode_kv_chunk`` or, with None, the full row."""
+        if self.paged:
             logits, _ = llama.decode_step_paged(
                 self.params, self.cfg, self._tokens_dev, self._cache, self._bt_dev,
                 active=self._active_dev, attn_fp8=self.attn_fp8,
             )
+        else:
+            logits, _ = llama.decode_step(
+                self.params, self.cfg, self._tokens_dev, self._cache, active=self._active_dev,
+                kv_chunk=self.decode_kv_chunk, attn_fp8=self.attn_fp8,
+            )
+        return logits
+
+    def _tick_body(self) -> None:
+        """The fused tick: ``decode_steps`` chained decode + sampling steps
+        over the engine's buffers, step ``i`` reading noise ``i``; ids go to
+        ``_toks_dev[i]`` and chain through ``_tokens_dev``.  On the card this
+        is what the graph holds (the chunked read's range is found on the
+        device from the lengths, so one graph serves every fill)."""
+        for i in range(self.decode_steps):
+            logits = self._decode_step()
             nxt = sample_logits(
                 logits, temperature=self._temps_dev, top_k=TOP_K,
                 top_p=self._top_ps_dev, gumbel=self._noise[i],
@@ -1871,10 +2070,7 @@ class GenerationEngine:
         """The JSON tick: one decode step, its sampling under the JSON rows'
         FSM masks, and the advance of their states; its ids go to
         ``_toks_dev[0]``.  On the card this is what the JSON graph holds."""
-        logits, _ = llama.decode_step_paged(
-            self.params, self.cfg, self._tokens_dev, self._cache, self._bt_dev,
-            active=self._active_dev, attn_fp8=self.attn_fp8,
-        )
+        logits = self._decode_step()
         nxt, states = sample_logits(
             logits, temperature=self._temps_dev, top_k=TOP_K, top_p=self._top_ps_dev,
             gumbel=self._noise[0], allowed=self._fsm_allowed_dev,
@@ -1889,8 +2085,9 @@ class GenerationEngine:
         ``decode_steps`` chained verify steps over the engine's buffers, each
         draft (from the history) -> flat tree -> read-only verify forward ->
         acceptance (step ``i``'s position-0 draw reading noise ``i``) ->
-        accepted-path commit (inactive rows and everything past the run go
-        to the dump page) -> history, length and token update, as the JAX
+        accepted-path commit (paged: inactive rows and everything past the
+        run go to the dump page; legacy: the whole path at each row's
+        length, garbage past the run) -> history, length and token update, as the JAX
         ``_make_spec_tick`` body.  Ids go to the rung's ``[steps, K+1, B]``
         buffer, counts to its ``[steps, B]`` one.  On the card this is what
         the rung's graph holds."""
@@ -1904,13 +2101,21 @@ class GenerationEngine:
             tokens = self._tokens_dev
             draft = build_tree_draft(hist, cache.lengths, tokens, N, K)
             tree = flatten_tree(tokens, draft)  # [B, 1 + N*K]
-            logits, tks, tvs = llama.verify_tree_step_paged(
-                self.params, self.cfg, tree, cache, self._bt_dev, depths, anc)
+            if self.paged:
+                logits, tks, tvs = llama.verify_tree_step_paged(
+                    self.params, self.cfg, tree, cache, self._bt_dev, depths, anc)
+            else:
+                logits, tks, tvs = llama.verify_tree_step(
+                    self.params, self.cfg, tree, cache, depths, anc)
             out, n_new, bonus, path_idx = accept_tree(
                 logits, tree, spec, temperature=self._temps_dev, top_k=TOP_K,
                 top_p=self._top_ps_dev, gumbel=self._noise[i], branch=branch)
             n_new = torch.where(active, n_new, 0)
-            llama.commit_tree_path_paged(cache, tks, tvs, path_idx, self._bt_dev, n_new, active)
+            if self.paged:
+                llama.commit_tree_path_paged(cache, tks, tvs, path_idx, self._bt_dev, n_new,
+                                             active)
+            else:
+                llama.commit_tree_path(cache, tks, tvs, path_idx)
             # the input token and the accepted ones into the history at
             # positions lengths .. lengths + K + 1 (past the run: garbage the
             # next steps overwrite; the drafter never reads past the length)
@@ -2003,7 +2208,7 @@ class GenerationEngine:
         dev = self.device
         piggyback = self.prefill_piggyback and self.chunk_size < self.max_seq_len - 1
         # made on the engine's stream, not inside the warm-up
-        llama._rope_tables(self.cfg, self._kv_blocks * self.kv_page_size, dev)
+        llama._rope_tables(self.cfg, self.max_seq_len, dev)
         stream = self._capture_stream = torch.cuda.Stream(dev)
         # the paged kernel's scratch and counters of these graphs, and nobody else's
         self._graph_scratch: Dict[tuple, tuple] = {}
@@ -2108,6 +2313,7 @@ class GenerationEngine:
         self._launch_tick(piggyback, json=json)
         self.steps += 1 if json else self.decode_steps
         self._ticks_issued += 1
+        self._kv_frac_sum += self._kv_read_frac()
         live = [(i, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
         toks = self._toks_dev[:1] if json else self._toks_dev
         self._inflight.append(_TickRef(nxt=_HostCopy(toks), slots=live))
@@ -2121,6 +2327,7 @@ class GenerationEngine:
         self.steps += self.decode_steps
         self.spec_ticks_issued += 1
         self._ticks_issued += 1
+        self._kv_frac_sum += 1.0  # the tree verify reads the whole row
         live = [(i, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
         toks, n_new = self._spec_out[rung]
         self._inflight.append(_TickRef(nxt=_HostCopy(toks), slots=live,

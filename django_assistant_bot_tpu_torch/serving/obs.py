@@ -597,6 +597,7 @@ def render_prometheus(registry: Any) -> str:
         x.add("dabt_decode_steps", "gauge", "configured fused decode-tick depth", dec.get("decode_steps"), lab)
         x.add("dabt_decode_steps_effective", "gauge", "decode steps the last tick actually ran", dec.get("decode_steps_effective"), lab)
         x.add("dabt_weight_bits", "gauge", "decode weight format width in bits (16/8/4)", dec.get("weight_bits"), lab)
+        x.add("dabt_upload_overlap_frac", "gauge", "sampling/block-table upload cycles overlapped with an in-flight tick", dec.get("upload_overlap_frac"), lab)
         x.add("dabt_prefill_displacement_frac", "gauge", "fraction of decode ticks displaced by a sequential prefill chunk", dec.get("prefill_displacement_frac"), lab)
         x.add("dabt_prefill_chunks_piggybacked_total", "counter", "prefill chunks run inside a fused decode tick", dec.get("prefill_chunks_piggybacked"), lab)
         x.add("dabt_prefill_piggyback", "gauge", "piggybacked-prefill program built for this engine", dec.get("prefill_piggyback"), lab)

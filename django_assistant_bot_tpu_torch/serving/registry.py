@@ -35,7 +35,6 @@ logger = logging.getLogger(__name__)
 # JAX ModelSpec keys not ported yet: key -> (the only accepted value, ROADMAP item)
 _DEFERRED: Dict[str, tuple] = {
     "checkpoint": (None, "Queue 1 item 4 (native checkpoints)"),
-    "kv_layout": ("paged", "Queue 1 item 8 (legacy contiguous KV)"),
     "kv_host_bytes": (0, "Queue 1 item 12 (tiered KV)"),
     "kv_spill_dir": (None, "Queue 1 item 12 (tiered KV)"),
     "replicas": (1, "Queue 1 item 12 (router)"),
@@ -72,7 +71,8 @@ _QUANT_BITS = {"int8": 8, "int4": 4}
 
 def _check_speculative(spec: "ModelSpec") -> None:
     """The JAX registry's speculative checks and messages, and on the card
-    the tree kernel's limit (:func:`check_paged_tree_nodes`)."""
+    the paged tree kernel's limit (:func:`check_paged_tree_nodes`; the
+    legacy layout verifies through plain attention)."""
     name = spec.name.lower()
     if spec.speculative and spec.kind == "encoder":
         raise ValueError(f"model {name}: speculative is decoder-only")
@@ -81,7 +81,7 @@ def _check_speculative(spec: "ModelSpec") -> None:
             f"model {name}: speculative excludes JSON-constrained decoding "
             "(the token FSM is sequential); use a separate model entry"
         )
-    if spec.speculative and torch.device(spec.device).type == "cuda":
+    if spec.speculative and spec.kv_layout == "paged" and torch.device(spec.device).type == "cuda":
         try:
             check_paged_tree_nodes(spec.speculative, max(1, spec.spec_width))
         except ValueError as e:
@@ -208,6 +208,9 @@ class ModelSpec:
     decode_steps: int = 0
     prefill_piggyback: bool = True
     decode_kv_chunk: Optional[int] = 0
+    # "paged" (a page pool with block tables) or "legacy" (the contiguous
+    # [max_slots, max_seq_len] slot cache, read by the chunked decode)
+    kv_layout: str = "paged"
     kv_page_size: int = 0
     kv_pages: int = 0
     # the page pool's precision: None (the model's dtype), "bf16", "fp8"
@@ -352,6 +355,7 @@ class ModelSpec:
             decode_steps=self.decode_steps or None,
             prefill_piggyback=self.prefill_piggyback,
             decode_kv_chunk=self.decode_kv_chunk,
+            kv_layout=self.kv_layout,
             kv_page_size=self.kv_page_size,
             kv_pages=self.kv_pages,
             kv_cache_dtype=self.kv_cache_dtype,

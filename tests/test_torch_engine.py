@@ -163,6 +163,14 @@ def test_engine_refuses_unported_knobs(tiny_models, knob, value, item):
         eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **{knob: value})
         assert eng.speculative == value and eng.spec_stats()["spec_tree_depth"] == value
         return
+    if knob == "kv_layout":
+        # Queue 1 item 8 (the legacy contiguous KV layout) is ported: the
+        # engine takes it and reports it in kv_stats
+        eng = GenerationEngine(cfg, params, ByteTokenizer(), device="cpu", **{knob: value})
+        assert not eng.paged and eng._cache.k.dim() == 5
+        ks = eng.kv_stats()
+        assert ks["kv_layout"] == ks["kv_layout_requested"] == ks["kv_layout_effective"] == value
+        return
     if item == "Queue 2 entry 5":
         # fp8 KV pools and the in-dot read are ported: the engine takes them
         # (attn_fp8 on an fp8 pool, as the JAX engine requires)

@@ -16,6 +16,10 @@ from django_assistant_bot_tpu_torch import kernels
 from django_assistant_bot_tpu_torch.ops.attention import (
     FLASH_MMA_HEAD_DIMS,
     attention,
+    chunked_bf16_bound,
+    chunked_fp8_dot_bound,
+    chunked_gqa_decode_attention,
+    chunked_gqa_decode_attention_plain,
     flash_attention,
     flash_attention_plain,
     flash_bf16_bound,
@@ -430,6 +434,194 @@ def test_paged_kernel_refuses_pools_it_does_not_take():
         paged_gqa_decode_attention(q, kp.float(), vp.float(), bt, pos, active=active)
     with pytest.raises(TypeError):  # K and V in two formats
         paged_gqa_decode_attention(q, _narrow(kp, "e4m3"), _narrow(vp, "e5m2"), bt, pos)
+
+
+# ------------------------------------------------ chunked decode (the legacy slot cache)
+def _chunked_inputs(dtype, D, G, *, chunk, NB, positions, inactive, KH=2):
+    """Queries and a slot cache ``[B, KH, NB * chunk, D]`` for ``positions``."""
+    B, H, S = len(positions), KH * G, NB * chunk
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+               for shape in ((B, H, 1, D), (B, KH, S, D), (B, KH, S, D)))
+    active = torch.ones(B, dtype=torch.bool)
+    active[inactive] = False
+    return q, k, v, torch.tensor(positions, dtype=torch.int32, device="cuda"), active.cuda()
+
+
+def _as_pages(cache, chunk):
+    """The slot cache's chunks as a page pool (page ``b * NB + j`` is chunk
+    j of row b) and its identity block table."""
+    B, KH, S, D = cache.shape
+    NB = S // chunk
+    pool = cache.reshape(B, KH, NB, chunk, D).transpose(1, 2).reshape(B * NB, KH, chunk, D)
+    bt = torch.arange(B * NB, dtype=torch.int32, device=cache.device).reshape(B, NB)
+    return pool.contiguous(), bt
+
+
+_CHUNKED_MAIN = dict(chunk=512, NB=8, positions=[5, 511, 512, 1041, 1836, 4095, 1500, 700],
+                     inactive=[6], KH=8)
+_CHUNKED_CASES = [
+    # the tensor-core kernel at both head dims and three group sizes, the
+    # CUDA-core kernels (f32 queries, D 16 and 256), ragged rows on chunk
+    # boundaries and an inactive row
+    *((torch.bfloat16, D, G, w, dict(chunk=64, NB=8, positions=[0, 63, 64, 300, 511],
+                                     inactive=[2]))
+      for D in (64, 128) for G in (1, 4, 8) for w in (None, 40)),
+    (torch.float32, 16, 2, None, dict(chunk=16, NB=4, positions=[0, 15, 16, 41, 63],
+                                      inactive=[3])),
+    (torch.float32, 128, 4, 40, dict(chunk=64, NB=8, positions=[0, 63, 64, 300, 511],
+                                     inactive=[2])),
+    (torch.bfloat16, 256, 2, None, dict(chunk=64, NB=4, positions=[3, 70, 200, 255],
+                                        inactive=[])),
+    # the main path's shape; a window whose lower bound is past chunk 0; a
+    # batch whose hi is 1 (every position inside chunk 0)
+    (torch.bfloat16, 128, 4, None, _CHUNKED_MAIN),
+    (torch.bfloat16, 128, 4, 100, dict(chunk=512, NB=8, positions=[1000, 1500, 2047, 1100],
+                                       inactive=[3], KH=8)),
+    (torch.bfloat16, 128, 4, None, dict(chunk=512, NB=8, positions=[0, 0, 3, 511],
+                                        inactive=[], KH=8)),
+]
+_CHUNKED_READS = [(None, False), ("bf16", False), ("e4m3", False), ("e5m2", False),
+                  ("e4m3", True), ("e5m2", True)]
+
+
+@pytest.mark.parametrize("kv,fp8_dot", _CHUNKED_READS)
+@pytest.mark.parametrize("dtype,D,G,window,layout", _CHUNKED_CASES)
+def test_chunked_kernel_matches_plain(dtype, D, G, window, layout, kv, fp8_dot):
+    """The contiguous form of the paged kernels against the chunked twin on
+    the same cache: native and dequant bf16 outputs within
+    ``chunked_bf16_bound``, f32 within 1e-4, the in-dot read within
+    ``chunked_fp8_dot_bound``; counted once under ``chunked_decode`` (and
+    its route and read), never under ``paged_decode``."""
+    if kv == "bf16" and dtype == torch.bfloat16:
+        pytest.skip("a bf16 cache under bf16 queries is the native read")
+    q, k, v, pos, active = _chunked_inputs(dtype, D, G, **layout)
+    if kv is not None:
+        k, v = _narrow(k, kv), _narrow(v, kv)
+    chunk = layout["chunk"]
+    route = "mma" if dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS else "cuda_core"
+    form = f"{route}:{kernels.paged_read(dtype, k.dtype, fp8_dot)}"
+    before, forms = kernels.launch_counts(), dict(kernels.CHUNKED_FORMS)
+    out = chunked_gqa_decode_attention(q, k, v, pos, chunk=chunk, active=active, window=window,
+                                       fp8_dot=fp8_dot)
+    after = kernels.launch_counts()
+    assert after["chunked_decode"] == before["chunked_decode"] + 1
+    assert after["paged_decode"] == before["paged_decode"]
+    assert kernels.CHUNKED_FORMS[form] == forms[form] + 1
+    kw = dict(chunk=chunk, active=active, window=window)
+    ref = chunked_gqa_decode_attention_plain(q.float(), k, v, pos, fp8_dot=fp8_dot, **kw)
+    if fp8_dot:
+        bound = chunked_fp8_dot_bound(q.float(), k, v, pos, ref, **kw)
+    elif dtype == torch.bfloat16:
+        bound = chunked_bf16_bound(q.float(), k, v, pos, ref, **kw)
+    else:
+        bound = torch.full_like(ref, F32_TOL)
+    live = active[:, None, None, None].expand_as(ref)  # an inactive row's output is unused
+    diff = (out.float() - ref).abs()
+    assert bool(torch.isfinite(out[live]).all())
+    assert bool((diff <= bound)[live].all()), (diff / bound)[live].max().item()
+
+
+@pytest.mark.parametrize("kv,fp8_dot", [(None, False), ("e4m3", False), ("e5m2", True)])
+@pytest.mark.parametrize("dtype,D,G,window,layout", [
+    (torch.bfloat16, 128, 4, None, _CHUNKED_MAIN),
+    (torch.bfloat16, 128, 4, 100, _CHUNKED_MAIN),
+    (torch.bfloat16, 64, 8, None, dict(chunk=64, NB=8, positions=[0, 63, 64, 300, 511],
+                                       inactive=[2])),
+    (torch.float32, 128, 4, None, dict(chunk=64, NB=8, positions=[0, 63, 64, 300, 511],
+                                       inactive=[2])),
+])
+def test_chunked_kernel_bit_equal_to_paged(dtype, D, G, window, layout, kv, fp8_dot):
+    """The same K/V laid out as pages with an identity block table, read by
+    ``paged_decode``, gives the chunked read's bytes: one reduction order,
+    the page being the chunk (the JAX package's paged = legacy contract)."""
+    q, k, v, pos, active = _chunked_inputs(dtype, D, G, **layout)
+    if kv is not None:
+        k, v = _narrow(k, kv), _narrow(v, kv)
+    chunk = layout["chunk"]
+    kp, bt = _as_pages(k, chunk)
+    vp, _ = _as_pages(v, chunk)
+    kw = dict(active=active, window=window, fp8_dot=fp8_dot)
+    contiguous = chunked_gqa_decode_attention(q, k, v, pos, chunk=chunk, **kw)
+    paged = paged_gqa_decode_attention(q, kp, vp, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(contiguous.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       paged.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("kv", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunked_kernel_indot_rounds_p_as_the_twin(kv, dtype):
+    """K2 over the slot cache on ``paged_fp8_dot_probe``'s inputs (its pages
+    as the cache's chunks): within ``chunked_bf16_bound`` of the twin; the
+    dequant read of the same scores (the control) misses it."""
+    layout = _CHUNKED_MAIN
+    B, NB, chunk, KH, G, D = len(layout["positions"]), layout["NB"], layout["chunk"], 8, 4, 128
+    _, _, _, pos, active = _chunked_inputs(dtype, D, G, **layout)
+    q, kp, vp = paged_fp8_dot_probe(B, KH * G, KH, D, B * NB, chunk, _KV[kv], dtype,
+                                    torch.Generator().manual_seed(0))
+
+    def cache(pool):
+        return pool.view(torch.uint8).reshape(B, NB, KH, chunk, D).transpose(1, 2) \
+            .reshape(B, KH, NB * chunk, D).contiguous().view(_KV[kv]).cuda()
+
+    q, k, v = q.cuda(), cache(kp), cache(vp)
+    kw = dict(chunk=chunk, active=active)
+    ref = chunked_gqa_decode_attention_plain(q.float(), k, v, pos, fp8_dot=True, **kw)
+    bound = chunked_bf16_bound(q.float(), k, v, pos, ref, **kw)
+    _assert_within(chunked_gqa_decode_attention(q, k, v, pos, fp8_dot=True, **kw), ref, bound)
+    control = chunked_gqa_decode_attention(q, k, v, pos, **kw)
+    assert not bool(((control.float() - ref).abs() <= bound).all())
+
+
+def test_chunked_kernel_in_a_cuda_graph_serves_every_fill():
+    """One captured call, replayed after the positions change (short, long,
+    a row inactive): the chunk range is read on the device, so every replay
+    equals an eager call on the same inputs, bit for bit, and each replay
+    counts one launch."""
+    q, k, v, pos, active = _chunked_inputs(torch.bfloat16, 128, 4, **_CHUNKED_MAIN)
+    store = {}
+    side = torch.cuda.Stream()
+    with kernels.private_paged_scratch(store):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            chunked_gqa_decode_attention(q, k, v, pos, chunk=512, active=active)  # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with kernels.record_graph_launches() as rec:
+            with torch.cuda.graph(graph, stream=side):
+                out = chunked_gqa_decode_attention(q, k, v, pos, chunk=512, active=active)
+    assert rec.launches["chunked_decode"] == 1
+    for fill, off in (([3, 0, 1, 2, 7, 5, 4, 6], []), ([4095] * 8, [2]),
+                      ([100, 600, 1100, 1600, 2100, 2600, 3100, 3600], [0, 7])):
+        pos.copy_(torch.tensor(fill, dtype=torch.int32))
+        active.fill_(True)
+        active[off] = False
+        before = kernels.launch_counts()["chunked_decode"]
+        graph.replay()
+        rec.replayed()
+        eager = chunked_gqa_decode_attention(q, k, v, pos, chunk=512, active=active)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["chunked_decode"] == before + 2
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+
+
+def test_chunked_kernel_refuses_what_it_does_not_take():
+    q, k, v, pos, active = _chunked_inputs(torch.bfloat16, 128, 4, chunk=64, NB=4,
+                                           positions=[3, 70, 200, 255], inactive=[])
+    before = kernels.launch_counts()["chunked_decode"]
+    with pytest.raises(ValueError, match="fp8"):  # in-dot needs an fp8 cache
+        chunked_gqa_decode_attention(q, k, v, pos, chunk=64, fp8_dot=True)
+    with pytest.raises(ValueError, match="chunk=48"):  # 48 does not divide 256
+        chunked_gqa_decode_attention(q, k, v, pos, chunk=48)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        chunked_gqa_decode_attention(q, k, v, pos, chunk=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        chunked_gqa_decode_attention(q, k[:, :, ::2], v[:, :, ::2], pos, chunk=64)
+    with pytest.raises(TypeError):  # an f32 cache under bf16 queries
+        chunked_gqa_decode_attention(q, k.float(), v.float(), pos, chunk=64)
+    assert kernels.launch_counts()["chunked_decode"] == before
 
 
 def test_kv_cast_on_the_card_matches_the_cpu():
