@@ -429,12 +429,13 @@ _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
     r"|qgemm_stream_kernel|qgemm_cc_kernel|adc_scan_kernel|moe_route_topk_kernel"
-    r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_cc_kernel|paged_tree_mma_kernel"
+    r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_wgmma_kernel|moe_gemm_cc_kernel"
+    r"|paged_tree_mma_kernel"
     r"|paged_tree_cc_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(
     r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel"
-    r"|moe_route_scan_kernel)E")
+    r"|moe_route_scan_kernel|moe_gather_kernel)E")
 
 
 def kernel_label(mangled: str) -> str:
@@ -2289,6 +2290,7 @@ def check_moe_layer(x, p, C, label: str, *, drops_expected=False) -> dict:
     Returns the errors and the routing."""
     import torch
 
+    from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.ops import moe
 
     K = MOE_K
@@ -2305,8 +2307,13 @@ def check_moe_layer(x, p, C, label: str, *, drops_expected=False) -> dict:
     drops = int((tok_slot < 0).sum())
     live_experts = int((fill > 0).sum())
     live = torch.arange(C, device="cuda")[None, :, None] < fill[:, None, None].long()
+    before = dict(kernels.MOE_GEMM_FORMS)
     h = moe.moe_expert_gemm(x, slot_tok, fill, p["w_gate"], p["w_up"], epilogue="gate_up")
     ye = moe.moe_expert_gemm(h, slot_tok, fill, p["w_down"], epilogue="down")
+    routes = moe_routes(x.dtype, p, C)
+    taken = sorted(f for f, n in kernels.MOE_GEMM_FORMS.items() for _ in range(n - before[f]))
+    if taken != sorted(f"{r}:{e}" for e, r in zip(("gate_up", "down"), routes)):
+        fail(f"{label}: the grouped GEMM took {taken}, its plan (gate/up, down) {routes}")
     errs = {}
     for kind, out, args in (("gate_up", h, (x, slot_tok, p["w_gate"], p["w_up"])),
                             ("down", ye, (h, slot_tok, p["w_down"]))):
@@ -2332,43 +2339,68 @@ def check_moe_layer(x, p, C, label: str, *, drops_expected=False) -> dict:
         f"equal outside them {ids_ok}, gates max err {gate_err:.2e}, slots equal outside the "
         f"flagged {slots_ok}, all equal {exact}; gate_up max_abs_err {errs['gate_up'][0]:.3e} "
         f"worst err/bound {errs['gate_up'][1]:.4f}; down max_abs_err {errs['down'][0]:.3e} worst "
-        f"err/bound {errs['down'][1]:.4f}; combine bit-equal {combine_equal}")
+        f"err/bound {errs['down'][1]:.4f}; combine bit-equal {combine_equal}; routes gate/up "
+        f"{routes[0]}, down {routes[1]}")
     if not (ids_ok and gate_err <= 1e-5 and slots_ok and (exact or bool(near.any()))):
         fail(f"moe_route {label} disagrees with its plain twin outside the flagged tokens")
     if errs["gate_up"][1] > 1 or errs["down"][1] > 1 or not combine_equal:
         fail(f"MoE kernels {label} outside their bounds: {errs}, combine equal {combine_equal}")
     if drops_expected and not drops:
         fail(f"{label}: the forced-drop case dropped nothing")
-    return dict(routing=routing, errs=errs, gate_err=gate_err, drops=drops)
+    return dict(routing=routing, errs=errs, gate_err=gate_err, drops=drops, routes=routes)
+
+
+def moe_routes(dtype, p, C) -> tuple:
+    """The grouped GEMM's (gate/up, down) routes for layer ``p``'s weights
+    at capacity ``C``, as ``kernels.moe_gemm_plan`` gives them on this card."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+
+    X, E, F = p["w_gate"].shape
+    sms = kernels._sm_count(torch.cuda.current_device())
+    return (kernels.moe_gemm_plan(dtype, "gate_up", X, C, E, F, sms=sms).route,
+            kernels.moe_gemm_plan(dtype, "down", X, C, F, E, sms=sms).route)
 
 
 def check_moe(gen) -> list:
     """The MoE kernels (``csrc/moe_route.cu``, ``csrc/moe_gemm.cu``) against
-    their twins at Mixtral 8x7B's widths, one layer of random weights: T 8
-    (a decode tick, C 8), 512 (a chunk, C 160) and 2,048 (``[4, 512]``, C
-    640), T 512 at capacity factor 0.25 (drops), T 512 with every token
-    routed to two experts (six empty experts, their tiles skipped); bf16,
-    and f32 at T 8 and 512.  Then the time of each kernel at the decode
-    tick's shape (wall and device), its bound, its twin's time and the
+    their twins at Mixtral 8x7B's widths, one layer of random weights, each
+    case's grouped GEMM routes asserted: T 8 (a decode tick, C 8: gate/up on
+    ``mma``, down on ``mma_split``), the first T whose C reaches
+    ``MOE_WGMMA_MIN_C``, 512 (a chunk, C 160: a ragged second slot tile)
+    and 2,048 (``[4, 512]``, C 640) on ``wgmma``, T 512 and 2,048 at
+    capacity factor 0.25 (drops), T 512 with every token routed to two
+    experts (six empty experts, their tiles skipped); bf16, and f32 at T 8
+    and 512 (``cuda_core``).  The wgmma kernels' SASS must hold HGMMA and
+    UTMALDG, the mma kernels' HMMA.  Then each kernel's time at T 8, 512
+    and 2,048 (wall and device), its bound, its twin's time and the
     yardstick: ``torch.bmm`` over the dense ``[X, C, E]`` dispatch (what the
-    JAX einsums compute, reading every expert), and for the combine one
-    ``torch.matmul`` of the dense combine."""
+    JAX einsums compute, reading every expert; wall and device), and for
+    the combine one ``torch.matmul`` of the dense combine.  Returns six
+    entries: the routing, gate/up and down at decode (T 8), gate/up and
+    down on ``wgmma`` (T 512), the combine; each GEMM entry holds every T's
+    reading in ``by_tokens``."""
     import dataclasses
 
     import torch
 
+    from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.models import DecoderConfig
     from django_assistant_bot_tpu_torch.models.mixtral import expert_capacity
     from django_assistant_bot_tpu_torch.ops import moe
 
     cfg = DecoderConfig.mixtral_8x7b()
-    worst = {"route": 0.0, "gate_up": 0.0, "down": 0.0, "combine": 0.0}
+    edge = next(T for T in range(8, 8192, 8)
+                if expert_capacity(cfg, T) >= kernels.MOE_WGMMA_MIN_C)
+    worst = {"route": 0.0, "gate_up": 0.0, "down": 0.0, "gate_up_wgmma": 0.0,
+             "down_wgmma": 0.0, "combine": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         p = moe_layer_weights(dtype, gen)
-        cases = [(8, 1.25, False), (512, 1.25, False), (2048, 1.25, False), (512, 0.25, False),
-                 (512, 1.25, True)]
+        cases = [(8, 1.25, False), (edge, 1.25, False), (512, 1.25, False), (2048, 1.25, False),
+                 (512, 0.25, False), (2048, 0.25, False), (512, 1.25, True)]
         if dtype == torch.float32:
-            cases = cases[:2]
+            cases = [(8, 1.25, False), (512, 1.25, False)]
         for T, factor, skew in cases:
             x = torch.randn((T, MOE_E), generator=gen, device="cuda")
             pp = p
@@ -2385,16 +2417,35 @@ def check_moe(gen) -> list:
             r = check_moe_layer(x, pp, C, label, drops_expected=factor < 1)
             if skew and int((r["routing"][3] > 0).sum()) != 2:
                 fail(f"{label}: want exactly two live experts")
-            for kind in ("gate_up", "down"):
-                worst[kind] = max(worst[kind], r["errs"][kind][0])
+            if dtype == torch.float32:
+                want = ("cuda_core", "cuda_core")
+            elif T == 8:
+                want = ("mma", "mma_split")
+            elif factor > 1 or T == 2048:
+                want = ("wgmma", "wgmma")
+            else:
+                want = r["routes"]
+            if r["routes"] != want:
+                fail(f"{label}: grouped GEMM routes {r['routes']}, want {want}")
+            for kind, route in zip(("gate_up", "down"), r["routes"]):
+                key = f"{kind}_wgmma" if route == "wgmma" else kind
+                worst[key] = max(worst[key], r["errs"][kind][0])
             worst["route"] = max(worst["route"], r["gate_err"])
         del p
     log(f"  moe: bf16 bounds, gate/up {moe.MOE_GEMM_BF16_BOUND_TEXT['gate_up']}; down "
         f"{moe.MOE_GEMM_BF16_BOUND_TEXT['down']} (on the live rows); f32 {F32_TOL:.0e}; worst "
-        f"max_abs_err {worst}")
+        f"max_abs_err {worst}; wgmma from C {kernels.MOE_WGMMA_MIN_C} (T {edge})")
+    sass = sass_table(kernels.lib_path("moe_gemm"))
+    log(f"  moe_gemm SASS: {sass_counts(kernels.lib_path('moe_gemm'))}")
+    wg = {label: c for label, c in sass.items() if label.startswith("moe_gemm_wgmma_kernel")}
+    if len(wg) != 4 or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in wg.values()):
+        fail(f"moe_gemm's wgmma kernels show no wgmma or no TMA load in their SASS: {wg}")
+    mm = {label: c for label, c in sass.items() if label.startswith("moe_gemm_mma_kernel")}
+    if len(mm) != 2 or any(c["HMMA"] == 0 for c in mm.values()):
+        fail(f"moe_gemm's mma kernels show no mma in their SASS: {mm}")
     # timing at the decode tick's shape (T 8), bf16, and at a chunk and a [4, 512] prefill
     p = moe_layer_weights(torch.bfloat16, gen)
-    out = {}
+    reading = {}
     for T in (8, 512, 2048):
         x = torch.randn((T, MOE_E), generator=gen, device="cuda").to(torch.bfloat16)
         C = expert_capacity(cfg, T)
@@ -2408,6 +2459,7 @@ def check_moe(gen) -> list:
         rows = torch.arange(T, device="cuda")[:, None].expand(T, MOE_K)
         dense_comb[rows[kept], tok_slot[kept].long()] = tok_gate[kept].to(torch.bfloat16)
         bounds = moe_bounds_ms(x, p, routing)
+        routes = dict(zip(("gate_up", "down"), moe_routes(torch.bfloat16, p, C)))
         calls = {
             "route": (lambda: moe.moe_route(x, p["router"], MOE_K, C),
                       lambda: moe.moe_route_plain(x, p["router"], MOE_K, C), None),
@@ -2431,25 +2483,39 @@ def check_moe(gen) -> list:
             if lib is not None:
                 lib_ms, lib_dev = timed(lib, 50)
             bound_ms, bound_by = bounds[kind]
-            log(f"  moe {kind} timing T={T} C={C} ({int((fill > 0).sum())} live experts) bf16: "
-                f"kernel wall {ms:.4f} ms (device {dev:.4f}), plain twin wall {plain_ms:.4f} ms, "
+            route = routes.get(kind)
+            log(f"  moe {kind} timing T={T} C={C} ({int((fill > 0).sum())} live experts) bf16"
+                + (f", route {route}" if kind in routes else "")
+                + f": kernel wall {ms:.4f} ms (device {dev:.4f}), plain twin wall "
+                f"{plain_ms:.4f} ms, "
                 + (f"yardstick wall {lib_ms:.4f} ms (device {lib_dev:.4f}), "
                    if lib is not None else "no library call, ")
                 + f"bound {bound_ms:.5f} ms ({bound_by}); share of the bound, device "
-                f"{bound_ms / dev:.4f}")
-            if T == 8:
-                out[kind] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=lib_ms)
+                f"{bound_ms / dev:.4f}" + (f"; device against the yardstick's "
+                                           f"{dev / lib_dev:.3f}x" if lib is not None else ""))
+            reading[(T, kind)] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                                      library_device_ms=lib_dev, C=C,
+                                      gemm_route=route)
     del p
     gc_collect()
     src = {"route": "moe_route.cu", "gate_up": "moe_gemm.cu", "down": "moe_gemm.cu",
            "combine": "moe_route.cu"}
     replaces = {"route": 46, "gate_up": 65, "down": 70, "combine": 72}
-    names = {"route": "moe_route", "gate_up": "moe_gemm_gate_up", "down": "moe_gemm_down",
-             "combine": "moe_combine"}
-    return [{"name": names[k], "route": "cuda", "source": f"{PKG}/csrc/{src[k]}",
-             "replaces": f"django_assistant_bot_tpu/models/mixtral.py:{replaces[k]}",
-             "max_abs_err": worst[k], **out[k]} for k in names]
+    # entry name -> (kind, the T of its headline numbers)
+    names = {"moe_route": ("route", 8), "moe_gemm_gate_up": ("gate_up", 8),
+             "moe_gemm_down": ("down", 8), "moe_gemm_gate_up_wgmma": ("gate_up", 512),
+             "moe_gemm_down_wgmma": ("down", 512), "moe_combine": ("combine", 8)}
+    entries = []
+    for name, (kind, T) in names.items():
+        err = worst[f"{kind}_wgmma" if name.endswith("_wgmma") else kind]
+        entry = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src[kind]}",
+                 "replaces": f"django_assistant_bot_tpu/models/mixtral.py:{replaces[kind]}",
+                 "max_abs_err": err, **reading[(T, kind)]}
+        if kind in ("gate_up", "down"):
+            entry["by_tokens"] = {str(t): reading[(t, kind)] for t in (8, 512, 2048)}
+        entries.append(entry)
+    return entries
 
 
 # --------------------------------------------------------------------- phase 3
@@ -3045,7 +3111,7 @@ def small_moe() -> dict:
     ids_gpu, dec = crank(card_eng)
     torch.cuda.synchronize()
     counts = {k: v for k, v in kernels.launch_counts().items() if k.startswith("moe")}
-    routes = dict(kernels.MOE_GEMM_ROUTES)
+    routes = kernels.by_route(kernels.MOE_GEMM_FORMS)
     ids_cpu, _ = crank(engine("cpu", params_cpu)[1])
     log(f"  tiny MoE engine greedy ids at the default loop, card (CUDA graph, "
         f"{dec['decode_steps']}-step ticks, {dec['prefill_chunks_piggybacked']} piggybacked "
@@ -5257,6 +5323,43 @@ def _moe_layer_input(params, cfg, ids, layer: int):
     return seen[layer]
 
 
+def chunk_split(cfg, params, ids) -> dict:
+    """One eager prefill forward of the chunk ``ids [1, S]``: its device
+    time (torch.profiler, the median of 3 profiles of one forward) split
+    into the grouped GEMM's gate/up (with its row gather) and down
+    kernels, the routing and combine kernels, and the rest."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import llama
+
+    lengths = torch.tensor([ids.shape[1]], dtype=torch.int32, device=ids.device)
+
+    def forward():
+        with torch.no_grad():
+            llama.prefill(params, cfg, ids, lengths)
+
+    parts = []
+    for _ in range(3):
+        per = device_ms_by_kernel(forward, 1)
+        part = {"gate_up": 0.0, "down": 0.0, "route+combine": 0.0, "rest": 0.0}
+        for name, ms in per.items():
+            if "moe_gather_kernel" in name:  # gate/up's rows for the wgmma route
+                part["gate_up"] += ms
+            elif "moe_gemm" in name:
+                part["gate_up" if "kernel<true" in name else "down"] += ms
+            elif "moe_route" in name or "moe_combine" in name:
+                part["route+combine"] += ms
+            else:
+                part["rest"] += ms
+        part["total"] = sum(per.values())
+        parts.append(part)
+    med = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    log(f"  Mixtral eager {ids.shape[1]}-token chunk forward ({cfg.num_layers} layers), device "
+        f"ms (median of 3 profiles): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+        + f" (lost profiles so far: {PROFILER_LOST[0]})")
+    return med
+
+
 def mixtral_phase(card: str) -> dict:
     """Mixtral 8x7B at full width and 24 of its 32 layers (bf16, random
     weights drawn on the card from a seed) behind ``/dialog/`` in a
@@ -5267,8 +5370,9 @@ def mixtral_phase(card: str) -> dict:
     greedy tokens each, over 6 runs (the first counted): launch counts
     zeroed just before and read just after; ``moe_route`` = ``moe_combine``
     = 24 x (decode steps + prefill forwards), the grouped GEMM's gate/up
-    and down launches likewise, all on its tensor-core route; no plain twin
-    called; paged decode = 24 x decode steps, flash and the sampler
+    and down launches likewise, counted by route and epilogue as the plan
+    gives them (prefill on ``wgmma``, decode on ``mma`` + ``mma_split``);
+    no plain twin called; paged decode = 24 x decode steps, flash and the sampler
     launched, qgemm not.  Then one layer's ``moe_mlp`` on a real chunk's
     activations held to its twins, the live experts of a decode step, the
     decode breakdown (the eager step's device time split into MoE kernels,
@@ -5322,22 +5426,25 @@ def mixtral_phase(card: str) -> dict:
     messages = four_requests(tok)
     port = _free_port()
     forwards = [0]
+    fwd_tokens = []  # each eager prefill forward's token count (B x S)
     plain_calls = {n: 0 for n in ("moe_route_plain", "moe_expert_gemm_plain",
                                   "moe_combine_plain", "moe_mlp_plain")}
     patched = []
 
-    def count(module, fn_name, counter, key):
+    def count(module, fn_name, counter, key, tokens=None):
         orig = getattr(module, fn_name)
 
         def counted(*a, _orig=orig, **kw):
             counter[key] += 1
+            if tokens is not None:
+                tokens.append(int(a[2].numel()))
             return _orig(*a, **kw)
 
         patched.append((module, fn_name, orig))
         setattr(module, fn_name, counted)
 
     for fn_name in ("prefill", "prefill_suffix_paged"):
-        count(llama, fn_name, forwards, 0)
+        count(llama, fn_name, forwards, 0, fwd_tokens)
     for fn_name in ("moe_route_plain", "moe_expert_gemm_plain", "moe_combine_plain"):
         count(moe, fn_name, plain_calls, fn_name)
     count(mixtral, "moe_mlp_plain", plain_calls, "moe_mlp_plain")
@@ -5356,6 +5463,7 @@ def mixtral_phase(card: str) -> dict:
                     torch.cuda.synchronize()
                     kernels.reset_counts()
                     forwards[0] = 0
+                    fwd_tokens.clear()
                     steps0, pig0 = engine.steps, engine._prefill_chunks_piggybacked
                     samp0 = sampling_steps(engine)
                     t = time.perf_counter()
@@ -5363,8 +5471,9 @@ def mixtral_phase(card: str) -> dict:
                                                  for m in messages.values()))
                     wall = time.perf_counter() - t
                     runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
-                                     epilogues=dict(kernels.MOE_GEMM_EPILOGUES),
-                                     routes=dict(kernels.MOE_GEMM_ROUTES),
+                                     forms=dict(kernels.MOE_GEMM_FORMS),
+                                     fwd_tokens=list(fwd_tokens),
+                                     piggybacked=engine._prefill_chunks_piggybacked - pig0,
                                      samples=sampling_steps(engine) - samp0,
                                      steps=engine.steps - steps0, forwards=forwards[0]
                                      + engine._prefill_chunks_piggybacked - pig0))
@@ -5386,15 +5495,25 @@ def mixtral_phase(card: str) -> dict:
     counts, steps, fwd = first["counts"], first["steps"], first["forwards"]
     L = cfg.num_layers
     want = L * (steps + fwd)
-    log(f"  Mixtral main path on {card}: launches {counts}, grouped GEMM by epilogue "
-        f"{first['epilogues']}, by route {first['routes']}; {steps} decode steps, {fwd} prefill "
-        f"forwards: moe_route {counts['moe_route']} ({L} x ({steps} + {fwd}) = {want}); plain "
-        f"twin calls {plain_calls}")
+    forms = {f: n for f, n in first["forms"].items() if n}
+    log(f"  Mixtral main path on {card}: launches {counts}, grouped GEMM by route and epilogue "
+        f"{forms}; {steps} decode steps, {fwd} prefill forwards: moe_route {counts['moe_route']} "
+        f"({L} x ({steps} + {fwd}) = {want}); plain twin calls {plain_calls}")
+    epilogues = {e: sum(n for f, n in forms.items() if f.endswith(":" + e))
+                 for e in ("gate_up", "down")}
     if not (counts["moe_route"] == counts["moe_combine"] == want
-            and first["epilogues"] == {"gate_up": want, "down": want}
-            and counts["moe_gemm"] == 2 * want and first["routes"]["mma"] == 2 * want):
-        fail(f"Mixtral: MoE launches {counts}, {first['epilogues']}, {first['routes']}: want "
-             f"{want} of each (the gate/up and down launches on the mma route)")
+            and epilogues == {"gate_up": want, "down": want} and counts["moe_gemm"] == 2 * want):
+        fail(f"Mixtral: MoE launches {counts}, {forms}: want {want} of each epilogue")
+    # the grouped GEMM's forms: each prefill forward (eager, or a chunk in
+    # the piggyback graph; C 40 and more) on wgmma, each decode step (C 8)
+    # on mma (gate/up) and mma_split (down)
+    prefill_T = first["fwd_tokens"] + [engine.chunk_size] * first["piggybacked"]
+    wanted = {"wgmma:gate_up": L * len(prefill_T), "wgmma:down": L * len(prefill_T),
+              "mma:gate_up": L * steps, "mma_split:down": L * steps}
+    log(f"  Mixtral grouped GEMM: prefill forwards of {prefill_T} tokens, {steps} decode steps; "
+        f"launches by route and epilogue {forms}")
+    if forms != wanted:
+        fail(f"Mixtral: grouped GEMM launches {forms}, want {wanted}")
     if any(plain_calls.values()):
         fail(f"Mixtral: a plain twin ran on the main path: {plain_calls}")
     if counts["paged_decode"] != L * steps or counts["flash_prefill"] <= 0 or counts["qgemm"]:
@@ -5439,9 +5558,14 @@ def mixtral_phase(card: str) -> dict:
         f"{mean_live:.2f} of {cfg.num_experts}: {mean_live * expert_bytes / cfg.num_experts / 1e9:.3f}"
         f" GB of expert weights read a step")
     decode_breakdown(cfg, params, engine, label="Mixtral ")
+    chunk_split(cfg, params, ids)
+    # each kernel's launches in the counted run ("moe_gemm_down": the mma
+    # kernel's down launches, split or not)
     moe_counts = {"moe_route": counts["moe_route"], "moe_combine": counts["moe_combine"],
-                  "moe_gemm_gate_up": first["epilogues"]["gate_up"],
-                  "moe_gemm_down": first["epilogues"]["down"]}
+                  "moe_gemm_gate_up": forms.get("mma:gate_up", 0),
+                  "moe_gemm_down": forms.get("mma:down", 0) + forms.get("mma_split:down", 0),
+                  "moe_gemm_gate_up_wgmma": forms.get("wgmma:gate_up", 0),
+                  "moe_gemm_down_wgmma": forms.get("wgmma:down", 0)}
     registry.stop()
     del engine, registry, params, layers
     gc_collect()

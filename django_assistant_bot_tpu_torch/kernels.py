@@ -111,9 +111,9 @@ _ARGTYPES = {
     "moe_route": [_P] * 6 + [_I] * 6 + [_P],
     # tok_slot, tok_gate, ye, out, dtype, T, E, K, stream
     "moe_combine": [_P] * 4 + [_I] * 4 + [_P],
-    # a, slot_tok, fill, w0, w1, out, dtype, epilogue, route, X, C, K, N,
-    # stream
-    "moe_gemm": [_P] * 6 + [_I] * 7 + [_P],
+    # a, slot_tok, fill, w0, w1, out, scratch, counters, rows, dtype,
+    # epilogue, route, X, C, K, N, ksplit, kchunk, tile_n, tile_m, stream
+    "moe_gemm": [_P] * 9 + [_I] * 11 + [_P],
     # q, k_pool, v_pool, block_tables, lengths, tree_k, tree_v, anc, depths,
     # out, scratch, counters, mma, dtype, kv format, B, H, KH, T, P, page,
     # NB, D, window, nsplit, warps, stream
@@ -169,12 +169,46 @@ QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
 # prefill kernel), "cuda_core" (f32), "generic" (the CUDA-core kernel on the
 # shapes no other route takes)
 QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 0, "generic": 0}
-# the grouped expert GEMM's launches by epilogue ("gate_up", "down") and by
-# route ("mma": the tensor-core kernel, bf16 with K and N multiples of
-# MOE_GEMM_TILE on 16-byte boundaries; "cuda_core": the rest, f32 included)
-MOE_GEMM_EPILOGUES: Dict[str, int] = {"gate_up": 0, "down": 0}
-MOE_GEMM_ROUTES: Dict[str, int] = {"mma": 0, "cuda_core": 0}
+# the grouped expert GEMM's launches by route and epilogue,
+# "<route>:<epilogue>", as PAGED_FORMS: the route (:func:`moe_gemm_plan`)
+# "wgmma" (the prefill kernel), "mma" (the mma.sync kernel: decode and
+# short prefills), "mma_split" (the same kernel with down's K split:
+# decode) or "cuda_core" (f32 and the shapes the tensor cores' kernels do
+# not take); the epilogue "gate_up" or "down"
+MOE_GEMM_ROUTES = ("wgmma", "mma", "mma_split", "cuda_core")
+MOE_GEMM_FORMS: Dict[str, int] = {f"{r}:{e}": 0 for r in MOE_GEMM_ROUTES
+                                  for e in ("gate_up", "down")}
+# K and N of the tensor-core routes are multiples of MOE_GEMM_TILE, the wgmma
+# route's N of MOE_WGMMA_TILE_N (gate/up's feature tile).  A wgmma block of
+# down's 128 features takes one of MOE_WGMMA_TILES_M slots (two or three
+# consumer warpgroups of 64), the one that computes the fewest rows over C
+# (ties to the smaller); other wgmma blocks take the first;
+# down on wgmma takes 2 MOE_WGMMA_TILE_N features a block while that leaves
+# at least MOE_WIDE_WAVES waves of blocks (one an SM), every slot taken as
+# live: at Mixtral's widths the wide blocks took 0.88x the narrow ones' time
+# at C 320, 0.76x at 640, 1.01x at 160 (``tools/moe_gemm_ab.py --routes
+# wgmma,wgmma_wide``, PERF.md section 6)
 MOE_GEMM_TILE = 64
+MOE_WGMMA_TILE_N = 128
+MOE_WGMMA_TILES_M = (128, 192)
+MOE_WIDE_WAVES = 2
+# the fewest slots an expert (C) that take the wgmma route, both epilogues.
+# At Mixtral 8x7B's widths on an H100 SXM (``tools/moe_gemm_ab.py --tokens
+# 51,76,102,128,153,179,204,230,256 --routes mma_plan,wgmma`` and in the
+# other order, PERF.md section 6) wgmma took less time than the plan's form
+# below the threshold at every C from 16 to 80, gate/up (mma) and down
+# (mma_split) alike.  C 16 is the smallest capacity past the floor of 8, so
+# only a decode tick's C 8 stays on the mma.sync kernel: there down's
+# mma_split took 0.95x wgmma's time (gate/up's mma 1.008x)
+MOE_WGMMA_MIN_C = 16
+# down's K split on the mma kernel aims at this many waves of blocks over
+# the card (three blocks an SM), each split at least MOE_SPLIT_MIN_K rows of
+# K, at most MOE_MAX_SPLIT splits and MOE_PARTIAL_FLOATS f32 partials (64
+# MiB); measured with ``tools/moe_gemm_ab.py --splits`` (PERF.md section 6)
+MOE_MMA_WAVES = 4
+MOE_SPLIT_MIN_K = 1024
+MOE_MAX_SPLIT = 4
+MOE_PARTIAL_FLOATS = 1 << 24
 # paged tree attention launches by route and read, as PAGED_FORMS: "mma"
 # (the tensor-core kernel: bf16 at PAGED_MMA_HEAD_DIMS on 16-byte boundaries)
 # or "cuda_core" (the tree read has no in-dot scheme)
@@ -189,7 +223,7 @@ PAGED_TREE_MAX_WARPS = 8
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
     "paged_decode": PAGED_FORMS, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
-    "moe_gemm": MOE_GEMM_EPILOGUES, "moe_gemm_route": MOE_GEMM_ROUTES,
+    "moe_gemm": MOE_GEMM_FORMS,
     "paged_tree": PAGED_TREE_FORMS, "chunked_decode": CHUNKED_FORMS,
 }
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
@@ -304,12 +338,13 @@ def launch_counts() -> Dict[str, int]:
 
 
 def by_route(forms: Dict[str, int]) -> Dict[str, int]:
-    """Launches per route ("mma", "cuda_core") of a count keyed
-    "<route>:<read>" (``PAGED_FORMS``, ``CHUNKED_FORMS``,
-    ``PAGED_TREE_FORMS``)."""
-    routes = {"mma": 0, "cuda_core": 0}
+    """Launches per route of a count keyed "<route>:<kind>"
+    (``PAGED_FORMS``, ``CHUNKED_FORMS``, ``PAGED_TREE_FORMS``: routes
+    "mma" and "cuda_core"; ``MOE_GEMM_FORMS``: ``MOE_GEMM_ROUTES``)."""
+    routes: Dict[str, int] = {}
     for form, n in forms.items():
-        routes[form.split(":", 1)[0]] += n
+        route = form.split(":", 1)[0]
+        routes[route] = routes.get(route, 0) + n
     return routes
 
 
@@ -324,7 +359,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
-    src = (CSRC / f"{stem}.cu").read_bytes()
+    # the shared headers are part of every source's digest
+    src = b"".join(f.read_bytes() for f in [CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
@@ -987,28 +1023,114 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, tok_slot: torch.Tensor,
     _check("moe_route", err)
 
 
+class MoePlan(NamedTuple):
+    """A grouped expert GEMM launch: its route (``MOE_GEMM_ROUTES``), K in
+    ``ksplit`` ranges of ``kchunk`` rows (``ksplit`` 1: one range, K), and
+    the output features and slots a block, ``tile_n`` and ``tile_m``."""
+
+    route: str
+    ksplit: int
+    kchunk: int
+    tile_n: int
+    tile_m: int
+
+
+def _moe_split(K: int, tiles: int, slots: int, waves: int, partials: int) -> tuple:
+    """(ksplit, kchunk): the fewest splits that give ``tiles`` output tiles
+    ``waves`` waves over ``slots`` resident blocks, within the split limits
+    (``MOE_SPLIT_MIN_K``, ``MOE_MAX_SPLIT``, ``MOE_PARTIAL_FLOATS`` for
+    ``partials`` floats a split)."""
+    want = min(-(-waves * slots // tiles), MOE_MAX_SPLIT, K // MOE_SPLIT_MIN_K,
+               MOE_PARTIAL_FLOATS // partials)
+    if want <= 1:
+        return 1, K
+    kchunk = -(-K // (want * MOE_GEMM_TILE)) * MOE_GEMM_TILE
+    return -(-K // kchunk), kchunk
+
+
+@functools.lru_cache(maxsize=256)
+def moe_gemm_plan(dtype: torch.dtype, epilogue: str, X: int, C: int, K: int, N: int, *,
+                  aligned: bool = True, sms: int = 132) -> MoePlan:
+    """The launch of a grouped expert GEMM ``[X, C, K] . [X, K, N]`` from
+    dtype, shapes and alignment alone (a CUDA graph captures it; the
+    experts' fills stay on the card).  ``aligned``: every operand on a
+    16-byte boundary.
+
+    - f32, K or N not a multiple of ``MOE_GEMM_TILE``, or an operand off 16
+      bytes: ``"cuda_core"``.
+    - bf16 with N a multiple of ``MOE_WGMMA_TILE_N`` and at least
+      ``MOE_WGMMA_MIN_C`` slots an expert (prefill): ``"wgmma"``, K whole
+      (a split's partials cost more than the tail they remove there);
+      down's blocks take 256 features where that still leaves
+      ``MOE_WIDE_WAVES`` waves of blocks, else 128 features and the slots
+      from ``MOE_WGMMA_TILES_M`` that cover C with the fewest rows (192 at
+      a 512-token chunk's C 160: one pass where 128 takes a second, mostly
+      empty, tile).
+    - Other bf16 calls: ``"mma"``; down's K split (``"mma_split"``) until its
+      64 x 64 tiles (every slot taken as live) make ``MOE_MMA_WAVES`` waves
+      of three blocks an SM (at decode a single wave's tail leaves most SMs
+      idle).
+    """
+    small = MOE_GEMM_TILE
+    if (dtype != torch.bfloat16 or K % MOE_GEMM_TILE or N % MOE_GEMM_TILE or not aligned):
+        return MoePlan("cuda_core", 1, K, small, small)
+    wide = 2 * MOE_WGMMA_TILE_N
+    if N % MOE_WGMMA_TILE_N == 0 and C >= MOE_WGMMA_MIN_C:
+        tile_n, tile_m = MOE_WGMMA_TILE_N, MOE_WGMMA_TILES_M[0]
+        if epilogue == "down":
+            if N % wide == 0 and X * -(-C // tile_m) * (N // wide) >= MOE_WIDE_WAVES * sms:
+                tile_n = wide
+            else:
+                tile_m = min(MOE_WGMMA_TILES_M, key=lambda m: (-(-C // m) * m, m))
+        return MoePlan("wgmma", 1, K, tile_n, tile_m)
+    if epilogue == "down":
+        tiles = X * -(-C // MOE_GEMM_TILE) * (N // MOE_GEMM_TILE)
+        ksplit, kchunk = _moe_split(K, tiles, 3 * sms, MOE_MMA_WAVES, X * C * N)
+        if ksplit > 1:
+            return MoePlan("mma_split", ksplit, kchunk, small, small)
+    return MoePlan("mma", 1, K, small, small)
+
+
+def moe_gemm_tiles(X: int, C: int, N: int) -> int:
+    """Output tiles (one split-K counter each) of an ``mma_split`` launch."""
+    return X * -(-C // MOE_GEMM_TILE) * -(-N // MOE_GEMM_TILE)
+
+
 def moe_gemm(a: torch.Tensor, slot_tok: torch.Tensor, fill: torch.Tensor, w0: torch.Tensor,
              w1: Optional[torch.Tensor], out: torch.Tensor, *, epilogue: str) -> None:
     """Launch one grouped expert GEMM (``csrc/moe_gemm.cu``): ``epilogue``
     ``"gate_up"`` (a = x ``[T, K]``, w0 / w1 = Wg / Wu ``[X, K, N]``) or
     ``"down"`` (a = h ``[X, C, K]``, w0 = Wd, w1 None), into out ``[X, C,
     N]``; the caller (``ops.moe.moe_expert_gemm``) validated the arguments.
-    Route ``"mma"`` for bf16 with K and N multiples of ``MOE_GEMM_TILE`` and
-    every operand on a 16-byte boundary, else ``"cuda_core"``;
-    ``MOE_GEMM_EPILOGUES`` and ``MOE_GEMM_ROUTES`` count the launch's kind."""
+    :func:`moe_gemm_plan` picks the route and K split; a split launch takes
+    its f32 partials and counters from the per-(device, stream) scratch,
+    like paged decode; gate/up on ``"wgmma"`` gathers its slots' rows into a
+    ``[X, C, K]`` buffer allocated here (TMA has no row gather).
+    ``MOE_GEMM_FORMS`` counts the launch's route and epilogue; a launch the
+    kernel refuses raises."""
     X, K, N = w0.shape
     C = slot_tok.shape[1]
     operands = [t for t in (a, w0, w1) if t is not None]
-    mma = (a.dtype == torch.bfloat16 and K % MOE_GEMM_TILE == 0 and N % MOE_GEMM_TILE == 0
-           and not _misaligned(*operands))
-    route = "mma" if mma else "cuda_core"
+    plan = moe_gemm_plan(a.dtype, epilogue, X, C, K, N, aligned=not _misaligned(*operands),
+                         sms=_sm_count(a.device.index))
+    code = {"mma": 0, "mma_split": 0, "cuda_core": 1, "wgmma": 2}[plan.route]
+    stream = _stream(a)
     fn = _fn("moe_gemm")
     with torch.cuda.device(a.device):
+        scratch = counters = rows = None
+        if plan.ksplit > 1:
+            scratch, counters = _scratch_buffers("moe_gemm", a.device, stream,
+                                                 plan.ksplit * X * C * N, moe_gemm_tiles(X, C, N))
+        if plan.route == "wgmma" and epilogue == "gate_up":
+            rows = torch.empty((X, C, K), dtype=a.dtype, device=a.device)
         err = fn(a.data_ptr(), slot_tok.data_ptr(), fill.data_ptr(), w0.data_ptr(),
                  w1.data_ptr() if w1 is not None else None, out.data_ptr(),
-                 dtype_code(a.dtype), 0 if epilogue == "gate_up" else 1, 0 if mma else 1,
-                 X, C, K, N, _stream(a))
-    _count("moe_gemm", kind=epilogue, route=route)
+                 scratch.data_ptr() if scratch is not None else None,
+                 counters.data_ptr() if counters is not None else None,
+                 rows.data_ptr() if rows is not None else None,
+                 dtype_code(a.dtype), 0 if epilogue == "gate_up" else 1, code,
+                 X, C, K, N, plan.ksplit, plan.kchunk, plan.tile_n, plan.tile_m, stream)
+    _count("moe_gemm", kind=f"{plan.route}:{epilogue}")
     _check("moe_gemm", err)
 
 

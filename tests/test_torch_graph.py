@@ -556,14 +556,33 @@ def test_moe_graphs_replay_bitwise_and_count_their_launches(dtype):
         for name, got, want in zip(("k", "v", "lengths", "tokens", "toks", "fsm"), replayed,
                                    eager):
             assert torch.equal(got, want), name
-    route = "mma" if dtype == torch.bfloat16 else "cuda_core"
-    for rec, forwards in ((eng._graph_launches, K), (eng._piggyback_launches, K + 1),
-                          (eng._json_launches, 1)):
+    # each forward's grouped GEMM routes, as the plan gives them for its
+    # token count: the ticks' 4 slots (C 8: mma), the chunk's 512 tokens
+    # (C 320: wgmma in bf16); f32 takes cuda_core
+    from django_assistant_bot_tpu_torch.models.mixtral import expert_capacity
+
+    E, F, X = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    sms = kernels._sm_count(torch.cuda.current_device())
+
+    def forms(tokens):
+        got = dict.fromkeys(kernels.MOE_GEMM_FORMS, 0)
+        for T in tokens:
+            C = expert_capacity(cfg, T)
+            for ep, k, n in (("gate_up", E, F), ("down", F, E)):
+                got[f"{kernels.moe_gemm_plan(dtype, ep, X, C, k, n, sms=sms).route}:{ep}"] += L
+        return got
+
+    tick, chunk = [eng.max_slots] * K, [eng.chunk_size]
+    if dtype == torch.bfloat16:
+        assert kernels.by_route(forms(chunk))["wgmma"] == 2 * L
+        assert kernels.by_route(forms(tick[:1]))["mma"] == 2 * L
+    for rec, forwards, tokens in ((eng._graph_launches, K, tick),
+                                  (eng._piggyback_launches, K + 1, chunk + tick),
+                                  (eng._json_launches, 1, tick[:1])):
         assert {k: rec.launches[k] for k in ("moe_route", "moe_gemm", "moe_combine")} == {
             "moe_route": L * forwards, "moe_gemm": 2 * L * forwards,
             "moe_combine": L * forwards}
-        assert rec.sub["moe_gemm"] == {"gate_up": L * forwards, "down": L * forwards}
-        assert rec.sub["moe_gemm_route"][route] == 2 * L * forwards
+        assert rec.sub["moe_gemm"] == forms(tokens)
     kernels.reset_counts()
     eng._launch_tick(True)
     eng._launch_tick(json=True)

@@ -1414,9 +1414,25 @@ def test_moe_route_kernel_matches_plain(dtype, T, factor, tie):
         assert bool((live >= 0).all()) and bool((slot_tok[xi, int(fill[xi]):] == -1).all())
 
 
+# (T, E, F, skew) of the grouped GEMM's cases: the decode tick at Mixtral's
+# width (mma gate/up, mma_split down), a chunk (wgmma), every token on two
+# experts (six empty; C 20, wgmma), a shape no tensor-core route takes; then
+# the wgmma route at C 640 (five slot tiles), at C 40 (a ragged tile, the
+# second warpgroup idle), at C 160 with six empty experts, a chunk and a
+# [4, 512] prefill at Mixtral's width (down's 256-feature blocks)
+MOE_GEMM_CASES = [(8, 4096, 14336, False), (512, 1024, 2048, False), (64, 256, 512, True),
+                  (37, 96, 80, False), (2048, 1024, 2048, False), (128, 1024, 1024, False),
+                  (512, 1024, 2048, True), (512, 4096, 14336, False), (2048, 4096, 14336, False)]
+
+
+def _moe_forms_taken(before):
+    """The grouped GEMM launches since ``before`` (a copy of
+    ``MOE_GEMM_FORMS``), as sorted "<route>:<epilogue>" keys."""
+    return sorted(f for f, n in kernels.MOE_GEMM_FORMS.items() for _ in range(n - before[f]))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,E,F,skew", [(8, 4096, 14336, False), (512, 1024, 2048, False),
-                                         (64, 256, 512, True), (37, 96, 80, False)])
+@pytest.mark.parametrize("T,E,F,skew", MOE_GEMM_CASES)
 def test_moe_expert_gemm_kernel_matches_plain(dtype, T, E, F, skew):
     from django_assistant_bot_tpu_torch.ops import moe
 
@@ -1427,12 +1443,20 @@ def test_moe_expert_gemm_kernel_matches_plain(dtype, T, E, F, skew):
     if skew:
         assert int((fill > 0).sum()) == 2  # six empty experts
     live = torch.arange(C, device="cuda")[None, :, None] < fill[:, None, None].long()
-    sub = dict(kernels.MOE_GEMM_EPILOGUES)
+    before = dict(kernels.MOE_GEMM_FORMS)
     h = moe.moe_expert_gemm(x, slot_tok, fill, wg, wu, epilogue="gate_up")
     ye = moe.moe_expert_gemm(h, slot_tok, fill, wd, epilogue="down")
     torch.cuda.synchronize()
-    assert kernels.MOE_GEMM_EPILOGUES["gate_up"] == sub["gate_up"] + 1
-    assert kernels.MOE_GEMM_EPILOGUES["down"] == sub["down"] + 1
+    sms = kernels._sm_count(torch.cuda.current_device())
+    want = [kernels.moe_gemm_plan(dtype, "gate_up", X, C, E, F, sms=sms).route,
+            kernels.moe_gemm_plan(dtype, "down", X, C, F, E, sms=sms).route]
+    assert _moe_forms_taken(before) == sorted([f"{want[0]}:gate_up", f"{want[1]}:down"])
+    if dtype == torch.float32 or E % 64:
+        assert want == ["cuda_core", "cuda_core"]
+    elif C >= kernels.MOE_WGMMA_MIN_C:
+        assert want == ["wgmma", "wgmma"]
+    else:
+        assert want[0] == "mma" and want[1] in ("mma", "mma_split")
     for out, args, kind in ((h, (x, slot_tok, wg, wu), "gate_up"), (ye, (h, slot_tok, wd), "down")):
         if dtype == torch.bfloat16:
             ref, bound = moe.moe_gemm_bf16_bound(*args, epilogue=kind)
@@ -1507,6 +1531,98 @@ def test_moe_mlp_on_the_card_matches_cpu_and_replays_in_a_graph(dtype):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["moe_combine"] == before["moe_combine"] + 1
     assert torch.equal(static, out)
+
+
+@pytest.mark.parametrize("T,factor", [(512, 0.25), (2048, 0.25)])
+def test_moe_expert_gemm_wgmma_with_drops(T, factor):
+    """The wgmma route where the capacity drops choices (every expert full):
+    live rows within the bound, the route taken."""
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    X, K, E, F = 8, 2, 1024, 2048
+    C = _capacity(T, X, K, factor)
+    assert C >= kernels.MOE_WGMMA_MIN_C
+    x, router, wg, wu, wd = _moe_inputs(T, E, X, F, torch.bfloat16, 5 + T)
+    tok_slot, _, slot_tok, fill = moe.moe_route(x, router, K, C)
+    assert bool((tok_slot < 0).any()) and bool((fill == C).all())
+    before = dict(kernels.MOE_GEMM_FORMS)
+    h = moe.moe_expert_gemm(x, slot_tok, fill, wg, wu, epilogue="gate_up")
+    ye = moe.moe_expert_gemm(h, slot_tok, fill, wd, epilogue="down")
+    torch.cuda.synchronize()
+    assert _moe_forms_taken(before) == ["wgmma:down", "wgmma:gate_up"]
+    for out, args, kind in ((h, (x, slot_tok, wg, wu), "gate_up"), (ye, (h, slot_tok, wd), "down")):
+        ref, bound = moe.moe_gemm_bf16_bound(*args, epilogue=kind)
+        assert bool(((out.float() - ref).abs() <= bound).all()), kind
+
+
+def test_moe_decode_down_split_replays_bitwise_in_a_graph():
+    """Down at the decode tick's shape (Mixtral's width, C 8) takes the
+    split mma form; a CUDA graph that captured it replays the eager call's
+    bits (the partials summed in split order, no atomics on the values)
+    and counts its launch at each replay."""
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    X, K, E, F = 8, 2, 4096, 14336
+    C = _capacity(8, X, K, 1.25)
+    x, router, wg, wu, wd = _moe_inputs(8, E, X, F, torch.bfloat16, 23)
+    _, _, slot_tok, fill = moe.moe_route(x, router, K, C)
+    h = moe.moe_expert_gemm(x, slot_tok, fill, wg, wu, epilogue="gate_up")
+    plan = kernels.moe_gemm_plan(torch.bfloat16, "down", X, C, F, E,
+                                 sms=kernels._sm_count(torch.cuda.current_device()))
+    assert plan.route == "mma_split" and plan.ksplit > 1
+    live = torch.arange(C, device="cuda")[None, :, None] < fill[:, None, None].long()
+    eager = moe.moe_expert_gemm(h, slot_tok, fill, wd, epilogue="down")
+    ref, bound = moe.moe_gemm_bf16_bound(h, slot_tok, wd, epilogue="down")
+    assert bool((((eager.float() - ref).abs() <= bound) | ~live).all())
+    again = moe.moe_expert_gemm(h, slot_tok, fill, wd, epilogue="down")
+    assert torch.equal(torch.where(live, again, 0), torch.where(live, eager, 0))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    store = {}
+    with kernels.private_paged_scratch(store):
+        with torch.cuda.stream(stream):
+            moe.moe_expert_gemm(h, slot_tok, fill, wd, epilogue="down")  # warm-up: scratch
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with kernels.record_graph_launches() as rec:
+            with torch.cuda.graph(graph, stream=stream):
+                static = moe.moe_expert_gemm(h, slot_tok, fill, wd, epilogue="down")
+    assert rec.sub["moe_gemm"]["mma_split:down"] == 1
+    before = kernels.MOE_GEMM_FORMS["mma_split:down"]
+    for _ in range(3):
+        graph.replay()
+        rec.replayed()
+        torch.cuda.synchronize()
+        assert torch.equal(torch.where(live, static, 0), torch.where(live, eager, 0))
+    assert kernels.MOE_GEMM_FORMS["mma_split:down"] == before + 3
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_moe_gemm_refuses_a_misaligned_operand(monkeypatch, route):
+    """A launch the kernel does not take raises (no fallback): the plan
+    forced onto a tensor-core route with x two bytes off a 16-byte
+    boundary, and gate/up with a K split."""
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    X, K, E, F, T = 8, 2, 1024, 2048, 512
+    C = _capacity(T, X, K, 1.25)
+    x, router, wg, wu, _ = _moe_inputs(T, E, X, F, torch.bfloat16, 3)
+    _, _, slot_tok, fill = moe.moe_route(x, router, K, C)
+    buf = torch.empty(T * E + 1, dtype=torch.bfloat16, device="cuda")
+    off = buf[1:].view(T, E)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    monkeypatch.setattr(kernels, "moe_gemm_plan",
+                        lambda dtype, epilogue, X, C, K, N, **kw:
+                        kernels.MoePlan(route, 1, K, *(2 * [128 if route == "wgmma" else 64])))
+    with pytest.raises(RuntimeError, match="moe_gemm"):
+        moe.moe_expert_gemm(off, slot_tok, fill, wg, wu, epilogue="gate_up")
+    monkeypatch.setattr(kernels, "moe_gemm_plan",
+                        lambda dtype, epilogue, X, C, K, N, **kw:
+                        kernels.MoePlan(route, 2, K // 2, *(2 * [128 if route == "wgmma" else 64])))
+    with pytest.raises(RuntimeError, match="moe_gemm"):
+        moe.moe_expert_gemm(x, slot_tok, fill, wg, wu, epilogue="gate_up")
+    torch.cuda.synchronize()
 
 
 def test_moe_wrappers_refuse_what_they_do_not_take():
