@@ -48,9 +48,12 @@ printed on a line of their own):
    for the rerank, gather + ``torch.bmm`` + ``torch.topk``; the paged tree
    attention (``paged_tree``, :func:`check_paged_tree`) at 8 slots of
    Llama-3-8B's heads and the (4, 4) tree at 10,208 and 1,868 live prefix
-   keys (a row at length 0), bf16 within ``paged_tree_bf16_bound`` (also
-   with a window), f32 within 1e-4, bitwise repeatable, its time beside the
-   bound, the twin and a dense gather + ``scaled_dot_product_attention``
+   keys (a row at length 0), then lopsided lengths and trees of 65 and 129
+   nodes at G 4 and 8 (``TREE_MORE``), bf16 within ``paged_tree_bf16_bound``
+   (also with a window), f32 within 1e-4, bitwise repeatable, its time
+   beside the bound (with its grid, items a block, waves and scratch
+   bytes, :func:`tree_partition`), the twin and a dense gather +
+   ``scaled_dot_product_attention``
    (the same yardstick for paged decode); the fp8 forms of both paged
    kernels, in the same two functions (:func:`check_paged`,
    :func:`check_paged_tree`): the dequant read of e4m3 and e5m2 pools
@@ -1200,15 +1203,17 @@ def check_kv_cast() -> None:
 TREE_WIDTH, TREE_DEPTH = 4, 4  # phase 11's tree: T = 1 + 4 x 4 = 17 nodes
 
 
-def _tree_case(lengths, dtype, gen, *, B=8, H=32, KH=8, D=128, page=512, NB=8):
+def _tree_case(lengths, dtype, gen, *, B=8, H=32, KH=8, D=128, page=512, NB=8,
+               tree=(TREE_WIDTH, TREE_DEPTH)):
     """Random pools, tree queries and tree K/V at Llama-3-8B's heads for
     ``lengths`` (each row's pages a random chain, sentinels past its
-    allocation); the (4, 4) tree's mask and depths."""
+    allocation); the mask and depths of the ``tree`` = (N, K) tree (phase
+    11's (4, 4) by default)."""
     import torch
 
     from django_assistant_bot_tpu_torch.ops.speculative import make_tree_spec
 
-    spec = make_tree_spec(TREE_WIDTH, TREE_DEPTH)
+    spec = make_tree_spec(*tree)
     T, P = spec.size, B * NB
     mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=dtype)  # noqa: E731
     q, kp, vp, tk, tv = mk(B, H, T, D), mk(P, KH, page, D), mk(P, KH, page, D), \
@@ -1290,6 +1295,48 @@ def tree_library_call(args):
 
 # the tree reads timed in phase 2: (entry, pool format, the JAX function's line)
 TREE_TIMED = (("paged_tree", None, "328"), ("paged_tree_fp8", "e4m3", "377"))
+# phase 2's further tree cases: (label, lengths, (N, K) tree, H): one row
+# holding most of the keys, and trees of 65 and 129 nodes (two and three
+# tree tiles, several row chunks) at G 4 and 8
+TREE_MORE = (("lopsided", [4000, 3, 0, 17, 0, 0, 0, 1], (TREE_WIDTH, TREE_DEPTH), 32),
+             ("T65 G4", [6, 512, 513, 1042, 1837, 4096, 1501, 701], (8, 8), 32),
+             ("T65 G8", [106, 356, 486, 917, 1, 1, 1, 0], (8, 8), 64),
+             ("T129 G4", [106, 356, 486, 917, 1, 1, 1, 0], (16, 8), 32),
+             ("T129 G8", [4000, 3, 0, 17, 0, 0, 0, 1], (16, 8), 64))
+
+
+def tree_partition(lengths, T, plan, *, H=32, KH=8, D=128, page=512, NB=8, window=None,
+                   sms=132):
+    """The tensor-core tree kernel's work on these lengths, as the kernel
+    splits it (csrc/paged_tree.cu: items, blocks that take them, their equal
+    runs): (items, working blocks, the most items a block, waves of the
+    grid over the card, scratch bytes a call: the partials written and read
+    back)."""
+    from django_assistant_bot_tpu_torch import kernels
+
+    cpp, ntt = -(-page // 64), -(-T // 32)
+    rows = []  # items of each row, in order
+    for n in lengths:
+        klen = min(max(n, 0), NB * page)
+        klo = min(max(n - window + 1, 0), klen) if window else 0
+        chunk = lambda k: (k // page) * cpp + (k % page) // 64  # noqa: E731
+        npre = chunk(klen - 1) - chunk(klo) + 1 if klen > klo else 0
+        rows += [npre + ntt] * (KH * plan.row_chunks)
+    total = sum(rows)
+    nblk = max(1, min(plan.blocks, -(-total // plan.min_items)))
+    starts = [k * total // nblk for k in range(nblk + 1)]
+    edges, at = set(), 0
+    for n in rows:
+        edges.add(at)
+        at += n
+    edges.add(at)
+    # a block writes a partial for each end of its range inside a row
+    partials = sum((starts[k] not in edges) + (starts[k + 1] not in edges)
+                   for k in range(nblk) if starts[k] < starts[k + 1])
+    rows_live = min(16 * plan.warps, H // KH * T)
+    nbytes = 2 * partials * rows_live * (D + 2) * 4
+    waves = plan.blocks / (kernels.PAGED_TREE_BLOCKS_PER_SM * sms)
+    return total, nblk, max(b - a for a, b in zip(starts, starts[1:])), waves, nbytes
 
 
 def check_paged_tree(gen) -> list:
@@ -1302,10 +1349,13 @@ def check_paged_tree(gen) -> list:
     JAX tree read has no in-dot scheme); bf16 (the tensor-core kernel)
     within ``paged_tree_bf16_bound``, also with a window, f32 (the CUDA-core
     kernel) within 1e-4; each call on its form (``kernels.PAGED_TREE_FORMS``),
-    two bf16 calls bitwise equal.  Then each read of ``TREE_TIMED`` at both
-    shapes: wall and device ms, the byte bound (at 1 byte a pool value from
-    an fp8 pool) and its share, the plain twin's time, and the library
-    yardstick (:func:`tree_library_call`)."""
+    two bf16 calls bitwise equal; the same for ``TREE_MORE``'s lengths and
+    trees (native and e4m3 pools, with and without a window; f32 at the
+    129-node tree).  Then each read of ``TREE_TIMED`` at both shapes: the
+    launch's grid and its items a block, waves and scratch bytes
+    (:func:`tree_partition`), wall and device ms, the byte bound (at 1 byte
+    a pool value from an fp8 pool) and its share, the plain twin's time,
+    and the library yardstick (:func:`tree_library_call`)."""
     import torch
 
     from django_assistant_bot_tpu_torch import kernels
@@ -1343,8 +1393,39 @@ def check_paged_tree(gen) -> list:
                     if not torch.equal(out, again):
                         fail(f"paged_tree ({fmt or 'native'}, {label}): two calls on the same "
                              "inputs differ")
+    # the persistent grid's edges: lopsided lengths, trees past one tile
+    for label, lengths, tree, H in TREE_MORE:
+        for fmt in (None, "e4m3"):
+            for window in (None, 700):
+                args = narrow_pools(_tree_case(lengths, torch.bfloat16, gen, H=H, tree=tree),
+                                    fmt, torch.bfloat16)
+                T = args[0].shape[2]
+                form = f"mma:{'native' if fmt is None else fmt + '/dequant'}"
+                before = kernels.PAGED_TREE_FORMS[form]
+                out, (err, rel, ratio) = _tree_check(args, window)
+                again = paged_tree_attention(*args, window=window)
+                torch.cuda.synchronize()
+                log(f"  paged_tree {fmt or 'native'} pool ({label}, T={T}, H={H}, "
+                    f"{sum(lengths)} live keys) window={window}: max_abs_err {err:.3e}, "
+                    f"worst err/bound {ratio:.3f} ({BF16_P_TEXT}), form {form}, a second call "
+                    f"{'bitwise equal' if torch.equal(out, again) else 'DIFFERENT'}")
+                if kernels.PAGED_TREE_FORMS[form] != before + 2:
+                    fail(f"paged_tree ({label}) did not take {form}")
+                if not ratio <= 1.0:
+                    fail(f"paged_tree ({fmt or 'native'} pool, {label}, window {window}) "
+                         f"disagrees with its twin: err/bound {ratio} > 1")
+                if not torch.equal(out, again):
+                    fail(f"paged_tree ({fmt or 'native'}, {label}): two calls on the same "
+                         "inputs differ")
+                worst[fmt] = max(worst[fmt], err)
+    args = _tree_case(TREE_MORE[-1][1], torch.float32, gen, H=64, tree=TREE_MORE[-1][2])
+    _, (err, rel, ratio) = _tree_check(args)
+    log(f"  paged_tree f32 (cuda_core, T=129 G8): max_abs_err {err:.3e} ({tol_text(torch.float32)})")
+    if not ratio <= 1.0:
+        fail(f"paged_tree f32 at T=129 disagrees with its twin: err/bound {ratio} > 1")
     log(f"  paged_tree SASS: {sass_counts(kernels.lib_path('paged_tree'))}")
     entries = []
+    sms = kernels._sm_count(torch.cuda.current_device())
     for name, fmt, line in TREE_TIMED:
         result = {}
         for label, lengths in shapes.items():
@@ -1358,10 +1439,15 @@ def check_paged_tree(gen) -> list:
             lib_err = (lib().float() - out.float()).abs().max().item()
             lib_ms, lib_dev = timed(lib, 50)
             bound_ms, bound_by = tree_bound_ms(args, kv_bytes=kp.element_size())
-            plan = kernels.paged_tree_plan(8, 32, 8, q.shape[2], 512, 8)
+            T = q.shape[2]
+            plan = kernels.paged_tree_plan(8, 32, 8, T, 128, 512, 8, sms)
+            items, nblk, most, waves, sbytes = tree_partition(lengths, T, plan, sms=sms)
             log(f"  paged_tree timing, {fmt or 'bf16'} pool ({label}) B=8 H=32 KH=8 D=128 T=17 "
-                f"page=512 bf16 q, {sum(lengths)} live keys, plan (warps, row chunks, splits) "
-                f"{plan}: kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall {plain_ms:.4f} "
+                f"page=512 bf16 q, {sum(lengths)} live keys, grid {plan.blocks} blocks of "
+                f"{plan.warps} warps ({plan.row_chunks} row chunk), {items} items on {nblk} "
+                f"blocks (at most {most} a block), {waves:.2f} waves, scratch "
+                f"{sbytes / 1e6:.3f} MB a call (partials written and read): "
+                f"kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall {plain_ms:.4f} "
                 f"ms, library (pages gathered, widened to q's dtype + concat + "
                 f"scaled_dot_product_attention) wall {lib_ms:.4f} ms (device {lib_dev:.4f}; max "
                 f"|library - kernel| {lib_err:.3e}), bound at {kp.element_size()} byte(s) a pool "

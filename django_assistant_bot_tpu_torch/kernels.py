@@ -115,9 +115,9 @@ _ARGTYPES = {
     # epilogue, route, X, C, K, N, ksplit, kchunk, tile_n, tile_m, stream
     "moe_gemm": [_P] * 9 + [_I] * 11 + [_P],
     # q, k_pool, v_pool, block_tables, lengths, tree_k, tree_v, anc, depths,
-    # out, scratch, counters, mma, dtype, kv format, B, H, KH, T, P, page,
-    # NB, D, window, nsplit, warps, stream
-    "paged_tree": [_P] * 12 + [_I] * 14 + [_P],
+    # out, scratch, scratch_floats, counters, mma, dtype, kv format, B, H, KH,
+    # T, P, page, NB, D, window, blocks, warps, min_items, stream
+    "paged_tree": [_P] * 11 + [ctypes.c_longlong, _P] + [_I] * 15 + [_P],
     # q, k_cache, v_cache, out, positions, active, scratch, scratch_floats,
     # counters, mma, dtype, kv format, in-dot, B, H, KH, S, chunk, D,
     # window, stream
@@ -214,11 +214,15 @@ MOE_PARTIAL_FLOATS = 1 << 24
 # or "cuda_core" (the tree read has no in-dot scheme)
 PAGED_TREE_FORMS: Dict[str, int] = {f"{r}:{m}": 0 for r in ("mma", "cuda_core")
                                     for m in PAGED_READS if "in_dot" not in m}
-# the tensor-core tree kernel's work split: the most blocks one (slot, KV
-# head) row group's prefix is cut between, and the most warps (16 query rows
-# each) a block
-PAGED_TREE_MAX_SPLIT = 16
+# the tensor-core tree kernel's persistent grid (csrc/paged_tree.cu): the
+# most warps a block (two warpgroups of 64 query rows), the blocks its
+# __launch_bounds__ keeps on an SM, the least items a block takes, and what
+# an item holds at most: a chunk of prefix keys, or a tile of tree nodes
 PAGED_TREE_MAX_WARPS = 8
+PAGED_TREE_BLOCKS_PER_SM = 1
+PAGED_TREE_MIN_ITEMS = 4
+PAGED_TREE_CHUNK = 64
+PAGED_TREE_NODES = 32
 # a kernel's launches by kind, for the kernels that count them
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
@@ -1149,21 +1153,40 @@ def moe_combine(tok_slot: torch.Tensor, tok_gate: torch.Tensor, ye: torch.Tensor
     _check("moe_combine", err)
 
 
+class TreePlan(NamedTuple):
+    """A tensor-core paged tree launch (:func:`paged_tree_plan`)."""
+    warps: int  # warps of 16 query rows a block
+    row_chunks: int  # blocks' worth of query rows a (slot, KV head)
+    blocks: int  # the persistent grid
+    min_items: int  # the least items a block takes
+    items: int  # the most items a call of these shapes has
+    scratch_floats: int  # f32 partials: two a block
+    counters: int  # one a (slot, KV head, row chunk)
+
+
 @functools.lru_cache(maxsize=256)
-def paged_tree_plan(B: int, H: int, KH: int, T: int, page: int, NB: int,
-                    sms: int = 132) -> tuple:
-    """(warps, row chunks, nsplit) of a tensor-core paged tree launch, from
-    shapes alone (a CUDA graph captures it): the G T query rows of a (slot,
-    KV head) in warps of 16 rows, at most ``PAGED_TREE_MAX_WARPS`` a block
-    (further rows in further row chunks), and each row group's prefix cut
-    between ``nsplit`` blocks, about two blocks per SM over the grid, at
-    most ``PAGED_TREE_MAX_SPLIT`` and at most the row's 64-key tiles."""
-    R = H // KH * T
-    warps = min(PAGED_TREE_MAX_WARPS, -(-R // 16))
-    chunks = -(-R // (16 * warps))
-    tiles = -(-NB * page // 64)
-    nsplit = max(1, min(PAGED_TREE_MAX_SPLIT, tiles, -(-2 * sms // (B * KH * chunks))))
-    return warps, chunks, nsplit
+def paged_tree_plan(B: int, H: int, KH: int, T: int, D: int, page: int, NB: int, sms: int,
+                    min_items: int = PAGED_TREE_MIN_ITEMS) -> TreePlan:
+    """The tensor-core paged tree launch for these shapes on a card of
+    ``sms`` SMs, from shapes alone (a CUDA graph captures it).  The G T
+    query rows of a (slot, KV head) go in row chunks of at most
+    ``PAGED_TREE_MAX_WARPS`` / 4 warpgroups of 64 rows (wgmma's M), as even
+    as the chunks allow;
+    each row chunk of each (slot, KV head) is a row of items, its prefix's
+    64-key chunks (``ceil(page / 64)`` a page at most) and its tree's
+    ``ceil(T / 32)`` tiles.  The grid is ``PAGED_TREE_BLOCKS_PER_SM`` blocks
+    an SM, fewer where even the longest rows (every one at NB pages) give
+    fewer than ``min_items`` items a block; the kernel splits the call's own
+    items over as many of them as take ``min_items`` each.  The scratch holds
+    two (acc, m, l) partials of a row chunk a block."""
+    tiles = -(-(H // KH) * T // 64)
+    row_chunks = -(-tiles // (PAGED_TREE_MAX_WARPS // 4))
+    warps = 4 * -(-tiles // row_chunks)
+    chunks = NB * -(-page // PAGED_TREE_CHUNK) + -(-T // PAGED_TREE_NODES)
+    items = B * KH * row_chunks * chunks
+    blocks = max(1, min(PAGED_TREE_BLOCKS_PER_SM * sms, -(-items // min_items)))
+    return TreePlan(warps, row_chunks, blocks, min_items, items,
+                    2 * blocks * 16 * warps * (D + 2), B * KH * row_chunks)
 
 
 def paged_tree(
@@ -1174,11 +1197,11 @@ def paged_tree(
     """Launch the paged tree attention kernel (``csrc/paged_tree.cu``); the
     caller (``ops.attention.paged_tree_attention``) validated the arguments.
     bf16 at ``PAGED_MMA_HEAD_DIMS`` with every operand on a 16-byte boundary
-    takes the tensor-core kernel,
-    split by :func:`paged_tree_plan`; its f32 partials and counters come
-    from the per-(device, stream) scratch, like paged decode's.  Everything
-    else takes the CUDA-core kernel.  The pools may be bf16 or fp8 (widened
-    to q's dtype in the kernel); ``PAGED_TREE_FORMS`` counts route and read."""
+    takes the tensor-core kernel on the persistent grid of
+    :func:`paged_tree_plan`; its f32 partials and counters come from the
+    per-(device, stream) scratch, like paged decode's.  Everything else takes
+    the CUDA-core kernel.  The pools may be bf16 or fp8 (widened to q's dtype
+    in the kernel); ``PAGED_TREE_FORMS`` counts route and read."""
     B, H, T, D = q.shape
     P, KH, page, _ = k_pool.shape
     NB = block_tables.shape[1]
@@ -1187,21 +1210,23 @@ def paged_tree(
     stream = _stream(q)
     fn = _fn("paged_tree")
     with torch.cuda.device(q.device):
-        warps, chunks, nsplit = paged_tree_plan(B, H, KH, T, page, NB,
-                                                _sm_count(q.device.index))
+        blocks = warps = min_items = 0
         scratch = counters = None
-        if mma and nsplit > 1:
-            scratch, counters = _scratch_buffers(
-                "paged_tree", q.device, stream, B * KH * nsplit * (H // KH) * T * (D + 2),
-                B * KH * chunks)
+        if mma:
+            plan = paged_tree_plan(B, H, KH, T, D, page, NB, _sm_count(q.device.index),
+                                   PAGED_TREE_MIN_ITEMS)
+            blocks, warps, min_items = plan.blocks, plan.warps, plan.min_items
+            scratch, counters = _scratch_buffers("paged_tree", q.device, stream,
+                                                 plan.scratch_floats, plan.counters)
         err = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
             lengths.data_ptr(), tree_k.data_ptr(), tree_v.data_ptr(), anc.data_ptr(),
             depths.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
+            scratch.numel() if scratch is not None else 0,
             counters.data_ptr() if counters is not None else None,
             int(mma), dtype_code(q.dtype), _KV_CODE[k_pool.dtype], B, H, KH, T, P, page, NB, D,
-            int(window) if window is not None else 0, nsplit, warps, stream,
+            int(window) if window is not None else 0, blocks, warps, min_items, stream,
         )
     route = "mma" if mma else "cuda_core"
     _count("paged_tree", f"{route}:{paged_read(q.dtype, k_pool.dtype)}")

@@ -771,26 +771,6 @@ def chunked_gqa_decode_attention(
 # Paged tree attention (the speculative verify read): Hopper kernel + plain twin
 # ---------------------------------------------------------------------------
 
-# the most tree nodes the kernel takes (one key tile of the tree chunk)
-PAGED_TREE_MAX_T = 64
-
-
-def check_paged_tree_nodes(speculative: int, spec_width: int) -> None:
-    """Refuse, with ``ValueError``, a speculation tree the card's kernel
-    cannot take: ``1 + spec_width * speculative`` nodes past
-    ``PAGED_TREE_MAX_T``.  The CPU twin takes any tree; a spec engine on the
-    card checks this when it is built, and the registry when a spec is read."""
-    nodes = 1 + spec_width * speculative
-    if nodes > PAGED_TREE_MAX_T:
-        raise ValueError(
-            f"speculative={speculative} with spec_width={spec_width} verifies a "
-            f"{nodes}-node tree; the card's paged tree kernel takes at most "
-            f"{PAGED_TREE_MAX_T} nodes (1 + spec_width * speculative) until ROADMAP "
-            f"Queue 2 follow-up 14 (the tree in several key tiles); on the card keep "
-            f"spec_width * speculative <= {PAGED_TREE_MAX_T - 1}"
-        )
-
-
 def paged_tree_attention_plain(
     q: torch.Tensor,  # [B, H, T, D] — one query per speculation-tree node
     k_pool: torch.Tensor,  # [P, KH, page, D]
@@ -925,8 +905,8 @@ def paged_tree_attention(
         raise ValueError(f"paged_tree_attention: KV heads {KH} must divide query heads {H}")
     if D not in (16, 32, 64, 128, 256):
         raise ValueError(f"paged tree kernel takes head_dim 16, 32, 64, 128 or 256, got {D}")
-    if not 1 <= T <= PAGED_TREE_MAX_T:
-        raise ValueError(f"paged tree kernel takes 1 to {PAGED_TREE_MAX_T} tree nodes, got {T}")
+    if T < 1:
+        raise ValueError(f"paged tree kernel takes at least one tree node, got {T}")
     _check_pool_dtype("paged tree", q, k_pool, v_pool)
     if tuple(tree_k.shape) != (B, KH, T, D) or tree_v.shape != tree_k.shape:
         raise ValueError(f"paged_tree_attention: tree K/V must be [{B}, {KH}, {T}, {D}], got {tuple(tree_k.shape)}")

@@ -137,7 +137,6 @@ import torch
 from .. import kernels
 from ..device import DeviceLike, resolve_device
 from ..models import DecoderConfig, EncoderConfig, encoder, llama
-from ..ops.attention import check_paged_tree_nodes
 from ..ops.quant import FP8_DTYPES, KV_CACHE_DTYPES, check_kernel_params, weight_bits
 from ..ops.json_fsm import TokenFSM, fsm_for_tokenizer
 from ..ops.sampling import gumbel_noise, noise_width, sample_logits
@@ -516,8 +515,6 @@ class GenerationEngine:
                 "attn_fp8=True on the legacy KV layout requires the "
                 "chunked decode read (decode_kv_chunk != None)"
             )
-        if self.speculative and self.paged and self.device.type == "cuda":
-            check_paged_tree_nodes(self.speculative, self.spec_width)
         # prefix sharing: LRU over at most prefix_cache_size registered
         # prefixes of >= prefix_min_tokens tokens, under a byte budget; 0
         # disables the path

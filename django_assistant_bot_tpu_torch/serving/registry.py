@@ -28,7 +28,6 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
-from ..ops.attention import check_paged_tree_nodes
 
 logger = logging.getLogger(__name__)
 
@@ -70,9 +69,8 @@ _QUANT_BITS = {"int8": 8, "int4": 4}
 
 
 def _check_speculative(spec: "ModelSpec") -> None:
-    """The JAX registry's speculative checks and messages, and on the card
-    the paged tree kernel's limit (:func:`check_paged_tree_nodes`; the
-    legacy layout verifies through plain attention)."""
+    """The JAX registry's speculative checks and messages (the card's tree
+    kernel takes a tree of any size, as the JAX engine does)."""
     name = spec.name.lower()
     if spec.speculative and spec.kind == "encoder":
         raise ValueError(f"model {name}: speculative is decoder-only")
@@ -81,11 +79,6 @@ def _check_speculative(spec: "ModelSpec") -> None:
             f"model {name}: speculative excludes JSON-constrained decoding "
             "(the token FSM is sequential); use a separate model entry"
         )
-    if spec.speculative and spec.kv_layout == "paged" and torch.device(spec.device).type == "cuda":
-        try:
-            check_paged_tree_nodes(spec.speculative, max(1, spec.spec_width))
-        except ValueError as e:
-            raise ValueError(f"model {name}: {e}") from None
 
 
 def _check_kv_cache(spec: "ModelSpec") -> None:

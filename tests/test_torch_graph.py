@@ -33,7 +33,8 @@ package:
 - a speculative engine: each rung's graph replays bit for bit as its body
   run eagerly and counts its paged tree and sampler launches; an f32 spec
   engine's greedy ids on the card equal the CPU spec engine's and the
-  card's plain engine's;
+  card's plain engine's; a bf16 spec engine verifies a 65-node tree on the
+  tensor-core kernel, its greedy ids the plain engine's but at near ties;
 - narrow pools (``kv_cache_dtype`` fp8 / fp8_e5m2 / bf16, ``attn_fp8``):
   a replay bitwise the eager steps, every recorded paged launch on the
   pool's read; an f32 fp8 in-dot engine's greedy ids equal the CPU's.
@@ -665,8 +666,71 @@ def test_spec_engine_on_the_card_matches_cpu_and_plain():
     assert counts["paged_tree"] == eng.cfg.num_layers * eng.spec_ticks_issued * eng.decode_steps
 
 
+def _decode_and_verify_rows(eng, prefix, tree_spec):
+    """The logits for the token after ``prefix`` on one state
+    (``prefix[:-1]`` prefilled into a one-slot page table) through a plain
+    decode step of ``prefix[-1]`` and through a verify step of the tree
+    rooted at it (the root's row)."""
+    cfg, params, page = eng.cfg, eng.params, 64
+    NB = -(-len(prefix) // page) + 1
+    with torch.no_grad():
+        ids = torch.zeros((1, -(-len(prefix) // 64) * 64), dtype=torch.int32, device="cuda")
+        ids[0, :len(prefix) - 1] = torch.tensor(prefix[:-1], dtype=torch.int32)
+        n = torch.tensor([len(prefix) - 1], dtype=torch.int32, device="cuda")
+        _, ks, vs = llama.prefill(params, cfg, ids, n)
+        cache = llama.init_paged_cache(cfg, 1, NB, page, device="cuda")
+        bt = torch.arange(NB, dtype=torch.int32, device="cuda")[None]
+        llama.insert_sequences_paged(cache, ks, vs, n, torch.zeros(1, dtype=torch.int32,
+                                                                   device="cuda"), bt)
+        last = torch.tensor([prefix[-1]], dtype=torch.int32, device="cuda")
+        tree = last[:, None].repeat(1, tree_spec.size)
+        ver = llama.verify_tree_step_paged(
+            params, cfg, tree, cache, bt, torch.from_numpy(tree_spec.depths).cuda(),
+            torch.from_numpy(tree_spec.anc_mask).cuda())[0][0, 0]
+        dec = llama.decode_step_paged(params, cfg, last, cache, bt)[0][0]
+    return dec.float(), ver.float()
+
+
 def test_spec_engine_on_the_card_refuses_a_tree_past_the_kernel_tile():
-    """A 65-node tree (speculative 16, spec_width 4) is refused when the card
-    engine is built, before any capture, naming the ROADMAP follow-up."""
-    with pytest.raises(ValueError, match="65-node tree.*follow-up 14"):
-        _engine(torch.bfloat16, decode_steps=None, speculative=16, spec_width=4)
+    """A bf16 spec engine on the card verifies a 65-node tree (speculative
+    16, spec_width 4: two tree tiles on the tensor-core kernel) and serves:
+    every verify step's paged_tree launches took the ``mma`` route, drafts
+    were accepted, and its greedy ids equal the card's plain engine's but at
+    a flagged near tie, as chip_smoke.py's phase 11 holds them: at the first
+    divergence the plain decode step's top-two margin lies within the
+    verify step's distance from it on one state."""
+    from django_assistant_bot_tpu_torch.ops.speculative import make_tree_spec
+
+    gen = torch.Generator().manual_seed(8)
+    motif = torch.randint(1, 255, (9,), generator=gen).tolist()
+    prompts = [motif * 6, torch.randint(1, 255, (300,), generator=gen).tolist(), motif * 20]
+
+    def run(**kw):
+        eng = _engine(torch.bfloat16, decode_steps=None, **kw)
+        eng._running = True
+        kernels.reset_counts()
+        futs = [eng.submit(p, max_tokens=24, temperature=0.0) for p in prompts]
+        for _ in range(2000):
+            if all(f.done() for f in futs):
+                break
+            eng._loop_iteration()
+        return ([f.result(timeout=0).token_ids for f in futs], eng, kernels.launch_counts(),
+                kernels.by_route(kernels.PAGED_TREE_FORMS))
+
+    spec_ids, eng, counts, routes = run(speculative=16, spec_width=4, spec_probe_every=1)
+    assert eng.spec_width * eng.speculative + 1 == 65
+    verify_launches = eng.cfg.num_layers * eng.spec_ticks_issued * eng.decode_steps
+    assert counts["paged_tree"] == verify_launches > 0
+    assert routes == {"mma": verify_launches, "cuda_core": 0}
+    st = eng.spec_stats()
+    assert st["spec_drafted"] > 0 and st["spec_accepted"] > 0
+    plain_ids, plain, _, _ = run()
+    tree_spec = make_tree_spec(4, 16)
+    for prompt, a, b in zip(prompts, spec_ids, plain_ids):
+        if a == b:
+            continue
+        pos = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        assert pos is not None, (a, b)  # one stops early without a divergence
+        dec, ver = _decode_and_verify_rows(plain, prompt + b[:pos], tree_spec)
+        top2 = torch.topk(dec, 2).values
+        assert float(top2[0] - top2[1]) <= float((ver - dec).abs().max()), (pos, a, b)

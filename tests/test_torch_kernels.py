@@ -683,6 +683,28 @@ def _assert_tree_close(out, args, window):
 
 
 _TREE_MAIN = dict(page=512, NB=8, KH=8, lengths=[105, 355, 485, 915, 0, 4000, 1500, 2848])
+# the persistent grid's edges: one row holding most of the keys, every row
+# at length 0, trees of 65 and 129 nodes (two and three tree tiles, several
+# row chunks) at G 4 and 8, a window whose edge falls inside a 64-key chunk
+# and inside a page off the chunk
+_TREE_MORE = [
+    (torch.bfloat16, None, 128, 4, dict(page=512, NB=8, KH=8, lengths=[4000, 3, 0, 17])),
+    (torch.bfloat16, 300, 128, 4, dict(page=512, NB=8, KH=8, lengths=[4000, 3, 0, 17])),
+    (torch.bfloat16, None, 128, 4, dict(page=64, NB=4, lengths=[0, 0, 0])),
+    (torch.bfloat16, 5, 64, 8, dict(page=64, NB=4, lengths=[0, 0])),
+    *((torch.bfloat16, w, D, G, dict(page=64, NB=8, lengths=[0, 1, 70, 511], width=8, depth=8))
+      for D, G in ((128, 4), (128, 8), (64, 8)) for w in (None, 90)),
+    *((torch.bfloat16, w, 128, G, dict(page=512, NB=4, KH=8, lengths=[1500, 33, 0, 2000],
+                                       width=16, depth=8))
+      for G in (4, 8) for w in (None, 700)),
+    (torch.float32, None, 128, 4, dict(page=64, NB=4, lengths=[0, 9, 200], width=16, depth=8)),
+    (torch.bfloat16, 77, 128, 4, dict(page=100, NB=5, lengths=[499, 99, 100, 250])),
+    # 16-key pages and a 129-node tree at G 8 (nine row chunks): ~900 items
+    # a block, past the 512 a block locates at once
+    (torch.bfloat16, None, 128, 8,
+     dict(page=16, NB=256, KH=8, lengths=[4000, 4096, 3000, 4096, 2500, 4096, 1, 4090],
+          width=16, depth=8)),
+]
 
 
 @pytest.mark.parametrize(
@@ -713,6 +735,7 @@ _TREE_MAIN = dict(page=512, NB=8, KH=8, lengths=[105, 355, 485, 915, 0, 4000, 15
         # a stale row: sentinel entries inside its length clamp to page P - 1
         (torch.bfloat16, None, 128, 4, dict(page=64, NB=4, lengths=[200, 150], stale=(1,))),
         (torch.float32, None, 128, 4, dict(page=64, NB=4, lengths=[200, 150], stale=(1,))),
+        *_TREE_MORE,
     ],
 )
 def test_paged_tree_kernel_matches_plain(dtype, window, D, G, layout):
@@ -742,6 +765,47 @@ def test_paged_tree_kernel_repeats_bitwise(D):
     assert torch.equal(first, third)
 
 
+@pytest.mark.parametrize("kv", ["bf16", "e4m3"])
+def test_paged_tree_graph_replays_bitwise_at_three_fills(kv):
+    """One captured call replays bitwise equal to eager calls at three fills
+    of the same buffers (lengths, block tables, pools and tree rewritten in
+    place, as the engine rewrites them between ticks and refills its pools
+    after a restart): the grid, the scratch and the pools' tensor maps are
+    the capture's, the items and their partition follow the new lengths."""
+    fills = ([105, 355, 485, 915, 0, 4000, 1500, 2848], [0, 0, 0, 0, 0, 0, 0, 0],
+             [4000, 1, 2, 3, 0, 4, 5, 600])
+    args = list(_tree_inputs(torch.bfloat16, 128, 4, **dict(_TREE_MAIN, lengths=fills[0])))
+    if kv != "bf16":
+        args[1], args[2] = _narrow(args[1], kv), _narrow(args[2], kv)
+    out = torch.empty_like(args[0])
+    store = {}
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), kernels.private_paged_scratch(store):
+        out.copy_(paged_tree_attention(*args))  # warm-up: the graph's scratch
+        graph = torch.cuda.CUDAGraph()
+        with kernels.record_graph_launches() as rec, torch.cuda.graph(graph, stream=stream):
+            out.copy_(paged_tree_attention(*args))
+    torch.cuda.current_stream().wait_stream(stream)
+    assert rec.launches["paged_tree"] == 1
+    for n, lengths in enumerate(fills):
+        fresh = _tree_inputs(torch.bfloat16, 128, 4, **dict(_TREE_MAIN, lengths=lengths))
+        if n:  # new pool values, tree and lengths in the captured buffers
+            gen = torch.Generator(device="cuda").manual_seed(20 + n)
+            for i in (0, 1, 2, 5, 6):
+                args[i].copy_(torch.randn(args[i].shape, generator=gen, device="cuda")
+                              .to(args[i].dtype))
+            args[3].copy_(fresh[3])
+            args[4].copy_(fresh[4])
+        graph.replay()
+        torch.cuda.synchronize()
+        with kernels.private_paged_scratch(store):
+            eager = paged_tree_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), lengths
+        _assert_tree_close(out, tuple(args), None)
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_paged_tree_kernel_off_16_bytes_takes_cuda_core_route(D):
     args = _tree_inputs(torch.bfloat16, D, 4, offset=4, page=64, NB=4, lengths=[3, 70, 200, 0])
@@ -755,12 +819,16 @@ def test_paged_tree_kernel_off_16_bytes_takes_cuda_core_route(D):
 
 def test_paged_tree_wrapper_refuses_what_it_does_not_take():
     args = list(_tree_inputs(torch.bfloat16, 128, 4, page=64, NB=4, lengths=[3, 70]))
-    big = make_tree_spec(8, 8)  # 65 nodes: past the kernel's one tree tile
-    with pytest.raises(ValueError, match="tree nodes"):
-        paged_tree_attention(args[0].new_zeros((2, 8, 65, 128)), *args[1:5],
-                             args[5].new_zeros((2, 2, 65, 128)), args[6].new_zeros((2, 2, 65, 128)),
-                             torch.from_numpy(big.anc_mask).cuda(),
-                             torch.from_numpy(big.depths).cuda())
+    big = make_tree_spec(8, 8)  # 65 nodes: two tree tiles, served on the tensor cores
+    forms = dict(kernels.PAGED_TREE_FORMS)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, tk, tv = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                 for shape in ((2, 8, 65, 128), (2, 2, 65, 128), (2, 2, 65, 128)))
+    tree = (q, *args[1:5], tk, tv, torch.from_numpy(big.anc_mask).cuda(),
+            torch.from_numpy(big.depths).cuda())
+    out = paged_tree_attention(*tree)
+    assert kernels.PAGED_TREE_FORMS["mma:native"] == forms["mma:native"] + 1
+    _assert_tree_close(out, tree, None)
     with pytest.raises(ValueError, match="lengths"):
         paged_tree_attention(*args[:4], args[4].long(), *args[5:])
     with pytest.raises(TypeError):
@@ -779,6 +847,7 @@ def test_paged_tree_wrapper_refuses_what_it_does_not_take():
         (torch.bfloat16, None, 128, 4, _TREE_MAIN),
         (torch.bfloat16, 100, 128, 4, dict(page=512, NB=4, lengths=[1000, 1500, 2047, 1100])),
         (torch.bfloat16, None, 128, 4, dict(page=64, NB=4, lengths=[200, 150], stale=(1,))),
+        *(case for case in _TREE_MORE if case[0] == torch.bfloat16),
     ],
 )
 def test_paged_tree_kernel_reads_narrow_pools(dtype, window, D, G, layout, kv):

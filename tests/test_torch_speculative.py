@@ -11,7 +11,8 @@ weights through ``convert.params_from_jax``):
   branches), sampled rows taking the position-0 draw (:141, :166, :199);
 - ``paged_tree_attention_plain`` within 1e-5 of the JAX
   ``paged_tree_attention`` in f32 (ragged lengths including 0, sentinel
-  block-table entries, a window), and its bf16 bound met by the JAX
+  block-table entries, a window, trees of 65 and 129 nodes), and its bf16
+  bound met by the JAX
   function itself in bf16;
 - ``verify_tree_step_paged`` logits and tree K/V against JAX's, read-only
   with respect to the pool (:220); ``commit_tree_path_paged`` pool bytes
@@ -43,15 +44,13 @@ from django_assistant_bot_tpu.serving import ByteTokenizer as JaxByteTokenizer
 from django_assistant_bot_tpu.serving import GenerationEngine as JaxGenerationEngine
 from django_assistant_bot_tpu_torch.convert import params_from_jax
 from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
-from django_assistant_bot_tpu_torch.ops.attention import (PAGED_TREE_MAX_T,
-                                                          check_paged_tree_nodes,
-                                                          paged_tree_attention,
+from django_assistant_bot_tpu_torch.ops.attention import (paged_tree_attention,
                                                           paged_tree_attention_plain,
                                                           paged_tree_bf16_bound)
 from django_assistant_bot_tpu_torch.ops import speculative as tspec
 from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine, ModelRegistry
 from django_assistant_bot_tpu_torch.serving.faults import FaultInjector
-from django_assistant_bot_tpu_torch.serving.registry import ModelSpec
+from django_assistant_bot_tpu_torch.serving.registry import ModelSpec, _check_speculative
 
 
 def _t(a):
@@ -295,6 +294,19 @@ def test_paged_tree_plain_matches_jax(lengths, window):
     # the wrapper takes the twin for a CPU tensor
     again = paged_tree_attention(*_tree_args(c), window=window).numpy()
     np.testing.assert_array_equal(again, got)
+
+
+@pytest.mark.parametrize("window", [None, 11])
+@pytest.mark.parametrize("width,depth", [(8, 8), (16, 8)], ids=["T65", "T129"])
+def test_paged_tree_plain_matches_jax_past_one_tile(width, depth, window):
+    """Trees of 65 and 129 nodes (past one 64-key tile: the card's kernel
+    walks them in two and three tiles) at tiny widths: the twin within 1e-5
+    of the JAX function, with and without a window."""
+    c = _tree_case(15, [0, 9, 30, 47], width=width, depth=depth)
+    assert c["q"].shape[2] == 1 + width * depth
+    want = _tree_jax(c, window)
+    got = paged_tree_attention_plain(*_tree_args(c), window=window).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 def test_paged_tree_plain_matches_jax_with_sentinels_and_stale_rows():
@@ -879,21 +891,18 @@ def test_registry_serves_speculative_and_refuses_as_jax():
 @pytest.mark.parametrize("depth,width,fits", [(4, 4, True), (9, 7, True), (16, 4, False),
                                               (8, 8, False)])
 def test_card_spec_refuses_a_tree_past_the_kernel_tile(depth, width, fits):
-    """On the card a spec whose full tree (1 + width * depth nodes) passes
-    the tree kernel's one key tile is refused when the spec is read, naming
-    the ROADMAP follow-up; on the CPU the same spec is taken."""
-    nodes = 1 + width * depth
-    assert (nodes <= PAGED_TREE_MAX_T) == fits
+    """No tree is refused any more: the card's tree kernel walks the tree in
+    tiles, so a spec of any size is taken on the card as on the CPU, when
+    the spec is read and by the registry's checks, on either side of the
+    first kernel's one 64-node tile (``fits``)."""
+    assert (1 + width * depth <= 64) == fits
     conf = {"tiny": True, "speculative": depth, "spec_width": width}
     assert ModelSpec.from_dict("m", dict(conf, device="cpu")).speculative == depth
-    if fits:
-        check_paged_tree_nodes(depth, width)
-        assert ModelSpec.from_dict("m", conf).speculative == depth
-        return
-    with pytest.raises(ValueError, match=f"^model m: .*{nodes}-node tree.*follow-up 14"):
-        ModelSpec.from_dict("m", conf)
-    with pytest.raises(ValueError, match=f"model m: .*{nodes}-node tree"):
-        ModelRegistry({"m": ModelSpec(name="m", device="cuda", **conf)})
+    spec = ModelSpec.from_dict("m", conf)
+    assert torch.device(spec.device).type == "cuda" and spec.speculative == depth
+    assert spec.spec_width == width
+    # the registry's checks, which it runs before it builds the engine
+    assert _check_speculative(ModelSpec(name="m", device="cuda", **conf)) is None
 
 
 def test_cpu_spec_engine_serves_a_tree_past_the_kernel_tile(tiny0):
