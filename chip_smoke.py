@@ -32,8 +32,11 @@ printed on a line of their own):
    and its time at M 8 (each projection and each grouped launch, with the
    stream-read yardstick and the direct-load kernel beside it) and 512
    (gate/up and down also 2048) beside cuBLAS on the dequantized weight;
-   qgemm's generic route (int4 groups 8 / 4 / 24, widths off 16 and 8, a
-   tied head at V 1,000, E 40; M 8 and 512) and the tied int8 head's time
+   qgemm's generic route (``qgemm_generic_kernel``: int4 groups 2 / 4 / 6
+   / 8 / 24 / 40, widths off 16 and 8, K off 64, tied heads at E 40 and
+   4,040; M 1 / 8 / 65 / 512, bf16, and f32; a repeat bitwise equal) and
+   its time at int4 g8, 4096 x 4096, M 8 and 512, beside the bound, the
+   flush-aware bound, the plain twin and cuBLAS; the tied int8 head's time
    at Llama-3-8B's [128,256, 4096] table beside ``torch.matmul``; the fused
    sampler at B 8, V 128,256, k 50 (f32 and bf16, with and without a JSON
    mask, a planted tie block): ids and FSM states equal to the plain
@@ -112,7 +115,7 @@ printed on a line of their own):
    are counted at each replay), both kernels must have run, every paged
    call through the tensor-core kernel, 32 paged launches per decode step,
    one sampler launch per sampling step (decode steps and activations);
-   the four requests read over 6 runs (medians and spreads, as phase 8);
+   the four requests read over 6 runs (medians and spreads);
    then a RAG wave on the same engine (a ~1,500-token shared head: one
    miss that registers it, one hit alone, six hits together, one of them
    chunked after the hit; exact hit and copy-on-write counts, the pool back
@@ -143,13 +146,16 @@ printed on a line of their own):
    prefixes, the plain ones equal their solo runs), no graph captured and
    no library built by a request after the warmup, sampler launches =
    sampling steps;
-8. int8 and then int4 Llama-3-8B (``init_int8`` / ``init_int4``, 32
-   layers, full width) behind ``/dialog/`` with ``quantize`` set
-   (:func:`quant_phase`): phase 4's four requests, qgemm launches = 4 x 32
-   x decode steps (the stream kernel) + 7 x 32 x prefill forwards (the
-   wgmma kernel), ``weight_bits`` in
-   ``/healthz`` and ``/metrics``, the weight bytes on the card, readings over 6 runs and
-   the decode breakdown;
+8. int8, int4 g64 and int4 g8 Llama-3-8B (``init_int8`` / ``init_int4``,
+   32 layers, full width) behind ``/dialog/`` with ``quantize`` (and
+   ``quant_group_size``) set (:func:`quant_phase`): phase 4's four
+   requests, qgemm launches = 4 x 32 x decode steps (the stream kernel) +
+   7 x 32 x prefill forwards (the wgmma kernel), at g8 7 x 32 x (decode
+   steps + prefill forwards) all on the generic route, ``weight_bits`` in
+   ``/healthz`` and ``/metrics``, the weight bytes on the card, at g8 a
+   300-token prefill's argmax against the forward with ``qeinsum_plain``
+   patched in, readings over 4 runs and the decode breakdown, the g8 step
+   beside int8's;
 9. ANN retrieval at scale (:func:`ann_phase`), after phase 8's memory is
    freed: 2,000,000 x 768 through ``ANNIndex.add`` and ``train()`` (wall
    times, bytes on the card), phase 2's ANN kernel checks on it, 64
@@ -431,7 +437,7 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
-    r"|qgemm_stream_kernel|qgemm_cc_kernel|adc_scan_kernel|moe_route_topk_kernel"
+    r"|qgemm_stream_kernel|qgemm_generic_kernel|adc_scan_kernel|moe_route_topk_kernel"
     r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_wgmma_kernel|moe_gemm_cc_kernel"
     r"|paged_tree_mma_kernel"
     r"|paged_tree_cc_kernel)I(\w*?)EEv"
@@ -1592,6 +1598,26 @@ def qgemm_group_bound_ms(M, K, Ns, bits, group) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the f32 CUDA cores' instruction rate: 67 TFLOP/s of FMAs, one lane
+# instruction each (132 SMs x 128 lanes x 1.98 GHz)
+PEAK_CC_INSTR = 33.5e12
+# lane instructions an output and group of int4's flush: the partial's
+# round, its unpack from the bf16 pair, the FMA with the rounded scale
+FLUSH_INSTR = 3
+
+
+def qgemm_flush_bound_ms(M, K, N, bits, group) -> tuple:
+    """:func:`qgemm_bound_ms` with int4's group flush counted: one round,
+    unpack and FMA (``FLUSH_INSTR``) per output and group on the CUDA cores
+    (``PEAK_CC_INSTR``), which the JAX numerics need and a product on the
+    dequantized weight does not do; the larger of the two."""
+    bound = qgemm_bound_ms(M, K, N, bits, group)
+    if bits != 4:
+        return bound
+    t_flush = M * N * (K // group) * FLUSH_INSTR / PEAK_CC_INSTR * 1e3
+    return (t_flush, "flush") if t_flush > bound[0] else bound
+
+
 def _qweight(K, N, fmt, group, gen):
     """Random int8 (per-column scales) or packed int4 (per-group scales)
     weights drawn on the card, the scales spread over two decades."""
@@ -1888,65 +1914,138 @@ def check_qgemm(gen) -> list:
 
 
 # the generic qgemm route's shapes (ROADMAP Queue 3 entry 7): (K, N, fmt,
-# group); a quant_group_size of 6 packs at 4 at in 4096 (_int4_group)
-GENERIC_SHAPES = [(4096, 4096, "int4", 8), (4096, 4096, "int4", 4), (48, 40, "int4", 24),
-                  (40, 44, "int8", 0)]
+# group): int4 groups 8 and 4 (a quant_group_size of 6 packs at 4 at in
+# 4096, _int4_group), 2, 6, 24 and 40 (K off 64 and off 16 too), int8 with
+# K off 16 and N off 8
+GENERIC_SHAPES = [(4096, 4096, "int4", 8), (4096, 4096, "int4", 4), (256, 512, "int4", 2),
+                  (96, 64, "int4", 6), (48, 40, "int4", 24), (4104, 1024, "int4", 24),
+                  (80, 48, "int4", 40), (4000, 4096, "int4", 40), (40, 44, "int8", 0)]
+GENERIC_MS = (1, 8, 65, 512)
+# Llama-3-8B's four projections at int4 g 8 (wq / wo, wk / wv, gate / up,
+# down), at the rows of x phase 8's g8 engine gives them: 1-16 a decode step
+# (gate / up and down there take two blocks an SM), 512 a prefill chunk
+GENERIC_LLAMA = [(M, K, N, "int4", 8) for M in (1, 8, 16, 512)
+                 for K, N in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))]
+# a 300-token prefill's last-token logits against the plain-twin forward:
+# the least cosine (the kernel read 0.999998 on an H100 at full width)
+QUANT_MIN_COSINE = 0.9999
+
+
+def _generic_case(M, K, N, fmt, g, dtype, gen) -> tuple:
+    """One generic-route call against its plain twin (``_qgemm_err``), its
+    launch counted on ``"generic"``, a repeat equal bit for bit.  Returns
+    (max abs err, worst err/bound)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.quant import qeinsum, qeinsum_plain
+
+    w = _qweight(K, N, fmt, g, gen)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    before = kernels.QGEMM_ROUTES["generic"]
+    out = qeinsum("me,eo->mo", x, w, dtype)
+    routed = kernels.QGEMM_ROUTES["generic"] - before
+    again = qeinsum("me,eo->mo", x, w, dtype)
+    ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
+    torch.cuda.synchronize()
+    err, ratio = _qgemm_err(out, x, w, ref, dtype)
+    if not ratio <= 1.0 or routed != 1 or not torch.equal(out, again):
+        fail(f"qgemm generic {fmt} g={g} M={M} K={K} N={N} {dtype}: err/bound {ratio}, generic "
+             f"launches {routed}, repeat equal {torch.equal(out, again)}")
+    return err, ratio
 
 
 def check_qgemm_generic(gen) -> dict:
-    """The generic route (``qgemm_cc_kernel``, CUDA cores) against
-    ``qeinsum_plain`` at the shapes no tensor-core route takes, each at M 8
-    and 512, in bf16 (``qgemm_bf16_bound``); the tied int8 head at V = 1000,
-    E = 40 there too; every call counted on ``"generic"``.  Then its time
-    at int4 g = 8, 4096 x 4096, M = 8, beside the bound, the plain twin and
-    cuBLAS on the dequantized weight; and the tied int8 head at Llama-3-8B's
-    [128,256, 4096] table, M = 8 (the stream route's K-contiguous form),
-    beside ``torch.matmul`` on its bf16 table and its plain twin."""
+    """The generic route (``qgemm_generic_kernel``: tensor cores in bf16,
+    CUDA cores in f32) against ``qeinsum_plain`` at the shapes no
+    tensor-core route takes (``GENERIC_SHAPES`` at ``GENERIC_MS`` rows in
+    bf16, ``qgemm_bf16_bound``; M 8 and 65 in f32, 1e-4 of A), every call
+    one launch on ``"generic"`` and bitwise equal on a repeat; the tied int8
+    head's K-contiguous form at V 1,000, E 40 and V 128,256, E 4,040 in both
+    dtypes.  Fails unless the bf16 kernel's SASS holds tensor-core products
+    (HMMA) and asynchronous copies (LDGSTS).  Then its time at int4 g = 8,
+    4096 x 4096 (Llama-3-8B's wq / wo), M 8 and 512, the weights rotated
+    over >= 256 MB of copies so each call reads them from HBM, beside the
+    bound, the flush-aware bound (``qgemm_flush_bound_ms``), the plain twin
+    and cuBLAS on the dequantized weight (wall and device, rotated alike);
+    and the tied int8 head at Llama-3-8B's [128,256, 4096] table, M = 8
+    (the stream route's K-contiguous form), beside ``torch.matmul`` on its
+    bf16 table and its plain twin.  The entry is the M 8 time."""
     import torch
 
     from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.ops.quant import (
         QTensor, deq, qeinsum, qeinsum_plain, tied_head, tied_head_plain)
 
-    worst = 0.0
-    for K, N, fmt, g in GENERIC_SHAPES:
-        for M in (8, 512):
-            before = kernels.QGEMM_ROUTES["generic"]
-            err, ratio = _qgemm_case(M, K, N, fmt, g, torch.bfloat16, gen)
-            routed = kernels.QGEMM_ROUTES["generic"] - before
-            log(f"  qgemm generic {fmt}{f' g={g}' if g else ''} M={M} K={K} N={N} bf16: "
-                f"max_abs_err {err:.3e}, worst err/bound {ratio:.3f}, generic launches {routed}")
-            if not ratio <= 1.0 or routed != 1:
-                fail(f"qgemm generic {fmt} g={g} M={M} K={K} N={N}: err/bound {ratio}, "
-                     f"generic launches {routed}")
-            worst = max(worst, err)
+    worst = worst_ratio = 0.0
+    cases = [(M, K, N, fmt, g, torch.bfloat16) for K, N, fmt, g in GENERIC_SHAPES
+             for M in GENERIC_MS]
+    cases += [(M, K, N, fmt, g, torch.bfloat16) for M, K, N, fmt, g in GENERIC_LLAMA
+              if M not in GENERIC_MS or (K, N) != (4096, 4096)]
+    cases += [(M, K, N, fmt, g, torch.float32) for K, N, fmt, g in GENERIC_SHAPES
+              for M in (8, 65)]
+    for M, K, N, fmt, g, dtype in cases:
+        err, ratio = _generic_case(M, K, N, fmt, g, dtype, gen)
+        if dtype == torch.bfloat16:
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    log(f"  qgemm generic: {len(cases)} cases (int4 g 2 / 4 / 6 / 8 / 24 / 40, int8 off 16 and "
+        f"8; M {GENERIC_MS} bf16, 8 and 65 f32; Llama-3-8B's four g8 projections at M 1, 8, "
+        f"16, 512 bf16), each one generic launch, a repeat bitwise equal; bf16 max_abs_err "
+        f"{worst:.3e}, worst err/bound {worst_ratio:.3f}")
+    for V, E in ((1000, 40), (128256, 4040)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for M in (8, 512):
+                before = kernels.QGEMM_ROUTES["generic"]
+                err, ratio = _tied_case(M, V, E, dtype, gen)
+                routed = kernels.QGEMM_ROUTES["generic"] - before
+                log(f"  qgemm generic tied head M={M} V={V} E={E} {str(dtype)[6:]}: max_abs_err "
+                    f"{err:.3e}, worst err/bound {ratio:.3f}, generic launches {routed}")
+                if not ratio <= 1.0 or routed != 2:
+                    fail(f"the generic tied head M={M} V={V} E={E} {dtype} disagrees or left the "
+                         f"generic route: {ratio}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+    sass = {label: c for label, c in sass_table(kernels.lib_path("qgemm")).items()
+            if label.startswith("qgemm_generic_kernel")}
+    log(f"  qgemm generic SASS: " + "; ".join(
+        f"{k}: HMMA {c['HMMA']}, LDGSTS {c['LDGSTS']}, UTMALDG {c['UTMALDG']}"
+        for k, c in sorted(sass.items())))
+    # bf16 forms: tensor-core products, fed by cp.async (LDGSTS) or, the
+    # TMA forms (last template flag 1), by TMA loads on mbarriers
+    bf16 = {label: c for label, c in sass.items() if "bf16" in label}
+    if not bf16 or any(c["HMMA"] == 0 or (c["UTMALDG"] == 0 or c["SYNCS"] == 0
+                                          if label.endswith(",1>") else c["LDGSTS"] == 0)
+                       for label, c in bf16.items()):
+        fail(f"the generic kernel's bf16 forms show no mma, or no copy of their kind, in their "
+             f"SASS: {bf16}")
+    # timing: int4 g = 8 at 4096 x 4096 (the g8 engine's wq / wo), rotated
+    K, N, g = 4096, 4096, 8
+    copies = _rotated(lambda: _qweight(K, N, "int4", g, gen), K * N // 2 + 4 * (K // g) * N)
+    wds = [deq(w, torch.bfloat16) for w in copies[:max(2, -(-QGEMM_ROTATE_BYTES // (2 * K * N)))]]
+    entry = None
     for M in (8, 512):
-        before = kernels.QGEMM_ROUTES["generic"]
-        err, ratio = _tied_case(M, 1000, 40, torch.bfloat16, gen)
-        log(f"  qgemm generic tied head M={M} V=1000 E=40 bf16: max_abs_err {err:.3e}, worst "
-            f"err/bound {ratio:.3f}, generic launches {kernels.QGEMM_ROUTES['generic'] - before}")
-        if not ratio <= 1.0 or kernels.QGEMM_ROUTES["generic"] - before != 2:
-            fail(f"the generic tied head M={M} disagrees or left the generic route: {ratio}")
-        worst = max(worst, err)
-    # timing: int4 g = 8 at 4096 x 4096, M = 8 (the tiny int4-g8 decoder's
-    # route, at a Llama projection's size)
-    K, N, g, M = 4096, 4096, 8, 8
-    w = _qweight(K, N, "int4", g, gen)
-    wd = deq(w, torch.bfloat16)
-    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-    ms, dev = timed(lambda: qeinsum("me,eo->mo", x, w, torch.bfloat16), 20)
-    library_ms = time_ms(lambda: torch.matmul(x, wd), 50)
-    plain_ms = time_ms(lambda: qeinsum_plain("me,eo->mo", x, w, torch.bfloat16), 3)
-    bound_ms, bound_by = qgemm_bound_ms(M, K, N, 4, g)
-    log(f"  qgemm generic timing int4 g=8 M={M} K={K} N={N} bf16: kernel wall {ms:.4f} ms "
-        f"(device {dev:.4f}), library (cuBLAS on the bf16 weight) wall {library_ms:.4f} ms, "
-        f"plain wall {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); share of the "
-        f"bound, device {bound_ms / dev:.4f}")
-    entry = dict(name="qgemm_generic", route="cuda", source=f"{PKG}/csrc/qgemm.cu",
-                 replaces="django_assistant_bot_tpu/ops/quant.py:160", max_abs_err=worst, ms=ms,
-                 device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=library_ms)
-    del w, wd
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        ms, dev = timed(_cycler(lambda w: qeinsum("me,eo->mo", x, w, torch.bfloat16), copies),
+                        {8: 50, 512: 20}[M])
+        lib_ms, lib_dev = timed(_cycler(lambda wd: torch.matmul(x, wd), wds), {8: 50, 512: 20}[M])
+        plain_ms = time_ms(lambda: qeinsum_plain("me,eo->mo", x, copies[0], torch.bfloat16), 3)
+        bound_ms, bound_by = qgemm_bound_ms(M, K, N, 4, g)
+        flush_ms, flush_by = qgemm_flush_bound_ms(M, K, N, 4, g)
+        plan = kernels.qgemm_generic_plan(M, N, K, 4, g, kernels._sm_count(0))
+        log(f"  qgemm generic timing int4 g=8 M={M} K={K} N={N} bf16 (plan: {plan.ctas} blocks, "
+            f"mt {plan.mt}, {plan.total} granules; {len(copies)} weight copies) [{gpu_line()}]: "
+            f"kernel wall {ms:.4f} ms (device {dev:.4f}), library (cuBLAS on the bf16 weight) "
+            f"wall {lib_ms:.4f} ms (device {lib_dev:.4f}), plain wall {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), flush-aware bound {flush_ms:.4f} ms ({flush_by}); "
+            f"share, device: of the bound {bound_ms / dev:.4f}, of the flush-aware bound "
+            f"{flush_ms / dev:.4f}; device against cuBLAS's {dev / lib_dev:.3f}x")
+        if M == 8:
+            entry = dict(name="qgemm_generic", route="cuda", source=f"{PKG}/csrc/qgemm.cu",
+                         replaces="django_assistant_bot_tpu/ops/quant.py:160", max_abs_err=worst,
+                         ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms, library_device_ms=lib_dev,
+                         flush_bound_ms=flush_ms)
+    del copies, wds
     # the tied int8 head at Llama-3-8B's table, M = 8
     V, E, M = 128256, 4096, 8
     tw = QTensor(torch.randint(-127, 128, (V, E), generator=gen, device="cuda", dtype=torch.int8),
@@ -5029,13 +5128,18 @@ def _quiet_check(tok, key_msgs, results, max_tokens=32) -> tuple:
         return _check_dialogs(tok, key_msgs, results, max_tokens)
 
 
+def _projection_shapes(cfg) -> list:
+    """A layer's projections (in, out): wq, wk, wv, wo, gate, up, down."""
+    E, F = cfg.hidden_size, cfg.intermediate_size
+    HD, KD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    return [(E, HD), (E, KD), (E, KD), (HD, E), (E, F), (E, F), (F, E)]
+
+
 def projection_bytes(cfg, fmt: str, group: int = 64) -> int:
     """Bytes of the layer projections of ``cfg`` at ``fmt``: bf16 (2 bytes a
     weight), or the integers (1 byte a weight, or 0.5 packed) and their f32
     scales (per output column, or per ``group`` rows and column)."""
-    E, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    HD, KD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    shapes = [(E, HD), (E, KD), (E, KD), (HD, E), (E, F), (E, F), (F, E)]
+    L, shapes = cfg.num_layers, _projection_shapes(cfg)
     if fmt == "bf16":
         return L * sum(2 * K * N for K, N in shapes)
     if fmt == "int8":
@@ -5043,20 +5147,75 @@ def projection_bytes(cfg, fmt: str, group: int = 64) -> int:
     return L * sum(K * N // 2 + 4 * (K // group) * N for K, N in shapes)
 
 
+# phase 8's engines: (label, init's format, int4 group); int4 g8 is the
+# generic route's main path.  Each reads the four requests QUANT_RUNS times,
+# the first run counted (4, not 6 since the third engine: the smoke's time)
+QUANT_ENGINES = [("int8", "int8", 64), ("int4", "int4", 64), ("int4_g8", "int4", 8)]
+QUANT_RUNS = 4
+QUANT_ARGMAX_TOKENS = 300  # the g8 engine's prefill held to the plain-twin forward
+
+
+def plain_forward_check(cfg, params, label: str) -> None:
+    """One ``QUANT_ARGMAX_TOKENS``-token prefill of the quantized params on the
+    card through the qgemm kernel, then the same forward with ``qeinsum_plain``
+    (the JAX numerics in plain PyTorch) in place of every kernel call: the
+    last-token logits' argmax must agree and their cosine reach
+    ``QUANT_MIN_COSINE``; the max abs error is printed."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.models import llama
+    from django_assistant_bot_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    ids = torch.randint(1, 255, (1, QUANT_ARGMAX_TOKENS), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    lengths = torch.tensor([QUANT_ARGMAX_TOKENS], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        before = kernels.launch_counts()["qgemm"]
+        logits = llama.prefill(params, cfg, ids, lengths)[0].float()
+        kernel_calls = kernels.launch_counts()["qgemm"] - before
+        orig = (llama.qeinsum, llama.qeinsum_group)
+        llama.qeinsum = quant.qeinsum_plain
+        llama.qeinsum_group = lambda p, x, ws, dt: [quant.qeinsum_plain(p, x, w, dt) for w in ws]
+        try:
+            before = kernels.launch_counts()["qgemm"]
+            plain = llama.prefill(params, cfg, ids, lengths)[0].float()
+            plain_calls = kernels.launch_counts()["qgemm"] - before
+        finally:
+            llama.qeinsum, llama.qeinsum_group = orig
+        torch.cuda.synchronize()
+    err = (logits - plain).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(logits, plain, dim=-1).min().item()
+    same = bool(torch.equal(logits.argmax(-1), plain.argmax(-1)))
+    log(f"  {label} {QUANT_ARGMAX_TOKENS}-token prefill, last-token logits: kernel "
+        f"({kernel_calls} qgemm launches) vs qeinsum_plain patched in ({plain_calls} launches): "
+        f"max_abs_err {err:.4e}, cosine {cos:.6f}, argmax {'equal' if same else 'DIFFERS'}")
+    if not (same and cos >= QUANT_MIN_COSINE and kernel_calls == 7 * cfg.num_layers
+            and plain_calls == 0 and bool(torch.isfinite(logits).all())):
+        fail(f"{label}: the prefill's argmax, cosine ({cos:.6f} against {QUANT_MIN_COSINE}) or "
+             f"launches disagree with the plain-twin forward")
+
+
 def quant_phase(card: str) -> dict:
     """Llama-3-8B (32 layers, full width) from ``init_int8``, then (freed)
-    from ``init_int4``, each behind ``/dialog/`` in a ``ModelRegistry`` /
-    ``create_app`` server with ``quantize`` set, at the default loop.
+    from ``init_int4`` at group 64 and at group 8 (``QUANT_ENGINES``), each
+    behind ``/dialog/`` in a ``ModelRegistry`` / ``create_app`` server with
+    ``quantize`` (and ``quant_group_size``) set, at the default loop.
     Phase 4's four requests, 32 greedy tokens each: launch counts zeroed
     just before and read just after; every request completes; qgemm
     launches = 4 x 32 per decode step (the stream kernel: QKV and gate/up
-    one launch each) plus 7 x 32 per prefill forward (the wgmma kernel);
-    ``weight_bits`` 8 / 4 in ``/healthz`` and ``/metrics``; the projection
-    bytes on the card as computed.  Readings over 5 more runs of the four
-    (medians and spreads): TTFT, decode tok/s per request; then the decode
-    breakdown (the eager step profiled, the replayed tick per step).
-    Returns the qgemm launches of each format's counted run by kernel:
-    ``decode`` (the stream kernel) and ``prefill`` (wgmma)."""
+    one launch each) plus 7 x 32 per prefill forward (the wgmma kernel), and
+    at group 8 7 x 32 per decode step and per prefill forward, all on the
+    generic route (``qgemm_generic_kernel``); ``weight_bits`` 8 / 4 in
+    ``/healthz`` and ``/metrics``; the projection bytes on the card as
+    computed; at group 8 a prefill's argmax against the plain-twin forward
+    (:func:`plain_forward_check`).  Readings over the counted run and the
+    runs after it (medians and spreads): TTFT, decode tok/s per request;
+    then the decode breakdown (the eager step profiled, the replayed tick
+    per step), and the g8 step's ratio to int8's.  Returns the qgemm
+    launches of each engine's counted run by kernel: ``decode`` (the
+    stream kernel) and ``prefill`` (wgmma), or ``generic``."""
     import aiohttp
     import torch
     from aiohttp import web
@@ -5072,13 +5231,16 @@ def quant_phase(card: str) -> dict:
     cfg = DecoderConfig.llama3_8b()
     tok = ByteTokenizer()
     messages = four_requests(tok)
-    launches = {}
-    for fmt, init in (("int8", llama.init_int8), ("int4", llama.init_int4)):
+    launches, replay = {}, {}
+    for label, fmt, group in QUANT_ENGINES:
+        init = llama.init_int8 if fmt == "int8" else llama.init_int4
+        generic = fmt == "int4" and group % 16 != 0
         gc_collect()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         alloc0 = torch.cuda.memory_allocated()
-        params = init(cfg, torch.Generator(device="cuda").manual_seed(21), "cuda")
+        kw = {"group_size": group} if fmt == "int4" else {}
+        params = init(cfg, torch.Generator(device="cuda").manual_seed(21), "cuda", **kw)
         torch.cuda.synchronize()
         alloc = torch.cuda.memory_allocated() - alloc0
         proj = [w for w in params["layers"].values() if isinstance(w, QuantizedWeight)]
@@ -5086,14 +5248,20 @@ def quant_phase(card: str) -> dict:
         dense = sum(t.numel() * t.element_size() for t in
                     [params["tok_embed"], params["lm_head"], params["final_norm"],
                      params["layers"]["attn_norm"], params["layers"]["mlp_norm"]])
-        want = projection_bytes(cfg, fmt)
-        log(f"  {fmt} Llama-3-8B from init_{fmt} in {time.perf_counter() - t0:.1f} s: projection "
-            f"bytes on the card {on_card} (computed {want}; bf16 {projection_bytes(cfg, 'bf16')}), "
-            f"dense leaves {dense}, allocated {alloc} ({alloc - on_card - dense} above the leaves)")
+        want = projection_bytes(cfg, fmt, group)
+        weights = cfg.num_layers * sum(K * N for K, N in _projection_shapes(cfg))
+        log(f"  {label} Llama-3-8B from init_{fmt}{f' (group {group})' if fmt == 'int4' else ''} "
+            f"in {time.perf_counter() - t0:.1f} s: projection bytes on the card {on_card} "
+            f"(computed {want}, {want / weights:.4f} bytes a weight; bf16 "
+            f"{projection_bytes(cfg, 'bf16')}), dense leaves {dense}, allocated {alloc} "
+            f"({alloc - on_card - dense} above the leaves)")
         if on_card != want or not 0 <= alloc - on_card - dense <= 2 << 20:
-            fail(f"{fmt} weight bytes on the card: {on_card} (want {want}), allocated {alloc}")
-        name = f"llama3-8b-{fmt}-random"
-        spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, quantize=fmt)
+            fail(f"{label} weight bytes on the card: {on_card} (want {want}), allocated {alloc}")
+        if generic:
+            plain_forward_check(cfg, params, label)
+        name = f"llama3-8b-{label.replace('_', '-')}-random"
+        spec = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, quantize=fmt,
+                         **({"quant_group_size": group} if fmt == "int4" else {}))
         engine, build_s = _build_engine(cfg, params, spec)
         registry = ModelRegistry()
         registry.load(spec, engine=engine)
@@ -5118,9 +5286,9 @@ def quant_phase(card: str) -> dict:
                 async with aiohttp.ClientSession() as session:
                     st, body, _ = await _post(session, port, name, _chat(300, 99))
                     if st != 200:
-                        fail(f"{fmt} warm-up /dialog/ returned {st}: {body}")
+                        fail(f"{label} warm-up /dialog/ returned {st}: {body}")
                     runs = []
-                    for _ in range(6):  # the first counted, all six read
+                    for _ in range(QUANT_RUNS):  # the first counted, all read
                         torch.cuda.synchronize()
                         kernels.reset_counts()
                         forwards[0] = 0
@@ -5155,40 +5323,52 @@ def quant_phase(card: str) -> dict:
             rates += r
         counts, steps, fwd = first["counts"], first["steps"], first["forwards"]
         # a decode step (8 rows) takes 4 stream launches a layer (QKV, wo,
-        # gate/up, down); a prefill forward (past 64 rows) 7 wgmma ones
-        want_dec, want_pre = 4 * cfg.num_layers * steps, 7 * cfg.num_layers * fwd
+        # gate/up, down) and a prefill forward (past 64 rows) 7 wgmma ones;
+        # at group 8 each projection is its own generic launch, 7 a layer
+        per_step = 7 if generic else 4
+        want_dec, want_pre = per_step * cfg.num_layers * steps, 7 * cfg.num_layers * fwd
         want_q = want_dec + want_pre
         routes = first["routes"]
-        log(f"  {fmt} main path on {card}: launches {counts}, by format {first['formats']}, "
+        log(f"  {label} main path on {card}: launches {counts}, by format {first['formats']}, "
             f"by route {routes}; {steps} decode steps, {fwd} prefill forwards: qgemm "
-            f"{counts['qgemm']} (4 x {cfg.num_layers} x {steps} + 7 x {cfg.num_layers} x {fwd} "
-            f"= {want_q})")
+            f"{counts['qgemm']} ({per_step} x {cfg.num_layers} x {steps} + 7 x {cfg.num_layers} "
+            f"x {fwd} = {want_q})")
         if counts["qgemm"] != want_q or first["formats"][fmt] != want_q:
-            fail(f"{fmt}: qgemm launches {counts['qgemm']} != 4 x {cfg.num_layers} x {steps} "
-                 f"steps + 7 x {cfg.num_layers} x {fwd} prefill forwards")
-        if (routes["stream"], routes["wgmma"]) != (want_dec, want_pre) or routes["mma"] or \
+            fail(f"{label}: qgemm launches {counts['qgemm']} != {per_step} x {cfg.num_layers} x "
+                 f"{steps} steps + 7 x {cfg.num_layers} x {fwd} prefill forwards")
+        if generic:
+            if routes["generic"] != want_q or routes["stream"] or routes["wgmma"] or \
+                    routes["mma"] or routes["cuda_core"]:
+                fail(f"{label}: qgemm routes {routes}: want every launch ({want_q}) on the "
+                     f"generic route")
+        elif (routes["stream"], routes["wgmma"]) != (want_dec, want_pre) or routes["mma"] or \
                 routes["cuda_core"] or routes["generic"]:
-            fail(f"{fmt}: qgemm routes {routes}: want every decode launch on the stream kernel "
+            fail(f"{label}: qgemm routes {routes}: want every decode launch on the stream kernel "
                  f"({want_dec}) and every prefill launch on the wgmma kernel ({want_pre})")
         if counts["paged_decode"] != cfg.num_layers * steps or counts["flash_prefill"] <= 0:
-            fail(f"{fmt}: paged or flash launches wrong: {counts}")
+            fail(f"{label}: paged or flash launches wrong: {counts}")
         if counts["sample"] != first["samples"]:
-            fail(f"{fmt}: sampler launches {counts['sample']} != {first['samples']} sampling steps")
+            fail(f"{label}: sampler launches {counts['sample']} != {first['samples']} sampling "
+                 f"steps")
         bits = {"int8": 8, "int4": 4}[fmt]
         gauge = [v for _, lab, v in fams.get("dabt_weight_bits", {}).get("samples", [])
                  if lab.get("model") == name]
         hz = health["generators"][name]["weight_bits"]
-        log(f"  {fmt} weight_bits: /healthz {hz}, /metrics dabt_weight_bits {gauge}; engine "
+        log(f"  {label} weight_bits: /healthz {hz}, /metrics dabt_weight_bits {gauge}; engine "
             f"built in {build_s:.2f} s, graph pool {engine.graph_pool_bytes / 2**20:.1f} MiB")
         if hz != bits or gauge != [float(bits)]:
-            fail(f"{fmt}: weight_bits /healthz {hz}, /metrics {gauge}, want {bits}")
-        log(f"  {fmt} readings over {len(runs)} runs of the four requests [{card}]: TTFT "
+            fail(f"{label}: weight_bits /healthz {hz}, /metrics {gauge}, want {bits}")
+        log(f"  {label} readings over {len(runs)} runs of the four requests [{card}]: TTFT "
             f"{_stat(ttfts)}; decode {_stat(rates, 'tok/s')} per request; run wall "
             f"{_stat([r['wall'] for r in runs])}")
-        decode_breakdown(cfg, params, engine, label=f"{fmt} ")
-        launches[fmt] = {"decode": routes["stream"], "prefill": routes["wgmma"]}
+        replay[label] = decode_breakdown(cfg, params, engine, label=f"{label} ")["replay_ms"]
+        launches[label] = ({"generic": routes["generic"]} if generic else
+                           {"decode": routes["stream"], "prefill": routes["wgmma"]})
         del engine, registry, params, proj
         gc_collect()
+    log(f"  replayed step per token, int4 g8 {replay['int4_g8']:.4f} ms against int8 "
+        f"{replay['int8']:.4f} ms on this card: {replay['int4_g8'] / replay['int8']:.3f}x "
+        f"(int4 g64 {replay['int4']:.4f} ms)")
     return launches
 
 
@@ -5957,7 +6137,7 @@ def main() -> int:
     # each kernel's launches on its own slice's main path: flash, paged
     # decode and the sampler on phase 4's requests, the KNN on phase 6's RAG
     # requests, qgemm on phase 8's requests in its format, its generic route
-    # on phase 3's int4 g=8 decoder, the ANN kernels on phase 9's searches,
+    # on phase 8's int4 g8 engine, the ANN kernels on phase 9's searches,
     # the MoE kernels on phase 10's requests, the paged tree kernel on phase
     # 11's requests, the chunked decode on phase 13's
     for e in entries:
@@ -5976,7 +6156,7 @@ def main() -> int:
         elif e["name"] == "paged_tree_fp8":
             e["launches"] = fp8_counts["tree:mma:e4m3/dequant"]
         elif e["name"] == "qgemm_generic":
-            e["launches"] = generic_launches
+            e["launches"] = q_counts["int4_g8"]["generic"]
         elif e["name"].startswith("qgemm_prefill_"):
             e["launches"] = q_counts[e["name"][len("qgemm_prefill_"):]]["prefill"]
         elif e["name"].startswith("qgemm_"):
@@ -5988,7 +6168,8 @@ def main() -> int:
         f"(phase 11, the first spec run), {json.dumps(fp8_counts)} (phase 12, by form), "
         f"chunked_decode {json.dumps(legacy_counts)} (phase 13, by form), "
         f"qgemm {json.dumps(q_counts)} "
-        f"(phase 8), qgemm generic {generic_launches} (phase 3), {json.dumps(ann_counts)} "
+        f"(phase 8; generic at phase 3's tiny int4 g8 decoder {generic_launches}), "
+        f"{json.dumps(ann_counts)} "
         f"(phase 9), {json.dumps(moe_counts)} (phase 10)")
     log(f"device times taken with CUDA events where torch.profiler saw no kernel records: "
         f"{PROFILER_LOST[0]}")

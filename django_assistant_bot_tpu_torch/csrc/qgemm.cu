@@ -80,16 +80,16 @@
 // on group boundaries and the partials go through the same kind of counter
 // as the direct-load kernel's, so small N fills the card with one launch
 // and replays equal eager calls bit for bit.
-// The f32 route (the small f32 parity models, the tied head too) runs on
-// the CUDA cores in `qgemm_cc_kernel`, one output column a thread, 8 rows of
-// x a block.  The generic route is `qgemm_cc_kernel` too, in bf16: every shape the
-// tensor-core kernels do not take (int4 groups that are not a multiple of 16,
-// in not a multiple of 16, out not a multiple of 8, q or scale off 16 bytes,
-// a tied head whose E or V is off those multiples), element-wise loads with
-// bounds checks.  It is bound by the CUDA cores' FMA rate (2 M K N operations
-// at about 67 TFLOP/s f32, before its re-reads of W from L2), far from the
-// tensor cores' 989 TFLOP/s; no Llama-3 shape takes it, so it is off the main
-// path, there for the groups and widths the JAX package serves.
+// Every other call takes `qgemm_generic_kernel` (below): the f32 route (the
+// small f32 parity models, the tied head too) and the generic route, every
+// bf16 shape the kernels above do not take (int4 groups that are not a
+// multiple of 16, in not a multiple of 16, out not a multiple of 8, q or
+// scale off 16 bytes, a tied head whose E or V is off those multiples).
+// It keeps the stream kernel's grid (equal ranges of granules, one block an
+// SM, split tiles summed in block order) with a `cp.async` ring that takes
+// any alignment, and `mma.sync.m16n8k8` for bf16, so a group of 8 is one
+// product per group and a group boundary inside a step costs one masked
+// product per group it touches.
 //
 // Not done here (later work): a persistent prefill grid, TMA multicast of x
 // across a cluster, and `wgmma` at decode past 32 rows of x.
@@ -1295,84 +1295,685 @@ int launch_stream(StreamArgs& a, int mt, int ctas, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The CUDA-core kernel: the f32 route, and the generic route of every shape
-// the tensor-core kernels do not take.  One output column a thread, 8 rows of
-// x a block, the rows' K values staged in shared memory 64 at a time (as
-// f32); every load is bounds-checked and element-wise, so any M, N, K and
-// any element-aligned pointer will do.  The weight is read as int8 [K, N],
-// packed int4 [K/2, N] with any even group g dividing K (the group's partial
-// flushed every g rows), or, KMAJ, the tied head's int8 [N, K] with no scale.
-// round() is T's rounding (the identity for f32): int8 y = round(round(sum)
-// * round(scale)), int4 y = round(sum_G round(partial_G) * round(scale_G)).
+// The generic kernel (`qgemm_generic_kernel`): every call the tensor-core
+// routes above do not take (int4 groups that are not a multiple of 16, K
+// not a multiple of 16, N not one of 8, x, q or scale off 16 bytes), the f32
+// route (T = float), and the tied head's K-contiguous form (KMAJ) of both.
+// Any M, N, K, any even group dividing K and any element-aligned pointer.
+//
+// The grid is the stream kernel's: the work is one sequence of granules
+// (m tile of 8 MT rows, column tile of 256, 64 rows of K; int4: lcm(64,
+// g) rows, so every range starts on a group boundary), cut into equal
+// ranges, one a block, two blocks an SM up to 16 rows of x where each
+// still takes eight granules (one with the whole ring otherwise), at least
+// two granules a block (``kernels.qgemm_generic_plan`` computes the same).  A tile whose K is cut between blocks sums their f32
+// partials in block order behind a per-tile counter: the same bits every
+// call.
+//
+// Loads: a ring of stages (x's 8 MT rows of 64 columns, the integer rows,
+// int4's scale rows with them), about 64 KB of weights and scales in
+// flight a block.  All eight warps fill a stage by `cp.async`, 16 bytes a
+// copy where the pointer and the row pitch allow it (8 or 4 otherwise,
+// zeros past the edge; a 1- or 2-byte aligned tensor by plain loads).
+// bf16 int4 at groups 2, 4 and 8 with every tensor on 16-byte boundaries
+// (the served shapes) takes TMA instead: one thread, five boxes a stage,
+// edges zero-filled by the copy engine; `cp.async` of the same stages
+// measured ~1.9 TB/s alone at most on an H100 (PERF.md section 6).  Each
+// integer byte and each scale is read from memory once; the scales are
+// rounded to bf16 once a stage, in shared memory.
+//
+// Products (bf16): `mma.sync.m16n8k8`, y^T = W^T x^T as the stream kernel
+// computes it: the dequantized weights are A (16 columns of W a fragment,
+// permuted so that a thread's two A rows are adjacent columns: each warp
+// takes 32 columns, a thread 4 consecutive ones, read as one 32-bit word
+// of a row), x's rows are B (8 a tile, so M = 1-8 wastes no A rows).  An
+// 8-row step that a group boundary cuts (g = 2, 4, 6, the tails of 24 and
+// 40) is issued once per group it touches, with the B rows of the other
+// groups zeroed (the TMA-fed groups 2, 4 and 8 as straight-line code over
+// the stage, template GS); each group's products go to its partial, which is
+// rounded to bf16, times the rounded scale (exact in f32) and added in f32
+// when the group ends: the JAX function's numerics, no rounding skipped.
+// f32 (T = float): the same tiles and fragments, the products as f32 FMAs
+// on the CUDA cores (TF32 would miss the f32 tolerance).
+//
+// What bounds it on the H100: at decode the weight read, 0.5 byte a weight
+// plus 4/g bytes of scale (16.8 MB at 4096 x 4096, g = 8: 5.0 us at 3.35
+// TB/s); at M = 512 the group flush, one round, multiply and add on the
+// CUDA cores per output and group (1.07 G at 4096 x 4096, g = 8, M = 512).
+constexpr int GN_KT = 64;                  // rows of K a stage
+constexpr int GN_BN = 256;                 // output columns of a tile: 8 warps x 32
+constexpr int GN_THREADS = 256;
+constexpr int GN_MAX_STAGES = 8;
+constexpr int GN_RING_BYTES = 64 << 10;    // weights and scales in flight a block slot
+constexpr int GN_MIN_GRANULES = 2;         // granules a block takes at least
+constexpr int GN_DEEP = 8;                 // granules a block at two an SM, at least
+constexpr int GN_SMEM = 232448;            // the most shared memory a block can use
+// shared-memory row pitches (bytes, multiples of 16), padded so that a
+// warp's fragment loads fall in distinct banks: integer rows of int8 [K, N]
+// and packed int4, the K-contiguous table's rows, a scale row
+constexpr int GN_WS8 = GN_BN + 16, GN_WS4 = GN_BN + 32, GN_WSK = GN_KT + 16;
+constexpr int GN_SROW = GN_BN * 4;
+
+template <typename T> struct GnF32 { static constexpr bool value = false; };
+template <> struct GnF32<float> { static constexpr bool value = true; };
+
 template <typename T> __device__ __forceinline__ float round_to(float v) { return v; }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) { return bf16_round(v); }
-__device__ __forceinline__ float as_f32(float v) { return v; }
-__device__ __forceinline__ float as_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_t(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_t(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename T, int BITS, bool KMAJ>
-__global__ void __launch_bounds__(THREADS)
-qgemm_cc_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
-                const float* __restrict__ scale, T* __restrict__ y, int M, int N, int K,
-                int group) {
-  constexpr int KC = 64;
-  __shared__ float xs[8][KC];
-  const int n = blockIdx.x * THREADS + threadIdx.x;
-  const int m0 = blockIdx.y * 8;
-  float acc[8], part[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) acc[r] = part[r] = 0.0f;
-  int left = group;  // rows of K until the int4 group's flush
-  for (int kc = 0; kc < K; kc += KC) {
-    for (int i = threadIdx.x; i < 8 * KC; i += THREADS) {
-      const int r = i / KC, c = i % KC;
-      xs[r][c] = m0 + r < M && kc + c < K ? as_f32(x[(size_t)(m0 + r) * K + kc + c]) : 0.0f;
+struct GnArgs {
+  CUtensorMap tx, tw, ts;  // TMA forms: x [64 x 8 MT], w [128 x 32] (two a stage), scales [128 x srows]
+  const void* x;          // [M, K], T
+  const uint8_t* w;       // int8 [K, N], packed int4 [K/2, N] or (KMAJ) int8 [N, K]
+  const float* scale;     // [1, N] (int8), [K/g, N] (int4), none (KMAJ)
+  void* y;                // [M, N], T
+  float* scratch;         // two slots of 8 MT x 256 f32 a block
+  int* counters;          // one a tile, zero between calls
+  int M, N, K, group;
+  int ntiles;             // column tiles
+  int granule, gcount;    // rows of K a granule, granules a tile
+  int total;              // granules of the launch
+  int stages, srows;      // ring stages; int4: scale rows a stage
+  int lvx, lvw, lvs;      // log2 of the copy width (bytes) of x, w and the scales
+};
+
+// bytes of a stage's x rows, integer rows and scale rows; TMA: x's 128-byte
+// swizzled rows, two swizzled [32 x 128] integer boxes, two scale boxes
+template <typename T, int BITS, bool KMAJ, bool TMA>
+__host__ __device__ inline void gn_sizes(int mt, int srows, int& xb, int& wb, int& sb) {
+  xb = 8 * mt * (GN_KT * (int)sizeof(T) + (TMA ? 0 : 16));
+  wb = TMA ? GN_KT / 2 * GN_BN : KMAJ ? GN_BN * GN_WSK : (BITS == 8 ? GN_KT * GN_WS8 : GN_KT / 2 * GN_WS4);
+  sb = BITS == 4 ? srows * GN_SROW : 0;
+}
+
+struct GnUnit {
+  int m0, n0, k0, k1, gtile, next;
+};
+
+// the unit that starts at granule s of a block whose range ends at s_end
+__device__ __forceinline__ GnUnit gn_unit(const GnArgs& a, int s, int s_end, int bm) {
+  GnUnit u;
+  const int gt = s / a.gcount, g0 = s - gt * a.gcount;
+  const int g1 = min(a.gcount, g0 + (s_end - s));
+  u.m0 = gt / a.ntiles * bm;
+  u.n0 = gt % a.ntiles * GN_BN;
+  u.k0 = g0 * a.granule;
+  u.k1 = min(a.K, g1 * a.granule);
+  u.gtile = gt;
+  u.next = s + (g1 - g0);
+  return u;
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most n of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
+
+// Rows [r0, r0 + R) x bytes [c0, c0 + 2^lcb) of a row-major array (`pitch`
+// bytes a row, nr rows of nc bytes) to shared memory at dst (`ds` bytes a
+// row), in chunks of 2^lv bytes: `cp.async` for 4-16 (zeros past the
+// array's edge), plain byte loads and stores for 1 and 2.
+__device__ __forceinline__ void gn_copy(uint8_t* dst, int ds, const uint8_t* base, long long pitch,
+                                        long long nr, long long nc, long long r0, long long c0,
+                                        int R, int lcb, int lv) {
+  const int v = 1 << lv, lper = lcb - lv;
+  const int n = R << lper;
+  for (int idx = threadIdx.x; idx < n; idx += GN_THREADS) {
+    const int r = idx >> lper, cb = (idx - (r << lper)) << lv;
+    const long long gr = r0 + r, gc = c0 + cb;
+    const int valid = gr < nr && gc < nc ? (int)min((long long)v, nc - gc) : 0;
+    const uint8_t* src = valid ? base + gr * pitch + gc : base;
+    uint8_t* d = dst + r * ds + cb;
+    if (lv >= 2) {
+      const uint32_t sd = smem_u32(d);
+      if (v == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sd), "l"(src), "r"(valid) : "memory");
+      else if (v == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(sd), "l"(src), "r"(valid) : "memory");
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sd), "l"(src), "r"(valid) : "memory");
+    } else {
+      for (int b = 0; b < v; ++b) d[b] = b < valid ? src[b] : 0;
     }
-    __syncthreads();
-    if (n < N) {
-      const int kn = min(KC, K - kc);
-      for (int c = 0; c < kn; ++c) {
-        const int k = kc + c;
-        float wv;
-        if (BITS == 8) {
-          wv = (float)(int8_t)w[KMAJ ? (size_t)n * K + k : (size_t)k * N + n];
-        } else {
-          const uint32_t b = w[(size_t)(k >> 1) * N + n];
-          const int nib = (k & 1) ? (b >> 4) : (b & 15);
-          wv = (float)((nib ^ 8) - 8);
-        }
+  }
+}
+
+// gn_copy of R rows of 2^lcb bytes that lie inside the array, 16 bytes a
+// copy on 16-byte boundaries: no bounds to check
+__device__ __forceinline__ void gn_copy16(uint8_t* dst, int ds, const uint8_t* src, long long pitch,
+                                          int R, int lcb) {
+  const int lper = lcb - 4, n = R << lper;
+  for (int idx = threadIdx.x; idx < n; idx += GN_THREADS) {
+    const int r = idx >> lper, cb = (idx & ((1 << lper) - 1)) << 4;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + r * ds + cb)),
+                 "l"(src + r * pitch + cb)
+                 : "memory");
+  }
+}
+
+// one stage: x's rows of the unit's m tile, K [k0, k0 + 64); the integer
+// rows (or, KMAJ, the tile's table rows) of the same K; int4's scale rows.
+// A box inside its array, every row on a 16-byte boundary, takes gn_copy16.
+template <typename T, int BITS, bool KMAJ, int MT>
+__device__ __forceinline__ void gn_load(const GnArgs& a, uint8_t* stage, int xb, int wb,
+                                        const GnUnit& u, int k0) {
+  constexpr int TS = sizeof(T), XS = GN_KT * TS + 16;
+  const bool inside = u.n0 + GN_BN <= a.N && k0 + GN_KT <= a.K;
+  const uint8_t* x = static_cast<const uint8_t*>(a.x);
+  if (a.lvx == 4 && inside && u.m0 + 8 * MT <= a.M)
+    gn_copy16(stage, XS, x + ((long long)u.m0 * a.K + k0) * TS, (long long)a.K * TS, 8 * MT,
+              TS == 4 ? 8 : 7);
+  else
+    gn_copy(stage, XS, x, (long long)a.K * TS, a.M, (long long)a.K * TS, u.m0, (long long)k0 * TS,
+            8 * MT, TS == 4 ? 8 : 7, a.lvx);
+  uint8_t* ws = stage + xb;
+  const bool wfast = a.lvw == 4 && inside;
+  if constexpr (KMAJ) {
+    if (wfast)
+      gn_copy16(ws, GN_WSK, a.w + (long long)u.n0 * a.K + k0, a.K, GN_BN, 6);
+    else
+      gn_copy(ws, GN_WSK, a.w, a.K, a.N, a.K, u.n0, k0, GN_BN, 6, a.lvw);
+  } else if constexpr (BITS == 8) {
+    if (wfast)
+      gn_copy16(ws, GN_WS8, a.w + (long long)k0 * a.N + u.n0, a.N, GN_KT, 8);
+    else
+      gn_copy(ws, GN_WS8, a.w, a.N, a.K, a.N, k0, u.n0, GN_KT, 8, a.lvw);
+  } else {
+    if (wfast)
+      gn_copy16(ws, GN_WS4, a.w + (long long)(k0 / 2) * a.N + u.n0, a.N, GN_KT / 2, 8);
+    else
+      gn_copy(ws, GN_WS4, a.w, a.N, a.K / 2, a.N, k0 / 2, u.n0, GN_KT / 2, 8, a.lvw);
+  }
+  if constexpr (BITS == 4) {
+    const uint8_t* sc = reinterpret_cast<const uint8_t*>(a.scale);
+    const int g0 = k0 / a.group;
+    if (a.lvs == 4 && inside)  // the rows the stage's groups take (fewer at K's end)
+      gn_copy16(ws + wb, GN_SROW, sc + ((long long)g0 * a.N + u.n0) * 4, (long long)a.N * 4,
+                min(a.srows, a.K / a.group - g0), 10);
+    else
+      gn_copy(ws + wb, GN_SROW, sc, (long long)a.N * 4, a.K / a.group, (long long)a.N * 4, g0,
+              (long long)u.n0 * 4, a.srows, 10, a.lvs);
+  }
+}
+
+// c += a . b, m16n8k8, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// c = a . b, m16n8k8, the accumulator input zero
+__device__ __forceinline__ void mma_k8_zero(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b), "f"(0.0f));
+}
+
+// int4's group flush for a thread's columns nb .. nb + 3: acc += round(part)
+// * scale, the four scales (already rounded to T) at `sp` in the stage
+template <typename T, int MT>
+__device__ __forceinline__ void gn_flush(float (&acc)[2][MT][4], const float (&part)[2][MT][4],
+                                         const uint8_t* sp) {
+  const float4 s4 = *reinterpret_cast<const float4*>(sp);
+  const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
-        for (int r = 0; r < 8; ++r) part[r] = fmaf(xs[r][c], wv, part[r]);
-        if (BITS == 4 && --left == 0) {
-          const float s = round_to<T>(scale[(size_t)(k / group) * N + n]);
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            acc[r] += round_to<T>(part[r]) * s;
-            part[r] = 0.0f;
+    for (int i = 0; i < MT; ++i) {
+      if constexpr (GnF32<T>::value) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][i][e] = fmaf(part[h][i][e], sc[2 * h + (e >> 1)], acc[h][i][e]);
+      } else {
+        add_rounded_pair(acc[h][i][0], acc[h][i][1], part[h][i][0], part[h][i][1], sc[2 * h], sc[2 * h]);
+        add_rounded_pair(acc[h][i][2], acc[h][i][3], part[h][i][2], part[h][i][3], sc[2 * h + 1],
+                         sc[2 * h + 1]);
+      }
+    }
+}
+
+// The A fragments of 8-row step j for a thread's columns nb .. nb + 3: tile
+// a's row g is column nb + 2a, row g + 8 column nb + 2a + 1; the thread's K
+// pair is rows 8j + 2t, 8j + 2t + 1 (low, high half).  Values are exact in bf16.
+template <int BITS, bool KMAJ, bool TMA = false>
+__device__ __forceinline__ void gn_a_frags(const uint8_t* ws, int j, int nb, int t,
+                                           uint32_t (&af)[2][2]) {
+  if constexpr (TMA) {  // int4 in two [32 x 128] boxes, 16-byte chunk c of row p at c ^ (p & 7)
+    const int p = 4 * j + t, c = nb & 127;
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(
+        ws + (nb >> 7) * (GN_KT / 2 * 128) + p * 128 + (((c >> 4) ^ (p & 7)) << 4) + (c & 15));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) af[q >> 1][q & 1] = i4_pair(v, q);
+  } else if constexpr (KMAJ) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t v =
+          *reinterpret_cast<const uint16_t*>(ws + (nb + q) * GN_WSK + 8 * j + 2 * t) ^ 0x8080u;
+      af[q >> 1][q & 1] = pack_bf16(i8_value(v, 0), i8_value(v, 1));
+    }
+  } else if constexpr (BITS == 8) {
+    const uint32_t r0 = *reinterpret_cast<const uint32_t*>(ws + (8 * j + 2 * t) * GN_WS8 + nb) ^ 0x80808080u;
+    const uint32_t r1 = *reinterpret_cast<const uint32_t*>(ws + (8 * j + 2 * t + 1) * GN_WS8 + nb) ^ 0x80808080u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) af[q >> 1][q & 1] = pack_bf16(i8_value(r0, q), i8_value(r1, q));
+  } else {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(ws + (4 * j + t) * GN_WS4 + nb);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) af[q >> 1][q & 1] = i4_pair(v, q);
+  }
+}
+
+// f32: the integer values of step j for a thread's columns nb + q, rows 8j + r
+template <int BITS, bool KMAJ>
+__device__ __forceinline__ void gn_w_values(const uint8_t* ws, int j, int nb, float (&wv)[4][8]) {
+  if constexpr (KMAJ) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint2 v = *reinterpret_cast<const uint2*>(ws + (nb + q) * GN_WSK + 8 * j);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) wv[q][r] = (float)(int8_t)((r < 4 ? v.x : v.y) >> (8 * (r & 3)));
+    }
+  } else if constexpr (BITS == 8) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(ws + (8 * j + r) * GN_WS8 + nb);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wv[q][r] = (float)(int8_t)(v >> (8 * q));
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(ws + (4 * j + p) * GN_WS4 + nb);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int b = (v >> (8 * q)) & 0xFF;
+        wv[q][2 * p] = (float)(((b & 15) ^ 8) - 8);
+        wv[q][2 * p + 1] = (float)(((b >> 4) ^ 8) - 8);
+      }
+    }
+  }
+}
+
+// Block slots an SM: two at M <= 16 (the decode shapes; <= 128 registers a
+// thread), so one block's copies and flushes overlap the other's products.
+__host__ __device__ constexpr int gn_blocks_per_sm(int mt) { return mt <= 2 ? 2 : 1; }
+
+// The blocks an SM runs for a launch of `total` granules: both slots where
+// each block still takes GN_DEEP granules, else one block with the whole
+// ring (a short call's ramp and split tiles cost more than the overlap)
+__host__ inline int gn_blocks_for(int mt, int total, int sms) {
+  return gn_blocks_per_sm(mt) == 2 && total >= 2 * GN_DEEP * sms ? 2 : 1;
+}
+
+// Eight warps, a tile of 8 MT rows x 256 columns, warp w on columns 32 w ..
+// 32 w + 31, thread (g, t) on nb = 32 w + 4 g .. nb + 3.  Fragment element
+// (a, i, e) of acc / part: column nb + 2a + (e >> 1), row 8i + 2t + (e & 1).
+// GS: a bf16 int4 group of 2, 4 or 8 (with TMA), whose stages run as
+// straight-line code (a stage starts on a group boundary; each group's
+// products go to a fresh partial, flushed at once); 0: any other group or
+// alignment, int8, f32.
+template <typename T, int BITS, bool KMAJ, int MT, int GS, bool TMA>
+__global__ void __launch_bounds__(GN_THREADS, gn_blocks_per_sm(MT))
+qgemm_generic_kernel(const __grid_constant__ GnArgs a) {
+  static_assert(GS == 0 || (TMA && BITS == 4 && !GnF32<T>::value), "GS: the TMA-fed bf16 int4 form");
+  constexpr int BM = 8 * MT;
+  constexpr bool F32 = GnF32<T>::value;
+  constexpr int XS = GN_KT * (int)sizeof(T) + 16;
+  extern __shared__ __align__(16) uint8_t gn_raw[];
+  // 1024-byte aligned (the 128-byte swizzle repeats every 1024 bytes)
+  uint8_t* gn_smem = gn_raw + ((1024 - (smem_u32(gn_raw) & 1023)) & 1023);
+  int xb, wb, sb;
+  gn_sizes<T, BITS, KMAJ, TMA>(MT, a.srows, xb, wb, sb);
+  const int stage_bytes = xb + wb + sb, nst = a.stages;
+  // TMA: a full barrier a stage, completed by the copies' bytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(gn_smem + nst * stage_bytes);
+  if (TMA && threadIdx.x == 0) {
+    for (int st = 0; st < nst; ++st) mbar_init(full + st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int ctas = gridDim.x, total = a.total;
+  const int s_begin = st_first(total, ctas, blockIdx.x);
+  const int s_end = st_first(total, ctas, blockIdx.x + 1);
+
+  // the copy cursor runs ahead of the products by nst - 1 stages, across units
+  int is = s_begin;
+  GnUnit iu = gn_unit(a, is, s_end, BM);
+  int ik = iu.k0;
+  auto issue = [&](int slot) {
+    if (is < s_end) {
+      uint8_t* stage = gn_smem + slot * stage_bytes;
+      if constexpr (TMA) {
+        // every box counts whole, the zeros past an edge too
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(full + slot, xb + wb + sb);
+          tma_load_2d(stage, &a.tx, full + slot, ik, iu.m0);
+#pragma unroll
+          for (int ch = 0; ch < 2; ++ch) {
+            tma_load_2d(stage + xb + ch * (wb / 2), &a.tw, full + slot, iu.n0 + 128 * ch, ik / 2);
+            tma_load_2d(stage + xb + wb + ch * (sb / 2), &a.ts, full + slot, iu.n0 + 128 * ch,
+                        ik / a.group);
           }
-          left = group;
+        }
+      } else {
+        gn_load<T, BITS, KMAJ, MT>(a, stage, xb, wb, iu, ik);
+      }
+      ik += GN_KT;
+      if (ik >= iu.k1) {
+        is = iu.next;
+        if (is < s_end) {
+          iu = gn_unit(a, is, s_end, BM);
+          ik = iu.k0;
         }
       }
     }
-    __syncthreads();
-  }
-  if (n >= N) return;
-  const float s8 = BITS == 8 && scale != nullptr ? round_to<T>(scale[n]) : 1.0f;
+    if constexpr (!TMA) cp_async_commit();  // an empty group past the range keeps the count
+  };
+  for (int st = 0; st + 1 < nst; ++st) issue(st);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nb = 32 * warp + 4 * g;
+  constexpr int SLOT = BM * GN_BN;
+  __shared__ int s_last;
+  int cs = 0, phase = 0;  // the ring slot of the next stage and its pass parity
+  for (int s = s_begin; s < s_end;) {
+    const GnUnit u = gn_unit(a, s, s_end, BM);
+    float acc[2][MT][4], part[2][MT][4];  // part: int4's open group
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
-    if (m0 + r < M)
-      store_t(y + (size_t)(m0 + r) * N + n, BITS == 8 ? round_to<T>(part[r]) * s8 : acc[r]);
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][i][e] = part[h][i][e] = 0.0f;
+    int gleft = a.group;                              // int4: rows of the open group to come
+    int grp = BITS == 4 ? u.k0 / a.group : 0;         // and its index
+    for (int k0 = u.k0; k0 < u.k1; k0 += GN_KT) {
+      if constexpr (TMA)
+        mbar_wait(full + cs, phase);
+      else
+        cp_async_wait(nst - 2);
+      __syncthreads();  // and every thread is done with the slot the issue below refills
+      const uint8_t* xs = gn_smem + cs * stage_bytes;
+      const uint8_t* ws = xs + xb;
+      const uint8_t* ss = ws + wb;
+      const int rows = min(GN_KT, u.k1 - k0);
+      const int srow0 = BITS == 4 ? k0 / a.group : 0;  // the stage's first scale row
+      if constexpr (BITS == 4 && !F32) {
+        // the stage's scales rounded to bf16 once, in place, for every flush.
+        // TMA refills the slot through the async proxy, so each writer fences
+        // its writes before the barrier; thread 0, which issues the copies,
+        // writes none (as in csrc/paged_tree.cu).
+        float* sf = reinterpret_cast<float*>(const_cast<uint8_t*>(ss));
+        const int wid = TMA ? (int)threadIdx.x - 1 : (int)threadIdx.x;
+        const int writers = TMA ? GN_THREADS - 1 : GN_THREADS;
+        if (wid >= 0) {
+          for (int i = 4 * wid; i < a.srows * GN_BN; i += 4 * writers) {
+            float4 v = *reinterpret_cast<float4*>(sf + i);
+            v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
+            *reinterpret_cast<float4*>(sf + i) = v;
+          }
+          if constexpr (TMA) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        }
+        __syncthreads();
+      }
+      // the open group ends: acc += round(part) * scale, part = 0
+      auto flush = [&]() {
+        gn_flush<T, MT>(acc, part, ss + (grp - srow0) * GN_SROW + 4 * nb);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[h][i][e] = 0.0f;
+        ++grp;
+        gleft = a.group;
+      };
+      if constexpr (!F32 && (BITS == 8 || GS != 0)) {
+        // every step of the stage, rows past K included (their x, weights
+        // and scales are zeros): no branch between the steps
+#pragma unroll
+        for (int j = 0; j < GN_KT / 8; ++j) {
+          uint32_t af[2][2];
+          gn_a_frags<BITS, KMAJ, TMA>(ws, j, nb, t, af);
+          uint32_t bx[MT];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)  // TMA: 16-byte chunk j of row 8i + g at j ^ g
+            bx[i] = TMA ? *reinterpret_cast<const uint32_t*>(xs + (8 * i + g) * 128 + ((j ^ g) << 4) + 4 * t)
+                        : *reinterpret_cast<const uint32_t*>(xs + (8 * i + g) * XS + 2 * (8 * j + 2 * t));
+          if constexpr (BITS == 8) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) mma_k8(acc[h][i], af[h], bx[i]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 8 / GS; ++q) {  // the step's groups: q's rows 8j + q GS ..
+              const bool keep = 2 * t / GS == q;
+              float p[2][MT][4];
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int i = 0; i < MT; ++i) mma_k8_zero(p[h][i], af[h], keep ? bx[i] : 0u);
+              // the scales in two TMA boxes of [srows x 128]
+              const int row = (8 * j) / GS + q;
+              gn_flush<T, MT>(acc, p, ss + (nb >> 7) * (sb / 2) + row * 512 + 4 * (nb & 127));
+            }
+          }
+        }
+      } else if constexpr (!F32) {
+        // any other group: a step in pieces that end where a group ends;
+        // the thread's K pair (rows kk + 2t, + 1) is in one group (g is even)
+#pragma unroll
+        for (int j = 0; j < GN_KT / 8; ++j) {
+          const int kk = 8 * j;
+          if (kk >= rows) break;
+          uint32_t af[2][2];
+          gn_a_frags<BITS, KMAJ>(ws, j, nb, t, af);
+          uint32_t bx[MT];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            bx[i] = *reinterpret_cast<const uint32_t*>(xs + (8 * i + g) * XS + 2 * (kk + 2 * t));
+          const int end = min(kk + 8, rows), mine = kk + 2 * t;
+          for (int r = kk; r < end;) {
+            const int take = min(gleft, end - r);
+            const bool keep = mine >= r && mine < r + take;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int i = 0; i < MT; ++i) mma_k8(part[h][i], af[h], keep ? bx[i] : 0u);
+            gleft -= take;
+            r += take;
+            if (gleft == 0) flush();
+          }
+        }
+      } else {
+        // f32: the same fragments' outputs as FMAs, a K pair at a time
+#pragma unroll
+        for (int j = 0; j < GN_KT / 8; ++j) {
+          const int kk = 8 * j;
+          if (kk >= rows) break;
+          float wv[4][8];
+          gn_w_values<BITS, KMAJ>(ws, j, nb, wv);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int k = kk + 2 * p;
+            if (k >= rows) break;
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              const float2 x0 = *reinterpret_cast<const float2*>(xs + (8 * i + 2 * t) * XS + 4 * k);
+              const float2 x1 = *reinterpret_cast<const float2*>(xs + (8 * i + 2 * t + 1) * XS + 4 * k);
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float* w2 = wv[2 * h + (e >> 1)] + 2 * p;
+                  const float2 xr = (e & 1) ? x1 : x0;
+                  float& c = BITS == 8 ? acc[h][i][e] : part[h][i][e];
+                  c = fmaf(w2[1], xr.y, fmaf(w2[0], xr.x, c));
+                }
+            }
+            if constexpr (BITS == 4) {
+              gleft -= 2;
+              if (gleft == 0) flush();
+            }
+          }
+        }
+      }
+      issue(cs == 0 ? nst - 1 : cs - 1);  // the slot every thread finished with above
+      cs = cs + 1 == nst ? 0 : cs + 1;
+      phase ^= cs == 0;
+    }
+
+    // Epilogue: the whole tile's sums go to y; a tile cut between blocks
+    // cf..cl goes through the partials, summed in block order by the last.
+    T* y = static_cast<T*>(a.y);
+    auto store = [&](float (&v)[2][MT][4]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = u.m0 + 8 * i + 2 * t + (e & 1), n = u.n0 + nb + 2 * h + (e >> 1);
+            if (m < a.M && n < a.N) {
+              float o = v[h][i][e];
+              if (BITS == 8 && !KMAJ) o = round_to<T>(o) * round_to<T>(__ldg(a.scale + n));
+              store_t(y + (size_t)m * a.N + n, o);
+            }
+          }
+    };
+    const int tile_s = u.gtile * a.gcount;
+    const int cf = st_owner(total, ctas, tile_s), cl = st_owner(total, ctas, tile_s + a.gcount - 1);
+    if (cf == cl) {
+      store(acc);
+    } else {
+      float* p = a.scratch + (size_t)(2 * blockIdx.x + (s == s_begin ? 0 : 1)) * SLOT;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<float4*>(p + (8 * i + 2 * t + e) * GN_BN + nb) =
+              make_float4(acc[0][i][e], acc[0][i][2 + e], acc[1][i][e], acc[1][i][2 + e]);
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        s_last = atomicAdd(a.counters + u.gtile, 1) == cl - cf;
+        if (s_last) a.counters[u.gtile] = 0;  // every split has arrived: ready for the next call
+      }
+      __syncthreads();
+      if (s_last) {
+        __threadfence();
+        float v[2][MT][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[h][i][e] = 0.0f;
+        // the blocks' partials in block order, RB blocks' loaded at a time
+        constexpr int RB = 8 / MT;
+        for (int c0 = cf; c0 <= cl; c0 += RB) {
+          float4 f[RB][MT][2];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const int c = min(c0 + r, cl);
+            // block c's unit of this tile is its first unless its range starts before the tile
+            const float* q = a.scratch + (size_t)(2 * c + (st_first(total, ctas, c) < tile_s ? 1 : 0)) * SLOT;
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                f[r][i][e] = __ldcg(reinterpret_cast<const float4*>(q + (8 * i + 2 * t + e) * GN_BN + nb));
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            if (c0 + r > cl) break;
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                v[0][i][e] += f[r][i][e].x;
+                v[0][i][2 + e] += f[r][i][e].y;
+                v[1][i][e] += f[r][i][e].z;
+                v[1][i][2 + e] += f[r][i][e].w;
+              }
+          }
+        }
+        store(v);
+      }
+    }
+    s = u.next;
+  }
+  if constexpr (!TMA) cp_async_wait(0);
 }
 
-template <typename T, int BITS, bool KMAJ>
-int launch_cc(const void* x, const void* w, const void* scale, void* y, int M, int N, int K,
-              int group, cudaStream_t stream) {
-  dim3 grid((N + THREADS - 1) / THREADS, (M + 7) / 8);
-  qgemm_cc_kernel<T, BITS, KMAJ><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
-      static_cast<T*>(y), M, N, K, group);
+// log2 of the widest copy (16, 8, 4, 2 or 1 bytes) that a base pointer and
+// a row pitch both allow
+int gn_lv(const void* p, long long pitch) {
+  for (int lv = 4; lv > 0; --lv)
+    if ((uintptr_t)p % (1u << lv) == 0 && pitch % (1ll << lv) == 0) return lv;
+  return 0;
+}
+
+template <typename T, int BITS, bool KMAJ, int MT, int GS, bool TMA>
+int launch_generic_t(GnArgs& a, int ctas, int bps, cudaStream_t stream) {
+  int xb, wb, sb;
+  gn_sizes<T, BITS, KMAJ, TMA>(MT, a.srows, xb, wb, sb);
+  const int stage = xb + wb + sb;
+  // GN_RING_BYTES a slot of weights and scales in flight (a block alone on
+  // its SM takes both slots' share), within its share of shared memory
+  const int ring = GN_RING_BYTES * gn_blocks_per_sm(MT) / bps;
+  a.stages = max(2, min(GN_MAX_STAGES, (ring + wb + sb - 1) / (wb + sb)));
+  a.stages = min(a.stages, (GN_SMEM / bps - 2048) / (stage + 8));
+  if (a.stages < 2) return (int)cudaErrorInvalidValue;
+  const int bytes = a.stages * (stage + 8) + 1024;  // the ring, its barriers, the alignment slack
+  auto kernel = qgemm_generic_kernel<T, BITS, KMAJ, MT, GS, TMA>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ctas, GN_THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int BITS, bool KMAJ, int GS, bool TMA = false>
+int launch_generic(GnArgs& a, int mt, int ctas, int bps, cudaStream_t stream) {
+  switch (mt) {
+    case 1: return launch_generic_t<T, BITS, KMAJ, 1, GS, TMA>(a, ctas, bps, stream);
+    case 2: return launch_generic_t<T, BITS, KMAJ, 2, GS, TMA>(a, ctas, bps, stream);
+    case 4: return launch_generic_t<T, BITS, KMAJ, 4, GS, TMA>(a, ctas, bps, stream);
+    case 8: return launch_generic_t<T, BITS, KMAJ, 8, GS, TMA>(a, ctas, bps, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch_generic(GnArgs& a, int bits, int kmajor, int mt, int ctas, int bps, bool tma,
+                     cudaStream_t stream) {
+  if (kmajor) return launch_generic<T, 8, true, 0>(a, mt, ctas, bps, stream);
+  if (bits == 8) return launch_generic<T, 8, false, 0>(a, mt, ctas, bps, stream);
+  if constexpr (!GnF32<T>::value) {  // aligned bf16 groups of 2, 4 and 8: straight-line, TMA-fed
+    if (tma) {
+      if (a.group == 8) return launch_generic<T, 4, false, 8, true>(a, mt, ctas, bps, stream);
+      if (a.group == 4) return launch_generic<T, 4, false, 4, true>(a, mt, ctas, bps, stream);
+      return launch_generic<T, 4, false, 2, true>(a, mt, ctas, bps, stream);
+    }
+  }
+  return launch_generic<T, 4, false, 0>(a, mt, ctas, bps, stream);
 }
 
 template <int BITS, int MT, int WARPS_M>
@@ -1520,28 +2121,74 @@ extern "C" int dabt_qgemm_stream(const void* x, const void* w0, const void* w1, 
   return launch_stream<4, false>(a, mt, ctas, st);
 }
 
-// The CUDA-core route (`qgemm_cc_kernel`): the f32 route, and the generic
-// route of the shapes the tensor-core kernels do not take.  x [M, K] f32
-// (dtype 0) or bf16 (1), y [M, N] of the same type; w int8 [K, N] with
-// scale [N], or packed int4 [K/2, N] with scale [K/group, N] (any even
-// group dividing K), or, kmajor, the tied head's int8 [N, K] with no scale
-// (x already scaled).  Any M, N, K and element-aligned pointers.  Returns
+// The generic route (`qgemm_generic_kernel`): the f32 route, and every bf16
+// call the tensor-core kernels do not take.  x [M, K] f32 (dtype 0) or bf16
+// (1), y [M, N] of the same type; w int8 [K, N] with scale [1, N], or
+// packed int4 [K/2, N] with scale [K/group, N] (any even group dividing
+// K), or, kmajor, the tied head's int8 [N, K] with no scale (x already
+// scaled).  Any M, N, K and element-aligned pointers.  The grid is
+// ceil(granules / ceil(granules / slots)) blocks, slots = sms x the blocks
+// an SM runs (``gn_blocks_for``; ``kernels.qgemm_generic_plan``);
+// scratch holds 2 x blocks x 8 MT x 256 floats (MT = M rounded up to 8,
+// 16, 32 or 64, over 8) and counters one zeroed int per tile (m tiles x
+// column tiles), which every call leaves at zero.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
 // take.
 extern "C" int dabt_qgemm_generic(const void* x, const void* w, const void* scale, void* y,
-                                  int dtype, int bits, int M, int N, int K, int group, int kmajor,
-                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || N < 1 || K < 1 || (dtype != 0 && dtype != 1) || (bits != 8 && bits != 4) ||
-      x == nullptr || w == nullptr || y == nullptr || (!kmajor && scale == nullptr) ||
-      (kmajor && bits != 8) || (bits == 4 && (K % 2 || group < 2 || group % 2 || K % group)))
+                                  void* scratch, void* counters, int dtype, int bits, int M,
+                                  int N, int K, int group, int kmajor, int sms, void* stream) {
+  const int ts = dtype == 0 ? 4 : 2;
+  if (M < 1 || N < 1 || K < 1 || sms < 1 || (dtype != 0 && dtype != 1) || (bits != 8 && bits != 4) ||
+      x == nullptr || w == nullptr || y == nullptr || scratch == nullptr || counters == nullptr ||
+      (!kmajor && scale == nullptr) || (kmajor && bits != 8) ||
+      (bits == 4 && (K % 2 || group < 2 || group % 2 || K % group)) ||
+      ((uintptr_t)x | (uintptr_t)y) % ts || (scale != nullptr && (uintptr_t)scale % 4))
     return (int)cudaErrorInvalidValue;
-  if (kmajor)
-    return dtype == 0 ? launch_cc<float, 8, true>(x, w, nullptr, y, M, N, K, 0, st)
-                      : launch_cc<__nv_bfloat16, 8, true>(x, w, nullptr, y, M, N, K, 0, st);
-  if (dtype == 0)
-    return bits == 8 ? launch_cc<float, 8, false>(x, w, scale, y, M, N, K, group, st)
-                     : launch_cc<float, 4, false>(x, w, scale, y, M, N, K, group, st);
-  return bits == 8 ? launch_cc<__nv_bfloat16, 8, false>(x, w, scale, y, M, N, K, group, st)
-                   : launch_cc<__nv_bfloat16, 4, false>(x, w, scale, y, M, N, K, group, st);
+  const int mt = M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8;
+  GnArgs a;
+  memset(&a, 0, sizeof(a));
+  a.x = x;
+  a.w = static_cast<const uint8_t*>(w);
+  a.scale = static_cast<const float*>(scale);
+  a.y = y;
+  a.scratch = static_cast<float*>(scratch);
+  a.counters = static_cast<int*>(counters);
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.group = bits == 4 ? group : 0;
+  int granule = GN_KT;
+  if (bits == 4)
+    while (granule % group) granule += GN_KT;  // lcm(64, group)
+  a.granule = granule;
+  a.gcount = (K + granule - 1) / granule;
+  a.ntiles = (N + GN_BN - 1) / GN_BN;
+  const long long total = (long long)((M + 8 * mt - 1) / (8 * mt)) * a.ntiles * a.gcount;
+  if (total > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  a.total = (int)total;
+  a.srows = bits == 4 ? wg_scale_rows(group) : 0;
+  a.lvx = gn_lv(x, (long long)K * ts);
+  a.lvw = gn_lv(w, kmajor ? K : N);
+  a.lvs = scale != nullptr ? gn_lv(scale, (long long)N * 4) : 2;
+  // as few blocks as keep the most granules a block at ceil(total / slots),
+  // slots the blocks the SMs run at once, and at least GN_MIN_GRANULES
+  // (fewer partials to sum where the call is small)
+  const int bps = gn_blocks_for(mt, a.total, sms);
+  const int slots = sms * bps;
+  const int per = max(GN_MIN_GRANULES, (a.total + slots - 1) / slots);
+  const int ctas = (a.total + per - 1) / per;
+  // bf16 int4 at groups of 2, 4 and 8 with every tensor on 16-byte
+  // boundaries (TMA's terms): the ring fed by TMA
+  bool tma = dtype == 1 && bits == 4 && !kmajor && (group == 2 || group == 4 || group == 8) &&
+             a.lvx == 4 && a.lvw == 4 && a.lvs == 4;
+  if (tma)
+    tma = tensor_map(&a.tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, GN_KT,
+                     8 * mt, CU_TENSOR_MAP_SWIZZLE_128B) &&
+          tensor_map(&a.tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, N, 128, GN_KT / 2,
+                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE) &&
+          tensor_map(&a.ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N, K / group, (uint64_t)N * 4,
+                     128, a.srows, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_generic<float>(a, bits, kmajor, mt, ctas, bps, false, st);
+  return dispatch_generic<__nv_bfloat16>(a, bits, kmajor, mt, ctas, bps, tma, st);
 }

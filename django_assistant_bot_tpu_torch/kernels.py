@@ -134,8 +134,9 @@ _EXTRA_SYMBOLS = {
         # x, w0-w2, scale0-scale2, y0-y2, n0-n2, members, bits, M, K, group,
         # kmajor, sms, scratch, counters, stream
         "dabt_qgemm_stream": ([_P] * 10 + [_I] * 10 + [_P] * 3, ctypes.c_int),
-        # x, w, scale, y, dtype, bits, M, N, K, group, kmajor, stream
-        "dabt_qgemm_generic": ([_P] * 4 + [_I] * 7 + [_P], ctypes.c_int),
+        # x, w, scale, y, scratch, counters, dtype, bits, M, N, K, group,
+        # kmajor, sms, stream
+        "dabt_qgemm_generic": ([_P] * 6 + [_I] * 8 + [_P], ctypes.c_int),
     },
 }
 
@@ -166,8 +167,8 @@ QGEMM_FORMATS: Dict[str, int] = {"int8": 0, "int4": 0}
 # and by route (:func:`qgemm_route`): "stream" (the decode kernel, M <= 64,
 # one launch for up to three members; also the tied int8 head), "mma" (the
 # direct-load kernel: where TMA cannot take N or a pointer), "wgmma" (the
-# prefill kernel), "cuda_core" (f32), "generic" (the CUDA-core kernel on the
-# shapes no other route takes)
+# prefill kernel), "cuda_core" (f32, the generic kernel's CUDA-core form),
+# "generic" (the generic kernel on the shapes no other route takes)
 QGEMM_ROUTES: Dict[str, int] = {"stream": 0, "mma": 0, "wgmma": 0, "cuda_core": 0, "generic": 0}
 # the grouped expert GEMM's launches by route and epilogue,
 # "<route>:<epilogue>", as PAGED_FORMS: the route (:func:`moe_gemm_plan`)
@@ -249,6 +250,17 @@ QGEMM_STREAM_KT = 64
 QGEMM_STREAM_BN = 256
 QGEMM_STREAM_MAX_M = 64
 QGEMM_STREAM_PARTIAL_FLOATS = 1 << 23
+# the generic route (qgemm_generic_kernel): rows of K a stage (a granule of
+# int8 work), output columns a tile, rows of x a tile at most
+QGEMM_GENERIC_KT = 64
+QGEMM_GENERIC_BN = 256
+QGEMM_GENERIC_BM = 64
+# a generic launch runs two blocks an SM up to 16 rows of x where each
+# still takes QGEMM_GENERIC_DEEP granules, else one (gn_blocks_for)
+QGEMM_GENERIC_DEEP = 8
+# granules a generic block takes at least (GN_MIN_GRANULES): a small call's
+# tiles are cut between fewer blocks, fewer partials to sum
+QGEMM_GENERIC_MIN_GRANULES = 2
 
 # split-K scratch per (kernel, device, stream): (f32 partials, int32
 # counters); the counters start at zero and every call leaves them at zero
@@ -681,13 +693,15 @@ def qgemm_tiles(M: int, N: int, mt: int, warps_m: int) -> int:
 def qgemm_route(dtype: torch.dtype, M: int, N: int, K: int, group: int, *,
                 qs_aligned: bool = True, aligned: bool = True) -> str:
     """The route of a qgemm call ``[M, K] . [K, N]`` (``group`` 0: int8,
-    else int4 at that group); ``qs_aligned``: q and scale on 16-byte
-    boundaries, ``aligned``: x, q, scale and out all are.  K not a multiple
-    of 16, N not one of 8, an int4 group not one of 16, or q or scale off 16
-    bytes: ``"generic"``.  Otherwise f32 ``"cuda_core"``; bf16 with N a
-    multiple of 16 and every tensor aligned (TMA's terms) ``"stream"`` up to
-    ``QGEMM_STREAM_MAX_M`` rows and ``"wgmma"`` past them; other bf16 calls
-    ``"mma"``."""
+    else int4 at that group); ``qs_aligned``: x, q and scale on 16-byte
+    boundaries (the direct-load kernel reads x 8 bytes at a time),
+    ``aligned``: out too.  K not a multiple of 16, N not one of 8, an int4
+    group not one of 16, or x, q or scale off 16 bytes: ``"generic"`` (the
+    generic kernel, :func:`qgemm_generic`: tensor cores in bf16, CUDA
+    cores in f32).  Otherwise f32 ``"cuda_core"`` (the same kernel's f32
+    form); bf16 with N a multiple of 16 and every tensor aligned (TMA's
+    terms) ``"stream"`` up to ``QGEMM_STREAM_MAX_M`` rows and ``"wgmma"``
+    past them; other bf16 calls ``"mma"``."""
     if K % 16 or N % 8 or (group and group % 16) or not qs_aligned:
         return "generic"
     if dtype == torch.float32:
@@ -701,7 +715,7 @@ def qgemm_tied_route(dtype: torch.dtype, V: int, E: int, *, aligned: bool = True
     """The route of the tied int8 head over a ``[V, E]`` table (``aligned``:
     x and the table on 16-byte boundaries): bf16 with E a multiple of 16 and
     V of 8 the stream kernel's K-contiguous form; f32 with E a multiple of
-    16 ``"cuda_core"``; anything else ``"generic"`` (both the CUDA-core
+    16 ``"cuda_core"``; anything else ``"generic"`` (both the generic
     kernel's K-contiguous form)."""
     if E % 16 == 0 and aligned:
         if dtype == torch.bfloat16 and V % 8 == 0:
@@ -723,15 +737,15 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tens
     N]`` (``scale`` per ``group`` rows and column), every tensor contiguous,
     x and out in one type.  :func:`qgemm_route` picks the kernel
     (``QGEMM_ROUTES`` counts which): the stream kernel
-    (:func:`qgemm_stream`), the wgmma or the direct-load kernel, the f32
-    CUDA-core one, or the generic route (:func:`qgemm_generic`).  A bf16
+    (:func:`qgemm_stream`), the wgmma or the direct-load kernel, or the
+    generic kernel (:func:`qgemm_generic`: the f32 and generic routes).  A
     call that splits K takes its f32 partials and counters from the
     per-(device, stream) scratch, like paged decode."""
     M, K = x.shape
     N = out.shape[1]
     bits = 4 if group else 8
-    qs_aligned = not _misaligned(q, scale)
-    tma = qs_aligned and not _misaligned(x, out)
+    qs_aligned = not _misaligned(x, q, scale)
+    tma = qs_aligned and not _misaligned(out)
     route = qgemm_route(x.dtype, M, N, K, group, qs_aligned=qs_aligned, aligned=tma)
     if route == "stream":
         qgemm_stream(x, [q], [scale], [out], group=group)
@@ -760,21 +774,29 @@ def qgemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out: torch.Tens
 def qgemm_generic(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
                   out: torch.Tensor, *, group: int, kmajor: bool = False,
                   route: str = "generic") -> None:
-    """One launch of the CUDA-core kernel (``qgemm_cc_kernel`` of
-    ``csrc/qgemm.cu``): ``out = x . W`` for any shape, with ``w`` int8
-    ``[K, N]``, packed int4 ``[K/2, N]`` at any even ``group`` dividing K,
-    or (``kmajor``) the tied head's int8 ``[N, K]`` with no scale;
-    contiguous tensors, x and out f32 or bf16.  Counted under ``route``:
-    ``"cuda_core"`` for f32 at the shapes the tensor-core kernels take,
-    ``"generic"`` for the rest."""
+    """One launch of the generic kernel (``qgemm_generic_kernel`` of
+    ``csrc/qgemm.cu``): ``out = x . W`` for any shape and element-aligned
+    tensors, with ``w`` int8 ``[K, N]``, packed int4 ``[K/2, N]`` at any
+    even ``group`` dividing K, or (``kmajor``) the tied head's int8 ``[N,
+    K]`` with no scale; contiguous tensors, x and out f32 (CUDA-core FMAs)
+    or bf16 (tensor cores).  Its grid is :func:`qgemm_generic_plan`'s; the
+    split tiles' partials and counters come from the per-(device, stream)
+    scratch.  Counted under ``route``: ``"cuda_core"`` for f32 at the
+    shapes the tensor-core kernels take, ``"generic"`` for the rest."""
     M, K = x.shape
     N = out.shape[1]
     bits = 4 if group else 8
+    sms = _sm_count(x.device.index)
+    mt, mtiles, ntiles, _, _, _, _, ctas = _generic_grid(M, N, K, bits, group, sms)
+    stream = _stream(x)
     _fn("qgemm")
     with torch.cuda.device(x.device):
+        scratch, counters = _scratch_buffers("qgemm", x.device, stream,
+                                             2 * ctas * 8 * mt * QGEMM_GENERIC_BN, mtiles * ntiles)
         err = _libs["qgemm"].dabt_qgemm_generic(
             x.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
-            out.data_ptr(), dtype_code(x.dtype), bits, M, N, K, group, int(kmajor), _stream(x),
+            out.data_ptr(), scratch.data_ptr(), counters.data_ptr(), dtype_code(x.dtype), bits,
+            M, N, K, group, int(kmajor), sms, stream,
         )
     _count("qgemm", f"int{bits}", route)
     _check("qgemm", err)
@@ -829,8 +851,34 @@ def qgemm_stream_plan(M: int, Ns: tuple, K: int, bits: int, group: int,
     granule = math.lcm(QGEMM_STREAM_KT, group) if bits == 4 else QGEMM_STREAM_KT
     gcount = -(-K // granule)
     tiles = tuple(-(-n // QGEMM_STREAM_BN) for n in Ns)
-    total = sum(tiles) * gcount
-    per = -(-total // sms)  # the most granules a block takes
+    total, ctas, ranges = _granule_ranges(sum(tiles) * gcount, gcount, sms)
+    units = []
+    for mine in ranges:
+        out = []
+        for gt, g0, g1, slot, splits in mine:
+            member, t = 0, gt
+            while t >= tiles[member]:
+                t -= tiles[member]
+                member += 1
+            out.append(StreamUnit(member, t, g0 * granule, min(K, g1 * granule), slot, splits))
+        units.append(tuple(out))
+    return StreamPlan(mt, granule, gcount, tiles, total, ctas, tuple(units),
+                      2 * ctas * 8 * mt * QGEMM_STREAM_BN)
+
+
+def _granule_ranges(total: int, gcount: int, sms: int, least: int = 1) -> tuple:
+    """The split of ``total`` granules (tiles of ``gcount`` each, in order)
+    between blocks that the stream and generic kernels share (``st_first``,
+    ``st_owner`` in ``csrc/qgemm.cu``): ``(total, ctas, ranges)``, ``ctas``
+    the fewest blocks that keep a block's share at ``ceil(total / sms)``,
+    block ``c`` taking granules ``[c total // ctas, (c + 1) total //
+    ctas)`` (at least ``least`` granules a block while there are enough),
+    cut where a tile ends into ``(tile, g0, g1, slot, splits)``:
+    granules ``[g0, g1)`` of the tile, ``splits`` the blocks its K is cut
+    between, ``slot`` the f32 partial the block writes (-1: the block owns
+    the whole tile; a block's first unit writes ``2c``, its last ``2c +
+    1``), summed in block order by the last block to finish."""
+    per = max(least, -(-total // sms))  # the most granules a block takes
     ctas = -(-total // per)
 
     def first(c):
@@ -839,23 +887,92 @@ def qgemm_stream_plan(M: int, Ns: tuple, K: int, bits: int, group: int,
     def owner(s):
         return ((s + 1) * ctas - 1) // total
 
-    units = []
+    ranges = []
     for c in range(ctas):
         s, end, mine = first(c), first(c + 1), []
         while s < end:
             gt, g0 = divmod(s, gcount)
             g1 = min(gcount, g0 + end - s)
-            member, t = 0, gt
-            while t >= tiles[member]:
-                t -= tiles[member]
-                member += 1
             cf, cl = owner(gt * gcount), owner(gt * gcount + gcount - 1)
-            mine.append(StreamUnit(member, t, g0 * granule, min(K, g1 * granule),
-                                   -1 if cf == cl else 2 * c + (s != first(c)), cl - cf + 1))
+            mine.append((gt, g0, g1, -1 if cf == cl else 2 * c + (s != first(c)), cl - cf + 1))
             s += g1 - g0
-        units.append(tuple(mine))
-    return StreamPlan(mt, granule, gcount, tiles, total, ctas, tuple(units),
-                      2 * ctas * 8 * mt * QGEMM_STREAM_BN)
+        ranges.append(tuple(mine))
+    return total, ctas, tuple(ranges)
+
+
+class GenericUnit(NamedTuple):
+    """One unit of a generic-route block: rows ``[m0, m0 + bm)`` of x
+    (``mtile``), columns of column tile ``ntile``, rows ``[k0, k1)`` of K;
+    ``slot`` and ``splits`` as :class:`StreamUnit`'s."""
+
+    mtile: int
+    ntile: int
+    k0: int
+    k1: int
+    slot: int
+    splits: int
+
+
+class GenericPlan(NamedTuple):
+    """A generic-route launch (``qgemm_generic_kernel``): ``mt`` m-tiles of
+    8 rows of x a tile (``mtiles`` tiles along M, ``ntiles`` of
+    ``QGEMM_GENERIC_BN`` columns along N), K in granules of ``granule`` rows
+    (``gcount`` a tile), ``total`` granules, ``ctas`` blocks, each block's
+    units in order, the f32 partial floats its scratch holds (two slots a
+    block) and, int4, the scale rows a 64-row stage reads."""
+
+    mt: int
+    mtiles: int
+    ntiles: int
+    granule: int
+    gcount: int
+    total: int
+    ctas: int
+    units: tuple
+    partial_floats: int
+    srows: int
+
+
+def _scale_rows(group: int, kt: int = QGEMM_GENERIC_KT) -> int:
+    """The scale rows a ``kt``-row stage touches at most when ranges start on
+    group boundaries (``wg_scale_rows`` in ``csrc/qgemm.cu``)."""
+    return max(((kt * t) % group + kt - 1) // group + 1 for t in range(group))
+
+
+def _generic_grid(M: int, N: int, K: int, bits: int, group: int, sms: int) -> tuple:
+    """A generic-route launch's grid, in a few operations (``dabt_qgemm_generic``'s
+    arithmetic): ``(mt, mtiles, ntiles, granule, gcount, total, bps, ctas)``,
+    as :func:`qgemm_generic_plan` documents them, ``bps`` the blocks an SM."""
+    mt = next(t for t in (1, 2, 4, 8) if 8 * t >= min(M, QGEMM_GENERIC_BM))
+    granule = math.lcm(QGEMM_GENERIC_KT, group) if bits == 4 else QGEMM_GENERIC_KT
+    gcount = -(-K // granule)
+    mtiles, ntiles = -(-M // (8 * mt)), -(-N // QGEMM_GENERIC_BN)
+    total = mtiles * ntiles * gcount
+    bps = 2 if mt <= 2 and total >= 2 * QGEMM_GENERIC_DEEP * sms else 1
+    per = max(QGEMM_GENERIC_MIN_GRANULES, -(-total // (sms * bps)))
+    return mt, mtiles, ntiles, granule, gcount, total, bps, -(-total // per)
+
+
+@functools.lru_cache(maxsize=256)
+def qgemm_generic_plan(M: int, N: int, K: int, bits: int, group: int,
+                       sms: int = 132) -> GenericPlan:
+    """The work of one generic-route launch (the same arithmetic as
+    ``dabt_qgemm_generic`` and ``gn_unit`` in ``csrc/qgemm.cu``): tiles of
+    ``8 mt`` rows of x (M rounded up to 8, 16, 32 or 64; past 64 rows, tiles
+    of 64) by ``QGEMM_GENERIC_BN`` columns, m tile outer, each tile's K cut
+    into granules of ``QGEMM_GENERIC_KT`` rows (int4: lcm with the group, so
+    every range starts on a group boundary), split between blocks as
+    :func:`_granule_ranges` splits them over the blocks the ``sms`` SMs run
+    at once (two an SM up to 16 rows where each block still takes
+    ``QGEMM_GENERIC_DEEP`` granules, else one), at least
+    ``QGEMM_GENERIC_MIN_GRANULES`` a block."""
+    mt, mtiles, ntiles, granule, gcount, total, bps, _ = _generic_grid(M, N, K, bits, group, sms)
+    _, ctas, ranges = _granule_ranges(total, gcount, sms * bps, QGEMM_GENERIC_MIN_GRANULES)
+    units = tuple(tuple(GenericUnit(gt // ntiles, gt % ntiles, g0 * granule,
+                                    min(K, g1 * granule), slot, splits)
+                        for gt, g0, g1, slot, splits in mine) for mine in ranges)
+    return GenericPlan(mt, mtiles, ntiles, granule, gcount, total, ctas, units,
+                       2 * ctas * 8 * mt * QGEMM_GENERIC_BN, _scale_rows(group) if bits == 4 else 0)
 
 
 @functools.lru_cache(maxsize=16)
@@ -897,7 +1014,7 @@ def qgemm_tied(xs: torch.Tensor, q: torch.Tensor, out: torch.Tensor) -> None:
     """The tied int8 head: ``out[M, V] = xs[M, E] . q[V, E]^T``, ``xs``
     already scaled per E (``ops.quant.tied_head``, which validated the
     arguments).  :func:`qgemm_tied_route` picks the stream route's
-    K-contiguous form (bf16, 64 rows of x a launch) or the CUDA-core
+    K-contiguous form (bf16, 64 rows of x a launch) or the generic
     kernel's (f32, or a bf16 E or V off the stream form's multiples)."""
     M, K = xs.shape
     route = qgemm_tied_route(xs.dtype, q.shape[0], K, aligned=not _misaligned(xs, q))

@@ -41,6 +41,7 @@ from django_assistant_bot_tpu_torch.ops.quant import (
     qeinsum_group,
     qeinsum_plain,
     qgemm_bf16_bound,
+    quantize_tensor_int4,
     tied_head,
     tied_head_bf16_bound,
     to_kv_dtype,
@@ -1190,35 +1191,112 @@ def test_qgemm_kernel_refuses_what_it_does_not_take():
 
 
 # the shapes the tensor-core routes do not take (ROADMAP Queue 3 entry 7):
-# (M, K, N, fmt, group)
-GENERIC_SHAPES = [(M, K, N, fmt, g) for M in (8, 512) for K, N, fmt, g in (
-    (4096, 4096, "int4", 8), (4096, 4096, "int4", 4), (48, 40, "int4", 24), (40, 44, "int8", 0),
-    (256, 512, "int4", 2))]
+# (K, N, fmt, group): int4 groups of 8, 4 (quant_group_size 6 packs at 4
+# at in 4096), 2, 6, 24 and 40 (K off 64 and off 16 too), int8 with K off
+# 16 and N off 8
+GENERIC_WEIGHTS = [(4096, 4096, "int4", 8), (4096, 4096, "int4", 4), (256, 512, "int4", 2),
+                   (96, 64, "int4", 6), (48, 40, "int4", 24), (4104, 1024, "int4", 24),
+                   (80, 48, "int4", 40), (4000, 4096, "int4", 40), (40, 44, "int8", 0)]
+# and Llama-3-8B's four projections at int4 g 8 at a decode step's rows of x
+# (1-16: gate / up and down take two blocks an SM) and a prefill chunk's
+GENERIC_SHAPES = list(dict.fromkeys(
+    [(M, K, N, fmt, g) for M in (1, 8, 33, 64, 65, 512) for K, N, fmt, g in GENERIC_WEIGHTS]
+    + [(M, K, N, "int4", 8) for M in (1, 8, 16, 512)
+       for K, N in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))]))
+
+
+def _assert_generic_repeat(x, w, out, dtype):
+    """One launch on ``"generic"`` per call, and a repeat equal bit for bit
+    (the split tiles' partials sum in block order)."""
+    kernels.reset_counts()
+    again = qeinsum("me,eo->mo", x, w, dtype)
+    torch.cuda.synchronize()
+    assert kernels.QGEMM_ROUTES["generic"] == 1 == kernels.launch_counts()["qgemm"]
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("M,K,N,fmt,g", GENERIC_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_qgemm_generic_route_matches_plain(M, K, N, fmt, g, dtype):
-    """The generic route (``qgemm_cc_kernel``) at int4 groups of 2 / 4 / 8
-    / 24 and widths off 16 and 8: within the plain twin's tolerance
-    (``qgemm_bf16_bound`` in bf16, summation order in f32), one launch
-    counted on ``"generic"``, bitwise on a repeat."""
+    """The generic route (``qgemm_generic_kernel``) at int4 groups of 2 / 4
+    / 6 / 8 / 24 / 40 and widths off 16 and 8: within the plain twin's
+    tolerance (``qgemm_bf16_bound`` in bf16, summation order in f32), one
+    launch counted on ``"generic"``, bitwise on a repeat."""
     kernels.reset_counts()
     x, w, out = _check_qgemm(M, K, N, fmt, g, dtype, seed=4)
     assert kernels.QGEMM_ROUTES["generic"] == 1 == kernels.launch_counts()["qgemm"]
-    assert torch.equal(out, qeinsum("me,eo->mo", x, w, dtype))
+    _assert_generic_repeat(x, w, out, dtype)
 
 
-@pytest.mark.parametrize("V,E", [(1000, 40), (1001, 64)])
+def _offset(t, nbytes):
+    """A contiguous copy of ``t`` whose data starts ``nbytes`` past a
+    16-byte boundary (a view into a larger buffer)."""
+    pad = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + pad + 16, dtype=t.dtype, device=t.device)
+    view = buf[pad:pad + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == nbytes
+    return view
+
+
+@pytest.mark.parametrize("M", [1, 8, 65, 512])
+@pytest.mark.parametrize("what", ["q", "scale", "x"])
+@pytest.mark.parametrize("fmt,g", [("int8", 0), ("int4", 64), ("int4", 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qgemm_generic_route_takes_misaligned_tensors(M, what, fmt, g, dtype):
+    """q at a 2-byte offset, the scale at 4 bytes (one f32) or x at one
+    element past a 16-byte boundary (views into larger buffers, as a slice
+    leaves them): the call takes the generic route and meets the plain
+    twin's tolerance, bitwise on a repeat."""
+    K, N = 1024, 512
+    w = _qweight(K, N, fmt, g, seed=9)
+    x = torch.randn((M, K), generator=torch.Generator(device="cuda").manual_seed(9),
+                    device="cuda").to(dtype)
+    if what == "q":
+        w = type(w)(_offset(w.q, 2), w.scale)
+    elif what == "scale":
+        w = type(w)(w.q, _offset(w.scale, 4))
+    else:
+        x = _offset(x, x.element_size())
+    kernels.reset_counts()
+    out = qeinsum("me,eo->mo", x, w, dtype)
+    ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.QGEMM_ROUTES["generic"] == 1 == kernels.launch_counts()["qgemm"]
+    if dtype == torch.bfloat16:
+        bound = qgemm_bf16_bound(x.float(), w, ref)
+    else:
+        bound = F32_TOL * torch.matmul(x.abs(), deq(w, torch.float32).abs()) + 1e-6
+    err = (out.float() - ref).abs()
+    assert bool((err <= bound).all()), (err / bound).max().item()
+    _assert_generic_repeat(x, w, out, dtype)
+
+
+def test_qgemm_generic_group_6_packs_at_4_and_matches_plain():
+    """``quant_group_size=6`` at in 4096 packs at 4 (``_int4_group``); the
+    packed weight runs on the generic route within the bf16 bound."""
+    gen = torch.Generator().manual_seed(6)
+    w = quantize_tensor_int4(torch.randn((4096, 1024), generator=gen), 6).to("cuda")
+    assert w.group_size == 4
+    x = torch.randn((8, 4096), generator=gen).to(torch.bfloat16).cuda()
+    kernels.reset_counts()
+    out = qeinsum("me,eo->mo", x, w, torch.bfloat16)
+    ref = qeinsum_plain("me,eo->mo", x.float(), w, torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.QGEMM_ROUTES["generic"] == 1
+    assert bool(((out.float() - ref).abs() <= qgemm_bf16_bound(x.float(), w, ref)).all())
+
+
+@pytest.mark.parametrize("V,E", [(1000, 40), (1001, 64), (128256, 4040)])
 def test_tied_head_generic_route_matches_plain(V, E):
     """A tied int8 table whose E is off 16 (or, in bf16, V off 8) takes the
     generic route's K-contiguous form, within the int8 bound (bf16) or 1e-4
-    of |xs| . |q|^T (f32)."""
+    of |xs| . |q|^T (f32), bitwise on a repeat."""
     gen = torch.Generator().manual_seed(V)
     w = QTensor(torch.randint(-127, 128, (V, E), generator=gen, dtype=torch.int8).cuda(),
                 (torch.exp(torch.rand((1, E), generator=gen) * 4.6) * 1e-3).cuda())
     for dtype in (torch.bfloat16, torch.float32):
-        for M in (8, 512):
+        for M in (1, 8, 65, 512):
             x = torch.randn((M, E), generator=gen).to(dtype).cuda()
             kernels.reset_counts()
             out = tied_head(x, w, dtype)
@@ -1234,6 +1312,7 @@ def test_tied_head_generic_route_matches_plain(V, E):
             else:
                 bound = F32_TOL * (xs.abs() @ w.q.float().abs().T) + 1e-6
             assert bool((err <= bound).all()), (err / bound).max().item()
+            assert torch.equal(out, tied_head(x, w, dtype))
 
 
 # ------------------------------------------------------------------ sampler

@@ -215,6 +215,152 @@ def test_tied_int8_engine_greedy_ids_identical_to_jax_engine():
     assert out[0] == out[1]
 
 
+# ------------------------------------------------------------- generic route
+# (K, N): Llama-3-8B's projections, K off 64 and off 16 (groups 24 and 40),
+# the card tests' small widths
+_GENERIC_KN = [(4096, 4096), (4096, 1024), (14336, 4096), (4104, 1024), (4000, 4096),
+               (96, 64), (48, 40), (40, 44), (256, 512)]
+
+
+def _generic_plans():
+    for K, N in _GENERIC_KN:
+        for bits, g in [(8, 0)] + [(4, g) for g in (2, 4, 6, 8, 24, 40)]:
+            if g and K % g:
+                continue
+            for M in (1, 8, 33, 64, 65, 512):
+                for sms in (132, 7):
+                    yield M, N, K, bits, g, sms
+
+
+GENERIC_PLANS = list(_generic_plans())
+
+
+@pytest.mark.parametrize("M,N,K,bits,g,sms", GENERIC_PLANS)
+def test_generic_plan_covers_every_row_once_on_group_boundaries(M, N, K, bits, g, sms):
+    """Every (tile, row of K) of the generic kernel's launch is one unit's,
+    exactly once, each range starting on a granule and so a group boundary
+    (lcm(64, g) rows; K's end may cut the last granule)."""
+    plan = kernels.qgemm_generic_plan(M, N, K, bits, g, sms)
+    assert 8 * plan.mt >= min(M, kernels.QGEMM_GENERIC_BM) and plan.mt in (1, 2, 4, 8)
+    assert plan.granule % kernels.QGEMM_GENERIC_KT == 0 and plan.granule % (g or 1) == 0
+    assert (plan.mtiles, plan.ntiles) == (-(-M // (8 * plan.mt)),
+                                          -(-N // kernels.QGEMM_GENERIC_BN))
+    covered = {}
+    for units in plan.units:
+        assert units  # no block is idle
+        for u in units:
+            assert 0 <= u.k0 < u.k1 <= K and u.k0 % plan.granule == 0 and u.k0 % (g or 1) == 0
+            assert u.k1 % plan.granule == 0 or u.k1 == K
+            covered.setdefault((u.mtile, u.ntile), []).append((u.k0, u.k1))
+    assert set(covered) == {(m, n) for m in range(plan.mtiles) for n in range(plan.ntiles)}
+    for ranges in covered.values():
+        ranges.sort()
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("M,N,K,bits,g,sms", GENERIC_PLANS)
+def test_generic_plan_stays_within_the_sm_budget_and_balances(M, N, K, bits, g, sms):
+    """The blocks the SMs run at once (two an SM up to 16 rows where each
+    still takes eight granules, else one), no more, each taking the same
+    granules to within one (and at least two while there are enough);
+    int4's scale rows a stage cover the groups any 64-row stage touches."""
+    plan = kernels.qgemm_generic_plan(M, N, K, bits, g, sms)
+    two = plan.mt <= 2 and plan.total >= 2 * kernels.QGEMM_GENERIC_DEEP * sms
+    budget = sms * (2 if two else 1)
+    per = max(kernels.QGEMM_GENERIC_MIN_GRANULES, -(-plan.total // budget))
+    assert plan.ctas == -(-plan.total // per) <= budget and len(plan.units) == plan.ctas
+    assert plan.total == plan.mtiles * plan.ntiles * plan.gcount
+    granules = [sum(-(-(u.k1 - u.k0) // plan.granule) for u in units) for units in plan.units]
+    assert sum(granules) == plan.total
+    assert all(abs(n - plan.total / plan.ctas) < 1 for n in granules)
+    if bits == 4:
+        kt = kernels.QGEMM_GENERIC_KT
+        touched = max((k0 + kt - 1) // g - k0 // g + 1
+                      for k0 in range(0, plan.granule, kt))
+        assert plan.srows == touched
+    else:
+        assert plan.srows == 0
+
+
+@pytest.mark.parametrize("M,N,K,bits,g,sms", GENERIC_PLANS)
+def test_generic_plan_slots_and_counters_follow_the_kernels_numbering(M, N, K, bits, g, sms):
+    """A tile cut between blocks cf..cl: consecutive blocks in K order, one
+    partial slot each, block c's ``2c + (c's range starts before the
+    tile)`` (how ``qgemm_generic_kernel``'s last block finds them), within
+    the scratch the wrapper sizes (two slots of 8 mt x 256 floats a block);
+    one counter a tile."""
+    plan = kernels.qgemm_generic_plan(M, N, K, bits, g, sms)
+    assert plan.partial_floats == 2 * plan.ctas * 8 * plan.mt * kernels.QGEMM_GENERIC_BN
+    first = [c * plan.total // plan.ctas for c in range(plan.ctas)]
+    by_tile, slots = {}, set()
+    for c, units in enumerate(plan.units):
+        split = [u for u in units if u.slot >= 0]
+        assert len(split) <= 2 and all(u in (units[0], units[-1]) for u in split)
+        for u in units:
+            by_tile.setdefault((u.mtile, u.ntile), []).append((c, u))
+    assert len(by_tile) == plan.mtiles * plan.ntiles  # the counters the wrapper allocates
+    for (mtile, ntile), owners in by_tile.items():
+        tile_s = (mtile * plan.ntiles + ntile) * plan.gcount
+        cs = [c for c, _ in owners]
+        assert cs == list(range(cs[0], cs[-1] + 1))
+        assert [u.k0 for _, u in owners] == sorted(u.k0 for _, u in owners)
+        for c, u in owners:
+            assert u.splits == len(owners)
+            if len(owners) == 1:
+                assert u.slot == -1
+            else:
+                assert u.slot == 2 * c + (first[c] < tile_s) and u.slot not in slots
+                slots.add(u.slot)
+    assert all(0 <= s < 2 * plan.ctas for s in slots)
+
+
+@pytest.mark.parametrize("M,N,K,bits,g,sms", GENERIC_PLANS)
+def test_generic_wrapper_grid_is_the_plans(M, N, K, bits, g, sms):
+    """The grid ``kernels.qgemm_generic`` sizes its scratch and counters
+    from (``_generic_grid``, no work list) is the plan's: its partial floats
+    and one counter a tile."""
+    plan = kernels.qgemm_generic_plan(M, N, K, bits, g, sms)
+    mt, mtiles, ntiles, granule, gcount, total, bps, ctas = kernels._generic_grid(
+        M, N, K, bits, g, sms)
+    assert (mt, mtiles, ntiles, granule, gcount, total, ctas) == (
+        plan.mt, plan.mtiles, plan.ntiles, plan.granule, plan.gcount, plan.total, plan.ctas)
+    assert 2 * ctas * 8 * mt * kernels.QGEMM_GENERIC_BN == plan.partial_floats
+    assert bps == (2 if mt <= 2 and total >= 2 * kernels.QGEMM_GENERIC_DEEP * sms else 1)
+
+
+@pytest.mark.parametrize("g", [2, 4, 6, 8, 24, 40])
+@pytest.mark.parametrize("M", [3, 70])
+def test_generic_plan_in_bf16_numerics_meets_the_kernel_bound(g, M):
+    """The kernel's arithmetic over the plan on the CPU: each unit's groups'
+    partials rounded to bf16, times the bf16-rounded scale, summed in f32;
+    the split tiles' unit sums added in block order, rounded once: within
+    ``qgemm_bf16_bound`` of the f32 product, as the JAX function is."""
+    rng = np.random.default_rng(g)
+    K, N = 960, 300
+    w = tq.quantize_tensor_int4(rng.normal(size=(K, N)).astype(np.float32), g)
+    assert w.group_size == g
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).bfloat16().float()
+    plan = kernels.qgemm_generic_plan(M, N, K, 4, g, sms=3)
+    assert any(u.slot >= 0 for units in plan.units for u in units)
+    vals = tq.unpack_int4(w.q).float()
+    scale = w.scale.bfloat16().float()
+    bm, bn = 8 * plan.mt, kernels.QGEMM_GENERIC_BN
+    out = torch.zeros((plan.mtiles * bm, plan.ntiles * bn))
+    for units in plan.units:
+        for u in units:
+            m0, n0 = u.mtile * bm, u.ntile * bn
+            xs, cols = x[m0:min(M, m0 + bm)], slice(n0, min(N, n0 + bn))
+            acc = torch.zeros((xs.shape[0], cols.stop - n0))
+            for k in range(u.k0, u.k1, g):
+                p = xs[:, k:k + g] @ vals[k:k + g, cols]
+                acc += p.bfloat16().float() * scale[k // g, cols]
+            out[m0:m0 + acc.shape[0], n0:n0 + acc.shape[1]] += acc
+    got = out[:M, :N].bfloat16().float()
+    ref = tq.qeinsum_plain("me,eo->mo", x, w, torch.float32)
+    assert bool(((got - ref).abs() <= tq.qgemm_bf16_bound(x, w, ref)).all())
+
+
 # ------------------------------------------------------------- route chooser
 # Llama-3-8B's projections (in, out), each as a decode (M 8) and a prefill
 # (M 512) call, int8 and int4 at the default group and 128

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's weight-only GEMM (qgemm) of one checkout on the card.
 
-    python3 tools/qgemm_ab.py --repo DIR [--iters N] [--rows decode,prefill]
+    python3 tools/qgemm_ab.py --repo DIR [--iters N] [--rows decode,prefill,generic]
                               [--splits 1,2,4,8]
 
 Imports ``django_assistant_bot_tpu_torch`` from ``DIR`` (a checkout of this
@@ -25,6 +25,13 @@ HBM, as the decode step and ``chip_smoke.py`` phase 2 do.
   back-to-back call (CUDA events) and device ms (torch.profiler), and
   cuBLAS's wall ms on the dequantized bf16 weight (``torch.matmul``, a
   yardstick the port never calls).
+
+- ``generic`` rows: int4 at groups 8 and 4 (``--groups``; the generic route:
+  ``qgemm_generic_kernel``, or in an older checkout the CUDA-core kernel)
+  at the four projections, M = 8 and 512 (``--ms``), wall ms per
+  back-to-back call and device ms (torch.profiler), beside the flush-aware bound
+  (``chip_smoke.qgemm_flush_bound_ms``) and cuBLAS's wall and device ms on
+  the dequantized bf16 weight, rotated alike.
 
 Every row carries its bound (``chip_smoke.qgemm_group_bound_ms``) and the
 checkout's plan.  Prints one JSON line with the card's name and power
@@ -89,12 +96,51 @@ def graph_ms(kernels, calls, reps: int = 5) -> float:
     return statistics.median(spans)
 
 
+def generic_rows(smoke, kernels, quant, gen, iters: int, groups, rows_of_x) -> list:
+    """The generic route at int4 ``groups``, Llama-3-8B's four projections,
+    ``rows_of_x`` rows of x: the kernel and cuBLAS on the dequantized bf16
+    weight, each rotated over >= 256 MB of copies."""
+    import torch
+
+    out = []
+    for g in groups:
+        for label, K, (N,) in SHAPES:
+            ws = [c[0] for c in smoke._rotated(lambda: [smoke._qweight(K, N, "int4", g, gen)],
+                                               K * N // 2 + 4 * (K // g) * N)]
+            wds = [quant.deq(w, torch.bfloat16)
+                   for w in ws[:max(2, -(-smoke.QGEMM_ROTATE_BYTES // (2 * K * N)))]]
+            for M in rows_of_x:
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                kernel = smoke._cycler(
+                    lambda w: quant.qeinsum("me,eo->mo", x, w, torch.bfloat16), ws)
+                library = smoke._cycler(lambda wd: torch.matmul(x, wd), wds)
+                kernels.reset_counts()
+                kernel()
+                torch.cuda.synchronize()
+                route = next(r for r, n in kernels.QGEMM_ROUTES.items() if n)
+                ms, dev = smoke.timed(kernel, iters)
+                lib_ms, lib_dev = smoke.timed(library, iters)
+                bound_ms, bound_by = smoke.qgemm_bound_ms(M, K, N, 4, g)
+                flush_ms, flush_by = smoke.qgemm_flush_bound_ms(M, K, N, 4, g)
+                out.append(dict(kind="generic", fmt="int4", group=g, shape=label, M=M, K=K, N=N,
+                                route=route, ms=ms, device_ms=dev, bound_ms=bound_ms,
+                                bound_by=bound_by, flush_bound_ms=flush_ms, flush_bound_by=flush_by,
+                                library_ms=lib_ms, library_device_ms=lib_dev))
+                print(json.dumps(out[-1]), file=sys.stderr)
+            del ws, wds
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", required=True, help="checkout whose package is timed")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--rows", default="decode,prefill", help="decode, prefill or both")
+    ap.add_argument("--rows", default="decode,prefill",
+                    help="comma-separated: decode, prefill, generic")
     ap.add_argument("--splits", default="", help="K splits to force at M = 512, e.g. 1,2,4,8")
+    ap.add_argument("--groups", default="8,4", help="the generic rows' int4 groups")
+    ap.add_argument("--ms", default="8,512", help="the generic rows' rows of x")
     opts = ap.parse_args()
     repo = Path(opts.repo).resolve()
     # this checkout's timing helpers (chip_smoke.py's public ones), whichever
@@ -130,7 +176,11 @@ def main() -> int:
         return [quant.qeinsum("me,eo->mo", x, w, torch.bfloat16) for w in ws]
 
     plan_fn = kernels.qgemm_plan
-    for fmt, g in FORMATS:
+    if "generic" in rows:
+        result["rows"] += generic_rows(smoke, kernels, quant, gen, opts.iters,
+                                       [int(g) for g in opts.groups.split(",")],
+                                       [int(m) for m in opts.ms.split(",")])
+    for fmt, g in (FORMATS if rows & {"decode", "prefill"} else []):
         bits = 8 if fmt == "int8" else 4
         shapes = SHAPES + (GROUPS if "decode" in rows else [])
         for label, K, Ns in shapes:

@@ -4,6 +4,7 @@ compare their machine code: each function's SASS and ptxas's registers and
 spills.
 
     python3 tools/sass_compare.py --old DIR [--stem qgemm] [--stem ...]
+                                  [--function NAME] [--function ...]
 
 ``DIR`` is another checkout of this repository (for example a ``git
 archive`` of the parent commit).  For each stem, ``csrc/<stem>.cu`` of both
@@ -13,7 +14,9 @@ functions, and a function's SASS is its instruction text without the lines
 that name a symbol (anonymous-namespace names differ between two files).
 Prints, per stem, whether the multisets of function SASS and of ptxas
 "Used N registers" / spill lines are equal, and exits 1 if any stem
-differs.  Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit), no card.
+differs.  ``--function`` keeps only the functions whose mangled name holds
+one of the given names (e.g. ``qgemm_stream_kernel``), so kernels that one
+side adds or removes can be left out.  Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit), no card.
 """
 
 from __future__ import annotations
@@ -39,21 +42,35 @@ def _tool(name: str) -> str:
     return found
 
 
-def _functions(lib: Path) -> Counter:
-    """The library's functions, as a multiset of SASS digests."""
+def _wanted(name: str, names) -> bool:
+    return not names or any(n in name for n in names)
+
+
+def _functions(lib: Path, names=()) -> Counter:
+    """The library's functions (those ``names`` select), as a multiset of
+    SASS digests."""
     dump = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     out: Counter = Counter()
-    for body in re.split(r"^\s*Function : .*$", dump, flags=re.M)[1:]:
+    parts = re.split(r"^\s*Function : (.*)$", dump, flags=re.M)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if not _wanted(name, names):
+            continue
         code = [ln.strip() for ln in body.splitlines() if ln.strip() and "_GLOBAL__N_" not in ln]
         out[hashlib.sha256("\n".join(code).encode()).hexdigest()[:16]] += 1
     return out
 
 
-def _ptxas(log: str) -> Counter:
-    """ptxas's register and spill lines, function names left out."""
-    keep = [re.sub(r"^.*?(Used|\d+ bytes)", r"\1", ln).strip() for ln in log.splitlines()
-            if "Used" in ln or "spill" in ln]
+def _ptxas(log: str, names=()) -> Counter:
+    """ptxas's register and spill lines (of the functions ``names``
+    selects), function names left out."""
+    keep, current = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", ln)
+        if m:
+            current = m.group(1)
+        if ("Used" in ln or "spill" in ln) and _wanted(current, names):
+            keep.append(re.sub(r"^.*?(Used|\d+ bytes)", r"\1", ln).strip())
     return Counter(keep)
 
 
@@ -61,6 +78,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True)
     ap.add_argument("--stem", action="append", default=[])
+    ap.add_argument("--function", action="append", default=[],
+                    help="compare only functions whose mangled name holds NAME")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     from django_assistant_bot_tpu_torch import kernels
@@ -83,8 +102,8 @@ def main() -> int:
             return 1
     differ = False
     for stem in stems:
-        sass = {side: _functions(procs[(stem, side)][1]) for side in roots}
-        regs = {side: _ptxas(logs[(stem, side)]) for side in roots}
+        sass = {side: _functions(procs[(stem, side)][1], args.function) for side in roots}
+        regs = {side: _ptxas(logs[(stem, side)], args.function) for side in roots}
         same_sass, same_regs = sass["old"] == sass["new"], regs["old"] == regs["new"]
         differ |= not (same_sass and same_regs)
         print(f"{stem}: {sum(sass['new'].values())} functions (old {sum(sass['old'].values())}); "
