@@ -122,8 +122,8 @@ printed on a line of their own):
    to the registry's pages); the decode breakdown: the eager step and the
    replay of the engine's captured 8-step tick, per step, side by side, and
    a 512-token chunk with the tick as one replay of the piggyback graph
-   against the chunk run eagerly before the tick's replay, over 4 (eager
-   step) and 6 batches (medians and spreads); the four
+   against the chunk run eagerly before the tick's replay, over 3 (eager
+   step) and 4 batches (medians and spreads); the four
    requests again with ``obs`` off; and the RAG hits served alone by an
    engine with prefix sharing off, their first-step logits held to the
    hits';
@@ -311,6 +311,9 @@ def _device_us(event) -> float:
 
 
 EVENT_SPAN = "event span (torch.profiler saw no kernel records)"
+# the profiles (each of up to eight attempts) a T 8 routing call gets to show
+# its one kernel before phase 2 fails
+MOE_ONE_LAUNCH_PROFILES = 4
 PROFILER_LOST = [0]  # calls whose device time was taken with CUDA events instead
 
 
@@ -437,14 +440,14 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
-    r"|qgemm_stream_kernel|qgemm_generic_kernel|adc_scan_kernel|moe_route_topk_kernel"
+    r"|qgemm_stream_kernel|qgemm_generic_kernel|adc_scan_kernel|moe_route_kernel"
     r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_wgmma_kernel|moe_gemm_cc_kernel"
     r"|paged_tree_mma_kernel"
     r"|paged_tree_cc_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(
     r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel"
-    r"|moe_route_scan_kernel|moe_gather_kernel)E")
+    r"|moe_gather_kernel)E")
 
 
 def kernel_label(mangled: str) -> str:
@@ -481,13 +484,14 @@ def ptxas_smem(text: str) -> dict:
     return out
 
 
-SASS_OPS = ("HMMA", "LDGSTS", "HGMMA", "UTMALDG", "SYNCS")
+SASS_OPS = ("HMMA", "LDGSTS", "HGMMA", "UTMALDG", "SYNCS", "LDG.E.128", "STG.E.128")
 
 
 def sass_table(lib: Path) -> dict:
     """Per kernel in ``lib``'s SASS (``cuobjdump``), the count of each of
     ``SASS_OPS``: HMMA (``mma.sync``), LDGSTS (``cp.async``), HGMMA
-    (``wgmma``), UTMALDG (a TMA load) and SYNCS (mbarrier operations).
+    (``wgmma``), UTMALDG (a TMA load), SYNCS (mbarrier operations), and
+    LDG.E.128 / STG.E.128 (16-byte global loads and stores).
     Empty if ``cuobjdump`` is missing."""
     import shutil
 
@@ -499,7 +503,7 @@ def sass_table(lib: Path) -> dict:
     table = {}
     for chunk in sass.split("Function : ")[1:]:
         label = kernel_label(chunk.split(None, 1)[0])
-        table[label] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
+        table[label] = {op: len(re.findall(rf"\b{re.escape(op)}\b", chunk)) for op in SASS_OPS}
     return table
 
 
@@ -2558,14 +2562,20 @@ def check_moe(gen) -> list:
     capacity factor 0.25 (drops), T 512 with every token routed to two
     experts (six empty experts, their tiles skipped); bf16, and f32 at T 8
     and 512 (``cuda_core``).  The wgmma kernels' SASS must hold HGMMA and
-    UTMALDG, the mma kernels' HMMA.  Then each kernel's time at T 8, 512
-    and 2,048 (wall and device), its bound, its twin's time and the
+    UTMALDG, the mma kernels' HMMA, the routing and combine kernels'
+    16-byte loads (LDG.E.128); a routing call at T 8 must show one kernel
+    in its timing profile (profiled again where a profile loses its kernel
+    records, and failing where ``MOE_ONE_LAUNCH_PROFILES`` all do), and the
+    launch floor (one empty kernel's device time) is printed beside the
+    routing and combine rows.  Then each kernel's time at T 8, 512 and
+    2,048 (wall and device; at 512 and 2,048 the routing and the combine
+    on inputs rotated over >= 256 MB), its bound, its twin's time and the
     yardstick: ``torch.bmm`` over the dense ``[X, C, E]`` dispatch (what the
     JAX einsums compute, reading every expert; wall and device), and for
     the combine one ``torch.matmul`` of the dense combine.  Returns six
     entries: the routing, gate/up and down at decode (T 8), gate/up and
-    down on ``wgmma`` (T 512), the combine; each GEMM entry holds every T's
-    reading in ``by_tokens``."""
+    down on ``wgmma`` (T 512), the combine; each entry but the wgmma GEMMs'
+    holds every T's reading in ``by_tokens``."""
     import dataclasses
 
     import torch
@@ -2628,6 +2638,15 @@ def check_moe(gen) -> list:
     mm = {label: c for label, c in sass.items() if label.startswith("moe_gemm_mma_kernel")}
     if len(mm) != 2 or any(c["HMMA"] == 0 for c in mm.values()):
         fail(f"moe_gemm's mma kernels show no mma in their SASS: {mm}")
+    sass = sass_table(kernels.lib_path("moe_route"))
+    log(f"  moe_route SASS: {sass_counts(kernels.lib_path('moe_route'))}")
+    for prefix, n in (("moe_route_kernel", 6), ("moe_combine_kernel", 2)):
+        got = {label: c for label, c in sass.items() if label.startswith(prefix)}
+        if len(got) != n or any(c["LDG.E.128"] == 0 for c in got.values()):
+            fail(f"{prefix}: want {n} kernels with 16-byte loads (LDG.E.128) in the SASS: {got}")
+    # the launch floor the T 8 rows are read against: one empty kernel
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 50)
+    log(f"  launch floor: an empty kernel (torch.cuda._sleep(0)) device {floor_ms:.4f} ms")
     # timing at the decode tick's shape (T 8), bf16, and at a chunk and a [4, 512] prefill
     p = moe_layer_weights(torch.bfloat16, gen)
     reading = {}
@@ -2645,8 +2664,18 @@ def check_moe(gen) -> list:
         dense_comb[rows[kept], tok_slot[kept].long()] = tok_gate[kept].to(torch.bfloat16)
         bounds = moe_bounds_ms(x, p, routing)
         routes = dict(zip(("gate_up", "down"), moe_routes(torch.bfloat16, p, C)))
+        # at T 512 and 2,048 the routing's x and the combine's ye and out
+        # rotate over >= 256 MB of copies, so no call finds them in the 50 MB
+        # L2 and the HBM bound holds; at T 8 they stay warm, as in a decode tick
+        out = torch.empty((T, MOE_E), device="cuda", dtype=torch.bfloat16)
+        if T >= 512:
+            xs = _rotated(lambda: x.clone(), x.numel() * x.element_size())
+            yes = _rotated(lambda: (ye.clone(), torch.empty_like(out)),
+                           (ye.numel() + out.numel()) * ye.element_size())
+        else:
+            xs, yes = [x], [(ye, out)]
         calls = {
-            "route": (lambda: moe.moe_route(x, p["router"], MOE_K, C),
+            "route": (_cycler(lambda xi: moe.moe_route(xi, p["router"], MOE_K, C), xs),
                       lambda: moe.moe_route_plain(x, p["router"], MOE_K, C), None),
             "gate_up": (lambda: moe.moe_expert_gemm(x, slot_tok, fill, p["w_gate"], p["w_up"],
                                                     epilogue="gate_up"),
@@ -2657,12 +2686,28 @@ def check_moe(gen) -> list:
                      lambda: moe.moe_expert_gemm_plain(h, slot_tok, fill, p["w_down"],
                                                        epilogue="down"),
                      lambda: torch.bmm(h, p["w_down"])),
-            "combine": (lambda: moe.moe_combine(tok_slot, tok_gate, ye),
+            "combine": (_cycler(lambda c: kernels.moe_combine(tok_slot, tok_gate, *c), yes),
                         lambda: moe.moe_combine_plain(tok_slot, tok_gate, ye),
-                        lambda: torch.matmul(dense_comb, ye.reshape(MOE_X * C, MOE_E))),
+                        _cycler(lambda c: torch.matmul(dense_comb,
+                                                       c[0].reshape(MOE_X * C, MOE_E)), yes)),
         }
         for kind, (fn, plain, lib) in calls.items():
-            ms, dev = timed(fn, 50)
+            ms = time_ms(fn, 50)
+            per = device_ms_by_kernel(fn, 50)
+            if T == 8 and kind == "route":  # the decode tick's routing: one kernel
+                for _ in range(MOE_ONE_LAUNCH_PROFILES - 1):
+                    if EVENT_SPAN not in per:
+                        break
+                    log("  moe route T=8: the profile lost its kernel records; profiling again")
+                    per = device_ms_by_kernel(fn, 50)
+                log(f"  moe route T=8: the kernels of a call {per}")
+                if EVENT_SPAN in per:
+                    fail(f"moe_route at T 8: {MOE_ONE_LAUNCH_PROFILES} profiles lost their "
+                         f"kernel records, so its one launch is not checked")
+                if len(per) != 1:
+                    fail(f"moe_route at T 8 launched {len(per)} kernels, want one: {per}")
+                t8_kernels = len(per)
+            dev = sum(per.values())
             plain_ms = time_ms(plain, 5)
             lib_ms = lib_dev = None
             if lib is not None:
@@ -2677,11 +2722,15 @@ def check_moe(gen) -> list:
                    if lib is not None else "no library call, ")
                 + f"bound {bound_ms:.5f} ms ({bound_by}); share of the bound, device "
                 f"{bound_ms / dev:.4f}" + (f"; device against the yardstick's "
-                                           f"{dev / lib_dev:.3f}x" if lib is not None else ""))
+                                           f"{dev / lib_dev:.3f}x" if lib is not None else "")
+                + (f"; launch floor {floor_ms:.4f}" if kind in ("route", "combine") else ""))
             reading[(T, kind)] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
                                       library_device_ms=lib_dev, C=C,
-                                      gemm_route=route)
+                                      gemm_route=route, launch_floor_device_ms=floor_ms,
+                                      rotated_copies=(len(xs) if kind == "route" else len(yes))
+                                      if kind in ("route", "combine") else None)
+        del xs, yes
     del p
     gc_collect()
     src = {"route": "moe_route.cu", "gate_up": "moe_gemm.cu", "down": "moe_gemm.cu",
@@ -2697,8 +2746,10 @@ def check_moe(gen) -> list:
         entry = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src[kind]}",
                  "replaces": f"django_assistant_bot_tpu/models/mixtral.py:{replaces[kind]}",
                  "max_abs_err": err, **reading[(T, kind)]}
-        if kind in ("gate_up", "down"):
+        if kind in ("gate_up", "down", "route", "combine"):
             entry["by_tokens"] = {str(t): reading[(t, kind)] for t in (8, 512, 2048)}
+        if kind == "route":  # the kernels a T 8 call showed in its profile
+            entry["t8_kernels_in_profile"] = t8_kernels
         entries.append(entry)
     return entries
 
@@ -3787,6 +3838,10 @@ def _timed_run(fn, n: int, per: int, label: str, unit: str = "step", batches: in
     for word in words:
         ms = [part(t, word)[0] for t in tables]
         log(f"    {word}: {stat(ms)}/{unit} in {part(table, word)[1]:g} launches/{unit}")
+    route_combine = [part(t, "moe_route")[0] + part(t, "moe_combine")[0] for t in tables]
+    if any(route_combine):
+        log(f"    moe route+combine: {stat(route_combine)}/{unit} in "
+            f"{part(table, 'moe_route')[1] + part(table, 'moe_combine')[1]:g} launches/{unit}")
     rest = [part(t)[0] - sum(part(t, w)[0] for w in words) for t in tables]
     log(f"    the rest (neither {', '.join(words)}): {stat(rest)}/{unit}")
     log(f"    all kernels: {part(table)[1]:g} launches/{unit}")
@@ -3828,8 +3883,11 @@ def _event_span_ms(fn, n: int) -> list:
 
 
 # profiled batches of the eager step in a decode breakdown (each a
-# torch.profiler trace of ten eager steps, the costliest part of a breakdown)
-BREAKDOWN_BATCHES = 4
+# torch.profiler trace of ten eager steps), and timed batches of the tick's
+# replays and of the chunk with the tick (the costliest part at Mixtral's
+# width)
+BREAKDOWN_BATCHES = 3
+BREAKDOWN_REPLAYS = 4
 
 
 def decode_breakdown(cfg, params, engine, label: str = "", kv_dtype=None,
@@ -3886,10 +3944,10 @@ def decode_breakdown(cfg, params, engine, label: str = "", kv_dtype=None,
     with torch.no_grad():
         eager = _timed_run(step, 10, 1, f"{label}eager decode step, 8 slots, full width",
                            batches=batches)
-        timing = [_sync_and_enqueue_ms(tick, 10, K) for _ in range(6)]
+        timing = [_sync_and_enqueue_ms(tick, 10, K) for _ in range(BREAKDOWN_REPLAYS)]
         spans = [ms / K for ms in _event_span_ms(engine._graph.replay, 10)]
-        log(f"  {label}graph replay of the {K}-step tick, 8 slots, full width, per step over 6 "
-            f"batches of 10 replays: synchronised {_stat([w for w, _ in timing], 'ms')}, host "
+        log(f"  {label}graph replay of the {K}-step tick, 8 slots, full width, per step over "
+            f"{BREAKDOWN_REPLAYS} batches of 10 replays: synchronised {_stat([w for w, _ in timing], 'ms')}, host "
             f"enqueue {_stat([e for _, e in timing], 'ms')}; device time at most the graph span "
             f"(CUDA events, launch wait included) {_stat(spans, 'ms')} over 10 replays, idle "
             f"share not measured; {engine._graph_launches.launches['paged_decode'] // K} paged "
@@ -3902,11 +3960,13 @@ def decode_breakdown(cfg, params, engine, label: str = "", kv_dtype=None,
             engine._chunk_bt_dev.fill_(engine._kv_sentinel)
             engine._chunk_slot_dev.zero_()
             engine._chunk_start_dev.zero_()
-            pig = [_sync_and_enqueue_ms(lambda: tick(True), 3, 1)[0] for _ in range(6)]
-            seq = [_sync_and_enqueue_ms(chunk_then_tick, 3, 1)[0] for _ in range(6)]
-            pig_span = _event_span_ms(engine._piggyback_graph.replay, 6)
-            log(f"  {label}a {engine.chunk_size}-token chunk and the {K}-step tick, 6 batches "
-                f"of 3: one piggyback replay synchronised {_stat(pig, 'ms')} (graph span "
+            pig = [_sync_and_enqueue_ms(lambda: tick(True), 3, 1)[0]
+                   for _ in range(BREAKDOWN_REPLAYS)]
+            seq = [_sync_and_enqueue_ms(chunk_then_tick, 3, 1)[0]
+                   for _ in range(BREAKDOWN_REPLAYS)]
+            pig_span = _event_span_ms(engine._piggyback_graph.replay, BREAKDOWN_REPLAYS)
+            log(f"  {label}a {engine.chunk_size}-token chunk and the {K}-step tick, "
+                f"{BREAKDOWN_REPLAYS} batches of 3: one piggyback replay synchronised {_stat(pig, 'ms')} (graph span "
                 f"{_stat(pig_span, 'ms')}), the chunk eager then the tick's replay "
                 f"synchronised {_stat(seq, 'ms')}")
     return {**eager, "replay_ms": statistics.median(w for w, _ in timing),

@@ -106,11 +106,11 @@ _ARGTYPES = {
     # tier, rvalid, q, sl_scores, sl_pos, out_scores, out_pos, N, D, Q, S, k,
     # stream
     "ann_rerank": [_P] * 7 + [_I] * 5 + [_P],
-    # x, router, tok_slot, tok_gate, slot_tok, fill, dtype, T, E, X, K, C,
-    # stream
-    "moe_route": [_P] * 6 + [_I] * 6 + [_P],
-    # tok_slot, tok_gate, ye, out, dtype, T, E, K, stream
-    "moe_combine": [_P] * 4 + [_I] * 4 + [_P],
+    # x, router, tok_slot, tok_gate, slot_tok, fill, scratch, counter, dtype,
+    # T, E, X, K, C, xmax, splits, vec_x, vec_r, stream
+    "moe_route": [_P] * 8 + [_I] * 10 + [_P],
+    # tok_slot, tok_gate, ye, out, dtype, T, E, K, vec, stream
+    "moe_combine": [_P] * 4 + [_I] * 5 + [_P],
     # a, slot_tok, fill, w0, w1, out, scratch, counters, rows, dtype,
     # epilogue, route, X, C, K, N, ksplit, kchunk, tile_n, tile_m, stream
     "moe_gemm": [_P] * 9 + [_I] * 11 + [_P],
@@ -210,6 +210,20 @@ MOE_MMA_WAVES = 4
 MOE_SPLIT_MIN_K = 1024
 MOE_MAX_SPLIT = 4
 MOE_PARTIAL_FLOATS = 1 << 24
+# the routing kernel's launches by form (:func:`moe_route_plan`): "split"
+# (one tile of tokens, E split over blocks: the decode tick), "block" (one
+# tile, one block) or "tiles" (token tiles, the last block scans the
+# capacity)
+MOE_ROUTE_FORMS: Dict[str, int] = {"block": 0, "split": 0, "tiles": 0}
+# the routing kernel (csrc/moe_route.cu): the partial logits a thread keeps
+# (tile tokens x experts), the expert widths a tile holds (64 / that many
+# tokens a tile), and the blocks E is split over at one tile of tokens: at
+# Mixtral's widths, T 8, 1 / 2 / 4 / 8 blocks took 0.0082 / 0.0073 / 0.0073
+# / 0.0075 ms on an H100 SXM (``tools/moe_route_ab.py --splits``, PERF.md
+# section 6)
+MOE_ROUTE_VALUES = 64
+MOE_ROUTE_XMAX = (8, 16, 32)
+MOE_ROUTE_SPLITS = 4
 # paged tree attention launches by route and read, as PAGED_FORMS: "mma"
 # (the tensor-core kernel: bf16 at PAGED_MMA_HEAD_DIMS on 16-byte boundaries)
 # or "cuda_core" (the tree read has no in-dot scheme)
@@ -228,7 +242,7 @@ PAGED_TREE_NODES = 32
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
     "paged_decode": PAGED_FORMS, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
-    "moe_gemm": MOE_GEMM_FORMS,
+    "moe_route": MOE_ROUTE_FORMS, "moe_gemm": MOE_GEMM_FORMS,
     "paged_tree": PAGED_TREE_FORMS, "chunked_decode": CHUNKED_FORMS,
 }
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
@@ -503,7 +517,8 @@ def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
 
 
 def _scratch_buffers(kernel: str, device: torch.device, stream: int, need: int, n_rows: int):
-    """The scratch of ``kernel`` (paged or chunked decode, or qgemm) on (device,
+    """The scratch of ``kernel`` (paged or chunked decode, qgemm, the grouped
+    expert GEMM or the MoE routing) on (device,
     stream), grown to ``need`` f32 floats and ``n_rows`` counters.  A graph
     captures the buffers' addresses, so they must exist before its capture
     (a warm-up call on the capture stream makes them): growing them during a
@@ -1125,22 +1140,78 @@ def ann_rerank(tier: torch.Tensor, rvalid: torch.Tensor, q: torch.Tensor,
     _check("ann_rerank", err)
 
 
+class RoutePlan(NamedTuple):
+    """A routing launch (``moe_route_kernel`` of ``csrc/moe_route.cu``):
+    its ``form`` (``MOE_ROUTE_FORMS``), the experts a tile holds (``xmax``)
+    and its ``tile_tokens``, the ``tiles`` and ``splits`` (blocks a tile:
+    E's ranges), the 32-bit words of scratch and the ticket counters it
+    takes (0: none)."""
+
+    form: str
+    xmax: int
+    tile_tokens: int
+    tiles: int
+    splits: int
+    scratch: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def moe_route_plan(dtype: torch.dtype, T: int, E: int, X: int, K: int) -> RoutePlan:
+    """The routing launch for ``x [T, E]`` in ``dtype`` through ``router [E,
+    X]`` with top ``K``, from shapes alone (a CUDA graph captures it).  A
+    tile holds the fewest of ``MOE_ROUTE_XMAX`` experts that covers X and
+    ``MOE_ROUTE_VALUES`` / that many tokens.  One tile (T 8 at X <= 8: the
+    decode tick) takes ``"split"``: ``MOE_ROUTE_SPLITS`` blocks, each a
+    range of E (at least a warp's worth of 16-byte chunks a block), 64 f32
+    partials a block and a counter; ``"block"`` where a short E leaves one
+    block: no scratch.  More tokens take ``"tiles"``: a block a tile, K X
+    ``tiles`` counts and a counter.  Every form is one launch."""
+    code = dtype_code(dtype)
+    if not (1 <= X <= MOE_ROUTE_XMAX[-1] and 1 <= K <= min(X, 8) and T >= 1 and E >= 1):
+        raise ValueError(f"moe_route_plan: T {T}, E {E}, X {X}, K {K}")
+    xmax = next(m for m in MOE_ROUTE_XMAX if X <= m)
+    tt = MOE_ROUTE_VALUES // xmax
+    tiles = -(-T // tt)
+    if tiles > 1:
+        return RoutePlan("tiles", xmax, tt, tiles, 1, K * X * tiles, 1)
+    chunks = -(-E // (4 if code == 0 else 8))
+    splits = max(1, min(MOE_ROUTE_SPLITS, chunks // 32))
+    if splits == 1:
+        return RoutePlan("block", xmax, tt, 1, 1, 0, 0)
+    return RoutePlan("split", xmax, tt, 1, splits, splits * MOE_ROUTE_VALUES, 1)
+
+
 def moe_route(x: torch.Tensor, router: torch.Tensor, tok_slot: torch.Tensor,
               tok_gate: torch.Tensor, slot_tok: torch.Tensor, fill: torch.Tensor) -> None:
-    """Launch the MoE routing (``csrc/moe_route.cu``: the router's top-k a
-    block a token, then the one-block capacity scan); the caller
-    (``ops.moe.moe_route``) validated the arguments and allocated the
-    outputs: tok_slot / tok_gate ``[T, K]`` int32 / f32, slot_tok ``[X, C]``
-    and fill ``[X]`` int32."""
+    """Launch the MoE routing (``csrc/moe_route.cu``: one launch on
+    :func:`moe_route_plan`'s form); the caller (``ops.moe.moe_route``) validated the
+    arguments and allocated the outputs: tok_slot / tok_gate ``[T, K]``
+    int32 / f32, slot_tok ``[X, C]`` and fill ``[X]`` int32.  A form with
+    more than one block takes its scratch and ticket counter (left at zero)
+    from the per-(device, stream) scratch; x is read with 16-byte loads
+    where it lies on 16 bytes and E fills whole 16-byte chunks, the router
+    with 16-byte copies where it lies on 16 bytes."""
     T, E = x.shape
     X = router.shape[1]
     K = tok_slot.shape[1]
+    plan = moe_route_plan(x.dtype, T, E, X, K)
+    vec = 16 // x.element_size()
+    stream = _stream(x)
     fn = _fn("moe_route")
     with torch.cuda.device(x.device):
+        scratch = counters = None
+        if plan.counters:
+            scratch, counters = _scratch_buffers("moe_route", x.device, stream, plan.scratch,
+                                                 plan.counters)
         err = fn(x.data_ptr(), router.data_ptr(), tok_slot.data_ptr(), tok_gate.data_ptr(),
-                 slot_tok.data_ptr(), fill.data_ptr(), dtype_code(x.dtype), T, E, X, K,
-                 slot_tok.shape[1], _stream(x))
-    _count("moe_route")
+                 slot_tok.data_ptr(), fill.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None,
+                 counters.data_ptr() if counters is not None else None,
+                 dtype_code(x.dtype), T, E, X, K, slot_tok.shape[1], plan.xmax, plan.splits,
+                 int(E % vec == 0 and not _misaligned(x)), int(not _misaligned(router)),
+                 stream)
+    _count("moe_route", kind=plan.form)
     _check("moe_route", err)
 
 
@@ -1257,15 +1328,18 @@ def moe_gemm(a: torch.Tensor, slot_tok: torch.Tensor, fill: torch.Tensor, w0: to
 
 def moe_combine(tok_slot: torch.Tensor, tok_gate: torch.Tensor, ye: torch.Tensor,
                 out: torch.Tensor) -> None:
-    """Launch the MoE combine (``csrc/moe_route.cu``, one thread an output
-    element); the caller (``ops.moe.moe_combine``) validated the arguments
-    and allocated out ``[T, E]`` in ye's dtype."""
+    """Launch the MoE combine (``csrc/moe_route.cu``: a thread a 16-byte
+    vector of a token's row, one element at a time where E is not a
+    multiple of the vector or ye / out is off 16 bytes); the caller
+    (``ops.moe.moe_combine``) validated the arguments and allocated out
+    ``[T, E]`` in ye's dtype."""
     T, K = tok_slot.shape
     E = ye.shape[-1]
+    vec = E % (16 // ye.element_size()) == 0 and not _misaligned(ye, out)
     fn = _fn("moe_combine")
     with torch.cuda.device(ye.device):
         err = fn(tok_slot.data_ptr(), tok_gate.data_ptr(), ye.data_ptr(), out.data_ptr(),
-                 dtype_code(ye.dtype), T, E, K, _stream(ye))
+                 dtype_code(ye.dtype), T, E, K, int(vec), _stream(ye))
     _count("moe_combine")
     _check("moe_combine", err)
 

@@ -44,7 +44,7 @@ import torch
 # differently under another summation order of the f32 router product (its
 # error at E = 4,096 is ~1e-6 of a logit, ~1e-7 of a probability)
 ROUTE_EPS = 1e-5
-MAX_EXPERTS = 32  # the routing kernel's lanes / scan warps
+MAX_EXPERTS = 32  # the routing kernel's lanes (an expert a lane in the top-k)
 MAX_TOP_K = 8
 
 Routing = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]

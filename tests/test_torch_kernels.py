@@ -1543,23 +1543,111 @@ def _check_route(x, router, top_k, C):
     return got, want, near
 
 
+def _off_16(t):
+    """A copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    off = buf[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    return off
+
+
+# (T, capacity factor) of the routing cases: one token, the decode tick, a
+# ragged tile, a chunk, a [4, 512] prefill, past two 2,048-token prefills,
+# and a chunk with drops; (X, K): Mixtral's, the fewest experts and choices,
+# the most of both (f32 at X 32 reads a 512 KB router), the most experts
+ROUTE_TOKENS = [(1, 1.25), (8, 1.25), (33, 1.25), (512, 1.25), (2048, 1.25), (4100, 1.25),
+                (512, 0.25)]
+ROUTE_WIDTHS = [(8, 2), (4, 1), (32, 8), (32, 2)]
+
+
+@pytest.mark.parametrize("X,K", ROUTE_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,factor", [(8, 1.25), (512, 1.25), (2048, 1.25), (512, 0.25)])
+@pytest.mark.parametrize("T,factor", ROUTE_TOKENS)
 @pytest.mark.parametrize("tie", [False, True])
-def test_moe_route_kernel_matches_plain(dtype, T, factor, tie):
-    E, X, K = 4096, 8, 2
+def test_moe_route_kernel_matches_plain(dtype, T, factor, tie, X, K):
+    E = 4096
     C = _capacity(T, X, K, factor)
     x, router, *_ = _moe_inputs(T, E, X, 64, dtype, T, tie=tie)
+    plan = kernels.moe_route_plan(dtype, T, E, X, K)
     before = kernels.LAUNCHES["moe_route"]
+    forms = dict(kernels.MOE_ROUTE_FORMS)
     (tok_slot, _, slot_tok, fill), want, near = _check_route(x, router, K, C)
     assert kernels.LAUNCHES["moe_route"] == before + 1
-    assert int(near.sum()) <= max(2, T // 256)
+    assert kernels.MOE_ROUTE_FORMS[plan.form] == forms[plan.form] + 1
+    assert plan.form == ("split" if T <= 64 // plan.xmax else "tiles")
+    # the test's own data: few near ties (more where more probabilities lie
+    # among the top K + 1)
+    assert int(near.sum()) <= (max(2, T // 256) if (X, K) == (8, 2) else max(4, T * K * X // 512))
     if factor < 1:
         assert bool((tok_slot < 0).any())
     # slot_tok and fill are the inverse of tok_slot
     for xi in range(X):
         live = slot_tok[xi, : int(fill[xi])]
         assert bool((live >= 0).all()) and bool((slot_tok[xi, int(fill[xi]):] == -1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [8, 300])
+def test_moe_route_kernel_reads_rows_off_16_bytes(dtype, T):
+    """x and the router one element (two bytes in bf16, four in f32) off a
+    16-byte boundary, and E not a multiple of a 16-byte chunk: the kernel
+    reads x and copies the router one element at a time."""
+    X, K, E = 8, 2, 4100
+    C = _capacity(T, X, K, 1.25)
+    x, router, *_ = _moe_inputs(T, E, X, 64, dtype, 41 + T)
+    _check_route(_off_16(x), _off_16(router), K, C)
+
+
+@pytest.mark.parametrize("T,E,form", [(8, 4096, "split"), (8, 256, "block"), (512, 4096, "tiles"),
+                                      (4100, 4096, "tiles")])
+def test_moe_route_graph_replays_match_plain_and_leave_the_counter_at_zero(T, E, form):
+    """The routing launch captured in a CUDA graph (its scratch and counter
+    the graph's own) replayed on three fresh x, each time equal to the twin
+    as ``_check_route`` holds it, the ticket counter back at zero after each
+    replay, each replay counted; every form (a short E is one block)."""
+    from django_assistant_bot_tpu_torch.ops import moe
+
+    X, K = 8, 2
+    C = _capacity(T, X, K, 1.25)
+    x, router, *_ = _moe_inputs(T, E, X, 64, torch.bfloat16, 61 + T)
+    plan = kernels.moe_route_plan(torch.bfloat16, T, E, X, K)
+    assert plan.form == form
+    outs = (torch.empty((T, K), dtype=torch.int32, device="cuda"),
+            torch.empty((T, K), dtype=torch.float32, device="cuda"),
+            torch.empty((X, C), dtype=torch.int32, device="cuda"),
+            torch.empty((X,), dtype=torch.int32, device="cuda"))
+    store, stream = {}, torch.cuda.Stream()
+    with kernels.private_paged_scratch(store):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            kernels.moe_route(x, router, *outs)  # warm-up: the scratch
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with kernels.record_graph_launches() as rec:
+            with torch.cuda.graph(graph, stream=stream):
+                kernels.moe_route(x, router, *outs)
+    assert rec.launches["moe_route"] == 1
+    counters = [c for (name, *_), (_, c) in store.items() if name == "moe_route"]
+    assert len(counters) == (plan.counters > 0)
+    g = torch.Generator(device="cuda").manual_seed(T)
+    for _ in range(3):
+        x.copy_(torch.randn((T, E), generator=g, device="cuda").to(x.dtype))
+        before = kernels.LAUNCHES["moe_route"]
+        graph.replay()
+        rec.replayed()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["moe_route"] == before + 1
+        assert all(int(c.abs().sum()) == 0 for c in counters)
+        want = moe.moe_route_plain(x, router, K, C)
+        near, flagged = moe.route_margin(x, router, K)
+        tok_slot, tok_gate = outs[0], outs[1]
+        assert bool(((tok_gate - want[1]).abs()[~near] <= 1e-5).all())
+        assert bool((tok_slot == want[0])[~flagged].all())
+        if not bool(near.any()):
+            assert torch.equal(tok_slot, want[0]) and torch.equal(outs[2], want[2])
+            assert torch.equal(outs[3], want[3])
 
 
 # (T, E, F, skew) of the grouped GEMM's cases: the decode tick at Mixtral's
@@ -1616,21 +1704,31 @@ def test_moe_expert_gemm_kernel_matches_plain(dtype, T, E, F, skew):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,factor", [(8, 1.25), (512, 0.25)])
-def test_moe_combine_kernel_bit_equal(dtype, T, factor):
+@pytest.mark.parametrize("T,factor", [(8, 1.25), (512, 0.25), (2048, 1.25)])
+@pytest.mark.parametrize("layout", ["aligned", "odd_e", "ye_off", "out_off"])
+def test_moe_combine_kernel_bit_equal(dtype, T, factor, layout):
+    """The combine equals its twin bit for bit: rows of 16-byte vectors, and
+    the element path where E (509) is not a multiple of the vector or ye /
+    out lies off 16 bytes."""
     from django_assistant_bot_tpu_torch.ops import moe
 
-    E, X, K = 512, 8, 2
+    E, X, K = 509 if layout == "odd_e" else 512, 8, 2
     C = _capacity(T, X, K, factor)
     x, router, *_ = _moe_inputs(T, E, X, 64, dtype, 3)
     tok_slot, tok_gate, slot_tok, fill = moe.moe_route(x, router, K, C)
     ye = torch.randn((X, C, E), device="cuda").to(dtype)
+    if layout == "ye_off":
+        ye = _off_16(ye)
     before = kernels.LAUNCHES["moe_combine"]
-    out = moe.moe_combine(tok_slot, tok_gate, ye)
+    if layout == "out_off":
+        out = _off_16(torch.zeros((T, E), dtype=dtype, device="cuda"))
+        kernels.moe_combine(tok_slot, tok_gate, ye, out)
+    else:
+        out = moe.moe_combine(tok_slot, tok_gate, ye)
     assert kernels.LAUNCHES["moe_combine"] == before + 1
     want = moe.moe_combine_plain(tok_slot, tok_gate, ye)
-    assert torch.equal(out.view(torch.int16) if dtype == torch.bfloat16 else out.view(torch.int32),
-                       want.view(torch.int16) if dtype == torch.bfloat16 else want.view(torch.int32))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), want.view(bits))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1670,7 +1768,7 @@ def test_moe_mlp_on_the_card_matches_cpu_and_replays_in_a_graph(dtype):
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with kernels.record_graph_launches() as rec:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             static = moe_mlp(cfg, p, xb)
     assert rec.launches["moe_route"] == 1 and rec.launches["moe_gemm"] == 2
     before = kernels.launch_counts()
