@@ -77,6 +77,17 @@ printed on a line of their own):
    laid out as pages, the in-dot read on the probe's inputs, and its time
    at 10,208 and 1,868 live keys beside the bound, the twin and
    ``scaled_dot_product_attention`` over the live chunks;
+   the paged prefill attention (``paged_prefill``, a chunk's or a suffix
+   wave's attention over its rows' pages; :func:`check_paged_prefill`) at
+   Llama-3-8B's heads: C 512 at starts 0 / 511 / 512 / 1,536 / 3,584 on an
+   8-page chain of 512, 4-row suffix waves at C 32 and 128 (starts 40 / 64
+   / 100, a COW boundary page, a pad row, sentinel blocks; pages of 512
+   and 16), window 100, e4m3 and e5m2 pools, D 64, bf16 at D 256 and f32
+   queries over f32 / bf16 / e4m3 / e5m2 pools (the CUDA-core kernel, f32
+   also at D 16): bf16 within ``paged_prefill_bf16_bound``, f32 within
+   1e-4, bitwise repeatable, the token write's pages bitwise the whole
+   block scatter's; its time at starts 0 and 3,584 beside the bound, the
+   twin and pages gathered + masked ``scaled_dot_product_attention``;
    the MoE kernels (``moe_route``, the
    grouped ``moe_gemm`` with its gate/up and down epilogues,
    ``moe_combine``) at Mixtral 8x7B's widths (:func:`check_moe`: T 8, 512
@@ -122,8 +133,13 @@ printed on a line of their own):
    to the registry's pages); the decode breakdown: the eager step and the
    replay of the engine's captured 8-step tick, per step, side by side, and
    a 512-token chunk with the tick as one replay of the piggyback graph
-   against the chunk run eagerly before the tick's replay, over 3 (eager
-   step) and 4 batches (medians and spreads); the four
+   against the chunk run eagerly before the tick's replay (on a chain of
+   sentinels, and on slot 0's real chain at starts 0 and 3,584), over 3
+   (eager step) and 4 batches (medians and spreads); the Llama-3-8B eager
+   chunk split at starts 0 and 3,584 (:func:`engine_chunk_split`:
+   attention, the page write, GEMMs, the rest); ``paged_prefill`` launches
+   = 32 x the chunk and suffix forwards (here, in the RAG wave, in phases
+   3, 10 and 12; no twin call on the card after phase 2); the four
    requests again with ``obs`` off; and the RAG hits served alone by an
    engine with prefix sharing off, their first-step logits held to the
    hits';
@@ -198,7 +214,8 @@ printed on a line of their own):
 13. (run right after phase 12, on phase 4's tensors) the legacy contiguous
     KV layout at full width (:func:`legacy_phase`): a paged and a
     ``kv_layout="legacy"`` engine (``decode_kv_chunk`` 512, a 4.3 GB slot
-    cache) cranked through one trace, greedy ids equal, a shared-prefix
+    cache; its chunks and suffixes on the paged prefill kernel's
+    contiguous form) cranked through one trace, greedy ids equal, a shared-prefix
     pair hitting the pinned-prefix LRU; phase 4's four requests over
     /dialog/ through the registry on the legacy spec twice:
     ``chunked_decode`` launches = 32 x decode steps, TTFT, tok/s,
@@ -212,6 +229,7 @@ printed on a line of their own):
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import re
 import socket
@@ -386,7 +404,7 @@ def env_and_build():
         log(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs, default=0)} registers "
             f"and {max(spills, default=0)} bytes of spill stores")
         if name in ("paged_decode", "knn_topk", "qgemm", "sample", "ann_adc", "ann_rerank",
-                    "moe_route", "moe_gemm", "paged_tree"):
+                    "moe_route", "moe_gemm", "paged_tree", "paged_prefill"):
             smem = ptxas_smem(text)
             log(f"  ptxas[{name}] per kernel: " + "; ".join(
                 f"{label} {r} regs, {sp} B spilled, {smem.get(label, 0)} B static smem"
@@ -442,8 +460,8 @@ _KERNEL_RE = re.compile(
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
     r"|qgemm_stream_kernel|qgemm_generic_kernel|adc_scan_kernel|moe_route_kernel"
     r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_wgmma_kernel|moe_gemm_cc_kernel"
-    r"|paged_tree_mma_kernel"
-    r"|paged_tree_cc_kernel)I(\w*?)EEv"
+    r"|paged_tree_mma_kernel|paged_tree_cc_kernel|paged_prefill_mma_kernel"
+    r"|paged_prefill_cc_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(
     r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel"
@@ -1478,6 +1496,329 @@ def check_paged_tree(gen) -> list:
             **result,
         })
     return entries
+
+
+# ---------------------------------------------- paged prefill (a chunk at a query offset)
+def _prefill_case(B, H, KH, D, page, NB, C, starts, dtype, fmt, gen, *, pad=False):
+    """Random inputs of a paged prefill call on the card: q [B, H, C, D] in
+    ``dtype``; the chunk's K/V and the pools ([P + 1, KH, page, D], page P
+    the dump page) in ``fmt`` (None: q's dtype, or "bf16" / "e4m3" /
+    "e5m2"); each row its own chain of pages up to its write window's end,
+    sentinels past it; rows 1 and 2 share their first page where both
+    starts pass it (a shared prefix page); with ``pad`` row 0 a pad row of
+    sentinels.  Returns (q, k_chunk, v_chunk, k_pool, v_pool, block_tables
+    int32, starts int64)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.quant import to_kv_dtype
+
+    kv = dtype if fmt is None else _kv_dtype(fmt)
+    S = NB * page
+    used = [-(-(min(s, S - C) + C) // page) for s in starts]
+    P = sum(used) + 1
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(sum(starts) + C))
+    bt = torch.full((B, NB), P, dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(used):
+        bt[b, :n] = perm[at:at + n]
+        at += n
+    if B > 2 and min(starts[1], starts[2]) >= page:
+        bt[2, 0] = bt[1, 0]
+    if pad:
+        bt[0] = P
+
+    def mk(shape, dt):
+        return to_kv_dtype(torch.randn(shape, generator=gen, device="cuda"), dt)
+
+    q = mk((B, H, C, D), dtype)
+    kc, vc = mk((B, KH, C, D), kv), mk((B, KH, C, D), kv)
+    kp, vp = mk((P + 1, KH, page, D), kv), mk((P + 1, KH, page, D), kv)
+    st = torch.tensor(starts, dtype=torch.int64, device="cuda")
+    return q, kc, vc, kp, vp, bt.cuda(), st
+
+
+def _prefill_check(args, window) -> tuple:
+    """The kernel's output and (max abs err, max rel err, worst err/bound)
+    against the f32 twin on the same inputs: bf16 on the tensor cores
+    within ``paged_prefill_bf16_bound``, bf16 at other head dims within
+    2^-8 |ref| + 1e-4 (f32 P.V), f32 within 1e-4."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+        paged_prefill_bf16_bound,
+    )
+
+    q, kc, vc, kp, vp, bt, st = args
+    out = paged_prefill_attention(q, kc, vc, kp, vp, bt, st, window=window)
+    wide = [t.float() for t in (q, kc, vc, kp, vp)]
+    ref = paged_prefill_attention_plain(*wide, bt, st, window=window)
+    bound = None
+    if q.dtype == torch.bfloat16 and q.shape[3] in kernels.PAGED_MMA_HEAD_DIMS:
+        bound = paged_prefill_bf16_bound(*wide, bt, st, ref, window=window)
+    torch.cuda.synchronize()
+    return out, compare(out, ref, bound)
+
+
+def whole_block_scatter(pool, chunk, block_tables, starts, valids) -> None:
+    """The page write the token write replaced (a reference only): each
+    row's logical view gathered, the chunk written into it at ``min(start,
+    S - C)``, and every block overlapping ``[start, start + valid)`` written
+    back whole, the others to the dump page; in place."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import gather_paged_rows
+
+    P, KH, page, D = pool.shape[0] - 1, pool.shape[1], pool.shape[2], pool.shape[3]
+    B, NB = block_tables.shape
+    C = chunk.shape[2]
+    S = NB * page
+    rows = gather_paged_rows(pool, block_tables)
+    wpos = starts.clamp(max=S - C)[:, None] + torch.arange(C, device=pool.device)[None, :]
+    rows[torch.arange(B, device=pool.device)[:, None], :, wpos, :] = chunk.transpose(1, 2)
+    blk = torch.arange(NB, device=pool.device)[None, :]
+    write = (((blk + 1) * page > starts[:, None])
+             & (blk * page < (starts + valids)[:, None]))
+    tgt = torch.where(write, block_tables.long().clamp(max=P), P).reshape(-1)
+    pool[tgt] = rows.reshape(B, KH, NB, page, D).transpose(1, 2).reshape(B * NB, KH, page, D)
+
+
+def _token_write_equal(args, valids) -> bool:
+    """Whether the token write (``llama._write_chunk_tokens`` at
+    ``_chunk_write_targets``) leaves the pages [0, P) bitwise as the whole
+    block scatter does, K and V."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.models import llama
+
+    q, kc, vc, kp, vp, bt, st = args
+    P, page = kp.shape[0] - 1, kp.shape[2]
+    pages, offsets = llama._chunk_write_targets(bt, st, valids, kc.shape[2], page, P)
+    same = True
+    for pool, chunk in ((kp, kc), (vp, vc)):
+        got, want = pool.clone(), pool.clone()
+        llama._write_chunk_tokens(got, chunk, pages, offsets)
+        whole_block_scatter(want, chunk, bt, st, valids)
+        same &= torch.equal(got[:P].view(torch.uint8), want[:P].view(torch.uint8))
+    return same
+
+
+def prefill_live(starts, C, S, window=None) -> tuple:
+    """(query-key pairs the mask keeps, pool keys read: live positions
+    outside the chunk's write window) of a chunk at ``starts``."""
+    pairs = pool_keys = 0
+    for s in starts:
+        lo_all = S
+        for i in range(C):
+            pos = s + i
+            lo = 0 if window is None else max(0, pos - window + 1)
+            hi = min(pos, S - 1)
+            pairs += max(0, hi - lo + 1)
+            lo_all = min(lo_all, lo)
+        ws = min(s, S - C)
+        top = min(s + C - 1, S - 1)
+        live = set(range(lo_all, top + 1)) - set(range(ws, ws + C))
+        pool_keys += len(live)
+    return pairs, pool_keys
+
+
+def prefill_bound_ms(args, window=None) -> tuple:
+    """Least time for the same work: 4 D operations per kept (query head,
+    key) pair at the bf16 tensor-core peak, against q read and out written
+    once, the chunk's K/V read once and each row's live pool keys read once
+    (at the pool's bytes a value), the block tables and starts, at the HBM
+    rate."""
+    q, kc, vc, kp, vp, bt, st = args
+    B, H, C, D = q.shape
+    KH, page = kp.shape[1], kp.shape[2]
+    S = bt.shape[1] * page
+    pairs, pool_keys = prefill_live(st.tolist(), C, S, window)
+    flops = 4.0 * H * D * pairs
+    nbytes = (2 * B * H * C * D * q.element_size() + 2 * B * KH * C * D * kc.element_size()
+              + 2 * pool_keys * KH * D * kp.element_size() + bt.numel() * 4 + B * 8)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def prefill_library_call(args, window=None):
+    """The library yardstick of a paged prefill call (the port never calls
+    it): each row's pages gathered dense, the chunk written in, widened to
+    q's dtype, then one ``scaled_dot_product_attention`` under the mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from django_assistant_bot_tpu_torch.ops.attention import _prefill_mask, gather_paged_rows
+
+    q, kc, vc, kp, vp, bt, st = args
+    B, C = q.shape[0], q.shape[2]
+    S = bt.shape[1] * kp.shape[2]
+    mask = _prefill_mask(st, C, S, window)
+    wpos = st.clamp(max=S - C)[:, None] + torch.arange(C, device=q.device)[None, :]
+    rows = torch.arange(B, device=q.device)[:, None]
+
+    def call():
+        k, v = gather_paged_rows(kp, bt), gather_paged_rows(vp, bt)
+        k[rows, :, wpos, :] = kc.transpose(1, 2)
+        v[rows, :, wpos, :] = vc.transpose(1, 2)
+        return F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype), attn_mask=mask,
+                                              enable_gqa=True)
+
+    return call
+
+
+def check_chunked_prefill(gen) -> None:
+    """The paged prefill kernel's contiguous form over the legacy slot cache
+    (``chunked_prefill_attention``: 8 slots of 4,096 keys, Llama-3-8B's
+    heads): 4 suffix rows from 40 / 64 / 100 / 3,584 and a pad row aliasing
+    slot 2, bf16 within ``paged_prefill_bf16_bound``'s formula (A over the
+    slot rows) and f32 over an e4m3 cache within 1e-4, against
+    ``chunked_prefill_attention_plain``."""
+    import torch
+
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        chunked_prefill_attention,
+        chunked_prefill_attention_plain,
+    )
+    from django_assistant_bot_tpu_torch.ops.quant import to_kv_dtype
+
+    slots = torch.tensor([2, 0, 2, 5, 7], device="cuda")
+    starts = torch.tensor([0, 40, 64, 100, 3584], device="cuda")
+    for qdt, kvdt, window in ((torch.bfloat16, torch.bfloat16, None),
+                              (torch.bfloat16, torch.bfloat16, 100),
+                              (torch.float32, torch.float8_e4m3fn, None)):
+        def mk(shape, dt):
+            return to_kv_dtype(torch.randn(shape, generator=gen, device="cuda"), dt)
+
+        q = mk((5, 32, 128, 128), qdt)
+        kc, vc = mk((5, 8, 128, 128), kvdt), mk((5, 8, 128, 128), kvdt)
+        kcache, vcache = mk((8, 8, 4096, 128), kvdt), mk((8, 8, 4096, 128), kvdt)
+        out = chunked_prefill_attention(q, kc, vc, kcache, vcache, slots, starts, window=window)
+        wide = [t.float() for t in (q, kc, vc, kcache, vcache)]
+        ref = chunked_prefill_attention_plain(*wide, slots, starts, window=window)
+        bound = None
+        if qdt == torch.bfloat16:  # paged_prefill_bf16_bound's formula over the slot rows
+            a = chunked_prefill_attention_plain(wide[0], wide[1], wide[2].abs(), wide[3],
+                                                wide[4].abs(), slots, starts, window=window)
+            bound = 2.0 ** -8 * (ref.abs() + a) + 1e-4
+        torch.cuda.synchronize()
+        err, rel, ratio = compare(out, ref, bound)
+        log(f"  paged prefill, contiguous form (legacy slot cache 8 x 4,096, rows at 40 / 64 / "
+            f"100 / 3,584 and a pad row, C 128, {str(qdt)[6:]} q, {str(kvdt)[6:]} cache, "
+            f"window={window}): max_abs_err {err:.3e}, max_rel_err {rel:.3e}, worst err/bound "
+            f"{ratio:.3f} ({BF16_P_TEXT if qdt == torch.bfloat16 else tol_text(qdt)})")
+        if not ratio <= 1.0:
+            fail(f"chunked_prefill_attention disagrees with its plain twin: err/bound {ratio}")
+
+
+def check_paged_prefill(gen) -> dict:
+    """``paged_prefill`` (a prefill chunk's, or a prefix suffix wave's,
+    attention over its rows' pages) against its twin at the main path's
+    shapes: Llama-3-8B's heads (H 32, KH 8, D 128), page 512, an 8-page
+    chain, C 512 at starts 0, 511, 512, 1536 and 3584; a 4-row suffix wave
+    at C 32 and 128 with starts 40 / 64 / 100, a COW boundary page, a pad
+    row and sentinel blocks, at page 512 and page 16 (tiles across pages);
+    window 100; e4m3 and e5m2 pools; D 64; bf16 at D 256 and f32 queries
+    over f32, bf16, e4m3 and e5m2 pools (the CUDA-core kernel, f32 also at
+    the tiny model's D 16).  bf16 on the tensor cores within
+    ``paged_prefill_bf16_bound``, f32 within 1e-4; each call on its form
+    (``kernels.PAGED_PREFILL_FORMS``), two bf16 calls bitwise equal, and
+    the token write's pages bitwise equal to the whole-block scatter's.
+    Then the chunk at starts 0 and 3584: wall and device ms, the bound and
+    its share, the plain twin's time and the library yardstick
+    (:func:`prefill_library_call`)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    wave = [0, 40, 64, 100]
+    cases = [  # (label, B, H, KH, D, page, NB, C, starts, q dtype, pool format, window, pad)
+        *[(f"chunk start {s}", 1, 32, 8, 128, 512, 8, 512, [s], bf16, None, None, False)
+          for s in (0, 511, 512, 1536, 3584)],
+        *[(f"suffix wave C {c} page {pg}", 4, 32, 8, 128, pg, 4096 // pg, c, wave, bf16, None,
+           None, True) for c in (32, 128) for pg in (512, 16)],
+        ("chunk start 1536 window 100", 1, 32, 8, 128, 512, 8, 512, [1536], bf16, None, 100,
+         False),
+        ("e4m3 pool", 1, 32, 8, 128, 512, 8, 512, [1536], bf16, "e4m3", None, False),
+        ("e5m2 pool window 100", 1, 32, 8, 128, 512, 8, 512, [1536], bf16, "e5m2", 100, False),
+        ("e4m3 suffix wave", 4, 32, 8, 128, 512, 8, 128, wave, bf16, "e4m3", None, True),
+        ("D 64", 1, 32, 8, 64, 512, 8, 512, [1536], bf16, None, None, False),
+        ("bf16 D 256 (CUDA cores)", 1, 8, 4, 256, 512, 8, 256, [1000], bf16, None, None, False),
+        ("f32", 1, 8, 2, 128, 512, 8, 512, [1536], f32, None, None, False),
+        ("f32 q, bf16 pool", 1, 8, 2, 128, 512, 8, 512, [1536], f32, "bf16", 100, False),
+        ("f32 q, e4m3 pool", 4, 8, 2, 128, 512, 8, 128, wave, f32, "e4m3", None, True),
+        ("f32 q, e5m2 pool", 1, 8, 2, 128, 512, 8, 512, [3584], f32, "e5m2", None, False),
+        ("f32 D 16 page 16", 4, 4, 2, 16, 16, 16, 32, wave, f32, None, None, True),
+        ("f32 D 64 window 100", 1, 8, 2, 64, 512, 8, 512, [1536], f32, None, 100, False),
+    ]
+    worst = 0.0
+    for label, B, H, KH, D, page, NB, C, starts, dtype, fmt, window, pad in cases:
+        args = _prefill_case(B, H, KH, D, page, NB, C, starts, dtype, fmt, gen, pad=pad)
+        mma = dtype == bf16 and D in kernels.PAGED_MMA_HEAD_DIMS
+        form = f"{'mma' if mma else 'cuda_core'}:{kernels.paged_read(dtype, args[3].dtype)}"
+        before = kernels.PAGED_PREFILL_FORMS[form]
+        out, (err, rel, ratio) = _prefill_check(args, window)
+        text = BF16_P_TEXT if mma else tol_text(dtype)
+        valids = torch.tensor([0 if pad and b == 0 else C - 3 * b for b in range(B)],
+                              device="cuda")
+        same = _token_write_equal(args, valids)
+        log(f"  paged prefill {label} (B={B} H={H} KH={KH} D={D} page={page} NB={NB} C={C} "
+            f"starts {starts} {str(dtype)[6:]} q, {fmt or 'native'} pool, window={window}): "
+            f"max_abs_err {err:.3e}, max_rel_err {rel:.3e}, worst err/bound {ratio:.3f} "
+            f"({text}), form {form}; token write {'bitwise equal to' if same else 'DIFFERS from'} "
+            f"the whole-block scatter")
+        if kernels.PAGED_PREFILL_FORMS[form] != before + 1:
+            fail(f"paged prefill ({label}) did not take {form}")
+        if not ratio <= 1.0:
+            fail(f"paged_prefill ({label}) disagrees with its plain twin: err/bound {ratio} > 1")
+        if not same:
+            fail(f"paged prefill ({label}): the token write's pages differ from the whole-block "
+                 "scatter's")
+        if mma:
+            worst = max(worst, err)
+            again = paged_prefill_attention(*args, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                fail(f"paged prefill ({label}): two calls on the same inputs differ")
+    check_chunked_prefill(gen)
+    log(f"  paged prefill SASS: {sass_counts(kernels.lib_path('paged_prefill'))}")
+
+    result = {}
+    for start in (0, 3584):
+        args = _prefill_case(1, 32, 8, 128, 512, 8, 512, [start], bf16, None, gen)
+        ms, dev = timed(lambda: paged_prefill_attention(*args), 50)
+        plain_ms = time_ms(lambda: paged_prefill_attention_plain(*args), 5)
+        lib = prefill_library_call(args)
+        lib_err = (lib().float() - paged_prefill_attention(*args).float()).abs().max().item()
+        lib_ms, lib_dev = timed(lib, 20)
+        bound_ms, bound_by = prefill_bound_ms(args)
+        log(f"  paged prefill timing, C 512 at start {start} (B=1 H=32 KH=8 D=128 page=512 NB=8, "
+            f"bf16): kernel wall {ms:.4f} ms (device {dev:.4f}), plain wall {plain_ms:.4f} ms, "
+            f"library (pages gathered, the chunk written in + masked "
+            f"scaled_dot_product_attention) wall {lib_ms:.4f} ms (device {lib_dev:.4f}; max "
+            f"|library - kernel| {lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}); share of "
+            f"the bound: wall {bound_ms / ms:.3f}, device {bound_ms / dev:.3f}")
+        if start == 3584:
+            result.update(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms)
+        else:
+            result.update(start0_ms=ms, start0_device_ms=dev, start0_plain_ms=plain_ms,
+                          start0_bound_ms=bound_ms, start0_library_ms=lib_ms)
+    return {
+        "name": "paged_prefill",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/paged_prefill.cu",
+        "replaces": "django_assistant_bot_tpu/models/llama.py:1134",
+        "max_abs_err": worst,
+        **result,
+    }
 
 
 def knn_bound_ms(Q, live, N, D, k) -> tuple:
@@ -2761,6 +3102,7 @@ def small_reference() -> int:
     the generic qgemm route's launches on the int4 g=8 tiny decoder."""
     import torch
 
+    from django_assistant_bot_tpu_torch import kernels
     from django_assistant_bot_tpu_torch.models import DecoderConfig, llama
     from django_assistant_bot_tpu_torch.serving import ByteTokenizer, GenerationEngine
 
@@ -2786,21 +3128,31 @@ def small_reference() -> int:
     prompts = [torch.randint(1, 255, (n,), generator=torch.Generator().manual_seed(n)).tolist()
                for n in (40, 300, 450, 700)]
 
+    prefill = {}  # the last run's paged prefill launches and chunk / suffix forwards
+
     def run(device, params, **kw):
         # the loop cranked on this thread, so both sides see the same waves
         eng = GenerationEngine(cfg, params, ByteTokenizer(), device=device,
                                max_slots=4, max_seq_len=1024, chunk_size=512, **kw)
         eng._running = True
-        futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
-        with torch.no_grad():
-            for _ in range(1000):
-                if all(f.done() for f in futs):
-                    break
-                eng._loop_iteration()
+        kernels.reset_counts()
+        with counting_suffix_forwards() as fwd:
+            futs = [eng.submit(p, max_tokens=16, temperature=0.0) for p in prompts]
+            with torch.no_grad():
+                for _ in range(1000):
+                    if all(f.done() for f in futs):
+                        break
+                    eng._loop_iteration()
         eng._running = False
+        prefill.update(launches=kernels.LAUNCHES["paged_prefill"],
+                       forwards=fwd[0] + eng._prefill_chunks_piggybacked,
+                       forms=dict(kernels.PAGED_PREFILL_FORMS))
         return [f.result(timeout=0).token_ids for f in futs], eng.decode_path_stats()
 
     ids_gpu, dec = run("cuda", params_gpu)  # graph of the fused 8-step tick, piggyback
+    check_prefill_launches("phase 3, the small f32 engine at the default loop",
+                           prefill["launches"], prefill["forwards"], cfg.num_layers,
+                           prefill["forms"], "cuda_core:native")
     ids_cpu, _ = run("cpu", params_cpu)  # the same loop, eager
     ids_one, dec_one = run("cuda", params_gpu, decode_steps=1)
     log(f"  small model engine greedy ids at the default loop, card (CUDA graph, "
@@ -3566,6 +3918,9 @@ def main_path(card: str) -> dict:
         f"({steps} decode steps and {main['samples'] - steps} activations)")
     if counts["sample"] != main["samples"]:
         fail(f"sampler launches {counts['sample']} != {main['samples']} sampling steps")
+    check_prefill_launches("phase 4, the four requests", counts["paged_prefill"],
+                           main["suffix_forwards"] + main["piggybacked"], cfg.num_layers,
+                           main["prefill_forms"], "mma:native")
     all_ttfts, all_rates = [], []
     for run in reads:
         t, r, _ = _check_dialogs(tok, list(messages.items()), run["results"])
@@ -3578,7 +3933,8 @@ def main_path(card: str) -> dict:
     log(f"  tick_stats: {json.dumps(engine.tick_stats())}")
     obs_on = _tick_reading(main, rates)
     PHASE4.update(ttfts=all_ttfts, rates=all_rates, pool_bytes=pool_bytes(engine),
-                  breakdown=decode_breakdown(cfg, params, engine))
+                  breakdown=decode_breakdown(cfg, params, engine, chunk_starts=(0, 3584)))
+    PHASE4["chunk_split"] = engine_chunk_split(cfg, engine, (0, 3584))
 
     # the obs A/B: the same four requests on an engine with the obs plane off
     spec_off = ModelSpec(name=name, device="cuda", max_slots=8, max_seq_len=4096, obs=False)
@@ -3645,6 +4001,7 @@ def _serve(spec, eng, groups) -> list:
                     kernels.reset_counts()
                     steps0, kv0, tick0 = eng.steps, eng.kv_stats(), _tick_counters(eng)
                     samp0 = sampling_steps(eng)
+                    fwd0, pig0 = suffix[0], eng._prefill_chunks_piggybacked
                     t = time.perf_counter()
                     res = await asyncio.gather(*(_post(session, port, name, m) for m in group))
                     wall = time.perf_counter() - t
@@ -3653,6 +4010,9 @@ def _serve(spec, eng, groups) -> list:
                                     forms=dict(kernels.PAGED_FORMS),
                                     chunked_forms=dict(kernels.CHUNKED_FORMS),
                                     tree_forms=dict(kernels.PAGED_TREE_FORMS),
+                                    prefill_forms=dict(kernels.PAGED_PREFILL_FORMS),
+                                    suffix_forwards=suffix[0] - fwd0,
+                                    piggybacked=eng._prefill_chunks_piggybacked - pig0,
                                     samples=sampling_steps(eng) - samp0,
                                     steps=eng.steps - steps0, kv0=kv0, kv1=eng.kv_stats(),
                                     ticks=[b - a for a, b in zip(tick0, _tick_counters(eng))]))
@@ -3660,7 +4020,71 @@ def _serve(spec, eng, groups) -> list:
         finally:
             await runner.cleanup()  # stops the registry's engines
 
-    return asyncio.run(drive())
+    with counting_suffix_forwards() as suffix:
+        return asyncio.run(drive())
+
+
+@contextlib.contextmanager
+def counting_suffix_forwards():
+    """Count the eager ``llama.prefill_suffix_paged`` calls (a wave of
+    prefix suffixes, or an eager chunk: ``prefill_chunk_paged`` calls it)
+    made while the block runs, on any thread; yields the one-element
+    counter.  A chunk replayed in the piggyback graph is not a call: the
+    engine counts those (``_prefill_chunks_piggybacked``)."""
+    from django_assistant_bot_tpu_torch.models import llama
+
+    calls = [0]
+    real = llama.prefill_suffix_paged
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    llama.prefill_suffix_paged = counted
+    try:
+        yield calls
+    finally:
+        llama.prefill_suffix_paged = real
+
+
+# calls of the paged prefill twin on CUDA tensors once phase 2 is done (the
+# served path must launch the kernel; guard_prefill_twin installs the count)
+PREFILL_TWIN_ON_CARD = [0]
+
+
+def guard_prefill_twin() -> None:
+    """From here on, count calls of ``paged_prefill_attention_plain`` on
+    CUDA tensors in :data:`PREFILL_TWIN_ON_CARD` (phase 2 runs the twin on
+    the card as its reference; nothing after it may)."""
+    import importlib
+
+    # the module (the package's ``ops.attention`` name is the dispatch function)
+    attention = importlib.import_module(f"{PKG}.ops.attention")
+    plain = attention.paged_prefill_attention_plain
+
+    def counted(q, *a, **kw):
+        if q.device.type == "cuda":
+            PREFILL_TWIN_ON_CARD[0] += 1
+        return plain(q, *a, **kw)
+
+    attention.paged_prefill_attention_plain = counted
+
+
+def check_prefill_launches(label: str, launches: int, forwards: int, layers: int,
+                           forms=None, read=None) -> None:
+    """``paged_prefill`` launches = ``layers`` x the chunk and suffix
+    forwards (eager calls and piggybacked chunks), every one on ``read``
+    ("<route>:<read>") where it is given, and no twin call on the card."""
+    on_read = forms.get(read, 0) if forms is not None else launches
+    log(f"  {label}: paged_prefill launches {launches} for {forwards} chunk / suffix forwards "
+        f"({layers} layers){f', {read} {on_read}' if read else ''}; paged prefill twin calls on "
+        f"the card so far {PREFILL_TWIN_ON_CARD[0]}")
+    if forwards <= 0 or launches != layers * forwards:
+        fail(f"{label}: paged_prefill launches {launches} != {layers} x {forwards} forwards")
+    if read is not None and on_read != launches:
+        fail(f"{label}: paged_prefill launches left the {read} form: {forms}")
+    if PREFILL_TWIN_ON_CARD[0]:
+        fail(f"{label}: the paged prefill twin ran on the card {PREFILL_TWIN_ON_CARD[0]} times")
 
 
 # phase 4's bf16-pool readings, which phase 12 sets its fp8 pools beside
@@ -3741,6 +4165,10 @@ def rag_wave_report(cfg, engine, tok, rag, first, alone, rest) -> None:
         fail(f"RAG wave: paged launches {counts['paged_decode']} != {cfg.num_layers} x {steps}")
     if engine.decode_path_stats()["prefill_chunks_piggybacked"] < 1:
         fail("RAG wave: no chunk piggybacked")
+    forms = {f: sum(r["prefill_forms"][f] for r in runs) for f in first["prefill_forms"]}
+    check_prefill_launches("RAG wave", counts["paged_prefill"],
+                           sum(r["suffix_forwards"] + r["piggybacked"] for r in runs),
+                           cfg.num_layers, forms, "mma:native")
 
 
 def hit_vs_cold(cfg, tok, chats, hit_logits, cold_logits, hit_runs, cold_runs) -> None:
@@ -3882,6 +4310,92 @@ def _event_span_ms(fn, n: int) -> list:
     return spans
 
 
+# the parts of a Llama chunk forward's device time: the kernels launched
+# inside the named llama functions (before the paged prefill plane's and
+# after: a split of either tree), the rest apart
+CHUNK_PARTS = {
+    "attention": ("gqa_dot_product_attention", "paged_prefill_attention"),
+    "gather_write": ("_gather_paged_rows", "_scatter_paged_rows", "_chunk_write_targets",
+                     "_write_chunk_tokens"),
+    "gemm": ("qeinsum", "qeinsum_group"),
+}
+# kernels launched through ctypes have no PyTorch op to link them to a
+# range; they go to their part by name
+CHUNK_KERNEL_PARTS = {"paged_prefill": "attention"}
+
+
+def llama_chunk_split(run, label: str, profiles: int = 3) -> dict:
+    """Device ms of one eager call of ``run`` (a Llama chunk forward): the
+    median of ``profiles`` torch.profiler profiles, split into
+    ``CHUNK_PARTS`` (each llama function wrapped in a ``record_function``
+    range for the profiles; a range's device time is the kernels launched
+    inside it), the rest and the total.  A profile that comes back without
+    kernel records is taken again (at most twice as many as asked)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from django_assistant_bot_tpu_torch.models import llama
+
+    saved = []
+    for part, names in CHUNK_PARTS.items():
+        for name in names:
+            fn = getattr(llama, name, None)
+            if fn is None:
+                continue
+
+            def ranged(*a, _fn=fn, _tag=f"chunk_split:{part}", **kw):
+                with record_function(_tag):
+                    return _fn(*a, **kw)
+
+            saved.append((name, fn))
+            setattr(llama, name, ranged)
+    parts, tops = [], []
+    try:
+        with torch.no_grad():
+            run()
+            torch.cuda.synchronize()
+            for _ in range(3 * profiles):
+                if len(parts) == profiles:
+                    break
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    run()
+                    torch.cuda.synchronize()
+                # kernels only: the ranges' device-side annotations are spans
+                kern = {e.key: _device_us(e) / 1e3 for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.key.startswith("chunk_split:") and _device_us(e) > 0}
+                total = sum(kern.values())
+                if total <= 0:
+                    log("  torch.profiler saw no device time; profiling the chunk again")
+                    continue
+                part = dict.fromkeys(CHUNK_PARTS, 0.0)
+                for e in prof.events():
+                    if (e.name.startswith("chunk_split:")
+                            and e.device_type == torch.autograd.DeviceType.CPU):
+                        part[e.name.split(":", 1)[1]] += e.device_time_total / 1e3
+                for word, name in CHUNK_KERNEL_PARTS.items():
+                    by_name = sum(ms for k, ms in kern.items() if word in k)
+                    if part[name] < by_name:  # not linked to the range: add them
+                        part[name] += by_name
+                part["rest"] = total - sum(part.values())
+                part["total"] = total
+                parts.append(part)
+                tops.append(sorted(kern.items(), key=lambda kv: -kv[1])[:6])
+    finally:
+        for name, fn in saved:
+            setattr(llama, name, fn)
+    if not parts:
+        log(f"  {label}: not measured (torch.profiler saw no device time)")
+        return {}
+    med = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    log(f"  {label}, device ms (median of {len(parts)} profiles): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+    top = tops[sorted(range(len(parts)), key=lambda i: parts[i]["total"])[(len(parts) - 1) // 2]]
+    log("    its costliest kernels (the median profile): "
+        + "; ".join(f"{ms:.4f} ms {name[:70]}" for name, ms in top))
+    return med
+
+
 # profiled batches of the eager step in a decode breakdown (each a
 # torch.profiler trace of ten eager steps), and timed batches of the tick's
 # replays and of the chunk with the tick (the costliest part at Mixtral's
@@ -3892,7 +4406,7 @@ BREAKDOWN_REPLAYS = 4
 
 def decode_breakdown(cfg, params, engine, label: str = "", kv_dtype=None,
                      attn_fp8: bool = False, batches: int = BREAKDOWN_BATCHES,
-                     chunk: bool = True) -> dict:
+                     chunk: bool = True, chunk_starts: tuple = ()) -> dict:
     """Where a full-width decode step's time goes: 8 slots at ragged
     positions; the eager step (a fresh pool, ``decode_step_paged`` issued op
     by op; torch.profiler's kernel time), then the engine's captured 8-step
@@ -3902,12 +4416,15 @@ def decode_breakdown(cfg, params, engine, label: str = "", kv_dtype=None,
     events around the graph's launch (the span also holds the card's wait
     for the launch), and its idle share is not measured.  Last, a
     512-token chunk with the tick: one replay of the piggyback graph against
-    the chunk issued eagerly, then the tick's replay.  ``kv_dtype`` and
-    ``attn_fp8`` set the eager step's pool and read (the engine's tick has
-    its own); ``batches`` is the eager step's profiled batches, ``chunk``
-    times the chunk with the tick.  Returns the eager step's medians
-    (``_timed_run``) and the replay's per step, ``replay_ms``
-    (synchronised) and ``span_ms``."""
+    the chunk issued eagerly, then the tick's replay, the chunk on a page
+    chain of sentinels at start 0 and, at each of ``chunk_starts``, on slot
+    0's real chain (the engine's pages 0-7: a chunk at start 3584 reads
+    3,584 live keys).  ``kv_dtype`` and ``attn_fp8`` set the eager step's
+    pool and read (the engine's tick has its own); ``batches`` is the eager
+    step's profiled batches, ``chunk`` times the chunk with the tick.
+    Returns the eager step's medians (``_timed_run``) and the replay's per
+    step, ``replay_ms`` (synchronised) and ``span_ms``, and with ``chunk``
+    the piggyback replay's synchronised ms by chain, ``chunk_tick_ms``."""
     import torch
 
     from django_assistant_bot_tpu_torch.models import llama
@@ -3953,24 +4470,48 @@ def decode_breakdown(cfg, params, engine, label: str = "", kv_dtype=None,
             f"share not measured; {engine._graph_launches.launches['paged_decode'] // K} paged "
             f"launches per step (recorded at capture); graph pool "
             f"{engine.graph_pool_bytes / 2**20:.1f} MiB")
-        if chunk:
-            # the chunk's page chain all sentinels: it writes the dump page
-            # and slot 0's length only (the work of a real chunk: the row is
-            # gathered and written back whole)
-            engine._chunk_bt_dev.fill_(engine._kv_sentinel)
+        chunk_tick = {}
+        # the sentinel chain writes the dump page and slot 0's length only;
+        # a real chain's chunk reads its live keys and writes its own block
+        chains = ([("sentinel chain, start 0", None, 0)] if chunk else []) + [
+            (f"slot 0's real chain, start {s}", bt[0], s) for s in chunk_starts if chunk]
+        for text, chain, s in chains:
+            if chain is None:
+                engine._chunk_bt_dev.fill_(engine._kv_sentinel)
+            else:
+                engine._chunk_bt_dev.copy_(chain[:engine._chunk_bt_dev.shape[0]])
             engine._chunk_slot_dev.zero_()
-            engine._chunk_start_dev.zero_()
+            engine._chunk_start_dev.fill_(s)
             pig = [_sync_and_enqueue_ms(lambda: tick(True), 3, 1)[0]
                    for _ in range(BREAKDOWN_REPLAYS)]
             seq = [_sync_and_enqueue_ms(chunk_then_tick, 3, 1)[0]
                    for _ in range(BREAKDOWN_REPLAYS)]
             pig_span = _event_span_ms(engine._piggyback_graph.replay, BREAKDOWN_REPLAYS)
-            log(f"  {label}a {engine.chunk_size}-token chunk and the {K}-step tick, "
-                f"{BREAKDOWN_REPLAYS} batches of 3: one piggyback replay synchronised {_stat(pig, 'ms')} (graph span "
-                f"{_stat(pig_span, 'ms')}), the chunk eager then the tick's replay "
-                f"synchronised {_stat(seq, 'ms')}")
+            log(f"  {label}a {engine.chunk_size}-token chunk ({text}) and the {K}-step tick, "
+                f"{BREAKDOWN_REPLAYS} batches of 3: one piggyback replay synchronised "
+                f"{_stat(pig, 'ms')} (graph span {_stat(pig_span, 'ms')}), the chunk eager then "
+                f"the tick's replay synchronised {_stat(seq, 'ms')}")
+            chunk_tick[text] = statistics.median(pig)
     return {**eager, "replay_ms": statistics.median(w for w, _ in timing),
-            "span_ms": statistics.median(spans)}
+            "span_ms": statistics.median(spans), "chunk_tick_ms": chunk_tick}
+
+
+def engine_chunk_split(cfg, engine, starts: tuple) -> dict:
+    """The Llama-3-8B eager chunk split (:func:`llama_chunk_split`) of the
+    engine's own chunk forward, ``_chunk_body``, on slot 0's real chain
+    (the engine's pages 0-7) at each of ``starts``: attention, the page
+    write, the GEMMs and the rest, by start."""
+    import torch
+
+    out = {}
+    bt = engine._chunk_bt_dev
+    for s in starts:
+        bt.copy_(torch.arange(bt.numel(), dtype=bt.dtype, device=bt.device))
+        engine._chunk_slot_dev.zero_()
+        engine._chunk_start_dev.fill_(s)
+        out[s] = llama_chunk_split(engine._chunk_body, f"Llama-3-8B eager {engine.chunk_size}-"
+                                   f"token chunk at start {s} ({cfg.num_layers} layers)")
+    return out
 
 
 # --------------------------------------------------------------------- phase 5
@@ -5142,6 +5683,9 @@ def fp8_phase(card: str, cfg, params) -> dict:
                  f"{steps} decode steps")
         if forms[form] != counts["paged_decode"]:
             fail(f"{label}: paged launches left the {form} read: {forms}")
+        check_prefill_launches(f"phase 12, {label}", counts["paged_prefill"],
+                               first["suffix_forwards"] + first["piggybacked"], cfg.num_layers,
+                               first["prefill_forms"], f"mma:{fmt}/dequant")
         log(f"  {label} readings over {len(runs)} runs of the four requests [{card}]: TTFT "
             f"{_stat(ttfts)} (phase 4's bf16 pool: {_stat(PHASE4['ttfts'])}); decode "
             f"{_stat(rates, 'tok/s')} per request (phase 4: {_stat(PHASE4['rates'], 'tok/s')}); "
@@ -5771,6 +6315,8 @@ def mixtral_phase(card: str) -> dict:
 
     for fn_name in ("prefill", "prefill_suffix_paged"):
         count(llama, fn_name, forwards, 0, fwd_tokens)
+    suffix = [0]  # the eager chunk / suffix forwards alone (the paged prefill kernel's)
+    count(llama, "prefill_suffix_paged", suffix, 0)
     for fn_name in ("moe_route_plain", "moe_expert_gemm_plain", "moe_combine_plain"):
         count(moe, fn_name, plain_calls, fn_name)
     count(mixtral, "moe_mlp_plain", plain_calls, "moe_mlp_plain")
@@ -5788,7 +6334,7 @@ def mixtral_phase(card: str) -> dict:
                 for _ in range(6):  # the first counted, all six read
                     torch.cuda.synchronize()
                     kernels.reset_counts()
-                    forwards[0] = 0
+                    forwards[0] = suffix[0] = 0
                     fwd_tokens.clear()
                     steps0, pig0 = engine.steps, engine._prefill_chunks_piggybacked
                     samp0 = sampling_steps(engine)
@@ -5798,6 +6344,9 @@ def mixtral_phase(card: str) -> dict:
                     wall = time.perf_counter() - t
                     runs.append(dict(results=res, wall=wall, counts=kernels.launch_counts(),
                                      forms=dict(kernels.MOE_GEMM_FORMS),
+                                     prefill_forms=dict(kernels.PAGED_PREFILL_FORMS),
+                                     suffix=suffix[0] + engine._prefill_chunks_piggybacked
+                                     - pig0,
                                      fwd_tokens=list(fwd_tokens),
                                      piggybacked=engine._prefill_chunks_piggybacked - pig0,
                                      samples=sampling_steps(engine) - samp0,
@@ -5810,7 +6359,7 @@ def mixtral_phase(card: str) -> dict:
     try:
         runs = asyncio.run(drive())
     finally:
-        for module, fn_name, orig in patched:
+        for module, fn_name, orig in reversed(patched):
             setattr(module, fn_name, orig)
     first = runs[0]
     ttfts, rates = [], []
@@ -5846,6 +6395,8 @@ def mixtral_phase(card: str) -> dict:
         fail(f"Mixtral: paged / flash / qgemm launches wrong: {counts}")
     if counts["sample"] != first["samples"]:
         fail(f"Mixtral: sampler launches {counts['sample']} != {first['samples']} sampling steps")
+    check_prefill_launches("phase 10, Mixtral", counts["paged_prefill"], first["suffix"], L,
+                           first["prefill_forms"], "mma:native")
     log(f"  Mixtral readings over {len(runs)} runs of the four requests [{card}]: TTFT "
         f"{_stat(ttfts)}; decode {_stat(rates, 'tok/s')} per request; run wall "
         f"{_stat([r['wall'] for r in runs])}")
@@ -6140,10 +6691,15 @@ def main() -> int:
                check_knn(gen), *check_qgemm(gen), check_qgemm_generic(gen), check_sample(gen),
                *check_moe(gen)]
 
+    entries.append(check_paged_prefill(gen))
+    guard_prefill_twin()
+
     phase(3, "small f32 models, card vs CPU")
     generic_launches = small_reference()
     small_encoder()
     small_moe()
+    if PREFILL_TWIN_ON_CARD[0]:
+        fail(f"phase 3: the paged prefill twin ran on the card {PREFILL_TWIN_ON_CARD[0]} times")
 
     phase(4, "main path, full-width Llama-3-8B over /dialog/")
     counts, dec_spec, dec_engine = main_path(card)

@@ -64,6 +64,7 @@ KERNELS = {
     # the paged decode source's contiguous form: the legacy slot cache read
     # in chunks, with no block table
     "chunked_decode": ("paged_decode", "dabt_chunked_decode"),
+    "paged_prefill": ("paged_prefill", "dabt_paged_prefill"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -122,6 +123,10 @@ _ARGTYPES = {
     # counters, mma, dtype, kv format, in-dot, B, H, KH, S, chunk, D,
     # window, stream
     "chunked_decode": [_P] * 7 + [ctypes.c_longlong, _P] + [_I] * 11 + [_P],
+    # q, k_chunk, v_chunk, k_pool, v_pool, block_tables, starts, out, mma,
+    # dtype, kv format, B, H, KH, C, P, page, NB, D, window, then the element
+    # strides (batch, head, row) of q, of the chunk's K/V and of out, stream
+    "paged_prefill": [_P] * 8 + [_I] * 12 + [ctypes.c_longlong] * 9 + [_P],
 }
 # further C symbols of a library: name -> (argtypes, restype)
 _EXTRA_SYMBOLS = {
@@ -238,12 +243,16 @@ PAGED_TREE_BLOCKS_PER_SM = 1
 PAGED_TREE_MIN_ITEMS = 4
 PAGED_TREE_CHUNK = 64
 PAGED_TREE_NODES = 32
+# paged prefill launches by route and read, as PAGED_TREE_FORMS: "mma" (the
+# tensor-core kernel: bf16 at PAGED_MMA_HEAD_DIMS) or "cuda_core"
+PAGED_PREFILL_FORMS: Dict[str, int] = dict.fromkeys(PAGED_TREE_FORMS, 0)
 # a kernel's launches by kind, for the kernels that count them
 # ("<kernel>_route": a second kind, by route)
 SUBCOUNTS: Dict[str, Dict[str, int]] = {
     "paged_decode": PAGED_FORMS, "qgemm": QGEMM_FORMATS, "qgemm_route": QGEMM_ROUTES,
     "moe_route": MOE_ROUTE_FORMS, "moe_gemm": MOE_GEMM_FORMS,
     "paged_tree": PAGED_TREE_FORMS, "chunked_decode": CHUNKED_FORMS,
+    "paged_prefill": PAGED_PREFILL_FORMS,
 }
 # output columns of a direct-load qgemm block (TILE_N in csrc/qgemm.cu)
 QGEMM_TILE_N = 64
@@ -487,6 +496,35 @@ def flash_prefill(
         )
     _count("flash_prefill")
     _check("flash_prefill", err)
+
+
+def paged_prefill(
+    q: torch.Tensor, k_chunk: torch.Tensor, v_chunk: torch.Tensor, k_pool: torch.Tensor,
+    v_pool: torch.Tensor, block_tables: torch.Tensor, starts: torch.Tensor, out: torch.Tensor,
+    *, mma: bool, window: Optional[int], n_pages: int,
+) -> None:
+    """Launch the paged prefill kernel; the caller validated the arguments
+    (q, the chunk's K/V and out are read and written through their strides,
+    block_tables int32, starts int64; pages ``[0, n_pages)`` of the pools
+    are read, a block-table entry clamped into them).  ``mma`` takes the
+    tensor-core kernel (bf16 at ``PAGED_MMA_HEAD_DIMS``, rows on 16-byte
+    boundaries), else the CUDA-core one; ``PAGED_PREFILL_FORMS`` counts the
+    route and the pool read (:func:`paged_read`)."""
+    B, H, C, D = q.shape
+    _, KH, page, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    fn = _fn("paged_prefill")
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), block_tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
+            int(mma), dtype_code(q.dtype), _KV_CODE[k_pool.dtype], B, H, KH, C, n_pages, page,
+            NB, D, int(window) if window is not None else 0, *q.stride()[:3],
+            *k_chunk.stride()[:3], *out.stride()[:3], _stream(q),
+        )
+    route = "mma" if mma else "cuda_core"
+    _count("paged_prefill", f"{route}:{paged_read(q.dtype, k_pool.dtype)}")
+    _check("paged_prefill", err)
 
 
 def paged_read(q_dtype: torch.dtype, kv_dtype: torch.dtype, fp8_dot: bool = False) -> str:

@@ -55,12 +55,14 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import (
+    chunked_prefill_attention,
     dot_product_attention,
     flash_attention,
     flash_eligible,
     gqa_dot_product_attention,
     chunked_gqa_decode_attention,
     paged_gqa_decode_attention,
+    paged_prefill_attention,
     paged_tree_attention,
 )
 from ..ops.norms import rms_norm
@@ -465,11 +467,14 @@ def prefill_suffix(
     valids: torch.Tensor,  # [B] real (non-pad) tokens per row
 ) -> tuple[torch.Tensor, KVCache]:
     """Continue each row from the prefix already in its slot row: the
-    suffix runs at RoPE positions ``start + i`` against the whole row up to
-    its own position (plain attention, as the JAX function), its K/V
-    written at ``start`` (clamped inside the row), and the rows written back
-    in row order with ``lengths[slot] = start + valid``.  Returns
-    (last-token logits [B, V] f32, cache), the cache updated in place."""
+    suffix runs at RoPE positions ``start + i`` against its row up to its
+    own position (:func:`~..ops.attention.chunked_prefill_attention`: the
+    row as it was with the suffix's K/V written at ``start``, clamped
+    inside the row, as the JAX function's plain attention reads it), then
+    each slot takes the suffix K/V of the last row that names it (the JAX
+    scan's row order, :func:`_last_writer`) and ``lengths[slot] = start +
+    valid``.  Returns (last-token logits [B, V] f32, cache), the cache
+    updated in place."""
     B, C = input_ids.shape
     S = cache.max_len
     dev = input_ids.device
@@ -479,28 +484,25 @@ def prefill_suffix(
     rope_pos = pos.clamp(max=S - 1)
     cos, sin = cos_t[rope_pos], sin_t[rope_pos]
     x = _embed(params, cfg, input_ids)
-    kpos = torch.arange(S, device=dev)[None, None, None, :]
-    causal_keep = kpos <= pos[:, None, :, None]  # [B, 1, C, S]
     sl = slots.long()
     last = _last_writer(sl)
+    # the last writer's window, written wherever any row of its slot writes
+    wpos = (starts.clamp(0, S - C)[:, None] + torch.arange(C, device=dev)[None, :])[last]
     for l, window in enumerate(_layer_windows(cfg)):
-        attn_mask = causal_keep
-        if window is not None:
-            attn_mask = attn_mask & (kpos > pos[:, None, :, None] - window)
         p = _layer(params, l)
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _attn_proj(cfg, p, h, cos, sin)
-        k_row = cache.k[l][sl]  # [B, KH, S, D], the rows as they were
-        v_row = cache.v[l][sl]
-        _write_cache(k_row, k, starts)
-        _write_cache(v_row, v, starts)
-        o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
+        kc = to_kv_dtype(k, cache.k.dtype)
+        vc = to_kv_dtype(v, cache.v.dtype)
+        o = chunked_prefill_attention(q, kc, vc, cache.k[l], cache.v[l], sl, starts,
+                                      window=window)
+        # advanced indices (dims 0 and 2) around a slice: values [B, C, KH, D]
+        cache.k[l][sl[:, None], :, wpos, :] = kc[last].transpose(1, 2)
+        cache.v[l][sl[:, None], :, wpos, :] = vc[last].transpose(1, 2)
         o = o.transpose(1, 2).reshape(B, C, -1)
         x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
         h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
         x = x + _mlp(cfg, p, h)
-        cache.k[l][sl] = k_row[last]
-        cache.v[l][sl] = v_row[last]
     cache.lengths[sl] = (starts + valids.long()).to(cache.lengths.dtype)[last]
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last_tok = x[torch.arange(B, device=dev), (valids.long() - 1).clamp(min=0)]
@@ -746,34 +748,40 @@ def init_paged_cache(
     )
 
 
-def _gather_paged_rows(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
-    """One layer's logical rows from its pages: ``pool`` [P + 1, KH, page, D],
-    ``block_tables`` [B, NB] -> [B, KH, NB * page, D].  Unallocated blocks
-    gather a clamped page (``P - 1``) that the caller masks."""
-    P = pool.shape[0] - 1
-    _, KH, page, D = pool.shape
-    B, NB = block_tables.shape
-    phys = block_tables.long().clamp(0, P - 1).reshape(-1)
-    rows = pool[phys].reshape(B, NB, KH, page, D)
-    return rows.transpose(1, 2).reshape(B, KH, NB * page, D)
-
-
-def _scatter_paged_rows(
-    pool: torch.Tensor,  # [P + 1, KH, page, D] one layer
-    rows: torch.Tensor,  # [B, KH, NB * page, D] updated logical rows
+def _chunk_write_targets(
     block_tables: torch.Tensor,  # [B, NB]
-    write: torch.Tensor,  # [B, NB] bool: the logical blocks this call wrote
-) -> None:
-    """Write back only the ``write`` blocks of each row (earlier blocks may
-    be shared prefix pages, which must never be rewritten): the others, and
-    sentinel entries, land in the dump page (the JAX write mask's dropped
-    rows), so the write has one shape whatever the chunk's start."""
-    P = pool.shape[0] - 1
-    _, KH, page, D = pool.shape
-    B, NB = block_tables.shape
-    tgt = torch.where(write, block_tables.long().clamp(max=P), P).reshape(-1)
-    blocks = rows.reshape(B, KH, NB, page, D).transpose(1, 2).reshape(B * NB, KH, page, D)
-    pool[tgt] = to_kv_dtype(blocks, pool.dtype)
+    starts: torch.Tensor,  # [B] int64
+    valids: torch.Tensor,  # [B]
+    C: int,
+    page: int,
+    P: int,
+) -> tuple:
+    """Where a chunk's C tokens land: ``(pages, offsets)``, both [B, C].
+    Token i of row b sits at ``min(start, S - C) + i`` (the write window,
+    clamped inside the row as ``dynamic_update_slice`` does) and goes to
+    that position's page when its logical block overlaps ``[start, start +
+    valid)``, the JAX write mask; else, and for a sentinel entry, to the
+    dump page ``P``.  Blocks below are shared prefix pages, which must never
+    be rewritten.  The pools so get the bytes the JAX scatter of whole
+    written blocks gives them: a written block's other positions keep the
+    page's own values."""
+    NB = block_tables.shape[1]
+    S = NB * page
+    wpos = starts.clamp(max=S - C)[:, None] + torch.arange(C, device=starts.device)[None, :]
+    nb = torch.arange(NB, device=starts.device)[None, :]
+    written = ((nb + 1) * page > starts[:, None]) & (nb * page < (starts + valids.long())[:, None])
+    blk = wpos // page
+    write = torch.gather(written, 1, blk)
+    phys = torch.gather(block_tables.long(), 1, blk)
+    return torch.where(write, phys.clamp(max=P), P), wpos % page
+
+
+def _write_chunk_tokens(pool: torch.Tensor, chunk: torch.Tensor, pages: torch.Tensor,
+                        offsets: torch.Tensor) -> None:
+    """``pool`` [P + 1, KH, page, D] (one layer) takes ``chunk`` [B, KH, C,
+    D] (in the pool's dtype) at (``pages``, ``offsets``) [B, C], in place."""
+    # advanced indices (dims 0 and 2) around a slice: values [B, C, KH, D]
+    pool[pages, :, offsets, :] = chunk.transpose(1, 2)
 
 
 def _set_lengths(lengths: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> None:
@@ -835,52 +843,42 @@ def prefill_suffix_paged(
     starts: torch.Tensor,  # [B] tokens already present (the prefix length)
     valids: torch.Tensor,  # [B] real (non-pad) tokens per row
 ) -> tuple[torch.Tensor, PagedKVCache]:
-    """Continue each row from its shared prefix: gather the row's logical
-    view from its pages, run the suffix forward at RoPE positions ``start +
-    i`` against the whole row (causal, plain attention as in the JAX
-    function), then write back only the blocks overlapping ``[start, start +
-    valid)``.  Blocks below are the shared prefix pages, physically shared
-    with other requests, so they are never rewritten (the others land in the
-    dump page).  Returns (last-token logits [B, V] f32, cache)."""
+    """Continue each row from its shared prefix: the suffix forward at RoPE
+    positions ``start + i`` against the row's keys up to its own position
+    (causal; :func:`~..ops.attention.paged_prefill_attention`, which reads
+    the row's pages through its block table and the chunk's own K/V, the
+    JAX function's gather + write + plain attention), then each layer's
+    chunk tokens written into their pages, only in the blocks overlapping
+    ``[start, start + valid)``.  Blocks below are the shared prefix pages,
+    physically shared with other requests, so they are never rewritten (the
+    other tokens land in the dump page).  Returns (last-token logits [B, V]
+    f32, cache)."""
     B, C = input_ids.shape
-    NB = block_tables.shape[1]
-    page = cache.page_size
-    S = NB * page
+    P, page = cache.n_pages, cache.page_size
+    S = block_tables.shape[1] * page
     dev = input_ids.device
-    ar = torch.arange(C, device=dev)
     starts = starts.long()
-    pos = starts[:, None] + ar[None, :]
-    # the write window, clamped inside the row as dynamic_update_slice does
-    wpos = starts.clamp(max=S - C)[:, None] + ar[None, :]
+    pos = starts[:, None] + torch.arange(C, device=dev)[None, :]
     cos_t, sin_t = _rope_tables(cfg, S, dev)
     rope_pos = pos.clamp(max=S - 1)
     cos, sin = cos_t[rope_pos], sin_t[rope_pos]
     x = _embed(params, cfg, input_ids)
-    kpos = torch.arange(S, device=dev)[None, None, None, :]
-    causal_keep = kpos <= pos[:, None, :, None]
-    rows = torch.arange(B, device=dev)[:, None]
-    blk = torch.arange(NB, device=dev)[None, :]
-    ends = (starts + valids.long())[:, None]
-    write = ((blk + 1) * page > starts[:, None]) & (blk * page < ends)
+    pages, offsets = _chunk_write_targets(block_tables, starts, valids, C, page, P)
     for l, window in enumerate(_layer_windows(cfg)):
-        attn_mask = causal_keep
-        if window is not None:
-            attn_mask = attn_mask & (kpos > pos[:, None, :, None] - window)
         p = _layer(params, l)
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _attn_proj(cfg, p, h, cos, sin)
-        k_row = _gather_paged_rows(cache.k[l], block_tables)
-        v_row = _gather_paged_rows(cache.v[l], block_tables)
-        k_row[rows, :, wpos, :] = to_kv_dtype(k.transpose(1, 2), k_row.dtype)
-        v_row[rows, :, wpos, :] = to_kv_dtype(v.transpose(1, 2), v_row.dtype)
-        o = gqa_dot_product_attention(q, k_row, v_row, mask=attn_mask)
+        kc = to_kv_dtype(k, cache.k.dtype)
+        vc = to_kv_dtype(v, cache.v.dtype)
+        o = paged_prefill_attention(q, kc, vc, cache.k[l], cache.v[l], block_tables, starts,
+                                    window=window)
+        _write_chunk_tokens(cache.k[l], kc, pages, offsets)
+        _write_chunk_tokens(cache.v[l], vc, pages, offsets)
         o = o.transpose(1, 2).reshape(B, C, -1)
         x = x + qeinsum("bso,oe->bse", o, p["wo"], cfg.dtype)
         h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
         x = x + _mlp(cfg, p, h)
-        _scatter_paged_rows(cache.k[l], k_row, block_tables, write)
-        _scatter_paged_rows(cache.v[l], v_row, block_tables, write)
-    _set_lengths(cache.lengths, slots, ends[:, 0])
+    _set_lengths(cache.lengths, slots, starts + valids.long())
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = x[torch.arange(B, device=dev), (valids.long() - 1).clamp(min=0)]
     logits = _head_logits(params, cfg, last)

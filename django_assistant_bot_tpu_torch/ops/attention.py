@@ -6,6 +6,14 @@ hand-written Hopper kernels of the serving path.
 - :func:`flash_attention` — blocked online-softmax prefill.  On a CUDA
   tensor it launches ``csrc/flash_prefill.cu``; on a CPU tensor it runs
   :func:`flash_attention_plain`.
+- :func:`paged_prefill_attention` — a prefill chunk (or a wave of prefix
+  suffixes) at a query offset against its rows' pages plus its own K/V.
+  On a CUDA tensor it launches ``csrc/paged_prefill.cu``; on a CPU tensor
+  it runs :func:`paged_prefill_attention_plain`, the gather + write +
+  masked plain attention the JAX function composes.  bf16 outputs are held
+  to :func:`paged_prefill_bf16_bound` on the card.
+  :func:`chunked_prefill_attention` is the same over the legacy slot
+  cache (the kernel's contiguous form: every slot row one page).
 - :func:`paged_gqa_decode_attention` — one query per slot against a page
   pool.  On a CUDA tensor it launches ``csrc/paged_decode.cu``; on a CPU
   tensor it runs :func:`paged_gqa_decode_attention_plain`, which mirrors the
@@ -277,6 +285,250 @@ def attention(
     return dot_product_attention(
         q, k, v, causal=causal, mask=mask, q_offset=q_offset, window=window
     )
+
+
+# ---------------------------------------------------------------------------
+# Paged prefill (a chunk or a suffix at a query offset): Hopper kernel + plain twin
+# ---------------------------------------------------------------------------
+
+_PAGED_PREFILL_TILE = 64  # the kernel's query and key tile
+_PAGED_PREFILL_HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+
+
+def gather_paged_rows(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """One layer's logical rows from its pages: ``pool`` [P + 1, KH, page, D],
+    ``block_tables`` [B, NB] -> [B, KH, NB * page, D].  Unallocated blocks
+    gather a clamped page (``P - 1``) that the caller masks."""
+    P = pool.shape[0] - 1
+    _, KH, page, D = pool.shape
+    B, NB = block_tables.shape
+    phys = block_tables.long().clamp(0, P - 1).reshape(-1)
+    rows = pool[phys].reshape(B, NB, KH, page, D)
+    return rows.transpose(1, 2).reshape(B, KH, NB * page, D)
+
+
+def _prefill_mask(starts: torch.Tensor, C: int, S: int, window: Optional[int]) -> torch.Tensor:
+    """[B, 1, C, S] keep-mask of a chunk at ``starts``: ``kpos <= pos`` (and
+    ``kpos > pos - window``), ``pos = start + i``."""
+    pos = starts.long()[:, None] + torch.arange(C, device=starts.device)[None, :]
+    kpos = torch.arange(S, device=starts.device)[None, None, None, :]
+    keep = kpos <= pos[:, None, :, None]
+    if window is not None:
+        keep = keep & (kpos > pos[:, None, :, None] - window)
+    return keep
+
+
+def paged_prefill_attention_plain(
+    q: torch.Tensor,  # [B, H, C, D]
+    k_chunk: torch.Tensor,  # [B, KH, C, D] in the pool's dtype
+    v_chunk: torch.Tensor,
+    k_pool: torch.Tensor,  # [P + 1, KH, page, D] one layer (page P the dump page)
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, NB]; entries >= P unallocated
+    starts: torch.Tensor,  # [B] tokens already present
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """The JAX composition in plain PyTorch: gather each row's logical view
+    of ``S = NB * page`` keys from its pages (sentinels clamped to page ``P -
+    1``), write the chunk into it at ``min(start, S - C)`` as
+    ``dynamic_update_slice`` clamps, then :func:`gqa_dot_product_attention`
+    under ``kpos <= start + i`` (and the window).  The chunk's K/V come
+    already cast to the pool's dtype (``to_kv_dtype``), as the row holds
+    them, so an fp8 pool's chunk is read rounded.  Returns [B, H, C, D]."""
+    B, C = q.shape[0], q.shape[2]
+    S = block_tables.shape[1] * k_pool.shape[2]
+    k_row = gather_paged_rows(k_pool, block_tables)
+    v_row = gather_paged_rows(v_pool, block_tables)
+    wpos = starts.long().clamp(max=S - C)[:, None] + torch.arange(C, device=q.device)[None, :]
+    rows = torch.arange(B, device=q.device)[:, None]
+    # advanced indices (dims 0 and 2) around a slice: values [B, C, KH, D]
+    k_row[rows, :, wpos, :] = k_chunk.transpose(1, 2)
+    v_row[rows, :, wpos, :] = v_chunk.transpose(1, 2)
+    return gqa_dot_product_attention(q, k_row, v_row, mask=_prefill_mask(starts, C, S, window))
+
+
+def paged_prefill_key_tiles(start: int, C: int, S: int, q0: int, window: Optional[int] = None,
+                            tile: int = _PAGED_PREFILL_TILE) -> tuple:
+    """The key tiles ``[lo, hi)`` (of ``tile`` keys, from position 0) that
+    the kernel's block for query rows ``[q0, q0 + tile)`` of a ``C``-token
+    chunk at ``start`` reads, as ``key_tiles`` in ``csrc/paged_prefill.cu``
+    finds them on the device: up to the tile's last query row's position
+    (inside the row of ``S`` keys), and from the first row's window edge;
+    from 0 where a row's window lies wholly past the row's end (it keeps no
+    key, and the twin's softmax then weighs every key of the row alike)."""
+    last = min(q0 + tile, C) - 1
+    hi = -(-min(S, start + last + 1) // tile)
+    lo = 0
+    if window is not None and start + last - window + 1 < S:
+        lo = min(max(start + q0 - window + 1, 0) // tile, hi)
+    return lo, hi
+
+
+def paged_prefill_bf16_bound(
+    q: torch.Tensor,
+    k_chunk: torch.Tensor,
+    v_chunk: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    starts: torch.Tensor,
+    ref: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-element bound on ``|out - ref|`` for a bf16 paged prefill output
+    of the tensor-core kernel against the f32 plain twin ``ref`` on the same
+    inputs: ``2^-8 |ref| + 2^-8 A + 1e-4``, ``A`` the same attention over
+    ``|v|`` (chunk and pool) -- :func:`flash_bf16_bound`'s formula over the
+    same mask, by the same argument: the kernel rounds each probability to
+    bf16 before P.V while the normaliser sums the unrounded f32 p (at most
+    2^-8 A), and rounds the output (2^-8 |out|); 1e-4 covers the f32
+    summation order.  Widening a bf16 or fp8 page to bf16 is exact."""
+    a = paged_prefill_attention_plain(
+        q.float(), k_chunk.float(), v_chunk.float().abs(), k_pool.float(), v_pool.float().abs(),
+        block_tables, starts, window=window,
+    )
+    return 2.0 ** -8 * (ref.abs() + a) + 1e-4
+
+
+def _aligned_rows(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` (its last dim contiguous) starts on a
+    16-byte boundary, as the tensor-core kernel's 16-byte copies need."""
+    esz = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all((s * esz) % 16 == 0 for s in t.stride()[:-1]))
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,  # [B, H, C, D]
+    k_chunk: torch.Tensor,  # [B, KH, C, D] in the pool's dtype
+    v_chunk: torch.Tensor,
+    k_pool: torch.Tensor,  # [P + 1, KH, page, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, NB] int
+    starts: torch.Tensor,  # [B] int
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal GQA attention of a prefill chunk (or a suffix wave) at query
+    offsets ``starts`` over its rows' pages plus its own K/V.  CPU tensors
+    run the plain twin; CUDA tensors launch ``csrc/paged_prefill.cu`` or
+    raise on what it does not take: the kernel reads each row's live keys
+    through its block table, and the chunk's own K/V in place of the pages
+    at ``[min(start, S - C), + C)``, so no row is gathered and no score
+    reaches device memory.  The output may be a transposed view (the kernel
+    writes ``[B, C, H, D]``, the layout the output projection reads)."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(q, k_chunk, v_chunk, k_pool, v_pool, block_tables,
+                                             starts, window=window)
+    return _prefill_launch("paged_prefill_attention", q, k_chunk, v_chunk, k_pool, v_pool,
+                           block_tables, starts, window, k_pool.shape[0] - 1)
+
+
+def chunked_prefill_attention_plain(
+    q: torch.Tensor,  # [B, H, C, D]
+    k_chunk: torch.Tensor,  # [B, KH, C, D] in the cache's dtype
+    v_chunk: torch.Tensor,
+    k_cache: torch.Tensor,  # [slots, KH, S, D] one layer of the legacy slot cache
+    v_cache: torch.Tensor,
+    slots: torch.Tensor,  # [B] each row's slot (pad rows alias a real one)
+    starts: torch.Tensor,  # [B]
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """The legacy plane's composition (the JAX ``prefill_suffix``): each
+    row's slot row as it is, the chunk written into it at ``min(start, S -
+    C)``, :func:`gqa_dot_product_attention` under ``kpos <= start + i``
+    (and the window).  Returns [B, H, C, D]."""
+    B, C = q.shape[0], q.shape[2]
+    S = k_cache.shape[2]
+    sl = slots.long()
+    k_row, v_row = k_cache[sl], v_cache[sl]
+    wpos = starts.long().clamp(0, S - C)[:, None] + torch.arange(C, device=q.device)[None, :]
+    rows = torch.arange(B, device=q.device)[:, None]
+    k_row[rows, :, wpos, :] = k_chunk.transpose(1, 2)
+    v_row[rows, :, wpos, :] = v_chunk.transpose(1, 2)
+    return gqa_dot_product_attention(q, k_row, v_row, mask=_prefill_mask(starts, C, S, window))
+
+
+def chunked_prefill_attention(
+    q: torch.Tensor,  # [B, H, C, D]
+    k_chunk: torch.Tensor,  # [B, KH, C, D] in the cache's dtype
+    v_chunk: torch.Tensor,
+    k_cache: torch.Tensor,  # [slots, KH, S, D]
+    v_cache: torch.Tensor,
+    slots: torch.Tensor,  # [B] int
+    starts: torch.Tensor,  # [B] int
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`paged_prefill_attention` over the legacy contiguous slot
+    cache.  CPU tensors run :func:`chunked_prefill_attention_plain`; CUDA
+    tensors launch the paged prefill kernel's contiguous form: the cache
+    read as a pool of pages of S keys, every slot one (no dump page), each
+    row's block table its slot."""
+    if q.device.type == "cpu":
+        return chunked_prefill_attention_plain(q, k_chunk, v_chunk, k_cache, v_cache, slots,
+                                               starts, window=window)
+    return _prefill_launch("chunked_prefill_attention", q, k_chunk, v_chunk, k_cache, v_cache,
+                           slots.reshape(-1, 1), starts, window, k_cache.shape[0])
+
+
+def _prefill_launch(site, q, k_chunk, v_chunk, k_pool, v_pool, block_tables, starts, window,
+                    n_pages: int) -> torch.Tensor:
+    """Validate a CUDA call of the paged prefill kernel (pages ``[0,
+    n_pages)`` of the pools readable) and launch it, or raise."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{site}: unsupported device {q.device}")
+    B, H, C, D = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != D:
+        raise ValueError(f"{site}: bad pool shapes {tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    KH, page = k_pool.shape[1], k_pool.shape[2]
+    if H % KH:
+        raise ValueError(f"{site}: KV heads {KH} must divide query heads {H}")
+    if D not in _PAGED_PREFILL_HEAD_DIMS:
+        raise ValueError(f"paged prefill kernel takes head_dim 16, 32, 64, 128 or 256, got {D}")
+    if tuple(k_chunk.shape) != (B, KH, C, D) or v_chunk.shape != k_chunk.shape:
+        raise ValueError(f"{site}: chunk K/V must be [{B}, {KH}, {C}, {D}], got "
+                         f"{tuple(k_chunk.shape)} / {tuple(v_chunk.shape)}")
+    _check_pool_dtype("paged prefill", q, k_pool, v_pool)
+    if k_chunk.dtype != k_pool.dtype or v_chunk.dtype != v_pool.dtype:
+        raise TypeError(f"paged prefill kernel takes the chunk's K/V in the pool's dtype, got "
+                        f"{k_chunk.dtype}/{v_chunk.dtype} over {k_pool.dtype} pools")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{site}: block_tables must be [{B}, NB]")
+    NB = block_tables.shape[1]
+    if C < 1 or C > NB * page:
+        raise ValueError(f"{site}: a chunk of {C} tokens in a row of {NB * page}")
+    if n_pages < 1:
+        raise ValueError(f"{site}: the pool holds no page to read")
+    if starts.shape != (B,):
+        raise ValueError(f"{site}: starts must be [{B}]")
+    if window is not None and window <= 0:
+        raise ValueError(f"{site}: window must be positive, got {window}")
+    for t in (k_chunk, v_chunk, k_pool, v_pool, block_tables, starts):
+        if t.device != q.device:
+            raise ValueError(f"{site}: tensors on different devices")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError(f"{site}: pools must be contiguous")
+    mma = q.dtype == torch.bfloat16 and D in kernels.PAGED_MMA_HEAD_DIMS
+    if mma and not (k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0):
+        raise ValueError("paged prefill kernel copies 16 bytes at a time: pools must start on "
+                         "16-byte boundaries")
+    # the kernel reads q and the chunk through their strides (the layout
+    # the projections leave them in); a view it cannot read is copied
+    if q.stride(-1) != 1 or (mma and not _aligned_rows(q)):
+        q = q.contiguous()
+    if k_chunk.stride() != v_chunk.stride() or k_chunk.stride(-1) != 1 or (
+            mma and not (_aligned_rows(k_chunk) and _aligned_rows(v_chunk))):
+        k_chunk, v_chunk = k_chunk.contiguous(), v_chunk.contiguous()
+    out = torch.empty((B, C, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    kernels.paged_prefill(
+        q, k_chunk, v_chunk, k_pool, v_pool, block_tables.to(torch.int32).contiguous(),
+        starts.to(torch.int64).contiguous(), out, mma=mma, window=window, n_pages=n_pages,
+    )
+    return out
 
 
 # ---------------------------------------------------------------------------

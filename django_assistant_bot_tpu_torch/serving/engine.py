@@ -1338,7 +1338,22 @@ class GenerationEngine:
             ),
             # whether the decode attention reads the fp8 pool in-dot
             "attn_fp8": self.attn_fp8,
+            # the kernel launches one replay of the chunk + tick graph holds
+            # (recorded at its capture), and its paged prefill launches by
+            # form ("<route>:<read>"); empty without that graph
+            "piggyback_launches": self._graph_counts(self._piggyback_launches, "launches"),
+            "piggyback_paged_prefill_forms": self._graph_counts(self._piggyback_launches,
+                                                                "paged_prefill"),
         }
+
+    @staticmethod
+    def _graph_counts(rec: Optional[kernels.GraphLaunches], which: str) -> Dict[str, int]:
+        """The non-zero launches a graph's recorder holds: by kernel
+        (``which="launches"``) or one kernel's by kind."""
+        if rec is None:
+            return {}
+        counts = rec.launches if which == "launches" else rec.sub[which]
+        return {k: n for k, n in counts.items() if n}
 
     def tick_stats(self) -> Dict[str, Any]:
         """:meth:`stats` plus the per-tick wall breakdown (ms per tick):

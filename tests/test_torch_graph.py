@@ -193,19 +193,27 @@ def test_replay_after_prefill_waves_matches_cpu_engine():
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"), (torch.float32, "cuda_core")])
 def test_replays_count_their_launches(dtype, route):
+    """Each graph's recorded launches: K steps of paged decode and the
+    sampler, the piggyback graph also its chunk's paged prefill (a launch
+    a layer, on the route of the dtype); replays count them."""
     eng = _engine(dtype)
-    for rec in (eng._graph_launches, eng._piggyback_launches):
+    L = eng.cfg.num_layers
+    for rec, chunk in ((eng._graph_launches, {}), (eng._piggyback_launches,
+                                                   {"paged_prefill": L})):
         assert {k: n for k, n in rec.launches.items() if n} == {
-            "paged_decode": K * eng.cfg.num_layers, "sample": K}
-        assert kernels.by_route(rec.sub["paged_decode"])[route] == K * eng.cfg.num_layers
+            "paged_decode": K * L, "sample": K, **chunk}
+        assert kernels.by_route(rec.sub["paged_decode"])[route] == K * L
+        assert kernels.by_route(rec.sub["paged_prefill"]).get(route, 0) == len(chunk) * L
+    assert eng.decode_path_stats()["piggyback_paged_prefill_forms"] == {f"{route}:native": L}
     _mid_decode(eng, torch.Generator(device="cuda").manual_seed(4))
     kernels.reset_counts()
     for piggyback in (False, True, False):
         eng._launch_tick(piggyback)
     torch.cuda.synchronize()
     assert {k: n for k, n in kernels.launch_counts().items() if n} == {
-        "paged_decode": 3 * K * eng.cfg.num_layers, "sample": 3 * K}
-    assert kernels.by_route(kernels.PAGED_FORMS)[route] == 3 * K * eng.cfg.num_layers
+        "paged_decode": 3 * K * L, "sample": 3 * K, "paged_prefill": L}
+    assert kernels.by_route(kernels.PAGED_FORMS)[route] == 3 * K * L
+    assert kernels.PAGED_PREFILL_FORMS[f"{route}:native"] == L
     (part, counters), = eng._graph_scratch.values()
     assert int(counters.abs().sum()) == 0  # each call leaves its counters at zero
 

@@ -1881,3 +1881,171 @@ def test_moe_wrappers_refuse_what_they_do_not_take():
         moe.moe_route(x.float(), torch.zeros((64, 33), device="cuda"), 2, 8)
     with pytest.raises(ValueError):  # a mix of devices
         moe.moe_route(x.float(), torch.zeros((64, 4)), 2, 8)
+
+
+# ------------------------------------------------------------- paged prefill
+# (label, B, H, KH, D, page, NB, C, starts, q dtype, pool dtype, window, pad row)
+_BF16, _F32 = torch.bfloat16, torch.float32
+_E4M3, _E5M2 = torch.float8_e4m3fn, torch.float8_e5m2
+_WAVE = [0, 40, 64, 100]
+PREFILL_CASES = [
+    *[(f"chunk_start_{s}", 1, 32, 8, 128, 512, 8, 512, [s], _BF16, _BF16, None, False)
+      for s in (0, 511, 512, 1536, 3584)],
+    *[(f"wave_c{c}_page{pg}", 4, 32, 8, 128, pg, 4096 // pg, c, _WAVE, _BF16, _BF16, None, True)
+      for c in (32, 128) for pg in (512, 16)],
+    ("window_100", 1, 32, 8, 128, 512, 8, 512, [1536], _BF16, _BF16, 100, False),
+    ("e4m3", 1, 32, 8, 128, 512, 8, 512, [1536], _BF16, _E4M3, None, False),
+    ("e5m2_window", 1, 32, 8, 128, 512, 8, 512, [1536], _BF16, _E5M2, 100, False),
+    ("e4m3_wave", 4, 32, 8, 128, 512, 8, 128, _WAVE, _BF16, _E4M3, None, True),
+    ("d64", 1, 32, 8, 64, 512, 8, 512, [1536], _BF16, _BF16, None, False),
+    ("bf16_d256", 1, 8, 4, 256, 512, 8, 256, [1000], _BF16, _BF16, None, False),
+    ("f32", 1, 8, 2, 128, 512, 8, 512, [1536], _F32, _F32, None, False),
+    ("f32_bf16_pool", 1, 8, 2, 128, 512, 8, 512, [1536], _F32, _BF16, 100, False),
+    ("f32_e4m3_wave", 4, 8, 2, 128, 512, 8, 128, _WAVE, _F32, _E4M3, None, True),
+    ("f32_e5m2", 1, 8, 2, 128, 512, 8, 512, [3584], _F32, _E5M2, None, False),
+    ("f32_d16_page16", 4, 4, 2, 16, 16, 16, 32, _WAVE, _F32, _F32, None, True),
+]
+
+
+def _prefill_inputs(B, H, KH, D, page, NB, C, starts, qdt, kvdt, pad, seed):
+    """q, the chunk's K/V and the pools (page P the dump page) on the card,
+    each row its own chain of pages to its write window's end (sentinels
+    past it), row 0 a pad row of sentinels with ``pad``."""
+    from django_assistant_bot_tpu_torch.ops.quant import to_kv_dtype
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = NB * page
+    used = [-(-(min(s, S - C) + C) // page) for s in starts]
+    P = sum(used) + 1
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed))
+    bt = torch.full((B, NB), P, dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(used):
+        bt[b, :n] = perm[at:at + n]
+        at += n
+    if pad:
+        bt[0] = P
+
+    def mk(shape, dt):
+        return to_kv_dtype(torch.randn(shape, generator=g, device="cuda"), dt)
+
+    return (mk((B, H, C, D), qdt), mk((B, KH, C, D), kvdt), mk((B, KH, C, D), kvdt),
+            mk((P + 1, KH, page, D), kvdt), mk((P + 1, KH, page, D), kvdt), bt.cuda(),
+            torch.tensor(starts, dtype=torch.int64, device="cuda"))
+
+
+def _whole_block_scatter(pool, chunk, bt, st, valids):
+    """The page write the token write replaced: the gathered rows with the
+    chunk written in, every block overlapping [start, start + valid) written
+    back whole, the others to the dump page."""
+    from django_assistant_bot_tpu_torch.ops.attention import gather_paged_rows
+
+    P, KH, page, D = pool.shape[0] - 1, pool.shape[1], pool.shape[2], pool.shape[3]
+    B, NB = bt.shape
+    C = chunk.shape[2]
+    rows = gather_paged_rows(pool, bt)
+    wpos = st.clamp(max=NB * page - C)[:, None] + torch.arange(C, device=pool.device)[None, :]
+    rows[torch.arange(B, device=pool.device)[:, None], :, wpos, :] = chunk.transpose(1, 2)
+    blk = torch.arange(NB, device=pool.device)[None, :]
+    write = ((blk + 1) * page > st[:, None]) & (blk * page < (st + valids)[:, None])
+    tgt = torch.where(write, bt.long().clamp(max=P), P).reshape(-1)
+    pool[tgt] = rows.reshape(B, KH, NB, page, D).transpose(1, 2).reshape(B * NB, KH, page, D)
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=[c[0] for c in PREFILL_CASES])
+def test_paged_prefill_matches_plain_twin(case):
+    """The kernel against the f32 twin on the same inputs: bf16 on the
+    tensor cores within ``paged_prefill_bf16_bound``, bf16 at D 256 within
+    2^-8 |ref| + 1e-4, f32 within 1e-4; each call counted on its form, two
+    bf16 calls bitwise equal."""
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+        paged_prefill_bf16_bound,
+    )
+
+    label, B, H, KH, D, page, NB, C, starts, qdt, kvdt, window, pad = case
+    args = _prefill_inputs(B, H, KH, D, page, NB, C, starts, qdt, kvdt, pad, len(label))
+    mma = qdt == _BF16 and D in kernels.PAGED_MMA_HEAD_DIMS
+    form = f"{'mma' if mma else 'cuda_core'}:{kernels.paged_read(qdt, kvdt)}"
+    before = kernels.PAGED_PREFILL_FORMS[form]
+    out = paged_prefill_attention(*args, window=window)
+    assert kernels.PAGED_PREFILL_FORMS[form] == before + 1
+    wide = [t.float() for t in args[:5]]
+    ref = paged_prefill_attention_plain(*wide, args[5], args[6], window=window)
+    bound = paged_prefill_bf16_bound(*wide, args[5], args[6], ref, window=window) if mma else None
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, C, D) and out.dtype == qdt
+    _assert_close(out, ref, bound)
+    if mma:
+        assert torch.equal(out, paged_prefill_attention(*args, window=window))
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES[:9], ids=[c[0] for c in PREFILL_CASES[:9]])
+def test_paged_prefill_token_write_matches_whole_block_scatter(case):
+    """The chunk's C tokens written to their pages leave the pages [0, P)
+    bitwise as the whole-block scatter it replaced leaves them."""
+    from django_assistant_bot_tpu_torch.models import llama
+
+    label, B, H, KH, D, page, NB, C, starts, qdt, kvdt, window, pad = case
+    _, kc, _, kp, _, bt, st = _prefill_inputs(B, H, KH, D, page, NB, C, starts, qdt, kvdt, pad,
+                                              len(label))
+    valids = torch.tensor([0 if pad and b == 0 else C - 3 * b for b in range(B)], device="cuda")
+    P = kp.shape[0] - 1
+    got, want = kp.clone(), kp.clone()
+    pages, offsets = llama._chunk_write_targets(bt, st, valids, C, page, P)
+    llama._write_chunk_tokens(got, kc, pages, offsets)
+    _whole_block_scatter(want, kc, bt, st, valids)
+    assert torch.equal(got[:P].view(torch.uint8), want[:P].view(torch.uint8))
+
+
+def test_paged_prefill_refuses_what_it_does_not_take():
+    """No fallback: a head dim without an instantiation, a chunk in another
+    dtype than the pool's, and a mix of devices raise."""
+    from django_assistant_bot_tpu_torch.ops.attention import paged_prefill_attention
+
+    q, kc, vc, kp, vp, bt, st = _prefill_inputs(1, 4, 2, 64, 16, 4, 32, [0], _BF16, _BF16,
+                                                False, 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_prefill_attention(q[..., :48], kc[..., :48], vc[..., :48],
+                                kp[..., :48].contiguous(), vp[..., :48].contiguous(), bt, st)
+    with pytest.raises(TypeError):
+        paged_prefill_attention(q, kc.float(), vc.float(), kp, vp, bt, st)
+    with pytest.raises(ValueError, match="devices"):
+        paged_prefill_attention(q, kc, vc, kp, vp, bt.cpu(), st)
+
+
+@pytest.mark.parametrize("qdt,kvdt,window", [(_BF16, _BF16, None), (_BF16, _E5M2, 100),
+                                            (_F32, _E4M3, None), (_F32, _F32, 24)])
+def test_chunked_prefill_matches_plain_twin(qdt, kvdt, window):
+    """The kernel's contiguous form over the legacy slot cache (every slot
+    row one page of S keys, no dump page; the last slot read too) against
+    ``chunked_prefill_attention_plain``: rows from 0 (a pad row aliasing
+    slot 3) / 40 / 64 / 700 / the row's end (the write window clamped)."""
+    from django_assistant_bot_tpu_torch.ops.attention import (
+        chunked_prefill_attention,
+        chunked_prefill_attention_plain,
+    )
+    from django_assistant_bot_tpu_torch.ops.quant import to_kv_dtype
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def mk(shape, dt):
+        return to_kv_dtype(torch.randn(shape, generator=g, device="cuda"), dt)
+
+    D = 128 if qdt == _BF16 else 64
+    q = mk((5, 16, 64, D), qdt)
+    kc, vc = mk((5, 4, 64, D), kvdt), mk((5, 4, 64, D), kvdt)
+    kcache, vcache = mk((4, 4, 1024, D), kvdt), mk((4, 4, 1024, D), kvdt)
+    slots = torch.tensor([3, 0, 1, 2, 3], device="cuda")
+    starts = torch.tensor([0, 40, 64, 700, 1000], device="cuda")
+    out = chunked_prefill_attention(q, kc, vc, kcache, vcache, slots, starts, window=window)
+    wide = [t.float() for t in (q, kc, vc, kcache, vcache)]
+    ref = chunked_prefill_attention_plain(*wide, slots, starts, window=window)
+    bound = None
+    if qdt == _BF16:  # paged_prefill_bf16_bound's formula over the slot rows
+        a = chunked_prefill_attention_plain(wide[0], wide[1], wide[2].abs(), wide[3],
+                                            wide[4].abs(), slots, starts, window=window)
+        bound = 2.0 ** -8 * (ref.abs() + a) + 1e-4
+    torch.cuda.synchronize()
+    _assert_close(out, ref, bound)
