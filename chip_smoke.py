@@ -45,10 +45,14 @@ printed on a line of their own):
    checked in phase 9 on its corpus, built once (2,000,000 x 768 through
    ``add`` + ``train()``, 4,096 lists, m 96, with duplicated rows for ties
    and one probed list made all-invalid; Q 1 / 8 / 32, nprobe 64 / 256,
-   shortlist 256, k 16): ADC scores bit-equal to the twin's and the same
-   positions, the rerank within ``topk_score_bound``; their time at the
-   main path's search (Q 8, nprobe 64) beside the bound, the twins and,
-   for the rerank, gather + ``torch.bmm`` + ``torch.topk``; the paged tree
+   shortlist 256, k 16; then a probed list at fill 0, tombstones inside the
+   fills, and the -inf tail at shortlist 2,048): ADC scores bit-equal to
+   the twin's and the same positions, the rerank within
+   ``topk_score_bound``; their time at the main path's search (Q 8, nprobe
+   64) beside the bound (to each list's fill; the padded figure beside
+   it), the twins and, for the rerank, gather + ``torch.bmm`` +
+   ``torch.topk``; the ADC kernel at Q 32 and at nprobe 1,024 with its
+   scratch bytes; the paged tree
    attention (``paged_tree``, :func:`check_paged_tree`) at 8 slots of
    Llama-3-8B's heads and the (4, 4) tree at 10,208 and 1,868 live prefix
    keys (a row at length 0), then lopsided lengths and trees of 65 and 129
@@ -179,8 +183,9 @@ printed on a line of their own):
    beside the exact tier over 6 batches at Q 1 / 8 / 32 (medians and
    min-max), planted top-1 >= 99%, ``ann_adc`` / ``ann_rerank`` launches
    equal to the ANN search batches with no plain-twin call, ``knn_topk``
-   for the exact tier, a recall@10 curve at nprobe 16 / 64 / 256 / 1024,
-   and the durability drill (:func:`durability_drill`: 65,536 x 768,
+   for the exact tier, a recall@10 curve at nprobe 16 / 64 / 256 / 1024
+   with the card's peak memory at each, and the durability drill
+   (:func:`durability_drill`: 65,536 x 768,
    WAL + snapshot, reopen with equal searches, ``cli ann verify`` in a
    subprocess clean and after a flipped byte);
 10. Mixtral 8x7B at full width, 24 of its 32 layers (the most whose bf16
@@ -322,6 +327,32 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_device_ms(fn, iters: int) -> float:
+    """Device milliseconds per call of ``fn`` from ``iters`` back-to-back
+    replays of a CUDA graph that captured one call (CUDA events around the
+    replays): the host's work between launches leaves the timing, and no
+    profiler is needed.  ``fn``'s kernels count their launches into the
+    graph's record, not ``LAUNCHES``; it warms up twice on the capture
+    stream first (so per-stream scratch exists before the capture)."""
+    import torch
+
+    from django_assistant_bot_tpu_torch import kernels
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with kernels.record_graph_launches(), torch.cuda.graph(g, stream=side):
+        fn()
+    ms = time_ms(g.replay, iters)
+    del g
+    return ms
+
+
 def _device_us(event) -> float:
     """Self device time of a ``key_averages()`` entry, in microseconds."""
     dev_us = getattr(event, "self_device_time_total", None)
@@ -458,13 +489,13 @@ def _flash_bound_ms(B, H, KH, S, D, causal, window, itemsize) -> tuple:
 _KERNEL_RE = re.compile(
     r"(flash_mma_kernel|flash_prefill_kernel|paged_mma_kernel|paged_decode_split_kernel"
     r"|paged_decode_combine_kernel|score_kernel|qgemm_mma_kernel|qgemm_wgmma_kernel"
-    r"|qgemm_stream_kernel|qgemm_generic_kernel|adc_scan_kernel|moe_route_kernel"
+    r"|qgemm_stream_kernel|qgemm_generic_kernel|adc_kernel|moe_route_kernel"
     r"|moe_combine_kernel|moe_gemm_mma_kernel|moe_gemm_wgmma_kernel|moe_gemm_cc_kernel"
     r"|paged_tree_mma_kernel|paged_tree_cc_kernel|paged_prefill_mma_kernel"
     r"|paged_prefill_cc_kernel)I(\w*?)EEv"
 )
 _PLAIN_KERNEL_RE = re.compile(
-    r"\d+(threshold_kernel|select_kernel|sample_kernel|adc_select_kernel|rerank_kernel"
+    r"\d+(threshold_kernel|select_kernel|sample_kernel|rerank_kernel"
     r"|moe_gather_kernel)E")
 
 
@@ -2589,17 +2620,25 @@ def adc_inputs(index, q, nprobe: int):
     return top_c, top_ci, lut
 
 
-def adc_bound_ms(index, lvalid, top_ci, S: int) -> tuple:
-    """Least time for the ADC scan + shortlist: the probed lists (each list
-    once, however many queries probe it) read once, their validity bytes
-    and, for their valid slots, the m code bytes and the row position; the
-    f32 LUT, the probes and the outputs once; at the HBM rate, against one
+def adc_bound_ms(index, lvalid, top_ci, S: int, fill=None) -> tuple:
+    """Least time for the ADC scan + shortlist.  With ``fill`` (the bound):
+    the probed lists (each list once, however many queries probe it) read
+    once, their validity bytes up to each list's fill and, for their valid
+    slots, the m code bytes; the f32 LUT, the probes, the S outputs' row
+    positions and the outputs once.  Without it, the padded figure (the
+    bound of the scan over every slot): the validity of all L slots of each
+    probed list and, for each valid slot, its code bytes and row position
+    beside the same LUT, probes and outputs.  At the HBM rate, against one
     f32 addition per valid code byte and query at the card's f32 rate."""
     Q, P = top_ci.shape
     _, L, m = index._codes.shape
     lists = top_ci.unique().long()
     valid_slots = int(lvalid[lists].sum())
-    nbytes = lists.numel() * L + valid_slots * (m + 4) + Q * m * 256 * 4 + Q * P * 8 + Q * S * 8
+    if fill is None:
+        lists_bytes = lists.numel() * L + valid_slots * (m + 4)
+    else:
+        lists_bytes = int(fill[lists].clamp(0, L).sum()) + valid_slots * m + Q * S * 4
+    nbytes = lists_bytes + Q * m * 256 * 4 + Q * P * 8 + Q * S * 8
     ops = float(lvalid[top_ci.long()].sum()) * m
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
@@ -2624,16 +2663,6 @@ def rerank_bound_ms(tier, rvalid, sl_scores, sl_pos, k: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_device_ms(fn, iters: int) -> dict:
-    """:func:`device_ms_by_kernel` with each name shortened by
-    :func:`kernel_label`."""
-    out = {}
-    for name, ms in device_ms_by_kernel(fn, iters).items():
-        label = kernel_label(name)
-        out[label] = out.get(label, 0.0) + ms
-    return out
-
-
 def _ties(scores) -> int:
     """Adjacent equal finite scores in each row of a sorted result."""
     import torch
@@ -2646,16 +2675,25 @@ def check_ann(index) -> list:
     """``ann_adc`` and ``ann_rerank`` against their plain twins on phase 9's
     index (built once, there): 2,000,000 x 768 through ``add`` +
     ``train()`` (nlist 4096, m 96, list_cap as trained), with rows [4096,
-    8192) repeating rows [0, 4096), queries near those rows (Q 1, 8, 32), nprobe 64
-    and 256, shortlist 256, k 16, and one probed list made all-invalid.
-    The ADC scores must equal the twin's bit for bit and the positions the
-    twin's (keys are unique under (score, lower flat index first)); the
-    rerank is held to ``rerank_agreement`` (``topk_score_bound``, ids at
-    separated ranks).  Then both kernels' time at the main path's search
-    (Q 8, the default nprobe 64, shortlist 256, k 16): wall and device ms,
-    the bound and its share, the plain twins' ms, and for the rerank the
-    library yardstick (gather + ``torch.bmm`` + ``torch.topk``); the ADC
-    scan has no library call that computes it."""
+    8192) repeating rows [0, 4096), queries near those rows (Q 1, 8, 32),
+    nprobe 64 and 256, shortlist 256, k 16, and one probed list made
+    all-invalid (tombstones through its fill); then at Q 8, nprobe 64 three
+    cases on the same lists: a probed list emptied (its fill 0), random
+    tombstones inside the probed lists' fills, and four probes holding
+    fewer valid slots than the shortlist of 2,048 (the -inf tail).  The ADC
+    kernel gets the index's fill (``ANNIndex._fill``); its scores must
+    equal the twin's bit for bit and the positions the twin's (keys are
+    unique under (score, lower flat index first)); the rerank is held to
+    ``rerank_agreement`` (``topk_score_bound``, ids at separated ranks).
+    Then both kernels' time at the main path's search (Q 8, the default
+    nprobe 64, shortlist 256, k 16): wall ms and device ms (graph replays,
+    :func:`graph_device_ms`: the ADC is one launch, whose scan / merge split
+    ``tools/ann_adc_ab.py --probe`` times), the bound (to each probed
+    list's fill; the padded figure, every slot, beside it) and its share,
+    the plain twins' ms, for the rerank the library yardstick (gather + ``torch.bmm`` + ``torch.topk``); and the ADC
+    kernel alone at Q 32, nprobe 64 and at Q 8 / 128, nprobe 1024 (the
+    recall sweep's), with its plan and scratch bytes.  The ADC scan has no
+    library call that computes it."""
     import numpy as np
     import torch
 
@@ -2665,19 +2703,43 @@ def check_ann(index) -> list:
     from django_assistant_bot_tpu_torch.storage.knn import _normalize
     from django_assistant_bot_tpu_torch.storage.knn_check import rerank_agreement
 
-    smem = ptxas_smem(kernels.BUILD_LOG.get("ann_adc", "") + kernels.BUILD_LOG.get("ann_rerank", ""))
-    log(f"  ann shared memory per block: adc_scan_kernel {min(index.m, 192) * 1024} B dynamic "
-        f"(the LUT chunk), adc_select_kernel {smem.get('adc_select_kernel', 0)} B static + "
-        f"{32768 * 4} B dynamic (the key cache), rerank_kernel "
-        f"{smem.get('rerank_kernel', 0)} B static + {ANN_DIM * 4} B dynamic (the query)")
     codes, lvalid, rowpos = index._codes, index._lvalid, index._rowpos
+    fill, mean_fill = index._fill, index._mean_fill
     tier, rvalid = index._rerank, index._rvalid
     rng = np.random.default_rng(2)
+    plan = kernels.ann_adc_plan(8, index._nprobe_eff(), codes.shape[1], index.m, 256, mean_fill,
+                                torch.cuda.get_device_properties(0).multi_processor_count)
+    smem = ptxas_smem(kernels.BUILD_LOG.get("ann_adc", "")
+                      + kernels.BUILD_LOG.get("ann_rerank", ""))
+    log(f"  ann shared memory per block: adc_kernel<16> {plan.smem} B dynamic at Q 8, nprobe "
+        f"{index._nprobe_eff()}, S 256 (the LUT of {plan.chunk} subspaces and a {plan.cap}-key "
+        f"buffer, or the merge's keys, then the select's) + {smem.get('adc_kernel<16>', 0)} B "
+        f"static, rerank_kernel {smem.get('rerank_kernel', 0)} B static + {ANN_DIM * 4} B "
+        "dynamic (the query)")
 
     def queries(Q):
         src = rng.choice(ANN_DUPS, size=Q, replace=False)
         qs = index._mat[src] + ANN_QUERY_NOISE * rng.standard_normal((Q, ANN_DIM))
         return torch.from_numpy(_normalize(qs).astype(np.float32)).cuda()
+
+    def adc_case(label, q, P, S, lv, fl):
+        top_c, top_ci, lut = adc_inputs(index, q, P)
+        args = (codes, lv, rowpos, top_ci, top_c, lut, S)
+        got_s, got_p = adc_shortlist(*args, fl, mean_fill)
+        want_s, want_p = adc_shortlist_plain(*args)
+        torch.cuda.synchronize()
+        same_s, same_p = torch.equal(got_s, want_s), torch.equal(got_p, want_p)
+        ties = _ties(want_s)
+        log(f"  ann_adc {label} Q={q.shape[0]} nprobe={P} S={S}: scores bit-equal {same_s}, "
+            f"positions equal {same_p}, tied neighbours in the twin's shortlist {ties}, finite "
+            f"{int(torch.isfinite(want_s).sum())} of {q.shape[0] * S}")
+        if not (same_s and same_p):
+            diff = (got_s - want_s).abs()
+            fin = diff[torch.isfinite(diff)]
+            fail(f"ann_adc {label} Q={q.shape[0]} nprobe={P} disagrees with its plain twin: "
+                 f"max |diff| {fin.max().item() if fin.numel() else 'inf'}, "
+                 f"{int((got_p != want_p).sum())} positions differ")
+        return got_s, got_p, ties, top_ci, int(torch.isfinite(want_s).sum())
 
     S, k = 256, 16
     adc_ties = rr_ties = 0
@@ -2685,23 +2747,11 @@ def check_ann(index) -> list:
     for Q in (1, 8, 32):
         q = queries(Q)
         for P in (64, 256):
-            top_c, top_ci, lut = adc_inputs(index, q, P)
+            top_ci = adc_inputs(index, q, P)[1]
             lv = lvalid.clone()
             lv[top_ci[0, 1].long()] = False  # a probed list made all-invalid
-            got_s, got_p = adc_shortlist(codes, lv, rowpos, top_ci, top_c, lut, S)
-            want_s, want_p = adc_shortlist_plain(codes, lv, rowpos, top_ci, top_c, lut, S)
-            torch.cuda.synchronize()
-            same_s, same_p = torch.equal(got_s, want_s), torch.equal(got_p, want_p)
-            ties = _ties(want_s)
+            got_s, got_p, ties, _, _ = adc_case("dead list", q, P, S, lv, fill)
             adc_ties += ties
-            log(f"  ann_adc Q={Q} nprobe={P} S={S}: scores bit-equal {same_s}, positions equal "
-                f"{same_p}, tied neighbours in the twin's shortlist {ties}, finite "
-                f"{int(torch.isfinite(want_s).sum())} of {Q * S}")
-            if not (same_s and same_p):
-                diff = (got_s - want_s).abs()
-                fail(f"ann_adc Q={Q} nprobe={P} disagrees with its plain twin: max |diff| "
-                     f"{diff[torch.isfinite(diff)].max().item() if bool(torch.isfinite(diff).any()) else 'inf'}, "
-                     f"{int((got_p != want_p).sum())} positions differ")
             r_s, r_p = rerank(tier, rvalid, q, got_s, got_p, k)
             torch.cuda.synchronize()
             rep = rerank_agreement(tier, rvalid, q, got_s, got_p, r_s, r_p)
@@ -2715,27 +2765,64 @@ def check_ann(index) -> list:
     log(f"  ann: tied neighbours over the cases: ADC shortlists {adc_ties}, reranked top-k {rr_ties}")
     if not adc_ties or not rr_ties:
         fail("the planted duplicate rows gave no tie: the tie order went unchecked")
+    # the fill's cases, at Q 8, nprobe 64, on the same lists
+    q = queries(8)
+    top_ci = adc_inputs(index, q, 64)[1]
+    empty = top_ci[0, 2].long()
+    lv, fl = lvalid.clone(), fill.clone()
+    lv[empty], fl[empty] = False, 0  # a probed list emptied: fill 0
+    adc_case("fill 0", q, 64, S, lv, fl)
+    probed = top_ci.unique().long()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lv = lvalid.clone()
+    lv[probed] &= torch.rand((probed.numel(), lv.shape[1]), generator=g, device="cuda") < 0.7
+    adc_case("tombstones", q, 64, S, lv, fill)
+    lv = lvalid.clone()
+    lv[probed] &= torch.rand((probed.numel(), lv.shape[1]), generator=g, device="cuda") < 0.05
+    *_, finite = adc_case("tail", q, 4, 2048, lv, fill)
+    if finite >= 8 * 2048:
+        fail("the tail case held no -inf slot: the tail went unchecked")
 
     # timing at the main path's search: Q 8, the default nprobe, S 256, k 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     P = index._nprobe_eff()
     q = queries(8)
     top_c, top_ci, lut = adc_inputs(index, q, P)
-    args = (codes, lvalid, rowpos, top_ci, top_c, lut, S)
+    args = (codes, lvalid, rowpos, top_ci, top_c, lut, S, fill, mean_fill)
     ms = time_ms(lambda: adc_shortlist(*args), 30)
-    split = kernel_device_ms(lambda: adc_shortlist(*args), 30)
-    dev = sum(split.values())
-    plain_ms = time_ms(lambda: adc_shortlist_plain(*args), 3)
-    bound_ms, bound_by = adc_bound_ms(index, lvalid, top_ci, S)
-    log(f"  ann_adc timing Q=8 nprobe={P} S={S} (list_cap {codes.shape[1]}): kernel wall "
-        f"{ms:.4f} ms (device {dev:.4f}: " + ", ".join(f"{n} {v:.4f}" for n, v in split.items())
-        + f"), plain wall {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); share of the "
-        f"bound, device {bound_ms / dev:.4f}; library: none (no PyTorch call computes the "
-        "LUT-sum scan)")
+    dev = graph_device_ms(lambda: adc_shortlist(*args), 30)
+    plain_ms = time_ms(lambda: adc_shortlist_plain(*args[:7]), 3)
+    bound_ms, bound_by = adc_bound_ms(index, lvalid, top_ci, S, fill)
+    padded_ms, padded_by = adc_bound_ms(index, lvalid, top_ci, S)
+    plan = kernels.ann_adc_plan(8, P, codes.shape[1], index.m, S, mean_fill, sms)
+    log(f"  ann_adc timing Q=8 nprobe={P} S={S} (list_cap {codes.shape[1]}, mean fill "
+        f"{mean_fill}): kernel wall {ms:.4f} ms, device {dev:.4f} (graph replays of its one "
+        f"launch), plain wall {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; padded "
+        f"{padded_ms:.5f}, {padded_by}); share of the bound, device {bound_ms / dev:.4f} "
+        f"(padded {padded_ms / dev:.4f}); plan {plan.blocks} blocks a query, LUT chunk "
+        f"{plan.chunk}, {plan.smem} B shared; scratch {plan.cand_keys * 8 + plan.counters * 4} "
+        f"B (the parent's [Q, P L] scores {8 * P * codes.shape[1] * 4} B); library: none (no "
+        "PyTorch call computes the LUT-sum scan)")
     adc = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=None)
+               library_ms=None, padded_bound_ms=padded_ms)
+    for Qx, Px in ((32, P), (8, 1024), (128, 1024)):
+        tcx, tix, lutx = adc_inputs(index, queries(Qx), Px)
+        xargs = (codes, lvalid, rowpos, tix, tcx, lutx, S, fill, mean_fill)
+        x_ms = time_ms(lambda: adc_shortlist(*xargs), 10)
+        x_dev = graph_device_ms(lambda: adc_shortlist(*xargs), 10)
+        xb, xby = adc_bound_ms(index, lvalid, tix, S, fill)
+        xp_ms, _ = adc_bound_ms(index, lvalid, tix, S)
+        xp = kernels.ann_adc_plan(Qx, Px, codes.shape[1], index.m, S, mean_fill, sms)
+        log(f"  ann_adc timing Q={Qx} nprobe={Px} S={S}: kernel wall {x_ms:.4f} ms (device "
+            f"{x_dev:.4f}), bound {xb:.5f} ms ({xby}; padded {xp_ms:.5f}), share device "
+            f"{xb / x_dev:.4f} (padded {xp_ms / x_dev:.4f}); plan {xp.blocks} blocks a query; "
+            f"scratch {xp.cand_keys * 8 + xp.counters * 4} B (the parent's [Q, P L] scores "
+            f"{Qx * Px * codes.shape[1] * 4} B)")
+        adc[f"q{Qx}_p{Px}_ms"], adc[f"q{Qx}_p{Px}_device_ms"] = x_ms, x_dev
     sl_s, sl_p = adc_shortlist(*args)
     rargs = (tier, rvalid, q, sl_s, sl_p, k)
-    r_ms, r_dev = timed(lambda: rerank(*rargs), 50)
+    r_ms = time_ms(lambda: rerank(*rargs), 50)
+    r_dev = graph_device_ms(lambda: rerank(*rargs), 50)
     r_plain = time_ms(lambda: rerank_plain(*rargs), 5)
     pos = sl_p.long()
     ok = torch.isfinite(sl_s) & rvalid[pos]
@@ -2749,7 +2836,7 @@ def check_ann(index) -> list:
         f"bound, device {r_bound / r_dev:.4f}")
     rr = dict(ms=r_ms, device_ms=r_dev, plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
               library_ms=lib_ms)
-    del codes, lvalid, rowpos, tier, rvalid, args, rargs, sl_s, sl_p, pos, ok
+    del codes, lvalid, rowpos, tier, rvalid, args, rargs, sl_s, sl_p, pos, ok, lv, fl
     return [
         {"name": "ann_adc", "route": "cuda", "source": f"{PKG}/csrc/ann_adc.cu",
          "replaces": "django_assistant_bot_tpu/storage/ann.py:208", "max_abs_err": 0.0, **adc},
@@ -5990,9 +6077,11 @@ def ann_phase(card: str) -> tuple:
     >= 99% of them, ``ann_adc`` and ``ann_rerank`` each launched once per
     ANN search batch with no call of a plain twin, and ``knn_topk`` ran for
     the exact tier.  Then a recall@10 curve against the exact tier at
-    nprobe 16, 64, 256 and 1024 with the ANN search's ms per query, and
-    :func:`durability_drill`.  Returns (the kernels' JSON entries, their
-    launches)."""
+    nprobe 16, 64, 256 and 1024 with the ANN search's ms per query and the
+    card's peak memory over each point above what the index holds (beside
+    the [Q, P L] f32 score scratch the padded scan needed at the recall
+    probe's query bucket of 128), and :func:`durability_drill`.  Returns
+    (the kernels' JSON entries, their launches)."""
     import numpy as np
     import torch
 
@@ -6066,13 +6155,21 @@ def ann_phase(card: str) -> tuple:
     if any(plain_calls.values()):
         fail(f"a search ran a plain twin on the card: {plain_calls}")
 
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    L = index._codes.shape[1]
     for nprobe in (16, 64, 256, 1024):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         index.search_batch(planted, k=10, nprobe=nprobe)
         ms_q = (time.perf_counter() - t0) * 1e3 / ANN_PLANTED
         rec = index.probe_recall(n_queries=64, k=10, nprobe=nprobe, seed=0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
         log(f"  recall curve: nprobe {rec['nprobe']:5d}  recall@10 {rec['recall_at_k']:.4f}  "
-            f"ANN {ms_q:.4f} ms/query (one batch of {ANN_PLANTED})")
+            f"ANN {ms_q:.4f} ms/query (one batch of {ANN_PLANTED}); peak card memory above the "
+            f"index {peak / 2**20:.1f} MiB (the padded scan's [128, P L] f32 scores "
+            f"{128 * rec['nprobe'] * L * 4 / 2**30:.2f} GiB)")
     del index, out
     gc_collect()
     durability_drill()

@@ -152,7 +152,7 @@ def ann_from_jax(arrays: Mapping[str, Any], device: DeviceLike = "cuda"):
             n = len(ids)
             index._row_list[:n] = np.asarray(arrays["row_list"], np.int32)[:n]
             index._row_slot[:n] = np.asarray(arrays["row_slot"], np.int32)[:n]
-            index._list_counts = np.asarray(arrays["list_counts"], np.int64).copy()
+            index._set_counts_locked(np.asarray(arrays["list_counts"], np.int64).copy())
             index._list_sums = np.asarray(
                 arrays.get("list_sums", np.zeros((index.nlist, index.dim))), np.float32).copy()
             index._list_nums = index._list_counts.copy()

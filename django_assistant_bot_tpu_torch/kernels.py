@@ -101,9 +101,10 @@ _ARGTYPES = {
     # logits, temperature, top_p, gumbel, allowed, next_state, state, jmask,
     # ids, state_out, gmax, counters, dtype, B, V, k, splits, stream
     "sample": [_P] * 12 + [_I] * 5 + [_P],
-    # codes, lvalid, rowpos, top_ci, top_c, lut, scratch, out_scores, out_pos,
-    # nlist, L, m, Q, P, S, span, stream
-    "ann_adc": [_P] * 9 + [_I] * 7 + [_P],
+    # codes, lvalid, rowpos, fill, top_ci, top_c, lut, cand, counters,
+    # out_scores, out_pos, nlist, L, m, Q, P, S, blocks, chunk, cap, top_ci's
+    # and top_c's row strides, the LUT's query and subspace strides, stream
+    "ann_adc": [_P] * 11 + [_I] * 13 + [_P],
     # tier, rvalid, q, sl_scores, sl_pos, out_scores, out_pos, N, D, Q, S, k,
     # stream
     "ann_rerank": [_P] * 7 + [_I] * 5 + [_P],
@@ -293,6 +294,17 @@ _split_scratch: Dict[tuple, tuple] = {}
 # from which its top-k is hierarchical (ops/sampling.py's)
 SAMPLE_MAX_K = 256
 SAMPLE_HIER_MIN_VOCAB = 16_384
+# the ADC scan + shortlist (csrc/ann_adc.cu): threads a block, slots a tile
+# (a warp's), the most LUT subspaces staged at once, the least tiles a block
+# takes (two a warp), the dynamic shared memory a block may take (MAX_SMEM),
+# an SM's shared memory and the kernel's static arrays, about
+ANN_ADC_THREADS = 512
+ANN_ADC_TILE = 32
+ANN_ADC_LUT_CHUNK = 192
+ANN_ADC_MIN_TILES = 32
+ANN_ADC_SMEM = 222 * 1024
+ANN_ADC_SM_SMEM = 228 * 1024
+ANN_ADC_STATIC = 5 * 1024
 
 # f32 scratch floats per (device, route, shapes), as the library reports them
 _paged_need: Dict[tuple, int] = {}
@@ -556,7 +568,7 @@ def paged_scratch_floats(device: torch.device, shapes: tuple) -> int:
 
 def _scratch_buffers(kernel: str, device: torch.device, stream: int, need: int, n_rows: int):
     """The scratch of ``kernel`` (paged or chunked decode, qgemm, the grouped
-    expert GEMM or the MoE routing) on (device,
+    expert GEMM, the MoE routing or the ADC shortlist) on (device,
     stream), grown to ``need`` f32 floats and ``n_rows`` counters.  A graph
     captures the buffers' addresses, so they must exist before its capture
     (a warm-up call on the capture stream makes them): growing them during a
@@ -1125,34 +1137,97 @@ def sample(logits: torch.Tensor, temperature: torch.Tensor, top_p: torch.Tensor,
     _check("sample", err)
 
 
+class AnnAdcPlan(NamedTuple):
+    """One ADC launch (``csrc/ann_adc.cu``): ``blocks`` a query, ``chunk``
+    LUT subspaces staged at once, a block's candidate buffer of ``cap``
+    keys, ``smem`` bytes of dynamic shared memory a block, and the scratch:
+    ``cand_keys`` 64-bit candidates (Q blocks S: each block's sorted top S)
+    and ``counters`` int32 (Q tickets)."""
+
+    blocks: int
+    chunk: int
+    cap: int
+    smem: int
+    cand_keys: int
+    counters: int
+
+
+def _adc_merge_lists(blocks: int) -> int:
+    """Lists of S keys the last block of a query holds in shared memory:
+    the blocks', the -inf tail's, and half as many for the first pairwise
+    merge's outputs."""
+    return blocks + 1 + (blocks + 2) // 2
+
+
+def _adc_smem(chunk: int, cap: int, blocks: int, S: int) -> int:
+    """The kernel's dynamic shared memory (``dabt_ann_adc``): the LUT chunk
+    and the buffer, or the merge's lists, whichever is larger (rounded to 16
+    bytes), then S rounded up to a power of two keys (the block's sort)."""
+    region = max(chunk * 1024 + cap * 8, _adc_merge_lists(blocks) * S * 8)
+    return -(-region // 16) * 16 + (1 << (S - 1).bit_length()) * 8
+
+
 @functools.lru_cache(maxsize=512)
-def ann_scan_span(Q: int, n_items: int, sms: int = 132) -> int:
-    """Flat (probe, slot) items a block of the ADC scan scores: about four
-    blocks an SM over the Q queries, 1,024 to 16,384 items a block (a block
-    stages its query's LUT once), a multiple of the scan's 512 threads."""
-    want = -(-Q * n_items // (4 * sms))
-    return min(16384, max(1024, -(-want // 512) * 512))
+def ann_adc_plan(Q: int, P: int, L: int, m: int, S: int, mean_fill: int,
+                 sms: int = 132) -> AnnAdcPlan:
+    """The ADC launch for Q queries over P probed lists of L slots, m
+    subspaces and a shortlist of S, from shapes and the index's mean fill
+    (its high-water marks' mean, a host number: no device sync).  The
+    buffer holds ``2 S + ANN_ADC_THREADS`` keys (a round's slots past 2 S);
+    the LUT is staged whole where it fits beside it in ``ANN_ADC_SMEM``,
+    else ``ANN_ADC_LUT_CHUNK`` or fewer subspaces a multiple of 16 at a
+    time.  Blocks a query: as many as the card holds at once (by shared
+    memory and threads) over the Q queries, rounded down (one wave: at Q
+    32 on 132 SMs 8 blocks a query, not 9 and a second wave of 24), at most
+    one per ``ANN_ADC_MIN_TILES`` of the query's estimated live tiles (P
+    ceil(mean_fill / 32)), and no more than the merge's lists fit in shared
+    memory (:func:`_adc_merge_lists`)."""
+    if not (Q >= 1 and P >= 1 and L >= 1 and m >= 1 and S >= 1):
+        raise ValueError(f"ann_adc_plan: Q {Q}, P {P}, L {L}, m {m}, S {S}")
+    cap = 2 * S + ANN_ADC_THREADS
+    sel = (1 << (S - 1).bit_length()) * 8
+    room = (ANN_ADC_SMEM - cap * 8 - sel) // 1024
+    chunk = m if m <= min(room, ANN_ADC_LUT_CHUNK) else min(ANN_ADC_LUT_CHUNK, room) // 16 * 16
+    scan = _adc_smem(chunk, cap, 0, S)
+    per_sm = max(1, min(2048 // ANN_ADC_THREADS,
+                        ANN_ADC_SM_SMEM // (scan + ANN_ADC_STATIC + 1024)))
+    tiles = P * -(-min(max(mean_fill, 0), L) // ANN_ADC_TILE)
+    lists = (ANN_ADC_SMEM - sel) // (8 * S)
+    most = max(b for b in range(1, lists + 1) if _adc_merge_lists(b) <= lists)
+    blocks = max(1, min(per_sm * sms // Q, tiles // ANN_ADC_MIN_TILES, most))
+    return AnnAdcPlan(blocks, chunk, cap, _adc_smem(chunk, cap, blocks, S), Q * blocks * S, Q)
 
 
 def ann_adc(codes: torch.Tensor, lvalid: torch.Tensor, rowpos: torch.Tensor,
-            top_ci: torch.Tensor, top_c: torch.Tensor, lut: torch.Tensor,
-            scratch: torch.Tensor, out_scores: torch.Tensor, out_pos: torch.Tensor,
-            shortlist: int) -> None:
-    """Launch the ADC scan + shortlist (``csrc/ann_adc.cu``: a scan kernel
-    over :func:`ann_scan_span` flat (probe, slot) items a block, then a
-    select kernel a query); the caller (``storage.ann.adc_shortlist``) validated the
-    arguments and allocated ``scratch`` (``Q (P L + 2 ceil(P L / 32))``
-    floats: the scores, the 32-item groups' maxima, the candidate groups)
-    and the outputs (``[Q, shortlist]`` f32 scores, int32 row positions)."""
+            fill: torch.Tensor, top_ci: torch.Tensor, top_c: torch.Tensor, lut: torch.Tensor,
+            out_scores: torch.Tensor, out_pos: torch.Tensor, shortlist: int,
+            mean_fill: int) -> None:
+    """Launch the ADC scan + shortlist (``csrc/ann_adc.cu``: one kernel on
+    :func:`ann_adc_plan`'s grid, each block scoring its share of the probed
+    lists' live tiles and writing its top ``shortlist`` sorted, the last
+    block of a query merging the blocks' lists); the caller
+    (``storage.ann.adc_shortlist``) validated the arguments (``fill
+    [nlist]`` int32, each list's high-water mark; top_ci's and top_c's rows
+    may lie apart, their elements not, and the LUT's 256-float rows too,
+    16-byte aligned) and allocated the outputs (``[Q,
+    shortlist]`` f32 scores, int32 row positions).  The candidates and the
+    counters (left at zero) come from the per-(device, stream) scratch."""
     nlist, L, m = codes.shape
     Q, P = top_ci.shape
+    stream = _stream(codes)
     fn = _fn("ann_adc")
     with torch.cuda.device(codes.device):
-        span = ann_scan_span(Q, P * L, _sm_count(codes.device.index))
+        plan = ann_adc_plan(Q, P, L, m, shortlist, int(mean_fill),
+                            _sm_count(codes.device.index))
+        cand, counters = _scratch_buffers("ann_adc", codes.device, stream,
+                                          2 * plan.cand_keys, plan.counters)
         err = fn(
-            codes.data_ptr(), lvalid.data_ptr(), rowpos.data_ptr(), top_ci.data_ptr(),
-            top_c.data_ptr(), lut.data_ptr(), scratch.data_ptr(), out_scores.data_ptr(),
-            out_pos.data_ptr(), nlist, L, m, Q, P, shortlist, span, _stream(codes),
+            codes.data_ptr(), lvalid.data_ptr(), rowpos.data_ptr(), fill.data_ptr(),
+            top_ci.data_ptr(), top_c.data_ptr(), lut.data_ptr(), cand.data_ptr(),
+            counters.data_ptr(), out_scores.data_ptr(), out_pos.data_ptr(), nlist, L, m, Q, P,
+            shortlist, plan.blocks, plan.chunk, plan.cap,
+            *(t.stride(0) if Q > 1 else P for t in (top_ci, top_c)),
+            lut.stride(0) if Q > 1 else 0, lut.stride(1), stream,
         )
     _count("ann_adc")
     _check("ann_adc", err)

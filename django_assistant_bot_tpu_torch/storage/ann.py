@@ -225,13 +225,18 @@ def adc_shortlist_plain(codes, lvalid, rowpos, top_ci, top_c, lut, shortlist: in
     return vals, torch.gather(rowpos[ci].reshape(Q, -1), 1, idx).to(torch.int32)
 
 
-def adc_shortlist(codes, lvalid, rowpos, top_ci, top_c, lut, shortlist: int):
+def adc_shortlist(codes, lvalid, rowpos, top_ci, top_c, lut, shortlist: int, fill=None,
+                  mean_fill: Optional[int] = None):
     """The ADC scan and top-``shortlist`` of :func:`adc_shortlist_plain`:
     codes ``[nlist, L, m]`` uint8, lvalid ``[nlist, L]`` bool, rowpos
     ``[nlist, L]`` int32, top_ci ``[Q, P]`` int32, top_c ``[Q, P]`` f32, lut
     ``[Q, m, 256]`` f32, ``1 <= shortlist <= P L``.  CPU tensors take the
-    plain twin; CUDA tensors launch ``csrc/ann_adc.cu`` (bit-equal scores,
-    the same positions) or raise."""
+    plain twin (``fill`` unused); CUDA tensors launch ``csrc/ann_adc.cu``
+    (bit-equal scores, the same positions) or raise.  On the card ``fill``
+    ``[nlist]`` int32 and ``mean_fill`` are required together: each list's
+    high-water mark (``lvalid`` false at and past it), so the kernel scans
+    only ``[0, fill)`` of each probed list, and its mean rounded up, from
+    the host, which sizes the grid (:func:`..kernels.ann_adc_plan`)."""
     if codes.device.type == "cpu":
         return adc_shortlist_plain(codes, lvalid, rowpos, top_ci, top_c, lut, shortlist)
     if codes.device.type != "cuda":
@@ -242,21 +247,30 @@ def adc_shortlist(codes, lvalid, rowpos, top_ci, top_c, lut, shortlist: int):
         raise ValueError("adc_shortlist: codes uint8, lvalid bool, rowpos int32 expected")
     if lvalid.shape != (nlist, L) or rowpos.shape != (nlist, L):
         raise ValueError(f"adc_shortlist: lvalid and rowpos must be [{nlist}, {L}]")
+    if (fill is None or mean_fill is None or fill.shape != (nlist,)
+            or fill.dtype != torch.int32):
+        raise ValueError(f"adc_shortlist: the lists' fill [{nlist}] int32 and its mean are "
+                         "required on the card")
     if top_ci.dtype != torch.int32 or top_c.shape != (Q, P) or lut.shape != (Q, m, _CODES):
         raise ValueError("adc_shortlist: top_ci [Q, P] int32, top_c [Q, P], lut [Q, m, 256]")
     if not 1 <= shortlist <= min(P * L, MAX_SHORTLIST) or P * L >= 2 ** 31 - 32:
         raise ValueError(f"adc_shortlist: shortlist {shortlist} outside [1, "
                          f"{min(P * L, MAX_SHORTLIST)}]")
-    if any(t.device != codes.device for t in (lvalid, rowpos, top_ci, top_c, lut)):
+    if any(t.device != codes.device for t in (lvalid, rowpos, fill, top_ci, top_c, lut)):
         raise ValueError("adc_shortlist: all tensors must share a device")
-    args = [t.contiguous() for t in (codes, lvalid, rowpos, top_ci)]
-    top_c, lut = top_c.float().contiguous(), lut.float().contiguous()
+    args = [t.contiguous() for t in (codes, lvalid, rowpos, fill)]
+    # a top-k's slices and an einsum's LUT ([m, Q, 256] in memory) are read
+    # in place, through their strides
+    top_ci, top_c = (t if t.stride(1) == 1 and (Q == 1 or t.stride(0) >= P) else t.contiguous()
+                     for t in (top_ci, top_c.float()))
+    lut = lut.float()
+    if (lut.stride(2) != 1 or lut.stride(1) % 4 or (m > 1 and lut.stride(1) < _CODES)
+            or (Q > 1 and lut.stride(0) % 4) or lut.data_ptr() % 16):
+        lut = lut.contiguous()
     dev = codes.device
-    # the scan's scores, then the groups' maxima and the candidate groups
-    scratch = torch.empty(Q * (P * L + 2 * -(-P * L // 32)), dtype=torch.float32, device=dev)
     scores = torch.empty((Q, shortlist), dtype=torch.float32, device=dev)
     pos = torch.empty((Q, shortlist), dtype=torch.int32, device=dev)
-    kernels.ann_adc(*args, top_c, lut, scratch, scores, pos, shortlist)
+    kernels.ann_adc(*args, top_ci, top_c, lut, scores, pos, shortlist, mean_fill)
     return scores, pos
 
 
@@ -304,17 +318,19 @@ def rerank(tier, rvalid, q, sl_scores, sl_pos, k: int):
     return scores, pos
 
 
-def _adc_shortlist(centroids, codebooks, codes, lvalid, rowpos, q, nprobe: int, shortlist: int):
+def _adc_shortlist(centroids, codebooks, codes, lvalid, rowpos, q, nprobe: int, shortlist: int,
+                   fill=None, mean_fill: Optional[int] = None):
     """Scan the nprobe nearest lists' codes and return a top-``shortlist`` of
     (approximate score, row position) per query.  The centroid scores and
-    the LUT are products outside the scan, as in the JAX function."""
+    the LUT are products outside the scan, as in the JAX function; ``fill``
+    and ``mean_fill`` as :func:`adc_shortlist` takes them."""
     q_n = q.shape[0]
     _, _, m = codes.shape
     sub = codebooks.shape[2]
     csim = q @ centroids.T  # [Q, nlist]
     top_c, top_ci = top_k_auto(csim, nprobe)  # [Q, P]
     lut = torch.einsum("qms,mcs->qmc", q.reshape(q_n, m, sub), codebooks)  # [Q, m, 256]
-    return adc_shortlist(codes, lvalid, rowpos, top_ci, top_c, lut, shortlist)
+    return adc_shortlist(codes, lvalid, rowpos, top_ci, top_c, lut, shortlist, fill, mean_fill)
 
 
 def _spill_assign(lists2: np.ndarray, fill: np.ndarray, cap: int) -> np.ndarray:
@@ -426,7 +442,10 @@ class ANNIndex:
         self._codes: Optional[torch.Tensor] = None
         self._lvalid: Optional[torch.Tensor] = None
         self._rowpos: Optional[torch.Tensor] = None
-        self._list_counts = np.zeros((0,), np.int64)
+        # each list's high-water mark (slots ever handed out; tombstones do
+        # not lower it) on the host, and its int32 copy on the device (the
+        # ADC kernel's scan bound) and their mean, all set by _set_counts_locked
+        self._set_counts_locked(np.zeros((0,), np.int64))
         self._row_list = np.empty((0,), np.int32)  # position -> IVF list (-1 = none)
         self._row_slot = np.empty((0,), np.int32)
         # drift gauge state: running sums of appended/encoded normalized rows
@@ -449,6 +468,15 @@ class ANNIndex:
     # ------------------------------------------------------------------ config
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _set_counts_locked(self, counts: np.ndarray) -> None:
+        """Adopt ``counts`` as the lists' high-water marks: the host array and
+        the device fill (an H2D copy on the current stream, after whatever
+        scatter came before it there).  A search that took the old fill
+        keeps it: it misses only the slots appended after it started."""
+        self._list_counts = counts
+        self._fill = self._dev(counts.astype(np.int32))
+        self._mean_fill = -(-int(counts.sum()) // max(1, counts.size))
 
     def _nprobe_eff(self, nprobe: Optional[int] = None) -> int:
         p = int(nprobe) if nprobe else (self.nprobe or max(8, self.nlist // 64))
@@ -571,11 +599,12 @@ class ANNIndex:
         if not m_rows:
             return
         slots = np.empty((m_rows,), np.int32)
+        counts = self._list_counts.copy()
         for j in range(m_rows):
             li = int(lists[j])
-            slots[j] = self._list_counts[li]
-            self._list_counts[li] += 1
-        need = int(self._list_counts.max())
+            slots[j] = counts[li]
+            counts[li] += 1
+        need = int(counts.max())
         list_cap = self._codes.shape[1]
         if need > list_cap:
             self._codes, self._lvalid, self._rowpos = _grow_lists(
@@ -583,6 +612,7 @@ class ANNIndex:
         _scatter_codes(self._codes, self._lvalid, self._rowpos,
                        self._dev(lists.astype(np.int32)), self._dev(slots), codes,
                        self._dev(positions.astype(np.int32)))
+        self._set_counts_locked(counts)
         self._row_list[positions] = lists
         self._row_slot[positions] = slots
 
@@ -787,7 +817,7 @@ class ANNIndex:
             self.nlist = nlist_eff
             self._centroids, self._codebooks = centroids, codebooks
             self._codes, self._lvalid, self._rowpos = codes_d, lvalid_d, rowpos_d
-            self._list_counts = counts
+            self._set_counts_locked(counts)
             rl = np.full((cap,), -1, np.int32)
             rs = np.full((cap,), -1, np.int32)
             rl[:n] = all_lists
@@ -835,7 +865,7 @@ class ANNIndex:
         self._trained = False
         self._centroids = self._codebooks = None
         self._codes = self._lvalid = self._rowpos = None
-        self._list_counts = np.zeros((0,), np.int64)
+        self._set_counts_locked(np.zeros((0,), np.int64))
         self._row_list = np.empty((0,), np.int32)
         self._row_slot = np.empty((0,), np.int32)
         self._list_sums = np.zeros((0, self.dim), np.float32)
@@ -897,6 +927,8 @@ class ANNIndex:
                 self._codes,
                 self._lvalid,
                 self._rowpos,
+                self._fill,
+                self._mean_fill,
                 self._rerank,
                 self._rvalid,
                 self._snapshot_ids,
@@ -941,7 +973,7 @@ class ANNIndex:
 
         Allow-listed and untrained searches run the EXACT kernel over the
         rerank tier — identical results to ``VectorIndex``."""
-        (trained, centroids, codebooks, codes, lvalid, rowpos,
+        (trained, centroids, codebooks, codes, lvalid, rowpos, fill, mean_fill,
          tier, rvalid, ids, n_live, allowed_mask) = self._snapshot(allowed_ids)
         n_q = len(queries)
         if not ids or n_live == 0 or tier is None:
@@ -964,7 +996,7 @@ class ANNIndex:
             p_eff = self._nprobe_eff(nprobe)
             sl = min(max(self.rerank_depth, kb), p_eff * codes.shape[1])
             sl_scores, sl_pos = _adc_shortlist(
-                centroids, codebooks, codes, lvalid, rowpos, qd, p_eff, sl
+                centroids, codebooks, codes, lvalid, rowpos, qd, p_eff, sl, fill, mean_fill
             )
             scores, idx = rerank(tier, rvalid, qd, sl_scores, sl_pos, min(kb, sl))
         scores, idx = self._fetch(scores, idx)
@@ -1042,7 +1074,7 @@ class ANNIndex:
 
     def _exact_batch(self, queries: np.ndarray, k: int) -> list[list[tuple[int, float]]]:
         """Exact top-k over the rerank tier (ground truth for recall probes)."""
-        (_, _, _, _, _, _, tier, rvalid, ids, n_live, _) = self._snapshot(None)
+        (_, _, _, _, _, _, _, _, tier, rvalid, ids, n_live, _) = self._snapshot(None)
         if tier is None or not ids:
             return [[] for _ in range(len(queries))]
         k_eff = min(k, n_live)
@@ -1158,7 +1190,7 @@ class ANNIndex:
             self.nlist = nlist_eff
             self._centroids, self._codebooks = centroids, codebooks
             self._codes, self._lvalid, self._rowpos = codes_d, lvalid_d, rowpos_d
-            self._list_counts = counts
+            self._set_counts_locked(counts)
             rl[:n] = all_lists
             rs[:n] = row_slot
             self._row_list, self._row_slot = rl, rs

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from django_assistant_bot_tpu.storage import ann as jann
+from django_assistant_bot_tpu_torch import kernels
 from django_assistant_bot_tpu_torch.convert import ann_from_jax
 from django_assistant_bot_tpu_torch.storage import ann as pann
 from django_assistant_bot_tpu_torch.storage import knn as pknn
@@ -524,3 +525,198 @@ def test_refusals():
         pann.adc_shortlist(meta, None, None, None, None, None, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         pann.rerank(meta, None, None, None, None, 1)
+
+
+# ------------------------------------------------- the lists' fill (the scan bound)
+def _fill_holds(index):
+    """The device fill equals the host high-water marks, every slot at or
+    past a list's fill is invalid, and the mean the grid plan reads is
+    their mean rounded up."""
+    counts = index._list_counts
+    fill = index._fill
+    assert fill.dtype == torch.int32 and fill.device == index.device
+    np.testing.assert_array_equal(fill.numpy(), counts)
+    assert index._mean_fill == -(-int(counts.sum()) // max(1, counts.size))
+    if index._lvalid is not None:
+        lv = index._lvalid.numpy()
+        for li, f in enumerate(counts.tolist()):
+            assert not lv[li, f:].any(), li
+            assert f <= lv.shape[1]
+
+
+def _trained(n=600, dim=16, seed=31, **kw):
+    rows = pann.make_clustered(n, dim, n_clusters=8, seed=seed)
+    index = pann.ANNIndex(dim, nlist=8, m=4, seed=seed, device="cpu", **kw)
+    index.add(range(n), rows)
+    index.train()
+    return index, rows
+
+
+@pytest.mark.parametrize("op", ["train", "add", "overwrite", "remove", "growth", "compact",
+                                "retrain", "restore", "clear"])
+def test_device_fill_tracks_list_counts(op):
+    index, rows = _trained()
+    _fill_holds(index)
+    if op == "add":
+        index.add(range(600, 700), pann.make_clustered(100, 16, n_clusters=8, seed=32))
+    elif op == "overwrite":
+        index.add([3, 5], -rows[[3, 5]])
+    elif op == "remove":
+        before = index._list_counts.copy()
+        index.remove(range(0, 100, 3))  # below the compaction fraction
+        np.testing.assert_array_equal(index._list_counts, before)  # tombstones keep the mark
+    elif op == "growth":
+        cap = index._codes.shape[1]
+        near = np.repeat(rows[:1], 3 * cap, axis=0) + 1e-3 * np.arange(3 * cap)[:, None]
+        index.add(range(1000, 1000 + 3 * cap), near.astype(np.float32))
+        assert index._codes.shape[1] > cap
+    elif op == "compact":
+        index.remove(range(0, 300))
+        assert index.stats()["compactions"] >= 1
+    elif op == "retrain":
+        index.add(range(600, 800), pann.make_clustered(200, 16, n_clusters=8, seed=33))
+        index.train()
+    elif op == "restore":
+        index.remove(range(0, 50))
+        state = index.snapshot_state()
+        back = pann.ANNIndex(16, nlist=8, m=4, seed=31, device="cpu")
+        back.restore_state(state)
+        index = back
+    elif op == "clear":
+        index.clear()
+        assert index._fill.numel() == 0 and index._mean_fill == 0
+    _fill_holds(index)
+
+
+@pytest.mark.parametrize("removed", [0, 150])
+def test_device_fill_after_the_jax_bridge(removed):
+    """A JAX index bridged over (its own tombstones in the second case):
+    the port's fill is the JAX index's high-water marks."""
+    ix, rows = jax_index(2000, 32, seed=3)
+    if removed:
+        ix = jann.ANNIndex(32, seed=3)  # a fresh one: the shared index stays untouched
+        ix.add(range(2000), rows)
+        ix.train()
+        ix.remove(range(0, 2000, 2000 // removed)[:removed])
+        assert ix.stats()["tombstones"] == removed
+    port = ann_from_jax(jax_arrays(ix), "cpu")
+    np.testing.assert_array_equal(port._list_counts, np.asarray(ix._list_counts))
+    _fill_holds(port)
+
+
+def test_adc_shortlist_cpu_ignores_the_fill():
+    """The CPU path is the plain twin whatever fill it is handed."""
+    index, rows = _trained()
+    q = torch.from_numpy(pknn._normalize(rows[:8] + 0.01))
+    args = (index._centroids, index._codebooks, index._codes, index._lvalid, index._rowpos, q,
+            4, 64)
+    want = pann._adc_shortlist(*args)
+    for fill in (index._fill, torch.zeros_like(index._fill)):
+        got = pann._adc_shortlist(*args, fill, 0)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------- the ADC kernel's plan and tile walk
+_PROBE_CHUNK = 256  # probes a chunk of the kernel's tile walk (PCH in csrc/ann_adc.cu)
+
+
+def _tiles(fills, blocks, b):
+    """The (probe, first slot) tiles block ``b`` of ``blocks`` scores for one
+    query whose probes hold ``fills`` slots (each in [0, L]), in the order
+    of ``csrc/ann_adc.cu`` step 1: probes in chunks of ``_PROBE_CHUNK``,
+    ``ceil(fill / 32)`` tiles a probe numbered across the query, every
+    ``blocks``-th tile from ``b``.  A tile's lanes take its 32 slots and
+    skip those at or past the fill."""
+    out, g0 = [], 0
+    for pc0 in range(0, len(fills), _PROBE_CHUNK):
+        chunk = fills[pc0:pc0 + _PROBE_CHUNK]
+        pre = [0]
+        for f in chunk:
+            pre.append(pre[-1] + -(-f // kernels.ANN_ADC_TILE))
+        t = (b - g0) % blocks
+        while t < pre[-1]:
+            p = max(i for i in range(len(chunk)) if pre[i] <= t)
+            out.append((pc0 + p, (t - pre[p]) * kernels.ANN_ADC_TILE))
+            t += blocks
+        g0 += pre[-1]
+    return out
+
+
+def _walk(fills, blocks):
+    """Every slot the kernel scores for one query: (probe, slot) -> times."""
+    seen = {}
+    for b in range(blocks):
+        for p, s0 in _tiles(fills, blocks, b):
+            assert s0 < fills[p]  # a tile starts inside the fill
+            for s in range(s0, min(s0 + kernels.ANN_ADC_TILE, fills[p])):
+                seen[(p, s)] = seen.get((p, s), 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("P,L,blocks", [(1, 64, 1), (6, 100, 3), (64, 1024, 32),
+                                        (300, 96, 7), (513, 40, 40), (64, 33, 200),
+                                        (256, 64, 32), (257, 32, 5), (1024, 64, 64)])
+def test_ann_adc_tiles_cover_every_live_slot_once(P, L, blocks, seed):
+    """Over random fills (with lists empty and full), the blocks' tiles
+    score every slot below a probe's fill exactly once and none at or past
+    it, across probe chunks (256 probes, one past, four); the blocks'
+    shares differ by one tile a chunk at most."""
+    rng = np.random.default_rng(P * 7 + L + blocks + 1000 * seed)
+    fills = rng.integers(0, L + 1, size=P)
+    fills[rng.random(P) < 0.2] = 0
+    fills[rng.random(P) < 0.2] = L
+    fills = fills.tolist()
+    seen = _walk(fills, blocks)
+    want = {(p, s) for p, f in enumerate(fills) for s in range(f)}
+    assert set(seen) == want and set(seen.values()) <= {1}
+    shares = [len(_tiles(fills, blocks, b)) for b in range(blocks)]
+    chunks = -(-P // _PROBE_CHUNK)
+    assert max(shares) - min(shares) <= chunks
+
+
+@pytest.mark.parametrize("Q", [1, 8, 32, 64, 128])
+@pytest.mark.parametrize("P,L,m,S,mean_fill", [
+    (64, 30592, 96, 256, 489),  # phase 9's corpus, the default nprobe
+    (1024, 30592, 96, 256, 489),  # the recall sweep's widest nprobe
+    (256, 30592, 96, 2048, 489),
+    (6, 64, 200, 384, 64),  # past the LUT chunk
+    (8, 4096, 512, 2048, 4096),  # a 4,096-wide corpus at m 512
+    (16, 256, 6, 1, 0),  # empty lists
+    (4096, 128, 16, 2048, 100),
+])
+def test_ann_adc_plan_fits_the_card(Q, P, L, m, S, mean_fill):
+    """The plan's launch fits ``csrc/ann_adc.cu``'s limits: shared memory
+    within ``ANN_ADC_SMEM`` for the scan (LUT chunk + a 2 S + 512 key
+    buffer) and the merge (the blocks' S-key lists, the tail's, and the
+    first pairwise merge's outputs), a LUT chunk of m or a multiple of 16
+    up to 192, at least one block a query and one per 32
+    estimated tiles, and a scratch of Q blocks S keys (no [Q, P L] score
+    scratch)."""
+    plan = kernels.ann_adc_plan(Q, P, L, m, S, mean_fill, 132)
+    sel = (1 << (S - 1).bit_length()) * 8
+    assert plan.smem <= kernels.ANN_ADC_SMEM
+    assert plan.cap >= 2 * S + kernels.ANN_ADC_THREADS
+    assert plan.chunk == m or (plan.chunk % 16 == 0 and 16 <= plan.chunk < m
+                               and plan.chunk <= kernels.ANN_ADC_LUT_CHUNK)
+    assert plan.chunk * 1024 + plan.cap * 8 + sel <= plan.smem
+    merge_lists = plan.blocks + 1 + (plan.blocks + 2) // 2  # the blocks', the tail, the pairs'
+    assert merge_lists * S * 8 + sel <= plan.smem
+    tiles = P * -(-min(mean_fill, L) // kernels.ANN_ADC_TILE)
+    assert plan.blocks >= 1 and (plan.blocks == 1 or plan.blocks <= tiles // 32)
+    assert plan.cand_keys == Q * plan.blocks * S and plan.counters == Q
+
+
+def test_ann_adc_plan_at_the_main_path():
+    """At phase 9's search (Q 8, nprobe 64, S 256, m 96, mean fill 489) the
+    grid puts two blocks an SM over the card's 132 SMs, the whole LUT
+    staged once a block; the nprobe-1024 sweep's scratch is a few MB."""
+    plan = kernels.ann_adc_plan(8, 64, 30592, 96, 256, 489, 132)
+    assert plan.chunk == 96 and plan.blocks == 32
+    per_block = plan.smem + kernels.ANN_ADC_STATIC + 1024
+    assert 2 * per_block <= kernels.ANN_ADC_SM_SMEM
+    sweep = kernels.ann_adc_plan(128, 1024, 30592, 96, 256, 489, 132)
+    assert sweep.cand_keys * 8 + sweep.counters * 4 < 8 * 2 ** 20
+    # one wave of blocks: Q blocks <= 2 an SM
+    for Q in (1, 8, 32, 64, 128):
+        assert Q * kernels.ann_adc_plan(Q, 64, 30592, 96, 256, 489, 132).blocks <= 2 * 132

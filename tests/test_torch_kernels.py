@@ -1374,72 +1374,148 @@ def test_sample_kernel_refuses_what_it_does_not_take():
 def _adc_inputs(nlist, L, m, Q, P, seed, *, dead_list=True, dups=True):
     """IVF code blocks on the card with planted ties: list 1 repeats list 0
     (equal centroid scores make its slots tie with list 0's bit for bit),
-    duplicate code rows inside list 0, and one all-invalid list."""
+    duplicate code rows inside list 0, and one list all tombstones inside
+    its fill.  Each list's fill (its high-water mark) is drawn skewed, a
+    probed list empty (fill 0) and one full; validity is false past it.
+    Returns (codes, lvalid, rowpos, top_ci, top_c, lut, fill)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     codes = torch.randint(0, 256, (nlist, L, m), generator=g, device="cuda", dtype=torch.uint8)
     lvalid = torch.rand((nlist, L), generator=g, device="cuda") < 0.9
     rowpos = torch.randperm(nlist * L, generator=g, device="cuda").to(torch.int32).reshape(nlist, L)
+    skew = torch.rand((nlist,), generator=g, device="cuda") ** 3
+    fill = (skew * (L + 1)).to(torch.int32).clamp_(0, L)
+    fill[3], fill[4] = L, 0
     if dups:
         codes[0, L // 2:] = codes[0, : L - L // 2]
-        codes[1], lvalid[1] = codes[0], lvalid[0]
+        codes[1], lvalid[1], fill[1] = codes[0], lvalid[0], fill[0]
     if dead_list:
         lvalid[2] = False
+    lvalid &= torch.arange(L, device="cuda")[None, :] < fill[:, None]
     scores = torch.rand((Q, nlist), generator=g, device="cuda")
     scores[:, 1] = scores[:, 0]
-    scores[:, :3] += 2.0  # lists 0-2 probed by every query
+    scores[:, :5] += 2.0  # lists 0-4 probed by every query
     top_c, top_ci = torch.sort(scores, dim=1, descending=True, stable=True)
     top_c, top_ci = top_c[:, :P].contiguous(), top_ci[:, :P].to(torch.int32).contiguous()
     lut = torch.randn((Q, m, 256), generator=g, device="cuda")
-    return codes, lvalid, rowpos, top_ci, top_c, lut
+    return codes, lvalid, rowpos, top_ci, top_c, lut, fill
 
 
-@pytest.mark.parametrize("Q", [1, 8, 128])
+def _mean_fill(fill) -> int:
+    """The lists' mean fill rounded up, as ``ANNIndex`` hands it over."""
+    return -(-int(fill.sum()) // fill.numel())
+
+
+def _adc_case(args, S, fill=None):
+    """``ann_adc`` (one launch, its grid planned from the fill's mean)
+    against ``adc_shortlist_plain``: scores bit for bit, positions equal
+    (keys are unique: ties go lower flat index first)."""
+    *tensors, own_fill = args
+    fill = own_fill if fill is None else fill
+    n0 = kernels.LAUNCHES["ann_adc"]
+    got_s, got_p = adc_shortlist(*tensors, S, fill, _mean_fill(fill))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ann_adc"] == n0 + 1
+    want_s, want_p = adc_shortlist_plain(*tensors, S)
+    assert torch.equal(got_s, want_s), (S, (got_s - want_s).abs().max().item())
+    assert torch.equal(got_p, want_p), S
+    return got_s, got_p
+
+
+@pytest.mark.parametrize("Q", [1, 8, 32, 128])
 @pytest.mark.parametrize("m,L", [(96, 256), (12, 128), (6, 64), (200, 64), (48, 100)])
 def test_ann_adc_kernel_matches_plain(m, L, Q):
-    """``ann_adc`` against ``adc_shortlist_plain``: scores bit for bit and
-    the same row positions (keys are unique: ties go lower flat index
-    first), at m on each code-load width (16-byte, 4-byte, single bytes),
-    past the LUT's shared-memory chunk (m = 200), with ties and an
-    all-invalid list, at Q 1, 8 and 128."""
+    """``ann_adc`` against ``adc_shortlist_plain`` at m on each code-load
+    width (16-byte, 4-byte, single bytes), past the LUT's shared-memory
+    chunk (m = 200), with ties, skewed fills (a probed list empty), an
+    all-tombstone list, at Q 1, 8, 32 and 128; S 1, 256 and the most (the
+    tail of -inf where the probes hold fewer valid slots); the fill passed
+    as L (every slot scanned) gives the same result."""
     nlist, P = 16, 6
     args = _adc_inputs(nlist, L, m, Q, P, seed=m + L + Q)
+    full = torch.full_like(args[-1], L)
     for S in (1, 256, min(P * L, 2048)):
-        n0 = kernels.LAUNCHES["ann_adc"]
-        got_s, got_p = adc_shortlist(*args, S)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["ann_adc"] == n0 + 1
-        want_s, want_p = adc_shortlist_plain(*args, S)
-        assert torch.equal(got_s, want_s), (S, (got_s - want_s).abs().max().item())
-        assert torch.equal(got_p, want_p), S
+        got = _adc_case(args, S)
+        again = _adc_case(args, S, full)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("L,P,S,density", [(4096, 8, 256, 0.02), (8192, 32, 2048, 1.0),
                                             (30592, 64, 256, 0.016)])
 def test_ann_adc_kernel_long_scans(L, P, S, density):
-    """Scans of many groups: the select's candidate groups (those whose
-    maximum reaches the S-th largest group maximum) on sparse lists, as
-    k-means leaves them, and a candidate set past the shared-memory cache
-    (S 2,048 on full lists); bit-equal scores and the same positions."""
+    """Long probes: sparse lists, as k-means leaves them, and full lists at
+    S 2,048 (many compactions of a block's candidate buffer); bit-equal
+    scores and the same positions."""
     nlist, m, Q = 2 * P, 96, 8
-    codes, lvalid, rowpos, top_ci, top_c, lut = _adc_inputs(nlist, L, m, Q, P, seed=L + P)
+    args = list(_adc_inputs(nlist, L, m, Q, P, seed=L + P))
     g = torch.Generator(device="cuda").manual_seed(S)
-    lvalid &= torch.rand(lvalid.shape, generator=g, device="cuda") < density
-    args = (codes, lvalid, rowpos, top_ci, top_c, lut, S)
-    got_s, got_p = adc_shortlist(*args)
-    want_s, want_p = adc_shortlist_plain(*args)
-    assert torch.equal(got_s, want_s) and torch.equal(got_p, want_p)
+    args[1] &= torch.rand(args[1].shape, generator=g, device="cuda") < density
+    _adc_case(args, S)
+
+
+@pytest.mark.parametrize("Q", [1, 8, 32, 128])
+@pytest.mark.parametrize("S", [1, 256, 2048])
+def test_ann_adc_kernel_fills_tombstones_and_tail(Q, S):
+    """Skewed fills over 64 probes of 64 lists (L 1,024, m 96): lists empty,
+    short and full, tombstones inside every fill; at S 2,048 on the sparser
+    half the probes hold fewer valid slots than S, and the -inf tail takes
+    the lowest invalid flat indices (tombstones inside a fill, then the
+    slots past it).  top_ci and top_c are slices of wider tensors (a
+    top-k's views) and the LUT lies [m, Q, 256] in memory (an einsum's),
+    all read through their strides."""
+    nlist, L, m, P = 64, 1024, 96, 64
+    args = list(_adc_inputs(nlist, L, m, Q, P, seed=Q * 7 + S))
+    g = torch.Generator(device="cuda").manual_seed(Q + S)
+    args[1] &= torch.rand(args[1].shape, generator=g, device="cuda") < (0.02 if S == 2048 else 0.5)
+    for i, extra in ((3, 3), (4, 5)):  # top_ci and top_c as slices of wider tensors
+        wide = torch.zeros((Q, P + extra), dtype=args[i].dtype, device="cuda")
+        wide[:, :P] = args[i]
+        args[i] = wide[:, :P]
+    args[5] = args[5].transpose(0, 1).contiguous().transpose(0, 1)  # an einsum's [m, Q, 256]
+    got_s, _ = _adc_case(args, S)
+    if S == 2048:
+        assert bool(torch.isinf(got_s).any())
+
+
+def test_ann_adc_kernel_replays_in_a_cuda_graph():
+    """One launch captured into a CUDA graph (warmed up on the capture
+    stream, counted by ``record_graph_launches``): each replay finds the
+    ticket counters back at zero and writes the eager call's result bit for
+    bit, and each replay counts one launch."""
+    args = _adc_inputs(16, 512, 96, 8, 6, seed=11)
+    *tensors, fill = args
+    mean = _mean_fill(fill)
+    want_s, want_p = adc_shortlist(*tensors, 256, fill, mean)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        adc_shortlist(*tensors, 256, fill, mean)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with kernels.record_graph_launches() as rec, torch.cuda.graph(g, stream=side):
+        got_s, got_p = adc_shortlist(*tensors, 256, fill, mean)
+    assert rec.launches["ann_adc"] == 1
+    for _ in range(3):
+        got_s.zero_()
+        g.replay()
+        rec.replayed()
+        torch.cuda.synchronize()
+        assert torch.equal(got_s, want_s) and torch.equal(got_p, want_p)
 
 
 def test_ann_adc_kernel_all_invalid_and_refusals():
     """Every probed list invalid: the shortlist is all -inf, positions in
-    flat order; a shortlist past 2,048 or past P L raises."""
+    flat order; a shortlist past 2,048 or past P L raises, and so does a
+    call without the lists' fill or without its mean."""
     args = list(_adc_inputs(8, 64, 16, 2, 3, seed=5, dups=False))
     args[1] = torch.zeros_like(args[1])
-    got_s, got_p = adc_shortlist(*args, 100)
-    want_s, want_p = adc_shortlist_plain(*args, 100)
-    assert bool(torch.isinf(got_s).all()) and torch.equal(got_p, want_p)
+    got_s, _ = _adc_case(args, 100)
+    assert bool(torch.isinf(got_s).all())
     with pytest.raises(ValueError):
-        adc_shortlist(*args, 3 * 64 + 1)
+        adc_shortlist(*args[:6], 3 * 64 + 1, args[6], _mean_fill(args[6]))
+    with pytest.raises(ValueError, match="fill"):
+        adc_shortlist(*args[:6], 10)
+    with pytest.raises(ValueError, match="fill"):
+        adc_shortlist(*args[:6], 10, args[6])
 
 
 def _rerank_case(N, D, Q, S, seed):
